@@ -1,0 +1,25 @@
+from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import (
+    bsr_spmm_pallas,
+    bsr_spmm_pallas_plan,
+)
+from spmm_denseblock_tpu_torch.ops.dispatch import PLANNERS, spmm_plan
+from spmm_denseblock_tpu_torch.ops.plan import Plan, sum_plan
+from spmm_denseblock_tpu_torch.ops.reference import (
+    CHECK_EPS,
+    assert_allclose,
+    spmm_dense_torch,
+    spmm_scipy,
+)
+
+__all__ = [
+    "bsr_spmm_pallas",
+    "bsr_spmm_pallas_plan",
+    "PLANNERS",
+    "spmm_plan",
+    "Plan",
+    "sum_plan",
+    "CHECK_EPS",
+    "assert_allclose",
+    "spmm_dense_torch",
+    "spmm_scipy",
+]

@@ -1,0 +1,556 @@
+"""BSR SpMM plan on hand-written CUDA kernels (twin of
+``spmm_denseblock_tpu/ops/bsr_spmm_pallas.py``; the module keeps that
+name so the pair is easy to find, but its kernels are CUDA C++ for
+Hopper, in ``csrc/bsr_spmm.cu``).
+
+The plan packs the blocks on the host once, with the JAX package's
+packers ported verbatim (bit-equal outputs), and the apply runs one of
+two kernels on the packed arrays:
+
+- K1, flat grouped gather (``spmm_flat``), replacing ``_pallas_spmm``;
+- K2, depth-sorted row groups (``spmm_sorted``), replacing
+  ``_pallas_spmm_rowgroup_sorted``.
+
+Beside each kernel sits its plain PyTorch version (``spmm_flat_plain``,
+``spmm_sorted_plain``): gather, ``bmm`` in f32 and ``index_add_`` over
+the same packed arrays. A wrapper runs the plain version only for CPU
+tensors; for CUDA tensors it launches the kernel or raises.
+
+Layout policy: the occupancy gate of the JAX plan. The TPU's VMEM fit
+checks, SMEM chunking and environment knobs are not carried over; their
+arguments are.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from spmm_denseblock_tpu_torch.formats.bsr import BSR
+from spmm_denseblock_tpu_torch.ops import _kernels
+from spmm_denseblock_tpu_torch.ops.plan import Plan
+
+# -- host packing (verbatim ports, bit-equal to the JAX package) ----------
+
+
+def _ensure_covering(bsr: BSR) -> BSR:
+    """Insert an explicit zero block in every empty block-row, so every
+    output tile has at least one slot and is written."""
+    rows = np.asarray(bsr.block_rows[: bsr.nnzb])
+    present = np.zeros(bsr.n_block_rows, dtype=bool)
+    present[rows] = True
+    missing = np.nonzero(~present)[0]
+    if missing.size == 0:
+        return bsr
+    return BSR.from_parts(
+        np.concatenate([rows, missing.astype(np.int32)]),
+        np.concatenate(
+            [np.asarray(bsr.block_cols[: bsr.nnzb]), np.zeros(missing.size, np.int32)]
+        ),
+        np.concatenate(
+            [
+                np.asarray(bsr.blocks[: bsr.nnzb]),
+                np.zeros((missing.size, bsr.b, bsr.b), np.asarray(bsr.blocks).dtype),
+            ]
+        ),
+        bsr.shape,
+        bsr.block_size,
+    )
+
+
+def per_buffer_col_fill(cols2d, real_mask, fallback=None):
+    """Pad-slot col fill: a pad slot at (step j, buffer g) repeats buffer
+    g's most recent real col (on the TPU the repeated index skips the
+    B-tile copy; here it only keeps the arrays equal to the JAX ones).
+    Leading pads take `fallback` when given, else keep their col.
+    cols2d: (T, G); real_mask: (T, G) bool."""
+    step_idx = np.where(real_mask, np.arange(cols2d.shape[0])[:, None], -1)
+    src = np.maximum.accumulate(step_idx, axis=0)
+    filled = np.take_along_axis(cols2d, np.maximum(src, 0), axis=0)
+    lead = cols2d if fallback is None else fallback
+    return np.where(src >= 0, filled, lead)
+
+
+def _pack_groups(rows, cols, blocks, group: int):
+    """Group-pad a row-sorted flat block list: each block-row's blocks are
+    padded with zero blocks to a multiple of `group`.
+
+    Returns (step_rows (n_steps,), slot_cols (n_steps*group,),
+    blocks_padded (n_steps*group, b, b))."""
+    nnzb, b, _ = blocks.shape
+    uniq, first = np.unique(rows, return_index=True)  # rows sorted
+    counts = np.diff(np.append(first, nnzb))
+    steps_per_row = -(-counts // group)
+    n_steps = int(steps_per_row.sum())
+    slot_base = np.concatenate([[0], np.cumsum(steps_per_row * group)[:-1]])
+    rank = np.arange(nnzb) - np.repeat(first, counts)
+    dest = np.repeat(slot_base, counts) + rank
+
+    n_slots = n_steps * group
+    blocks_pad = np.zeros((n_slots, b, b), blocks.dtype)
+    blocks_pad[dest] = blocks
+    cols_pad = np.full(n_slots, -1, np.int64)
+    cols_pad[dest] = cols
+    # fallback fill: the row's last real block (flat forward fill)
+    ffill = np.maximum.accumulate(
+        np.where(cols_pad >= 0, np.arange(n_slots), 0)
+    )
+    flat_fill = cols_pad[ffill]
+    if group > 1:
+        c2 = cols_pad.reshape(n_steps, group)
+        cols_pad = per_buffer_col_fill(
+            c2, c2 >= 0, flat_fill.reshape(n_steps, group)
+        ).reshape(-1)
+    else:
+        cols_pad = flat_fill
+    cols_pad = cols_pad.astype(np.int32)
+    step_rows = np.repeat(uniq, steps_per_row).astype(np.int32)
+    return step_rows, cols_pad, blocks_pad
+
+
+def _pack_rowgroups_sorted(rows, cols, blocks, gh: int, R: int, W: int):
+    """Depth-sorted row-group packing. `rows` must cover every block-row.
+
+    Within each window of W consecutive block-rows, rows are ordered by
+    ascending block count (stable) and grouped R at a time; a group's
+    step count is its deepest lane's ceil(count / gh). Each lane carries
+    its row's position inside the window (pos = row - window*W).
+
+    Returns the five arrays of the JAX packer, (win_ids (T,) int32,
+    pos (T*R,) int32, slot_cols (T*G,) int32, blocks_padded (T*G, b, b),
+    n_windows), and two more that the CUDA kernel needs and the packed
+    arrays cannot express: lane_valid (n_groups*R,) bool, False for the
+    lanes that pad a window to a multiple of R (their pos is 0, the same
+    as a real row's), and steps_per_group (n_groups,) int64."""
+    assert W % R == 0, (W, R)
+    nnzb, b, _ = blocks.shape
+    order0 = np.argsort(rows, kind="stable")
+    rows_s = np.asarray(rows)[order0]
+    uniq, first = np.unique(rows_s, return_index=True)
+    assert uniq.size and uniq[0] == 0 and uniq[-1] == uniq.size - 1, (
+        "_pack_rowgroups_sorted requires a covering rows list"
+    )
+    counts = np.diff(np.append(first, rows_s.size))
+    nbr = uniq.size
+    n_win = -(-nbr // W)
+
+    lane_rows = []  # (n_groups_tot, R) row ids, -1 = absent lane
+    for w in range(n_win):
+        lo, hi = w * W, min((w + 1) * W, nbr)
+        ids = lo + np.argsort(counts[lo:hi], kind="stable")
+        padn = (-ids.size) % R
+        if padn:
+            ids = np.concatenate([ids, np.full(padn, -1, np.int64)])
+        lane_rows.append(ids.reshape(-1, R))
+    lane_rows = np.concatenate(lane_rows)  # (n_groups, R)
+    cnt_g = np.where(lane_rows >= 0, counts[np.maximum(lane_rows, 0)], 0)
+    steps_per_group = np.maximum(
+        (-(-cnt_g // gh)).max(axis=1), 1
+    ).astype(np.int64)
+    T = int(steps_per_group.sum())
+    G = R * gh
+    win_of_group = lane_rows.max(axis=1) // W
+    pos_g = np.where(
+        lane_rows >= 0, lane_rows - win_of_group[:, None] * W, 0
+    ).astype(np.int32)
+    step_base = np.concatenate([[0], np.cumsum(steps_per_group)[:-1]])
+
+    grp_of_row = np.empty(nbr, np.int64)
+    lane_of_row = np.empty(nbr, np.int64)
+    gi, li = np.nonzero(lane_rows >= 0)
+    grp_of_row[lane_rows[gi, li]] = gi
+    lane_of_row[lane_rows[gi, li]] = li
+
+    rank = np.arange(rows_s.size) - np.repeat(first, counts)
+    g_of = grp_of_row[rows_s]
+    dest_s = (
+        (step_base[g_of] + rank // gh) * G
+        + lane_of_row[rows_s] * gh
+        + rank % gh
+    )
+    dest = np.empty(rows_s.size, np.int64)
+    dest[order0] = dest_s
+    blocks_pad = np.zeros((T * G, b, b), np.asarray(blocks).dtype)
+    blocks_pad[dest] = np.asarray(blocks)
+    cols_pad = np.full(T * G, -1, np.int64)
+    cols_pad[dest] = np.asarray(cols)
+    c2 = cols_pad.reshape(T, G)
+    cols_filled = per_buffer_col_fill(c2, c2 >= 0, np.zeros_like(c2))
+    win_ids = np.repeat(win_of_group, steps_per_group).astype(np.int32)
+    pos = np.repeat(
+        pos_g, steps_per_group, axis=0
+    ).reshape(-1).astype(np.int32)
+    lane_valid = (lane_rows >= 0).reshape(-1)
+    return (win_ids, pos, cols_filled.reshape(-1).astype(np.int32),
+            blocks_pad, n_win, lane_valid, steps_per_group)
+
+
+_ROWGROUP_GH_CAP = 16
+
+
+def _auto_group(nnzb: int, n_rows_with_blocks: int) -> int:
+    """Blocks per step for the flat layout: larger when rows are
+    block-dense, small when they are sparse (pads cost G/2 per row)."""
+    avg = nnzb / max(1, n_rows_with_blocks)
+    if avg < 4:
+        return 1
+    if avg < 8:
+        return 2
+    if avg < 16:
+        return 4
+    return 8
+
+
+def _auto_group_pow2(nnzb: int, n_rows_with_blocks: int, cap: int = 32) -> int:
+    """Smallest power of two >= the average row occupancy, capped (the
+    JAX plan's group rule for 2-byte operands)."""
+    avg = nnzb / max(1, n_rows_with_blocks)
+    g = 1
+    while g < avg and g < cap:
+        g *= 2
+    return g
+
+
+def _depth_sort_policy(itemsize: int, group=None):
+    """(R, gh, W) of the depth-sorted layout: R lanes per group, gh slots
+    per lane and step, windows of W block-rows. The values are the JAX
+    plan's, so the packed arrays match it."""
+    if itemsize == 1:
+        R, gh, W = 8, 8, 32
+    else:
+        R, gh, W = 16, 4, 128
+    if group not in (None, "auto"):
+        gh = int(group)
+    return R, gh, W
+
+
+# -- plain PyTorch versions of the kernels --------------------------------
+
+# Elements of gathered operand (and of products) per plain-version chunk.
+_PLAIN_CHUNK_ELEMS = 1 << 26
+
+
+def _gathered_products(slot_cols, blocks, dense_b, s0, s1):
+    """f32 products blocks[s0:s1] @ dense_b[slot_cols[s0:s1]], (n, b, F)."""
+    cols = slot_cols[s0:s1].long()
+    return torch.bmm(blocks[s0:s1].float(), dense_b[cols].float())
+
+
+def spmm_flat_plain(step_rows, slot_cols, blocks, dense, n_block_rows: int,
+                    group: int) -> torch.Tensor:
+    """Plain version of K1 on the flat layout: step j's `group` slot
+    products are summed and added into block-row step_rows[j]. Returns
+    (n_block_rows*b, F) f32. Chunked over steps to bound the gathered
+    operand's memory."""
+    b = blocks.shape[1]
+    F = dense.shape[1]
+    dense_b = dense.reshape(-1, b, F)
+    out = torch.zeros(n_block_rows, b, F, dtype=torch.float32, device=dense.device)
+    n_steps = step_rows.shape[0]
+    chunk = max(1, _PLAIN_CHUNK_ELEMS // max(1, group * b * F))
+    for j0 in range(0, n_steps, chunk):
+        j1 = min(n_steps, j0 + chunk)
+        prod = _gathered_products(slot_cols, blocks, dense_b, j0 * group, j1 * group)
+        step_sums = prod.reshape(j1 - j0, group, b, F).sum(dim=1)
+        out.index_add_(0, step_rows[j0:j1].long(), step_sums)
+    return out.reshape(n_block_rows * b, F)
+
+
+def spmm_sorted_plain(win_ids, pos, slot_cols, blocks, dense, lane_valid,
+                      group_ptr, n_block_rows: int, R: int, gh: int,
+                      window: int) -> torch.Tensor:
+    """Plain version of K2 on the depth-sorted layout: lane r of step j
+    sums its gh slot products into block-row win_ids[j]*window +
+    pos[j*R + r]; absent lanes add nothing. Returns (n_block_rows*b, F)
+    f32. Chunked over steps."""
+    b = blocks.shape[1]
+    F = dense.shape[1]
+    G = R * gh
+    dense_b = dense.reshape(-1, b, F)
+    n_steps = win_ids.shape[0]
+    n_groups = group_ptr.shape[0] - 1
+    step_group = torch.repeat_interleave(
+        torch.arange(n_groups, device=dense.device), group_ptr.diff()
+    )
+    valid = lane_valid.reshape(n_groups, R)[step_group]  # (T, R)
+    dest = win_ids.long()[:, None] * window + pos.long().reshape(n_steps, R)
+    out = torch.zeros(n_block_rows, b, F, dtype=torch.float32, device=dense.device)
+    chunk = max(1, _PLAIN_CHUNK_ELEMS // max(1, G * b * F))
+    for j0 in range(0, n_steps, chunk):
+        j1 = min(n_steps, j0 + chunk)
+        prod = _gathered_products(slot_cols, blocks, dense_b, j0 * G, j1 * G)
+        lane_sums = prod.reshape(j1 - j0, R, gh, b, F).sum(dim=2)
+        m = valid[j0:j1]
+        out.index_add_(0, dest[j0:j1][m], lane_sums[m])
+    return out.reshape(n_block_rows * b, F)
+
+
+# -- kernel wrappers --------------------------------------------------------
+
+SUPPORTED_BLOCK_SIZES = (16, 32, 64, 128)
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _device_of(*tensors) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"operands on different devices: {dev} and {t.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _check_cuda_operands(blocks, dense, index_arrays):
+    """What the CUDA kernels take: b in SUPPORTED_BLOCK_SIZES, blocks and
+    dense of one dtype (f32 or bf16), dense rows a multiple of b, all
+    contiguous, index arrays of the expected integer types."""
+    if blocks.dim() != 3 or blocks.shape[1] != blocks.shape[2]:
+        raise ValueError(f"blocks must be (S, b, b), got {tuple(blocks.shape)}")
+    b = blocks.shape[1]
+    if b not in SUPPORTED_BLOCK_SIZES:
+        raise ValueError(
+            f"block size {b} not supported by the CUDA kernels "
+            f"(supported: {SUPPORTED_BLOCK_SIZES})"
+        )
+    if blocks.dtype not in _KERNEL_DTYPES or dense.dtype != blocks.dtype:
+        raise TypeError(
+            f"blocks {blocks.dtype} and dense {dense.dtype} must share one "
+            f"dtype of {_KERNEL_DTYPES}"
+        )
+    if dense.dim() != 2 or dense.shape[0] % b:
+        raise ValueError(
+            f"dense must be (nbc*b, F) with b={b}, got {tuple(dense.shape)}"
+        )
+    for name, (t, dtype) in index_arrays.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    for t in (blocks, dense, *(t for t, _ in index_arrays.values())):
+        if not t.is_contiguous():
+            raise ValueError("CUDA kernel operands must be contiguous")
+
+
+def spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense,
+              group: int) -> torch.Tensor:
+    """K1: C (n_block_rows*b, F) f32 on the flat grouped layout.
+
+    step_ptr (n_block_rows+1,) int64 points each block-row at its steps
+    (derived from the sorted step_rows at plan time). CPU tensors run
+    spmm_flat_plain; CUDA tensors run the CUDA kernel."""
+    dev = _device_of(step_rows, step_ptr, slot_cols, blocks, dense)
+    n_block_rows = step_ptr.shape[0] - 1
+    if dev.type == "cpu":
+        return spmm_flat_plain(step_rows, slot_cols, blocks, dense,
+                               n_block_rows, group)
+    _check_cuda_operands(blocks, dense, {
+        "step_ptr": (step_ptr, torch.int64),
+        "slot_cols": (slot_cols, torch.int32),
+    })
+    if slot_cols.shape[0] != blocks.shape[0] or blocks.shape[0] % group:
+        raise ValueError("slot_cols and blocks must hold n_steps*group slots")
+    b = blocks.shape[1]
+    F = dense.shape[1]
+    out = torch.empty(n_block_rows * b, F, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _kernels.bsr_spmm_flat(
+            step_ptr.data_ptr(), slot_cols.data_ptr(), blocks.data_ptr(),
+            dense.data_ptr(), out.data_ptr(), n_block_rows, F, group, b,
+            int(blocks.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    return out
+
+
+def spmm_sorted(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr,
+                n_block_rows: int, R: int, gh: int, window: int) -> torch.Tensor:
+    """K2: C (n_block_rows*b, F) f32 on the depth-sorted layout.
+
+    lane_valid (n_groups*R,) bool and group_ptr (n_groups+1,) int64 come
+    from the port's packer. CPU tensors run spmm_sorted_plain; CUDA
+    tensors run the CUDA kernel."""
+    dev = _device_of(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr)
+    if dev.type == "cpu":
+        return spmm_sorted_plain(win_ids, pos, slot_cols, blocks, dense,
+                                 lane_valid, group_ptr, n_block_rows, R, gh,
+                                 window)
+    _check_cuda_operands(blocks, dense, {
+        "win_ids": (win_ids, torch.int32),
+        "pos": (pos, torch.int32),
+        "slot_cols": (slot_cols, torch.int32),
+        "lane_valid": (lane_valid, torch.bool),
+        "group_ptr": (group_ptr, torch.int64),
+    })
+    n_lanes = lane_valid.shape[0]
+    if n_lanes != (group_ptr.shape[0] - 1) * R:
+        raise ValueError("lane_valid must hold n_groups*R lanes")
+    if slot_cols.shape[0] != blocks.shape[0] or blocks.shape[0] != win_ids.shape[0] * R * gh:
+        raise ValueError("slot_cols and blocks must hold n_steps*R*gh slots")
+    b = blocks.shape[1]
+    F = dense.shape[1]
+    out = torch.empty(n_block_rows * b, F, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _kernels.bsr_spmm_sorted(
+            group_ptr.data_ptr(), win_ids.data_ptr(), pos.data_ptr(),
+            lane_valid.data_ptr(), slot_cols.data_ptr(), blocks.data_ptr(),
+            dense.data_ptr(), out.data_ptr(), n_lanes, F, R, gh, window, b,
+            int(blocks.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    return out
+
+
+# -- the plan ---------------------------------------------------------------
+
+
+def _plan_dtype(dtype) -> Optional[torch.dtype]:
+    """None (f32 operands), torch.float32 or torch.bfloat16; int8 and
+    anything else raise."""
+    if dtype is None:
+        return None
+    name = str(getattr(dtype, "name", dtype)).replace("torch.", "")
+    if name == "int8":
+        raise NotImplementedError(
+            "int8 BSR serving is not ported yet (ROADMAP queue 1 item 6, "
+            "kernels K6-K9)"
+        )
+    if name == "float32":
+        return torch.float32
+    if name == "bfloat16":
+        return torch.bfloat16
+    raise ValueError(f"unsupported dtype {dtype!r} (None, float32 or bfloat16)")
+
+
+def bsr_spmm_pallas_plan(
+    bsr: BSR,
+    dtype=None,
+    group: Optional[int] = None,
+    precision: Optional[str] = None,
+    grad: bool = True,
+    resident: Optional[bool] = None,
+    depth_sort: Optional[bool] = None,
+    device="cpu",
+) -> Plan:
+    """Host layout prep once -> Plan computing C = A @ dense in f32.
+
+    dtype: None or float32 (exact f32 products) or bfloat16 (bf16 blocks
+    and operand, f32 sum). group: slots per step (flat layout) or per
+    lane (sorted layout); None picks the JAX plan's rule. depth_sort:
+    None follows the occupancy gate; True/False force it where the dtype
+    allows the sorted layout. device: where the packed arrays live; the
+    plan runs its kernels there (``plan.to(device)`` moves it).
+
+    Layout (the JAX plan's gate without its VMEM fit checks): bf16 takes
+    the depth-sorted layout (K2) when depth_sort holds, which by default
+    is at >= 2 real blocks per block-row; f32 takes it at >= 8 and
+    depth_sort; everything else takes the flat layout (K1).
+
+    Known divergence: for bf16 with depth_sort=False the JAX plan packs
+    the consecutive row-group layout (its K4 kernel, not ported yet);
+    this port packs the flat layout (K1). Both compute the same C.
+
+    Not ported yet, each raising NotImplementedError: grad=True (the
+    backward plan), precision="high" and other precision overrides
+    (bf16x3, K3), resident=True (K5) and int8."""
+    if grad:
+        raise NotImplementedError(
+            "grad=True is not ported yet (ROADMAP queue 1 item 1: grad_plan "
+            "with the K1/K2 backward); pass grad=False for serving"
+        )
+    dtype = _plan_dtype(dtype)
+    if precision is not None and not (
+        precision == "highest" and dtype in (None, torch.float32)
+    ):
+        raise NotImplementedError(
+            f"precision={precision!r} is not ported yet (ROADMAP queue 1 "
+            "item 4: K3, the bf16x3 product); f32 runs exact products"
+        )
+    if resident:
+        raise NotImplementedError(
+            "resident=True is not ported yet (ROADMAP queue 1 item 5: K5, "
+            "the resident-operand kernel)"
+        )
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    covered = _ensure_covering(bsr)
+    b = covered.b
+    n_rows, n_cols = bsr.shape
+    nbr = covered.n_block_rows
+    k_needed = covered.n_block_cols * b
+
+    rows_h = np.asarray(covered.block_rows[: covered.nnzb])
+    cols_h = np.asarray(covered.block_cols[: covered.nnzb])
+    blocks_h = np.asarray(covered.blocks[: covered.nnzb])
+    avg_real = bsr.nnzb / max(nbr, 1)
+    # 2-byte operands: the JAX plan's resident regime (sorted or
+    # consecutive row groups, power-of-two groups)
+    two_byte = itemsize == 2 and resident is not False
+    group_was_auto = group is None
+    if group is None:
+        n_occupied = np.unique(rows_h).size
+        group = (_auto_group_pow2 if two_byte else _auto_group)(
+            covered.nnzb, n_occupied
+        )
+    if depth_sort is None:
+        depth_sort = avg_real >= 2.0
+    wide_sorted = itemsize == 4 and resident is not False and avg_real >= 8.0
+
+    if depth_sort and (two_byte or wide_sorted):
+        R, gh, W = _depth_sort_policy(
+            itemsize, None if group_was_auto else group
+        )
+        (win_ids, pos, slot_cols, blocks_pad, _, lane_valid,
+         steps_per_group) = _pack_rowgroups_sorted(
+            rows_h, cols_h, blocks_h, gh, R, W
+        )
+        group_ptr = np.concatenate([[0], np.cumsum(steps_per_group)])
+        arrays = (win_ids, slot_cols, blocks_pad, pos, lane_valid, group_ptr)
+        statics = ("sorted", nbr, n_rows, n_cols, k_needed, (R, gh, W))
+    else:
+        if two_byte and group_was_auto:
+            group = min(group, _ROWGROUP_GH_CAP)
+        step_rows, slot_cols, blocks_pad = _pack_groups(
+            rows_h, cols_h, blocks_h, group
+        )
+        step_ptr = np.searchsorted(step_rows, np.arange(nbr + 1)).astype(np.int64)
+        arrays = (step_rows, slot_cols, blocks_pad, step_ptr)
+        statics = ("flat", nbr, n_rows, n_cols, k_needed, group)
+    arrays = list(arrays)
+    blocks_t = torch.as_tensor(arrays[2])
+    arrays[2] = blocks_t.to(dtype) if dtype is not None else blocks_t
+    return Plan(arrays, _pallas_apply, statics, device=device)
+
+
+def _pallas_apply(statics, arrays, dense, plain: bool = False):
+    layout, nbr, n_rows, n_cols, k_needed, geom = statics
+    blocks = arrays[2]
+    dense = torch.as_tensor(dense, device=blocks.device)
+    if dense.dim() != 2 or dense.shape[0] != n_cols:
+        raise ValueError(f"dense must be ({n_cols}, F), got {tuple(dense.shape)}")
+    dense = dense.to(blocks.dtype)
+    if k_needed > n_cols:  # zero rows up to the block grid
+        dense = torch.nn.functional.pad(dense, (0, 0, 0, k_needed - n_cols))
+    dense = dense.contiguous()
+    if layout == "sorted":
+        win_ids, slot_cols, _, pos, lane_valid, group_ptr = arrays
+        run = spmm_sorted_plain if plain else spmm_sorted
+        out = run(win_ids, pos, slot_cols, blocks, dense, lane_valid,
+                  group_ptr, nbr, *geom)
+    elif plain:
+        step_rows, slot_cols, _, _ = arrays
+        out = spmm_flat_plain(step_rows, slot_cols, blocks, dense, nbr, geom)
+    else:
+        step_rows, slot_cols, _, step_ptr = arrays
+        out = spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense, geom)
+    return out[:n_rows]
+
+
+def plain_apply(plan: Plan, dense) -> torch.Tensor:
+    """The plan's answer through the kernels' plain PyTorch versions, on
+    the plan's device: the reference a kernel is held against on the
+    card."""
+    return _pallas_apply(plan.statics, plan.arrays, dense, plain=True)
+
+
+def bsr_spmm_pallas(bsr: BSR, dense, **kw) -> torch.Tensor:
+    return bsr_spmm_pallas_plan(bsr, **kw)(dense)

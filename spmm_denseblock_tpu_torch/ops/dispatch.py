@@ -1,0 +1,111 @@
+"""The user-facing ``spmm_plan`` entry point (twin of
+``spmm_denseblock_tpu/ops/dispatch.py``, for the tiers ported so far).
+
+    plan = spmm_plan(matrix, impl="bsr_pallas", grad=False, device="cuda")
+    C = plan(B)
+
+The impl names are the JAX package's, so one call line works on both.
+``impl="auto"`` reproduces the JAX router's BSR branch: CSR input, the
+wide/narrow operand split at feat_dim 256, b >= 64, the 4 GiB byte
+budget and the fill-amplification guard at 32x. Those constants were
+measured on a TPU v5e and are copied as they are; where the JAX router
+would pick a tier this port does not have yet, "auto" raises
+NotImplementedError naming it.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import numpy as np
+import torch
+
+from spmm_denseblock_tpu_torch.convert.csr2bsr import csr_to_bsr
+from spmm_denseblock_tpu_torch.formats.bsr import BSR
+from spmm_denseblock_tpu_torch.formats.csr import CSR
+from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import bsr_spmm_pallas_plan
+from spmm_denseblock_tpu_torch.ops.plan import Plan
+from spmm_denseblock_tpu_torch.ops.reference import spmm_dense_torch
+
+# where each tier the JAX router can pick stands in the port's ROADMAP
+_NOT_PORTED = {
+    "bsr_xla": "ROADMAP queue 1 item 2",
+    "csr_ell": "ROADMAP queue 1 item 9",
+    "hybrid": "ROADMAP queue 1 item 10",
+    "repack_bsr": "ROADMAP queue 1 item 10",
+}
+
+
+def _dense_apply(statics, arrays, dense):
+    (a,) = arrays
+    return spmm_dense_torch(a, torch.as_tensor(dense, device=a.device))
+
+
+def _dense_plan(mat, device="cpu", **kw):
+    return Plan((mat.to_dense(),), _dense_apply, device=device)
+
+
+PLANNERS: Dict[str, Callable] = {
+    "bsr_pallas": lambda m, **kw: bsr_spmm_pallas_plan(m, **kw),
+    "dense": _dense_plan,
+}
+
+
+def _calculate_nnzb(csr: CSR, b: int) -> int:
+    rows = csr.row_ids().astype(np.int64)
+    cols = np.asarray(csr.indices, dtype=np.int64)
+    nbc = -(-csr.shape[1] // b)
+    return int(np.unique((rows // b) * nbc + cols // b).shape[0])
+
+
+def _prefer_repack128(bsr: BSR) -> bool:
+    """The JAX router's small-b score: repack to 128-wide supertiles when
+    the supertile path's modelled bytes beat the direct path's."""
+    b = bsr.block_size
+    g = 128 // b
+    srow = np.asarray(bsr.block_rows[: bsr.nnzb], np.int64) // g
+    scol = np.asarray(bsr.block_cols[: bsr.nnzb], np.int64) // g
+    n_sup = np.unique(srow * (-(-bsr.n_block_cols // g)) + scol).size
+    direct_cost = bsr.nnzb * b * 2 / min(230.0, 30.0 * b)
+    repack_cost = n_sup * 128 / 420.0
+    return repack_cost < direct_cost
+
+
+def _auto_impl(matrix, block_size: int, feat_dim, budget: int) -> str:
+    """The JAX router's choice for a CSR or BSR input."""
+    if isinstance(matrix, BSR) and matrix.block_size < 32 and _prefer_repack128(matrix):
+        return "repack_bsr"
+    b_eff = matrix.block_size if isinstance(matrix, BSR) else block_size
+    wide = feat_dim is None or feat_dim >= 256
+    impl = "bsr_pallas" if (wide and b_eff >= 64) else "bsr_xla"
+    if isinstance(matrix, CSR):
+        nnzb = _calculate_nnzb(matrix, block_size)
+        block_bytes = nnzb * block_size * block_size * 4
+        fill_amp = nnzb * block_size * block_size / max(matrix.nnz, 1)
+        if fill_amp > 32 and block_bytes <= budget:
+            impl = "csr_ell"
+        elif block_bytes > budget:
+            impl = "hybrid"  # or csr_ell, by the JAX threshold scorer
+    return impl
+
+
+def spmm_plan(matrix, impl: str = "auto", block_size: int = 128,
+              feat_dim=None, **kw) -> Plan:
+    """Build an SpMM executor for `matrix` (CSR or BSR).
+
+    impl: "bsr_pallas", "dense" or "auto". feat_dim steers "auto" (None
+    assumes a wide operand). Other keyword arguments go to the planner,
+    e.g. grad=False, dtype=torch.bfloat16, device="cuda"."""
+    budget = kw.pop("bsr_bytes_budget", 4 << 30)
+    if impl == "auto":
+        impl = _auto_impl(matrix, block_size, feat_dim, budget)
+        if impl in _NOT_PORTED:
+            raise NotImplementedError(
+                f"impl='auto' picks {impl!r} for this input, which is not "
+                f"ported yet ({_NOT_PORTED[impl]})"
+            )
+    if impl not in PLANNERS:
+        raise KeyError(f"unknown impl {impl!r}; have {sorted(PLANNERS)}")
+    if impl.startswith("bsr") and isinstance(matrix, CSR):
+        matrix = csr_to_bsr(matrix, block_size)
+    return PLANNERS[impl](matrix, **kw)

@@ -1,0 +1,276 @@
+"""The port's BSR SpMM plan against the JAX package: the host packers are
+bit-equal, the plain versions of K1 (flat grouped gather) and K2
+(depth-sorted row groups) match the JAX Pallas kernels run in interpret
+mode on the same packed arrays, the plan matches the scipy oracle, and
+the layout policy and the out-of-scope arguments behave as documented.
+
+Tolerances: plain version vs Pallas kernel on the same arrays, 1e-5
+relative to max |want| for f32 and bf16 operands (bf16 x bf16 products
+are exact in f32, so only the order of the f32 sums differs). Plan vs
+scipy: the reference's 1e-4 gate for f32, 3e-2 relative for bf16 (the
+bf16 tier's tolerance in tests/test_conformance.py)."""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import spmm_denseblock_tpu.formats.bsr as j_bsr
+import spmm_denseblock_tpu_torch.formats.bsr as t_bsr
+from spmm_denseblock_tpu_torch.ops import _kernels, assert_allclose, spmm_scipy, sum_plan
+
+# the ops packages export a function of the module's name, so `import
+# ... as` would bind the function
+J = importlib.import_module("spmm_denseblock_tpu.ops.bsr_spmm_pallas")
+T = importlib.import_module("spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas")
+
+torch.set_num_threads(2)
+
+
+def _with_empty_rows(bsr_mod, nb, b, p, seed, empty=(3, 4, 17)):
+    """A seeded BSR with some empty block-rows (exercises covering)."""
+    src = bsr_mod.random_bsr(p, nb, nb, block_size=b, seed=seed)
+    keep = ~np.isin(np.asarray(src.block_rows), empty)
+    return bsr_mod.BSR.from_parts(
+        np.asarray(src.block_rows)[keep], np.asarray(src.block_cols)[keep],
+        np.asarray(src.blocks)[keep], src.shape, b,
+    )
+
+
+def _covered_parts(mod, bsr):
+    cov = mod._ensure_covering(bsr)
+    return (np.asarray(cov.block_rows[: cov.nnzb]),
+            np.asarray(cov.block_cols[: cov.nnzb]),
+            np.asarray(cov.blocks[: cov.nnzb]))
+
+
+def _rel(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+
+
+def test_ensure_covering_bit_equal():
+    jb = _with_empty_rows(j_bsr, 21, 8, 0.3, seed=1)
+    tb = _with_empty_rows(t_bsr, 21, 8, 0.3, seed=1)
+    for a, b in zip(_covered_parts(J, jb), _covered_parts(T, tb)):
+        np.testing.assert_array_equal(a, b)
+    assert T._ensure_covering(tb).nnzb == tb.nnzb + 3
+
+
+@pytest.mark.parametrize("group", [1, 4])
+def test_pack_groups_bit_equal(group):
+    rows, cols, blocks = _covered_parts(T, _with_empty_rows(t_bsr, 21, 8, 0.3, seed=2))
+    for a, b in zip(J._pack_groups(rows, cols, blocks, group),
+                    T._pack_groups(rows, cols, blocks, group)):
+        np.testing.assert_array_equal(a, b)
+    c2 = np.array([[3, -1], [-1, -1], [5, 2]])
+    np.testing.assert_array_equal(
+        J.per_buffer_col_fill(c2, c2 >= 0, np.zeros_like(c2)),
+        T.per_buffer_col_fill(c2, c2 >= 0, np.zeros_like(c2)),
+    )
+
+
+@pytest.mark.parametrize("geom", [(2, 4, 8), (4, 16, 128)])
+def test_pack_rowgroups_sorted_bit_equal(geom):
+    """37 block-rows: not a multiple of R, so windows end in absent
+    lanes; rows hold ~11 blocks, deeper than gh."""
+    gh, R, W = geom
+    rows, cols, blocks = _covered_parts(T, _with_empty_rows(t_bsr, 37, 8, 0.3, seed=4))
+    want = J._pack_rowgroups_sorted(rows, cols, blocks, gh, R, W)
+    got = T._pack_rowgroups_sorted(rows, cols, blocks, gh, R, W)
+    for a, b in zip(want, got[:5]):
+        np.testing.assert_array_equal(a, b)
+    win_ids, pos, slot_cols, blocks_pad, n_win, lane_valid, steps = got
+    nbr = 37
+    n_groups = steps.size
+    assert lane_valid.shape == (n_groups * R,) and lane_valid.dtype == bool
+    # every block-row is exactly one valid lane; absent lanes pad windows
+    assert lane_valid.sum() == nbr and (~lane_valid).sum() > 0
+    group_ptr = np.concatenate([[0], np.cumsum(steps)])
+    assert group_ptr[-1] == win_ids.size
+    first = group_ptr[:-1]
+    dest = (win_ids[first][:, None] * W
+            + pos.reshape(-1, R)[first]).reshape(-1)
+    assert sorted(dest[lane_valid]) == list(range(nbr))
+    # an absent lane carries pos 0 and only zero blocks
+    assert (pos.reshape(-1, R)[first].reshape(-1)[~lane_valid] == 0).all()
+    lane_blocks = blocks_pad.reshape(win_ids.size, R, gh, 8, 8)
+    step_group = np.repeat(np.arange(n_groups), steps)
+    absent = ~lane_valid.reshape(n_groups, R)[step_group]
+    assert not lane_blocks[absent].any()
+    # steps per group cover the deepest lane
+    assert steps.max() >= 2
+
+
+def _layouts(bsr, group, gh_R_W):
+    rows, cols, blocks = _covered_parts(T, bsr)
+    nbr = bsr.n_block_rows
+    flat = T._pack_groups(rows, cols, blocks, group)
+    srt = T._pack_rowgroups_sorted(rows, cols, blocks, *gh_R_W)
+    return nbr, flat, srt
+
+
+def _dense(bsr, F, seed):
+    nbc = bsr.n_block_cols
+    return np.random.default_rng(seed).standard_normal(
+        (nbc * bsr.b, F)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [1, 4])
+def test_flat_plain_matches_pallas_kernel(dtype, group):
+    bsr = _with_empty_rows(t_bsr, 21, 16, 0.25, seed=5)
+    nbr, (step_rows, slot_cols, blocks), _ = _layouts(bsr, group, (4, 16, 128))
+    F = 128
+    x = _dense(bsr, F, seed=6)
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    want = np.asarray(J._pallas_spmm(
+        jnp.asarray(step_rows), jnp.asarray(slot_cols),
+        jnp.asarray(blocks).astype(jd), jnp.asarray(x).astype(jd),
+        nbr, nbr * 16, F, group, False, True,
+    ))
+    td = getattr(torch, dtype)
+    got = T.spmm_flat_plain(
+        torch.as_tensor(step_rows), torch.as_tensor(slot_cols),
+        torch.as_tensor(blocks).to(td), torch.as_tensor(x).to(td), nbr, group,
+    )
+    assert got.shape == (nbr * 16, F) and got.dtype == torch.float32
+    assert _rel(got.numpy(), want) < 1e-5
+    # the covered empty rows come out as exact zeros
+    assert not got.reshape(nbr, 16, F)[[3, 4, 17]].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sorted_plain_matches_pallas_kernel(dtype):
+    """37 block-rows at R=16: the last group has absent lanes whose pos
+    is 0, the same as a real row's."""
+    bsr = _with_empty_rows(t_bsr, 37, 16, 0.25, seed=7)
+    R, gh, W = 16, 4, 128
+    nbr, _, srt = _layouts(bsr, 1, (gh, R, W))
+    win_ids, pos, slot_cols, blocks, n_win, lane_valid, steps = srt
+    F = 128
+    x = _dense(bsr, F, seed=8)
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    want = np.asarray(J._pallas_spmm_rowgroup_sorted(
+        jnp.asarray(win_ids), jnp.asarray(pos), jnp.asarray(slot_cols),
+        jnp.asarray(blocks).astype(jd),
+        jnp.asarray(x).astype(jd).reshape(-1, 16, F),
+        n_win, W, nbr * 16, F, gh, R, True,
+    ))
+    td = getattr(torch, dtype)
+    got = T.spmm_sorted_plain(
+        torch.as_tensor(win_ids), torch.as_tensor(pos),
+        torch.as_tensor(slot_cols), torch.as_tensor(blocks).to(td),
+        torch.as_tensor(x).to(td), torch.as_tensor(lane_valid),
+        torch.as_tensor(np.concatenate([[0], np.cumsum(steps)])),
+        nbr, R, gh, W,
+    )
+    assert got.shape == (nbr * 16, F)
+    assert _rel(got.numpy(), want) < 1e-5
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("depth_sort", [None, True, False])
+@pytest.mark.parametrize("p", [0.08, 0.4])
+def test_plan_matches_scipy(dtype, depth_sort, p):
+    """Ragged shapes: logical rows/cols not multiples of b, F not a power
+    of two. Launch counters stay 0: CPU tensors take the plain path."""
+    base = t_bsr.random_bsr(p, 23, 19, block_size=16, seed=9)
+    bsr = t_bsr.BSR.from_parts(base.block_rows, base.block_cols, base.blocks,
+                               (23 * 16 - 5, 19 * 16 - 7), 16)
+    launches = [k.launches for k in _kernels.KERNELS]
+    td = None if dtype is None else getattr(torch, dtype)
+    plan = T.bsr_spmm_pallas_plan(bsr, dtype=td, grad=False, depth_sort=depth_sort)
+    x = np.random.default_rng(1).standard_normal((bsr.shape[1], 70)).astype(np.float32)
+    got = plan(x)
+    assert got.shape == (bsr.shape[0], 70) and got.dtype == torch.float32
+    want = spmm_scipy(bsr, x)
+    if dtype is None:
+        assert_allclose(got, want)
+    else:
+        assert _rel(got.numpy(), want) < 3e-2
+    assert [k.launches for k in _kernels.KERNELS] == launches
+    # a tensor operand gives the same answer as a numpy one
+    assert torch.equal(plan(torch.as_tensor(x)), got)
+
+
+def _rows_with(depth, nb=24, b=8, seed=0):
+    """nb block-rows with exactly `depth` blocks each."""
+    rng = np.random.default_rng(seed)
+    cols = np.stack([rng.choice(nb, depth, replace=False) for _ in range(nb)])
+    rows = np.repeat(np.arange(nb), depth)
+    blocks = rng.standard_normal((nb * depth, b, b)).astype(np.float32)
+    return rows.astype(np.int32), cols.reshape(-1).astype(np.int32), blocks
+
+
+@pytest.mark.parametrize("depth", [7, 9])
+def test_f32_layout_matches_jax_plan(depth):
+    """f32 takes the sorted layout at >= 8 real blocks per block-row and
+    the flat one below, in both packages."""
+    rows, cols, blocks = _rows_with(depth)
+    jp = J.bsr_spmm_pallas_plan(
+        j_bsr.BSR.from_parts(rows, cols, blocks, (192, 192), 8), grad=False)
+    tp = T.bsr_spmm_pallas_plan(
+        t_bsr.BSR.from_parts(rows, cols, blocks, (192, 192), 8), grad=False)
+    j_layout = "sorted" if isinstance(jp.statics[-1], tuple) else "flat"
+    assert tp.statics[0] == j_layout == ("sorted" if depth >= 8 else "flat")
+    x = np.random.default_rng(2).standard_normal((192, 24)).astype(np.float32)
+    assert_allclose(tp(x), np.asarray(jp(x)))
+
+
+def test_bf16_layout_gate():
+    """bf16 sorts at >= 2 real blocks per block-row; below, and with
+    depth_sort=False, the port packs the flat layout (the JAX plan packs
+    its consecutive row-group layout there)."""
+    sparse = t_bsr.random_bsr(0.05, 24, 24, block_size=16, seed=0)
+    dense = t_bsr.random_bsr(0.5, 24, 24, block_size=16, seed=0)
+    bf = torch.bfloat16
+    assert T.bsr_spmm_pallas_plan(sparse, dtype=bf, grad=False).statics[0] == "flat"
+    assert T.bsr_spmm_pallas_plan(dense, dtype=bf, grad=False).statics[0] == "sorted"
+    assert T.bsr_spmm_pallas_plan(sparse, dtype=bf, grad=False,
+                                  depth_sort=True).statics[0] == "sorted"
+    assert T.bsr_spmm_pallas_plan(dense, dtype=bf, grad=False,
+                                  depth_sort=False).statics[0] == "flat"
+
+
+@pytest.mark.parametrize("kw", [
+    {"grad": True},
+    {"precision": "high"},
+    {"precision": "default"},
+    {"resident": True},
+    {"dtype": torch.int8},
+    {"dtype": "int8"},
+])
+def test_out_of_scope_arguments_raise(kw):
+    bsr = t_bsr.random_bsr(0.3, 4, 4, block_size=8, seed=0)
+    kw = {"grad": False, **kw}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.bsr_spmm_pallas_plan(bsr, **kw)
+
+
+def test_plan_module_and_sum_plan():
+    """A plan is an nn.Module whose packed arrays are buffers; sum_plan
+    adds sub-plan outputs."""
+    a = t_bsr.random_bsr(0.3, 6, 6, block_size=8, seed=1)
+    b = t_bsr.random_bsr(0.3, 6, 6, block_size=8, seed=2)
+    pa = T.bsr_spmm_pallas_plan(a, grad=False)
+    pb = T.bsr_spmm_pallas_plan(b, grad=False, depth_sort=True)
+    assert isinstance(pa, torch.nn.Module)
+    assert len(list(pa.buffers())) == len(pa.arrays) == 4
+    assert pa.to("cpu") is pa
+    x = np.random.default_rng(0).standard_normal((48, 5)).astype(np.float32)
+    s = sum_plan([pa, pb])
+    assert len(list(s.buffers())) == len(pa.arrays) + len(pb.arrays)
+    assert_allclose(s(x), spmm_scipy(a, x) + spmm_scipy(b, x))
+
+
+def test_wrappers_reject_mixed_devices():
+    plan = T.bsr_spmm_pallas_plan(t_bsr.random_bsr(0.3, 4, 4, block_size=8, seed=0),
+                                  grad=False)
+    step_rows, slot_cols, blocks, step_ptr = plan.arrays
+    with pytest.raises(ValueError, match="device"):
+        T.spmm_flat(step_rows, step_ptr, slot_cols, blocks,
+                    torch.zeros(32, 3, device="meta"), plan.statics[-1])
