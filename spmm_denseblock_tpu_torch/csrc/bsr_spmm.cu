@@ -5,8 +5,11 @@
 //   spmm_denseblock_tpu/ops/bsr_spmm_pallas.py:_pallas_spmm (+ _kernel),
 // K2 bsr_spmm_sorted replaces
 //   spmm_denseblock_tpu/ops/bsr_spmm_pallas.py:_pallas_spmm_rowgroup_sorted
-//   (+ _rowgroup_sorted_kernel).
-// Both read the packed arrays of the JAX packers unchanged (plus the
+//   (+ _rowgroup_sorted_kernel),
+// K4 bsr_spmm_rowgroup replaces
+//   spmm_denseblock_tpu/ops/bsr_spmm_pallas.py:_pallas_spmm_rowgroup
+//   (+ _rowgroup_kernel).
+// All read the packed arrays of the JAX packers unchanged (plus the
 // row/group step pointers and the K2 lane-valid mask the port's packer
 // adds) and compute what the TPU kernels compute on them.
 //
@@ -173,6 +176,38 @@ __global__ void __launch_bounds__(kThreads)
   store_tile<BM>(out + orow * BM * F + f0, F, n_valid, acc);
 }
 
+// K4: one CTA per (lane, F tile) of the consecutive row-group layout.
+// Lane r of group g is block-row g*R + r; group_ptr (n_groups+1,) gives
+// the group's steps, and lane r of step j holds slots (j*R + r)*gh ..
+// +gh-1. On the TPU all R lanes share one (R*b x F) output tile; here
+// each lane is its own CTA, so no lane waits for a deeper one. The
+// packer pads the last group to R lanes: a phantom lane (row >=
+// n_block_rows) has only zero slots and no row of the output to own, so
+// it returns before any work and stores nothing.
+template <typename T, int BM>
+__global__ void __launch_bounds__(kThreads)
+    rowgroup_kernel(const int64_t* __restrict__ group_ptr,
+                    const int32_t* __restrict__ slot_cols,
+                    const T* __restrict__ blocks, const T* __restrict__ dense,
+                    float* __restrict__ out, int64_t n_block_rows, int64_t F,
+                    int64_t R, int64_t gh, int64_t n_ftiles) {
+  __shared__ Smem<BM> sm;
+  const int64_t row = blockIdx.x / n_ftiles;  // group * R + lane
+  if (row >= n_block_rows) return;            // phantom lane
+  const int64_t g = row / R, lane = row % R;
+  const int64_t f0 = (blockIdx.x % n_ftiles) * kBN;
+  const int n_valid = (int)(F - f0 < kBN ? F - f0 : kBN);
+  float acc[BM / 16][4] = {};
+  for (int64_t j = group_ptr[g], j1 = group_ptr[g + 1]; j < j1; ++j) {
+    for (int64_t s = (j * R + lane) * gh, s_end = s + gh; s < s_end; ++s) {
+      const int64_t col = slot_cols[s];
+      slot_fma<T, BM>(blocks + s * BM * BM, dense + col * BM * F + f0, F,
+                      n_valid, sm, acc);
+    }
+  }
+  store_tile<BM>(out + row * BM * F + f0, F, n_valid, acc);
+}
+
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 template <typename T>
@@ -230,6 +265,32 @@ cudaError_t launch_sorted(const void* group_ptr, const void* win_ids,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_rowgroup(const void* group_ptr, const void* slot_cols,
+                            const void* blocks, const void* dense, void* out,
+                            int64_t n_lanes, int64_t n_block_rows, int64_t F,
+                            int64_t R, int64_t gh, int64_t b,
+                            cudaStream_t stream) {
+  const int64_t n_ft = ceil_div(F, kBN);
+  const int64_t n_ctas = n_lanes * n_ft;
+  if (n_ctas == 0) return cudaSuccess;
+  if (n_ctas > INT32_MAX) return cudaErrorInvalidConfiguration;
+  const auto* gp = static_cast<const int64_t*>(group_ptr);
+  const auto* sc = static_cast<const int32_t*>(slot_cols);
+  const auto* bl = static_cast<const T*>(blocks);
+  const auto* de = static_cast<const T*>(dense);
+  auto* o = static_cast<float*>(out);
+  const dim3 grid((unsigned)n_ctas);
+  switch (b) {
+    case 16: rowgroup_kernel<T, 16><<<grid, kThreads, 0, stream>>>(gp, sc, bl, de, o, n_block_rows, F, R, gh, n_ft); break;
+    case 32: rowgroup_kernel<T, 32><<<grid, kThreads, 0, stream>>>(gp, sc, bl, de, o, n_block_rows, F, R, gh, n_ft); break;
+    case 64: rowgroup_kernel<T, 64><<<grid, kThreads, 0, stream>>>(gp, sc, bl, de, o, n_block_rows, F, R, gh, n_ft); break;
+    case 128: rowgroup_kernel<T, 128><<<grid, kThreads, 0, stream>>>(gp, sc, bl, de, o, n_block_rows, F, R, gh, n_ft); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface, bound with ctypes. Pointers are device pointers; the
@@ -266,4 +327,22 @@ extern "C" int sdb_bsr_spmm_sorted(const void* group_ptr, const void* win_ids,
                    : launch_sorted<float>(group_ptr, win_ids, pos, lane_valid,
                                           slot_cols, blocks, dense, out,
                                           n_lanes, F, R, gh, window, b, s));
+}
+
+extern "C" int sdb_bsr_spmm_rowgroup(const void* group_ptr,
+                                     const void* slot_cols,
+                                     const void* blocks, const void* dense,
+                                     void* out, int64_t n_lanes,
+                                     int64_t n_block_rows, int64_t F,
+                                     int64_t R, int64_t gh, int64_t b,
+                                     int64_t is_bf16, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  return (int)(is_bf16
+                   ? launch_rowgroup<__nv_bfloat16>(group_ptr, slot_cols,
+                                                    blocks, dense, out,
+                                                    n_lanes, n_block_rows, F,
+                                                    R, gh, b, s)
+                   : launch_rowgroup<float>(group_ptr, slot_cols, blocks,
+                                            dense, out, n_lanes,
+                                            n_block_rows, F, R, gh, b, s));
 }

@@ -1,7 +1,12 @@
+from spmm_denseblock_tpu_torch.ops.bsr_spmm_int8 import (
+    bsr_spmm_int8,
+    bsr_spmm_int8_plan,
+)
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import (
     bsr_spmm_pallas,
     bsr_spmm_pallas_plan,
 )
+from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8 import bsr_spmm_pallas_int8_plan
 from spmm_denseblock_tpu_torch.ops.dispatch import PLANNERS, spmm_plan
 from spmm_denseblock_tpu_torch.ops.plan import Plan, sum_plan
 from spmm_denseblock_tpu_torch.ops.reference import (
@@ -12,8 +17,11 @@ from spmm_denseblock_tpu_torch.ops.reference import (
 )
 
 __all__ = [
+    "bsr_spmm_int8",
+    "bsr_spmm_int8_plan",
     "bsr_spmm_pallas",
     "bsr_spmm_pallas_plan",
+    "bsr_spmm_pallas_int8_plan",
     "PLANNERS",
     "spmm_plan",
     "Plan",

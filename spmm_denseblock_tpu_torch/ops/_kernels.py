@@ -1,12 +1,13 @@
-"""Build and bind the CUDA kernels of ``csrc/bsr_spmm.cu``.
+"""Build and bind the CUDA kernels of ``csrc/``.
 
-The source is compiled with nvcc into a shared library with a plain C
+Each source is compiled with nvcc into a shared library with a plain C
 interface and loaded with ctypes, at first use and never at import: the
-package imports on machines without a CUDA toolkit. The library goes to
-``build/kernels/`` at the root of the checkout, named by a hash of the
-source and the flags, so an edit rebuilds and an unchanged tree reuses
-it. The build writes a temporary file and renames it into place, so
-processes that build at once never load a half-written library.
+package imports on machines without a CUDA toolkit. The libraries go to
+``build/kernels/`` at the root of the checkout, each named by a hash of
+its source and the flags, so an edit rebuilds that source and an
+unchanged tree reuses it. The sources build in parallel, one nvcc each;
+a build writes a temporary file and renames it into place, so processes
+that build at once never load a half-written library.
 """
 
 from __future__ import annotations
@@ -18,9 +19,10 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Dict, List
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "bsr_spmm.cu",)
+SOURCES = (_PKG / "csrc" / "bsr_spmm.cu", _PKG / "csrc" / "bsr_spmm_int8.cu")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -29,18 +31,33 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
+# symbol -> (source stem, argument types)
 _SIGNATURES = {
     # step_ptr, slot_cols, blocks, dense, out, n_block_rows, F, group, b,
     # is_bf16, stream
-    "sdb_bsr_spmm_flat": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "sdb_bsr_spmm_flat": ("bsr_spmm", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     # group_ptr, win_ids, pos, lane_valid, slot_cols, blocks, dense, out,
     # n_lanes, F, R, gh, window, b, is_bf16, stream
-    "sdb_bsr_spmm_sorted": [_P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _P],
+    "sdb_bsr_spmm_sorted": ("bsr_spmm", [_P, _P, _P, _P, _P, _P, _P, _P,
+                                         _I, _I, _I, _I, _I, _I, _I, _P]),
+    # group_ptr, slot_cols, blocks, dense, out, n_lanes, n_block_rows, F,
+    # R, gh, b, is_bf16, stream
+    "sdb_bsr_spmm_rowgroup": ("bsr_spmm", [_P, _P, _P, _P, _P,
+                                           _I, _I, _I, _I, _I, _I, _I, _P]),
+    # step_ptr, slot_cols, qblocks, scales, qdense, cs, out, n_block_rows,
+    # F, group, b, stream
+    "sdb_bsr_spmm_int8_flat": ("bsr_spmm_int8", [_P, _P, _P, _P, _P, _P, _P,
+                                                 _I, _I, _I, _I, _P]),
+    # group_ptr, win_ids, pos, lane_valid, slot_cols, qblocks, scales,
+    # qdense, cs, out, n_lanes, F, R, gh, window, b, group_scale, stream
+    "sdb_bsr_spmm_int8_sorted": ("bsr_spmm_int8", [_P] * 10 + [_I] * 7 + [_P]),
+    # group_ptr, slot_cols, qblocks, scales, qdense, cs, out, n_lanes,
+    # n_block_rows, F, R, gh, b, stream
+    "sdb_bsr_spmm_int8_rowgroup": ("bsr_spmm_int8", [_P] * 7 + [_I] * 6 + [_P]),
 }
 
 _lock = threading.Lock()
-_lib = None
+_libs = None
 
 
 def _nvcc() -> str:
@@ -56,45 +73,55 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path() -> Path:
-    h = hashlib.sha256()
-    for src in SOURCES:
-        h.update(src.read_bytes())
+def library_path(src: Path) -> Path:
+    h = hashlib.sha256(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libsdb_bsr_spmm_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libsdb_{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless the library for this source exists."""
-    path = library_path()
-    if path.exists():
-        return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, path)
-    return path
+def build() -> List[Path]:
+    """Compile every source whose library is missing, one nvcc process
+    per source, all started together; wait for all of them. Returns the
+    libraries' paths in SOURCES order."""
+    paths = [library_path(src) for src in SOURCES]
+    jobs = []
+    for src, path in zip(SOURCES, paths):
+        if path.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((cmd, tmp, path, proc))
+    failures = []
+    for cmd, tmp, path, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                            f"{out}\n{err}")
+        else:
+            os.replace(tmp, path)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return paths
 
 
-def load() -> ctypes.CDLL:
-    """Build if needed, load once per process, declare the signatures."""
-    global _lib
+def load() -> Dict[str, ctypes.CDLL]:
+    """Build if needed, load each library once per process, declare the
+    signatures. Returns {source stem: library}."""
+    global _libs
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
+        if _libs is None:
+            libs = {src.stem: ctypes.CDLL(str(path))
+                    for src, path in zip(SOURCES, build())}
+            for name, (stem, argtypes) in _SIGNATURES.items():
+                fn = getattr(libs[stem], name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+            _libs = libs
+        return _libs
 
 
 class CudaKernel:
@@ -103,10 +130,11 @@ class CudaKernel:
 
     def __init__(self, symbol: str):
         self.symbol = symbol
+        self.source = _SIGNATURES[symbol][0]
         self.launches = 0
 
     def __call__(self, *args) -> None:
-        rc = getattr(load(), self.symbol)(*args)
+        rc = getattr(load()[self.source], self.symbol)(*args)
         if rc != 0:
             raise RuntimeError(
                 f"{self.symbol}: launch failed with cudaError_t {rc}"
@@ -114,6 +142,11 @@ class CudaKernel:
         self.launches += 1
 
 
-bsr_spmm_flat = CudaKernel("sdb_bsr_spmm_flat")
-bsr_spmm_sorted = CudaKernel("sdb_bsr_spmm_sorted")
-KERNELS = (bsr_spmm_flat, bsr_spmm_sorted)
+bsr_spmm_flat = CudaKernel("sdb_bsr_spmm_flat")                # K1
+bsr_spmm_sorted = CudaKernel("sdb_bsr_spmm_sorted")            # K2
+bsr_spmm_rowgroup = CudaKernel("sdb_bsr_spmm_rowgroup")        # K4
+bsr_spmm_int8_flat = CudaKernel("sdb_bsr_spmm_int8_flat")      # K6
+bsr_spmm_int8_sorted = CudaKernel("sdb_bsr_spmm_int8_sorted")  # K7
+bsr_spmm_int8_rowgroup = CudaKernel("sdb_bsr_spmm_int8_rowgroup")  # K8
+KERNELS = (bsr_spmm_flat, bsr_spmm_sorted, bsr_spmm_rowgroup,
+           bsr_spmm_int8_flat, bsr_spmm_int8_sorted, bsr_spmm_int8_rowgroup)

@@ -5,16 +5,19 @@ Hopper, in ``csrc/bsr_spmm.cu``).
 
 The plan packs the blocks on the host once, with the JAX package's
 packers ported verbatim (bit-equal outputs), and the apply runs one of
-two kernels on the packed arrays:
+three kernels on the packed arrays:
 
 - K1, flat grouped gather (``spmm_flat``), replacing ``_pallas_spmm``;
 - K2, depth-sorted row groups (``spmm_sorted``), replacing
-  ``_pallas_spmm_rowgroup_sorted``.
+  ``_pallas_spmm_rowgroup_sorted``;
+- K4, consecutive row groups (``spmm_rowgroup``), replacing
+  ``_pallas_spmm_rowgroup``.
 
 Beside each kernel sits its plain PyTorch version (``spmm_flat_plain``,
-``spmm_sorted_plain``): gather, ``bmm`` in f32 and ``index_add_`` over
-the same packed arrays. A wrapper runs the plain version only for CPU
-tensors; for CUDA tensors it launches the kernel or raises.
+``spmm_sorted_plain``, ``spmm_rowgroup_plain``): gather, ``bmm`` in f32
+and ``index_add_`` over the same packed arrays. A wrapper runs the plain
+version only for CPU tensors; for CUDA tensors it launches the kernel or
+raises.
 
 Layout policy: the occupancy gate of the JAX plan. The TPU's VMEM fit
 checks, SMEM chunking and environment knobs are not carried over; their
@@ -30,6 +33,7 @@ import torch
 
 from spmm_denseblock_tpu_torch.formats.bsr import BSR
 from spmm_denseblock_tpu_torch.ops import _kernels
+from spmm_denseblock_tpu_torch.ops.bsr_spmm_int8 import dtype_name, reject_int8_cast
 from spmm_denseblock_tpu_torch.ops.plan import Plan
 
 # -- host packing (verbatim ports, bit-equal to the JAX package) ----------
@@ -108,6 +112,63 @@ def _pack_groups(rows, cols, blocks, group: int):
     cols_pad = cols_pad.astype(np.int32)
     step_rows = np.repeat(uniq, steps_per_row).astype(np.int32)
     return step_rows, cols_pad, blocks_pad
+
+
+def _pack_rowgroups(rows, cols, blocks, group_half: int, R: int):
+    """Consecutive row-group packing: block-rows g*R .. g*R+R-1 share the
+    steps of group g, lane r holding group_half slots per step. `rows`
+    must cover every block-row (see _ensure_covering). The last group is
+    padded to R lanes with phantom rows that hold no blocks. Returns
+    (step_groups (T,), slot_cols (T*G,), blocks_padded (T*G, b, b),
+    n_groups)."""
+    nnzb, b, _ = blocks.shape
+    order = np.argsort(rows, kind="stable")
+    rows_s = np.asarray(rows)[order]
+    uniq, first = np.unique(rows_s, return_index=True)
+    # output rows land at uniq's rank, so a gap in uniq would compress
+    # the result's rows
+    assert uniq.size and uniq[0] == 0 and uniq[-1] == uniq.size - 1, (
+        "_pack_rowgroups requires a covering rows list "
+        "(every block-row present at least once)"
+    )
+    counts = np.diff(np.append(first, rows_s.size))
+    n_rows_cov = uniq.size
+    pad_rows = (-n_rows_cov) % R
+    counts_p = np.append(counts, np.zeros(pad_rows, counts.dtype))
+    groups = (n_rows_cov + pad_rows) // R
+    per_row_steps = -(-counts_p // group_half)
+    steps_per_group = np.maximum(
+        per_row_steps.reshape(groups, R).max(axis=1), 1
+    )
+    T = int(steps_per_group.sum())
+    G = R * group_half
+    step_base = np.concatenate([[0], np.cumsum(steps_per_group)[:-1]])
+    rank = np.arange(rows_s.size) - np.repeat(first, counts)
+    krank = np.searchsorted(uniq, rows_s)
+    grp = krank // R
+    lane = krank % R
+    dest_s = ((step_base[grp] + rank // group_half) * G
+              + lane * group_half + rank % group_half)
+    dest = np.empty(rows_s.size, np.int64)
+    dest[order] = dest_s
+    blocks_pad = np.zeros((T * G, b, b), np.asarray(blocks).dtype)
+    blocks_pad[dest] = np.asarray(blocks)
+    cols_pad = np.full(T * G, -1, np.int64)
+    cols_pad[dest] = np.asarray(cols)
+    c2 = cols_pad.reshape(T, G)
+    cols_filled = per_buffer_col_fill(c2, c2 >= 0, np.zeros_like(c2))
+    step_groups = np.repeat(
+        np.arange(groups), steps_per_group
+    ).astype(np.int32)
+    return (step_groups, cols_filled.reshape(-1).astype(np.int32),
+            blocks_pad, int(groups))
+
+
+def group_pointer(step_groups, n_groups: int) -> np.ndarray:
+    """(n_groups+1,) int64: the steps of group g are ptr[g] .. ptr[g+1]-1
+    (step_groups is nondecreasing). A CUDA CTA walks its group's steps
+    with it."""
+    return np.searchsorted(step_groups, np.arange(n_groups + 1)).astype(np.int64)
 
 
 def _pack_rowgroups_sorted(rows, cols, blocks, gh: int, R: int, W: int):
@@ -190,6 +251,16 @@ def _pack_rowgroups_sorted(rows, cols, blocks, gh: int, R: int, W: int):
 _ROWGROUP_GH_CAP = 16
 
 
+def _rowgroup_policy(itemsize: int, group=None):
+    """(R, gh) of the consecutive row-group layout: R = 8 lanes for int8,
+    16 for 2-byte operands; gh = 16 slots per lane and step unless a
+    group is given. The values are the JAX plan's, so the packed arrays
+    match it."""
+    R = 8 if itemsize == 1 else 16
+    gh = _ROWGROUP_GH_CAP if group in (None, "auto") else int(group)
+    return R, gh
+
+
 def _auto_group(nnzb: int, n_rows_with_blocks: int) -> int:
     """Blocks per step for the flat layout: larger when rows are
     block-dense, small when they are sparse (pads cost G/2 per row)."""
@@ -238,24 +309,74 @@ def _gathered_products(slot_cols, blocks, dense_b, s0, s1):
     return torch.bmm(blocks[s0:s1].float(), dense_b[cols].float())
 
 
+def lane_scatter(dest, valid, n_block_rows: int, b: int, F: int, R: int,
+                 gh: int, lane_sums) -> torch.Tensor:
+    """The plain versions' common loop. Every layout is steps of R lanes
+    of gh slots; lane_sums(j0, j1) gives the (j1-j0, R, b, F) f32 lane
+    sums of steps j0 .. j1-1, and lane (j, r) adds into block-row
+    dest[j, r] where valid[j, r] (None: all valid). Chunked over steps
+    to bound the gathered operand's memory. Returns (n_block_rows*b, F)
+    f32."""
+    out = torch.zeros(n_block_rows, b, F, dtype=torch.float32, device=dest.device)
+    n_steps = dest.shape[0]
+    chunk = max(1, _PLAIN_CHUNK_ELEMS // max(1, R * gh * b * F))
+    for j0 in range(0, n_steps, chunk):
+        j1 = min(n_steps, j0 + chunk)
+        sums = lane_sums(j0, j1)
+        if valid is None:
+            out.index_add_(0, dest[j0:j1].reshape(-1), sums.reshape(-1, b, F))
+        else:
+            m = valid[j0:j1]
+            out.index_add_(0, dest[j0:j1][m], sums[m])
+    return out.reshape(n_block_rows * b, F)
+
+
+def sorted_lanes(win_ids, pos, lane_valid, group_ptr, R: int, window: int):
+    """(dest, valid), each (T, R), of the depth-sorted layout: lane r of
+    step j belongs to block-row win_ids[j]*window + pos[j*R + r]; absent
+    lanes (window padding) are not valid."""
+    n_groups = group_ptr.shape[0] - 1
+    step_group = torch.repeat_interleave(
+        torch.arange(n_groups, device=win_ids.device), group_ptr.diff()
+    )
+    valid = lane_valid.reshape(n_groups, R)[step_group]
+    dest = win_ids.long()[:, None] * window + pos.long().reshape(-1, R)
+    return dest, valid
+
+
+def rowgroup_lanes(step_groups, R: int, n_block_rows: int):
+    """(dest, valid), each (T, R), of the consecutive row-group layout:
+    lane r of step j belongs to block-row step_groups[j]*R + r; the
+    phantom lanes that pad the last group (rows >= n_block_rows) are not
+    valid."""
+    lanes = torch.arange(R, device=step_groups.device)
+    dest = step_groups.long()[:, None] * R + lanes
+    return dest, dest < n_block_rows
+
+
+def _f32_lane_sums(slot_cols, blocks, dense, R: int, gh: int):
+    b = blocks.shape[1]
+    F = dense.shape[1]
+    dense_b = dense.reshape(-1, b, F)
+
+    def lane_sums(j0, j1):
+        prod = _gathered_products(slot_cols, blocks, dense_b,
+                                  j0 * R * gh, j1 * R * gh)
+        return prod.reshape(j1 - j0, R, gh, b, F).sum(dim=2)
+
+    return lane_sums
+
+
 def spmm_flat_plain(step_rows, slot_cols, blocks, dense, n_block_rows: int,
                     group: int) -> torch.Tensor:
     """Plain version of K1 on the flat layout: step j's `group` slot
     products are summed and added into block-row step_rows[j]. Returns
-    (n_block_rows*b, F) f32. Chunked over steps to bound the gathered
-    operand's memory."""
-    b = blocks.shape[1]
-    F = dense.shape[1]
-    dense_b = dense.reshape(-1, b, F)
-    out = torch.zeros(n_block_rows, b, F, dtype=torch.float32, device=dense.device)
-    n_steps = step_rows.shape[0]
-    chunk = max(1, _PLAIN_CHUNK_ELEMS // max(1, group * b * F))
-    for j0 in range(0, n_steps, chunk):
-        j1 = min(n_steps, j0 + chunk)
-        prod = _gathered_products(slot_cols, blocks, dense_b, j0 * group, j1 * group)
-        step_sums = prod.reshape(j1 - j0, group, b, F).sum(dim=1)
-        out.index_add_(0, step_rows[j0:j1].long(), step_sums)
-    return out.reshape(n_block_rows * b, F)
+    (n_block_rows*b, F) f32."""
+    return lane_scatter(
+        step_rows.long()[:, None], None, n_block_rows, blocks.shape[1],
+        dense.shape[1], 1, group,
+        _f32_lane_sums(slot_cols, blocks, dense, 1, group),
+    )
 
 
 def spmm_sorted_plain(win_ids, pos, slot_cols, blocks, dense, lane_valid,
@@ -264,27 +385,24 @@ def spmm_sorted_plain(win_ids, pos, slot_cols, blocks, dense, lane_valid,
     """Plain version of K2 on the depth-sorted layout: lane r of step j
     sums its gh slot products into block-row win_ids[j]*window +
     pos[j*R + r]; absent lanes add nothing. Returns (n_block_rows*b, F)
-    f32. Chunked over steps."""
-    b = blocks.shape[1]
-    F = dense.shape[1]
-    G = R * gh
-    dense_b = dense.reshape(-1, b, F)
-    n_steps = win_ids.shape[0]
-    n_groups = group_ptr.shape[0] - 1
-    step_group = torch.repeat_interleave(
-        torch.arange(n_groups, device=dense.device), group_ptr.diff()
+    f32."""
+    dest, valid = sorted_lanes(win_ids, pos, lane_valid, group_ptr, R, window)
+    return lane_scatter(
+        dest, valid, n_block_rows, blocks.shape[1], dense.shape[1], R, gh,
+        _f32_lane_sums(slot_cols, blocks, dense, R, gh),
     )
-    valid = lane_valid.reshape(n_groups, R)[step_group]  # (T, R)
-    dest = win_ids.long()[:, None] * window + pos.long().reshape(n_steps, R)
-    out = torch.zeros(n_block_rows, b, F, dtype=torch.float32, device=dense.device)
-    chunk = max(1, _PLAIN_CHUNK_ELEMS // max(1, G * b * F))
-    for j0 in range(0, n_steps, chunk):
-        j1 = min(n_steps, j0 + chunk)
-        prod = _gathered_products(slot_cols, blocks, dense_b, j0 * G, j1 * G)
-        lane_sums = prod.reshape(j1 - j0, R, gh, b, F).sum(dim=2)
-        m = valid[j0:j1]
-        out.index_add_(0, dest[j0:j1][m], lane_sums[m])
-    return out.reshape(n_block_rows * b, F)
+
+
+def spmm_rowgroup_plain(step_groups, slot_cols, blocks, dense,
+                        n_block_rows: int, R: int, gh: int) -> torch.Tensor:
+    """Plain version of K4 on the consecutive row-group layout: lane r of
+    step j sums its gh slot products into block-row step_groups[j]*R +
+    r; phantom lanes add nothing. Returns (n_block_rows*b, F) f32."""
+    dest, valid = rowgroup_lanes(step_groups, R, n_block_rows)
+    return lane_scatter(
+        dest, valid, n_block_rows, blocks.shape[1], dense.shape[1], R, gh,
+        _f32_lane_sums(slot_cols, blocks, dense, R, gh),
+    )
 
 
 # -- kernel wrappers --------------------------------------------------------
@@ -303,10 +421,11 @@ def _device_of(*tensors) -> torch.device:
     return dev
 
 
-def _check_cuda_operands(blocks, dense, index_arrays):
+def check_cuda_operands(blocks, dense, index_arrays, dtypes=_KERNEL_DTYPES):
     """What the CUDA kernels take: b in SUPPORTED_BLOCK_SIZES, blocks and
-    dense of one dtype (f32 or bf16), dense rows a multiple of b, all
-    contiguous, index arrays of the expected integer types."""
+    dense of one dtype of `dtypes`, dense rows a multiple of b, all
+    contiguous, the other arrays ({name: (tensor, dtype)}) of their
+    expected types."""
     if blocks.dim() != 3 or blocks.shape[1] != blocks.shape[2]:
         raise ValueError(f"blocks must be (S, b, b), got {tuple(blocks.shape)}")
     b = blocks.shape[1]
@@ -315,10 +434,10 @@ def _check_cuda_operands(blocks, dense, index_arrays):
             f"block size {b} not supported by the CUDA kernels "
             f"(supported: {SUPPORTED_BLOCK_SIZES})"
         )
-    if blocks.dtype not in _KERNEL_DTYPES or dense.dtype != blocks.dtype:
+    if blocks.dtype not in dtypes or dense.dtype != blocks.dtype:
         raise TypeError(
             f"blocks {blocks.dtype} and dense {dense.dtype} must share one "
-            f"dtype of {_KERNEL_DTYPES}"
+            f"dtype of {dtypes}"
         )
     if dense.dim() != 2 or dense.shape[0] % b:
         raise ValueError(
@@ -344,7 +463,7 @@ def spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense,
     if dev.type == "cpu":
         return spmm_flat_plain(step_rows, slot_cols, blocks, dense,
                                n_block_rows, group)
-    _check_cuda_operands(blocks, dense, {
+    check_cuda_operands(blocks, dense, {
         "step_ptr": (step_ptr, torch.int64),
         "slot_cols": (slot_cols, torch.int32),
     })
@@ -375,7 +494,7 @@ def spmm_sorted(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr,
         return spmm_sorted_plain(win_ids, pos, slot_cols, blocks, dense,
                                  lane_valid, group_ptr, n_block_rows, R, gh,
                                  window)
-    _check_cuda_operands(blocks, dense, {
+    check_cuda_operands(blocks, dense, {
         "win_ids": (win_ids, torch.int32),
         "pos": (pos, torch.int32),
         "slot_cols": (slot_cols, torch.int32),
@@ -401,20 +520,61 @@ def spmm_sorted(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr,
     return out
 
 
+def spmm_rowgroup(step_groups, group_ptr, slot_cols, blocks, dense,
+                  n_block_rows: int, R: int, gh: int) -> torch.Tensor:
+    """K4: C (n_block_rows*b, F) f32 on the consecutive row-group layout.
+
+    group_ptr (n_groups+1,) int64 points each group at its steps
+    (group_pointer at plan time). CPU tensors run spmm_rowgroup_plain;
+    CUDA tensors run the CUDA kernel, whose phantom lanes store
+    nothing."""
+    dev = _device_of(step_groups, group_ptr, slot_cols, blocks, dense)
+    if dev.type == "cpu":
+        return spmm_rowgroup_plain(step_groups, slot_cols, blocks, dense,
+                                   n_block_rows, R, gh)
+    check_cuda_operands(blocks, dense, {
+        "group_ptr": (group_ptr, torch.int64),
+        "slot_cols": (slot_cols, torch.int32),
+    })
+    check_rowgroup_geometry(step_groups, group_ptr, slot_cols, blocks,
+                            n_block_rows, R, gh)
+    b = blocks.shape[1]
+    F = dense.shape[1]
+    out = torch.empty(n_block_rows * b, F, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _kernels.bsr_spmm_rowgroup(
+            group_ptr.data_ptr(), slot_cols.data_ptr(), blocks.data_ptr(),
+            dense.data_ptr(), out.data_ptr(), (group_ptr.shape[0] - 1) * R,
+            n_block_rows, F, R, gh, b, int(blocks.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    return out
+
+
+def check_rowgroup_geometry(step_groups, group_ptr, slot_cols, blocks,
+                            n_block_rows: int, R: int, gh: int) -> None:
+    """The row-group arrays agree: R*gh slots per step, and the groups'
+    R lanes cover every block-row (the last group may hold phantoms)."""
+    n_groups = group_ptr.shape[0] - 1
+    if slot_cols.shape[0] != blocks.shape[0] or blocks.shape[0] != step_groups.shape[0] * R * gh:
+        raise ValueError("slot_cols and blocks must hold n_steps*R*gh slots")
+    if not (n_groups - 1) * R < n_block_rows <= n_groups * R:
+        raise ValueError(
+            f"{n_groups} groups of {R} lanes do not cover {n_block_rows} "
+            "block-rows"
+        )
+
+
 # -- the plan ---------------------------------------------------------------
 
 
 def _plan_dtype(dtype) -> Optional[torch.dtype]:
-    """None (f32 operands), torch.float32 or torch.bfloat16; int8 and
-    anything else raise."""
+    """None (f32 operands), torch.float32 or torch.bfloat16; int8 raises
+    ValueError (it needs the quantized tier), as does anything else."""
     if dtype is None:
         return None
-    name = str(getattr(dtype, "name", dtype)).replace("torch.", "")
-    if name == "int8":
-        raise NotImplementedError(
-            "int8 BSR serving is not ported yet (ROADMAP queue 1 item 6, "
-            "kernels K6-K9)"
-        )
+    reject_int8_cast(dtype, "bsr_pallas (use bsr_int8_pallas)")
+    name = dtype_name(dtype)
     if name == "float32":
         return torch.float32
     if name == "bfloat16":
@@ -435,24 +595,25 @@ def bsr_spmm_pallas_plan(
     """Host layout prep once -> Plan computing C = A @ dense in f32.
 
     dtype: None or float32 (exact f32 products) or bfloat16 (bf16 blocks
-    and operand, f32 sum). group: slots per step (flat layout) or per
-    lane (sorted layout); None picks the JAX plan's rule. depth_sort:
-    None follows the occupancy gate; True/False force it where the dtype
-    allows the sorted layout. device: where the packed arrays live; the
-    plan runs its kernels there (``plan.to(device)`` moves it).
+    and operand, f32 sum); int8 raises ValueError (use
+    ``bsr_spmm_pallas_int8_plan``). group: slots per step (flat layout)
+    or per lane (row-group layouts); None picks the JAX plan's rule.
+    depth_sort: None follows the occupancy gate; True/False force it
+    where the dtype allows the sorted layout. resident: False keeps bf16
+    on the flat layout; None and True are the same. device: where the
+    packed arrays live; the plan runs its kernels there
+    (``plan.to(device)`` moves it).
 
     Layout (the JAX plan's gate without its VMEM fit checks): bf16 takes
     the depth-sorted layout (K2) when depth_sort holds, which by default
-    is at >= 2 real blocks per block-row; f32 takes it at >= 8 and
-    depth_sort; everything else takes the flat layout (K1).
-
-    Known divergence: for bf16 with depth_sort=False the JAX plan packs
-    the consecutive row-group layout (its K4 kernel, not ported yet);
-    this port packs the flat layout (K1). Both compute the same C.
+    is at >= 2 real blocks per block-row, and the consecutive row-group
+    layout (K4) otherwise; f32 takes the sorted layout at >= 8 and
+    depth_sort; everything else, and bf16 with resident=False, takes
+    the flat layout (K1).
 
     Not ported yet, each raising NotImplementedError: grad=True (the
     backward plan), precision="high" and other precision overrides
-    (bf16x3, K3), resident=True (K5) and int8."""
+    (bf16x3, K3), and resident=True for f32 (K5)."""
     if grad:
         raise NotImplementedError(
             "grad=True is not ported yet (ROADMAP queue 1 item 1: grad_plan "
@@ -466,12 +627,12 @@ def bsr_spmm_pallas_plan(
             f"precision={precision!r} is not ported yet (ROADMAP queue 1 "
             "item 4: K3, the bf16x3 product); f32 runs exact products"
         )
-    if resident:
-        raise NotImplementedError(
-            "resident=True is not ported yet (ROADMAP queue 1 item 5: K5, "
-            "the resident-operand kernel)"
-        )
     itemsize = 2 if dtype == torch.bfloat16 else 4
+    if resident and itemsize == 4:
+        raise NotImplementedError(
+            "resident=True for f32 is not ported yet (ROADMAP queue 1 "
+            "item 5: K5, the resident-operand kernel)"
+        )
     covered = _ensure_covering(bsr)
     b = covered.b
     n_rows, n_cols = bsr.shape
@@ -493,7 +654,8 @@ def bsr_spmm_pallas_plan(
         )
     if depth_sort is None:
         depth_sort = avg_real >= 2.0
-    wide_sorted = itemsize == 4 and resident is not False and avg_real >= 8.0
+    wide_sorted = (itemsize == 4 and resident is not False
+                   and precision is None and avg_real >= 8.0)
 
     if depth_sort and (two_byte or wide_sorted):
         R, gh, W = _depth_sort_policy(
@@ -506,9 +668,17 @@ def bsr_spmm_pallas_plan(
         group_ptr = np.concatenate([[0], np.cumsum(steps_per_group)])
         arrays = (win_ids, slot_cols, blocks_pad, pos, lane_valid, group_ptr)
         statics = ("sorted", nbr, n_rows, n_cols, k_needed, (R, gh, W))
-    else:
-        if two_byte and group_was_auto:
+    elif two_byte:
+        if group_was_auto:
             group = min(group, _ROWGROUP_GH_CAP)
+        R, _ = _rowgroup_policy(itemsize, group)
+        step_groups, slot_cols, blocks_pad, n_groups = _pack_rowgroups(
+            rows_h, cols_h, blocks_h, group, R
+        )
+        arrays = (step_groups, slot_cols, blocks_pad,
+                  group_pointer(step_groups, n_groups))
+        statics = ("rowgroup", nbr, n_rows, n_cols, k_needed, (R, group))
+    else:
         step_rows, slot_cols, blocks_pad = _pack_groups(
             rows_h, cols_h, blocks_h, group
         )
@@ -536,6 +706,14 @@ def _pallas_apply(statics, arrays, dense, plain: bool = False):
         run = spmm_sorted_plain if plain else spmm_sorted
         out = run(win_ids, pos, slot_cols, blocks, dense, lane_valid,
                   group_ptr, nbr, *geom)
+    elif layout == "rowgroup":
+        step_groups, slot_cols, _, group_ptr = arrays
+        if plain:
+            out = spmm_rowgroup_plain(step_groups, slot_cols, blocks, dense,
+                                      nbr, *geom)
+        else:
+            out = spmm_rowgroup(step_groups, group_ptr, slot_cols, blocks,
+                                dense, nbr, *geom)
     elif plain:
         step_rows, slot_cols, _, _ = arrays
         out = spmm_flat_plain(step_rows, slot_cols, blocks, dense, nbr, geom)
@@ -548,8 +726,8 @@ def _pallas_apply(statics, arrays, dense, plain: bool = False):
 def plain_apply(plan: Plan, dense) -> torch.Tensor:
     """The plan's answer through the kernels' plain PyTorch versions, on
     the plan's device: the reference a kernel is held against on the
-    card."""
-    return _pallas_apply(plan.statics, plan.arrays, dense, plain=True)
+    card. Works for the f32/bf16 and the int8 kernel plans."""
+    return plan.apply_fn(plan.statics, plan.arrays, dense, plain=True)
 
 
 def bsr_spmm_pallas(bsr: BSR, dense, **kw) -> torch.Tensor:

@@ -1,0 +1,416 @@
+"""int8 BSR SpMM plan on hand-written CUDA kernels (twin of
+``spmm_denseblock_tpu/ops/bsr_spmm_pallas_int8.py``; its kernels are CUDA
+C++ for Hopper, in ``csrc/bsr_spmm_int8.cu``).
+
+The plan packs the f32 blocks with the f32 plan's packers, then
+quantizes the packed list (pad slots are zero blocks, so they quantize
+to 0), bit-equal to the JAX plan. Each call quantizes the operand per
+column with torch ops (or with scales fixed from a calibration batch)
+and runs one of three kernels:
+
+- K6, flat gather (``spmm_int8_flat``), replacing ``_pallas_int8_spmm``;
+- K7, depth-sorted row groups (``spmm_int8_sorted``), replacing
+  ``_pallas_int8_spmm_sorted``, with one scale per slot or one per
+  lane-step (group-scale, the plan's default);
+- K8, consecutive row groups (``spmm_int8_rowgroup``), replacing
+  ``_pallas_int8_spmm_rowgroup``.
+
+Every kernel sums int8 x int8 products exactly in int32, scales the sum
+to f32 with the slot's (or the lane-step's) block scale, and multiplies
+the f32 sum by the column's operand scale before the store. Beside each
+kernel sits its plain PyTorch version on the same packed arrays: the
+int8 products in f32 (exact: |q q| b <= 127^2 * 128 < 2^24), a
+group-scale lane sum in float64 (exact, as the int32 sum is), then the
+scales in f32. A wrapper runs the plain version only for CPU tensors;
+for CUDA tensors it launches the kernel or raises. Inference only.
+
+Layout policy: the JAX plan's gate without the TPU's VMEM fit checks,
+f_tile, SMEM chunking and environment knobs.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from spmm_denseblock_tpu_torch.formats.bsr import BSR
+from spmm_denseblock_tpu_torch.ops import _kernels
+from spmm_denseblock_tpu_torch.ops.bsr_spmm_int8 import (
+    quantize_blocks,
+    quantize_per_column,
+    reject_grad_request,
+    static_col_scale,
+)
+from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import (
+    _ROWGROUP_GH_CAP,
+    _auto_group_pow2,
+    _depth_sort_policy,
+    _device_of,
+    _ensure_covering,
+    _pack_groups,
+    _pack_rowgroups,
+    _pack_rowgroups_sorted,
+    _rowgroup_policy,
+    check_cuda_operands,
+    check_rowgroup_geometry,
+    group_pointer,
+    lane_scatter,
+    rowgroup_lanes,
+    sorted_lanes,
+)
+from spmm_denseblock_tpu_torch.ops.plan import Plan
+
+# -- plain PyTorch versions of the kernels --------------------------------
+
+
+def _int8_lane_sums(slot_cols, qblocks, scales, qdense, R: int, gh: int,
+                    group_scale: bool):
+    """lane_sums(j0, j1) for lane_scatter: (j1-j0, R, b, F) f32 of the
+    scaled int8 slot products. Per-slot scales multiply each slot's
+    product; a group-scale lane sums its gh products first (in float64,
+    exact) and multiplies once by the lane-step's scale."""
+    b = qblocks.shape[1]
+    F = qdense.shape[1]
+    qdense_b = qdense.reshape(-1, b, F)
+    G = R * gh
+
+    def lane_sums(j0, j1):
+        cols = slot_cols[j0 * G:j1 * G].long()
+        # exact integers in f32: |sum| <= 127^2 * b < 2^24
+        prod = torch.bmm(qblocks[j0 * G:j1 * G].float(), qdense_b[cols].float())
+        prod = prod.reshape(j1 - j0, R, gh, b, F)
+        if group_scale:
+            isum = prod.sum(dim=2, dtype=torch.float64).float()
+            return isum * scales[j0 * R:j1 * R].reshape(-1, R, 1, 1)
+        s = scales[j0 * G:j1 * G].reshape(-1, R, gh, 1, 1)
+        return (prod * s).sum(dim=2)
+
+    return lane_sums
+
+
+def spmm_int8_flat_plain(step_rows, slot_cols, qblocks, scales, qdense,
+                         col_scale, n_block_rows: int,
+                         group: int) -> torch.Tensor:
+    """Plain version of K6 on the flat layout: step j's `group` scaled
+    slot products add into block-row step_rows[j]; the sum is multiplied
+    by the column scales. Returns (n_block_rows*b, F) f32."""
+    return col_scale * lane_scatter(
+        step_rows.long()[:, None], None, n_block_rows, qblocks.shape[1],
+        qdense.shape[1], 1, group,
+        _int8_lane_sums(slot_cols, qblocks, scales, qdense, 1, group, False),
+    )
+
+
+def spmm_int8_sorted_plain(win_ids, pos, slot_cols, qblocks, scales, qdense,
+                           col_scale, lane_valid, group_ptr,
+                           n_block_rows: int, R: int, gh: int, window: int,
+                           group_scale: bool) -> torch.Tensor:
+    """Plain version of K7 on the depth-sorted layout: scales are (T*G,)
+    per slot, or (T*R,) per lane-step with group_scale. Absent lanes add
+    nothing. Returns (n_block_rows*b, F) f32."""
+    dest, valid = sorted_lanes(win_ids, pos, lane_valid, group_ptr, R, window)
+    return col_scale * lane_scatter(
+        dest, valid, n_block_rows, qblocks.shape[1], qdense.shape[1], R, gh,
+        _int8_lane_sums(slot_cols, qblocks, scales, qdense, R, gh, group_scale),
+    )
+
+
+def spmm_int8_rowgroup_plain(step_groups, slot_cols, qblocks, scales, qdense,
+                             col_scale, n_block_rows: int, R: int,
+                             gh: int) -> torch.Tensor:
+    """Plain version of K8 on the consecutive row-group layout, per-slot
+    scales; phantom lanes add nothing. Returns (n_block_rows*b, F) f32."""
+    dest, valid = rowgroup_lanes(step_groups, R, n_block_rows)
+    return col_scale * lane_scatter(
+        dest, valid, n_block_rows, qblocks.shape[1], qdense.shape[1], R, gh,
+        _int8_lane_sums(slot_cols, qblocks, scales, qdense, R, gh, False),
+    )
+
+
+# -- kernel wrappers --------------------------------------------------------
+
+
+def _check_int8_operands(qblocks, qdense, scales, n_scales: int, col_scale,
+                         index_arrays):
+    """int8 blocks and operand, f32 scales of the layout's length (per
+    slot or per lane-step: one layout's scales fed to another answer
+    wrongly without a sound), f32 column scales of the operand's width."""
+    check_cuda_operands(qblocks, qdense, {
+        **index_arrays,
+        "scales": (scales, torch.float32),
+        "col_scale": (col_scale, torch.float32),
+    }, dtypes=(torch.int8,))
+    if scales.shape != (n_scales,):
+        raise ValueError(
+            f"scales must be ({n_scales},) for this layout, got "
+            f"{tuple(scales.shape)}"
+        )
+    if col_scale.shape != (qdense.shape[1],):
+        raise ValueError(
+            f"col_scale must be ({qdense.shape[1]},), got {tuple(col_scale.shape)}"
+        )
+    if qblocks.data_ptr() % 16:
+        raise ValueError("qblocks must be 16-byte aligned (word loads)")
+
+
+def _launch(kernel, dev, *args):
+    with torch.cuda.device(dev):
+        kernel(*args, torch.cuda.current_stream(dev).cuda_stream)
+
+
+def spmm_int8_flat(step_rows, step_ptr, slot_cols, qblocks, scales, qdense,
+                   col_scale, group: int) -> torch.Tensor:
+    """K6: C (n_block_rows*b, F) f32 on the flat layout, per-slot scales
+    (S,). step_ptr (n_block_rows+1,) int64 points each block-row at its
+    steps. CPU tensors run spmm_int8_flat_plain."""
+    dev = _device_of(step_rows, step_ptr, slot_cols, qblocks, scales, qdense,
+                     col_scale)
+    n_block_rows = step_ptr.shape[0] - 1
+    if dev.type == "cpu":
+        return spmm_int8_flat_plain(step_rows, slot_cols, qblocks, scales,
+                                    qdense, col_scale, n_block_rows, group)
+    _check_int8_operands(qblocks, qdense, scales, qblocks.shape[0], col_scale, {
+        "step_ptr": (step_ptr, torch.int64),
+        "slot_cols": (slot_cols, torch.int32),
+    })
+    if slot_cols.shape[0] != qblocks.shape[0] or qblocks.shape[0] % group:
+        raise ValueError("slot_cols and qblocks must hold n_steps*group slots")
+    b = qblocks.shape[1]
+    F = qdense.shape[1]
+    out = torch.empty(n_block_rows * b, F, dtype=torch.float32, device=dev)
+    _launch(_kernels.bsr_spmm_int8_flat, dev,
+            step_ptr.data_ptr(), slot_cols.data_ptr(), qblocks.data_ptr(),
+            scales.data_ptr(), qdense.data_ptr(), col_scale.data_ptr(),
+            out.data_ptr(), n_block_rows, F, group, b)
+    return out
+
+
+def spmm_int8_sorted(win_ids, pos, slot_cols, qblocks, scales, qdense,
+                     col_scale, lane_valid, group_ptr, n_block_rows: int,
+                     R: int, gh: int, window: int,
+                     group_scale: bool) -> torch.Tensor:
+    """K7: C (n_block_rows*b, F) f32 on the depth-sorted layout. scales:
+    (T*R,) one per lane-step with group_scale (int32 lane sums), else
+    (T*G,) one per slot. CPU tensors run spmm_int8_sorted_plain."""
+    dev = _device_of(win_ids, pos, slot_cols, qblocks, scales, qdense,
+                     col_scale, lane_valid, group_ptr)
+    if dev.type == "cpu":
+        return spmm_int8_sorted_plain(
+            win_ids, pos, slot_cols, qblocks, scales, qdense, col_scale,
+            lane_valid, group_ptr, n_block_rows, R, gh, window, group_scale)
+    n_steps = win_ids.shape[0]
+    _check_int8_operands(
+        qblocks, qdense, scales, n_steps * (R if group_scale else R * gh),
+        col_scale, {
+            "win_ids": (win_ids, torch.int32),
+            "pos": (pos, torch.int32),
+            "slot_cols": (slot_cols, torch.int32),
+            "lane_valid": (lane_valid, torch.bool),
+            "group_ptr": (group_ptr, torch.int64),
+        })
+    n_lanes = lane_valid.shape[0]
+    if n_lanes != (group_ptr.shape[0] - 1) * R:
+        raise ValueError("lane_valid must hold n_groups*R lanes")
+    if slot_cols.shape[0] != qblocks.shape[0] or qblocks.shape[0] != n_steps * R * gh:
+        raise ValueError("slot_cols and qblocks must hold n_steps*R*gh slots")
+    b = qblocks.shape[1]
+    F = qdense.shape[1]
+    out = torch.empty(n_block_rows * b, F, dtype=torch.float32, device=dev)
+    _launch(_kernels.bsr_spmm_int8_sorted, dev,
+            group_ptr.data_ptr(), win_ids.data_ptr(), pos.data_ptr(),
+            lane_valid.data_ptr(), slot_cols.data_ptr(), qblocks.data_ptr(),
+            scales.data_ptr(), qdense.data_ptr(), col_scale.data_ptr(),
+            out.data_ptr(), n_lanes, F, R, gh, window, b, int(group_scale))
+    return out
+
+
+def spmm_int8_rowgroup(step_groups, group_ptr, slot_cols, qblocks, scales,
+                       qdense, col_scale, n_block_rows: int, R: int,
+                       gh: int) -> torch.Tensor:
+    """K8: C (n_block_rows*b, F) f32 on the consecutive row-group layout,
+    per-slot scales (T*G,). Phantom lanes store nothing. CPU tensors run
+    spmm_int8_rowgroup_plain."""
+    dev = _device_of(step_groups, group_ptr, slot_cols, qblocks, scales,
+                     qdense, col_scale)
+    if dev.type == "cpu":
+        return spmm_int8_rowgroup_plain(step_groups, slot_cols, qblocks,
+                                        scales, qdense, col_scale,
+                                        n_block_rows, R, gh)
+    _check_int8_operands(qblocks, qdense, scales, qblocks.shape[0], col_scale, {
+        "group_ptr": (group_ptr, torch.int64),
+        "slot_cols": (slot_cols, torch.int32),
+    })
+    check_rowgroup_geometry(step_groups, group_ptr, slot_cols, qblocks,
+                            n_block_rows, R, gh)
+    b = qblocks.shape[1]
+    F = qdense.shape[1]
+    out = torch.empty(n_block_rows * b, F, dtype=torch.float32, device=dev)
+    _launch(_kernels.bsr_spmm_int8_rowgroup, dev,
+            group_ptr.data_ptr(), slot_cols.data_ptr(), qblocks.data_ptr(),
+            scales.data_ptr(), qdense.data_ptr(), col_scale.data_ptr(),
+            out.data_ptr(), (group_ptr.shape[0] - 1) * R, n_block_rows, F,
+            R, gh, b)
+    return out
+
+
+# -- the plan ---------------------------------------------------------------
+
+
+def _group_scale_quantize(blocks_pad: np.ndarray, n_steps: int, R: int,
+                          gh: int):
+    """Group-scale quantization of the sorted layout, bit-equal to the
+    JAX plan: the gh slots of each lane-step share one scale (the lane's
+    absmax / 127), so a kernel sums the lane in int32 and scales once.
+    Returns (qblocks (T*G, b, b) int8, scales (T*R,) f32)."""
+    b = blocks_pad.shape[1]
+    lanes = blocks_pad.reshape(n_steps, R, gh, b, b)
+    lane_absmax = np.abs(lanes).max(axis=(2, 3, 4))
+    lane_scales = np.where(
+        lane_absmax > 0, lane_absmax / 127.0, 1.0
+    ).astype(np.float32)
+    q = lanes * (np.float32(1.0) / lane_scales)[:, :, None, None, None]
+    np.rint(q, out=q)
+    np.clip(q, -127, 127, out=q)
+    return q.reshape(n_steps * R * gh, b, b).astype(np.int8), lane_scales.reshape(-1)
+
+
+def bsr_spmm_pallas_int8_plan(
+    bsr: BSR,
+    calibration=None,
+    group: Optional[int] = None,
+    resident: Optional[bool] = None,
+    depth_sort: Optional[bool] = None,
+    device="cpu",
+    group_scale: bool = True,
+    grad: bool = False,
+) -> Plan:
+    """Host quantization and layout prep once -> Plan computing
+    C = A @ dense in f32. Inference only: grad=True raises ValueError.
+
+    calibration: an optional representative operand batch; it fixes the
+    per-column scales at plan time (static_col_scale), else each call
+    quantizes per column. group: slots per step (flat) or per lane (row
+    groups); None picks the JAX plan's rule. device: where the packed
+    arrays live.
+
+    Layout (the JAX plan's gate): resident=False takes the flat layout
+    (K6). Otherwise depth_sort (default: >= 8 real blocks per block-row)
+    takes the depth-sorted layout (K7) at (R, gh, W) = (8, 8, 32), with
+    one scale per lane-step unless group_scale=False (the JAX plan's
+    SDB_INT8_GROUP_SCALE=0); below the gate it takes consecutive row
+    groups (K8) at R = 8, gh = min(group, 16)."""
+    reject_grad_request({"grad": grad}, "bsr_int8_pallas")
+    covered = _ensure_covering(bsr)
+    b = covered.b
+    n_rows, n_cols = bsr.shape
+    nbr = covered.n_block_rows
+    k_needed = covered.n_block_cols * b
+    rows_h = np.asarray(covered.block_rows[: covered.nnzb])
+    cols_h = np.asarray(covered.block_cols[: covered.nnzb])
+    blocks_h = np.asarray(covered.blocks[: covered.nnzb], dtype=np.float32)
+    group_was_auto = group is None
+    if group is None:
+        group = _auto_group_pow2(covered.nnzb, np.unique(rows_h).size)
+    if depth_sort is None:
+        depth_sort = bsr.nnzb / max(nbr, 1) >= 8.0
+
+    # pack the f32 blocks, then quantize the packed list: pad slots are
+    # zero blocks and quantize to 0, and the scales line up with slots
+    if resident is not False and depth_sort:
+        R, gh, W = _depth_sort_policy(1, None if group_was_auto else group)
+        (win_ids, pos, slot_cols, blocks_pad, _, lane_valid,
+         steps_per_group) = _pack_rowgroups_sorted(
+            rows_h, cols_h, blocks_h, gh, R, W
+        )
+        if group_scale:
+            qblocks, scales = _group_scale_quantize(
+                blocks_pad, win_ids.shape[0], R, gh)
+        else:
+            qblocks, scales = quantize_blocks(blocks_pad)
+        group_ptr = np.concatenate([[0], np.cumsum(steps_per_group)])
+        arrays = [win_ids, slot_cols, qblocks, scales, pos, lane_valid, group_ptr]
+        layout, geom = "sorted", (R, gh, W, group_scale)
+    elif resident is not False:
+        if group_was_auto:
+            group = min(group, _ROWGROUP_GH_CAP)
+        R, _ = _rowgroup_policy(1, group)
+        step_groups, slot_cols, blocks_pad, n_groups = _pack_rowgroups(
+            rows_h, cols_h, blocks_h, group, R
+        )
+        qblocks, scales = quantize_blocks(blocks_pad)
+        arrays = [step_groups, slot_cols, qblocks, scales,
+                  group_pointer(step_groups, n_groups)]
+        layout, geom = "rowgroup", (R, group)
+    else:
+        step_rows, slot_cols, blocks_pad = _pack_groups(
+            rows_h, cols_h, blocks_h, group
+        )
+        qblocks, scales = quantize_blocks(blocks_pad)
+        step_ptr = np.searchsorted(step_rows, np.arange(nbr + 1)).astype(np.int64)
+        arrays = [step_rows, slot_cols, qblocks, scales, step_ptr]
+        layout, geom = "flat", group
+    if calibration is not None:
+        arrays.append(static_col_scale(calibration))
+    statics = (layout, nbr, n_rows, n_cols, k_needed, geom,
+               calibration is not None)
+    return Plan(arrays, _int8_pallas_apply, statics, device=device)
+
+
+def quantize_operand(plan: Plan, dense):
+    """The operand of an int8 kernel plan: f32, zero rows up to the
+    block grid, quantized per column with the plan's static scales or
+    this operand's. Returns (qdense int8, col_scale f32)."""
+    return _quantize(plan.statics, plan.arrays, dense)
+
+
+def run_quantized(plan: Plan, qdense, col_scale,
+                  plain: bool = False) -> torch.Tensor:
+    """The plan's kernel (or its plain version) on an operand already
+    quantized by quantize_operand: C (n_rows, F) f32."""
+    return _run(plan.statics, plan.arrays, qdense, col_scale, plain)
+
+
+def _quantize(statics, arrays, dense):
+    _, _, _, n_cols, k_needed, _, calibrated = statics
+    dense = torch.as_tensor(dense, device=arrays[2].device).to(torch.float32)
+    if dense.dim() != 2 or dense.shape[0] != n_cols:
+        raise ValueError(f"dense must be ({n_cols}, F), got {tuple(dense.shape)}")
+    if k_needed > n_cols:
+        dense = torch.nn.functional.pad(dense, (0, 0, 0, k_needed - n_cols))
+    q, cs = quantize_per_column(dense, arrays[-1] if calibrated else None)
+    return q.contiguous(), cs.contiguous()
+
+
+def _run(statics, arrays, qdense, col_scale, plain: bool):
+    layout, nbr, n_rows, _, _, geom, _ = statics
+    if layout == "sorted":
+        win_ids, slot_cols, qblocks, scales, pos, lane_valid, group_ptr = arrays[:7]
+        run = spmm_int8_sorted_plain if plain else spmm_int8_sorted
+        out = run(win_ids, pos, slot_cols, qblocks, scales, qdense, col_scale,
+                  lane_valid, group_ptr, nbr, *geom)
+    elif layout == "rowgroup":
+        step_groups, slot_cols, qblocks, scales, group_ptr = arrays[:5]
+        if plain:
+            out = spmm_int8_rowgroup_plain(step_groups, slot_cols, qblocks,
+                                           scales, qdense, col_scale, nbr,
+                                           *geom)
+        else:
+            out = spmm_int8_rowgroup(step_groups, group_ptr, slot_cols,
+                                     qblocks, scales, qdense, col_scale, nbr,
+                                     *geom)
+    else:
+        step_rows, slot_cols, qblocks, scales, step_ptr = arrays[:5]
+        if plain:
+            out = spmm_int8_flat_plain(step_rows, slot_cols, qblocks, scales,
+                                       qdense, col_scale, nbr, geom)
+        else:
+            out = spmm_int8_flat(step_rows, step_ptr, slot_cols, qblocks,
+                                 scales, qdense, col_scale, geom)
+    return out[:n_rows]
+
+
+def _int8_pallas_apply(statics, arrays, dense, plain: bool = False):
+    qdense, col_scale = _quantize(statics, arrays, dense)
+    return _run(statics, arrays, qdense, col_scale, plain)

@@ -8,9 +8,10 @@ The impl names are the JAX package's, so one call line works on both.
 ``impl="auto"`` reproduces the JAX router's BSR branch: CSR input, the
 wide/narrow operand split at feat_dim 256, b >= 64, the 4 GiB byte
 budget and the fill-amplification guard at 32x. Those constants were
-measured on a TPU v5e and are copied as they are; where the JAX router
-would pick a tier this port does not have yet, "auto" raises
-NotImplementedError naming it.
+measured on a TPU v5e and are copied as they are. ``dtype=int8`` maps
+the chosen tier, picked by "auto" or named, to its quantized variant, as
+the JAX router does. Where that gives a tier this port does not have
+yet, spmm_plan raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -23,7 +24,9 @@ import torch
 from spmm_denseblock_tpu_torch.convert.csr2bsr import csr_to_bsr
 from spmm_denseblock_tpu_torch.formats.bsr import BSR
 from spmm_denseblock_tpu_torch.formats.csr import CSR
+from spmm_denseblock_tpu_torch.ops.bsr_spmm_int8 import bsr_spmm_int8_plan, dtype_name
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import bsr_spmm_pallas_plan
+from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8 import bsr_spmm_pallas_int8_plan
 from spmm_denseblock_tpu_torch.ops.plan import Plan
 from spmm_denseblock_tpu_torch.ops.reference import spmm_dense_torch
 
@@ -31,8 +34,21 @@ from spmm_denseblock_tpu_torch.ops.reference import spmm_dense_torch
 _NOT_PORTED = {
     "bsr_xla": "ROADMAP queue 1 item 2",
     "csr_ell": "ROADMAP queue 1 item 9",
+    "csr_ell_int8": "ROADMAP queue 1 item 9",
     "hybrid": "ROADMAP queue 1 item 10",
+    "hybrid_int8": "ROADMAP queue 1 item 10",
+    "windowed": "ROADMAP queue 1 item 10",
+    "windowed_int8": "ROADMAP queue 1 item 10",
     "repack_bsr": "ROADMAP queue 1 item 10",
+}
+
+# dtype=int8 maps a tier to its quantized variant (inference only)
+_INT8_VARIANT = {
+    "bsr_pallas": "bsr_int8_pallas",
+    "bsr_xla": "bsr_int8",
+    "csr_ell": "csr_ell_int8",
+    "hybrid": "hybrid_int8",
+    "windowed": "windowed_int8",
 }
 
 
@@ -47,6 +63,8 @@ def _dense_plan(mat, device="cpu", **kw):
 
 PLANNERS: Dict[str, Callable] = {
     "bsr_pallas": lambda m, **kw: bsr_spmm_pallas_plan(m, **kw),
+    "bsr_int8": lambda m, **kw: bsr_spmm_int8_plan(m, **kw),
+    "bsr_int8_pallas": lambda m, **kw: bsr_spmm_pallas_int8_plan(m, **kw),
     "dense": _dense_plan,
 }
 
@@ -93,17 +111,28 @@ def spmm_plan(matrix, impl: str = "auto", block_size: int = 128,
               feat_dim=None, **kw) -> Plan:
     """Build an SpMM executor for `matrix` (CSR or BSR).
 
-    impl: "bsr_pallas", "dense" or "auto". feat_dim steers "auto" (None
-    assumes a wide operand). Other keyword arguments go to the planner,
-    e.g. grad=False, dtype=torch.bfloat16, device="cuda"."""
+    impl: "bsr_pallas", "bsr_int8", "bsr_int8_pallas", "dense" or
+    "auto". feat_dim steers "auto" (None assumes a wide operand).
+    dtype=torch.int8 maps the tier to its int8 variant (bsr_pallas ->
+    bsr_int8_pallas, bsr_xla -> bsr_int8); pass calibration= for static
+    operand scales. Other keyword arguments go to the planner, e.g.
+    grad=False, dtype=torch.bfloat16, device="cuda"."""
     budget = kw.pop("bsr_bytes_budget", 4 << 30)
-    if impl == "auto":
+    picked = impl == "auto"
+    if picked:
         impl = _auto_impl(matrix, block_size, feat_dim, budget)
-        if impl in _NOT_PORTED:
-            raise NotImplementedError(
-                f"impl='auto' picks {impl!r} for this input, which is not "
-                f"ported yet ({_NOT_PORTED[impl]})"
-            )
+    dtype = kw.get("dtype")
+    if dtype is not None and dtype_name(dtype) == "int8":
+        if impl in _INT8_VARIANT:
+            impl = _INT8_VARIANT[impl]
+        if impl in _INT8_VARIANT.values():  # the quantized tiers take no dtype
+            kw.pop("dtype")
+    if impl in _NOT_PORTED:
+        how = "impl='auto' picks" if picked else "impl resolves to"
+        raise NotImplementedError(
+            f"{how} {impl!r} for this input, which is not ported yet "
+            f"({_NOT_PORTED[impl]})"
+        )
     if impl not in PLANNERS:
         raise KeyError(f"unknown impl {impl!r}; have {sorted(PLANNERS)}")
     if impl.startswith("bsr") and isinstance(matrix, CSR):

@@ -1,8 +1,9 @@
 """The port's BSR SpMM plan against the JAX package: the host packers are
-bit-equal, the plain versions of K1 (flat grouped gather) and K2
-(depth-sorted row groups) match the JAX Pallas kernels run in interpret
-mode on the same packed arrays, the plan matches the scipy oracle, and
-the layout policy and the out-of-scope arguments behave as documented.
+bit-equal, the plain versions of K1 (flat grouped gather), K2
+(depth-sorted row groups) and K4 (consecutive row groups) match the JAX
+Pallas kernels run in interpret mode on the same packed arrays, the plan
+matches the scipy oracle, and the layout policy and the out-of-scope
+arguments behave as documented.
 
 Tolerances: plain version vs Pallas kernel on the same arrays, 1e-5
 relative to max |want| for f32 and bf16 operands (bf16 x bf16 products
@@ -105,6 +106,28 @@ def test_pack_rowgroups_sorted_bit_equal(geom):
     assert steps.max() >= 2
 
 
+@pytest.mark.parametrize("nb,R,gh", [(7, 16, 4), (21, 4, 2), (24, 8, 16)])
+def test_pack_rowgroups_bit_equal(nb, R, gh):
+    """7 block-rows at R=16 leave 9 phantom lanes; 21 at R=4 leave 3; 24
+    at R=8 leave none. Phantom lanes hold zero blocks only."""
+    rows, cols, blocks = _covered_parts(
+        T, _with_empty_rows(t_bsr, nb, 8, 0.3, seed=nb, empty=(3,)))
+    want = J._pack_rowgroups(rows, cols, blocks, gh, R)
+    got = T._pack_rowgroups(rows, cols, blocks, gh, R)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a, b)
+    step_groups, slot_cols, blocks_pad, n_groups = got
+    assert n_groups == -(-nb // R)
+    ptr = T.group_pointer(step_groups, n_groups)
+    assert ptr[0] == 0 and ptr[-1] == step_groups.size and (np.diff(ptr) >= 1).all()
+    lanes = blocks_pad.reshape(step_groups.size, R, gh, 8, 8)
+    phantom = step_groups[:, None] * R + np.arange(R) >= nb
+    assert phantom.any() == (nb % R != 0)
+    assert not lanes[phantom].any()
+    assert T._rowgroup_policy(2) == J._rowgroup_policy(2)
+    assert T._rowgroup_policy(1, 4) == J._rowgroup_policy(1, 4)
+
+
 def _layouts(bsr, group, gh_R_W):
     rows, cols, blocks = _covered_parts(T, bsr)
     nbr = bsr.n_block_rows
@@ -172,6 +195,40 @@ def test_sorted_plain_matches_pallas_kernel(dtype):
     assert _rel(got.numpy(), want) < 1e-5
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nb", [7, 37])
+def test_rowgroup_plain_matches_pallas_kernel(dtype, nb):
+    """K4's plain version against _pallas_spmm_rowgroup on the same
+    arrays: 7 block-rows at R=16 (9 phantom lanes, whose rows the JAX
+    output holds and the port's does not), 37 with empty rows."""
+    bsr = _with_empty_rows(t_bsr, nb, 16, 0.25, seed=11, empty=(3, 4))
+    R, gh = 16, 2
+    rows, cols, blocks = _covered_parts(T, bsr)
+    step_groups, slot_cols, blocks_pad, n_groups = T._pack_rowgroups(
+        rows, cols, blocks, gh, R)
+    F = 128
+    x = _dense(bsr, F, seed=12)
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    want = np.asarray(J._pallas_spmm_rowgroup(
+        jnp.asarray(step_groups), jnp.asarray(slot_cols),
+        jnp.asarray(blocks_pad).astype(jd),
+        jnp.asarray(x).astype(jd).reshape(-1, 16, F),
+        n_groups, nb * 16, F, gh, R, True,
+    ))
+    td = getattr(torch, dtype)
+    got = T.spmm_rowgroup_plain(
+        torch.as_tensor(step_groups), torch.as_tensor(slot_cols),
+        torch.as_tensor(blocks_pad).to(td), torch.as_tensor(x).to(td), nb, R, gh)
+    assert got.shape == (nb * 16, F) and got.dtype == torch.float32
+    assert _rel(got.numpy(), want) < 1e-5
+    assert not got.reshape(nb, 16, F)[[3, 4]].any()
+    # the CPU wrapper runs the plain version
+    ptr = torch.as_tensor(T.group_pointer(step_groups, n_groups))
+    assert torch.equal(T.spmm_rowgroup(
+        torch.as_tensor(step_groups), ptr, torch.as_tensor(slot_cols),
+        torch.as_tensor(blocks_pad).to(td), torch.as_tensor(x).to(td), nb, R, gh), got)
+
+
 @pytest.mark.parametrize("dtype", [None, "bfloat16"])
 @pytest.mark.parametrize("depth_sort", [None, True, False])
 @pytest.mark.parametrize("p", [0.08, 0.4])
@@ -221,19 +278,42 @@ def test_f32_layout_matches_jax_plan(depth):
     assert_allclose(tp(x), np.asarray(jp(x)))
 
 
+def _jax_layout(plan):
+    """The layout a JAX f32/bf16 or int8 Pallas plan packed."""
+    rowgroup = plan.statics[-1]
+    if rowgroup is None:
+        return "flat"
+    return "sorted" if isinstance(rowgroup[0], str) else "rowgroup"
+
+
 def test_bf16_layout_gate():
     """bf16 sorts at >= 2 real blocks per block-row; below, and with
-    depth_sort=False, the port packs the flat layout (the JAX plan packs
-    its consecutive row-group layout there)."""
-    sparse = t_bsr.random_bsr(0.05, 24, 24, block_size=16, seed=0)
-    dense = t_bsr.random_bsr(0.5, 24, 24, block_size=16, seed=0)
+    depth_sort=False, both packages pack consecutive row groups (K4);
+    resident=False keeps the flat layout (K1)."""
+    parts = {}
+    for name, p in (("sparse", 0.05), ("dense", 0.5)):
+        src = t_bsr.random_bsr(p, 24, 24, block_size=16, seed=0)
+        parts[name] = (src.block_rows, src.block_cols, src.blocks, src.shape, 16)
     bf = torch.bfloat16
-    assert T.bsr_spmm_pallas_plan(sparse, dtype=bf, grad=False).statics[0] == "flat"
-    assert T.bsr_spmm_pallas_plan(dense, dtype=bf, grad=False).statics[0] == "sorted"
-    assert T.bsr_spmm_pallas_plan(sparse, dtype=bf, grad=False,
-                                  depth_sort=True).statics[0] == "sorted"
-    assert T.bsr_spmm_pallas_plan(dense, dtype=bf, grad=False,
-                                  depth_sort=False).statics[0] == "flat"
+    for name, kw, layout in (
+        ("sparse", {}, "rowgroup"),
+        ("dense", {}, "sorted"),
+        ("sparse", {"depth_sort": True}, "sorted"),
+        ("dense", {"depth_sort": False}, "rowgroup"),
+        ("sparse", {"resident": True}, "rowgroup"),
+        ("dense", {"resident": True}, "sorted"),
+        ("dense", {"resident": False}, "flat"),
+    ):
+        tp = T.bsr_spmm_pallas_plan(t_bsr.BSR.from_parts(*parts[name]),
+                                    dtype=bf, grad=False, **kw)
+        jp = J.bsr_spmm_pallas_plan(j_bsr.BSR.from_parts(*parts[name]),
+                                    dtype=jnp.bfloat16, grad=False, **kw)
+        assert tp.statics[0] == _jax_layout(jp) == layout, (name, kw)
+        for a, b in zip(jp.arrays, tp.arrays):
+            np.testing.assert_array_equal(np.asarray(a.astype(jnp.float32)),
+                                          b.float().numpy())
+    x = np.random.default_rng(3).standard_normal((384, 40)).astype(np.float32)
+    assert _rel(tp(x).numpy(), np.asarray(jp(x))) < 1e-5
 
 
 @pytest.mark.parametrize("kw", [
@@ -241,14 +321,27 @@ def test_bf16_layout_gate():
     {"precision": "high"},
     {"precision": "default"},
     {"resident": True},
-    {"dtype": torch.int8},
-    {"dtype": "int8"},
+    {"resident": True, "dtype": torch.float32},
+    {"precision": "high", "dtype": torch.bfloat16},
 ])
 def test_out_of_scope_arguments_raise(kw):
     bsr = t_bsr.random_bsr(0.3, 4, 4, block_size=8, seed=0)
     kw = {"grad": False, **kw}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.bsr_spmm_pallas_plan(bsr, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, "int8", np.int8])
+def test_int8_dtype_raises_value_error(dtype):
+    """dtype=int8 on the cast-based plan raises ValueError in both
+    packages: a cast would truncate; int8 goes through the quantized
+    tier."""
+    bsr = t_bsr.random_bsr(0.3, 4, 4, block_size=8, seed=0)
+    with pytest.raises(ValueError, match="int8"):
+        T.bsr_spmm_pallas_plan(bsr, dtype=dtype, grad=False)
+    jb = j_bsr.random_bsr(0.3, 4, 4, block_size=8, seed=0)
+    with pytest.raises(ValueError, match="int8"):
+        J.bsr_spmm_pallas_plan(jb, dtype=jnp.int8, grad=False)
 
 
 def test_plan_module_and_sum_plan():

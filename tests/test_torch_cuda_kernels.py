@@ -1,6 +1,8 @@
-"""The CUDA kernels K1 (flat grouped gather) and K2 (depth-sorted row
+"""The CUDA kernels K1 (flat grouped gather), K2 (depth-sorted row
+groups), K4 (consecutive row groups) and the int8 kernels K6 (flat), K7
+(depth-sorted, group-scale and per-slot scales) and K8 (consecutive row
 groups) against their plain PyTorch versions on the card, their launch
-counters, and the wrapper's refusals. CUDA kernels have no CPU mode, so
+counters, and the wrappers' refusals. CUDA kernels have no CPU mode, so
 these tests skip without a GPU; run them on one with
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
@@ -20,6 +22,7 @@ from spmm_denseblock_tpu_torch.formats.bsr import BSR, random_bsr
 from spmm_denseblock_tpu_torch.ops import _kernels, assert_allclose, spmm_scipy
 
 T = importlib.import_module("spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas")
+TI = importlib.import_module("spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8")
 
 torch.set_num_threads(2)
 
@@ -65,10 +68,13 @@ def _check(plan, x, kernel):
 @pytest.mark.parametrize("layout", ["flat", "sorted"])
 def test_kernel_matches_plain(b, dtype, layout):
     """37 block-rows (not a multiple of R=16: absent lanes at pos 0),
-    two empty block-rows (covered by zero blocks), ragged F."""
+    two empty block-rows (covered by zero blocks), ragged F. bf16 takes
+    the flat layout only with resident=False."""
     bsr = _bsr(37, b, 0.3, seed=b)
     plan = T.bsr_spmm_pallas_plan(bsr, dtype=dtype, grad=False,
-                                  depth_sort=layout == "sorted", device="cuda")
+                                  depth_sort=layout == "sorted",
+                                  resident=False if layout == "flat" else None,
+                                  device="cuda")
     assert plan.statics[0] == layout
     kernel = _kernels.bsr_spmm_sorted if layout == "sorted" else _kernels.bsr_spmm_flat
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(
@@ -103,3 +109,141 @@ def test_wrappers_refuse_bad_operands():
         T.spmm_flat(step_rows, step_ptr, slot_cols, blocks,
                     torch.zeros(128, 4), plan.statics[-1])
     assert [k.launches for k in _kernels.KERNELS] == counts
+
+
+def _x(bsr, F=133, seed=0):
+    return torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (bsr.shape[1], F)).astype(np.float32), device="cuda")
+
+
+@pytest.mark.parametrize("b", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("nb", [7, 37])
+def test_rowgroup_kernel_matches_plain(b, dtype, nb):
+    """K4 with f32 and bf16 operands. 7 block-rows at R=16 is one group
+    with 9 phantom lanes, which must not store (the output has 7*b
+    rows); 37 adds two empty rows and a ragged F."""
+    bsr = _bsr(nb, b, 0.3, seed=b)
+    cov = T._ensure_covering(bsr)
+    R, gh = 16, 2
+    step_groups, slot_cols, blocks_pad, n_groups = T._pack_rowgroups(
+        cov.block_rows, cov.block_cols, cov.blocks, gh, R)
+    dev = lambda a: torch.as_tensor(a, device="cuda")
+    td = dtype or torch.float32
+    args = (dev(step_groups), dev(T.group_pointer(step_groups, n_groups)),
+            dev(slot_cols), dev(blocks_pad).to(td))
+    x = _x(bsr)
+    k_needed = bsr.n_block_cols * b
+    x = torch.nn.functional.pad(x, (0, 0, 0, k_needed - x.shape[0])).to(td)
+    before = _kernels.bsr_spmm_rowgroup.launches
+    got = T.spmm_rowgroup(*args, x, bsr.n_block_rows, R, gh)
+    torch.cuda.synchronize()
+    assert _kernels.bsr_spmm_rowgroup.launches == before + 1
+    want = T.spmm_rowgroup_plain(args[0], args[2], args[3], x,
+                                 bsr.n_block_rows, R, gh)
+    assert got.shape == want.shape == (bsr.n_block_rows * b, 133)
+    rel = (got - want).abs().max().item() / max(want.abs().max().item(), 1.0)
+    assert rel < TOL, rel
+
+
+def test_rowgroup_plan_uses_k4():
+    bsr = _bsr(37, 32, 0.3, seed=3)
+    plan = T.bsr_spmm_pallas_plan(bsr, dtype=torch.bfloat16, grad=False,
+                                  depth_sort=False, device="cuda")
+    assert plan.statics[0] == "rowgroup"
+    _check(plan, _x(bsr), _kernels.bsr_spmm_rowgroup)
+
+
+INT8_CASES = {
+    # name: (plan kwargs, kernel)
+    "flat": ({"resident": False}, "bsr_spmm_int8_flat"),
+    "sorted": ({"depth_sort": True}, "bsr_spmm_int8_sorted"),
+    "sorted_per_slot": ({"depth_sort": True, "group_scale": False},
+                        "bsr_spmm_int8_sorted"),
+    "rowgroup": ({"depth_sort": False}, "bsr_spmm_int8_rowgroup"),
+}
+
+
+@pytest.mark.parametrize("b", [16, 32, 64, 128])
+@pytest.mark.parametrize("case", list(INT8_CASES))
+@pytest.mark.parametrize("nb", [7, 37])
+def test_int8_kernel_matches_plain(b, case, nb):
+    """K6, K7 (both scale modes) and K8 on the same quantized operand as
+    their plain versions. 37 block-rows: K7's second window holds 5 rows,
+    so 3 absent lanes sit at pos 0; 7 block-rows: K8's one group has a
+    phantom lane. Two empty rows, ragged F, a calibrated plan for b=64."""
+    bsr = _bsr(nb, b, 0.3, seed=b + 1)
+    kw, name = INT8_CASES[case]
+    x = _x(bsr, seed=1)
+    if b == 64:
+        kw = {**kw, "calibration": x}
+    plan = TI.bsr_spmm_pallas_int8_plan(bsr, device="cuda", **kw)
+    assert plan.statics[0] == case.split("_")[0]
+    got = _check(plan, x, getattr(_kernels, name))
+    want = spmm_scipy(bsr, x.cpu().numpy())
+    rel = np.abs(got.cpu().numpy() - want).max() / np.abs(want).max()
+    assert rel < 6e-2, rel
+
+
+def test_int8_wrappers_refuse_bad_operands():
+    """Wrong dtypes, and scales of another layout's length: a per-slot
+    scales array fed to the group-scale layout (and back) raises."""
+    bsr = _bsr(21, 16, 0.4, seed=4)
+    counts = [k.launches for k in _kernels.KERNELS]
+    plan = TI.bsr_spmm_pallas_int8_plan(bsr, depth_sort=True, device="cuda")
+    win_ids, slot_cols, qblocks, scales, pos, lane_valid, group_ptr = plan.arrays
+    nbr = plan.statics[1]
+    R, gh, W, _ = plan.statics[5]
+    q, cs = TI.quantize_operand(plan, _x(bsr))
+    run = lambda qb, sc, gs, qd=q, c=cs: TI.spmm_int8_sorted(
+        win_ids, pos, slot_cols, qb, sc, qd, c, lane_valid, group_ptr, nbr,
+        R, gh, W, gs)
+    per_slot = torch.ones(qblocks.shape[0], device="cuda")
+    with pytest.raises(ValueError, match="scales"):
+        run(qblocks, per_slot, True)
+    with pytest.raises(ValueError, match="scales"):
+        run(qblocks, scales, False)
+    with pytest.raises(TypeError, match="dtype"):
+        run(qblocks.float(), scales, True)
+    with pytest.raises(TypeError, match="scales"):
+        run(qblocks, scales.double(), True)
+    with pytest.raises(ValueError, match="col_scale"):
+        run(qblocks, scales, True, c=cs[:-1])
+    with pytest.raises(ValueError, match="device"):
+        run(qblocks, scales, True, qd=q.cpu())
+    flat = TI.bsr_spmm_pallas_int8_plan(bsr, resident=False, device="cuda")
+    step_rows, f_cols, f_q, f_scales, step_ptr = flat.arrays
+    with pytest.raises(ValueError, match="scales"):
+        TI.spmm_int8_flat(step_rows, step_ptr, f_cols, f_q, f_scales[:-1], q,
+                          cs, flat.statics[5])
+    assert [k.launches for k in _kernels.KERNELS] == counts
+
+
+def saturated_lane_case(device="cpu"):
+    """A group-scale plan whose lane sums pass 2^24: 8 block-rows of 16
+    all-ones 128 x 128 blocks at gh=16 (one lane-step per row) and an
+    all-ones operand, so every entry quantizes to 127 and each output is
+    one lane sum of 2048 products 127^2 = 33,032,192. A float32 running
+    sum rounds past 2^24; an exact sum does not."""
+    nb, b = 8, 128
+    rows = np.repeat(np.arange(nb), 16).astype(np.int32)
+    cols = np.tile(np.arange(16), nb).astype(np.int32)
+    blocks = np.ones((nb * 16, b, b), np.float32)
+    bsr = BSR.from_parts(rows, cols, blocks, (nb * b, 16 * b), b)
+    plan = TI.bsr_spmm_pallas_int8_plan(bsr, depth_sort=True, group=16,
+                                        device=device)
+    x = torch.ones(16 * b, 8, device=device)
+    exact = np.float32(np.float32(1 / 127.0) * np.float32(33032192.0))
+    exact = np.float32(np.float32(1.0 / 127.0) * exact)
+    return plan, x, exact
+
+
+def test_int8_group_scale_sum_is_exact():
+    """K7's group-scale lane sum passes 2^24 (127^2 * 128 * 16) and stays
+    exact in int32: the kernel's answer equals the plain version's (an
+    exact float64 sum) bit for bit."""
+    plan, x, exact = saturated_lane_case(device="cuda")
+    got = _check(plan, x, _kernels.bsr_spmm_int8_sorted)
+    assert torch.equal(got, TI.run_quantized(plan, *TI.quantize_operand(plan, x),
+                                             plain=True))
+    assert (got.cpu().numpy() == exact).all()

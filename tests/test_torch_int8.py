@@ -1,0 +1,428 @@
+"""The port's int8 serving tier against the JAX package: the quantizers
+and the int8 plan's packed arrays are bit-equal, the plain versions of
+K6 (flat gather), K7 (depth-sorted row groups, group-scale and per-slot
+scales) and K8 (consecutive row groups) match the JAX Pallas kernels run
+in interpret mode on the same arrays, the plans match the JAX plans and
+the scipy oracle, the layout policy and the int8 routing of spmm_plan
+match, and an int8 GCN serves like the JAX one.
+
+Tolerances: plain version or plan vs the JAX kernel or plan on the same
+quantized inputs, 1e-5 relative to max |want| (int8 products and their
+sums are exact integers in both; only the order of the f32 scaled sums
+differs). Against the scipy oracle, the int8 tier's 6e-2
+(tests/test_conformance.py:80)."""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import spmm_denseblock_tpu.formats.bsr as j_bsr
+import spmm_denseblock_tpu.io.datasets as j_ds
+import spmm_denseblock_tpu.models as j_models
+import spmm_denseblock_tpu.ops as j_ops
+import spmm_denseblock_tpu_torch.formats.bsr as t_bsr
+import spmm_denseblock_tpu_torch.io.datasets as t_ds
+import spmm_denseblock_tpu_torch.models as t_models
+import spmm_denseblock_tpu_torch.ops as t_ops
+from spmm_denseblock_tpu_torch.ops import _kernels, spmm_scipy
+from test_torch_cuda_kernels import saturated_lane_case
+
+JQ = importlib.import_module("spmm_denseblock_tpu.ops.bsr_spmm_int8")
+JI = importlib.import_module("spmm_denseblock_tpu.ops.bsr_spmm_pallas_int8")
+TQ = importlib.import_module("spmm_denseblock_tpu_torch.ops.bsr_spmm_int8")
+TI = importlib.import_module("spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8")
+T = importlib.import_module("spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas")
+
+torch.set_num_threads(2)
+
+INT8_TOL = 6e-2  # the int8 tier's oracle gate
+PARITY_TOL = 1e-5
+
+
+def _rel(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+
+
+def _operand(n, F, seed, zero_cols=(2,)):
+    """Columns of very different magnitudes, some all zero."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, F)) * rng.uniform(0.01, 50.0, F)
+    x[:, list(zero_cols)] = 0.0
+    return x.astype(np.float32)
+
+
+def _pair(p, nbr, nbc, b, seed, shape=None, empty=(), mixed=False):
+    """The same seeded BSR in both packages. empty: block-rows to drop;
+    mixed: scale some blocks by 1e3 and 1e-3, so the lanes of the
+    group-scale layout mix magnitudes."""
+    src = t_bsr.random_bsr(p, nbr, nbc, block_size=b, seed=seed)
+    keep = ~np.isin(src.block_rows, empty)
+    blocks = src.blocks[keep].copy()
+    if mixed:
+        mag = np.random.default_rng(seed).choice([1e-3, 1.0, 1e3], blocks.shape[0])
+        blocks *= mag[:, None, None].astype(np.float32)
+    parts = (src.block_rows[keep], src.block_cols[keep], blocks,
+             shape or src.shape, b)
+    return j_bsr.BSR.from_parts(*parts), t_bsr.BSR.from_parts(*parts)
+
+
+# -- quantizers -------------------------------------------------------------
+
+
+def test_quantize_blocks_bit_equal():
+    rng = np.random.default_rng(0)
+    blocks = (rng.standard_normal((40, 16, 16))
+              * rng.uniform(1e-4, 1e4, (40, 1, 1))).astype(np.float32)
+    blocks[[3, 17]] = 0.0  # zero blocks: scale 1, q 0
+    jq, js = JQ.quantize_blocks(blocks)
+    tq, ts = TQ.quantize_blocks(blocks)
+    np.testing.assert_array_equal(jq, tq)
+    np.testing.assert_array_equal(js, ts)
+    assert tq.dtype == np.int8 and ts.dtype == np.float32
+    assert (ts[[3, 17]] == 1.0).all() and not tq[[3, 17]].any()
+
+
+@pytest.mark.parametrize("static", [False, True])
+def test_quantize_per_column_bit_equal(static):
+    """Dynamic scales (the operand's own) and static scales (from a
+    calibration batch with its 5% margin), zero columns included."""
+    x = _operand(300, 70, seed=1, zero_cols=(2, 40))
+    cal = x[:100]
+    if static:
+        j_cs = JQ.static_col_scale(cal)
+        t_cs = TQ.static_col_scale(torch.as_tensor(cal))
+        np.testing.assert_array_equal(j_cs, t_cs)
+        assert t_cs[2] == 1.0
+        jq, jc = JI._quantize_cols_static(jnp.asarray(x), jnp.asarray(j_cs))
+        tq, tc = TQ.quantize_per_column(torch.as_tensor(x), torch.as_tensor(t_cs))
+        # calibration from a smaller batch: later rows can clip at 127
+        assert (tq.abs() == 127).any()
+    else:
+        jq, jc = JI._quantize_cols(jnp.asarray(x))
+        tq, tc = TQ.quantize_per_column(torch.as_tensor(x))
+        assert tc[2] == 1.0 and not tq[:, 2].any()
+    assert tq.dtype == torch.int8 and tc.dtype == torch.float32
+    np.testing.assert_array_equal(np.asarray(jq), tq.numpy())
+    np.testing.assert_array_equal(np.asarray(jc), tc.numpy())
+
+
+def test_rejections_raise_value_error():
+    for dtype in (torch.int8, "int8", np.int8):
+        with pytest.raises(ValueError, match="truncate"):
+            TQ.reject_int8_cast(dtype, "tier")
+    TQ.reject_int8_cast(torch.bfloat16, "tier")
+    TQ.reject_int8_cast(None, "tier")
+    _, tb = _pair(0.3, 4, 4, 8, seed=0)
+    for plan in (TI.bsr_spmm_pallas_int8_plan, TQ.bsr_spmm_int8_plan):
+        with pytest.raises(ValueError, match="inference-only"):
+            plan(tb, grad=True)
+        plan(tb, grad=False)
+    with pytest.raises(ValueError, match="inference-only"):
+        t_ops.spmm_plan(tb, impl="bsr_pallas", dtype=torch.int8, grad=True)
+    with pytest.raises(TypeError, match="f_tile"):
+        TI.bsr_spmm_pallas_int8_plan(tb, f_tile=128)
+    # an int8 tier named directly takes dtype=int8 too
+    plan = t_ops.spmm_plan(tb, impl="bsr_int8_pallas", dtype=torch.int8)
+    assert plan.apply_fn.__module__.endswith(".bsr_spmm_pallas_int8")
+
+
+# -- the plan's packed arrays ----------------------------------------------
+
+LAYOUT_CASES = {
+    # name: (JAX plan kwargs, port plan kwargs, layout)
+    "flat": ({"resident": False}, {"resident": False}, "flat"),
+    "sorted": ({"depth_sort": True}, {"depth_sort": True}, "sorted"),
+    "rowgroup": ({"depth_sort": False}, {"depth_sort": False}, "rowgroup"),
+    "sorted_per_slot": ({"depth_sort": True}, {"depth_sort": True,
+                                               "group_scale": False}, "sorted"),
+}
+
+
+def _plans(case, jb, tb, monkeypatch, **kw):
+    j_kw, t_kw, layout = LAYOUT_CASES[case]
+    if case == "sorted_per_slot":
+        monkeypatch.setenv("SDB_INT8_GROUP_SCALE", "0")
+    jp = JI.bsr_spmm_pallas_int8_plan(jb, **j_kw, **kw)
+    monkeypatch.delenv("SDB_INT8_GROUP_SCALE", raising=False)
+    tp = TI.bsr_spmm_pallas_int8_plan(tb, **t_kw, **kw)
+    assert tp.statics[0] == layout
+    return jp, tp
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("case", list(LAYOUT_CASES))
+def test_int8_plan_arrays_bit_equal(case, mixed, monkeypatch):
+    """step_rows, slot_cols, qblocks, scales (and pos) equal the JAX
+    plan's arrays. 21 block-rows (not a multiple of R=8: phantom and
+    absent lanes), two empty rows; `mixed` puts blocks 1e6 apart in one
+    lane-step, where the group scale zeroes the small ones in both."""
+    jb, tb = _pair(0.4, 21, 19, 16, seed=5, empty=(3, 9), mixed=mixed)
+    jp, tp = _plans(case, jb, tb, monkeypatch)
+    assert len(jp.arrays) in (4, 5)
+    for a, b in zip(jp.arrays, tp.arrays):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    qblocks, scales = tp.arrays[2], tp.arrays[3]
+    assert qblocks.dtype == torch.int8 and scales.dtype == torch.float32
+    n_slots = qblocks.shape[0]
+    if case == "sorted":
+        R, gh = tp.statics[5][:2]
+        assert scales.shape == (n_slots // gh,)  # one per lane-step
+    else:
+        assert scales.shape == (n_slots,)        # one per slot
+
+
+# -- plain versions vs the JAX kernels on the same arrays -----------------
+
+
+def _quantized(tb, F, seed):
+    x = _operand(tb.shape[1], F, seed)
+    q, cs = TQ.quantize_per_column(torch.as_tensor(x))
+    return q, cs
+
+
+def test_k6_flat_plain_matches_pallas_kernel():
+    _, tb = _pair(0.4, 21, 19, 16, seed=6, empty=(4,))
+    tp = TI.bsr_spmm_pallas_int8_plan(tb, resident=False)
+    step_rows, slot_cols, qblocks, scales, step_ptr = tp.arrays
+    nbr, group = tp.statics[1], tp.statics[5]
+    F = 128
+    q, cs = _quantized(tb, F, seed=7)
+    want = np.asarray(JI._pallas_int8_spmm(
+        jnp.asarray(step_rows.numpy()), jnp.asarray(slot_cols.numpy()),
+        jnp.asarray(qblocks.numpy()), jnp.asarray(scales.numpy()),
+        jnp.asarray(q.numpy()), jnp.asarray(cs.numpy()),
+        nbr, nbr * 16, F, group, True,
+    ))
+    got = TI.spmm_int8_flat_plain(step_rows, slot_cols, qblocks, scales, q, cs,
+                                  nbr, group)
+    assert got.shape == (nbr * 16, F) and got.dtype == torch.float32
+    assert _rel(got, want) < PARITY_TOL
+    assert torch.equal(TI.spmm_int8_flat(step_rows, step_ptr, slot_cols, qblocks,
+                                         scales, q, cs, group), got)
+
+
+@pytest.mark.parametrize("group_scale", [True, False])
+def test_k7_sorted_plain_matches_pallas_kernel(group_scale):
+    """21 block-rows at R=8 in windows of 32: the last group has absent
+    lanes at pos 0, the same pos as a real row's."""
+    _, tb = _pair(0.4, 21, 19, 16, seed=8, empty=(2,), mixed=True)
+    tp = TI.bsr_spmm_pallas_int8_plan(tb, depth_sort=True, group_scale=group_scale)
+    win_ids, slot_cols, qblocks, scales, pos, lane_valid, group_ptr = tp.arrays
+    nbr = tp.statics[1]
+    R, gh, W, gs = tp.statics[5]
+    assert gs == group_scale and not lane_valid.all()
+    F = 128
+    q, cs = _quantized(tb, F, seed=9)
+    n_win = -(-nbr // W)
+    want = np.asarray(JI._pallas_int8_spmm_sorted(
+        jnp.asarray(win_ids.numpy()), jnp.asarray(pos.numpy()),
+        jnp.asarray(slot_cols.numpy()), jnp.asarray(scales.numpy()),
+        jnp.asarray(qblocks.numpy()), jnp.asarray(q.numpy()).reshape(-1, 16, F),
+        jnp.asarray(cs.numpy()), n_win, W, nbr * 16, F, gh, R, True,
+        group_scale=group_scale,
+    ))
+    got = TI.spmm_int8_sorted_plain(win_ids, pos, slot_cols, qblocks, scales, q,
+                                    cs, lane_valid, group_ptr, nbr, R, gh, W,
+                                    group_scale)
+    assert got.shape == (nbr * 16, F)
+    assert _rel(got, want) < PARITY_TOL
+    assert not got.reshape(nbr, 16, F)[2].any()
+
+
+def test_group_scale_lane_sum_is_exact():
+    """The plain version sums a lane in float64: its answer is the exact
+    lane sum, scaled; a float32 running sum of the same products is not."""
+    plan, x, exact = saturated_lane_case()
+    assert plan.statics[5][:2] == (8, 16)
+    assert plan.arrays[2].min() == 127
+    got = plan(x)
+    assert (got.numpy() == exact).all()
+    running = np.float32(0)
+    for _ in range(2048):
+        running = np.float32(running + np.float32(16129))
+    assert running != np.float32(33032192)
+
+
+@pytest.mark.parametrize("nb", [7, 21])
+def test_k8_rowgroup_plain_matches_pallas_kernel(nb):
+    """7 block-rows at R=8: one group with a phantom lane, whose rows the
+    JAX output holds and the port's does not."""
+    _, tb = _pair(0.3, nb, nb, 32, seed=9)
+    tp = TI.bsr_spmm_pallas_int8_plan(tb, depth_sort=False)
+    step_groups, slot_cols, qblocks, scales, group_ptr = tp.arrays
+    nbr = tp.statics[1]
+    R, gh = tp.statics[5]
+    F = 128
+    q, cs = _quantized(tb, F, seed=10)
+    want = np.asarray(JI._pallas_int8_spmm_rowgroup(
+        jnp.asarray(step_groups.numpy()), jnp.asarray(slot_cols.numpy()),
+        jnp.asarray(scales.numpy()), jnp.asarray(qblocks.numpy()),
+        jnp.asarray(q.numpy()).reshape(-1, 32, F), jnp.asarray(cs.numpy()),
+        group_ptr.shape[0] - 1, nbr * 32, F, gh, R, True,
+    ))
+    got = TI.spmm_int8_rowgroup_plain(step_groups, slot_cols, qblocks, scales,
+                                      q, cs, nbr, R, gh)
+    assert got.shape == (nbr * 32, F)
+    assert _rel(got, want) < PARITY_TOL
+
+
+# -- whole plans ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("calibrated", [False, True])
+@pytest.mark.parametrize("case", list(LAYOUT_CASES))
+def test_int8_plan_matches_jax_plan(case, calibrated, monkeypatch):
+    """Ragged shape (rows and cols not multiples of b, F = 70), each
+    forced layout, dynamic and calibrated operand scales. Launch counts
+    stay 0: CPU tensors take the plain versions."""
+    shape = (23 * 16 - 5, 19 * 16 - 7)
+    jb, tb = _pair(0.35, 23, 19, 16, seed=11, shape=shape, empty=(6,))
+    x = _operand(shape[1], 70, seed=12)
+    kw = {"calibration": x} if calibrated else {}
+    launches = [k.launches for k in _kernels.KERNELS]
+    jp, tp = _plans(case, jb, tb, monkeypatch, **kw)
+    want = np.asarray(jp(x))
+    got = tp(x)
+    assert got.shape == (shape[0], 70) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) < PARITY_TOL
+    assert _rel(got, spmm_scipy(tb, x)) < INT8_TOL
+    assert torch.equal(T.plain_apply(tp, x), got)
+    assert [k.launches for k in _kernels.KERNELS] == launches
+
+
+def test_bsr_int8_tier_matches_jax_and_consecutive_layouts():
+    """The plain bsr_int8 tier against the JAX XLA tier, and the
+    consecutive layouts (flat, row groups) against it: they share
+    quantize_blocks, so they agree up to the order of the sums."""
+    jb, tb = _pair(0.3, 12, 10, 16, seed=3)
+    x = _operand(tb.shape[1], 40, seed=4)
+    got = TQ.bsr_spmm_int8_plan(tb)(x)
+    assert got.shape == (tb.shape[0], 40)
+    assert _rel(got, np.asarray(JQ.bsr_spmm_int8_plan(jb)(x))) < PARITY_TOL
+    assert _rel(got, spmm_scipy(tb, x)) < INT8_TOL
+    cal = TQ.bsr_spmm_int8_plan(tb, calibration=x)(x)
+    assert _rel(cal, np.asarray(JQ.bsr_spmm_int8_plan(jb, calibration=x)(x))) < PARITY_TOL
+    for kw in ({"resident": False}, {"depth_sort": False}):
+        assert _rel(TI.bsr_spmm_pallas_int8_plan(tb, **kw)(x), got) < PARITY_TOL
+
+
+def _rows_with(depth, nb=24, b=8, seed=0):
+    """nb block-rows with exactly `depth` blocks each."""
+    rng = np.random.default_rng(seed)
+    cols = np.stack([rng.choice(nb, depth, replace=False) for _ in range(nb)])
+    rows = np.repeat(np.arange(nb), depth)
+    blocks = rng.standard_normal((nb * depth, b, b)).astype(np.float32)
+    return rows.astype(np.int32), cols.reshape(-1).astype(np.int32), blocks
+
+
+@pytest.mark.parametrize("depth,kw,layout", [
+    (9, {}, "sorted"),
+    (7, {}, "rowgroup"),
+    (9, {"resident": False}, "flat"),
+    (9, {"resident": True}, "sorted"),
+    (2, {"depth_sort": True}, "sorted"),
+])
+def test_int8_layout_matches_jax_plan(depth, kw, layout):
+    """int8 sorts at >= 8 real blocks per block-row, packs consecutive
+    row groups below, and resident=False gives the flat layout, in both
+    packages."""
+    rows, cols, blocks = _rows_with(depth)
+    jp = JI.bsr_spmm_pallas_int8_plan(
+        j_bsr.BSR.from_parts(rows, cols, blocks, (192, 192), 8), **kw)
+    tp = TI.bsr_spmm_pallas_int8_plan(
+        t_bsr.BSR.from_parts(rows, cols, blocks, (192, 192), 8), **kw)
+    rowgroup = jp.statics[-1]
+    j_layout = ("flat" if rowgroup is None else
+                "sorted" if isinstance(rowgroup[0], str) else "rowgroup")
+    assert tp.statics[0] == j_layout == layout
+    x = _operand(192, 24, seed=2)
+    assert _rel(tp(x), np.asarray(jp(x))) < PARITY_TOL
+
+
+# -- routing and the serving slice ------------------------------------------
+
+
+def _ddi(tmp_path):
+    return (j_ds.load_dataset("ogbl-ddi", cache_dir=str(tmp_path / "j"), scale=0.1),
+            t_ds.load_dataset("ogbl-ddi", cache_dir=str(tmp_path / "t"), scale=0.1))
+
+
+def test_int8_routing_matches_jax(tmp_path):
+    """dtype=int8 maps bsr_pallas -> bsr_int8_pallas and bsr_xla ->
+    bsr_int8 in both routers; auto on the ddi stand-in at b=128 picks
+    bsr_int8_pallas; tiers the port lacks raise naming their item."""
+    j_graph, t_graph = _ddi(tmp_path)
+    j_adj = j_models.sym_norm_adjacency(j_graph)
+    t_adj = t_models.sym_norm_adjacency(t_graph)
+    for impl, b, module in (("bsr_pallas", 32, "bsr_spmm_pallas_int8"),
+                            ("auto", 128, "bsr_spmm_pallas_int8"),
+                            ("auto", 32, "bsr_spmm_int8")):
+        jp = j_ops.spmm_plan(j_adj, impl=impl, block_size=b, dtype=jnp.int8)
+        tp = t_ops.spmm_plan(t_adj, impl=impl, block_size=b, dtype=torch.int8)
+        assert jp.apply_fn.__module__.endswith("." + module), (impl, b)
+        assert tp.apply_fn.__module__.endswith("." + module), (impl, b)
+    jb = j_ops.spmm_plan(j_adj, impl="bsr_xla", block_size=32, dtype=jnp.int8)
+    tb = t_ops.spmm_plan(t_adj, impl="bsr_xla", block_size=32, dtype="int8")
+    assert jb.apply_fn.__module__.endswith(".bsr_spmm_int8")
+    assert tb.apply_fn.__module__.endswith(".bsr_spmm_int8")
+    x = _operand(t_adj.n_rows, 16, seed=5)
+    assert _rel(tb(x), np.asarray(jb(x))) < PARITY_TOL
+    with pytest.raises(NotImplementedError, match="bsr_xla"):
+        t_ops.spmm_plan(t_adj, impl="bsr_xla", block_size=32)
+    with pytest.raises(NotImplementedError, match="csr_ell_int8"):
+        t_ops.spmm_plan(t_bsr_csr_fill(), impl="auto", block_size=128,
+                        dtype=torch.int8)
+
+
+def t_bsr_csr_fill():
+    """A weakly structured graph: past 32x fill, auto leaves the BSR tier
+    for csr_ell (csr_ell_int8 with int8), which the port lacks."""
+    import spmm_denseblock_tpu_torch.formats.csr as t_csr
+
+    return t_csr.random_csr(0.002, 1024, seed=0, values="ones")
+
+
+DIMS = [32, 64, 16]
+
+
+def test_int8_gcn_matches_jax(tmp_path):
+    """int8 GCN serving on the ddi stand-in (scale 0.1, b=32: 14 block-rows
+    of 14 blocks, so both plans take K7's sorted group-scale layout).
+    Tolerance against JAX: 1e-3 relative, not 1e-5, because layer 2
+    re-quantizes layer 1's output: a 1e-7 difference there can move one
+    operand entry by a quantum (1/127 of its column's max). Against a
+    float64 host reference: the int8 gate, 6e-2."""
+    j_graph, t_graph = _ddi(tmp_path)
+    j_adj = j_models.sym_norm_adjacency(j_graph)
+    t_adj = t_models.sym_norm_adjacency(t_graph)
+    jp = j_ops.spmm_plan(j_adj, impl="bsr_pallas", block_size=32, dtype=jnp.int8,
+                         grad=False)
+    tp = t_ops.spmm_plan(t_adj, impl="bsr_pallas", block_size=32, dtype=torch.int8,
+                         grad=False)
+    assert tp.statics[0] == "sorted" and tp.statics[5][3]
+    assert jp.statics[-1][0] == "sorted_gs"
+
+    j_params = j_models.init_gcn(jax.random.PRNGKey(0), DIMS)
+    j_params_np = [{k: np.asarray(v) for k, v in p.items()} for p in j_params]
+    gcn = t_models.GCN(DIMS).load_params(t_models.gcn_params_from_jax(j_params_np))
+    x = np.random.default_rng(7).standard_normal(
+        (t_adj.n_rows, DIMS[0])).astype(np.float32)
+    want = np.asarray(j_models.gcn_apply(j_params, jp, x))
+    with torch.no_grad():
+        got = gcn(tp, torch.as_tensor(x))
+    assert got.shape == (t_adj.n_rows, DIMS[-1]) and torch.isfinite(got).all()
+    assert _rel(got, want) < 1e-3
+    h = x.astype(np.float64)
+    a64 = t_adj.to_scipy().astype(np.float64)
+    for i, p in enumerate(j_params_np):
+        h = a64 @ h @ p["w"].astype(np.float64) + p["b"]
+        if i < len(j_params_np) - 1:
+            h = np.maximum(h, 0.0)
+    assert _rel(got, h) < INT8_TOL
