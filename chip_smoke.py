@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch port (spmm_denseblock_tpu_torch) on one NVIDIA
 GPU: builds the CUDA kernels from this checkout, holds each against its
 plain PyTorch version, serves a GCN on the ogbl-ddi stand-in through the
-BSR SpMM plan in f32 and in int8, and runs the plans at bench.py's op
-shape.
+BSR SpMM plan in f32 and in int8, trains it in f32 and in bf16x3
+(precision="high"), and runs the plans at bench.py's op shape.
 
     python3 chip_smoke.py
 
@@ -11,11 +11,16 @@ Phases:
   1. set-up   torch/CUDA versions, the card's name and power limit, TF32 off
   2. build    nvcc builds each csrc/*.cu into build/kernels/, all at once
               (timed)
-  3. kernels  K1 (flat), K2 (sorted), K4 (row groups; f32 and bf16), and
-              the int8 K6 (flat), K7 (sorted; group-scale and per-slot
-              scales) and K8 (row groups), each against its plain version
-              at a ragged small shape, a 7-block-row shape (phantom and
-              absent lanes) and the ddi shape
+  3. kernels  K1 (flat), K2 (sorted), K3 (bf16x3 on the sorted, flat and
+              resident layouts), K4 (row groups; f32 and bf16), K5
+              (resident), and the int8 K6 (flat), K7 (sorted; group-scale
+              and per-slot scales) and K8 (row groups), each against its
+              plain version at a ragged small shape, a 7-block-row shape
+              (phantom and absent lanes) and the ddi shape; then each K3
+              instance and its exact kernel (K2, K1, K5) on an input whose
+              sums are exact in f32 (bf16x3_exact_case): K3 must give
+              A_hi X_hi + A_hi X_lo + A_lo X_hi and the exact kernel A X,
+              each bit for bit (the two differ in most entries)
   4. slice    GCN [256, 256, 256] on load_dataset("ogbl-ddi") (rcmk,
               sym_norm_adjacency, spmm_plan(impl="bsr_pallas", b=128)),
               4 seeded requests in f32 (K2), each checked against a float64
@@ -23,25 +28,47 @@ Phases:
               spmm_plan(..., dtype=torch.int8) (bsr_int8_pallas, K7), each
               answer within 6e-2 of the float64 reference and each SpMM
               within 1e-5 of its plain version
-  5. op       random_bsr(2e-2, 1024, 1024, b=128, seed=1234), F=512: f32
-              default (K2) and depth_sort=False (K1); bf16 default (K2),
+  5. train    the same model and graph, trained through spmm_plan's
+              default grad plan (K2 on A and on Aᵀ), seeded labels over
+              256 classes and a 60% train mask: 5 Adam(lr=1e-2) steps of
+              make_train_step in f32, then 5 with precision="high" (K3 on
+              the sorted layout, both ways). Step 0's parameter gradients
+              within 1e-4 (max |err| / max |ref|) of a float64 host
+              autograd reference on the dense A, taken at the kernel
+              run's ReLU pattern (a pre-activation within rounding of 0
+              flips sign and moves the gradient by far more than the
+              rounding); the hidden pre-activations whose sign differs
+              from float64's at most FLIP_CAP (0 in f32, 16 in "high"),
+              each within 2^-16 max |z| of 0; the loss after the 5
+              steps below step 0's; 2 forward and 1 backward SpMM launch
+              per step
+  6. op       random_bsr(2e-2, 1024, 1024, b=128, seed=1234), F=512: f32
+              default (K2), depth_sort=False (K1), precision="high" (K3
+              sorted), "high" with depth_sort=False (K3 flat), "high" with
+              resident=True, depth_sort=False (K3 resident),
+              resident=True, depth_sort=False (K5); bf16 default (K2),
               depth_sort=False (K4) and resident=False (K1); int8 with
               calibration=dense[:4096] as bench.py: default (K7),
               depth_sort=False (K8) and resident=False (K6); each against
-              its plain version, each int8 answer within 6e-2 of f32 K2's
-  6. timing   CUDA-event times of kernel and plain paths, GFLOP/s =
-              2*nnzb*b^2*F / t (real blocks); the int8 operand's
-              quantization (dynamic and static) apart from its kernel
+              its plain version, each int8 answer within 6e-2 of f32 K2's;
+              bench.py's bf16x3 self-check (the "high" answer within 1e-4
+              of exact f32 K2's and of the bsr_xla tier's)
+  7. timing   CUDA-event times of kernel and plain paths, GFLOP/s =
+              2*nnzb*b^2*F / t (real blocks); ms per training step; the
+              int8 operand's quantization (dynamic and static) apart from
+              its kernel
 
-The main path is phases 4 and 5, each of their three runs (f32 slice,
-int8 slice, op) with the launch counts set to 0 just before it and read
-just after; every kernel of the path must have run there. Prints the
-kernels' JSON line, then the last line {"ok": true, "device": {...}}.
-Any failure raises and exits non-zero; there is no CPU path.
+The main path is phases 4 to 6, each of their runs (f32 slice, int8
+slice, f32 training, "high" training, op) with the launch counts set to
+0 just before it and read just after; every kernel of the path must have
+run there. Prints the kernels' JSON line, then the last line {"ok": true,
+"device": {...}}. Any failure raises and exits non-zero; there is no CPU
+path.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -57,8 +84,17 @@ sys.path.insert(0, str(ROOT))
 from spmm_denseblock_tpu_torch.convert.csr2bsr import csr_to_bsr  # noqa: E402
 from spmm_denseblock_tpu_torch.formats.bsr import BSR, random_bsr  # noqa: E402
 from spmm_denseblock_tpu_torch.io.datasets import load_dataset  # noqa: E402
-from spmm_denseblock_tpu_torch.models import GCN, sym_norm_adjacency  # noqa: E402
-from spmm_denseblock_tpu_torch.ops import _kernels, spmm_plan  # noqa: E402
+from spmm_denseblock_tpu_torch.models.gnn import linear  # noqa: E402
+from spmm_denseblock_tpu_torch.models import (  # noqa: E402
+    GCN,
+    gcn_apply,
+    init_gcn,
+    make_eval_step,
+    make_train_step,
+    masked_cross_entropy,
+    sym_norm_adjacency,
+)
+from spmm_denseblock_tpu_torch.ops import _kernels, bsr_spmm_xla_plan, spmm_plan  # noqa: E402
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_int8 import quantize_per_column  # noqa: E402
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import (  # noqa: E402
     _auto_group_pow2,
@@ -77,29 +113,45 @@ from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8 import (  # noqa: E402
     run_quantized,
 )
 from spmm_denseblock_tpu_torch.ops.plan import Plan  # noqa: E402
-from spmm_denseblock_tpu_torch.ops.reference import CHECK_EPS, assert_allclose  # noqa: E402
+from spmm_denseblock_tpu_torch.ops.reference import (  # noqa: E402
+    CHECK_EPS,
+    assert_allclose,
+    bf16x3_exact_case,
+)
 from spmm_denseblock_tpu_torch.reorder import reorder  # noqa: E402
 
 KERNEL_TOL = 1e-5  # kernel vs plain version, relative to max |plain|
 INT8_TOL = 6e-2    # int8 answer vs f32/f64 reference, relative to max |ref|
+GRAD_TOL = 1e-4    # step-0 gradients vs float64, relative to max |ref|
+BF16X3_TOL = 1e-4  # bench.py's gate for the bf16x3 answer vs exact f32
+# hidden pre-activations whose sign differs from float64's, per training
+# run, and how far from 0 (relative to max |z|) each may lie: bf16x3 moves
+# a pre-activation by ~5e-6 of max |z|, exact f32 by far less
+FLIP_CAP = {None: 0, "high": 16}
+FLIP_REL = 2.0 ** -16
 SEED = 1234
 DEV = "cuda"
 _PALLAS = "spmm_denseblock_tpu/ops/bsr_spmm_pallas.py"
 _PALLAS_I8 = "spmm_denseblock_tpu/ops/bsr_spmm_pallas_int8.py"
 _CSRC = "spmm_denseblock_tpu_torch/csrc/"
-# (plan family, layout) -> (id, kernel, source, the pallas_call it replaces)
+_F = _CSRC + "bsr_spmm.cu"
+_I8 = _CSRC + "bsr_spmm_int8.cu"
+# (plan family, layout, products) -> (id, kernel, source, what it replaces:
+# the pallas_call, or for K3 the _dot3 helper inside K1/K2/K5)
 KERNEL_INFO = {
-    ("f", "flat"): ("K1", "bsr_spmm_flat", _CSRC + "bsr_spmm.cu", _PALLAS + ":909"),
-    ("f", "sorted"): ("K2", "bsr_spmm_sorted", _CSRC + "bsr_spmm.cu", _PALLAS + ":686"),
-    ("f", "rowgroup"): ("K4", "bsr_spmm_rowgroup", _CSRC + "bsr_spmm.cu",
-                        _PALLAS + ":412"),
-    ("i8", "flat"): ("K6", "bsr_spmm_int8_flat", _CSRC + "bsr_spmm_int8.cu",
-                     _PALLAS_I8 + ":490"),
-    ("i8", "sorted"): ("K7", "bsr_spmm_int8_sorted", _CSRC + "bsr_spmm_int8.cu",
-                       _PALLAS_I8 + ":358"),
-    ("i8", "rowgroup"): ("K8", "bsr_spmm_int8_rowgroup", _CSRC + "bsr_spmm_int8.cu",
-                         _PALLAS_I8 + ":252"),
+    ("f", "flat", "exact"): ("K1", "bsr_spmm_flat", _F, _PALLAS + ":909"),
+    ("f", "sorted", "exact"): ("K2", "bsr_spmm_sorted", _F, _PALLAS + ":686"),
+    ("f", "flat", "bf16x3"): ("K3", "bsr_spmm_flat_bf16x3", _F, _PALLAS + ":56"),
+    ("f", "sorted", "bf16x3"): ("K3", "bsr_spmm_sorted_bf16x3", _F, _PALLAS + ":56"),
+    ("f", "resident", "bf16x3"): ("K3", "bsr_spmm_resident_bf16x3", _F,
+                                  _PALLAS + ":56"),
+    ("f", "rowgroup", "exact"): ("K4", "bsr_spmm_rowgroup", _F, _PALLAS + ":412"),
+    ("f", "resident", "exact"): ("K5", "bsr_spmm_resident", _F, _PALLAS + ":301"),
+    ("i8", "flat"): ("K6", "bsr_spmm_int8_flat", _I8, _PALLAS_I8 + ":490"),
+    ("i8", "sorted"): ("K7", "bsr_spmm_int8_sorted", _I8, _PALLAS_I8 + ":358"),
+    ("i8", "rowgroup"): ("K8", "bsr_spmm_int8_rowgroup", _I8, _PALLAS_I8 + ":252"),
 }
+ALL_KERNELS = {"K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8"}
 
 
 def log(msg: str) -> None:
@@ -140,9 +192,11 @@ def reset_launches() -> None:
 
 
 def kernel_of(plan) -> tuple:
-    """(id, kernel, source, replaces) of the kernel a plan launches."""
-    family = "i8" if plan.apply_fn is _int8_pallas_apply else "f"
-    return KERNEL_INFO[(family, plan.statics[0])]
+    """(id, kernel, source, replaces) of the kernel a forward plan
+    launches."""
+    if plan.apply_fn is _int8_pallas_apply:
+        return KERNEL_INFO[("i8", plan.statics[0])]
+    return KERNEL_INFO[("f", plan.statics[0], plan.statics[5])]
 
 
 def rel_err(got, want) -> float:
@@ -164,7 +218,7 @@ def check_kernel(plan, x, label: str) -> float:
         raise AssertionError(f"{label}: bad output {tuple(got.shape)}")
     err = (got - want).abs().max().item()
     rel = rel_err(got, want)
-    log(f"  {label:<40} {kid} {name:<22} max_abs_err={err:.3e} rel={rel:.3e}")
+    log(f"  {label:<52} {kid} {name:<26} max_abs_err={err:.3e} rel={rel:.3e}")
     if rel >= KERNEL_TOL:
         raise AssertionError(f"{label}: rel err {rel:.3e} >= {KERNEL_TOL}")
     return err
@@ -198,7 +252,7 @@ def f32_rowgroup_plan(bsr: BSR) -> Plan:
     step_groups, slot_cols, blocks, n_groups = _pack_rowgroups(
         rows, cov.block_cols[: cov.nnzb], cov.blocks[: cov.nnzb], gh, R)
     statics = ("rowgroup", cov.n_block_rows, *bsr.shape,
-               cov.n_block_cols * bsr.b, (R, gh))
+               cov.n_block_cols * bsr.b, "exact", (R, gh))
     return Plan([step_groups, slot_cols, blocks,
                  group_pointer(step_groups, n_groups)],
                 _pallas_apply, statics, device=DEV)
@@ -213,6 +267,13 @@ def variant_plans(bsr: BSR):
         ("f32 depth_sort", f_plan(depth_sort=True)),
         ("f32 depth_sort=False", f_plan(depth_sort=False)),
         ("f32 row groups", f32_rowgroup_plan(bsr)),
+        ("f32 precision=high depth_sort", f_plan(precision="high", depth_sort=True)),
+        ("f32 precision=high depth_sort=False", f_plan(precision="high",
+                                                       depth_sort=False)),
+        ("f32 resident=True depth_sort=False", f_plan(resident=True,
+                                                      depth_sort=False)),
+        ("f32 resident=True precision=high", f_plan(
+            resident=True, precision="high", depth_sort=False)),
         ("bf16 depth_sort", f_plan(dtype=bf, depth_sort=True)),
         ("bf16 depth_sort=False", f_plan(dtype=bf, depth_sort=False)),
         ("bf16 resident=False", f_plan(dtype=bf, resident=False)),
@@ -241,8 +302,37 @@ def kernel_phase(adj) -> None:
         for label, p in variant_plans(bsr):
             check_kernel(p, x, f"{tag} {label}")
             checked.add(kernel_of(p)[0])
-        if checked != {"K1", "K2", "K4", "K6", "K7", "K8"}:
+        if checked != ALL_KERNELS:
             raise AssertionError(f"{tag}: kernels checked {sorted(checked)}")
+    k3_exactness()
+
+
+def k3_exactness() -> None:
+    """Each K3 instance, and the exact kernel on its layout, on an input
+    whose partial sums are all exact in f32: the order of a kernel's
+    sums cannot matter, so K3 must give the bf16x3 answer and the exact
+    kernel A X, bit for bit."""
+    bsr, x, want3, want_exact = bf16x3_exact_case()
+    x = torch.as_tensor(x, device=DEV)
+    n_diff = int((want3 != want_exact).sum())
+    log(f"[kernels] bf16x3 against exact f32 where every sum is exact in f32: "
+        f"the answers differ (by A_lo X_lo) in {n_diff} of {want3.size} "
+        f"entries, by up to {np.abs(want3 - want_exact).max():.0f}")
+    for kw in ({}, {"depth_sort": False}, {"resident": True, "depth_sort": False}):
+        for precision, want, what in (("high", want3, "A_hi X_hi + A_hi X_lo + A_lo X_hi"),
+                                      (None, want_exact, "A X")):
+            plan = bsr_spmm_pallas_plan(bsr, grad=False, precision=precision,
+                                        device=DEV, **kw)
+            kid, name = kernel_of(plan)[:2]
+            before = launches()[name]
+            got = plan(x)
+            torch.cuda.synchronize()
+            if launches()[name] != before + 1:
+                raise AssertionError(f"{name} did not launch")
+            n_bad = int((got.double().cpu().numpy() != want).sum())
+            log(f"  {kid} {name:<26} == {what}: {n_bad} entries differ")
+            if n_bad:
+                raise AssertionError(f"{name}: {n_bad} entries differ from {what}")
 
 
 def gcn_reference(adj, params, x) -> np.ndarray:
@@ -322,25 +412,155 @@ def int8_slice_phase(adj, model, xs, refs):
     return plan, max(spmm_errs)
 
 
+def train_phase(adj, dims, precision, n_steps: int = 5):
+    """Trains the GCN on the ddi stand-in through spmm_plan's default
+    grad plan for n_steps Adam steps; checks step 0's gradients against
+    a float64 host autograd reference on the dense A, the launches of
+    every step, and that the loss falls. Returns what the timing needs."""
+    tag = "f32" if precision is None else f"precision={precision!r}"
+    kw = {} if precision is None else {"precision": precision}
+    plan = spmm_plan(adj, impl="bsr_pallas", block_size=128, device=DEV, **kw)
+    fwd, bwd = plan.arrays
+    want_kid = "K2" if precision is None else "K3"
+    kids = (kernel_of(fwd), kernel_of(bwd))
+    if ([k[0] for k in kids] != [want_kid] * 2
+            or {fwd.statics[0], bwd.statics[0]} != {"sorted"}):
+        raise AssertionError(f"train {tag}: plans took {fwd.statics[:1]} "
+                             f"{bwd.statics[:1]}, expected sorted {want_kid}")
+    name = kids[0][1]
+    log(f"[train] GCN {dims} on ogbl-ddi stand-in, {tag}: spmm_plan's grad "
+        f"plan ({want_kid} {name} on A and on Aᵀ), {n_steps} Adam(lr=1e-2) steps")
+    n = adj.n_rows
+    rng = np.random.default_rng(SEED)
+    x = rng.standard_normal((n, dims[0])).astype(np.float32)
+    y = rng.integers(0, dims[-1], size=n).astype(np.int64)
+    mask = (rng.random(n) < 0.6).astype(np.float32)
+    params = init_gcn(dims, generator=torch.Generator().manual_seed(SEED),
+                      device=DEV)
+    batch = tuple(torch.as_tensor(a, device=DEV) for a in (x, y, mask))
+    with torch.no_grad():  # step 0's forward: the kernels are deterministic
+        zs = preactivations(params, plan, batch[0])
+    ref = train_reference(adj, params, x, y, mask, zs)
+    step, init_state = make_train_step(
+        gcn_apply, plan, functools.partial(torch.optim.Adam, lr=1e-2))
+    state = init_state(params)
+    losses = []
+    for i in range(n_steps):
+        before = launches()[name]
+        params, state, metrics = step(params, state, *batch)
+        torch.cuda.synchronize()
+        if launches()[name] - before != 3:
+            raise AssertionError(f"train {tag} step {i}: {name} launched "
+                                 f"{launches()[name] - before} times, expected 3")
+        losses.append(metrics["loss"].item())
+        if i == 0:
+            check_step0(tag, params, ref, losses[0], FLIP_CAP[precision])
+    final = make_eval_step(gcn_apply, plan)(params, *batch)["loss"].item()
+    log(f"  losses {' '.join(f'{v:.5f}' for v in losses)}; after "
+        f"{n_steps} steps {final:.5f}")
+    if not np.isfinite(losses + [final]).all() or not final < losses[0]:
+        raise AssertionError(f"train {tag}: loss did not fall ({losses}, {final})")
+    return plan, step, state, params, batch
+
+
+def preactivations(params, spmm, x):
+    """The hidden layers' pre-activations z of gcn_apply(params, spmm,
+    x)."""
+    zs, h = [], x
+    for p in params[:-1]:
+        zs.append(linear(p, spmm(h)))
+        h = torch.relu(zs[-1])
+    return zs
+
+
+def train_reference(adj, params, x, y, mask, zs):
+    """Float64 host autograd through the dense A, given the kernel run's
+    hidden pre-activations zs. Returns the loss and the parameter
+    gradients with the ReLUs at the kernel run's activation pattern
+    (zs > 0), the gradients of the plain float64 model, and how the
+    pre-activations compare with float64's z64: the count of signs that
+    differ, the largest |z64| among them and the largest |z - z64|, both
+    relative to max |z64|. The gradient jumps where a pre-activation
+    changes sign, so a rounding difference next to 0 moves it by far
+    more than the rounding itself; the gate compares on one activation
+    pattern, and bounds the flips apart."""
+    a64 = torch.as_tensor(adj.to_dense(), dtype=torch.float64)
+    x64 = torch.as_tensor(x).double()
+    y_t, m64 = torch.as_tensor(y), torch.as_tensor(mask).double()
+    zs = [z.cpu().double() for z in zs]
+    out, z64s = [], []
+    for fixed in (True, False):
+        p64 = [{k: v.detach().cpu().double().requires_grad_(True)
+                for k, v in p.items()} for p in params]
+        h = x64
+        for i, p in enumerate(p64):
+            h = linear(p, a64 @ h)
+            if i < len(p64) - 1:
+                if not fixed:
+                    z64s.append(h.detach())
+                h = h * (zs[i] > 0) if fixed else torch.relu(h)
+        loss = masked_cross_entropy(h, y_t, m64)
+        loss.backward()
+        out.append((loss.item(), [{k: v.grad for k, v in p.items()} for p in p64]))
+    flips, flipped, dev = 0, 0.0, 0.0
+    for z, z64 in zip(zs, z64s):
+        scale = z64.abs().max()
+        f = (z > 0) != (z64 > 0)
+        flips += int(f.sum())
+        if f.any():
+            flipped = max(flipped, (z64[f].abs().max() / scale).item())
+        dev = max(dev, ((z - z64).abs().max() / scale).item())
+    (loss, grads), (_, plain_grads) = out
+    return loss, grads, plain_grads, (flips, flipped, dev)
+
+
+def grad_err(params, grads) -> float:
+    """Largest max |err| / max |ref| over the parameters' gradients."""
+    return max(
+        ((p[k].grad.detach().cpu().double() - g[k]).abs().max()
+         / g[k].abs().max()).item()
+        for p, g in zip(params, grads) for k in ("w", "b"))
+
+
+def check_step0(tag, params, ref, loss, flip_cap: int):
+    ref_loss, grads, plain_grads, (flips, flipped, dev) = ref
+    err = grad_err(params, grads)
+    log(f"  step 0: loss {loss:.6f} (float64 {ref_loss:.6f}); every parameter "
+        f"gradient within {err:.3e} of float64 on the kernel run's ReLU "
+        f"pattern (< {GRAD_TOL}, max |err| / max |ref|); against the float64 "
+        f"model's own pattern within {grad_err(params, plain_grads):.3e}")
+    log(f"  step 0: hidden pre-activations within {dev:.3e} of float64 "
+        f"(/ max |z64|); {flips} change sign (<= {flip_cap}), the largest "
+        f"|z64| among them {flipped:.3e} (<= 2^-16 = {FLIP_REL:.3e})")
+    if not err < GRAD_TOL:
+        raise AssertionError(f"train {tag}: step-0 gradient rel err {err:.3e} "
+                             f">= {GRAD_TOL}")
+    if flips > flip_cap or flipped > FLIP_REL:
+        raise AssertionError(f"train {tag}: {flips} pre-activations change "
+                             f"sign, up to {flipped:.3e} of max |z64| from 0")
+
+
 def op_plans(bsr, calibration):
-    """bench.py's op shape: f32 and bf16 and int8, each layout."""
+    """bench.py's op shape: f32, bf16x3 ("high") and bf16 and int8, each
+    layout. Keys (tag, layout)."""
     bf = torch.bfloat16
+    f_plan = lambda **kw: bsr_spmm_pallas_plan(bsr, grad=False, device=DEV, **kw)
+    i8_plan = lambda **kw: bsr_spmm_pallas_int8_plan(
+        bsr, calibration=calibration, device=DEV, **kw)
     specs = (
-        ("f32", "sorted", lambda: bsr_spmm_pallas_plan(bsr, grad=False, device=DEV)),
-        ("f32", "flat", lambda: bsr_spmm_pallas_plan(
-            bsr, grad=False, depth_sort=False, device=DEV)),
-        ("bf16", "sorted", lambda: bsr_spmm_pallas_plan(
-            bsr, dtype=bf, grad=False, device=DEV)),
-        ("bf16", "rowgroup", lambda: bsr_spmm_pallas_plan(
-            bsr, dtype=bf, grad=False, depth_sort=False, device=DEV)),
-        ("bf16", "flat", lambda: bsr_spmm_pallas_plan(
-            bsr, dtype=bf, grad=False, resident=False, device=DEV)),
-        ("int8", "sorted", lambda: bsr_spmm_pallas_int8_plan(
-            bsr, calibration=calibration, device=DEV)),
-        ("int8", "rowgroup", lambda: bsr_spmm_pallas_int8_plan(
-            bsr, calibration=calibration, depth_sort=False, device=DEV)),
-        ("int8", "flat", lambda: bsr_spmm_pallas_int8_plan(
-            bsr, calibration=calibration, resident=False, device=DEV)),
+        ("f32", "sorted", lambda: f_plan()),
+        ("f32", "flat", lambda: f_plan(depth_sort=False)),
+        ("f32", "resident", lambda: f_plan(resident=True, depth_sort=False)),
+        ("high", "sorted", lambda: f_plan(precision="high")),
+        ("high", "flat", lambda: f_plan(precision="high", depth_sort=False)),
+        ("high", "resident", lambda: f_plan(precision="high", resident=True,
+                                            depth_sort=False)),
+        ("bf16", "sorted", lambda: f_plan(dtype=bf)),
+        ("bf16", "rowgroup", lambda: f_plan(dtype=bf, depth_sort=False)),
+        ("bf16", "flat", lambda: f_plan(dtype=bf, resident=False)),
+        ("int8", "sorted", lambda: i8_plan()),
+        ("int8", "rowgroup", lambda: i8_plan(depth_sort=False)),
+        ("int8", "flat", lambda: i8_plan(resident=False)),
     )
     plans = {}
     for tag, layout, build in specs:
@@ -351,17 +571,56 @@ def op_plans(bsr, calibration):
     return plans
 
 
+def op_phase(op_bsr, x_op, calibration):
+    """Phase 6: every op plan against its plain version, the int8 answers
+    against f32 K2, bench.py's bf16x3 self-check. Returns (plans,
+    errs)."""
+    t0 = time.perf_counter()
+    plans = op_plans(op_bsr, calibration)
+    log(f"[op] random_bsr(2e-2, 1024, b=128): nnzb={op_bsr.nnzb}, "
+        f"F={x_op.shape[1]}, {len(plans)} plans built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    errs, outs = {}, {}
+    for (tag, layout), p in plans.items():
+        errs[(tag, layout)] = check_kernel(p, x_op, f"op {tag} {layout}")
+        if tag != "bf16":
+            outs[(tag, layout)] = p(x_op)
+    ref = outs[("f32", "sorted")]
+    for (tag, layout), out in outs.items():
+        if tag == "int8":
+            rel = rel_to(out, ref)
+            log(f"  op int8 {layout:<8} vs f32 K2: rel err {rel:.3e} (< {INT8_TOL})")
+            if rel >= INT8_TOL:
+                raise AssertionError(f"op int8 {layout}: rel err {rel:.3e}")
+    # bench.py's bf16x3 self-check, against exact f32 K2 and the bsr_xla tier
+    xla_out = bsr_spmm_xla_plan(op_bsr, device=DEV)(x_op)
+    log(f"  bsr_xla vs f32 K2: rel err {rel_to(xla_out, ref):.3e}")
+    for layout in ("sorted", "flat", "resident"):
+        high = outs[("high", layout)]
+        for what, want in (("exact f32 K2", ref), ("bsr_xla", xla_out)):
+            rel = rel_to(high, want)
+            log(f"  bf16x3 self-check: high {layout:<8} vs {what:<12} max |err| "
+                f"/ max |ref| {rel:.3e} (< {BF16X3_TOL})")
+            if not rel < BF16X3_TOL:
+                raise AssertionError(f"bf16x3 {layout} vs {what}: {rel:.3e}")
+    return plans, errs
+
+
+def rel_to(got, want) -> float:
+    return (got - want).abs().max().item() / want.abs().max().item()
+
+
 def main_path(adj, dims, op_bsr, x_op, calibration):
-    """Phases 4 and 5, each run with the launch counts set to 0 just
+    """Phases 4 to 6, each run with the launch counts set to 0 just
     before it and read just after. Returns what the timing needs."""
     totals = {}
 
     def read(run: str, expect: dict) -> None:
-        counts = launches()
+        counts = {k: v for k, v in launches().items() if v}
         log(f"[main path] {run}: launches {counts}")
         for name, n in expect.items():
-            if counts[name] != n:
-                raise AssertionError(f"{run}: {name} launched {counts[name]} "
+            if counts.get(name, 0) != n:
+                raise AssertionError(f"{run}: {name} launched {counts.get(name, 0)} "
                                      f"times, expected {n}")
         for name, n in counts.items():
             totals[name] = totals.get(name, 0) + n
@@ -374,30 +633,23 @@ def main_path(adj, dims, op_bsr, x_op, calibration):
     plan_i8, slice_i8_err = int8_slice_phase(adj, model, xs, refs)
     read("int8 slice", {"bsr_spmm_int8_sorted": n_spmm})
 
+    # step 0's hidden-layer forward for the ReLU pattern (1 SpMM), 5 steps
+    # of 2 forward + 1 backward SpMMs, then the eval's 2 forwards
+    train = {}
+    for precision, name in ((None, "bsr_spmm_sorted"),
+                            ("high", "bsr_spmm_sorted_bf16x3")):
+        reset_launches()
+        train[precision] = train_phase(adj, dims, precision)
+        read(f"train {precision or 'f32'}", {name: 1 + 5 * 3 + 2})
+
     reset_launches()
-    t0 = time.perf_counter()
-    plans = op_plans(op_bsr, calibration)
-    log(f"[op] random_bsr(2e-2, 1024, b=128): nnzb={op_bsr.nnzb}, "
-        f"F={x_op.shape[1]}, {len(plans)} plans built in "
-        f"{time.perf_counter() - t0:.1f} s")
-    errs, outs = {}, {}
-    for (tag, layout), p in plans.items():
-        errs[(tag, layout)] = check_kernel(p, x_op, f"op {tag} {layout}")
-        if tag != "bf16":
-            outs[(tag, layout)] = p(x_op)
+    plans, errs = op_phase(op_bsr, x_op, calibration)
     read("op", {})
-    ref = outs[("f32", "sorted")]
-    for (tag, layout), out in outs.items():
-        if tag == "int8":
-            rel = (out - ref).abs().max().item() / ref.abs().max().item()
-            log(f"  op int8 {layout:<8} vs f32 K2: rel err {rel:.3e} (< {INT8_TOL})")
-            if rel >= INT8_TOL:
-                raise AssertionError(f"op int8 {layout}: rel err {rel:.3e}")
-    del outs, ref
-    for name, n in totals.items():
-        if n == 0:
-            raise AssertionError(f"{name} was not launched on the main path")
-    return plan, plan_i8, model, xs, plans, errs, totals, slice_i8_err
+    missing = [kernel_of(p)[1] for p in plans.values()
+               if totals.get(kernel_of(p)[1], 0) == 0]
+    if missing:
+        raise AssertionError(f"not launched on the main path: {missing}")
+    return plan, plan_i8, model, xs, train, plans, errs, totals, slice_i8_err
 
 
 def main() -> int:
@@ -430,7 +682,7 @@ def main() -> int:
     dense = seeded((op_bsr.shape[1], F), SEED)
     x_op = torch.as_tensor(dense, device=DEV)
     dims = [256, 256, 256]
-    (plan, plan_i8, model, xs, plans, errs, main_launches,
+    (plan, plan_i8, model, xs, train, plans, errs, main_launches,
      slice_i8_err) = main_path(adj, dims, op_bsr, x_op, dense[:4096])
 
     # ---- timing (after the counts were read) ----------------------------
@@ -450,10 +702,21 @@ def main() -> int:
                 f"{spmm_ms:.3f} ms {ddi_flops / spmm_ms / 1e6:.1f} GFLOP/s, plain "
                 f"{spmm_plain_ms:.3f} ms {ddi_flops / spmm_plain_ms / 1e6:.1f} "
                 f"GFLOP/s [{card_line}]")
+    for precision, (t_plan, step, state, params, batch) in train.items():
+        step_ms = cuda_ms(lambda: step(params, state, *batch), iters=20)
+        plain_step, plain_init = make_train_step(
+            gcn_apply, lambda h: plain_apply(t_plan, h),
+            functools.partial(torch.optim.Adam, lr=1e-2))
+        p2 = [{k: v.detach().clone() for k, v in p.items()} for p in params]
+        s2 = plain_init(p2)
+        plain_ms = cuda_ms(lambda: plain_step(p2, s2, *batch), iters=10)
+        log(f"  train step {precision or 'f32'} ({kernel_of(t_plan.arrays[0])[0]} "
+            f"both ways, Adam): kernel {step_ms:.3f} ms, plain {plain_ms:.3f} ms "
+            f"[{card_line}]")
     flops = 2.0 * op_bsr.nnzb * 128 * 128 * F
     times = {}
     for (tag, layout), p in plans.items():
-        kid = kernel_of(p)[0]
+        kid, name = kernel_of(p)[:2]
         if tag == "int8":
             q, cs = quantize_operand(p, x_op)
             k_ms = cuda_ms(lambda: run_quantized(p, q, cs), iters=10)
@@ -465,8 +728,8 @@ def main() -> int:
             k_ms = cuda_ms(lambda: p(x_op), iters=10)
             p_ms = cuda_ms(lambda: plain_apply(p, x_op), iters=5, warmup=1)
             extra = ""
-        times[kid] = times.get(kid, (k_ms, p_ms))
-        log(f"  op {tag:<4} {layout:<8} {kid} kernel {k_ms:.3f} ms "
+        times.setdefault(name, (k_ms, p_ms))
+        log(f"  op {tag:<4} {layout:<8} {kid} {name:<26} kernel {k_ms:.3f} ms "
             f"{flops / k_ms / 1e6:.1f} GFLOP/s, plain {p_ms:.3f} ms "
             f"{flops / p_ms / 1e6:.1f} GFLOP/s{extra} [{card_line}]")
     cs_static = plans[("int8", "sorted")].arrays[-1]
@@ -475,15 +738,16 @@ def main() -> int:
     log(f"  op int8 operand quantization ({x_op.shape[0]} x {F} f32): dynamic "
         f"{q_dyn_ms:.3f} ms, static {q_static_ms:.3f} ms [{card_line}]")
 
-    # each kernel's entry: the op-shape plan that runs it first above
-    # (K1 f32 flat, K2 f32 sorted, K4 bf16, K6-K8 int8, kernel only)
-    kernels = []
+    # each kernel instance's entry: the op-shape plan that runs it first
+    # above (K1 f32 flat, K2 f32 sorted, K3 "high", K4 bf16, K5 f32, K6-K8
+    # int8 kernel only)
+    kernels = {}
     for (tag, layout), p in plans.items():
         kid, name, source, replaces = kernel_of(p)
-        if any(k["name"].startswith(kid + " ") for k in kernels):
+        if name in kernels:
             continue
-        k_ms, p_ms = times[kid]
-        kernels.append({
+        k_ms, p_ms = times[name]
+        kernels[name] = {
             "name": f"{kid} {name}",
             "route": "cuda",
             "source": source,
@@ -492,8 +756,11 @@ def main() -> int:
             "max_abs_err": errs[(tag, layout)],
             "ms": k_ms,
             "plain_ms": p_ms,
-        })
-    kernels.sort(key=lambda k: int(k["name"].split()[0][1:]))
+        }
+    kernels = sorted(kernels.values(), key=lambda k: (int(k["name"][1:].split()[0]),
+                                                      k["name"]))
+    if {k["name"].split()[0] for k in kernels} != ALL_KERNELS:
+        raise AssertionError(f"kernels line lacks {ALL_KERNELS}")
     log(f"[slice] int8 SpMMs' largest max |kernel - plain|: {slice_i8_err:.3e}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card_line)

@@ -7,8 +7,9 @@ from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import (
     bsr_spmm_pallas_plan,
 )
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8 import bsr_spmm_pallas_int8_plan
+from spmm_denseblock_tpu_torch.ops.bsr_spmm_xla import bsr_spmm_xla, bsr_spmm_xla_plan
 from spmm_denseblock_tpu_torch.ops.dispatch import PLANNERS, spmm_plan
-from spmm_denseblock_tpu_torch.ops.plan import Plan, sum_plan
+from spmm_denseblock_tpu_torch.ops.plan import Plan, grad_plan, sum_plan, transb_plan
 from spmm_denseblock_tpu_torch.ops.reference import (
     CHECK_EPS,
     assert_allclose,
@@ -22,10 +23,14 @@ __all__ = [
     "bsr_spmm_pallas",
     "bsr_spmm_pallas_plan",
     "bsr_spmm_pallas_int8_plan",
+    "bsr_spmm_xla",
+    "bsr_spmm_xla_plan",
     "PLANNERS",
     "spmm_plan",
     "Plan",
     "sum_plan",
+    "grad_plan",
+    "transb_plan",
     "CHECK_EPS",
     "assert_allclose",
     "spmm_dense_torch",

@@ -36,10 +36,19 @@ _SIGNATURES = {
     # step_ptr, slot_cols, blocks, dense, out, n_block_rows, F, group, b,
     # is_bf16, stream
     "sdb_bsr_spmm_flat": ("bsr_spmm", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # K5: the same arguments, the operand viewed as (nbc, b, F)
+    "sdb_bsr_spmm_resident": ("bsr_spmm", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # K3 on K1's and K5's layouts: the same arguments without is_bf16
+    "sdb_bsr_spmm_flat_bf16x3": ("bsr_spmm", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "sdb_bsr_spmm_resident_bf16x3": ("bsr_spmm", [_P, _P, _P, _P, _P,
+                                                  _I, _I, _I, _I, _P]),
     # group_ptr, win_ids, pos, lane_valid, slot_cols, blocks, dense, out,
     # n_lanes, F, R, gh, window, b, is_bf16, stream
     "sdb_bsr_spmm_sorted": ("bsr_spmm", [_P, _P, _P, _P, _P, _P, _P, _P,
                                          _I, _I, _I, _I, _I, _I, _I, _P]),
+    # K3 on K2's layout: the same arguments without is_bf16
+    "sdb_bsr_spmm_sorted_bf16x3": ("bsr_spmm", [_P, _P, _P, _P, _P, _P, _P, _P,
+                                                _I, _I, _I, _I, _I, _I, _P]),
     # group_ptr, slot_cols, blocks, dense, out, n_lanes, n_block_rows, F,
     # R, gh, b, is_bf16, stream
     "sdb_bsr_spmm_rowgroup": ("bsr_spmm", [_P, _P, _P, _P, _P,
@@ -144,9 +153,16 @@ class CudaKernel:
 
 bsr_spmm_flat = CudaKernel("sdb_bsr_spmm_flat")                # K1
 bsr_spmm_sorted = CudaKernel("sdb_bsr_spmm_sorted")            # K2
+# K3 (bf16x3) on K1's, K2's and K5's layouts
+bsr_spmm_flat_bf16x3 = CudaKernel("sdb_bsr_spmm_flat_bf16x3")
+bsr_spmm_sorted_bf16x3 = CudaKernel("sdb_bsr_spmm_sorted_bf16x3")
+bsr_spmm_resident_bf16x3 = CudaKernel("sdb_bsr_spmm_resident_bf16x3")
 bsr_spmm_rowgroup = CudaKernel("sdb_bsr_spmm_rowgroup")        # K4
+bsr_spmm_resident = CudaKernel("sdb_bsr_spmm_resident")        # K5
 bsr_spmm_int8_flat = CudaKernel("sdb_bsr_spmm_int8_flat")      # K6
 bsr_spmm_int8_sorted = CudaKernel("sdb_bsr_spmm_int8_sorted")  # K7
 bsr_spmm_int8_rowgroup = CudaKernel("sdb_bsr_spmm_int8_rowgroup")  # K8
-KERNELS = (bsr_spmm_flat, bsr_spmm_sorted, bsr_spmm_rowgroup,
-           bsr_spmm_int8_flat, bsr_spmm_int8_sorted, bsr_spmm_int8_rowgroup)
+KERNELS = (bsr_spmm_flat, bsr_spmm_sorted, bsr_spmm_flat_bf16x3,
+           bsr_spmm_sorted_bf16x3, bsr_spmm_resident_bf16x3,
+           bsr_spmm_rowgroup, bsr_spmm_resident, bsr_spmm_int8_flat,
+           bsr_spmm_int8_sorted, bsr_spmm_int8_rowgroup)

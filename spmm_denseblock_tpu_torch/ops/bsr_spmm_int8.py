@@ -119,7 +119,8 @@ def bsr_spmm_int8_plan(bsr: BSR, calibration=None, device="cpu", **kw) -> Plan:
     return Plan(arrays, _int8_apply, statics, device=device)
 
 
-def _int8_apply(statics, arrays, dense):
+def _int8_apply(statics, arrays, dense, plain: bool = False):
+    # plain torch ops already: plain=True runs the same ops
     n_block_rows, n_rows, n_cols, k_needed, calibrated = statics
     rows, cols, qblocks, scales = arrays[:4]
     dense = torch.as_tensor(dense, device=qblocks.device).to(torch.float32)

@@ -5,23 +5,33 @@ Hopper, in ``csrc/bsr_spmm.cu``).
 
 The plan packs the blocks on the host once, with the JAX package's
 packers ported verbatim (bit-equal outputs), and the apply runs one of
-three kernels on the packed arrays:
+four kernels on the packed arrays:
 
 - K1, flat grouped gather (``spmm_flat``), replacing ``_pallas_spmm``;
 - K2, depth-sorted row groups (``spmm_sorted``), replacing
   ``_pallas_spmm_rowgroup_sorted``;
 - K4, consecutive row groups (``spmm_rowgroup``), replacing
-  ``_pallas_spmm_rowgroup``.
+  ``_pallas_spmm_rowgroup``;
+- K5, single-row resident (``spmm_resident``), replacing
+  ``_pallas_spmm_resident``: K1's kernel on K1's packed arrays, launched
+  and counted through K5's own entries, the operand viewed as (nbc, b,
+  F).
+
+``precision="high"`` on f32 operands runs K3, the bf16x3 product of
+``_dot3`` (hi·hi + hi·lo + lo·hi of bf16 splits, f32 sums), as its own
+instance of K1, K2 or K5 (``bf16x3=True`` in the wrappers).
 
 Beside each kernel sits its plain PyTorch version (``spmm_flat_plain``,
-``spmm_sorted_plain``, ``spmm_rowgroup_plain``): gather, ``bmm`` in f32
-and ``index_add_`` over the same packed arrays. A wrapper runs the plain
-version only for CPU tensors; for CUDA tensors it launches the kernel or
-raises.
+``spmm_sorted_plain``, ``spmm_rowgroup_plain``,
+``spmm_resident_plain``): gather, ``bmm`` in f32 (three of them for
+bf16x3) and ``index_add_`` over the same packed arrays. A wrapper runs
+the plain version only for CPU tensors; for CUDA tensors it launches the
+kernel or raises.
 
 Layout policy: the occupancy gate of the JAX plan. The TPU's VMEM fit
 checks, SMEM chunking and environment knobs are not carried over; their
-arguments are.
+arguments are. ``grad=True`` (the default) returns a ``grad_plan`` of
+the forward plan and a plan of Aᵀ built with the same arguments.
 """
 
 from __future__ import annotations
@@ -34,7 +44,7 @@ import torch
 from spmm_denseblock_tpu_torch.formats.bsr import BSR
 from spmm_denseblock_tpu_torch.ops import _kernels
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_int8 import dtype_name, reject_int8_cast
-from spmm_denseblock_tpu_torch.ops.plan import Plan
+from spmm_denseblock_tpu_torch.ops.plan import Plan, grad_plan, run
 
 # -- host packing (verbatim ports, bit-equal to the JAX package) ----------
 
@@ -303,10 +313,26 @@ def _depth_sort_policy(itemsize: int, group=None):
 _PLAIN_CHUNK_ELEMS = 1 << 26
 
 
-def _gathered_products(slot_cols, blocks, dense_b, s0, s1):
-    """f32 products blocks[s0:s1] @ dense_b[slot_cols[s0:s1]], (n, b, F)."""
+def split_bf16(x: torch.Tensor):
+    """(hi, lo) of f32 x, each a bf16 value widened to f32: hi = bf16(x),
+    lo = bf16(x - hi), both rounded to nearest even (as ``_dot3`` splits
+    with ``astype(bfloat16)``)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _gathered_products(slot_cols, blocks, dense_b, s0, s1, bf16x3=False):
+    """f32 products blocks[s0:s1] @ dense_b[slot_cols[s0:s1]], (n, b, F);
+    dense_b is the operand viewed as (nbc, b, F). bf16x3: the three f32
+    products of the bf16 splits, hi·hi + hi·lo + lo·hi, as ``_dot3``
+    sums them (a product of two bf16 values is exact in f32)."""
     cols = slot_cols[s0:s1].long()
-    return torch.bmm(blocks[s0:s1].float(), dense_b[cols].float())
+    a, x = blocks[s0:s1].float(), dense_b[cols].float()
+    if not bf16x3:
+        return torch.bmm(a, x)
+    ah, al = split_bf16(a)
+    xh, xl = split_bf16(x)
+    return torch.bmm(ah, xh) + torch.bmm(ah, xl) + torch.bmm(al, xh)
 
 
 def lane_scatter(dest, valid, n_block_rows: int, b: int, F: int, R: int,
@@ -354,42 +380,70 @@ def rowgroup_lanes(step_groups, R: int, n_block_rows: int):
     return dest, dest < n_block_rows
 
 
-def _f32_lane_sums(slot_cols, blocks, dense, R: int, gh: int):
-    b = blocks.shape[1]
-    F = dense.shape[1]
-    dense_b = dense.reshape(-1, b, F)
+def _f32_lane_sums(slot_cols, blocks, dense_b, R: int, gh: int,
+                   bf16x3: bool = False):
+    """lane_sums for lane_scatter; dense_b is the operand viewed as
+    (nbc, b, F)."""
+    b, F = dense_b.shape[1:]
 
     def lane_sums(j0, j1):
         prod = _gathered_products(slot_cols, blocks, dense_b,
-                                  j0 * R * gh, j1 * R * gh)
+                                  j0 * R * gh, j1 * R * gh, bf16x3)
         return prod.reshape(j1 - j0, R, gh, b, F).sum(dim=2)
 
     return lane_sums
 
 
+def _blocked(dense, b: int) -> torch.Tensor:
+    """The (nbc*b, F) operand viewed as (nbc, b, F)."""
+    return dense.reshape(-1, b, dense.shape[1])
+
+
 def spmm_flat_plain(step_rows, slot_cols, blocks, dense, n_block_rows: int,
-                    group: int) -> torch.Tensor:
-    """Plain version of K1 on the flat layout: step j's `group` slot
-    products are summed and added into block-row step_rows[j]. Returns
-    (n_block_rows*b, F) f32."""
+                    group: int, bf16x3: bool = False) -> torch.Tensor:
+    """Plain version of K1 (and of K3 on its layout, bf16x3=True) on the
+    flat layout: step j's `group` slot products are summed and added
+    into block-row step_rows[j]. Returns (n_block_rows*b, F) f32."""
+    b = blocks.shape[1]
     return lane_scatter(
-        step_rows.long()[:, None], None, n_block_rows, blocks.shape[1],
-        dense.shape[1], 1, group,
-        _f32_lane_sums(slot_cols, blocks, dense, 1, group),
+        step_rows.long()[:, None], None, n_block_rows, b, dense.shape[1], 1,
+        group, _f32_lane_sums(slot_cols, blocks, _blocked(dense, b), 1, group,
+                              bf16x3),
     )
+
+
+def _flat_view(dense3, b: int) -> torch.Tensor:
+    """K5's operand, (nbc, b, F), as the (nbc*b, F) operand K1's walk
+    reads (a view of a contiguous dense3)."""
+    if dense3.dim() != 3 or dense3.shape[1] != b:
+        raise ValueError(f"dense3 must be (nbc, b, F), got {tuple(dense3.shape)}")
+    return dense3.flatten(0, 1)
+
+
+def spmm_resident_plain(step_rows, slot_cols, blocks, dense3,
+                        n_block_rows: int, group: int,
+                        bf16x3: bool = False) -> torch.Tensor:
+    """Plain version of K5 (and of K3 on its layout): K1's packed arrays
+    with the operand dense3 (nbc, b, F), whose slot s reads dense3[col],
+    as ``_resident_kernel`` indexes it. That is K1's plain version on the
+    (nbc*b, F) view. Returns (n_block_rows*b, F) f32."""
+    return spmm_flat_plain(step_rows, slot_cols, blocks,
+                           _flat_view(dense3, blocks.shape[1]), n_block_rows,
+                           group, bf16x3)
 
 
 def spmm_sorted_plain(win_ids, pos, slot_cols, blocks, dense, lane_valid,
                       group_ptr, n_block_rows: int, R: int, gh: int,
-                      window: int) -> torch.Tensor:
-    """Plain version of K2 on the depth-sorted layout: lane r of step j
-    sums its gh slot products into block-row win_ids[j]*window +
-    pos[j*R + r]; absent lanes add nothing. Returns (n_block_rows*b, F)
-    f32."""
+                      window: int, bf16x3: bool = False) -> torch.Tensor:
+    """Plain version of K2 (and of K3 on its layout) on the depth-sorted
+    layout: lane r of step j sums its gh slot products into block-row
+    win_ids[j]*window + pos[j*R + r]; absent lanes add nothing. Returns
+    (n_block_rows*b, F) f32."""
+    b = blocks.shape[1]
     dest, valid = sorted_lanes(win_ids, pos, lane_valid, group_ptr, R, window)
     return lane_scatter(
-        dest, valid, n_block_rows, blocks.shape[1], dense.shape[1], R, gh,
-        _f32_lane_sums(slot_cols, blocks, dense, R, gh),
+        dest, valid, n_block_rows, b, dense.shape[1], R, gh,
+        _f32_lane_sums(slot_cols, blocks, _blocked(dense, b), R, gh, bf16x3),
     )
 
 
@@ -398,10 +452,11 @@ def spmm_rowgroup_plain(step_groups, slot_cols, blocks, dense,
     """Plain version of K4 on the consecutive row-group layout: lane r of
     step j sums its gh slot products into block-row step_groups[j]*R +
     r; phantom lanes add nothing. Returns (n_block_rows*b, F) f32."""
+    b = blocks.shape[1]
     dest, valid = rowgroup_lanes(step_groups, R, n_block_rows)
     return lane_scatter(
-        dest, valid, n_block_rows, blocks.shape[1], dense.shape[1], R, gh,
-        _f32_lane_sums(slot_cols, blocks, dense, R, gh),
+        dest, valid, n_block_rows, b, dense.shape[1], R, gh,
+        _f32_lane_sums(slot_cols, blocks, _blocked(dense, b), R, gh),
     )
 
 
@@ -451,9 +506,22 @@ def check_cuda_operands(blocks, dense, index_arrays, dtypes=_KERNEL_DTYPES):
             raise ValueError("CUDA kernel operands must be contiguous")
 
 
-def spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense,
-              group: int) -> torch.Tensor:
-    """K1: C (n_block_rows*b, F) f32 on the flat grouped layout.
+def _dtype_args(blocks, bf16x3: bool) -> tuple:
+    """The launch's trailing dtype argument: the exact kernels take
+    is_bf16; the bf16x3 instances (K3) take f32 operands only and no
+    such argument."""
+    return () if bf16x3 else (int(blocks.dtype == torch.bfloat16),)
+
+
+def _kernel_dtypes(bf16x3: bool) -> tuple:
+    return (torch.float32,) if bf16x3 else _KERNEL_DTYPES
+
+
+def spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense, group: int,
+              bf16x3: bool = False, resident: bool = False) -> torch.Tensor:
+    """K1 (K3 with bf16x3=True): C (n_block_rows*b, F) f32 on the flat
+    grouped layout. resident=True launches the same kernel through K5's
+    entries (``spmm_resident``).
 
     step_ptr (n_block_rows+1,) int64 points each block-row at its steps
     (derived from the sorted step_rows at plan time). CPU tensors run
@@ -462,29 +530,47 @@ def spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense,
     n_block_rows = step_ptr.shape[0] - 1
     if dev.type == "cpu":
         return spmm_flat_plain(step_rows, slot_cols, blocks, dense,
-                               n_block_rows, group)
+                               n_block_rows, group, bf16x3)
     check_cuda_operands(blocks, dense, {
         "step_ptr": (step_ptr, torch.int64),
         "slot_cols": (slot_cols, torch.int32),
-    })
+    }, _kernel_dtypes(bf16x3))
     if slot_cols.shape[0] != blocks.shape[0] or blocks.shape[0] % group:
         raise ValueError("slot_cols and blocks must hold n_steps*group slots")
     b = blocks.shape[1]
     F = dense.shape[1]
     out = torch.empty(n_block_rows * b, F, dtype=torch.float32, device=dev)
+    kernel = getattr(_kernels, "bsr_spmm_" + ("resident" if resident else "flat")
+                     + ("_bf16x3" if bf16x3 else ""))
     with torch.cuda.device(dev):
-        _kernels.bsr_spmm_flat(
+        kernel(
             step_ptr.data_ptr(), slot_cols.data_ptr(), blocks.data_ptr(),
             dense.data_ptr(), out.data_ptr(), n_block_rows, F, group, b,
-            int(blocks.dtype == torch.bfloat16),
+            *_dtype_args(blocks, bf16x3),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     return out
 
 
+def spmm_resident(step_rows, step_ptr, slot_cols, blocks, dense3, group: int,
+                  bf16x3: bool = False) -> torch.Tensor:
+    """K5 (K3 with bf16x3=True): C (n_block_rows*b, F) f32 on K1's packed
+    arrays with the operand dense3 viewed as (nbc, b, F).
+
+    On the TPU this layout keeps the whole operand slice in VMEM and
+    indexes it per slot; on the card nothing is kept resident, and K5's
+    entries run K1's CTA walk on the (nbc*b, F) view. CPU tensors run
+    spmm_resident_plain; CUDA tensors run the CUDA kernel."""
+    return spmm_flat(step_rows, step_ptr, slot_cols, blocks,
+                     _flat_view(dense3, blocks.shape[1]), group, bf16x3,
+                     resident=True)
+
+
 def spmm_sorted(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr,
-                n_block_rows: int, R: int, gh: int, window: int) -> torch.Tensor:
-    """K2: C (n_block_rows*b, F) f32 on the depth-sorted layout.
+                n_block_rows: int, R: int, gh: int, window: int,
+                bf16x3: bool = False) -> torch.Tensor:
+    """K2 (K3 with bf16x3=True): C (n_block_rows*b, F) f32 on the
+    depth-sorted layout.
 
     lane_valid (n_groups*R,) bool and group_ptr (n_groups+1,) int64 come
     from the port's packer. CPU tensors run spmm_sorted_plain; CUDA
@@ -493,14 +579,14 @@ def spmm_sorted(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr,
     if dev.type == "cpu":
         return spmm_sorted_plain(win_ids, pos, slot_cols, blocks, dense,
                                  lane_valid, group_ptr, n_block_rows, R, gh,
-                                 window)
+                                 window, bf16x3)
     check_cuda_operands(blocks, dense, {
         "win_ids": (win_ids, torch.int32),
         "pos": (pos, torch.int32),
         "slot_cols": (slot_cols, torch.int32),
         "lane_valid": (lane_valid, torch.bool),
         "group_ptr": (group_ptr, torch.int64),
-    })
+    }, _kernel_dtypes(bf16x3))
     n_lanes = lane_valid.shape[0]
     if n_lanes != (group_ptr.shape[0] - 1) * R:
         raise ValueError("lane_valid must hold n_groups*R lanes")
@@ -509,12 +595,13 @@ def spmm_sorted(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr,
     b = blocks.shape[1]
     F = dense.shape[1]
     out = torch.empty(n_block_rows * b, F, dtype=torch.float32, device=dev)
+    kernel = _kernels.bsr_spmm_sorted_bf16x3 if bf16x3 else _kernels.bsr_spmm_sorted
     with torch.cuda.device(dev):
-        _kernels.bsr_spmm_sorted(
+        kernel(
             group_ptr.data_ptr(), win_ids.data_ptr(), pos.data_ptr(),
             lane_valid.data_ptr(), slot_cols.data_ptr(), blocks.data_ptr(),
             dense.data_ptr(), out.data_ptr(), n_lanes, F, R, gh, window, b,
-            int(blocks.dtype == torch.bfloat16),
+            *_dtype_args(blocks, bf16x3),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     return out
@@ -582,6 +669,29 @@ def _plan_dtype(dtype) -> Optional[torch.dtype]:
     raise ValueError(f"unsupported dtype {dtype!r} (None, float32 or bfloat16)")
 
 
+def _plan_math(precision: Optional[str], dtype) -> str:
+    """The products a plan runs: "exact" (f32 FFMA; bf16 x bf16 is exact
+    in f32) or "bf16x3" (K3: precision="high" on f32 operands). On bf16
+    operands "high" is exact: _dot3's split of a bf16 value is the value
+    and a zero residual, so it computes the bf16 products themselves."""
+    two_byte = dtype == torch.bfloat16
+    if precision is None or (precision == "highest" and not two_byte):
+        return "exact"
+    if precision == "high":
+        return "exact" if two_byte else "bf16x3"
+    if precision in ("default", "highest"):
+        raise NotImplementedError(
+            f"precision={precision!r} with {'bf16' if two_byte else 'f32'} "
+            "operands is not ported (ROADMAP queue 1 item 4: one bf16 pass on "
+            "the TPU, which the JAX package's CPU interpret mode runs as "
+            "exact f32, so no parity test can hold it); use None, "
+            "\"highest\" (f32) or \"high\""
+        )
+    raise ValueError(
+        f"unknown precision {precision!r} (None, 'high' or 'highest')"
+    )
+
+
 def bsr_spmm_pallas_plan(
     bsr: BSR,
     dtype=None,
@@ -596,43 +706,36 @@ def bsr_spmm_pallas_plan(
 
     dtype: None or float32 (exact f32 products) or bfloat16 (bf16 blocks
     and operand, f32 sum); int8 raises ValueError (use
-    ``bsr_spmm_pallas_int8_plan``). group: slots per step (flat layout)
+    ``bsr_spmm_pallas_int8_plan``). group: slots per step (flat layouts)
     or per lane (row-group layouts); None picks the JAX plan's rule.
+    precision: None or "highest" (exact f32), or "high" (bf16x3, K3, on
+    f32 operands; exact on bf16); "default" raises NotImplementedError.
+    grad: True (the default) returns a grad_plan whose backward runs a
+    plan of Aᵀ built with the same arguments; False a forward plan.
     depth_sort: None follows the occupancy gate; True/False force it
-    where the dtype allows the sorted layout. resident: False keeps bf16
-    on the flat layout; None and True are the same. device: where the
-    packed arrays live; the plan runs its kernels there
+    where the dtype allows the sorted layout. resident: True sends the
+    flat layout to K5; False keeps bf16 on the flat layout (K1). device:
+    where the packed arrays live; the plan runs its kernels there
     (``plan.to(device)`` moves it).
 
-    Layout (the JAX plan's gate without its VMEM fit checks): bf16 takes
-    the depth-sorted layout (K2) when depth_sort holds, which by default
-    is at >= 2 real blocks per block-row, and the consecutive row-group
-    layout (K4) otherwise; f32 takes the sorted layout at >= 8 and
-    depth_sort; everything else, and bf16 with resident=False, takes
-    the flat layout (K1).
-
-    Not ported yet, each raising NotImplementedError: grad=True (the
-    backward plan), precision="high" and other precision overrides
-    (bf16x3, K3), and resident=True for f32 (K5)."""
-    if grad:
-        raise NotImplementedError(
-            "grad=True is not ported yet (ROADMAP queue 1 item 1: grad_plan "
-            "with the K1/K2 backward); pass grad=False for serving"
-        )
+    Layout (the JAX plan's gate without its VMEM fit checks): bf16 with
+    precision None and resident not False takes the depth-sorted layout
+    (K2) when depth_sort holds, which by default is at >= 2 real blocks
+    per block-row, and the consecutive row-group layout (K4) otherwise,
+    at power-of-two groups; f32 with precision None or "high" takes the
+    sorted layout at >= 8 and depth_sort, unless resident=False;
+    everything else packs the flat layout at the _auto_group rule, run
+    by K5 with resident=True and by K1 otherwise. "high" runs the K3
+    instance of the chosen f32 kernel."""
     dtype = _plan_dtype(dtype)
-    if precision is not None and not (
-        precision == "highest" and dtype in (None, torch.float32)
-    ):
-        raise NotImplementedError(
-            f"precision={precision!r} is not ported yet (ROADMAP queue 1 "
-            "item 4: K3, the bf16x3 product); f32 runs exact products"
-        )
+    math = _plan_math(precision, dtype)
+    if grad:
+        kw = dict(dtype=dtype, group=group, precision=precision,
+                  resident=resident, depth_sort=depth_sort, device=device)
+        # each plan takes its own layout: Aᵀ's occupancy may differ
+        return grad_plan(bsr_spmm_pallas_plan(bsr, grad=False, **kw),
+                         bsr_spmm_pallas_plan(bsr.transpose(), grad=False, **kw))
     itemsize = 2 if dtype == torch.bfloat16 else 4
-    if resident and itemsize == 4:
-        raise NotImplementedError(
-            "resident=True for f32 is not ported yet (ROADMAP queue 1 "
-            "item 5: K5, the resident-operand kernel)"
-        )
     covered = _ensure_covering(bsr)
     b = covered.b
     n_rows, n_cols = bsr.shape
@@ -643,21 +746,21 @@ def bsr_spmm_pallas_plan(
     cols_h = np.asarray(covered.block_cols[: covered.nnzb])
     blocks_h = np.asarray(covered.blocks[: covered.nnzb])
     avg_real = bsr.nnzb / max(nbr, 1)
-    # 2-byte operands: the JAX plan's resident regime (sorted or
-    # consecutive row groups, power-of-two groups)
-    two_byte = itemsize == 2 and resident is not False
+    # 2-byte operands at the default precision: the JAX plan's resident
+    # regime (sorted or consecutive row groups, power-of-two groups)
+    resident_likely = itemsize == 2 and resident is not False and precision is None
     group_was_auto = group is None
     if group is None:
         n_occupied = np.unique(rows_h).size
-        group = (_auto_group_pow2 if two_byte else _auto_group)(
+        group = (_auto_group_pow2 if resident_likely else _auto_group)(
             covered.nnzb, n_occupied
         )
     if depth_sort is None:
         depth_sort = avg_real >= 2.0
     wide_sorted = (itemsize == 4 and resident is not False
-                   and precision is None and avg_real >= 8.0)
+                   and precision in (None, "high") and avg_real >= 8.0)
 
-    if depth_sort and (two_byte or wide_sorted):
+    if depth_sort and (resident_likely or wide_sorted):
         R, gh, W = _depth_sort_policy(
             itemsize, None if group_was_auto else group
         )
@@ -667,8 +770,8 @@ def bsr_spmm_pallas_plan(
         )
         group_ptr = np.concatenate([[0], np.cumsum(steps_per_group)])
         arrays = (win_ids, slot_cols, blocks_pad, pos, lane_valid, group_ptr)
-        statics = ("sorted", nbr, n_rows, n_cols, k_needed, (R, gh, W))
-    elif two_byte:
+        layout, geom = "sorted", (R, gh, W)
+    elif resident_likely:
         if group_was_auto:
             group = min(group, _ROWGROUP_GH_CAP)
         R, _ = _rowgroup_policy(itemsize, group)
@@ -677,22 +780,24 @@ def bsr_spmm_pallas_plan(
         )
         arrays = (step_groups, slot_cols, blocks_pad,
                   group_pointer(step_groups, n_groups))
-        statics = ("rowgroup", nbr, n_rows, n_cols, k_needed, (R, group))
+        layout, geom = "rowgroup", (R, group)
     else:
         step_rows, slot_cols, blocks_pad = _pack_groups(
             rows_h, cols_h, blocks_h, group
         )
         step_ptr = np.searchsorted(step_rows, np.arange(nbr + 1)).astype(np.int64)
         arrays = (step_rows, slot_cols, blocks_pad, step_ptr)
-        statics = ("flat", nbr, n_rows, n_cols, k_needed, group)
+        layout, geom = ("resident" if resident else "flat"), group
     arrays = list(arrays)
     blocks_t = torch.as_tensor(arrays[2])
     arrays[2] = blocks_t.to(dtype) if dtype is not None else blocks_t
+    statics = (layout, nbr, n_rows, n_cols, k_needed, math, geom)
     return Plan(arrays, _pallas_apply, statics, device=device)
 
 
 def _pallas_apply(statics, arrays, dense, plain: bool = False):
-    layout, nbr, n_rows, n_cols, k_needed, geom = statics
+    layout, nbr, n_rows, n_cols, k_needed, math, geom = statics
+    bf16x3 = math == "bf16x3"
     blocks = arrays[2]
     dense = torch.as_tensor(dense, device=blocks.device)
     if dense.dim() != 2 or dense.shape[0] != n_cols:
@@ -703,9 +808,9 @@ def _pallas_apply(statics, arrays, dense, plain: bool = False):
     dense = dense.contiguous()
     if layout == "sorted":
         win_ids, slot_cols, _, pos, lane_valid, group_ptr = arrays
-        run = spmm_sorted_plain if plain else spmm_sorted
-        out = run(win_ids, pos, slot_cols, blocks, dense, lane_valid,
-                  group_ptr, nbr, *geom)
+        fn = spmm_sorted_plain if plain else spmm_sorted
+        out = fn(win_ids, pos, slot_cols, blocks, dense, lane_valid,
+                 group_ptr, nbr, *geom, bf16x3=bf16x3)
     elif layout == "rowgroup":
         step_groups, slot_cols, _, group_ptr = arrays
         if plain:
@@ -714,20 +819,23 @@ def _pallas_apply(statics, arrays, dense, plain: bool = False):
         else:
             out = spmm_rowgroup(step_groups, group_ptr, slot_cols, blocks,
                                 dense, nbr, *geom)
-    elif plain:
+    elif plain:  # flat or resident: K1's packed arrays
         step_rows, slot_cols, _, _ = arrays
-        out = spmm_flat_plain(step_rows, slot_cols, blocks, dense, nbr, geom)
+        out = spmm_flat_plain(step_rows, slot_cols, blocks, dense, nbr, geom,
+                              bf16x3=bf16x3)
     else:
         step_rows, slot_cols, _, step_ptr = arrays
-        out = spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense, geom)
+        out = spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense, geom,
+                        bf16x3=bf16x3, resident=layout == "resident")
     return out[:n_rows]
 
 
 def plain_apply(plan: Plan, dense) -> torch.Tensor:
     """The plan's answer through the kernels' plain PyTorch versions, on
     the plan's device: the reference a kernel is held against on the
-    card. Works for the f32/bf16 and the int8 kernel plans."""
-    return plan.apply_fn(plan.statics, plan.arrays, dense, plain=True)
+    card. Works for the f32/bf16 and the int8 kernel plans, and for grad
+    and transb plans over them (both directions run plain)."""
+    return run(plan, dense, plain=True)
 
 
 def bsr_spmm_pallas(bsr: BSR, dense, **kw) -> torch.Tensor:

@@ -27,12 +27,12 @@ from spmm_denseblock_tpu_torch.formats.csr import CSR
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_int8 import bsr_spmm_int8_plan, dtype_name
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import bsr_spmm_pallas_plan
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8 import bsr_spmm_pallas_int8_plan
+from spmm_denseblock_tpu_torch.ops.bsr_spmm_xla import bsr_spmm_xla_plan
 from spmm_denseblock_tpu_torch.ops.plan import Plan
 from spmm_denseblock_tpu_torch.ops.reference import spmm_dense_torch
 
 # where each tier the JAX router can pick stands in the port's ROADMAP
 _NOT_PORTED = {
-    "bsr_xla": "ROADMAP queue 1 item 2",
     "csr_ell": "ROADMAP queue 1 item 9",
     "csr_ell_int8": "ROADMAP queue 1 item 9",
     "hybrid": "ROADMAP queue 1 item 10",
@@ -52,7 +52,8 @@ _INT8_VARIANT = {
 }
 
 
-def _dense_apply(statics, arrays, dense):
+def _dense_apply(statics, arrays, dense, plain: bool = False):
+    # one torch matmul: plain=True runs the same op
     (a,) = arrays
     return spmm_dense_torch(a, torch.as_tensor(dense, device=a.device))
 
@@ -63,6 +64,7 @@ def _dense_plan(mat, device="cpu", **kw):
 
 PLANNERS: Dict[str, Callable] = {
     "bsr_pallas": lambda m, **kw: bsr_spmm_pallas_plan(m, **kw),
+    "bsr_xla": lambda m, **kw: bsr_spmm_xla_plan(m, **kw),
     "bsr_int8": lambda m, **kw: bsr_spmm_int8_plan(m, **kw),
     "bsr_int8_pallas": lambda m, **kw: bsr_spmm_pallas_int8_plan(m, **kw),
     "dense": _dense_plan,
@@ -111,12 +113,13 @@ def spmm_plan(matrix, impl: str = "auto", block_size: int = 128,
               feat_dim=None, **kw) -> Plan:
     """Build an SpMM executor for `matrix` (CSR or BSR).
 
-    impl: "bsr_pallas", "bsr_int8", "bsr_int8_pallas", "dense" or
-    "auto". feat_dim steers "auto" (None assumes a wide operand).
+    impl: "bsr_pallas", "bsr_xla", "bsr_int8", "bsr_int8_pallas",
+    "dense" or "auto". feat_dim steers "auto" (None assumes a wide operand).
     dtype=torch.int8 maps the tier to its int8 variant (bsr_pallas ->
     bsr_int8_pallas, bsr_xla -> bsr_int8); pass calibration= for static
     operand scales. Other keyword arguments go to the planner, e.g.
-    grad=False, dtype=torch.bfloat16, device="cuda"."""
+    grad=False (bsr_pallas plans are differentiable by default),
+    dtype=torch.bfloat16, precision="high", device="cuda"."""
     budget = kw.pop("bsr_bytes_budget", 4 << 30)
     picked = impl == "auto"
     if picked:

@@ -4,8 +4,14 @@
 The JAX plan is a pytree so that jit sees its arrays as parameters. Here
 a plan is an ``nn.Module`` that holds its index and block arrays as
 buffers, so ``plan.to(device)`` moves them and ``plan(dense)`` runs the
-apply function on them. Plans nest: ``sum_plan`` holds sub-plans as
-child modules and adds their outputs.
+apply function on them. Plans nest: ``sum_plan``, ``grad_plan`` and
+``transb_plan`` hold sub-plans as child modules.
+
+Every apply function also takes ``plain=True``: a kernel plan's runs
+the kernels' plain PyTorch versions instead (``run(plan, x,
+plain=True)``), the nesting plans pass it on to their sub-plans, and a
+plan with no kernel (``bsr_xla``, ``bsr_int8``, ``dense``) runs the same
+ops either way.
 """
 
 from __future__ import annotations
@@ -55,13 +61,67 @@ class Plan(nn.Module):
         return f"{name}, statics={self.statics!r}"
 
 
-def _sum_apply(statics, plans, dense):
+def run(plan: Plan, dense, plain: bool = False):
+    """plan(dense), or with plain=True the same answer through the
+    kernels' plain PyTorch versions."""
+    if plain:
+        return plan.apply_fn(plan.statics, plan.arrays, dense, plain=True)
+    return plan(dense)
+
+
+def _sum_apply(statics, plans, dense, plain: bool = False):
     """Sum of sub-plan outputs (partial row sums add)."""
-    out = plans[0](dense)
+    out = run(plans[0], dense, plain)
     for p in plans[1:]:
-        out = out + p(dense)
+        out = out + run(p, dense, plain)
     return out
 
 
 def sum_plan(plans) -> Plan:
     return Plan(tuple(plans), _sum_apply)
+
+
+class _PlanVJP(torch.autograd.Function):
+    """C = fwd(B); dB = bwd(dC), cast to B's dtype and device (the JAX
+    package's _vjp_bwd). The plans' buffers are constants: no gradient."""
+
+    @staticmethod
+    def forward(ctx, dense, fwd_plan, bwd_plan, plain):
+        ctx.bwd_plan, ctx.plain = bwd_plan, plain
+        ctx.dtype, ctx.device = dense.dtype, dense.device
+        return run(fwd_plan, dense, plain)
+
+    @staticmethod
+    def backward(ctx, g):
+        # autograd's cotangent may be a strided view
+        dense_grad = run(ctx.bwd_plan, g.contiguous(), ctx.plain)
+        return dense_grad.to(device=ctx.device, dtype=ctx.dtype), None, None, None
+
+
+def _grad_apply(statics, plans, dense, plain: bool = False):
+    fwd_plan, bwd_plan = plans
+    if not torch.is_tensor(dense):
+        dense = torch.as_tensor(dense)
+    return _PlanVJP.apply(dense, fwd_plan, bwd_plan, plain)
+
+
+def grad_plan(fwd_plan: Plan, bwd_plan: Plan) -> Plan:
+    """Differentiable plan: dC/dB flows as A^T @ g through bwd_plan
+    (the same kernel family on the transposed layout)."""
+    return Plan((fwd_plan, bwd_plan), _grad_apply)
+
+
+def _transb_apply(statics, plans, dense_t, plain: bool = False):
+    (inner,) = plans
+    if not torch.is_tensor(dense_t):
+        dense_t = torch.as_tensor(dense_t)
+    return run(inner, dense_t.T, plain)
+
+
+def transb_plan(inner: Plan) -> Plan:
+    """Column-major operand entry: the returned plan takes B^T of shape
+    (F, K) and computes the same C = A @ B. The inner plan makes the
+    transposed view contiguous where it casts and pads the operand.
+    Autograd flows through (the gradient of B^T is the transposed
+    gradient of B)."""
+    return Plan((inner,), _transb_apply)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from spmm_denseblock_tpu_torch.formats.bsr import BSR
 from spmm_denseblock_tpu_torch.formats.csr import CSR
 
 CHECK_EPS = 1e-4
@@ -49,3 +50,58 @@ def assert_allclose(got, want, eps: float = CHECK_EPS, msg: str = ""):
     err = np.max(np.abs(got - want) / denom) if got.size else 0.0
     if err >= eps:
         raise AssertionError(f"{msg} max rel-err {err:.3e} >= {eps:.1e}")
+
+
+def _split_bf16_ints(v: np.ndarray):
+    """(hi, lo) of integer-valued v with 257 <= |v| <= 511, the split of
+    ``_dot3`` worked out by hand: bf16 keeps 8 significant bits, so in
+    [256, 512) it holds the even integers; an odd |v| is a tie and rounds
+    to the even significand, a multiple of 4. lo = v - hi is -1, 0 or 1."""
+    m = np.abs(v)
+    hi = np.where(m % 2 == 0, m, np.where((m + 1) % 4 == 0, m + 1, m - 1))
+    hi = np.sign(v) * hi
+    return hi, v - hi
+
+
+def bf16x3_exact_case(F: int = 96, seed: int = 0):
+    """An input on which the bf16x3 product (``_dot3``: A_hi X_hi + A_hi
+    X_lo + A_lo X_hi) and exact f32 give different answers, each of them
+    exact in f32 whatever the order of the sums, so a kernel must match
+    its answer bit for bit.
+
+    Every block and operand value is an integer of magnitude 257 .. 288,
+    so hi and lo are integers (``_split_bf16_ints``), every product is an
+    integer, and one output's terms sum in magnitude to under 2^24: every
+    partial sum is exact in f32. The two answers differ by A_lo X_lo.
+    b = 16; 7 block-rows of 12 block-columns, block-row 2 empty and the
+    others holding 10 or 11 blocks (9 real blocks per block-row on
+    average, so the f32 "high" plan sorts by default). Returns (bsr, x
+    (192, F) f32, want_bf16x3, want_exact), the wants (112, F) float64
+    arrays of f32 values."""
+    b, nbr, nbc = 16, 7, 12
+    rng = np.random.default_rng(seed)
+
+    def ints(shape):
+        return (rng.integers(257, 289, size=shape)
+                * rng.choice([-1, 1], size=shape)).astype(np.float32)
+
+    rows, cols = [], []
+    for r in range(nbr):
+        if r == 2:
+            continue
+        c = np.sort(rng.choice(nbc, size=int(rng.integers(10, 12)), replace=False))
+        rows += [r] * c.size
+        cols += c.tolist()
+    blocks = ints((len(rows), b, b))
+    bsr = BSR.from_parts(np.asarray(rows, np.int32), np.asarray(cols, np.int32),
+                         blocks, (nbr * b, nbc * b), b)
+    x = ints((nbc * b, F))
+    a = bsr.to_dense().astype(np.float64)
+    x64 = x.astype(np.float64)
+    (ah, al), (xh, xl) = _split_bf16_ints(a), _split_bf16_ints(x64)
+    bound = (np.abs(ah) + np.abs(al)) @ (np.abs(xh) + np.abs(xl))
+    assert bound.max() < 2.0 ** 24, bound.max()
+    want_bf16x3 = ah @ xh + ah @ xl + al @ xh
+    want_exact = a @ x64
+    assert (want_bf16x3 != want_exact).mean() > 0.5
+    return bsr, x, want_bf16x3, want_exact

@@ -3,16 +3,22 @@ bit-equal, the plain versions of K1 (flat grouped gather), K2
 (depth-sorted row groups) and K4 (consecutive row groups) match the JAX
 Pallas kernels run in interpret mode on the same packed arrays, the plan
 matches the scipy oracle, and the layout policy and the out-of-scope
-arguments behave as documented.
+arguments behave as documented. K3 (the bf16x3 product, precision=
+"high") and K5 (single-row resident) plain versions are held against
+the Pallas kernels the same way, and the bsr_xla tier against its JAX
+twin.
 
 Tolerances: plain version vs Pallas kernel on the same arrays, 1e-5
 relative to max |want| for f32 and bf16 operands (bf16 x bf16 products
 are exact in f32, so only the order of the f32 sums differs). Plan vs
 scipy: the reference's 1e-4 gate for f32, 3e-2 relative for bf16 (the
-bf16 tier's tolerance in tests/test_conformance.py)."""
+bf16 tier's tolerance in tests/test_conformance.py). K3 against _dot3:
+1e-6 relative (the same bf16 splits, exact products, f32 sums in
+another order)."""
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +27,7 @@ import torch
 import spmm_denseblock_tpu.formats.bsr as j_bsr
 import spmm_denseblock_tpu_torch.formats.bsr as t_bsr
 from spmm_denseblock_tpu_torch.ops import _kernels, assert_allclose, spmm_scipy, sum_plan
+from spmm_denseblock_tpu_torch.ops.reference import _split_bf16_ints, bf16x3_exact_case
 
 # the ops packages export a function of the module's name, so `import
 # ... as` would bind the function
@@ -317,18 +324,24 @@ def test_bf16_layout_gate():
 
 
 @pytest.mark.parametrize("kw", [
-    {"grad": True},
-    {"precision": "high"},
     {"precision": "default"},
-    {"resident": True},
-    {"resident": True, "dtype": torch.float32},
-    {"precision": "high", "dtype": torch.bfloat16},
+    {"precision": "default", "dtype": torch.bfloat16},
+    {"precision": "highest", "dtype": torch.bfloat16},
+    {"precision": "default", "grad": True},
 ])
 def test_out_of_scope_arguments_raise(kw):
+    """precision="default" (one bf16 pass on the TPU, exact f32 in the
+    JAX package's CPU interpret mode, so no parity test can hold it) and
+    "highest" on bf16 (refused by the TPU compiler) raise naming their
+    ROADMAP entry, before any packing, with grad too. grad=True,
+    precision="high" and resident=True are ported: see
+    test_torch_train.py and the layout-gate tests below."""
     bsr = t_bsr.random_bsr(0.3, 4, 4, block_size=8, seed=0)
     kw = {"grad": False, **kw}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.bsr_spmm_pallas_plan(bsr, **kw)
+    with pytest.raises(ValueError, match="precision"):
+        T.bsr_spmm_pallas_plan(bsr, precision="bf16x3")
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, "int8", np.int8])
@@ -367,3 +380,282 @@ def test_wrappers_reject_mixed_devices():
     with pytest.raises(ValueError, match="device"):
         T.spmm_flat(step_rows, step_ptr, slot_cols, blocks,
                     torch.zeros(32, 3, device="meta"), plan.statics[-1])
+
+
+# -- K3 (bf16x3) and K5 (single-row resident) ------------------------------
+
+K3_TOL = 1e-6
+
+
+def _three_term_f64(bsr, x):
+    """The float64 sum of _dot3's three terms at the matrix level:
+    A_hi X_hi + A_hi X_lo + A_lo X_hi, with the splits of the f32 values
+    (a packed layout's pad blocks split to zeros, so the layouts' sums
+    are this one up to the order of the sums)."""
+    a = torch.as_tensor(bsr.to_dense())
+    x = torch.as_tensor(x)
+    ah, al = (t.double() for t in T.split_bf16(a))
+    xh, xl = (t.double() for t in T.split_bf16(x))
+    return (ah @ xh + ah @ xl + al @ xh).numpy()
+
+
+def test_split_bf16_rounds_to_nearest_even():
+    """hi + lo carries 16 significant bits; a tie rounds to even, as
+    jnp.astype(bfloat16) does."""
+    x = np.random.default_rng(0).standard_normal(4096).astype(np.float32)
+    x[:3] = [1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8, -(1.0 + 2.0 ** -8)]
+    hi, lo = T.split_bf16(torch.as_tensor(x))
+    jhi = np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+    jlo = np.asarray((jnp.asarray(x) - jhi).astype(jnp.bfloat16).astype(jnp.float32))
+    np.testing.assert_array_equal(hi.numpy(), jhi)
+    np.testing.assert_array_equal(lo.numpy(), jlo)
+    assert hi[0] == 1.0 and hi[1] == 1.0 + 2.0 ** -6 and hi[2] == -1.0
+    assert (np.abs(x - hi.numpy() - lo.numpy()) <= np.abs(x) * 2.0 ** -16).all()
+
+
+@pytest.mark.parametrize("layout", ["flat", "sorted", "resident"])
+def test_k3_plain_matches_dot3_kernel(layout):
+    """K3's plain version on each layout against the Pallas kernel with
+    precision_name="high" (_dot3, interpret mode) on the same packed
+    arrays, within 1e-6. Margins: K3 lies within 1e-6 of the float64
+    three-term sum; the exact f32 answer on the same input lies more
+    than 10x further from it (it keeps the lo*lo term and the split
+    residuals bf16x3 drops), so the test tells bf16x3 from exact f32.
+    On this input: 7.5e-8 from _dot3, 8.7e-8 from the three-term sum,
+    and exact f32 4.1e-6 from it (48x)."""
+    bsr = _with_empty_rows(t_bsr, 21, 16, 0.25, seed=13)
+    nbr = bsr.n_block_rows
+    rows, cols, blocks = _covered_parts(T, bsr)
+    F = 128
+    x = _dense(bsr, F, seed=14)
+    xt, jx = torch.as_tensor(x), jnp.asarray(x)
+    if layout == "sorted":
+        R, gh, W = 16, 4, 128
+        win_ids, pos, slot_cols, bp, n_win, lane_valid, steps = \
+            T._pack_rowgroups_sorted(rows, cols, blocks, gh, R, W)
+        want = J._pallas_spmm_rowgroup_sorted(
+            jnp.asarray(win_ids), jnp.asarray(pos), jnp.asarray(slot_cols),
+            jnp.asarray(bp), jx.reshape(-1, 16, F), n_win, W, nbr * 16, F,
+            gh, R, True, "high")
+        args = (torch.as_tensor(win_ids), torch.as_tensor(pos),
+                torch.as_tensor(slot_cols), torch.as_tensor(bp), xt,
+                torch.as_tensor(lane_valid),
+                torch.as_tensor(np.concatenate([[0], np.cumsum(steps)])),
+                nbr, R, gh, W)
+        got = T.spmm_sorted_plain(*args, bf16x3=True)
+        exact = T.spmm_sorted_plain(*args)
+    else:
+        group = 4
+        step_rows, slot_cols, bp = T._pack_groups(rows, cols, blocks, group)
+        jargs = (jnp.asarray(step_rows), jnp.asarray(slot_cols), jnp.asarray(bp))
+        targs = (torch.as_tensor(step_rows), torch.as_tensor(slot_cols),
+                 torch.as_tensor(bp))
+        if layout == "flat":
+            want = J._pallas_spmm(*jargs, jx, nbr, nbr * 16, F, group, False,
+                                  True, "high")
+            got = T.spmm_flat_plain(*targs, xt, nbr, group, bf16x3=True)
+            exact = T.spmm_flat_plain(*targs, xt, nbr, group)
+        else:
+            want = J._pallas_spmm_resident(*jargs, jx.reshape(-1, 16, F), nbr,
+                                           nbr * 16, F, group, True, "high")
+            x3 = xt.reshape(-1, 16, F)
+            got = T.spmm_resident_plain(*targs, x3, nbr, group, bf16x3=True)
+            exact = T.spmm_resident_plain(*targs, x3, nbr, group)
+    assert got.shape == (nbr * 16, F) and got.dtype == torch.float32
+    assert _rel(got.numpy(), np.asarray(want)) < K3_TOL
+    ref3 = _three_term_f64(bsr, x)
+    k3_err = _rel(got.numpy(), ref3)
+    exact_err = _rel(exact.numpy(), ref3)
+    assert k3_err < K3_TOL
+    assert exact_err > 10 * k3_err, (exact_err, k3_err)
+    assert not got.reshape(nbr, 16, F)[[3, 4, 17]].any()
+
+
+def test_split_bf16_ints_matches_split_bf16():
+    """The hand-worked split that bf16x3_exact_case's answers rest on is
+    split_bf16's (and so _dot3's) on every magnitude the case uses."""
+    v = np.arange(257, 512, dtype=np.float32)
+    v = np.concatenate([v, -v])
+    hi, lo = T.split_bf16(torch.as_tensor(v))
+    h2, l2 = _split_bf16_ints(v.astype(np.float64))
+    np.testing.assert_array_equal(hi.numpy(), h2)
+    np.testing.assert_array_equal(lo.numpy(), l2)
+    assert set(np.unique(l2)) == {-1.0, 0.0, 1.0}
+
+
+@pytest.mark.parametrize("kw,layout", [
+    ({}, "sorted"),
+    ({"depth_sort": False}, "flat"),
+    ({"resident": True, "depth_sort": False}, "resident"),
+])
+def test_k3_is_bf16x3_not_exact_f32(kw, layout):
+    """On bf16x3_exact_case every partial sum is exact in f32, so no
+    order of the sums can blur the answer: the "high" plan (K3's plain
+    version here) equals A_hi X_hi + A_hi X_lo + A_lo X_hi bit for bit,
+    as the JAX plan does (_dot3, interpret mode); the exact f32 plan on
+    the same layout equals A X bit for bit; the two differ in most
+    entries (by A_lo X_lo). tests/test_torch_cuda_kernels.py and
+    chip_smoke.py hold the CUDA kernels to the same answers."""
+    bsr, x, want3, want_exact = bf16x3_exact_case()
+    tp = T.bsr_spmm_pallas_plan(bsr, grad=False, precision="high", **kw)
+    exact = T.bsr_spmm_pallas_plan(bsr, grad=False, **kw)
+    assert (tp.statics[0], tp.statics[5]) == (layout, "bf16x3")
+    assert (exact.statics[0], exact.statics[5]) == (layout, "exact")
+    np.testing.assert_array_equal(tp(x).double().numpy(), want3)
+    np.testing.assert_array_equal(exact(x).double().numpy(), want_exact)
+    jbsr = j_bsr.BSR.from_parts(bsr.block_rows, bsr.block_cols, bsr.blocks,
+                                bsr.shape, bsr.b)
+    jp = J.bsr_spmm_pallas_plan(jbsr, grad=False, precision="high", **kw)
+    np.testing.assert_array_equal(np.asarray(jp(x), np.float64), want3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [1, 4])
+def test_resident_plain_matches_pallas_kernel(dtype, group):
+    """K5's plain version, reading the operand as (nbc, b, F), against
+    _pallas_spmm_resident on the same arrays; the CPU wrapper runs it."""
+    bsr = _with_empty_rows(t_bsr, 21, 16, 0.25, seed=15)
+    nbr = bsr.n_block_rows
+    rows, cols, blocks = _covered_parts(T, bsr)
+    step_rows, slot_cols, bp = T._pack_groups(rows, cols, blocks, group)
+    F = 128
+    x = _dense(bsr, F, seed=16)
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    want = np.asarray(J._pallas_spmm_resident(
+        jnp.asarray(step_rows), jnp.asarray(slot_cols),
+        jnp.asarray(bp).astype(jd), jnp.asarray(x).astype(jd).reshape(-1, 16, F),
+        nbr, nbr * 16, F, group, True))
+    td = getattr(torch, dtype)
+    x3 = torch.as_tensor(x).to(td).reshape(-1, 16, F)
+    targs = (torch.as_tensor(step_rows), torch.as_tensor(slot_cols),
+             torch.as_tensor(bp).to(td))
+    got = T.spmm_resident_plain(*targs, x3, nbr, group)
+    assert got.shape == (nbr * 16, F) and got.dtype == torch.float32
+    assert _rel(got.numpy(), want) < 1e-5
+    ptr = torch.as_tensor(np.searchsorted(step_rows, np.arange(nbr + 1)))
+    assert torch.equal(T.spmm_resident(targs[0], ptr, targs[1], targs[2], x3,
+                                       group), got)
+    with pytest.raises(ValueError, match="nbc, b, F"):
+        T.spmm_resident_plain(*targs, x3.reshape(-1, F), nbr, group)
+
+
+# (dtype, plan kwargs, blocks per block-row, layout, math)
+GATE_CASES = [
+    (None, {"precision": "high"}, 9, "sorted", "bf16x3"),
+    (None, {"precision": "high"}, 7, "flat", "bf16x3"),
+    (None, {"precision": "high", "depth_sort": False}, 9, "flat", "bf16x3"),
+    (None, {"precision": "highest"}, 9, "flat", "exact"),
+    ("bfloat16", {"precision": "high"}, 9, "flat", "exact"),
+    ("bfloat16", {"precision": "high"}, 3, "flat", "exact"),
+    (None, {"resident": True}, 9, "sorted", "exact"),
+    (None, {"resident": True}, 7, "resident", "exact"),
+    (None, {"resident": True, "depth_sort": False}, 9, "resident", "exact"),
+    (None, {"resident": True, "precision": "high"}, 9, "sorted", "bf16x3"),
+    (None, {"resident": True, "precision": "high"}, 7, "resident", "bf16x3"),
+    ("bfloat16", {"resident": True, "precision": "high"}, 9, "resident", "exact"),
+    (None, {"resident": False}, 9, "flat", "exact"),
+]
+
+
+@pytest.mark.parametrize("dtype,kw,depth,layout,math", GATE_CASES)
+def test_precision_resident_layout_gate(dtype, kw, depth, layout, math):
+    """The JAX gate for precision="high" and resident=True: f32 "high"
+    and resident=True sort at >= 8 real blocks per block-row (unless
+    depth_sort=False), else pack flat, run by K5 with resident=True;
+    bf16 "high" is not the bf16 resident regime and packs flat at the
+    _auto_group rule (group 4 at depth 9 where the power-of-two rule
+    gives 16). The packed arrays and the group are bit-equal to the JAX
+    plan's; the answers agree within 1e-5 (the JAX side in interpret
+    mode)."""
+    rows, cols, blocks = _rows_with(depth)
+    parts = (rows, cols, blocks, (192, 192), 8)
+    td = None if dtype is None else getattr(torch, dtype)
+    jd = None if dtype is None else jnp.bfloat16
+    tp = T.bsr_spmm_pallas_plan(t_bsr.BSR.from_parts(*parts), dtype=td,
+                                grad=False, **kw)
+    jp = J.bsr_spmm_pallas_plan(j_bsr.BSR.from_parts(*parts), dtype=jd,
+                                grad=False, **kw)
+    assert tp.statics[0] == layout and tp.statics[5] == math
+    j_layout = _jax_layout(jp)
+    assert j_layout == ("flat" if layout == "resident" else layout)
+    if layout in ("flat", "resident"):
+        assert tp.statics[-1] == jp.statics[5]
+        assert jp.statics[5] == J._auto_group(depth * 24, 24)
+    for a, b in zip(jp.arrays, tp.arrays):
+        np.testing.assert_array_equal(np.asarray(a.astype(jnp.float32)),
+                                      b.float().numpy())
+    x = np.random.default_rng(3).standard_normal((192, 40)).astype(np.float32)
+    assert _rel(tp(x).numpy(), np.asarray(jp(x))) < 1e-5
+    if math == "bf16x3":
+        exact = T.bsr_spmm_pallas_plan(t_bsr.BSR.from_parts(*parts),
+                                       grad=False)(x)
+        assert not torch.equal(tp(x), exact)
+
+
+# -- bsr_xla, the plain-torch tier ------------------------------------------
+
+XLA = importlib.import_module("spmm_denseblock_tpu_torch.ops.bsr_spmm_xla")
+JX = importlib.import_module("spmm_denseblock_tpu.ops.bsr_spmm_xla")
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+def test_bsr_xla_matches_jax(dtype):
+    """bsr_xla (gather, f32 bmm, index_add) against bsr_spmm_xla_plan:
+    outputs and the gradient of <C, G> (autograd against jax.grad);
+    ragged shape, empty block-rows; through spmm_plan too."""
+    src = _with_empty_rows(t_bsr, 13, 16, 0.3, seed=17)
+    parts = (src.block_rows, src.block_cols, src.blocks, (13 * 16 - 5, 13 * 16 - 9), 16)
+    td = None if dtype is None else torch.bfloat16
+    jd = None if dtype is None else jnp.bfloat16
+    tp = XLA.bsr_spmm_xla_plan(t_bsr.BSR.from_parts(*parts), dtype=td)
+    jp = JX.bsr_spmm_xla_plan(j_bsr.BSR.from_parts(*parts), dtype=jd)
+    rng = np.random.default_rng(18)
+    x = rng.standard_normal((parts[3][1], 33)).astype(np.float32)
+    g = rng.standard_normal((parts[3][0], 33)).astype(np.float32)
+    jout, jvjp = jax.vjp(jp, jnp.asarray(x))
+    (jgrad,) = jvjp(jnp.asarray(g))
+    xt = torch.tensor(x, requires_grad=True)
+    out = tp(xt)
+    out.backward(torch.as_tensor(g))
+    assert out.shape == parts[3][:1] + (33,) and out.dtype == torch.float32
+    assert _rel(out.detach().numpy(), np.asarray(jout)) < 1e-5
+    assert _rel(xt.grad.numpy(), np.asarray(jgrad)) < 1e-5
+    assert not out.detach().reshape(-1, 33)[3 * 16:5 * 16].any()
+    if dtype is None:
+        assert_allclose(out.detach(), spmm_scipy(t_bsr.BSR.from_parts(*parts), x))
+    from spmm_denseblock_tpu_torch.ops import spmm_plan
+
+    routed = spmm_plan(t_bsr.BSR.from_parts(*parts), impl="bsr_xla", dtype=td,
+                       grad=True)
+    assert routed.apply_fn is XLA._bsr_xla_apply
+    assert torch.equal(routed(x), out.detach())
+    with pytest.raises(ValueError, match="int8"):
+        XLA.bsr_spmm_xla_plan(t_bsr.BSR.from_parts(*parts), dtype=torch.int8)
+
+
+@pytest.mark.parametrize("impl", ["bsr_xla", "bsr_int8", "dense"])
+def test_plain_apply_on_plans_without_kernels(impl):
+    """plain_apply on a plan with no kernel (bsr_xla, bsr_int8, dense)
+    runs the plan's own ops, alone, summed, and as the two directions of
+    a grad_plan (bsr_int8 is inference only and has no grad plan)."""
+    from spmm_denseblock_tpu_torch.ops import PLANNERS, grad_plan
+
+    bsr = _with_empty_rows(t_bsr, 9, 16, 0.3, seed=19)
+    build = lambda m: PLANNERS[impl](m, grad=False)
+    plan = build(bsr)
+    x = np.random.default_rng(20).standard_normal((bsr.shape[1], 24)).astype(np.float32)
+    assert torch.equal(T.plain_apply(plan, x), plan(x))
+    both = sum_plan([plan, build(bsr)])
+    assert torch.equal(T.plain_apply(both, x), both(x))
+    if impl == "bsr_int8":
+        return
+    gp = grad_plan(plan, build(bsr.transpose()))
+    g = torch.as_tensor(np.random.default_rng(21).standard_normal(
+        (bsr.shape[0], 24)).astype(np.float32))
+    grads = []
+    for fn in (gp, lambda v: T.plain_apply(gp, v)):
+        xt = torch.tensor(x, requires_grad=True)
+        fn(xt).backward(g)
+        grads.append(xt.grad)
+    assert torch.equal(grads[0], grads[1])
+    assert_allclose(grads[0], bsr.to_dense().T @ g.numpy())

@@ -1,8 +1,10 @@
 """The CUDA kernels K1 (flat grouped gather), K2 (depth-sorted row
-groups), K4 (consecutive row groups) and the int8 kernels K6 (flat), K7
-(depth-sorted, group-scale and per-slot scales) and K8 (consecutive row
-groups) against their plain PyTorch versions on the card, their launch
-counters, and the wrappers' refusals. CUDA kernels have no CPU mode, so
+groups), K3 (the bf16x3 product, on K1's, K2's and K5's layouts), K4
+(consecutive row groups), K5 (single-row resident) and the int8 kernels
+K6 (flat), K7 (depth-sorted, group-scale and per-slot scales) and K8
+(consecutive row groups) against their plain PyTorch versions on the
+card, their launch counters, the wrappers' refusals, and a grad plan's
+backward on the card against the plain backward. CUDA kernels have no CPU mode, so
 these tests skip without a GPU; run them on one with
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
@@ -10,7 +12,8 @@ these tests skip without a GPU; run them on one with
 (tests/conftest.py imports jax, which these tests do not need).
 
 Tolerance: 1e-5 relative to max |plain| (same operands in the same
-dtype; only the order of the f32 sums differs)."""
+dtype; only the order of the f32 sums differs), and bit-equality on the
+input whose sums are exact in f32 that tells bf16x3 from exact f32."""
 
 import importlib
 
@@ -20,6 +23,7 @@ import torch
 
 from spmm_denseblock_tpu_torch.formats.bsr import BSR, random_bsr
 from spmm_denseblock_tpu_torch.ops import _kernels, assert_allclose, spmm_scipy
+from spmm_denseblock_tpu_torch.ops.reference import bf16x3_exact_case
 
 T = importlib.import_module("spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas")
 TI = importlib.import_module("spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8")
@@ -247,3 +251,121 @@ def test_int8_group_scale_sum_is_exact():
     assert torch.equal(got, TI.run_quantized(plan, *TI.quantize_operand(plan, x),
                                              plain=True))
     assert (got.cpu().numpy() == exact).all()
+
+
+K3_K5_CASES = {
+    # name: (plan kwargs, layout, kernel)
+    "k3_flat": ({"precision": "high", "depth_sort": False}, "flat",
+                "bsr_spmm_flat_bf16x3"),
+    "k3_sorted": ({"precision": "high", "depth_sort": True}, "sorted",
+                  "bsr_spmm_sorted_bf16x3"),
+    "k3_resident": ({"precision": "high", "resident": True, "depth_sort": False},
+                    "resident", "bsr_spmm_resident_bf16x3"),
+    "k5": ({"resident": True, "depth_sort": False}, "resident",
+           "bsr_spmm_resident"),
+    "k5_bf16": ({"resident": True, "precision": "high", "dtype": torch.bfloat16},
+                "resident", "bsr_spmm_resident"),
+}
+
+
+@pytest.mark.parametrize("b", [16, 32, 64, 128])
+@pytest.mark.parametrize("case", list(K3_K5_CASES))
+def test_k3_k5_kernel_matches_plain(b, case):
+    """K3's three instances and K5 (f32 and bf16) against their plain
+    versions; 37 block-rows with two empty ones (about 10 real blocks
+    per row, so "high" can sort), ragged F. K3 is f32-grade: within
+    1e-4 of the scipy oracle."""
+    bsr = _bsr(37, b, 0.3, seed=b + 2)
+    kw, layout, name = K3_K5_CASES[case]
+    plan = T.bsr_spmm_pallas_plan(bsr, grad=False, device="cuda", **kw)
+    assert plan.statics[0] == layout
+    got = _check(plan, _x(bsr, seed=2), getattr(_kernels, name))
+    want = spmm_scipy(bsr, _x(bsr, seed=2).cpu().numpy())
+    rel = np.abs(got.cpu().numpy() - want).max() / np.abs(want).max()
+    assert rel < (3e-2 if "dtype" in kw else 1e-4), rel
+
+
+@pytest.mark.parametrize("kw,kernels", [
+    ({}, ("bsr_spmm_sorted_bf16x3", "bsr_spmm_sorted")),
+    ({"depth_sort": False}, ("bsr_spmm_flat_bf16x3", "bsr_spmm_flat")),
+    ({"resident": True, "depth_sort": False},
+     ("bsr_spmm_resident_bf16x3", "bsr_spmm_resident")),
+])
+def test_k3_kernel_is_bf16x3_not_exact_f32(kw, kernels):
+    """bf16x3_exact_case makes every partial sum exact in f32, so the
+    order of the kernel's sums cannot hide what it computes: each K3
+    instance must give A_hi X_hi + A_hi X_lo + A_lo X_hi bit for bit, and
+    the exact kernel on the same layout (K2, K1, K5) A X bit for bit. A
+    K3 that kept lo*lo, lost a split or truncated instead of rounding to
+    even would miss the first; the two answers differ in most entries."""
+    bsr, x, want3, want_exact = bf16x3_exact_case()
+    x = torch.as_tensor(x, device="cuda")
+    for precision, name, want in (("high", kernels[0], want3),
+                                  (None, kernels[1], want_exact)):
+        plan = T.bsr_spmm_pallas_plan(bsr, grad=False, precision=precision,
+                                      device="cuda", **kw)
+        kernel = getattr(_kernels, name)
+        before = kernel.launches
+        got = plan(x)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        np.testing.assert_array_equal(got.double().cpu().numpy(), want)
+
+
+def test_k3_wrappers_take_f32_only():
+    bsr = _bsr(8, 16, 0.5, seed=5)
+    plan = T.bsr_spmm_pallas_plan(bsr, grad=False, resident=True,
+                                  precision="high", device="cuda")
+    step_rows, slot_cols, blocks, step_ptr = plan.arrays
+    x3 = torch.zeros(8, 16, 4, device="cuda", dtype=torch.bfloat16)
+    counts = [k.launches for k in _kernels.KERNELS]
+    with pytest.raises(TypeError, match="dtype"):
+        T.spmm_resident(step_rows, step_ptr, slot_cols, blocks.bfloat16(), x3,
+                        plan.statics[-1], bf16x3=True)
+    with pytest.raises(ValueError, match="nbc, b, F"):
+        T.spmm_resident(step_rows, step_ptr, slot_cols, blocks,
+                        x3.float().reshape(-1, 4), plan.statics[-1])
+    assert [k.launches for k in _kernels.KERNELS] == counts
+
+
+def _rect_bsr(b, depth=13, seed=0):
+    """6 x 16 block grid, block-rows 1 and 4 and block-columns 4 and 11
+    empty: A sorts (>= 8 real blocks per row), Aᵀ packs flat."""
+    rng = np.random.default_rng(seed)
+    live = np.setdiff1d(np.arange(16), [4, 11])
+    rows = np.repeat([0, 2, 3, 5], depth)
+    cols = np.concatenate([np.sort(rng.choice(live, depth, replace=False))
+                           for _ in range(4)])
+    blocks = rng.standard_normal((rows.size, b, b)).astype(np.float32)
+    return BSR.from_parts(rows.astype(np.int32), cols.astype(np.int32), blocks,
+                          (6 * b - 3, 16 * b - 3), b)
+
+
+@pytest.mark.parametrize("b", [32, 128])
+@pytest.mark.parametrize("kw,kernels", [
+    ({}, ("bsr_spmm_sorted", "bsr_spmm_flat")),
+    ({"precision": "high"}, ("bsr_spmm_sorted_bf16x3", "bsr_spmm_flat_bf16x3")),
+    ({"resident": True}, ("bsr_spmm_sorted", "bsr_spmm_resident")),
+])
+def test_grad_plan_backward_on_card(b, kw, kernels):
+    """A grad plan on the card: the forward launches A's kernel once and
+    the backward Aᵀ's kernel once; the gradient matches the plain
+    backward (plain_apply, both directions plain) within 1e-5."""
+    bsr = _rect_bsr(b)
+    plan = T.bsr_spmm_pallas_plan(bsr, device="cuda", **kw)
+    fwd_k, bwd_k = (getattr(_kernels, n) for n in kernels)
+    x0 = _x(bsr, F=70, seed=3)
+    g = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        (bsr.shape[0], 70)).astype(np.float32), device="cuda")
+    counts = fwd_k.launches, bwd_k.launches
+    x = x0.clone().requires_grad_(True)
+    plan(x).backward(g)
+    torch.cuda.synchronize()
+    assert (fwd_k.launches, bwd_k.launches) == (counts[0] + 1, counts[1] + 1)
+    xp = x0.clone().requires_grad_(True)
+    T.plain_apply(plan, xp).backward(g)
+    assert (fwd_k.launches, bwd_k.launches) == (counts[0] + 1, counts[1] + 1)
+    rel = (x.grad - xp.grad).abs().max().item() / xp.grad.abs().max().item()
+    assert rel < TOL, rel
+    want = bsr.to_dense().T.astype(np.float64) @ g.cpu().numpy()
+    assert np.abs(x.grad.cpu().numpy() - want).max() / np.abs(want).max() < 1e-4

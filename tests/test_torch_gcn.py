@@ -80,8 +80,8 @@ def test_gcn_serving_slice_matches_jax(kind, layout, tmp_path):
 
 
 def test_auto_router_parity(tmp_path):
-    """b=128: both routers pick bsr_pallas. b=32: the JAX router picks
-    bsr_xla (b < 64) and the port, which has no bsr_xla yet, raises."""
+    """b=128: both routers pick bsr_pallas. b=32, and narrow operands at
+    b=128: both pick bsr_xla, and the answers agree."""
     j_graph, t_graph = _graphs("ddi", tmp_path)
     j_adj = j_models.sym_norm_adjacency(j_graph)
     t_adj = t_models.sym_norm_adjacency(t_graph)
@@ -91,13 +91,13 @@ def test_auto_router_parity(tmp_path):
     t_auto = t_ops.spmm_plan(t_adj, impl="auto", block_size=128, grad=False)
     assert t_auto.apply_fn.__module__.endswith("bsr_spmm_pallas")
 
-    j_small = j_ops.spmm_plan(j_adj, impl="auto", block_size=32, grad=False)
-    assert j_small.apply_fn.__module__.endswith("bsr_spmm_xla")
-    with pytest.raises(NotImplementedError, match="bsr_xla"):
-        t_ops.spmm_plan(t_adj, impl="auto", block_size=32, grad=False)
-    # narrow operands go to bsr_xla in both routers too
-    with pytest.raises(NotImplementedError, match="bsr_xla"):
-        t_ops.spmm_plan(t_adj, impl="auto", block_size=128, feat_dim=64, grad=False)
+    x = np.random.default_rng(8).standard_normal((t_adj.n_rows, 24)).astype(np.float32)
+    for kw in ({"block_size": 32}, {"block_size": 128, "feat_dim": 64}):
+        j_small = j_ops.spmm_plan(j_adj, impl="auto", grad=False, **kw)
+        assert j_small.apply_fn.__module__.endswith("bsr_spmm_xla")
+        t_small = t_ops.spmm_plan(t_adj, impl="auto", grad=False, **kw)
+        assert t_small.apply_fn.__module__.endswith("bsr_spmm_xla")
+        assert_allclose(t_small(x), np.asarray(j_small(x)))
 
 
 def test_auto_router_fill_guard():

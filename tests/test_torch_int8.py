@@ -374,8 +374,9 @@ def test_int8_routing_matches_jax(tmp_path):
     assert tb.apply_fn.__module__.endswith(".bsr_spmm_int8")
     x = _operand(t_adj.n_rows, 16, seed=5)
     assert _rel(tb(x), np.asarray(jb(x))) < PARITY_TOL
-    with pytest.raises(NotImplementedError, match="bsr_xla"):
-        t_ops.spmm_plan(t_adj, impl="bsr_xla", block_size=32)
+    # without int8 bsr_xla is the plain-torch tier, in both packages
+    assert t_ops.spmm_plan(t_adj, impl="bsr_xla", block_size=32).apply_fn.__module__.endswith(
+        ".bsr_spmm_xla")
     with pytest.raises(NotImplementedError, match="csr_ell_int8"):
         t_ops.spmm_plan(t_bsr_csr_fill(), impl="auto", block_size=128,
                         dtype=torch.int8)
