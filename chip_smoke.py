@@ -2,8 +2,10 @@
 """Smoke run of the PyTorch port (spmm_denseblock_tpu_torch) on one NVIDIA
 GPU: builds the CUDA kernels from this checkout, holds each against its
 plain PyTorch version, serves a GCN on the ogbl-ddi stand-in through the
-BSR SpMM plan in f32 and in int8, trains it in f32 and in bf16x3
-(precision="high"), and runs the plans at bench.py's op shape.
+BSR SpMM plan in f32 and in int8 and through the CSR plan (K10), trains
+it in f32 and in bf16x3 (precision="high") through the BSR plan and in
+f32 through the CSR plan, and runs the plans at bench.py's op shape and
+the CSR kernel at the reference's test_csrmm shape.
 
     python3 chip_smoke.py
 
@@ -14,25 +16,32 @@ Phases:
   3. kernels  K1 (flat), K2 (sorted), K3 (bf16x3 on the sorted, flat and
               resident layouts), K4 (row groups; f32 and bf16), K5
               (resident), and the int8 K6 (flat), K7 (sorted; group-scale
-              and per-slot scales) and K8 (row groups), each against its
-              plain version at a ragged small shape, a 7-block-row shape
-              (phantom and absent lanes) and the ddi shape; then each K3
-              instance and its exact kernel (K2, K1, K5) on an input whose
-              sums are exact in f32 (bf16x3_exact_case): K3 must give
-              A_hi X_hi + A_hi X_lo + A_lo X_hi and the exact kernel A X,
-              each bit for bit (the two differ in most entries)
+              and per-slot scales), K8 (row groups) and K9 (resident,
+              resident=True with f_tile=128), each against its plain
+              version at a ragged small shape, a 7-block-row shape
+              (phantom and absent lanes) and the ddi shape; K10 (CSR, on
+              the band layout) against its plain version at a ragged CSR
+              with empty head rows and an empty band (F=7), a rectangular
+              one (F=64) and ddi (F=256); then each K3 instance and its
+              exact kernel (K2, K1, K5) on an input whose sums are exact in
+              f32 (bf16x3_exact_case): K3 must give A_hi X_hi + A_hi X_lo +
+              A_lo X_hi and the exact kernel A X, each bit for bit (the two
+              differ in most entries)
   4. slice    GCN [256, 256, 256] on load_dataset("ogbl-ddi") (rcmk,
               sym_norm_adjacency, spmm_plan(impl="bsr_pallas", b=128)),
               4 seeded requests in f32 (K2), each checked against a float64
               host reference at 1e-4; then the same requests through
               spmm_plan(..., dtype=torch.int8) (bsr_int8_pallas, K7), each
               answer within 6e-2 of the float64 reference and each SpMM
-              within 1e-5 of its plain version
+              within 1e-5 of its plain version; then the same requests
+              through spmm_plan(adj, impl="csr_pallas") (K10), each within
+              1e-4 of the float64 reference
   5. train    the same model and graph, trained through spmm_plan's
               default grad plan (K2 on A and on Aᵀ), seeded labels over
               256 classes and a 60% train mask: 5 Adam(lr=1e-2) steps of
               make_train_step in f32, then 5 with precision="high" (K3 on
-              the sorted layout, both ways). Step 0's parameter gradients
+              the sorted layout, both ways), then 5 through the csr_pallas
+              grad plan (K10 on A and on Aᵀ). Step 0's parameter gradients
               within 1e-4 (max |err| / max |ref|) of a float64 host
               autograd reference on the dense A, taken at the kernel
               run's ReLU pattern (a pre-activation within rounding of 0
@@ -49,21 +58,33 @@ Phases:
               resident=True, depth_sort=False (K5); bf16 default (K2),
               depth_sort=False (K4) and resident=False (K1); int8 with
               calibration=dense[:4096] as bench.py: default (K7),
-              depth_sort=False (K8) and resident=False (K6); each against
-              its plain version, each int8 answer within 6e-2 of f32 K2's;
+              depth_sort=False (K8), resident=False (K6) and
+              resident=True, f_tile=128 (K9); each against its plain
+              version, each int8 answer within 6e-2 of f32 K2's;
               bench.py's bf16x3 self-check (the "high" answer within 1e-4
-              of exact f32 K2's and of the bsr_xla tier's)
-  7. timing   CUDA-event times of kernel and plain paths, GFLOP/s =
-              2*nnzb*b^2*F / t (real blocks); ms per training step; the
-              int8 operand's quantization (dynamic and static) apart from
-              its kernel
+              of exact f32 K2's and of the bsr_xla tier's); K10 at the
+              reference's test_csrmm shape, random_csr(2e-3, 2^17,
+              seed=1234) with F=512, against its plain version and within
+              1e-4 of the csr_xla tier's answer
+  7. timing   CUDA-event times of kernel, plain and library paths
+              (library: one PyTorch call computing the same function,
+              timed as a yardstick and never called by the port:
+              torch.sparse_bsr_tensor @ X for the f32 and bf16 BSR
+              kernels, torch.sparse_csr_tensor @ X for K10, none for
+              int8), GFLOP/s = 2*nnzb*b^2*F / t (real blocks) or
+              2*nnz*F / t (CSR); ms per request and per training step, BSR
+              and CSR on the same card; the int8 operand's quantization
+              (dynamic and static) apart from its kernel; each kernel's
+              bound (the larger of its bytes, each input read once and
+              each output written once, over 3.35 TB/s, and its
+              operations over the peak of their type)
 
 The main path is phases 4 to 6, each of their runs (f32 slice, int8
-slice, f32 training, "high" training, op) with the launch counts set to
-0 just before it and read just after; every kernel of the path must have
-run there. Prints the kernels' JSON line, then the last line {"ok": true,
-"device": {...}}. Any failure raises and exits non-zero; there is no CPU
-path.
+slice, CSR slice, f32 training, "high" training, CSR training, op) with
+the launch counts set to 0 just before it and read just after; every
+kernel of the path must have run there. Prints the kernels' JSON line,
+then the last line {"ok": true, "device": {...}}. Any failure raises and
+exits non-zero; there is no CPU path.
 """
 
 from __future__ import annotations
@@ -73,6 +94,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -83,6 +105,7 @@ sys.path.insert(0, str(ROOT))
 
 from spmm_denseblock_tpu_torch.convert.csr2bsr import csr_to_bsr  # noqa: E402
 from spmm_denseblock_tpu_torch.formats.bsr import BSR, random_bsr  # noqa: E402
+from spmm_denseblock_tpu_torch.formats.csr import CSR, random_csr  # noqa: E402
 from spmm_denseblock_tpu_torch.io.datasets import load_dataset  # noqa: E402
 from spmm_denseblock_tpu_torch.models.gnn import linear  # noqa: E402
 from spmm_denseblock_tpu_torch.models import (  # noqa: E402
@@ -112,6 +135,12 @@ from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8 import (  # noqa: E402
     quantize_operand,
     run_quantized,
 )
+from spmm_denseblock_tpu_torch.ops.csr_spmm import csr_spmm_plan  # noqa: E402
+from spmm_denseblock_tpu_torch.ops.csr_spmm_pallas import (  # noqa: E402
+    SEGMENT_NNZ,
+    _csr_pallas_apply,
+    csr_spmm_pallas_plan,
+)
 from spmm_denseblock_tpu_torch.ops.plan import Plan  # noqa: E402
 from spmm_denseblock_tpu_torch.ops.reference import (  # noqa: E402
     CHECK_EPS,
@@ -139,6 +168,8 @@ _I8 = _CSRC + "bsr_spmm_int8.cu"
 # (plan family, layout, products) -> (id, kernel, source, what it replaces:
 # the pallas_call, or for K3 the _dot3 helper inside K1/K2/K5)
 KERNEL_INFO = {
+    ("csr",): ("K10", "csr_spmm", _CSRC + "csr_spmm.cu",
+               "spmm_denseblock_tpu/ops/csr_spmm_pallas.py:112"),
     ("f", "flat", "exact"): ("K1", "bsr_spmm_flat", _F, _PALLAS + ":909"),
     ("f", "sorted", "exact"): ("K2", "bsr_spmm_sorted", _F, _PALLAS + ":686"),
     ("f", "flat", "bf16x3"): ("K3", "bsr_spmm_flat_bf16x3", _F, _PALLAS + ":56"),
@@ -150,8 +181,17 @@ KERNEL_INFO = {
     ("i8", "flat"): ("K6", "bsr_spmm_int8_flat", _I8, _PALLAS_I8 + ":490"),
     ("i8", "sorted"): ("K7", "bsr_spmm_int8_sorted", _I8, _PALLAS_I8 + ":358"),
     ("i8", "rowgroup"): ("K8", "bsr_spmm_int8_rowgroup", _I8, _PALLAS_I8 + ":252"),
+    ("i8", "resident"): ("K9", "bsr_spmm_int8_resident", _I8, _PALLAS_I8 + ":425"),
 }
-ALL_KERNELS = {"K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8"}
+ALL_KERNELS = {f"K{i}" for i in range(1, 11)}
+BSR_KERNELS = ALL_KERNELS - {"K10"}
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W):
+# device memory bytes/s, and operations/s by the operands' type ("high",
+# bf16x3, counts three bf16 products on the bf16 tensor cores; exact f32
+# is FFMA: the 1e-4 gate rules out TF32)
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"f32": 67e12, "high": 989e12, "bf16": 989e12, "int8": 1979e12}
+ELEM_BYTES = {"f32": 4, "high": 4, "bf16": 2, "int8": 1}
 
 
 def log(msg: str) -> None:
@@ -194,6 +234,8 @@ def reset_launches() -> None:
 def kernel_of(plan) -> tuple:
     """(id, kernel, source, replaces) of the kernel a forward plan
     launches."""
+    if plan.apply_fn is _csr_pallas_apply:
+        return KERNEL_INFO[("csr",)]
     if plan.apply_fn is _int8_pallas_apply:
         return KERNEL_INFO[("i8", plan.statics[0])]
     return KERNEL_INFO[("f", plan.statics[0], plan.statics[5])]
@@ -281,7 +323,23 @@ def variant_plans(bsr: BSR):
         ("int8 per-slot scales", i8_plan(depth_sort=True, group_scale=False)),
         ("int8 depth_sort=False", i8_plan(depth_sort=False)),
         ("int8 resident=False", i8_plan(resident=False)),
+        ("int8 resident=True f_tile=128", i8_plan(resident=True, f_tile=128)),
     ]
+
+
+def csr_cases(adj):
+    """(tag, csr, F) of K10's kernel checks: a ragged CSR whose rows 0-9
+    (empty head rows) and 256-511 (an empty band) hold nothing, a
+    rectangular asymmetric one, and ddi."""
+    src = random_csr(0.03, 700, 500, seed=21)
+    rows = src.row_ids()
+    keep = ~np.isin(rows, list(range(10)) + list(range(256, 512)))
+    ragged = CSR.from_coo(rows[keep], src.indices[keep], src.data[keep], (700, 500))
+    return (
+        ("csr 700x500 empty head rows and band F=7", ragged, 7),
+        ("csr 3000x1200 F=64", random_csr(0.01, 3000, 1200, seed=22), 64),
+        ("csr ddi F=256", adj, 256),
+    )
 
 
 def kernel_phase(adj) -> None:
@@ -302,8 +360,12 @@ def kernel_phase(adj) -> None:
         for label, p in variant_plans(bsr):
             check_kernel(p, x, f"{tag} {label}")
             checked.add(kernel_of(p)[0])
-        if checked != ALL_KERNELS:
+        if checked != BSR_KERNELS:
             raise AssertionError(f"{tag}: kernels checked {sorted(checked)}")
+    for seed, (tag, csr, F) in enumerate(csr_cases(adj)):
+        x = torch.as_tensor(seeded((csr.n_cols, F), 30 + seed), device=DEV)
+        plan = csr_spmm_pallas_plan(csr, grad=False, device=DEV)
+        check_kernel(plan, x, f"{tag} csr_pallas")
     k3_exactness()
 
 
@@ -376,6 +438,32 @@ def slice_phase(adj, dims, n_requests: int):
     return plan, model, xs, refs
 
 
+def csr_slice_phase(adj, model, xs, refs):
+    """f32 GCN serving on the ddi stand-in through the CSR plan (K10), the
+    same requests as the BSR slice; returns the plan."""
+    log(f"[slice] the same {len(xs)} requests through the CSR tier "
+        "(spmm_plan(adj, impl='csr_pallas'))")
+    plan = spmm_plan(adj, impl="csr_pallas", grad=False, device=DEV)
+    if kernel_of(plan)[0] != "K10":
+        raise AssertionError(f"ddi csr_pallas plan runs {kernel_of(plan)}")
+    deg = np.diff(adj.indptr)
+    log(f"  {adj.n_rows} rows of {deg.mean():.1f} nonzeros on average, at most "
+        f"{deg.max()} (duplicate edges kept); {plan.arrays[8].numel()} rows "
+        f"split into segments of <= {SEGMENT_NNZ}, {plan.arrays[5].numel()} "
+        "segments")
+    for r, (x, h) in enumerate(zip(xs, refs)):
+        with torch.no_grad():
+            out = model(plan, x)
+        torch.cuda.synchronize()
+        if out.shape != h.shape or not torch.isfinite(out).all():
+            raise AssertionError(f"csr request {r}: bad output {tuple(out.shape)}")
+        assert_allclose(out, h, eps=CHECK_EPS, msg=f"csr request {r}")
+        err = np.abs(out.cpu().double().numpy() - h).max()
+        log(f"  csr request {r}: out {tuple(out.shape)} finite, max_abs_err vs "
+            f"f64 reference {err:.3e} (< {CHECK_EPS} gate)")
+    return plan
+
+
 def int8_slice_phase(adj, model, xs, refs):
     """int8 GCN serving on the ddi stand-in through spmm_plan(dtype=int8);
     returns the plan and the largest SpMM max |kernel - plain|."""
@@ -412,24 +500,30 @@ def int8_slice_phase(adj, model, xs, refs):
     return plan, max(spmm_errs)
 
 
-def train_phase(adj, dims, precision, n_steps: int = 5):
+def train_phase(adj, dims, precision, impl: str = "bsr_pallas",
+                n_steps: int = 5):
     """Trains the GCN on the ddi stand-in through spmm_plan's default
     grad plan for n_steps Adam steps; checks step 0's gradients against
     a float64 host autograd reference on the dense A, the launches of
     every step, and that the loss falls. Returns what the timing needs."""
     tag = "f32" if precision is None else f"precision={precision!r}"
     kw = {} if precision is None else {"precision": precision}
-    plan = spmm_plan(adj, impl="bsr_pallas", block_size=128, device=DEV, **kw)
+    plan = spmm_plan(adj, impl=impl, block_size=128, device=DEV, **kw)
     fwd, bwd = plan.arrays
-    want_kid = "K2" if precision is None else "K3"
     kids = (kernel_of(fwd), kernel_of(bwd))
-    if ([k[0] for k in kids] != [want_kid] * 2
-            or {fwd.statics[0], bwd.statics[0]} != {"sorted"}):
-        raise AssertionError(f"train {tag}: plans took {fwd.statics[:1]} "
-                             f"{bwd.statics[:1]}, expected sorted {want_kid}")
+    if impl == "csr_pallas":
+        tag, want_kid = "csr", "K10"
+        layouts_ok = True
+    else:
+        want_kid = "K2" if precision is None else "K3"
+        layouts_ok = {fwd.statics[0], bwd.statics[0]} == {"sorted"}
+    if [k[0] for k in kids] != [want_kid] * 2 or not layouts_ok:
+        raise AssertionError(f"train {tag}: plans run {kids[0][:2]} "
+                             f"{kids[1][:2]}, expected {want_kid}")
     name = kids[0][1]
-    log(f"[train] GCN {dims} on ogbl-ddi stand-in, {tag}: spmm_plan's grad "
-        f"plan ({want_kid} {name} on A and on Aᵀ), {n_steps} Adam(lr=1e-2) steps")
+    log(f"[train] GCN {dims} on ogbl-ddi stand-in, {tag}: spmm_plan's {impl} "
+        f"grad plan ({want_kid} {name} on A and on Aᵀ), {n_steps} Adam(lr=1e-2) "
+        "steps")
     n = adj.n_rows
     rng = np.random.default_rng(SEED)
     x = rng.standard_normal((n, dims[0])).astype(np.float32)
@@ -561,6 +655,7 @@ def op_plans(bsr, calibration):
         ("int8", "sorted", lambda: i8_plan()),
         ("int8", "rowgroup", lambda: i8_plan(depth_sort=False)),
         ("int8", "flat", lambda: i8_plan(resident=False)),
+        ("int8", "resident", lambda: i8_plan(resident=True, f_tile=128)),
     )
     plans = {}
     for tag, layout, build in specs:
@@ -610,7 +705,26 @@ def rel_to(got, want) -> float:
     return (got - want).abs().max().item() / want.abs().max().item()
 
 
-def main_path(adj, dims, op_bsr, x_op, calibration):
+def csr_op_phase(op_csr, x_op):
+    """K10 at the reference's test_csrmm shape against its plain version
+    and within 1e-4 of the csr_xla tier's answer. Returns (plan, max
+    |kernel - plain|)."""
+    t0 = time.perf_counter()
+    plan = csr_spmm_pallas_plan(op_csr, grad=False, device=DEV)
+    log(f"[op] random_csr(2e-3, 2^17, seed={SEED}): nnz={op_csr.nnz}, "
+        f"F={x_op.shape[1]}, {plan.arrays[0].numel()} padded slots, plan built "
+        f"in {time.perf_counter() - t0:.1f} s")
+    err = check_kernel(plan, x_op, "op csr K10")
+    got = plan(x_op)
+    xla_out = csr_spmm_plan(op_csr, device=DEV)(x_op)
+    rel = rel_to(got, xla_out)
+    log(f"  op K10 vs csr_xla: max |err| / max |ref| {rel:.3e} (< {CHECK_EPS})")
+    if not rel < CHECK_EPS:
+        raise AssertionError(f"op K10 vs csr_xla: {rel:.3e}")
+    return plan, err
+
+
+def main_path(adj, dims, op_bsr, op_csr, x_op, calibration):
     """Phases 4 to 6, each run with the launch counts set to 0 just
     before it and read just after. Returns what the timing needs."""
     totals = {}
@@ -632,24 +746,105 @@ def main_path(adj, dims, op_bsr, x_op, calibration):
     reset_launches()
     plan_i8, slice_i8_err = int8_slice_phase(adj, model, xs, refs)
     read("int8 slice", {"bsr_spmm_int8_sorted": n_spmm})
+    reset_launches()
+    plan_csr = csr_slice_phase(adj, model, xs, refs)
+    read("csr slice", {"csr_spmm": n_spmm})
 
     # step 0's hidden-layer forward for the ReLU pattern (1 SpMM), 5 steps
     # of 2 forward + 1 backward SpMMs, then the eval's 2 forwards
     train = {}
-    for precision, name in ((None, "bsr_spmm_sorted"),
-                            ("high", "bsr_spmm_sorted_bf16x3")):
+    for key, precision, impl, name in (
+            ("f32", None, "bsr_pallas", "bsr_spmm_sorted"),
+            ("high", "high", "bsr_pallas", "bsr_spmm_sorted_bf16x3"),
+            ("csr", None, "csr_pallas", "csr_spmm")):
         reset_launches()
-        train[precision] = train_phase(adj, dims, precision)
-        read(f"train {precision or 'f32'}", {name: 1 + 5 * 3 + 2})
+        train[key] = train_phase(adj, dims, precision, impl)
+        read(f"train {key}", {name: 1 + 5 * 3 + 2})
 
     reset_launches()
     plans, errs = op_phase(op_bsr, x_op, calibration)
+    plans[("csr", "csr")], errs[("csr", "csr")] = csr_op_phase(op_csr, x_op)
     read("op", {})
     missing = [kernel_of(p)[1] for p in plans.values()
                if totals.get(kernel_of(p)[1], 0) == 0]
     if missing:
         raise AssertionError(f"not launched on the main path: {missing}")
-    return plan, plan_i8, model, xs, train, plans, errs, totals, slice_i8_err
+    slices = {"f32": plan, "int8": plan_i8, "csr": plan_csr}
+    return slices, model, xs, train, plans, errs, totals, slice_i8_err
+
+
+def bound(tag: str, flops: float, nbytes: float) -> tuple:
+    """(bound_ms, bound_by): the larger of the bytes over the device
+    memory rate and the operations over the peak of their type."""
+    t_ops = flops / PEAK_OPS_S[tag]
+    t_bytes = nbytes / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def bsr_bound(tag: str, bsr: BSR, F: int) -> tuple:
+    """A BSR kernel's bound on these inputs: the real blocks only (no pad
+    slots) and their column ids, the operand and the f32 output, each
+    once; 2 b^2 F operations per real block (three products for "high")."""
+    e = ELEM_BYTES[tag]
+    b, (M, K) = bsr.b, bsr.shape
+    nbytes = bsr.nnzb * (b * b * e + 4) + K * F * e + M * F * 4
+    flops = 2.0 * bsr.nnzb * b * b * F * (3 if tag == "high" else 1)
+    return bound(tag, flops, nbytes)
+
+
+def csr_bound(csr: CSR, F: int) -> tuple:
+    """K10's bound: the real nonzeros (col and val) and a row pointer, the
+    operand and the output, each once; 2 F FFMA operations per nonzero."""
+    M, K = csr.shape
+    nbytes = csr.nnz * 8 + (M + 1) * 8 + K * F * 4 + M * F * 4
+    return bound("f32", 2.0 * csr.nnz * F, nbytes)
+
+
+def library_call(kind: str, mat, x):
+    """One PyTorch call computing what a kernel computes, as a yardstick
+    (the port never calls it): torch.sparse_bsr_tensor @ X of the real
+    blocks ("bsr", in x's dtype) or torch.sparse_csr_tensor @ X ("csr").
+    Returns (fn, None), or (None, the error) where PyTorch refuses the
+    call on the card."""
+    try:
+        if kind == "csr":
+            a = torch.sparse_csr_tensor(
+                torch.as_tensor(mat.indptr.astype(np.int64), device=DEV),
+                torch.as_tensor(mat.indices.astype(np.int64), device=DEV),
+                torch.as_tensor(mat.values(), device=DEV), mat.shape,
+                check_invariants=False)
+        else:
+            n = mat.nnzb
+            rows, cols = mat.block_rows[:n], mat.block_cols[:n]
+            order = np.lexsort((cols, rows))
+            crow = np.searchsorted(rows[order], np.arange(mat.n_block_rows + 1))
+            a = torch.sparse_bsr_tensor(
+                torch.as_tensor(crow.astype(np.int64), device=DEV),
+                torch.as_tensor(cols[order].astype(np.int64), device=DEV),
+                torch.as_tensor(mat.blocks[:n][order], device=DEV).to(x.dtype),
+                (mat.n_block_rows * mat.b, mat.n_block_cols * mat.b),
+                check_invariants=False)
+        fn = lambda: a @ x  # noqa: E731
+        fn()
+        torch.cuda.synchronize()
+        return fn, None
+    except Exception as e:  # the yardstick only: record PyTorch's refusal
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+
+
+def library_ms(kind: str, mat, x, want, iters: int, label: str):
+    """Times library_call; logs its error against the kernel's answer
+    `want`, or PyTorch's refusal. Returns ms or None."""
+    with warnings.catch_warnings():  # "sparse ... support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        fn, err = library_call(kind, mat, x)
+    if fn is None:
+        log(f"  library {label}: none ({err})")
+        return None
+    rel = rel_to(fn().float(), want)
+    ms = cuda_ms(fn, iters=iters)
+    log(f"  library {label}: {ms:.3f} ms, max |err| / max |kernel| {rel:.3e}")
+    return ms
 
 
 def main() -> int:
@@ -681,42 +876,79 @@ def main() -> int:
     F = 512
     dense = seeded((op_bsr.shape[1], F), SEED)
     x_op = torch.as_tensor(dense, device=DEV)
+    t0 = time.perf_counter()
+    op_csr = random_csr(2e-3, op_bsr.shape[1], seed=SEED)
+    log(f"[setup] random_csr(2e-3, 2^17) in {time.perf_counter() - t0:.1f} s")
     dims = [256, 256, 256]
-    (plan, plan_i8, model, xs, train, plans, errs, main_launches,
-     slice_i8_err) = main_path(adj, dims, op_bsr, x_op, dense[:4096])
+    (slices, model, xs, train, plans, errs, main_launches,
+     slice_i8_err) = main_path(adj, dims, op_bsr, op_csr, x_op, dense[:4096])
 
     # ---- timing (after the counts were read) ----------------------------
     log(f"[timing] card: {card_line}")
     x0 = xs[0]
-    ddi_flops = 2.0 * ddi_nnzb(adj, 128) * 128 * 128 * dims[0]
+    ddi_flops = {"f32": 2.0 * ddi_nnzb(adj, 128) * 128 * 128 * dims[0],
+                 "csr": 2.0 * adj.nnz * dims[0]}
+    ddi_flops["int8"] = ddi_flops["f32"]
+    request_ms, spmm_ms = {}, {}
     with torch.no_grad():
-        for tag, p in (("f32", plan), ("int8", plan_i8)):
-            gcn_ms = cuda_ms(lambda: model(p, x0), iters=20)
+        for tag, p in slices.items():
+            request_ms[tag] = cuda_ms(lambda: model(p, x0), iters=20)
             gcn_plain_ms = cuda_ms(
                 lambda: model(lambda h: plain_apply(p, h), x0), iters=20)
-            spmm_ms = cuda_ms(lambda: p(x0), iters=20)
+            spmm_ms[tag] = cuda_ms(lambda: p(x0), iters=20)
             spmm_plain_ms = cuda_ms(lambda: plain_apply(p, x0), iters=20)
-            log(f"  slice GCN request {tag} (X on device): kernel {gcn_ms:.3f} ms, "
-                f"plain {gcn_plain_ms:.3f} ms [{card_line}]")
+            log(f"  slice GCN request {tag} (X on device): kernel "
+                f"{request_ms[tag]:.3f} ms, plain {gcn_plain_ms:.3f} ms [{card_line}]")
             log(f"  slice A @ H, F={dims[0]} {tag} {kernel_of(p)[0]}: kernel "
-                f"{spmm_ms:.3f} ms {ddi_flops / spmm_ms / 1e6:.1f} GFLOP/s, plain "
-                f"{spmm_plain_ms:.3f} ms {ddi_flops / spmm_plain_ms / 1e6:.1f} "
+                f"{spmm_ms[tag]:.3f} ms {ddi_flops[tag] / spmm_ms[tag] / 1e6:.1f} "
+                f"GFLOP/s, plain {spmm_plain_ms:.3f} ms "
+                f"{ddi_flops[tag] / spmm_plain_ms / 1e6:.1f} GFLOP/s [{card_line}]")
+        k10_ddi = library_ms("csr", adj, x0, slices["csr"](x0), 20,
+                             f"ddi torch.sparse_csr_tensor @ X, F={dims[0]}")
+        if k10_ddi is not None:
+            log(f"  slice A @ H csr library {ddi_flops['csr'] / k10_ddi / 1e6:.1f} "
                 f"GFLOP/s [{card_line}]")
-    for precision, (t_plan, step, state, params, batch) in train.items():
-        step_ms = cuda_ms(lambda: step(params, state, *batch), iters=20)
+        p9 = bsr_spmm_pallas_int8_plan(csr_to_bsr(adj, 128), resident=True,
+                                       f_tile=128, device=DEV)
+        q, cs = quantize_operand(p9, x0)
+        log(f"  slice A @ H, F={dims[0]} int8 K9 (resident=True, f_tile=128): "
+            f"kernel {cuda_ms(lambda: run_quantized(p9, q, cs), iters=20):.3f} ms, "
+            f"plain {cuda_ms(lambda: run_quantized(p9, q, cs, plain=True), iters=5):.3f}"
+            f" ms [{card_line}]")
+        ddi_bound = csr_bound(adj, dims[0])
+        log(f"  slice A @ H K10 bound {ddi_bound[0]:.4f} ms ({ddi_bound[1]}); K2 "
+            f"bound {bsr_bound('f32', csr_to_bsr(adj, 128), dims[0])[0]:.4f} ms")
+        log(f"  ddi csr vs bsr: request {request_ms['csr'] / request_ms['f32']:.3f}x, "
+            f"A @ H {spmm_ms['csr'] / spmm_ms['f32']:.3f}x (K10 / K2) [{card_line}]")
+    step_ms = {}
+    for key, (t_plan, step, state, params, batch) in train.items():
+        step_ms[key] = cuda_ms(lambda: step(params, state, *batch), iters=20)
         plain_step, plain_init = make_train_step(
             gcn_apply, lambda h: plain_apply(t_plan, h),
             functools.partial(torch.optim.Adam, lr=1e-2))
         p2 = [{k: v.detach().clone() for k, v in p.items()} for p in params]
         s2 = plain_init(p2)
         plain_ms = cuda_ms(lambda: plain_step(p2, s2, *batch), iters=10)
-        log(f"  train step {precision or 'f32'} ({kernel_of(t_plan.arrays[0])[0]} "
-            f"both ways, Adam): kernel {step_ms:.3f} ms, plain {plain_ms:.3f} ms "
+        log(f"  train step {key} ({kernel_of(t_plan.arrays[0])[0]} both ways, "
+            f"Adam): kernel {step_ms[key]:.3f} ms, plain {plain_ms:.3f} ms "
             f"[{card_line}]")
-    flops = 2.0 * op_bsr.nnzb * 128 * 128 * F
-    times = {}
+    log(f"  ddi csr vs bsr: training step {step_ms['csr'] / step_ms['f32']:.3f}x "
+        f"[{card_line}]")
+
+    op_flops = 2.0 * op_bsr.nnzb * 128 * 128 * F
+    times, bounds, library = {}, {}, {}
+    f32_ref = plans[("f32", "sorted")](x_op)
+    lib_ms = {
+        "f32": library_ms("bsr", op_bsr, x_op, f32_ref, 2,
+                          "op torch.sparse_bsr_tensor @ X, f32"),
+        "bf16": library_ms("bsr", op_bsr, x_op.to(torch.bfloat16), f32_ref, 10,
+                           "op torch.sparse_bsr_tensor @ X, bf16"),
+    }
+    lib_ms["high"] = lib_ms["f32"]
     for (tag, layout), p in plans.items():
         kid, name = kernel_of(p)[:2]
+        if tag == "csr":
+            continue
         if tag == "int8":
             q, cs = quantize_operand(p, x_op)
             k_ms = cuda_ms(lambda: run_quantized(p, q, cs), iters=10)
@@ -728,10 +960,25 @@ def main() -> int:
             k_ms = cuda_ms(lambda: p(x_op), iters=10)
             p_ms = cuda_ms(lambda: plain_apply(p, x_op), iters=5, warmup=1)
             extra = ""
-        times.setdefault(name, (k_ms, p_ms))
+        if name not in times:
+            times[name] = (k_ms, p_ms)
+            bounds[name] = bsr_bound(tag, op_bsr, F)
+            library[name] = lib_ms.get(tag)
         log(f"  op {tag:<4} {layout:<8} {kid} {name:<26} kernel {k_ms:.3f} ms "
-            f"{flops / k_ms / 1e6:.1f} GFLOP/s, plain {p_ms:.3f} ms "
-            f"{flops / p_ms / 1e6:.1f} GFLOP/s{extra} [{card_line}]")
+            f"{op_flops / k_ms / 1e6:.1f} GFLOP/s, plain {p_ms:.3f} ms "
+            f"{op_flops / p_ms / 1e6:.1f} GFLOP/s, bound "
+            f"{bsr_bound(tag, op_bsr, F)[0]:.3f} ms{extra} [{card_line}]")
+    p = plans[("csr", "csr")]
+    k_ms = cuda_ms(lambda: p(x_op), iters=5)
+    p_ms = cuda_ms(lambda: plain_apply(p, x_op), iters=2, warmup=1)
+    csr_flops = 2.0 * op_csr.nnz * F
+    times["csr_spmm"] = (k_ms, p_ms)
+    bounds["csr_spmm"] = csr_bound(op_csr, F)
+    library["csr_spmm"] = library_ms("csr", op_csr, x_op, p(x_op), 5,
+                                     "op torch.sparse_csr_tensor @ X, f32")
+    log(f"  op csr K10 csr_spmm kernel {k_ms:.3f} ms {csr_flops / k_ms / 1e6:.1f} "
+        f"GFLOP/s, plain {p_ms:.3f} ms {csr_flops / p_ms / 1e6:.1f} GFLOP/s, bound "
+        f"{bounds['csr_spmm'][0]:.3f} ms ({bounds['csr_spmm'][1]}) [{card_line}]")
     cs_static = plans[("int8", "sorted")].arrays[-1]
     q_dyn_ms = cuda_ms(lambda: quantize_per_column(x_op), iters=10)
     q_static_ms = cuda_ms(lambda: quantize_per_column(x_op, cs_static), iters=10)
@@ -739,8 +986,8 @@ def main() -> int:
         f"{q_dyn_ms:.3f} ms, static {q_static_ms:.3f} ms [{card_line}]")
 
     # each kernel instance's entry: the op-shape plan that runs it first
-    # above (K1 f32 flat, K2 f32 sorted, K3 "high", K4 bf16, K5 f32, K6-K8
-    # int8 kernel only)
+    # above (K1 f32 flat, K2 f32 sorted, K3 "high", K4 bf16, K5 f32, K6-K9
+    # int8 kernel only, K10 at the test_csrmm shape)
     kernels = {}
     for (tag, layout), p in plans.items():
         kid, name, source, replaces = kernel_of(p)
@@ -756,6 +1003,9 @@ def main() -> int:
             "max_abs_err": errs[(tag, layout)],
             "ms": k_ms,
             "plain_ms": p_ms,
+            "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1],
+            "library_ms": library[name],
         }
     kernels = sorted(kernels.values(), key=lambda k: (int(k["name"][1:].split()[0]),
                                                       k["name"]))

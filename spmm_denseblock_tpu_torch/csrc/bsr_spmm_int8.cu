@@ -11,10 +11,20 @@
 //   (+ _sorted_int8_kernel),
 // K8 bsr_spmm_int8_rowgroup replaces
 //   spmm_denseblock_tpu/ops/bsr_spmm_pallas_int8.py:_pallas_int8_spmm_rowgroup
-//   (+ _rowgroup_int8_kernel).
+//   (+ _rowgroup_int8_kernel),
+// K9 bsr_spmm_int8_resident replaces
+//   spmm_denseblock_tpu/ops/bsr_spmm_pallas_int8.py:_pallas_int8_spmm_resident
+//   (+ _resident_int8_kernel).
 // They read the JAX packers' arrays unchanged (plus the port's step and
 // group pointers and K7's lane-valid mask), each with the scales of its
 // own layout.
+//
+// K9. On the TPU the resident kernel keeps the whole (nbc, b, f_tile)
+// int8 operand slice in VMEM and indexes it per slot, on K6's flat
+// layout. Hopper keeps nothing resident (as for K5 in csrc/bsr_spmm.cu):
+// K9's entry launches K6's int8_flat_kernel on K6's packed arrays and the
+// (nbc*b, F) view of the operand; it exists so that K9's launches are
+// counted (and bound) apart from K6's.
 //
 // Numerics. The TPU multiplies int8 x int8 into int32 on the MXU. Here
 // __dp4a multiplies four int8 pairs and adds them into an int32, so a
@@ -264,6 +274,27 @@ cudaError_t grid_for(int64_t n_lanes, int64_t F, int64_t* n_ft, dim3* grid) {
     default: return cudaErrorInvalidValue;                     \
   }
 
+// K6's and K9's launch: one CTA per (block-row, F tile) of the flat
+// layout.
+cudaError_t launch_flat(const void* step_ptr, const void* slot_cols,
+                        const void* qblocks, const void* scales,
+                        const void* qdense, const void* cs, void* out,
+                        int64_t n_block_rows, int64_t F, int64_t group,
+                        int64_t b, cudaStream_t s) {
+  int64_t n_ft;
+  dim3 grid;
+  cudaError_t err = grid_for(n_block_rows, F, &n_ft, &grid);
+  if (err != cudaSuccess) return err;
+  if (grid.x == 0) return cudaSuccess;
+  SDB_FOR_BLOCK_SIZE(b, int8_flat_kernel<BM><<<grid, kThreads, 0, s>>>(
+      static_cast<const int64_t*>(step_ptr),
+      static_cast<const int32_t*>(slot_cols),
+      static_cast<const int8_t*>(qblocks), static_cast<const float*>(scales),
+      static_cast<const int8_t*>(qdense), static_cast<const float*>(cs),
+      static_cast<float*>(out), F, group, n_ft))
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface, bound with ctypes. Pointers are device pointers; the
@@ -276,19 +307,24 @@ extern "C" int sdb_bsr_spmm_int8_flat(const void* step_ptr,
                                       void* out, int64_t n_block_rows,
                                       int64_t F, int64_t group, int64_t b,
                                       void* stream) {
-  int64_t n_ft;
-  dim3 grid;
-  cudaError_t err = grid_for(n_block_rows, F, &n_ft, &grid);
-  if (err != cudaSuccess) return (int)err;
-  if (grid.x == 0) return (int)cudaSuccess;
-  auto s = static_cast<cudaStream_t>(stream);
-  SDB_FOR_BLOCK_SIZE(b, int8_flat_kernel<BM><<<grid, kThreads, 0, s>>>(
-      static_cast<const int64_t*>(step_ptr),
-      static_cast<const int32_t*>(slot_cols),
-      static_cast<const int8_t*>(qblocks), static_cast<const float*>(scales),
-      static_cast<const int8_t*>(qdense), static_cast<const float*>(cs),
-      static_cast<float*>(out), F, group, n_ft))
-  return (int)cudaGetLastError();
+  return (int)launch_flat(step_ptr, slot_cols, qblocks, scales, qdense, cs,
+                          out, n_block_rows, F, group, b,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// K9: K6's kernel; qdense3 is the (nbc, b, F) operand, contiguous, read
+// as its (nbc*b, F) view.
+extern "C" int sdb_bsr_spmm_int8_resident(const void* step_ptr,
+                                          const void* slot_cols,
+                                          const void* qblocks,
+                                          const void* scales,
+                                          const void* qdense3, const void* cs,
+                                          void* out, int64_t n_block_rows,
+                                          int64_t F, int64_t group, int64_t b,
+                                          void* stream) {
+  return (int)launch_flat(step_ptr, slot_cols, qblocks, scales, qdense3, cs,
+                          out, n_block_rows, F, group, b,
+                          static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int sdb_bsr_spmm_int8_sorted(

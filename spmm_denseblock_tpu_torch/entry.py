@@ -8,7 +8,7 @@ default grad=True, so its backward runs Aᵀ's kernel).
 The JAX package's ``dryrun_multichip`` needs the distributed layer,
 which is not ported yet (ROADMAP queue 1 item 12).
 
-    python -m spmm_denseblock_tpu_torch.entry [--device cuda]
+    python -m spmm_denseblock_tpu_torch.entry [--device cpu]
 """
 
 from __future__ import annotations
@@ -19,14 +19,17 @@ import numpy as np
 import torch
 
 
-def entry(device="cpu"):
+def entry(device=None):
     """(fn, (params, x)): fn(params, x) is the GCN forward over the plan;
     n=512, dims [32, 64, 16], bsr_pallas at b=128, seeds as the JAX
     entry (weights from a torch.Generator seeded 0, which draws other
-    numbers than jax.random.PRNGKey(0))."""
+    numbers than jax.random.PRNGKey(0)). device: None is the card."""
     from spmm_denseblock_tpu_torch.formats.csr import random_csr
     from spmm_denseblock_tpu_torch.models import gcn_apply, init_gcn, sym_norm_adjacency
     from spmm_denseblock_tpu_torch.ops import spmm_plan
+    from spmm_denseblock_tpu_torch.ops._device import resolve_device
+
+    device = resolve_device(device)
 
     n, dims = 512, [32, 64, 16]
     adj = sym_norm_adjacency(random_csr(0.02, n, seed=0, values="ones"))
@@ -43,7 +46,8 @@ def entry(device="cpu"):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="where the plan and weights live (default: the card)")
     args = ap.parse_args(argv)
     fn, fn_args = entry(args.device)
     out = fn(*fn_args)

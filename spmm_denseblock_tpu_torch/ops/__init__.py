@@ -8,6 +8,16 @@ from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import (
 )
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8 import bsr_spmm_pallas_int8_plan
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_xla import bsr_spmm_xla, bsr_spmm_xla_plan
+from spmm_denseblock_tpu_torch.ops.csr_spmm import (
+    CHUNK_NNZ_BYTES,
+    bcoo_spmm_plan,
+    csr_spmm,
+    csr_spmm_plan,
+)
+from spmm_denseblock_tpu_torch.ops.csr_spmm_pallas import (
+    csr_spmm_pallas,
+    csr_spmm_pallas_plan,
+)
 from spmm_denseblock_tpu_torch.ops.dispatch import PLANNERS, spmm_plan
 from spmm_denseblock_tpu_torch.ops.plan import Plan, grad_plan, sum_plan, transb_plan
 from spmm_denseblock_tpu_torch.ops.reference import (
@@ -25,6 +35,12 @@ __all__ = [
     "bsr_spmm_pallas_int8_plan",
     "bsr_spmm_xla",
     "bsr_spmm_xla_plan",
+    "CHUNK_NNZ_BYTES",
+    "bcoo_spmm_plan",
+    "csr_spmm",
+    "csr_spmm_plan",
+    "csr_spmm_pallas",
+    "csr_spmm_pallas_plan",
     "PLANNERS",
     "spmm_plan",
     "Plan",

@@ -22,7 +22,8 @@ from pathlib import Path
 from typing import Dict, List
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "bsr_spmm.cu", _PKG / "csrc" / "bsr_spmm_int8.cu")
+SOURCES = (_PKG / "csrc" / "bsr_spmm.cu", _PKG / "csrc" / "bsr_spmm_int8.cu",
+           _PKG / "csrc" / "csr_spmm.cu")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -57,12 +58,18 @@ _SIGNATURES = {
     # F, group, b, stream
     "sdb_bsr_spmm_int8_flat": ("bsr_spmm_int8", [_P, _P, _P, _P, _P, _P, _P,
                                                  _I, _I, _I, _I, _P]),
+    # K9: the same arguments, the operand viewed as (nbc, b, F)
+    "sdb_bsr_spmm_int8_resident": ("bsr_spmm_int8", [_P, _P, _P, _P, _P, _P,
+                                                     _P, _I, _I, _I, _I, _P]),
     # group_ptr, win_ids, pos, lane_valid, slot_cols, qblocks, scales,
     # qdense, cs, out, n_lanes, F, R, gh, window, b, group_scale, stream
     "sdb_bsr_spmm_int8_sorted": ("bsr_spmm_int8", [_P] * 10 + [_I] * 7 + [_P]),
     # group_ptr, slot_cols, qblocks, scales, qdense, cs, out, n_lanes,
     # n_block_rows, F, R, gh, b, stream
     "sdb_bsr_spmm_int8_rowgroup": ("bsr_spmm_int8", [_P] * 7 + [_I] * 6 + [_P]),
+    # seg_start, seg_end, seg_dest, cols, vals, dense, out, partial,
+    # split_row, part_ptr, n_seg, n_split, F, stream
+    "sdb_csr_spmm": ("csr_spmm", [_P] * 10 + [_I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -162,7 +169,10 @@ bsr_spmm_resident = CudaKernel("sdb_bsr_spmm_resident")        # K5
 bsr_spmm_int8_flat = CudaKernel("sdb_bsr_spmm_int8_flat")      # K6
 bsr_spmm_int8_sorted = CudaKernel("sdb_bsr_spmm_int8_sorted")  # K7
 bsr_spmm_int8_rowgroup = CudaKernel("sdb_bsr_spmm_int8_rowgroup")  # K8
+bsr_spmm_int8_resident = CudaKernel("sdb_bsr_spmm_int8_resident")  # K9
+csr_spmm = CudaKernel("sdb_csr_spmm")                           # K10
 KERNELS = (bsr_spmm_flat, bsr_spmm_sorted, bsr_spmm_flat_bf16x3,
            bsr_spmm_sorted_bf16x3, bsr_spmm_resident_bf16x3,
            bsr_spmm_rowgroup, bsr_spmm_resident, bsr_spmm_int8_flat,
-           bsr_spmm_int8_sorted, bsr_spmm_int8_rowgroup)
+           bsr_spmm_int8_sorted, bsr_spmm_int8_rowgroup,
+           bsr_spmm_int8_resident, csr_spmm)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from spmm_denseblock_tpu_torch.formats.bsr import BSR
+from spmm_denseblock_tpu_torch.ops._device import resolve_device
 from spmm_denseblock_tpu_torch.ops.plan import Plan
 
 # Elements of gathered operand per chunk of the plain products.
@@ -102,11 +103,13 @@ def reject_grad_request(kw: dict, tier: str) -> None:
         )
 
 
-def bsr_spmm_int8_plan(bsr: BSR, calibration=None, device="cpu", **kw) -> Plan:
+def bsr_spmm_int8_plan(bsr: BSR, calibration=None, device=None, **kw) -> Plan:
     """Quantize the blocks once -> Plan computing C = A @ dense in f32.
 
     calibration: an optional representative operand batch; it fixes the
-    per-column scales at plan time (no per-call absmax pass)."""
+    per-column scales at plan time (no per-call absmax pass). device:
+    None is the card."""
+    device = resolve_device(device)
     reject_grad_request(kw, "bsr_int8")
     qblocks, scales = quantize_blocks(bsr.blocks[: bsr.nnzb])
     arrays = [bsr.block_rows[: bsr.nnzb], bsr.block_cols[: bsr.nnzb],
@@ -147,5 +150,5 @@ def _int8_apply(statics, arrays, dense, plain: bool = False):
     return out.reshape(n_block_rows * b, F)[:n_rows]
 
 
-def bsr_spmm_int8(bsr: BSR, dense) -> torch.Tensor:
-    return bsr_spmm_int8_plan(bsr)(dense)
+def bsr_spmm_int8(bsr: BSR, dense, device=None) -> torch.Tensor:
+    return bsr_spmm_int8_plan(bsr, device=device)(dense)

@@ -43,6 +43,7 @@ import torch
 
 from spmm_denseblock_tpu_torch.formats.bsr import BSR
 from spmm_denseblock_tpu_torch.ops import _kernels
+from spmm_denseblock_tpu_torch.ops._device import resolve_device
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_int8 import dtype_name, reject_int8_cast
 from spmm_denseblock_tpu_torch.ops.plan import Plan, grad_plan, run
 
@@ -700,7 +701,7 @@ def bsr_spmm_pallas_plan(
     grad: bool = True,
     resident: Optional[bool] = None,
     depth_sort: Optional[bool] = None,
-    device="cpu",
+    device=None,
 ) -> Plan:
     """Host layout prep once -> Plan computing C = A @ dense in f32.
 
@@ -715,8 +716,8 @@ def bsr_spmm_pallas_plan(
     depth_sort: None follows the occupancy gate; True/False force it
     where the dtype allows the sorted layout. resident: True sends the
     flat layout to K5; False keeps bf16 on the flat layout (K1). device:
-    where the packed arrays live; the plan runs its kernels there
-    (``plan.to(device)`` moves it).
+    where the packed arrays live, None for the card; the plan runs its
+    kernels there (``plan.to(device)`` moves it).
 
     Layout (the JAX plan's gate without its VMEM fit checks): bf16 with
     precision None and resident not False takes the depth-sorted layout
@@ -727,6 +728,7 @@ def bsr_spmm_pallas_plan(
     everything else packs the flat layout at the _auto_group rule, run
     by K5 with resident=True and by K1 otherwise. "high" runs the K3
     instance of the chosen f32 kernel."""
+    device = resolve_device(device)
     dtype = _plan_dtype(dtype)
     math = _plan_math(precision, dtype)
     if grad:

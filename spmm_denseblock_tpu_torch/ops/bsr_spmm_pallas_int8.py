@@ -6,14 +6,18 @@ The plan packs the f32 blocks with the f32 plan's packers, then
 quantizes the packed list (pad slots are zero blocks, so they quantize
 to 0), bit-equal to the JAX plan. Each call quantizes the operand per
 column with torch ops (or with scales fixed from a calibration batch)
-and runs one of three kernels:
+and runs one of four kernels:
 
 - K6, flat gather (``spmm_int8_flat``), replacing ``_pallas_int8_spmm``;
 - K7, depth-sorted row groups (``spmm_int8_sorted``), replacing
   ``_pallas_int8_spmm_sorted``, with one scale per slot or one per
   lane-step (group-scale, the plan's default);
 - K8, consecutive row groups (``spmm_int8_rowgroup``), replacing
-  ``_pallas_int8_spmm_rowgroup``.
+  ``_pallas_int8_spmm_rowgroup``;
+- K9, single-row resident (``spmm_int8_resident``), replacing
+  ``_pallas_int8_spmm_resident``: K6's kernel on K6's packed arrays,
+  launched and counted through K9's own entry, the operand viewed as
+  (nbc, b, F), as K5 is K1's.
 
 Every kernel sums int8 x int8 products exactly in int32, scales the sum
 to f32 with the slot's (or the lane-step's) block scale, and multiplies
@@ -25,7 +29,9 @@ scales in f32. A wrapper runs the plain version only for CPU tensors;
 for CUDA tensors it launches the kernel or raises. Inference only.
 
 Layout policy: the JAX plan's gate without the TPU's VMEM fit checks,
-f_tile, SMEM chunking and environment knobs.
+SMEM chunking and environment knobs. ``f_tile`` is taken for its
+routing only: an explicit one turns the row-group layouts off, as in
+JAX, and the kernels' answer does not depend on it.
 """
 
 from __future__ import annotations
@@ -35,8 +41,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from spmm_denseblock_tpu_torch.convert.pack import round_up
 from spmm_denseblock_tpu_torch.formats.bsr import BSR
 from spmm_denseblock_tpu_torch.ops import _kernels
+from spmm_denseblock_tpu_torch.ops._device import resolve_device
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_int8 import (
     quantize_blocks,
     quantize_per_column,
@@ -49,6 +57,7 @@ from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import (
     _depth_sort_policy,
     _device_of,
     _ensure_covering,
+    _flat_view,
     _pack_groups,
     _pack_rowgroups,
     _pack_rowgroups_sorted,
@@ -101,6 +110,18 @@ def spmm_int8_flat_plain(step_rows, slot_cols, qblocks, scales, qdense,
         qdense.shape[1], 1, group,
         _int8_lane_sums(slot_cols, qblocks, scales, qdense, 1, group, False),
     )
+
+
+def spmm_int8_resident_plain(step_rows, slot_cols, qblocks, scales, qdense3,
+                             col_scale, n_block_rows: int,
+                             group: int) -> torch.Tensor:
+    """Plain version of K9: K6's packed arrays with the operand qdense3
+    (nbc, b, F), whose slot s reads qdense3[col], as
+    ``_resident_int8_kernel`` indexes it. That is K6's plain version on
+    the (nbc*b, F) view. Returns (n_block_rows*b, F) f32."""
+    return spmm_int8_flat_plain(step_rows, slot_cols, qblocks, scales,
+                                _flat_view(qdense3, qblocks.shape[1]),
+                                col_scale, n_block_rows, group)
 
 
 def spmm_int8_sorted_plain(win_ids, pos, slot_cols, qblocks, scales, qdense,
@@ -161,10 +182,11 @@ def _launch(kernel, dev, *args):
 
 
 def spmm_int8_flat(step_rows, step_ptr, slot_cols, qblocks, scales, qdense,
-                   col_scale, group: int) -> torch.Tensor:
+                   col_scale, group: int, resident: bool = False) -> torch.Tensor:
     """K6: C (n_block_rows*b, F) f32 on the flat layout, per-slot scales
     (S,). step_ptr (n_block_rows+1,) int64 points each block-row at its
-    steps. CPU tensors run spmm_int8_flat_plain."""
+    steps. resident=True launches the same kernel through K9's entry
+    (``spmm_int8_resident``). CPU tensors run spmm_int8_flat_plain."""
     dev = _device_of(step_rows, step_ptr, slot_cols, qblocks, scales, qdense,
                      col_scale)
     n_block_rows = step_ptr.shape[0] - 1
@@ -180,11 +202,25 @@ def spmm_int8_flat(step_rows, step_ptr, slot_cols, qblocks, scales, qdense,
     b = qblocks.shape[1]
     F = qdense.shape[1]
     out = torch.empty(n_block_rows * b, F, dtype=torch.float32, device=dev)
-    _launch(_kernels.bsr_spmm_int8_flat, dev,
+    kernel = (_kernels.bsr_spmm_int8_resident if resident
+              else _kernels.bsr_spmm_int8_flat)
+    _launch(kernel, dev,
             step_ptr.data_ptr(), slot_cols.data_ptr(), qblocks.data_ptr(),
             scales.data_ptr(), qdense.data_ptr(), col_scale.data_ptr(),
             out.data_ptr(), n_block_rows, F, group, b)
     return out
+
+
+def spmm_int8_resident(step_rows, step_ptr, slot_cols, qblocks, scales,
+                       qdense3, col_scale, group: int) -> torch.Tensor:
+    """K9: C (n_block_rows*b, F) f32 on K6's packed arrays with the
+    operand qdense3 viewed as (nbc, b, F). On the TPU the layout keeps
+    the whole operand slice in VMEM; on the card nothing is kept
+    resident, and K9's entry runs K6's CTA walk on the (nbc*b, F) view.
+    CPU tensors run spmm_int8_resident_plain."""
+    return spmm_int8_flat(step_rows, step_ptr, slot_cols, qblocks, scales,
+                          _flat_view(qdense3, qblocks.shape[1]), col_scale,
+                          group, resident=True)
 
 
 def spmm_int8_sorted(win_ids, pos, slot_cols, qblocks, scales, qdense,
@@ -278,11 +314,12 @@ def _group_scale_quantize(blocks_pad: np.ndarray, n_steps: int, R: int,
 
 def bsr_spmm_pallas_int8_plan(
     bsr: BSR,
+    f_tile: Optional[int] = None,
     calibration=None,
     group: Optional[int] = None,
     resident: Optional[bool] = None,
     depth_sort: Optional[bool] = None,
-    device="cpu",
+    device=None,
     group_scale: bool = True,
     grad: bool = False,
 ) -> Plan:
@@ -293,14 +330,19 @@ def bsr_spmm_pallas_int8_plan(
     per-column scales at plan time (static_col_scale), else each call
     quantizes per column. group: slots per step (flat) or per lane (row
     groups); None picks the JAX plan's rule. device: where the packed
-    arrays live.
+    arrays live, None for the card.
 
-    Layout (the JAX plan's gate): resident=False takes the flat layout
-    (K6). Otherwise depth_sort (default: >= 8 real blocks per block-row)
+    Layout (the JAX plan's gate): resident=False, or an explicit f_tile,
+    takes the flat layout, run by K9 with resident=True and by K6
+    otherwise. Else depth_sort (default: >= 8 real blocks per block-row)
     takes the depth-sorted layout (K7) at (R, gh, W) = (8, 8, 32), with
     one scale per lane-step unless group_scale=False (the JAX plan's
     SDB_INT8_GROUP_SCALE=0); below the gate it takes consecutive row
-    groups (K8) at R = 8, gh = min(group, 16)."""
+    groups (K8) at R = 8, gh = min(group, 16). f_tile changes no answer:
+    the K9 plan checks at call time that it divides the operand's width
+    rounded up to 128, as the JAX plan does; the TPU's VMEM budget is
+    not checked."""
+    device = resolve_device(device)
     reject_grad_request({"grad": grad}, "bsr_int8_pallas")
     covered = _ensure_covering(bsr)
     b = covered.b
@@ -316,9 +358,12 @@ def bsr_spmm_pallas_int8_plan(
     if depth_sort is None:
         depth_sort = bsr.nnzb / max(nbr, 1) >= 8.0
 
+    # an explicit f_tile turns the row-group layouts off (JAX's
+    # rowgroup_likely without its VMEM fit)
+    rowgroup_likely = resident is not False and f_tile is None
     # pack the f32 blocks, then quantize the packed list: pad slots are
     # zero blocks and quantize to 0, and the scales line up with slots
-    if resident is not False and depth_sort:
+    if rowgroup_likely and depth_sort:
         R, gh, W = _depth_sort_policy(1, None if group_was_auto else group)
         (win_ids, pos, slot_cols, blocks_pad, _, lane_valid,
          steps_per_group) = _pack_rowgroups_sorted(
@@ -332,7 +377,7 @@ def bsr_spmm_pallas_int8_plan(
         group_ptr = np.concatenate([[0], np.cumsum(steps_per_group)])
         arrays = [win_ids, slot_cols, qblocks, scales, pos, lane_valid, group_ptr]
         layout, geom = "sorted", (R, gh, W, group_scale)
-    elif resident is not False:
+    elif rowgroup_likely:
         if group_was_auto:
             group = min(group, _ROWGROUP_GH_CAP)
         R, _ = _rowgroup_policy(1, group)
@@ -350,7 +395,10 @@ def bsr_spmm_pallas_int8_plan(
         qblocks, scales = quantize_blocks(blocks_pad)
         step_ptr = np.searchsorted(step_rows, np.arange(nbr + 1)).astype(np.int64)
         arrays = [step_rows, slot_cols, qblocks, scales, step_ptr]
-        layout, geom = "flat", group
+        if resident:  # only with an explicit f_tile: K9
+            layout, geom = "resident", (group, int(f_tile))
+        else:
+            layout, geom = "flat", group
     if calibration is not None:
         arrays.append(static_col_scale(calibration))
     statics = (layout, nbr, n_rows, n_cols, k_needed, geom,
@@ -400,6 +448,23 @@ def _run(statics, arrays, qdense, col_scale, plain: bool):
             out = spmm_int8_rowgroup(step_groups, group_ptr, slot_cols,
                                      qblocks, scales, qdense, col_scale, nbr,
                                      *geom)
+    elif layout == "resident":
+        step_rows, slot_cols, qblocks, scales, step_ptr = arrays[:5]
+        group, f_tile = geom
+        F = qdense.shape[1]
+        if round_up(F, 128) % f_tile:
+            raise ValueError(
+                f"resident=True with f_tile={f_tile}: f_tile must divide the "
+                f"operand's width rounded up to 128 ({round_up(F, 128)})"
+            )
+        qdense3 = qdense.reshape(-1, qblocks.shape[1], F)
+        if plain:
+            out = spmm_int8_resident_plain(step_rows, slot_cols, qblocks,
+                                           scales, qdense3, col_scale, nbr,
+                                           group)
+        else:
+            out = spmm_int8_resident(step_rows, step_ptr, slot_cols, qblocks,
+                                     scales, qdense3, col_scale, group)
     else:
         step_rows, slot_cols, qblocks, scales, step_ptr = arrays[:5]
         if plain:

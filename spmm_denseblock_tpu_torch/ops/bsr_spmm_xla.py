@@ -15,16 +15,18 @@ from __future__ import annotations
 import torch
 
 from spmm_denseblock_tpu_torch.formats.bsr import BSR
+from spmm_denseblock_tpu_torch.ops._device import resolve_device
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_int8 import dtype_name, reject_int8_cast
 from spmm_denseblock_tpu_torch.ops.plan import Plan
 
 
-def bsr_spmm_xla_plan(bsr: BSR, dtype=None, device="cpu", **_ignored) -> Plan:
+def bsr_spmm_xla_plan(bsr: BSR, dtype=None, device=None, **_ignored) -> Plan:
     """Host prep once -> Plan computing C = A @ dense in f32. dtype: None
     or float32 (f32 products) or bfloat16 (bf16 blocks and operand, f32
     products and sums); int8 raises ValueError (use ``bsr_int8``). Other
     keyword arguments (grad=, ...) are ignored, as in the JAX package:
-    autograd differentiates this plan."""
+    autograd differentiates this plan. device: None is the card."""
+    device = resolve_device(device)
     reject_int8_cast(dtype, "bsr_xla (use bsr_int8)")
     if dtype is not None and dtype_name(dtype) not in ("float32", "bfloat16"):
         raise ValueError(f"unsupported dtype {dtype!r} (None, float32 or bfloat16)")
@@ -58,5 +60,5 @@ def _bsr_xla_apply(statics, arrays, dense, plain: bool = False):
     return out.reshape(n_block_rows * b, F)[:n_rows]
 
 
-def bsr_spmm_xla(bsr: BSR, dense) -> torch.Tensor:
-    return bsr_spmm_xla_plan(bsr)(dense)
+def bsr_spmm_xla(bsr: BSR, dense, device=None) -> torch.Tensor:
+    return bsr_spmm_xla_plan(bsr, device=device)(dense)

@@ -1,0 +1,281 @@
+"""CSR SpMM plan on a hand-written CUDA kernel (twin of
+``spmm_denseblock_tpu/ops/csr_spmm_pallas.py``; the module keeps that
+name so the pair is easy to find, but its kernel, K10, is CUDA C++ for
+Hopper, in ``csrc/csr_spmm.cu``).
+
+The plan keeps the JAX package's band layout, bit-equal, as the kernel's
+input: the rows are cut into bands of R rows, and each band's nonzero
+slice is padded with dummies (col 0, val 0) to a multiple of C, so that
+no chunk of C slots straddles two bands. The port's packer adds
+``row_ptr``: row r's nonzeros sit at row_ptr[r] .. row_ptr[r] + deg(r) - 1
+of the padded arrays, deg(r) = indptr[r+1] - indptr[r]. The dummies lie
+outside every row's span (as the lane-valid mask of K2 marks the lanes
+that pad a window).
+
+The TPU kernel turns the segmented sum into MXU work: per chunk it builds
+the selector S[r, c] = val[c] * [local_row[c] == r] and adds S @ G to its
+band, with G = X[cols] gathered beforehand by XLA. K10 needs neither: it
+is a row split that gathers X's rows itself and sums in f32 FFMA, so no
+(slots, F) gather is ever materialized (2.2 GB at ddi, F=256). The plan
+cuts each row's span into segments of at most SEGMENT_NNZ slots
+(``row_segments``), one warp each, so that a row of 61,693 nonzeros (ddi
+keeps duplicate edges) does not hold the card up; the segments of a
+split row store partial rows, which a second pass adds in order.
+
+Beside it sits its plain PyTorch version on the same packed arrays
+(``spmm_csr_segment_plain``): each slot adds val * X[col] into row
+chunk_band * R + local_row, the TPU kernel's selector written as an
+``index_add_``, in spans of at most 4 M slots. It sums in float64 and
+rounds once to f32: a CSR row sums up to thousands of terms one by one,
+and two f32 sums of them in different orders (the kernel's, and the
+atomics' order of ``index_add_`` on the card) differ by more than the
+kernel's own rounding. A wrapper runs the plain version only for CPU
+tensors; for CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from spmm_denseblock_tpu_torch.formats.csr import CSR
+from spmm_denseblock_tpu_torch.ops import _kernels
+from spmm_denseblock_tpu_torch.ops._device import resolve_device
+from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import _device_of
+from spmm_denseblock_tpu_torch.ops.plan import Plan, grad_plan
+
+# -- host packing (verbatim port, bit-equal to the JAX package) ------------
+
+
+def _band_layout(csr: CSR, R: int, C: int):
+    """Pad each R-row band's nonzero slice to a multiple of C.
+
+    Returns (cols_pad, local_rows (n_chunks, 1, C), vals (n_chunks, 1,
+    C), chunk_band (n_chunks,)), the JAX packer's arrays, and row_ptr
+    (n_rows + 1,) int64: row r's span starts at row_ptr[r] =
+    chunk_off[band] + indptr[r] - band_start[band] and holds deg(r)
+    slots; row_ptr[n_rows] is the end of the last row's span. Empty
+    bands get one all-dummy chunk, which no row's span reaches."""
+    n = csr.n_rows
+    n_bands = -(-n // R)
+    indptr = np.asarray(csr.indptr, dtype=np.int64)
+    cols = np.asarray(csr.indices, dtype=np.int32)
+    vals = csr.values().astype(np.float32)
+    rows = csr.row_ids().astype(np.int32)
+
+    band_start = indptr[np.minimum(np.arange(n_bands) * R, n)]
+    band_end = indptr[np.minimum(np.arange(1, n_bands + 1) * R, n)]
+    band_nnz = band_end - band_start
+    chunks_per_band = np.maximum(1, -(-band_nnz // C))
+    n_chunks = int(chunks_per_band.sum())
+
+    cols_pad = np.zeros(n_chunks * C, dtype=np.int32)
+    lrows_pad = np.zeros(n_chunks * C, dtype=np.int32)
+    vals_pad = np.zeros(n_chunks * C, dtype=np.float32)
+    chunk_band = np.repeat(
+        np.arange(n_bands, dtype=np.int32), chunks_per_band
+    )
+    chunk_off = np.concatenate([[0], np.cumsum(chunks_per_band)[:-1]]) * C
+    for b in range(n_bands):
+        s, e = band_start[b], band_end[b]
+        o = chunk_off[b]
+        cols_pad[o : o + (e - s)] = cols[s:e]
+        lrows_pad[o : o + (e - s)] = rows[s:e] - b * R
+        vals_pad[o : o + (e - s)] = vals[s:e]
+    # port-side addition: each row's span in the padded arrays
+    if n_bands == 0:
+        row_ptr = np.zeros(n + 1, dtype=np.int64)
+    else:
+        band = np.minimum(np.arange(n + 1) // R, n_bands - 1)
+        row_ptr = (chunk_off[band] + indptr - band_start[band]).astype(np.int64)
+    return (
+        cols_pad,
+        lrows_pad.reshape(n_chunks, 1, C),
+        vals_pad.reshape(n_chunks, 1, C),
+        chunk_band,
+        row_ptr,
+    )
+
+
+SEGMENT_NNZ = 512  # the kernel's longest walk: slots per segment
+
+
+def row_segments(row_ptr, indptr, seg_nnz: int = SEGMENT_NNZ):
+    """The kernel's walk over row_ptr's spans: each row's span cut into
+    segments of at most seg_nnz slots, an empty row one empty segment.
+
+    Returns (seg_start, seg_end, seg_dest, split_row, part_ptr), int64:
+    segment s walks slots seg_start[s] .. seg_end[s] - 1 and stores into
+    row seg_dest[s] of C, or, for a row of several segments, into row
+    -seg_dest[s] - 1 of the partial rows; split row h (split_row[h]) is
+    the sum of partial rows part_ptr[h] .. part_ptr[h+1] - 1, in segment
+    order."""
+    row_ptr = np.asarray(row_ptr, dtype=np.int64)
+    deg = np.diff(np.asarray(indptr, dtype=np.int64))
+    n_seg = np.maximum(1, -(-deg // seg_nnz))
+    seg_row = np.repeat(np.arange(deg.size), n_seg)
+    first = np.concatenate([[0], np.cumsum(n_seg)[:-1]]).astype(np.int64)
+    rank = np.arange(seg_row.size) - first[seg_row]
+    seg_start = row_ptr[:-1][seg_row] + rank * seg_nnz
+    seg_end = np.minimum(seg_start + seg_nnz, row_ptr[:-1][seg_row] + deg[seg_row])
+    split = n_seg > 1
+    seg_dest = seg_row.astype(np.int64)
+    in_split = split[seg_row]
+    seg_dest[in_split] = -1 - np.arange(int(in_split.sum()))
+    split_row = np.nonzero(split)[0].astype(np.int64)
+    part_ptr = np.concatenate([[0], np.cumsum(n_seg[split])]).astype(np.int64)
+    return seg_start, seg_end, seg_dest, split_row, part_ptr
+
+
+# -- the plain PyTorch version and the kernel wrapper ----------------------
+
+_PLAIN_SPAN_SLOTS = 1 << 22  # padded slots per span of the plain version
+_PLAIN_SPAN_ELEMS = 1 << 27  # and gathered operand elements per span
+
+
+def spmm_csr_segment_plain(cols_pad, local_rows, vals, chunk_band, row_ptr,
+                           seg_start, seg_end, seg_dest, split_row, part_ptr,
+                           dense, R: int, n_partials: int) -> torch.Tensor:
+    """Plain version of K10 on the band layout, as ``_seg_kernel``
+    computes it: slot s of chunk k adds vals[s] * dense[cols_pad[s]] into
+    row chunk_band[k] * R + local_rows[s]; a dummy adds 0 into its
+    band's first row. Products and sums in float64 (exact products of
+    f32 values), rounded once to f32. row_ptr gives the row count only;
+    it and the segment arrays (row_segments) are the kernel's walk, not
+    read here. Chunked over slots to bound the gathered operand's
+    memory. Returns (n_rows, F) f32."""
+    n_rows = row_ptr.shape[0] - 1
+    F = dense.shape[1]
+    out = torch.zeros(n_rows, F, dtype=torch.float64, device=dense.device)
+    if dense.shape[0] == 0:  # no columns: every slot is a dummy
+        return out.float()
+    C = local_rows.shape[-1]
+    cols, lrows, v = (a.reshape(-1) for a in (cols_pad, local_rows, vals))
+    band = chunk_band.long()
+    span = max(1, min(_PLAIN_SPAN_SLOTS, _PLAIN_SPAN_ELEMS // max(1, F)))
+    for s0 in range(0, cols.shape[0], span):
+        s1 = min(cols.shape[0], s0 + span)
+        slot = torch.arange(s0, s1, device=dense.device)
+        dest = band[slot // C] * R + lrows[s0:s1].long()
+        prod = dense[cols[s0:s1].long()].double() * v[s0:s1, None].double()
+        out.index_add_(0, dest, prod)
+    return out.float()
+
+
+def spmm_csr_segment(cols_pad, local_rows, vals, chunk_band, row_ptr,
+                     seg_start, seg_end, seg_dest, split_row, part_ptr,
+                     dense, R: int, n_partials: int) -> torch.Tensor:
+    """K10: C (n_rows, F) f32 = A @ dense on the band layout. The kernel
+    walks the segments of row_ptr's spans (row_segments) over cols_pad
+    and vals, n_partials = part_ptr[-1] partial rows for the split rows
+    (local_rows and chunk_band are the plain version's). CPU tensors run
+    spmm_csr_segment_plain; CUDA tensors run the CUDA kernel."""
+    seg = (seg_start, seg_end, seg_dest, split_row, part_ptr)
+    dev = _device_of(cols_pad, local_rows, vals, chunk_band, row_ptr, *seg,
+                     dense)
+    if dev.type == "cpu":
+        return spmm_csr_segment_plain(cols_pad, local_rows, vals, chunk_band,
+                                      row_ptr, *seg, dense, R, n_partials)
+    check_csr_operands(cols_pad, vals, seg, dense)
+    n_rows = row_ptr.shape[0] - 1
+    F = dense.shape[1]
+    out = torch.empty(n_rows, F, dtype=torch.float32, device=dev)
+    partial = torch.empty(n_partials, F, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _kernels.csr_spmm(
+            seg_start.data_ptr(), seg_end.data_ptr(), seg_dest.data_ptr(),
+            cols_pad.data_ptr(), vals.data_ptr(), dense.data_ptr(),
+            out.data_ptr(), partial.data_ptr(), split_row.data_ptr(),
+            part_ptr.data_ptr(), seg_start.shape[0], split_row.shape[0], F,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    return out
+
+
+def check_csr_operands(cols_pad, vals, seg, dense) -> None:
+    """What the CUDA kernel takes: an f32 (K, F) operand, int32 cols and
+    f32 vals of one length, the int64 segment arrays of row_segments,
+    all contiguous."""
+    named = [("cols_pad", cols_pad, torch.int32), ("vals", vals, torch.float32),
+             ("dense", dense, torch.float32)]
+    named += [(n, t, torch.int64) for n, t in zip(
+        ("seg_start", "seg_end", "seg_dest", "split_row", "part_ptr"), seg)]
+    for name, t, dtype in named:
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got dtype {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("CUDA kernel operands must be contiguous")
+    if dense.dim() != 2:
+        raise ValueError(f"dense must be (K, F), got {tuple(dense.shape)}")
+    if cols_pad.numel() != vals.numel():
+        raise ValueError("cols_pad and vals must hold the same slots")
+    seg_start, seg_end, seg_dest, split_row, part_ptr = seg
+    if not (seg_start.shape == seg_end.shape == seg_dest.shape
+            and part_ptr.shape[0] == split_row.shape[0] + 1):
+        raise ValueError("segment arrays of unequal lengths")
+
+
+# -- the plan ---------------------------------------------------------------
+
+
+def _check_precision(precision) -> None:
+    """None or "highest" run exact f32, as JAX's HIGHEST does."""
+    if precision in (None, "highest"):
+        return
+    if precision == "default":
+        raise NotImplementedError(
+            "precision='default' is not ported (ROADMAP queue 1 item 4: one "
+            "bf16 pass on the TPU, which the JAX package's CPU interpret mode "
+            "runs as exact f32, so no parity test can hold it); use None or "
+            "\"highest\""
+        )
+    raise ValueError(f"unknown precision {precision!r} (None or 'highest')")
+
+
+def csr_spmm_pallas_plan(
+    csr: CSR,
+    f_tile: Optional[int] = None,
+    chunk: int = 1024,
+    row_band: int = 256,
+    precision: Optional[str] = "highest",
+    grad: bool = True,
+    device=None,
+) -> Plan:
+    """Host layout prep once -> Plan computing C = A @ dense in f32.
+
+    chunk (C) and row_band (R) shape the band layout as in the JAX plan;
+    K10's answer does not depend on them, nor on f_tile, which is taken
+    for the JAX plan's signature and changes nothing. precision: None or
+    "highest" (exact f32); "default" raises NotImplementedError. The
+    operand is cast to f32. grad=True (the default) returns a grad_plan
+    whose backward runs a plan of Aᵀ built with the same arguments.
+    device: where the packed arrays live, None for the card."""
+    device = resolve_device(device)
+    _check_precision(precision)
+    if grad:
+        kw = dict(f_tile=f_tile, chunk=chunk, row_band=row_band,
+                  precision=precision, device=device)
+        return grad_plan(csr_spmm_pallas_plan(csr, grad=False, **kw),
+                         csr_spmm_pallas_plan(csr.transpose(), grad=False, **kw))
+    n_rows, n_cols = (int(s) for s in csr.shape)
+    band = _band_layout(csr, row_band, chunk)
+    segments = row_segments(band[4], csr.indptr)
+    statics = (n_rows, n_cols, row_band, f_tile, int(segments[4][-1]))
+    return Plan((*band, *segments), _csr_pallas_apply, statics, device=device)
+
+
+def _csr_pallas_apply(statics, arrays, dense, plain: bool = False):
+    n_rows, n_cols, R, _, n_partials = statics
+    vals = arrays[2]
+    dense = torch.as_tensor(dense, device=vals.device)
+    if dense.dim() != 2 or dense.shape[0] != n_cols:
+        raise ValueError(f"dense must be ({n_cols}, F), got {tuple(dense.shape)}")
+    dense = dense.to(torch.float32).contiguous()
+    fn = spmm_csr_segment_plain if plain else spmm_csr_segment
+    return fn(*arrays, dense, R, n_partials)
+
+
+def csr_spmm_pallas(csr: CSR, dense, **kw) -> torch.Tensor:
+    return csr_spmm_pallas_plan(csr, **kw)(dense)

@@ -1,8 +1,12 @@
 """The user-facing ``spmm_plan`` entry point (twin of
 ``spmm_denseblock_tpu/ops/dispatch.py``, for the tiers ported so far).
 
-    plan = spmm_plan(matrix, impl="bsr_pallas", grad=False, device="cuda")
+    plan = spmm_plan(matrix, impl="bsr_pallas", grad=False)   # on the card
     C = plan(B)
+
+Plans go to the card unless the caller passes ``device="cpu"`` (or
+another device); with no GPU and no device given, spmm_plan raises
+RuntimeError.
 
 The impl names are the JAX package's, so one call line works on both.
 ``impl="auto"`` reproduces the JAX router's BSR branch: CSR input, the
@@ -21,13 +25,16 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
-from spmm_denseblock_tpu_torch.convert.csr2bsr import csr_to_bsr
+from spmm_denseblock_tpu_torch.convert.csr2bsr import bsr_to_csr, csr_to_bsr
 from spmm_denseblock_tpu_torch.formats.bsr import BSR
 from spmm_denseblock_tpu_torch.formats.csr import CSR
+from spmm_denseblock_tpu_torch.ops._device import resolve_device
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_int8 import bsr_spmm_int8_plan, dtype_name
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import bsr_spmm_pallas_plan
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8 import bsr_spmm_pallas_int8_plan
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_xla import bsr_spmm_xla_plan
+from spmm_denseblock_tpu_torch.ops.csr_spmm import bcoo_spmm_plan, csr_spmm_plan
+from spmm_denseblock_tpu_torch.ops.csr_spmm_pallas import csr_spmm_pallas_plan
 from spmm_denseblock_tpu_torch.ops.plan import Plan
 from spmm_denseblock_tpu_torch.ops.reference import spmm_dense_torch
 
@@ -58,11 +65,24 @@ def _dense_apply(statics, arrays, dense, plain: bool = False):
     return spmm_dense_torch(a, torch.as_tensor(dense, device=a.device))
 
 
-def _dense_plan(mat, device="cpu", **kw):
-    return Plan((mat.to_dense(),), _dense_apply, device=device)
+def _dense_plan(mat, device=None, **kw):
+    return Plan((mat.to_dense(),), _dense_apply, device=resolve_device(device))
+
+
+def _as_csr(m) -> CSR:
+    if isinstance(m, CSR):
+        return m
+    if isinstance(m, BSR):
+        return bsr_to_csr(m)
+    raise TypeError(f"cannot route {type(m).__name__} to a CSR-tier impl")
 
 
 PLANNERS: Dict[str, Callable] = {
+    # CSR tier; csr_xla and bcoo take no other arguments, as in JAX
+    "csr_xla": lambda m, device=None, **kw: csr_spmm_plan(_as_csr(m), device=device),
+    "csr_pallas": lambda m, **kw: csr_spmm_pallas_plan(_as_csr(m), **kw),
+    "bcoo": lambda m, device=None, **kw: bcoo_spmm_plan(_as_csr(m), device=device),
+    # BSR tier
     "bsr_pallas": lambda m, **kw: bsr_spmm_pallas_plan(m, **kw),
     "bsr_xla": lambda m, **kw: bsr_spmm_xla_plan(m, **kw),
     "bsr_int8": lambda m, **kw: bsr_spmm_int8_plan(m, **kw),
@@ -114,12 +134,15 @@ def spmm_plan(matrix, impl: str = "auto", block_size: int = 128,
     """Build an SpMM executor for `matrix` (CSR or BSR).
 
     impl: "bsr_pallas", "bsr_xla", "bsr_int8", "bsr_int8_pallas",
-    "dense" or "auto". feat_dim steers "auto" (None assumes a wide operand).
-    dtype=torch.int8 maps the tier to its int8 variant (bsr_pallas ->
-    bsr_int8_pallas, bsr_xla -> bsr_int8); pass calibration= for static
-    operand scales. Other keyword arguments go to the planner, e.g.
-    grad=False (bsr_pallas plans are differentiable by default),
-    dtype=torch.bfloat16, precision="high", device="cuda"."""
+    "csr_pallas", "csr_xla", "bcoo", "dense" or "auto". feat_dim steers
+    "auto" (None assumes a wide operand). dtype=torch.int8 maps the tier
+    to its int8 variant (bsr_pallas -> bsr_int8_pallas, bsr_xla ->
+    bsr_int8); pass calibration= for static operand scales. Other keyword
+    arguments go to the planner, e.g. grad=False (bsr_pallas and
+    csr_pallas plans are differentiable by default),
+    dtype=torch.bfloat16, precision="high". device: None (the default)
+    is the card; CPU callers pass device="cpu"."""
+    kw["device"] = resolve_device(kw.get("device"))
     budget = kw.pop("bsr_bytes_budget", 4 << 30)
     picked = impl == "auto"
     if picked:

@@ -247,7 +247,8 @@ def test_plan_matches_scipy(dtype, depth_sort, p):
                                (23 * 16 - 5, 19 * 16 - 7), 16)
     launches = [k.launches for k in _kernels.KERNELS]
     td = None if dtype is None else getattr(torch, dtype)
-    plan = T.bsr_spmm_pallas_plan(bsr, dtype=td, grad=False, depth_sort=depth_sort)
+    plan = T.bsr_spmm_pallas_plan(bsr, dtype=td, grad=False, depth_sort=depth_sort,
+                                  device="cpu")
     x = np.random.default_rng(1).standard_normal((bsr.shape[1], 70)).astype(np.float32)
     got = plan(x)
     assert got.shape == (bsr.shape[0], 70) and got.dtype == torch.float32
@@ -278,7 +279,7 @@ def test_f32_layout_matches_jax_plan(depth):
     jp = J.bsr_spmm_pallas_plan(
         j_bsr.BSR.from_parts(rows, cols, blocks, (192, 192), 8), grad=False)
     tp = T.bsr_spmm_pallas_plan(
-        t_bsr.BSR.from_parts(rows, cols, blocks, (192, 192), 8), grad=False)
+        t_bsr.BSR.from_parts(rows, cols, blocks, (192, 192), 8), grad=False, device="cpu")
     j_layout = "sorted" if isinstance(jp.statics[-1], tuple) else "flat"
     assert tp.statics[0] == j_layout == ("sorted" if depth >= 8 else "flat")
     x = np.random.default_rng(2).standard_normal((192, 24)).astype(np.float32)
@@ -312,7 +313,7 @@ def test_bf16_layout_gate():
         ("dense", {"resident": False}, "flat"),
     ):
         tp = T.bsr_spmm_pallas_plan(t_bsr.BSR.from_parts(*parts[name]),
-                                    dtype=bf, grad=False, **kw)
+                                    dtype=bf, grad=False, **kw, device="cpu")
         jp = J.bsr_spmm_pallas_plan(j_bsr.BSR.from_parts(*parts[name]),
                                     dtype=jnp.bfloat16, grad=False, **kw)
         assert tp.statics[0] == _jax_layout(jp) == layout, (name, kw)
@@ -339,9 +340,9 @@ def test_out_of_scope_arguments_raise(kw):
     bsr = t_bsr.random_bsr(0.3, 4, 4, block_size=8, seed=0)
     kw = {"grad": False, **kw}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.bsr_spmm_pallas_plan(bsr, **kw)
+        T.bsr_spmm_pallas_plan(bsr, **kw, device="cpu")
     with pytest.raises(ValueError, match="precision"):
-        T.bsr_spmm_pallas_plan(bsr, precision="bf16x3")
+        T.bsr_spmm_pallas_plan(bsr, precision="bf16x3", device="cpu")
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, "int8", np.int8])
@@ -351,7 +352,7 @@ def test_int8_dtype_raises_value_error(dtype):
     tier."""
     bsr = t_bsr.random_bsr(0.3, 4, 4, block_size=8, seed=0)
     with pytest.raises(ValueError, match="int8"):
-        T.bsr_spmm_pallas_plan(bsr, dtype=dtype, grad=False)
+        T.bsr_spmm_pallas_plan(bsr, dtype=dtype, grad=False, device="cpu")
     jb = j_bsr.random_bsr(0.3, 4, 4, block_size=8, seed=0)
     with pytest.raises(ValueError, match="int8"):
         J.bsr_spmm_pallas_plan(jb, dtype=jnp.int8, grad=False)
@@ -362,8 +363,8 @@ def test_plan_module_and_sum_plan():
     adds sub-plan outputs."""
     a = t_bsr.random_bsr(0.3, 6, 6, block_size=8, seed=1)
     b = t_bsr.random_bsr(0.3, 6, 6, block_size=8, seed=2)
-    pa = T.bsr_spmm_pallas_plan(a, grad=False)
-    pb = T.bsr_spmm_pallas_plan(b, grad=False, depth_sort=True)
+    pa = T.bsr_spmm_pallas_plan(a, grad=False, device="cpu")
+    pb = T.bsr_spmm_pallas_plan(b, grad=False, depth_sort=True, device="cpu")
     assert isinstance(pa, torch.nn.Module)
     assert len(list(pa.buffers())) == len(pa.arrays) == 4
     assert pa.to("cpu") is pa
@@ -375,7 +376,7 @@ def test_plan_module_and_sum_plan():
 
 def test_wrappers_reject_mixed_devices():
     plan = T.bsr_spmm_pallas_plan(t_bsr.random_bsr(0.3, 4, 4, block_size=8, seed=0),
-                                  grad=False)
+                                  grad=False, device="cpu")
     step_rows, slot_cols, blocks, step_ptr = plan.arrays
     with pytest.raises(ValueError, match="device"):
         T.spmm_flat(step_rows, step_ptr, slot_cols, blocks,
@@ -497,8 +498,8 @@ def test_k3_is_bf16x3_not_exact_f32(kw, layout):
     entries (by A_lo X_lo). tests/test_torch_cuda_kernels.py and
     chip_smoke.py hold the CUDA kernels to the same answers."""
     bsr, x, want3, want_exact = bf16x3_exact_case()
-    tp = T.bsr_spmm_pallas_plan(bsr, grad=False, precision="high", **kw)
-    exact = T.bsr_spmm_pallas_plan(bsr, grad=False, **kw)
+    tp = T.bsr_spmm_pallas_plan(bsr, grad=False, precision="high", **kw, device="cpu")
+    exact = T.bsr_spmm_pallas_plan(bsr, grad=False, **kw, device="cpu")
     assert (tp.statics[0], tp.statics[5]) == (layout, "bf16x3")
     assert (exact.statics[0], exact.statics[5]) == (layout, "exact")
     np.testing.assert_array_equal(tp(x).double().numpy(), want3)
@@ -572,7 +573,7 @@ def test_precision_resident_layout_gate(dtype, kw, depth, layout, math):
     td = None if dtype is None else getattr(torch, dtype)
     jd = None if dtype is None else jnp.bfloat16
     tp = T.bsr_spmm_pallas_plan(t_bsr.BSR.from_parts(*parts), dtype=td,
-                                grad=False, **kw)
+                                grad=False, **kw, device="cpu")
     jp = J.bsr_spmm_pallas_plan(j_bsr.BSR.from_parts(*parts), dtype=jd,
                                 grad=False, **kw)
     assert tp.statics[0] == layout and tp.statics[5] == math
@@ -588,7 +589,7 @@ def test_precision_resident_layout_gate(dtype, kw, depth, layout, math):
     assert _rel(tp(x).numpy(), np.asarray(jp(x))) < 1e-5
     if math == "bf16x3":
         exact = T.bsr_spmm_pallas_plan(t_bsr.BSR.from_parts(*parts),
-                                       grad=False)(x)
+                                       grad=False, device="cpu")(x)
         assert not torch.equal(tp(x), exact)
 
 
@@ -607,7 +608,7 @@ def test_bsr_xla_matches_jax(dtype):
     parts = (src.block_rows, src.block_cols, src.blocks, (13 * 16 - 5, 13 * 16 - 9), 16)
     td = None if dtype is None else torch.bfloat16
     jd = None if dtype is None else jnp.bfloat16
-    tp = XLA.bsr_spmm_xla_plan(t_bsr.BSR.from_parts(*parts), dtype=td)
+    tp = XLA.bsr_spmm_xla_plan(t_bsr.BSR.from_parts(*parts), dtype=td, device="cpu")
     jp = JX.bsr_spmm_xla_plan(j_bsr.BSR.from_parts(*parts), dtype=jd)
     rng = np.random.default_rng(18)
     x = rng.standard_normal((parts[3][1], 33)).astype(np.float32)
@@ -626,11 +627,11 @@ def test_bsr_xla_matches_jax(dtype):
     from spmm_denseblock_tpu_torch.ops import spmm_plan
 
     routed = spmm_plan(t_bsr.BSR.from_parts(*parts), impl="bsr_xla", dtype=td,
-                       grad=True)
+                       grad=True, device="cpu")
     assert routed.apply_fn is XLA._bsr_xla_apply
     assert torch.equal(routed(x), out.detach())
     with pytest.raises(ValueError, match="int8"):
-        XLA.bsr_spmm_xla_plan(t_bsr.BSR.from_parts(*parts), dtype=torch.int8)
+        XLA.bsr_spmm_xla_plan(t_bsr.BSR.from_parts(*parts), dtype=torch.int8, device="cpu")
 
 
 @pytest.mark.parametrize("impl", ["bsr_xla", "bsr_int8", "dense"])
@@ -641,7 +642,7 @@ def test_plain_apply_on_plans_without_kernels(impl):
     from spmm_denseblock_tpu_torch.ops import PLANNERS, grad_plan
 
     bsr = _with_empty_rows(t_bsr, 9, 16, 0.3, seed=19)
-    build = lambda m: PLANNERS[impl](m, grad=False)
+    build = lambda m: PLANNERS[impl](m, grad=False, device="cpu")
     plan = build(bsr)
     x = np.random.default_rng(20).standard_normal((bsr.shape[1], 24)).astype(np.float32)
     assert torch.equal(T.plain_apply(plan, x), plan(x))

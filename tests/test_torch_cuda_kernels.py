@@ -1,10 +1,11 @@
 """The CUDA kernels K1 (flat grouped gather), K2 (depth-sorted row
 groups), K3 (the bf16x3 product, on K1's, K2's and K5's layouts), K4
-(consecutive row groups), K5 (single-row resident) and the int8 kernels
-K6 (flat), K7 (depth-sorted, group-scale and per-slot scales) and K8
-(consecutive row groups) against their plain PyTorch versions on the
-card, their launch counters, the wrappers' refusals, and a grad plan's
-backward on the card against the plain backward. CUDA kernels have no CPU mode, so
+(consecutive row groups), K5 (single-row resident), the int8 kernels
+K6 (flat), K7 (depth-sorted, group-scale and per-slot scales), K8
+(consecutive row groups) and K9 (single-row resident), and the CSR
+kernel K10 against their plain PyTorch versions on the card, their
+launch counters, the wrappers' refusals, and grad plans' backward on
+the card against the plain backward. CUDA kernels have no CPU mode, so
 these tests skip without a GPU; run them on one with
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
@@ -22,11 +23,13 @@ import pytest
 import torch
 
 from spmm_denseblock_tpu_torch.formats.bsr import BSR, random_bsr
+from spmm_denseblock_tpu_torch.formats.csr import CSR, random_csr
 from spmm_denseblock_tpu_torch.ops import _kernels, assert_allclose, spmm_scipy
 from spmm_denseblock_tpu_torch.ops.reference import bf16x3_exact_case
 
 T = importlib.import_module("spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas")
 TI = importlib.import_module("spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8")
+TP = importlib.import_module("spmm_denseblock_tpu_torch.ops.csr_spmm_pallas")
 
 torch.set_num_threads(2)
 
@@ -91,9 +94,13 @@ def test_kernel_matches_plain(b, dtype, layout):
 def test_plan_matches_cpu_plan():
     bsr = _bsr(20, 32, 0.4, seed=1)
     x = np.random.default_rng(1).standard_normal((bsr.shape[1], 64)).astype(np.float32)
-    cpu = T.bsr_spmm_pallas_plan(bsr, grad=False)
-    gpu = T.bsr_spmm_pallas_plan(bsr, grad=False).to("cuda")
+    cpu = T.bsr_spmm_pallas_plan(bsr, grad=False, device="cpu")
+    gpu = T.bsr_spmm_pallas_plan(bsr, grad=False, device="cpu").to("cuda")
     assert_allclose(gpu(torch.as_tensor(x, device="cuda")), cpu(x))
+    # with no device the plan goes to the card
+    default = T.bsr_spmm_pallas_plan(bsr, grad=False)
+    assert all(t.device.type == "cuda" for t in default.buffers())
+    assert_allclose(default(torch.as_tensor(x, device="cuda")), cpu(x))
 
 
 def test_wrappers_refuse_bad_operands():
@@ -369,3 +376,175 @@ def test_grad_plan_backward_on_card(b, kw, kernels):
     assert rel < TOL, rel
     want = bsr.to_dense().T.astype(np.float64) @ g.cpu().numpy()
     assert np.abs(x.grad.cpu().numpy() - want).max() / np.abs(want).max() < 1e-4
+
+
+# -- K9 (int8 single-row resident) and K10 (CSR) ----------------------------
+
+
+@pytest.mark.parametrize("b", [16, 32, 64, 128])
+@pytest.mark.parametrize("nb", [7, 37])
+def test_k9_kernel_matches_plain(b, nb):
+    """K9 (resident=True with an explicit f_tile) against its plain
+    version on the same quantized operand, two empty rows, ragged F."""
+    bsr = _bsr(nb, b, 0.3, seed=b + 3)
+    plan = TI.bsr_spmm_pallas_int8_plan(bsr, resident=True, f_tile=128,
+                                        device="cuda")
+    assert plan.statics[0] == "resident"
+    x = _x(bsr, seed=5)
+    counts = _kernels.bsr_spmm_int8_flat.launches
+    got = _check(plan, x, _kernels.bsr_spmm_int8_resident)
+    assert _kernels.bsr_spmm_int8_flat.launches == counts
+    want = spmm_scipy(bsr, x.cpu().numpy())
+    assert np.abs(got.cpu().numpy() - want).max() / np.abs(want).max() < 6e-2
+
+
+def test_k9_wrapper_refuses_bad_operands():
+    bsr = _bsr(8, 16, 0.5, seed=6)
+    plan = TI.bsr_spmm_pallas_int8_plan(bsr, resident=True, f_tile=128,
+                                        device="cuda")
+    step_rows, slot_cols, qblocks, scales, step_ptr = plan.arrays
+    group = plan.statics[5][0]
+    q, cs = TI.quantize_operand(plan, _x(bsr))
+    q3 = q.reshape(-1, 16, q.shape[1])
+    counts = [k.launches for k in _kernels.KERNELS]
+    with pytest.raises(TypeError, match="dtype"):
+        TI.spmm_int8_resident(step_rows, step_ptr, slot_cols, qblocks.float(),
+                              scales, q3, cs, group)
+    with pytest.raises(ValueError, match="nbc, b, F"):
+        TI.spmm_int8_resident(step_rows, step_ptr, slot_cols, qblocks, scales,
+                              q, cs, group)
+    with pytest.raises(ValueError, match="device"):
+        TI.spmm_int8_resident(step_rows, step_ptr, slot_cols, qblocks, scales,
+                              q3.cpu(), cs, group)
+    with pytest.raises(ValueError, match="contiguous"):
+        TI.spmm_int8_resident(step_rows, step_ptr, slot_cols,
+                              qblocks.transpose(1, 2), scales, q3, cs, group)
+    with pytest.raises(ValueError, match="f_tile"):
+        TI.bsr_spmm_pallas_int8_plan(bsr, resident=True, f_tile=96,
+                                     device="cuda")(_x(bsr, F=70))
+    assert [k.launches for k in _kernels.KERNELS] == counts
+
+
+def _csr(n_rows=700, n_cols=500, p=0.03, seed=0):
+    """Rows 0-9 (empty head rows) and 256-511 (an empty band at R=256)
+    hold no nonzeros; the last band is ragged."""
+    src = random_csr(p, n_rows, n_cols, seed=seed)
+    rows = src.row_ids()
+    keep = ~np.isin(rows, list(range(10)) + list(range(256, 512)))
+    return CSR.from_coo(rows[keep], src.indices[keep], src.data[keep],
+                        (n_rows, n_cols))
+
+
+def _check_csr(plan, x):
+    got = _check(plan, x, _kernels.csr_spmm)
+    assert got.shape == (plan.statics[0], x.shape[1])
+    return got
+
+
+@pytest.mark.parametrize("F", [1, 7, 64, 256, 512])
+def test_csr_kernel_matches_plain(F):
+    """K10 against its plain version (1e-5) and the scipy oracle (1e-4):
+    F = 1 and 7 take the scalar path, 64 to 512 the float4 path (one and
+    two F tiles); empty rows store zeros."""
+    csr = _csr(seed=F)
+    plan = TP.csr_spmm_pallas_plan(csr, grad=False, device="cuda")
+    x = torch.as_tensor(np.random.default_rng(F).standard_normal(
+        (csr.n_cols, F)).astype(np.float32), device="cuda")
+    got = _check_csr(plan, x)
+    assert not got[:10].any() and not got[256:512].any()
+    assert_allclose(got, spmm_scipy(csr, x.cpu().numpy()))
+
+
+@pytest.mark.parametrize("shape", [(10, 12), (0, 12), (12, 0)])
+def test_csr_kernel_empty_matrix(shape):
+    """No nonzeros: zeros of the right shape (none for 0 rows), the
+    dummies of the empty bands never read (X may have no rows)."""
+    csr = CSR.from_coo([], [], None, shape)
+    plan = TP.csr_spmm_pallas_plan(csr, grad=False, device="cuda")
+    x = torch.ones(shape[1], 5, device="cuda")
+    before = _kernels.csr_spmm.launches
+    got = plan(x)
+    torch.cuda.synchronize()
+    assert _kernels.csr_spmm.launches == before + 1
+    assert got.shape == (shape[0], 5) and not got.any()
+    assert torch.equal(got, T.plain_apply(plan, x))
+
+
+def test_csr_wrapper_refuses_bad_operands():
+    csr = _csr(300, 200)
+    plan = TP.csr_spmm_pallas_plan(csr, grad=False, device="cuda")
+    args = plan.arrays
+    R, n_partials = plan.statics[2], plan.statics[4]
+    x = torch.ones(200, 16, device="cuda")
+    counts = [k.launches for k in _kernels.KERNELS]
+    with pytest.raises(TypeError, match="dtype"):
+        TP.spmm_csr_segment(*args, x.double(), R, n_partials)
+    with pytest.raises(TypeError, match="dtype"):
+        TP.spmm_csr_segment(args[0].long(), *args[1:], x, R, n_partials)
+    with pytest.raises(TypeError, match="dtype"):
+        TP.spmm_csr_segment(*args[:5], args[5].int(), *args[6:], x, R, n_partials)
+    with pytest.raises(ValueError, match="device"):
+        TP.spmm_csr_segment(*args, x.cpu(), R, n_partials)
+    with pytest.raises(ValueError, match="contiguous"):
+        TP.spmm_csr_segment(*args, torch.ones(16, 200, device="cuda").T, R,
+                            n_partials)
+    assert [k.launches for k in _kernels.KERNELS] == counts
+
+
+@pytest.mark.parametrize("F", [7, 256, 600])
+def test_csr_kernel_split_rows(F):
+    """Rows longer than SEGMENT_NNZ (512) split into segments whose
+    partial rows a second pass adds: rows of 5,000 (duplicate columns),
+    1,025 and 513 nonzeros among short rows; against the plain version
+    (1e-5) and scipy (1e-4)."""
+    rng = np.random.default_rng(F)
+    deg = rng.integers(0, 20, size=300)
+    deg[[3, 10, 299]] = (5000, 1025, 513)
+    rows = np.repeat(np.arange(300), deg)
+    csr = CSR.from_coo(rows, rng.integers(0, 400, size=rows.size),
+                       rng.standard_normal(rows.size), (300, 400))
+    plan = TP.csr_spmm_pallas_plan(csr, grad=False, device="cuda")
+    assert plan.arrays[8].tolist() == [3, 10, 299]  # split_row
+    x = torch.as_tensor(rng.standard_normal((400, F)).astype(np.float32),
+                        device="cuda")
+    got = _check_csr(plan, x)
+    assert_allclose(got, spmm_scipy(csr, x.cpu().numpy()))
+
+
+def test_csr_grad_plan_backward_on_card():
+    """The csr_pallas grad plan on a rectangular matrix: the forward
+    launches K10 once on A and the backward once on Aᵀ; the gradient
+    matches the plain backward within 1e-5 and the dense oracle within
+    1e-4."""
+    csr = random_csr(0.08, 200, 150, seed=11)
+    plan = TP.csr_spmm_pallas_plan(csr, chunk=128, row_band=64, device="cuda")
+    x0 = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (150, 40)).astype(np.float32), device="cuda")
+    g = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        (200, 40)).astype(np.float32), device="cuda")
+    before = _kernels.csr_spmm.launches
+    x = x0.clone().requires_grad_(True)
+    plan(x).backward(g)
+    torch.cuda.synchronize()
+    assert _kernels.csr_spmm.launches == before + 2
+    xp = x0.clone().requires_grad_(True)
+    T.plain_apply(plan, xp).backward(g)
+    assert _kernels.csr_spmm.launches == before + 2
+    rel = (x.grad - xp.grad).abs().max().item() / xp.grad.abs().max().item()
+    assert rel < TOL, rel
+    assert_allclose(x.grad, csr.to_dense().T @ g.cpu().numpy())
+
+
+def test_csr_xla_and_bcoo_on_card():
+    """The compiler-built CSR tiers on the card agree with K10 (1e-4);
+    neither launches a kernel of the port."""
+    from spmm_denseblock_tpu_torch.ops import spmm_plan
+
+    csr = _csr(400, 300, seed=7)
+    x = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (300, 33)).astype(np.float32), device="cuda")
+    want = _check_csr(TP.csr_spmm_pallas_plan(csr, grad=False, device="cuda"), x)
+    counts = [k.launches for k in _kernels.KERNELS]
+    for impl in ("csr_xla", "bcoo"):
+        assert_allclose(spmm_plan(csr, impl=impl)(x), want.cpu().numpy())
+    assert [k.launches for k in _kernels.KERNELS] == counts

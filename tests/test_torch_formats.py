@@ -134,9 +134,14 @@ def test_port_never_imports_jax():
         "from spmm_denseblock_tpu_torch.io import load_dataset\n"
         "import spmm_denseblock_tpu_torch.ops._kernels\n"
         "adj = sym_norm_adjacency(reorder(random_csr(0.05, 64, seed=0), 'rcmk')[0])\n"
-        "plan = spmm_plan(adj, impl='bsr_pallas', block_size=16, grad=False, device='cpu')\n"
-        "out = GCN([8, 4])(plan, torch.ones(64, 8))\n"
-        "assert out.shape == (64, 4)\n"
+        "import spmm_denseblock_tpu_torch.ops.csr_spmm\n"
+        "import spmm_denseblock_tpu_torch.ops.csr_spmm_pallas\n"
+        "import spmm_denseblock_tpu_torch.ops._device\n"
+        "import spmm_denseblock_tpu_torch.entry\n"
+        "for impl in ('bsr_pallas', 'csr_pallas', 'csr_xla', 'bcoo'):\n"
+        "    plan = spmm_plan(adj, impl=impl, block_size=16, grad=False, device='cpu')\n"
+        "    out = GCN([8, 4])(plan, torch.ones(64, 8))\n"
+        "    assert out.shape == (64, 4)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'spmm_denseblock_tpu' or m.startswith('spmm_denseblock_tpu.')]\n"
         "assert not bad, bad\n"

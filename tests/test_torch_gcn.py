@@ -88,14 +88,14 @@ def test_auto_router_parity(tmp_path):
 
     j_auto = j_ops.spmm_plan(j_adj, impl="auto", block_size=128, grad=False)
     assert j_auto.apply_fn.__module__.endswith("bsr_spmm_pallas")
-    t_auto = t_ops.spmm_plan(t_adj, impl="auto", block_size=128, grad=False)
+    t_auto = t_ops.spmm_plan(t_adj, impl="auto", block_size=128, grad=False, device="cpu")
     assert t_auto.apply_fn.__module__.endswith("bsr_spmm_pallas")
 
     x = np.random.default_rng(8).standard_normal((t_adj.n_rows, 24)).astype(np.float32)
     for kw in ({"block_size": 32}, {"block_size": 128, "feat_dim": 64}):
         j_small = j_ops.spmm_plan(j_adj, impl="auto", grad=False, **kw)
         assert j_small.apply_fn.__module__.endswith("bsr_spmm_xla")
-        t_small = t_ops.spmm_plan(t_adj, impl="auto", grad=False, **kw)
+        t_small = t_ops.spmm_plan(t_adj, impl="auto", grad=False, **kw, device="cpu")
         assert t_small.apply_fn.__module__.endswith("bsr_spmm_xla")
         assert_allclose(t_small(x), np.asarray(j_small(x)))
 
@@ -108,11 +108,11 @@ def test_auto_router_fill_guard():
     j_auto = j_ops.spmm_plan(j_graph, impl="auto", block_size=128, grad=False)
     assert "ell" in j_auto.apply_fn.__module__
     with pytest.raises(NotImplementedError, match="csr_ell"):
-        t_ops.spmm_plan(t_graph, impl="auto", block_size=128, grad=False)
+        t_ops.spmm_plan(t_graph, impl="auto", block_size=128, grad=False, device="cpu")
 
 
 def test_dense_impl_matches_scipy():
     t_graph = t_csr.random_csr(0.05, 96, seed=1)
-    plan = t_ops.spmm_plan(t_graph, impl="dense")
+    plan = t_ops.spmm_plan(t_graph, impl="dense", device="cpu")
     x = np.random.default_rng(0).standard_normal((96, 9)).astype(np.float32)
     assert_allclose(plan(x), t_ops.spmm_scipy(t_graph, x))

@@ -121,14 +121,19 @@ def test_rejections_raise_value_error():
     _, tb = _pair(0.3, 4, 4, 8, seed=0)
     for plan in (TI.bsr_spmm_pallas_int8_plan, TQ.bsr_spmm_int8_plan):
         with pytest.raises(ValueError, match="inference-only"):
-            plan(tb, grad=True)
-        plan(tb, grad=False)
+            plan(tb, grad=True, device="cpu")
+        plan(tb, grad=False, device="cpu")
     with pytest.raises(ValueError, match="inference-only"):
-        t_ops.spmm_plan(tb, impl="bsr_pallas", dtype=torch.int8, grad=True)
-    with pytest.raises(TypeError, match="f_tile"):
-        TI.bsr_spmm_pallas_int8_plan(tb, f_tile=128)
+        t_ops.spmm_plan(tb, impl="bsr_pallas", dtype=torch.int8, grad=True, device="cpu")
+    # an explicit f_tile is taken (it routes to the flat layout); with
+    # resident=True (K9) it must divide the width rounded up to 128,
+    # checked at call time, as in JAX
+    assert TI.bsr_spmm_pallas_int8_plan(tb, f_tile=128, device="cpu").statics[0] == "flat"
+    k9 = TI.bsr_spmm_pallas_int8_plan(tb, f_tile=96, resident=True, device="cpu")
+    with pytest.raises(ValueError, match="f_tile"):
+        k9(np.ones((tb.shape[1], 70), np.float32))
     # an int8 tier named directly takes dtype=int8 too
-    plan = t_ops.spmm_plan(tb, impl="bsr_int8_pallas", dtype=torch.int8)
+    plan = t_ops.spmm_plan(tb, impl="bsr_int8_pallas", dtype=torch.int8, device="cpu")
     assert plan.apply_fn.__module__.endswith(".bsr_spmm_pallas_int8")
 
 
@@ -150,7 +155,7 @@ def _plans(case, jb, tb, monkeypatch, **kw):
         monkeypatch.setenv("SDB_INT8_GROUP_SCALE", "0")
     jp = JI.bsr_spmm_pallas_int8_plan(jb, **j_kw, **kw)
     monkeypatch.delenv("SDB_INT8_GROUP_SCALE", raising=False)
-    tp = TI.bsr_spmm_pallas_int8_plan(tb, **t_kw, **kw)
+    tp = TI.bsr_spmm_pallas_int8_plan(tb, **t_kw, **kw, device="cpu")
     assert tp.statics[0] == layout
     return jp, tp
 
@@ -188,7 +193,7 @@ def _quantized(tb, F, seed):
 
 def test_k6_flat_plain_matches_pallas_kernel():
     _, tb = _pair(0.4, 21, 19, 16, seed=6, empty=(4,))
-    tp = TI.bsr_spmm_pallas_int8_plan(tb, resident=False)
+    tp = TI.bsr_spmm_pallas_int8_plan(tb, resident=False, device="cpu")
     step_rows, slot_cols, qblocks, scales, step_ptr = tp.arrays
     nbr, group = tp.statics[1], tp.statics[5]
     F = 128
@@ -212,7 +217,8 @@ def test_k7_sorted_plain_matches_pallas_kernel(group_scale):
     """21 block-rows at R=8 in windows of 32: the last group has absent
     lanes at pos 0, the same pos as a real row's."""
     _, tb = _pair(0.4, 21, 19, 16, seed=8, empty=(2,), mixed=True)
-    tp = TI.bsr_spmm_pallas_int8_plan(tb, depth_sort=True, group_scale=group_scale)
+    tp = TI.bsr_spmm_pallas_int8_plan(tb, depth_sort=True, group_scale=group_scale,
+                                      device="cpu")
     win_ids, slot_cols, qblocks, scales, pos, lane_valid, group_ptr = tp.arrays
     nbr = tp.statics[1]
     R, gh, W, gs = tp.statics[5]
@@ -254,7 +260,7 @@ def test_k8_rowgroup_plain_matches_pallas_kernel(nb):
     """7 block-rows at R=8: one group with a phantom lane, whose rows the
     JAX output holds and the port's does not."""
     _, tb = _pair(0.3, nb, nb, 32, seed=9)
-    tp = TI.bsr_spmm_pallas_int8_plan(tb, depth_sort=False)
+    tp = TI.bsr_spmm_pallas_int8_plan(tb, depth_sort=False, device="cpu")
     step_groups, slot_cols, qblocks, scales, group_ptr = tp.arrays
     nbr = tp.statics[1]
     R, gh = tp.statics[5]
@@ -270,6 +276,60 @@ def test_k8_rowgroup_plain_matches_pallas_kernel(nb):
                                       q, cs, nbr, R, gh)
     assert got.shape == (nbr * 32, F)
     assert _rel(got, want) < PARITY_TOL
+
+
+def test_k9_resident_plain_matches_pallas_kernel():
+    """K9's plain version, reading the operand as (nbc, b, F), against
+    _pallas_int8_spmm_resident (interpret mode) on the arrays of the
+    resident=True, f_tile=128 plan; the CPU wrapper runs it."""
+    _, tb = _pair(0.4, 21, 19, 16, seed=13, empty=(4,))
+    tp = TI.bsr_spmm_pallas_int8_plan(tb, resident=True, f_tile=128, device="cpu")
+    assert tp.statics[0] == "resident"
+    step_rows, slot_cols, qblocks, scales, step_ptr = tp.arrays
+    nbr = tp.statics[1]
+    group, f_tile = tp.statics[5]
+    F = 128
+    q, cs = _quantized(tb, F, seed=14)
+    q3 = q.reshape(-1, 16, F)
+    want = np.asarray(JI._pallas_int8_spmm_resident(
+        jnp.asarray(step_rows.numpy()), jnp.asarray(slot_cols.numpy()),
+        jnp.asarray(scales.numpy()), jnp.asarray(qblocks.numpy()),
+        jnp.asarray(q3.numpy()), jnp.asarray(cs.numpy()),
+        nbr, nbr * 16, f_tile, group, True,
+    ))
+    got = TI.spmm_int8_resident_plain(step_rows, slot_cols, qblocks, scales, q3,
+                                      cs, nbr, group)
+    assert got.shape == (nbr * 16, F) and got.dtype == torch.float32
+    assert _rel(got, want) < PARITY_TOL
+    assert not got.reshape(nbr, 16, F)[4].any()
+    assert torch.equal(TI.spmm_int8_resident(step_rows, step_ptr, slot_cols,
+                                             qblocks, scales, q3, cs, group), got)
+    with pytest.raises(ValueError, match="nbc, b, F"):
+        TI.spmm_int8_resident_plain(step_rows, slot_cols, qblocks, scales, q,
+                                    cs, nbr, group)
+
+
+@pytest.mark.parametrize("resident,layout", [(True, "resident"), (None, "flat")])
+def test_explicit_f_tile_routes_like_jax(resident, layout):
+    """An explicit f_tile turns the row-group layouts off in both
+    packages: with resident=True the plan runs K9 (the only way to reach
+    it), with resident=None K6. The packed arrays are bit-equal and the
+    answers agree (ragged shape, F = 70)."""
+    shape = (23 * 16 - 5, 19 * 16 - 7)
+    jb, tb = _pair(0.35, 23, 19, 16, seed=15, shape=shape, empty=(6,))
+    jp = JI.bsr_spmm_pallas_int8_plan(jb, f_tile=128, resident=resident)
+    tp = TI.bsr_spmm_pallas_int8_plan(tb, f_tile=128, resident=resident,
+                                      device="cpu")
+    assert tp.statics[0] == layout
+    assert jp.statics[-1] is None and jp.statics[-2] == resident  # no row groups
+    assert len(jp.arrays) == 4
+    for a, b in zip(jp.arrays, tp.arrays):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    x = _operand(shape[1], 70, seed=16)
+    got = tp(x)
+    assert got.shape == (shape[0], 70)
+    assert _rel(got, np.asarray(jp(x))) < PARITY_TOL
+    assert _rel(got, spmm_scipy(tb, x)) < INT8_TOL
 
 
 # -- whole plans ------------------------------------------------------------
@@ -303,14 +363,15 @@ def test_bsr_int8_tier_matches_jax_and_consecutive_layouts():
     quantize_blocks, so they agree up to the order of the sums."""
     jb, tb = _pair(0.3, 12, 10, 16, seed=3)
     x = _operand(tb.shape[1], 40, seed=4)
-    got = TQ.bsr_spmm_int8_plan(tb)(x)
+    got = TQ.bsr_spmm_int8_plan(tb, device="cpu")(x)
     assert got.shape == (tb.shape[0], 40)
     assert _rel(got, np.asarray(JQ.bsr_spmm_int8_plan(jb)(x))) < PARITY_TOL
     assert _rel(got, spmm_scipy(tb, x)) < INT8_TOL
-    cal = TQ.bsr_spmm_int8_plan(tb, calibration=x)(x)
+    cal = TQ.bsr_spmm_int8_plan(tb, calibration=x, device="cpu")(x)
     assert _rel(cal, np.asarray(JQ.bsr_spmm_int8_plan(jb, calibration=x)(x))) < PARITY_TOL
     for kw in ({"resident": False}, {"depth_sort": False}):
-        assert _rel(TI.bsr_spmm_pallas_int8_plan(tb, **kw)(x), got) < PARITY_TOL
+        tp = TI.bsr_spmm_pallas_int8_plan(tb, **kw, device="cpu")
+        assert _rel(tp(x), got) < PARITY_TOL
 
 
 def _rows_with(depth, nb=24, b=8, seed=0):
@@ -337,7 +398,7 @@ def test_int8_layout_matches_jax_plan(depth, kw, layout):
     jp = JI.bsr_spmm_pallas_int8_plan(
         j_bsr.BSR.from_parts(rows, cols, blocks, (192, 192), 8), **kw)
     tp = TI.bsr_spmm_pallas_int8_plan(
-        t_bsr.BSR.from_parts(rows, cols, blocks, (192, 192), 8), **kw)
+        t_bsr.BSR.from_parts(rows, cols, blocks, (192, 192), 8), **kw, device="cpu")
     rowgroup = jp.statics[-1]
     j_layout = ("flat" if rowgroup is None else
                 "sorted" if isinstance(rowgroup[0], str) else "rowgroup")
@@ -365,21 +426,21 @@ def test_int8_routing_matches_jax(tmp_path):
                             ("auto", 128, "bsr_spmm_pallas_int8"),
                             ("auto", 32, "bsr_spmm_int8")):
         jp = j_ops.spmm_plan(j_adj, impl=impl, block_size=b, dtype=jnp.int8)
-        tp = t_ops.spmm_plan(t_adj, impl=impl, block_size=b, dtype=torch.int8)
+        tp = t_ops.spmm_plan(t_adj, impl=impl, block_size=b, dtype=torch.int8, device="cpu")
         assert jp.apply_fn.__module__.endswith("." + module), (impl, b)
         assert tp.apply_fn.__module__.endswith("." + module), (impl, b)
     jb = j_ops.spmm_plan(j_adj, impl="bsr_xla", block_size=32, dtype=jnp.int8)
-    tb = t_ops.spmm_plan(t_adj, impl="bsr_xla", block_size=32, dtype="int8")
+    tb = t_ops.spmm_plan(t_adj, impl="bsr_xla", block_size=32, dtype="int8", device="cpu")
     assert jb.apply_fn.__module__.endswith(".bsr_spmm_int8")
     assert tb.apply_fn.__module__.endswith(".bsr_spmm_int8")
     x = _operand(t_adj.n_rows, 16, seed=5)
     assert _rel(tb(x), np.asarray(jb(x))) < PARITY_TOL
     # without int8 bsr_xla is the plain-torch tier, in both packages
-    assert t_ops.spmm_plan(t_adj, impl="bsr_xla", block_size=32).apply_fn.__module__.endswith(
-        ".bsr_spmm_xla")
+    plain = t_ops.spmm_plan(t_adj, impl="bsr_xla", block_size=32, device="cpu")
+    assert plain.apply_fn.__module__.endswith(".bsr_spmm_xla")
     with pytest.raises(NotImplementedError, match="csr_ell_int8"):
         t_ops.spmm_plan(t_bsr_csr_fill(), impl="auto", block_size=128,
-                        dtype=torch.int8)
+                        dtype=torch.int8, device="cpu")
 
 
 def t_bsr_csr_fill():
@@ -406,7 +467,7 @@ def test_int8_gcn_matches_jax(tmp_path):
     jp = j_ops.spmm_plan(j_adj, impl="bsr_pallas", block_size=32, dtype=jnp.int8,
                          grad=False)
     tp = t_ops.spmm_plan(t_adj, impl="bsr_pallas", block_size=32, dtype=torch.int8,
-                         grad=False)
+                         grad=False, device="cpu")
     assert tp.statics[0] == "sorted" and tp.statics[5][3]
     assert jp.statics[-1][0] == "sorted_gs"
 

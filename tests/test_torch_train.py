@@ -98,7 +98,7 @@ def _plans(kw, parts):
         jkw["dtype"] = jnp.bfloat16
         tkw["dtype"] = torch.bfloat16
     jp = J.bsr_spmm_pallas_plan(j_bsr.BSR.from_parts(*parts), grad=True, **jkw)
-    tp = T.bsr_spmm_pallas_plan(t_bsr.BSR.from_parts(*parts), **tkw)
+    tp = T.bsr_spmm_pallas_plan(t_bsr.BSR.from_parts(*parts), **tkw, device="cpu")
     return jp, tp
 
 
@@ -138,7 +138,7 @@ def test_grad_plan_backward_matches_plain_autograd():
     plain forward (a dense A in torch); plain_apply runs both directions
     plain and gives the same gradient; plan buffers get no gradient."""
     parts = _rect_parts(13, seed=2)
-    plan = T.bsr_spmm_pallas_plan(t_bsr.BSR.from_parts(*parts))
+    plan = T.bsr_spmm_pallas_plan(t_bsr.BSR.from_parts(*parts), device="cpu")
     a = torch.as_tensor(t_bsr.BSR.from_parts(*parts).to_dense())
     rng = np.random.default_rng(3)
     x = torch.as_tensor(rng.standard_normal((125, 10)).astype(np.float32))
@@ -164,7 +164,7 @@ def test_grad_plan_non_contiguous_cotangent():
     """Autograd may hand the backward a strided cotangent (here the
     gradient of a column slice); the apply makes it contiguous."""
     parts = _rect_parts(13, seed=4)
-    plan = T.bsr_spmm_pallas_plan(t_bsr.BSR.from_parts(*parts))
+    plan = T.bsr_spmm_pallas_plan(t_bsr.BSR.from_parts(*parts), device="cpu")
     a = t_bsr.BSR.from_parts(*parts).to_dense()
     x = torch.randn(125, 12, generator=torch.Generator().manual_seed(0),
                     requires_grad=True)
@@ -178,7 +178,7 @@ def test_transb_plan():
     """transb_plan takes Bᵀ (F, K): the same C as the inner plan, in both
     packages, and gradients flow back as the transposed gradient."""
     parts = _rect_parts(13, seed=5)
-    inner_t = T.bsr_spmm_pallas_plan(t_bsr.BSR.from_parts(*parts))
+    inner_t = T.bsr_spmm_pallas_plan(t_bsr.BSR.from_parts(*parts), device="cpu")
     inner_j = J.bsr_spmm_pallas_plan(j_bsr.BSR.from_parts(*parts), grad=True)
     x = np.random.default_rng(6).standard_normal((125, 9)).astype(np.float32)
     tp = t_ops.transb_plan(inner_t)
@@ -254,7 +254,7 @@ def test_sgd_steps_match_jax():
     from the same weights: losses, accuracies and weights agree."""
     j_adj, t_adj = _graph_pair()
     j_spmm = j_ops.spmm_plan(j_adj, impl="bsr_pallas", block_size=32)
-    t_spmm = t_ops.spmm_plan(t_adj, impl="bsr_pallas", block_size=32)
+    t_spmm = t_ops.spmm_plan(t_adj, impl="bsr_pallas", block_size=32, device="cpu")
     x, y, mask = _problem(256)
     j_params, j_np = _jax_params()
     j_step, j_init = j_make_train_step(j_models.gcn_apply, j_spmm, optax.sgd(0.5))
@@ -277,7 +277,7 @@ def test_adam_step_matches_jax():
     the loss after the step is lower in both."""
     j_adj, t_adj = _graph_pair()
     j_spmm = j_ops.spmm_plan(j_adj, impl="bsr_pallas", block_size=32)
-    t_spmm = t_ops.spmm_plan(t_adj, impl="bsr_pallas", block_size=32)
+    t_spmm = t_ops.spmm_plan(t_adj, impl="bsr_pallas", block_size=32, device="cpu")
     x, y, mask = _problem(256, seed=1)
     j_params, j_np = _jax_params()
     from spmm_denseblock_tpu.models.train import masked_cross_entropy
@@ -304,7 +304,7 @@ def test_default_spmm_plan_trains_gcn():
     GCN trains through it, and the eval step's metrics match a plain
     forward."""
     _, t_adj = _graph_pair()
-    spmm = t_ops.spmm_plan(t_adj, impl="bsr_pallas", block_size=32)
+    spmm = t_ops.spmm_plan(t_adj, impl="bsr_pallas", block_size=32, device="cpu")
     assert spmm.apply_fn.__name__ == "_grad_apply"
     x, y, mask = _problem(256, seed=2)
     params = t_models.init_gcn(DIMS, generator=torch.Generator().manual_seed(0))
@@ -336,7 +336,7 @@ def test_entry_matches_graft_entry(monkeypatch):
 
     monkeypatch.setattr(graft, "_enable_compile_cache", lambda jax_mod: None)
     j_fn, (j_params, j_x) = graft.entry()
-    t_fn, (t_params, t_x) = entry()
+    t_fn, (t_params, t_x) = entry(device="cpu")
     np.testing.assert_array_equal(j_x, t_x)
     assert [tuple(p["w"].shape) for p in t_params] == [
         tuple(np.shape(p["w"])) for p in j_params]
