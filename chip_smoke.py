@@ -2,10 +2,10 @@
 """Smoke run of the PyTorch port (spmm_denseblock_tpu_torch) on one NVIDIA
 GPU: builds the CUDA kernels from this checkout, holds each against its
 plain PyTorch version, serves a GCN on the ogbl-ddi stand-in through the
-BSR SpMM plan in f32 and in int8 and through the CSR plan (K10), trains
-it in f32 and in bf16x3 (precision="high") through the BSR plan and in
-f32 through the CSR plan, and runs the plans at bench.py's op shape and
-the CSR kernel at the reference's test_csrmm shape.
+BSR SpMM plan in f32, bf16 and int8 and through the CSR plan (K10),
+trains it in f32 and in bf16x3 (precision="high") through the BSR plan
+and in f32 through the CSR plan, and runs the plans at bench.py's op
+shape and the CSR kernel at the reference's test_csrmm shape.
 
     python3 chip_smoke.py
 
@@ -13,8 +13,9 @@ Phases:
   1. set-up   torch/CUDA versions, the card's name and power limit, TF32 off
   2. build    nvcc builds each csrc/*.cu into build/kernels/, all at once
               (timed)
-  3. kernels  K1 (flat), K2 (sorted), K3 (bf16x3 on the sorted, flat and
-              resident layouts), K4 (row groups; f32 and bf16), K5
+  3. kernels  K1 (flat), K2 (sorted; f32, and bf16 on the tensor cores),
+              K3 (bf16x3 on the sorted, flat and resident layouts), K4
+              (row groups; f32, and bf16 on the tensor cores), K5
               (resident), and the int8 K6 (flat), K7 (sorted; group-scale
               and per-slot scales), K8 (row groups) and K9 (resident,
               resident=True with f_tile=128), each against its plain
@@ -26,7 +27,10 @@ Phases:
               exact kernel (K2, K1, K5) on an input whose sums are exact in
               f32 (bf16x3_exact_case): K3 must give A_hi X_hi + A_hi X_lo +
               A_lo X_hi and the exact kernel A X, each bit for bit (the two
-              differ in most entries)
+              differ in most entries); then the bf16 K2 and K4 entries at
+              b = 16, 32, 64 and 128 and F = 70 and 256 on an input whose
+              sums are exact in f32 (bf16_exact_case): each must equal
+              float64 bit for bit
   4. slice    GCN [256, 256, 256] on load_dataset("ogbl-ddi") (rcmk,
               sym_norm_adjacency, spmm_plan(impl="bsr_pallas", b=128)),
               4 seeded requests in f32 (K2), each checked against a float64
@@ -35,7 +39,10 @@ Phases:
               answer within 6e-2 of the float64 reference and each SpMM
               within 1e-5 of its plain version; then the same requests
               through spmm_plan(adj, impl="csr_pallas") (K10), each within
-              1e-4 of the float64 reference
+              1e-4 of the float64 reference; then the same requests in
+              bf16 (spmm_plan(..., dtype=torch.bfloat16), bf16 K2 on the
+              tensor cores), each SpMM within 1e-5 of its plain version
+              and each answer within 3e-2 of the float64 reference
   5. train    the same model and graph, trained through spmm_plan's
               default grad plan (K2 on A and on Aᵀ), seeded labels over
               256 classes and a 60% train mask: 5 Adam(lr=1e-2) steps of
@@ -60,7 +67,10 @@ Phases:
               calibration=dense[:4096] as bench.py: default (K7),
               depth_sort=False (K8), resident=False (K6) and
               resident=True, f_tile=128 (K9); each against its plain
-              version, each int8 answer within 6e-2 of f32 K2's;
+              version, each int8 answer within 6e-2 of f32 K2's; the bf16
+              K2 and K4 entries on the op shape's blocks with small
+              integer values (every sum exact in f32), bit for bit
+              against their plain versions;
               bench.py's bf16x3 self-check (the "high" answer within 1e-4
               of exact f32 K2's and of the bsr_xla tier's); K10 at the
               reference's test_csrmm shape, random_csr(2e-3, 2^17,
@@ -74,13 +84,20 @@ Phases:
               int8), GFLOP/s = 2*nnzb*b^2*F / t (real blocks) or
               2*nnz*F / t (CSR); ms per request and per training step, BSR
               and CSR on the same card; the int8 operand's quantization
-              (dynamic and static) apart from its kernel; each kernel's
-              bound (the larger of its bytes, each input read once and
-              each output written once, over 3.35 TB/s, and its
-              operations over the peak of their type)
+              (dynamic and static) apart from its kernel, and the bf16
+              kernels on the bf16 operand (as the library call gets it)
+              apart from the whole call that casts the f32 one (each
+              the mean of two runs, in the order kernel, whole, whole,
+              kernel); each
+              kernel's bound (the larger of its bytes, each input read
+              once and each output written once, over 3.35 TB/s, and its
+              operations over the peak of their type); the bf16
+              tensor-core rows of the kernels line carry their F tile
+              width (bn)
 
 The main path is phases 4 to 6, each of their runs (f32 slice, int8
-slice, CSR slice, f32 training, "high" training, CSR training, op) with
+slice, CSR slice, bf16 slice, f32 training, "high" training, CSR
+training, op) with
 the launch counts set to 0 just before it and read just after; every
 kernel of the path must have run there. Prints the kernels' JSON line,
 then the last line {"ok": true, "device": {...}}. Any failure raises and
@@ -125,6 +142,8 @@ from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import (  # noqa: E402
     _pack_rowgroups,
     _pallas_apply,
     _rowgroup_policy,
+    _sm_count,
+    bf16_tile_geometry,
     bsr_spmm_pallas_plan,
     group_pointer,
     plain_apply,
@@ -145,12 +164,14 @@ from spmm_denseblock_tpu_torch.ops.plan import Plan  # noqa: E402
 from spmm_denseblock_tpu_torch.ops.reference import (  # noqa: E402
     CHECK_EPS,
     assert_allclose,
+    bf16_exact_case,
     bf16x3_exact_case,
 )
 from spmm_denseblock_tpu_torch.reorder import reorder  # noqa: E402
 
 KERNEL_TOL = 1e-5  # kernel vs plain version, relative to max |plain|
 INT8_TOL = 6e-2    # int8 answer vs f32/f64 reference, relative to max |ref|
+BF16_TOL = 3e-2    # bf16 answer vs f64 reference, relative to max |ref|
 GRAD_TOL = 1e-4    # step-0 gradients vs float64, relative to max |ref|
 BF16X3_TOL = 1e-4  # bench.py's gate for the bf16x3 answer vs exact f32
 # hidden pre-activations whose sign differs from float64's, per training
@@ -172,11 +193,13 @@ KERNEL_INFO = {
                "spmm_denseblock_tpu/ops/csr_spmm_pallas.py:112"),
     ("f", "flat", "exact"): ("K1", "bsr_spmm_flat", _F, _PALLAS + ":909"),
     ("f", "sorted", "exact"): ("K2", "bsr_spmm_sorted", _F, _PALLAS + ":686"),
+    ("f", "sorted", "bf16"): ("K2", "bsr_spmm_sorted_bf16", _F, _PALLAS + ":686"),
     ("f", "flat", "bf16x3"): ("K3", "bsr_spmm_flat_bf16x3", _F, _PALLAS + ":56"),
     ("f", "sorted", "bf16x3"): ("K3", "bsr_spmm_sorted_bf16x3", _F, _PALLAS + ":56"),
     ("f", "resident", "bf16x3"): ("K3", "bsr_spmm_resident_bf16x3", _F,
                                   _PALLAS + ":56"),
     ("f", "rowgroup", "exact"): ("K4", "bsr_spmm_rowgroup", _F, _PALLAS + ":412"),
+    ("f", "rowgroup", "bf16"): ("K4", "bsr_spmm_rowgroup_bf16", _F, _PALLAS + ":412"),
     ("f", "resident", "exact"): ("K5", "bsr_spmm_resident", _F, _PALLAS + ":301"),
     ("i8", "flat"): ("K6", "bsr_spmm_int8_flat", _I8, _PALLAS_I8 + ":490"),
     ("i8", "sorted"): ("K7", "bsr_spmm_int8_sorted", _I8, _PALLAS_I8 + ":358"),
@@ -238,7 +261,10 @@ def kernel_of(plan) -> tuple:
         return KERNEL_INFO[("csr",)]
     if plan.apply_fn is _int8_pallas_apply:
         return KERNEL_INFO[("i8", plan.statics[0])]
-    return KERNEL_INFO[("f", plan.statics[0], plan.statics[5])]
+    layout = plan.statics[0]
+    if layout in ("sorted", "rowgroup") and plan.arrays[2].dtype == torch.bfloat16:
+        return KERNEL_INFO[("f", layout, "bf16")]  # their own bf16 entries
+    return KERNEL_INFO[("f", layout, plan.statics[5])]
 
 
 def rel_err(got, want) -> float:
@@ -367,6 +393,7 @@ def kernel_phase(adj) -> None:
         plan = csr_spmm_pallas_plan(csr, grad=False, device=DEV)
         check_kernel(plan, x, f"{tag} csr_pallas")
     k3_exactness()
+    bf16_exactness()
 
 
 def k3_exactness() -> None:
@@ -395,6 +422,39 @@ def k3_exactness() -> None:
             log(f"  {kid} {name:<26} == {what}: {n_bad} entries differ")
             if n_bad:
                 raise AssertionError(f"{name}: {n_bad} entries differ from {what}")
+
+
+def bf16_exact_launch(plan, x, want, label: str) -> None:
+    """One launch of a bf16 plan's kernel, its answer equal to `want`
+    bit for bit."""
+    kid, name = kernel_of(plan)[:2]
+    before = launches()[name]
+    got = plan(x)
+    torch.cuda.synchronize()
+    if launches()[name] != before + 1:
+        raise AssertionError(f"{label}: {name} did not launch")
+    n_bad = int((got != want).sum())
+    log(f"  {label:<52} {kid} {name:<26} {n_bad} entries differ")
+    if n_bad or got.shape != want.shape:
+        raise AssertionError(f"{label}: {name}: {n_bad} entries differ")
+
+
+def bf16_exactness() -> None:
+    """The bf16 K2 and K4 entries on bf16_exact_case, whose partial sums
+    are integers under 2^24: exact in f32 in any order, so each kernel
+    must equal float64 bit for bit (the tensor-core loop at b = 64 and
+    128, the FFMA loop below; F=70 pads the operand to 72 columns)."""
+    log("[kernels] bf16 K2 and K4 where every sum is exact in f32 "
+        "(bf16_exact_case): each must equal float64 bit for bit")
+    for b in (16, 32, 64, 128):
+        for F in (70, 256):
+            bsr, x, want = bf16_exact_case(b, F, seed=b + F)
+            x = torch.as_tensor(x, device=DEV)
+            want = torch.as_tensor(want, device=DEV).float()
+            for layout in ("sorted", "rowgroup"):
+                plan = bsr_spmm_pallas_plan(bsr, dtype=torch.bfloat16, grad=False,
+                                            depth_sort=layout == "sorted", device=DEV)
+                bf16_exact_launch(plan, x, want, f"b={b} F={F} bf16 {layout}")
 
 
 def gcn_reference(adj, params, x) -> np.ndarray:
@@ -497,6 +557,45 @@ def int8_slice_phase(adj, model, xs, refs):
             f"{max(spmm_errs[-2:]):.3e} of the plain version")
         if rel >= INT8_TOL:
             raise AssertionError(f"int8 request {r}: rel err {rel:.3e}")
+    return plan, max(spmm_errs)
+
+
+def bf16_slice_phase(adj, model, xs, refs):
+    """bf16 GCN serving on the ddi stand-in through spmm_plan(dtype=
+    bfloat16) (bf16 K2 on the tensor cores); returns the plan and the
+    largest SpMM max |kernel - plain|."""
+    log(f"[slice] the same {len(xs)} requests, bf16 "
+        "(spmm_plan(impl='bsr_pallas', dtype=torch.bfloat16))")
+    plan = spmm_plan(adj, impl="bsr_pallas", block_size=128, grad=False,
+                     dtype=torch.bfloat16, device=DEV)
+    if kernel_of(plan)[1] != "bsr_spmm_sorted_bf16":
+        raise AssertionError(f"ddi bf16 plan runs {kernel_of(plan)[:2]}, "
+                             "expected bf16 K2")
+    bn = bf16_tile_geometry(128, plan.statics[1], model.dims[0], _sm_count(0))[0]
+    log(f"  bf16 K2 at BN={bn} ({plan.statics[1]} block-rows, F={model.dims[0]})")
+    spmm_errs = []
+
+    def checked_spmm(h):
+        got = plan(h)
+        want = plain_apply(plan, h)
+        rel = rel_err(got, want)
+        if not torch.isfinite(got).all() or rel >= KERNEL_TOL:
+            raise AssertionError(f"bf16 SpMM vs plain: rel {rel:.3e}")
+        spmm_errs.append((got - want).abs().max().item())
+        return got
+
+    for r, (x, h) in enumerate(zip(xs, refs)):
+        with torch.no_grad():
+            out = model(checked_spmm, x)
+        torch.cuda.synchronize()
+        if out.shape != h.shape or not torch.isfinite(out).all():
+            raise AssertionError(f"bf16 request {r}: bad output {tuple(out.shape)}")
+        rel = np.abs(out.cpu().double().numpy() - h).max() / np.abs(h).max()
+        log(f"  bf16 request {r}: rel err vs f64 reference {rel:.3e} "
+            f"(< {BF16_TOL} gate); its 2 SpMMs within "
+            f"{max(spmm_errs[-2:]):.3e} of the plain version")
+        if rel >= BF16_TOL:
+            raise AssertionError(f"bf16 request {r}: rel err {rel:.3e}")
     return plan, max(spmm_errs)
 
 
@@ -687,6 +786,7 @@ def op_phase(op_bsr, x_op, calibration):
             log(f"  op int8 {layout:<8} vs f32 K2: rel err {rel:.3e} (< {INT8_TOL})")
             if rel >= INT8_TOL:
                 raise AssertionError(f"op int8 {layout}: rel err {rel:.3e}")
+    op_bf16_exactness(op_bsr)
     # bench.py's bf16x3 self-check, against exact f32 K2 and the bsr_xla tier
     xla_out = bsr_spmm_xla_plan(op_bsr, device=DEV)(x_op)
     log(f"  bsr_xla vs f32 K2: rel err {rel_to(xla_out, ref):.3e}")
@@ -699,6 +799,30 @@ def op_phase(op_bsr, x_op, calibration):
             if not rel < BF16X3_TOL:
                 raise AssertionError(f"bf16x3 {layout} vs {what}: {rel:.3e}")
     return plans, errs
+
+
+def op_bf16_exactness(op_bsr) -> None:
+    """The bf16 K2 and K4 entries at the op shape (the tensor-core loop
+    at its widest tile) on the op matrix's blocks with integer values of
+    magnitude <= 16 and an integer operand: every partial sum is an
+    integer under 2^24, exact in f32 in any order, so each kernel must
+    equal its plain version bit for bit."""
+    rng = np.random.default_rng(SEED + 7)
+    n = op_bsr.nnzb
+    ints = rng.integers(-16, 17, size=(n, op_bsr.b, op_bsr.b), dtype=np.int8)
+    bsr = BSR.from_parts(op_bsr.block_rows[:n], op_bsr.block_cols[:n],
+                         ints.astype(np.float32), op_bsr.shape, op_bsr.b)
+    deepest = np.bincount(op_bsr.block_rows[:n]).max()
+    if deepest * op_bsr.b * 16 * 16 >= 2 ** 24:
+        raise AssertionError(f"{deepest} blocks in a row: sums may round")
+    x = torch.as_tensor(rng.integers(-16, 17, size=(op_bsr.shape[1], 512),
+                                     dtype=np.int8), device=DEV).float()
+    for layout in ("sorted", "rowgroup"):
+        plan = bsr_spmm_pallas_plan(bsr, dtype=torch.bfloat16, grad=False,
+                                    depth_sort=layout == "sorted", device=DEV)
+        bn = bf16_tile_geometry(op_bsr.b, op_bsr.n_block_rows, 512, _sm_count(0))[0]
+        bf16_exact_launch(plan, x, plain_apply(plan, x),
+                          f"op bf16 {layout} integer values, BN={bn}")
 
 
 def rel_to(got, want) -> float:
@@ -749,6 +873,9 @@ def main_path(adj, dims, op_bsr, op_csr, x_op, calibration):
     reset_launches()
     plan_csr = csr_slice_phase(adj, model, xs, refs)
     read("csr slice", {"csr_spmm": n_spmm})
+    reset_launches()
+    plan_bf16, slice_bf16_err = bf16_slice_phase(adj, model, xs, refs)
+    read("bf16 slice", {"bsr_spmm_sorted_bf16": n_spmm})
 
     # step 0's hidden-layer forward for the ReLU pattern (1 SpMM), 5 steps
     # of 2 forward + 1 backward SpMMs, then the eval's 2 forwards
@@ -769,8 +896,9 @@ def main_path(adj, dims, op_bsr, op_csr, x_op, calibration):
                if totals.get(kernel_of(p)[1], 0) == 0]
     if missing:
         raise AssertionError(f"not launched on the main path: {missing}")
-    slices = {"f32": plan, "int8": plan_i8, "csr": plan_csr}
-    return slices, model, xs, train, plans, errs, totals, slice_i8_err
+    slices = {"f32": plan, "int8": plan_i8, "csr": plan_csr, "bf16": plan_bf16}
+    return (slices, model, xs, train, plans, errs, totals,
+            {"int8": slice_i8_err, "bf16": slice_bf16_err})
 
 
 def bound(tag: str, flops: float, nbytes: float) -> tuple:
@@ -881,14 +1009,14 @@ def main() -> int:
     log(f"[setup] random_csr(2e-3, 2^17) in {time.perf_counter() - t0:.1f} s")
     dims = [256, 256, 256]
     (slices, model, xs, train, plans, errs, main_launches,
-     slice_i8_err) = main_path(adj, dims, op_bsr, op_csr, x_op, dense[:4096])
+     slice_errs) = main_path(adj, dims, op_bsr, op_csr, x_op, dense[:4096])
 
     # ---- timing (after the counts were read) ----------------------------
     log(f"[timing] card: {card_line}")
     x0 = xs[0]
     ddi_flops = {"f32": 2.0 * ddi_nnzb(adj, 128) * 128 * 128 * dims[0],
                  "csr": 2.0 * adj.nnz * dims[0]}
-    ddi_flops["int8"] = ddi_flops["f32"]
+    ddi_flops["int8"] = ddi_flops["bf16"] = ddi_flops["f32"]
     request_ms, spmm_ms = {}, {}
     with torch.no_grad():
         for tag, p in slices.items():
@@ -936,6 +1064,8 @@ def main() -> int:
         f"[{card_line}]")
 
     op_flops = 2.0 * op_bsr.nnzb * 128 * 128 * F
+    # per kernel instance, keyed (tag, layout) as the op plans are: K1 and
+    # K5 run f32 and bf16 through one symbol each
     times, bounds, library = {}, {}, {}
     f32_ref = plans[("f32", "sorted")](x_op)
     lib_ms = {
@@ -956,44 +1086,60 @@ def main() -> int:
                            iters=5, warmup=1)
             whole_ms = cuda_ms(lambda: p(x_op), iters=10)
             extra = f", whole call with static quantization {whole_ms:.3f} ms"
+        elif tag == "bf16":  # on the bf16 operand, as the library call
+            x_bf = x_op.to(torch.bfloat16)
+            p_ms = cuda_ms(lambda: plain_apply(p, x_bf), iters=5, warmup=1)
+            # in the order kernel, whole, whole, kernel, so that a drift of
+            # the card's clocks over the four shows as a spread of the pairs
+            k1 = cuda_ms(lambda: p(x_bf), iters=10)
+            w1 = cuda_ms(lambda: p(x_op), iters=10)
+            w2 = cuda_ms(lambda: p(x_op), iters=10)
+            k2 = cuda_ms(lambda: p(x_bf), iters=10)
+            k_ms, whole_ms = (k1 + k2) / 2, (w1 + w2) / 2
+            extra = (f", kernel runs {k1:.3f}, {k2:.3f} ms, whole call from the "
+                     f"f32 operand {whole_ms:.3f} ms ({w1:.3f}, {w2:.3f})")
         else:
             k_ms = cuda_ms(lambda: p(x_op), iters=10)
             p_ms = cuda_ms(lambda: plain_apply(p, x_op), iters=5, warmup=1)
             extra = ""
-        if name not in times:
-            times[name] = (k_ms, p_ms)
-            bounds[name] = bsr_bound(tag, op_bsr, F)
-            library[name] = lib_ms.get(tag)
+        key = (tag, layout)
+        times[key] = (k_ms, p_ms)
+        bounds[key] = bsr_bound(tag, op_bsr, F)
+        library[key] = lib_ms.get(tag)
+        lib = "none" if library[key] is None else f"{library[key]:.3f} ms"
         log(f"  op {tag:<4} {layout:<8} {kid} {name:<26} kernel {k_ms:.3f} ms "
             f"{op_flops / k_ms / 1e6:.1f} GFLOP/s, plain {p_ms:.3f} ms "
-            f"{op_flops / p_ms / 1e6:.1f} GFLOP/s, bound "
-            f"{bsr_bound(tag, op_bsr, F)[0]:.3f} ms{extra} [{card_line}]")
-    p = plans[("csr", "csr")]
+            f"{op_flops / p_ms / 1e6:.1f} GFLOP/s, bound {bounds[key][0]:.3f} ms "
+            f"({bounds[key][1]}), library {lib}{extra} [{card_line}]")
+    key = ("csr", "csr")
+    p = plans[key]
     k_ms = cuda_ms(lambda: p(x_op), iters=5)
     p_ms = cuda_ms(lambda: plain_apply(p, x_op), iters=2, warmup=1)
     csr_flops = 2.0 * op_csr.nnz * F
-    times["csr_spmm"] = (k_ms, p_ms)
-    bounds["csr_spmm"] = csr_bound(op_csr, F)
-    library["csr_spmm"] = library_ms("csr", op_csr, x_op, p(x_op), 5,
-                                     "op torch.sparse_csr_tensor @ X, f32")
+    times[key] = (k_ms, p_ms)
+    bounds[key] = csr_bound(op_csr, F)
+    library[key] = library_ms("csr", op_csr, x_op, p(x_op), 5,
+                              "op torch.sparse_csr_tensor @ X, f32")
     log(f"  op csr K10 csr_spmm kernel {k_ms:.3f} ms {csr_flops / k_ms / 1e6:.1f} "
         f"GFLOP/s, plain {p_ms:.3f} ms {csr_flops / p_ms / 1e6:.1f} GFLOP/s, bound "
-        f"{bounds['csr_spmm'][0]:.3f} ms ({bounds['csr_spmm'][1]}) [{card_line}]")
+        f"{bounds[key][0]:.3f} ms ({bounds[key][1]}) [{card_line}]")
     cs_static = plans[("int8", "sorted")].arrays[-1]
     q_dyn_ms = cuda_ms(lambda: quantize_per_column(x_op), iters=10)
     q_static_ms = cuda_ms(lambda: quantize_per_column(x_op, cs_static), iters=10)
     log(f"  op int8 operand quantization ({x_op.shape[0]} x {F} f32): dynamic "
         f"{q_dyn_ms:.3f} ms, static {q_static_ms:.3f} ms [{card_line}]")
 
-    # each kernel instance's entry: the op-shape plan that runs it first
-    # above (K1 f32 flat, K2 f32 sorted, K3 "high", K4 bf16, K5 f32, K6-K9
-    # int8 kernel only, K10 at the test_csrmm shape)
+    # each kernel symbol's entry: the op-shape instance that runs it first
+    # above (K1 f32 flat, K2 f32 sorted and bf16 sorted, K3 "high", K4 bf16,
+    # K5 f32, K6-K9 int8 kernel only, K10 at the test_csrmm shape); the
+    # bf16 tensor-core entries with the F tile width they ran at
     kernels = {}
     for (tag, layout), p in plans.items():
         kid, name, source, replaces = kernel_of(p)
         if name in kernels:
             continue
-        k_ms, p_ms = times[name]
+        key = (tag, layout)
+        k_ms, p_ms = times[key]
         kernels[name] = {
             "name": f"{kid} {name}",
             "route": "cuda",
@@ -1003,15 +1149,19 @@ def main() -> int:
             "max_abs_err": errs[(tag, layout)],
             "ms": k_ms,
             "plain_ms": p_ms,
-            "bound_ms": bounds[name][0],
-            "bound_by": bounds[name][1],
-            "library_ms": library[name],
+            "bound_ms": bounds[key][0],
+            "bound_by": bounds[key][1],
+            "library_ms": library[key],
         }
+        if name.endswith("_bf16"):
+            kernels[name]["bn"] = bf16_tile_geometry(
+                op_bsr.b, op_bsr.n_block_rows, F, _sm_count(0))[0]
     kernels = sorted(kernels.values(), key=lambda k: (int(k["name"][1:].split()[0]),
                                                       k["name"]))
     if {k["name"].split()[0] for k in kernels} != ALL_KERNELS:
         raise AssertionError(f"kernels line lacks {ALL_KERNELS}")
-    log(f"[slice] int8 SpMMs' largest max |kernel - plain|: {slice_i8_err:.3e}")
+    for tag, err in slice_errs.items():
+        log(f"[slice] {tag} SpMMs' largest max |kernel - plain|: {err:.3e}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card_line)
     print(json.dumps({"kernels": kernels}))

@@ -3,10 +3,10 @@
 //
 // K1 bsr_spmm_flat replaces the TPU kernel
 //   spmm_denseblock_tpu/ops/bsr_spmm_pallas.py:_pallas_spmm (+ _kernel),
-// K2 bsr_spmm_sorted replaces
+// K2 bsr_spmm_sorted (f32) and bsr_spmm_sorted_bf16 replace
 //   spmm_denseblock_tpu/ops/bsr_spmm_pallas.py:_pallas_spmm_rowgroup_sorted
 //   (+ _rowgroup_sorted_kernel),
-// K4 bsr_spmm_rowgroup replaces
+// K4 bsr_spmm_rowgroup (f32) and bsr_spmm_rowgroup_bf16 replace
 //   spmm_denseblock_tpu/ops/bsr_spmm_pallas.py:_pallas_spmm_rowgroup
 //   (+ _rowgroup_kernel),
 // K5 bsr_spmm_resident replaces
@@ -19,16 +19,28 @@
 // row/group step pointers and the K2 lane-valid mask the port's packer
 // adds) and compute what the TPU kernels compute on them.
 //
-// What bounds them on an H100. One slot is 2*b*b*F FLOP against b*b
-// block values plus b*F operand values: at b=128, F=512 that is 16.8
-// MFLOP per 64 KiB of f32 block and 256 KiB of operand, about 50
-// FLOP/byte, so with operand tiles shared through L2 by the CTAs of
-// neighbouring rows an FFMA kernel is bound by the f32 FMA rate, not by
-// HBM. The f32 tier must meet a 1e-4 gate against an f64 oracle, so the
-// products run in FFMA on CUDA cores, never in TF32 tensor cores. bf16
-// operands are widened to f32 while staged: a bf16 x bf16 product is
-// exact in f32, so the bf16 tier is bf16 products with an f32 sum, as on
-// the TPU.
+// Two main loops serve them.
+//
+// The FFMA loop (K1, K5, K3, f32 K2 and K4; bf16 K2 and K4 at b = 16
+// and 32). One slot is 2*b*b*F FLOP against b*b block values plus b*F
+// operand values: at b=128, F=512 that is 16.8 MFLOP per 64 KiB of f32
+// block and 256 KiB of operand, about 50 FLOP/byte, so with operand
+// tiles shared through L2 by the CTAs of neighbouring rows an FFMA kernel
+// is bound by the f32 FMA rate, not by HBM. The f32 tier must meet a
+// 1e-4 gate against an f64 oracle, so the products run in FFMA on CUDA
+// cores, never in TF32 tensor cores. bf16 operands are widened to f32
+// while staged: a bf16 x bf16 product is exact in f32, so the bf16 tier
+// is bf16 products with an f32 sum, as on the TPU. On the TPU the grid
+// runs in order and the output tile stays in VMEM across the steps that
+// revisit it. Here CTAs run in no order, so one CTA owns one (b x 64)
+// output tile for its whole life: it walks the slots that feed that tile,
+// stages each slot's block (transposed) and operand tile through shared
+// memory in depth chunks of 16, keeps the tile's accumulators in
+// registers (b/16 x 4 per thread) and stores once. No atomics, so results
+// are deterministic. The F edge is masked here; the F tiles of one row
+// are adjacent in launch order so they share the block reads in L2.
+// Offsets into blocks and dense are 64-bit. This loop has no tensor
+// cores, no TMA and no software pipelining.
 //
 // K3 (bf16x3). The TPU runs three bf16 MXU passes, hi*hi + hi*lo +
 // lo*hi, and drops lo*lo. Here each f32 element is split once, while it
@@ -38,18 +50,6 @@
 // three FFMAs per element compute what the MXU passes compute, up to
 // the order of the f32 sums. That is three times K1/K2's FMA work; on
 // the TPU bf16x3 halves the passes of exact f32, here it triples them.
-// The tensor-core (wgmma) form, where bf16x3 would beat exact f32 on
-// this card, is later work.
-//
-// Design. On the TPU the grid runs in order and the output tile stays in
-// VMEM across the steps that revisit it. Here CTAs run in no order, so
-// one CTA owns one (b x 64) output tile for its whole life: it walks the
-// slots that feed that tile, stages each slot's block (transposed) and
-// operand tile through shared memory in depth chunks of 16, keeps the
-// tile's accumulators in registers (b/16 x 4 per thread) and stores once.
-// No atomics, so results are deterministic. The F edge is masked here;
-// the F tiles of one row are adjacent in launch order so they share the
-// block reads in L2. Offsets into blocks and dense are 64-bit.
 //
 // K5. On the TPU the resident kernel keeps the whole (nbc, b, f_tile)
 // operand slice in VMEM and indexes it per slot. Hopper has no 80 MB of
@@ -59,9 +59,56 @@
 // K1's packed arrays; they exist so that K5's launches are counted (and
 // bound) apart from K1's.
 //
-// A simple, right kernel comes first: no wgmma, TMA or software
-// pipelining yet.
+// The tensor-core loop (bf16 K2 and K4 at b = 64 and 128:
+// bsr_spmm_sorted_bf16, bsr_spmm_rowgroup_bf16). The JAX kernels run
+// bf16 operands at Precision.DEFAULT with preferred_element_type=f32:
+// bf16 products, exact in f32, summed in f32, which is what
+// wgmma.mma_async...f32.bf16.bf16 computes. With the tensor cores the
+// FLOPs cost little (2*S*b*b*F is about 0.4-0.6 ms at the card's bf16
+// rate for S = 20-35k slots at b=128, F=512); what bounds the kernel is
+// moving bytes: per slot and F tile a 32 KiB block and a (b x BN) slice
+// of the operand, whose block columns are random and mostly miss the 50
+// MB L2. So the design moves each byte once per CTA, keeps many loads in
+// flight and overlaps them with the products:
+//   - One CTA owns the f32 (b x BN) output tile of one lane, as in the
+//     FFMA loop, so there are no atomics and the result is deterministic.
+//     BN (64 or 128) is chosen per launch by the wrapper: the wider one
+//     the F extent needs whose grid still covers the card's SMs. At the
+//     op shape (F=512, 1,024 lanes) BN=128 fetches each block 4 times,
+//     not 8. The F tiles of one lane are adjacent in blockIdx, so the
+//     later fetches of a block hit L2.
+//   - b/64 consumer warpgroups, each issuing wgmma m64nBNk16 on 64 output
+//     rows, and one
+//     producer warp that walks the lane's slots exactly as the FFMA loop
+//     does and streams each slot's depth chunks of 64 through a ring of
+//     4 stages in dynamic shared memory with TMA (cp.async.bulk.tensor,
+//     128-byte swizzle, mbarrier completion). A stage holds the block's
+//     (b x 64) depth chunk, K-major, and the operand's (64 x BN) rows,
+//     MN-major (wgmma reads B transposed through its descriptor); at
+//     b=128, BN=128 that is 32 KiB a stage, 128 KiB in all. The
+//     producer runs up to 4 stages ahead of the products.
+//   - Two-level sums: the tensor cores sum each stage (64 deep) from
+//     zero, and CUDA cores add that partial sum into the tile's f32 sums
+//     with round-to-nearest. The tensor cores' own f32 accumulation
+//     truncates as it aligns its addends; chained over the 4,352-deep
+//     rows of ddi it drifted 1.3e-5 from the plain version (an f32 sum),
+//     past the 1e-5 gate. The two sets take BN registers a thread, which
+//     caps BN at 128: at 256 (three warpgroups of 168 registers) ptxas
+//     spilled 600 bytes even with setmaxnreg moving registers from the
+//     producer, and ran 2x slower than 128; before the two-level sums,
+//     BN=256 had been no faster than 128 either.
+//   - The store goes straight from the accumulators' fragment positions,
+//     masking columns >= F. TMA needs 16-byte operand rows, so the
+//     wrapper pads a ragged F to a multiple of 8 (ld) and the kernel
+//     masks the store; columns past ld read as zeros (TMA's out-of-bounds
+//     fill).
+//   - Absent (K2) and phantom (K4) lanes return before any barrier is
+//     initialised.
+// wgmma's M of 64 does not fit b = 16 or 32 blocks, and no timed path
+// uses them, so the bf16 entries run those through the FFMA loop,
+// picked by a switch on b.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -273,7 +320,404 @@ __global__ void __launch_bounds__(kThreads)
   store_tile<BM>(out + row * BM * F + f0, F, n_valid, acc);
 }
 
+// ---- the tensor-core loop: bf16 K2 and K4 at b = 64 and 128 ------------
+
+constexpr int kRing = 4;    // ring stages
+constexpr int kDepth = 64;  // depth of one stage: one 128-byte row of bf16
+// A barrier wait that outlasts this many clock cycles (several seconds)
+// can only be a fault of the kernel: trap, so the launch fails instead of
+// hanging the card.
+constexpr long long kWatchdogCycles = 1LL << 33;
+
+template <int BM, int BN>
+struct Ring {
+  static constexpr int kConsumers = BM / 64;  // warpgroups of 64 rows each
+  static constexpr int kThreads = (kConsumers + 1) * 128;  // + the producer
+  // a (64 x 64) TMA box of the operand is 64 rows of 128 bytes
+  static constexpr uint32_t kXBox = kDepth * 64 * 2;
+  static constexpr uint32_t kABytes = BM * kDepth * 2;
+  static constexpr uint32_t kXBytes = BN / 64 * kXBox;
+  static constexpr uint32_t kStageBytes = kABytes + kXBytes;
+  // + slack to align the ring to the 1024-byte period of the swizzle
+  static constexpr int kSmemBytes = kRing * kStageBytes + 1024;
+  // narrow tiles leave room for two CTAs an SM
+  static constexpr int kMinBlocks = BN == 64 ? 2 : 1;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Waits until the phase of `bar` with parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > kWatchdogCycles) __trap();
+  }
+}
+
+// One 2-D TMA box from global into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint64_t* bar, int32_t c_inner,
+                                            int32_t c_outer) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c_inner),
+      "r"(c_outer)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
+// address, leading and stride byte offsets (each in 16-byte units).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x N, f32, registers) = A (64 x 16, K-major) @ B (16 x N,
+// MN-major, i.e. transposed: imm-trans-b = 1) + (scale_d ? D : 0), A and
+// B bf16 in shared memory.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      " %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      " %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+// bf16 K2 (win_ids != nullptr) or K4 (win_ids == nullptr) on the tensor
+// cores. One CTA per (lane, F tile of BN columns); warpgroups 0 ..
+// kConsumers-1 run the products on 64 rows each, the last warpgroup's
+// first thread runs the TMA producer. Stage i's `full` barrier completes
+// when its bytes have landed, its `empty` barrier when every consumer
+// warp has finished reading it.
+template <int BM, int BN>
+__global__ void __launch_bounds__(Ring<BM, BN>::kThreads,
+                                  Ring<BM, BN>::kMinBlocks)
+    bf16_ring_kernel(const __grid_constant__ CUtensorMap tm_blocks,
+                     const __grid_constant__ CUtensorMap tm_dense,
+                     const int64_t* __restrict__ group_ptr,
+                     const int32_t* __restrict__ win_ids,
+                     const int32_t* __restrict__ pos,
+                     const uint8_t* __restrict__ lane_valid,
+                     const int32_t* __restrict__ slot_cols,
+                     float* __restrict__ out, int64_t F,
+                     int64_t n_block_rows, int64_t R, int64_t gh,
+                     int64_t window, int64_t n_ftiles) {
+  using G = Ring<BM, BN>;
+  __shared__ __align__(8) uint64_t full[kRing];
+  __shared__ __align__(8) uint64_t empty[kRing];
+  extern __shared__ __align__(1024) uint8_t ring_raw[];
+
+  const int64_t lane_id = blockIdx.x / n_ftiles;  // group * R + lane
+  const int64_t g = lane_id / R, lane = lane_id % R;
+  const int64_t j0 = group_ptr[g];
+  int64_t orow;
+  if (win_ids != nullptr) {                   // K2: absent lanes store nothing
+    if (!lane_valid[lane_id]) return;         // uniform over the CTA
+    orow = (int64_t)win_ids[j0] * window + pos[j0 * R + lane];
+  } else {                                    // K4: phantom lanes neither
+    if (lane_id >= n_block_rows) return;
+    orow = lane_id;
+  }
+  const int64_t n_slots = (group_ptr[g + 1] - j0) * gh;
+  const int64_t f0 = (blockIdx.x % n_ftiles) * BN;
+  const uint32_t ring = (smem_u32(ring_raw) + 1023u) & ~1023u;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kRing; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], G::kConsumers * 4);  // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == G::kConsumers) {
+    // The producer: the lane's slots in the FFMA loop's order, each slot's
+    // BM/64 depth chunks one ring stage each. The next slot's column is
+    // read a slot ahead.
+    if (threadIdx.x % 128 != 0) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    auto slot = [&](int64_t t) { return ((j0 + t / gh) * R + lane) * gh + t % gh; };
+    int32_t col = n_slots > 0 ? __ldg(slot_cols + slot(0)) : 0;
+    for (int64_t t = 0; t < n_slots; ++t) {
+      const int64_t s = slot(t);
+      const int32_t next = t + 1 < n_slots ? __ldg(slot_cols + slot(t + 1)) : 0;
+      for (int c = 0; c < BM / kDepth; ++c) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        const uint32_t a = ring + stage * G::kStageBytes;
+        mbar_expect_tx(&full[stage], G::kStageBytes);
+        tma_load_2d(a, &tm_blocks, &full[stage], c * kDepth, (int32_t)(s * BM));
+#pragma unroll
+        for (int q = 0; q < BN / 64; ++q)
+          tma_load_2d(a + G::kABytes + q * G::kXBox, &tm_dense, &full[stage],
+                      (int32_t)(f0 + q * 64), col * BM + c * kDepth);
+        if (++stage == kRing) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      col = next;
+    }
+  } else {
+    // A consumer warpgroup: rows wg*64 .. wg*64+63 of the tile. The
+    // tensor cores sum each stage from zero into `part`, which CUDA cores
+    // add to the f32 sums `acc` (the two-level sums of the note above).
+    const int wt = threadIdx.x % 128;
+    float acc[BN / 2], part[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = part[i] = 0.f;
+    int stage = 0;
+    uint32_t phase = 0;
+    const int64_t n_chunks = n_slots * (BM / kDepth);
+    for (int64_t i = 0; i < n_chunks; ++i) {
+      mbar_wait(&full[stage], phase);
+      // A: BM rows of 128 bytes, 8-row swizzle atoms 1024 bytes apart;
+      // a 16-deep slice is 32 bytes into each row. B: 64-column atoms of
+      // 64 rows x 128 bytes, kXBox apart (LBO); 8-row groups 1024 bytes
+      // apart (SBO); a 16-deep slice is 16 rows on.
+      const uint32_t a = ring + stage * G::kStageBytes + wg * 64 * 128;
+      const uint32_t x = ring + stage * G::kStageBytes + G::kABytes;
+      fence_operands(part);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int k = 0; k < kDepth / 16; ++k)
+        Wgmma<BN>::mma(part, sw128_desc(a + k * 32, 16, 1024),
+                       sw128_desc(x + k * 16 * 128, G::kXBox, 1024), k > 0);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_operands(part);
+      __syncwarp();
+      if (wt % 32 == 0) mbar_arrive(&empty[stage]);  // the stage is read
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) acc[j] += part[j];
+      if (++stage == kRing) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    // The accumulator fragment of m64nNk16: thread wt holds rows
+    // (wt/32)*16 + (wt%32)/4 (+8) and columns 8j + 2*(wt%4) (+1).
+    const int64_t row0 = orow * BM + wg * 64 + (wt / 32) * 16 + (wt % 32) / 4;
+    const int64_t c0 = f0 + 2 * (wt % 4);
+    const bool pairs = F % 2 == 0;  // float2 stores stay 8-byte aligned
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int64_t col = c0 + j * 8;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* p = out + (row0 + 8 * h) * F + col;
+        const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        if (col + 1 < F) {
+          if (pairs) {
+            *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+          } else {
+            p[0] = v0;
+            p[1] = v1;
+          }
+        } else if (col < F) {
+          p[0] = v0;
+        }
+      }
+    }
+  }
+}
+
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A TMA map of a row-major (outer x inner) bf16 matrix, read in boxes of
+// (box_outer x 64) with the 128-byte swizzle; out-of-bounds reads are 0.
+cudaError_t bf16_map(CUtensorMap* map, const void* base, int64_t inner,
+                     int64_t outer, uint32_t box_outer) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kDepth, box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int BM, int BN>
+cudaError_t launch_ring_tile(const CUtensorMap& tb, const CUtensorMap& td,
+                             const int64_t* gp, const int32_t* wi,
+                             const int32_t* ps, const uint8_t* lv,
+                             const int32_t* sc, float* o, int64_t F,
+                             int64_t n_block_rows, int64_t R, int64_t gh,
+                             int64_t window, int64_t n_ft, dim3 grid,
+                             cudaStream_t stream) {
+  using G = Ring<BM, BN>;
+  // The shared-memory limit is set once per instantiation, before its
+  // first launch, on the device current then (a refusal is returned on
+  // every launch).
+  static const cudaError_t smem_set = cudaFuncSetAttribute(
+      bf16_ring_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G::kSmemBytes);
+  if (smem_set != cudaSuccess) return smem_set;
+  bf16_ring_kernel<BM, BN><<<grid, G::kThreads, G::kSmemBytes, stream>>>(
+      tb, td, gp, wi, ps, lv, sc, o, F, n_block_rows, R, gh, window, n_ft);
+  return cudaGetLastError();
+}
+
+// The tensor-core loop over n_lanes lanes of ceil(F / bn) tiles. dense is
+// (n_dense_rows, ld) bf16 with ld >= F a multiple of 8; blocks hold
+// n_slots (b x b) slots. win_ids == nullptr selects K4.
+cudaError_t launch_ring(const void* group_ptr, const void* win_ids,
+                        const void* pos, const void* lane_valid,
+                        const void* slot_cols, const void* blocks,
+                        const void* dense, void* out, int64_t n_lanes,
+                        int64_t n_block_rows, int64_t n_slots,
+                        int64_t n_dense_rows, int64_t F, int64_t ld, int64_t R,
+                        int64_t gh, int64_t window, int64_t b, int64_t bn,
+                        cudaStream_t stream) {
+  if ((bn != 64 && bn != 128) || ld < F || ld % 8 != 0 ||
+      n_slots * b > INT32_MAX || n_dense_rows > INT32_MAX || ld > INT32_MAX)
+    return cudaErrorInvalidValue;
+  const int64_t n_ft = ceil_div(F, bn);
+  const int64_t n_ctas = n_lanes * n_ft;
+  if (n_ctas > INT32_MAX) return cudaErrorInvalidConfiguration;
+  if (n_ctas == 0) return cudaSuccess;
+  CUtensorMap tb, td;
+  if (cudaError_t e = bf16_map(&tb, blocks, b, n_slots * b, (uint32_t)b)) return e;
+  if (cudaError_t e = bf16_map(&td, dense, ld, n_dense_rows, kDepth)) return e;
+  const dim3 grid((unsigned)n_ctas);
+  const auto* gp = static_cast<const int64_t*>(group_ptr);
+  const auto* wi = static_cast<const int32_t*>(win_ids);
+  const auto* ps = static_cast<const int32_t*>(pos);
+  const auto* lv = static_cast<const uint8_t*>(lane_valid);
+  const auto* sc = static_cast<const int32_t*>(slot_cols);
+  auto* o = static_cast<float*>(out);
+#define SDB_RING(BM, BN)                                                     \
+  if (b == BM && bn == BN)                                                   \
+    return launch_ring_tile<BM, BN>(tb, td, gp, wi, ps, lv, sc, o, F,         \
+                                    n_block_rows, R, gh, window, n_ft, grid, \
+                                    stream);
+  SDB_RING(64, 64)
+  SDB_RING(64, 128)
+  SDB_RING(128, 64)
+  SDB_RING(128, 128)
+#undef SDB_RING
+  return cudaErrorInvalidValue;
+}
 
 // The grid of a launch over n_rows CTA rows of ceil(F / 64) F tiles, or
 // an error for a grid CUDA cannot take.
@@ -310,6 +754,7 @@ cudaError_t launch_rows(const void* step_ptr, const void* slot_cols,
   return cudaGetLastError();
 }
 
+// K2's FFMA walk with math policy M.
 template <typename T, typename M>
 cudaError_t launch_sorted(const void* group_ptr, const void* win_ids,
                           const void* pos, const void* lane_valid,
@@ -368,8 +813,9 @@ cudaError_t launch_rowgroup(const void* group_ptr, const void* slot_cols,
 
 // C interface, bound with ctypes. Pointers are device pointers; the
 // stream is the caller's current stream. Returns the cudaError_t of the
-// launch (0 on success). is_bf16 selects __nv_bfloat16 over float for
-// blocks and dense; the *_bf16x3 entries (K3) take float only.
+// launch (0 on success). For K1 and K5, is_bf16 selects __nv_bfloat16
+// over float for blocks and dense; the *_bf16x3 entries (K3) and the f32
+// K2 and K4 entries take float only; the *_bf16 entries take bf16 only.
 extern "C" int sdb_bsr_spmm_flat(const void* step_ptr, const void* slot_cols,
                                  const void* blocks, const void* dense,
                                  void* out, int64_t n_block_rows, int64_t F,
@@ -422,21 +868,17 @@ extern "C" int sdb_bsr_spmm_resident_bf16x3(const void* step_ptr,
       static_cast<cudaStream_t>(stream));
 }
 
+// K2, f32 operands.
 extern "C" int sdb_bsr_spmm_sorted(const void* group_ptr, const void* win_ids,
                                    const void* pos, const void* lane_valid,
                                    const void* slot_cols, const void* blocks,
                                    const void* dense, void* out,
                                    int64_t n_lanes, int64_t F, int64_t R,
                                    int64_t gh, int64_t window, int64_t b,
-                                   int64_t is_bf16, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16
-                   ? launch_sorted<__nv_bfloat16, Exact>(
-                         group_ptr, win_ids, pos, lane_valid, slot_cols,
-                         blocks, dense, out, n_lanes, F, R, gh, window, b, s)
-                   : launch_sorted<float, Exact>(
-                         group_ptr, win_ids, pos, lane_valid, slot_cols,
-                         blocks, dense, out, n_lanes, F, R, gh, window, b, s));
+                                   void* stream) {
+  return (int)launch_sorted<float, Exact>(
+      group_ptr, win_ids, pos, lane_valid, slot_cols, blocks, dense, out,
+      n_lanes, F, R, gh, window, b, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int sdb_bsr_spmm_sorted_bf16x3(
@@ -449,20 +891,68 @@ extern "C" int sdb_bsr_spmm_sorted_bf16x3(
       n_lanes, F, R, gh, window, b, static_cast<cudaStream_t>(stream));
 }
 
+// K2, bf16 operands: the tensor-core loop at b = 64 and 128, the FFMA
+// loop at b = 16 and 32 (which takes 64-column tiles and no padding:
+// bn == 64, ld == F). dense is (n_dense_rows, ld); F is the output's
+// width.
+extern "C" int sdb_bsr_spmm_sorted_bf16(
+    const void* group_ptr, const void* win_ids, const void* pos,
+    const void* lane_valid, const void* slot_cols, const void* blocks,
+    const void* dense, void* out, int64_t n_lanes, int64_t n_slots,
+    int64_t n_dense_rows, int64_t F, int64_t ld, int64_t R, int64_t gh,
+    int64_t window, int64_t b, int64_t bn, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (b) {
+    case 16:
+    case 32:
+      if (bn != kBN || ld != F) return (int)cudaErrorInvalidValue;
+      return (int)launch_sorted<__nv_bfloat16, Exact>(
+          group_ptr, win_ids, pos, lane_valid, slot_cols, blocks, dense, out,
+          n_lanes, F, R, gh, window, b, s);
+    case 64:
+    case 128:
+      if (win_ids == nullptr) return (int)cudaErrorInvalidValue;
+      return (int)launch_ring(group_ptr, win_ids, pos, lane_valid, slot_cols,
+                              blocks, dense, out, n_lanes, 0, n_slots,
+                              n_dense_rows, F, ld, R, gh, window, b, bn, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K4, f32 operands.
 extern "C" int sdb_bsr_spmm_rowgroup(const void* group_ptr,
                                      const void* slot_cols,
                                      const void* blocks, const void* dense,
                                      void* out, int64_t n_lanes,
                                      int64_t n_block_rows, int64_t F,
                                      int64_t R, int64_t gh, int64_t b,
-                                     int64_t is_bf16, void* stream) {
+                                     void* stream) {
+  return (int)launch_rowgroup<float>(
+      group_ptr, slot_cols, blocks, dense, out, n_lanes, n_block_rows, F, R,
+      gh, b, static_cast<cudaStream_t>(stream));
+}
+
+// K4, bf16 operands: as sdb_bsr_spmm_sorted_bf16.
+extern "C" int sdb_bsr_spmm_rowgroup_bf16(
+    const void* group_ptr, const void* slot_cols, const void* blocks,
+    const void* dense, void* out, int64_t n_lanes, int64_t n_block_rows,
+    int64_t n_slots, int64_t n_dense_rows, int64_t F, int64_t ld, int64_t R,
+    int64_t gh, int64_t b, int64_t bn, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16
-                   ? launch_rowgroup<__nv_bfloat16>(group_ptr, slot_cols,
-                                                    blocks, dense, out,
-                                                    n_lanes, n_block_rows, F,
-                                                    R, gh, b, s)
-                   : launch_rowgroup<float>(group_ptr, slot_cols, blocks,
-                                            dense, out, n_lanes,
-                                            n_block_rows, F, R, gh, b, s));
+  switch (b) {
+    case 16:
+    case 32:
+      if (bn != kBN || ld != F) return (int)cudaErrorInvalidValue;
+      return (int)launch_rowgroup<__nv_bfloat16>(
+          group_ptr, slot_cols, blocks, dense, out, n_lanes, n_block_rows, F,
+          R, gh, b, s);
+    case 64:
+    case 128:
+      return (int)launch_ring(group_ptr, nullptr, nullptr, nullptr, slot_cols,
+                              blocks, dense, out, n_lanes, n_block_rows,
+                              n_slots, n_dense_rows, F, ld, R, gh, 0, b, bn, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

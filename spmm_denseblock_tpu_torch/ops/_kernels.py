@@ -43,17 +43,19 @@ _SIGNATURES = {
     "sdb_bsr_spmm_flat_bf16x3": ("bsr_spmm", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "sdb_bsr_spmm_resident_bf16x3": ("bsr_spmm", [_P, _P, _P, _P, _P,
                                                   _I, _I, _I, _I, _P]),
-    # group_ptr, win_ids, pos, lane_valid, slot_cols, blocks, dense, out,
-    # n_lanes, F, R, gh, window, b, is_bf16, stream
-    "sdb_bsr_spmm_sorted": ("bsr_spmm", [_P, _P, _P, _P, _P, _P, _P, _P,
-                                         _I, _I, _I, _I, _I, _I, _I, _P]),
-    # K3 on K2's layout: the same arguments without is_bf16
-    "sdb_bsr_spmm_sorted_bf16x3": ("bsr_spmm", [_P, _P, _P, _P, _P, _P, _P, _P,
-                                                _I, _I, _I, _I, _I, _I, _P]),
-    # group_ptr, slot_cols, blocks, dense, out, n_lanes, n_block_rows, F,
-    # R, gh, b, is_bf16, stream
-    "sdb_bsr_spmm_rowgroup": ("bsr_spmm", [_P, _P, _P, _P, _P,
-                                           _I, _I, _I, _I, _I, _I, _I, _P]),
+    # f32 K2 and K3 on its layout: group_ptr, win_ids, pos, lane_valid,
+    # slot_cols, blocks, dense, out, n_lanes, F, R, gh, window, b, stream
+    "sdb_bsr_spmm_sorted": ("bsr_spmm", [_P] * 8 + [_I] * 6 + [_P]),
+    "sdb_bsr_spmm_sorted_bf16x3": ("bsr_spmm", [_P] * 8 + [_I] * 6 + [_P]),
+    # bf16 K2: the same pointers, then n_lanes, n_slots, n_dense_rows, F,
+    # ld, R, gh, window, b, bn, stream
+    "sdb_bsr_spmm_sorted_bf16": ("bsr_spmm", [_P] * 8 + [_I] * 10 + [_P]),
+    # f32 K4: group_ptr, slot_cols, blocks, dense, out, n_lanes,
+    # n_block_rows, F, R, gh, b, stream
+    "sdb_bsr_spmm_rowgroup": ("bsr_spmm", [_P] * 5 + [_I] * 6 + [_P]),
+    # bf16 K4: the same pointers, then n_lanes, n_block_rows, n_slots,
+    # n_dense_rows, F, ld, R, gh, b, bn, stream
+    "sdb_bsr_spmm_rowgroup_bf16": ("bsr_spmm", [_P] * 5 + [_I] * 10 + [_P]),
     # step_ptr, slot_cols, qblocks, scales, qdense, cs, out, n_block_rows,
     # F, group, b, stream
     "sdb_bsr_spmm_int8_flat": ("bsr_spmm_int8", [_P, _P, _P, _P, _P, _P, _P,
@@ -159,20 +161,23 @@ class CudaKernel:
 
 
 bsr_spmm_flat = CudaKernel("sdb_bsr_spmm_flat")                # K1
-bsr_spmm_sorted = CudaKernel("sdb_bsr_spmm_sorted")            # K2
+bsr_spmm_sorted = CudaKernel("sdb_bsr_spmm_sorted")            # K2, f32
+bsr_spmm_sorted_bf16 = CudaKernel("sdb_bsr_spmm_sorted_bf16")  # K2, bf16
 # K3 (bf16x3) on K1's, K2's and K5's layouts
 bsr_spmm_flat_bf16x3 = CudaKernel("sdb_bsr_spmm_flat_bf16x3")
 bsr_spmm_sorted_bf16x3 = CudaKernel("sdb_bsr_spmm_sorted_bf16x3")
 bsr_spmm_resident_bf16x3 = CudaKernel("sdb_bsr_spmm_resident_bf16x3")
-bsr_spmm_rowgroup = CudaKernel("sdb_bsr_spmm_rowgroup")        # K4
+bsr_spmm_rowgroup = CudaKernel("sdb_bsr_spmm_rowgroup")        # K4, f32
+bsr_spmm_rowgroup_bf16 = CudaKernel("sdb_bsr_spmm_rowgroup_bf16")  # K4, bf16
 bsr_spmm_resident = CudaKernel("sdb_bsr_spmm_resident")        # K5
 bsr_spmm_int8_flat = CudaKernel("sdb_bsr_spmm_int8_flat")      # K6
 bsr_spmm_int8_sorted = CudaKernel("sdb_bsr_spmm_int8_sorted")  # K7
 bsr_spmm_int8_rowgroup = CudaKernel("sdb_bsr_spmm_int8_rowgroup")  # K8
 bsr_spmm_int8_resident = CudaKernel("sdb_bsr_spmm_int8_resident")  # K9
 csr_spmm = CudaKernel("sdb_csr_spmm")                           # K10
-KERNELS = (bsr_spmm_flat, bsr_spmm_sorted, bsr_spmm_flat_bf16x3,
-           bsr_spmm_sorted_bf16x3, bsr_spmm_resident_bf16x3,
-           bsr_spmm_rowgroup, bsr_spmm_resident, bsr_spmm_int8_flat,
+KERNELS = (bsr_spmm_flat, bsr_spmm_sorted, bsr_spmm_sorted_bf16,
+           bsr_spmm_flat_bf16x3, bsr_spmm_sorted_bf16x3,
+           bsr_spmm_resident_bf16x3, bsr_spmm_rowgroup,
+           bsr_spmm_rowgroup_bf16, bsr_spmm_resident, bsr_spmm_int8_flat,
            bsr_spmm_int8_sorted, bsr_spmm_int8_rowgroup,
            bsr_spmm_int8_resident, csr_spmm)

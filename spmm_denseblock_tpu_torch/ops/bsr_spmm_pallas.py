@@ -19,7 +19,11 @@ four kernels on the packed arrays:
 
 ``precision="high"`` on f32 operands runs K3, the bf16x3 product of
 ``_dot3`` (hi·hi + hi·lo + lo·hi of bf16 splits, f32 sums), as its own
-instance of K1, K2 or K5 (``bf16x3=True`` in the wrappers).
+instance of K1, K2 or K5 (``bf16x3=True`` in the wrappers). bf16
+operands run K2 and K4 through their own entries
+(``sdb_bsr_spmm_{sorted,rowgroup}_bf16``), on the tensor cores at b = 64
+and 128; ``bf16_tile_geometry`` picks their F tile width and the
+operand's padded row length.
 
 Beside each kernel sits its plain PyTorch version (``spmm_flat_plain``,
 ``spmm_sorted_plain``, ``spmm_rowgroup_plain``,
@@ -37,6 +41,8 @@ the forward plan and a plan of Aᵀ built with the same arguments.
 from __future__ import annotations
 
 from typing import Optional
+
+import functools
 
 import numpy as np
 import torch
@@ -507,11 +513,41 @@ def check_cuda_operands(blocks, dense, index_arrays, dtypes=_KERNEL_DTYPES):
             raise ValueError("CUDA kernel operands must be contiguous")
 
 
-def _dtype_args(blocks, bf16x3: bool) -> tuple:
-    """The launch's trailing dtype argument: the exact kernels take
-    is_bf16; the bf16x3 instances (K3) take f32 operands only and no
-    such argument."""
-    return () if bf16x3 else (int(blocks.dtype == torch.bfloat16),)
+def bf16_tile_geometry(b: int, n_rows: int, F: int, n_sms: int):
+    """(bn, ld) of a bf16 K2 or K4 launch over n_rows block-rows (its
+    valid lanes, one CTA row each) on a card of n_sms SMs: the F tile
+    width and the operand's row length as the kernel reads it.
+
+    b = 16 and 32 run the FFMA loop: 64-column tiles, the operand as it
+    is. b = 64 and 128 run the tensor-core loop, whose TMA reads need
+    16-byte rows: ld is F rounded up to a multiple of 8 (the wrapper pads
+    the operand's columns only then). bn is 128 where F needs more than
+    64 columns and the grid (n_rows * ceil(F / 128) CTAs) still covers
+    the SMs, else 64 (the loop's two-level sums hold 2 x bn/2 registers
+    a thread, which caps bn at 128)."""
+    if b < 64:
+        return 64, F
+    bn = 128 if F > 64 and n_rows * -(-F // 128) >= n_sms else 64
+    return bn, -(-F // 8) * 8
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _bf16_launch_args(blocks, dense, n_rows: int) -> tuple:
+    """The trailing arguments of a bf16 K2/K4 entry, (n_slots,
+    n_dense_rows, F, ld), then bn, and the operand the kernel reads: the
+    operand padded to ld columns where bf16_tile_geometry pads it, else
+    the operand itself."""
+    b, F = blocks.shape[1], dense.shape[1]
+    dev = dense.device
+    bn, ld = bf16_tile_geometry(b, n_rows, F, _sm_count(
+        dev.index if dev.index is not None else torch.cuda.current_device()))
+    if ld != F:
+        dense = torch.nn.functional.pad(dense, (0, ld - F))
+    return (blocks.shape[0], dense.shape[0], F, ld), bn, dense
 
 
 def _kernel_dtypes(bf16x3: bool) -> tuple:
@@ -547,7 +583,8 @@ def spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense, group: int,
         kernel(
             step_ptr.data_ptr(), slot_cols.data_ptr(), blocks.data_ptr(),
             dense.data_ptr(), out.data_ptr(), n_block_rows, F, group, b,
-            *_dtype_args(blocks, bf16x3),
+            # the exact entries take is_bf16; K3's take f32 only
+            *(() if bf16x3 else (int(blocks.dtype == torch.bfloat16),)),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     return out
@@ -575,7 +612,9 @@ def spmm_sorted(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr,
 
     lane_valid (n_groups*R,) bool and group_ptr (n_groups+1,) int64 come
     from the port's packer. CPU tensors run spmm_sorted_plain; CUDA
-    tensors run the CUDA kernel."""
+    tensors run the CUDA kernel: f32 operands the FFMA entry, bf16 the
+    bf16 entry at bf16_tile_geometry's tile width (the operand's columns
+    padded to a multiple of 8 where F is ragged and b >= 64)."""
     dev = _device_of(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr)
     if dev.type == "cpu":
         return spmm_sorted_plain(win_ids, pos, slot_cols, blocks, dense,
@@ -596,15 +635,21 @@ def spmm_sorted(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr,
     b = blocks.shape[1]
     F = dense.shape[1]
     out = torch.empty(n_block_rows * b, F, dtype=torch.float32, device=dev)
-    kernel = _kernels.bsr_spmm_sorted_bf16x3 if bf16x3 else _kernels.bsr_spmm_sorted
     with torch.cuda.device(dev):
-        kernel(
-            group_ptr.data_ptr(), win_ids.data_ptr(), pos.data_ptr(),
-            lane_valid.data_ptr(), slot_cols.data_ptr(), blocks.data_ptr(),
-            dense.data_ptr(), out.data_ptr(), n_lanes, F, R, gh, window, b,
-            *_dtype_args(blocks, bf16x3),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        pointers = (group_ptr.data_ptr(), win_ids.data_ptr(), pos.data_ptr(),
+                    lane_valid.data_ptr(), slot_cols.data_ptr(),
+                    blocks.data_ptr())
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if blocks.dtype == torch.bfloat16:
+            sizes, bn, dense = _bf16_launch_args(blocks, dense, n_block_rows)
+            _kernels.bsr_spmm_sorted_bf16(
+                *pointers, dense.data_ptr(), out.data_ptr(), n_lanes,
+                *sizes, R, gh, window, b, bn, stream)
+        else:
+            kernel = (_kernels.bsr_spmm_sorted_bf16x3 if bf16x3
+                      else _kernels.bsr_spmm_sorted)
+            kernel(*pointers, dense.data_ptr(), out.data_ptr(), n_lanes, F, R,
+                   gh, window, b, stream)
     return out
 
 
@@ -614,8 +659,8 @@ def spmm_rowgroup(step_groups, group_ptr, slot_cols, blocks, dense,
 
     group_ptr (n_groups+1,) int64 points each group at its steps
     (group_pointer at plan time). CPU tensors run spmm_rowgroup_plain;
-    CUDA tensors run the CUDA kernel, whose phantom lanes store
-    nothing."""
+    CUDA tensors run the CUDA kernel, whose phantom lanes store nothing:
+    f32 operands the FFMA entry, bf16 the bf16 entry, as spmm_sorted."""
     dev = _device_of(step_groups, group_ptr, slot_cols, blocks, dense)
     if dev.type == "cpu":
         return spmm_rowgroup_plain(step_groups, slot_cols, blocks, dense,
@@ -628,14 +673,21 @@ def spmm_rowgroup(step_groups, group_ptr, slot_cols, blocks, dense,
                             n_block_rows, R, gh)
     b = blocks.shape[1]
     F = dense.shape[1]
+    n_lanes = (group_ptr.shape[0] - 1) * R
     out = torch.empty(n_block_rows * b, F, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _kernels.bsr_spmm_rowgroup(
-            group_ptr.data_ptr(), slot_cols.data_ptr(), blocks.data_ptr(),
-            dense.data_ptr(), out.data_ptr(), (group_ptr.shape[0] - 1) * R,
-            n_block_rows, F, R, gh, b, int(blocks.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        pointers = (group_ptr.data_ptr(), slot_cols.data_ptr(),
+                    blocks.data_ptr())
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if blocks.dtype == torch.bfloat16:
+            sizes, bn, dense = _bf16_launch_args(blocks, dense, n_block_rows)
+            _kernels.bsr_spmm_rowgroup_bf16(
+                *pointers, dense.data_ptr(), out.data_ptr(), n_lanes,
+                n_block_rows, *sizes, R, gh, b, bn, stream)
+        else:
+            _kernels.bsr_spmm_rowgroup(
+                *pointers, dense.data_ptr(), out.data_ptr(), n_lanes,
+                n_block_rows, F, R, gh, b, stream)
     return out
 
 

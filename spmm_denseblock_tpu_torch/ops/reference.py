@@ -105,3 +105,35 @@ def bf16x3_exact_case(F: int = 96, seed: int = 0):
     want_exact = a @ x64
     assert (want_bf16x3 != want_exact).mean() > 0.5
     return bsr, x, want_bf16x3, want_exact
+
+
+def bf16_exact_case(b: int = 64, F: int = 96, seed: int = 0):
+    """An input on which a bf16 kernel must match float64, and so its
+    plain version, bit for bit: every block and operand value is an
+    integer of magnitude <= 16 (exact in bf16), so every product is an
+    integer and every partial sum of one output an integer under 2^24,
+    exact in f32 whatever the order of the sums. A misplaced accumulator
+    fragment, a wrong swizzle or an operand read untransposed changes the
+    answer instead of rounding it.
+
+    7 block-rows of 12 block-columns, block-row 2 empty and the others
+    holding 2 to 6 blocks (about 3.4 real blocks per block-row, so the
+    bf16 plan sorts by default and packs consecutive row groups with
+    depth_sort=False). Returns (bsr, x (12*b, F) f32, want (7*b, F)
+    float64)."""
+    nbr, nbc = 7, 12
+    rng = np.random.default_rng(seed)
+    rows, cols = [], []
+    for r in range(nbr):
+        if r == 2:
+            continue
+        c = np.sort(rng.choice(nbc, size=int(rng.integers(2, 7)), replace=False))
+        rows += [r] * c.size
+        cols += c.tolist()
+    blocks = rng.integers(-16, 17, size=(len(rows), b, b)).astype(np.float32)
+    bsr = BSR.from_parts(np.asarray(rows, np.int32), np.asarray(cols, np.int32),
+                         blocks, (nbr * b, nbc * b), b)
+    x = rng.integers(-16, 17, size=(nbc * b, F)).astype(np.float32)
+    a = bsr.to_dense().astype(np.float64)
+    assert (np.abs(a) @ np.abs(x.astype(np.float64))).max() < 2.0 ** 24
+    return bsr, x, a @ x.astype(np.float64)

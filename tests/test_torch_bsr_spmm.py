@@ -14,7 +14,8 @@ are exact in f32, so only the order of the f32 sums differs). Plan vs
 scipy: the reference's 1e-4 gate for f32, 3e-2 relative for bf16 (the
 bf16 tier's tolerance in tests/test_conformance.py). K3 against _dot3:
 1e-6 relative (the same bf16 splits, exact products, f32 sums in
-another order)."""
+another order). The bf16 exact case and the launch geometry of the bf16
+tensor-core kernels: bit for bit, and exact values."""
 
 import importlib
 
@@ -27,7 +28,11 @@ import torch
 import spmm_denseblock_tpu.formats.bsr as j_bsr
 import spmm_denseblock_tpu_torch.formats.bsr as t_bsr
 from spmm_denseblock_tpu_torch.ops import _kernels, assert_allclose, spmm_scipy, sum_plan
-from spmm_denseblock_tpu_torch.ops.reference import _split_bf16_ints, bf16x3_exact_case
+from spmm_denseblock_tpu_torch.ops.reference import (
+    _split_bf16_ints,
+    bf16_exact_case,
+    bf16x3_exact_case,
+)
 
 # the ops packages export a function of the module's name, so `import
 # ... as` would bind the function
@@ -660,3 +665,61 @@ def test_plain_apply_on_plans_without_kernels(impl):
         grads.append(xt.grad)
     assert torch.equal(grads[0], grads[1])
     assert_allclose(grads[0], bsr.to_dense().T @ g.numpy())
+
+
+# -- bf16 K2 and K4: the exact case and the launch geometry ------------------
+
+
+@pytest.mark.parametrize("depth_sort,layout", [(None, "sorted"), (False, "rowgroup")])
+def test_bf16_exact_case_bit_exact(depth_sort, layout):
+    """bf16_exact_case holds every partial sum to an integer under 2^24,
+    so the bf16 plan's plain versions of K2 and K4 (the CPU path) equal
+    float64 bit for bit at b=64, and so does the JAX plan (its Pallas
+    kernels in interpret mode). tests/test_torch_cuda_kernels.py and
+    chip_smoke.py hold the tensor-core kernels to the same answer. The
+    7 block-rows leave absent (K2) and phantom (K4) lanes; F=70 is
+    ragged."""
+    bsr, x, want = bf16_exact_case(64, 70)
+    assert (x == np.round(x)).all() and np.abs(x).max() <= 16
+    tp = T.bsr_spmm_pallas_plan(bsr, dtype=torch.bfloat16, grad=False,
+                                depth_sort=depth_sort, device="cpu")
+    assert tp.statics[0] == layout
+    np.testing.assert_array_equal(tp(x).double().numpy(), want)
+    jbsr = j_bsr.BSR.from_parts(bsr.block_rows, bsr.block_cols, bsr.blocks,
+                                bsr.shape, bsr.b)
+    jp = J.bsr_spmm_pallas_plan(jbsr, dtype=jnp.bfloat16, grad=False,
+                                depth_sort=depth_sort)
+    assert _jax_layout(jp) == layout
+    np.testing.assert_array_equal(np.asarray(jp(x), np.float64), want)
+
+
+@pytest.mark.parametrize("b,n_rows,F,n_sms,want", [(*case[:3], 132, case[3]) for case in [
+    (128, 1024, 512, (128, 512)),  # bench.py's op shape: 4,096 CTAs
+    (128, 34, 256, (64, 256)),     # ddi: 34 lanes, BN=64 gives 136 CTAs
+    (64, 1024, 256, (128, 256)),
+    (128, 33, 512, (128, 512)),    # 132 CTAs at 128
+    (128, 32, 512, (64, 512)),     # 128 at 128: 64 gives 256
+    (128, 66, 256, (128, 256)),
+    (128, 65, 256, (64, 256)),
+    (128, 1024, 8, (64, 8)),       # never wider than F needs
+    (128, 1024, 64, (64, 64)),
+    (128, 1024, 70, (128, 72)),    # ragged F pads to a multiple of 8
+    (128, 1024, 133, (128, 136)),
+    (64, 1024, 129, (128, 136)),
+    (128, 1024, 600, (128, 600)),
+    (32, 1024, 133, (64, 133)),    # b < 64: the FFMA loop, no padding
+    (16, 5, 70, (64, 70)),
+]] + [  # one SM: every grid covers it, so F alone sets the width
+    (128, 1, F, 1, (bn, -(-F // 8) * 8))
+    for F, bn in ((1, 64), (64, 64), (65, 128), (128, 128), (129, 128), (4096, 128))
+])
+def test_bf16_tile_geometry(b, n_rows, F, n_sms, want):
+    """The F tile width of the tensor-core loop is 128 where F needs more
+    than 64 columns and the grid still covers the card's SMs (the H100's
+    132), else 64; the operand pads to a multiple of 8
+    columns only when F is ragged; b < 64 runs 64-column FFMA tiles on
+    the operand as it is."""
+    bn, ld = T.bf16_tile_geometry(b, n_rows, F, n_sms)
+    assert (bn, ld) == want
+    assert ld % 8 == 0 or b < 64
+    assert (ld == F) == (F % 8 == 0 or b < 64)

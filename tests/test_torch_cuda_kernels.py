@@ -1,6 +1,7 @@
 """The CUDA kernels K1 (flat grouped gather), K2 (depth-sorted row
-groups), K3 (the bf16x3 product, on K1's, K2's and K5's layouts), K4
-(consecutive row groups), K5 (single-row resident), the int8 kernels
+groups; f32, and bf16 on the tensor cores), K3 (the bf16x3 product, on
+K1's, K2's and K5's layouts), K4 (consecutive row groups; f32, and bf16
+on the tensor cores), K5 (single-row resident), the int8 kernels
 K6 (flat), K7 (depth-sorted, group-scale and per-slot scales), K8
 (consecutive row groups) and K9 (single-row resident), and the CSR
 kernel K10 against their plain PyTorch versions on the card, their
@@ -14,7 +15,8 @@ these tests skip without a GPU; run them on one with
 
 Tolerance: 1e-5 relative to max |plain| (same operands in the same
 dtype; only the order of the f32 sums differs), and bit-equality on the
-input whose sums are exact in f32 that tells bf16x3 from exact f32."""
+inputs whose sums are exact in f32: the one that tells bf16x3 from exact
+f32, and the one that holds the bf16 tensor-core kernels to float64."""
 
 import importlib
 
@@ -25,7 +27,7 @@ import torch
 from spmm_denseblock_tpu_torch.formats.bsr import BSR, random_bsr
 from spmm_denseblock_tpu_torch.formats.csr import CSR, random_csr
 from spmm_denseblock_tpu_torch.ops import _kernels, assert_allclose, spmm_scipy
-from spmm_denseblock_tpu_torch.ops.reference import bf16x3_exact_case
+from spmm_denseblock_tpu_torch.ops.reference import bf16_exact_case, bf16x3_exact_case
 
 T = importlib.import_module("spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas")
 TI = importlib.import_module("spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8")
@@ -83,7 +85,8 @@ def test_kernel_matches_plain(b, dtype, layout):
                                   resident=False if layout == "flat" else None,
                                   device="cuda")
     assert plan.statics[0] == layout
-    kernel = _kernels.bsr_spmm_sorted if layout == "sorted" else _kernels.bsr_spmm_flat
+    kernel = (_kernels.bsr_spmm_flat if layout == "flat"
+              else _kernels.bsr_spmm_sorted_bf16 if dtype else _kernels.bsr_spmm_sorted)
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(
         (bsr.shape[1], 133)).astype(np.float32), device="cuda")
     got = _check(plan, x, kernel)
@@ -146,10 +149,13 @@ def test_rowgroup_kernel_matches_plain(b, dtype, nb):
     x = _x(bsr)
     k_needed = bsr.n_block_cols * b
     x = torch.nn.functional.pad(x, (0, 0, 0, k_needed - x.shape[0])).to(td)
-    before = _kernels.bsr_spmm_rowgroup.launches
+    kernel, other = _kernels.bsr_spmm_rowgroup, _kernels.bsr_spmm_rowgroup_bf16
+    if dtype is not None:
+        kernel, other = other, kernel
+    before = kernel.launches, other.launches
     got = T.spmm_rowgroup(*args, x, bsr.n_block_rows, R, gh)
     torch.cuda.synchronize()
-    assert _kernels.bsr_spmm_rowgroup.launches == before + 1
+    assert (kernel.launches, other.launches) == (before[0] + 1, before[1])
     want = T.spmm_rowgroup_plain(args[0], args[2], args[3], x,
                                  bsr.n_block_rows, R, gh)
     assert got.shape == want.shape == (bsr.n_block_rows * b, 133)
@@ -162,7 +168,102 @@ def test_rowgroup_plan_uses_k4():
     plan = T.bsr_spmm_pallas_plan(bsr, dtype=torch.bfloat16, grad=False,
                                   depth_sort=False, device="cuda")
     assert plan.statics[0] == "rowgroup"
-    _check(plan, _x(bsr), _kernels.bsr_spmm_rowgroup)
+    _check(plan, _x(bsr), _kernels.bsr_spmm_rowgroup_bf16)
+
+
+# -- the bf16 tensor-core instances of K2 and K4 -----------------------------
+
+BF16_KERNELS = {"sorted": "bsr_spmm_sorted_bf16", "rowgroup": "bsr_spmm_rowgroup_bf16"}
+
+
+def _bf16_plan(bsr, layout):
+    plan = T.bsr_spmm_pallas_plan(bsr, dtype=torch.bfloat16, grad=False,
+                                  depth_sort=layout == "sorted", device="cuda")
+    assert plan.statics[0] == layout
+    return plan
+
+
+def _check_bf16(plan, x, layout):
+    """One launch of the layout's bf16 entry and none of any other
+    kernel (the f32 K2 and K4 counters stay put); returns (kernel,
+    plain)."""
+    kernel = getattr(_kernels, BF16_KERNELS[layout])
+    counts = {k.symbol: k.launches for k in _kernels.KERNELS}
+    got = plan(x)
+    torch.cuda.synchronize()
+    counts[kernel.symbol] += 1
+    assert {k.symbol: k.launches for k in _kernels.KERNELS} == counts
+    want = T.plain_apply(plan, x)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    return got, want
+
+
+def _widest_tiles(monkeypatch, wide):
+    """wide: the geometry sees one SM, so every launch whose F needs more
+    than 64 columns takes BN=128 (these small shapes take 64 on the
+    card's SM count)."""
+    if wide:
+        monkeypatch.setattr(T, "_sm_count", lambda index: 1)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("F", [70, 256])
+@pytest.mark.parametrize("layout", ["sorted", "rowgroup"])
+@pytest.mark.parametrize("b", [16, 32, 64, 128])
+def test_bf16_kernels_bit_exact(b, layout, F, wide, monkeypatch):
+    """On bf16_exact_case every partial sum is an integer under 2^24, so
+    the bf16 entries (the tensor-core loop at b = 64 and 128, the FFMA
+    loop below) must equal float64 and their plain versions bit for bit:
+    a misplaced fragment, swizzle or transposed operand would show.
+    F=70 pads the operand to 72 columns; 7 block-rows leave absent (K2)
+    and phantom (K4) lanes and an empty row."""
+    _widest_tiles(monkeypatch, wide)
+    bsr, x, want = bf16_exact_case(b, F, seed=b + F)
+    got, plain = _check_bf16(_bf16_plan(bsr, layout), torch.as_tensor(x, device="cuda"),
+                             layout)
+    np.testing.assert_array_equal(got.double().cpu().numpy(), want)
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("nb", [7, 37])
+@pytest.mark.parametrize("F", [8, 70, 133, 256, 512])
+@pytest.mark.parametrize("layout", ["sorted", "rowgroup"])
+@pytest.mark.parametrize("b", [64, 128])
+def test_bf16_kernels_match_plain(b, layout, F, nb, wide, monkeypatch):
+    """The tensor-core loop on random data within 1e-5 of its plain
+    version: ragged F (8 fits one 64-column box; 70 and 133 pad), 7
+    block-rows (absent and phantom lanes), 37 (two empty rows), tiles of
+    64 columns and of the widest the F needs."""
+    _widest_tiles(monkeypatch, wide)
+    bsr = _bsr(nb, b, 0.3, seed=b + nb)
+    got, want = _check_bf16(_bf16_plan(bsr, layout), _x(bsr, F=F, seed=F), layout)
+    rel = (got - want).abs().max().item() / max(want.abs().max().item(), 1.0)
+    assert rel < TOL, rel
+
+
+def test_bf16_entries_refuse_bad_geometry():
+    """A launch the entry refuses (an F tile width it has no kernel for,
+    an operand row length that is not a multiple of 8) returns its
+    cudaError_t and the wrapper raises; no launch is counted."""
+    bsr, x, _ = bf16_exact_case(64, 70)
+    plan = _bf16_plan(bsr, "sorted")
+    win_ids, slot_cols, blocks, pos, lane_valid, group_ptr = plan.arrays
+    R, gh, W = plan.statics[-1]
+    dense = torch.as_tensor(x, device="cuda").to(torch.bfloat16)
+    out = torch.empty(bsr.shape[0], 70, device="cuda")
+    counts = [k.launches for k in _kernels.KERNELS]
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (group_ptr, win_ids, pos, lane_valid, slot_cols,
+                                   blocks, dense, out)]
+    n_lanes = lane_valid.shape[0]
+    for ld, bn in ((70, 64), (72, 96), (72, 256)):
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            _kernels.bsr_spmm_sorted_bf16(*ptrs, n_lanes, blocks.shape[0],
+                                          dense.shape[0], 70, ld, R, gh, W, 64,
+                                          bn, stream)
+    assert [k.launches for k in _kernels.KERNELS] == counts
 
 
 INT8_CASES = {
