@@ -13,10 +13,10 @@ Phases:
   1. set-up   torch/CUDA versions, the card's name and power limit, TF32 off
   2. build    nvcc builds each csrc/*.cu into build/kernels/, all at once
               (timed)
-  3. kernels  K1 (flat), K2 (sorted; f32, and bf16 on the tensor cores),
-              K3 (bf16x3 on the sorted, flat and resident layouts), K4
-              (row groups; f32, and bf16 on the tensor cores), K5
-              (resident), and the int8 K6 (flat), K7 (sorted; group-scale
+  3. kernels  K1 (flat), K2 (sorted), K4 (row groups) and K5 (resident),
+              each in f32 and in bf16 on the tensor cores, K3 (bf16x3 on
+              the sorted, flat and resident layouts), and the int8 K6
+              (flat), K7 (sorted; group-scale
               and per-slot scales), K8 (row groups) and K9 (resident,
               resident=True with f_tile=128), each against its plain
               version at a ragged small shape, a 7-block-row shape
@@ -27,10 +27,10 @@ Phases:
               exact kernel (K2, K1, K5) on an input whose sums are exact in
               f32 (bf16x3_exact_case): K3 must give A_hi X_hi + A_hi X_lo +
               A_lo X_hi and the exact kernel A X, each bit for bit (the two
-              differ in most entries); then the bf16 K2 and K4 entries at
-              b = 16, 32, 64 and 128 and F = 70 and 256 on an input whose
-              sums are exact in f32 (bf16_exact_case): each must equal
-              float64 bit for bit
+              differ in most entries); then the bf16 K1, K2, K4 and K5
+              entries at b = 16, 32, 64 and 128 and F = 70 and 256 on an
+              input whose sums are exact in f32 (bf16_exact_case): each
+              must equal float64 bit for bit
   4. slice    GCN [256, 256, 256] on load_dataset("ogbl-ddi") (rcmk,
               sym_norm_adjacency, spmm_plan(impl="bsr_pallas", b=128)),
               4 seeded requests in f32 (K2), each checked against a float64
@@ -59,23 +59,27 @@ Phases:
               steps below step 0's; 2 forward and 1 backward SpMM launch
               per step
   6. op       random_bsr(2e-2, 1024, 1024, b=128, seed=1234), F=512: f32
-              default (K2), depth_sort=False (K1), precision="high" (K3
+              default (K2), depth_sort=False (K1), row groups packed as
+              the bf16 plan packs them (f32 K4: no plan routes f32
+              there), precision="high" (K3
               sorted), "high" with depth_sort=False (K3 flat), "high" with
               resident=True, depth_sort=False (K3 resident),
               resident=True, depth_sort=False (K5); bf16 default (K2),
-              depth_sort=False (K4) and resident=False (K1); int8 with
+              depth_sort=False (K4), resident=False (K1) and
+              precision="high", resident=True (K5); int8 with
               calibration=dense[:4096] as bench.py: default (K7),
               depth_sort=False (K8), resident=False (K6) and
               resident=True, f_tile=128 (K9); each against its plain
               version, each int8 answer within 6e-2 of f32 K2's; the bf16
-              K2 and K4 entries on the op shape's blocks with small
-              integer values (every sum exact in f32), bit for bit
+              K1, K2, K4 and K5 entries on the op shape's blocks with
+              small integer values (every sum exact in f32), bit for bit
               against their plain versions;
               bench.py's bf16x3 self-check (the "high" answer within 1e-4
               of exact f32 K2's and of the bsr_xla tier's); K10 at the
               reference's test_csrmm shape, random_csr(2e-3, 2^17,
-              seed=1234) with F=512, against its plain version and within
-              1e-4 of the csr_xla tier's answer
+              seed=1234) with F=512 (column strips of csr_strip_width's
+              width), against its plain version and within 1e-4 of the
+              csr_xla tier's answer
   7. timing   CUDA-event times of kernel, plain and library paths
               (library: one PyTorch call computing the same function,
               timed as a yardstick and never called by the port:
@@ -158,7 +162,9 @@ from spmm_denseblock_tpu_torch.ops.csr_spmm import csr_spmm_plan  # noqa: E402
 from spmm_denseblock_tpu_torch.ops.csr_spmm_pallas import (  # noqa: E402
     SEGMENT_NNZ,
     _csr_pallas_apply,
+    _l2_bytes,
     csr_spmm_pallas_plan,
+    csr_strip_width,
 )
 from spmm_denseblock_tpu_torch.ops.plan import Plan  # noqa: E402
 from spmm_denseblock_tpu_torch.ops.reference import (  # noqa: E402
@@ -192,6 +198,7 @@ KERNEL_INFO = {
     ("csr",): ("K10", "csr_spmm", _CSRC + "csr_spmm.cu",
                "spmm_denseblock_tpu/ops/csr_spmm_pallas.py:112"),
     ("f", "flat", "exact"): ("K1", "bsr_spmm_flat", _F, _PALLAS + ":909"),
+    ("f", "flat", "bf16"): ("K1", "bsr_spmm_flat_bf16", _F, _PALLAS + ":909"),
     ("f", "sorted", "exact"): ("K2", "bsr_spmm_sorted", _F, _PALLAS + ":686"),
     ("f", "sorted", "bf16"): ("K2", "bsr_spmm_sorted_bf16", _F, _PALLAS + ":686"),
     ("f", "flat", "bf16x3"): ("K3", "bsr_spmm_flat_bf16x3", _F, _PALLAS + ":56"),
@@ -201,6 +208,7 @@ KERNEL_INFO = {
     ("f", "rowgroup", "exact"): ("K4", "bsr_spmm_rowgroup", _F, _PALLAS + ":412"),
     ("f", "rowgroup", "bf16"): ("K4", "bsr_spmm_rowgroup_bf16", _F, _PALLAS + ":412"),
     ("f", "resident", "exact"): ("K5", "bsr_spmm_resident", _F, _PALLAS + ":301"),
+    ("f", "resident", "bf16"): ("K5", "bsr_spmm_resident_bf16", _F, _PALLAS + ":301"),
     ("i8", "flat"): ("K6", "bsr_spmm_int8_flat", _I8, _PALLAS_I8 + ":490"),
     ("i8", "sorted"): ("K7", "bsr_spmm_int8_sorted", _I8, _PALLAS_I8 + ":358"),
     ("i8", "rowgroup"): ("K8", "bsr_spmm_int8_rowgroup", _I8, _PALLAS_I8 + ":252"),
@@ -262,7 +270,7 @@ def kernel_of(plan) -> tuple:
     if plan.apply_fn is _int8_pallas_apply:
         return KERNEL_INFO[("i8", plan.statics[0])]
     layout = plan.statics[0]
-    if layout in ("sorted", "rowgroup") and plan.arrays[2].dtype == torch.bfloat16:
+    if plan.arrays[2].dtype == torch.bfloat16:
         return KERNEL_INFO[("f", layout, "bf16")]  # their own bf16 entries
     return KERNEL_INFO[("f", layout, plan.statics[5])]
 
@@ -345,6 +353,8 @@ def variant_plans(bsr: BSR):
         ("bf16 depth_sort", f_plan(dtype=bf, depth_sort=True)),
         ("bf16 depth_sort=False", f_plan(dtype=bf, depth_sort=False)),
         ("bf16 resident=False", f_plan(dtype=bf, resident=False)),
+        ("bf16 resident=True precision=high", f_plan(dtype=bf, resident=True,
+                                                     precision="high")),
         ("int8 depth_sort", i8_plan(depth_sort=True)),
         ("int8 per-slot scales", i8_plan(depth_sort=True, group_scale=False)),
         ("int8 depth_sort=False", i8_plan(depth_sort=False)),
@@ -439,22 +449,36 @@ def bf16_exact_launch(plan, x, want, label: str) -> None:
         raise AssertionError(f"{label}: {name}: {n_bad} entries differ")
 
 
+# the bf16 plan's arguments that pack each layout (K2, K4, K1, K5)
+BF16_LAYOUT_KW = {"sorted": {"depth_sort": True}, "rowgroup": {"depth_sort": False},
+                  "flat": {"resident": False},
+                  "resident": {"precision": "high", "resident": True}}
+
+
+def bf16_layout_plan(bsr, layout: str) -> Plan:
+    plan = bsr_spmm_pallas_plan(bsr, dtype=torch.bfloat16, grad=False, device=DEV,
+                                **BF16_LAYOUT_KW[layout])
+    if plan.statics[0] != layout:
+        raise AssertionError(f"bf16 plan took {plan.statics[0]}, expected {layout}")
+    return plan
+
+
 def bf16_exactness() -> None:
-    """The bf16 K2 and K4 entries on bf16_exact_case, whose partial sums
-    are integers under 2^24: exact in f32 in any order, so each kernel
-    must equal float64 bit for bit (the tensor-core loop at b = 64 and
-    128, the FFMA loop below; F=70 pads the operand to 72 columns)."""
-    log("[kernels] bf16 K2 and K4 where every sum is exact in f32 "
+    """The bf16 K1, K2, K4 and K5 entries on bf16_exact_case, whose
+    partial sums are integers under 2^24: exact in f32 in any order, so
+    each kernel must equal float64 bit for bit (the tensor-core loop at
+    b = 64 and 128, the FFMA loop below; F=70 pads the operand to 72
+    columns)."""
+    log("[kernels] bf16 K1, K2, K4 and K5 where every sum is exact in f32 "
         "(bf16_exact_case): each must equal float64 bit for bit")
     for b in (16, 32, 64, 128):
         for F in (70, 256):
             bsr, x, want = bf16_exact_case(b, F, seed=b + F)
             x = torch.as_tensor(x, device=DEV)
             want = torch.as_tensor(want, device=DEV).float()
-            for layout in ("sorted", "rowgroup"):
-                plan = bsr_spmm_pallas_plan(bsr, dtype=torch.bfloat16, grad=False,
-                                            depth_sort=layout == "sorted", device=DEV)
-                bf16_exact_launch(plan, x, want, f"b={b} F={F} bf16 {layout}")
+            for layout in BF16_LAYOUT_KW:
+                bf16_exact_launch(bf16_layout_plan(bsr, layout), x, want,
+                                  f"b={b} F={F} bf16 {layout}")
 
 
 def gcn_reference(adj, params, x) -> np.ndarray:
@@ -744,6 +768,7 @@ def op_plans(bsr, calibration):
         ("f32", "sorted", lambda: f_plan()),
         ("f32", "flat", lambda: f_plan(depth_sort=False)),
         ("f32", "resident", lambda: f_plan(resident=True, depth_sort=False)),
+        ("f32", "rowgroup", lambda: f32_rowgroup_plan(bsr)),
         ("high", "sorted", lambda: f_plan(precision="high")),
         ("high", "flat", lambda: f_plan(precision="high", depth_sort=False)),
         ("high", "resident", lambda: f_plan(precision="high", resident=True,
@@ -751,6 +776,8 @@ def op_plans(bsr, calibration):
         ("bf16", "sorted", lambda: f_plan(dtype=bf)),
         ("bf16", "rowgroup", lambda: f_plan(dtype=bf, depth_sort=False)),
         ("bf16", "flat", lambda: f_plan(dtype=bf, resident=False)),
+        ("bf16", "resident", lambda: f_plan(dtype=bf, precision="high",
+                                            resident=True)),
         ("int8", "sorted", lambda: i8_plan()),
         ("int8", "rowgroup", lambda: i8_plan(depth_sort=False)),
         ("int8", "flat", lambda: i8_plan(resident=False)),
@@ -802,8 +829,9 @@ def op_phase(op_bsr, x_op, calibration):
 
 
 def op_bf16_exactness(op_bsr) -> None:
-    """The bf16 K2 and K4 entries at the op shape (the tensor-core loop
-    at its widest tile) on the op matrix's blocks with integer values of
+    """The bf16 K1, K2, K4 and K5 entries at the op shape (the
+    tensor-core loop at its widest tile) on the op matrix's blocks with
+    integer values of
     magnitude <= 16 and an integer operand: every partial sum is an
     integer under 2^24, exact in f32 in any order, so each kernel must
     equal its plain version bit for bit."""
@@ -817,10 +845,9 @@ def op_bf16_exactness(op_bsr) -> None:
         raise AssertionError(f"{deepest} blocks in a row: sums may round")
     x = torch.as_tensor(rng.integers(-16, 17, size=(op_bsr.shape[1], 512),
                                      dtype=np.int8), device=DEV).float()
-    for layout in ("sorted", "rowgroup"):
-        plan = bsr_spmm_pallas_plan(bsr, dtype=torch.bfloat16, grad=False,
-                                    depth_sort=layout == "sorted", device=DEV)
-        bn = bf16_tile_geometry(op_bsr.b, op_bsr.n_block_rows, 512, _sm_count(0))[0]
+    bn = bf16_tile_geometry(op_bsr.b, op_bsr.n_block_rows, 512, _sm_count(0))[0]
+    for layout in BF16_LAYOUT_KW:
+        plan = bf16_layout_plan(bsr, layout)
         bf16_exact_launch(plan, x, plain_apply(plan, x),
                           f"op bf16 {layout} integer values, BN={bn}")
 
@@ -1064,8 +1091,7 @@ def main() -> int:
         f"[{card_line}]")
 
     op_flops = 2.0 * op_bsr.nnzb * 128 * 128 * F
-    # per kernel instance, keyed (tag, layout) as the op plans are: K1 and
-    # K5 run f32 and bf16 through one symbol each
+    # per kernel instance, keyed (tag, layout) as the op plans are
     times, bounds, library = {}, {}, {}
     f32_ref = plans[("f32", "sorted")](x_op)
     lib_ms = {
@@ -1120,19 +1146,22 @@ def main() -> int:
     bounds[key] = csr_bound(op_csr, F)
     library[key] = library_ms("csr", op_csr, x_op, p(x_op), 5,
                               "op torch.sparse_csr_tensor @ X, f32")
+    W = csr_strip_width(op_csr.n_cols, F, _l2_bytes(0))
+    lib = "none" if library[key] is None else f"{library[key]:.3f} ms"
     log(f"  op csr K10 csr_spmm kernel {k_ms:.3f} ms {csr_flops / k_ms / 1e6:.1f} "
-        f"GFLOP/s, plain {p_ms:.3f} ms {csr_flops / p_ms / 1e6:.1f} GFLOP/s, bound "
-        f"{bounds[key][0]:.3f} ms ({bounds[key][1]}) [{card_line}]")
+        f"GFLOP/s, strips of W={W} ({-(-F // W)} strips, L2 {_l2_bytes(0)} bytes), "
+        f"plain {p_ms:.3f} ms {csr_flops / p_ms / 1e6:.1f} GFLOP/s, bound "
+        f"{bounds[key][0]:.3f} ms ({bounds[key][1]}), library {lib} [{card_line}]")
     cs_static = plans[("int8", "sorted")].arrays[-1]
     q_dyn_ms = cuda_ms(lambda: quantize_per_column(x_op), iters=10)
     q_static_ms = cuda_ms(lambda: quantize_per_column(x_op, cs_static), iters=10)
     log(f"  op int8 operand quantization ({x_op.shape[0]} x {F} f32): dynamic "
         f"{q_dyn_ms:.3f} ms, static {q_static_ms:.3f} ms [{card_line}]")
 
-    # each kernel symbol's entry: the op-shape instance that runs it first
-    # above (K1 f32 flat, K2 f32 sorted and bf16 sorted, K3 "high", K4 bf16,
-    # K5 f32, K6-K9 int8 kernel only, K10 at the test_csrmm shape); the
-    # bf16 tensor-core entries with the F tile width they ran at
+    # each kernel symbol's entry: the op-shape instance that runs it (K1,
+    # K2, K4 and K5 in f32 and bf16, K3 "high" in its three instances,
+    # K6-K9 int8 kernel only, K10 at the test_csrmm shape); the bf16
+    # tensor-core entries with the F tile width they ran at
     kernels = {}
     for (tag, layout), p in plans.items():
         kid, name, source, replaces = kernel_of(p)

@@ -1,7 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels for the BSR SpMM plan,
 // C[nbr*b, F] (f32) = A (packed b x b blocks) @ dense[nbc*b, F].
 //
-// K1 bsr_spmm_flat replaces the TPU kernel
+// K1 bsr_spmm_flat (f32) and bsr_spmm_flat_bf16 replace the TPU kernel
 //   spmm_denseblock_tpu/ops/bsr_spmm_pallas.py:_pallas_spmm (+ _kernel),
 // K2 bsr_spmm_sorted (f32) and bsr_spmm_sorted_bf16 replace
 //   spmm_denseblock_tpu/ops/bsr_spmm_pallas.py:_pallas_spmm_rowgroup_sorted
@@ -9,7 +9,7 @@
 // K4 bsr_spmm_rowgroup (f32) and bsr_spmm_rowgroup_bf16 replace
 //   spmm_denseblock_tpu/ops/bsr_spmm_pallas.py:_pallas_spmm_rowgroup
 //   (+ _rowgroup_kernel),
-// K5 bsr_spmm_resident replaces
+// K5 bsr_spmm_resident (f32) and bsr_spmm_resident_bf16 replace
 //   spmm_denseblock_tpu/ops/bsr_spmm_pallas.py:_pallas_spmm_resident
 //   (+ _resident_kernel),
 // K3, the bf16x3 product of spmm_denseblock_tpu/ops/bsr_spmm_pallas.py:
@@ -21,8 +21,8 @@
 //
 // Two main loops serve them.
 //
-// The FFMA loop (K1, K5, K3, f32 K2 and K4; bf16 K2 and K4 at b = 16
-// and 32). One slot is 2*b*b*F FLOP against b*b block values plus b*F
+// The FFMA loop (K3, and K1, K2, K4 and K5 on f32 operands; the bf16
+// entries at b = 16 and 32). One slot is 2*b*b*F FLOP against b*b block values plus b*F
 // operand values: at b=128, F=512 that is 16.8 MFLOP per 64 KiB of f32
 // block and 256 KiB of operand, about 50 FLOP/byte, so with operand
 // tiles shared through L2 by the CTAs of neighbouring rows an FFMA kernel
@@ -55,12 +55,15 @@
 // operand slice in VMEM and indexes it per slot. Hopper has no 80 MB of
 // on-chip memory to hold it, so nothing is kept resident: the layout
 // only says which slots a CTA owns, and they are K1's (one block-row's
-// steps, through a step pointer). So K5's entries launch K1's kernel on
+// steps, through a step pointer). So K5's entries launch K1's kernels on
 // K1's packed arrays; they exist so that K5's launches are counted (and
 // bound) apart from K1's.
 //
-// The tensor-core loop (bf16 K2 and K4 at b = 64 and 128:
-// bsr_spmm_sorted_bf16, bsr_spmm_rowgroup_bf16). The JAX kernels run
+// The tensor-core loop (bf16 K1, K2, K4 and K5 at b = 64 and 128:
+// bsr_spmm_flat_bf16, bsr_spmm_sorted_bf16, bsr_spmm_rowgroup_bf16,
+// bsr_spmm_resident_bf16). K1's walk (one block-row's steps through a
+// step pointer) is K4's with one lane per group, so the flat entries
+// launch the K4 instance with R = 1 and gh = group. The JAX kernels run
 // bf16 operands at Precision.DEFAULT with preferred_element_type=f32:
 // bf16 products, exact in f32, summed in f32, which is what
 // wgmma.mma_async...f32.bf16.bf16 computes. With the tensor cores the
@@ -103,7 +106,7 @@
 //     masks the store; columns past ld read as zeros (TMA's out-of-bounds
 //     fill).
 //   - Absent (K2) and phantom (K4) lanes return before any barrier is
-//     initialised.
+//     initialised; K1 and K5 have neither.
 // wgmma's M of 64 does not fit b = 16 or 32 blocks, and no timed path
 // uses them, so the bf16 entries run those through the FFMA loop,
 // picked by a switch on b.
@@ -470,8 +473,8 @@ struct Wgmma<128> {
   }
 };
 
-// bf16 K2 (win_ids != nullptr) or K4 (win_ids == nullptr) on the tensor
-// cores. One CTA per (lane, F tile of BN columns); warpgroups 0 ..
+// bf16 K2 (win_ids != nullptr) or K4 (win_ids == nullptr; K1 and K5 are
+// K4 with R = 1) on the tensor cores. One CTA per (lane, F tile of BN columns); warpgroups 0 ..
 // kConsumers-1 run the products on 64 rows each, the last warpgroup's
 // first thread runs the TMA producer. Stage i's `full` barrier completes
 // when its bytes have landed, its `empty` barrier when every consumer
@@ -680,7 +683,7 @@ cudaError_t launch_ring_tile(const CUtensorMap& tb, const CUtensorMap& td,
 
 // The tensor-core loop over n_lanes lanes of ceil(F / bn) tiles. dense is
 // (n_dense_rows, ld) bf16 with ld >= F a multiple of 8; blocks hold
-// n_slots (b x b) slots. win_ids == nullptr selects K4.
+// n_slots (b x b) slots. win_ids == nullptr selects K4 (and K1/K5).
 cudaError_t launch_ring(const void* group_ptr, const void* win_ids,
                         const void* pos, const void* lane_valid,
                         const void* slot_cols, const void* blocks,
@@ -809,25 +812,57 @@ cudaError_t launch_rowgroup(const void* group_ptr, const void* slot_cols,
   return cudaGetLastError();
 }
 
+// bf16 K1 and K5: the tensor-core loop at b = 64 and 128 on the flat
+// layout's walk, which is K4's walk with one lane per group (R = 1, gh =
+// group, group_ptr = step_ptr: lane r's slot t is step_ptr[r]*group + t,
+// and every lane is a real block-row); the FFMA loop at b = 16 and 32.
+cudaError_t launch_flat_bf16(const void* step_ptr, const void* slot_cols,
+                             const void* blocks, const void* dense, void* out,
+                             int64_t n_block_rows, int64_t n_slots,
+                             int64_t n_dense_rows, int64_t F, int64_t ld,
+                             int64_t group, int64_t b, int64_t bn,
+                             cudaStream_t s) {
+  switch (b) {
+    case 16:
+    case 32:
+      if (bn != kBN || ld != F) return cudaErrorInvalidValue;
+      return launch_rows<__nv_bfloat16, Exact>(step_ptr, slot_cols, blocks,
+                                               dense, out, n_block_rows, F,
+                                               group, b, s);
+    case 64:
+    case 128:
+      return launch_ring(step_ptr, nullptr, nullptr, nullptr, slot_cols, blocks,
+                         dense, out, n_block_rows, n_block_rows, n_slots,
+                         n_dense_rows, F, ld, 1, group, 0, b, bn, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // C interface, bound with ctypes. Pointers are device pointers; the
 // stream is the caller's current stream. Returns the cudaError_t of the
-// launch (0 on success). For K1 and K5, is_bf16 selects __nv_bfloat16
-// over float for blocks and dense; the *_bf16x3 entries (K3) and the f32
-// K2 and K4 entries take float only; the *_bf16 entries take bf16 only.
+// launch (0 on success). The *_bf16 entries take bf16 blocks and dense
+// only; every other entry takes float only.
 extern "C" int sdb_bsr_spmm_flat(const void* step_ptr, const void* slot_cols,
                                  const void* blocks, const void* dense,
                                  void* out, int64_t n_block_rows, int64_t F,
-                                 int64_t group, int64_t b, int64_t is_bf16,
-                                 void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch_rows<__nv_bfloat16, Exact>(
-                             step_ptr, slot_cols, blocks, dense, out,
-                             n_block_rows, F, group, b, s)
-                       : launch_rows<float, Exact>(
-                             step_ptr, slot_cols, blocks, dense, out,
-                             n_block_rows, F, group, b, s));
+                                 int64_t group, int64_t b, void* stream) {
+  return (int)launch_rows<float, Exact>(step_ptr, slot_cols, blocks, dense,
+                                        out, n_block_rows, F, group, b,
+                                        static_cast<cudaStream_t>(stream));
+}
+
+// K1, bf16 operands: as sdb_bsr_spmm_rowgroup_bf16 on the flat layout.
+extern "C" int sdb_bsr_spmm_flat_bf16(
+    const void* step_ptr, const void* slot_cols, const void* blocks,
+    const void* dense, void* out, int64_t n_block_rows, int64_t n_slots,
+    int64_t n_dense_rows, int64_t F, int64_t ld, int64_t group, int64_t b,
+    int64_t bn, void* stream) {
+  return (int)launch_flat_bf16(step_ptr, slot_cols, blocks, dense, out,
+                               n_block_rows, n_slots, n_dense_rows, F, ld,
+                               group, b, bn, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int sdb_bsr_spmm_flat_bf16x3(const void* step_ptr,
@@ -846,14 +881,21 @@ extern "C" int sdb_bsr_spmm_resident(const void* step_ptr,
                                      const void* blocks, const void* dense3,
                                      void* out, int64_t n_block_rows,
                                      int64_t F, int64_t group, int64_t b,
-                                     int64_t is_bf16, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch_rows<__nv_bfloat16, Exact>(
-                             step_ptr, slot_cols, blocks, dense3, out,
-                             n_block_rows, F, group, b, s)
-                       : launch_rows<float, Exact>(
-                             step_ptr, slot_cols, blocks, dense3, out,
-                             n_block_rows, F, group, b, s));
+                                     void* stream) {
+  return (int)launch_rows<float, Exact>(step_ptr, slot_cols, blocks, dense3,
+                                        out, n_block_rows, F, group, b,
+                                        static_cast<cudaStream_t>(stream));
+}
+
+// K5, bf16 operands: K1's bf16 launch on the (nbc*b, ld) view of dense3.
+extern "C" int sdb_bsr_spmm_resident_bf16(
+    const void* step_ptr, const void* slot_cols, const void* blocks,
+    const void* dense3, void* out, int64_t n_block_rows, int64_t n_slots,
+    int64_t n_dense_rows, int64_t F, int64_t ld, int64_t group, int64_t b,
+    int64_t bn, void* stream) {
+  return (int)launch_flat_bf16(step_ptr, slot_cols, blocks, dense3, out,
+                               n_block_rows, n_slots, n_dense_rows, F, ld,
+                               group, b, bn, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int sdb_bsr_spmm_resident_bf16x3(const void* step_ptr,

@@ -34,15 +34,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int64
 # symbol -> (source stem, argument types)
 _SIGNATURES = {
-    # step_ptr, slot_cols, blocks, dense, out, n_block_rows, F, group, b,
-    # is_bf16, stream
-    "sdb_bsr_spmm_flat": ("bsr_spmm", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    # K5: the same arguments, the operand viewed as (nbc, b, F)
-    "sdb_bsr_spmm_resident": ("bsr_spmm", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    # K3 on K1's and K5's layouts: the same arguments without is_bf16
-    "sdb_bsr_spmm_flat_bf16x3": ("bsr_spmm", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "sdb_bsr_spmm_resident_bf16x3": ("bsr_spmm", [_P, _P, _P, _P, _P,
-                                                  _I, _I, _I, _I, _P]),
+    # f32 K1: step_ptr, slot_cols, blocks, dense, out, n_block_rows, F,
+    # group, b, stream
+    "sdb_bsr_spmm_flat": ("bsr_spmm", [_P] * 5 + [_I] * 4 + [_P]),
+    # f32 K5: the same arguments, the operand viewed as (nbc, b, F)
+    "sdb_bsr_spmm_resident": ("bsr_spmm", [_P] * 5 + [_I] * 4 + [_P]),
+    # K3 on K1's and K5's layouts: the same arguments
+    "sdb_bsr_spmm_flat_bf16x3": ("bsr_spmm", [_P] * 5 + [_I] * 4 + [_P]),
+    "sdb_bsr_spmm_resident_bf16x3": ("bsr_spmm", [_P] * 5 + [_I] * 4 + [_P]),
+    # bf16 K1 and K5: the same pointers, then n_block_rows, n_slots,
+    # n_dense_rows, F, ld, group, b, bn, stream
+    "sdb_bsr_spmm_flat_bf16": ("bsr_spmm", [_P] * 5 + [_I] * 8 + [_P]),
+    "sdb_bsr_spmm_resident_bf16": ("bsr_spmm", [_P] * 5 + [_I] * 8 + [_P]),
     # f32 K2 and K3 on its layout: group_ptr, win_ids, pos, lane_valid,
     # slot_cols, blocks, dense, out, n_lanes, F, R, gh, window, b, stream
     "sdb_bsr_spmm_sorted": ("bsr_spmm", [_P] * 8 + [_I] * 6 + [_P]),
@@ -70,8 +73,8 @@ _SIGNATURES = {
     # n_block_rows, F, R, gh, b, stream
     "sdb_bsr_spmm_int8_rowgroup": ("bsr_spmm_int8", [_P] * 7 + [_I] * 6 + [_P]),
     # seg_start, seg_end, seg_dest, cols, vals, dense, out, partial,
-    # split_row, part_ptr, n_seg, n_split, F, stream
-    "sdb_csr_spmm": ("csr_spmm", [_P] * 10 + [_I, _I, _I, _P]),
+    # split_row, part_ptr, n_seg, n_split, F, W (strip width), stream
+    "sdb_csr_spmm": ("csr_spmm", [_P] * 10 + [_I] * 4 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -160,7 +163,8 @@ class CudaKernel:
         self.launches += 1
 
 
-bsr_spmm_flat = CudaKernel("sdb_bsr_spmm_flat")                # K1
+bsr_spmm_flat = CudaKernel("sdb_bsr_spmm_flat")                # K1, f32
+bsr_spmm_flat_bf16 = CudaKernel("sdb_bsr_spmm_flat_bf16")      # K1, bf16
 bsr_spmm_sorted = CudaKernel("sdb_bsr_spmm_sorted")            # K2, f32
 bsr_spmm_sorted_bf16 = CudaKernel("sdb_bsr_spmm_sorted_bf16")  # K2, bf16
 # K3 (bf16x3) on K1's, K2's and K5's layouts
@@ -169,15 +173,16 @@ bsr_spmm_sorted_bf16x3 = CudaKernel("sdb_bsr_spmm_sorted_bf16x3")
 bsr_spmm_resident_bf16x3 = CudaKernel("sdb_bsr_spmm_resident_bf16x3")
 bsr_spmm_rowgroup = CudaKernel("sdb_bsr_spmm_rowgroup")        # K4, f32
 bsr_spmm_rowgroup_bf16 = CudaKernel("sdb_bsr_spmm_rowgroup_bf16")  # K4, bf16
-bsr_spmm_resident = CudaKernel("sdb_bsr_spmm_resident")        # K5
+bsr_spmm_resident = CudaKernel("sdb_bsr_spmm_resident")        # K5, f32
+bsr_spmm_resident_bf16 = CudaKernel("sdb_bsr_spmm_resident_bf16")  # K5, bf16
 bsr_spmm_int8_flat = CudaKernel("sdb_bsr_spmm_int8_flat")      # K6
 bsr_spmm_int8_sorted = CudaKernel("sdb_bsr_spmm_int8_sorted")  # K7
 bsr_spmm_int8_rowgroup = CudaKernel("sdb_bsr_spmm_int8_rowgroup")  # K8
 bsr_spmm_int8_resident = CudaKernel("sdb_bsr_spmm_int8_resident")  # K9
 csr_spmm = CudaKernel("sdb_csr_spmm")                           # K10
-KERNELS = (bsr_spmm_flat, bsr_spmm_sorted, bsr_spmm_sorted_bf16,
-           bsr_spmm_flat_bf16x3, bsr_spmm_sorted_bf16x3,
-           bsr_spmm_resident_bf16x3, bsr_spmm_rowgroup,
-           bsr_spmm_rowgroup_bf16, bsr_spmm_resident, bsr_spmm_int8_flat,
-           bsr_spmm_int8_sorted, bsr_spmm_int8_rowgroup,
-           bsr_spmm_int8_resident, csr_spmm)
+KERNELS = (bsr_spmm_flat, bsr_spmm_flat_bf16, bsr_spmm_sorted,
+           bsr_spmm_sorted_bf16, bsr_spmm_flat_bf16x3,
+           bsr_spmm_sorted_bf16x3, bsr_spmm_resident_bf16x3,
+           bsr_spmm_rowgroup, bsr_spmm_rowgroup_bf16, bsr_spmm_resident,
+           bsr_spmm_resident_bf16, bsr_spmm_int8_flat, bsr_spmm_int8_sorted,
+           bsr_spmm_int8_rowgroup, bsr_spmm_int8_resident, csr_spmm)

@@ -13,17 +13,17 @@ four kernels on the packed arrays:
 - K4, consecutive row groups (``spmm_rowgroup``), replacing
   ``_pallas_spmm_rowgroup``;
 - K5, single-row resident (``spmm_resident``), replacing
-  ``_pallas_spmm_resident``: K1's kernel on K1's packed arrays, launched
+  ``_pallas_spmm_resident``: K1's kernels on K1's packed arrays, launched
   and counted through K5's own entries, the operand viewed as (nbc, b,
   F).
 
 ``precision="high"`` on f32 operands runs K3, the bf16x3 product of
 ``_dot3`` (hi·hi + hi·lo + lo·hi of bf16 splits, f32 sums), as its own
 instance of K1, K2 or K5 (``bf16x3=True`` in the wrappers). bf16
-operands run K2 and K4 through their own entries
-(``sdb_bsr_spmm_{sorted,rowgroup}_bf16``), on the tensor cores at b = 64
-and 128; ``bf16_tile_geometry`` picks their F tile width and the
-operand's padded row length.
+operands run every kernel through its own entry
+(``sdb_bsr_spmm_{flat,sorted,rowgroup,resident}_bf16``), on the tensor
+cores at b = 64 and 128; ``bf16_tile_geometry`` picks their F tile width
+and the operand's padded row length.
 
 Beside each kernel sits its plain PyTorch version (``spmm_flat_plain``,
 ``spmm_sorted_plain``, ``spmm_rowgroup_plain``,
@@ -514,8 +514,8 @@ def check_cuda_operands(blocks, dense, index_arrays, dtypes=_KERNEL_DTYPES):
 
 
 def bf16_tile_geometry(b: int, n_rows: int, F: int, n_sms: int):
-    """(bn, ld) of a bf16 K2 or K4 launch over n_rows block-rows (its
-    valid lanes, one CTA row each) on a card of n_sms SMs: the F tile
+    """(bn, ld) of a bf16 K1, K2, K4 or K5 launch over n_rows block-rows
+    (its valid lanes, one CTA row each) on a card of n_sms SMs: the F tile
     width and the operand's row length as the kernel reads it.
 
     b = 16 and 32 run the FFMA loop: 64-column tiles, the operand as it
@@ -537,16 +537,17 @@ def _sm_count(index: int) -> int:
 
 
 def _bf16_launch_args(blocks, dense, n_rows: int) -> tuple:
-    """The trailing arguments of a bf16 K2/K4 entry, (n_slots,
-    n_dense_rows, F, ld), then bn, and the operand the kernel reads: the
-    operand padded to ld columns where bf16_tile_geometry pads it, else
-    the operand itself."""
+    """The trailing arguments of a bf16 entry, (n_slots, n_dense_rows,
+    F, ld), then bn, and the operand the kernel reads: the operand padded
+    to ld columns where bf16_tile_geometry pads it, else the operand
+    itself, copied when it does not start on 16 bytes (a view at an odd
+    offset; the tensor-core loop's TMA map needs an aligned base)."""
     b, F = blocks.shape[1], dense.shape[1]
-    dev = dense.device
-    bn, ld = bf16_tile_geometry(b, n_rows, F, _sm_count(
-        dev.index if dev.index is not None else torch.cuda.current_device()))
+    bn, ld = bf16_tile_geometry(b, n_rows, F, _sm_count(dense.device.index))
     if ld != F:
         dense = torch.nn.functional.pad(dense, (0, ld - F))
+    elif dense.data_ptr() % 16:
+        dense = dense.clone()
     return (blocks.shape[0], dense.shape[0], F, ld), bn, dense
 
 
@@ -562,7 +563,8 @@ def spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense, group: int,
 
     step_ptr (n_block_rows+1,) int64 points each block-row at its steps
     (derived from the sorted step_rows at plan time). CPU tensors run
-    spmm_flat_plain; CUDA tensors run the CUDA kernel."""
+    spmm_flat_plain; CUDA tensors run the CUDA kernel: f32 operands the
+    FFMA entry, bf16 the bf16 entry, as spmm_sorted."""
     dev = _device_of(step_rows, step_ptr, slot_cols, blocks, dense)
     n_block_rows = step_ptr.shape[0] - 1
     if dev.type == "cpu":
@@ -577,16 +579,19 @@ def spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense, group: int,
     b = blocks.shape[1]
     F = dense.shape[1]
     out = torch.empty(n_block_rows * b, F, dtype=torch.float32, device=dev)
+    bf16 = blocks.dtype == torch.bfloat16
     kernel = getattr(_kernels, "bsr_spmm_" + ("resident" if resident else "flat")
-                     + ("_bf16x3" if bf16x3 else ""))
+                     + ("_bf16x3" if bf16x3 else "_bf16" if bf16 else ""))
     with torch.cuda.device(dev):
-        kernel(
-            step_ptr.data_ptr(), slot_cols.data_ptr(), blocks.data_ptr(),
-            dense.data_ptr(), out.data_ptr(), n_block_rows, F, group, b,
-            # the exact entries take is_bf16; K3's take f32 only
-            *(() if bf16x3 else (int(blocks.dtype == torch.bfloat16),)),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        pointers = (step_ptr.data_ptr(), slot_cols.data_ptr(), blocks.data_ptr())
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if bf16:
+            sizes, bn, dense = _bf16_launch_args(blocks, dense, n_block_rows)
+            kernel(*pointers, dense.data_ptr(), out.data_ptr(), n_block_rows,
+                   *sizes, group, b, bn, stream)
+        else:
+            kernel(*pointers, dense.data_ptr(), out.data_ptr(), n_block_rows, F,
+                   group, b, stream)
     return out
 
 

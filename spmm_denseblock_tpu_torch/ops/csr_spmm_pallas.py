@@ -18,9 +18,11 @@ band, with G = X[cols] gathered beforehand by XLA. K10 needs neither: it
 is a row split that gathers X's rows itself and sums in f32 FFMA, so no
 (slots, F) gather is ever materialized (2.2 GB at ddi, F=256). The plan
 cuts each row's span into segments of at most SEGMENT_NNZ slots
-(``row_segments``), one warp each, so that a row of 61,693 nonzeros (ddi
-keeps duplicate edges) does not hold the card up; the segments of a
-split row store partial rows, which a second pass adds in order.
+(``row_segments``), so that a row of 61,693 nonzeros (ddi keeps
+duplicate edges) does not hold the card up; the segments of a split row
+store partial rows, which a second pass adds in order. Where X is larger
+than the card's L2, the kernel walks it in column strips whose width
+``csr_strip_width`` picks, so that each strip's gathers hit L2.
 
 Beside it sits its plain PyTorch version on the same packed arrays
 (``spmm_csr_segment_plain``): each slot adds val * X[col] into row
@@ -35,6 +37,7 @@ tensors; for CUDA tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -129,6 +132,28 @@ def row_segments(row_ptr, indptr, seg_nnz: int = SEGMENT_NNZ):
     return seg_start, seg_end, seg_dest, split_row, part_ptr
 
 
+# -- the kernel's strip width ------------------------------------------------
+
+CSR_STRIP_UNIT = 32    # columns of the strip walk's tile (8 lanes x float4)
+CSR_L2_SHARE = 0.7     # of the L2 a strip of X may fill
+
+
+def csr_strip_width(K: int, F: int, l2_bytes: int) -> int:
+    """K10's strip width W for a (K, F) f32 operand on a card with
+    l2_bytes of L2: the widest multiple of CSR_STRIP_UNIT whose (K, W)
+    slice of X fills at most CSR_L2_SHARE of the L2 (one unit if none
+    does), capped at F. The rest of the L2 is left to the streamed (col,
+    val) pairs and the output. W == F walks all of F as one strip."""
+    fit = int(CSR_L2_SHARE * l2_bytes) // max(1, 4 * K)
+    return min(F, max(CSR_STRIP_UNIT, fit // CSR_STRIP_UNIT * CSR_STRIP_UNIT))
+
+
+@functools.lru_cache(maxsize=None)
+def _l2_bytes(index: int) -> int:
+    """The card's L2 size (cudaDevAttrL2CacheSize, as torch reports it)."""
+    return torch.cuda.get_device_properties(index).L2_cache_size
+
+
 # -- the plain PyTorch version and the kernel wrapper ----------------------
 
 _PLAIN_SPAN_SLOTS = 1 << 22  # padded slots per span of the plain version
@@ -169,7 +194,8 @@ def spmm_csr_segment(cols_pad, local_rows, vals, chunk_band, row_ptr,
                      dense, R: int, n_partials: int) -> torch.Tensor:
     """K10: C (n_rows, F) f32 = A @ dense on the band layout. The kernel
     walks the segments of row_ptr's spans (row_segments) over cols_pad
-    and vals, n_partials = part_ptr[-1] partial rows for the split rows
+    and vals, in column strips of csr_strip_width's width,
+    n_partials = part_ptr[-1] partial rows for the split rows
     (local_rows and chunk_band are the plain version's). CPU tensors run
     spmm_csr_segment_plain; CUDA tensors run the CUDA kernel."""
     seg = (seg_start, seg_end, seg_dest, split_row, part_ptr)
@@ -183,12 +209,13 @@ def spmm_csr_segment(cols_pad, local_rows, vals, chunk_band, row_ptr,
     F = dense.shape[1]
     out = torch.empty(n_rows, F, dtype=torch.float32, device=dev)
     partial = torch.empty(n_partials, F, dtype=torch.float32, device=dev)
+    W = csr_strip_width(dense.shape[0], F, _l2_bytes(dev.index))
     with torch.cuda.device(dev):
         _kernels.csr_spmm(
             seg_start.data_ptr(), seg_end.data_ptr(), seg_dest.data_ptr(),
             cols_pad.data_ptr(), vals.data_ptr(), dense.data_ptr(),
             out.data_ptr(), partial.data_ptr(), split_row.data_ptr(),
-            part_ptr.data_ptr(), seg_start.shape[0], split_row.shape[0], F,
+            part_ptr.data_ptr(), seg_start.shape[0], split_row.shape[0], F, W,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     return out

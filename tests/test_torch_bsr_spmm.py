@@ -723,3 +723,48 @@ def test_bf16_tile_geometry(b, n_rows, F, n_sms, want):
     assert (bn, ld) == want
     assert ld % 8 == 0 or b < 64
     assert (ld == F) == (F % 8 == 0 or b < 64)
+
+
+@pytest.mark.parametrize("nb,F,want_bn", [
+    (33, 512, 128),   # 132 CTAs at 128 columns
+    (32, 512, 64),    # 128 at 128: 64 gives 256
+    (40, 64, 64),     # never wider than F needs
+])
+def test_bf16_flat_launch_takes_the_geometry_at_nbr_rows(nb, F, want_bn, monkeypatch):
+    """bf16 K1 and K5 launch one CTA row per block-row: their tile width
+    is bf16_tile_geometry's at the flat plan's nbr rows (the resident
+    plan packs the same flat layout)."""
+    monkeypatch.setattr(T, "_sm_count", lambda index: 132)
+    bsr = _with_empty_rows(t_bsr, nb, 128, 0.05, seed=nb, empty=(1,))
+    for kw in ({"resident": False}, {"resident": True, "precision": "high"}):
+        plan = T.bsr_spmm_pallas_plan(bsr, dtype=torch.bfloat16, grad=False,
+                                      device="cpu", **kw)
+        assert plan.statics[0] == ("resident" if kw["resident"] else "flat")
+        nbr, blocks = plan.statics[1], plan.arrays[2]
+        assert nbr == nb
+        dense = torch.zeros(bsr.shape[1], F, dtype=torch.bfloat16)
+        sizes, bn, _ = T._bf16_launch_args(blocks, dense, nbr)
+        assert (bn, sizes[3]) == T.bf16_tile_geometry(128, nbr, F, 132)
+        assert bn == want_bn and sizes[:3] == (blocks.shape[0], bsr.shape[1], F)
+
+
+@pytest.mark.parametrize("F", [256, 70])
+def test_bf16_launch_args_align_the_operand(F, monkeypatch):
+    """The tensor-core loop's TMA map needs an operand that starts on 16
+    bytes: a contiguous bf16 view at an odd element offset is copied to
+    a fresh, aligned buffer with the same values (a ragged F is padded,
+    which copies it anyway); an aligned operand passes as it is."""
+    monkeypatch.setattr(T, "_sm_count", lambda index: 132)
+    blocks = torch.zeros(4, 64, 64, dtype=torch.bfloat16)
+    x = torch.arange(128 * F, dtype=torch.float32).reshape(128, F) % 33 - 16
+    base = torch.empty(x.numel() + 1, dtype=torch.bfloat16)
+    view = base[1:].view(128, F)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 2
+    sizes, bn, dense = T._bf16_launch_args(blocks, view, 2)
+    assert dense.data_ptr() % 16 == 0 and dense.is_contiguous()
+    assert sizes[3] == dense.shape[1] and torch.equal(dense[:, :F], view)
+    aligned = x.to(torch.bfloat16)
+    assert aligned.data_ptr() % 16 == 0
+    if F % 8 == 0:
+        assert T._bf16_launch_args(blocks, aligned, 2)[2] is aligned

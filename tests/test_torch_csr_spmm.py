@@ -420,3 +420,41 @@ def test_default_device_is_the_card(name, monkeypatch):
     tensors = (list(built.buffers()) if isinstance(built, torch.nn.Module)
                else [p["w"] for p in built[1][0]])
     assert tensors and all(t.device.type == "cpu" for t in tensors)
+
+
+# -- K10's column strips --------------------------------------------------------
+
+H100_L2 = 52_428_800  # the H100's L2 as the card reports it
+
+
+@pytest.mark.parametrize("K,F,l2,want", [
+    (1 << 17, 512, H100_L2, 64),    # the test_csrmm op shape: 8 strips
+    (4267, 256, H100_L2, 256),      # ddi: X fits, one strip
+    (1 << 17, 100, H100_L2, 64),    # ragged F: strips of 64 and 36
+    (1000, 100, H100_L2, 100),      # ragged F that fits: one strip
+    (1 << 16, 300, H100_L2, 128),
+    (1 << 17, 512, 1 << 20, 32),    # tiny L2: one unit, however little fits
+    (1 << 17, 20, 1 << 20, 20),     # F below one unit: one strip
+    (0, 64, H100_L2, 64),
+])
+def test_csr_strip_width(K, F, l2, want):
+    """The widest multiple of the 32-column unit whose (K, W) f32 slice
+    of X fills at most 70% of the L2, capped at F."""
+    W = TP.csr_strip_width(K, F, l2)
+    assert W == want
+    assert W == F or (W % TP.CSR_STRIP_UNIT == 0 and W < F)
+    if F > W > TP.CSR_STRIP_UNIT:
+        assert K * W * 4 <= 0.7 * l2 < K * (W + TP.CSR_STRIP_UNIT) * 4
+
+
+def test_csr_strip_width_respects_the_unit():
+    """Over a grid of shapes and L2 sizes W is F (one strip) or a
+    positive multiple of the unit below F, and never wider than fits
+    unless it is one unit."""
+    for K in (1, 100, 4267, 1 << 14, 1 << 17, 1 << 20):
+        for F in (1, 7, 31, 32, 33, 64, 100, 256, 512, 600):
+            for l2 in (1 << 16, 1 << 20, 40 << 20, H100_L2):
+                W = TP.csr_strip_width(K, F, l2)
+                assert 0 < W <= F
+                assert W == F or W % TP.CSR_STRIP_UNIT == 0
+                assert W == min(F, TP.CSR_STRIP_UNIT) or K * W * 4 <= 0.7 * l2

@@ -1,11 +1,11 @@
 """The CUDA kernels K1 (flat grouped gather), K2 (depth-sorted row
-groups; f32, and bf16 on the tensor cores), K3 (the bf16x3 product, on
-K1's, K2's and K5's layouts), K4 (consecutive row groups; f32, and bf16
-on the tensor cores), K5 (single-row resident), the int8 kernels
-K6 (flat), K7 (depth-sorted, group-scale and per-slot scales), K8
-(consecutive row groups) and K9 (single-row resident), and the CSR
-kernel K10 against their plain PyTorch versions on the card, their
-launch counters, the wrappers' refusals, and grad plans' backward on
+groups), K4 (consecutive row groups) and K5 (single-row resident), each
+in f32 and, on the tensor cores, in bf16, K3 (the bf16x3 product, on
+K1's, K2's and K5's layouts), the int8 kernels K6 (flat), K7
+(depth-sorted, group-scale and per-slot scales), K8 (consecutive row
+groups) and K9 (single-row resident), and the CSR kernel K10 (one strip,
+and column strips) against their plain PyTorch versions on the card,
+their launch counters, the wrappers' refusals, and grad plans' backward on
 the card against the plain backward. CUDA kernels have no CPU mode, so
 these tests skip without a GPU; run them on one with
 
@@ -85,8 +85,7 @@ def test_kernel_matches_plain(b, dtype, layout):
                                   resident=False if layout == "flat" else None,
                                   device="cuda")
     assert plan.statics[0] == layout
-    kernel = (_kernels.bsr_spmm_flat if layout == "flat"
-              else _kernels.bsr_spmm_sorted_bf16 if dtype else _kernels.bsr_spmm_sorted)
+    kernel = getattr(_kernels, f"bsr_spmm_{layout}" + ("_bf16" if dtype else ""))
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(
         (bsr.shape[1], 133)).astype(np.float32), device="cuda")
     got = _check(plan, x, kernel)
@@ -171,14 +170,19 @@ def test_rowgroup_plan_uses_k4():
     _check(plan, _x(bsr), _kernels.bsr_spmm_rowgroup_bf16)
 
 
-# -- the bf16 tensor-core instances of K2 and K4 -----------------------------
+# -- the bf16 tensor-core instances of K1, K2, K4 and K5 ---------------------
 
-BF16_KERNELS = {"sorted": "bsr_spmm_sorted_bf16", "rowgroup": "bsr_spmm_rowgroup_bf16"}
+BF16_KERNELS = {"sorted": "bsr_spmm_sorted_bf16", "rowgroup": "bsr_spmm_rowgroup_bf16",
+                "flat": "bsr_spmm_flat_bf16", "resident": "bsr_spmm_resident_bf16"}
+# the bf16 plan's arguments that pack each layout
+BF16_LAYOUT_KW = {"sorted": {"depth_sort": True}, "rowgroup": {"depth_sort": False},
+                  "flat": {"resident": False},
+                  "resident": {"precision": "high", "resident": True}}
 
 
 def _bf16_plan(bsr, layout):
     plan = T.bsr_spmm_pallas_plan(bsr, dtype=torch.bfloat16, grad=False,
-                                  depth_sort=layout == "sorted", device="cuda")
+                                  device="cuda", **BF16_LAYOUT_KW[layout])
     assert plan.statics[0] == layout
     return plan
 
@@ -209,7 +213,7 @@ def _widest_tiles(monkeypatch, wide):
 
 @pytest.mark.parametrize("wide", [False, True])
 @pytest.mark.parametrize("F", [70, 256])
-@pytest.mark.parametrize("layout", ["sorted", "rowgroup"])
+@pytest.mark.parametrize("layout", list(BF16_KERNELS))
 @pytest.mark.parametrize("b", [16, 32, 64, 128])
 def test_bf16_kernels_bit_exact(b, layout, F, wide, monkeypatch):
     """On bf16_exact_case every partial sum is an integer under 2^24, so
@@ -217,7 +221,7 @@ def test_bf16_kernels_bit_exact(b, layout, F, wide, monkeypatch):
     loop below) must equal float64 and their plain versions bit for bit:
     a misplaced fragment, swizzle or transposed operand would show.
     F=70 pads the operand to 72 columns; 7 block-rows leave absent (K2)
-    and phantom (K4) lanes and an empty row."""
+    and phantom (K4) lanes and an empty row (a zero block in K1/K5)."""
     _widest_tiles(monkeypatch, wide)
     bsr, x, want = bf16_exact_case(b, F, seed=b + F)
     got, plain = _check_bf16(_bf16_plan(bsr, layout), torch.as_tensor(x, device="cuda"),
@@ -229,7 +233,7 @@ def test_bf16_kernels_bit_exact(b, layout, F, wide, monkeypatch):
 @pytest.mark.parametrize("wide", [False, True])
 @pytest.mark.parametrize("nb", [7, 37])
 @pytest.mark.parametrize("F", [8, 70, 133, 256, 512])
-@pytest.mark.parametrize("layout", ["sorted", "rowgroup"])
+@pytest.mark.parametrize("layout", list(BF16_KERNELS))
 @pytest.mark.parametrize("b", [64, 128])
 def test_bf16_kernels_match_plain(b, layout, F, nb, wide, monkeypatch):
     """The tensor-core loop on random data within 1e-5 of its plain
@@ -243,27 +247,76 @@ def test_bf16_kernels_match_plain(b, layout, F, nb, wide, monkeypatch):
     assert rel < TOL, rel
 
 
-def test_bf16_entries_refuse_bad_geometry():
+@pytest.mark.parametrize("layout", list(BF16_KERNELS))
+def test_bf16_entries_refuse_bad_geometry(layout):
     """A launch the entry refuses (an F tile width it has no kernel for,
     an operand row length that is not a multiple of 8) returns its
     cudaError_t and the wrapper raises; no launch is counted."""
     bsr, x, _ = bf16_exact_case(64, 70)
-    plan = _bf16_plan(bsr, "sorted")
-    win_ids, slot_cols, blocks, pos, lane_valid, group_ptr = plan.arrays
-    R, gh, W = plan.statics[-1]
+    plan = _bf16_plan(bsr, layout)
+    blocks = plan.arrays[2]
     dense = torch.as_tensor(x, device="cuda").to(torch.bfloat16)
     out = torch.empty(bsr.shape[0], 70, device="cuda")
     counts = [k.launches for k in _kernels.KERNELS]
     stream = torch.cuda.current_stream().cuda_stream
-    ptrs = [t.data_ptr() for t in (group_ptr, win_ids, pos, lane_valid, slot_cols,
-                                   blocks, dense, out)]
-    n_lanes = lane_valid.shape[0]
+    kernel = getattr(_kernels, BF16_KERNELS[layout])
+    if layout == "sorted":
+        win_ids, slot_cols, _, pos, lane_valid, group_ptr = plan.arrays
+        R, gh, W = plan.statics[-1]
+        head = (group_ptr, win_ids, pos, lane_valid, slot_cols)
+        lanes, tail = (lane_valid.shape[0],), (R, gh, W, 64)
+    elif layout == "rowgroup":
+        _, slot_cols, _, group_ptr = plan.arrays
+        R, gh = plan.statics[-1]
+        head = (group_ptr, slot_cols)
+        lanes, tail = ((group_ptr.shape[0] - 1) * R, plan.statics[1]), (R, gh, 64)
+    else:  # flat and resident: the step pointer, one lane per block-row
+        _, slot_cols, _, step_ptr = plan.arrays
+        head = (step_ptr, slot_cols)
+        lanes, tail = (plan.statics[1],), (plan.statics[-1], 64)
+    ptrs = [t.data_ptr() for t in (*head, blocks, dense, out)]
     for ld, bn in ((70, 64), (72, 96), (72, 256)):
         with pytest.raises(RuntimeError, match="cudaError_t"):
-            _kernels.bsr_spmm_sorted_bf16(*ptrs, n_lanes, blocks.shape[0],
-                                          dense.shape[0], 70, ld, R, gh, W, 64,
-                                          bn, stream)
+            kernel(*ptrs, *lanes, blocks.shape[0], dense.shape[0], 70, ld, *tail,
+                   bn, stream)
     assert [k.launches for k in _kernels.KERNELS] == counts
+
+
+@pytest.mark.parametrize("layout", list(BF16_KERNELS))
+@pytest.mark.parametrize("b", [16, 64, 128])
+def test_bf16_operand_at_odd_offset(b, layout):
+    """A contiguous bf16 operand that starts 2 bytes past a 16-byte
+    boundary (a view at an odd element offset): the tensor-core loop's
+    TMA map needs an aligned base, so the wrapper copies it; every bf16
+    entry gives float64's answer and its plain version's, bit for bit."""
+    bsr, x, want = bf16_exact_case(b, 256, seed=b + 1)
+    base = torch.empty(x.size + 1, dtype=torch.bfloat16, device="cuda")
+    view = base[1:].view(x.shape)
+    view.copy_(torch.as_tensor(x))
+    assert view.is_contiguous() and view.data_ptr() % 16 == 2
+    got, plain = _check_bf16(_bf16_plan(bsr, layout), view, layout)
+    np.testing.assert_array_equal(got.double().cpu().numpy(), want)
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("kw,layout,dtype", [
+    ({"resident": False}, "flat", torch.bfloat16),
+    ({"depth_sort": False}, "flat", None),
+    ({"precision": "high", "resident": True}, "resident", torch.bfloat16),
+    ({"resident": True, "depth_sort": False}, "resident", None),
+])
+def test_k1_k5_counters_split_by_dtype(kw, layout, dtype):
+    """bf16 K1 and K5 count on their own entries (bsr_spmm_flat_bf16,
+    bsr_spmm_resident_bf16) and f32 K1 and K5 on theirs: one launch, on
+    the one counter of the layout and dtype."""
+    bsr = _bsr(37, 64, 0.3, seed=9)
+    plan = T.bsr_spmm_pallas_plan(bsr, dtype=dtype, grad=False, device="cuda", **kw)
+    assert plan.statics[0] == layout
+    name = f"bsr_spmm_{layout}" + ("_bf16" if dtype else "")
+    counts = {k.symbol: k.launches for k in _kernels.KERNELS}
+    _check(plan, _x(bsr, F=96, seed=9), getattr(_kernels, name))
+    counts["sdb_" + name] += 1
+    assert {k.symbol: k.launches for k in _kernels.KERNELS} == counts
 
 
 INT8_CASES = {
@@ -372,7 +425,7 @@ K3_K5_CASES = {
     "k5": ({"resident": True, "depth_sort": False}, "resident",
            "bsr_spmm_resident"),
     "k5_bf16": ({"resident": True, "precision": "high", "dtype": torch.bfloat16},
-                "resident", "bsr_spmm_resident"),
+                "resident", "bsr_spmm_resident_bf16"),
 }
 
 
@@ -610,6 +663,64 @@ def test_csr_kernel_split_rows(F):
                         device="cuda")
     got = _check_csr(plan, x)
     assert_allclose(got, spmm_scipy(csr, x.cpu().numpy()))
+
+
+def _strip_csr(F):
+    """2,000 rows over 2^16 columns: rows 0-9 and 700-899 empty, rows 13,
+    1500 and 1999 of 3,000, 1,025 and 513 nonzeros (split into segments;
+    duplicate columns kept), the rest 0 to 40."""
+    rng = np.random.default_rng(F)
+    deg = rng.integers(0, 41, size=2000)
+    deg[list(range(10)) + list(range(700, 900))] = 0
+    deg[[13, 1500, 1999]] = (3000, 1025, 513)
+    rows = np.repeat(np.arange(2000), deg)
+    return CSR.from_coo(rows, rng.integers(0, 1 << 16, size=rows.size),
+                        rng.standard_normal(rows.size), (2000, 1 << 16))
+
+
+@pytest.mark.parametrize("F", [203, 300])
+def test_csr_kernel_column_strips(F, monkeypatch):
+    """K10 over X of 2^16 rows, where csr_strip_width cuts F into several
+    strips on the card's L2 (128 columns on an H100): ragged F (203 takes
+    the scalar path, 300 the float4 path with a last strip of 44), split
+    rows and empty rows, within 1e-5 of the plain version and 1e-4 of
+    scipy. Every strip width sums each output's terms in the same order,
+    so strips of 32, 64 and 96 columns and one strip of all of F give the
+    same answer bit for bit."""
+    csr = _strip_csr(F)
+    K = csr.n_cols
+    assert 1 < -(-F // TP.csr_strip_width(K, F, TP._l2_bytes(0)))
+    plan = TP.csr_spmm_pallas_plan(csr, grad=False, device="cuda")
+    assert plan.arrays[8].tolist() == [13, 1500, 1999]  # split_row
+    x = torch.as_tensor(np.random.default_rng(F).standard_normal(
+        (K, F)).astype(np.float32), device="cuda")
+    got = _check_csr(plan, x)
+    assert not got[:10].any() and not got[700:900].any()
+    assert_allclose(got, spmm_scipy(csr, x.cpu().numpy()))
+    for W in (32, 64, 96, F):
+        monkeypatch.setattr(TP, "csr_strip_width", lambda K, F, l2, W=W: W)
+        assert torch.equal(_check_csr(plan, x), got), W
+
+
+def test_csr_entry_refuses_a_strip_width():
+    """A strip width narrower than F that is not a positive multiple of
+    32 has no kernel: the entry returns its cudaError_t, the wrapper
+    raises, and no launch is counted."""
+    csr = _csr(300, 200)
+    plan = TP.csr_spmm_pallas_plan(csr, grad=False, device="cuda")
+    seg = plan.arrays[5:]
+    x = torch.ones(200, 100, device="cuda")
+    out = torch.empty(300, 100, device="cuda")
+    partial = torch.empty(max(plan.statics[4], 1), 100, device="cuda")
+    counts = [k.launches for k in _kernels.KERNELS]
+    for W in (0, -32, 48, 99):
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            _kernels.csr_spmm(
+                *(t.data_ptr() for t in (*seg[:3], plan.arrays[0], plan.arrays[2],
+                                         x, out, partial, *seg[3:])),
+                seg[0].shape[0], seg[3].shape[0], 100, W,
+                torch.cuda.current_stream().cuda_stream)
+    assert [k.launches for k in _kernels.KERNELS] == counts
 
 
 def test_csr_grad_plan_backward_on_card():
