@@ -25,9 +25,10 @@ Phases:
               with empty head rows and an empty band (F=7), a rectangular
               one (F=64) and ddi (F=256); then each K3 instance and its
               exact kernel (K2, K1, K5) on an input whose sums are exact in
-              f32 (bf16x3_exact_case): K3 must give A_hi X_hi + A_hi X_lo +
-              A_lo X_hi and the exact kernel A X, each bit for bit (the two
-              differ in most entries); then the bf16 K1, K2, K4 and K5
+              f32 (bf16x3_exact_case at b = 16, 64 and 128, F=200): K3 must
+              give A_hi X_hi + A_hi X_lo + A_lo X_hi and the exact kernel A
+              X, each bit for bit (the two differ in most entries), and each
+              K3 call split its operand once; then the bf16 K1, K2, K4 and K5
               entries at b = 16, 32, 64 and 128 and F = 70 and 256 on an
               input whose sums are exact in f32 (bf16_exact_case): each
               must equal float64 bit for bit
@@ -47,7 +48,8 @@ Phases:
               default grad plan (K2 on A and on Aᵀ), seeded labels over
               256 classes and a 60% train mask: 5 Adam(lr=1e-2) steps of
               make_train_step in f32, then 5 with precision="high" (K3 on
-              the sorted layout, both ways), then 5 through the csr_pallas
+              the sorted layout, both ways, each call with its operand
+              split), then 5 through the csr_pallas
               grad plan (K10 on A and on Aᵀ). Step 0's parameter gradients
               within 1e-4 (max |err| / max |ref|) of a float64 host
               autograd reference on the dense A, taken at the kernel
@@ -74,6 +76,7 @@ Phases:
               K1, K2, K4 and K5 entries on the op shape's blocks with
               small integer values (every sum exact in f32), bit for bit
               against their plain versions;
+              K3's operand split against its plain version, bit for bit;
               bench.py's bf16x3 self-check (the "high" answer within 1e-4
               of exact f32 K2's and of the bsr_xla tier's); K10 at the
               reference's test_csrmm shape, random_csr(2e-3, 2^17,
@@ -95,9 +98,12 @@ Phases:
               kernel); each
               kernel's bound (the larger of its bytes, each input read
               once and each output written once, over 3.35 TB/s, and its
-              operations over the peak of their type); the bf16
-              tensor-core rows of the kernels line carry their F tile
-              width (bn)
+              operations over the peak of their type); K3's operand split
+              alone (its own row; the K3 rows time whole calls, the split
+              included); which tier bench.py would make its headline (the
+              faster of exact f32 K2 and K3, the self-check having passed);
+              the rows of the tensor-core loop (bf16 entries, K3) and of
+              f32 K2's pipelined loop carry their F tile width (bn)
 
 The main path is phases 4 to 6, each of their runs (f32 slice, int8
 slice, CSR slice, bf16 slice, f32 training, "high" training, CSR
@@ -151,6 +157,9 @@ from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import (  # noqa: E402
     bsr_spmm_pallas_plan,
     group_pointer,
     plain_apply,
+    split_operand,
+    split_operand_plain,
+    tile_geometry,
 )
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8 import (  # noqa: E402
     _int8_pallas_apply,
@@ -205,6 +214,8 @@ KERNEL_INFO = {
     ("f", "sorted", "bf16x3"): ("K3", "bsr_spmm_sorted_bf16x3", _F, _PALLAS + ":56"),
     ("f", "resident", "bf16x3"): ("K3", "bsr_spmm_resident_bf16x3", _F,
                                   _PALLAS + ":56"),
+    # K3's operand split: the splits of _dot3 (its lines 76-79)
+    ("split",): ("K3", "split_bf16", _F, _PALLAS + ":76"),
     ("f", "rowgroup", "exact"): ("K4", "bsr_spmm_rowgroup", _F, _PALLAS + ":412"),
     ("f", "rowgroup", "bf16"): ("K4", "bsr_spmm_rowgroup_bf16", _F, _PALLAS + ":412"),
     ("f", "resident", "exact"): ("K5", "bsr_spmm_resident", _F, _PALLAS + ":301"),
@@ -269,10 +280,10 @@ def kernel_of(plan) -> tuple:
         return KERNEL_INFO[("csr",)]
     if plan.apply_fn is _int8_pallas_apply:
         return KERNEL_INFO[("i8", plan.statics[0])]
-    layout = plan.statics[0]
-    if plan.arrays[2].dtype == torch.bfloat16:
+    layout, math = plan.statics[0], plan.statics[5]
+    if math == "exact" and plan.arrays[2].dtype == torch.bfloat16:
         return KERNEL_INFO[("f", layout, "bf16")]  # their own bf16 entries
-    return KERNEL_INFO[("f", layout, plan.statics[5])]
+    return KERNEL_INFO[("f", layout, math)]
 
 
 def rel_err(got, want) -> float:
@@ -410,28 +421,36 @@ def k3_exactness() -> None:
     """Each K3 instance, and the exact kernel on its layout, on an input
     whose partial sums are all exact in f32: the order of a kernel's
     sums cannot matter, so K3 must give the bf16x3 answer and the exact
-    kernel A X, bit for bit."""
-    bsr, x, want3, want_exact = bf16x3_exact_case()
-    x = torch.as_tensor(x, device=DEV)
-    n_diff = int((want3 != want_exact).sum())
-    log(f"[kernels] bf16x3 against exact f32 where every sum is exact in f32: "
-        f"the answers differ (by A_lo X_lo) in {n_diff} of {want3.size} "
-        f"entries, by up to {np.abs(want3 - want_exact).max():.0f}")
-    for kw in ({}, {"depth_sort": False}, {"resident": True, "depth_sort": False}):
-        for precision, want, what in (("high", want3, "A_hi X_hi + A_hi X_lo + A_lo X_hi"),
-                                      (None, want_exact, "A X")):
-            plan = bsr_spmm_pallas_plan(bsr, grad=False, precision=precision,
-                                        device=DEV, **kw)
-            kid, name = kernel_of(plan)[:2]
-            before = launches()[name]
-            got = plan(x)
-            torch.cuda.synchronize()
-            if launches()[name] != before + 1:
-                raise AssertionError(f"{name} did not launch")
-            n_bad = int((got.double().cpu().numpy() != want).sum())
-            log(f"  {kid} {name:<26} == {what}: {n_bad} entries differ")
-            if n_bad:
-                raise AssertionError(f"{name}: {n_bad} entries differ from {what}")
+    kernel A X, bit for bit; at b = 16 (the FFMA loops) and at b = 64 and
+    128 (K3 on the tensor-core ring, f32 K2 on the pipelined FFMA loop).
+    Each K3 call splits its operand once."""
+    for b in (16, 64, 128):
+        bsr, x, want3, want_exact = bf16x3_exact_case(F=200, seed=b, b=b)
+        x = torch.as_tensor(x, device=DEV)
+        n_diff = int((want3 != want_exact).sum())
+        log(f"[kernels] b={b}: bf16x3 against exact f32 where every sum is exact "
+            f"in f32: the answers differ (by A_lo X_lo) in {n_diff} of "
+            f"{want3.size} entries, by up to {np.abs(want3 - want_exact).max():.0f}")
+        for kw in ({}, {"depth_sort": False}, {"resident": True, "depth_sort": False}):
+            for precision, want, what in (
+                    ("high", want3, "A_hi X_hi + A_hi X_lo + A_lo X_hi"),
+                    (None, want_exact, "A X")):
+                plan = bsr_spmm_pallas_plan(bsr, grad=False, precision=precision,
+                                            device=DEV, **kw)
+                kid, name = kernel_of(plan)[:2]
+                before = launches()
+                got = plan(x)
+                torch.cuda.synchronize()
+                after = launches()
+                splits = after["split_bf16"] - before["split_bf16"]
+                if after[name] != before[name] + 1 or splits != (precision == "high"):
+                    raise AssertionError(f"{name} did not launch once, or split "
+                                         f"{splits} times")
+                n_bad = int((got.double().cpu().numpy() != want).sum())
+                log(f"  b={b:<3} {kid} {name:<26} == {what}: {n_bad} entries differ")
+                if n_bad:
+                    raise AssertionError(f"b={b} {name}: {n_bad} entries differ "
+                                         f"from {what}")
 
 
 def bf16_exact_launch(plan, x, want, label: str) -> None:
@@ -814,6 +833,7 @@ def op_phase(op_bsr, x_op, calibration):
             if rel >= INT8_TOL:
                 raise AssertionError(f"op int8 {layout}: rel err {rel:.3e}")
     op_bf16_exactness(op_bsr)
+    errs[("split", "split")] = check_split(x_op)
     # bench.py's bf16x3 self-check, against exact f32 K2 and the bsr_xla tier
     xla_out = bsr_spmm_xla_plan(op_bsr, device=DEV)(x_op)
     log(f"  bsr_xla vs f32 K2: rel err {rel_to(xla_out, ref):.3e}")
@@ -826,6 +846,23 @@ def op_phase(op_bsr, x_op, calibration):
             if not rel < BF16X3_TOL:
                 raise AssertionError(f"bf16x3 {layout} vs {what}: {rel:.3e}")
     return plans, errs
+
+
+def check_split(x) -> float:
+    """K3's operand split (split_operand) on the op operand against its
+    plain version: bit for bit. Returns max |kernel - plain| (0)."""
+    before = launches()["split_bf16"]
+    got = split_operand(x)
+    torch.cuda.synchronize()
+    if launches()["split_bf16"] != before + 1:
+        raise AssertionError("split_bf16 did not launch")
+    want = split_operand_plain(x)
+    n_bad = int((got != want).sum()) if got.shape == want.shape else -1
+    log(f"  op K3 operand split {tuple(x.shape)} -> {tuple(got.shape)} bf16 planes: "
+        f"{n_bad} entries differ from its plain version")
+    if n_bad:
+        raise AssertionError(f"split_bf16: {n_bad} entries differ")
+    return (got.float() - want.float()).abs().max().item()
 
 
 def op_bf16_exactness(op_bsr) -> None:
@@ -850,6 +887,20 @@ def op_bf16_exactness(op_bsr) -> None:
         plan = bf16_layout_plan(bsr, layout)
         bf16_exact_launch(plan, x, plain_apply(plan, x),
                           f"op bf16 {layout} integer values, BN={bn}")
+
+
+def tile_bn(name: str, bsr: BSR, F: int):
+    """The F tile width a kernel of the op plans launched at, or None for
+    the kernels whose tiles are 64 columns (the FFMA loop) or not BSR
+    tiles: the tensor-core loop (bf16 entries and K3 at b >= 64) and f32
+    K2's pipelined loop pick theirs from the grid."""
+    if bsr.b < 64:
+        return None
+    if name.endswith(("_bf16", "_bf16x3")):
+        return bf16_tile_geometry(bsr.b, bsr.n_block_rows, F, _sm_count(0))[0]
+    if name == "bsr_spmm_sorted":
+        return tile_geometry(bsr.b, bsr.n_block_rows, F, _sm_count(0), 4)[0]
+    return None
 
 
 def rel_to(got, want) -> float:
@@ -913,14 +964,17 @@ def main_path(adj, dims, op_bsr, op_csr, x_op, calibration):
             ("csr", None, "csr_pallas", "csr_spmm")):
         reset_launches()
         train[key] = train_phase(adj, dims, precision, impl)
-        read(f"train {key}", {name: 1 + 5 * 3 + 2})
+        expect = {name: 1 + 5 * 3 + 2}
+        if key == "high":  # each K3 call splits its operand once
+            expect["split_bf16"] = expect[name]
+        read(f"train {key}", expect)
 
     reset_launches()
     plans, errs = op_phase(op_bsr, x_op, calibration)
     plans[("csr", "csr")], errs[("csr", "csr")] = csr_op_phase(op_csr, x_op)
     read("op", {})
-    missing = [kernel_of(p)[1] for p in plans.values()
-               if totals.get(kernel_of(p)[1], 0) == 0]
+    missing = [name for name in [kernel_of(p)[1] for p in plans.values()]
+               + ["split_bf16"] if totals.get(name, 0) == 0]
     if missing:
         raise AssertionError(f"not launched on the main path: {missing}")
     slices = {"f32": plan, "int8": plan_i8, "csr": plan_csr, "bf16": plan_bf16}
@@ -1101,6 +1155,17 @@ def main() -> int:
                            "op torch.sparse_bsr_tensor @ X, bf16"),
     }
     lib_ms["high"] = lib_ms["f32"]
+    # K3's operand split alone: it runs in every K3 call timed below
+    key = ("split", "split")
+    ld = -(-F // 8) * 8
+    times[key] = (cuda_ms(lambda: split_operand(x_op), iters=20),
+                  cuda_ms(lambda: split_operand_plain(x_op), iters=5, warmup=1))
+    bounds[key] = bound("f32", 0.0, x_op.numel() * 4 + 2 * x_op.shape[0] * ld * 2)
+    library[key] = None
+    log(f"  op K3 operand split ({x_op.shape[0]} x {F} f32 -> 2 x {x_op.shape[0]} "
+        f"x {ld} bf16) split_bf16 kernel {times[key][0]:.3f} ms, plain "
+        f"{times[key][1]:.3f} ms, bound {bounds[key][0]:.3f} ms ({bounds[key][1]}), "
+        f"library none [{card_line}]")
     for (tag, layout), p in plans.items():
         kid, name = kernel_of(p)[:2]
         if tag == "csr":
@@ -1127,7 +1192,11 @@ def main() -> int:
         else:
             k_ms = cuda_ms(lambda: p(x_op), iters=10)
             p_ms = cuda_ms(lambda: plain_apply(p, x_op), iters=5, warmup=1)
-            extra = ""
+            extra = (f", BN={tile_bn(name, op_bsr, F)}" if tile_bn(name, op_bsr, F)
+                     else "")
+            if tag == "high":
+                extra += (f", the operand split included "
+                          f"({times[('split', 'split')][0]:.3f} ms alone)")
         key = (tag, layout)
         times[key] = (k_ms, p_ms)
         bounds[key] = bsr_bound(tag, op_bsr, F)
@@ -1182,9 +1251,21 @@ def main() -> int:
             "bound_by": bounds[key][1],
             "library_ms": library[key],
         }
-        if name.endswith("_bf16"):
-            kernels[name]["bn"] = bf16_tile_geometry(
-                op_bsr.b, op_bsr.n_block_rows, F, _sm_count(0))[0]
+        if tile_bn(name, op_bsr, F):
+            kernels[name]["bn"] = tile_bn(name, op_bsr, F)
+    k_ms, p_ms = times[("split", "split")]
+    kernels["split_bf16"] = {
+        "name": "K3 split_bf16", "route": "cuda", "source": _F,
+        "replaces": KERNEL_INFO[("split",)][3],
+        "launches": main_launches["split_bf16"],
+        "max_abs_err": errs[("split", "split")], "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": bounds[("split", "split")][0],
+        "bound_by": bounds[("split", "split")][1], "library_ms": None,
+    }
+    t_f32, t_high = times[("f32", "sorted")][0], times[("high", "sorted")][0]
+    log(f"[timing] bench.py's headline tier on this card: "
+        f"{'f32(bf16x3)' if t_high < t_f32 else 'f32'} (its self-check passed in "
+        f"the op phase; high {t_high:.3f} ms, exact f32 {t_f32:.3f} ms) [{card_line}]")
     kernels = sorted(kernels.values(), key=lambda k: (int(k["name"][1:].split()[0]),
                                                       k["name"]))
     if {k["name"].split()[0] for k in kernels} != ALL_KERNELS:

@@ -1,0 +1,127 @@
+"""Time variants of the port's BSR kernels against the source as it is,
+at bench.py's op shape (random_bsr(2e-2, 1024, 1024, b=128, seed=1234),
+F=512), on one NVIDIA GPU:
+
+    python3 scripts/torch_kernel_variants.py f32_k2   # exact-f32 K2
+    python3 scripts/torch_kernel_variants.py k3       # K3 (precision="high")
+
+Each variant is csrc/bsr_spmm.cu with a few lines replaced (VARIANTS),
+built beside the tree's under tmp/variants/ and loaded in its place; the
+variants run in the order A B .. B A on one card, so that drift shows as
+a spread of the pairs. Every variant's answer is compared with the
+tree's bit for bit (the K3 "hi*hi only" variant drops two products on
+purpose: it times the tensor-core work, not an answer). For K3 each run
+times the whole call (the operand split included) and the ring alone on
+an operand split once, and bf16 K2 on the same build.
+"""
+
+from __future__ import annotations
+
+import importlib
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from spmm_denseblock_tpu_torch.formats.bsr import random_bsr  # noqa: E402
+from spmm_denseblock_tpu_torch.ops import _kernels  # noqa: E402
+
+T = importlib.import_module("spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas")
+
+PIPE_LOOP = "#pragma unroll\n    for (int kk = 0; kk < kPipeK; ++kk) {"
+VARIANTS = {
+    "f32_k2": {
+        "1 CTA an SM": {"__launch_bounds__(kThreads, 2)\n    sorted_pipe_kernel":
+                        "__launch_bounds__(kThreads, 1)\n    sorted_pipe_kernel"},
+        "depth loop unrolled by 4": {PIPE_LOOP: PIPE_LOOP.replace("unroll", "unroll 4")},
+        "3 stages": {"constexpr int kPipeStages = 4;": "constexpr int kPipeStages = 3;"},
+    },
+    "k3": {
+        "ring of 2 stages": {
+            "static constexpr int kStages = kFit < 4 ? kFit : 4;":
+            "static constexpr int kStages = kFit < 2 ? kFit : 2;"},
+        "hi*hi chain only": {"constexpr int kChains = P == 1 ? 1 : 3;":
+                             "constexpr int kChains = 1;"},
+    },
+}
+
+
+def build_variants(which: str) -> dict:
+    """{name: SOURCES tuple}, "as is" first."""
+    src = _kernels.SOURCES[0]
+    text = src.read_text()
+    out = {"as is": _kernels.SOURCES}
+    for name, subs in VARIANTS[which].items():
+        t = text
+        for old, new in subs.items():
+            if old not in t:
+                raise SystemExit(f"variant {name!r}: {old!r} is not in {src.name}")
+            t = t.replace(old, new)
+        path = ROOT / "tmp" / "variants" / name.replace(" ", "_").replace("*", "x") / src.name
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(t)
+        out[name] = (path, *_kernels.SOURCES[1:])
+    return out
+
+
+def use(sources) -> None:
+    _kernels.SOURCES = sources
+    _kernels._libs = None
+    _kernels.load()
+
+
+def cuda_ms(fn, iters: int = 10) -> float:
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> int:
+    which = sys.argv[1] if len(sys.argv) > 1 else ""
+    if which not in VARIANTS or not torch.cuda.is_available():
+        print(__doc__, file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+    bsr = random_bsr(2e-2, 1024, 1024, block_size=128, seed=1234)
+    x = torch.as_tensor(np.random.default_rng(1234).standard_normal(
+        (bsr.shape[1], 512)).astype(np.float32), device="cuda")
+    kw = {"precision": "high"} if which == "k3" else {}
+    plan = T.bsr_spmm_pallas_plan(bsr, grad=False, device="cuda", **kw)
+    bf16 = T.bsr_spmm_pallas_plan(bsr, grad=False, dtype=torch.bfloat16, device="cuda")
+    x_bf = x.to(torch.bfloat16)
+    sources = build_variants(which)
+    use(sources["as is"])
+    ref = plan(x)
+    xp, split = T.split_operand(x), T.split_operand
+    names = list(sources)
+    for name in names + names[::-1]:
+        use(sources[name])
+        line = f"[{which}] {name:<26} whole call {cuda_ms(lambda: plan(x)):.3f} ms"
+        if which == "k3":
+            T.split_operand = lambda d: xp  # the ring alone
+            line += f", ring alone {cuda_ms(lambda: plan(x)):.3f} ms"
+        same = torch.equal(plan(x), ref)
+        T.split_operand = split
+        if which == "k3":
+            line += f", bf16 K2 {cuda_ms(lambda: bf16(x_bf)):.3f} ms"
+        print(f"{line}, answer equal to the tree's: {same} [{card}]", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,16 +13,16 @@
 //   spmm_denseblock_tpu/ops/bsr_spmm_pallas.py:_pallas_spmm_resident
 //   (+ _resident_kernel),
 // K3, the bf16x3 product of spmm_denseblock_tpu/ops/bsr_spmm_pallas.py:
-//   _dot3 (precision="high"), is the Bf16x3 math policy below, exported
-//   as its own instance of K1, K2 and K5 (the *_bf16x3 entries).
+//   _dot3 (precision="high"), runs as its own instance of K1, K2 and K5
+//   (the *_bf16x3 entries), with split_bf16_kernel, its operand split.
 // All read the packed arrays of the JAX packers unchanged (plus the
 // row/group step pointers and the K2 lane-valid mask the port's packer
 // adds) and compute what the TPU kernels compute on them.
 //
-// Two main loops serve them.
+// Three main loops serve them.
 //
-// The FFMA loop (K3, and K1, K2, K4 and K5 on f32 operands; the bf16
-// entries at b = 16 and 32). One slot is 2*b*b*F FLOP against b*b block values plus b*F
+// The FFMA loop (K1, K4 and K5 on f32 operands, f32 K2 at b = 16 and 32;
+// the bf16 and K3 entries at b = 16 and 32). One slot is 2*b*b*F FLOP against b*b block values plus b*F
 // operand values: at b=128, F=512 that is 16.8 MFLOP per 64 KiB of f32
 // block and 256 KiB of operand, about 50 FLOP/byte, so with operand
 // tiles shared through L2 by the CTAs of neighbouring rows an FFMA kernel
@@ -40,16 +40,34 @@
 // are deterministic. The F edge is masked here; the F tiles of one row
 // are adjacent in launch order so they share the block reads in L2.
 // Offsets into blocks and dense are 64-bit. This loop has no tensor
-// cores, no TMA and no software pipelining.
+// cores, no TMA and no software pipelining: each 16-deep chunk is loaded
+// by the whole CTA between two barriers, and a thread makes 12 scalar
+// shared loads per 32 FMAs.
+//
+// The pipelined FFMA loop (f32 K2 at b = 64 and 128, the default f32
+// kernel). The same contract (one CTA per output tile of a valid lane, no
+// atomics, each output's sum in slot and depth order), built to keep the
+// FMA units busy: tiles of BN = 64 or 128 columns (the wrapper's choice,
+// as for the tensor-core loop below: at F=512 a block is read 4 times,
+// not 8); 8 x 8 (b=128) or 4 x 8 (b=64) register microtiles at BN=128,
+// fed by float4 shared loads (one 16-byte load per 16 FMAs at 8 x 8); 16-deep
+// chunks streamed by cp.async through 4 shared-memory stages, 3 chunks
+// ahead of the FMAs, with one barrier a chunk; at most 128 registers a
+// thread, so two CTAs share an SM. The 1e-4 gate and the "exact"
+// contract rule out TF32, so it stays an FFMA kernel, bound by the FFMA
+// rate.
 //
 // K3 (bf16x3). The TPU runs three bf16 MXU passes, hi*hi + hi*lo +
-// lo*hi, and drops lo*lo. Here each f32 element is split once, while it
-// is staged into shared memory: hi = bf16_rn(x), lo = bf16_rn(x - hi)
-// (round to nearest even, as jnp.astype and torch.to round), both kept
-// widened to f32. A product of two bf16 values is exact in f32, so the
-// three FFMAs per element compute what the MXU passes compute, up to
-// the order of the f32 sums. That is three times K1/K2's FMA work; on
-// the TPU bf16x3 halves the passes of exact f32, here it triples them.
+// lo*hi, and drops lo*lo. Here the splits are made before the launch: a
+// "high" plan holds its packed blocks as two bf16 planes, hi = bf16_rn(a)
+// and lo = bf16_rn(a - hi) (round to nearest even, as jnp.astype and
+// torch.to round; a - hi is exact in f32), and each call splits the f32
+// operand into two such planes with split_bf16_kernel (rows of a multiple
+// of 8, 16-byte aligned). A product of two bf16 values is exact in f32,
+// so three bf16 products with f32 sums compute what the MXU passes
+// compute, up to the order of the sums. At b = 64 and 128 K3 runs on the
+// tensor-core loop below with two planes a stage; at b = 16 and 32 the
+// FFMA loop widens the planes and runs three FFMAs a product.
 //
 // K5. On the TPU the resident kernel keeps the whole (nbc, b, f_tile)
 // operand slice in VMEM and indexes it per slot. Hopper has no 80 MB of
@@ -61,7 +79,7 @@
 //
 // The tensor-core loop (bf16 K1, K2, K4 and K5 at b = 64 and 128:
 // bsr_spmm_flat_bf16, bsr_spmm_sorted_bf16, bsr_spmm_rowgroup_bf16,
-// bsr_spmm_resident_bf16). K1's walk (one block-row's steps through a
+// bsr_spmm_resident_bf16; and K3 there, with two planes). K1's walk (one block-row's steps through a
 // step pointer) is K4's with one lane per group, so the flat entries
 // launch the K4 instance with R = 1 and gh = group. The JAX kernels run
 // bf16 operands at Precision.DEFAULT with preferred_element_type=f32:
@@ -84,12 +102,17 @@
 //     rows, and one
 //     producer warp that walks the lane's slots exactly as the FFMA loop
 //     does and streams each slot's depth chunks of 64 through a ring of
-//     4 stages in dynamic shared memory with TMA (cp.async.bulk.tensor,
+//     stages in dynamic shared memory with TMA (cp.async.bulk.tensor,
 //     128-byte swizzle, mbarrier completion). A stage holds the block's
 //     (b x 64) depth chunk, K-major, and the operand's (64 x BN) rows,
 //     MN-major (wgmma reads B transposed through its descriptor); at
-//     b=128, BN=128 that is 32 KiB a stage, 128 KiB in all. The
-//     producer runs up to 4 stages ahead of the products.
+//     b=128, BN=128 that is 32 KiB a stage, 4 stages, 128 KiB in all.
+//     K3's stage holds both planes of each, 64 KiB at b=128, BN=128, so
+//     that ring has 3 stages (192 KiB); each stage issues three chains
+//     of wgmma, hi*lo and lo*hi first and hi*hi last, so the small terms
+//     are summed before the large one joins them. K3 moves twice the
+//     bytes of a bf16 product for three times its (still small) tensor
+//     work, so it is bound, as the bf16 entries are, by moving bytes.
 //   - Two-level sums: the tensor cores sum each stage (64 deep) from
 //     zero, and CUDA cores add that partial sum into the tile's f32 sums
 //     with round-to-nearest. The tensor cores' own f32 accumulation
@@ -128,7 +151,9 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 }
 
 // Math policies. Exact: one plane, each value widened to f32, one FFMA
-// per product. Bf16x3 (K3): two planes, hi and lo, three FFMAs.
+// per product. Bf16x3 (K3): two bf16 planes, hi and lo, split before the
+// launch (the blocks at plan build, the operand by split_bf16_kernel),
+// widened to f32, three FFMAs.
 struct Exact {
   static constexpr int kPlanes = 1;
 };
@@ -136,25 +161,21 @@ struct Bf16x3 {
   static constexpr int kPlanes = 2;
 };
 
-// Bf16x3's split of one f32 value: hi = bf16_rn(x), lo = bf16_rn(x - hi),
-// both widened back to f32 (x - hi is exact in f32).
-__device__ __forceinline__ void split_bf16(float x, float& hi, float& lo) {
-  hi = __bfloat162float(__float2bfloat16_rn(x));
-  lo = __bfloat162float(__float2bfloat16_rn(x - hi));
-}
-
 template <int BM, int P>
 struct __align__(16) Smem {
   float a[P][kBK][BM + 4];  // A^T stage: a[p][k][m] = plane p of blk[m][k0 + k]
   float b[P][kBK][kBN];     // operand stage
 };
 
-// acc[b x 64 tile] += blk (b x b) @ brow (b x 64, row stride F).
+// acc[b x 64 tile] += blk (b x b) @ brow (b x 64, row stride ldx). With
+// two planes, the lo plane of the block is a_lo elements on from blk and
+// that of the operand x_lo elements on from brow.
 // Thread (tx, ty) owns rows ty*TM .. ty*TM+TM-1, cols tx*4 .. tx*4+3.
 template <typename T, int BM, typename M>
 __device__ __forceinline__ void slot_fma(const T* __restrict__ blk,
                                          const T* __restrict__ brow,
-                                         int64_t F, int n_valid,
+                                         int64_t ldx, int n_valid,
+                                         int64_t a_lo, int64_t x_lo,
                                          Smem<BM, M::kPlanes>& sm,
                                          float (&acc)[BM / 16][4]) {
   constexpr int TM = BM / 16;
@@ -167,26 +188,17 @@ __device__ __forceinline__ void slot_fma(const T* __restrict__ blk,
     for (int it = 0; it < BM * kBK / kThreads; ++it) {
       const int e = tid + it * kThreads;
       const int m = e / kBK, kk = e % kBK;
-      if constexpr (P == 1) {
-        sm.a[0][kk][m] = to_f32(blk[(int64_t)m * BM + k0 + kk]);
-      } else {
-        split_bf16(to_f32(blk[(int64_t)m * BM + k0 + kk]), sm.a[0][kk][m],
-                   sm.a[1][kk][m]);
-      }
+      const int64_t i = (int64_t)m * BM + k0 + kk;
+      sm.a[0][kk][m] = to_f32(blk[i]);
+      if constexpr (P == 2) sm.a[1][kk][m] = to_f32(blk[a_lo + i]);
     }
 #pragma unroll
     for (int it = 0; it < kBK * kBN / kThreads; ++it) {
       const int e = tid + it * kThreads;
       const int kk = e / kBN, n = e % kBN;
-      if constexpr (P == 1) {
-        sm.b[0][kk][n] =
-            n < n_valid ? to_f32(brow[(int64_t)(k0 + kk) * F + n]) : 0.f;
-      } else if (n < n_valid) {
-        split_bf16(to_f32(brow[(int64_t)(k0 + kk) * F + n]), sm.b[0][kk][n],
-                   sm.b[1][kk][n]);
-      } else {
-        sm.b[0][kk][n] = sm.b[1][kk][n] = 0.f;
-      }
+      const int64_t i = (int64_t)(k0 + kk) * ldx + n;
+      sm.b[0][kk][n] = n < n_valid ? to_f32(brow[i]) : 0.f;
+      if constexpr (P == 2) sm.b[1][kk][n] = n < n_valid ? to_f32(brow[x_lo + i]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -232,16 +244,17 @@ __device__ __forceinline__ void store_tile(float* __restrict__ out, int64_t F,
 // K1 (and K5, through its own entries): one CTA per (block-row, F
 // tile). step_ptr (nbr+1,) gives each row's steps; step s holds slots
 // s*group .. s*group+group-1, and slot s reads operand rows col*b ..
-// +b-1, i.e. dense viewed as (nbc, b, F) at col. Every row has >= 1 step
+// +b-1, i.e. dense viewed as (nbc, b, ldx) at col. Every row has >= 1 step
 // (the plan covers empty rows with a zero block), so every output row is
-// written.
+// written. ldx is F but for Bf16x3, whose planes (a_lo and x_lo elements
+// apart) have rows of ldx >= F.
 template <typename T, int BM, typename M>
 __global__ void __launch_bounds__(kThreads)
     flat_kernel(const int64_t* __restrict__ step_ptr,
                 const int32_t* __restrict__ slot_cols,
                 const T* __restrict__ blocks, const T* __restrict__ dense,
-                float* __restrict__ out, int64_t F, int64_t group,
-                int64_t n_ftiles) {
+                float* __restrict__ out, int64_t F, int64_t ldx, int64_t a_lo,
+                int64_t x_lo, int64_t group, int64_t n_ftiles) {
   __shared__ Smem<BM, M::kPlanes> sm;
   const int64_t row = blockIdx.x / n_ftiles;
   const int64_t f0 = (blockIdx.x % n_ftiles) * kBN;
@@ -250,8 +263,8 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t s_end = step_ptr[row + 1] * group;
   for (int64_t s = step_ptr[row] * group; s < s_end; ++s) {
     const int64_t col = slot_cols[s];
-    slot_fma<T, BM, M>(blocks + s * BM * BM, dense + col * BM * F + f0, F,
-                       n_valid, sm, acc);
+    slot_fma<T, BM, M>(blocks + s * BM * BM, dense + col * BM * ldx + f0, ldx,
+                       n_valid, a_lo, x_lo, sm, acc);
   }
   store_tile<BM>(out + row * BM * F + f0, F, n_valid, acc);
 }
@@ -270,7 +283,8 @@ __global__ void __launch_bounds__(kThreads)
                   const uint8_t* __restrict__ lane_valid,
                   const int32_t* __restrict__ slot_cols,
                   const T* __restrict__ blocks, const T* __restrict__ dense,
-                  float* __restrict__ out, int64_t F, int64_t R, int64_t gh,
+                  float* __restrict__ out, int64_t F, int64_t ldx,
+                  int64_t a_lo, int64_t x_lo, int64_t R, int64_t gh,
                   int64_t window, int64_t n_ftiles) {
   __shared__ Smem<BM, M::kPlanes> sm;
   const int64_t lane_id = blockIdx.x / n_ftiles;  // group * R + lane
@@ -284,8 +298,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int64_t j = j0; j < j1; ++j) {
     for (int64_t s = (j * R + lane) * gh, s_end = s + gh; s < s_end; ++s) {
       const int64_t col = slot_cols[s];
-      slot_fma<T, BM, M>(blocks + s * BM * BM, dense + col * BM * F + f0, F,
-                         n_valid, sm, acc);
+      slot_fma<T, BM, M>(blocks + s * BM * BM, dense + col * BM * ldx + f0,
+                         ldx, n_valid, a_lo, x_lo, sm, acc);
     }
   }
   store_tile<BM>(out + orow * BM * F + f0, F, n_valid, acc);
@@ -317,39 +331,217 @@ __global__ void __launch_bounds__(kThreads)
     for (int64_t s = (j * R + lane) * gh, s_end = s + gh; s < s_end; ++s) {
       const int64_t col = slot_cols[s];
       slot_fma<T, BM, Exact>(blocks + s * BM * BM, dense + col * BM * F + f0,
-                             F, n_valid, sm, acc);
+                             F, n_valid, 0, 0, sm, acc);
     }
   }
   store_tile<BM>(out + row * BM * F + f0, F, n_valid, acc);
 }
 
-// ---- the tensor-core loop: bf16 K2 and K4 at b = 64 and 128 ------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-constexpr int kRing = 4;    // ring stages
+// ---- the pipelined FFMA loop: f32 K2 at b = 64 and 128 ---------------------
+
+constexpr int kPipeK = 16;      // depth of one pipeline stage
+constexpr int kPipeStages = 4;  // stages in flight
+
+// One CTA of 256 threads per (b x BN) output tile; thread (tx, ty) of the
+// 16 x 16 grid owns the TM x TN microtile of rows ty*TM .. +TM-1 and
+// columns 64*(j/4) + 4*tx + j%4 (j < TN), so that neighbouring threads
+// read neighbouring float4 of an operand stage row.
+template <int BM, int BN>
+struct Pipe {
+  static constexpr int TM = BM / 16, TN = BN / 16;
+  static constexpr int kAStride = BM + 4;  // floats per row of the A^T stage
+  static constexpr int kAFloats = kPipeK * kAStride;
+  static constexpr int kStageFloats = kAFloats + kPipeK * BN;
+  static constexpr int kSmemBytes = kPipeStages * kStageFloats * 4;
+};
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src)
+               : "memory");
+}
+
+// 16 bytes, or 16 zero bytes where !valid (src is then not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// f32 K2 at b = 64 and 128: K2's walk (one CTA per valid lane and F tile
+// of BN columns, absent lanes store nothing, no atomics), each slot's
+// depth chunks of 16 streamed through kPipeStages shared-memory stages by
+// cp.async: the block chunk transposed element by element (A^T, rows of
+// BM + 4 floats), the operand's 16 rows x BN columns in 16-byte copies
+// (dense has rows of ld >= F floats, ld a multiple of 4, and a 16-byte
+// aligned base; columns >= ld are zero-filled). One barrier per chunk:
+// after it the chunk has landed for every thread and the stage the next
+// load overwrites has been read by every thread. Each output's FFMA sum
+// runs in slot order and depth order, as in the FFMA loop above.
+template <int BM, int BN>
+__global__ void __launch_bounds__(kThreads, 2)
+    sorted_pipe_kernel(const int64_t* __restrict__ group_ptr,
+                       const int32_t* __restrict__ win_ids,
+                       const int32_t* __restrict__ pos,
+                       const uint8_t* __restrict__ lane_valid,
+                       const int32_t* __restrict__ slot_cols,
+                       const float* __restrict__ blocks,
+                       const float* __restrict__ dense, float* __restrict__ out,
+                       int64_t F, int64_t ld, int64_t R, int64_t gh,
+                       int64_t window, int64_t n_ftiles) {
+  using G = Pipe<BM, BN>;
+  constexpr int TM = G::TM, TN = G::TN;
+  constexpr int kChunks = BM / kPipeK;  // per slot
+  extern __shared__ __align__(16) float pipe_smem[];
+  const int64_t lane_id = blockIdx.x / n_ftiles;  // group * R + lane
+  if (!lane_valid[lane_id]) return;               // uniform over the CTA
+  const int64_t g = lane_id / R, lane = lane_id % R;
+  const int64_t f0 = (blockIdx.x % n_ftiles) * BN;
+  const int64_t j0 = group_ptr[g];
+  const int64_t orow = (int64_t)win_ids[j0] * window + pos[j0 * R + lane];
+  const int n_chunks = (int)((group_ptr[g + 1] - j0) * gh) * kChunks;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const uint32_t smem = smem_u32(pipe_smem);
+  // This thread's copies: A^T elements (a_m + it * kARows, a_k), operand
+  // float4 (x_k + it * kXRows, x_n); columns >= ld are zero-filled.
+  constexpr int kARows = kThreads / kPipeK, kXRows = kThreads / (BN / 4);
+  static_assert(BM % kARows == 0 && kPipeK % kXRows == 0, "copy shapes");
+  const int a_m = tid / kPipeK, a_k = tid % kPipeK;
+  const int x_k = tid / (BN / 4), x_n = tid % (BN / 4) * 4;
+  const bool x_valid = f0 + x_n < ld;
+  const int64_t x_col = x_valid ? f0 + x_n : 0;
+
+  // The loader walks the lane's slots in order, chunk lk of slot ls, lr
+  // slots into step lj; it runs kPipeStages - 1 chunks ahead of the FMAs.
+  int lk = 0, lr = 0, issued = 0;
+  int64_t lj = j0, ls = (j0 * R + lane) * gh;
+  auto load_next = [&]() {  // the next chunk into stage issued % kPipeStages
+    const int64_t col = __ldg(slot_cols + ls);
+    const float* blk = blocks + ls * (BM * BM) + lk * kPipeK + a_m * BM + a_k;
+    const uint32_t a_st = smem + (uint32_t)(issued % kPipeStages) *
+                                     (G::kStageFloats * 4);
+#pragma unroll
+    for (int it = 0; it < BM / kARows; ++it)
+      cp_async4(a_st + (a_k * G::kAStride + a_m + it * kARows) * 4,
+                blk + it * kARows * BM);
+    const float* xrow = dense + (col * BM + lk * kPipeK + x_k) * ld + x_col;
+    const uint32_t x_st = a_st + (G::kAFloats + x_k * BN + x_n) * 4;
+#pragma unroll
+    for (int it = 0; it < kPipeK / kXRows; ++it)
+      cp_async16(x_st + it * kXRows * BN * 4, xrow + it * kXRows * ld, x_valid);
+    ++issued;
+    if (++lk == kChunks) {
+      lk = 0;
+      if (++lr == gh) {
+        lr = 0;
+        ls = (++lj * R + lane) * gh;
+      } else {
+        ++ls;
+      }
+    }
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int c = 0; c < kPipeStages - 1; ++c) {
+    if (issued < n_chunks) load_next();
+    cp_async_commit();
+  }
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<kPipeStages - 2>();  // chunk c has landed (this thread's)
+    __syncthreads();
+    if (issued < n_chunks) load_next();
+    cp_async_commit();
+    const float* as = pipe_smem + (c % kPipeStages) * G::kStageFloats;
+    const float* xs = as + G::kAFloats;
+#pragma unroll
+    for (int kk = 0; kk < kPipeK; ++kk) {
+      float a[TM], x[TN];
+#pragma unroll
+      for (int i = 0; i < TM; i += 4) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(as + kk * G::kAStride + ty * TM + i);
+        a[i] = v.x, a[i + 1] = v.y, a[i + 2] = v.z, a[i + 3] = v.w;
+      }
+#pragma unroll
+      for (int j = 0; j < TN; j += 4) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(xs + kk * BN + j * 16 + tx * 4);
+        x[j] = v.x, x[j + 1] = v.y, x[j + 2] = v.z, x[j + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], x[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the CTA (the trailing groups are empty)
+
+  const bool vec = F % 4 == 0;  // float4 stores stay 16-byte aligned
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    float* o = out + (orow * BM + ty * TM + i) * F;
+#pragma unroll
+    for (int j = 0; j < TN; j += 4) {
+      const int64_t col = f0 + j * 16 + tx * 4;
+      if (vec && col + 3 < F) {
+        *reinterpret_cast<float4*>(o + col) =
+            make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (col + q < F) o[col + q] = acc[i][j + q];
+      }
+    }
+  }
+}
+
+// ---- the tensor-core loop: bf16 K1, K2, K4 and K5, and K3, at b = 64, 128
+
 constexpr int kDepth = 64;  // depth of one stage: one 128-byte row of bf16
 // A barrier wait that outlasts this many clock cycles (several seconds)
 // can only be a fault of the kernel: trap, so the launch fails instead of
 // hanging the card.
 constexpr long long kWatchdogCycles = 1LL << 33;
+constexpr int kSmemPerBlock = 232448;  // the most a block can have (227 KB)
 
-template <int BM, int BN>
+// P planes: 1 for bf16 operands, 2 (hi and lo) for K3.
+template <int BM, int BN, int P>
 struct Ring {
   static constexpr int kConsumers = BM / 64;  // warpgroups of 64 rows each
   static constexpr int kThreads = (kConsumers + 1) * 128;  // + the producer
   // a (64 x 64) TMA box of the operand is 64 rows of 128 bytes
   static constexpr uint32_t kXBox = kDepth * 64 * 2;
-  static constexpr uint32_t kABytes = BM * kDepth * 2;
-  static constexpr uint32_t kXBytes = BN / 64 * kXBox;
-  static constexpr uint32_t kStageBytes = kABytes + kXBytes;
+  static constexpr uint32_t kABytes = BM * kDepth * 2;  // one plane
+  static constexpr uint32_t kXBytes = BN / 64 * kXBox;  // one plane
+  // a stage: the A planes, then the operand planes
+  static constexpr uint32_t kStageBytes = P * (kABytes + kXBytes);
+  // narrow one-plane tiles leave room for two CTAs an SM
+  static constexpr int kMinBlocks = BN == 64 && P == 1 ? 2 : 1;
+  // as many stages as fit, at most 4 (3 at b = 128, BN = 128, two planes)
+  static constexpr int kFit = (kSmemPerBlock / kMinBlocks - 2048) / kStageBytes;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
   // + slack to align the ring to the 1024-byte period of the swizzle
-  static constexpr int kSmemBytes = kRing * kStageBytes + 1024;
-  // narrow tiles leave room for two CTAs an SM
-  static constexpr int kMinBlocks = BN == 64 ? 2 : 1;
+  static constexpr int kSmemBytes = kStages * kStageBytes + 1024;
+  static_assert(kStages >= 2, "a ring needs two stages");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
@@ -474,14 +666,17 @@ struct Wgmma<128> {
 };
 
 // bf16 K2 (win_ids != nullptr) or K4 (win_ids == nullptr; K1 and K5 are
-// K4 with R = 1) on the tensor cores. One CTA per (lane, F tile of BN columns); warpgroups 0 ..
-// kConsumers-1 run the products on 64 rows each, the last warpgroup's
-// first thread runs the TMA producer. Stage i's `full` barrier completes
-// when its bytes have landed, its `empty` barrier when every consumer
-// warp has finished reading it.
-template <int BM, int BN>
-__global__ void __launch_bounds__(Ring<BM, BN>::kThreads,
-                                  Ring<BM, BN>::kMinBlocks)
+// K4 with R = 1) on the tensor cores, and K3 on the same walks with P = 2
+// planes: the lo plane of the blocks starts a_plane rows of the blocks'
+// map after the hi plane, that of the operand x_plane rows after it. One
+// CTA per (lane, F tile of BN columns); warpgroups 0 .. kConsumers-1 run
+// the products on 64 rows each, the last warpgroup's first thread runs
+// the TMA producer. Stage i's `full` barrier completes when its bytes
+// have landed, its `empty` barrier when every consumer warp has finished
+// reading it.
+template <int BM, int BN, int P>
+__global__ void __launch_bounds__(Ring<BM, BN, P>::kThreads,
+                                  Ring<BM, BN, P>::kMinBlocks)
     bf16_ring_kernel(const __grid_constant__ CUtensorMap tm_blocks,
                      const __grid_constant__ CUtensorMap tm_dense,
                      const int64_t* __restrict__ group_ptr,
@@ -491,8 +686,10 @@ __global__ void __launch_bounds__(Ring<BM, BN>::kThreads,
                      const int32_t* __restrict__ slot_cols,
                      float* __restrict__ out, int64_t F,
                      int64_t n_block_rows, int64_t R, int64_t gh,
-                     int64_t window, int64_t n_ftiles) {
-  using G = Ring<BM, BN>;
+                     int64_t window, int64_t n_ftiles, int32_t a_plane,
+                     int32_t x_plane) {
+  using G = Ring<BM, BN, P>;
+  constexpr int kRing = G::kStages;
   __shared__ __align__(8) uint64_t full[kRing];
   __shared__ __align__(8) uint64_t empty[kRing];
   extern __shared__ __align__(1024) uint8_t ring_raw[];
@@ -538,11 +735,16 @@ __global__ void __launch_bounds__(Ring<BM, BN>::kThreads,
         mbar_wait(&empty[stage], phase ^ 1);
         const uint32_t a = ring + stage * G::kStageBytes;
         mbar_expect_tx(&full[stage], G::kStageBytes);
-        tma_load_2d(a, &tm_blocks, &full[stage], c * kDepth, (int32_t)(s * BM));
 #pragma unroll
-        for (int q = 0; q < BN / 64; ++q)
-          tma_load_2d(a + G::kABytes + q * G::kXBox, &tm_dense, &full[stage],
-                      (int32_t)(f0 + q * 64), col * BM + c * kDepth);
+        for (int p = 0; p < P; ++p) {
+          tma_load_2d(a + p * G::kABytes, &tm_blocks, &full[stage], c * kDepth,
+                      (int32_t)(s * BM) + p * a_plane);
+#pragma unroll
+          for (int q = 0; q < BN / 64; ++q)
+            tma_load_2d(a + P * G::kABytes + p * G::kXBytes + q * G::kXBox,
+                        &tm_dense, &full[stage], (int32_t)(f0 + q * 64),
+                        col * BM + c * kDepth + p * x_plane);
+        }
         if (++stage == kRing) {
           stage = 0;
           phase ^= 1;
@@ -567,14 +769,25 @@ __global__ void __launch_bounds__(Ring<BM, BN>::kThreads,
       // a 16-deep slice is 32 bytes into each row. B: 64-column atoms of
       // 64 rows x 128 bytes, kXBox apart (LBO); 8-row groups 1024 bytes
       // apart (SBO); a 16-deep slice is 16 rows on.
+      // K3's stage holds A_hi, A_lo, X_hi, X_lo; its three chains run
+      // hi*lo and lo*hi first and hi*hi last, so that the small terms are
+      // summed before the large one is added.
       const uint32_t a = ring + stage * G::kStageBytes + wg * 64 * 128;
-      const uint32_t x = ring + stage * G::kStageBytes + G::kABytes;
+      const uint32_t x = ring + stage * G::kStageBytes + P * G::kABytes;
+      constexpr int kChains = P == 1 ? 1 : 3;
       fence_operands(part);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int k = 0; k < kDepth / 16; ++k)
-        Wgmma<BN>::mma(part, sw128_desc(a + k * 32, 16, 1024),
-                       sw128_desc(x + k * 16 * 128, G::kXBox, 1024), k > 0);
+      for (int chain = 0; chain < kChains; ++chain) {
+        // (A plane, X plane) of this chain: (hi, lo), (lo, hi), (hi, hi)
+        const uint32_t ap = a + (chain == 1 ? G::kABytes : 0);
+        const uint32_t xp = x + (kChains == 3 && chain == 0 ? G::kXBytes : 0);
+#pragma unroll
+        for (int k = 0; k < kDepth / 16; ++k)
+          Wgmma<BN>::mma(part, sw128_desc(ap + k * 32, 16, 1024),
+                         sw128_desc(xp + k * 16 * 128, G::kXBox, 1024),
+                         chain > 0 || k > 0);
+      }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
       fence_operands(part);
@@ -660,30 +873,32 @@ cudaError_t bf16_map(CUtensorMap* map, const void* base, int64_t inner,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int BM, int BN>
+template <int BM, int BN, int P>
 cudaError_t launch_ring_tile(const CUtensorMap& tb, const CUtensorMap& td,
                              const int64_t* gp, const int32_t* wi,
                              const int32_t* ps, const uint8_t* lv,
                              const int32_t* sc, float* o, int64_t F,
                              int64_t n_block_rows, int64_t R, int64_t gh,
-                             int64_t window, int64_t n_ft, dim3 grid,
-                             cudaStream_t stream) {
-  using G = Ring<BM, BN>;
+                             int64_t window, int64_t n_ft, int32_t a_plane,
+                             int32_t x_plane, dim3 grid, cudaStream_t stream) {
+  using G = Ring<BM, BN, P>;
   // The shared-memory limit is set once per instantiation, before its
   // first launch, on the device current then (a refusal is returned on
   // every launch).
   static const cudaError_t smem_set = cudaFuncSetAttribute(
-      bf16_ring_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bf16_ring_kernel<BM, BN, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       G::kSmemBytes);
   if (smem_set != cudaSuccess) return smem_set;
-  bf16_ring_kernel<BM, BN><<<grid, G::kThreads, G::kSmemBytes, stream>>>(
-      tb, td, gp, wi, ps, lv, sc, o, F, n_block_rows, R, gh, window, n_ft);
+  bf16_ring_kernel<BM, BN, P><<<grid, G::kThreads, G::kSmemBytes, stream>>>(
+      tb, td, gp, wi, ps, lv, sc, o, F, n_block_rows, R, gh, window, n_ft,
+      a_plane, x_plane);
   return cudaGetLastError();
 }
 
-// The tensor-core loop over n_lanes lanes of ceil(F / bn) tiles. dense is
-// (n_dense_rows, ld) bf16 with ld >= F a multiple of 8; blocks hold
-// n_slots (b x b) slots. win_ids == nullptr selects K4 (and K1/K5).
+// The tensor-core loop over n_lanes lanes of ceil(F / bn) tiles, on
+// `planes` planes (1, or 2 for K3). dense is planes x (n_dense_rows, ld)
+// bf16 with ld >= F a multiple of 8; blocks hold planes x n_slots (b x b)
+// slots. win_ids == nullptr selects K4 (and K1/K5).
 cudaError_t launch_ring(const void* group_ptr, const void* win_ids,
                         const void* pos, const void* lane_valid,
                         const void* slot_cols, const void* blocks,
@@ -691,17 +906,20 @@ cudaError_t launch_ring(const void* group_ptr, const void* win_ids,
                         int64_t n_block_rows, int64_t n_slots,
                         int64_t n_dense_rows, int64_t F, int64_t ld, int64_t R,
                         int64_t gh, int64_t window, int64_t b, int64_t bn,
-                        cudaStream_t stream) {
-  if ((bn != 64 && bn != 128) || ld < F || ld % 8 != 0 ||
-      n_slots * b > INT32_MAX || n_dense_rows > INT32_MAX || ld > INT32_MAX)
+                        int planes, cudaStream_t stream) {
+  if ((bn != 64 && bn != 128) || (planes != 1 && planes != 2) || ld < F ||
+      ld % 8 != 0 || planes * n_slots * b > INT32_MAX ||
+      planes * n_dense_rows > INT32_MAX || ld > INT32_MAX)
     return cudaErrorInvalidValue;
   const int64_t n_ft = ceil_div(F, bn);
   const int64_t n_ctas = n_lanes * n_ft;
   if (n_ctas > INT32_MAX) return cudaErrorInvalidConfiguration;
   if (n_ctas == 0) return cudaSuccess;
   CUtensorMap tb, td;
-  if (cudaError_t e = bf16_map(&tb, blocks, b, n_slots * b, (uint32_t)b)) return e;
-  if (cudaError_t e = bf16_map(&td, dense, ld, n_dense_rows, kDepth)) return e;
+  if (cudaError_t e = bf16_map(&tb, blocks, b, planes * n_slots * b, (uint32_t)b))
+    return e;
+  if (cudaError_t e = bf16_map(&td, dense, ld, planes * n_dense_rows, kDepth))
+    return e;
   const dim3 grid((unsigned)n_ctas);
   const auto* gp = static_cast<const int64_t*>(group_ptr);
   const auto* wi = static_cast<const int32_t*>(win_ids);
@@ -709,17 +927,103 @@ cudaError_t launch_ring(const void* group_ptr, const void* win_ids,
   const auto* lv = static_cast<const uint8_t*>(lane_valid);
   const auto* sc = static_cast<const int32_t*>(slot_cols);
   auto* o = static_cast<float*>(out);
-#define SDB_RING(BM, BN)                                                     \
-  if (b == BM && bn == BN)                                                   \
-    return launch_ring_tile<BM, BN>(tb, td, gp, wi, ps, lv, sc, o, F,         \
-                                    n_block_rows, R, gh, window, n_ft, grid, \
-                                    stream);
-  SDB_RING(64, 64)
-  SDB_RING(64, 128)
-  SDB_RING(128, 64)
-  SDB_RING(128, 128)
+  const auto a_plane = (int32_t)(n_slots * b), x_plane = (int32_t)n_dense_rows;
+#define SDB_RING(BM, BN, P)                                                  \
+  if (b == BM && bn == BN && planes == P)                                    \
+    return launch_ring_tile<BM, BN, P>(tb, td, gp, wi, ps, lv, sc, o, F,      \
+                                       n_block_rows, R, gh, window, n_ft,    \
+                                       a_plane, x_plane, grid, stream);
+  SDB_RING(64, 64, 1)
+  SDB_RING(64, 128, 1)
+  SDB_RING(128, 64, 1)
+  SDB_RING(128, 128, 1)
+  SDB_RING(64, 64, 2)
+  SDB_RING(64, 128, 2)
+  SDB_RING(128, 64, 2)
+  SDB_RING(128, 128, 2)
 #undef SDB_RING
   return cudaErrorInvalidValue;
+}
+
+// The f32 K2 pipelined loop over n_lanes lanes of ceil(F / bn) tiles;
+// dense is (n_dense_rows, ld) f32 with ld >= F a multiple of 4 and a
+// 16-byte-aligned base.
+template <int BM, int BN>
+cudaError_t launch_pipe_tile(const int64_t* gp, const int32_t* wi,
+                             const int32_t* ps, const uint8_t* lv,
+                             const int32_t* sc, const float* bl,
+                             const float* de, float* o, int64_t F, int64_t ld,
+                             int64_t R, int64_t gh, int64_t window,
+                             int64_t n_ft, dim3 grid, cudaStream_t stream) {
+  using G = Pipe<BM, BN>;
+  static const cudaError_t smem_set = cudaFuncSetAttribute(
+      sorted_pipe_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G::kSmemBytes);
+  if (smem_set != cudaSuccess) return smem_set;
+  sorted_pipe_kernel<BM, BN><<<grid, kThreads, G::kSmemBytes, stream>>>(
+      gp, wi, ps, lv, sc, bl, de, o, F, ld, R, gh, window, n_ft);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_sorted_pipe(const void* group_ptr, const void* win_ids,
+                               const void* pos, const void* lane_valid,
+                               const void* slot_cols, const void* blocks,
+                               const void* dense, void* out, int64_t n_lanes,
+                               int64_t F, int64_t ld, int64_t R, int64_t gh,
+                               int64_t window, int64_t b, int64_t bn,
+                               cudaStream_t stream) {
+  if ((bn != 64 && bn != 128) || ld < F || ld % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(dense) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const int64_t n_ft = ceil_div(F, bn);
+  const int64_t n_ctas = n_lanes * n_ft;
+  if (n_ctas > INT32_MAX) return cudaErrorInvalidConfiguration;
+  if (n_ctas == 0) return cudaSuccess;
+  const dim3 grid((unsigned)n_ctas);
+  const auto* gp = static_cast<const int64_t*>(group_ptr);
+  const auto* wi = static_cast<const int32_t*>(win_ids);
+  const auto* ps = static_cast<const int32_t*>(pos);
+  const auto* lv = static_cast<const uint8_t*>(lane_valid);
+  const auto* sc = static_cast<const int32_t*>(slot_cols);
+  const auto* bl = static_cast<const float*>(blocks);
+  const auto* de = static_cast<const float*>(dense);
+  auto* o = static_cast<float*>(out);
+#define SDB_PIPE(BM, BN)                                                     \
+  if (b == BM && bn == BN)                                                   \
+    return launch_pipe_tile<BM, BN>(gp, wi, ps, lv, sc, bl, de, o, F, ld, R, \
+                                    gh, window, n_ft, grid, stream);
+  SDB_PIPE(64, 64)
+  SDB_PIPE(64, 128)
+  SDB_PIPE(128, 64)
+  SDB_PIPE(128, 128)
+#undef SDB_PIPE
+  return cudaErrorInvalidValue;
+}
+
+// K3's operand split: x (N, F) f32, any 4-byte alignment, into out (2N,
+// ld) bf16, rows 0 .. N-1 hi = bf16_rn(x) and rows N .. 2N-1 lo =
+// bf16_rn(x - hi) (x - hi is exact in f32), columns F .. ld-1 zero. One
+// thread per pair of columns: two f32 reads, two 4-byte bf16x2 stores.
+__global__ void __launch_bounds__(256)
+    split_bf16_kernel(const float* __restrict__ x,
+                      __nv_bfloat162* __restrict__ out, int64_t N, int64_t F,
+                      int64_t ld) {
+  const int64_t half = ld / 2;
+  const int64_t n_pairs = N * half;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n_pairs;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t r = i / half, c = 2 * (i % half);
+    const float v0 = c < F ? x[r * F + c] : 0.f;
+    const float v1 = c + 1 < F ? x[r * F + c + 1] : 0.f;
+    const __nv_bfloat16 h0 = __float2bfloat16_rn(v0), h1 = __float2bfloat16_rn(v1);
+    __nv_bfloat162 hi, lo;
+    hi.x = h0;
+    hi.y = h1;
+    lo.x = __float2bfloat16_rn(v0 - __bfloat162float(h0));
+    lo.y = __float2bfloat16_rn(v1 - __bfloat162float(h1));
+    out[i] = hi;
+    out[n_pairs + i] = lo;
+  }
 }
 
 // The grid of a launch over n_rows CTA rows of ceil(F / 64) F tiles, or
@@ -732,12 +1036,17 @@ cudaError_t tile_grid(int64_t n_rows, int64_t F, int64_t* n_ft, dim3* grid) {
   return cudaSuccess;
 }
 
-// K1's CTA walk with math policy M; K5's entries launch it too.
+
+// K1's CTA walk with math policy M; K5's entries launch it too. Exact
+// reads one plane with operand rows of F (ldx == F); Bf16x3 two planes,
+// a_lo block elements and x_lo operand elements apart, with operand rows
+// of ldx.
 template <typename T, typename M>
 cudaError_t launch_rows(const void* step_ptr, const void* slot_cols,
                         const void* blocks, const void* dense, void* out,
-                        int64_t n_block_rows, int64_t F, int64_t group,
-                        int64_t b, cudaStream_t stream) {
+                        int64_t n_block_rows, int64_t F, int64_t ldx,
+                        int64_t a_lo, int64_t x_lo, int64_t group, int64_t b,
+                        cudaStream_t stream) {
   int64_t n_ft;
   dim3 grid;
   if (cudaError_t e = tile_grid(n_block_rows, F, &n_ft, &grid)) return e;
@@ -748,23 +1057,26 @@ cudaError_t launch_rows(const void* step_ptr, const void* slot_cols,
   const auto* de = static_cast<const T*>(dense);
   auto* o = static_cast<float*>(out);
   switch (b) {
-    case 16: flat_kernel<T, 16, M><<<grid, kThreads, 0, stream>>>(sp, sc, bl, de, o, F, group, n_ft); break;
-    case 32: flat_kernel<T, 32, M><<<grid, kThreads, 0, stream>>>(sp, sc, bl, de, o, F, group, n_ft); break;
-    case 64: flat_kernel<T, 64, M><<<grid, kThreads, 0, stream>>>(sp, sc, bl, de, o, F, group, n_ft); break;
-    case 128: flat_kernel<T, 128, M><<<grid, kThreads, 0, stream>>>(sp, sc, bl, de, o, F, group, n_ft); break;
+    case 16: flat_kernel<T, 16, M><<<grid, kThreads, 0, stream>>>(sp, sc, bl, de, o, F, ldx, a_lo, x_lo, group, n_ft); break;
+    case 32: flat_kernel<T, 32, M><<<grid, kThreads, 0, stream>>>(sp, sc, bl, de, o, F, ldx, a_lo, x_lo, group, n_ft); break;
+    case 64: flat_kernel<T, 64, M><<<grid, kThreads, 0, stream>>>(sp, sc, bl, de, o, F, ldx, a_lo, x_lo, group, n_ft); break;
+    case 128: flat_kernel<T, 128, M><<<grid, kThreads, 0, stream>>>(sp, sc, bl, de, o, F, ldx, a_lo, x_lo, group, n_ft); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
-// K2's FFMA walk with math policy M.
+// K2's FFMA walk with math policy M (operand rows and planes as
+// launch_rows), at b = 16 and 32: b = 64 and 128 run the pipelined FFMA
+// loop (f32) or the tensor-core loop (bf16, K3).
 template <typename T, typename M>
 cudaError_t launch_sorted(const void* group_ptr, const void* win_ids,
                           const void* pos, const void* lane_valid,
                           const void* slot_cols, const void* blocks,
                           const void* dense, void* out, int64_t n_lanes,
-                          int64_t F, int64_t R, int64_t gh, int64_t window,
-                          int64_t b, cudaStream_t stream) {
+                          int64_t F, int64_t ldx, int64_t a_lo, int64_t x_lo,
+                          int64_t R, int64_t gh, int64_t window, int64_t b,
+                          cudaStream_t stream) {
   int64_t n_ft;
   dim3 grid;
   if (cudaError_t e = tile_grid(n_lanes, F, &n_ft, &grid)) return e;
@@ -778,10 +1090,8 @@ cudaError_t launch_sorted(const void* group_ptr, const void* win_ids,
   const auto* de = static_cast<const T*>(dense);
   auto* o = static_cast<float*>(out);
   switch (b) {
-    case 16: sorted_kernel<T, 16, M><<<grid, kThreads, 0, stream>>>(gp, wi, ps, lv, sc, bl, de, o, F, R, gh, window, n_ft); break;
-    case 32: sorted_kernel<T, 32, M><<<grid, kThreads, 0, stream>>>(gp, wi, ps, lv, sc, bl, de, o, F, R, gh, window, n_ft); break;
-    case 64: sorted_kernel<T, 64, M><<<grid, kThreads, 0, stream>>>(gp, wi, ps, lv, sc, bl, de, o, F, R, gh, window, n_ft); break;
-    case 128: sorted_kernel<T, 128, M><<<grid, kThreads, 0, stream>>>(gp, wi, ps, lv, sc, bl, de, o, F, R, gh, window, n_ft); break;
+    case 16: sorted_kernel<T, 16, M><<<grid, kThreads, 0, stream>>>(gp, wi, ps, lv, sc, bl, de, o, F, ldx, a_lo, x_lo, R, gh, window, n_ft); break;
+    case 32: sorted_kernel<T, 32, M><<<grid, kThreads, 0, stream>>>(gp, wi, ps, lv, sc, bl, de, o, F, ldx, a_lo, x_lo, R, gh, window, n_ft); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -827,13 +1137,51 @@ cudaError_t launch_flat_bf16(const void* step_ptr, const void* slot_cols,
     case 32:
       if (bn != kBN || ld != F) return cudaErrorInvalidValue;
       return launch_rows<__nv_bfloat16, Exact>(step_ptr, slot_cols, blocks,
-                                               dense, out, n_block_rows, F,
-                                               group, b, s);
+                                               dense, out, n_block_rows, F, F,
+                                               0, 0, group, b, s);
     case 64:
     case 128:
       return launch_ring(step_ptr, nullptr, nullptr, nullptr, slot_cols, blocks,
                          dense, out, n_block_rows, n_block_rows, n_slots,
-                         n_dense_rows, F, ld, 1, group, 0, b, bn, s);
+                         n_dense_rows, F, ld, 1, group, 0, b, bn, 1, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// K3 on the flat walk (K1's and K5's layouts, win_ids == nullptr: one lane
+// per block-row, gh = group, group_ptr = step_ptr) or on K2's sorted walk.
+// planes holds the blocks' two bf16 planes (n_slots b x b slots of hi,
+// then as many of lo), xp the operand's ((n_dense_rows, ld) of hi, then
+// of lo; ld >= F a multiple of 8). The tensor-core loop at b = 64 and 128,
+// the FFMA loop at b = 16 and 32 (64-column tiles: bn == 64).
+cudaError_t launch_k3(const void* group_ptr, const void* win_ids,
+                      const void* pos, const void* lane_valid,
+                      const void* slot_cols, const void* planes,
+                      const void* xp, void* out, int64_t n_lanes,
+                      int64_t n_slots, int64_t n_dense_rows, int64_t F,
+                      int64_t ld, int64_t R, int64_t gh, int64_t window,
+                      int64_t b, int64_t bn, cudaStream_t s) {
+  const bool sorted = win_ids != nullptr;
+  switch (b) {
+    case 16:
+    case 32: {
+      if (bn != kBN || ld < F || ld % 8 != 0) return cudaErrorInvalidValue;
+      const int64_t a_lo = n_slots * b * b, x_lo = n_dense_rows * ld;
+      if (sorted)
+        return launch_sorted<__nv_bfloat16, Bf16x3>(
+            group_ptr, win_ids, pos, lane_valid, slot_cols, planes, xp, out,
+            n_lanes, F, ld, a_lo, x_lo, R, gh, window, b, s);
+      return launch_rows<__nv_bfloat16, Bf16x3>(group_ptr, slot_cols, planes,
+                                                xp, out, n_lanes, F, ld, a_lo,
+                                                x_lo, gh, b, s);
+    }
+    case 64:
+    case 128:
+      return launch_ring(group_ptr, win_ids, pos, lane_valid, slot_cols, planes,
+                         xp, out, n_lanes, sorted ? 0 : n_lanes, n_slots,
+                         n_dense_rows, F, ld, sorted ? R : 1, gh, window, b, bn,
+                         2, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -844,14 +1192,15 @@ cudaError_t launch_flat_bf16(const void* step_ptr, const void* slot_cols,
 // C interface, bound with ctypes. Pointers are device pointers; the
 // stream is the caller's current stream. Returns the cudaError_t of the
 // launch (0 on success). The *_bf16 entries take bf16 blocks and dense
-// only; every other entry takes float only.
+// only, the *_bf16x3 entries the two bf16 planes of each, the others
+// float only.
 extern "C" int sdb_bsr_spmm_flat(const void* step_ptr, const void* slot_cols,
                                  const void* blocks, const void* dense,
                                  void* out, int64_t n_block_rows, int64_t F,
                                  int64_t group, int64_t b, void* stream) {
   return (int)launch_rows<float, Exact>(step_ptr, slot_cols, blocks, dense,
-                                        out, n_block_rows, F, group, b,
-                                        static_cast<cudaStream_t>(stream));
+                                        out, n_block_rows, F, F, 0, 0, group,
+                                        b, static_cast<cudaStream_t>(stream));
 }
 
 // K1, bf16 operands: as sdb_bsr_spmm_rowgroup_bf16 on the flat layout.
@@ -865,15 +1214,16 @@ extern "C" int sdb_bsr_spmm_flat_bf16(
                                group, b, bn, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int sdb_bsr_spmm_flat_bf16x3(const void* step_ptr,
-                                        const void* slot_cols,
-                                        const void* blocks, const void* dense,
-                                        void* out, int64_t n_block_rows,
-                                        int64_t F, int64_t group, int64_t b,
-                                        void* stream) {
-  return (int)launch_rows<float, Bf16x3>(
-      step_ptr, slot_cols, blocks, dense, out, n_block_rows, F, group, b,
-      static_cast<cudaStream_t>(stream));
+// K3 on K1's layout: the arguments of sdb_bsr_spmm_flat_bf16, with the
+// blocks' and the operand's two planes (see launch_k3).
+extern "C" int sdb_bsr_spmm_flat_bf16x3(
+    const void* step_ptr, const void* slot_cols, const void* planes,
+    const void* xp, void* out, int64_t n_block_rows, int64_t n_slots,
+    int64_t n_dense_rows, int64_t F, int64_t ld, int64_t group, int64_t b,
+    int64_t bn, void* stream) {
+  return (int)launch_k3(step_ptr, nullptr, nullptr, nullptr, slot_cols, planes,
+                        xp, out, n_block_rows, n_slots, n_dense_rows, F, ld, 1,
+                        group, 0, b, bn, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int sdb_bsr_spmm_resident(const void* step_ptr,
@@ -883,8 +1233,8 @@ extern "C" int sdb_bsr_spmm_resident(const void* step_ptr,
                                      int64_t F, int64_t group, int64_t b,
                                      void* stream) {
   return (int)launch_rows<float, Exact>(step_ptr, slot_cols, blocks, dense3,
-                                        out, n_block_rows, F, group, b,
-                                        static_cast<cudaStream_t>(stream));
+                                        out, n_block_rows, F, F, 0, 0, group,
+                                        b, static_cast<cudaStream_t>(stream));
 }
 
 // K5, bf16 operands: K1's bf16 launch on the (nbc*b, ld) view of dense3.
@@ -898,39 +1248,73 @@ extern "C" int sdb_bsr_spmm_resident_bf16(
                                group, b, bn, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int sdb_bsr_spmm_resident_bf16x3(const void* step_ptr,
-                                            const void* slot_cols,
-                                            const void* blocks,
-                                            const void* dense3, void* out,
-                                            int64_t n_block_rows, int64_t F,
-                                            int64_t group, int64_t b,
-                                            void* stream) {
-  return (int)launch_rows<float, Bf16x3>(
-      step_ptr, slot_cols, blocks, dense3, out, n_block_rows, F, group, b,
-      static_cast<cudaStream_t>(stream));
+// K3 on K5's layout: as sdb_bsr_spmm_flat_bf16x3.
+extern "C" int sdb_bsr_spmm_resident_bf16x3(
+    const void* step_ptr, const void* slot_cols, const void* planes,
+    const void* xp, void* out, int64_t n_block_rows, int64_t n_slots,
+    int64_t n_dense_rows, int64_t F, int64_t ld, int64_t group, int64_t b,
+    int64_t bn, void* stream) {
+  return (int)launch_k3(step_ptr, nullptr, nullptr, nullptr, slot_cols, planes,
+                        xp, out, n_block_rows, n_slots, n_dense_rows, F, ld, 1,
+                        group, 0, b, bn, static_cast<cudaStream_t>(stream));
 }
 
-// K2, f32 operands.
+// K2, f32 operands: the pipelined FFMA loop at b = 64 and 128 (tiles of
+// bn = 64 or 128 columns; dense (n, ld) with ld >= F a multiple of 4 and
+// a 16-byte-aligned base), the FFMA loop at b = 16 and 32 (bn == 64, ld
+// == F).
 extern "C" int sdb_bsr_spmm_sorted(const void* group_ptr, const void* win_ids,
                                    const void* pos, const void* lane_valid,
                                    const void* slot_cols, const void* blocks,
                                    const void* dense, void* out,
-                                   int64_t n_lanes, int64_t F, int64_t R,
-                                   int64_t gh, int64_t window, int64_t b,
-                                   void* stream) {
-  return (int)launch_sorted<float, Exact>(
-      group_ptr, win_ids, pos, lane_valid, slot_cols, blocks, dense, out,
-      n_lanes, F, R, gh, window, b, static_cast<cudaStream_t>(stream));
+                                   int64_t n_lanes, int64_t F, int64_t ld,
+                                   int64_t R, int64_t gh, int64_t window,
+                                   int64_t b, int64_t bn, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (b) {
+    case 16:
+    case 32:
+      if (bn != kBN || ld != F) return (int)cudaErrorInvalidValue;
+      return (int)launch_sorted<float, Exact>(
+          group_ptr, win_ids, pos, lane_valid, slot_cols, blocks, dense, out,
+          n_lanes, F, F, 0, 0, R, gh, window, b, s);
+    case 64:
+    case 128:
+      return (int)launch_sorted_pipe(group_ptr, win_ids, pos, lane_valid,
+                                     slot_cols, blocks, dense, out, n_lanes, F,
+                                     ld, R, gh, window, b, bn, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
+// K3 on K2's layout: the arguments of sdb_bsr_spmm_sorted_bf16, with the
+// blocks' and the operand's two planes (see launch_k3).
 extern "C" int sdb_bsr_spmm_sorted_bf16x3(
     const void* group_ptr, const void* win_ids, const void* pos,
-    const void* lane_valid, const void* slot_cols, const void* blocks,
-    const void* dense, void* out, int64_t n_lanes, int64_t F, int64_t R,
-    int64_t gh, int64_t window, int64_t b, void* stream) {
-  return (int)launch_sorted<float, Bf16x3>(
-      group_ptr, win_ids, pos, lane_valid, slot_cols, blocks, dense, out,
-      n_lanes, F, R, gh, window, b, static_cast<cudaStream_t>(stream));
+    const void* lane_valid, const void* slot_cols, const void* planes,
+    const void* xp, void* out, int64_t n_lanes, int64_t n_slots,
+    int64_t n_dense_rows, int64_t F, int64_t ld, int64_t R, int64_t gh,
+    int64_t window, int64_t b, int64_t bn, void* stream) {
+  if (win_ids == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)launch_k3(group_ptr, win_ids, pos, lane_valid, slot_cols, planes,
+                        xp, out, n_lanes, n_slots, n_dense_rows, F, ld, R, gh,
+                        window, b, bn, static_cast<cudaStream_t>(stream));
+}
+
+// K3's operand split (split_bf16_kernel): x (N, F) f32 into out (2N, ld)
+// bf16, ld >= F a multiple of 8.
+extern "C" int sdb_split_bf16(const void* x, void* out, int64_t N, int64_t F,
+                              int64_t ld, void* stream) {
+  if (ld < F || ld % 8 != 0) return (int)cudaErrorInvalidValue;
+  const int64_t n_pairs = N * (ld / 2);
+  if (n_pairs == 0) return (int)cudaSuccess;
+  const int64_t n_blocks = ceil_div(n_pairs, 256);
+  const unsigned grid = (unsigned)(n_blocks < 65536 * 8 ? n_blocks : 65536 * 8);
+  split_bf16_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<__nv_bfloat162*>(out), N, F,
+      ld);
+  return (int)cudaGetLastError();
 }
 
 // K2, bf16 operands: the tensor-core loop at b = 64 and 128, the FFMA
@@ -950,13 +1334,13 @@ extern "C" int sdb_bsr_spmm_sorted_bf16(
       if (bn != kBN || ld != F) return (int)cudaErrorInvalidValue;
       return (int)launch_sorted<__nv_bfloat16, Exact>(
           group_ptr, win_ids, pos, lane_valid, slot_cols, blocks, dense, out,
-          n_lanes, F, R, gh, window, b, s);
+          n_lanes, F, F, 0, 0, R, gh, window, b, s);
     case 64:
     case 128:
       if (win_ids == nullptr) return (int)cudaErrorInvalidValue;
       return (int)launch_ring(group_ptr, win_ids, pos, lane_valid, slot_cols,
                               blocks, dense, out, n_lanes, 0, n_slots,
-                              n_dense_rows, F, ld, R, gh, window, b, bn, s);
+                              n_dense_rows, F, ld, R, gh, window, b, bn, 1, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -993,7 +1377,8 @@ extern "C" int sdb_bsr_spmm_rowgroup_bf16(
     case 128:
       return (int)launch_ring(group_ptr, nullptr, nullptr, nullptr, slot_cols,
                               blocks, dense, out, n_lanes, n_block_rows,
-                              n_slots, n_dense_rows, F, ld, R, gh, 0, b, bn, s);
+                              n_slots, n_dense_rows, F, ld, R, gh, 0, b, bn, 1,
+                              s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -39,20 +39,24 @@ _SIGNATURES = {
     "sdb_bsr_spmm_flat": ("bsr_spmm", [_P] * 5 + [_I] * 4 + [_P]),
     # f32 K5: the same arguments, the operand viewed as (nbc, b, F)
     "sdb_bsr_spmm_resident": ("bsr_spmm", [_P] * 5 + [_I] * 4 + [_P]),
-    # K3 on K1's and K5's layouts: the same arguments
-    "sdb_bsr_spmm_flat_bf16x3": ("bsr_spmm", [_P] * 5 + [_I] * 4 + [_P]),
-    "sdb_bsr_spmm_resident_bf16x3": ("bsr_spmm", [_P] * 5 + [_I] * 4 + [_P]),
     # bf16 K1 and K5: the same pointers, then n_block_rows, n_slots,
     # n_dense_rows, F, ld, group, b, bn, stream
     "sdb_bsr_spmm_flat_bf16": ("bsr_spmm", [_P] * 5 + [_I] * 8 + [_P]),
     "sdb_bsr_spmm_resident_bf16": ("bsr_spmm", [_P] * 5 + [_I] * 8 + [_P]),
-    # f32 K2 and K3 on its layout: group_ptr, win_ids, pos, lane_valid,
-    # slot_cols, blocks, dense, out, n_lanes, F, R, gh, window, b, stream
-    "sdb_bsr_spmm_sorted": ("bsr_spmm", [_P] * 8 + [_I] * 6 + [_P]),
-    "sdb_bsr_spmm_sorted_bf16x3": ("bsr_spmm", [_P] * 8 + [_I] * 6 + [_P]),
+    # K3 on K1's and K5's layouts: the same arguments, the blocks and the
+    # operand as their two bf16 planes
+    "sdb_bsr_spmm_flat_bf16x3": ("bsr_spmm", [_P] * 5 + [_I] * 8 + [_P]),
+    "sdb_bsr_spmm_resident_bf16x3": ("bsr_spmm", [_P] * 5 + [_I] * 8 + [_P]),
+    # f32 K2: group_ptr, win_ids, pos, lane_valid, slot_cols, blocks,
+    # dense, out, n_lanes, F, ld, R, gh, window, b, bn, stream
+    "sdb_bsr_spmm_sorted": ("bsr_spmm", [_P] * 8 + [_I] * 8 + [_P]),
     # bf16 K2: the same pointers, then n_lanes, n_slots, n_dense_rows, F,
     # ld, R, gh, window, b, bn, stream
     "sdb_bsr_spmm_sorted_bf16": ("bsr_spmm", [_P] * 8 + [_I] * 10 + [_P]),
+    # K3 on K2's layout: the same arguments, with the two planes
+    "sdb_bsr_spmm_sorted_bf16x3": ("bsr_spmm", [_P] * 8 + [_I] * 10 + [_P]),
+    # K3's operand split: x, out, N, F, ld, stream
+    "sdb_split_bf16": ("bsr_spmm", [_P] * 2 + [_I] * 3 + [_P]),
     # f32 K4: group_ptr, slot_cols, blocks, dense, out, n_lanes,
     # n_block_rows, F, R, gh, b, stream
     "sdb_bsr_spmm_rowgroup": ("bsr_spmm", [_P] * 5 + [_I] * 6 + [_P]),
@@ -171,6 +175,7 @@ bsr_spmm_sorted_bf16 = CudaKernel("sdb_bsr_spmm_sorted_bf16")  # K2, bf16
 bsr_spmm_flat_bf16x3 = CudaKernel("sdb_bsr_spmm_flat_bf16x3")
 bsr_spmm_sorted_bf16x3 = CudaKernel("sdb_bsr_spmm_sorted_bf16x3")
 bsr_spmm_resident_bf16x3 = CudaKernel("sdb_bsr_spmm_resident_bf16x3")
+split_bf16 = CudaKernel("sdb_split_bf16")  # K3's operand split
 bsr_spmm_rowgroup = CudaKernel("sdb_bsr_spmm_rowgroup")        # K4, f32
 bsr_spmm_rowgroup_bf16 = CudaKernel("sdb_bsr_spmm_rowgroup_bf16")  # K4, bf16
 bsr_spmm_resident = CudaKernel("sdb_bsr_spmm_resident")        # K5, f32
@@ -182,7 +187,7 @@ bsr_spmm_int8_resident = CudaKernel("sdb_bsr_spmm_int8_resident")  # K9
 csr_spmm = CudaKernel("sdb_csr_spmm")                           # K10
 KERNELS = (bsr_spmm_flat, bsr_spmm_flat_bf16, bsr_spmm_sorted,
            bsr_spmm_sorted_bf16, bsr_spmm_flat_bf16x3,
-           bsr_spmm_sorted_bf16x3, bsr_spmm_resident_bf16x3,
+           bsr_spmm_sorted_bf16x3, bsr_spmm_resident_bf16x3, split_bf16,
            bsr_spmm_rowgroup, bsr_spmm_rowgroup_bf16, bsr_spmm_resident,
            bsr_spmm_resident_bf16, bsr_spmm_int8_flat, bsr_spmm_int8_sorted,
            bsr_spmm_int8_rowgroup, bsr_spmm_int8_resident, csr_spmm)

@@ -19,11 +19,15 @@ four kernels on the packed arrays:
 
 ``precision="high"`` on f32 operands runs K3, the bf16x3 product of
 ``_dot3`` (hi·hi + hi·lo + lo·hi of bf16 splits, f32 sums), as its own
-instance of K1, K2 or K5 (``bf16x3=True`` in the wrappers). bf16
-operands run every kernel through its own entry
-(``sdb_bsr_spmm_{flat,sorted,rowgroup,resident}_bf16``), on the tensor
-cores at b = 64 and 128; ``bf16_tile_geometry`` picks their F tile width
-and the operand's padded row length.
+instance of K1, K2 or K5 (``bf16x3=True`` in the wrappers). A "high"
+plan splits its blocks once, at build, and holds their two bf16 planes
+(``split_planes``) instead of the f32 blocks; each call splits the
+operand once (``split_operand``, a kernel of its own), and K3 runs on the
+tensor cores at b = 64 and 128. bf16 operands run every kernel through
+its own entry (``sdb_bsr_spmm_{flat,sorted,rowgroup,resident}_bf16``), on
+the tensor cores at b = 64 and 128; ``bf16_tile_geometry`` picks their F
+tile width and the operand's padded row length. f32 K2 at b = 64 and 128
+runs a pipelined FFMA loop at ``tile_geometry``'s tile width.
 
 Beside each kernel sits its plain PyTorch version (``spmm_flat_plain``,
 ``spmm_sorted_plain``, ``spmm_rowgroup_plain``,
@@ -328,16 +332,49 @@ def split_bf16(x: torch.Tensor):
     return hi, (x - hi).to(torch.bfloat16).float()
 
 
+def split_planes(blocks: torch.Tensor) -> torch.Tensor:
+    """K3's blocks as a "high" plan holds them: the two bf16 planes of the
+    f32 (S, b, b) blocks, hi = bf16(a) and lo = bf16(a - hi) (``_dot3``'s
+    lh and ll), in one contiguous (2*S*b, b) bf16 tensor, hi in rows 0 ..
+    S*b-1 and lo after them."""
+    b = blocks.shape[-1]
+    hi, lo = split_bf16(blocks.float())
+    return torch.cat([hi.reshape(-1, b), lo.reshape(-1, b)]).to(torch.bfloat16)
+
+
+def block_planes(planes: torch.Tensor):
+    """(hi, lo) of split_planes' (2*S*b, b) tensor, each an (S, b, b)
+    bf16 view."""
+    b = planes.shape[1]
+    hi, lo = planes.reshape(2, -1, b, b).unbind(0)
+    return hi, lo
+
+
+def split_operand_plain(dense: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3's operand split (``split_operand``): the f32
+    (N, F) operand as one (2N, ld) bf16 tensor, rows 0 .. N-1 hi =
+    bf16(x) and rows N .. 2N-1 lo = bf16(x - hi), ld = F rounded up to a
+    multiple of 8 with zero pad columns (16-byte rows for TMA)."""
+    n, F = dense.shape
+    hi, lo = split_bf16(dense.float())
+    out = torch.zeros(2 * n, -(-F // 8) * 8, dtype=torch.bfloat16,
+                      device=dense.device)
+    out[:n, :F] = hi
+    out[n:, :F] = lo
+    return out
+
+
 def _gathered_products(slot_cols, blocks, dense_b, s0, s1, bf16x3=False):
     """f32 products blocks[s0:s1] @ dense_b[slot_cols[s0:s1]], (n, b, F);
-    dense_b is the operand viewed as (nbc, b, F). bf16x3: the three f32
-    products of the bf16 splits, hi·hi + hi·lo + lo·hi, as ``_dot3``
-    sums them (a product of two bf16 values is exact in f32)."""
+    dense_b is the operand viewed as (nbc, b, F). bf16x3: blocks are
+    split_planes' two planes, and the products are the three f32 products
+    of the bf16 splits, hi·hi + hi·lo + lo·hi, as ``_dot3`` sums them (a
+    product of two bf16 values is exact in f32)."""
     cols = slot_cols[s0:s1].long()
-    a, x = blocks[s0:s1].float(), dense_b[cols].float()
+    x = dense_b[cols].float()
     if not bf16x3:
-        return torch.bmm(a, x)
-    ah, al = split_bf16(a)
+        return torch.bmm(blocks[s0:s1].float(), x)
+    ah, al = (p[s0:s1].float() for p in block_planes(blocks))
     xh, xl = split_bf16(x)
     return torch.bmm(ah, xh) + torch.bmm(ah, xl) + torch.bmm(al, xh)
 
@@ -483,23 +520,35 @@ def _device_of(*tensors) -> torch.device:
     return dev
 
 
-def check_cuda_operands(blocks, dense, index_arrays, dtypes=_KERNEL_DTYPES):
+def check_cuda_operands(blocks, dense, index_arrays, dtypes=_KERNEL_DTYPES,
+                        bf16x3: bool = False):
     """What the CUDA kernels take: b in SUPPORTED_BLOCK_SIZES, blocks and
-    dense of one dtype of `dtypes`, dense rows a multiple of b, all
+    dense of one dtype of `dtypes` (K3, bf16x3=True: split_planes' bf16
+    planes and an f32 operand), dense rows a multiple of b, all
     contiguous, the other arrays ({name: (tensor, dtype)}) of their
-    expected types."""
-    if blocks.dim() != 3 or blocks.shape[1] != blocks.shape[2]:
-        raise ValueError(f"blocks must be (S, b, b), got {tuple(blocks.shape)}")
-    b = blocks.shape[1]
+    expected types. Returns the number of slots S."""
+    if bf16x3:
+        b = blocks.shape[-1]
+        if blocks.dim() != 2 or blocks.shape[0] % (2 * b):
+            raise ValueError(f"K3's blocks must be the (2*S*b, b) planes of "
+                             f"split_planes, got {tuple(blocks.shape)}")
+        if blocks.dtype != torch.bfloat16 or dense.dtype != torch.float32:
+            raise TypeError(f"K3 takes bf16 block planes and an f32 operand, "
+                            f"got dtypes {blocks.dtype} and {dense.dtype}")
+        n_slots = blocks.shape[0] // (2 * b)
+    else:
+        if blocks.dim() != 3 or blocks.shape[1] != blocks.shape[2]:
+            raise ValueError(f"blocks must be (S, b, b), got {tuple(blocks.shape)}")
+        b, n_slots = blocks.shape[1], blocks.shape[0]
+        if blocks.dtype not in dtypes or dense.dtype != blocks.dtype:
+            raise TypeError(
+                f"blocks {blocks.dtype} and dense {dense.dtype} must share one "
+                f"dtype of {dtypes}"
+            )
     if b not in SUPPORTED_BLOCK_SIZES:
         raise ValueError(
             f"block size {b} not supported by the CUDA kernels "
             f"(supported: {SUPPORTED_BLOCK_SIZES})"
-        )
-    if blocks.dtype not in dtypes or dense.dtype != blocks.dtype:
-        raise TypeError(
-            f"blocks {blocks.dtype} and dense {dense.dtype} must share one "
-            f"dtype of {dtypes}"
         )
     if dense.dim() != 2 or dense.shape[0] % b:
         raise ValueError(
@@ -511,24 +560,33 @@ def check_cuda_operands(blocks, dense, index_arrays, dtypes=_KERNEL_DTYPES):
     for t in (blocks, dense, *(t for t, _ in index_arrays.values())):
         if not t.is_contiguous():
             raise ValueError("CUDA kernel operands must be contiguous")
+    return n_slots
 
 
-def bf16_tile_geometry(b: int, n_rows: int, F: int, n_sms: int):
-    """(bn, ld) of a bf16 K1, K2, K4 or K5 launch over n_rows block-rows
-    (its valid lanes, one CTA row each) on a card of n_sms SMs: the F tile
-    width and the operand's row length as the kernel reads it.
+def tile_geometry(b: int, n_rows: int, F: int, n_sms: int, row_align: int):
+    """(bn, ld) of a launch over n_rows block-rows (its valid lanes, one
+    CTA row each) on a card of n_sms SMs: the F tile width and the
+    operand's row length as the kernel reads it.
 
     b = 16 and 32 run the FFMA loop: 64-column tiles, the operand as it
-    is. b = 64 and 128 run the tensor-core loop, whose TMA reads need
-    16-byte rows: ld is F rounded up to a multiple of 8 (the wrapper pads
+    is. b = 64 and 128 run the tensor-core loop or f32 K2's pipelined
+    FFMA loop, whose 16-byte copies need rows of a multiple of row_align
+    elements (8 bf16, 4 f32): ld is F rounded up to one (the wrapper pads
     the operand's columns only then). bn is 128 where F needs more than
     64 columns and the grid (n_rows * ceil(F / 128) CTAs) still covers
-    the SMs, else 64 (the loop's two-level sums hold 2 x bn/2 registers
-    a thread, which caps bn at 128)."""
+    the SMs, else 64 (the tensor-core loop's two-level sums hold 2 x bn/2
+    registers a thread, which caps bn at 128)."""
     if b < 64:
         return 64, F
     bn = 128 if F > 64 and n_rows * -(-F // 128) >= n_sms else 64
-    return bn, -(-F // 8) * 8
+    return bn, -(-F // row_align) * row_align
+
+
+def bf16_tile_geometry(b: int, n_rows: int, F: int, n_sms: int):
+    """tile_geometry of the tensor-core loop (bf16 K1, K2, K4 and K5, and
+    K3, whose split operand has rows of this ld): rows of a multiple of 8
+    bf16."""
+    return tile_geometry(b, n_rows, F, n_sms, 8)
 
 
 @functools.lru_cache(maxsize=None)
@@ -536,23 +594,54 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _bf16_launch_args(blocks, dense, n_rows: int) -> tuple:
-    """The trailing arguments of a bf16 entry, (n_slots, n_dense_rows,
-    F, ld), then bn, and the operand the kernel reads: the operand padded
-    to ld columns where bf16_tile_geometry pads it, else the operand
-    itself, copied when it does not start on 16 bytes (a view at an odd
-    offset; the tensor-core loop's TMA map needs an aligned base)."""
-    b, F = blocks.shape[1], dense.shape[1]
-    bn, ld = bf16_tile_geometry(b, n_rows, F, _sm_count(dense.device.index))
+def _tile_launch_args(b: int, n_slots: int, dense, n_rows: int,
+                      row_align: int) -> tuple:
+    """(n_slots, n_dense_rows, F, ld), bn, and the operand the kernel
+    reads: the operand padded to ld columns where tile_geometry pads it,
+    else the operand itself, copied when it does not start on 16 bytes (a
+    view at an odd offset; TMA maps and 16-byte copies need an aligned
+    base)."""
+    F = dense.shape[1]
+    bn, ld = tile_geometry(b, n_rows, F, _sm_count(dense.device.index), row_align)
     if ld != F:
         dense = torch.nn.functional.pad(dense, (0, ld - F))
     elif dense.data_ptr() % 16:
         dense = dense.clone()
-    return (blocks.shape[0], dense.shape[0], F, ld), bn, dense
+    return (n_slots, dense.shape[0], F, ld), bn, dense
 
 
-def _kernel_dtypes(bf16x3: bool) -> tuple:
-    return (torch.float32,) if bf16x3 else _KERNEL_DTYPES
+def _bf16_launch_args(blocks, dense, n_rows: int) -> tuple:
+    """The trailing arguments of a bf16 entry, (n_slots, n_dense_rows,
+    F, ld), then bn, and the operand the kernel reads (_tile_launch_args
+    with rows of a multiple of 8 bf16)."""
+    return _tile_launch_args(blocks.shape[1], blocks.shape[0], dense, n_rows, 8)
+
+
+def split_operand(dense: torch.Tensor) -> torch.Tensor:
+    """K3's operand split: the f32 (N, F) operand as split_operand_plain's
+    (2N, ld) bf16 planes. CPU tensors run split_operand_plain; CUDA
+    tensors launch split_bf16_kernel (any alignment of the operand; the
+    result is a fresh, 16-byte-aligned buffer)."""
+    if dense.device.type == "cpu":
+        return split_operand_plain(dense)
+    if dense.dtype != torch.float32 or dense.dim() != 2 or not dense.is_contiguous():
+        raise TypeError(f"split_operand takes a contiguous 2-D f32 operand, got "
+                        f"dtype {dense.dtype}, shape {tuple(dense.shape)}")
+    n, F = dense.shape
+    out = torch.empty(2 * n, -(-F // 8) * 8, dtype=torch.bfloat16, device=dense.device)
+    with torch.cuda.device(dense.device):
+        _kernels.split_bf16(dense.data_ptr(), out.data_ptr(), n, F, out.shape[1],
+                            torch.cuda.current_stream(dense.device).cuda_stream)
+    return out
+
+
+def _k3_launch_args(b: int, n_slots: int, dense, n_rows: int) -> tuple:
+    """The trailing arguments of a K3 entry, (n_slots, n_dense_rows, F,
+    ld), then bn, and the operand's planes (one split per call)."""
+    xp = split_operand(dense)
+    F = dense.shape[1]
+    bn = bf16_tile_geometry(b, n_rows, F, _sm_count(dense.device.index))[0]
+    return (n_slots, dense.shape[0], F, xp.shape[1]), bn, xp
 
 
 def spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense, group: int,
@@ -564,29 +653,32 @@ def spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense, group: int,
     step_ptr (n_block_rows+1,) int64 points each block-row at its steps
     (derived from the sorted step_rows at plan time). CPU tensors run
     spmm_flat_plain; CUDA tensors run the CUDA kernel: f32 operands the
-    FFMA entry, bf16 the bf16 entry, as spmm_sorted."""
+    FFMA entry, bf16 the bf16 entry, as spmm_sorted; bf16x3 (blocks:
+    split_planes' planes, f32 operand) K3's entry after split_operand."""
     dev = _device_of(step_rows, step_ptr, slot_cols, blocks, dense)
     n_block_rows = step_ptr.shape[0] - 1
     if dev.type == "cpu":
         return spmm_flat_plain(step_rows, slot_cols, blocks, dense,
                                n_block_rows, group, bf16x3)
-    check_cuda_operands(blocks, dense, {
+    n_slots = check_cuda_operands(blocks, dense, {
         "step_ptr": (step_ptr, torch.int64),
         "slot_cols": (slot_cols, torch.int32),
-    }, _kernel_dtypes(bf16x3))
-    if slot_cols.shape[0] != blocks.shape[0] or blocks.shape[0] % group:
+    }, bf16x3=bf16x3)
+    if slot_cols.shape[0] != n_slots or n_slots % group:
         raise ValueError("slot_cols and blocks must hold n_steps*group slots")
     b = blocks.shape[1]
     F = dense.shape[1]
     out = torch.empty(n_block_rows * b, F, dtype=torch.float32, device=dev)
-    bf16 = blocks.dtype == torch.bfloat16
+    bf16 = blocks.dtype == torch.bfloat16 and not bf16x3
     kernel = getattr(_kernels, "bsr_spmm_" + ("resident" if resident else "flat")
                      + ("_bf16x3" if bf16x3 else "_bf16" if bf16 else ""))
     with torch.cuda.device(dev):
         pointers = (step_ptr.data_ptr(), slot_cols.data_ptr(), blocks.data_ptr())
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if bf16:
-            sizes, bn, dense = _bf16_launch_args(blocks, dense, n_block_rows)
+        if bf16 or bf16x3:
+            sizes, bn, dense = (_k3_launch_args(b, n_slots, dense, n_block_rows)
+                                if bf16x3 else
+                                _bf16_launch_args(blocks, dense, n_block_rows))
             kernel(*pointers, dense.data_ptr(), out.data_ptr(), n_block_rows,
                    *sizes, group, b, bn, stream)
         else:
@@ -617,25 +709,28 @@ def spmm_sorted(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr,
 
     lane_valid (n_groups*R,) bool and group_ptr (n_groups+1,) int64 come
     from the port's packer. CPU tensors run spmm_sorted_plain; CUDA
-    tensors run the CUDA kernel: f32 operands the FFMA entry, bf16 the
-    bf16 entry at bf16_tile_geometry's tile width (the operand's columns
-    padded to a multiple of 8 where F is ragged and b >= 64)."""
+    tensors run the CUDA kernel: f32 operands the FFMA entry (at b >= 64
+    the pipelined loop, at tile_geometry's tile width, the operand's
+    columns padded to a multiple of 4 where F is ragged), bf16 the bf16
+    entry at bf16_tile_geometry's tile width (the operand's columns
+    padded to a multiple of 8 where F is ragged and b >= 64), bf16x3
+    (blocks: split_planes' planes) K3's entry after split_operand."""
     dev = _device_of(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr)
     if dev.type == "cpu":
         return spmm_sorted_plain(win_ids, pos, slot_cols, blocks, dense,
                                  lane_valid, group_ptr, n_block_rows, R, gh,
                                  window, bf16x3)
-    check_cuda_operands(blocks, dense, {
+    n_slots = check_cuda_operands(blocks, dense, {
         "win_ids": (win_ids, torch.int32),
         "pos": (pos, torch.int32),
         "slot_cols": (slot_cols, torch.int32),
         "lane_valid": (lane_valid, torch.bool),
         "group_ptr": (group_ptr, torch.int64),
-    }, _kernel_dtypes(bf16x3))
+    }, bf16x3=bf16x3)
     n_lanes = lane_valid.shape[0]
     if n_lanes != (group_ptr.shape[0] - 1) * R:
         raise ValueError("lane_valid must hold n_groups*R lanes")
-    if slot_cols.shape[0] != blocks.shape[0] or blocks.shape[0] != win_ids.shape[0] * R * gh:
+    if slot_cols.shape[0] != n_slots or n_slots != win_ids.shape[0] * R * gh:
         raise ValueError("slot_cols and blocks must hold n_steps*R*gh slots")
     b = blocks.shape[1]
     F = dense.shape[1]
@@ -645,16 +740,22 @@ def spmm_sorted(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr,
                     lane_valid.data_ptr(), slot_cols.data_ptr(),
                     blocks.data_ptr())
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if blocks.dtype == torch.bfloat16:
+        if bf16x3:
+            sizes, bn, xp = _k3_launch_args(b, n_slots, dense, n_block_rows)
+            _kernels.bsr_spmm_sorted_bf16x3(
+                *pointers, xp.data_ptr(), out.data_ptr(), n_lanes, *sizes, R,
+                gh, window, b, bn, stream)
+        elif blocks.dtype == torch.bfloat16:
             sizes, bn, dense = _bf16_launch_args(blocks, dense, n_block_rows)
             _kernels.bsr_spmm_sorted_bf16(
                 *pointers, dense.data_ptr(), out.data_ptr(), n_lanes,
                 *sizes, R, gh, window, b, bn, stream)
         else:
-            kernel = (_kernels.bsr_spmm_sorted_bf16x3 if bf16x3
-                      else _kernels.bsr_spmm_sorted)
-            kernel(*pointers, dense.data_ptr(), out.data_ptr(), n_lanes, F, R,
-                   gh, window, b, stream)
+            sizes, bn, dense = _tile_launch_args(b, n_slots, dense,
+                                                 n_block_rows, 4)
+            _kernels.bsr_spmm_sorted(
+                *pointers, dense.data_ptr(), out.data_ptr(), n_lanes, F,
+                sizes[3], R, gh, window, b, bn, stream)
     return out
 
 
@@ -849,7 +950,10 @@ def bsr_spmm_pallas_plan(
         layout, geom = ("resident" if resident else "flat"), group
     arrays = list(arrays)
     blocks_t = torch.as_tensor(arrays[2])
-    arrays[2] = blocks_t.to(dtype) if dtype is not None else blocks_t
+    if math == "bf16x3":  # K3 reads only the two bf16 planes
+        arrays[2] = split_planes(blocks_t)
+    else:
+        arrays[2] = blocks_t.to(dtype) if dtype is not None else blocks_t
     statics = (layout, nbr, n_rows, n_cols, k_needed, math, geom)
     return Plan(arrays, _pallas_apply, statics, device=device)
 
@@ -857,11 +961,11 @@ def bsr_spmm_pallas_plan(
 def _pallas_apply(statics, arrays, dense, plain: bool = False):
     layout, nbr, n_rows, n_cols, k_needed, math, geom = statics
     bf16x3 = math == "bf16x3"
-    blocks = arrays[2]
+    blocks = arrays[2]  # K3: split_planes' planes; the operand stays f32
     dense = torch.as_tensor(dense, device=blocks.device)
     if dense.dim() != 2 or dense.shape[0] != n_cols:
         raise ValueError(f"dense must be ({n_cols}, F), got {tuple(dense.shape)}")
-    dense = dense.to(blocks.dtype)
+    dense = dense.to(torch.float32 if bf16x3 else blocks.dtype)
     if k_needed > n_cols:  # zero rows up to the block grid
         dense = torch.nn.functional.pad(dense, (0, 0, 0, k_needed - n_cols))
     dense = dense.contiguous()

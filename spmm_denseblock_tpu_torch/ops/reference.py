@@ -53,7 +53,8 @@ def assert_allclose(got, want, eps: float = CHECK_EPS, msg: str = ""):
 
 
 def _split_bf16_ints(v: np.ndarray):
-    """(hi, lo) of integer-valued v with 257 <= |v| <= 511, the split of
+    """(hi, lo) of integer-valued v with 257 <= |v| <= 511 or v = 0 (split
+    into zeros), the split of
     ``_dot3`` worked out by hand: bf16 keeps 8 significant bits, so in
     [256, 512) it holds the even integers; an odd |v| is a tie and rounds
     to the even significand, a multiple of 4. lo = v - hi is -1, 0 or 1."""
@@ -63,22 +64,25 @@ def _split_bf16_ints(v: np.ndarray):
     return hi, v - hi
 
 
-def bf16x3_exact_case(F: int = 96, seed: int = 0):
+def bf16x3_exact_case(F: int = 96, seed: int = 0, b: int = 16):
     """An input on which the bf16x3 product (``_dot3``: A_hi X_hi + A_hi
     X_lo + A_lo X_hi) and exact f32 give different answers, each of them
     exact in f32 whatever the order of the sums, so a kernel must match
     its answer bit for bit.
 
-    Every block and operand value is an integer of magnitude 257 .. 288,
-    so hi and lo are integers (``_split_bf16_ints``), every product is an
-    integer, and one output's terms sum in magnitude to under 2^24: every
-    partial sum is exact in f32. The two answers differ by A_lo X_lo.
-    b = 16; 7 block-rows of 12 block-columns, block-row 2 empty and the
-    others holding 10 or 11 blocks (9 real blocks per block-row on
-    average, so the f32 "high" plan sorts by default). Returns (bsr, x
-    (192, F) f32, want_bf16x3, want_exact), the wants (112, F) float64
-    arrays of f32 values."""
-    b, nbr, nbc = 16, 7, 12
+    Every nonzero block and operand value is an integer of magnitude 257
+    .. 288, so hi and lo are integers (``_split_bf16_ints``), every
+    product is an integer, and one output's terms sum in magnitude to
+    under 2^24: every partial sum is exact in f32. That allows 16
+    nonzeros in each row of a block: at b = 16 the blocks are full, at
+    b = 64 and 128 each row of a block holds 16 nonzeros at random
+    columns (the rest zero), so the 4,096-deep rows of the tensor-core
+    loop stay exact. The two answers differ by A_lo X_lo. 7 block-rows
+    of 12 block-columns, block-row 2 empty and the others holding 10 or
+    11 blocks (9 real blocks per block-row on average, so the f32 "high"
+    plan sorts by default). Returns (bsr, x (12*b, F) f32, want_bf16x3,
+    want_exact), the wants (7*b, F) float64 arrays of f32 values."""
+    nbr, nbc = 7, 12
     rng = np.random.default_rng(seed)
 
     def ints(shape):
@@ -93,9 +97,12 @@ def bf16x3_exact_case(F: int = 96, seed: int = 0):
         rows += [r] * c.size
         cols += c.tolist()
     blocks = ints((len(rows), b, b))
+    x = ints((nbc * b, F))
+    if b > 16:  # 16 nonzeros in each row of each block
+        keep = rng.random((len(rows), b, b)).argsort(axis=2).argsort(axis=2) < 16
+        blocks *= keep
     bsr = BSR.from_parts(np.asarray(rows, np.int32), np.asarray(cols, np.int32),
                          blocks, (nbr * b, nbc * b), b)
-    x = ints((nbc * b, F))
     a = bsr.to_dense().astype(np.float64)
     x64 = x.astype(np.float64)
     (ah, al), (xh, xl) = _split_bf16_ints(a), _split_bf16_ints(x64)

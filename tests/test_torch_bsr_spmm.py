@@ -421,9 +421,9 @@ def test_split_bf16_rounds_to_nearest_even():
 
 @pytest.mark.parametrize("layout", ["flat", "sorted", "resident"])
 def test_k3_plain_matches_dot3_kernel(layout):
-    """K3's plain version on each layout against the Pallas kernel with
-    precision_name="high" (_dot3, interpret mode) on the same packed
-    arrays, within 1e-6. Margins: K3 lies within 1e-6 of the float64
+    """K3's plain version on each layout (on split_planes' planes of the
+    packed blocks) against the Pallas kernel with precision_name="high"
+    (_dot3, interpret mode) on the same packed arrays, within 1e-6. Margins: K3 lies within 1e-6 of the float64
     three-term sum; the exact f32 answer on the same input lies more
     than 10x further from it (it keeps the lo*lo term and the split
     residuals bf16x3 drops), so the test tells bf16x3 from exact f32.
@@ -443,29 +443,31 @@ def test_k3_plain_matches_dot3_kernel(layout):
             jnp.asarray(win_ids), jnp.asarray(pos), jnp.asarray(slot_cols),
             jnp.asarray(bp), jx.reshape(-1, 16, F), n_win, W, nbr * 16, F,
             gh, R, True, "high")
-        args = (torch.as_tensor(win_ids), torch.as_tensor(pos),
-                torch.as_tensor(slot_cols), torch.as_tensor(bp), xt,
-                torch.as_tensor(lane_valid),
+        idx = (torch.as_tensor(win_ids), torch.as_tensor(pos),
+               torch.as_tensor(slot_cols))
+        tail = (xt, torch.as_tensor(lane_valid),
                 torch.as_tensor(np.concatenate([[0], np.cumsum(steps)])),
                 nbr, R, gh, W)
-        got = T.spmm_sorted_plain(*args, bf16x3=True)
-        exact = T.spmm_sorted_plain(*args)
+        bp = torch.as_tensor(bp)
+        got = T.spmm_sorted_plain(*idx, T.split_planes(bp), *tail, bf16x3=True)
+        exact = T.spmm_sorted_plain(*idx, bp, *tail)
     else:
         group = 4
         step_rows, slot_cols, bp = T._pack_groups(rows, cols, blocks, group)
         jargs = (jnp.asarray(step_rows), jnp.asarray(slot_cols), jnp.asarray(bp))
         targs = (torch.as_tensor(step_rows), torch.as_tensor(slot_cols),
                  torch.as_tensor(bp))
+        planes = (*targs[:2], T.split_planes(targs[2]))
         if layout == "flat":
             want = J._pallas_spmm(*jargs, jx, nbr, nbr * 16, F, group, False,
                                   True, "high")
-            got = T.spmm_flat_plain(*targs, xt, nbr, group, bf16x3=True)
+            got = T.spmm_flat_plain(*planes, xt, nbr, group, bf16x3=True)
             exact = T.spmm_flat_plain(*targs, xt, nbr, group)
         else:
             want = J._pallas_spmm_resident(*jargs, jx.reshape(-1, 16, F), nbr,
                                            nbr * 16, F, group, True, "high")
             x3 = xt.reshape(-1, 16, F)
-            got = T.spmm_resident_plain(*targs, x3, nbr, group, bf16x3=True)
+            got = T.spmm_resident_plain(*planes, x3, nbr, group, bf16x3=True)
             exact = T.spmm_resident_plain(*targs, x3, nbr, group)
     assert got.shape == (nbr * 16, F) and got.dtype == torch.float32
     assert _rel(got.numpy(), np.asarray(want)) < K3_TOL
@@ -475,6 +477,105 @@ def test_k3_plain_matches_dot3_kernel(layout):
     assert k3_err < K3_TOL
     assert exact_err > 10 * k3_err, (exact_err, k3_err)
     assert not got.reshape(nbr, 16, F)[[3, 4, 17]].any()
+
+
+def _dot3_planes(blocks):
+    """(lh, ll) of _dot3's split of the f32 blocks, each bf16, as JAX
+    computes them."""
+    lh = jnp.asarray(blocks).astype(jnp.bfloat16)
+    ll = (jnp.asarray(blocks) - lh.astype(jnp.float32)).astype(jnp.bfloat16)
+    return lh, ll
+
+
+HIGH_LAYOUT_KW = {"sorted": {}, "flat": {"depth_sort": False},
+                  "resident": {"resident": True, "depth_sort": False}}
+
+
+@pytest.mark.parametrize("b", [16, 64, 128])
+@pytest.mark.parametrize("layout", list(HIGH_LAYOUT_KW))
+def test_high_plan_holds_dot3_planes(layout, b):
+    """A "high" plan holds its packed blocks as one (2*S*b, b) bf16
+    tensor, hi above lo, in place of the f32 blocks, and the planes are
+    _dot3's lh and ll of the JAX packer's blocks bit for bit (sorted,
+    flat and resident layouts); the other arrays are the JAX plan's."""
+    bsr = bf16x3_exact_case(F=8, b=b)[0]
+    jbsr = j_bsr.BSR.from_parts(bsr.block_rows, bsr.block_cols, bsr.blocks,
+                                bsr.shape, b)
+    kw = HIGH_LAYOUT_KW[layout]
+    tp = T.bsr_spmm_pallas_plan(bsr, grad=False, precision="high", **kw, device="cpu")
+    jp = J.bsr_spmm_pallas_plan(jbsr, grad=False, precision="high", **kw)
+    assert (tp.statics[0], tp.statics[5]) == (layout, "bf16x3")
+    planes = tp.arrays[2]
+    n_slots = jp.arrays[2].shape[0]
+    assert planes.dtype == torch.bfloat16 and planes.is_contiguous()
+    assert planes.shape == (2 * n_slots * b, b)
+    lh, ll = _dot3_planes(jp.arrays[2])
+    hi, lo = T.block_planes(planes)
+    for want, got in ((lh, hi), (ll, lo)):
+        np.testing.assert_array_equal(
+            np.asarray(want).view(np.uint16), got.view(torch.int16).numpy().view(np.uint16))
+    for i, (a, t) in enumerate(zip(jp.arrays, tp.arrays)):
+        if i != 2:
+            np.testing.assert_array_equal(np.asarray(a), t.numpy())
+
+
+@pytest.mark.parametrize("F", [1, 70, 96])
+def test_split_operand_plain_matches_split_bf16(F):
+    """K3's operand split, plain version (the CPU wrapper runs it): the
+    (2N, ld) bf16 planes, hi rows over lo rows, equal split_bf16's hi and
+    lo (and _dot3's rh, rl) bit for bit, ld = F rounded up to 8 with zero
+    pad columns; no kernel launches on CPU tensors."""
+    x = np.random.default_rng(F).standard_normal((48, F)).astype(np.float32)
+    x[0, 0] = 1.0 + 2.0 ** -8  # a tie, to even
+    launches = [k.launches for k in _kernels.KERNELS]
+    xp = T.split_operand(torch.as_tensor(x))
+    assert [k.launches for k in _kernels.KERNELS] == launches
+    assert torch.equal(xp, T.split_operand_plain(torch.as_tensor(x)))
+    ld = -(-F // 8) * 8
+    assert xp.shape == (96, ld) and xp.dtype == torch.bfloat16
+    hi, lo = T.split_bf16(torch.as_tensor(x))
+    assert torch.equal(xp[:48, :F].float(), hi) and torch.equal(xp[48:, :F].float(), lo)
+    assert not xp[:, F:].float().any()
+    rh, rl = _dot3_planes(x)
+    np.testing.assert_array_equal(np.asarray(rh.astype(jnp.float32)), hi.numpy())
+    np.testing.assert_array_equal(np.asarray(rl.astype(jnp.float32)), lo.numpy())
+
+
+@pytest.mark.parametrize("b", [64, 128])
+@pytest.mark.parametrize("layout", list(HIGH_LAYOUT_KW))
+def test_k3_is_bf16x3_not_exact_f32_wide_blocks(layout, b):
+    """bf16x3_exact_case at the block sizes the tensor-core loop runs
+    (b = 64 and 128, 16 nonzeros in each row of a block): the "high"
+    plan, computed from its planes, equals A_hi X_hi + A_hi X_lo + A_lo
+    X_hi bit for bit, as the JAX "high" plan does (interpret mode), and
+    the exact f32 plan equals A X."""
+    bsr, x, want3, want_exact = bf16x3_exact_case(F=40, b=b)
+    kw = HIGH_LAYOUT_KW[layout]
+    tp = T.bsr_spmm_pallas_plan(bsr, grad=False, precision="high", **kw, device="cpu")
+    exact = T.bsr_spmm_pallas_plan(bsr, grad=False, **kw, device="cpu")
+    assert (tp.statics[0], exact.statics[0]) == (layout, layout)
+    np.testing.assert_array_equal(tp(x).double().numpy(), want3)
+    np.testing.assert_array_equal(exact(x).double().numpy(), want_exact)
+    jbsr = j_bsr.BSR.from_parts(bsr.block_rows, bsr.block_cols, bsr.blocks,
+                                bsr.shape, b)
+    jp = J.bsr_spmm_pallas_plan(jbsr, grad=False, precision="high", **kw)
+    np.testing.assert_array_equal(np.asarray(jp(x), np.float64), want3)
+
+
+@pytest.mark.parametrize("layout", list(HIGH_LAYOUT_KW))
+def test_k3_plan_matches_jax_high_plan_b64(layout):
+    """The CPU "high" plan, computed from its planes, against the JAX
+    "high" plan (_dot3 in interpret mode) on random data at b = 64,
+    within K3_TOL (1e-6: the same splits and exact products, the f32
+    sums in another order)."""
+    parts = (*_rows_with(9, nb=12, b=64, seed=23), (768, 768), 64)
+    bsr, jbsr = t_bsr.BSR.from_parts(*parts), j_bsr.BSR.from_parts(*parts)
+    kw = HIGH_LAYOUT_KW[layout]
+    tp = T.bsr_spmm_pallas_plan(bsr, grad=False, precision="high", **kw, device="cpu")
+    jp = J.bsr_spmm_pallas_plan(jbsr, grad=False, precision="high", **kw)
+    assert (tp.statics[0], tp.statics[5]) == (layout, "bf16x3")
+    x = _dense(bsr, 48, seed=24)
+    assert _rel(tp(x).numpy(), np.asarray(jp(x))) < K3_TOL
 
 
 def test_split_bf16_ints_matches_split_bf16():
@@ -571,8 +672,9 @@ def test_precision_resident_layout_gate(dtype, kw, depth, layout, math):
     bf16 "high" is not the bf16 resident regime and packs flat at the
     _auto_group rule (group 4 at depth 9 where the power-of-two rule
     gives 16). The packed arrays and the group are bit-equal to the JAX
-    plan's; the answers agree within 1e-5 (the JAX side in interpret
-    mode)."""
+    plan's (a "high" plan's blocks as the two bf16 planes of _dot3's
+    split of the JAX plan's blocks); the answers agree within 1e-5 (the
+    JAX side in interpret mode)."""
     rows, cols, blocks = _rows_with(depth)
     parts = (rows, cols, blocks, (192, 192), 8)
     td = None if dtype is None else getattr(torch, dtype)
@@ -587,7 +689,9 @@ def test_precision_resident_layout_gate(dtype, kw, depth, layout, math):
     if layout in ("flat", "resident"):
         assert tp.statics[-1] == jp.statics[5]
         assert jp.statics[5] == J._auto_group(depth * 24, 24)
-    for a, b in zip(jp.arrays, tp.arrays):
+    for i, (a, b) in enumerate(zip(jp.arrays, tp.arrays)):
+        if i == 2 and math == "bf16x3":  # the planes of _dot3's split
+            a = np.concatenate([p.reshape(-1, 8) for p in _dot3_planes(a)])
         np.testing.assert_array_equal(np.asarray(a.astype(jnp.float32)),
                                       b.float().numpy())
     x = np.random.default_rng(3).standard_normal((192, 40)).astype(np.float32)

@@ -1,7 +1,9 @@
 """The CUDA kernels K1 (flat grouped gather), K2 (depth-sorted row
 groups), K4 (consecutive row groups) and K5 (single-row resident), each
-in f32 and, on the tensor cores, in bf16, K3 (the bf16x3 product, on
-K1's, K2's and K5's layouts), the int8 kernels K6 (flat), K7
+in f32 (K2 at b = 64 and 128 on its pipelined FFMA loop) and, on the
+tensor cores, in bf16, K3 (the bf16x3 product, on K1's, K2's and K5's
+layouts, on the tensor cores at b = 64 and 128) and its operand split,
+the int8 kernels K6 (flat), K7
 (depth-sorted, group-scale and per-slot scales), K8 (consecutive row
 groups) and K9 (single-row resident), and the CSR kernel K10 (one strip,
 and column strips) against their plain PyTorch versions on the card,
@@ -446,47 +448,201 @@ def test_k3_k5_kernel_matches_plain(b, case):
     assert rel < (3e-2 if "dtype" in kw else 1e-4), rel
 
 
-@pytest.mark.parametrize("kw,kernels", [
-    ({}, ("bsr_spmm_sorted_bf16x3", "bsr_spmm_sorted")),
-    ({"depth_sort": False}, ("bsr_spmm_flat_bf16x3", "bsr_spmm_flat")),
-    ({"resident": True, "depth_sort": False},
-     ("bsr_spmm_resident_bf16x3", "bsr_spmm_resident")),
-])
-def test_k3_kernel_is_bf16x3_not_exact_f32(kw, kernels):
+K3_LAYOUT_KERNELS = {
+    # layout: (plan kwargs, K3 kernel, the exact f32 kernel of the layout)
+    "sorted": ({}, "bsr_spmm_sorted_bf16x3", "bsr_spmm_sorted"),
+    "flat": ({"depth_sort": False}, "bsr_spmm_flat_bf16x3", "bsr_spmm_flat"),
+    "resident": ({"resident": True, "depth_sort": False},
+                 "bsr_spmm_resident_bf16x3", "bsr_spmm_resident"),
+}
+
+
+def _run_counted(plan, x, name, k3):
+    """plan(x), checking that it launched `name` once and nothing else
+    but, for K3 (k3=True), the operand split once."""
+    counts = {k.symbol: k.launches for k in _kernels.KERNELS}
+    got = plan(x)
+    torch.cuda.synchronize()
+    counts["sdb_" + name] += 1
+    if k3:
+        counts["sdb_split_bf16"] += 1
+    assert {k.symbol: k.launches for k in _kernels.KERNELS} == counts
+    return got
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("b", [16, 64, 128])
+@pytest.mark.parametrize("layout", list(K3_LAYOUT_KERNELS))
+def test_k3_kernel_is_bf16x3_not_exact_f32(layout, b, wide, monkeypatch):
     """bf16x3_exact_case makes every partial sum exact in f32, so the
     order of the kernel's sums cannot hide what it computes: each K3
     instance must give A_hi X_hi + A_hi X_lo + A_lo X_hi bit for bit, and
     the exact kernel on the same layout (K2, K1, K5) A X bit for bit. A
     K3 that kept lo*lo, lost a split or truncated instead of rounding to
-    even would miss the first; the two answers differ in most entries."""
-    bsr, x, want3, want_exact = bf16x3_exact_case()
+    even would miss the first; the two answers differ in most entries.
+    b = 64 and 128 run K3 on the tensor-core ring and f32 K2 on the
+    pipelined FFMA loop, at both tile widths (F=200 is ragged); each K3
+    call splits the operand once."""
+    _widest_tiles(monkeypatch, wide)
+    kw, k3, exact = K3_LAYOUT_KERNELS[layout]
+    bsr, x, want3, want_exact = bf16x3_exact_case(F=200, seed=b, b=b)
     x = torch.as_tensor(x, device="cuda")
-    for precision, name, want in (("high", kernels[0], want3),
-                                  (None, kernels[1], want_exact)):
+    for precision, name, want in (("high", k3, want3), (None, exact, want_exact)):
         plan = T.bsr_spmm_pallas_plan(bsr, grad=False, precision=precision,
                                       device="cuda", **kw)
-        kernel = getattr(_kernels, name)
-        before = kernel.launches
-        got = plan(x)
-        torch.cuda.synchronize()
-        assert kernel.launches == before + 1
+        assert plan.statics[0] == layout
+        got = _run_counted(plan, x, name, precision == "high")
         np.testing.assert_array_equal(got.double().cpu().numpy(), want)
 
 
+@pytest.mark.parametrize("layout", list(K3_LAYOUT_KERNELS))
+@pytest.mark.parametrize("b", [16, 64, 128])
+def test_k3_and_f32_k2_operand_at_odd_offset(b, layout):
+    """An f32 operand that starts 4 bytes past a 16-byte boundary: the
+    split kernel reads it as it is (its planes are a fresh buffer), f32
+    K2's pipelined loop gets an aligned copy; every answer is still the
+    exact case's, bit for bit."""
+    kw, k3, exact = K3_LAYOUT_KERNELS[layout]
+    bsr, x, want3, want_exact = bf16x3_exact_case(F=96, seed=b + 1, b=b)
+    base = torch.empty(x.size + 1, device="cuda")
+    view = base[1:].view(x.shape)
+    view.copy_(torch.as_tensor(x))
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    for precision, name, want in (("high", k3, want3), (None, exact, want_exact)):
+        plan = T.bsr_spmm_pallas_plan(bsr, grad=False, precision=precision,
+                                      device="cuda", **kw)
+        got = _run_counted(plan, view, name, precision == "high")
+        np.testing.assert_array_equal(got.double().cpu().numpy(), want)
+
+
+def _deep_bsr(b=128, nb=6, depth=34, seed=0):
+    """nb block-rows of `depth` random blocks each over 40 block-columns:
+    rows of depth*b (4,352 at b=128, as ddi's) terms."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(nb), depth).astype(np.int32)
+    cols = np.concatenate([np.sort(rng.choice(40, depth, replace=False))
+                           for _ in range(nb)]).astype(np.int32)
+    blocks = rng.standard_normal((rows.size, b, b)).astype(np.float32)
+    return BSR.from_parts(rows, cols, blocks, (nb * b, 40 * b), b)
+
+
+@pytest.mark.parametrize("layout", list(K3_LAYOUT_KERNELS))
+@pytest.mark.parametrize("precision", ["high", None])
+def test_k3_and_f32_k2_deep_rows_match_plain(precision, layout):
+    """Rows of 4,352 terms (34 blocks of 128, as ddi's): K3 on the ring
+    (its two-level sums) and the exact f32 kernels within 1e-5 of their
+    plain versions, and within 1e-4 of float64."""
+    bsr = _deep_bsr()
+    kw, k3, exact = K3_LAYOUT_KERNELS[layout]
+    plan = T.bsr_spmm_pallas_plan(bsr, grad=False, precision=precision,
+                                  device="cuda", **kw)
+    x = _x(bsr, F=256, seed=6)
+    got = _run_counted(plan, x, k3 if precision else exact, precision == "high")
+    want = T.plain_apply(plan, x)
+    rel = (got - want).abs().max().item() / max(want.abs().max().item(), 1.0)
+    assert rel < TOL, rel
+    ref = bsr.to_dense().astype(np.float64) @ x.cpu().numpy().astype(np.float64)
+    assert np.abs(got.cpu().numpy() - ref).max() / np.abs(ref).max() < 1e-4
+
+
+def _sorting_bsr(nb, b, seed):
+    """nb block-rows, rows 1 and 5 empty and the others holding 12 blocks
+    of 16 block-columns (so the f32 plan sorts), ragged logical shape."""
+    rng = np.random.default_rng(seed)
+    live = [r for r in range(nb) if r not in (1, 5)]
+    rows = np.repeat(live, 12).astype(np.int32)
+    cols = np.concatenate([np.sort(rng.choice(16, 12, replace=False))
+                           for _ in live]).astype(np.int32)
+    blocks = rng.standard_normal((rows.size, b, b)).astype(np.float32)
+    return BSR.from_parts(rows, cols, blocks, (nb * b - 3, 16 * b - 7), b)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("nb", [7, 37])
+@pytest.mark.parametrize("F", [8, 70, 133, 256, 512])
+@pytest.mark.parametrize("b", [64, 128])
+def test_f32_k2_pipelined_loop_matches_plain(b, F, nb, wide, monkeypatch):
+    """f32 K2 at b = 64 and 128 (the pipelined FFMA loop) on random data
+    within 1e-5 of its plain version: ragged F (70 and 133 pad the
+    operand to a multiple of 4), absent lanes (7 and 37 block-rows at R =
+    16; 12 blocks in every other row, so the f32 plan sorts), tiles of 64
+    columns and of the widest the F needs."""
+    _widest_tiles(monkeypatch, wide)
+    bsr = _sorting_bsr(nb, b, seed=b + nb)
+    plan = T.bsr_spmm_pallas_plan(bsr, grad=False, depth_sort=True, device="cuda")
+    assert plan.statics[0] == "sorted"
+    _check(plan, _x(bsr, F=F, seed=F + 1), _kernels.bsr_spmm_sorted)
+
+
+@pytest.mark.parametrize("b", [16, 64])
+def test_f32_k2_entry_refuses_bad_geometry(b):
+    """The f32 K2 entry refuses a tile width it has no loop for, an
+    operand row length that is not a multiple of 4 (b = 64; b = 16 takes
+    only bn = 64, ld = F), and at b = 64 a misaligned operand: the
+    wrapper raises and no launch is counted."""
+    bsr = _sorting_bsr(7, b, seed=3)
+    plan = T.bsr_spmm_pallas_plan(bsr, grad=False, depth_sort=True, device="cuda")
+    assert plan.statics[0] == "sorted"
+    win_ids, slot_cols, blocks, pos, lane_valid, group_ptr = plan.arrays
+    R, gh, W = plan.statics[-1]
+    dense = torch.zeros(bsr.n_block_cols * b, 72, device="cuda")
+    out = torch.empty(bsr.n_block_rows * b, 70, device="cuda")
+    counts = [k.launches for k in _kernels.KERNELS]
+    ptrs = [t.data_ptr() for t in (group_ptr, win_ids, pos, lane_valid, slot_cols,
+                                   blocks)]
+    stream = torch.cuda.current_stream().cuda_stream
+    d = dense.data_ptr()
+    if b == 16:  # (operand, ld, bn): ld != F, a wide tile, no such tile
+        bad = [(d, 72, 64), (d, 70, 128), (d, 70, 96)]
+    else:  # no such tile, ld not a multiple of 4, an operand 4 bytes off
+        bad = [(d, 72, 96), (d, 70, 64), (d + 4, 72, 64)]
+    for ptr, ld, bn in bad:
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            _kernels.bsr_spmm_sorted(*ptrs, ptr, out.data_ptr(),
+                                     lane_valid.shape[0], 70, ld, R, gh, W, b, bn,
+                                     stream)
+    assert [k.launches for k in _kernels.KERNELS] == counts
+
+
 def test_k3_wrappers_take_f32_only():
+    """K3's wrappers take the plan's bf16 block planes and an f32 operand:
+    a bf16 operand, or f32 blocks, raise before any launch, as does a
+    resident operand that is not (nbc, b, F)."""
     bsr = _bsr(8, 16, 0.5, seed=5)
     plan = T.bsr_spmm_pallas_plan(bsr, grad=False, resident=True,
                                   precision="high", device="cuda")
-    step_rows, slot_cols, blocks, step_ptr = plan.arrays
+    step_rows, slot_cols, planes, step_ptr = plan.arrays
+    assert planes.dtype == torch.bfloat16 and planes.dim() == 2
     x3 = torch.zeros(8, 16, 4, device="cuda", dtype=torch.bfloat16)
     counts = [k.launches for k in _kernels.KERNELS]
     with pytest.raises(TypeError, match="dtype"):
-        T.spmm_resident(step_rows, step_ptr, slot_cols, blocks.bfloat16(), x3,
+        T.spmm_resident(step_rows, step_ptr, slot_cols, planes, x3,
+                        plan.statics[-1], bf16x3=True)
+    with pytest.raises(TypeError, match="dtype"):
+        T.spmm_resident(step_rows, step_ptr, slot_cols, planes.float(), x3.float(),
                         plan.statics[-1], bf16x3=True)
     with pytest.raises(ValueError, match="nbc, b, F"):
-        T.spmm_resident(step_rows, step_ptr, slot_cols, blocks,
-                        x3.float().reshape(-1, 4), plan.statics[-1])
+        T.spmm_resident(step_rows, step_ptr, slot_cols, planes,
+                        x3.float().reshape(-1, 4), plan.statics[-1], bf16x3=True)
     assert [k.launches for k in _kernels.KERNELS] == counts
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (300, 70), (1024, 512)])
+def test_split_kernel_matches_plain(shape):
+    """K3's operand split on the card equals its plain version bit for
+    bit (zero pad columns included), one launch a call; an operand at an
+    odd offset too."""
+    x = torch.as_tensor(np.random.default_rng(shape[1]).standard_normal(
+        shape).astype(np.float32), device="cuda")
+    base = torch.empty(x.numel() + 1, device="cuda")
+    view = base[1:].view(shape)
+    view.copy_(x)
+    for operand in (x, view):
+        before = _kernels.split_bf16.launches
+        got = T.split_operand(operand)
+        torch.cuda.synchronize()
+        assert _kernels.split_bf16.launches == before + 1
+        assert torch.equal(got, T.split_operand_plain(operand))
 
 
 def _rect_bsr(b, depth=13, seed=0):
