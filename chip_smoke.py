@@ -31,7 +31,11 @@ Phases:
               K3 call split its operand once; then the bf16 K1, K2, K4 and K5
               entries at b = 16, 32, 64 and 128 and F = 70 and 256 on an
               input whose sums are exact in f32 (bf16_exact_case): each
-              must equal float64 bit for bit
+              must equal float64 bit for bit; then K7 (both scale modes)
+              and K8 at b = 64 and 128 (the int8 tensor-core ring) and F =
+              70 and 256 on 37 block-rows of int8_exact_case, where
+              nothing rounds before the column scale: each must equal
+              float64 bit for bit
   4. slice    GCN [256, 256, 256] on load_dataset("ogbl-ddi") (rcmk,
               sym_norm_adjacency, spmm_plan(impl="bsr_pallas", b=128)),
               4 seeded requests in f32 (K2), each checked against a float64
@@ -102,8 +106,16 @@ Phases:
               alone (its own row; the K3 rows time whole calls, the split
               included); which tier bench.py would make its headline (the
               faster of exact f32 K2 and K3, the self-check having passed);
-              the rows of the tensor-core loop (bf16 entries, K3) and of
-              f32 K2's pipelined loop carry their F tile width (bn)
+              the rows of the tensor-core loop (bf16 entries, K3), of
+              f32 K2's pipelined loop and of the int8 ring (K7, K8) carry
+              their F tile width (bn); the int8 K7 and K8 rows time the
+              ring alone on an operand transposed beforehand and the
+              whole kernel call (the transposed copy included), in the
+              order ring, whole, whole, ring; the transposed copy alone
+              on its line, beside the quantization, and the int8 ddi
+              SpMM call in its parts; last, each slice's request under
+              torch.profiler: the card's busy share and device time by
+              kernel
 
 The main path is phases 4 to 6, each of their runs (f32 slice, int8
 slice, CSR slice, bf16 slice, f32 training, "high" training, CSR
@@ -164,8 +176,10 @@ from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import (  # noqa: E402
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8 import (  # noqa: E402
     _int8_pallas_apply,
     bsr_spmm_pallas_int8_plan,
+    int8_tile_bn,
     quantize_operand,
     run_quantized,
+    transpose_operand,
 )
 from spmm_denseblock_tpu_torch.ops.csr_spmm import csr_spmm_plan  # noqa: E402
 from spmm_denseblock_tpu_torch.ops.csr_spmm_pallas import (  # noqa: E402
@@ -181,6 +195,7 @@ from spmm_denseblock_tpu_torch.ops.reference import (  # noqa: E402
     assert_allclose,
     bf16_exact_case,
     bf16x3_exact_case,
+    int8_exact_case,
 )
 from spmm_denseblock_tpu_torch.reorder import reorder  # noqa: E402
 
@@ -415,6 +430,7 @@ def kernel_phase(adj) -> None:
         check_kernel(plan, x, f"{tag} csr_pallas")
     k3_exactness()
     bf16_exactness()
+    int8_exactness()
 
 
 def k3_exactness() -> None:
@@ -453,9 +469,9 @@ def k3_exactness() -> None:
                                          f"from {what}")
 
 
-def bf16_exact_launch(plan, x, want, label: str) -> None:
-    """One launch of a bf16 plan's kernel, its answer equal to `want`
-    bit for bit."""
+def exact_launch(plan, x, want, label: str) -> None:
+    """One launch of a plan's kernel, its answer equal to `want` bit for
+    bit."""
     kid, name = kernel_of(plan)[:2]
     before = launches()[name]
     got = plan(x)
@@ -496,8 +512,34 @@ def bf16_exactness() -> None:
             x = torch.as_tensor(x, device=DEV)
             want = torch.as_tensor(want, device=DEV).float()
             for layout in BF16_LAYOUT_KW:
-                bf16_exact_launch(bf16_layout_plan(bsr, layout), x, want,
-                                  f"b={b} F={F} bf16 {layout}")
+                exact_launch(bf16_layout_plan(bsr, layout), x, want,
+                             f"b={b} F={F} bf16 {layout}")
+
+
+# the int8 plan's arguments that pack K7's (both scale modes) and K8's
+# layouts
+INT8_RING_KW = {"sorted": {"depth_sort": True},
+                "sorted per-slot": {"depth_sort": True, "group_scale": False},
+                "rowgroup": {"depth_sort": False}}
+
+
+def int8_exactness() -> None:
+    """K7 (both scale modes) and K8 on the int8 tensor-core ring (b = 64
+    and 128) on int8_exact_case, where every partial sum is exact in f32
+    and the one rounding is the column scale's: each must equal float64
+    bit for bit. 37 block-rows leave absent (K7) and phantom (K8) lanes;
+    F=70 is ragged."""
+    log("[kernels] int8 K7 and K8 on the ring where nothing rounds before the "
+        "column scale (int8_exact_case): each must equal float64 bit for bit")
+    for b in (64, 128):
+        for F in (70, 256):
+            bsr, x, want = int8_exact_case(b, F, seed=b + F, n_block_rows=37)
+            x = torch.as_tensor(x, device=DEV)
+            want = torch.as_tensor(want, device=DEV).float()
+            for label, kw in INT8_RING_KW.items():
+                plan = bsr_spmm_pallas_int8_plan(bsr, device=DEV, **kw)
+                bn = int8_tile_bn(b, plan.statics[1], F, _sm_count(0))
+                exact_launch(plan, x, want, f"b={b} F={F} int8 {label} BN={bn}")
 
 
 def gcn_reference(adj, params, x) -> np.ndarray:
@@ -577,6 +619,9 @@ def int8_slice_phase(adj, model, xs, refs):
     if kernel_of(plan)[0] != "K7" or not plan.statics[5][3]:
         raise AssertionError(f"ddi int8 plan took {plan.statics}, expected "
                              "sorted group-scale (K7)")
+    bn = int8_tile_bn(128, plan.statics[1], model.dims[0], _sm_count(0))
+    log(f"  int8 K7 on the tensor-core ring at BN={bn} ({plan.statics[1]} "
+        f"block-rows, F={model.dims[0]})")
     spmm_errs = []
 
     def checked_spmm(h):
@@ -885,21 +930,24 @@ def op_bf16_exactness(op_bsr) -> None:
     bn = bf16_tile_geometry(op_bsr.b, op_bsr.n_block_rows, 512, _sm_count(0))[0]
     for layout in BF16_LAYOUT_KW:
         plan = bf16_layout_plan(bsr, layout)
-        bf16_exact_launch(plan, x, plain_apply(plan, x),
-                          f"op bf16 {layout} integer values, BN={bn}")
+        exact_launch(plan, x, plain_apply(plan, x),
+                     f"op bf16 {layout} integer values, BN={bn}")
 
 
 def tile_bn(name: str, bsr: BSR, F: int):
     """The F tile width a kernel of the op plans launched at, or None for
-    the kernels whose tiles are 64 columns (the FFMA loop) or not BSR
-    tiles: the tensor-core loop (bf16 entries and K3 at b >= 64) and f32
-    K2's pipelined loop pick theirs from the grid."""
+    the kernels whose tiles are 64 columns (the FFMA and dp4a loops) or
+    not BSR tiles: the tensor-core loops (bf16 entries and K3, int8 K7
+    and K8, at b >= 64) and f32 K2's pipelined loop pick theirs from the
+    grid."""
     if bsr.b < 64:
         return None
     if name.endswith(("_bf16", "_bf16x3")):
         return bf16_tile_geometry(bsr.b, bsr.n_block_rows, F, _sm_count(0))[0]
     if name == "bsr_spmm_sorted":
         return tile_geometry(bsr.b, bsr.n_block_rows, F, _sm_count(0), 4)[0]
+    if name in ("bsr_spmm_int8_sorted", "bsr_spmm_int8_rowgroup"):
+        return int8_tile_bn(bsr.b, bsr.n_block_rows, F, _sm_count(0))
     return None
 
 
@@ -1007,6 +1055,36 @@ def csr_bound(csr: CSR, F: int) -> tuple:
     M, K = csr.shape
     nbytes = csr.nnz * 8 + (M + 1) * 8 + K * F * 4 + M * F * 4
     return bound("f32", 2.0 * csr.nnz * F, nbytes)
+
+
+def device_profile(fn, iters: int):
+    """fn's device work under torch.profiler over `iters` calls: (the
+    card's busy share of the span from the first kernel's start to the
+    last one's end, {kernel name: device ms per call}, largest first), or
+    (None, why) where the profiler gives no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    except Exception as e:  # a measurement only: record why there is none
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    if not device:
+        return None, "the profiler saw no device time"
+    span = (max(e.time_range.end for e in device)
+            - min(e.time_range.start for e in device))
+    by_name = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values()) / span
+    return busy, {k: v / iters / 1e3
+                  for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])}
 
 
 def library_call(kind: str, mat, x):
@@ -1117,6 +1195,17 @@ def main() -> int:
         if k10_ddi is not None:
             log(f"  slice A @ H csr library {ddi_flops['csr'] / k10_ddi / 1e6:.1f} "
                 f"GFLOP/s [{card_line}]")
+        # the int8 SpMM call's parts at ddi: the quantization, the
+        # transposed copy and the ring alone
+        p8 = slices["int8"]
+        q, cs = quantize_operand(p8, x0)
+        qt = transpose_operand(q)
+        log(f"  slice A @ H, F={dims[0]} int8 K7 call in parts: quantization "
+            f"{cuda_ms(lambda: quantize_operand(p8, x0), iters=20):.3f} ms, "
+            f"transposed copy {cuda_ms(lambda: transpose_operand(q), iters=20):.3f}"
+            f" ms, ring alone "
+            f"{cuda_ms(lambda: run_quantized(p8, q, cs, qdense_t=qt), iters=20):.3f}"
+            f" ms (each a stream of 20 calls) [{card_line}]")
         p9 = bsr_spmm_pallas_int8_plan(csr_to_bsr(adj, 128), resident=True,
                                        f_tile=128, device=DEV)
         q, cs = quantize_operand(p9, x0)
@@ -1172,11 +1261,26 @@ def main() -> int:
             continue
         if tag == "int8":
             q, cs = quantize_operand(p, x_op)
-            k_ms = cuda_ms(lambda: run_quantized(p, q, cs), iters=10)
             p_ms = cuda_ms(lambda: run_quantized(p, q, cs, plain=True),
                            iters=5, warmup=1)
             whole_ms = cuda_ms(lambda: p(x_op), iters=10)
-            extra = f", whole call with static quantization {whole_ms:.3f} ms"
+            extra = (f", {p.arrays[2].shape[0]} slots, whole call with static "
+                     f"quantization {whole_ms:.3f} ms")
+            if layout in ("sorted", "rowgroup"):
+                # the ring alone on an operand transposed beforehand, and
+                # the kernel call that transposes it, in the order ring,
+                # call, call, ring
+                qt = transpose_operand(q)
+                k1 = cuda_ms(lambda: run_quantized(p, q, cs, qdense_t=qt), iters=10)
+                c1 = cuda_ms(lambda: run_quantized(p, q, cs), iters=10)
+                c2 = cuda_ms(lambda: run_quantized(p, q, cs), iters=10)
+                k2 = cuda_ms(lambda: run_quantized(p, q, cs, qdense_t=qt), iters=10)
+                k_ms = (k1 + k2) / 2
+                extra = (f", BN={tile_bn(name, op_bsr, F)}, ring runs {k1:.3f}, "
+                         f"{k2:.3f} ms, kernel call with the transposed copy "
+                         f"{(c1 + c2) / 2:.3f} ms ({c1:.3f}, {c2:.3f})" + extra)
+            else:
+                k_ms = cuda_ms(lambda: run_quantized(p, q, cs), iters=10)
         elif tag == "bf16":  # on the bf16 operand, as the library call
             x_bf = x_op.to(torch.bfloat16)
             p_ms = cuda_ms(lambda: plain_apply(p, x_bf), iters=5, warmup=1)
@@ -1226,6 +1330,28 @@ def main() -> int:
     q_static_ms = cuda_ms(lambda: quantize_per_column(x_op, cs_static), iters=10)
     log(f"  op int8 operand quantization ({x_op.shape[0]} x {F} f32): dynamic "
         f"{q_dyn_ms:.3f} ms, static {q_static_ms:.3f} ms [{card_line}]")
+    q_op = quantize_per_column(x_op, cs_static)[0]
+    t_ms = cuda_ms(lambda: transpose_operand(q_op), iters=20)
+    t_bound = bound("int8", 0.0, 2.0 * q_op.numel())
+    log(f"  op int8 operand transposed copy for K7/K8's ring ({q_op.shape[0]} x "
+        f"{F} int8 -> {F} x {q_op.shape[0]}): transpose_operand {t_ms:.3f} ms, "
+        f"bound {t_bound[0]:.3f} ms ({t_bound[1]}: each byte read and written "
+        f"once) [{card_line}]")
+    # the slices' requests under torch.profiler, after every other timing,
+    # so that the profiler's own cost touches none of them
+    with torch.no_grad():
+        for tag, p in slices.items():
+            busy, detail = device_profile(lambda: model(p, x0), iters=20)
+            if busy is None:
+                log(f"  slice GCN request {tag} under torch.profiler: busy share "
+                    f"not measured ({detail})")
+                continue
+            total = sum(detail.values())
+            top = "; ".join(f"{name[:70]} {ms:.4f} ms ({ms / total:.1%})"
+                            for name, ms in list(detail.items())[:4])
+            log(f"  slice GCN request {tag} under torch.profiler: card busy "
+                f"{busy:.1%} of the span, {total:.4f} ms of device time a "
+                f"request: {top} [{card_line}]")
 
     # each kernel symbol's entry: the op-shape instance that runs it (K1,
     # K2, K4 and K5 in f32 and bf16, K3 "high" in its three instances,

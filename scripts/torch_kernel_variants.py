@@ -4,19 +4,24 @@ F=512), on one NVIDIA GPU:
 
     python3 scripts/torch_kernel_variants.py f32_k2   # exact-f32 K2
     python3 scripts/torch_kernel_variants.py k3       # K3 (precision="high")
+    python3 scripts/torch_kernel_variants.py int8     # int8 K7 and K8
 
-Each variant is csrc/bsr_spmm.cu with a few lines replaced (VARIANTS),
-built beside the tree's under tmp/variants/ and loaded in its place; the
-variants run in the order A B .. B A on one card, so that drift shows as
-a spread of the pairs. Every variant's answer is compared with the
-tree's bit for bit (the K3 "hi*hi only" variant drops two products on
-purpose: it times the tensor-core work, not an answer). For K3 each run
-times the whole call (the operand split included) and the ring alone on
-an operand split once, and bf16 K2 on the same build.
+Each variant is a kernel source (csrc/bsr_spmm.cu, or csrc/bsr_spmm_int8.cu
+for int8) with a few lines replaced (VARIANTS), built beside the tree's
+under tmp/variants/ and loaded in its place; the variants run in the
+order A B .. B A on one card, so that drift shows as a spread of the
+pairs. Every variant's answer is compared with the tree's bit for bit
+(the K3 "hi*hi only" and the int8 "no products" variants drop products on
+purpose: they time the loads, not an answer). For K3 each run times the
+whole call (the operand split included) and the ring alone on an operand
+split once, and bf16 K2 on the same build. For int8 each run times K7
+(group scale, calibrated as bench.py's int8 tier) and K8 on the ring
+alone, on an operand quantized and transposed once.
 """
 
 from __future__ import annotations
 
+import functools
 import importlib
 import subprocess
 import sys
@@ -32,8 +37,12 @@ from spmm_denseblock_tpu_torch.formats.bsr import random_bsr  # noqa: E402
 from spmm_denseblock_tpu_torch.ops import _kernels  # noqa: E402
 
 T = importlib.import_module("spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas")
+TI = importlib.import_module("spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8")
 
 PIPE_LOOP = "#pragma unroll\n    for (int kk = 0; kk < kPipeK; ++kk) {"
+I8_STAGES = "static constexpr int kMaxStages = 6;"
+# which of _kernels.SOURCES each group of variants edits
+SOURCE = {"f32_k2": 0, "k3": 0, "int8": 1}
 VARIANTS = {
     "f32_k2": {
         "1 CTA an SM": {"__launch_bounds__(kThreads, 2)\n    sorted_pipe_kernel":
@@ -48,12 +57,19 @@ VARIANTS = {
         "hi*hi chain only": {"constexpr int kChains = P == 1 ? 1 : 3;":
                              "constexpr int kChains = 1;"},
     },
+    "int8": {
+        "ring of 4 stages": {I8_STAGES: I8_STAGES.replace("6", "4")},
+        "as many stages as fit": {I8_STAGES: I8_STAGES.replace("6", "16")},
+        "no products": {"for (int k = 0; k < BM / 32; ++k)\n        WgmmaS8":
+                        "for (int k = 0; k < 0; ++k)\n        WgmmaS8"},
+    },
 }
 
 
 def build_variants(which: str) -> dict:
     """{name: SOURCES tuple}, "as is" first."""
-    src = _kernels.SOURCES[0]
+    i = SOURCE[which]
+    src = _kernels.SOURCES[i]
     text = src.read_text()
     out = {"as is": _kernels.SOURCES}
     for name, subs in VARIANTS[which].items():
@@ -65,7 +81,9 @@ def build_variants(which: str) -> dict:
         path = ROOT / "tmp" / "variants" / name.replace(" ", "_").replace("*", "x") / src.name
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(t)
-        out[name] = (path, *_kernels.SOURCES[1:])
+        sources = list(_kernels.SOURCES)
+        sources[i] = path
+        out[name] = tuple(sources)
     return out
 
 
@@ -100,12 +118,14 @@ def main() -> int:
     bsr = random_bsr(2e-2, 1024, 1024, block_size=128, seed=1234)
     x = torch.as_tensor(np.random.default_rng(1234).standard_normal(
         (bsr.shape[1], 512)).astype(np.float32), device="cuda")
+    sources = build_variants(which)
+    use(sources["as is"])
+    if which == "int8":
+        return time_int8(bsr, x, sources, card)
     kw = {"precision": "high"} if which == "k3" else {}
     plan = T.bsr_spmm_pallas_plan(bsr, grad=False, device="cuda", **kw)
     bf16 = T.bsr_spmm_pallas_plan(bsr, grad=False, dtype=torch.bfloat16, device="cuda")
     x_bf = x.to(torch.bfloat16)
-    sources = build_variants(which)
-    use(sources["as is"])
     ref = plan(x)
     xp, split = T.split_operand(x), T.split_operand
     names = list(sources)
@@ -120,6 +140,28 @@ def main() -> int:
         if which == "k3":
             line += f", bf16 K2 {cuda_ms(lambda: bf16(x_bf)):.3f} ms"
         print(f"{line}, answer equal to the tree's: {same} [{card}]", flush=True)
+    return 0
+
+
+def time_int8(bsr, x, sources, card: str) -> int:
+    """K7 (group scale) and K8 on the ring alone, each variant in the
+    order A B .. B A, on an operand quantized and transposed once."""
+    cal = x[:4096]
+    runs = {}
+    for layout, kw in (("K7", {}), ("K8", {"depth_sort": False})):
+        plan = TI.bsr_spmm_pallas_int8_plan(bsr, calibration=cal, device="cuda", **kw)
+        q, cs = TI.quantize_operand(plan, x)
+        qt = TI.transpose_operand(q)
+        runs[layout] = functools.partial(TI.run_quantized, plan, q, cs, qdense_t=qt)
+    refs = {k: run() for k, run in runs.items()}
+    names = list(sources)
+    for name in names + names[::-1]:
+        use(sources[name])
+        line = f"[int8] {name:<26}"
+        for k, run in runs.items():
+            line += (f" {k} ring alone {cuda_ms(run):.3f} ms (answer equal to the "
+                     f"tree's: {torch.equal(run(), refs[k])})")
+        print(f"{line} [{card}]", flush=True)
     return 0
 
 

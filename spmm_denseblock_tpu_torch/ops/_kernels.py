@@ -4,8 +4,8 @@ Each source is compiled with nvcc into a shared library with a plain C
 interface and loaded with ctypes, at first use and never at import: the
 package imports on machines without a CUDA toolkit. The libraries go to
 ``build/kernels/`` at the root of the checkout, each named by a hash of
-its source and the flags, so an edit rebuilds that source and an
-unchanged tree reuses it. The sources build in parallel, one nvcc each;
+its source, the headers of ``csrc/`` and the flags, so an edit of a
+source or a header rebuilds and an unchanged tree reuses the library. The sources build in parallel, one nvcc each;
 a build writes a temporary file and renames it into place, so processes
 that build at once never load a half-written library.
 """
@@ -24,6 +24,10 @@ from typing import Dict, List
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = (_PKG / "csrc" / "bsr_spmm.cu", _PKG / "csrc" / "bsr_spmm_int8.cu",
            _PKG / "csrc" / "csr_spmm.cu")
+# the headers the sources include, on nvcc's include path: each library's
+# name hashes them all
+INCLUDE_DIR = _PKG / "csrc"
+HEADERS = tuple(sorted(INCLUDE_DIR.glob("*.cuh")))
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -70,12 +74,14 @@ _SIGNATURES = {
     # K9: the same arguments, the operand viewed as (nbc, b, F)
     "sdb_bsr_spmm_int8_resident": ("bsr_spmm_int8", [_P, _P, _P, _P, _P, _P,
                                                      _P, _I, _I, _I, _I, _P]),
-    # group_ptr, win_ids, pos, lane_valid, slot_cols, qblocks, scales,
-    # qdense, cs, out, n_lanes, F, R, gh, window, b, group_scale, stream
-    "sdb_bsr_spmm_int8_sorted": ("bsr_spmm_int8", [_P] * 10 + [_I] * 7 + [_P]),
-    # group_ptr, slot_cols, qblocks, scales, qdense, cs, out, n_lanes,
-    # n_block_rows, F, R, gh, b, stream
-    "sdb_bsr_spmm_int8_rowgroup": ("bsr_spmm_int8", [_P] * 7 + [_I] * 6 + [_P]),
+    # K7: group_ptr, win_ids, pos, lane_valid, slot_cols, qblocks, scales,
+    # qdense, qdense_t (the transposed operand, read at b = 64 and 128),
+    # cs, out, n_lanes, n_slots, n_dense_rows, F, R, gh, window, b, bn,
+    # group_scale, stream
+    "sdb_bsr_spmm_int8_sorted": ("bsr_spmm_int8", [_P] * 11 + [_I] * 10 + [_P]),
+    # K8: group_ptr, slot_cols, qblocks, scales, qdense, qdense_t, cs, out,
+    # n_lanes, n_block_rows, n_slots, n_dense_rows, F, R, gh, b, bn, stream
+    "sdb_bsr_spmm_int8_rowgroup": ("bsr_spmm_int8", [_P] * 8 + [_I] * 9 + [_P]),
     # seg_start, seg_end, seg_dest, cols, vals, dense, out, partial,
     # split_row, part_ptr, n_seg, n_split, F, W (strip width), stream
     "sdb_csr_spmm": ("csr_spmm", [_P] * 10 + [_I] * 4 + [_P]),
@@ -100,6 +106,8 @@ def _nvcc() -> str:
 
 def library_path(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in HEADERS:
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libsdb_{src.stem}_{h.hexdigest()[:16]}.so"
 
@@ -115,7 +123,8 @@ def build() -> List[Path]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp),
+               str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
         jobs.append((cmd, tmp, path, proc))

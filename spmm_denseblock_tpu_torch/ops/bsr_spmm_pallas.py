@@ -521,11 +521,12 @@ def _device_of(*tensors) -> torch.device:
 
 
 def check_cuda_operands(blocks, dense, index_arrays, dtypes=_KERNEL_DTYPES,
-                        bf16x3: bool = False):
+                        bf16x3: bool = False, contiguous: bool = True):
     """What the CUDA kernels take: b in SUPPORTED_BLOCK_SIZES, blocks and
     dense of one dtype of `dtypes` (K3, bf16x3=True: split_planes' bf16
     planes and an f32 operand), dense rows a multiple of b, all
-    contiguous, the other arrays ({name: (tensor, dtype)}) of their
+    contiguous (dense of any strides with contiguous=False: the wrapper
+    copies it), the other arrays ({name: (tensor, dtype)}) of their
     expected types. Returns the number of slots S."""
     if bf16x3:
         b = blocks.shape[-1]
@@ -557,7 +558,8 @@ def check_cuda_operands(blocks, dense, index_arrays, dtypes=_KERNEL_DTYPES,
     for name, (t, dtype) in index_arrays.items():
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    for t in (blocks, dense, *(t for t, _ in index_arrays.values())):
+    checked = (blocks, dense) if contiguous else (blocks,)
+    for t in (*checked, *(t for t, _ in index_arrays.values())):
         if not t.is_contiguous():
             raise ValueError("CUDA kernel operands must be contiguous")
     return n_slots

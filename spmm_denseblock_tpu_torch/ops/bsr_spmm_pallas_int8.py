@@ -21,7 +21,10 @@ and runs one of four kernels:
 
 Every kernel sums int8 x int8 products exactly in int32, scales the sum
 to f32 with the slot's (or the lane-step's) block scale, and multiplies
-the f32 sum by the column's operand scale before the store. Beside each
+the f32 sum by the column's operand scale before the store. K7 and K8 at
+b = 64 and 128 run on the int8 tensor cores, whose s8 products take the
+operand K-major: their wrappers hand the kernel the transposed operand
+(``transpose_operand``, an (F, N) copy made per call). Beside each
 kernel sits its plain PyTorch version on the same packed arrays: the
 int8 products in f32 (exact: |q q| b <= 127^2 * 128 < 2^24), a
 group-scale lane sum in float64 (exact, as the int32 sum is), then the
@@ -62,12 +65,14 @@ from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import (
     _pack_rowgroups,
     _pack_rowgroups_sorted,
     _rowgroup_policy,
+    _sm_count,
     check_cuda_operands,
     check_rowgroup_geometry,
     group_pointer,
     lane_scatter,
     rowgroup_lanes,
     sorted_lanes,
+    tile_geometry,
 )
 from spmm_denseblock_tpu_torch.ops.plan import Plan
 
@@ -154,15 +159,17 @@ def spmm_int8_rowgroup_plain(step_groups, slot_cols, qblocks, scales, qdense,
 
 
 def _check_int8_operands(qblocks, qdense, scales, n_scales: int, col_scale,
-                         index_arrays):
+                         index_arrays, contiguous: bool = True):
     """int8 blocks and operand, f32 scales of the layout's length (per
     slot or per lane-step: one layout's scales fed to another answer
-    wrongly without a sound), f32 column scales of the operand's width."""
+    wrongly without a sound), f32 column scales of the operand's width.
+    contiguous=False takes an operand of any strides (the wrapper copies
+    it into the layout its kernel reads)."""
     check_cuda_operands(qblocks, qdense, {
         **index_arrays,
         "scales": (scales, torch.float32),
         "col_scale": (col_scale, torch.float32),
-    }, dtypes=(torch.int8,))
+    }, dtypes=(torch.int8,), contiguous=contiguous)
     if scales.shape != (n_scales,):
         raise ValueError(
             f"scales must be ({n_scales},) for this layout, got "
@@ -223,13 +230,52 @@ def spmm_int8_resident(step_rows, step_ptr, slot_cols, qblocks, scales,
                           group, resident=True)
 
 
+def int8_tile_bn(b: int, n_rows: int, F: int, n_sms: int) -> int:
+    """The F tile width of a K7 or K8 launch over n_rows block-rows:
+    tile_geometry's, 64 or 128 columns at b = 64 and 128 (the int8 ring),
+    64 below (the dp4a loop). The ring reads the transposed operand, whose
+    rows need no padding."""
+    return tile_geometry(b, n_rows, F, n_sms, 1)[0]
+
+
+def transpose_operand(qdense: torch.Tensor) -> torch.Tensor:
+    """qdense (N, F) int8 as the int8 ring reads it: (F, N), K-major for
+    the tensor cores' s8 products, a contiguous copy that starts on 16
+    bytes (the TMA map's base) whatever the strides and offset of qdense."""
+    qt = qdense.t().contiguous()
+    return qt.clone() if qt.data_ptr() % 16 else qt
+
+
+def _ring_args(qblocks, qdense, qdense_t, n_block_rows: int, dev) -> tuple:
+    """(qdense, qdense_t, bn) of a K7 or K8 launch. At b = 64 and 128 the
+    ring reads qdense_t, made here unless the caller made it already
+    (transpose_operand(qdense)); at b = 16 and 32 the dp4a loop reads
+    qdense, contiguous, and qdense_t is None."""
+    b = qblocks.shape[1]
+    N, F = qdense.shape
+    bn = int8_tile_bn(b, n_block_rows, F, _sm_count(dev.index))
+    if b < 64:
+        return qdense.contiguous(), None, bn
+    if qdense_t is None:
+        qdense_t = transpose_operand(qdense)
+    elif (qdense_t.shape != (F, N) or qdense_t.dtype != torch.int8
+          or qdense_t.device != dev or not qdense_t.is_contiguous()
+          or qdense_t.data_ptr() % 16):
+        raise ValueError(f"qdense_t must be transpose_operand(qdense): ({F}, {N}) "
+                         "int8 on the operand's device, contiguous, 16-byte aligned")
+    return qdense, qdense_t, bn
+
+
 def spmm_int8_sorted(win_ids, pos, slot_cols, qblocks, scales, qdense,
                      col_scale, lane_valid, group_ptr, n_block_rows: int,
-                     R: int, gh: int, window: int,
-                     group_scale: bool) -> torch.Tensor:
+                     R: int, gh: int, window: int, group_scale: bool,
+                     qdense_t=None) -> torch.Tensor:
     """K7: C (n_block_rows*b, F) f32 on the depth-sorted layout. scales:
     (T*R,) one per lane-step with group_scale (int32 lane sums), else
-    (T*G,) one per slot. CPU tensors run spmm_int8_sorted_plain."""
+    (T*G,) one per slot. qdense may have any strides. At b = 64 and 128
+    the kernel is the int8 ring on transpose_operand(qdense), or on
+    qdense_t where the caller made it already. CPU tensors run
+    spmm_int8_sorted_plain."""
     dev = _device_of(win_ids, pos, slot_cols, qblocks, scales, qdense,
                      col_scale, lane_valid, group_ptr)
     if dev.type == "cpu":
@@ -245,28 +291,32 @@ def spmm_int8_sorted(win_ids, pos, slot_cols, qblocks, scales, qdense,
             "slot_cols": (slot_cols, torch.int32),
             "lane_valid": (lane_valid, torch.bool),
             "group_ptr": (group_ptr, torch.int64),
-        })
+        }, contiguous=False)
     n_lanes = lane_valid.shape[0]
     if n_lanes != (group_ptr.shape[0] - 1) * R:
         raise ValueError("lane_valid must hold n_groups*R lanes")
     if slot_cols.shape[0] != qblocks.shape[0] or qblocks.shape[0] != n_steps * R * gh:
         raise ValueError("slot_cols and qblocks must hold n_steps*R*gh slots")
     b = qblocks.shape[1]
-    F = qdense.shape[1]
+    N, F = qdense.shape
+    qdense, qdense_t, bn = _ring_args(qblocks, qdense, qdense_t, n_block_rows, dev)
     out = torch.empty(n_block_rows * b, F, dtype=torch.float32, device=dev)
     _launch(_kernels.bsr_spmm_int8_sorted, dev,
             group_ptr.data_ptr(), win_ids.data_ptr(), pos.data_ptr(),
             lane_valid.data_ptr(), slot_cols.data_ptr(), qblocks.data_ptr(),
-            scales.data_ptr(), qdense.data_ptr(), col_scale.data_ptr(),
-            out.data_ptr(), n_lanes, F, R, gh, window, b, int(group_scale))
+            scales.data_ptr(), qdense.data_ptr(),
+            0 if qdense_t is None else qdense_t.data_ptr(),
+            col_scale.data_ptr(), out.data_ptr(), n_lanes, qblocks.shape[0], N,
+            F, R, gh, window, b, bn, int(group_scale))
     return out
 
 
 def spmm_int8_rowgroup(step_groups, group_ptr, slot_cols, qblocks, scales,
                        qdense, col_scale, n_block_rows: int, R: int,
-                       gh: int) -> torch.Tensor:
+                       gh: int, qdense_t=None) -> torch.Tensor:
     """K8: C (n_block_rows*b, F) f32 on the consecutive row-group layout,
-    per-slot scales (T*G,). Phantom lanes store nothing. CPU tensors run
+    per-slot scales (T*G,). Phantom lanes store nothing. qdense and
+    qdense_t as for spmm_int8_sorted. CPU tensors run
     spmm_int8_rowgroup_plain."""
     dev = _device_of(step_groups, group_ptr, slot_cols, qblocks, scales,
                      qdense, col_scale)
@@ -277,17 +327,19 @@ def spmm_int8_rowgroup(step_groups, group_ptr, slot_cols, qblocks, scales,
     _check_int8_operands(qblocks, qdense, scales, qblocks.shape[0], col_scale, {
         "group_ptr": (group_ptr, torch.int64),
         "slot_cols": (slot_cols, torch.int32),
-    })
+    }, contiguous=False)
     check_rowgroup_geometry(step_groups, group_ptr, slot_cols, qblocks,
                             n_block_rows, R, gh)
     b = qblocks.shape[1]
-    F = qdense.shape[1]
+    N, F = qdense.shape
+    qdense, qdense_t, bn = _ring_args(qblocks, qdense, qdense_t, n_block_rows, dev)
     out = torch.empty(n_block_rows * b, F, dtype=torch.float32, device=dev)
     _launch(_kernels.bsr_spmm_int8_rowgroup, dev,
             group_ptr.data_ptr(), slot_cols.data_ptr(), qblocks.data_ptr(),
-            scales.data_ptr(), qdense.data_ptr(), col_scale.data_ptr(),
-            out.data_ptr(), (group_ptr.shape[0] - 1) * R, n_block_rows, F,
-            R, gh, b)
+            scales.data_ptr(), qdense.data_ptr(),
+            0 if qdense_t is None else qdense_t.data_ptr(),
+            col_scale.data_ptr(), out.data_ptr(), (group_ptr.shape[0] - 1) * R,
+            n_block_rows, qblocks.shape[0], N, F, R, gh, b, bn)
     return out
 
 
@@ -413,11 +465,13 @@ def quantize_operand(plan: Plan, dense):
     return _quantize(plan.statics, plan.arrays, dense)
 
 
-def run_quantized(plan: Plan, qdense, col_scale,
-                  plain: bool = False) -> torch.Tensor:
+def run_quantized(plan: Plan, qdense, col_scale, plain: bool = False,
+                  qdense_t=None) -> torch.Tensor:
     """The plan's kernel (or its plain version) on an operand already
-    quantized by quantize_operand: C (n_rows, F) f32."""
-    return _run(plan.statics, plan.arrays, qdense, col_scale, plain)
+    quantized by quantize_operand: C (n_rows, F) f32. qdense_t: the
+    operand already transposed (transpose_operand), which the sorted and
+    row-group kernels at b = 64 and 128 then read instead of making it."""
+    return _run(plan.statics, plan.arrays, qdense, col_scale, plain, qdense_t)
 
 
 def _quantize(statics, arrays, dense):
@@ -431,13 +485,14 @@ def _quantize(statics, arrays, dense):
     return q.contiguous(), cs.contiguous()
 
 
-def _run(statics, arrays, qdense, col_scale, plain: bool):
+def _run(statics, arrays, qdense, col_scale, plain: bool, qdense_t=None):
     layout, nbr, n_rows, _, _, geom, _ = statics
     if layout == "sorted":
         win_ids, slot_cols, qblocks, scales, pos, lane_valid, group_ptr = arrays[:7]
-        run = spmm_int8_sorted_plain if plain else spmm_int8_sorted
-        out = run(win_ids, pos, slot_cols, qblocks, scales, qdense, col_scale,
-                  lane_valid, group_ptr, nbr, *geom)
+        args = (win_ids, pos, slot_cols, qblocks, scales, qdense, col_scale,
+                lane_valid, group_ptr, nbr, *geom)
+        out = (spmm_int8_sorted_plain(*args) if plain
+               else spmm_int8_sorted(*args, qdense_t=qdense_t))
     elif layout == "rowgroup":
         step_groups, slot_cols, qblocks, scales, group_ptr = arrays[:5]
         if plain:
@@ -447,7 +502,7 @@ def _run(statics, arrays, qdense, col_scale, plain: bool):
         else:
             out = spmm_int8_rowgroup(step_groups, group_ptr, slot_cols,
                                      qblocks, scales, qdense, col_scale, nbr,
-                                     *geom)
+                                     *geom, qdense_t=qdense_t)
     elif layout == "resident":
         step_rows, slot_cols, qblocks, scales, step_ptr = arrays[:5]
         group, f_tile = geom

@@ -144,3 +144,54 @@ def bf16_exact_case(b: int = 64, F: int = 96, seed: int = 0):
     a = bsr.to_dense().astype(np.float64)
     assert (np.abs(a) @ np.abs(x.astype(np.float64))).max() < 2.0 ** 24
     return bsr, x, a @ x.astype(np.float64)
+
+
+def int8_exact_case(b: int = 64, F: int = 96, seed: int = 0,
+                    n_block_rows: int = 7):
+    """An input on which an int8 kernel must match float64, and so its
+    plain version, bit for bit, in either scale mode: nothing rounds
+    before the column scale. Each block is integers of magnitude <= 8
+    with one entry of magnitude 127, times its block-row's power of two
+    2^e (e in -3 .. 3): every slot scale and every lane-step scale
+    (absmax / 127) is that 2^e, and the blocks quantize to the integers.
+    Each operand column is integers of magnitude <= 8 with one entry of
+    magnitude 127, so the dynamic quantizer maps it to itself. Every
+    partial sum of one output is 2^e times an integer under 2^24, exact
+    in f32 whatever the order of the sums; the one rounding is the f32
+    product with the column scale. A misplaced accumulator fragment, a
+    wrong swizzle or descriptor, or a scale of the wrong slot changes the
+    answer instead of rounding it.
+
+    n_block_rows block-rows of 12 block-columns, block-row 2 empty and the
+    others holding 2 to 6 blocks (int8 sorts only when asked:
+    depth_sort=True). Returns (bsr, x (12*b, F) f32, want (n_block_rows*b,
+    F) float64): float64's A X, times the column scale in f32."""
+    from spmm_denseblock_tpu_torch.ops.bsr_spmm_int8 import quantize_per_column
+
+    nbr, nbc = n_block_rows, 12
+    rng = np.random.default_rng(seed)
+    rows, cols = [], []
+    for r in range(nbr):
+        if r == 2:
+            continue
+        c = np.sort(rng.choice(nbc, size=int(rng.integers(2, 7)), replace=False))
+        rows += [r] * c.size
+        cols += c.tolist()
+    n = len(rows)
+    q = rng.integers(-8, 9, size=(n, b, b))
+    q[np.arange(n), rng.integers(0, b, n), rng.integers(0, b, n)] = (
+        127 * rng.choice([-1, 1], n))
+    row_scale = np.exp2(rng.integers(-3, 4, size=nbr))
+    blocks = (q * row_scale[rows][:, None, None]).astype(np.float32)
+    x = rng.integers(-8, 9, size=(nbc * b, F))
+    x[rng.integers(0, nbc * b, F), np.arange(F)] = 127 * rng.choice([-1, 1], F)
+    x = x.astype(np.float32)
+    bsr = BSR.from_parts(np.asarray(rows, np.int32), np.asarray(cols, np.int32),
+                         blocks, (nbr * b, nbc * b), b)
+    qx, cs = quantize_per_column(torch.from_numpy(x))
+    assert torch.equal(qx.float(), torch.from_numpy(x))
+    a = bsr.to_dense().astype(np.float64)
+    ints = np.abs(a) / np.repeat(row_scale, b)[:, None]
+    assert (ints @ np.abs(x.astype(np.float64))).max() < 2.0 ** 24
+    want = (a @ x.astype(np.float64)).astype(np.float32) * cs.numpy()
+    return bsr, x, want.astype(np.float64)

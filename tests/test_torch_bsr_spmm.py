@@ -872,3 +872,40 @@ def test_bf16_launch_args_align_the_operand(F, monkeypatch):
     assert aligned.data_ptr() % 16 == 0
     if F % 8 == 0:
         assert T._bf16_launch_args(blocks, aligned, 2)[2] is aligned
+
+
+def test_kernel_build_hashes_headers_and_includes_csrc(tmp_path, monkeypatch):
+    """A library's name hashes its source and every header of csrc/ (an
+    edit of the ring header that bsr_spmm.cu and bsr_spmm_int8.cu share
+    rebuilds both), and nvcc gets csrc/ on its include path, so a source
+    copied elsewhere (a variant build) still finds the header. nvcc is
+    stubbed: no compiler runs here."""
+    assert "tma_ring.cuh" in {h.name for h in _kernels.HEADERS}
+    src = _kernels.SOURCES[1]
+    header = tmp_path / "tma_ring.cuh"
+    header.write_text("// one\n")
+    monkeypatch.setattr(_kernels, "HEADERS", (header,))
+    first = _kernels.library_path(src)
+    assert _kernels.library_path(src) == first
+    header.write_text("// two\n")
+    assert _kernels.library_path(src) != first
+    commands = []
+
+    class FakeNvcc:
+        returncode = 0
+
+        def __init__(self, cmd, **kw):
+            commands.append(cmd)
+            (tmp_path / cmd[cmd.index("-o") + 1]).write_bytes(b"")
+
+        def communicate(self):
+            return "", ""
+
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_kernels, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_kernels.subprocess, "Popen", FakeNvcc)
+    paths = _kernels.build()
+    assert len(commands) == len(_kernels.SOURCES) and all(p.exists() for p in paths)
+    assert paths[1] == _kernels.library_path(src)
+    for cmd in commands:
+        assert cmd[cmd.index("-I") + 1] == str(_kernels.INCLUDE_DIR)

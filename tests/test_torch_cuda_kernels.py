@@ -5,7 +5,8 @@ tensor cores, in bf16, K3 (the bf16x3 product, on K1's, K2's and K5's
 layouts, on the tensor cores at b = 64 and 128) and its operand split,
 the int8 kernels K6 (flat), K7
 (depth-sorted, group-scale and per-slot scales), K8 (consecutive row
-groups) and K9 (single-row resident), and the CSR kernel K10 (one strip,
+groups; K7 and K8 on the int8 tensor cores at b = 64 and 128) and K9
+(single-row resident), and the CSR kernel K10 (one strip,
 and column strips) against their plain PyTorch versions on the card,
 their launch counters, the wrappers' refusals, and grad plans' backward on
 the card against the plain backward. CUDA kernels have no CPU mode, so
@@ -18,7 +19,8 @@ these tests skip without a GPU; run them on one with
 Tolerance: 1e-5 relative to max |plain| (same operands in the same
 dtype; only the order of the f32 sums differs), and bit-equality on the
 inputs whose sums are exact in f32: the one that tells bf16x3 from exact
-f32, and the one that holds the bf16 tensor-core kernels to float64."""
+f32, the one that holds the bf16 tensor-core kernels to float64, and the
+one that holds the int8 tensor-core kernels to float64."""
 
 import importlib
 
@@ -29,7 +31,11 @@ import torch
 from spmm_denseblock_tpu_torch.formats.bsr import BSR, random_bsr
 from spmm_denseblock_tpu_torch.formats.csr import CSR, random_csr
 from spmm_denseblock_tpu_torch.ops import _kernels, assert_allclose, spmm_scipy
-from spmm_denseblock_tpu_torch.ops.reference import bf16_exact_case, bf16x3_exact_case
+from spmm_denseblock_tpu_torch.ops.reference import (
+    bf16_exact_case,
+    bf16x3_exact_case,
+    int8_exact_case,
+)
 
 T = importlib.import_module("spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas")
 TI = importlib.import_module("spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8")
@@ -414,6 +420,132 @@ def test_int8_group_scale_sum_is_exact():
     assert torch.equal(got, TI.run_quantized(plan, *TI.quantize_operand(plan, x),
                                              plain=True))
     assert (got.cpu().numpy() == exact).all()
+
+
+# -- K7 and K8 on the int8 tensor cores (b = 64 and 128) --------------------
+
+INT8_RING_CASES = {
+    # name: (plan kwargs, layout, kernel)
+    "sorted": ({"depth_sort": True}, "sorted", "bsr_spmm_int8_sorted"),
+    "sorted_per_slot": ({"depth_sort": True, "group_scale": False}, "sorted",
+                        "bsr_spmm_int8_sorted"),
+    "rowgroup": ({"depth_sort": False}, "rowgroup", "bsr_spmm_int8_rowgroup"),
+}
+
+
+def _int8_plan(bsr, case):
+    kw, layout, name = INT8_RING_CASES[case]
+    plan = TI.bsr_spmm_pallas_int8_plan(bsr, device="cuda", **kw)
+    assert plan.statics[0] == layout
+    return plan, getattr(_kernels, name)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("F", [70, 256])
+@pytest.mark.parametrize("nb", [7, 37])
+@pytest.mark.parametrize("b", [64, 128])
+@pytest.mark.parametrize("case", list(INT8_RING_CASES))
+def test_int8_ring_bit_exact(case, b, nb, F, wide, monkeypatch):
+    """On int8_exact_case nothing rounds before the column scale, so K7
+    (both scale modes) and K8 on the ring must equal float64 and their
+    plain versions bit for bit: a swizzle, descriptor or fragment error
+    would show. 37 block-rows leave absent (K7) and phantom (K8) lanes;
+    F = 70 is ragged (rows of the transposed operand past F read as
+    zeros); tiles of 64 columns and of the widest the F needs."""
+    if wide:  # one SM: every F > 64 takes 128-column tiles
+        monkeypatch.setattr(TI, "_sm_count", lambda index: 1)
+    bsr, x, want = int8_exact_case(b, F, seed=b + nb + F, n_block_rows=nb)
+    plan, kernel = _int8_plan(bsr, case)
+    x = torch.as_tensor(x, device="cuda")
+    got = _check(plan, x, kernel)
+    np.testing.assert_array_equal(got.double().cpu().numpy(), want)
+    assert torch.equal(got, T.plain_apply(plan, x))
+
+
+@pytest.mark.parametrize("view", ["offset", "strided"])
+@pytest.mark.parametrize("case", ["sorted", "rowgroup"])
+@pytest.mark.parametrize("b", [16, 64, 128])
+def test_int8_operand_at_odd_offset(b, case, view):
+    """K7 and K8 on a quantized operand 1 byte past a 16-byte boundary
+    (contiguous) and on a non-contiguous one: the ring's transposed copy
+    is aligned and contiguous whatever it is given, the dp4a loop (b =
+    16) reads a contiguous copy; both equal float64 and the plain
+    version bit for bit."""
+    bsr, x, want = int8_exact_case(b, 256, seed=b + 1)
+    plan, kernel = _int8_plan(bsr, case)
+    q, cs = TI.quantize_operand(plan, torch.as_tensor(x, device="cuda"))
+    if view == "offset":
+        base = torch.empty(q.numel() + 16, dtype=torch.int8, device="cuda")
+        skip = (1 - base.data_ptr()) % 16
+        qv = base[skip:skip + q.numel()].view(q.shape)
+        qv.copy_(q)
+        assert qv.is_contiguous() and qv.data_ptr() % 16 == 1
+    else:
+        wide = torch.zeros(q.shape[0], q.shape[1] + 3, dtype=torch.int8,
+                           device="cuda")
+        wide[:, 1:-2] = q
+        qv = wide[:, 1:-2]
+        assert not qv.is_contiguous()
+    before = kernel.launches
+    got = TI.run_quantized(plan, qv, cs)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    np.testing.assert_array_equal(got.double().cpu().numpy(), want)
+    assert torch.equal(got, TI.run_quantized(plan, qv, cs, plain=True))
+
+
+@pytest.mark.parametrize("case", ["sorted", "rowgroup"])
+def test_int8_ring_takes_a_transposed_operand(case):
+    """run_quantized(qdense_t=transpose_operand(q)) launches the ring on
+    the caller's transposed operand, with the answer of the call that
+    makes it; one that is not (F, N) contiguous int8 raises before any
+    launch."""
+    bsr, x, want = int8_exact_case(128, 96, seed=5)
+    plan, kernel = _int8_plan(bsr, case)
+    q, cs = TI.quantize_operand(plan, torch.as_tensor(x, device="cuda"))
+    qt = TI.transpose_operand(q)
+    got = TI.run_quantized(plan, q, cs, qdense_t=qt)
+    np.testing.assert_array_equal(got.double().cpu().numpy(), want)
+    before = kernel.launches
+    for bad in (q, qt[:, :-16], qt.t().contiguous().t(), qt.to(torch.uint8)):
+        with pytest.raises(ValueError, match="qdense_t"):
+            TI.run_quantized(plan, q, cs, qdense_t=bad)
+    assert kernel.launches == before
+
+
+@pytest.mark.parametrize("case", ["sorted", "rowgroup"])
+def test_int8_entries_refuse_bad_geometry(case):
+    """A K7 or K8 launch the entry refuses (an F tile width the ring has
+    no kernel for, a tile other than the dp4a loop's 64 columns at b =
+    16, no transposed operand at b = 64) returns its cudaError_t and the
+    wrapper raises; no launch is counted."""
+    counts = [k.launches for k in _kernels.KERNELS]
+    stream = torch.cuda.current_stream().cuda_stream
+    for b, bn, with_t in ((64, 96, True), (64, 256, True), (128, 32, True),
+                          (16, 128, False), (64, 64, False)):
+        bsr, x, _ = int8_exact_case(b, 70)
+        plan, kernel = _int8_plan(bsr, case)
+        q, cs = TI.quantize_operand(plan, torch.as_tensor(x, device="cuda"))
+        qt = TI.transpose_operand(q) if with_t else None
+        out = torch.empty(bsr.shape[0], 70, device="cuda")
+        qt_ptr = 0 if qt is None else qt.data_ptr()
+        if case == "sorted":
+            win_ids, slot_cols, qblocks, scales, pos, lane_valid, group_ptr = plan.arrays
+            R, gh, W, gs = plan.statics[5]
+            args = (group_ptr, win_ids, pos, lane_valid, slot_cols, qblocks, scales)
+            sizes = (lane_valid.shape[0], qblocks.shape[0], q.shape[0], 70, R, gh,
+                     W, b, bn, int(gs))
+        else:
+            step_groups, slot_cols, qblocks, scales, group_ptr = plan.arrays
+            R, gh = plan.statics[5]
+            args = (group_ptr, slot_cols, qblocks, scales)
+            sizes = ((group_ptr.shape[0] - 1) * R, plan.statics[1], qblocks.shape[0],
+                     q.shape[0], 70, R, gh, b, bn)
+        ptrs = [t.data_ptr() for t in args] + [q.data_ptr(), qt_ptr,
+                                               cs.data_ptr(), out.data_ptr()]
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            kernel(*ptrs, *sizes, stream)
+    assert [k.launches for k in _kernels.KERNELS] == counts
 
 
 K3_K5_CASES = {

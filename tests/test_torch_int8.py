@@ -29,6 +29,7 @@ import spmm_denseblock_tpu_torch.io.datasets as t_ds
 import spmm_denseblock_tpu_torch.models as t_models
 import spmm_denseblock_tpu_torch.ops as t_ops
 from spmm_denseblock_tpu_torch.ops import _kernels, spmm_scipy
+from spmm_denseblock_tpu_torch.ops.reference import int8_exact_case
 from test_torch_cuda_kernels import saturated_lane_case
 
 JQ = importlib.import_module("spmm_denseblock_tpu.ops.bsr_spmm_int8")
@@ -239,6 +240,97 @@ def test_k7_sorted_plain_matches_pallas_kernel(group_scale):
     assert got.shape == (nbr * 16, F)
     assert _rel(got, want) < PARITY_TOL
     assert not got.reshape(nbr, 16, F)[2].any()
+
+
+EXACT_CASES = {
+    # name: (port plan kwargs, layout); the names index LAYOUT_CASES
+    "sorted": ({"depth_sort": True}, "sorted"),
+    "sorted_per_slot": ({"depth_sort": True, "group_scale": False}, "sorted"),
+    "rowgroup": ({"depth_sort": False}, "rowgroup"),
+}
+
+
+@pytest.mark.parametrize("nb", [7, 37])
+@pytest.mark.parametrize("b", [64, 128])
+@pytest.mark.parametrize("case", list(EXACT_CASES))
+def test_int8_exact_case_plain_equals_float64(case, b, nb):
+    """On int8_exact_case nothing rounds before the column scale, so the
+    plain K7 (both scale modes) and K8 equal float64 bit for bit: 37
+    block-rows leave absent lanes (K7) and phantom lanes (K8), 7 one
+    phantom and one absent lane; F = 70 is ragged."""
+    bsr, x, want = int8_exact_case(b, 70, seed=b + nb, n_block_rows=nb)
+    kw, layout = EXACT_CASES[case]
+    tp = TI.bsr_spmm_pallas_int8_plan(bsr, device="cpu", **kw)
+    assert tp.statics[0] == layout
+    got = tp(x)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.double().numpy(), want)
+    assert torch.equal(T.plain_apply(tp, x), got)
+
+
+@pytest.mark.parametrize("b", [64, 128])
+@pytest.mark.parametrize("case", list(EXACT_CASES))
+def test_int8_exact_case_matches_jax_plan(case, b, monkeypatch):
+    """The JAX plan (Pallas in interpret mode) on int8_exact_case agrees
+    with float64 and with the port within PARITY_TOL."""
+    bsr, x, want = int8_exact_case(b, 70, seed=b, n_block_rows=7)
+    n = bsr.nnzb
+    jb = j_bsr.BSR.from_parts(bsr.block_rows[:n], bsr.block_cols[:n],
+                              bsr.blocks[:n], bsr.shape, b)
+    jp, tp = _plans(case, jb, bsr, monkeypatch)
+    got = np.asarray(jp(x))
+    assert _rel(got, want) < PARITY_TOL
+    assert _rel(tp(x), got) < PARITY_TOL
+
+
+def test_int8_exact_case_is_exact():
+    """The case's blocks quantize to their integers in both scale modes,
+    with scales that are powers of two, and its operand to itself."""
+    bsr, x, want = int8_exact_case(64, 40, seed=3, n_block_rows=9)
+    q, scales = TQ.quantize_blocks(bsr.blocks)
+    assert (np.abs(q).max(axis=(1, 2)) == 127).all()
+    np.testing.assert_array_equal(q * scales[:, None, None], bsr.blocks)
+    assert (np.exp2(np.round(np.log2(scales))) == scales).all()
+    qx, cs = TQ.quantize_per_column(torch.as_tensor(x))
+    assert torch.equal(qx.float(), torch.as_tensor(x))
+    assert want.shape == (9 * 64, 40) and (want != 0).mean() > 0.5
+
+
+def test_transpose_operand_is_aligned_and_contiguous():
+    """The int8 ring's operand: (F, N), contiguous, on 16 bytes, equal to
+    qdense.t(), from an operand 1 byte past a 16-byte boundary, from a
+    non-contiguous one, and from the transpose of a contiguous (F, N)
+    buffer 1 byte past a boundary (whose .t() needs no copy, but a move)."""
+    q = torch.as_tensor(np.random.default_rng(0).integers(
+        -127, 128, size=(128, 70)), dtype=torch.int8)
+
+    def odd(shape):
+        base = torch.empty(q.numel() + 16, dtype=torch.int8)
+        skip = (1 - base.data_ptr()) % 16
+        return base[skip:skip + q.numel()].view(shape)
+
+    offset = odd(q.shape)
+    offset.copy_(q)
+    wide = torch.zeros(q.shape[0], q.shape[1] + 3, dtype=torch.int8)
+    wide[:, 1:71] = q
+    moved = odd((70, 128))
+    moved.copy_(q.t())
+    for view in (q, offset, wide[:, 1:71], moved.t()):
+        qt = TI.transpose_operand(view)
+        assert qt.shape == (70, 128) and qt.is_contiguous()
+        assert qt.data_ptr() % 16 == 0 and torch.equal(qt, q.t())
+    assert offset.data_ptr() % 16 == 1 and moved.data_ptr() % 16 == 1
+    assert not wide[:, 1:71].is_contiguous() and moved.t().t().is_contiguous()
+
+
+@pytest.mark.parametrize("b,n_rows,F,want", [
+    (16, 1024, 512, 64), (32, 1024, 512, 64),   # the dp4a loop's tile
+    (128, 1024, 512, 128), (64, 1024, 512, 128),  # the op shape: 4,096 CTAs
+    (128, 34, 256, 64),    # ddi: 68 CTAs at 128 columns would not fill the SMs
+    (128, 1024, 64, 64),   # one 64-column tile holds F
+])
+def test_int8_tile_bn(b, n_rows, F, want):
+    assert TI.int8_tile_bn(b, n_rows, F, 132) == want
 
 
 def test_group_scale_lane_sum_is_exact():
