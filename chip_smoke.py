@@ -31,16 +31,17 @@ Phases:
               K3 call split its operand once; then the bf16 K1, K2, K4 and K5
               entries at b = 16, 32, 64 and 128 and F = 70 and 256 on an
               input whose sums are exact in f32 (bf16_exact_case): each
-              must equal float64 bit for bit; then K7 (both scale modes)
-              and K8 at b = 64 and 128 (the int8 tensor-core ring) and F =
-              70 and 256 on 37 block-rows of int8_exact_case, where
-              nothing rounds before the column scale: each must equal
-              float64 bit for bit
+              must equal float64 bit for bit; then K7 (both scale modes),
+              K8, K6 and K9 at b = 64 and 128 (the int8 tensor-core ring)
+              and F = 70 and 256 on 37 block-rows of int8_exact_case,
+              where nothing rounds before the column scale: each must
+              equal float64 bit for bit
   4. slice    GCN [256, 256, 256] on load_dataset("ogbl-ddi") (rcmk,
               sym_norm_adjacency, spmm_plan(impl="bsr_pallas", b=128)),
               4 seeded requests in f32 (K2), each checked against a float64
               host reference at 1e-4; then the same requests through
-              spmm_plan(..., dtype=torch.int8) (bsr_int8_pallas, K7), each
+              spmm_plan(..., dtype=torch.int8) (bsr_int8_pallas, K7 on
+              an operand made by quantize_int8, one launch a SpMM), each
               answer within 6e-2 of the float64 reference and each SpMM
               within 1e-5 of its plain version; then the same requests
               through spmm_plan(adj, impl="csr_pallas") (K10), each within
@@ -81,6 +82,10 @@ Phases:
               small integer values (every sum exact in f32), bit for bit
               against their plain versions;
               K3's operand split against its plain version, bit for bit;
+              the int8 operand's quantization (quantize_int8, dynamic and
+              static, (N, F) and transposed, and at the int8 slice's ddi
+              operand with dynamic scales and pad rows) against its plain
+              version, bit for bit;
               bench.py's bf16x3 self-check (the "high" answer within 1e-4
               of exact f32 K2's and of the bsr_xla tier's); K10 at the
               reference's test_csrmm shape, random_csr(2e-3, 2^17,
@@ -107,13 +112,15 @@ Phases:
               included); which tier bench.py would make its headline (the
               faster of exact f32 K2 and K3, the self-check having passed);
               the rows of the tensor-core loop (bf16 entries, K3), of
-              f32 K2's pipelined loop and of the int8 ring (K7, K8) carry
-              their F tile width (bn); the int8 K7 and K8 rows time the
-              ring alone on an operand transposed beforehand and the
-              whole kernel call (the transposed copy included), in the
-              order ring, whole, whole, ring; the transposed copy alone
-              on its line, beside the quantization, and the int8 ddi
-              SpMM call in its parts; last, each slice's request under
+              f32 K2's pipelined loop and of the int8 ring (K6-K9) carry
+              their F tile width (bn); the int8 rows time the ring alone
+              on an operand quantized transposed beforehand and the whole
+              call (quantize_int8 included), in the order ring, whole,
+              whole, ring; the quantization kernel, dynamic and static,
+              beside its plain version and its bound (the operand read
+              once; with dynamic scales also the time of the two passes'
+              bytes), and PyTorch's transposed copy alone; the int8 ddi SpMM call
+              in its parts; last, each slice's request under
               torch.profiler: the card's busy share and device time by
               kernel
 
@@ -130,6 +137,7 @@ from __future__ import annotations
 
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -177,6 +185,8 @@ from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8 import (  # noqa: E402
     _int8_pallas_apply,
     bsr_spmm_pallas_int8_plan,
     int8_tile_bn,
+    quantize_int8,
+    quantize_int8_plain,
     quantize_operand,
     run_quantized,
     transpose_operand,
@@ -239,6 +249,10 @@ KERNEL_INFO = {
     ("i8", "sorted"): ("K7", "bsr_spmm_int8_sorted", _I8, _PALLAS_I8 + ":358"),
     ("i8", "rowgroup"): ("K8", "bsr_spmm_int8_rowgroup", _I8, _PALLAS_I8 + ":252"),
     ("i8", "resident"): ("K9", "bsr_spmm_int8_resident", _I8, _PALLAS_I8 + ":425"),
+    # K6-K9's operand: the JAX plan's _quantize_cols (XLA code, its line
+    # 512; _quantize_cols_static 520) and the zero pad, written in the
+    # layout the kernel reads
+    ("quantize",): ("K6-K9", "quantize_int8", _I8, _PALLAS_I8 + ":512"),
 }
 ALL_KERNELS = {f"K{i}" for i in range(1, 11)}
 BSR_KERNELS = ALL_KERNELS - {"K10"}
@@ -516,20 +530,22 @@ def bf16_exactness() -> None:
                              f"b={b} F={F} bf16 {layout}")
 
 
-# the int8 plan's arguments that pack K7's (both scale modes) and K8's
-# layouts
+# the int8 plan's arguments that pack K7's (both scale modes), K8's, K6's
+# and K9's layouts
 INT8_RING_KW = {"sorted": {"depth_sort": True},
                 "sorted per-slot": {"depth_sort": True, "group_scale": False},
-                "rowgroup": {"depth_sort": False}}
+                "rowgroup": {"depth_sort": False},
+                "flat": {"resident": False},
+                "resident": {"resident": True, "f_tile": 128}}
 
 
 def int8_exactness() -> None:
-    """K7 (both scale modes) and K8 on the int8 tensor-core ring (b = 64
-    and 128) on int8_exact_case, where every partial sum is exact in f32
-    and the one rounding is the column scale's: each must equal float64
-    bit for bit. 37 block-rows leave absent (K7) and phantom (K8) lanes;
-    F=70 is ragged."""
-    log("[kernels] int8 K7 and K8 on the ring where nothing rounds before the "
+    """K7 (both scale modes), K8, K6 and K9 on the int8 tensor-core ring
+    (b = 64 and 128) on int8_exact_case, where every partial sum is exact
+    in f32 and the one rounding is the column scale's: each must equal
+    float64 bit for bit. 37 block-rows leave absent (K7) and phantom (K8)
+    lanes and an empty row (K6, K9); F=70 is ragged."""
+    log("[kernels] int8 K6-K9 on the ring where nothing rounds before the "
         "column scale (int8_exact_case): each must equal float64 bit for bit")
     for b in (64, 128):
         for F in (70, 256):
@@ -878,7 +894,6 @@ def op_phase(op_bsr, x_op, calibration):
             if rel >= INT8_TOL:
                 raise AssertionError(f"op int8 {layout}: rel err {rel:.3e}")
     op_bf16_exactness(op_bsr)
-    errs[("split", "split")] = check_split(x_op)
     # bench.py's bf16x3 self-check, against exact f32 K2 and the bsr_xla tier
     xla_out = bsr_spmm_xla_plan(op_bsr, device=DEV)(x_op)
     log(f"  bsr_xla vs f32 K2: rel err {rel_to(xla_out, ref):.3e}")
@@ -910,6 +925,33 @@ def check_split(x) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
+def check_quantize(x, n_out: int, cs_static, where: str) -> float:
+    """The int8 operand's quantization (quantize_int8) on x against its
+    plain version (quantize_per_column with the pad, then
+    transpose_operand), bit for bit: dynamic scales, and static ones when
+    cs_static is given, (N, F) and transposed. Returns max |kernel -
+    plain| of the values (0)."""
+    err = 0.0
+    for cs in (None, cs_static) if cs_static is not None else (None,):
+        static = cs is not None
+        for transposed in (False, True):
+            before = launches()["quantize_int8"]
+            q, got_cs = quantize_int8(x, n_out, cs, transposed)
+            torch.cuda.synchronize()
+            if launches()["quantize_int8"] != before + 1:
+                raise AssertionError("quantize_int8 did not launch")
+            want, want_cs = quantize_int8_plain(x, n_out, cs, transposed)
+            n_bad = (int((q != want).sum()) + int((got_cs != want_cs).sum())
+                     if q.shape == want.shape else -1)
+            log(f"  {where} int8 operand quantization {tuple(x.shape)} -> "
+                f"{tuple(q.shape)}, {'static' if static else 'dynamic'} scales: "
+                f"{n_bad} values or scales differ from its plain version")
+            if n_bad:
+                raise AssertionError(f"quantize_int8: {n_bad} entries differ")
+            err = max(err, (q.float() - want.float()).abs().max().item())
+    return err
+
+
 def op_bf16_exactness(op_bsr) -> None:
     """The bf16 K1, K2, K4 and K5 entries at the op shape (the
     tensor-core loop at its widest tile) on the op matrix's blocks with
@@ -937,8 +979,8 @@ def op_bf16_exactness(op_bsr) -> None:
 def tile_bn(name: str, bsr: BSR, F: int):
     """The F tile width a kernel of the op plans launched at, or None for
     the kernels whose tiles are 64 columns (the FFMA and dp4a loops) or
-    not BSR tiles: the tensor-core loops (bf16 entries and K3, int8 K7
-    and K8, at b >= 64) and f32 K2's pipelined loop pick theirs from the
+    not BSR tiles: the tensor-core loops (bf16 entries and K3, int8
+    K6-K9, at b >= 64) and f32 K2's pipelined loop pick theirs from the
     grid."""
     if bsr.b < 64:
         return None
@@ -946,7 +988,7 @@ def tile_bn(name: str, bsr: BSR, F: int):
         return bf16_tile_geometry(bsr.b, bsr.n_block_rows, F, _sm_count(0))[0]
     if name == "bsr_spmm_sorted":
         return tile_geometry(bsr.b, bsr.n_block_rows, F, _sm_count(0), 4)[0]
-    if name in ("bsr_spmm_int8_sorted", "bsr_spmm_int8_rowgroup"):
+    if name.startswith("bsr_spmm_int8_"):
         return int8_tile_bn(bsr.b, bsr.n_block_rows, F, _sm_count(0))
     return None
 
@@ -995,7 +1037,7 @@ def main_path(adj, dims, op_bsr, op_csr, x_op, calibration):
     read("f32 slice", {"bsr_spmm_sorted": n_spmm})
     reset_launches()
     plan_i8, slice_i8_err = int8_slice_phase(adj, model, xs, refs)
-    read("int8 slice", {"bsr_spmm_int8_sorted": n_spmm})
+    read("int8 slice", {"bsr_spmm_int8_sorted": n_spmm, "quantize_int8": n_spmm})
     reset_launches()
     plan_csr = csr_slice_phase(adj, model, xs, refs)
     read("csr slice", {"csr_spmm": n_spmm})
@@ -1022,9 +1064,18 @@ def main_path(adj, dims, op_bsr, op_csr, x_op, calibration):
     plans[("csr", "csr")], errs[("csr", "csr")] = csr_op_phase(op_csr, x_op)
     read("op", {})
     missing = [name for name in [kernel_of(p)[1] for p in plans.values()]
-               + ["split_bf16"] if totals.get(name, 0) == 0]
+               + ["split_bf16", "quantize_int8"] if totals.get(name, 0) == 0]
     if missing:
         raise AssertionError(f"not launched on the main path: {missing}")
+    # the operand kernels called directly against their plain versions,
+    # after the counts were read: these launches do not count
+    i8 = plans[("int8", "sorted")]
+    errs[("split", "split")] = check_split(x_op)
+    # at the op shape (no pad rows) and at the int8 slice's (dynamic
+    # scales, ddi's rows padded to the block grid)
+    errs[("quantize", "quantize")] = max(
+        check_quantize(x_op, i8.statics[4], i8.arrays[-1], "op"),
+        check_quantize(xs[0], plan_i8.statics[4], None, "ddi"))
     slices = {"f32": plan, "int8": plan_i8, "csr": plan_csr, "bf16": plan_bf16}
     return (slices, model, xs, train, plans, errs, totals,
             {"int8": slice_i8_err, "bf16": slice_bf16_err})
@@ -1195,23 +1246,28 @@ def main() -> int:
         if k10_ddi is not None:
             log(f"  slice A @ H csr library {ddi_flops['csr'] / k10_ddi / 1e6:.1f} "
                 f"GFLOP/s [{card_line}]")
-        # the int8 SpMM call's parts at ddi: the quantization, the
-        # transposed copy and the ring alone
+        # the int8 SpMM call's parts at ddi: the quantization kernel (the
+        # operand transposed, dynamic scales), the ring alone, and the
+        # plain version of the quantization (PyTorch ops and the copy)
         p8 = slices["int8"]
-        q, cs = quantize_operand(p8, x0)
-        qt = transpose_operand(q)
-        log(f"  slice A @ H, F={dims[0]} int8 K7 call in parts: quantization "
-            f"{cuda_ms(lambda: quantize_operand(p8, x0), iters=20):.3f} ms, "
-            f"transposed copy {cuda_ms(lambda: transpose_operand(q), iters=20):.3f}"
-            f" ms, ring alone "
-            f"{cuda_ms(lambda: run_quantized(p8, q, cs, qdense_t=qt), iters=20):.3f}"
+        n8 = p8.statics[4]
+        qt, cs = quantize_int8(x0, n8, None, True)
+        log(f"  slice A @ H, F={dims[0]} int8 K7 call in parts: quantize_int8 "
+            f"{cuda_ms(lambda: quantize_int8(x0, n8, None, True), iters=20):.3f} "
+            f"ms, ring alone "
+            f"{cuda_ms(lambda: run_quantized(p8, None, cs, qdense_t=qt), iters=20):.3f}"
+            f" ms, the whole call {cuda_ms(lambda: p8(x0), iters=20):.3f} ms; the "
+            f"quantization's plain version (PyTorch ops and the transposed copy) "
+            f"{cuda_ms(lambda: quantize_int8_plain(x0, n8, None, True), iters=20):.3f}"
             f" ms (each a stream of 20 calls) [{card_line}]")
         p9 = bsr_spmm_pallas_int8_plan(csr_to_bsr(adj, 128), resident=True,
                                        f_tile=128, device=DEV)
-        q, cs = quantize_operand(p9, x0)
-        log(f"  slice A @ H, F={dims[0]} int8 K9 (resident=True, f_tile=128): "
-            f"kernel {cuda_ms(lambda: run_quantized(p9, q, cs), iters=20):.3f} ms, "
-            f"plain {cuda_ms(lambda: run_quantized(p9, q, cs, plain=True), iters=5):.3f}"
+        qt, cs = quantize_operand(p9, x0, transposed=True)
+        q = quantize_operand(p9, x0)[0]
+        log(f"  slice A @ H, F={dims[0]} int8 K9 (resident=True, f_tile=128): ring "
+            f"{cuda_ms(lambda: run_quantized(p9, None, cs, qdense_t=qt), iters=20):.3f}"
+            f" ms, whole call {cuda_ms(lambda: p9(x0), iters=20):.3f} ms, plain "
+            f"{cuda_ms(lambda: run_quantized(p9, q, cs, plain=True), iters=5):.3f}"
             f" ms [{card_line}]")
         ddi_bound = csr_bound(adj, dims[0])
         log(f"  slice A @ H K10 bound {ddi_bound[0]:.4f} ms ({ddi_bound[1]}); K2 "
@@ -1235,7 +1291,7 @@ def main() -> int:
 
     op_flops = 2.0 * op_bsr.nnzb * 128 * 128 * F
     # per kernel instance, keyed (tag, layout) as the op plans are
-    times, bounds, library = {}, {}, {}
+    times, bounds, library, whole = {}, {}, {}, {}
     f32_ref = plans[("f32", "sorted")](x_op)
     lib_ms = {
         "f32": library_ms("bsr", op_bsr, x_op, f32_ref, 2,
@@ -1263,24 +1319,20 @@ def main() -> int:
             q, cs = quantize_operand(p, x_op)
             p_ms = cuda_ms(lambda: run_quantized(p, q, cs, plain=True),
                            iters=5, warmup=1)
-            whole_ms = cuda_ms(lambda: p(x_op), iters=10)
-            extra = (f", {p.arrays[2].shape[0]} slots, whole call with static "
-                     f"quantization {whole_ms:.3f} ms")
-            if layout in ("sorted", "rowgroup"):
-                # the ring alone on an operand transposed beforehand, and
-                # the kernel call that transposes it, in the order ring,
-                # call, call, ring
-                qt = transpose_operand(q)
-                k1 = cuda_ms(lambda: run_quantized(p, q, cs, qdense_t=qt), iters=10)
-                c1 = cuda_ms(lambda: run_quantized(p, q, cs), iters=10)
-                c2 = cuda_ms(lambda: run_quantized(p, q, cs), iters=10)
-                k2 = cuda_ms(lambda: run_quantized(p, q, cs, qdense_t=qt), iters=10)
-                k_ms = (k1 + k2) / 2
-                extra = (f", BN={tile_bn(name, op_bsr, F)}, ring runs {k1:.3f}, "
-                         f"{k2:.3f} ms, kernel call with the transposed copy "
-                         f"{(c1 + c2) / 2:.3f} ms ({c1:.3f}, {c2:.3f})" + extra)
-            else:
-                k_ms = cuda_ms(lambda: run_quantized(p, q, cs), iters=10)
+            # the ring alone on the operand quantized transposed
+            # beforehand, and the whole call (static quantization by
+            # quantize_int8, then the ring), in the order ring, call,
+            # call, ring
+            qt = quantize_operand(p, x_op, transposed=True)[0]
+            k1 = cuda_ms(lambda: run_quantized(p, None, cs, qdense_t=qt), iters=10)
+            w1 = cuda_ms(lambda: p(x_op), iters=10)
+            w2 = cuda_ms(lambda: p(x_op), iters=10)
+            k2 = cuda_ms(lambda: run_quantized(p, None, cs, qdense_t=qt), iters=10)
+            k_ms, whole_ms = (k1 + k2) / 2, (w1 + w2) / 2
+            whole[(tag, layout)] = whole_ms
+            extra = (f", BN={tile_bn(name, op_bsr, F)}, {p.arrays[2].shape[0]} "
+                     f"slots, ring runs {k1:.3f}, {k2:.3f} ms, whole call with "
+                     f"static quantization {whole_ms:.3f} ms ({w1:.3f}, {w2:.3f})")
         elif tag == "bf16":  # on the bf16 operand, as the library call
             x_bf = x_op.to(torch.bfloat16)
             p_ms = cuda_ms(lambda: plain_apply(p, x_bf), iters=5, warmup=1)
@@ -1325,16 +1377,36 @@ def main() -> int:
         f"GFLOP/s, strips of W={W} ({-(-F // W)} strips, L2 {_l2_bytes(0)} bytes), "
         f"plain {p_ms:.3f} ms {csr_flops / p_ms / 1e6:.1f} GFLOP/s, bound "
         f"{bounds[key][0]:.3f} ms ({bounds[key][1]}), library {lib} [{card_line}]")
+    # the int8 operand's quantization at the op shape: quantize_int8 into
+    # the ring's (F, N) layout, dynamic and static, against its plain
+    # version (PyTorch's ops and the transposed copy) and its bound: the
+    # operand read once, the int8 operand written once and the scales read
+    # (static) or written (dynamic) once. The two-pass design reads the
+    # operand twice with dynamic scales, which the line gives beside it.
     cs_static = plans[("int8", "sorted")].arrays[-1]
-    q_dyn_ms = cuda_ms(lambda: quantize_per_column(x_op), iters=10)
-    q_static_ms = cuda_ms(lambda: quantize_per_column(x_op, cs_static), iters=10)
-    log(f"  op int8 operand quantization ({x_op.shape[0]} x {F} f32): dynamic "
-        f"{q_dyn_ms:.3f} ms, static {q_static_ms:.3f} ms [{card_line}]")
+    n_op = plans[("int8", "sorted")].statics[4]
+    x_bytes, q_bytes = x_op.numel() * 4, n_op * F
+    for key, cs in ((("quantize", "dynamic"), None),
+                    (("quantize", "static"), cs_static)):
+        times[key] = (
+            cuda_ms(lambda: quantize_int8(x_op, n_op, cs, True), iters=20),
+            cuda_ms(lambda: quantize_int8_plain(x_op, n_op, cs, True), iters=5))
+        bounds[key] = bound("int8", 0.0, x_bytes + q_bytes + F * 4)
+        library[key] = None
+        two_pass = ("" if cs is not None else
+                    f", {bound('int8', 0.0, 2 * x_bytes + q_bytes + F * 4)[0]:.3f}"
+                    f" ms for the two passes' bytes (the operand read twice)")
+        log(f"  op int8 operand quantization ({x_op.shape[0]} x {F} f32 -> {F} x "
+            f"{n_op} int8), {key[1]} scales: quantize_int8 {times[key][0]:.3f} ms, "
+            f"plain {times[key][1]:.3f} ms, bound {bounds[key][0]:.3f} ms "
+            f"({bounds[key][1]}){two_pass}, library none; quantize_per_column "
+            f"alone {cuda_ms(lambda: quantize_per_column(x_op, cs), iters=10):.3f}"
+            f" ms [{card_line}]")
     q_op = quantize_per_column(x_op, cs_static)[0]
     t_ms = cuda_ms(lambda: transpose_operand(q_op), iters=20)
     t_bound = bound("int8", 0.0, 2.0 * q_op.numel())
-    log(f"  op int8 operand transposed copy for K7/K8's ring ({q_op.shape[0]} x "
-        f"{F} int8 -> {F} x {q_op.shape[0]}): transpose_operand {t_ms:.3f} ms, "
+    log(f"  op int8 operand transposed copy, the plain version's ({q_op.shape[0]} "
+        f"x {F} int8 -> {F} x {q_op.shape[0]}): transpose_operand {t_ms:.3f} ms, "
         f"bound {t_bound[0]:.3f} ms ({t_bound[1]}: each byte read and written "
         f"once) [{card_line}]")
     # the slices' requests under torch.profiler, after every other timing,
@@ -1355,8 +1427,9 @@ def main() -> int:
 
     # each kernel symbol's entry: the op-shape instance that runs it (K1,
     # K2, K4 and K5 in f32 and bf16, K3 "high" in its three instances,
-    # K6-K9 int8 kernel only, K10 at the test_csrmm shape); the bf16
-    # tensor-core entries with the F tile width they ran at
+    # K6-K9 int8 ring alone, with the whole call beside it, K10 at the
+    # test_csrmm shape); the tensor-core entries with the F tile width they
+    # ran at
     kernels = {}
     for (tag, layout), p in plans.items():
         kid, name, source, replaces = kernel_of(p)
@@ -1379,6 +1452,8 @@ def main() -> int:
         }
         if tile_bn(name, op_bsr, F):
             kernels[name]["bn"] = tile_bn(name, op_bsr, F)
+        if key in whole:
+            kernels[name]["whole_call_ms"] = whole[key]
     k_ms, p_ms = times[("split", "split")]
     kernels["split_bf16"] = {
         "name": "K3 split_bf16", "route": "cuda", "source": _F,
@@ -1388,14 +1463,28 @@ def main() -> int:
         "bound_ms": bounds[("split", "split")][0],
         "bound_by": bounds[("split", "split")][1], "library_ms": None,
     }
+    # the quantization: dynamic scales in the standard keys (the ddi
+    # slice's), static ones (the op plans') beside them
+    (dyn_ms, dyn_plain), (st_ms, st_plain) = (times[("quantize", "dynamic")],
+                                              times[("quantize", "static")])
+    kernels["quantize_int8"] = {
+        "name": "K6-K9 quantize_int8", "route": "cuda", "source": _I8,
+        "replaces": KERNEL_INFO[("quantize",)][3],
+        "launches": main_launches["quantize_int8"],
+        "max_abs_err": errs[("quantize", "quantize")], "ms": dyn_ms,
+        "plain_ms": dyn_plain, "bound_ms": bounds[("quantize", "dynamic")][0],
+        "bound_by": bounds[("quantize", "dynamic")][1], "library_ms": None,
+        "static_ms": st_ms, "static_plain_ms": st_plain,
+    }
     t_f32, t_high = times[("f32", "sorted")][0], times[("high", "sorted")][0]
     log(f"[timing] bench.py's headline tier on this card: "
         f"{'f32(bf16x3)' if t_high < t_f32 else 'f32'} (its self-check passed in "
         f"the op phase; high {t_high:.3f} ms, exact f32 {t_f32:.3f} ms) [{card_line}]")
-    kernels = sorted(kernels.values(), key=lambda k: (int(k["name"][1:].split()[0]),
-                                                      k["name"]))
-    if {k["name"].split()[0] for k in kernels} != ALL_KERNELS:
-        raise AssertionError(f"kernels line lacks {ALL_KERNELS}")
+    kernels = sorted(kernels.values(), key=lambda k: (
+        int(re.match(r"K(\d+)", k["name"]).group(1)), k["name"]))
+    if {k["name"].split()[0] for k in kernels} != ALL_KERNELS | {"K6-K9"}:
+        raise AssertionError(f"kernels line names other than {ALL_KERNELS} and "
+                             f"the K6-K9 quantization")
     for tag, err in slice_errs.items():
         log(f"[slice] {tag} SpMMs' largest max |kernel - plain|: {err:.3e}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -150,9 +150,8 @@ def time_int8(bsr, x, sources, card: str) -> int:
     runs = {}
     for layout, kw in (("K7", {}), ("K8", {"depth_sort": False})):
         plan = TI.bsr_spmm_pallas_int8_plan(bsr, calibration=cal, device="cuda", **kw)
-        q, cs = TI.quantize_operand(plan, x)
-        qt = TI.transpose_operand(q)
-        runs[layout] = functools.partial(TI.run_quantized, plan, q, cs, qdense_t=qt)
+        qt, cs = TI.quantize_operand(plan, x, transposed=True)
+        runs[layout] = functools.partial(TI.run_quantized, plan, None, cs, qdense_t=qt)
     refs = {k: run() for k, run in runs.items()}
     names = list(sources)
     for name in names + names[::-1]:

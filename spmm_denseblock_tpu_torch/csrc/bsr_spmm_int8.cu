@@ -17,33 +17,37 @@
 //   (+ _resident_int8_kernel).
 // They read the JAX packers' arrays unchanged (plus the port's step and
 // group pointers and K7's lane-valid mask), each with the scales of its
-// own layout; K7 and K8 at b = 64 and 128 read the operand transposed
-// (below).
+// own layout; at b = 64 and 128 they read the operand transposed
+// (below). quantize_int8_kernel makes their operand from the f32 one:
+// the work of the JAX plan's _quantize_cols / _quantize_cols_static
+// (XLA code, not Pallas) and of the zero rows up to the block grid, in
+// the layout the kernel reads.
 //
 // K9. On the TPU the resident kernel keeps the whole (nbc, b, f_tile)
 // int8 operand slice in VMEM and indexes it per slot, on K6's flat
 // layout. Hopper keeps nothing resident (as for K5 in csrc/bsr_spmm.cu):
-// K9's entry launches K6's int8_flat_kernel on K6's packed arrays and the
-// (nbc*b, F) view of the operand; it exists so that K9's launches are
-// counted (and bound) apart from K6's.
+// K9's entry launches K6's kernels on K6's packed arrays and the
+// (nbc*b, F) view of the operand (transposed, (F, nbc*b), on the ring);
+// it exists so that K9's launches are counted (and bound) apart from
+// K6's.
 //
 // Numerics. The TPU multiplies int8 x int8 into int32 on the MXU. Here a
 // slot's product is an exact int32 sum too: on the int8 tensor cores
-// (wgmma ... .s32.s8.s8) for K7 and K8 at b = 64 and 128, with __dp4a
-// (four int8 pairs into an int32 an instruction) for K6, K9 and for K7
-// and K8 at b = 16 and 32. f32 FMA of widened ints would be exact for one
-// slot (127^2 * 128 < 2^24) but not for K7's group-scale lane sum, which
-// reaches 127^2 * 128 * gh (16,516,096 at gh = 8, 1.6% under 2^24, and
-// past it for a larger explicit group), so the lane sum stays in int32.
+// (wgmma ... .s32.s8.s8) for K6-K9 at b = 64 and 128, with __dp4a (four
+// int8 pairs into an int32 an instruction) at b = 16 and 32. f32 FMA of
+// widened ints would be exact for one slot (127^2 * 128 < 2^24) but not
+// for K7's group-scale lane sum, which reaches 127^2 * 128 * gh
+// (16,516,096 at gh = 8, 1.6% under 2^24, and past it for a larger
+// explicit group), so the lane sum stays in int32.
 // Per-slot scales (K6, K8, K7 without group scale): acc += s_slot *
 // float(dot). Group scale (K7): acc += s_lane * float(sum of the
 // lane-step's gh dots). The f32 sum is multiplied by the column scale
 // cs[f] before the store. Both loops add the same f32 terms in the same
 // order.
 //
-// The dp4a loop (K6, K9; K7 and K8 at b = 16 and 32). One CTA owns one
-// (b x 64) output tile for its life, stages each slot's block
-// (transposed) and operand tile through shared memory in depth chunks of
+// The dp4a loop (K6-K9 at b = 16 and 32). One CTA owns one (b x 64)
+// output tile for its life, stages each slot's block (transposed) and
+// operand tile through shared memory in depth chunks of
 // up to 32 int8 packed 4 to a 32-bit word, keeps int32 slot (or
 // lane-step) sums and f32 tile sums in registers (b/16 x 4 each per
 // thread), and stores once. No atomics, so results are deterministic.
@@ -52,10 +56,10 @@
 // aligned). It is bound by issue, not by bytes: each operand word is four
 // byte loads F apart, each chunk is staged between two barriers with
 // nothing in flight, and dp4a does 4 multiply-adds an instruction. At the
-// op shape (b=128, F=512) K6 and K9 run 44x their bytes bound on an H100
-// (K7 and K8 ran 37-48x on this loop).
+// op shape (b=128, F=512) K6-K9 ran 37-48x their bytes bound on this loop
+// on an H100.
 //
-// The int8 tensor-core ring (K7 and K8 at b = 64 and 128), the design of
+// The int8 tensor-core ring (K6-K9 at b = 64 and 128), the design of
 // csrc/bsr_spmm.cu's bf16 ring on int8: one CTA per (lane, F tile of BN =
 // 64 or 128 columns, the wrapper's choice) owns its f32 output tile (no
 // atomics, deterministic); b/64 consumer warpgroups, each issuing
@@ -77,9 +81,31 @@
 // shape); what bounds the ring is moving the blocks and operand slices,
 // as for the bf16 ring (on an H100 at the op shape, K7 with its products
 // cut runs within 2% of its time). Absent (K7) and phantom (K8) lanes
-// return before any barrier is initialised. wgmma's M of 64 does not fit
-// b = 16 or 32, so K7's and K8's entries take those to the dp4a loop, by a
-// switch on b.
+// return before any barrier is initialised. K6's walk (one block-row's
+// steps through a step pointer) is K8's with one lane a group, so K6 and
+// K9 launch the K8 instance with R = 1 and gh = group, in the dp4a loop's
+// slot order (as bf16 K1 runs bf16 K4's ring in csrc/bsr_spmm.cu). wgmma's
+// M of 64 does not fit b = 16 or 32, so every entry takes those to the
+// dp4a loop, by a switch on b.
+//
+// The operand's quantization (quantize_int8_kernel). The ring reads the
+// operand K-major, (F, N) int8; the dp4a loop reads it (N, F). One kernel
+// reads the f32 operand (any row stride and alignment), quantizes it per
+// column and writes the layout asked for, with zero rows from n_rows up
+// to N (the block grid's pad). A CTA quantizes a tile of 128 rows x 64
+// columns in registers (one column, so one scale, a thread; four rows
+// packed into a 32-bit word), stages it in shared memory by column and
+// writes each column's 128 bytes as eight 16-byte stores; row-major
+// output is stored from registers. Numerics are quantize_per_column's
+// (and JAX's) for finite input: q = rint(x / s) with a true IEEE divide
+// (no reciprocal, no fast-math), clamped to +-127; a NaN quotient clamps
+// to -127 (fmaxf drops the NaN), where the plain version's cast of it is
+// undefined. Dynamic scales need each column's
+// absmax before any value quantizes: col_absmax_kernel reduces it first,
+// one atomicMax a column and CTA on the bit pattern of |x| (non-negative
+// floats order as their bits, and max does not depend on order, so the
+// result is deterministic); the quantize pass turns it into s = absmax *
+// f32(1/127), or 1 for a zero column, and writes the scales.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -204,9 +230,10 @@ __device__ __forceinline__ void store_scaled(float* __restrict__ out,
   }
 }
 
-// K6: one CTA per (block-row, F tile); the flat layout is one lane of
-// `group` slots per step, and step_ptr (nbr+1,) gives each row's steps.
-// Every row has >= 1 step (the plan covers empty rows with a zero block).
+// K6 at b = 16 and 32: one CTA per (block-row, F tile); the flat layout
+// is one lane of `group` slots per step, and step_ptr (nbr+1,) gives each
+// row's steps. Every row has >= 1 step (the plan covers empty rows with a
+// zero block).
 template <int BM>
 __global__ void __launch_bounds__(kThreads)
     int8_flat_kernel(const int64_t* __restrict__ step_ptr,
@@ -283,7 +310,7 @@ __global__ void __launch_bounds__(kThreads)
   store_scaled<BM>(out + row * BM * F + f0, cs + f0, F, n_valid, acc);
 }
 
-// ---- the int8 tensor-core ring: K7 and K8 at b = 64 and 128 -------------
+// ---- the int8 tensor-core ring: K6-K9 at b = 64 and 128 -----------------
 
 template <int BM, int BN>
 struct I8Ring {
@@ -383,10 +410,10 @@ struct SlotWalk {
   }
 };
 
-// K7 (win_ids != nullptr) or K8 (win_ids == nullptr) on the int8 tensor
-// cores. One CTA per (lane, F tile of BN columns); warpgroups 0 ..
-// kConsumers-1 run the products on 64 rows each, the last warpgroup's
-// first thread runs the TMA producer. Stage i's `full` barrier completes
+// K7 (win_ids != nullptr) or K8 (win_ids == nullptr; K6 and K9 with R =
+// 1) on the int8 tensor cores. One CTA per (lane, F tile of BN columns);
+// warpgroups 0 .. kConsumers-1 run the products on 64 rows each, the last
+// warpgroup's first thread runs the TMA producer. Stage i's `full` barrier completes
 // when its bytes have landed, its `empty` barrier when every consumer warp
 // has finished reading it.
 template <int BM, int BN, bool kGroupScale>
@@ -532,6 +559,106 @@ __global__ void __launch_bounds__(I8Ring<BM, BN>::kThreads,
   }
 }
 
+// ---- the operand's quantization -----------------------------------------
+
+constexpr int kAbsRows = 512;  // rows of x per col_absmax_kernel CTA
+constexpr int kQRows = 128;    // rows (output depth) per quantize tile
+constexpr int kQCols = 64;     // columns per quantize tile
+// What XLA makes of the JAX package's absmax / 127.0, and what
+// quantize_per_column multiplies by: the f32 reciprocal of 127.
+constexpr float kInv127 = (float)(1.0 / 127.0);
+
+// absmax[f] = max(absmax[f], bits of max |x[r, f]|) over this CTA's rows:
+// 32 columns (blockIdx.y) x kAbsRows rows (blockIdx.x), a warp a row.
+__global__ void __launch_bounds__(256)
+    col_absmax_kernel(const float* __restrict__ x, int64_t ldx, int64_t n_rows,
+                      int64_t F, unsigned* __restrict__ absmax) {
+  __shared__ unsigned part[8][32];
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const int64_t f = blockIdx.y * 32 + tx;
+  const int64_t r0 = blockIdx.x * (int64_t)kAbsRows;
+  const int64_t r1 = r0 + kAbsRows < n_rows ? r0 + kAbsRows : n_rows;
+  unsigned m = 0;
+  if (f < F) {
+#pragma unroll 8
+    for (int64_t r = r0 + ty; r < r1; r += 8)
+      m = max(m, __float_as_uint(fabsf(__ldg(x + r * ldx + f))));
+  }
+  part[ty][tx] = m;
+  __syncthreads();
+  if (ty != 0 || f >= F) return;
+#pragma unroll
+  for (int i = 1; i < 8; ++i) m = max(m, part[i][tx]);
+  atomicMax(absmax + f, m);
+}
+
+__device__ __forceinline__ uint32_t quantize(float v, float s) {
+  const float t = fminf(fmaxf(rintf(v / s), -127.f), 127.f);
+  return (uint32_t)(uint8_t)(int8_t)(int)t;
+}
+
+// q = the quantized operand of n_out rows (rows >= n_rows are zeros),
+// (F, n_out) with kTransposed, else (n_out, F). A CTA owns kQRows rows
+// (blockIdx.x) and kQCols columns (blockIdx.y); thread t quantizes column
+// t % 64, four rows at a time. Scales: static_scale[f] if given, else
+// from absmax[f], written to col_scale by the CTAs of row tile 0.
+template <bool kTransposed>
+__global__ void __launch_bounds__(256)
+    quantize_int8_kernel(const float* __restrict__ x, int64_t ldx,
+                         int64_t n_rows, int64_t F, int64_t n_out,
+                         const float* __restrict__ static_scale,
+                         const unsigned* __restrict__ absmax,
+                         int8_t* __restrict__ q, float* __restrict__ col_scale) {
+  // st[c][w]: rows 4w .. 4w+3 of the tile's column c, one byte each; 33
+  // words a column keep both the writes below and the 16-byte reads
+  // after the barrier free of bank conflicts
+  __shared__ uint32_t st[kQCols][kQRows / 4 + 1];
+  const int c = threadIdx.x % kQCols, phase = threadIdx.x / kQCols;
+  const int64_t k0 = blockIdx.x * (int64_t)kQRows;
+  const int64_t f = blockIdx.y * (int64_t)kQCols + c;
+  float s = 1.f;
+  if (f < F) {
+    if (static_scale != nullptr) {
+      s = static_scale[f];
+    } else {
+      const float m = __uint_as_float(absmax[f]);
+      s = m > 0.f ? m * kInv127 : 1.f;
+      if (blockIdx.x == 0 && phase == 0) col_scale[f] = s;
+    }
+  }
+  constexpr int kPhases = 256 / kQCols;
+#pragma unroll
+  for (int i = 0; i < kQRows / 4 / kPhases; ++i) {
+    const int w = phase + i * kPhases;
+    uint32_t word = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int64_t r = k0 + 4 * w + j;
+      const float v = f < F && r < n_rows ? __ldg(x + r * ldx + f) : 0.f;
+      const uint32_t qv = quantize(v, s);
+      if constexpr (kTransposed) {
+        word |= qv << (8 * j);
+      } else if (f < F && r < n_out) {
+        q[r * F + f] = (int8_t)qv;
+      }
+    }
+    if constexpr (kTransposed) st[c][w] = word;
+  }
+  if constexpr (kTransposed) {
+    __syncthreads();
+    // each column's kQRows bytes as kQRows / 16 stores of 16 bytes
+    constexpr int kChunks = kQRows / 16;
+    for (int i = threadIdx.x; i < kQCols * kChunks; i += 256) {
+      const int cc = i / kChunks, ch = i % kChunks;
+      const int64_t fo = blockIdx.y * (int64_t)kQCols + cc, k = k0 + 16 * ch;
+      if (fo >= F || k >= n_out) continue;
+      const uint32_t* w4 = &st[cc][4 * ch];
+      *reinterpret_cast<uint4*>(q + fo * n_out + k) =
+          make_uint4(w4[0], w4[1], w4[2], w4[3]);
+    }
+  }
+}
+
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 // Grid of n_lanes * ceil(F / 64) CTAs, or an error for an empty or
@@ -544,17 +671,8 @@ cudaError_t grid_for(int64_t n_lanes, int64_t F, int64_t* n_ft, dim3* grid) {
   return cudaSuccess;
 }
 
-// Runs the statement with BM bound to the block size b.
-#define SDB_FOR_BLOCK_SIZE(b, ...)                             \
-  switch (b) {                                                 \
-    case 16: { constexpr int BM = 16; __VA_ARGS__; break; }    \
-    case 32: { constexpr int BM = 32; __VA_ARGS__; break; }    \
-    case 64: { constexpr int BM = 64; __VA_ARGS__; break; }    \
-    case 128: { constexpr int BM = 128; __VA_ARGS__; break; }  \
-    default: return cudaErrorInvalidValue;                     \
-  }
-
-// The same for b = 16 and 32, where K7 and K8 run the dp4a loop.
+// Runs the statement with BM bound to the block size b, 16 or 32: the
+// block sizes of the dp4a loop.
 #define SDB_FOR_SMALL_BLOCK_SIZE(b, ...)                       \
   switch (b) {                                                 \
     case 16: { constexpr int BM = 16; __VA_ARGS__; break; }    \
@@ -585,9 +703,10 @@ cudaError_t launch_ring_tile(const CUtensorMap& tb, const CUtensorMap& td,
   return cudaGetLastError();
 }
 
-// K7 (win_ids != nullptr) or K8 on the int8 ring over n_lanes lanes of
-// ceil(F / bn) tiles: qblocks holds n_slots (b x b) slots, qdense_t is the
-// (F, n_dense_rows) transposed operand, contiguous, 16-byte aligned.
+// K7 (win_ids != nullptr) or K8 (K6 and K9 with R = 1) on the int8 ring
+// over n_lanes lanes of ceil(F / bn) tiles: qblocks holds n_slots (b x b)
+// slots, qdense_t is the (F, n_dense_rows) transposed operand,
+// contiguous, 16-byte aligned.
 cudaError_t launch_ring(const void* group_ptr, const void* win_ids,
                         const void* pos, const void* lane_valid,
                         const void* slot_cols, const void* qblocks,
@@ -640,19 +759,26 @@ cudaError_t launch_ring(const void* group_ptr, const void* win_ids,
   return cudaErrorInvalidValue;
 }
 
-// K6's and K9's launch: one CTA per (block-row, F tile) of the flat
-// layout.
+// K6's and K9's launch on the flat layout, one CTA per (block-row, F
+// tile): the ring (as K8 with R = 1, gh = group and the step pointer as
+// the group pointer) at b = 64 and 128, the dp4a loop at b = 16 and 32.
 cudaError_t launch_flat(const void* step_ptr, const void* slot_cols,
                         const void* qblocks, const void* scales,
-                        const void* qdense, const void* cs, void* out,
-                        int64_t n_block_rows, int64_t F, int64_t group,
-                        int64_t b, cudaStream_t s) {
+                        const void* qdense, const void* qdense_t,
+                        const void* cs, void* out, int64_t n_block_rows,
+                        int64_t n_slots, int64_t n_dense_rows, int64_t F,
+                        int64_t group, int64_t b, int64_t bn, cudaStream_t s) {
+  if (b == 64 || b == 128)
+    return launch_ring(step_ptr, nullptr, nullptr, nullptr, slot_cols, qblocks,
+                       scales, qdense_t, cs, out, n_block_rows, n_block_rows,
+                       n_slots, n_dense_rows, F, 1, group, 1, b, bn, 0, s);
+  if (bn != kBN || qdense == nullptr) return cudaErrorInvalidValue;
   int64_t n_ft;
   dim3 grid;
   cudaError_t err = grid_for(n_block_rows, F, &n_ft, &grid);
   if (err != cudaSuccess) return err;
   if (grid.x == 0) return cudaSuccess;
-  SDB_FOR_BLOCK_SIZE(b, int8_flat_kernel<BM><<<grid, kThreads, 0, s>>>(
+  SDB_FOR_SMALL_BLOCK_SIZE(b, int8_flat_kernel<BM><<<grid, kThreads, 0, s>>>(
       static_cast<const int64_t*>(step_ptr),
       static_cast<const int32_t*>(slot_cols),
       static_cast<const int8_t*>(qblocks), static_cast<const float*>(scales),
@@ -666,31 +792,83 @@ cudaError_t launch_flat(const void* step_ptr, const void* slot_cols,
 // C interface, bound with ctypes. Pointers are device pointers; the
 // stream is the caller's current stream. Returns the cudaError_t of the
 // launch (0 on success).
-extern "C" int sdb_bsr_spmm_int8_flat(const void* step_ptr,
-                                      const void* slot_cols,
-                                      const void* qblocks, const void* scales,
-                                      const void* qdense, const void* cs,
-                                      void* out, int64_t n_block_rows,
-                                      int64_t F, int64_t group, int64_t b,
-                                      void* stream) {
-  return (int)launch_flat(step_ptr, slot_cols, qblocks, scales, qdense, cs,
-                          out, n_block_rows, F, group, b,
+
+// K6. b = 64 and 128 run the int8 ring on qdense_t, the (F, n_dense_rows)
+// transposed operand (qdense is not read), at F tiles of bn = 64 or 128
+// columns; b = 16 and 32 the dp4a loop on qdense (n_dense_rows, F), whose
+// tiles are 64 columns (bn must be 64; qdense_t is not read). The operand
+// the kernel reads must not be null. n_slots is the number of packed
+// slots.
+extern "C" int sdb_bsr_spmm_int8_flat(
+    const void* step_ptr, const void* slot_cols, const void* qblocks,
+    const void* scales, const void* qdense, const void* qdense_t,
+    const void* cs, void* out, int64_t n_block_rows, int64_t n_slots,
+    int64_t n_dense_rows, int64_t F, int64_t group, int64_t b, int64_t bn,
+    void* stream) {
+  return (int)launch_flat(step_ptr, slot_cols, qblocks, scales, qdense,
+                          qdense_t, cs, out, n_block_rows, n_slots,
+                          n_dense_rows, F, group, b, bn,
                           static_cast<cudaStream_t>(stream));
 }
 
-// K9: K6's kernel; qdense3 is the (nbc, b, F) operand, contiguous, read
-// as its (nbc*b, F) view.
-extern "C" int sdb_bsr_spmm_int8_resident(const void* step_ptr,
-                                          const void* slot_cols,
-                                          const void* qblocks,
-                                          const void* scales,
-                                          const void* qdense3, const void* cs,
-                                          void* out, int64_t n_block_rows,
-                                          int64_t F, int64_t group, int64_t b,
-                                          void* stream) {
-  return (int)launch_flat(step_ptr, slot_cols, qblocks, scales, qdense3, cs,
-                          out, n_block_rows, F, group, b,
+// K9: K6's kernels; qdense3 is the (nbc, b, F) operand, contiguous, read
+// as its (nbc*b, F) view, and qdense_t its (F, nbc*b) transpose.
+extern "C" int sdb_bsr_spmm_int8_resident(
+    const void* step_ptr, const void* slot_cols, const void* qblocks,
+    const void* scales, const void* qdense3, const void* qdense_t,
+    const void* cs, void* out, int64_t n_block_rows, int64_t n_slots,
+    int64_t n_dense_rows, int64_t F, int64_t group, int64_t b, int64_t bn,
+    void* stream) {
+  return (int)launch_flat(step_ptr, slot_cols, qblocks, scales, qdense3,
+                          qdense_t, cs, out, n_block_rows, n_slots,
+                          n_dense_rows, F, group, b, bn,
                           static_cast<cudaStream_t>(stream));
+}
+
+// The operand of K6-K9 from the f32 x (n_rows, F), row stride ldx
+// elements (any alignment): q, n_out >= n_rows rows quantized per column
+// (rows >= n_rows are zeros), (F, n_out) with `transposed` (the ring's
+// operand; n_out must be a multiple of 16 and q 16-byte aligned), else
+// (n_out, F). static_scale (F,) f32 fixes the scales (col_scale and
+// absmax are not touched); with static_scale null the entry computes them
+// into col_scale (F,) f32, using absmax (F,) 32-bit words as scratch.
+extern "C" int sdb_quantize_int8(const void* x, const void* static_scale,
+                                 void* absmax, void* q, void* col_scale,
+                                 int64_t ldx, int64_t n_rows, int64_t F,
+                                 int64_t n_out, int64_t transposed,
+                                 void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (n_out < n_rows || ldx < F ||
+      (transposed && (n_out % 16 != 0 || reinterpret_cast<uintptr_t>(q) % 16)) ||
+      (static_scale == nullptr && (absmax == nullptr || col_scale == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int64_t n_ctas_x = ceil_div(n_out, kQRows), n_ctas_y = ceil_div(F, kQCols);
+  if (n_ctas_x > INT32_MAX || ceil_div(F, 32) > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  if (F == 0 || n_out == 0) return (int)cudaSuccess;
+  const auto* xf = static_cast<const float*>(x);
+  const auto* ss = static_cast<const float*>(static_scale);
+  auto* am = static_cast<unsigned*>(absmax);
+  if (ss == nullptr) {
+    if (cudaError_t e = cudaMemsetAsync(am, 0, F * sizeof(unsigned), s))
+      return (int)e;
+    if (n_rows > 0) {
+      col_absmax_kernel<<<dim3((unsigned)ceil_div(n_rows, kAbsRows),
+                               (unsigned)ceil_div(F, 32)),
+                          256, 0, s>>>(xf, ldx, n_rows, F, am);
+      if (cudaError_t e = cudaGetLastError()) return (int)e;
+    }
+  }
+  const dim3 grid((unsigned)n_ctas_x, (unsigned)n_ctas_y);
+  auto* qo = static_cast<int8_t*>(q);
+  auto* cs = static_cast<float*>(col_scale);
+  if (transposed)
+    quantize_int8_kernel<true><<<grid, 256, 0, s>>>(xf, ldx, n_rows, F, n_out,
+                                                    ss, am, qo, cs);
+  else
+    quantize_int8_kernel<false><<<grid, 256, 0, s>>>(xf, ldx, n_rows, F, n_out,
+                                                     ss, am, qo, cs);
+  return (int)cudaGetLastError();
 }
 
 // K7 and K8. b = 64 and 128 run the int8 ring on qdense_t, the (F,

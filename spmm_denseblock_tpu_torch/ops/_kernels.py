@@ -67,13 +67,15 @@ _SIGNATURES = {
     # bf16 K4: the same pointers, then n_lanes, n_block_rows, n_slots,
     # n_dense_rows, F, ld, R, gh, b, bn, stream
     "sdb_bsr_spmm_rowgroup_bf16": ("bsr_spmm", [_P] * 5 + [_I] * 10 + [_P]),
-    # step_ptr, slot_cols, qblocks, scales, qdense, cs, out, n_block_rows,
-    # F, group, b, stream
-    "sdb_bsr_spmm_int8_flat": ("bsr_spmm_int8", [_P, _P, _P, _P, _P, _P, _P,
-                                                 _I, _I, _I, _I, _P]),
+    # K6: step_ptr, slot_cols, qblocks, scales, qdense, qdense_t (the
+    # transposed operand, read at b = 64 and 128), cs, out, n_block_rows,
+    # n_slots, n_dense_rows, F, group, b, bn, stream
+    "sdb_bsr_spmm_int8_flat": ("bsr_spmm_int8", [_P] * 8 + [_I] * 7 + [_P]),
     # K9: the same arguments, the operand viewed as (nbc, b, F)
-    "sdb_bsr_spmm_int8_resident": ("bsr_spmm_int8", [_P, _P, _P, _P, _P, _P,
-                                                     _P, _I, _I, _I, _I, _P]),
+    "sdb_bsr_spmm_int8_resident": ("bsr_spmm_int8", [_P] * 8 + [_I] * 7 + [_P]),
+    # K6-K9's operand: x, static_scale, absmax, q, col_scale, ldx, n_rows,
+    # F, n_out, transposed, stream
+    "sdb_quantize_int8": ("bsr_spmm_int8", [_P] * 5 + [_I] * 5 + [_P]),
     # K7: group_ptr, win_ids, pos, lane_valid, slot_cols, qblocks, scales,
     # qdense, qdense_t (the transposed operand, read at b = 64 and 128),
     # cs, out, n_lanes, n_slots, n_dense_rows, F, R, gh, window, b, bn,
@@ -193,10 +195,12 @@ bsr_spmm_int8_flat = CudaKernel("sdb_bsr_spmm_int8_flat")      # K6
 bsr_spmm_int8_sorted = CudaKernel("sdb_bsr_spmm_int8_sorted")  # K7
 bsr_spmm_int8_rowgroup = CudaKernel("sdb_bsr_spmm_int8_rowgroup")  # K8
 bsr_spmm_int8_resident = CudaKernel("sdb_bsr_spmm_int8_resident")  # K9
+quantize_int8 = CudaKernel("sdb_quantize_int8")  # K6-K9's operand
 csr_spmm = CudaKernel("sdb_csr_spmm")                           # K10
 KERNELS = (bsr_spmm_flat, bsr_spmm_flat_bf16, bsr_spmm_sorted,
            bsr_spmm_sorted_bf16, bsr_spmm_flat_bf16x3,
            bsr_spmm_sorted_bf16x3, bsr_spmm_resident_bf16x3, split_bf16,
            bsr_spmm_rowgroup, bsr_spmm_rowgroup_bf16, bsr_spmm_resident,
            bsr_spmm_resident_bf16, bsr_spmm_int8_flat, bsr_spmm_int8_sorted,
-           bsr_spmm_int8_rowgroup, bsr_spmm_int8_resident, csr_spmm)
+           bsr_spmm_int8_rowgroup, bsr_spmm_int8_resident, quantize_int8,
+           csr_spmm)

@@ -69,7 +69,11 @@ def quantize_per_column(dense: torch.Tensor, col_scale=None):
     +-127. col_scale None computes the scales from this operand (a
     column of zeros gets scale 1) as absmax times the f32 reciprocal of
     127, which is what XLA compiles the JAX package's absmax / 127.0
-    into: bit-equal scales. Returns (q int8, col_scale f32)."""
+    into: bit-equal scales. Returns (q int8, col_scale f32). With the
+    pad rows, it is the plain version of the kernel tier's operand
+    quantization (``bsr_spmm_pallas_int8.quantize_int8``), bit-equal to
+    it for finite input only: the cast of a NaN quotient to int8 is
+    undefined here, and the kernel clamps a NaN to -127."""
     if col_scale is None:
         col_absmax = dense.abs().amax(dim=0)
         col_scale = torch.where(

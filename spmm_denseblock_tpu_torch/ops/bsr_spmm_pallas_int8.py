@@ -5,8 +5,8 @@ C++ for Hopper, in ``csrc/bsr_spmm_int8.cu``).
 The plan packs the f32 blocks with the f32 plan's packers, then
 quantizes the packed list (pad slots are zero blocks, so they quantize
 to 0), bit-equal to the JAX plan. Each call quantizes the operand per
-column with torch ops (or with scales fixed from a calibration batch)
-and runs one of four kernels:
+column (or with scales fixed from a calibration batch) and runs one of
+four kernels:
 
 - K6, flat gather (``spmm_int8_flat``), replacing ``_pallas_int8_spmm``;
 - K7, depth-sorted row groups (``spmm_int8_sorted``), replacing
@@ -15,21 +15,26 @@ and runs one of four kernels:
 - K8, consecutive row groups (``spmm_int8_rowgroup``), replacing
   ``_pallas_int8_spmm_rowgroup``;
 - K9, single-row resident (``spmm_int8_resident``), replacing
-  ``_pallas_int8_spmm_resident``: K6's kernel on K6's packed arrays,
+  ``_pallas_int8_spmm_resident``: K6's kernels on K6's packed arrays,
   launched and counted through K9's own entry, the operand viewed as
   (nbc, b, F), as K5 is K1's.
 
 Every kernel sums int8 x int8 products exactly in int32, scales the sum
 to f32 with the slot's (or the lane-step's) block scale, and multiplies
-the f32 sum by the column's operand scale before the store. K7 and K8 at
-b = 64 and 128 run on the int8 tensor cores, whose s8 products take the
-operand K-major: their wrappers hand the kernel the transposed operand
-(``transpose_operand``, an (F, N) copy made per call). Beside each
-kernel sits its plain PyTorch version on the same packed arrays: the
-int8 products in f32 (exact: |q q| b <= 127^2 * 128 < 2^24), a
-group-scale lane sum in float64 (exact, as the int32 sum is), then the
-scales in f32. A wrapper runs the plain version only for CPU tensors;
-for CUDA tensors it launches the kernel or raises. Inference only.
+the f32 sum by the column's operand scale before the store. At b = 64
+and 128 they run on the int8 tensor cores, whose s8 products take the
+operand K-major: they read the transposed operand, (F, N). On the card a
+plan's call makes it with one kernel (``quantize_int8``: the f32 operand
+quantized, zero-padded and written (F, N), or (N, F) for the dp4a loop
+at b = 16 and 32), in place of the JAX plan's ``_quantize_cols`` and
+the pad; an operand quantized elsewhere, (N, F), is transposed by
+``transpose_operand``. Beside each kernel sits its plain PyTorch
+version on the same packed arrays: the int8 products in f32 (exact: |q
+q| b <= 127^2 * 128 < 2^24), a group-scale lane sum in float64 (exact,
+as the int32 sum is), then the scales in f32; the quantization's is
+``quantize_per_column`` with the pad, then ``transpose_operand``. A
+wrapper runs the plain version only for CPU tensors; for CUDA tensors it
+launches the kernel or raises. Inference only.
 
 Layout policy: the JAX plan's gate without the TPU's VMEM fit checks,
 SMEM chunking and environment knobs. ``f_tile`` is taken for its
@@ -188,53 +193,72 @@ def _launch(kernel, dev, *args):
         kernel(*args, torch.cuda.current_stream(dev).cuda_stream)
 
 
+def _operand_view(qdense, qdense_t):
+    """The operand as (N, F): qdense, or where the caller passes only the
+    transposed operand, a view of qdense_t (F, N)."""
+    if qdense is not None:
+        return qdense
+    if qdense_t is None:
+        raise ValueError("the int8 kernels need qdense (N, F) or qdense_t (F, N)")
+    return qdense_t.t()
+
+
 def spmm_int8_flat(step_rows, step_ptr, slot_cols, qblocks, scales, qdense,
-                   col_scale, group: int, resident: bool = False) -> torch.Tensor:
+                   col_scale, group: int, resident: bool = False,
+                   qdense_t=None) -> torch.Tensor:
     """K6: C (n_block_rows*b, F) f32 on the flat layout, per-slot scales
     (S,). step_ptr (n_block_rows+1,) int64 points each block-row at its
-    steps. resident=True launches the same kernel through K9's entry
-    (``spmm_int8_resident``). CPU tensors run spmm_int8_flat_plain."""
-    dev = _device_of(step_rows, step_ptr, slot_cols, qblocks, scales, qdense,
+    steps. qdense and qdense_t as for spmm_int8_sorted. resident=True
+    launches the same kernels through K9's entry (``spmm_int8_resident``).
+    CPU tensors run spmm_int8_flat_plain."""
+    op = _operand_view(qdense, qdense_t)
+    dev = _device_of(step_rows, step_ptr, slot_cols, qblocks, scales, op,
                      col_scale)
     n_block_rows = step_ptr.shape[0] - 1
     if dev.type == "cpu":
         return spmm_int8_flat_plain(step_rows, slot_cols, qblocks, scales,
-                                    qdense, col_scale, n_block_rows, group)
-    _check_int8_operands(qblocks, qdense, scales, qblocks.shape[0], col_scale, {
+                                    op, col_scale, n_block_rows, group)
+    _check_int8_operands(qblocks, op, scales, qblocks.shape[0], col_scale, {
         "step_ptr": (step_ptr, torch.int64),
         "slot_cols": (slot_cols, torch.int32),
-    })
+    }, contiguous=False)
     if slot_cols.shape[0] != qblocks.shape[0] or qblocks.shape[0] % group:
         raise ValueError("slot_cols and qblocks must hold n_steps*group slots")
     b = qblocks.shape[1]
-    F = qdense.shape[1]
+    N, F = op.shape
+    qdense, qdense_t, bn = _ring_args(qblocks, qdense, qdense_t, n_block_rows, dev)
     out = torch.empty(n_block_rows * b, F, dtype=torch.float32, device=dev)
     kernel = (_kernels.bsr_spmm_int8_resident if resident
               else _kernels.bsr_spmm_int8_flat)
     _launch(kernel, dev,
             step_ptr.data_ptr(), slot_cols.data_ptr(), qblocks.data_ptr(),
-            scales.data_ptr(), qdense.data_ptr(), col_scale.data_ptr(),
-            out.data_ptr(), n_block_rows, F, group, b)
+            scales.data_ptr(), _ptr(qdense), _ptr(qdense_t),
+            col_scale.data_ptr(), out.data_ptr(), n_block_rows,
+            qblocks.shape[0], N, F, group, b, bn)
     return out
 
 
 def spmm_int8_resident(step_rows, step_ptr, slot_cols, qblocks, scales,
-                       qdense3, col_scale, group: int) -> torch.Tensor:
+                       qdense3, col_scale, group: int,
+                       qdense_t=None) -> torch.Tensor:
     """K9: C (n_block_rows*b, F) f32 on K6's packed arrays with the
-    operand qdense3 viewed as (nbc, b, F). On the TPU the layout keeps
-    the whole operand slice in VMEM; on the card nothing is kept
-    resident, and K9's entry runs K6's CTA walk on the (nbc*b, F) view.
-    CPU tensors run spmm_int8_resident_plain."""
+    operand qdense3 viewed as (nbc, b, F) (or None, with qdense_t its
+    (F, nbc*b) transpose). On the TPU the layout keeps the whole operand
+    slice in VMEM; on the card nothing is kept resident, and K9's entry
+    runs K6's CTA walk on the (nbc*b, F) view. CPU tensors run
+    spmm_int8_resident_plain."""
+    qdense = None if qdense3 is None else _flat_view(qdense3, qblocks.shape[1])
     return spmm_int8_flat(step_rows, step_ptr, slot_cols, qblocks, scales,
-                          _flat_view(qdense3, qblocks.shape[1]), col_scale,
-                          group, resident=True)
+                          qdense, col_scale, group, resident=True,
+                          qdense_t=qdense_t)
 
 
 def int8_tile_bn(b: int, n_rows: int, F: int, n_sms: int) -> int:
-    """The F tile width of a K7 or K8 launch over n_rows block-rows:
-    tile_geometry's, 64 or 128 columns at b = 64 and 128 (the int8 ring),
-    64 below (the dp4a loop). The ring reads the transposed operand, whose
-    rows need no padding."""
+    """The F tile width of an int8 launch over n_rows block-rows (K7's
+    valid lanes, K8's lanes, K6's and K9's rows): tile_geometry's, 64 or
+    128 columns at b = 64 and 128 (the int8 ring), 64 below (the dp4a
+    loop). The ring reads the transposed operand, whose rows need no
+    padding."""
     return tile_geometry(b, n_rows, F, n_sms, 1)[0]
 
 
@@ -246,15 +270,28 @@ def transpose_operand(qdense: torch.Tensor) -> torch.Tensor:
     return qt.clone() if qt.data_ptr() % 16 else qt
 
 
+def reads_transposed(b: int) -> bool:
+    """Whether the int8 kernels at block size b read the transposed
+    operand (the ring, b = 64 and 128) rather than qdense (N, F)."""
+    return b >= 64
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
 def _ring_args(qblocks, qdense, qdense_t, n_block_rows: int, dev) -> tuple:
-    """(qdense, qdense_t, bn) of a K7 or K8 launch. At b = 64 and 128 the
-    ring reads qdense_t, made here unless the caller made it already
-    (transpose_operand(qdense)); at b = 16 and 32 the dp4a loop reads
-    qdense, contiguous, and qdense_t is None."""
+    """(qdense, qdense_t, bn) of an int8 launch; one of qdense (N, F) and
+    qdense_t (F, N) may be None. At b = 64 and 128 the ring reads
+    qdense_t, made here (transpose_operand) unless the caller passes it;
+    at b = 16 and 32 the dp4a loop reads qdense, contiguous, and qdense_t
+    is None."""
     b = qblocks.shape[1]
-    N, F = qdense.shape
+    N, F = _operand_view(qdense, qdense_t).shape
     bn = int8_tile_bn(b, n_block_rows, F, _sm_count(dev.index))
-    if b < 64:
+    if not reads_transposed(b):
+        if qdense is None:
+            raise ValueError(f"at b = {b} the int8 kernels read qdense (N, F)")
         return qdense.contiguous(), None, bn
     if qdense_t is None:
         qdense_t = transpose_operand(qdense)
@@ -274,17 +311,18 @@ def spmm_int8_sorted(win_ids, pos, slot_cols, qblocks, scales, qdense,
     (T*R,) one per lane-step with group_scale (int32 lane sums), else
     (T*G,) one per slot. qdense may have any strides. At b = 64 and 128
     the kernel is the int8 ring on transpose_operand(qdense), or on
-    qdense_t where the caller made it already. CPU tensors run
-    spmm_int8_sorted_plain."""
-    dev = _device_of(win_ids, pos, slot_cols, qblocks, scales, qdense,
+    qdense_t where the caller made it already (qdense may then be None).
+    CPU tensors run spmm_int8_sorted_plain."""
+    op = _operand_view(qdense, qdense_t)
+    dev = _device_of(win_ids, pos, slot_cols, qblocks, scales, op,
                      col_scale, lane_valid, group_ptr)
     if dev.type == "cpu":
         return spmm_int8_sorted_plain(
-            win_ids, pos, slot_cols, qblocks, scales, qdense, col_scale,
+            win_ids, pos, slot_cols, qblocks, scales, op, col_scale,
             lane_valid, group_ptr, n_block_rows, R, gh, window, group_scale)
     n_steps = win_ids.shape[0]
     _check_int8_operands(
-        qblocks, qdense, scales, n_steps * (R if group_scale else R * gh),
+        qblocks, op, scales, n_steps * (R if group_scale else R * gh),
         col_scale, {
             "win_ids": (win_ids, torch.int32),
             "pos": (pos, torch.int32),
@@ -298,14 +336,13 @@ def spmm_int8_sorted(win_ids, pos, slot_cols, qblocks, scales, qdense,
     if slot_cols.shape[0] != qblocks.shape[0] or qblocks.shape[0] != n_steps * R * gh:
         raise ValueError("slot_cols and qblocks must hold n_steps*R*gh slots")
     b = qblocks.shape[1]
-    N, F = qdense.shape
+    N, F = op.shape
     qdense, qdense_t, bn = _ring_args(qblocks, qdense, qdense_t, n_block_rows, dev)
     out = torch.empty(n_block_rows * b, F, dtype=torch.float32, device=dev)
     _launch(_kernels.bsr_spmm_int8_sorted, dev,
             group_ptr.data_ptr(), win_ids.data_ptr(), pos.data_ptr(),
             lane_valid.data_ptr(), slot_cols.data_ptr(), qblocks.data_ptr(),
-            scales.data_ptr(), qdense.data_ptr(),
-            0 if qdense_t is None else qdense_t.data_ptr(),
+            scales.data_ptr(), _ptr(qdense), _ptr(qdense_t),
             col_scale.data_ptr(), out.data_ptr(), n_lanes, qblocks.shape[0], N,
             F, R, gh, window, b, bn, int(group_scale))
     return out
@@ -318,29 +355,86 @@ def spmm_int8_rowgroup(step_groups, group_ptr, slot_cols, qblocks, scales,
     per-slot scales (T*G,). Phantom lanes store nothing. qdense and
     qdense_t as for spmm_int8_sorted. CPU tensors run
     spmm_int8_rowgroup_plain."""
+    op = _operand_view(qdense, qdense_t)
     dev = _device_of(step_groups, group_ptr, slot_cols, qblocks, scales,
-                     qdense, col_scale)
+                     op, col_scale)
     if dev.type == "cpu":
         return spmm_int8_rowgroup_plain(step_groups, slot_cols, qblocks,
-                                        scales, qdense, col_scale,
+                                        scales, op, col_scale,
                                         n_block_rows, R, gh)
-    _check_int8_operands(qblocks, qdense, scales, qblocks.shape[0], col_scale, {
+    _check_int8_operands(qblocks, op, scales, qblocks.shape[0], col_scale, {
         "group_ptr": (group_ptr, torch.int64),
         "slot_cols": (slot_cols, torch.int32),
     }, contiguous=False)
     check_rowgroup_geometry(step_groups, group_ptr, slot_cols, qblocks,
                             n_block_rows, R, gh)
     b = qblocks.shape[1]
-    N, F = qdense.shape
+    N, F = op.shape
     qdense, qdense_t, bn = _ring_args(qblocks, qdense, qdense_t, n_block_rows, dev)
     out = torch.empty(n_block_rows * b, F, dtype=torch.float32, device=dev)
     _launch(_kernels.bsr_spmm_int8_rowgroup, dev,
             group_ptr.data_ptr(), slot_cols.data_ptr(), qblocks.data_ptr(),
-            scales.data_ptr(), qdense.data_ptr(),
-            0 if qdense_t is None else qdense_t.data_ptr(),
+            scales.data_ptr(), _ptr(qdense), _ptr(qdense_t),
             col_scale.data_ptr(), out.data_ptr(), (group_ptr.shape[0] - 1) * R,
             n_block_rows, qblocks.shape[0], N, F, R, gh, b, bn)
     return out
+
+
+# -- the operand's quantization ---------------------------------------------
+
+
+def quantize_int8_plain(dense, n_out: int, col_scale=None,
+                        transposed: bool = False):
+    """Plain version of quantize_int8: zero rows up to n_out,
+    quantize_per_column, then transpose_operand where the ring's layout
+    is asked for. Returns (q int8, col_scale f32)."""
+    if n_out > dense.shape[0]:
+        dense = torch.nn.functional.pad(dense, (0, 0, 0, n_out - dense.shape[0]))
+    q, cs = quantize_per_column(dense, col_scale)
+    return (transpose_operand(q) if transposed else q.contiguous()), cs.contiguous()
+
+
+def quantize_int8(dense, n_out: int, col_scale=None, transposed: bool = False):
+    """The int8 kernels' operand from the f32 dense (n_rows, F): n_out >=
+    n_rows rows (rows past n_rows are zeros) quantized per column with
+    the static scales col_scale (F,), or with this operand's own (None),
+    as (F, n_out) contiguous and 16-byte aligned with transposed (the
+    ring's operand) or (n_out, F). Returns (q int8, col_scale f32: the
+    static scales themselves, or new ones). CPU tensors run
+    quantize_int8_plain; CUDA tensors launch quantize_int8_kernel (with
+    col_absmax_kernel first for dynamic scales), bit-equal to it for
+    finite input. A NaN or infinite value or scale is outside that: the
+    kernel clamps a NaN quotient to -127, the plain version's cast of it
+    is undefined."""
+    if dense.device.type == "cpu":
+        return quantize_int8_plain(dense, n_out, col_scale, transposed)
+    if dense.dtype != torch.float32 or dense.dim() != 2:
+        raise TypeError(f"quantize_int8 takes a 2-D f32 operand, got dtype "
+                        f"{dense.dtype}, shape {tuple(dense.shape)}")
+    n_rows, F = dense.shape
+    ldx = dense.stride(0) if n_rows > 1 else F
+    if (F > 1 and dense.stride(1) != 1) or ldx < F:
+        dense, ldx = dense.contiguous(), F
+    if n_out < n_rows or (transposed and n_out % 16):
+        raise ValueError(f"n_out={n_out} must be >= {n_rows} rows (and a "
+                         "multiple of 16 for the transposed layout)")
+    dev = dense.device
+    if col_scale is not None:
+        if (col_scale.dtype != torch.float32 or col_scale.shape != (F,)
+                or col_scale.device != dev or not col_scale.is_contiguous()):
+            raise ValueError(f"col_scale must be ({F},) f32, contiguous, on "
+                             f"{dev}")
+        cs, absmax = col_scale, None
+    else:
+        # the scales, then the absmax words the kernels reduce into
+        scratch = torch.empty(2 * F, dtype=torch.float32, device=dev)
+        cs, absmax = scratch[:F], scratch[F:]
+    q = torch.empty((F, n_out) if transposed else (n_out, F), dtype=torch.int8,
+                    device=dev)
+    _launch(_kernels.quantize_int8, dev,
+            dense.data_ptr(), _ptr(col_scale), _ptr(absmax), q.data_ptr(),
+            cs.data_ptr(), ldx, n_rows, F, n_out, int(transposed))
+    return q, cs
 
 
 # -- the plan ---------------------------------------------------------------
@@ -458,35 +552,41 @@ def bsr_spmm_pallas_int8_plan(
     return Plan(arrays, _int8_pallas_apply, statics, device=device)
 
 
-def quantize_operand(plan: Plan, dense):
+def quantize_operand(plan: Plan, dense, transposed: bool = False):
     """The operand of an int8 kernel plan: f32, zero rows up to the
     block grid, quantized per column with the plan's static scales or
-    this operand's. Returns (qdense int8, col_scale f32)."""
-    return _quantize(plan.statics, plan.arrays, dense)
+    this operand's: quantize_int8 (the kernel on CUDA tensors, its plain
+    version on CPU ones). Returns (qdense (N, F) int8, col_scale f32), or
+    with transposed=True the ring's (F, N) operand in place of qdense."""
+    return _quantize(plan.statics, plan.arrays, dense, transposed)
 
 
 def run_quantized(plan: Plan, qdense, col_scale, plain: bool = False,
                   qdense_t=None) -> torch.Tensor:
     """The plan's kernel (or its plain version) on an operand already
     quantized by quantize_operand: C (n_rows, F) f32. qdense_t: the
-    operand already transposed (transpose_operand), which the sorted and
-    row-group kernels at b = 64 and 128 then read instead of making it."""
+    operand already transposed (quantize_operand(transposed=True) or
+    transpose_operand(qdense)), which the kernels at b = 64 and 128 then
+    read instead of making it; qdense may then be None."""
     return _run(plan.statics, plan.arrays, qdense, col_scale, plain, qdense_t)
 
 
-def _quantize(statics, arrays, dense):
+def _quantize(statics, arrays, dense, transposed: bool = False,
+              plain: bool = False):
     _, _, _, n_cols, k_needed, _, calibrated = statics
     dense = torch.as_tensor(dense, device=arrays[2].device).to(torch.float32)
     if dense.dim() != 2 or dense.shape[0] != n_cols:
         raise ValueError(f"dense must be ({n_cols}, F), got {tuple(dense.shape)}")
-    if k_needed > n_cols:
-        dense = torch.nn.functional.pad(dense, (0, 0, 0, k_needed - n_cols))
-    q, cs = quantize_per_column(dense, arrays[-1] if calibrated else None)
-    return q.contiguous(), cs.contiguous()
+    _check_f_tile(statics, dense.shape[1])  # before any launch
+    quantize = quantize_int8_plain if plain else quantize_int8
+    return quantize(dense, k_needed, arrays[-1] if calibrated else None,
+                    transposed)
 
 
 def _run(statics, arrays, qdense, col_scale, plain: bool, qdense_t=None):
     layout, nbr, n_rows, _, _, geom, _ = statics
+    if plain:
+        qdense, qdense_t = _operand_view(qdense, qdense_t), None
     if layout == "sorted":
         win_ids, slot_cols, qblocks, scales, pos, lane_valid, group_ptr = arrays[:7]
         args = (win_ids, pos, slot_cols, qblocks, scales, qdense, col_scale,
@@ -505,21 +605,18 @@ def _run(statics, arrays, qdense, col_scale, plain: bool, qdense_t=None):
                                      *geom, qdense_t=qdense_t)
     elif layout == "resident":
         step_rows, slot_cols, qblocks, scales, step_ptr = arrays[:5]
-        group, f_tile = geom
-        F = qdense.shape[1]
-        if round_up(F, 128) % f_tile:
-            raise ValueError(
-                f"resident=True with f_tile={f_tile}: f_tile must divide the "
-                f"operand's width rounded up to 128 ({round_up(F, 128)})"
-            )
-        qdense3 = qdense.reshape(-1, qblocks.shape[1], F)
+        group = geom[0]
+        F = _operand_view(qdense, qdense_t).shape[1]
+        _check_f_tile(statics, F)
+        qdense3 = None if qdense is None else qdense.reshape(-1, qblocks.shape[1], F)
         if plain:
             out = spmm_int8_resident_plain(step_rows, slot_cols, qblocks,
                                            scales, qdense3, col_scale, nbr,
                                            group)
         else:
             out = spmm_int8_resident(step_rows, step_ptr, slot_cols, qblocks,
-                                     scales, qdense3, col_scale, group)
+                                     scales, qdense3, col_scale, group,
+                                     qdense_t=qdense_t)
     else:
         step_rows, slot_cols, qblocks, scales, step_ptr = arrays[:5]
         if plain:
@@ -527,10 +624,29 @@ def _run(statics, arrays, qdense, col_scale, plain: bool, qdense_t=None):
                                        qdense, col_scale, nbr, geom)
         else:
             out = spmm_int8_flat(step_rows, step_ptr, slot_cols, qblocks,
-                                 scales, qdense, col_scale, geom)
+                                 scales, qdense, col_scale, geom,
+                                 qdense_t=qdense_t)
     return out[:n_rows]
 
 
+def _check_f_tile(statics, F: int) -> None:
+    """A K9 plan's f_tile must divide the operand's width rounded up to
+    128, as the JAX plan checks at call time."""
+    layout, geom = statics[0], statics[5]
+    if layout == "resident" and round_up(F, 128) % geom[1]:
+        raise ValueError(
+            f"resident=True with f_tile={geom[1]}: f_tile must divide the "
+            f"operand's width rounded up to 128 ({round_up(F, 128)})"
+        )
+
+
 def _int8_pallas_apply(statics, arrays, dense, plain: bool = False):
-    qdense, col_scale = _quantize(statics, arrays, dense)
-    return _run(statics, arrays, qdense, col_scale, plain)
+    # on the card one quantize_int8 launch writes the operand in the
+    # layout the kernel reads: transposed for the ring (b = 64 and 128)
+    qblocks = arrays[2]
+    transposed = (not plain and qblocks.device.type == "cuda"
+                  and reads_transposed(qblocks.shape[1]))
+    q, col_scale = _quantize(statics, arrays, dense, transposed, plain)
+    if transposed:
+        return _run(statics, arrays, None, col_scale, False, qdense_t=q)
+    return _run(statics, arrays, q, col_scale, plain)

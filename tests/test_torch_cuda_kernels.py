@@ -5,8 +5,9 @@ tensor cores, in bf16, K3 (the bf16x3 product, on K1's, K2's and K5's
 layouts, on the tensor cores at b = 64 and 128) and its operand split,
 the int8 kernels K6 (flat), K7
 (depth-sorted, group-scale and per-slot scales), K8 (consecutive row
-groups; K7 and K8 on the int8 tensor cores at b = 64 and 128) and K9
-(single-row resident), and the CSR kernel K10 (one strip,
+groups) and K9 (single-row resident), all four on the int8 tensor cores
+at b = 64 and 128, and their operand's quantization (quantize_int8, bit
+for bit), and the CSR kernel K10 (one strip,
 and column strips) against their plain PyTorch versions on the card,
 their launch counters, the wrappers' refusals, and grad plans' backward on
 the card against the plain backward. CUDA kernels have no CPU mode, so
@@ -362,12 +363,12 @@ def test_int8_wrappers_refuse_bad_operands():
     """Wrong dtypes, and scales of another layout's length: a per-slot
     scales array fed to the group-scale layout (and back) raises."""
     bsr = _bsr(21, 16, 0.4, seed=4)
-    counts = [k.launches for k in _kernels.KERNELS]
     plan = TI.bsr_spmm_pallas_int8_plan(bsr, depth_sort=True, device="cuda")
     win_ids, slot_cols, qblocks, scales, pos, lane_valid, group_ptr = plan.arrays
     nbr = plan.statics[1]
     R, gh, W, _ = plan.statics[5]
     q, cs = TI.quantize_operand(plan, _x(bsr))
+    counts = [k.launches for k in _kernels.KERNELS]
     run = lambda qb, sc, gs, qd=q, c=cs: TI.spmm_int8_sorted(
         win_ids, pos, slot_cols, qb, sc, qd, c, lane_valid, group_ptr, nbr,
         R, gh, W, gs)
@@ -422,7 +423,7 @@ def test_int8_group_scale_sum_is_exact():
     assert (got.cpu().numpy() == exact).all()
 
 
-# -- K7 and K8 on the int8 tensor cores (b = 64 and 128) --------------------
+# -- K6-K9 on the int8 tensor cores (b = 64 and 128) ------------------------
 
 INT8_RING_CASES = {
     # name: (plan kwargs, layout, kernel)
@@ -430,6 +431,9 @@ INT8_RING_CASES = {
     "sorted_per_slot": ({"depth_sort": True, "group_scale": False}, "sorted",
                         "bsr_spmm_int8_sorted"),
     "rowgroup": ({"depth_sort": False}, "rowgroup", "bsr_spmm_int8_rowgroup"),
+    "flat": ({"resident": False}, "flat", "bsr_spmm_int8_flat"),
+    "resident": ({"resident": True, "f_tile": 128}, "resident",
+                 "bsr_spmm_int8_resident"),
 }
 
 
@@ -447,11 +451,12 @@ def _int8_plan(bsr, case):
 @pytest.mark.parametrize("case", list(INT8_RING_CASES))
 def test_int8_ring_bit_exact(case, b, nb, F, wide, monkeypatch):
     """On int8_exact_case nothing rounds before the column scale, so K7
-    (both scale modes) and K8 on the ring must equal float64 and their
-    plain versions bit for bit: a swizzle, descriptor or fragment error
-    would show. 37 block-rows leave absent (K7) and phantom (K8) lanes;
-    F = 70 is ragged (rows of the transposed operand past F read as
-    zeros); tiles of 64 columns and of the widest the F needs."""
+    (both scale modes), K8, K6 and K9 on the ring must equal float64 and
+    their plain versions bit for bit: a swizzle, descriptor or fragment
+    error would show. 37 block-rows leave absent (K7) and phantom (K8)
+    lanes, and empty rows (K6, K9: a row of zero blocks); F = 70 is
+    ragged (rows of the transposed operand past F read as zeros); tiles
+    of 64 columns and of the widest the F needs."""
     if wide:  # one SM: every F > 64 takes 128-column tiles
         monkeypatch.setattr(TI, "_sm_count", lambda index: 1)
     bsr, x, want = int8_exact_case(b, F, seed=b + nb + F, n_block_rows=nb)
@@ -463,10 +468,10 @@ def test_int8_ring_bit_exact(case, b, nb, F, wide, monkeypatch):
 
 
 @pytest.mark.parametrize("view", ["offset", "strided"])
-@pytest.mark.parametrize("case", ["sorted", "rowgroup"])
+@pytest.mark.parametrize("case", ["sorted", "rowgroup", "flat", "resident"])
 @pytest.mark.parametrize("b", [16, 64, 128])
 def test_int8_operand_at_odd_offset(b, case, view):
-    """K7 and K8 on a quantized operand 1 byte past a 16-byte boundary
+    """K7, K8, K6 and K9 on a quantized operand 1 byte past a 16-byte boundary
     (contiguous) and on a non-contiguous one: the ring's transposed copy
     is aligned and contiguous whatever it is given, the dp4a loop (b =
     16) reads a contiguous copy; both equal float64 and the plain
@@ -494,18 +499,23 @@ def test_int8_operand_at_odd_offset(b, case, view):
     assert torch.equal(got, TI.run_quantized(plan, qv, cs, plain=True))
 
 
-@pytest.mark.parametrize("case", ["sorted", "rowgroup"])
+@pytest.mark.parametrize("case", ["sorted", "rowgroup", "flat", "resident"])
 def test_int8_ring_takes_a_transposed_operand(case):
     """run_quantized(qdense_t=transpose_operand(q)) launches the ring on
     the caller's transposed operand, with the answer of the call that
-    makes it; one that is not (F, N) contiguous int8 raises before any
-    launch."""
+    makes it, and so does quantize_operand(transposed=True)'s operand
+    alone (qdense None); one that is not (F, N) contiguous int8 raises
+    before any launch."""
     bsr, x, want = int8_exact_case(128, 96, seed=5)
     plan, kernel = _int8_plan(bsr, case)
     q, cs = TI.quantize_operand(plan, torch.as_tensor(x, device="cuda"))
     qt = TI.transpose_operand(q)
     got = TI.run_quantized(plan, q, cs, qdense_t=qt)
     np.testing.assert_array_equal(got.double().cpu().numpy(), want)
+    qt2, cs2 = TI.quantize_operand(plan, torch.as_tensor(x, device="cuda"),
+                                   transposed=True)
+    assert torch.equal(qt2, qt) and torch.equal(cs2, cs)
+    assert torch.equal(TI.run_quantized(plan, None, cs2, qdense_t=qt2), got)
     before = kernel.launches
     for bad in (q, qt[:, :-16], qt.t().contiguous().t(), qt.to(torch.uint8)):
         with pytest.raises(ValueError, match="qdense_t"):
@@ -513,13 +523,12 @@ def test_int8_ring_takes_a_transposed_operand(case):
     assert kernel.launches == before
 
 
-@pytest.mark.parametrize("case", ["sorted", "rowgroup"])
+@pytest.mark.parametrize("case", ["sorted", "rowgroup", "flat", "resident"])
 def test_int8_entries_refuse_bad_geometry(case):
-    """A K7 or K8 launch the entry refuses (an F tile width the ring has
-    no kernel for, a tile other than the dp4a loop's 64 columns at b =
-    16, no transposed operand at b = 64) returns its cudaError_t and the
-    wrapper raises; no launch is counted."""
-    counts = [k.launches for k in _kernels.KERNELS]
+    """A K7, K8, K6 or K9 launch the entry refuses (an F tile width the
+    ring has no kernel for, a tile other than the dp4a loop's 64 columns
+    at b = 16, no transposed operand at b = 64) returns its cudaError_t
+    and the wrapper raises; no launch is counted."""
     stream = torch.cuda.current_stream().cuda_stream
     for b, bn, with_t in ((64, 96, True), (64, 256, True), (128, 32, True),
                           (16, 128, False), (64, 64, False)):
@@ -535,17 +544,161 @@ def test_int8_entries_refuse_bad_geometry(case):
             args = (group_ptr, win_ids, pos, lane_valid, slot_cols, qblocks, scales)
             sizes = (lane_valid.shape[0], qblocks.shape[0], q.shape[0], 70, R, gh,
                      W, b, bn, int(gs))
-        else:
+        elif case == "rowgroup":
             step_groups, slot_cols, qblocks, scales, group_ptr = plan.arrays
             R, gh = plan.statics[5]
             args = (group_ptr, slot_cols, qblocks, scales)
             sizes = ((group_ptr.shape[0] - 1) * R, plan.statics[1], qblocks.shape[0],
                      q.shape[0], 70, R, gh, b, bn)
+        else:
+            step_rows, slot_cols, qblocks, scales, step_ptr = plan.arrays
+            group = plan.statics[5][0] if case == "resident" else plan.statics[5]
+            args = (step_ptr, slot_cols, qblocks, scales)
+            sizes = (plan.statics[1], qblocks.shape[0], q.shape[0], 70, group, b, bn)
         ptrs = [t.data_ptr() for t in args] + [q.data_ptr(), qt_ptr,
                                                cs.data_ptr(), out.data_ptr()]
+        counts = [k.launches for k in _kernels.KERNELS]
         with pytest.raises(RuntimeError, match="cudaError_t"):
             kernel(*ptrs, *sizes, stream)
+        assert [k.launches for k in _kernels.KERNELS] == counts
+
+
+# -- the int8 operand's quantization (quantize_int8) ------------------------
+
+Q_ROWS, Q_OUT = 300, 320  # operand rows, and rows with the block grid's pad
+
+
+def _quantize_input(kind, F, seed):
+    """(x (Q_ROWS, F) f32, scales (F,) f32, powers of two) of one case.
+    ties: each column's absmax is 127 s (so its dynamic scale is s
+    exactly) and every other entry is (k + 1/2) s, rows 0 and 1 2.5 s and
+    -1.5 s: every quotient is a tie, 2.5 -> 2 and -1.5 -> -2 (half to
+    even); clip: entries up to 300 s, past a static scale s's +-127;
+    zero: every third column zeros (dynamic scale 1, q 0) among columns
+    of random magnitudes."""
+    rng = np.random.default_rng(seed)
+    s = np.exp2(rng.integers(-8, 8, size=F)).astype(np.float32)
+    if kind == "zero":
+        x = (rng.standard_normal((Q_ROWS, F)) * rng.uniform(0.01, 50.0, F))
+        x[:, ::3] = 0.0
+        return x.astype(np.float32), s
+    top = 127 if kind == "ties" else 300
+    x = (rng.integers(-top, top, size=(Q_ROWS, F)) + 0.5) * s
+    if kind == "ties":
+        x[0], x[1] = 2.5 * s, -1.5 * s
+        x[rng.integers(2, Q_ROWS, size=F), np.arange(F)] = (
+            127.0 * s * rng.choice([-1.0, 1.0], size=F))
+    return x.astype(np.float32), s
+
+
+def _f32_view(x, view):
+    """x on the card: contiguous, one float past a 16-byte boundary, or a
+    column slice of a wider buffer (row stride F + 5)."""
+    t = torch.as_tensor(x, device="cuda")
+    if view == "offset":
+        base = torch.empty(t.numel() + 4, device="cuda")
+        skip = (4 - base.data_ptr() % 16) % 16 // 4
+        v = base[skip:skip + t.numel()].view(t.shape)
+        v.copy_(t)
+        assert v.is_contiguous() and v.data_ptr() % 16 == 4
+        return v
+    if view == "strided":
+        wide = torch.zeros(t.shape[0], t.shape[1] + 5, device="cuda")
+        wide[:, 2:-3] = t
+        return wide[:, 2:-3]
+    return t
+
+
+@pytest.mark.parametrize("view", ["contiguous", "offset", "strided"])
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("F", [1, 70, 133])
+@pytest.mark.parametrize("kind", ["ties", "clip", "zero"])
+def test_quantize_kernel_bit_exact(kind, F, static, transposed, view):
+    """quantize_int8 on the card (one launch) equals its plain version
+    (quantize_per_column with the pad, then transpose_operand) on the
+    same operand and on the CPU, bit for bit: the int8 values and the
+    scales, dynamic and static, both layouts, pad rows zero."""
+    x, s = _quantize_input(kind, F, seed=F + 7)
+    xv = _f32_view(x, view)
+    cs = torch.as_tensor(s, device="cuda") if static else None
+    before = _kernels.quantize_int8.launches
+    q, got_cs = TI.quantize_int8(xv, Q_OUT, cs, transposed)
+    torch.cuda.synchronize()
+    assert _kernels.quantize_int8.launches == before + 1
+    want_q, want_cs = TI.quantize_int8_plain(xv, Q_OUT, cs, transposed)
+    cpu_q, cpu_cs = TI.quantize_int8_plain(torch.as_tensor(x), Q_OUT,
+                                           None if cs is None else cs.cpu(),
+                                           transposed)
+    assert q.shape == ((F, Q_OUT) if transposed else (Q_OUT, F))
+    assert q.dtype == torch.int8 and q.is_contiguous() and q.data_ptr() % 16 == 0
+    assert torch.equal(q, want_q) and torch.equal(got_cs, want_cs)
+    assert torch.equal(q.cpu(), cpu_q) and torch.equal(got_cs.cpu(), cpu_cs)
+    rows = q.t() if transposed else q
+    assert not rows[Q_ROWS:].any()
+    if kind == "ties":
+        assert (rows[0] == 2).all() and (rows[1] == -2).all()
+        assert torch.equal(got_cs.cpu(), torch.as_tensor(s))
+    if kind == "clip" and static:
+        assert (rows.abs() == 127).sum() > Q_ROWS * F // 4
+    if kind == "zero" and not static:
+        assert (got_cs[::3] == 1).all() and not rows[:, ::3].any()
+
+
+def test_quantize_entry_refuses_bad_geometry():
+    """The wrapper refuses fewer output rows than the operand has, and a
+    transposed layout whose rows are not a multiple of 16 bytes; the
+    entry refuses an unaligned transposed output and a missing scratch
+    (cudaError_t); no launch is counted."""
+    x = torch.ones(40, 8, device="cuda")
+    counts = [k.launches for k in _kernels.KERNELS]
+    for n_out, transposed in ((32, False), (40, True)):
+        with pytest.raises(ValueError, match="n_out"):
+            TI.quantize_int8(x, n_out, None, transposed)
+    q = torch.empty(8 * 48 + 16, dtype=torch.int8, device="cuda")
+    cs = torch.empty(16, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for q_ptr, absmax in ((q.data_ptr() + 1, cs.data_ptr() + 32),
+                          (q.data_ptr(), 0)):
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            _kernels.quantize_int8(x.data_ptr(), 0, absmax, q_ptr, cs.data_ptr(),
+                                   8, 40, 8, 48, 1, stream)
     assert [k.launches for k in _kernels.KERNELS] == counts
+
+
+@pytest.mark.parametrize("static", [False, True])
+def test_plan_call_quantizes_with_one_kernel(static, monkeypatch):
+    """At b = 128 a plan's call on the card makes its operand with one
+    quantize_int8 launch and runs neither quantize_per_column nor
+    transpose_operand (replaced here by functions that raise): K6, K7
+    (both scale modes), K8 and K9 each answer as the plain path, bit for
+    bit, with dynamic and with static (calibrated) scales."""
+    bsr, x, want = int8_exact_case(128, 256, seed=11, n_block_rows=37)
+    x = torch.as_tensor(x, device="cuda")
+    plans, wants = {}, {}
+    for case, (kw, layout, name) in INT8_RING_CASES.items():
+        if static:
+            kw = {**kw, "calibration": x[:2000]}
+        plans[case] = (TI.bsr_spmm_pallas_int8_plan(bsr, device="cuda", **kw),
+                       getattr(_kernels, name))
+        assert plans[case][0].statics[0] == layout
+        wants[case] = T.plain_apply(plans[case][0], x)
+    if not static:
+        assert all(torch.equal(w.double().cpu(), torch.as_tensor(want))
+                   for w in wants.values())
+
+    def refused(*args, **kwargs):
+        raise AssertionError("a plan's call on the card made an (N, F) int8 operand")
+
+    monkeypatch.setattr(TI, "quantize_per_column", refused)
+    monkeypatch.setattr(TI, "transpose_operand", refused)
+    for case, (plan, kernel) in plans.items():
+        before = _kernels.quantize_int8.launches, kernel.launches
+        got = plan(x)
+        torch.cuda.synchronize()
+        assert (_kernels.quantize_int8.launches, kernel.launches) == (
+            before[0] + 1, before[1] + 1)
+        assert torch.equal(got, wants[case]), case
 
 
 K3_K5_CASES = {

@@ -1,10 +1,12 @@
 """The port's int8 serving tier against the JAX package: the quantizers
-and the int8 plan's packed arrays are bit-equal, the plain versions of
-K6 (flat gather), K7 (depth-sorted row groups, group-scale and per-slot
-scales) and K8 (consecutive row groups) match the JAX Pallas kernels run
-in interpret mode on the same arrays, the plans match the JAX plans and
-the scipy oracle, the layout policy and the int8 routing of spmm_plan
-match, and an int8 GCN serves like the JAX one.
+(the kernel tier's operand quantization in both layouts too) and the
+int8 plan's packed arrays are bit-equal, the plain versions of K6 (flat
+gather), K7 (depth-sorted row groups, group-scale and per-slot scales),
+K8 (consecutive row groups) and K9 (resident) match the JAX Pallas
+kernels run in interpret mode on the same arrays, the plans match the
+JAX plans and the scipy oracle, the layout policy and the int8 routing
+of spmm_plan match, an int8 GCN serves like the JAX one, and the ctypes
+signatures match the C entries.
 
 Tolerances: plain version or plan vs the JAX kernel or plan on the same
 quantized inputs, 1e-5 relative to max |want| (int8 products and their
@@ -12,7 +14,9 @@ sums are exact integers in both; only the order of the f32 scaled sums
 differs). Against the scipy oracle, the int8 tier's 6e-2
 (tests/test_conformance.py:80)."""
 
+import ctypes
 import importlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -147,6 +151,8 @@ LAYOUT_CASES = {
     "rowgroup": ({"depth_sort": False}, {"depth_sort": False}, "rowgroup"),
     "sorted_per_slot": ({"depth_sort": True}, {"depth_sort": True,
                                                "group_scale": False}, "sorted"),
+    "resident": ({"resident": True, "f_tile": 128},
+                 {"resident": True, "f_tile": 128}, "resident"),
 }
 
 
@@ -247,6 +253,8 @@ EXACT_CASES = {
     "sorted": ({"depth_sort": True}, "sorted"),
     "sorted_per_slot": ({"depth_sort": True, "group_scale": False}, "sorted"),
     "rowgroup": ({"depth_sort": False}, "rowgroup"),
+    "flat": ({"resident": False}, "flat"),
+    "resident": ({"resident": True, "f_tile": 128}, "resident"),
 }
 
 
@@ -255,8 +263,8 @@ EXACT_CASES = {
 @pytest.mark.parametrize("case", list(EXACT_CASES))
 def test_int8_exact_case_plain_equals_float64(case, b, nb):
     """On int8_exact_case nothing rounds before the column scale, so the
-    plain K7 (both scale modes) and K8 equal float64 bit for bit: 37
-    block-rows leave absent lanes (K7) and phantom lanes (K8), 7 one
+    plain K6, K7 (both scale modes), K8 and K9 equal float64 bit for bit:
+    37 block-rows leave absent lanes (K7) and phantom lanes (K8), 7 one
     phantom and one absent lane; F = 70 is ragged."""
     bsr, x, want = int8_exact_case(b, 70, seed=b + nb, n_block_rows=nb)
     kw, layout = EXACT_CASES[case]
@@ -294,6 +302,91 @@ def test_int8_exact_case_is_exact():
     qx, cs = TQ.quantize_per_column(torch.as_tensor(x))
     assert torch.equal(qx.float(), torch.as_tensor(x))
     assert want.shape == (9 * 64, 40) and (want != 0).mean() > 0.5
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("F", [1, 70, 133])
+def test_quantize_operand_transposed_matches_jax(F, static):
+    """quantize_operand(transposed=True), the operand K6-K9 read at b = 64
+    and 128 (on the CPU, the kernel's plain version): JAX's
+    _quantize_cols (or _quantize_cols_static) of the operand, transposed,
+    bit for bit, then zero columns up to the block grid (n_cols = 19*16 -
+    7 is not a multiple of b); the scales bit-equal; (F, N) contiguous on
+    16 bytes; the (N, F) layout its transpose."""
+    shape = (23 * 16 - 5, 19 * 16 - 7)
+    _, tb = _pair(0.35, 23, 19, 16, seed=17, shape=shape)
+    x = _operand(shape[1], F, seed=18, zero_cols=(0,))
+    cal = x[:100] if static else None
+    plan = TI.bsr_spmm_pallas_int8_plan(tb, calibration=cal, device="cpu")
+    k_needed = plan.statics[4]
+    assert k_needed == 19 * 16 > shape[1]
+    qt, cs = TI.quantize_operand(plan, x, transposed=True)
+    if static:
+        jq, jc = JI._quantize_cols_static(jnp.asarray(x),
+                                          jnp.asarray(JQ.static_col_scale(cal)))
+    else:
+        jq, jc = JI._quantize_cols(jnp.asarray(x))
+    assert qt.shape == (F, k_needed) and qt.dtype == torch.int8
+    assert qt.is_contiguous() and qt.data_ptr() % 16 == 0
+    np.testing.assert_array_equal(qt[:, :shape[1]].numpy(), np.asarray(jq).T)
+    assert not qt[:, shape[1]:].any()
+    np.testing.assert_array_equal(cs.numpy(), np.asarray(jc))
+    q, cs_rows = TI.quantize_operand(plan, x)
+    assert q.shape == (k_needed, F) and torch.equal(q.t(), qt)
+    assert torch.equal(cs_rows, cs)
+
+
+@pytest.mark.parametrize("case", list(LAYOUT_CASES))
+def test_run_quantized_takes_the_transposed_operand_alone(case):
+    """run_quantized(plan, None, cs, qdense_t=) on every layout: the
+    answer of the plan's own call (the operand in the ring's layout, as a
+    plan's call on the card hands it to K6-K9)."""
+    shape = (23 * 16 - 5, 19 * 16 - 7)
+    _, tb = _pair(0.35, 23, 19, 16, seed=19, shape=shape, empty=(6,))
+    x = _operand(shape[1], 70, seed=20)
+    tp = TI.bsr_spmm_pallas_int8_plan(tb, **LAYOUT_CASES[case][1], device="cpu")
+    qt, cs = TI.quantize_operand(tp, x, transposed=True)
+    got = TI.run_quantized(tp, None, cs, qdense_t=qt)
+    assert torch.equal(got, tp(x))
+    assert torch.equal(TI.run_quantized(tp, None, cs, qdense_t=qt, plain=True), got)
+
+
+def _c_entries(stem: str) -> dict:
+    """{symbol: ctypes argument types} of the extern "C" entries of
+    csrc/<stem>.cu, read from the source: pointers are c_void_p, int64_t
+    c_int64."""
+    src = (_kernels.INCLUDE_DIR / f"{stem}.cu").read_text()
+    entries = {}
+    for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
+        kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int64
+                 for p in params.split(",")]
+        assert all("*" in p or "int64_t" in p for p in params.split(",")), name
+        entries[name] = kinds
+    return entries
+
+
+@pytest.mark.parametrize("symbol", sorted(_kernels._SIGNATURES))
+def test_kernel_signatures_match_the_c_entries(symbol):
+    """Each ctypes signature in _kernels._SIGNATURES has the C entry's
+    arity and argument kinds (a mismatch would pass garbage to the card
+    without an error here); among them the operand quantization
+    sdb_quantize_int8 and the K6/K9 entries, which take the transposed
+    operand, the slot and operand-row counts and the tile width."""
+    stem, argtypes = _kernels._SIGNATURES[symbol]
+    assert _c_entries(stem)[symbol] == argtypes
+    if symbol == "sdb_quantize_int8":
+        assert argtypes == [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
+    if symbol in ("sdb_bsr_spmm_int8_flat", "sdb_bsr_spmm_int8_resident"):
+        assert argtypes == [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
+
+
+def test_every_c_entry_has_a_counted_kernel():
+    """Every extern "C" entry of csrc/ is declared and has its CudaKernel
+    counter (the operand quantization's is quantize_int8)."""
+    declared = {name for src in _kernels.SOURCES for name in _c_entries(src.stem)}
+    assert declared == set(_kernels._SIGNATURES)
+    assert {k.symbol for k in _kernels.KERNELS} == declared
+    assert _kernels.quantize_int8.symbol == "sdb_quantize_int8"
 
 
 def test_transpose_operand_is_aligned_and_contiguous():
