@@ -20,7 +20,9 @@ Phases:
               and per-slot scales), K8 (row groups) and K9 (resident,
               resident=True with f_tile=128), each against its plain
               version at a ragged small shape, a 7-block-row shape
-              (phantom and absent lanes) and the ddi shape; K10 (CSR, on
+              (phantom and absent lanes) at b = 32 and at b = 128 with a
+              ragged F (the f32 kernels' pipelined FFMA loop on a padded
+              operand) and the ddi shape; K10 (CSR, on
               the band layout) against its plain version at a ragged CSR
               with empty head rows and an empty band (F=7), a rectangular
               one (F=64) and ddi (F=256); then each K3 instance and its
@@ -28,7 +30,8 @@ Phases:
               f32 (bf16x3_exact_case at b = 16, 64 and 128, F=200): K3 must
               give A_hi X_hi + A_hi X_lo + A_lo X_hi and the exact kernel A
               X, each bit for bit (the two differ in most entries), and each
-              K3 call split its operand once; then the bf16 K1, K2, K4 and K5
+              K3 call split its operand once, and f32 K4 A X bit for bit
+              too; then the bf16 K1, K2, K4 and K5
               entries at b = 16, 32, 64 and 128 and F = 70 and 256 on an
               input whose sums are exact in f32 (bf16_exact_case): each
               must equal float64 bit for bit; then K7 (both scale modes),
@@ -112,8 +115,10 @@ Phases:
               included); which tier bench.py would make its headline (the
               faster of exact f32 K2 and K3, the self-check having passed);
               the rows of the tensor-core loop (bf16 entries, K3), of
-              f32 K2's pipelined loop and of the int8 ring (K6-K9) carry
-              their F tile width (bn); the int8 rows time the ring alone
+              the exact-f32 kernels' pipelined loop (K1, K2, K4, K5) and
+              of the int8 ring (K6-K9) carry their F tile width (bn), the
+              f32 rows their slot count (zero pads included); the
+              int8 rows time the ring alone
               on an operand quantized transposed beforehand and the whole
               call (quantize_int8 included), in the order ring, whole,
               whole, ring; the quantization kernel, dynamic and static,
@@ -425,9 +430,13 @@ def kernel_phase(adj) -> None:
     small = BSR.from_parts(small.block_rows, small.block_cols, small.blocks,
                            (37 * 64 - 9, 29 * 64 - 5), 64)
     phantom = random_bsr(0.3, 7, 7, block_size=32, seed=9)
+    # the pipelined FFMA loop at b = 128 on phantom lanes (K4 at R = 16)
+    # and a ragged F (the operand padded to 136 columns)
+    phantom128 = random_bsr(0.3, 7, 7, block_size=128, seed=10)
     shapes = (
         ("small b=64 F=200", small, 200, 4),
         ("7 block-rows b=32 F=96", phantom, 96, 6),
+        ("7 block-rows b=128 F=133", phantom128, 133, 7),
         ("ddi b=128 F=256", csr_to_bsr(adj, 128), 256, 5),
     )
     for tag, bsr, F, seed in shapes:
@@ -452,8 +461,9 @@ def k3_exactness() -> None:
     whose partial sums are all exact in f32: the order of a kernel's
     sums cannot matter, so K3 must give the bf16x3 answer and the exact
     kernel A X, bit for bit; at b = 16 (the FFMA loops) and at b = 64 and
-    128 (K3 on the tensor-core ring, f32 K2 on the pipelined FFMA loop).
-    Each K3 call splits its operand once."""
+    128 (K3 on the tensor-core ring, f32 K1, K2 and K5 on the pipelined
+    FFMA loop). f32 K4 (a hand-packed plan: K3 has no row-group instance)
+    must give A X too. Each K3 call splits its operand once."""
     for b in (16, 64, 128):
         bsr, x, want3, want_exact = bf16x3_exact_case(F=200, seed=b, b=b)
         x = torch.as_tensor(x, device=DEV)
@@ -481,6 +491,9 @@ def k3_exactness() -> None:
                 if n_bad:
                     raise AssertionError(f"b={b} {name}: {n_bad} entries differ "
                                          f"from {what}")
+        exact_launch(f32_rowgroup_plan(bsr), x,
+                     torch.as_tensor(want_exact, device=DEV).float(),
+                     f"b={b} f32 row groups == A X")
 
 
 def exact_launch(plan, x, want, label: str) -> None:
@@ -976,17 +989,22 @@ def op_bf16_exactness(op_bsr) -> None:
                      f"op bf16 {layout} integer values, BN={bn}")
 
 
+# the exact-f32 entries, which run the pipelined FFMA loop at b = 64 and 128
+F32_PIPE_KERNELS = ("bsr_spmm_sorted", "bsr_spmm_flat", "bsr_spmm_resident",
+                    "bsr_spmm_rowgroup")
+
+
 def tile_bn(name: str, bsr: BSR, F: int):
     """The F tile width a kernel of the op plans launched at, or None for
     the kernels whose tiles are 64 columns (the FFMA and dp4a loops) or
     not BSR tiles: the tensor-core loops (bf16 entries and K3, int8
-    K6-K9, at b >= 64) and f32 K2's pipelined loop pick theirs from the
-    grid."""
+    K6-K9, at b >= 64) and the exact-f32 kernels' pipelined loop (K1, K2,
+    K4, K5) pick theirs from the grid."""
     if bsr.b < 64:
         return None
     if name.endswith(("_bf16", "_bf16x3")):
         return bf16_tile_geometry(bsr.b, bsr.n_block_rows, F, _sm_count(0))[0]
-    if name == "bsr_spmm_sorted":
+    if name in F32_PIPE_KERNELS:
         return tile_geometry(bsr.b, bsr.n_block_rows, F, _sm_count(0), 4)[0]
     if name.startswith("bsr_spmm_int8_"):
         return int8_tile_bn(bsr.b, bsr.n_block_rows, F, _sm_count(0))
@@ -1353,6 +1371,8 @@ def main() -> int:
             if tag == "high":
                 extra += (f", the operand split included "
                           f"({times[('split', 'split')][0]:.3f} ms alone)")
+            else:  # the slots the FFMA loop runs, zero pads included
+                extra += f", {p.arrays[2].shape[0]} slots"
         key = (tag, layout)
         times[key] = (k_ms, p_ms)
         bounds[key] = bsr_bound(tag, op_bsr, F)

@@ -2,7 +2,7 @@
 at bench.py's op shape (random_bsr(2e-2, 1024, 1024, b=128, seed=1234),
 F=512), on one NVIDIA GPU:
 
-    python3 scripts/torch_kernel_variants.py f32_k2   # exact-f32 K2
+    python3 scripts/torch_kernel_variants.py f32_k2   # exact-f32 K2, K1, K4
     python3 scripts/torch_kernel_variants.py k3       # K3 (precision="high")
     python3 scripts/torch_kernel_variants.py int8     # int8 K7 and K8
 
@@ -12,9 +12,13 @@ under tmp/variants/ and loaded in its place; the variants run in the
 order A B .. B A on one card, so that drift shows as a spread of the
 pairs. Every variant's answer is compared with the tree's bit for bit
 (the K3 "hi*hi only" and the int8 "no products" variants drop products on
-purpose: they time the loads, not an answer). For K3 each run times the
-whole call (the operand split included) and the ring alone on an operand
-split once, and bf16 K2 on the same build. For int8 each run times K7
+purpose: they time the loads, not an answer). For f32_k2 each run times
+the three exact-f32 kernels that share the pipelined FFMA loop: K2 (the
+default plan), K1 (depth_sort=False; K5 launches the same kernel) and K4
+(chip_smoke.f32_rowgroup_plan), and K2 on the f32 GCN slice's SpMM
+(chip_smoke's ddi stand-in, F=256, 64-column tiles). For K3 each run times the whole call
+(the operand split included) and the ring alone on an operand split once,
+and bf16 K2 on the same build. For int8 each run times K7
 (group scale, calibrated as bench.py's int8 tier) and K8 on the ring
 alone, on an operand quantized and transposed once.
 """
@@ -40,15 +44,28 @@ T = importlib.import_module("spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas")
 TI = importlib.import_module("spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8")
 
 PIPE_LOOP = "#pragma unroll\n    for (int kk = 0; kk < kPipeK; ++kk) {"
+PIPE_OROW = """  // The output block-row, read after the loop so that it holds no
+  // registers there: K2's from its window and position, K4's (and K1's
+  // and K5's) the lane itself.
+  const int64_t orow =
+      win_ids != nullptr ? (int64_t)win_ids[j0] * window + pos[j0 * R + lane]
+                         : lane_id;
+"""
+PIPE_STAGES = "static constexpr int kStages = BN == 128 ? 3 : 4;"
+PIPE_J0 = "  const int64_t j0 = group_ptr[g];\n  const int n_chunks"
 I8_STAGES = "static constexpr int kMaxStages = 6;"
 # which of _kernels.SOURCES each group of variants edits
 SOURCE = {"f32_k2": 0, "k3": 0, "int8": 1}
 VARIANTS = {
     "f32_k2": {
-        "1 CTA an SM": {"__launch_bounds__(kThreads, 2)\n    sorted_pipe_kernel":
-                        "__launch_bounds__(kThreads, 1)\n    sorted_pipe_kernel"},
+        "1 CTA an SM": {"__launch_bounds__(kThreads, 2)\n    ffma_pipe_kernel":
+                        "__launch_bounds__(kThreads, 1)\n    ffma_pipe_kernel"},
         "depth loop unrolled by 4": {PIPE_LOOP: PIPE_LOOP.replace("unroll", "unroll 4")},
-        "3 stages": {"constexpr int kPipeStages = 4;": "constexpr int kPipeStages = 3;"},
+        "4 stages at every BN": {PIPE_STAGES: PIPE_STAGES.replace("? 3 : 4", "? 4 : 4")},
+        "3 stages at every BN": {PIPE_STAGES: PIPE_STAGES.replace("? 3 : 4", "? 3 : 3")},
+        "output row before the loop": {
+            PIPE_OROW: "",
+            PIPE_J0: PIPE_J0.replace("\n", "\n" + PIPE_OROW.split("\n", 3)[3])},
     },
     "k3": {
         "ring of 2 stages": {
@@ -122,8 +139,9 @@ def main() -> int:
     use(sources["as is"])
     if which == "int8":
         return time_int8(bsr, x, sources, card)
-    kw = {"precision": "high"} if which == "k3" else {}
-    plan = T.bsr_spmm_pallas_plan(bsr, grad=False, device="cuda", **kw)
+    if which == "f32_k2":
+        return time_f32(bsr, x, sources, card)
+    plan = T.bsr_spmm_pallas_plan(bsr, grad=False, device="cuda", precision="high")
     bf16 = T.bsr_spmm_pallas_plan(bsr, grad=False, dtype=torch.bfloat16, device="cuda")
     x_bf = x.to(torch.bfloat16)
     ref = plan(x)
@@ -132,14 +150,40 @@ def main() -> int:
     for name in names + names[::-1]:
         use(sources[name])
         line = f"[{which}] {name:<26} whole call {cuda_ms(lambda: plan(x)):.3f} ms"
-        if which == "k3":
-            T.split_operand = lambda d: xp  # the ring alone
-            line += f", ring alone {cuda_ms(lambda: plan(x)):.3f} ms"
+        T.split_operand = lambda d: xp  # the ring alone
+        line += f", ring alone {cuda_ms(lambda: plan(x)):.3f} ms"
         same = torch.equal(plan(x), ref)
         T.split_operand = split
-        if which == "k3":
-            line += f", bf16 K2 {cuda_ms(lambda: bf16(x_bf)):.3f} ms"
+        line += f", bf16 K2 {cuda_ms(lambda: bf16(x_bf)):.3f} ms"
         print(f"{line}, answer equal to the tree's: {same} [{card}]", flush=True)
+    return 0
+
+
+def time_f32(bsr, x, sources, card: str) -> int:
+    """Exact-f32 K2, K1 and K4 (the pipelined FFMA loop's walks) at the op
+    shape (BN = 128), and K2 on the f32 slice's SpMM (the ddi stand-in,
+    F = 256: BN = 64, 136 CTAs), each variant in the order A B .. B A."""
+    from chip_smoke import ROOT, ddi_adjacency, f32_rowgroup_plan, seeded
+    from spmm_denseblock_tpu_torch.ops import spmm_plan
+
+    adj = ddi_adjacency(ROOT / "build" / "datasets")
+    x_ddi = torch.as_tensor(seeded((adj.n_rows, 256), 1234), device="cuda")
+    runs = {"K2": (T.bsr_spmm_pallas_plan(bsr, grad=False, device="cuda"), x),
+            "K1": (T.bsr_spmm_pallas_plan(bsr, grad=False, depth_sort=False,
+                                          device="cuda"), x),
+            "K4": (f32_rowgroup_plan(bsr), x),
+            "K2 ddi": (spmm_plan(adj, impl="bsr_pallas", block_size=128,
+                                 grad=False, device="cuda"), x_ddi)}
+    refs = {k: p(xk) for k, (p, xk) in runs.items()}
+    names = list(sources)
+    for name in names + names[::-1]:
+        use(sources[name])
+        line = f"[f32_k2] {name:<26}"
+        for k, (p, xk) in runs.items():
+            iters = 100 if k.endswith("ddi") else 10
+            line += (f" {k} {cuda_ms(lambda: p(xk), iters):.3f} ms (equal: "
+                     f"{torch.equal(p(xk), refs[k])})")
+        print(f"{line} [{card}]", flush=True)
     return 0
 
 

@@ -1,0 +1,51 @@
+"""Print a digest of each exact-f32 kernel's answer at bench.py's op shape
+(random_bsr(2e-2, 1024, 1024, b=128, seed=1234), F=512, X from
+default_rng(1234)), built from the checkout at ROOT (default: this one),
+on one NVIDIA GPU:
+
+    python3 scripts/torch_op_digests.py [ROOT]
+
+One line per kernel, K2 (the default plan), K1 (depth_sort=False), K5
+(resident=True, depth_sort=False) and K4 (chip_smoke.f32_rowgroup_plan:
+no plan routes f32 to row groups), with the sha256 of the answer's bytes.
+Run it once per checkout, each in its own process (the two packages share
+a name), and compare the lines: equal digests mean answers equal bit for
+bit, which is what a redesign that keeps each output's sum order must
+give.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+
+def main() -> int:
+    root = Path(sys.argv[1] if len(sys.argv) > 1 else Path(__file__).parents[1])
+    if not torch.cuda.is_available():
+        print(__doc__, file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(root.resolve()))
+    import chip_smoke as cs  # noqa: E402  (ROOT's, with ROOT's package)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bsr = cs.random_bsr(2e-2, 1024, 1024, block_size=128, seed=1234)
+    x = torch.as_tensor(np.random.default_rng(1234).standard_normal(
+        (bsr.shape[1], 512)).astype(np.float32), device="cuda")
+    plan = lambda **kw: cs.bsr_spmm_pallas_plan(bsr, grad=False, device="cuda", **kw)
+    plans = (("K2 sorted", plan()), ("K1 flat", plan(depth_sort=False)),
+             ("K5 resident", plan(resident=True, depth_sort=False)),
+             ("K4 rowgroup", cs.f32_rowgroup_plan(bsr)))
+    for label, p in plans:
+        out = p(x).cpu().numpy()
+        digest = hashlib.sha256(out.tobytes()).hexdigest()
+        print(f"{label:<12} {tuple(out.shape)} sha256={digest}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -19,41 +19,46 @@
 // row/group step pointers and the K2 lane-valid mask the port's packer
 // adds) and compute what the TPU kernels compute on them.
 //
-// Three main loops serve them.
+// Three main loops serve them, picked by the entry on b and the operands:
 //
-// The FFMA loop (K1, K4 and K5 on f32 operands, f32 K2 at b = 16 and 32;
-// the bf16 and K3 entries at b = 16 and 32). One slot is 2*b*b*F FLOP against b*b block values plus b*F
-// operand values: at b=128, F=512 that is 16.8 MFLOP per 64 KiB of f32
-// block and 256 KiB of operand, about 50 FLOP/byte, so with operand
-// tiles shared through L2 by the CTAs of neighbouring rows an FFMA kernel
-// is bound by the f32 FMA rate, not by HBM. The f32 tier must meet a
-// 1e-4 gate against an f64 oracle, so the products run in FFMA on CUDA
-// cores, never in TF32 tensor cores. bf16 operands are widened to f32
-// while staged: a bf16 x bf16 product is exact in f32, so the bf16 tier
-// is bf16 products with an f32 sum, as on the TPU. On the TPU the grid
-// runs in order and the output tile stays in VMEM across the steps that
-// revisit it. Here CTAs run in no order, so one CTA owns one (b x 64)
-// output tile for its whole life: it walks the slots that feed that tile,
-// stages each slot's block (transposed) and operand tile through shared
-// memory in depth chunks of 16, keeps the tile's accumulators in
-// registers (b/16 x 4 per thread) and stores once. No atomics, so results
-// are deterministic. The F edge is masked here; the F tiles of one row
-// are adjacent in launch order so they share the block reads in L2.
-// Offsets into blocks and dense are 64-bit. This loop has no tensor
-// cores, no TMA and no software pipelining: each 16-deep chunk is loaded
-// by the whole CTA between two barriers, and a thread makes 12 scalar
-// shared loads per 32 FMAs.
+//   instance                    b = 16, 32     b = 64, 128
+//   f32 K1, K2, K4, K5          FFMA loop      pipelined FFMA loop
+//   bf16 K1, K2, K4, K5; K3     FFMA loop      tensor-core loop
 //
-// The pipelined FFMA loop (f32 K2 at b = 64 and 128, the default f32
-// kernel). The same contract (one CTA per output tile of a valid lane, no
-// atomics, each output's sum in slot and depth order), built to keep the
+// The FFMA loop (every instance at b = 16 and 32). One slot is 2*b*b*F
+// FLOP against b*b block values plus b*F operand values: at b=128, F=512
+// that is 16.8 MFLOP per 64 KiB of f32 block and 256 KiB of operand,
+// about 50 FLOP/byte, so with operand tiles shared through L2 by the CTAs
+// of neighbouring rows an FFMA kernel is bound by the f32 FMA rate, not
+// by HBM. The f32 tier must meet a 1e-4 gate against an f64 oracle, so
+// the products run in FFMA on CUDA cores, never in TF32 tensor cores.
+// bf16 operands are widened to f32 while staged: a bf16 x bf16 product is
+// exact in f32, so the bf16 tier is bf16 products with an f32 sum, as on
+// the TPU. On the TPU the grid runs in order and the output tile stays in
+// VMEM across the steps that revisit it. Here CTAs run in no order, so
+// one CTA owns one (b x 64) output tile for its whole life: it walks the
+// slots that feed that tile, stages each slot's block (transposed) and
+// operand tile through shared memory in depth chunks of 16, keeps the
+// tile's accumulators in registers (b/16 x 4 per thread) and stores once.
+// No atomics, so results are deterministic. The F edge is masked here;
+// the F tiles of one row are adjacent in launch order so they share the
+// block reads in L2. Offsets into blocks and dense are 64-bit. This loop
+// has no tensor cores, no TMA and no software pipelining: each 16-deep
+// chunk is loaded by the whole CTA between two barriers, and a thread
+// makes 12 scalar shared loads per 32 FMAs. No timed path runs b < 64.
+//
+// The pipelined FFMA loop (ffma_pipe_kernel: every exact-f32 instance at
+// b = 64 and 128, K2 on its sorted walk, K4 on its row-group walk, K1 and
+// K5 on K4's walk with R = 1). The same contract (one CTA per output tile
+// of a real lane, no atomics, each output's sum in slot and depth order,
+// so the same answers bit for bit as the FFMA loop's), built to keep the
 // FMA units busy: tiles of BN = 64 or 128 columns (the wrapper's choice,
 // as for the tensor-core loop below: at F=512 a block is read 4 times,
 // not 8); 8 x 8 (b=128) or 4 x 8 (b=64) register microtiles at BN=128,
-// fed by float4 shared loads (one 16-byte load per 16 FMAs at 8 x 8); 16-deep
-// chunks streamed by cp.async through 4 shared-memory stages, 3 chunks
-// ahead of the FMAs, with one barrier a chunk; at most 128 registers a
-// thread, so two CTAs share an SM. The 1e-4 gate and the "exact"
+// fed by float4 shared loads (one 16-byte load per 16 FMAs at 8 x 8);
+// 16-deep chunks streamed by cp.async through 3 (BN=128) or 4 (BN=64)
+// shared-memory stages, with one barrier a chunk; at most 128 registers
+// a thread, so two CTAs share an SM. The 1e-4 gate and the "exact"
 // contract rule out TF32, so it stays an FFMA kernel, bound by the FFMA
 // rate.
 //
@@ -339,10 +344,9 @@ __global__ void __launch_bounds__(kThreads)
   store_tile<BM>(out + row * BM * F + f0, F, n_valid, acc);
 }
 
-// ---- the pipelined FFMA loop: f32 K2 at b = 64 and 128 ---------------------
+// ---- the pipelined FFMA loop: f32 K1, K2, K4 and K5 at b = 64 and 128 -----
 
-constexpr int kPipeK = 16;      // depth of one pipeline stage
-constexpr int kPipeStages = 4;  // stages in flight
+constexpr int kPipeK = 16;  // depth of one pipeline stage
 
 // One CTA of 256 threads per (b x BN) output tile; thread (tx, ty) of the
 // 16 x 16 grid owns the TM x TN microtile of rows ty*TM .. +TM-1 and
@@ -354,7 +358,14 @@ struct Pipe {
   static constexpr int kAStride = BM + 4;  // floats per row of the A^T stage
   static constexpr int kAFloats = kPipeK * kAStride;
   static constexpr int kStageFloats = kAFloats + kPipeK * BN;
-  static constexpr int kSmemBytes = kPipeStages * kStageFloats * 4;
+  // Stages in flight. On an H100, 3 ran K2, K1 and K4 2-3% faster than 4
+  // at bench.py's op shape (BN = 128, 4,096 CTAs; its 8x8 instance
+  // spills, and a smaller ring leaves more of the SM's memory to L1),
+  // but cost f32 K2 2% at ddi (BN = 64, one CTA an SM), where a deeper
+  // ring hides more latency: 3 at BN = 128, 4 at BN = 64
+  // (scripts/torch_kernel_variants.py f32_k2, chip_smoke.py).
+  static constexpr int kStages = BN == 128 ? 3 : 4;
+  static constexpr int kSmemBytes = kStages * kStageFloats * 4;
 };
 
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
@@ -379,37 +390,41 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// f32 K2 at b = 64 and 128: K2's walk (one CTA per valid lane and F tile
-// of BN columns, absent lanes store nothing, no atomics), each slot's
-// depth chunks of 16 streamed through kPipeStages shared-memory stages by
-// cp.async: the block chunk transposed element by element (A^T, rows of
-// BM + 4 floats), the operand's 16 rows x BN columns in 16-byte copies
-// (dense has rows of ld >= F floats, ld a multiple of 4, and a 16-byte
-// aligned base; columns >= ld are zero-filled). One barrier per chunk:
-// after it the chunk has landed for every thread and the stage the next
-// load overwrites has been read by every thread. Each output's FFMA sum
-// runs in slot order and depth order, as in the FFMA loop above.
+// f32 K2 (win_ids != nullptr) or K4 (win_ids == nullptr; K1 and K5 are
+// K4 with R = 1, gh = the flat group and the step pointer as group_ptr,
+// as on the tensor-core ring) at b = 64 and 128: one CTA per lane and F
+// tile of BN columns; absent (K2) and phantom (K4) lanes return before
+// any barrier and store nothing; no atomics. Each slot's depth chunks of
+// 16 are streamed through G::kStages shared-memory stages by cp.async:
+// the block chunk transposed element by element (A^T, rows of BM + 4
+// floats), the operand's 16 rows x BN columns in 16-byte copies (dense
+// has rows of ld >= F floats, ld a multiple of 4, and a 16-byte aligned
+// base; columns >= ld are zero-filled). One barrier per chunk: after it
+// the chunk has landed for every thread and the stage the next load
+// overwrites has been read by every thread. Each output's FFMA sum runs
+// in slot order and depth order, as in the FFMA loop above.
 template <int BM, int BN>
 __global__ void __launch_bounds__(kThreads, 2)
-    sorted_pipe_kernel(const int64_t* __restrict__ group_ptr,
-                       const int32_t* __restrict__ win_ids,
-                       const int32_t* __restrict__ pos,
-                       const uint8_t* __restrict__ lane_valid,
-                       const int32_t* __restrict__ slot_cols,
-                       const float* __restrict__ blocks,
-                       const float* __restrict__ dense, float* __restrict__ out,
-                       int64_t F, int64_t ld, int64_t R, int64_t gh,
-                       int64_t window, int64_t n_ftiles) {
+    ffma_pipe_kernel(const int64_t* __restrict__ group_ptr,
+                     const int32_t* __restrict__ win_ids,
+                     const int32_t* __restrict__ pos,
+                     const uint8_t* __restrict__ lane_valid,
+                     const int32_t* __restrict__ slot_cols,
+                     const float* __restrict__ blocks,
+                     const float* __restrict__ dense, float* __restrict__ out,
+                     int64_t F, int64_t ld, int64_t n_block_rows, int64_t R,
+                     int64_t gh, int64_t window, int64_t n_ftiles) {
   using G = Pipe<BM, BN>;
-  constexpr int TM = G::TM, TN = G::TN;
+  constexpr int TM = G::TM, TN = G::TN, kStages = G::kStages;
   constexpr int kChunks = BM / kPipeK;  // per slot
   extern __shared__ __align__(16) float pipe_smem[];
   const int64_t lane_id = blockIdx.x / n_ftiles;  // group * R + lane
-  if (!lane_valid[lane_id]) return;               // uniform over the CTA
+  // absent (K2) and phantom (K4) lanes store nothing: uniform over the CTA
+  if (win_ids != nullptr ? !lane_valid[lane_id] : lane_id >= n_block_rows)
+    return;
   const int64_t g = lane_id / R, lane = lane_id % R;
   const int64_t f0 = (blockIdx.x % n_ftiles) * BN;
   const int64_t j0 = group_ptr[g];
-  const int64_t orow = (int64_t)win_ids[j0] * window + pos[j0 * R + lane];
   const int n_chunks = (int)((group_ptr[g + 1] - j0) * gh) * kChunks;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const uint32_t smem = smem_u32(pipe_smem);
@@ -423,13 +438,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int64_t x_col = x_valid ? f0 + x_n : 0;
 
   // The loader walks the lane's slots in order, chunk lk of slot ls, lr
-  // slots into step lj; it runs kPipeStages - 1 chunks ahead of the FMAs.
+  // slots into step lj; it runs kStages - 1 chunks ahead of the FMAs.
   int lk = 0, lr = 0, issued = 0;
   int64_t lj = j0, ls = (j0 * R + lane) * gh;
-  auto load_next = [&]() {  // the next chunk into stage issued % kPipeStages
+  auto load_next = [&]() {  // the next chunk into stage issued % kStages
     const int64_t col = __ldg(slot_cols + ls);
     const float* blk = blocks + ls * (BM * BM) + lk * kPipeK + a_m * BM + a_k;
-    const uint32_t a_st = smem + (uint32_t)(issued % kPipeStages) *
+    const uint32_t a_st = smem + (uint32_t)(issued % kStages) *
                                      (G::kStageFloats * 4);
 #pragma unroll
     for (int it = 0; it < BM / kARows; ++it)
@@ -458,16 +473,16 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 #pragma unroll
-  for (int c = 0; c < kPipeStages - 1; ++c) {
+  for (int c = 0; c < kStages - 1; ++c) {
     if (issued < n_chunks) load_next();
     cp_async_commit();
   }
   for (int c = 0; c < n_chunks; ++c) {
-    cp_async_wait<kPipeStages - 2>();  // chunk c has landed (this thread's)
+    cp_async_wait<kStages - 2>();  // chunk c has landed (this thread's)
     __syncthreads();
     if (issued < n_chunks) load_next();
     cp_async_commit();
-    const float* as = pipe_smem + (c % kPipeStages) * G::kStageFloats;
+    const float* as = pipe_smem + (c % kStages) * G::kStageFloats;
     const float* xs = as + G::kAFloats;
 #pragma unroll
     for (int kk = 0; kk < kPipeK; ++kk) {
@@ -492,6 +507,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
   cp_async_wait<0>();  // no copy outlives the CTA (the trailing groups are empty)
 
+  // The output block-row, read after the loop so that it holds no
+  // registers there: K2's from its window and position, K4's (and K1's
+  // and K5's) the lane itself.
+  const int64_t orow =
+      win_ids != nullptr ? (int64_t)win_ids[j0] * window + pos[j0 * R + lane]
+                         : lane_id;
   const bool vec = F % 4 == 0;  // float4 stores stay 16-byte aligned
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -838,33 +859,35 @@ cudaError_t launch_ring(const void* group_ptr, const void* win_ids,
   return cudaErrorInvalidValue;
 }
 
-// The f32 K2 pipelined loop over n_lanes lanes of ceil(F / bn) tiles;
-// dense is (n_dense_rows, ld) f32 with ld >= F a multiple of 4 and a
-// 16-byte-aligned base.
+// The pipelined FFMA loop over n_lanes lanes of ceil(F / bn) tiles; dense
+// is (n_dense_rows, ld) f32 with ld >= F a multiple of 4 and a
+// 16-byte-aligned base. win_ids == nullptr selects K4's walk (and K1's
+// and K5's).
 template <int BM, int BN>
 cudaError_t launch_pipe_tile(const int64_t* gp, const int32_t* wi,
                              const int32_t* ps, const uint8_t* lv,
                              const int32_t* sc, const float* bl,
                              const float* de, float* o, int64_t F, int64_t ld,
-                             int64_t R, int64_t gh, int64_t window,
-                             int64_t n_ft, dim3 grid, cudaStream_t stream) {
+                             int64_t n_block_rows, int64_t R, int64_t gh,
+                             int64_t window, int64_t n_ft, dim3 grid,
+                             cudaStream_t stream) {
   using G = Pipe<BM, BN>;
   static const cudaError_t smem_set = cudaFuncSetAttribute(
-      sorted_pipe_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ffma_pipe_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       G::kSmemBytes);
   if (smem_set != cudaSuccess) return smem_set;
-  sorted_pipe_kernel<BM, BN><<<grid, kThreads, G::kSmemBytes, stream>>>(
-      gp, wi, ps, lv, sc, bl, de, o, F, ld, R, gh, window, n_ft);
+  ffma_pipe_kernel<BM, BN><<<grid, kThreads, G::kSmemBytes, stream>>>(
+      gp, wi, ps, lv, sc, bl, de, o, F, ld, n_block_rows, R, gh, window, n_ft);
   return cudaGetLastError();
 }
 
-cudaError_t launch_sorted_pipe(const void* group_ptr, const void* win_ids,
-                               const void* pos, const void* lane_valid,
-                               const void* slot_cols, const void* blocks,
-                               const void* dense, void* out, int64_t n_lanes,
-                               int64_t F, int64_t ld, int64_t R, int64_t gh,
-                               int64_t window, int64_t b, int64_t bn,
-                               cudaStream_t stream) {
+cudaError_t launch_pipe(const void* group_ptr, const void* win_ids,
+                        const void* pos, const void* lane_valid,
+                        const void* slot_cols, const void* blocks,
+                        const void* dense, void* out, int64_t n_lanes,
+                        int64_t n_block_rows, int64_t F, int64_t ld, int64_t R,
+                        int64_t gh, int64_t window, int64_t b, int64_t bn,
+                        cudaStream_t stream) {
   if ((bn != 64 && bn != 128) || ld < F || ld % 4 != 0 ||
       reinterpret_cast<uintptr_t>(dense) % 16 != 0)
     return cudaErrorInvalidValue;
@@ -881,10 +904,11 @@ cudaError_t launch_sorted_pipe(const void* group_ptr, const void* win_ids,
   const auto* bl = static_cast<const float*>(blocks);
   const auto* de = static_cast<const float*>(dense);
   auto* o = static_cast<float*>(out);
-#define SDB_PIPE(BM, BN)                                                     \
-  if (b == BM && bn == BN)                                                   \
-    return launch_pipe_tile<BM, BN>(gp, wi, ps, lv, sc, bl, de, o, F, ld, R, \
-                                    gh, window, n_ft, grid, stream);
+#define SDB_PIPE(BM, BN)                                                   \
+  if (b == BM && bn == BN)                                                 \
+    return launch_pipe_tile<BM, BN>(gp, wi, ps, lv, sc, bl, de, o, F, ld,  \
+                                    n_block_rows, R, gh, window, n_ft, grid, \
+                                    stream);
   SDB_PIPE(64, 64)
   SDB_PIPE(64, 128)
   SDB_PIPE(128, 64)
@@ -930,10 +954,11 @@ cudaError_t tile_grid(int64_t n_rows, int64_t F, int64_t* n_ft, dim3* grid) {
 }
 
 
-// K1's CTA walk with math policy M; K5's entries launch it too. Exact
-// reads one plane with operand rows of F (ldx == F); Bf16x3 two planes,
-// a_lo block elements and x_lo operand elements apart, with operand rows
-// of ldx.
+// K1's FFMA walk with math policy M, at b = 16 and 32 (K5's entries
+// launch it too): b = 64 and 128 run the pipelined FFMA loop (f32) or the
+// tensor-core loop (bf16, K3). Exact reads one plane with operand rows of
+// F (ldx == F); Bf16x3 two planes, a_lo block elements and x_lo operand
+// elements apart, with operand rows of ldx.
 template <typename T, typename M>
 cudaError_t launch_rows(const void* step_ptr, const void* slot_cols,
                         const void* blocks, const void* dense, void* out,
@@ -952,8 +977,6 @@ cudaError_t launch_rows(const void* step_ptr, const void* slot_cols,
   switch (b) {
     case 16: flat_kernel<T, 16, M><<<grid, kThreads, 0, stream>>>(sp, sc, bl, de, o, F, ldx, a_lo, x_lo, group, n_ft); break;
     case 32: flat_kernel<T, 32, M><<<grid, kThreads, 0, stream>>>(sp, sc, bl, de, o, F, ldx, a_lo, x_lo, group, n_ft); break;
-    case 64: flat_kernel<T, 64, M><<<grid, kThreads, 0, stream>>>(sp, sc, bl, de, o, F, ldx, a_lo, x_lo, group, n_ft); break;
-    case 128: flat_kernel<T, 128, M><<<grid, kThreads, 0, stream>>>(sp, sc, bl, de, o, F, ldx, a_lo, x_lo, group, n_ft); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -990,6 +1013,8 @@ cudaError_t launch_sorted(const void* group_ptr, const void* win_ids,
   return cudaGetLastError();
 }
 
+// K4's FFMA walk at b = 16 and 32 (b = 64 and 128 run the pipelined FFMA
+// loop, f32, or the tensor-core loop, bf16).
 template <typename T>
 cudaError_t launch_rowgroup(const void* group_ptr, const void* slot_cols,
                             const void* blocks, const void* dense, void* out,
@@ -1008,17 +1033,39 @@ cudaError_t launch_rowgroup(const void* group_ptr, const void* slot_cols,
   switch (b) {
     case 16: rowgroup_kernel<T, 16><<<grid, kThreads, 0, stream>>>(gp, sc, bl, de, o, n_block_rows, F, R, gh, n_ft); break;
     case 32: rowgroup_kernel<T, 32><<<grid, kThreads, 0, stream>>>(gp, sc, bl, de, o, n_block_rows, F, R, gh, n_ft); break;
-    case 64: rowgroup_kernel<T, 64><<<grid, kThreads, 0, stream>>>(gp, sc, bl, de, o, n_block_rows, F, R, gh, n_ft); break;
-    case 128: rowgroup_kernel<T, 128><<<grid, kThreads, 0, stream>>>(gp, sc, bl, de, o, n_block_rows, F, R, gh, n_ft); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
-// bf16 K1 and K5: the tensor-core loop at b = 64 and 128 on the flat
+// f32 K1 and K5: the pipelined FFMA loop at b = 64 and 128 on the flat
 // layout's walk, which is K4's walk with one lane per group (R = 1, gh =
 // group, group_ptr = step_ptr: lane r's slot t is step_ptr[r]*group + t,
-// and every lane is a real block-row); the FFMA loop at b = 16 and 32.
+// and every lane is a real block-row); the FFMA loop at b = 16 and 32
+// (64-column tiles on the operand as it is: bn == 64, ld == F).
+cudaError_t launch_flat_f32(const void* step_ptr, const void* slot_cols,
+                            const void* blocks, const void* dense, void* out,
+                            int64_t n_block_rows, int64_t F, int64_t ld,
+                            int64_t group, int64_t b, int64_t bn,
+                            cudaStream_t s) {
+  switch (b) {
+    case 16:
+    case 32:
+      if (bn != kBN || ld != F) return cudaErrorInvalidValue;
+      return launch_rows<float, Exact>(step_ptr, slot_cols, blocks, dense, out,
+                                       n_block_rows, F, F, 0, 0, group, b, s);
+    case 64:
+    case 128:
+      return launch_pipe(step_ptr, nullptr, nullptr, nullptr, slot_cols, blocks,
+                         dense, out, n_block_rows, n_block_rows, F, ld, 1, group,
+                         0, b, bn, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// bf16 K1 and K5: the tensor-core loop at b = 64 and 128 on the flat
+// layout's walk (as launch_flat_f32's); the FFMA loop at b = 16 and 32.
 cudaError_t launch_flat_bf16(const void* step_ptr, const void* slot_cols,
                              const void* blocks, const void* dense, void* out,
                              int64_t n_block_rows, int64_t n_slots,
@@ -1087,13 +1134,19 @@ cudaError_t launch_k3(const void* group_ptr, const void* win_ids,
 // launch (0 on success). The *_bf16 entries take bf16 blocks and dense
 // only, the *_bf16x3 entries the two bf16 planes of each, the others
 // float only.
+
+// K1, f32 operands: the pipelined FFMA loop at b = 64 and 128 (tiles of
+// bn = 64 or 128 columns; dense (n, ld) with ld >= F a multiple of 4 and
+// a 16-byte-aligned base), the FFMA loop at b = 16 and 32 (bn == 64, ld
+// == F).
 extern "C" int sdb_bsr_spmm_flat(const void* step_ptr, const void* slot_cols,
                                  const void* blocks, const void* dense,
                                  void* out, int64_t n_block_rows, int64_t F,
-                                 int64_t group, int64_t b, void* stream) {
-  return (int)launch_rows<float, Exact>(step_ptr, slot_cols, blocks, dense,
-                                        out, n_block_rows, F, F, 0, 0, group,
-                                        b, static_cast<cudaStream_t>(stream));
+                                 int64_t ld, int64_t group, int64_t b,
+                                 int64_t bn, void* stream) {
+  return (int)launch_flat_f32(step_ptr, slot_cols, blocks, dense, out,
+                              n_block_rows, F, ld, group, b, bn,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // K1, bf16 operands: as sdb_bsr_spmm_rowgroup_bf16 on the flat layout.
@@ -1119,15 +1172,16 @@ extern "C" int sdb_bsr_spmm_flat_bf16x3(
                         group, 0, b, bn, static_cast<cudaStream_t>(stream));
 }
 
+// K5, f32 operands: K1's f32 launch on the (nbc*b, ld) view of dense3.
 extern "C" int sdb_bsr_spmm_resident(const void* step_ptr,
                                      const void* slot_cols,
                                      const void* blocks, const void* dense3,
                                      void* out, int64_t n_block_rows,
-                                     int64_t F, int64_t group, int64_t b,
-                                     void* stream) {
-  return (int)launch_rows<float, Exact>(step_ptr, slot_cols, blocks, dense3,
-                                        out, n_block_rows, F, F, 0, 0, group,
-                                        b, static_cast<cudaStream_t>(stream));
+                                     int64_t F, int64_t ld, int64_t group,
+                                     int64_t b, int64_t bn, void* stream) {
+  return (int)launch_flat_f32(step_ptr, slot_cols, blocks, dense3, out,
+                              n_block_rows, F, ld, group, b, bn,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // K5, bf16 operands: K1's bf16 launch on the (nbc*b, ld) view of dense3.
@@ -1173,9 +1227,10 @@ extern "C" int sdb_bsr_spmm_sorted(const void* group_ptr, const void* win_ids,
           n_lanes, F, F, 0, 0, R, gh, window, b, s);
     case 64:
     case 128:
-      return (int)launch_sorted_pipe(group_ptr, win_ids, pos, lane_valid,
-                                     slot_cols, blocks, dense, out, n_lanes, F,
-                                     ld, R, gh, window, b, bn, s);
+      if (win_ids == nullptr) return (int)cudaErrorInvalidValue;
+      return (int)launch_pipe(group_ptr, win_ids, pos, lane_valid, slot_cols,
+                              blocks, dense, out, n_lanes, 0, F, ld, R, gh,
+                              window, b, bn, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1239,17 +1294,31 @@ extern "C" int sdb_bsr_spmm_sorted_bf16(
   }
 }
 
-// K4, f32 operands.
+// K4, f32 operands: the pipelined FFMA loop at b = 64 and 128, the FFMA
+// loop at b = 16 and 32, with sdb_bsr_spmm_flat's tiles and operand rows.
 extern "C" int sdb_bsr_spmm_rowgroup(const void* group_ptr,
                                      const void* slot_cols,
                                      const void* blocks, const void* dense,
                                      void* out, int64_t n_lanes,
                                      int64_t n_block_rows, int64_t F,
-                                     int64_t R, int64_t gh, int64_t b,
-                                     void* stream) {
-  return (int)launch_rowgroup<float>(
-      group_ptr, slot_cols, blocks, dense, out, n_lanes, n_block_rows, F, R,
-      gh, b, static_cast<cudaStream_t>(stream));
+                                     int64_t ld, int64_t R, int64_t gh,
+                                     int64_t b, int64_t bn, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (b) {
+    case 16:
+    case 32:
+      if (bn != kBN || ld != F) return (int)cudaErrorInvalidValue;
+      return (int)launch_rowgroup<float>(group_ptr, slot_cols, blocks, dense,
+                                         out, n_lanes, n_block_rows, F, R, gh,
+                                         b, s);
+    case 64:
+    case 128:
+      return (int)launch_pipe(group_ptr, nullptr, nullptr, nullptr, slot_cols,
+                              blocks, dense, out, n_lanes, n_block_rows, F, ld,
+                              R, gh, 0, b, bn, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // K4, bf16 operands: as sdb_bsr_spmm_sorted_bf16.

@@ -26,8 +26,9 @@ operand once (``split_operand``, a kernel of its own), and K3 runs on the
 tensor cores at b = 64 and 128. bf16 operands run every kernel through
 its own entry (``sdb_bsr_spmm_{flat,sorted,rowgroup,resident}_bf16``), on
 the tensor cores at b = 64 and 128; ``bf16_tile_geometry`` picks their F
-tile width and the operand's padded row length. f32 K2 at b = 64 and 128
-runs a pipelined FFMA loop at ``tile_geometry``'s tile width.
+tile width and the operand's padded row length. Exact-f32 K1, K2, K4 and
+K5 at b = 64 and 128 run one pipelined FFMA loop at ``tile_geometry``'s
+tile width (``_f32_launch_args``).
 
 Beside each kernel sits its plain PyTorch version (``spmm_flat_plain``,
 ``spmm_sorted_plain``, ``spmm_rowgroup_plain``,
@@ -571,13 +572,13 @@ def tile_geometry(b: int, n_rows: int, F: int, n_sms: int, row_align: int):
     operand's row length as the kernel reads it.
 
     b = 16 and 32 run the FFMA loop: 64-column tiles, the operand as it
-    is. b = 64 and 128 run the tensor-core loop or f32 K2's pipelined
-    FFMA loop, whose 16-byte copies need rows of a multiple of row_align
-    elements (8 bf16, 4 f32): ld is F rounded up to one (the wrapper pads
-    the operand's columns only then). bn is 128 where F needs more than
-    64 columns and the grid (n_rows * ceil(F / 128) CTAs) still covers
-    the SMs, else 64 (the tensor-core loop's two-level sums hold 2 x bn/2
-    registers a thread, which caps bn at 128)."""
+    is. b = 64 and 128 run the tensor-core loop or the exact-f32 kernels'
+    pipelined FFMA loop, whose 16-byte copies need rows of a multiple of
+    row_align elements (8 bf16, 4 f32): ld is F rounded up to one (the
+    wrapper pads the operand's columns only then). bn is 128 where F
+    needs more than 64 columns and the grid (n_rows * ceil(F / 128) CTAs)
+    still covers the SMs, else 64 (the tensor-core loop's two-level sums
+    hold 2 x bn/2 registers a thread, which caps bn at 128)."""
     if b < 64:
         return 64, F
     bn = 128 if F > 64 and n_rows * -(-F // 128) >= n_sms else 64
@@ -619,6 +620,15 @@ def _bf16_launch_args(blocks, dense, n_rows: int) -> tuple:
     return _tile_launch_args(blocks.shape[1], blocks.shape[0], dense, n_rows, 8)
 
 
+def _f32_launch_args(blocks, dense, n_rows: int) -> tuple:
+    """(F, ld), bn and the operand an exact-f32 entry (K1, K2, K4, K5)
+    reads: _tile_launch_args with rows of a multiple of 4 f32 (the
+    pipelined FFMA loop's 16-byte copies)."""
+    sizes, bn, dense = _tile_launch_args(blocks.shape[1], blocks.shape[0],
+                                         dense, n_rows, 4)
+    return sizes[2:], bn, dense
+
+
 def split_operand(dense: torch.Tensor) -> torch.Tensor:
     """K3's operand split: the f32 (N, F) operand as split_operand_plain's
     (2N, ld) bf16 planes. CPU tensors run split_operand_plain; CUDA
@@ -655,8 +665,9 @@ def spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense, group: int,
     step_ptr (n_block_rows+1,) int64 points each block-row at its steps
     (derived from the sorted step_rows at plan time). CPU tensors run
     spmm_flat_plain; CUDA tensors run the CUDA kernel: f32 operands the
-    FFMA entry, bf16 the bf16 entry, as spmm_sorted; bf16x3 (blocks:
-    split_planes' planes, f32 operand) K3's entry after split_operand."""
+    FFMA entry, bf16 the bf16 entry, as spmm_sorted, at the geometry of
+    n_block_rows lanes; bf16x3 (blocks: split_planes' planes, f32
+    operand) K3's entry after split_operand."""
     dev = _device_of(step_rows, step_ptr, slot_cols, blocks, dense)
     n_block_rows = step_ptr.shape[0] - 1
     if dev.type == "cpu":
@@ -675,17 +686,15 @@ def spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense, group: int,
     kernel = getattr(_kernels, "bsr_spmm_" + ("resident" if resident else "flat")
                      + ("_bf16x3" if bf16x3 else "_bf16" if bf16 else ""))
     with torch.cuda.device(dev):
-        pointers = (step_ptr.data_ptr(), slot_cols.data_ptr(), blocks.data_ptr())
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if bf16 or bf16x3:
-            sizes, bn, dense = (_k3_launch_args(b, n_slots, dense, n_block_rows)
-                                if bf16x3 else
-                                _bf16_launch_args(blocks, dense, n_block_rows))
-            kernel(*pointers, dense.data_ptr(), out.data_ptr(), n_block_rows,
-                   *sizes, group, b, bn, stream)
+        if bf16x3:
+            sizes, bn, dense = _k3_launch_args(b, n_slots, dense, n_block_rows)
+        elif bf16:
+            sizes, bn, dense = _bf16_launch_args(blocks, dense, n_block_rows)
         else:
-            kernel(*pointers, dense.data_ptr(), out.data_ptr(), n_block_rows, F,
-                   group, b, stream)
+            sizes, bn, dense = _f32_launch_args(blocks, dense, n_block_rows)
+        kernel(step_ptr.data_ptr(), slot_cols.data_ptr(), blocks.data_ptr(),
+               dense.data_ptr(), out.data_ptr(), n_block_rows, *sizes, group, b,
+               bn, torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
@@ -713,10 +722,11 @@ def spmm_sorted(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr,
     from the port's packer. CPU tensors run spmm_sorted_plain; CUDA
     tensors run the CUDA kernel: f32 operands the FFMA entry (at b >= 64
     the pipelined loop, at tile_geometry's tile width, the operand's
-    columns padded to a multiple of 4 where F is ragged), bf16 the bf16
-    entry at bf16_tile_geometry's tile width (the operand's columns
-    padded to a multiple of 8 where F is ragged and b >= 64), bf16x3
-    (blocks: split_planes' planes) K3's entry after split_operand."""
+    columns padded to a multiple of 4 where F is ragged:
+    _f32_launch_args), bf16 the bf16 entry at bf16_tile_geometry's tile
+    width (the operand's columns padded to a multiple of 8 where F is
+    ragged and b >= 64), bf16x3 (blocks: split_planes' planes) K3's entry
+    after split_operand."""
     dev = _device_of(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr)
     if dev.type == "cpu":
         return spmm_sorted_plain(win_ids, pos, slot_cols, blocks, dense,
@@ -753,11 +763,10 @@ def spmm_sorted(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr,
                 *pointers, dense.data_ptr(), out.data_ptr(), n_lanes,
                 *sizes, R, gh, window, b, bn, stream)
         else:
-            sizes, bn, dense = _tile_launch_args(b, n_slots, dense,
-                                                 n_block_rows, 4)
+            sizes, bn, dense = _f32_launch_args(blocks, dense, n_block_rows)
             _kernels.bsr_spmm_sorted(
-                *pointers, dense.data_ptr(), out.data_ptr(), n_lanes, F,
-                sizes[3], R, gh, window, b, bn, stream)
+                *pointers, dense.data_ptr(), out.data_ptr(), n_lanes, *sizes,
+                R, gh, window, b, bn, stream)
     return out
 
 
@@ -768,7 +777,8 @@ def spmm_rowgroup(step_groups, group_ptr, slot_cols, blocks, dense,
     group_ptr (n_groups+1,) int64 points each group at its steps
     (group_pointer at plan time). CPU tensors run spmm_rowgroup_plain;
     CUDA tensors run the CUDA kernel, whose phantom lanes store nothing:
-    f32 operands the FFMA entry, bf16 the bf16 entry, as spmm_sorted."""
+    f32 operands the FFMA entry, bf16 the bf16 entry, as spmm_sorted, at
+    the geometry of n_block_rows lanes."""
     dev = _device_of(step_groups, group_ptr, slot_cols, blocks, dense)
     if dev.type == "cpu":
         return spmm_rowgroup_plain(step_groups, slot_cols, blocks, dense,
@@ -793,9 +803,10 @@ def spmm_rowgroup(step_groups, group_ptr, slot_cols, blocks, dense,
                 *pointers, dense.data_ptr(), out.data_ptr(), n_lanes,
                 n_block_rows, *sizes, R, gh, b, bn, stream)
         else:
+            sizes, bn, dense = _f32_launch_args(blocks, dense, n_block_rows)
             _kernels.bsr_spmm_rowgroup(
                 *pointers, dense.data_ptr(), out.data_ptr(), n_lanes,
-                n_block_rows, F, R, gh, b, stream)
+                n_block_rows, *sizes, R, gh, b, bn, stream)
     return out
 
 

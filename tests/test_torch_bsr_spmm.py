@@ -874,6 +874,60 @@ def test_bf16_launch_args_align_the_operand(F, monkeypatch):
         assert T._bf16_launch_args(blocks, aligned, 2)[2] is aligned
 
 
+@pytest.mark.parametrize("nb,F,want_bn", [
+    (33, 512, 128),   # 132 CTAs at 128 columns
+    (32, 512, 64),    # 128 at 128: 64 gives 256
+    (40, 64, 64),     # never wider than F needs
+    (66, 133, 128),   # a ragged F (rows of 136 floats): 132 CTAs at 128
+])
+def test_f32_flat_and_rowgroup_launch_take_the_geometry_at_nbr_rows(
+        nb, F, want_bn, monkeypatch):
+    """Exact-f32 K1, K5 and K4 launch one CTA row per block-row (K4's
+    phantom lanes return at once): their tile width and operand rows are
+    tile_geometry(b, nbr, F, n_sms, 4)'s at the plan's nbr rows, as f32
+    K2's are at its valid lanes'."""
+    monkeypatch.setattr(T, "_sm_count", lambda index: 132)
+    bsr = _with_empty_rows(t_bsr, nb, 128, 0.05, seed=nb, empty=(1,))
+    blocks_of = {}
+    for kw in ({"depth_sort": False}, {"resident": True, "depth_sort": False}):
+        plan = T.bsr_spmm_pallas_plan(bsr, grad=False, device="cpu", **kw)
+        assert plan.statics[0] == ("resident" if kw.get("resident") else "flat")
+        assert plan.statics[1] == nb
+        blocks_of[plan.statics[0]] = plan.arrays[2]
+    rows, cols, blocks = _covered_parts(T, bsr)
+    blocks_of["rowgroup"] = torch.as_tensor(
+        T._pack_rowgroups(rows, cols, blocks, 4, 16)[2])
+    dense = torch.zeros(bsr.shape[1], F)
+    for layout, blocks in blocks_of.items():
+        assert blocks.dtype == torch.float32, layout
+        (f, ld), bn, _ = T._f32_launch_args(blocks, dense, nb)
+        assert (bn, ld) == T.tile_geometry(128, nb, F, 132, 4)
+        assert bn == want_bn and f == F and ld == -(-F // 4) * 4
+
+
+@pytest.mark.parametrize("F", [256, 70, 133])
+def test_f32_launch_args_align_the_operand(F, monkeypatch):
+    """The pipelined FFMA loop's 16-byte copies need an operand that
+    starts on 16 bytes, with rows of a multiple of 4 floats: a ragged F
+    is padded with zero columns, a contiguous view 4 bytes past a 16-byte
+    boundary is copied to a fresh, aligned buffer with the same values,
+    and an aligned operand of whole rows passes as it is."""
+    monkeypatch.setattr(T, "_sm_count", lambda index: 132)
+    blocks = torch.zeros(4, 64, 64)
+    x = torch.arange(128 * F, dtype=torch.float32).reshape(128, F)
+    base = torch.empty(x.numel() + 1)
+    view = base[1:].view(128, F)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    (f, ld), bn, dense = T._f32_launch_args(blocks, view, 2)
+    assert dense.data_ptr() % 16 == 0 and dense.is_contiguous()
+    assert (f, ld, dense.shape) == (F, -(-F // 4) * 4, (128, ld))
+    assert torch.equal(dense[:, :F], view) and not dense[:, F:].any()
+    assert x.data_ptr() % 16 == 0
+    if F % 4 == 0:
+        assert T._f32_launch_args(blocks, x, 2)[2] is x
+
+
 def test_kernel_build_hashes_headers_and_includes_csrc(tmp_path, monkeypatch):
     """A library's name hashes its source and every header of csrc/ (an
     edit of the ring header that bsr_spmm.cu and bsr_spmm_int8.cu share

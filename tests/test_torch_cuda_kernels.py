@@ -1,6 +1,6 @@
 """The CUDA kernels K1 (flat grouped gather), K2 (depth-sorted row
 groups), K4 (consecutive row groups) and K5 (single-row resident), each
-in f32 (K2 at b = 64 and 128 on its pipelined FFMA loop) and, on the
+in f32 (at b = 64 and 128 on the pipelined FFMA loop) and, on the
 tensor cores, in bf16, K3 (the bf16x3 product, on K1's, K2's and K5's
 layouts, on the tensor cores at b = 64 and 128) and its operand split,
 the int8 kernels K6 (flat), K7
@@ -32,6 +32,7 @@ import torch
 from spmm_denseblock_tpu_torch.formats.bsr import BSR, random_bsr
 from spmm_denseblock_tpu_torch.formats.csr import CSR, random_csr
 from spmm_denseblock_tpu_torch.ops import _kernels, assert_allclose, spmm_scipy
+from spmm_denseblock_tpu_torch.ops.plan import Plan
 from spmm_denseblock_tpu_torch.ops.reference import (
     bf16_exact_case,
     bf16x3_exact_case,
@@ -734,12 +735,49 @@ def test_k3_k5_kernel_matches_plain(b, case):
 
 
 K3_LAYOUT_KERNELS = {
-    # layout: (plan kwargs, K3 kernel, the exact f32 kernel of the layout)
+    # layout: (plan kwargs, K3 kernel, the exact f32 kernel of the layout);
+    # K3 has no row-group instance, and f32 K4's plan is packed by hand
     "sorted": ({}, "bsr_spmm_sorted_bf16x3", "bsr_spmm_sorted"),
     "flat": ({"depth_sort": False}, "bsr_spmm_flat_bf16x3", "bsr_spmm_flat"),
     "resident": ({"resident": True, "depth_sort": False},
                  "bsr_spmm_resident_bf16x3", "bsr_spmm_resident"),
+    "rowgroup": (None, None, "bsr_spmm_rowgroup"),
 }
+
+
+def _f32_rowgroup_plan(bsr) -> Plan:
+    """f32 K4's plan. The plan routes only bf16 to the row-group layout,
+    so this packs it as the bf16 plan does (R = 16, the power-of-two
+    group capped at 16) and keeps the blocks in f32."""
+    cov = T._ensure_covering(bsr)
+    rows = cov.block_rows[: cov.nnzb]
+    gh = min(T._auto_group_pow2(cov.nnzb, np.unique(rows).size), 16)
+    R, _ = T._rowgroup_policy(2, gh)
+    step_groups, slot_cols, blocks, n_groups = T._pack_rowgroups(
+        rows, cov.block_cols[: cov.nnzb], cov.blocks[: cov.nnzb], gh, R)
+    statics = ("rowgroup", cov.n_block_rows, *bsr.shape,
+               cov.n_block_cols * bsr.b, "exact", (R, gh))
+    return Plan([step_groups, slot_cols, blocks,
+                 T.group_pointer(step_groups, n_groups)],
+                T._pallas_apply, statics, device="cuda")
+
+
+def _layout_plan(bsr, layout, precision=None) -> Plan:
+    """The plan of `layout` in K3_LAYOUT_KERNELS: K3 with
+    precision="high", else the layout's exact f32 kernel."""
+    kw = K3_LAYOUT_KERNELS[layout][0]
+    plan = (_f32_rowgroup_plan(bsr) if kw is None else
+            T.bsr_spmm_pallas_plan(bsr, grad=False, precision=precision,
+                                   device="cuda", **kw))
+    assert plan.statics[0] == layout
+    return plan
+
+
+def _exact_runs(layout, want3, want_exact):
+    """(precision, kernel, want) of each plan a layout runs on
+    bf16x3_exact_case: K3 where the layout has it, then the exact kernel."""
+    _, k3, exact = K3_LAYOUT_KERNELS[layout]
+    return ((("high", k3, want3),) if k3 else ()) + ((None, exact, want_exact),)
 
 
 def _run_counted(plan, x, name, k3):
@@ -765,17 +803,15 @@ def test_k3_kernel_is_bf16x3_not_exact_f32(layout, b, wide, monkeypatch):
     the exact kernel on the same layout (K2, K1, K5) A X bit for bit. A
     K3 that kept lo*lo, lost a split or truncated instead of rounding to
     even would miss the first; the two answers differ in most entries.
-    b = 64 and 128 run K3 on the tensor-core ring and f32 K2 on the
+    f32 K4 (row groups, no K3 instance) must give A X too. b = 64 and 128
+    run K3 on the tensor-core ring and the exact f32 kernels on the
     pipelined FFMA loop, at both tile widths (F=200 is ragged); each K3
     call splits the operand once."""
     _widest_tiles(monkeypatch, wide)
-    kw, k3, exact = K3_LAYOUT_KERNELS[layout]
     bsr, x, want3, want_exact = bf16x3_exact_case(F=200, seed=b, b=b)
     x = torch.as_tensor(x, device="cuda")
-    for precision, name, want in (("high", k3, want3), (None, exact, want_exact)):
-        plan = T.bsr_spmm_pallas_plan(bsr, grad=False, precision=precision,
-                                      device="cuda", **kw)
-        assert plan.statics[0] == layout
+    for precision, name, want in _exact_runs(layout, want3, want_exact):
+        plan = _layout_plan(bsr, layout, precision)
         got = _run_counted(plan, x, name, precision == "high")
         np.testing.assert_array_equal(got.double().cpu().numpy(), want)
 
@@ -784,18 +820,16 @@ def test_k3_kernel_is_bf16x3_not_exact_f32(layout, b, wide, monkeypatch):
 @pytest.mark.parametrize("b", [16, 64, 128])
 def test_k3_and_f32_k2_operand_at_odd_offset(b, layout):
     """An f32 operand that starts 4 bytes past a 16-byte boundary: the
-    split kernel reads it as it is (its planes are a fresh buffer), f32
-    K2's pipelined loop gets an aligned copy; every answer is still the
-    exact case's, bit for bit."""
-    kw, k3, exact = K3_LAYOUT_KERNELS[layout]
+    split kernel reads it as it is (its planes are a fresh buffer), the
+    exact f32 kernels' pipelined loop (K1, K2, K4, K5) gets an aligned
+    copy; every answer is still the exact case's, bit for bit."""
     bsr, x, want3, want_exact = bf16x3_exact_case(F=96, seed=b + 1, b=b)
     base = torch.empty(x.size + 1, device="cuda")
     view = base[1:].view(x.shape)
     view.copy_(torch.as_tensor(x))
     assert view.is_contiguous() and view.data_ptr() % 16 == 4
-    for precision, name, want in (("high", k3, want3), (None, exact, want_exact)):
-        plan = T.bsr_spmm_pallas_plan(bsr, grad=False, precision=precision,
-                                      device="cuda", **kw)
+    for precision, name, want in _exact_runs(layout, want3, want_exact):
+        plan = _layout_plan(bsr, layout, precision)
         got = _run_counted(plan, view, name, precision == "high")
         np.testing.assert_array_equal(got.double().cpu().numpy(), want)
 
@@ -811,16 +845,18 @@ def _deep_bsr(b=128, nb=6, depth=34, seed=0):
     return BSR.from_parts(rows, cols, blocks, (nb * b, 40 * b), b)
 
 
-@pytest.mark.parametrize("layout", list(K3_LAYOUT_KERNELS))
-@pytest.mark.parametrize("precision", ["high", None])
+@pytest.mark.parametrize("precision,layout", [
+    (precision, layout) for precision in ("high", None)
+    for layout in K3_LAYOUT_KERNELS
+    if precision is None or K3_LAYOUT_KERNELS[layout][1]])
 def test_k3_and_f32_k2_deep_rows_match_plain(precision, layout):
     """Rows of 4,352 terms (34 blocks of 128, as ddi's): K3 on the ring
-    (its two-level sums) and the exact f32 kernels within 1e-5 of their
-    plain versions, and within 1e-4 of float64."""
+    (its two-level sums) and the exact f32 kernels (K1, K2, K4, K5 on the
+    pipelined FFMA loop) within 1e-5 of their plain versions, and within
+    1e-4 of float64."""
     bsr = _deep_bsr()
-    kw, k3, exact = K3_LAYOUT_KERNELS[layout]
-    plan = T.bsr_spmm_pallas_plan(bsr, grad=False, precision=precision,
-                                  device="cuda", **kw)
+    _, k3, exact = K3_LAYOUT_KERNELS[layout]
+    plan = _layout_plan(bsr, layout, precision)
     x = _x(bsr, F=256, seed=6)
     got = _run_counted(plan, x, k3 if precision else exact, precision == "high")
     want = T.plain_apply(plan, x)
@@ -842,39 +878,58 @@ def _sorting_bsr(nb, b, seed):
     return BSR.from_parts(rows, cols, blocks, (nb * b - 3, 16 * b - 7), b)
 
 
+@pytest.mark.parametrize("layout", list(K3_LAYOUT_KERNELS))
 @pytest.mark.parametrize("wide", [False, True])
 @pytest.mark.parametrize("nb", [7, 37])
 @pytest.mark.parametrize("F", [8, 70, 133, 256, 512])
 @pytest.mark.parametrize("b", [64, 128])
-def test_f32_k2_pipelined_loop_matches_plain(b, F, nb, wide, monkeypatch):
-    """f32 K2 at b = 64 and 128 (the pipelined FFMA loop) on random data
-    within 1e-5 of its plain version: ragged F (70 and 133 pad the
-    operand to a multiple of 4), absent lanes (7 and 37 block-rows at R =
-    16; 12 blocks in every other row, so the f32 plan sorts), tiles of 64
-    columns and of the widest the F needs."""
+def test_f32_k2_pipelined_loop_matches_plain(b, F, nb, wide, layout, monkeypatch):
+    """The exact f32 kernels at b = 64 and 128 (the pipelined FFMA loop:
+    K2 on its sorted walk, K1 and K5 on the flat one, K4 on row groups)
+    on random data within 1e-5 of their plain versions: ragged F (70 and
+    133 pad the operand to a multiple of 4), absent and phantom lanes (7
+    and 37 block-rows at R = 16; 12 blocks in every other row, so the f32
+    plan sorts), tiles of 64 columns and of the widest the F needs."""
     _widest_tiles(monkeypatch, wide)
     bsr = _sorting_bsr(nb, b, seed=b + nb)
-    plan = T.bsr_spmm_pallas_plan(bsr, grad=False, depth_sort=True, device="cuda")
-    assert plan.statics[0] == "sorted"
-    _check(plan, _x(bsr, F=F, seed=F + 1), _kernels.bsr_spmm_sorted)
+    plan = _layout_plan(bsr, layout)
+    _check(plan, _x(bsr, F=F, seed=F + 1),
+           getattr(_kernels, K3_LAYOUT_KERNELS[layout][2]))
 
 
+def _f32_entry_args(plan, layout):
+    """(the pointer arrays before blocks, the sizes before F, the sizes
+    between ld and bn) of the entry an exact f32 plan launches."""
+    b = plan.arrays[2].shape[1]
+    if layout == "sorted":
+        win_ids, slot_cols, _, pos, lane_valid, group_ptr = plan.arrays
+        R, gh, W = plan.statics[-1]
+        return ((group_ptr, win_ids, pos, lane_valid, slot_cols),
+                (lane_valid.shape[0],), (R, gh, W, b))
+    if layout == "rowgroup":
+        _, slot_cols, _, group_ptr = plan.arrays
+        R, gh = plan.statics[-1]
+        return ((group_ptr, slot_cols),
+                ((group_ptr.shape[0] - 1) * R, plan.statics[1]), (R, gh, b))
+    _, slot_cols, _, step_ptr = plan.arrays  # flat and resident
+    return (step_ptr, slot_cols), (plan.statics[1],), (plan.statics[-1], b)
+
+
+@pytest.mark.parametrize("layout", list(K3_LAYOUT_KERNELS))
 @pytest.mark.parametrize("b", [16, 64])
-def test_f32_k2_entry_refuses_bad_geometry(b):
-    """The f32 K2 entry refuses a tile width it has no loop for, an
-    operand row length that is not a multiple of 4 (b = 64; b = 16 takes
-    only bn = 64, ld = F), and at b = 64 a misaligned operand: the
-    wrapper raises and no launch is counted."""
+def test_f32_k2_entry_refuses_bad_geometry(b, layout):
+    """Each exact f32 entry (K2, K1, K5, K4) refuses a tile width it has
+    no loop for, an operand row length that is not a multiple of 4 (b =
+    64; b = 16 takes only bn = 64, ld = F), and at b = 64 a misaligned
+    operand: the wrapper raises and no launch is counted."""
     bsr = _sorting_bsr(7, b, seed=3)
-    plan = T.bsr_spmm_pallas_plan(bsr, grad=False, depth_sort=True, device="cuda")
-    assert plan.statics[0] == "sorted"
-    win_ids, slot_cols, blocks, pos, lane_valid, group_ptr = plan.arrays
-    R, gh, W = plan.statics[-1]
+    plan = _layout_plan(bsr, layout)
+    head, lanes, tail = _f32_entry_args(plan, layout)
+    kernel = getattr(_kernels, K3_LAYOUT_KERNELS[layout][2])
     dense = torch.zeros(bsr.n_block_cols * b, 72, device="cuda")
     out = torch.empty(bsr.n_block_rows * b, 70, device="cuda")
     counts = [k.launches for k in _kernels.KERNELS]
-    ptrs = [t.data_ptr() for t in (group_ptr, win_ids, pos, lane_valid, slot_cols,
-                                   blocks)]
+    ptrs = [t.data_ptr() for t in (*head, plan.arrays[2])]
     stream = torch.cuda.current_stream().cuda_stream
     d = dense.data_ptr()
     if b == 16:  # (operand, ld, bn): ld != F, a wide tile, no such tile
@@ -883,9 +938,7 @@ def test_f32_k2_entry_refuses_bad_geometry(b):
         bad = [(d, 72, 96), (d, 70, 64), (d + 4, 72, 64)]
     for ptr, ld, bn in bad:
         with pytest.raises(RuntimeError, match="cudaError_t"):
-            _kernels.bsr_spmm_sorted(*ptrs, ptr, out.data_ptr(),
-                                     lane_valid.shape[0], 70, ld, R, gh, W, b, bn,
-                                     stream)
+            kernel(*ptrs, ptr, out.data_ptr(), *lanes, 70, ld, *tail, bn, stream)
     assert [k.launches for k in _kernels.KERNELS] == counts
 
 
