@@ -4,8 +4,10 @@ GPU: builds the CUDA kernels from this checkout, holds each against its
 plain PyTorch version, serves a GCN on the ogbl-ddi stand-in through the
 BSR SpMM plan in f32, bf16 and int8 and through the CSR plan (K10),
 trains it in f32 and in bf16x3 (precision="high") through the BSR plan
-and in f32 through the CSR plan, and runs the plans at bench.py's op
-shape and the CSR kernel at the reference's test_csrmm shape.
+and in f32 through the CSR plan, runs the plans at bench.py's op shape
+and the CSR kernel at the reference's test_csrmm shape, and asks the
+reference's question (does reordering make BSR beat CSR?) on the
+ogbn-arxiv stand-in at its published size.
 
     python3 chip_smoke.py
 
@@ -86,16 +88,36 @@ Phases:
               against their plain versions;
               K3's operand split against its plain version, bit for bit;
               the int8 operand's quantization (quantize_int8, dynamic and
-              static, (N, F) and transposed, and at the int8 slice's ddi
+              static, (N, F) and transposed, there also with a NaN, a
+              +Inf and a -Inf column, and at the int8 slice's ddi
               operand with dynamic scales and pad rows) against its plain
-              version, bit for bit;
+              version, bit for bit, and the NaN and +-Inf entries as JAX
+              quantizes them (0; static +-127; 0 in a dynamic column of
+              scale Inf);
               bench.py's bf16x3 self-check (the "high" answer within 1e-4
               of exact f32 K2's and of the bsr_xla tier's); K10 at the
               reference's test_csrmm shape, random_csr(2e-3, 2^17,
               seed=1234) with F=512 (column strips of csr_strip_width's
               width), against its plain version and within 1e-4 of the
               csr_xla tier's answer
-  7. timing   CUDA-event times of kernel, plain and library paths
+  7. reorder  load_dataset("ogbn-arxiv") at scale 1.0 (169,343 nodes),
+              with graph_stats and dataset_provenance; under original,
+              rcmk, rabbit and gorder (the native engine; rcmk bit for bit
+              against its numpy body, each permutation checked) its host
+              seconds, block_metrics at b = 16, 32, 64 and 128 and
+              bandwidth_profile; spmm_plan(impl="csr_pallas") (K10) on
+              each ordering at F=128 (X: seeded signs of 0.5, the
+              reference's check_result operand, every sum exact in f32)
+              against its plain version and within 1e-4 of spmm_scipy; spmm_plan(impl="bsr_pallas",
+              block_size=32) (f32 K2, sorted_kernel) on the ordering with
+              the fewest 32 x 32 blocks, against its plain version and
+              within 1e-4 of spmm_scipy; after its counts are read, the
+              same plans on a standard-normal X, against their plain
+              versions and a float64 scipy product; then
+              their CUDA-event times (K10 on each ordering, K2 at b = 32,
+              the CSR / BSR ratio) beside plain, bound and library, and
+              its device memory freed before phase 8
+  8. timing   CUDA-event times of kernel, plain and library paths
               (library: one PyTorch call computing the same function,
               timed as a yardstick and never called by the port:
               torch.sparse_bsr_tensor @ X for the f32 and bf16 BSR
@@ -129,9 +151,9 @@ Phases:
               torch.profiler: the card's busy share and device time by
               kernel
 
-The main path is phases 4 to 6, each of their runs (f32 slice, int8
+The main path is phases 4 to 7, each of their runs (f32 slice, int8
 slice, CSR slice, bf16 slice, f32 training, "high" training, CSR
-training, op) with
+training, op, reorder) with
 the launch counts set to 0 just before it and read just after; every
 kernel of the path must have run there. Prints the kernels' JSON line,
 then the last line {"ok": true, "device": {...}}. Any failure raises and
@@ -158,7 +180,16 @@ sys.path.insert(0, str(ROOT))
 from spmm_denseblock_tpu_torch.convert.csr2bsr import csr_to_bsr  # noqa: E402
 from spmm_denseblock_tpu_torch.formats.bsr import BSR, random_bsr  # noqa: E402
 from spmm_denseblock_tpu_torch.formats.csr import CSR, random_csr  # noqa: E402
-from spmm_denseblock_tpu_torch.io.datasets import load_dataset  # noqa: E402
+from spmm_denseblock_tpu_torch.analyze.metrics import (  # noqa: E402
+    bandwidth_profile,
+    block_metrics,
+    calculate_nnzb,
+)
+from spmm_denseblock_tpu_torch.io.datasets import (  # noqa: E402
+    dataset_provenance,
+    graph_stats,
+    load_dataset,
+)
 from spmm_denseblock_tpu_torch.models.gnn import linear  # noqa: E402
 from spmm_denseblock_tpu_torch.models import (  # noqa: E402
     GCN,
@@ -211,8 +242,15 @@ from spmm_denseblock_tpu_torch.ops.reference import (  # noqa: E402
     bf16_exact_case,
     bf16x3_exact_case,
     int8_exact_case,
+    spmm_scipy,
 )
-from spmm_denseblock_tpu_torch.reorder import reorder  # noqa: E402
+from spmm_denseblock_tpu_torch.reorder import (  # noqa: E402
+    STRATEGIES,
+    check_permutation,
+    permutate,
+    rcm_variant,
+    reorder,
+)
 
 KERNEL_TOL = 1e-5  # kernel vs plain version, relative to max |plain|
 INT8_TOL = 6e-2    # int8 answer vs f32/f64 reference, relative to max |ref|
@@ -226,6 +264,15 @@ FLIP_CAP = {None: 0, "high": 16}
 FLIP_REL = 2.0 ** -16
 SEED = 1234
 DEV = "cuda"
+# the reorder phase: the reference's graph grid (original, rcmk, rabbit)
+# plus gorder on the ogbn-arxiv stand-in at its published size, K10 on
+# each ordering at the grid's widest dim, f32 K2 at b = 32 on one
+REORDER_DATASET = "ogbn-arxiv"
+REORDER_SCALE = 1.0
+REORDER_ORDERINGS = ("original", "rcmk", "rabbit", "gorder")
+REORDER_BLOCK_SIZES = (16, 32, 64, 128)
+REORDER_B = 32
+REORDER_F = 128
 _PALLAS = "spmm_denseblock_tpu/ops/bsr_spmm_pallas.py"
 _PALLAS_I8 = "spmm_denseblock_tpu/ops/bsr_spmm_pallas_int8.py"
 _CSRC = "spmm_denseblock_tpu_torch/csrc/"
@@ -353,13 +400,6 @@ def ddi_adjacency(cache_dir: Path):
     csr = load_dataset("ogbl-ddi", cache_dir=str(cache_dir), seed=SEED)
     rcsr, _ = reorder(csr, "rcmk")
     return sym_norm_adjacency(rcsr)
-
-
-def ddi_nnzb(adj, b: int) -> int:
-    """Real (nonzero) b x b blocks of a CSR matrix."""
-    rows = adj.row_ids().astype(np.int64) // b
-    cols = np.asarray(adj.indices, dtype=np.int64) // b
-    return int(np.unique(rows * (-(-adj.n_cols // b)) + cols).size)
 
 
 def f32_rowgroup_plan(bsr: BSR) -> Plan:
@@ -1034,8 +1074,118 @@ def csr_op_phase(op_csr, x_op):
     return plan, err
 
 
-def main_path(adj, dims, op_bsr, op_csr, x_op, calibration):
-    """Phases 4 to 6, each run with the launch counts set to 0 just
+def reorder_phase(cache_dir: Path):
+    """Phase 7: the reference's question on the card, as the JAX
+    package's bench_graph asks it for the CSR and BSR tiers. The
+    ogbn-arxiv stand-in at its published size under each of
+    REORDER_ORDERINGS (the native engine; rcmk held bit for bit to its
+    numpy body, every permutation checked), its block metrics and
+    bandwidth; K10 (csr_pallas) on each ordering at F = 128 against its
+    plain version and within 1e-4 of spmm_scipy; then f32 K2 at b = 32
+    (bsr_pallas) on the ordering with the fewest 32 x 32 blocks, against
+    its plain version and spmm_scipy. Returns what the timing needs.
+
+    X is the reference's check_result operand, seeded signs of 0.5: on a
+    graph of ones every partial sum is then a multiple of 0.5 under 2^23,
+    exact in f32 in any order, so the 1e-4 gate measures the kernels. On
+    standard-normal X two correct f32 answers differ by more than 1e-4
+    where a hub row (10,308 nonzeros) sums to near 0: spmm_scipy's own
+    sequential f32 sum is no closer to the exact answer than that. On
+    signs every product is exact in bf16 too, so reorder_normal_check
+    holds the same plans on standard-normal X as well."""
+    t0 = time.perf_counter()
+    csr = load_dataset(REORDER_DATASET, cache_dir=str(cache_dir),
+                       scale=REORDER_SCALE, seed=SEED)
+    log(f"[setup] {REORDER_DATASET} ({dataset_provenance(REORDER_DATASET)}, scale "
+        f"{REORDER_SCALE}) in {time.perf_counter() - t0:.1f} s: {graph_stats(csr)}")
+    signs = np.random.default_rng(SEED + 11).integers(0, 2, (csr.n_cols, REORDER_F))
+    x_np = (signs.astype(np.float32) - 0.5)
+    x = torch.as_tensor(x_np, device=DEV)
+    runs = {}
+    for name in REORDER_ORDERINGS:
+        t0 = time.perf_counter()
+        old2new = STRATEGIES[name](csr)
+        host_s = time.perf_counter() - t0
+        check_permutation(old2new, csr.n_rows)
+        if name == "rcmk":
+            t0 = time.perf_counter()
+            plain = rcm_variant(csr, impl="python")
+            if not np.array_equal(old2new, plain):
+                raise AssertionError("rcmk: the native permutation differs from numpy's")
+            log(f"  reorder rcmk: native = numpy permutation, bit for bit (numpy "
+                f"{time.perf_counter() - t0:.2f} s)")
+        t0 = time.perf_counter()
+        rcsr = permutate(old2new, csr)
+        perm_s = time.perf_counter() - t0
+        metrics = block_metrics(rcsr, REORDER_BLOCK_SIZES)
+        bp = bandwidth_profile(rcsr)
+        log(f"[reorder] {name}: ordering {host_s:.3f} s, permutate {perm_s:.3f} s "
+            f"(host, native); bandwidth={int(bp['bandwidth'])} "
+            f"profile={int(bp['profile'])} avg_span={bp['avg_span']:.1f}")
+        for b, m in metrics.items():
+            log(f"  {name} b={b:4d}: nnzb={int(m['nnzb']):9d} density={m['density']:.6f} "
+                f"utilization={m['utilization']:.5f} avg={m['average']:.2f}")
+        t0 = time.perf_counter()
+        plan = spmm_plan(rcsr, impl="csr_pallas", grad=False, device=DEV)
+        plan_s = time.perf_counter() - t0
+        check_kernel(plan, x, f"reorder {name} csr K10 F={REORDER_F}")
+        log(f"  reorder {name} K10 vs spmm_scipy: "
+            f"{assert_allclose(plan(x), spmm_scipy(rcsr, x_np), msg=name):.3e} "
+            f"(< {CHECK_EPS}); plan built in {plan_s:.2f} s")
+        runs[name] = {"csr": rcsr, "plan": plan, "metrics": metrics,
+                      "host_s": host_s}
+    best = min(REORDER_ORDERINGS,
+               key=lambda k: runs[k]["metrics"][REORDER_B]["nnzb"])
+    t0 = time.perf_counter()
+    bsr = csr_to_bsr(runs[best]["csr"], REORDER_B)
+    bplan = spmm_plan(bsr, impl="bsr_pallas", block_size=REORDER_B, grad=False,
+                      device=DEV)
+    bplan_s = time.perf_counter() - t0
+    if kernel_of(bplan)[1] != "bsr_spmm_sorted":
+        raise AssertionError(f"reorder b={REORDER_B}: {kernel_of(bplan)[1]}, "
+                             "expected f32 K2")
+    log(f"[reorder] BSR on {best} (the fewest {REORDER_B} x {REORDER_B} blocks): "
+        f"nnzb={bsr.nnzb}, {bplan.arrays[2].shape[0]} slots, conversion and plan "
+        f"{bplan_s:.1f} s (host)")
+    check_kernel(bplan, x, f"reorder {best} bsr K2 b={REORDER_B} F={REORDER_F}")
+    log(f"  reorder {best} K2 vs spmm_scipy: "
+        f"{assert_allclose(bplan(x), spmm_scipy(runs[best]['csr'], x_np), msg=best):.3e} "
+        f"(< {CHECK_EPS})")
+    return {"x": x, "runs": runs, "best": best, "bsr": bsr, "bplan": bplan,
+            "bplan_s": bplan_s}
+
+
+def reorder_normal_check(rp: dict) -> None:
+    """The reorder phase's plans on a standard-normal X of the same shape,
+    where an operand rounded below f32 (bf16, TF32) shows: each kernel
+    against its plain version (KERNEL_TOL) and against a float64 scipy
+    product (CHECK_EPS, relative to its max |ref|). Run after the phase's
+    counts are read: these launches do not count."""
+    csr0 = next(iter(rp["runs"].values()))["csr"]
+    x_np = seeded((csr0.n_cols, REORDER_F), SEED + 12)
+    x = torch.as_tensor(x_np, device=DEV)
+    x64 = x_np.astype(np.float64)
+
+    def against_f64(plan, rcsr, label: str) -> None:
+        got = plan(x).double().cpu().numpy()
+        want = rcsr.to_scipy().astype(np.float64) @ x64
+        err = np.abs(got - want).max() / max(np.abs(want).max(), 1.0)
+        log(f"  {label} vs float64 scipy: rel {err:.3e} (< {CHECK_EPS})")
+        if not err < CHECK_EPS:
+            raise AssertionError(f"{label}: rel err {err:.3e} vs float64 >= {CHECK_EPS}")
+
+    for name, run in rp["runs"].items():
+        label = f"reorder {name} csr K10 F={REORDER_F} normal X"
+        check_kernel(run["plan"], x, label)
+        against_f64(run["plan"], run["csr"], label)
+    best = rp["best"]
+    label = f"reorder {best} bsr K2 b={REORDER_B} F={REORDER_F} normal X"
+    check_kernel(rp["bplan"], x, label)
+    against_f64(rp["bplan"], rp["runs"][best]["csr"], label)
+
+
+def main_path(adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str):
+    """Phases 4 to 7, each run with the launch counts set to 0 just
     before it and read just after. Returns what the timing needs."""
     totals = {}
 
@@ -1081,6 +1231,17 @@ def main_path(adj, dims, op_bsr, op_csr, x_op, calibration):
     plans, errs = op_phase(op_bsr, x_op, calibration)
     plans[("csr", "csr")], errs[("csr", "csr")] = csr_op_phase(op_csr, x_op)
     read("op", {})
+    # each plan's answer checked twice: against its plain version and
+    # against spmm_scipy
+    reset_launches()
+    rphase = reorder_phase(ROOT / "build" / "datasets")
+    read("reorder", {"csr_spmm": 2 * len(REORDER_ORDERINGS), "bsr_spmm_sorted": 2})
+    reorder_normal_check(rphase)
+    # its times now, after the counts were read; then its 3 GB on the
+    # card go back before the other phases are timed
+    reorder_timing(rphase, card_line)
+    del rphase
+    torch.cuda.empty_cache()
     missing = [name for name in [kernel_of(p)[1] for p in plans.values()]
                + ["split_bf16", "quantize_int8"] if totals.get(name, 0) == 0]
     if missing:
@@ -1089,11 +1250,20 @@ def main_path(adj, dims, op_bsr, op_csr, x_op, calibration):
     # after the counts were read: these launches do not count
     i8 = plans[("int8", "sorted")]
     errs[("split", "split")] = check_split(x_op)
-    # at the op shape (no pad rows) and at the int8 slice's (dynamic
-    # scales, ddi's rows padded to the block grid)
+    # at the op shape (no pad rows), there with a NaN, a +Inf and a -Inf
+    # column (0, +-127 or, in a dynamic column of scale Inf, 0), and at the
+    # int8 slice's (dynamic scales, ddi's rows padded to the block grid)
+    x_nf = x_op.clone()
+    x_nf[5, 0], x_nf[6, 1], x_nf[7, 2] = float("nan"), float("inf"), float("-inf")
     errs[("quantize", "quantize")] = max(
         check_quantize(x_op, i8.statics[4], i8.arrays[-1], "op"),
+        check_quantize(x_nf, i8.statics[4], i8.arrays[-1], "op, NaN and +-Inf"),
         check_quantize(xs[0], plan_i8.statics[4], None, "ddi"))
+    q_dyn = quantize_int8(x_nf, i8.statics[4])[0]
+    q_st = quantize_int8(x_nf, i8.statics[4], i8.arrays[-1])[0]
+    if (q_dyn[5, 0] != 0 or q_dyn[:, 1:3].any() or q_st[5, 0] != 0
+            or q_st[6, 1] != 127 or q_st[7, 2] != -127):
+        raise AssertionError("quantize_int8: NaN or +-Inf not as JAX quantizes it")
     slices = {"f32": plan, "int8": plan_i8, "csr": plan_csr, "bf16": plan_bf16}
     return (slices, model, xs, train, plans, errs, totals,
             {"int8": slice_i8_err, "bf16": slice_bf16_err})
@@ -1124,6 +1294,48 @@ def csr_bound(csr: CSR, F: int) -> tuple:
     M, K = csr.shape
     nbytes = csr.nnz * 8 + (M + 1) * 8 + K * F * 4 + M * F * 4
     return bound("f32", 2.0 * csr.nnz * F, nbytes)
+
+
+def reorder_timing(rp: dict, card_line: str) -> None:
+    """The reorder phase's times: K10 on each ordering, then f32 K2 at
+    b = 32 on the ordering with the fewest blocks and its CSR/BSR ratio;
+    each beside its plain version, its bound and the PyTorch library
+    call. GFLOP/s = 2 nnz F / t (CSR) or 2 nnzb b^2 F / t (real blocks)."""
+    x, F = rp["x"], REORDER_F
+    csr_ms = {}
+    for name, run in rp["runs"].items():
+        rcsr, plan = run["csr"], run["plan"]
+        k_ms = cuda_ms(lambda: plan(x), iters=20)
+        p_ms = cuda_ms(lambda: plain_apply(plan, x), iters=3, warmup=1)
+        lib = library_ms("csr", rcsr, x, plan(x), 10,
+                         f"reorder {name} torch.sparse_csr_tensor @ X, F={F}")
+        b_ms, b_by = csr_bound(rcsr, F)
+        flops = 2.0 * rcsr.nnz * F
+        csr_ms[name] = k_ms
+        log(f"  reorder {name:<8} K10 csr_spmm kernel {k_ms:.4f} ms "
+            f"{flops / k_ms / 1e6:.1f} GFLOP/s, plain {p_ms:.3f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), library "
+            f"{'none' if lib is None else f'{lib:.4f} ms'}; b=32 nnzb "
+            f"{int(run['metrics'][32]['nnzb'])}, ordering {run['host_s']:.3f} s "
+            f"[{card_line}]")
+    best, bsr, bplan = rp["best"], rp["bsr"], rp["bplan"]
+    k_ms = cuda_ms(lambda: bplan(x), iters=10)
+    p_ms = cuda_ms(lambda: plain_apply(bplan, x), iters=2, warmup=1)
+    # the library call multiplies the whole block grid: pad X and the
+    # answer to it
+    pad = torch.nn.functional.pad
+    lib = library_ms("bsr", bsr, pad(x, (0, 0, 0, bsr.n_block_cols * bsr.b - x.shape[0])),
+                     pad(bplan(x), (0, 0, 0, bsr.n_block_rows * bsr.b - bsr.shape[0])),
+                     2, f"reorder {best} torch.sparse_bsr_tensor @ X, b={bsr.b}, F={F}")
+    b_ms, b_by = bsr_bound("f32", bsr, F)
+    flops = 2.0 * bsr.nnzb * bsr.b * bsr.b * F
+    log(f"  reorder {best:<8} K2 bsr_spmm_sorted b={bsr.b} kernel {k_ms:.4f} ms "
+        f"{flops / k_ms / 1e6:.1f} GFLOP/s on real blocks, plain {p_ms:.3f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), library "
+        f"{'none' if lib is None else f'{lib:.4f} ms'}, {bplan.arrays[2].shape[0]} "
+        f"slots, plan {rp['bplan_s']:.1f} s (host) [{card_line}]")
+    log(f"  reorder {best}: CSR / BSR = {csr_ms[best] / k_ms:.3f} (K10 "
+        f"{csr_ms[best]:.4f} ms, K2 b={bsr.b} {k_ms:.4f} ms) [{card_line}]")
 
 
 def device_profile(fn, iters: int):
@@ -1237,12 +1449,12 @@ def main() -> int:
     log(f"[setup] random_csr(2e-3, 2^17) in {time.perf_counter() - t0:.1f} s")
     dims = [256, 256, 256]
     (slices, model, xs, train, plans, errs, main_launches,
-     slice_errs) = main_path(adj, dims, op_bsr, op_csr, x_op, dense[:4096])
+     slice_errs) = main_path(adj, dims, op_bsr, op_csr, x_op, dense[:4096], card_line)
 
     # ---- timing (after the counts were read) ----------------------------
     log(f"[timing] card: {card_line}")
     x0 = xs[0]
-    ddi_flops = {"f32": 2.0 * ddi_nnzb(adj, 128) * 128 * 128 * dims[0],
+    ddi_flops = {"f32": 2.0 * calculate_nnzb(adj, 128) * 128 * 128 * dims[0],
                  "csr": 2.0 * adj.nnz * dims[0]}
     ddi_flops["int8"] = ddi_flops["bf16"] = ddi_flops["f32"]
     request_ms, spmm_ms = {}, {}

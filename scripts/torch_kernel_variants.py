@@ -4,7 +4,8 @@ F=512), on one NVIDIA GPU:
 
     python3 scripts/torch_kernel_variants.py f32_k2   # exact-f32 K2, K1, K4
     python3 scripts/torch_kernel_variants.py k3       # K3 (precision="high")
-    python3 scripts/torch_kernel_variants.py int8     # int8 K7 and K8
+    python3 scripts/torch_kernel_variants.py int8     # int8 K7, K8 and the
+                                                      # operand's quantization
 
 Each variant is a kernel source (csrc/bsr_spmm.cu, or csrc/bsr_spmm_int8.cu
 for int8) with a few lines replaced (VARIANTS), built beside the tree's
@@ -20,7 +21,9 @@ default plan), K1 (depth_sort=False; K5 launches the same kernel) and K4
 (the operand split included) and the ring alone on an operand split once,
 and bf16 K2 on the same build. For int8 each run times K7
 (group scale, calibrated as bench.py's int8 tier) and K8 on the ring
-alone, on an operand quantized and transposed once.
+alone, on an operand quantized and transposed once, and the operand's
+quantization into the ring's layout (quantize_int8, dynamic and static
+scales).
 """
 
 from __future__ import annotations
@@ -79,6 +82,15 @@ VARIANTS = {
         "as many stages as fit": {I8_STAGES: I8_STAGES.replace("6", "16")},
         "no products": {"for (int k = 0; k < BM / 32; ++k)\n        WgmmaS8":
                         "for (int k = 0; k < 0; ++k)\n        WgmmaS8"},
+        # the quantization as it was before a NaN quotient became 0, and
+        # with the NaN made 0 by a test beside the float clamp
+        "float clamp, no NaN test": {
+            "const int t = min(max(__float2int_rn(v / s), -127), 127);":
+            "const int t = (int)fminf(fmaxf(rintf(v / s), -127.f), 127.f);"},
+        "float clamp and a NaN test": {
+            "const int t = min(max(__float2int_rn(v / s), -127), 127);":
+            "const float r = v / s;\n  const int t = (int)(isnan(r) ? 0.f : "
+            "fminf(fmaxf(rintf(r), -127.f), 127.f));"},
     },
 }
 
@@ -187,23 +199,35 @@ def time_f32(bsr, x, sources, card: str) -> int:
     return 0
 
 
+def _equal(a, b) -> bool:
+    """Tensors, or tuples of them (quantize_int8's (q, scales)), equal."""
+    if isinstance(a, tuple):
+        return all(torch.equal(u, v) for u, v in zip(a, b))
+    return torch.equal(a, b)
+
+
 def time_int8(bsr, x, sources, card: str) -> int:
-    """K7 (group scale) and K8 on the ring alone, each variant in the
-    order A B .. B A, on an operand quantized and transposed once."""
+    """K7 (group scale) and K8 on the ring alone, on an operand quantized
+    and transposed once, and quantize_int8 into that layout with dynamic
+    and static scales; each variant in the order A B .. B A."""
     cal = x[:4096]
     runs = {}
     for layout, kw in (("K7", {}), ("K8", {"depth_sort": False})):
         plan = TI.bsr_spmm_pallas_int8_plan(bsr, calibration=cal, device="cuda", **kw)
         qt, cs = TI.quantize_operand(plan, x, transposed=True)
         runs[layout] = functools.partial(TI.run_quantized, plan, None, cs, qdense_t=qt)
+    n_out = runs["K7"].args[0].statics[4]
+    runs["quantize dynamic"] = functools.partial(TI.quantize_int8, x, n_out, None, True)
+    runs["quantize static"] = functools.partial(TI.quantize_int8, x, n_out, cs, True)
     refs = {k: run() for k, run in runs.items()}
     names = list(sources)
     for name in names + names[::-1]:
         use(sources[name])
         line = f"[int8] {name:<26}"
         for k, run in runs.items():
-            line += (f" {k} ring alone {cuda_ms(run):.3f} ms (answer equal to the "
-                     f"tree's: {torch.equal(run(), refs[k])})")
+            what = "" if k.startswith("quantize") else " ring alone"
+            line += (f" {k}{what} {cuda_ms(run):.3f} ms (answer equal to the "
+                     f"tree's: {_equal(run(), refs[k])})")
         print(f"{line} [{card}]", flush=True)
     return 0
 

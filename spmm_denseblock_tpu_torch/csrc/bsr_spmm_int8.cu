@@ -97,15 +97,16 @@
 // packed into a 32-bit word), stages it in shared memory by column and
 // writes each column's 128 bytes as eight 16-byte stores; row-major
 // output is stored from registers. Numerics are quantize_per_column's
-// (and JAX's) for finite input: q = rint(x / s) with a true IEEE divide
-// (no reciprocal, no fast-math), clamped to +-127; a NaN quotient clamps
-// to -127 (fmaxf drops the NaN), where the plain version's cast of it is
-// undefined. Dynamic scales need each column's
+// (and JAX's): q = rint(x / s) with a true IEEE divide (no reciprocal,
+// no fast-math), clamped to +-127, and 0 where the quotient is NaN.
+// Dynamic scales need each column's
 // absmax before any value quantizes: col_absmax_kernel reduces it first,
 // one atomicMax a column and CTA on the bit pattern of |x| (non-negative
 // floats order as their bits, and max does not depend on order, so the
 // result is deterministic); the quantize pass turns it into s = absmax *
-// f32(1/127), or 1 for a zero column, and writes the scales.
+// f32(1/127), or 1 for a zero column and for a column with a NaN (a
+// NaN's bits order above Inf's, and NaN > 0 fails, as in JAX), and
+// writes the scales.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -592,9 +593,15 @@ __global__ void __launch_bounds__(256)
   atomicMax(absmax + f, m);
 }
 
+// cvt.rni.s32.f32 (__float2int_rn) rounds half to even, saturates +-Inf
+// and makes a NaN 0, so a NaN quotient (a NaN entry, or Inf / Inf in a
+// dynamic column whose scale is Inf) is 0 as in JAX, and a static +-Inf
+// entry clamps to +-127. (A float clamp first would turn a NaN into -127:
+// fmaxf drops it; a NaN test beside it cost the kernel 13-42% on an
+// H100: scripts/torch_kernel_variants.py int8.)
 __device__ __forceinline__ uint32_t quantize(float v, float s) {
-  const float t = fminf(fmaxf(rintf(v / s), -127.f), 127.f);
-  return (uint32_t)(uint8_t)(int8_t)(int)t;
+  const int t = min(max(__float2int_rn(v / s), -127), 127);
+  return (uint32_t)(uint8_t)(int8_t)t;
 }
 
 // q = the quantized operand of n_out rows (rows >= n_rows are zeros),

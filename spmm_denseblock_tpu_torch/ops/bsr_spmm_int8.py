@@ -66,21 +66,23 @@ def static_col_scale(calibration) -> np.ndarray:
 def quantize_per_column(dense: torch.Tensor, col_scale=None):
     """Symmetric per-column int8 quantization of an f32 operand: a true
     divide, then round half to even (as ``jnp.round``), then clamp to
-    +-127. col_scale None computes the scales from this operand (a
-    column of zeros gets scale 1) as absmax times the f32 reciprocal of
-    127, which is what XLA compiles the JAX package's absmax / 127.0
-    into: bit-equal scales. Returns (q int8, col_scale f32). With the
-    pad rows, it is the plain version of the kernel tier's operand
-    quantization (``bsr_spmm_pallas_int8.quantize_int8``), bit-equal to
-    it for finite input only: the cast of a NaN quotient to int8 is
-    undefined here, and the kernel clamps a NaN to -127."""
+    +-127; a NaN quotient becomes 0, as JAX's clip and cast make it (a
+    NaN entry, or an Inf one in a column whose dynamic scale is Inf).
+    col_scale None computes the scales from this operand (a column of
+    zeros, or one holding a NaN, gets scale 1) as absmax times the f32
+    reciprocal of 127, which is what XLA compiles the JAX package's
+    absmax / 127.0 into: bit-equal scales. Returns (q int8, col_scale
+    f32). With the pad rows, it is the plain version of the kernel
+    tier's operand quantization
+    (``bsr_spmm_pallas_int8.quantize_int8``), bit-equal to it."""
     if col_scale is None:
         col_absmax = dense.abs().amax(dim=0)
         col_scale = torch.where(
             col_absmax > 0, col_absmax * (1.0 / 127.0), torch.ones_like(col_absmax)
         )
-    q = torch.round(dense / col_scale[None, :]).clamp_(-127, 127).to(torch.int8)
-    return q, col_scale.to(torch.float32)
+    q = torch.round(dense / col_scale[None, :])
+    q = q.nan_to_num_(nan=0.0, posinf=127.0, neginf=-127.0).clamp_(-127, 127)
+    return q.to(torch.int8), col_scale.to(torch.float32)
 
 
 def reject_int8_cast(dtype, tier: str) -> None:

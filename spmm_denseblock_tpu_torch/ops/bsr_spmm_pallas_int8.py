@@ -402,10 +402,8 @@ def quantize_int8(dense, n_out: int, col_scale=None, transposed: bool = False):
     ring's operand) or (n_out, F). Returns (q int8, col_scale f32: the
     static scales themselves, or new ones). CPU tensors run
     quantize_int8_plain; CUDA tensors launch quantize_int8_kernel (with
-    col_absmax_kernel first for dynamic scales), bit-equal to it for
-    finite input. A NaN or infinite value or scale is outside that: the
-    kernel clamps a NaN quotient to -127, the plain version's cast of it
-    is undefined."""
+    col_absmax_kernel first for dynamic scales), bit-equal to it, NaN
+    and +-Inf entries included."""
     if dense.device.type == "cpu":
         return quantize_int8_plain(dense, n_out, col_scale, transposed)
     if dense.dtype != torch.float32 or dense.dim() != 2:

@@ -37,9 +37,9 @@ def spmm_dense_torch(mat, dense, device=None) -> torch.Tensor:
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def assert_allclose(got, want, eps: float = CHECK_EPS, msg: str = ""):
+def assert_allclose(got, want, eps: float = CHECK_EPS, msg: str = "") -> float:
     """Relative-or-absolute elementwise gate: max |got - want| /
-    max(1, |want|) < eps."""
+    max(1, |want|) < eps. Returns that maximum."""
     if isinstance(got, torch.Tensor):
         got = got.detach().cpu().float().numpy()
     if isinstance(want, torch.Tensor):
@@ -50,6 +50,7 @@ def assert_allclose(got, want, eps: float = CHECK_EPS, msg: str = ""):
     err = np.max(np.abs(got - want) / denom) if got.size else 0.0
     if err >= eps:
         raise AssertionError(f"{msg} max rel-err {err:.3e} >= {eps:.1e}")
+    return float(err)
 
 
 def _split_bf16_ints(v: np.ndarray):

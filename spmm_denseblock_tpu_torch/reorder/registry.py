@@ -1,10 +1,7 @@
 """Strategy registry and the reorder entry points (twin of
-``spmm_denseblock_tpu/reorder/registry.py``).
-
-Every strategy name of the JAX package is listed. The ones whose port
-is still to come (they need the native engine or the METIS adapters,
-ROADMAP queue 1 item 8) raise NotImplementedError when asked for.
-"""
+``spmm_denseblock_tpu/reorder/registry.py``). The sweep names are the
+reference's benchmark grid ('original', 'rcmk', 'rabbit') plus the
+offline tools it drives."""
 
 from __future__ import annotations
 
@@ -16,6 +13,10 @@ import numpy as np
 from spmm_denseblock_tpu_torch.formats.csr import CSR
 from spmm_denseblock_tpu_torch.io.graph_io import dump_permutation, load_permutation
 from spmm_denseblock_tpu_torch.reorder.base import check_permutation, identity, permutate
+from spmm_denseblock_tpu_torch.reorder.gorder import gorder
+from spmm_denseblock_tpu_torch.reorder.greedy import greedy_closest
+from spmm_denseblock_tpu_torch.reorder.metis import metis_partition_rcm, nested_dissection
+from spmm_denseblock_tpu_torch.reorder.rabbit import rabbit_order
 from spmm_denseblock_tpu_torch.reorder.simple import (
     bfs,
     max_degree_sort,
@@ -23,30 +24,17 @@ from spmm_denseblock_tpu_torch.reorder.simple import (
     rcm_variant,
 )
 
-
-def _not_ported(name: str) -> Callable[[CSR], np.ndarray]:
-    def strategy(csr: CSR, **kw) -> np.ndarray:
-        raise NotImplementedError(
-            f"reorder strategy {name!r} is not ported yet "
-            "(ROADMAP queue 1 item 8: native engine, gorder, rabbit, "
-            "greedy and METIS)"
-        )
-
-    strategy.__name__ = name
-    return strategy
-
-
 STRATEGIES: Dict[str, Callable[[CSR], np.ndarray]] = {
     "original": identity,
     "degree": max_degree_sort,
     "bfs": bfs,
     "rcmk": rcm_variant,  # descending-degree BFS variant
     "rcm": rcm_classic,
-    "gorder": _not_ported("gorder"),
-    "rabbit": _not_ported("rabbit"),
-    "closest": _not_ported("closest"),
-    "gpmetis_rcmk": _not_ported("gpmetis_rcmk"),
-    "ndmetis": _not_ported("ndmetis"),
+    "gorder": gorder,
+    "rabbit": rabbit_order,
+    "closest": greedy_closest,
+    "gpmetis_rcmk": metis_partition_rcm,
+    "ndmetis": nested_dissection,  # in-process nested dissection
 }
 
 

@@ -1,6 +1,7 @@
-"""Degree-sort, BFS and RCM reorderings in vectorized numpy (twin of
-``spmm_denseblock_tpu/reorder/simple.py``; the numpy bodies, which the
-JAX package's native engine reproduces).
+"""Degree-sort, BFS and RCM reorderings (twin of
+``spmm_denseblock_tpu/reorder/simple.py``). impl="native" (the default)
+runs the native engine; impl="python" the vectorized numpy bodies below,
+which the engine matches bit for bit.
 
 - max_degree_sort: vertices by descending degree (stable).
 - bfs: multi-source FIFO BFS numbering, restarting at the lowest
@@ -15,10 +16,13 @@ from __future__ import annotations
 
 import numpy as np
 
+from spmm_denseblock_tpu_torch import native as _native
 from spmm_denseblock_tpu_torch.formats.csr import CSR
 
 
-def max_degree_sort(csr: CSR) -> np.ndarray:
+def max_degree_sort(csr: CSR, impl: str = "native") -> np.ndarray:
+    if _native.selected(impl):
+        return _native.run("sdb_degree_sort", csr)
     order = np.argsort(-csr.degrees(), kind="stable")  # new2old
     old2new = np.empty(csr.n_rows, dtype=np.int64)
     old2new[order] = np.arange(csr.n_rows)
@@ -61,7 +65,9 @@ def _ragged_arange(lengths: np.ndarray) -> np.ndarray:
     return np.arange(total, dtype=np.int64) - np.repeat(starts, lengths)
 
 
-def bfs(csr: CSR) -> np.ndarray:
+def bfs(csr: CSR, impl: str = "native") -> np.ndarray:
+    if _native.selected(impl):
+        return _native.run("sdb_bfs", csr)
     return _bfs_order(np.asarray(csr.indptr), np.asarray(csr.indices), csr.n_rows)
 
 
@@ -73,8 +79,10 @@ def _sort_adjacency_by(csr: CSR, key: np.ndarray) -> tuple[np.ndarray, np.ndarra
     return np.asarray(csr.indptr), indices[order]
 
 
-def rcm_variant(csr: CSR) -> np.ndarray:
+def rcm_variant(csr: CSR, impl: str = "native") -> np.ndarray:
     """The repo's 'rcmk': neighbors visited in descending-degree order."""
+    if _native.selected(impl):
+        return _native.run("sdb_rcm_variant", csr)
     indptr, indices = _sort_adjacency_by(csr, -csr.degrees())
     return _bfs_order(indptr, indices, csr.n_rows)
 

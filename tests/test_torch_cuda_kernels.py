@@ -576,12 +576,18 @@ def _quantize_input(kind, F, seed):
     -1.5 s: every quotient is a tie, 2.5 -> 2 and -1.5 -> -2 (half to
     even); clip: entries up to 300 s, past a static scale s's +-127;
     zero: every third column zeros (dynamic scale 1, q 0) among columns
-    of random magnitudes."""
+    of random magnitudes; nonfinite: random columns with one NaN in each
+    column f = 0 (mod 4), one +Inf at f = 1 and one -Inf at f = 2."""
     rng = np.random.default_rng(seed)
     s = np.exp2(rng.integers(-8, 8, size=F)).astype(np.float32)
-    if kind == "zero":
+    if kind in ("zero", "nonfinite"):
         x = (rng.standard_normal((Q_ROWS, F)) * rng.uniform(0.01, 50.0, F))
-        x[:, ::3] = 0.0
+        if kind == "zero":
+            x[:, ::3] = 0.0
+        else:
+            rows = rng.integers(0, Q_ROWS, size=F)
+            x[rows, np.arange(F)] = np.array([np.nan, np.inf, -np.inf, 1.0])[
+                np.arange(F) % 4]
         return x.astype(np.float32), s
     top = 127 if kind == "ties" else 300
     x = (rng.integers(-top, top, size=(Q_ROWS, F)) + 0.5) * s
@@ -614,12 +620,14 @@ def _f32_view(x, view):
 @pytest.mark.parametrize("transposed", [False, True])
 @pytest.mark.parametrize("static", [False, True])
 @pytest.mark.parametrize("F", [1, 70, 133])
-@pytest.mark.parametrize("kind", ["ties", "clip", "zero"])
+@pytest.mark.parametrize("kind", ["ties", "clip", "zero", "nonfinite"])
 def test_quantize_kernel_bit_exact(kind, F, static, transposed, view):
     """quantize_int8 on the card (one launch) equals its plain version
     (quantize_per_column with the pad, then transpose_operand) on the
     same operand and on the CPU, bit for bit: the int8 values and the
-    scales, dynamic and static, both layouts, pad rows zero."""
+    scales, dynamic and static, both layouts, pad rows zero. A NaN
+    quantizes to 0, a static +-Inf to +-127, and a dynamic +-Inf column
+    (scale Inf) to 0, as JAX's _quantize_cols(_static) give."""
     x, s = _quantize_input(kind, F, seed=F + 7)
     xv = _f32_view(x, view)
     cs = torch.as_tensor(s, device="cuda") if static else None
@@ -644,6 +652,16 @@ def test_quantize_kernel_bit_exact(kind, F, static, transposed, view):
         assert (rows.abs() == 127).sum() > Q_ROWS * F // 4
     if kind == "zero" and not static:
         assert (got_cs[::3] == 1).all() and not rows[:, ::3].any()
+    if kind == "nonfinite":
+        xc = torch.as_tensor(x, device="cuda")
+        assert not rows[:Q_ROWS][xc.isnan()].any()
+        if static:
+            assert (rows[:Q_ROWS][xc == np.inf] == 127).all()
+            assert (rows[:Q_ROWS][xc == -np.inf] == -127).all()
+        else:
+            assert (got_cs[::4] == 1).all() and got_cs[1::4].isinf().all()
+            assert got_cs[2::4].isinf().all()
+            assert not rows[:, 1::4].any() and not rows[:, 2::4].any()
 
 
 def test_quantize_entry_refuses_bad_geometry():

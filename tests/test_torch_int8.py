@@ -117,6 +117,39 @@ def test_quantize_per_column_bit_equal(static):
     np.testing.assert_array_equal(np.asarray(jc), tc.numpy())
 
 
+NONFINITE_X = np.array([[1.0, np.nan, np.inf, 2.0],
+                        [-3.0, 1.0, 1.0, -np.inf],
+                        [0.5, 2.0, -1.0, 1.0]], np.float32)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("static", [False, True])
+def test_quantize_nonfinite_matches_jax(static, transposed):
+    """A NaN entry, and a +-Inf entry in a dynamic column (scale Inf, so
+    Inf / Inf is NaN), quantize to 0; a static +-Inf entry to +-127:
+    quantize_per_column and quantize_int8_plain (pad rows, both layouts)
+    against JAX's _quantize_cols / _quantize_cols_static, bit for bit."""
+    x = NONFINITE_X
+    if static:
+        ones = np.ones(4, np.float32)
+        jq, jc = JI._quantize_cols_static(jnp.asarray(x), jnp.asarray(ones))
+        cs = torch.ones(4)
+        want = [[1, 0, 127, 2], [-3, 1, 1, -127], [0, 2, -1, 1]]
+    else:
+        jq, jc = JI._quantize_cols(jnp.asarray(x))
+        cs = None
+        want = [[42, 0, 0, 0], [-127, 1, 0, 0], [21, 2, 0, 0]]
+    np.testing.assert_array_equal(np.asarray(jq), want)
+    tq, tc = TQ.quantize_per_column(torch.as_tensor(x), cs)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    q, qc = TI.quantize_int8_plain(torch.as_tensor(x), 16, cs, transposed)
+    rows = q.t() if transposed else q
+    np.testing.assert_array_equal(rows[:3].numpy(), np.asarray(jq))
+    assert not rows[3:].any()
+    np.testing.assert_array_equal(qc.numpy(), np.asarray(jc))
+
+
 def test_rejections_raise_value_error():
     for dtype in (torch.int8, "int8", np.int8):
         with pytest.raises(ValueError, match="truncate"):
