@@ -29,7 +29,7 @@ Phases:
               with empty head rows and an empty band (F=7), a rectangular
               one (F=64) and ddi (F=256); then each K3 instance and its
               exact kernel (K2, K1, K5) on an input whose sums are exact in
-              f32 (bf16x3_exact_case at b = 16, 64 and 128, F=200): K3 must
+              f32 (bf16x3_exact_case at b = 16, 32, 64 and 128, F=200): K3 must
               give A_hi X_hi + A_hi X_lo + A_lo X_hi and the exact kernel A
               X, each bit for bit (the two differ in most entries), and each
               K3 call split its operand once, and f32 K4 A X bit for bit
@@ -108,15 +108,19 @@ Phases:
               bandwidth_profile; spmm_plan(impl="csr_pallas") (K10) on
               each ordering at F=128 (X: seeded signs of 0.5, the
               reference's check_result operand, every sum exact in f32)
-              against its plain version and within 1e-4 of spmm_scipy; spmm_plan(impl="bsr_pallas",
-              block_size=32) (f32 K2, sorted_kernel) on the ordering with
-              the fewest 32 x 32 blocks, against its plain version and
-              within 1e-4 of spmm_scipy; after its counts are read, the
-              same plans on a standard-normal X, against their plain
-              versions and a float64 scipy product; then
-              their CUDA-event times (K10 on each ordering, K2 at b = 32,
-              the CSR / BSR ratio) beside plain, bound and library, and
-              its device memory freed before phase 8
+              against its plain version and within 1e-4 of spmm_scipy;
+              spmm_plan(impl="bsr_pallas") on the ordering with the fewest
+              32 x 32 blocks: f32 K2 at block_size=32 and 16 and K1
+              (depth_sort=False) at 32, the pipelined FFMA loop's small
+              instances, each against its plain version and within 1e-4
+              of spmm_scipy; after its counts are read, the same plans on
+              a standard-normal X, against their plain versions and a
+              float64 scipy product; then their CUDA-event times (K10 on
+              each ordering; each BSR plan with its slots, deepest lane
+              and F tile width, then freed; the CSR / BSR ratio at b = 32)
+              beside plain, bound and library; once, bf16 K2 and K3
+              (sorted) at b = 32, still on the first FFMA loop, timed the
+              same way; its device memory freed before phase 8
   8. timing   CUDA-event times of kernel, plain and library paths
               (library: one PyTorch call computing the same function,
               timed as a yardstick and never called by the port:
@@ -211,7 +215,9 @@ from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import (  # noqa: E402
     _sm_count,
     bf16_tile_geometry,
     bsr_spmm_pallas_plan,
+    f32_small_geometry,
     group_pointer,
+    lane_order,
     plain_apply,
     split_operand,
     split_operand_plain,
@@ -273,6 +279,14 @@ REORDER_ORDERINGS = ("original", "rcmk", "rabbit", "gorder")
 REORDER_BLOCK_SIZES = (16, 32, 64, 128)
 REORDER_B = 32
 REORDER_F = 128
+# the BSR plans of the reorder phase, on the ordering with the fewest
+# REORDER_B blocks: (id, block size, plan arguments), f32 K2 at b = 32
+# first (the CSR / BSR ratio's), then K2 at 16 and K1 at 32
+REORDER_BSR = (("K2", 32, {}), ("K2", 16, {}), ("K1", 32, {"depth_sort": False}))
+# timed once after the phase, on the first plan's ordering and b: the
+# small-block instances still on the first FFMA loop
+REORDER_FIRST_LOOP = (("bf16 K2", {"dtype": torch.bfloat16}),
+                      ("K3 sorted", {"precision": "high"}))
 _PALLAS = "spmm_denseblock_tpu/ops/bsr_spmm_pallas.py"
 _PALLAS_I8 = "spmm_denseblock_tpu/ops/bsr_spmm_pallas_int8.py"
 _CSRC = "spmm_denseblock_tpu_torch/csrc/"
@@ -412,10 +426,11 @@ def f32_rowgroup_plan(bsr: BSR) -> Plan:
     R, _ = _rowgroup_policy(2, gh)
     step_groups, slot_cols, blocks, n_groups = _pack_rowgroups(
         rows, cov.block_cols[: cov.nnzb], cov.blocks[: cov.nnzb], gh, R)
+    group_ptr = group_pointer(step_groups, n_groups)
+    order, depth = lane_order(group_ptr, R, gh)
     statics = ("rowgroup", cov.n_block_rows, *bsr.shape,
-               cov.n_block_cols * bsr.b, "exact", (R, gh))
-    return Plan([step_groups, slot_cols, blocks,
-                 group_pointer(step_groups, n_groups)],
+               cov.n_block_cols * bsr.b, "exact", depth, (R, gh))
+    return Plan([step_groups, slot_cols, blocks, group_ptr, order],
                 _pallas_apply, statics, device=DEV)
 
 
@@ -500,11 +515,12 @@ def k3_exactness() -> None:
     """Each K3 instance, and the exact kernel on its layout, on an input
     whose partial sums are all exact in f32: the order of a kernel's
     sums cannot matter, so K3 must give the bf16x3 answer and the exact
-    kernel A X, bit for bit; at b = 16 (the FFMA loops) and at b = 64 and
-    128 (K3 on the tensor-core ring, f32 K1, K2 and K5 on the pipelined
-    FFMA loop). f32 K4 (a hand-packed plan: K3 has no row-group instance)
-    must give A X too. Each K3 call splits its operand once."""
-    for b in (16, 64, 128):
+    kernel A X, bit for bit; at b = 16 and 32 (K3 on the first FFMA loop,
+    the exact kernels on the pipelined loop's small instances) and at b
+    = 64 and 128 (K3 on the tensor-core ring, f32 K1, K2 and K5 on the
+    pipelined FFMA loop). f32 K4 (a hand-packed plan: K3 has no row-group
+    instance) must give A X too. Each K3 call splits its operand once."""
+    for b in (16, 32, 64, 128):
         bsr, x, want3, want_exact = bf16x3_exact_case(F=200, seed=b, b=b)
         x = torch.as_tensor(x, device=DEV)
         n_diff = int((want3 != want_exact).sum())
@@ -1081,9 +1097,11 @@ def reorder_phase(cache_dir: Path):
     REORDER_ORDERINGS (the native engine; rcmk held bit for bit to its
     numpy body, every permutation checked), its block metrics and
     bandwidth; K10 (csr_pallas) on each ordering at F = 128 against its
-    plain version and within 1e-4 of spmm_scipy; then f32 K2 at b = 32
-    (bsr_pallas) on the ordering with the fewest 32 x 32 blocks, against
-    its plain version and spmm_scipy. Returns what the timing needs.
+    plain version and within 1e-4 of spmm_scipy; then, on the ordering
+    with the fewest 32 x 32 blocks, REORDER_BSR's plans (bsr_pallas: f32
+    K2 at b = 32 and 16, K1 at 32, on the pipelined FFMA loop's small
+    instances), each against its plain version and spmm_scipy. Returns
+    what the timing needs.
 
     X is the reference's check_result operand, seeded signs of 0.5: on a
     graph of ones every partial sum is then a multiple of 0.5 under 2^23,
@@ -1136,23 +1154,28 @@ def reorder_phase(cache_dir: Path):
                       "host_s": host_s}
     best = min(REORDER_ORDERINGS,
                key=lambda k: runs[k]["metrics"][REORDER_B]["nnzb"])
-    t0 = time.perf_counter()
-    bsr = csr_to_bsr(runs[best]["csr"], REORDER_B)
-    bplan = spmm_plan(bsr, impl="bsr_pallas", block_size=REORDER_B, grad=False,
-                      device=DEV)
-    bplan_s = time.perf_counter() - t0
-    if kernel_of(bplan)[1] != "bsr_spmm_sorted":
-        raise AssertionError(f"reorder b={REORDER_B}: {kernel_of(bplan)[1]}, "
-                             "expected f32 K2")
-    log(f"[reorder] BSR on {best} (the fewest {REORDER_B} x {REORDER_B} blocks): "
-        f"nnzb={bsr.nnzb}, {bplan.arrays[2].shape[0]} slots, conversion and plan "
-        f"{bplan_s:.1f} s (host)")
-    check_kernel(bplan, x, f"reorder {best} bsr K2 b={REORDER_B} F={REORDER_F}")
-    log(f"  reorder {best} K2 vs spmm_scipy: "
-        f"{assert_allclose(bplan(x), spmm_scipy(runs[best]['csr'], x_np), msg=best):.3e} "
-        f"(< {CHECK_EPS})")
-    return {"x": x, "runs": runs, "best": best, "bsr": bsr, "bplan": bplan,
-            "bplan_s": bplan_s}
+    want = spmm_scipy(runs[best]["csr"], x_np)
+    bsr_runs = []
+    for kid, b, kw in REORDER_BSR:
+        t0 = time.perf_counter()
+        bsr = csr_to_bsr(runs[best]["csr"], b)
+        bplan = spmm_plan(bsr, impl="bsr_pallas", block_size=b, grad=False,
+                          device=DEV, **kw)
+        bplan_s = time.perf_counter() - t0
+        if kernel_of(bplan)[0] != kid or bplan.statics[5] != "exact":
+            raise AssertionError(f"reorder b={b} {kw}: {kernel_of(bplan)[1]}, "
+                                 f"expected f32 {kid}")
+        label = f"reorder {best} bsr {kid} b={b} F={REORDER_F}"
+        log(f"[reorder] BSR on {best} (the fewest {REORDER_B} x {REORDER_B} blocks), "
+            f"{kid} b={b}: nnzb={bsr.nnzb}, {bplan.arrays[2].shape[0]} slots, "
+            f"deepest lane {bplan.statics[6]} slots, conversion and plan "
+            f"{bplan_s:.1f} s (host)")
+        check_kernel(bplan, x, label)
+        log(f"  {label} vs spmm_scipy: "
+            f"{assert_allclose(bplan(x), want, msg=label):.3e} (< {CHECK_EPS})")
+        bsr_runs.append({"kid": kid, "bsr": bsr, "plan": bplan, "plan_s": bplan_s,
+                         "label": label})
+    return {"x": x, "runs": runs, "best": best, "bsr_runs": bsr_runs}
 
 
 def reorder_normal_check(rp: dict) -> None:
@@ -1178,10 +1201,10 @@ def reorder_normal_check(rp: dict) -> None:
         label = f"reorder {name} csr K10 F={REORDER_F} normal X"
         check_kernel(run["plan"], x, label)
         against_f64(run["plan"], run["csr"], label)
-    best = rp["best"]
-    label = f"reorder {best} bsr K2 b={REORDER_B} F={REORDER_F} normal X"
-    check_kernel(rp["bplan"], x, label)
-    against_f64(rp["bplan"], rp["runs"][best]["csr"], label)
+    for br in rp["bsr_runs"]:
+        label = br["label"] + " normal X"
+        check_kernel(br["plan"], x, label)
+        against_f64(br["plan"], rp["runs"][rp["best"]]["csr"], label)
 
 
 def main_path(adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str):
@@ -1235,10 +1258,13 @@ def main_path(adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str):
     # against spmm_scipy
     reset_launches()
     rphase = reorder_phase(ROOT / "build" / "datasets")
-    read("reorder", {"csr_spmm": 2 * len(REORDER_ORDERINGS), "bsr_spmm_sorted": 2})
+    read("reorder", {"csr_spmm": 2 * len(REORDER_ORDERINGS),
+                     "bsr_spmm_sorted": 2 * sum(k == "K2" for k, _, _ in REORDER_BSR),
+                     "bsr_spmm_flat": 2 * sum(k == "K1" for k, _, _ in REORDER_BSR)})
     reorder_normal_check(rphase)
-    # its times now, after the counts were read; then its 3 GB on the
-    # card go back before the other phases are timed
+    # its times now, after the counts were read; each BSR plan's gigabytes
+    # on the card go back after its timing, the rest before the other
+    # phases are timed
     reorder_timing(rphase, card_line)
     del rphase
     torch.cuda.empty_cache()
@@ -1297,10 +1323,15 @@ def csr_bound(csr: CSR, F: int) -> tuple:
 
 
 def reorder_timing(rp: dict, card_line: str) -> None:
-    """The reorder phase's times: K10 on each ordering, then f32 K2 at
-    b = 32 on the ordering with the fewest blocks and its CSR/BSR ratio;
-    each beside its plain version, its bound and the PyTorch library
-    call. GFLOP/s = 2 nnz F / t (CSR) or 2 nnzb b^2 F / t (real blocks)."""
+    """The reorder phase's times: K10 on each ordering, then each of
+    REORDER_BSR's plans on the ordering with the fewest blocks (f32 K2 at
+    b = 32, whose time makes the CSR/BSR ratio, K2 at 16, K1 at 32), each
+    beside its plain version, its bound and the PyTorch library call, its
+    slots, its deepest lane's slots and its F tile width; then, once, the
+    small-block instances still on the first FFMA loop (bf16 K2 and K3
+    sorted) at the first plan's b. Each BSR plan is freed after its
+    timing. GFLOP/s = 2 nnz F / t (CSR) or 2 nnzb b^2 F / t (real
+    blocks)."""
     x, F = rp["x"], REORDER_F
     csr_ms = {}
     for name, run in rp["runs"].items():
@@ -1318,24 +1349,60 @@ def reorder_timing(rp: dict, card_line: str) -> None:
             f"{'none' if lib is None else f'{lib:.4f} ms'}; b=32 nnzb "
             f"{int(run['metrics'][32]['nnzb'])}, ordering {run['host_s']:.3f} s "
             f"[{card_line}]")
-    best, bsr, bplan = rp["best"], rp["bsr"], rp["bplan"]
-    k_ms = cuda_ms(lambda: bplan(x), iters=10)
-    p_ms = cuda_ms(lambda: plain_apply(bplan, x), iters=2, warmup=1)
-    # the library call multiplies the whole block grid: pad X and the
-    # answer to it
+    best = rp["best"]
     pad = torch.nn.functional.pad
-    lib = library_ms("bsr", bsr, pad(x, (0, 0, 0, bsr.n_block_cols * bsr.b - x.shape[0])),
-                     pad(bplan(x), (0, 0, 0, bsr.n_block_rows * bsr.b - bsr.shape[0])),
-                     2, f"reorder {best} torch.sparse_bsr_tensor @ X, b={bsr.b}, F={F}")
-    b_ms, b_by = bsr_bound("f32", bsr, F)
-    flops = 2.0 * bsr.nnzb * bsr.b * bsr.b * F
-    log(f"  reorder {best:<8} K2 bsr_spmm_sorted b={bsr.b} kernel {k_ms:.4f} ms "
-        f"{flops / k_ms / 1e6:.1f} GFLOP/s on real blocks, plain {p_ms:.3f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}), library "
-        f"{'none' if lib is None else f'{lib:.4f} ms'}, {bplan.arrays[2].shape[0]} "
-        f"slots, plan {rp['bplan_s']:.1f} s (host) [{card_line}]")
-    log(f"  reorder {best}: CSR / BSR = {csr_ms[best] / k_ms:.3f} (K10 "
-        f"{csr_ms[best]:.4f} ms, K2 b={bsr.b} {k_ms:.4f} ms) [{card_line}]")
+    first_bsr, k2_ms = rp["bsr_runs"][0]["bsr"], None
+    while rp["bsr_runs"]:
+        br = rp["bsr_runs"].pop(0)
+        bsr, plan = br["bsr"], br.pop("plan")
+        k_ms = cuda_ms(lambda: plan(x), iters=10)
+        p_ms = cuda_ms(lambda: plain_apply(plan, x), iters=2, warmup=1)
+        # the library call multiplies the whole block grid: pad X and the
+        # answer to it
+        lib = library_ms(
+            "bsr", bsr, pad(x, (0, 0, 0, bsr.n_block_cols * bsr.b - x.shape[0])),
+            pad(plan(x), (0, 0, 0, bsr.n_block_rows * bsr.b - bsr.shape[0])), 2,
+            f"reorder {best} torch.sparse_bsr_tensor @ X, b={bsr.b}, F={F}")
+        b_ms, b_by = bsr_bound("f32", bsr, F)
+        flops = 2.0 * bsr.nnzb * bsr.b * bsr.b * F
+        depth, n_slots = plan.statics[6], plan.arrays[2].shape[0]
+        bn = f32_small_geometry(bsr.b, F, _sm_count(0), n_slots, depth)[0]
+        name = kernel_of(plan)[1]
+        log(f"  reorder {best:<8} {br['kid']} {name} b={bsr.b} kernel {k_ms:.4f} ms "
+            f"{flops / k_ms / 1e6:.1f} GFLOP/s on real blocks, plain {p_ms:.3f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), library "
+            f"{'none' if lib is None else f'{lib:.4f} ms'}, {n_slots} slots, "
+            f"deepest lane {depth} slots, BN={bn}, plan {br['plan_s']:.1f} s "
+            f"(host) [{card_line}]")
+        if k2_ms is None:
+            k2_ms = k_ms
+            log(f"  reorder {best}: CSR / BSR = {csr_ms[best] / k_ms:.3f} (K10 "
+                f"{csr_ms[best]:.4f} ms, K2 b={bsr.b} {k_ms:.4f} ms) [{card_line}]")
+        del plan
+        torch.cuda.empty_cache()
+    # the instances not redesigned yet, timed once for the ranking
+    bsr = first_bsr
+    for label, kw in REORDER_FIRST_LOOP:
+        plan = spmm_plan(bsr, impl="bsr_pallas", block_size=bsr.b, grad=False,
+                         device=DEV, **kw)
+        name = kernel_of(plan)[1]
+        tag = "bf16" if "dtype" in kw else "high"
+        xk = x.to(torch.bfloat16) if tag == "bf16" else x
+        check_kernel(plan, xk, f"reorder {best} {label} b={bsr.b} F={F}")
+        k_ms = cuda_ms(lambda: plan(xk), iters=5)
+        p_ms = cuda_ms(lambda: plain_apply(plan, xk), iters=1, warmup=1)
+        lib = library_ms(
+            "bsr", bsr, pad(xk, (0, 0, 0, bsr.n_block_cols * bsr.b - x.shape[0])),
+            pad(plan(xk), (0, 0, 0, bsr.n_block_rows * bsr.b - bsr.shape[0])), 2,
+            f"reorder {best} torch.sparse_bsr_tensor @ X, {tag}, b={bsr.b}, F={F}")
+        b_ms, b_by = bsr_bound(tag, bsr, F)
+        log(f"  reorder {best:<8} {label} {name} b={bsr.b} (first FFMA loop) kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"library {'none' if lib is None else f'{lib:.4f} ms'}, "
+            f"{plan.arrays[2].shape[0] // (2 * bsr.b if tag == 'high' else 1)} slots; "
+            f"f32 K2 {k2_ms:.4f} ms [{card_line}]")
+        del plan
+        torch.cuda.empty_cache()
 
 
 def device_profile(fn, iters: int):

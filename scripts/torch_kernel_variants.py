@@ -3,6 +3,7 @@ at bench.py's op shape (random_bsr(2e-2, 1024, 1024, b=128, seed=1234),
 F=512), on one NVIDIA GPU:
 
     python3 scripts/torch_kernel_variants.py f32_k2   # exact-f32 K2, K1, K4
+    python3 scripts/torch_kernel_variants.py f32_small  # the same at b = 16, 32
     python3 scripts/torch_kernel_variants.py k3       # K3 (precision="high")
     python3 scripts/torch_kernel_variants.py int8     # int8 K7, K8 and the
                                                       # operand's quantization
@@ -17,7 +18,14 @@ purpose: they time the loads, not an answer). For f32_k2 each run times
 the three exact-f32 kernels that share the pipelined FFMA loop: K2 (the
 default plan), K1 (depth_sort=False; K5 launches the same kernel) and K4
 (chip_smoke.f32_rowgroup_plan), and K2 on the f32 GCN slice's SpMM
-(chip_smoke's ddi stand-in, F=256, 64-column tiles). For K3 each run times the whole call
+(chip_smoke's ddi stand-in, F=256, 64-column tiles). f32_small times the
+pipelined loop's small instances on chip_smoke's reorder plans (the
+ogbn-arxiv stand-in under gorder, F=128: K2 at b = 32 and 16, K1 at b =
+32) and on K2 at b = 32 under rcmk and the original order (other hub
+positions), each at the geometry's F tile width, at 32, 64 and 128
+columns forced, and with the lane order switched off (packed order); its
+source variants change the stages, the threads a CTA (so the microtiles)
+and how the block chunk is staged. For K3 each run times the whole call
 (the operand split included) and the ring alone on an operand split once,
 and bf16 K2 on the same build. For int8 each run times K7
 (group scale, calibrated as bench.py's int8 tier) and K8 on the ring
@@ -57,8 +65,56 @@ PIPE_OROW = """  // The output block-row, read after the loop so that it holds n
 PIPE_STAGES = "static constexpr int kStages = BN == 128 ? 3 : 4;"
 PIPE_J0 = "  const int64_t j0 = group_ptr[g];\n  const int n_chunks"
 I8_STAGES = "static constexpr int kMaxStages = 6;"
+PIPE_SMALL_STAGES = "static constexpr int kStages = kSmall ? 4 : BN == 128 ? 3 : 4;"
+# the small instances' block chunk staged untransposed: rows of the
+# block's 16-deep chunk in 16-byte copies (rows of 20 floats), read a
+# float4 of 4 depths a row at a time, in the same depth order
+A_COPY_T = """    const float* blk = blocks + ls * (BM * BM) + lk * kPipeK + a_m * BM + a_k;
+    const uint32_t a_st = smem + (uint32_t)(issued % kStages) *
+                                     (G::kStageFloats * 4);
+#pragma unroll
+    for (int it = 0; it < BM / kARows; ++it)
+      cp_async4(a_st + (a_k * G::kAStride + a_m + it * kARows) * 4,
+                blk + it * kARows * BM);
+"""
+A_COPY_ROWS = """    const float* blk = blocks + ls * (BM * BM) + lk * kPipeK;
+    const uint32_t a_st = smem + (uint32_t)(issued % kStages) *
+                                     (G::kStageFloats * 4);
+    for (int e = tid; e < BM * 4; e += kThreads)
+      cp_async16(a_st + (e / 4 * (kPipeK + 4) + e % 4 * 4) * 4,
+                 blk + e / 4 * BM + e % 4 * 4, true);
+"""
+A_READ_T = """    for (int kk = 0; kk < kPipeK; ++kk) {
+      float a[TM], x[TN];
+      const float* ap = as + kk * G::kAStride + ty * TM;
+      if constexpr (TM % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < TM; i += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(ap + i);
+          a[i] = v.x, a[i + 1] = v.y, a[i + 2] = v.z, a[i + 3] = v.w;
+        }
+      } else if constexpr (TM == 2) {
+        const float2 v = *reinterpret_cast<const float2*>(ap);
+        a[0] = v.x, a[1] = v.y;
+      } else {
+        a[0] = *ap;
+      }
+"""
+A_READ_ROWS = """    for (int kk = 0; kk < kPipeK; ++kk) {
+      float a[TM], x[TN];
+      if (kk % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+          av[i] = *reinterpret_cast<const float4*>(
+              as + (ty * TM + i) * (kPipeK + 4) + kk);
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        a[i] = kk % 4 == 0 ? av[i].x : kk % 4 == 1 ? av[i].y
+             : kk % 4 == 2 ? av[i].z : av[i].w;
+"""
 # which of _kernels.SOURCES each group of variants edits
-SOURCE = {"f32_k2": 0, "k3": 0, "int8": 1}
+SOURCE = {"f32_k2": 0, "f32_small": 0, "k3": 0, "int8": 1}
 VARIANTS = {
     "f32_k2": {
         "1 CTA an SM": {"__launch_bounds__(kThreads, 2)\n    ffma_pipe_kernel":
@@ -69,6 +125,21 @@ VARIANTS = {
         "output row before the loop": {
             PIPE_OROW: "",
             PIPE_J0: PIPE_J0.replace("\n", "\n" + PIPE_OROW.split("\n", 3)[3])},
+    },
+    "f32_small": {
+        "3 stages": {PIPE_SMALL_STAGES: PIPE_SMALL_STAGES.replace("? 4 :", "? 3 :")},
+        "6 stages": {PIPE_SMALL_STAGES: PIPE_SMALL_STAGES.replace("? 4 :", "? 6 :")},
+        # half the outputs a thread at b = 16 (1 x 4 at BN = 32)
+        "128 threads at b = 16": {"kThreads = kSmall ? 4 * BM : 256;":
+                                  "kThreads = kSmall ? 128 : 256;"},
+        # twice the outputs a thread at b = 32 (8 x 8 at BN = 128)
+        "64 threads at b = 32": {"kThreads = kSmall ? 4 * BM : 256;":
+                                 "kThreads = kSmall ? 64 : 256;"},
+        "block chunk untransposed, 16-byte copies": {
+            "static constexpr int kAFloats = kPipeK * kAStride;":
+            "static constexpr int kAFloats = BM * (kPipeK + 4);",
+            A_COPY_T: A_COPY_ROWS,
+            "#pragma unroll\n" + A_READ_T: "float4 av[TM];\n#pragma unroll\n" + A_READ_ROWS},
     },
     "k3": {
         "ring of 2 stages": {
@@ -153,6 +224,8 @@ def main() -> int:
         return time_int8(bsr, x, sources, card)
     if which == "f32_k2":
         return time_f32(bsr, x, sources, card)
+    if which == "f32_small":
+        return time_f32_small(sources, card)
     plan = T.bsr_spmm_pallas_plan(bsr, grad=False, device="cuda", precision="high")
     bf16 = T.bsr_spmm_pallas_plan(bsr, grad=False, dtype=torch.bfloat16, device="cuda")
     x_bf = x.to(torch.bfloat16)
@@ -196,6 +269,65 @@ def time_f32(bsr, x, sources, card: str) -> int:
             line += (f" {k} {cuda_ms(lambda: p(xk), iters):.3f} ms (equal: "
                      f"{torch.equal(p(xk), refs[k])})")
         print(f"{line} [{card}]", flush=True)
+    return 0
+
+
+def time_f32_small(sources, card: str) -> int:
+    """The pipelined loop's small instances on chip_smoke's reorder plans
+    (arxiv under gorder, F = 128: K2 at b = 32 and 16, K1 at b = 32) and
+    K2 at b = 32 under rcmk and the original order, each variant in the
+    order A B .. B A; per plan the geometry's BN, BN = 32, 64 and 128
+    forced, and the geometry's BN in packed lane order."""
+    import chip_smoke as cs
+
+    src = cs.load_dataset(cs.REORDER_DATASET, cache_dir=str(ROOT / "build" / "datasets"),
+                          scale=cs.REORDER_SCALE, seed=cs.SEED)
+    x = torch.as_tensor(cs.seeded((src.n_cols, cs.REORDER_F), cs.SEED + 12),
+                        device="cuda")
+    runs = [("gorder", run) for run in cs.REORDER_BSR]
+    runs += [(name, ("K2", 32, {})) for name in ("rcmk", "original")]
+    plans = {}
+    for name, (kid, b, kw) in runs:
+        csr = cs.permutate(cs.STRATEGIES[name](src), src)
+        plan = cs.spmm_plan(cs.csr_to_bsr(csr, b), impl="bsr_pallas", block_size=b,
+                            grad=False, device="cuda", **kw)
+        order, depth, n_slots = plan.arrays[-1], plan.statics[6], plan.arrays[2].shape[0]
+        plans[f"{name} {kid} b={b}"] = plan
+        # where packed order would start the deepest lane
+        print(f"[f32_small] {name} {kid} b={b}: {n_slots} slots, deepest lane "
+              f"{depth} slots, at {order[0].item()} of {order.numel()} lanes in "
+              f"packed order, BN="
+              f"{T.f32_small_geometry(b, cs.REORDER_F, T._sm_count(0), n_slots, depth)[0]}",
+              flush=True)
+    refs = {k: p(x) for k, p in plans.items()}
+    geometry = T.f32_small_geometry
+
+    def packed_order(plan):  # the lanes in packed order
+        last = f"a{len(plan.arrays) - 1}"
+        saved = getattr(plan, last)
+        setattr(plan, last, torch.arange(saved.numel(), dtype=torch.int32,
+                                         device=saved.device))
+        return lambda: setattr(plan, last, saved)
+
+    names = list(sources)
+    for name in names + names[::-1]:
+        use(sources[name])
+        for k, p in plans.items():
+            # the geometry's BN in lane order, then in packed order, next to
+            # each other, so that drift over the sweep stays out of the pair
+            line = (f"[f32_small] {name:<40} {k:<16}: BN=auto "
+                    f"{cuda_ms(lambda: p(x)):.3f} ms ({torch.equal(p(x), refs[k])})")
+            restore = packed_order(p)
+            line += (f", packed order {cuda_ms(lambda: p(x)):.3f} ms"
+                     f" ({torch.equal(p(x), refs[k])});")
+            restore()
+            for bn in (32, 64, 128):
+                T.f32_small_geometry = lambda b, F, n_sms, n_slots, depth: (
+                    bn, -(-F // 4) * 4)
+                line += (f" BN={bn} {cuda_ms(lambda: p(x)):.3f} ms"
+                         f" ({torch.equal(p(x), refs[k])})")
+                T.f32_small_geometry = geometry
+            print(f"{line} [{card}]", flush=True)
     return 0
 
 

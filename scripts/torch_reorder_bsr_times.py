@@ -1,0 +1,73 @@
+"""Time the BSR kernels of chip_smoke.py's reorder phase, built from the
+checkout at ROOT (default: this one), on one NVIDIA GPU:
+
+    python3 scripts/torch_reorder_bsr_times.py [ROOT]
+
+The ogbn-arxiv stand-in at its published size (169,343 nodes), under
+gorder (the ordering with the fewest 32 x 32 blocks), F = 128, X of
+seeded standard-normal values: f32 K2 at b = 32 and 16, f32 K1
+(depth_sort=False) at b = 32, bf16 K2 and K3 (precision="high", sorted) at
+b = 32. One line per plan: the kernel's ms (CUDA events, 10 calls after 2
+warm-ups), its slots, and the sha256 of its answer's bytes. Each plan is
+freed after its line. Run it once per checkout, each in its own process
+(the two packages share a name), in the order parent, change, change,
+parent within one call: the times compare two builds on one card, and
+equal digests mean answers equal bit for bit.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+PLANS = (("f32 K2", 32, {}), ("f32 K2", 16, {}),
+         ("f32 K1", 32, {"depth_sort": False}),
+         ("bf16 K2", 32, {"dtype": torch.bfloat16}),
+         ("K3 sorted", 32, {"precision": "high"}))
+
+
+def main() -> int:
+    root = Path(sys.argv[1] if len(sys.argv) > 1 else Path(__file__).parents[1])
+    if not torch.cuda.is_available():
+        print(__doc__, file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(root.resolve()))
+    import chip_smoke as cs  # noqa: E402  (ROOT's, with ROOT's package)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+    cs._kernels.load()
+    csr = cs.load_dataset("ogbn-arxiv", cache_dir=str(root / "build" / "datasets"),
+                          scale=1.0, seed=cs.SEED)
+    csr = cs.permutate(cs.STRATEGIES["gorder"](csr), csr)
+    x = torch.as_tensor(np.random.default_rng(cs.SEED + 12).standard_normal(
+        (csr.n_cols, 128)).astype(np.float32), device="cuda")
+    for label, b, kw in PLANS:
+        t0 = time.perf_counter()
+        bsr = cs.csr_to_bsr(csr, b)
+        plan = cs.spmm_plan(bsr, impl="bsr_pallas", block_size=b, grad=False,
+                            device="cuda", **kw)
+        host_s = time.perf_counter() - t0
+        xk = x.to(torch.bfloat16) if "dtype" in kw else x
+        ms = cs.cuda_ms(lambda: plan(xk), iters=10)
+        digest = hashlib.sha256(plan(xk).cpu().numpy().tobytes()).hexdigest()
+        # a "high" plan holds its blocks as two bf16 planes of S*b rows
+        n_slots = plan.arrays[2].shape[0] // (2 * b if "precision" in kw else 1)
+        print(f"[{root.name}] {label:<9} b={b:<3} {cs.kernel_of(plan)[1]:<26} "
+              f"{ms:.4f} ms, {n_slots} slots, plan {host_s:.1f} s (host), "
+              f"sha256={digest} [{card}]", flush=True)
+        del plan
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -21,11 +21,12 @@
 //
 // Three main loops serve them, picked by the entry on b and the operands:
 //
-//   instance                    b = 16, 32     b = 64, 128
-//   f32 K1, K2, K4, K5          FFMA loop      pipelined FFMA loop
-//   bf16 K1, K2, K4, K5; K3     FFMA loop      tensor-core loop
+//   instance                    b = 16, 32               b = 64, 128
+//   f32 K1, K2, K4, K5          pipelined FFMA loop,     pipelined FFMA loop
+//                               its small instances
+//   bf16 K1, K2, K4, K5; K3     FFMA loop                tensor-core loop
 //
-// The FFMA loop (every instance at b = 16 and 32). One slot is 2*b*b*F
+// The FFMA loop (the bf16 instances and K3 at b = 16 and 32). One slot is 2*b*b*F
 // FLOP against b*b block values plus b*F operand values: at b=128, F=512
 // that is 16.8 MFLOP per 64 KiB of f32 block and 256 KiB of operand,
 // about 50 FLOP/byte, so with operand tiles shared through L2 by the CTAs
@@ -45,22 +46,37 @@
 // block reads in L2. Offsets into blocks and dense are 64-bit. This loop
 // has no tensor cores, no TMA and no software pipelining: each 16-deep
 // chunk is loaded by the whole CTA between two barriers, and a thread
-// makes 12 scalar shared loads per 32 FMAs. No timed path runs b < 64.
+// makes 12 scalar shared loads per 32 FMAs. It is timed on the reorder
+// path (bf16 K2 and K3 at b = 32 on the arxiv stand-in) but not yet
+// redesigned.
 //
-// The pipelined FFMA loop (ffma_pipe_kernel: every exact-f32 instance at
-// b = 64 and 128, K2 on its sorted walk, K4 on its row-group walk, K1 and
-// K5 on K4's walk with R = 1). The same contract (one CTA per output tile
-// of a real lane, no atomics, each output's sum in slot and depth order,
-// so the same answers bit for bit as the FFMA loop's), built to keep the
-// FMA units busy: tiles of BN = 64 or 128 columns (the wrapper's choice,
-// as for the tensor-core loop below: at F=512 a block is read 4 times,
-// not 8); 8 x 8 (b=128) or 4 x 8 (b=64) register microtiles at BN=128,
-// fed by float4 shared loads (one 16-byte load per 16 FMAs at 8 x 8);
-// 16-deep chunks streamed by cp.async through 3 (BN=128) or 4 (BN=64)
-// shared-memory stages, with one barrier a chunk; at most 128 registers
-// a thread, so two CTAs share an SM. The 1e-4 gate and the "exact"
-// contract rule out TF32, so it stays an FFMA kernel, bound by the FFMA
-// rate.
+// The pipelined FFMA loop (ffma_pipe_kernel: every exact-f32 instance, K2
+// on its sorted walk, K4 on its row-group walk, K1 and K5 on K4's walk
+// with R = 1). The same contract (one CTA per output tile of a real lane,
+// no atomics, each output's sum in slot and depth order, so the same
+// answers bit for bit as the FFMA loop's), built to keep the FMA units
+// busy: register microtiles fed by float4 shared loads, 16-deep chunks
+// streamed by cp.async through shared-memory stages, one barrier a chunk,
+// at most 128 registers a thread. The 1e-4 gate and the "exact" contract
+// rule out TF32, so it stays an FFMA kernel, bound by the FFMA rate.
+//   - b = 64 and 128: 256 threads, tiles of BN = 64 or 128 columns (the
+//     wrapper's choice, as for the tensor-core loop below: at F=512 a
+//     block is read 4 times, not 8); 8 x 8 (b=128) or 4 x 8 (b=64)
+//     microtiles at BN=128 (one 16-byte load per 16 FMAs at 8 x 8); 3
+//     (BN=128) or 4 (BN=64) stages; two CTAs an SM.
+//   - b = 16 and 32 (the small instances): 4*b threads at BN = 32, 64 or
+//     128, microtiles of BN/4 outputs (2 x 4 to 4 x 8), 4 stages of
+//     3.3-10.5 KiB, four CTAs an SM or more. On a reordered power-law
+//     graph one block-row (a hub) holds
+//     thousands of blocks while most hold a hundred: on the arxiv
+//     stand-in under gorder the deepest of 814,720 slots' lanes walks
+//     5,148 of them at b = 32. A lane's sum cannot be split across CTAs
+//     without changing its order, so the hub's F tiles are its only
+//     parallelism: the wrapper narrows BN until the hub CTA's work fits
+//     its share of the grid (f32_small_geometry), which puts more warps
+//     on the hub, and the CTAs take their lanes from the plan's
+//     lane_order, deepest first, so the hub starts at once instead of
+//     adding its whole length to the tail.
 //
 // K3 (bf16x3). The TPU runs three bf16 MXU passes, hi*hi + hi*lo +
 // lo*hi, and drops lo*lo. Here the splits are made before the launch: a
@@ -135,9 +151,8 @@
 //     fill).
 //   - Absent (K2) and phantom (K4) lanes return before any barrier is
 //     initialised; K1 and K5 have neither.
-// wgmma's M of 64 does not fit b = 16 or 32 blocks, and no timed path
-// uses them, so the bf16 entries run those through the FFMA loop,
-// picked by a switch on b.
+// wgmma's M of 64 does not fit b = 16 or 32 blocks, so the bf16 entries
+// run those through the FFMA loop, picked by a switch on b.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -152,10 +167,9 @@ constexpr int kThreads = 256;  // 16 x 16 threads
 constexpr int kBN = 64;        // output columns per CTA
 constexpr int kBK = 16;        // depth of one shared-memory stage
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
 // Math policies. Exact: one plane, each value widened to f32, one FFMA
 // per product. Bf16x3 (K3): two bf16 planes, hi and lo, split before the
@@ -178,9 +192,9 @@ struct __align__(16) Smem {
 // two planes, the lo plane of the block is a_lo elements on from blk and
 // that of the operand x_lo elements on from brow.
 // Thread (tx, ty) owns rows ty*TM .. ty*TM+TM-1, cols tx*4 .. tx*4+3.
-template <typename T, int BM, typename M>
-__device__ __forceinline__ void slot_fma(const T* __restrict__ blk,
-                                         const T* __restrict__ brow,
+template <int BM, typename M>
+__device__ __forceinline__ void slot_fma(const bf16* __restrict__ blk,
+                                         const bf16* __restrict__ brow,
                                          int64_t ldx, int n_valid,
                                          int64_t a_lo, int64_t x_lo,
                                          Smem<BM, M::kPlanes>& sm,
@@ -255,11 +269,11 @@ __device__ __forceinline__ void store_tile(float* __restrict__ out, int64_t F,
 // (the plan covers empty rows with a zero block), so every output row is
 // written. ldx is F but for Bf16x3, whose planes (a_lo and x_lo elements
 // apart) have rows of ldx >= F.
-template <typename T, int BM, typename M>
+template <int BM, typename M>
 __global__ void __launch_bounds__(kThreads)
     flat_kernel(const int64_t* __restrict__ step_ptr,
                 const int32_t* __restrict__ slot_cols,
-                const T* __restrict__ blocks, const T* __restrict__ dense,
+                const bf16* __restrict__ blocks, const bf16* __restrict__ dense,
                 float* __restrict__ out, int64_t F, int64_t ldx, int64_t a_lo,
                 int64_t x_lo, int64_t group, int64_t n_ftiles) {
   __shared__ Smem<BM, M::kPlanes> sm;
@@ -270,8 +284,8 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t s_end = step_ptr[row + 1] * group;
   for (int64_t s = step_ptr[row] * group; s < s_end; ++s) {
     const int64_t col = slot_cols[s];
-    slot_fma<T, BM, M>(blocks + s * BM * BM, dense + col * BM * ldx + f0, ldx,
-                       n_valid, a_lo, x_lo, sm, acc);
+    slot_fma<BM, M>(blocks + s * BM * BM, dense + col * BM * ldx + f0, ldx,
+                    n_valid, a_lo, x_lo, sm, acc);
   }
   store_tile<BM>(out + row * BM * F + f0, F, n_valid, acc);
 }
@@ -282,14 +296,15 @@ __global__ void __launch_bounds__(kThreads)
 // pos[j*R + r] (the same for every step of the group). Absent lanes
 // (lane_valid == 0: window padding, whose pos is 0) store nothing, so
 // they can never overwrite the real row at position 0.
-template <typename T, int BM, typename M>
+template <int BM, typename M>
 __global__ void __launch_bounds__(kThreads)
     sorted_kernel(const int64_t* __restrict__ group_ptr,
                   const int32_t* __restrict__ win_ids,
                   const int32_t* __restrict__ pos,
                   const uint8_t* __restrict__ lane_valid,
                   const int32_t* __restrict__ slot_cols,
-                  const T* __restrict__ blocks, const T* __restrict__ dense,
+                  const bf16* __restrict__ blocks,
+                  const bf16* __restrict__ dense,
                   float* __restrict__ out, int64_t F, int64_t ldx,
                   int64_t a_lo, int64_t x_lo, int64_t R, int64_t gh,
                   int64_t window, int64_t n_ftiles) {
@@ -305,8 +320,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int64_t j = j0; j < j1; ++j) {
     for (int64_t s = (j * R + lane) * gh, s_end = s + gh; s < s_end; ++s) {
       const int64_t col = slot_cols[s];
-      slot_fma<T, BM, M>(blocks + s * BM * BM, dense + col * BM * ldx + f0,
-                         ldx, n_valid, a_lo, x_lo, sm, acc);
+      slot_fma<BM, M>(blocks + s * BM * BM, dense + col * BM * ldx + f0, ldx,
+                      n_valid, a_lo, x_lo, sm, acc);
     }
   }
   store_tile<BM>(out + orow * BM * F + f0, F, n_valid, acc);
@@ -320,11 +335,12 @@ __global__ void __launch_bounds__(kThreads)
 // packer pads the last group to R lanes: a phantom lane (row >=
 // n_block_rows) has only zero slots and no row of the output to own, so
 // it returns before any work and stores nothing.
-template <typename T, int BM>
+template <int BM>
 __global__ void __launch_bounds__(kThreads)
     rowgroup_kernel(const int64_t* __restrict__ group_ptr,
                     const int32_t* __restrict__ slot_cols,
-                    const T* __restrict__ blocks, const T* __restrict__ dense,
+                    const bf16* __restrict__ blocks,
+                    const bf16* __restrict__ dense,
                     float* __restrict__ out, int64_t n_block_rows, int64_t F,
                     int64_t R, int64_t gh, int64_t n_ftiles) {
   __shared__ Smem<BM, 1> sm;
@@ -337,24 +353,35 @@ __global__ void __launch_bounds__(kThreads)
   for (int64_t j = group_ptr[g], j1 = group_ptr[g + 1]; j < j1; ++j) {
     for (int64_t s = (j * R + lane) * gh, s_end = s + gh; s < s_end; ++s) {
       const int64_t col = slot_cols[s];
-      slot_fma<T, BM, Exact>(blocks + s * BM * BM, dense + col * BM * F + f0,
-                             F, n_valid, 0, 0, sm, acc);
+      slot_fma<BM, Exact>(blocks + s * BM * BM, dense + col * BM * F + f0, F,
+                          n_valid, 0, 0, sm, acc);
     }
   }
   store_tile<BM>(out + row * BM * F + f0, F, n_valid, acc);
 }
 
-// ---- the pipelined FFMA loop: f32 K1, K2, K4 and K5 at b = 64 and 128 -----
+// ---- the pipelined FFMA loop: exact f32 K1, K2, K4 and K5 ----------------
 
 constexpr int kPipeK = 16;  // depth of one pipeline stage
 
-// One CTA of 256 threads per (b x BN) output tile; thread (tx, ty) of the
-// 16 x 16 grid owns the TM x TN microtile of rows ty*TM .. +TM-1 and
-// columns 64*(j/4) + 4*tx + j%4 (j < TN), so that neighbouring threads
-// read neighbouring float4 of an operand stage row.
+// One CTA per (b x BN) output tile; thread (tx, ty) owns the TM x TN
+// microtile of rows ty*TM .. +TM-1 and columns 4*NX*(j/4) + 4*tx + j%4 (j <
+// TN), NX threads across, so that neighbouring threads read neighbouring
+// float4 of an operand stage row. b = 64 and 128: 256 threads in a 16 x 16
+// grid, TM = BM/16, TN = BN/16. b = 16 and 32 (the small instances): BM/8
+// warps (128 threads at b = 32, 64 at 16), each an 8 x 4 patch of the
+// thread grid (8 float4 of an operand row a warp: one shared-memory
+// wavefront), microtiles of BN/4 outputs: 2 x 4, 4 x 4 and 4 x 8 at BN =
+// 32, 64 and 128. A narrower tile puts more warps on a deep lane's
+// output, at fewer FMAs a shared load.
 template <int BM, int BN>
 struct Pipe {
-  static constexpr int TM = BM / 16, TN = BN / 16;
+  static constexpr bool kSmall = BM < 64;
+  static constexpr int kThreads = kSmall ? 4 * BM : 256;
+  static constexpr int kOut = BM * BN / kThreads;  // outputs a thread
+  static constexpr int TN = kSmall ? (kOut >= 32 ? 8 : 4) : BN / 16;
+  static constexpr int TM = kSmall ? kOut / TN : BM / 16;
+  static constexpr int NX = BN / TN;       // threads across the tile
   static constexpr int kAStride = BM + 4;  // floats per row of the A^T stage
   static constexpr int kAFloats = kPipeK * kAStride;
   static constexpr int kStageFloats = kAFloats + kPipeK * BN;
@@ -363,9 +390,15 @@ struct Pipe {
   // spills, and a smaller ring leaves more of the SM's memory to L1),
   // but cost f32 K2 2% at ddi (BN = 64, one CTA an SM), where a deeper
   // ring hides more latency: 3 at BN = 128, 4 at BN = 64
-  // (scripts/torch_kernel_variants.py f32_k2, chip_smoke.py).
-  static constexpr int kStages = BN == 128 ? 3 : 4;
+  // (scripts/torch_kernel_variants.py f32_k2, chip_smoke.py). The small
+  // instances' stages are 3.3-10.5 KiB: 4 of them (3 and 6 ran within 1%
+  // on the arxiv stand-in: scripts/torch_kernel_variants.py f32_small).
+  static constexpr int kStages = kSmall ? 4 : BN == 128 ? 3 : 4;
+  // CTAs an SM at <= 128 registers a thread
+  static constexpr int kMinBlocks = 512 / kThreads;
   static constexpr int kSmemBytes = kStages * kStageFloats * 4;
+  static_assert(TM >= 1 && NX % 8 == 0 && NX * (BM / TM) == kThreads,
+                "thread grid");
 };
 
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
@@ -392,33 +425,42 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // f32 K2 (win_ids != nullptr) or K4 (win_ids == nullptr; K1 and K5 are
 // K4 with R = 1, gh = the flat group and the step pointer as group_ptr,
-// as on the tensor-core ring) at b = 64 and 128: one CTA per lane and F
-// tile of BN columns; absent (K2) and phantom (K4) lanes return before
-// any barrier and store nothing; no atomics. Each slot's depth chunks of
-// 16 are streamed through G::kStages shared-memory stages by cp.async:
-// the block chunk transposed element by element (A^T, rows of BM + 4
+// as on the tensor-core ring): one CTA per lane and F tile of BN columns;
+// absent (K2) and phantom (K4) lanes return before any barrier and store
+// nothing; no atomics. The small instances (b = 16, 32) take their lanes
+// in lane_order (deepest first: the grid starts the longest CTAs first,
+// so no deep lane starts last and adds its whole length to the tail);
+// b = 64 and 128 in packed order. Each slot's depth chunks of 16 are
+// streamed through G::kStages shared-memory stages by cp.async: the
+// block chunk transposed element by element (A^T, rows of BM + 4
 // floats), the operand's 16 rows x BN columns in 16-byte copies (dense
 // has rows of ld >= F floats, ld a multiple of 4, and a 16-byte aligned
 // base; columns >= ld are zero-filled). One barrier per chunk: after it
 // the chunk has landed for every thread and the stage the next load
 // overwrites has been read by every thread. Each output's FFMA sum runs
-// in slot order and depth order, as in the FFMA loop above.
+// in slot order and depth order, as in the FFMA loop above, so every
+// instance and every lane order gives the same bits.
 template <int BM, int BN>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(Pipe<BM, BN>::kThreads,
+                                  Pipe<BM, BN>::kMinBlocks)
     ffma_pipe_kernel(const int64_t* __restrict__ group_ptr,
                      const int32_t* __restrict__ win_ids,
                      const int32_t* __restrict__ pos,
                      const uint8_t* __restrict__ lane_valid,
                      const int32_t* __restrict__ slot_cols,
+                     const int32_t* __restrict__ lane_order,
                      const float* __restrict__ blocks,
                      const float* __restrict__ dense, float* __restrict__ out,
                      int64_t F, int64_t ld, int64_t n_block_rows, int64_t R,
                      int64_t gh, int64_t window, int64_t n_ftiles) {
   using G = Pipe<BM, BN>;
   constexpr int TM = G::TM, TN = G::TN, kStages = G::kStages;
+  constexpr int kThreads = G::kThreads;
   constexpr int kChunks = BM / kPipeK;  // per slot
   extern __shared__ __align__(16) float pipe_smem[];
-  const int64_t lane_id = blockIdx.x / n_ftiles;  // group * R + lane
+  const int64_t cta_lane = blockIdx.x / n_ftiles;
+  const int64_t lane_id =  // group * R + lane
+      G::kSmall ? (int64_t)lane_order[cta_lane] : cta_lane;
   // absent (K2) and phantom (K4) lanes store nothing: uniform over the CTA
   if (win_ids != nullptr ? !lane_valid[lane_id] : lane_id >= n_block_rows)
     return;
@@ -426,7 +468,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int64_t f0 = (blockIdx.x % n_ftiles) * BN;
   const int64_t j0 = group_ptr[g];
   const int n_chunks = (int)((group_ptr[g + 1] - j0) * gh) * kChunks;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x;
+  int tx, ty;
+  if constexpr (G::kSmall) {  // warps of 8 x 4 threads
+    const int warp = tid / 32, wl = tid % 32;
+    tx = warp % (G::NX / 8) * 8 + wl % 8;
+    ty = warp / (G::NX / 8) * 4 + wl / 8;
+  } else {
+    tx = tid % 16;
+    ty = tid / 16;
+  }
   const uint32_t smem = smem_u32(pipe_smem);
   // This thread's copies: A^T elements (a_m + it * kARows, a_k), operand
   // float4 (x_k + it * kXRows, x_n); columns >= ld are zero-filled.
@@ -487,16 +538,23 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int kk = 0; kk < kPipeK; ++kk) {
       float a[TM], x[TN];
+      const float* ap = as + kk * G::kAStride + ty * TM;
+      if constexpr (TM % 4 == 0) {
 #pragma unroll
-      for (int i = 0; i < TM; i += 4) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(as + kk * G::kAStride + ty * TM + i);
-        a[i] = v.x, a[i + 1] = v.y, a[i + 2] = v.z, a[i + 3] = v.w;
+        for (int i = 0; i < TM; i += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(ap + i);
+          a[i] = v.x, a[i + 1] = v.y, a[i + 2] = v.z, a[i + 3] = v.w;
+        }
+      } else if constexpr (TM == 2) {
+        const float2 v = *reinterpret_cast<const float2*>(ap);
+        a[0] = v.x, a[1] = v.y;
+      } else {
+        a[0] = *ap;
       }
 #pragma unroll
       for (int j = 0; j < TN; j += 4) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(xs + kk * BN + j * 16 + tx * 4);
+        const float4 v = *reinterpret_cast<const float4*>(
+            xs + kk * BN + j / 4 * (4 * G::NX) + tx * 4);
         x[j] = v.x, x[j + 1] = v.y, x[j + 2] = v.z, x[j + 3] = v.w;
       }
 #pragma unroll
@@ -519,7 +577,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     float* o = out + (orow * BM + ty * TM + i) * F;
 #pragma unroll
     for (int j = 0; j < TN; j += 4) {
-      const int64_t col = f0 + j * 16 + tx * 4;
+      const int64_t col = f0 + j / 4 * (4 * G::NX) + tx * 4;
       if (vec && col + 3 < F) {
         *reinterpret_cast<float4*>(o + col) =
             make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
@@ -862,33 +920,39 @@ cudaError_t launch_ring(const void* group_ptr, const void* win_ids,
 // The pipelined FFMA loop over n_lanes lanes of ceil(F / bn) tiles; dense
 // is (n_dense_rows, ld) f32 with ld >= F a multiple of 4 and a
 // 16-byte-aligned base. win_ids == nullptr selects K4's walk (and K1's
-// and K5's).
+// and K5's). lane_order (n_lanes,) int32 is read by the small instances.
 template <int BM, int BN>
 cudaError_t launch_pipe_tile(const int64_t* gp, const int32_t* wi,
                              const int32_t* ps, const uint8_t* lv,
-                             const int32_t* sc, const float* bl,
-                             const float* de, float* o, int64_t F, int64_t ld,
-                             int64_t n_block_rows, int64_t R, int64_t gh,
-                             int64_t window, int64_t n_ft, dim3 grid,
-                             cudaStream_t stream) {
+                             const int32_t* sc, const int32_t* lo,
+                             const float* bl, const float* de, float* o,
+                             int64_t F, int64_t ld, int64_t n_block_rows,
+                             int64_t R, int64_t gh, int64_t window,
+                             int64_t n_ft, dim3 grid, cudaStream_t stream) {
   using G = Pipe<BM, BN>;
   static const cudaError_t smem_set = cudaFuncSetAttribute(
       ffma_pipe_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       G::kSmemBytes);
   if (smem_set != cudaSuccess) return smem_set;
-  ffma_pipe_kernel<BM, BN><<<grid, kThreads, G::kSmemBytes, stream>>>(
-      gp, wi, ps, lv, sc, bl, de, o, F, ld, n_block_rows, R, gh, window, n_ft);
+  ffma_pipe_kernel<BM, BN><<<grid, G::kThreads, G::kSmemBytes, stream>>>(
+      gp, wi, ps, lv, sc, lo, bl, de, o, F, ld, n_block_rows, R, gh, window,
+      n_ft);
   return cudaGetLastError();
 }
 
 cudaError_t launch_pipe(const void* group_ptr, const void* win_ids,
                         const void* pos, const void* lane_valid,
-                        const void* slot_cols, const void* blocks,
-                        const void* dense, void* out, int64_t n_lanes,
-                        int64_t n_block_rows, int64_t F, int64_t ld, int64_t R,
-                        int64_t gh, int64_t window, int64_t b, int64_t bn,
-                        cudaStream_t stream) {
-  if ((bn != 64 && bn != 128) || ld < F || ld % 4 != 0 ||
+                        const void* slot_cols, const void* lane_order,
+                        const void* blocks, const void* dense, void* out,
+                        int64_t n_lanes, int64_t n_block_rows, int64_t F,
+                        int64_t ld, int64_t R, int64_t gh, int64_t window,
+                        int64_t b, int64_t bn, cudaStream_t stream) {
+  // the instances: bn = 64 and 128 at every b, and 32 at b = 16 and 32,
+  // whose walk reads lane_order
+  const bool small = b == 16 || b == 32;
+  const bool instance = (small || b == 64 || b == 128) &&
+                        (bn == 64 || bn == 128 || (small && bn == 32));
+  if (!instance || (small && lane_order == nullptr) || ld < F || ld % 4 != 0 ||
       reinterpret_cast<uintptr_t>(dense) % 16 != 0)
     return cudaErrorInvalidValue;
   const int64_t n_ft = ceil_div(F, bn);
@@ -901,14 +965,21 @@ cudaError_t launch_pipe(const void* group_ptr, const void* win_ids,
   const auto* ps = static_cast<const int32_t*>(pos);
   const auto* lv = static_cast<const uint8_t*>(lane_valid);
   const auto* sc = static_cast<const int32_t*>(slot_cols);
+  const auto* lo = static_cast<const int32_t*>(lane_order);
   const auto* bl = static_cast<const float*>(blocks);
   const auto* de = static_cast<const float*>(dense);
   auto* o = static_cast<float*>(out);
-#define SDB_PIPE(BM, BN)                                                   \
-  if (b == BM && bn == BN)                                                 \
-    return launch_pipe_tile<BM, BN>(gp, wi, ps, lv, sc, bl, de, o, F, ld,  \
-                                    n_block_rows, R, gh, window, n_ft, grid, \
+#define SDB_PIPE(BM, BN)                                                     \
+  if (b == BM && bn == BN)                                                   \
+    return launch_pipe_tile<BM, BN>(gp, wi, ps, lv, sc, lo, bl, de, o, F, ld, \
+                                    n_block_rows, R, gh, window, n_ft, grid,   \
                                     stream);
+  SDB_PIPE(16, 32)
+  SDB_PIPE(16, 64)
+  SDB_PIPE(16, 128)
+  SDB_PIPE(32, 32)
+  SDB_PIPE(32, 64)
+  SDB_PIPE(32, 128)
   SDB_PIPE(64, 64)
   SDB_PIPE(64, 128)
   SDB_PIPE(128, 64)
@@ -954,12 +1025,12 @@ cudaError_t tile_grid(int64_t n_rows, int64_t F, int64_t* n_ft, dim3* grid) {
 }
 
 
-// K1's FFMA walk with math policy M, at b = 16 and 32 (K5's entries
-// launch it too): b = 64 and 128 run the pipelined FFMA loop (f32) or the
-// tensor-core loop (bf16, K3). Exact reads one plane with operand rows of
-// F (ldx == F); Bf16x3 two planes, a_lo block elements and x_lo operand
-// elements apart, with operand rows of ldx.
-template <typename T, typename M>
+// bf16 K1's FFMA walk with math policy M, at b = 16 and 32 (K5's entries
+// launch it too): b = 64 and 128 run the tensor-core loop, and exact f32
+// runs the pipelined FFMA loop at every b. Exact reads one plane with
+// operand rows of F (ldx == F); Bf16x3 (K3) two planes, a_lo block
+// elements and x_lo operand elements apart, with operand rows of ldx.
+template <typename M>
 cudaError_t launch_rows(const void* step_ptr, const void* slot_cols,
                         const void* blocks, const void* dense, void* out,
                         int64_t n_block_rows, int64_t F, int64_t ldx,
@@ -971,21 +1042,20 @@ cudaError_t launch_rows(const void* step_ptr, const void* slot_cols,
   if (grid.x == 0) return cudaSuccess;
   const auto* sp = static_cast<const int64_t*>(step_ptr);
   const auto* sc = static_cast<const int32_t*>(slot_cols);
-  const auto* bl = static_cast<const T*>(blocks);
-  const auto* de = static_cast<const T*>(dense);
+  const auto* bl = static_cast<const bf16*>(blocks);
+  const auto* de = static_cast<const bf16*>(dense);
   auto* o = static_cast<float*>(out);
   switch (b) {
-    case 16: flat_kernel<T, 16, M><<<grid, kThreads, 0, stream>>>(sp, sc, bl, de, o, F, ldx, a_lo, x_lo, group, n_ft); break;
-    case 32: flat_kernel<T, 32, M><<<grid, kThreads, 0, stream>>>(sp, sc, bl, de, o, F, ldx, a_lo, x_lo, group, n_ft); break;
+    case 16: flat_kernel<16, M><<<grid, kThreads, 0, stream>>>(sp, sc, bl, de, o, F, ldx, a_lo, x_lo, group, n_ft); break;
+    case 32: flat_kernel<32, M><<<grid, kThreads, 0, stream>>>(sp, sc, bl, de, o, F, ldx, a_lo, x_lo, group, n_ft); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
-// K2's FFMA walk with math policy M (operand rows and planes as
-// launch_rows), at b = 16 and 32: b = 64 and 128 run the pipelined FFMA
-// loop (f32) or the tensor-core loop (bf16, K3).
-template <typename T, typename M>
+// bf16 K2's FFMA walk with math policy M (operand rows and planes as
+// launch_rows), at b = 16 and 32.
+template <typename M>
 cudaError_t launch_sorted(const void* group_ptr, const void* win_ids,
                           const void* pos, const void* lane_valid,
                           const void* slot_cols, const void* blocks,
@@ -1002,20 +1072,18 @@ cudaError_t launch_sorted(const void* group_ptr, const void* win_ids,
   const auto* ps = static_cast<const int32_t*>(pos);
   const auto* lv = static_cast<const uint8_t*>(lane_valid);
   const auto* sc = static_cast<const int32_t*>(slot_cols);
-  const auto* bl = static_cast<const T*>(blocks);
-  const auto* de = static_cast<const T*>(dense);
+  const auto* bl = static_cast<const bf16*>(blocks);
+  const auto* de = static_cast<const bf16*>(dense);
   auto* o = static_cast<float*>(out);
   switch (b) {
-    case 16: sorted_kernel<T, 16, M><<<grid, kThreads, 0, stream>>>(gp, wi, ps, lv, sc, bl, de, o, F, ldx, a_lo, x_lo, R, gh, window, n_ft); break;
-    case 32: sorted_kernel<T, 32, M><<<grid, kThreads, 0, stream>>>(gp, wi, ps, lv, sc, bl, de, o, F, ldx, a_lo, x_lo, R, gh, window, n_ft); break;
+    case 16: sorted_kernel<16, M><<<grid, kThreads, 0, stream>>>(gp, wi, ps, lv, sc, bl, de, o, F, ldx, a_lo, x_lo, R, gh, window, n_ft); break;
+    case 32: sorted_kernel<32, M><<<grid, kThreads, 0, stream>>>(gp, wi, ps, lv, sc, bl, de, o, F, ldx, a_lo, x_lo, R, gh, window, n_ft); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
-// K4's FFMA walk at b = 16 and 32 (b = 64 and 128 run the pipelined FFMA
-// loop, f32, or the tensor-core loop, bf16).
-template <typename T>
+// bf16 K4's FFMA walk at b = 16 and 32.
 cudaError_t launch_rowgroup(const void* group_ptr, const void* slot_cols,
                             const void* blocks, const void* dense, void* out,
                             int64_t n_lanes, int64_t n_block_rows, int64_t F,
@@ -1027,41 +1095,29 @@ cudaError_t launch_rowgroup(const void* group_ptr, const void* slot_cols,
   if (grid.x == 0) return cudaSuccess;
   const auto* gp = static_cast<const int64_t*>(group_ptr);
   const auto* sc = static_cast<const int32_t*>(slot_cols);
-  const auto* bl = static_cast<const T*>(blocks);
-  const auto* de = static_cast<const T*>(dense);
+  const auto* bl = static_cast<const bf16*>(blocks);
+  const auto* de = static_cast<const bf16*>(dense);
   auto* o = static_cast<float*>(out);
   switch (b) {
-    case 16: rowgroup_kernel<T, 16><<<grid, kThreads, 0, stream>>>(gp, sc, bl, de, o, n_block_rows, F, R, gh, n_ft); break;
-    case 32: rowgroup_kernel<T, 32><<<grid, kThreads, 0, stream>>>(gp, sc, bl, de, o, n_block_rows, F, R, gh, n_ft); break;
+    case 16: rowgroup_kernel<16><<<grid, kThreads, 0, stream>>>(gp, sc, bl, de, o, n_block_rows, F, R, gh, n_ft); break;
+    case 32: rowgroup_kernel<32><<<grid, kThreads, 0, stream>>>(gp, sc, bl, de, o, n_block_rows, F, R, gh, n_ft); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
-// f32 K1 and K5: the pipelined FFMA loop at b = 64 and 128 on the flat
-// layout's walk, which is K4's walk with one lane per group (R = 1, gh =
-// group, group_ptr = step_ptr: lane r's slot t is step_ptr[r]*group + t,
-// and every lane is a real block-row); the FFMA loop at b = 16 and 32
-// (64-column tiles on the operand as it is: bn == 64, ld == F).
+// f32 K1 and K5: the pipelined FFMA loop on the flat layout's walk,
+// which is K4's walk with one lane per group (R = 1, gh = group, group_ptr
+// = step_ptr: lane r's slot t is step_ptr[r]*group + t, and every lane is
+// a real block-row).
 cudaError_t launch_flat_f32(const void* step_ptr, const void* slot_cols,
-                            const void* blocks, const void* dense, void* out,
-                            int64_t n_block_rows, int64_t F, int64_t ld,
-                            int64_t group, int64_t b, int64_t bn,
-                            cudaStream_t s) {
-  switch (b) {
-    case 16:
-    case 32:
-      if (bn != kBN || ld != F) return cudaErrorInvalidValue;
-      return launch_rows<float, Exact>(step_ptr, slot_cols, blocks, dense, out,
-                                       n_block_rows, F, F, 0, 0, group, b, s);
-    case 64:
-    case 128:
-      return launch_pipe(step_ptr, nullptr, nullptr, nullptr, slot_cols, blocks,
-                         dense, out, n_block_rows, n_block_rows, F, ld, 1, group,
-                         0, b, bn, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+                            const void* lane_order, const void* blocks,
+                            const void* dense, void* out, int64_t n_block_rows,
+                            int64_t F, int64_t ld, int64_t group, int64_t b,
+                            int64_t bn, cudaStream_t s) {
+  return launch_pipe(step_ptr, nullptr, nullptr, nullptr, slot_cols, lane_order,
+                     blocks, dense, out, n_block_rows, n_block_rows, F, ld, 1,
+                     group, 0, b, bn, s);
 }
 
 // bf16 K1 and K5: the tensor-core loop at b = 64 and 128 on the flat
@@ -1076,9 +1132,8 @@ cudaError_t launch_flat_bf16(const void* step_ptr, const void* slot_cols,
     case 16:
     case 32:
       if (bn != kBN || ld != F) return cudaErrorInvalidValue;
-      return launch_rows<__nv_bfloat16, Exact>(step_ptr, slot_cols, blocks,
-                                               dense, out, n_block_rows, F, F,
-                                               0, 0, group, b, s);
+      return launch_rows<Exact>(step_ptr, slot_cols, blocks, dense, out,
+                                n_block_rows, F, F, 0, 0, group, b, s);
     case 64:
     case 128:
       return launch_ring(step_ptr, nullptr, nullptr, nullptr, slot_cols, blocks,
@@ -1109,12 +1164,11 @@ cudaError_t launch_k3(const void* group_ptr, const void* win_ids,
       if (bn != kBN || ld < F || ld % 8 != 0) return cudaErrorInvalidValue;
       const int64_t a_lo = n_slots * b * b, x_lo = n_dense_rows * ld;
       if (sorted)
-        return launch_sorted<__nv_bfloat16, Bf16x3>(
-            group_ptr, win_ids, pos, lane_valid, slot_cols, planes, xp, out,
-            n_lanes, F, ld, a_lo, x_lo, R, gh, window, b, s);
-      return launch_rows<__nv_bfloat16, Bf16x3>(group_ptr, slot_cols, planes,
-                                                xp, out, n_lanes, F, ld, a_lo,
-                                                x_lo, gh, b, s);
+        return launch_sorted<Bf16x3>(group_ptr, win_ids, pos, lane_valid,
+                                     slot_cols, planes, xp, out, n_lanes, F, ld,
+                                     a_lo, x_lo, R, gh, window, b, s);
+      return launch_rows<Bf16x3>(group_ptr, slot_cols, planes, xp, out, n_lanes,
+                                 F, ld, a_lo, x_lo, gh, b, s);
     }
     case 64:
     case 128:
@@ -1135,17 +1189,18 @@ cudaError_t launch_k3(const void* group_ptr, const void* win_ids,
 // only, the *_bf16x3 entries the two bf16 planes of each, the others
 // float only.
 
-// K1, f32 operands: the pipelined FFMA loop at b = 64 and 128 (tiles of
-// bn = 64 or 128 columns; dense (n, ld) with ld >= F a multiple of 4 and
-// a 16-byte-aligned base), the FFMA loop at b = 16 and 32 (bn == 64, ld
-// == F).
+// K1, f32 operands: the pipelined FFMA loop (tiles of bn columns: 64 or
+// 128, and 32 too at b = 16 and 32; dense (n, ld) with ld >= F a multiple
+// of 4 and a 16-byte-aligned base; lane_order (n_block_rows,) int32, the
+// CTA rows' block-rows, read at b = 16 and 32).
 extern "C" int sdb_bsr_spmm_flat(const void* step_ptr, const void* slot_cols,
-                                 const void* blocks, const void* dense,
-                                 void* out, int64_t n_block_rows, int64_t F,
-                                 int64_t ld, int64_t group, int64_t b,
-                                 int64_t bn, void* stream) {
-  return (int)launch_flat_f32(step_ptr, slot_cols, blocks, dense, out,
-                              n_block_rows, F, ld, group, b, bn,
+                                 const void* lane_order, const void* blocks,
+                                 const void* dense, void* out,
+                                 int64_t n_block_rows, int64_t F, int64_t ld,
+                                 int64_t group, int64_t b, int64_t bn,
+                                 void* stream) {
+  return (int)launch_flat_f32(step_ptr, slot_cols, lane_order, blocks, dense,
+                              out, n_block_rows, F, ld, group, b, bn,
                               static_cast<cudaStream_t>(stream));
 }
 
@@ -1175,12 +1230,13 @@ extern "C" int sdb_bsr_spmm_flat_bf16x3(
 // K5, f32 operands: K1's f32 launch on the (nbc*b, ld) view of dense3.
 extern "C" int sdb_bsr_spmm_resident(const void* step_ptr,
                                      const void* slot_cols,
+                                     const void* lane_order,
                                      const void* blocks, const void* dense3,
                                      void* out, int64_t n_block_rows,
                                      int64_t F, int64_t ld, int64_t group,
                                      int64_t b, int64_t bn, void* stream) {
-  return (int)launch_flat_f32(step_ptr, slot_cols, blocks, dense3, out,
-                              n_block_rows, F, ld, group, b, bn,
+  return (int)launch_flat_f32(step_ptr, slot_cols, lane_order, blocks, dense3,
+                              out, n_block_rows, F, ld, group, b, bn,
                               static_cast<cudaStream_t>(stream));
 }
 
@@ -1206,34 +1262,20 @@ extern "C" int sdb_bsr_spmm_resident_bf16x3(
                         group, 0, b, bn, static_cast<cudaStream_t>(stream));
 }
 
-// K2, f32 operands: the pipelined FFMA loop at b = 64 and 128 (tiles of
-// bn = 64 or 128 columns; dense (n, ld) with ld >= F a multiple of 4 and
-// a 16-byte-aligned base), the FFMA loop at b = 16 and 32 (bn == 64, ld
-// == F).
+// K2, f32 operands: the pipelined FFMA loop on the sorted walk (tiles,
+// operand and lane_order, (n_lanes,), as sdb_bsr_spmm_flat's).
 extern "C" int sdb_bsr_spmm_sorted(const void* group_ptr, const void* win_ids,
                                    const void* pos, const void* lane_valid,
-                                   const void* slot_cols, const void* blocks,
+                                   const void* slot_cols,
+                                   const void* lane_order, const void* blocks,
                                    const void* dense, void* out,
                                    int64_t n_lanes, int64_t F, int64_t ld,
                                    int64_t R, int64_t gh, int64_t window,
                                    int64_t b, int64_t bn, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (b) {
-    case 16:
-    case 32:
-      if (bn != kBN || ld != F) return (int)cudaErrorInvalidValue;
-      return (int)launch_sorted<float, Exact>(
-          group_ptr, win_ids, pos, lane_valid, slot_cols, blocks, dense, out,
-          n_lanes, F, F, 0, 0, R, gh, window, b, s);
-    case 64:
-    case 128:
-      if (win_ids == nullptr) return (int)cudaErrorInvalidValue;
-      return (int)launch_pipe(group_ptr, win_ids, pos, lane_valid, slot_cols,
-                              blocks, dense, out, n_lanes, 0, F, ld, R, gh,
-                              window, b, bn, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (win_ids == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)launch_pipe(group_ptr, win_ids, pos, lane_valid, slot_cols,
+                          lane_order, blocks, dense, out, n_lanes, 0, F, ld, R,
+                          gh, window, b, bn, static_cast<cudaStream_t>(stream));
 }
 
 // K3 on K2's layout: the arguments of sdb_bsr_spmm_sorted_bf16, with the
@@ -1280,9 +1322,9 @@ extern "C" int sdb_bsr_spmm_sorted_bf16(
     case 16:
     case 32:
       if (bn != kBN || ld != F) return (int)cudaErrorInvalidValue;
-      return (int)launch_sorted<__nv_bfloat16, Exact>(
-          group_ptr, win_ids, pos, lane_valid, slot_cols, blocks, dense, out,
-          n_lanes, F, F, 0, 0, R, gh, window, b, s);
+      return (int)launch_sorted<Exact>(group_ptr, win_ids, pos, lane_valid,
+                                       slot_cols, blocks, dense, out, n_lanes,
+                                       F, F, 0, 0, R, gh, window, b, s);
     case 64:
     case 128:
       if (win_ids == nullptr) return (int)cudaErrorInvalidValue;
@@ -1294,31 +1336,20 @@ extern "C" int sdb_bsr_spmm_sorted_bf16(
   }
 }
 
-// K4, f32 operands: the pipelined FFMA loop at b = 64 and 128, the FFMA
-// loop at b = 16 and 32, with sdb_bsr_spmm_flat's tiles and operand rows.
+// K4, f32 operands: the pipelined FFMA loop on the row-group walk (tiles,
+// operand and lane_order, (n_lanes,), as sdb_bsr_spmm_flat's).
 extern "C" int sdb_bsr_spmm_rowgroup(const void* group_ptr,
                                      const void* slot_cols,
+                                     const void* lane_order,
                                      const void* blocks, const void* dense,
                                      void* out, int64_t n_lanes,
                                      int64_t n_block_rows, int64_t F,
                                      int64_t ld, int64_t R, int64_t gh,
                                      int64_t b, int64_t bn, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (b) {
-    case 16:
-    case 32:
-      if (bn != kBN || ld != F) return (int)cudaErrorInvalidValue;
-      return (int)launch_rowgroup<float>(group_ptr, slot_cols, blocks, dense,
-                                         out, n_lanes, n_block_rows, F, R, gh,
-                                         b, s);
-    case 64:
-    case 128:
-      return (int)launch_pipe(group_ptr, nullptr, nullptr, nullptr, slot_cols,
-                              blocks, dense, out, n_lanes, n_block_rows, F, ld,
-                              R, gh, 0, b, bn, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)launch_pipe(group_ptr, nullptr, nullptr, nullptr, slot_cols,
+                          lane_order, blocks, dense, out, n_lanes, n_block_rows,
+                          F, ld, R, gh, 0, b, bn,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // K4, bf16 operands: as sdb_bsr_spmm_sorted_bf16.
@@ -1332,9 +1363,8 @@ extern "C" int sdb_bsr_spmm_rowgroup_bf16(
     case 16:
     case 32:
       if (bn != kBN || ld != F) return (int)cudaErrorInvalidValue;
-      return (int)launch_rowgroup<__nv_bfloat16>(
-          group_ptr, slot_cols, blocks, dense, out, n_lanes, n_block_rows, F,
-          R, gh, b, s);
+      return (int)launch_rowgroup(group_ptr, slot_cols, blocks, dense, out,
+                                  n_lanes, n_block_rows, F, R, gh, b, s);
     case 64:
     case 128:
       return (int)launch_ring(group_ptr, nullptr, nullptr, nullptr, slot_cols,

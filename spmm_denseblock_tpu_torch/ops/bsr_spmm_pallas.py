@@ -27,8 +27,10 @@ tensor cores at b = 64 and 128. bf16 operands run every kernel through
 its own entry (``sdb_bsr_spmm_{flat,sorted,rowgroup,resident}_bf16``), on
 the tensor cores at b = 64 and 128; ``bf16_tile_geometry`` picks their F
 tile width and the operand's padded row length. Exact-f32 K1, K2, K4 and
-K5 at b = 64 and 128 run one pipelined FFMA loop at ``tile_geometry``'s
-tile width (``_f32_launch_args``).
+K5 run one pipelined FFMA loop at every b: at b = 64 and 128 at
+``tile_geometry``'s tile width, at b = 16 and 32 at
+``f32_small_geometry``'s, which keeps the plan's deepest lane in view, with
+the lanes in the plan's ``lane_order`` (deepest first; ``_f32_launch_args``).
 
 Beside each kernel sits its plain PyTorch version (``spmm_flat_plain``,
 ``spmm_sorted_plain``, ``spmm_rowgroup_plain``,
@@ -191,6 +193,18 @@ def group_pointer(step_groups, n_groups: int) -> np.ndarray:
     (step_groups is nondecreasing). A CUDA CTA walks its group's steps
     with it."""
     return np.searchsorted(step_groups, np.arange(n_groups + 1)).astype(np.int64)
+
+
+def lane_order(ptr, R: int, slots_per_step: int):
+    """The port's CTA -> lane order of a walk whose group g holds steps
+    ptr[g] .. ptr[g+1]-1 for each of its R lanes (K2's and K4's group
+    pointer; K1's step pointer with R = 1), and the deepest lane's slots.
+    Returns (order (n_groups*R,) int32: the lanes by step count, deepest
+    first, ties in packed order; depth = max steps * slots_per_step). The
+    order moves which CTA starts when, never an output's sum."""
+    steps = np.repeat(np.diff(np.asarray(ptr)), R)
+    order = np.argsort(-steps, kind="stable").astype(np.int32)
+    return order, int(steps.max(initial=0)) * slots_per_step
 
 
 def _pack_rowgroups_sorted(rows, cols, blocks, gh: int, R: int, W: int):
@@ -585,6 +599,33 @@ def tile_geometry(b: int, n_rows: int, F: int, n_sms: int, row_align: int):
     return bn, -(-F // row_align) * row_align
 
 
+# How many CTAs of a grid's average work a hub lane's CTA may take: it
+# shares its SM with other CTAs, and on the arxiv stand-in (gorder, F =
+# 128) its instance ran fastest at the BN this share picks, at b = 32 and
+# at 16 (scripts/torch_kernel_variants.py f32_small)
+F32_SMALL_HUB_SHARE = 2
+
+
+def f32_small_geometry(b: int, F: int, n_sms: int, n_slots: int, depth: int):
+    """(bn, ld) of the exact-f32 entries at b = 16 and 32 (the pipelined
+    FFMA loop's small instances: b/8 warps a CTA, microtiles of bn/4
+    outputs) for a plan of n_slots slots whose deepest lane holds `depth`.
+
+    A lane's sum cannot be split across CTAs, so each of its F tiles is
+    one CTA walking all its slots: a hub lane's CTA does depth * 2b² * bn
+    FLOP, and a narrower tile puts more warps on it (b·F/(8·bn) of them),
+    at fewer FMAs a shared load. bn is the widest of 128, 64 and 32 that F
+    needs and at which that CTA's work, depth * bn slot-columns, stays
+    within n_slots * F / (n_sms * F32_SMALL_HUB_SHARE); else 32. ld is F
+    rounded up to a multiple of 4 (the loop's 16-byte copies)."""
+    ld = -(-F // 4) * 4
+    share = n_slots * F / (n_sms * F32_SMALL_HUB_SHARE)
+    for bn in (128, 64):
+        if F > bn // 2 and depth * bn <= share:
+            return bn, ld
+    return 32, ld
+
+
 def bf16_tile_geometry(b: int, n_rows: int, F: int, n_sms: int):
     """tile_geometry of the tensor-core loop (bf16 K1, K2, K4 and K5, and
     K3, whose split operand has rows of this ld): rows of a multiple of 8
@@ -597,19 +638,23 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _tile_launch_args(b: int, n_slots: int, dense, n_rows: int,
-                      row_align: int) -> tuple:
-    """(n_slots, n_dense_rows, F, ld), bn, and the operand the kernel
-    reads: the operand padded to ld columns where tile_geometry pads it,
+def _operand_rows(dense, ld: int):
+    """The operand the kernel reads: padded to ld columns where ld > F,
     else the operand itself, copied when it does not start on 16 bytes (a
     view at an odd offset; TMA maps and 16-byte copies need an aligned
     base)."""
+    if ld != dense.shape[1]:
+        return torch.nn.functional.pad(dense, (0, ld - dense.shape[1]))
+    return dense.clone() if dense.data_ptr() % 16 else dense
+
+
+def _tile_launch_args(b: int, n_slots: int, dense, n_rows: int,
+                      row_align: int) -> tuple:
+    """(n_slots, n_dense_rows, F, ld), bn, and the operand the kernel
+    reads (_operand_rows at tile_geometry's ld)."""
     F = dense.shape[1]
     bn, ld = tile_geometry(b, n_rows, F, _sm_count(dense.device.index), row_align)
-    if ld != F:
-        dense = torch.nn.functional.pad(dense, (0, ld - F))
-    elif dense.data_ptr() % 16:
-        dense = dense.clone()
+    dense = _operand_rows(dense, ld)
     return (n_slots, dense.shape[0], F, ld), bn, dense
 
 
@@ -620,13 +665,33 @@ def _bf16_launch_args(blocks, dense, n_rows: int) -> tuple:
     return _tile_launch_args(blocks.shape[1], blocks.shape[0], dense, n_rows, 8)
 
 
-def _f32_launch_args(blocks, dense, n_rows: int) -> tuple:
+def _f32_launch_args(blocks, dense, n_rows: int, depth: Optional[int] = None) -> tuple:
     """(F, ld), bn and the operand an exact-f32 entry (K1, K2, K4, K5)
-    reads: _tile_launch_args with rows of a multiple of 4 f32 (the
-    pipelined FFMA loop's 16-byte copies)."""
-    sizes, bn, dense = _tile_launch_args(blocks.shape[1], blocks.shape[0],
-                                         dense, n_rows, 4)
-    return sizes[2:], bn, dense
+    reads, rows of a multiple of 4 f32 (the pipelined FFMA loop's 16-byte
+    copies): at b = 64 and 128 _tile_launch_args's, at b = 16 and 32
+    f32_small_geometry's for the plan's deepest lane (`depth` slots)."""
+    b, F = blocks.shape[1], dense.shape[1]
+    if b >= 64:
+        sizes, bn, dense = _tile_launch_args(b, blocks.shape[0], dense, n_rows, 4)
+        return sizes[2:], bn, dense
+    if depth is None:
+        raise ValueError("the exact-f32 entries at b = 16 and 32 need the "
+                         "plan's deepest lane (depth) and lane_order")
+    bn, ld = f32_small_geometry(b, F, _sm_count(dense.device.index),
+                                blocks.shape[0], depth)
+    return (F, ld), bn, _operand_rows(dense, ld)
+
+
+def _lane_order_arg(lane_order, n_lanes: int, dev) -> int:
+    """The lane_order pointer an exact-f32 entry takes (0: none, which
+    the entries refuse at b = 16 and 32)."""
+    if lane_order is None:
+        return 0
+    if (lane_order.device != dev or lane_order.dtype != torch.int32
+            or lane_order.shape != (n_lanes,) or not lane_order.is_contiguous()):
+        raise ValueError(f"lane_order must be a contiguous ({n_lanes},) int32 "
+                         f"tensor on {dev}")
+    return lane_order.data_ptr()
 
 
 def split_operand(dense: torch.Tensor) -> torch.Tensor:
@@ -657,7 +722,8 @@ def _k3_launch_args(b: int, n_slots: int, dense, n_rows: int) -> tuple:
 
 
 def spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense, group: int,
-              bf16x3: bool = False, resident: bool = False) -> torch.Tensor:
+              bf16x3: bool = False, resident: bool = False, lane_order=None,
+              depth: Optional[int] = None) -> torch.Tensor:
     """K1 (K3 with bf16x3=True): C (n_block_rows*b, F) f32 on the flat
     grouped layout. resident=True launches the same kernel through K5's
     entries (``spmm_resident``).
@@ -667,7 +733,9 @@ def spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense, group: int,
     spmm_flat_plain; CUDA tensors run the CUDA kernel: f32 operands the
     FFMA entry, bf16 the bf16 entry, as spmm_sorted, at the geometry of
     n_block_rows lanes; bf16x3 (blocks: split_planes' planes, f32
-    operand) K3's entry after split_operand."""
+    operand) K3's entry after split_operand. lane_order and depth (the
+    plan's, ``lane_order``) are read by the exact-f32 entry, which at b =
+    16 and 32 needs them."""
     dev = _device_of(step_rows, step_ptr, slot_cols, blocks, dense)
     n_block_rows = step_ptr.shape[0] - 1
     if dev.type == "cpu":
@@ -685,21 +753,24 @@ def spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense, group: int,
     bf16 = blocks.dtype == torch.bfloat16 and not bf16x3
     kernel = getattr(_kernels, "bsr_spmm_" + ("resident" if resident else "flat")
                      + ("_bf16x3" if bf16x3 else "_bf16" if bf16 else ""))
+    pointers = (step_ptr.data_ptr(), slot_cols.data_ptr())
     with torch.cuda.device(dev):
         if bf16x3:
             sizes, bn, dense = _k3_launch_args(b, n_slots, dense, n_block_rows)
         elif bf16:
             sizes, bn, dense = _bf16_launch_args(blocks, dense, n_block_rows)
         else:
-            sizes, bn, dense = _f32_launch_args(blocks, dense, n_block_rows)
-        kernel(step_ptr.data_ptr(), slot_cols.data_ptr(), blocks.data_ptr(),
-               dense.data_ptr(), out.data_ptr(), n_block_rows, *sizes, group, b,
-               bn, torch.cuda.current_stream(dev).cuda_stream)
+            sizes, bn, dense = _f32_launch_args(blocks, dense, n_block_rows, depth)
+            pointers += (_lane_order_arg(lane_order, n_block_rows, dev),)
+        kernel(*pointers, blocks.data_ptr(), dense.data_ptr(), out.data_ptr(),
+               n_block_rows, *sizes, group, b, bn,
+               torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
 def spmm_resident(step_rows, step_ptr, slot_cols, blocks, dense3, group: int,
-                  bf16x3: bool = False) -> torch.Tensor:
+                  bf16x3: bool = False, lane_order=None,
+                  depth: Optional[int] = None) -> torch.Tensor:
     """K5 (K3 with bf16x3=True): C (n_block_rows*b, F) f32 on K1's packed
     arrays with the operand dense3 viewed as (nbc, b, F).
 
@@ -709,19 +780,22 @@ def spmm_resident(step_rows, step_ptr, slot_cols, blocks, dense3, group: int,
     spmm_resident_plain; CUDA tensors run the CUDA kernel."""
     return spmm_flat(step_rows, step_ptr, slot_cols, blocks,
                      _flat_view(dense3, blocks.shape[1]), group, bf16x3,
-                     resident=True)
+                     resident=True, lane_order=lane_order, depth=depth)
 
 
 def spmm_sorted(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr,
                 n_block_rows: int, R: int, gh: int, window: int,
-                bf16x3: bool = False) -> torch.Tensor:
+                bf16x3: bool = False, lane_order=None,
+                depth: Optional[int] = None) -> torch.Tensor:
     """K2 (K3 with bf16x3=True): C (n_block_rows*b, F) f32 on the
     depth-sorted layout.
 
     lane_valid (n_groups*R,) bool and group_ptr (n_groups+1,) int64 come
-    from the port's packer. CPU tensors run spmm_sorted_plain; CUDA
-    tensors run the CUDA kernel: f32 operands the FFMA entry (at b >= 64
-    the pipelined loop, at tile_geometry's tile width, the operand's
+    from the port's packer, lane_order (n_groups*R,) int32 and depth from
+    ``lane_order`` (the exact-f32 entry reads them; at b = 16 and 32 it
+    needs them). CPU tensors run spmm_sorted_plain; CUDA tensors run the
+    CUDA kernel: f32 operands the pipelined FFMA loop (at tile_geometry's
+    tile width at b >= 64, at f32_small_geometry's below, the operand's
     columns padded to a multiple of 4 where F is ragged:
     _f32_launch_args), bf16 the bf16 entry at bf16_tile_geometry's tile
     width (the operand's columns padded to a multiple of 8 where F is
@@ -763,22 +837,25 @@ def spmm_sorted(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr,
                 *pointers, dense.data_ptr(), out.data_ptr(), n_lanes,
                 *sizes, R, gh, window, b, bn, stream)
         else:
-            sizes, bn, dense = _f32_launch_args(blocks, dense, n_block_rows)
+            sizes, bn, dense = _f32_launch_args(blocks, dense, n_block_rows, depth)
             _kernels.bsr_spmm_sorted(
-                *pointers, dense.data_ptr(), out.data_ptr(), n_lanes, *sizes,
+                *pointers[:5], _lane_order_arg(lane_order, n_lanes, dev),
+                pointers[5], dense.data_ptr(), out.data_ptr(), n_lanes, *sizes,
                 R, gh, window, b, bn, stream)
     return out
 
 
 def spmm_rowgroup(step_groups, group_ptr, slot_cols, blocks, dense,
-                  n_block_rows: int, R: int, gh: int) -> torch.Tensor:
+                  n_block_rows: int, R: int, gh: int, lane_order=None,
+                  depth: Optional[int] = None) -> torch.Tensor:
     """K4: C (n_block_rows*b, F) f32 on the consecutive row-group layout.
 
     group_ptr (n_groups+1,) int64 points each group at its steps
     (group_pointer at plan time). CPU tensors run spmm_rowgroup_plain;
     CUDA tensors run the CUDA kernel, whose phantom lanes store nothing:
     f32 operands the FFMA entry, bf16 the bf16 entry, as spmm_sorted, at
-    the geometry of n_block_rows lanes."""
+    the geometry of n_block_rows lanes; lane_order and depth as
+    spmm_sorted's."""
     dev = _device_of(step_groups, group_ptr, slot_cols, blocks, dense)
     if dev.type == "cpu":
         return spmm_rowgroup_plain(step_groups, slot_cols, blocks, dense,
@@ -803,9 +880,10 @@ def spmm_rowgroup(step_groups, group_ptr, slot_cols, blocks, dense,
                 *pointers, dense.data_ptr(), out.data_ptr(), n_lanes,
                 n_block_rows, *sizes, R, gh, b, bn, stream)
         else:
-            sizes, bn, dense = _f32_launch_args(blocks, dense, n_block_rows)
+            sizes, bn, dense = _f32_launch_args(blocks, dense, n_block_rows, depth)
             _kernels.bsr_spmm_rowgroup(
-                *pointers, dense.data_ptr(), out.data_ptr(), n_lanes,
+                *pointers[:2], _lane_order_arg(lane_order, n_lanes, dev),
+                pointers[2], dense.data_ptr(), out.data_ptr(), n_lanes,
                 n_block_rows, *sizes, R, gh, b, bn, stream)
     return out
 
@@ -942,7 +1020,9 @@ def bsr_spmm_pallas_plan(
             rows_h, cols_h, blocks_h, gh, R, W
         )
         group_ptr = np.concatenate([[0], np.cumsum(steps_per_group)])
-        arrays = (win_ids, slot_cols, blocks_pad, pos, lane_valid, group_ptr)
+        order, depth = lane_order(group_ptr, R, gh)
+        arrays = (win_ids, slot_cols, blocks_pad, pos, lane_valid, group_ptr,
+                  order)
         layout, geom = "sorted", (R, gh, W)
     elif resident_likely:
         if group_was_auto:
@@ -951,15 +1031,17 @@ def bsr_spmm_pallas_plan(
         step_groups, slot_cols, blocks_pad, n_groups = _pack_rowgroups(
             rows_h, cols_h, blocks_h, group, R
         )
-        arrays = (step_groups, slot_cols, blocks_pad,
-                  group_pointer(step_groups, n_groups))
+        group_ptr = group_pointer(step_groups, n_groups)
+        order, depth = lane_order(group_ptr, R, group)
+        arrays = (step_groups, slot_cols, blocks_pad, group_ptr, order)
         layout, geom = "rowgroup", (R, group)
     else:
         step_rows, slot_cols, blocks_pad = _pack_groups(
             rows_h, cols_h, blocks_h, group
         )
         step_ptr = np.searchsorted(step_rows, np.arange(nbr + 1)).astype(np.int64)
-        arrays = (step_rows, slot_cols, blocks_pad, step_ptr)
+        order, depth = lane_order(step_ptr, 1, group)
+        arrays = (step_rows, slot_cols, blocks_pad, step_ptr, order)
         layout, geom = ("resident" if resident else "flat"), group
     arrays = list(arrays)
     blocks_t = torch.as_tensor(arrays[2])
@@ -967,12 +1049,12 @@ def bsr_spmm_pallas_plan(
         arrays[2] = split_planes(blocks_t)
     else:
         arrays[2] = blocks_t.to(dtype) if dtype is not None else blocks_t
-    statics = (layout, nbr, n_rows, n_cols, k_needed, math, geom)
+    statics = (layout, nbr, n_rows, n_cols, k_needed, math, depth, geom)
     return Plan(arrays, _pallas_apply, statics, device=device)
 
 
 def _pallas_apply(statics, arrays, dense, plain: bool = False):
-    layout, nbr, n_rows, n_cols, k_needed, math, geom = statics
+    layout, nbr, n_rows, n_cols, k_needed, math, depth, geom = statics
     bf16x3 = math == "bf16x3"
     blocks = arrays[2]  # K3: split_planes' planes; the operand stays f32
     dense = torch.as_tensor(dense, device=blocks.device)
@@ -982,27 +1064,33 @@ def _pallas_apply(statics, arrays, dense, plain: bool = False):
     if k_needed > n_cols:  # zero rows up to the block grid
         dense = torch.nn.functional.pad(dense, (0, 0, 0, k_needed - n_cols))
     dense = dense.contiguous()
+    # the walk's CTA -> lane order and deepest lane: the exact-f32 entries'
+    walk = {"lane_order": arrays[-1], "depth": depth}
     if layout == "sorted":
-        win_ids, slot_cols, _, pos, lane_valid, group_ptr = arrays
-        fn = spmm_sorted_plain if plain else spmm_sorted
-        out = fn(win_ids, pos, slot_cols, blocks, dense, lane_valid,
-                 group_ptr, nbr, *geom, bf16x3=bf16x3)
+        win_ids, slot_cols, _, pos, lane_valid, group_ptr, _ = arrays
+        if plain:
+            out = spmm_sorted_plain(win_ids, pos, slot_cols, blocks, dense,
+                                    lane_valid, group_ptr, nbr, *geom,
+                                    bf16x3=bf16x3)
+        else:
+            out = spmm_sorted(win_ids, pos, slot_cols, blocks, dense, lane_valid,
+                              group_ptr, nbr, *geom, bf16x3=bf16x3, **walk)
     elif layout == "rowgroup":
-        step_groups, slot_cols, _, group_ptr = arrays
+        step_groups, slot_cols, _, group_ptr, _ = arrays
         if plain:
             out = spmm_rowgroup_plain(step_groups, slot_cols, blocks, dense,
                                       nbr, *geom)
         else:
             out = spmm_rowgroup(step_groups, group_ptr, slot_cols, blocks,
-                                dense, nbr, *geom)
+                                dense, nbr, *geom, **walk)
     elif plain:  # flat or resident: K1's packed arrays
-        step_rows, slot_cols, _, _ = arrays
+        step_rows, slot_cols = arrays[:2]
         out = spmm_flat_plain(step_rows, slot_cols, blocks, dense, nbr, geom,
                               bf16x3=bf16x3)
     else:
-        step_rows, slot_cols, _, step_ptr = arrays
+        step_rows, slot_cols, _, step_ptr, _ = arrays
         out = spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense, geom,
-                        bf16x3=bf16x3, resident=layout == "resident")
+                        bf16x3=bf16x3, resident=layout == "resident", **walk)
     return out[:n_rows]
 
 

@@ -364,14 +364,14 @@ def test_int8_dtype_raises_value_error(dtype):
 
 
 def test_plan_module_and_sum_plan():
-    """A plan is an nn.Module whose packed arrays are buffers; sum_plan
-    adds sub-plan outputs."""
+    """A plan is an nn.Module whose packed arrays are buffers (the flat
+    layout's four and its lane order); sum_plan adds sub-plan outputs."""
     a = t_bsr.random_bsr(0.3, 6, 6, block_size=8, seed=1)
     b = t_bsr.random_bsr(0.3, 6, 6, block_size=8, seed=2)
     pa = T.bsr_spmm_pallas_plan(a, grad=False, device="cpu")
     pb = T.bsr_spmm_pallas_plan(b, grad=False, depth_sort=True, device="cpu")
     assert isinstance(pa, torch.nn.Module)
-    assert len(list(pa.buffers())) == len(pa.arrays) == 4
+    assert len(list(pa.buffers())) == len(pa.arrays) == 5
     assert pa.to("cpu") is pa
     x = np.random.default_rng(0).standard_normal((48, 5)).astype(np.float32)
     s = sum_plan([pa, pb])
@@ -382,7 +382,7 @@ def test_plan_module_and_sum_plan():
 def test_wrappers_reject_mixed_devices():
     plan = T.bsr_spmm_pallas_plan(t_bsr.random_bsr(0.3, 4, 4, block_size=8, seed=0),
                                   grad=False, device="cpu")
-    step_rows, slot_cols, blocks, step_ptr = plan.arrays
+    step_rows, slot_cols, blocks, step_ptr, _ = plan.arrays
     with pytest.raises(ValueError, match="device"):
         T.spmm_flat(step_rows, step_ptr, slot_cols, blocks,
                     torch.zeros(32, 3, device="meta"), plan.statics[-1])
@@ -926,6 +926,143 @@ def test_f32_launch_args_align_the_operand(F, monkeypatch):
     assert x.data_ptr() % 16 == 0
     if F % 4 == 0:
         assert T._f32_launch_args(blocks, x, 2)[2] is x
+
+
+# -- the exact-f32 small instances (b = 16, 32): geometry and lane order ----
+
+# The arxiv stand-in's BSR plans under gorder (F = 128, the reorder
+# phase's): at b = 32 814,720 slots with a 5,148-slot hub lane; at b = 16
+# 954,112 slots with an 8,620-slot hub. rcmk's deepest row is 1,183 blocks.
+@pytest.mark.parametrize("b,F,n_sms,n_slots,depth,want", [
+    (32, 128, 132, 814720, 5148, (64, 128)),   # gorder: 128 is too wide
+    (16, 128, 132, 954112, 8620, (32, 128)),   # gorder at b = 16
+    (32, 128, 132, 814720, 8000, (32, 128)),   # a deeper hub
+    (32, 128, 132, 900000, 1184, (128, 128)),  # rcmk-like: no hub
+    (32, 256, 132, 18000, 134, (128, 256)),    # dense rows, few lanes
+    (32, 128, 1, 200, 100, (128, 128)),        # exactly the hub's share
+    (32, 128, 1, 199, 100, (64, 128)),         # just past it
+    (32, 133, 1, 1000, 10, (128, 136)),        # ragged F pads to 4
+    (16, 8, 1, 1000, 1, (32, 8)),              # never wider than F needs
+    (16, 33, 1, 1000, 1, (64, 36)),
+    (32, 64, 1, 1000, 1, (64, 64)),
+    (32, 65, 1, 1000, 1, (128, 68)),
+    (16, 128, 132, 0, 0, (128, 128)),          # no slots: nothing is deep
+])
+def test_f32_small_geometry(b, F, n_sms, n_slots, depth, want):
+    """The exact-f32 entries at b = 16 and 32 take the widest of 128, 64
+    and 32 columns that F needs and at which the deepest lane's CTA
+    (depth * bn slot-columns) stays within its share of the grid, n_slots
+    * F / (n_sms * F32_SMALL_HUB_SHARE = 2); else 32. The operand's rows
+    pad to a multiple of 4 floats."""
+    assert T.F32_SMALL_HUB_SHARE == 2
+    bn, ld = T.f32_small_geometry(b, F, n_sms, n_slots, depth)
+    assert (bn, ld) == want
+    assert ld % 4 == 0 and 0 <= ld - F < 4
+
+
+@pytest.mark.parametrize("F", [128, 70, 8])
+@pytest.mark.parametrize("b", [16, 32])
+def test_f32_launch_args_small_blocks(b, F, monkeypatch):
+    """_f32_launch_args at b = 16 and 32: f32_small_geometry's (bn, ld) for
+    the blocks' slot count and the plan's depth, the operand padded to
+    ld columns (zeros) or copied to a 16-byte-aligned buffer; without a
+    depth it raises (no geometry to fall back to)."""
+    monkeypatch.setattr(T, "_sm_count", lambda index: 132)
+    blocks = torch.zeros(600, b, b)
+    x = torch.arange(4 * b * F, dtype=torch.float32).reshape(4 * b, F)
+    base = torch.empty(x.numel() + 1)
+    view = base[1:].view(4 * b, F)
+    view.copy_(x)
+    for depth in (1, 500):
+        (f, ld), bn, dense = T._f32_launch_args(blocks, view, 2, depth)
+        assert (bn, ld) == T.f32_small_geometry(b, F, 132, 600, depth)
+        assert f == F and dense.shape == (4 * b, ld) and dense.data_ptr() % 16 == 0
+        assert torch.equal(dense[:, :F], view) and not dense[:, F:].any()
+    if F % 4 == 0:
+        assert T._f32_launch_args(blocks, x, 2, 1)[2] is x
+    with pytest.raises(ValueError, match="depth"):
+        T._f32_launch_args(blocks, x, 2)
+
+
+def test_lane_order_is_deepest_first_and_stable():
+    """lane_order: each group's R lanes share its step count; the lanes by
+    step count, deepest first, ties in packed order; depth is the deepest
+    lane's slots."""
+    order, depth = T.lane_order(np.array([0, 3, 3, 8, 10, 13]), 2, 4)
+    assert order.dtype == np.int32
+    assert order.tolist() == [4, 5, 0, 1, 8, 9, 6, 7, 2, 3]
+    assert depth == 5 * 4
+    order, depth = T.lane_order(np.array([0, 1, 1, 2]), 1, 8)  # a flat walk
+    assert order.tolist() == [0, 2, 1] and depth == 8
+    order, depth = T.lane_order(np.array([0]), 16, 4)  # no groups
+    assert order.size == 0 and depth == 0
+
+
+def _hub_parts(b, seed):
+    """24 block-rows of 40 block-columns: block-row 7 holds 30 blocks,
+    block-row 3 none, the others 6 to 12 (a hub among shallow lanes; over
+    8 real blocks a block-row, so the f32 plan sorts)."""
+    rng = np.random.default_rng(seed)
+    rows, cols = [], []
+    for r in range(24):
+        n = 30 if r == 7 else 0 if r == 3 else int(rng.integers(6, 13))
+        rows += [r] * n
+        cols += sorted(rng.choice(40, n, replace=False).tolist())
+    blocks = rng.standard_normal((len(rows), b, b)).astype(np.float32)
+    return (np.asarray(rows, np.int32), np.asarray(cols, np.int32), blocks,
+            (24 * b - 5, 40 * b - 3), b)
+
+
+def _walk_of(plan):
+    """(pointer, R, slots a step) of a plan's CTA walk."""
+    layout, geom = plan.statics[0], plan.statics[-1]
+    if layout == "sorted":
+        return plan.arrays[5], geom[0], geom[1]
+    if layout == "rowgroup":
+        return plan.arrays[3], geom[0], geom[1]
+    return plan.arrays[3], 1, geom
+
+
+# (plan kwargs, layout): exact f32 on each layout a plan packs, and bf16's
+# row groups; "high" and bf16 plans carry the same arrays
+LANE_ORDER_PLANS = [
+    ({}, "sorted"), ({"depth_sort": False}, "flat"),
+    ({"resident": True, "depth_sort": False}, "resident"),
+    ({"precision": "high"}, "sorted"),
+    ({"dtype": torch.bfloat16, "depth_sort": False}, "rowgroup"),
+    ({"dtype": torch.bfloat16}, "sorted"),
+]
+
+
+@pytest.mark.parametrize("b", [16, 32])
+@pytest.mark.parametrize("case", range(len(LANE_ORDER_PLANS)))
+def test_plan_lane_order(case, b):
+    """Every plan (the forward one and its grad plan's Aᵀ, which packs
+    its own layout) carries its walk's lane order as its last array, an
+    int32 permutation of the lanes, deepest first, ties in packed order,
+    and the deepest lane's slots in statics[6]; the JAX packer's arrays
+    before it are unchanged (the parity tests hold them). The order moves
+    only which CTA runs when: the plan's answer is the plain versions'."""
+    kw, layout = LANE_ORDER_PLANS[case]
+    bsr = t_bsr.BSR.from_parts(*_hub_parts(b, seed=b + case))
+    grad = T.bsr_spmm_pallas_plan(bsr, grad=True, device="cpu", **kw)
+    fwd, bwd = grad.arrays
+    assert fwd.statics[0] == layout
+    for plan in (fwd, bwd):
+        order = plan.arrays[-1]
+        ptr, R, per_step = _walk_of(plan)
+        steps = np.repeat(np.diff(ptr.numpy()), R)
+        assert order.dtype == torch.int32
+        assert sorted(order.tolist()) == list(range(steps.size))
+        o = order.numpy()
+        assert (np.diff(steps[o]) <= 0).all()
+        same = np.diff(steps[o]) == 0
+        assert (np.diff(o)[same] > 0).all()
+        assert plan.statics[6] == steps.max() * per_step
+    # the hub (30 blocks) is the forward plan's deepest lane
+    assert fwd.statics[6] >= 30
+    x = np.random.default_rng(b).standard_normal((bsr.shape[1], 9)).astype(np.float32)
+    assert torch.equal(fwd(x), T.plain_apply(fwd, x))
 
 
 def test_kernel_build_hashes_headers_and_includes_csrc(tmp_path, monkeypatch):

@@ -1,7 +1,8 @@
 """The CUDA kernels K1 (flat grouped gather), K2 (depth-sorted row
 groups), K4 (consecutive row groups) and K5 (single-row resident), each
-in f32 (at b = 64 and 128 on the pipelined FFMA loop) and, on the
-tensor cores, in bf16, K3 (the bf16x3 product, on K1's, K2's and K5's
+in f32 (on the pipelined FFMA loop at every b; at b = 16 and 32 its
+small instances, with a hub lane thousands of slots deep among shallow
+ones) and, on the tensor cores, in bf16, K3 (the bf16x3 product, on K1's, K2's and K5's
 layouts, on the tensor cores at b = 64 and 128) and its operand split,
 the int8 kernels K6 (flat), K7
 (depth-sorted, group-scale and per-slot scales), K8 (consecutive row
@@ -123,7 +124,7 @@ def test_wrappers_refuse_bad_operands():
         plan(torch.zeros(bsr.shape[1], 4, device="cuda"))
     plan = T.bsr_spmm_pallas_plan(_bsr(8, 16, 0.5, seed=2), grad=False,
                                   device="cuda")
-    step_rows, slot_cols, blocks, step_ptr = plan.arrays
+    step_rows, slot_cols, blocks, step_ptr, _ = plan.arrays
     with pytest.raises(TypeError, match="dtype"):
         T.spmm_flat(step_rows, step_ptr, slot_cols, blocks.half(),
                     torch.zeros(128, 4, device="cuda", dtype=torch.half),
@@ -153,8 +154,10 @@ def test_rowgroup_kernel_matches_plain(b, dtype, nb):
         cov.block_rows, cov.block_cols, cov.blocks, gh, R)
     dev = lambda a: torch.as_tensor(a, device="cuda")
     td = dtype or torch.float32
-    args = (dev(step_groups), dev(T.group_pointer(step_groups, n_groups)),
-            dev(slot_cols), dev(blocks_pad).to(td))
+    group_ptr = T.group_pointer(step_groups, n_groups)
+    args = (dev(step_groups), dev(group_ptr), dev(slot_cols),
+            dev(blocks_pad).to(td))
+    order, depth = T.lane_order(group_ptr, R, gh)
     x = _x(bsr)
     k_needed = bsr.n_block_cols * b
     x = torch.nn.functional.pad(x, (0, 0, 0, k_needed - x.shape[0])).to(td)
@@ -162,7 +165,8 @@ def test_rowgroup_kernel_matches_plain(b, dtype, nb):
     if dtype is not None:
         kernel, other = other, kernel
     before = kernel.launches, other.launches
-    got = T.spmm_rowgroup(*args, x, bsr.n_block_rows, R, gh)
+    got = T.spmm_rowgroup(*args, x, bsr.n_block_rows, R, gh,
+                          lane_order=dev(order), depth=depth)
     torch.cuda.synchronize()
     assert (kernel.launches, other.launches) == (before[0] + 1, before[1])
     want = T.spmm_rowgroup_plain(args[0], args[2], args[3], x,
@@ -271,17 +275,17 @@ def test_bf16_entries_refuse_bad_geometry(layout):
     stream = torch.cuda.current_stream().cuda_stream
     kernel = getattr(_kernels, BF16_KERNELS[layout])
     if layout == "sorted":
-        win_ids, slot_cols, _, pos, lane_valid, group_ptr = plan.arrays
+        win_ids, slot_cols, _, pos, lane_valid, group_ptr, _ = plan.arrays
         R, gh, W = plan.statics[-1]
         head = (group_ptr, win_ids, pos, lane_valid, slot_cols)
         lanes, tail = (lane_valid.shape[0],), (R, gh, W, 64)
     elif layout == "rowgroup":
-        _, slot_cols, _, group_ptr = plan.arrays
+        _, slot_cols, _, group_ptr, _ = plan.arrays
         R, gh = plan.statics[-1]
         head = (group_ptr, slot_cols)
         lanes, tail = ((group_ptr.shape[0] - 1) * R, plan.statics[1]), (R, gh, 64)
     else:  # flat and resident: the step pointer, one lane per block-row
-        _, slot_cols, _, step_ptr = plan.arrays
+        _, slot_cols, _, step_ptr, _ = plan.arrays
         head = (step_ptr, slot_cols)
         lanes, tail = (plan.statics[1],), (plan.statics[-1], 64)
     ptrs = [t.data_ptr() for t in (*head, blocks, dense, out)]
@@ -773,10 +777,11 @@ def _f32_rowgroup_plan(bsr) -> Plan:
     R, _ = T._rowgroup_policy(2, gh)
     step_groups, slot_cols, blocks, n_groups = T._pack_rowgroups(
         rows, cov.block_cols[: cov.nnzb], cov.blocks[: cov.nnzb], gh, R)
+    group_ptr = T.group_pointer(step_groups, n_groups)
+    order, depth = T.lane_order(group_ptr, R, gh)
     statics = ("rowgroup", cov.n_block_rows, *bsr.shape,
-               cov.n_block_cols * bsr.b, "exact", (R, gh))
-    return Plan([step_groups, slot_cols, blocks,
-                 T.group_pointer(step_groups, n_groups)],
+               cov.n_block_cols * bsr.b, "exact", depth, (R, gh))
+    return Plan([step_groups, slot_cols, blocks, group_ptr, order],
                 T._pallas_apply, statics, device="cuda")
 
 
@@ -900,14 +905,15 @@ def _sorting_bsr(nb, b, seed):
 @pytest.mark.parametrize("wide", [False, True])
 @pytest.mark.parametrize("nb", [7, 37])
 @pytest.mark.parametrize("F", [8, 70, 133, 256, 512])
-@pytest.mark.parametrize("b", [64, 128])
+@pytest.mark.parametrize("b", [16, 32, 64, 128])
 def test_f32_k2_pipelined_loop_matches_plain(b, F, nb, wide, layout, monkeypatch):
-    """The exact f32 kernels at b = 64 and 128 (the pipelined FFMA loop:
-    K2 on its sorted walk, K1 and K5 on the flat one, K4 on row groups)
-    on random data within 1e-5 of their plain versions: ragged F (70 and
-    133 pad the operand to a multiple of 4), absent and phantom lanes (7
-    and 37 block-rows at R = 16; 12 blocks in every other row, so the f32
-    plan sorts), tiles of 64 columns and of the widest the F needs."""
+    """The exact f32 kernels (the pipelined FFMA loop at every b: K2 on its
+    sorted walk, K1 and K5 on the flat one, K4 on row groups) on random
+    data within 1e-5 of their plain versions: ragged F (70 and 133 pad the
+    operand to a multiple of 4), absent and phantom lanes (7 and 37
+    block-rows at R = 16; 12 blocks in every other row, so the f32 plan
+    sorts), tiles of the width the card's geometry picks and of the
+    widest the F needs (at b = 16 and 32, 32 and 128 columns here)."""
     _widest_tiles(monkeypatch, wide)
     bsr = _sorting_bsr(nb, b, seed=b + nb)
     plan = _layout_plan(bsr, layout)
@@ -915,31 +921,59 @@ def test_f32_k2_pipelined_loop_matches_plain(b, F, nb, wide, layout, monkeypatch
            getattr(_kernels, K3_LAYOUT_KERNELS[layout][2]))
 
 
-def _f32_entry_args(plan, layout):
-    """(the pointer arrays before blocks, the sizes before F, the sizes
-    between ld and bn) of the entry an exact f32 plan launches."""
-    b = plan.arrays[2].shape[1]
-    if layout == "sorted":
-        win_ids, slot_cols, _, pos, lane_valid, group_ptr = plan.arrays
-        R, gh, W = plan.statics[-1]
-        return ((group_ptr, win_ids, pos, lane_valid, slot_cols),
-                (lane_valid.shape[0],), (R, gh, W, b))
-    if layout == "rowgroup":
-        _, slot_cols, _, group_ptr = plan.arrays
-        R, gh = plan.statics[-1]
-        return ((group_ptr, slot_cols),
-                ((group_ptr.shape[0] - 1) * R, plan.statics[1]), (R, gh, b))
-    _, slot_cols, _, step_ptr = plan.arrays  # flat and resident
-    return (step_ptr, slot_cols), (plan.statics[1],), (plan.statics[-1], b)
+def _force_small_bn(monkeypatch, bn):
+    """The exact-f32 entries at b = 16 and 32 launch at bn columns."""
+    monkeypatch.setattr(T, "f32_small_geometry",
+                        lambda b, F, n_sms, n_slots, depth: (bn, -(-F // 4) * 4))
 
 
 @pytest.mark.parametrize("layout", list(K3_LAYOUT_KERNELS))
-@pytest.mark.parametrize("b", [16, 64])
+@pytest.mark.parametrize("bn", [32, 64, 128])
+@pytest.mark.parametrize("F", [8, 70, 200])
+@pytest.mark.parametrize("b", [16, 32])
+def test_f32_small_instances_match_plain(b, F, bn, layout, monkeypatch):
+    """Each small instance of the pipelined loop (b = 16 and 32, tiles of
+    32, 64 and 128 columns: microtiles of 1 x 4 up to 4 x 8) on every
+    walk, against the plain version within 1e-5, on 37 block-rows (absent
+    and phantom lanes) and ragged F; and its answer equal bit for bit to
+    the same kernel at 32 columns, whose sums run in the same order."""
+    bsr = _sorting_bsr(37, b, seed=b + F)
+    plan = _layout_plan(bsr, layout)
+    x = _x(bsr, F=F, seed=F)
+    kernel = getattr(_kernels, K3_LAYOUT_KERNELS[layout][2])
+    _force_small_bn(monkeypatch, bn)
+    got = _check(plan, x, kernel)
+    _force_small_bn(monkeypatch, 32)
+    assert torch.equal(got, plan(x))
+
+
+def _f32_entry_args(plan, layout):
+    """(the pointer arrays before blocks, the lane order last; the sizes
+    before F; the sizes between ld and bn) of the entry an exact f32 plan
+    launches."""
+    b = plan.arrays[2].shape[1]
+    if layout == "sorted":
+        win_ids, slot_cols, _, pos, lane_valid, group_ptr, order = plan.arrays
+        R, gh, W = plan.statics[-1]
+        return ((group_ptr, win_ids, pos, lane_valid, slot_cols, order),
+                (lane_valid.shape[0],), (R, gh, W, b))
+    if layout == "rowgroup":
+        _, slot_cols, _, group_ptr, order = plan.arrays
+        R, gh = plan.statics[-1]
+        return ((group_ptr, slot_cols, order),
+                ((group_ptr.shape[0] - 1) * R, plan.statics[1]), (R, gh, b))
+    _, slot_cols, _, step_ptr, order = plan.arrays  # flat and resident
+    return (step_ptr, slot_cols, order), (plan.statics[1],), (plan.statics[-1], b)
+
+
+@pytest.mark.parametrize("layout", list(K3_LAYOUT_KERNELS))
+@pytest.mark.parametrize("b", [16, 32, 64])
 def test_f32_k2_entry_refuses_bad_geometry(b, layout):
     """Each exact f32 entry (K2, K1, K5, K4) refuses a tile width it has
-    no loop for, an operand row length that is not a multiple of 4 (b =
-    64; b = 16 takes only bn = 64, ld = F), and at b = 64 a misaligned
-    operand: the wrapper raises and no launch is counted."""
+    no instance for (96 and 256 at every b, 32 at b = 64), an operand row
+    length that is not a multiple of 4, or shorter than F, a misaligned
+    operand, and at b = 16 and 32 a null lane order: the wrapper raises and
+    no launch is counted."""
     bsr = _sorting_bsr(7, b, seed=3)
     plan = _layout_plan(bsr, layout)
     head, lanes, tail = _f32_entry_args(plan, layout)
@@ -950,14 +984,66 @@ def test_f32_k2_entry_refuses_bad_geometry(b, layout):
     ptrs = [t.data_ptr() for t in (*head, plan.arrays[2])]
     stream = torch.cuda.current_stream().cuda_stream
     d = dense.data_ptr()
-    if b == 16:  # (operand, ld, bn): ld != F, a wide tile, no such tile
-        bad = [(d, 72, 64), (d, 70, 128), (d, 70, 96)]
-    else:  # no such tile, ld not a multiple of 4, an operand 4 bytes off
-        bad = [(d, 72, 96), (d, 70, 64), (d + 4, 72, 64)]
-    for ptr, ld, bn in bad:
+    # (operand, ld, bn, lane order)
+    order = ptrs[-2]
+    bad = [(d, 72, 96, order), (d, 72, 256, order), (d, 70, 64, order),
+           (d, 68, 64, order), (d + 4, 72, 64, order)]
+    bad += [(d, 72, 32, order)] if b == 64 else [(d, 72, 64, 0), (d, 72, 32, 0)]
+    for ptr, ld, bn, lo in bad:
+        ptrs[-2] = lo
         with pytest.raises(RuntimeError, match="cudaError_t"):
             kernel(*ptrs, ptr, out.data_ptr(), *lanes, 70, ld, *tail, bn, stream)
     assert [k.launches for k in _kernels.KERNELS] == counts
+
+
+def _hub_bsr(b, hub, exact, seed=0):
+    """40 block-rows over `hub` block-columns: block-row 21 holds a block
+    in every column (hub blocks, a lane thousands of slots deep) and the
+    others 2 to 6 (a few slots), block-row 3 none. exact=True: blocks and
+    operand hold integers of magnitude <= 2, so every partial sum of an
+    output is an integer under 2^24 and exact in f32 in any order; else
+    standard-normal values. Returns (bsr, x (hub*b, 64) f32)."""
+    rng = np.random.default_rng(seed)
+    rows, cols = [], []
+    for r in range(40):
+        c = (np.arange(hub) if r == 21 else [] if r == 3 else
+             np.sort(rng.choice(hub, size=int(rng.integers(2, 7)), replace=False)))
+        rows += [r] * len(c)
+        cols += list(c)
+    shape = (len(rows), b, b)
+    vals = (lambda sh: rng.integers(-2, 3, size=sh)) if exact else rng.standard_normal
+    blocks = vals(shape).astype(np.float32)
+    x = vals((hub * b, 64)).astype(np.float32)
+    return BSR.from_parts(np.asarray(rows, np.int32), np.asarray(cols, np.int32),
+                          blocks, (40 * b, hub * b), b), x
+
+
+@pytest.mark.parametrize("layout", list(K3_LAYOUT_KERNELS))
+@pytest.mark.parametrize("b", [16, 32])
+def test_f32_small_hub_lane(b, layout):
+    """One hub lane 2,000 blocks deep among lanes of a few blocks (the
+    arxiv stand-in's shape under gorder, in small): the plan's lane order
+    starts the deepest lane first, and the geometry gives it 32-column
+    tiles on the card's SMs. On integer data every exact-f32 kernel
+    equals float64 bit for bit; on standard-normal data it is within 1e-5
+    of its plain version and within 1e-4 of float64."""
+    hub, F = 2000, 64
+    name = K3_LAYOUT_KERNELS[layout][2]
+    for exact in (True, False):
+        bsr, x_np = _hub_bsr(b, hub, exact, seed=b)
+        plan = _layout_plan(bsr, layout)
+        depth = plan.statics[6]
+        assert depth >= hub
+        assert T.f32_small_geometry(b, F, T._sm_count(0), plan.arrays[2].shape[0],
+                                    depth)[0] == 32
+        x = torch.as_tensor(x_np, device="cuda")
+        ref = bsr.to_scipy().astype(np.float64) @ x_np.astype(np.float64)
+        if exact:
+            got = _run_counted(plan, x, name, False)
+            np.testing.assert_array_equal(got.double().cpu().numpy(), ref)
+        else:
+            got = _check(plan, x, getattr(_kernels, name))
+            assert np.abs(got.cpu().numpy() - ref).max() / np.abs(ref).max() < 1e-4
 
 
 def test_k3_wrappers_take_f32_only():
@@ -967,7 +1053,7 @@ def test_k3_wrappers_take_f32_only():
     bsr = _bsr(8, 16, 0.5, seed=5)
     plan = T.bsr_spmm_pallas_plan(bsr, grad=False, resident=True,
                                   precision="high", device="cuda")
-    step_rows, slot_cols, planes, step_ptr = plan.arrays
+    step_rows, slot_cols, planes, step_ptr, _ = plan.arrays
     assert planes.dtype == torch.bfloat16 and planes.dim() == 2
     x3 = torch.zeros(8, 16, 4, device="cuda", dtype=torch.bfloat16)
     counts = [k.launches for k in _kernels.KERNELS]
