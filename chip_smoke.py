@@ -112,15 +112,19 @@ Phases:
               spmm_plan(impl="bsr_pallas") on the ordering with the fewest
               32 x 32 blocks: f32 K2 at block_size=32 and 16 and K1
               (depth_sort=False) at 32, the pipelined FFMA loop's small
-              instances, each against its plain version and within 1e-4
-              of spmm_scipy; after its counts are read, the same plans on
-              a standard-normal X, against their plain versions and a
-              float64 scipy product; then their CUDA-event times (K10 on
-              each ordering; each BSR plan with its slots, deepest lane
-              and F tile width, then freed; the CSR / BSR ratio at b = 32)
-              beside plain, bound and library; once, bf16 K2 and K3
-              (sorted) at b = 32, still on the first FFMA loop, timed the
-              same way; its device memory freed before phase 8
+              instances, and bf16 K2 and K3 (precision="high", sorted) at
+              32 and 16, the small-block tensor-core loop, each against
+              its plain version and within 1e-4 of spmm_scipy; after its
+              counts are read, the same plans on a standard-normal X,
+              against their plain versions and (but for bf16) a float64
+              scipy product; then their CUDA-event times (K10 on each
+              ordering; each BSR plan with its slots, deepest lane and F
+              tile width, then freed; the CSR / BSR ratio at b = 32)
+              beside plain, bound and library; once, off the path, bf16
+              K1 (resident=False) and K4 (depth_sort=False), K3 on K1's
+              layout and int8 K7 (dp4a) at b = 32, each checked against
+              its plain version and timed the same way; its device memory
+              freed before phase 8
   8. timing   CUDA-event times of kernel, plain and library paths
               (library: one PyTorch call computing the same function,
               timed as a yardstick and never called by the port:
@@ -213,6 +217,7 @@ from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import (  # noqa: E402
     _pallas_apply,
     _rowgroup_policy,
     _sm_count,
+    bf16_small_geometry,
     bf16_tile_geometry,
     bsr_spmm_pallas_plan,
     f32_small_geometry,
@@ -280,13 +285,26 @@ REORDER_BLOCK_SIZES = (16, 32, 64, 128)
 REORDER_B = 32
 REORDER_F = 128
 # the BSR plans of the reorder phase, on the ordering with the fewest
-# REORDER_B blocks: (id, block size, plan arguments), f32 K2 at b = 32
-# first (the CSR / BSR ratio's), then K2 at 16 and K1 at 32
-REORDER_BSR = (("K2", 32, {}), ("K2", 16, {}), ("K1", 32, {"depth_sort": False}))
-# timed once after the phase, on the first plan's ordering and b: the
-# small-block instances still on the first FFMA loop
-REORDER_FIRST_LOOP = (("bf16 K2", {"dtype": torch.bfloat16}),
-                      ("K3 sorted", {"precision": "high"}))
+# REORDER_B blocks: (label, block size, plan arguments, kernel), f32 K2 at
+# b = 32 first (the CSR / BSR ratio's), then f32 K2 at 16 and K1 at 32
+# (the pipelined FFMA loop's small instances), then bf16 K2 and K3
+# (sorted) at 32 and 16 (the small-block tensor-core loop)
+REORDER_BSR = (("K2", 32, {}, "bsr_spmm_sorted"),
+               ("K2", 16, {}, "bsr_spmm_sorted"),
+               ("K1", 32, {"depth_sort": False}, "bsr_spmm_flat"),
+               ("bf16 K2", 32, {"dtype": torch.bfloat16}, "bsr_spmm_sorted_bf16"),
+               ("K3 sorted", 32, {"precision": "high"}, "bsr_spmm_sorted_bf16x3"),
+               ("bf16 K2", 16, {"dtype": torch.bfloat16}, "bsr_spmm_sorted_bf16"),
+               ("K3 sorted", 16, {"precision": "high"}, "bsr_spmm_sorted_bf16x3"))
+# timed once after the phase (not on its path), at REORDER_B, each plan
+# freed after its row: the walks that run the small-block tensor-core loop
+# beside its targets, and int8 K7, still on its dp4a loop at b = 32
+REORDER_ONCE = (
+    ("bf16 K1", {"dtype": torch.bfloat16, "resident": False}, "bsr_spmm_flat_bf16"),
+    ("bf16 K4", {"dtype": torch.bfloat16, "depth_sort": False},
+     "bsr_spmm_rowgroup_bf16"),
+    ("K3 flat", {"precision": "high", "depth_sort": False}, "bsr_spmm_flat_bf16x3"),
+    ("int8 K7", {"dtype": torch.int8}, "bsr_spmm_int8_sorted"))
 _PALLAS = "spmm_denseblock_tpu/ops/bsr_spmm_pallas.py"
 _PALLAS_I8 = "spmm_denseblock_tpu/ops/bsr_spmm_pallas_int8.py"
 _CSRC = "spmm_denseblock_tpu_torch/csrc/"
@@ -515,10 +533,10 @@ def k3_exactness() -> None:
     """Each K3 instance, and the exact kernel on its layout, on an input
     whose partial sums are all exact in f32: the order of a kernel's
     sums cannot matter, so K3 must give the bf16x3 answer and the exact
-    kernel A X, bit for bit; at b = 16 and 32 (K3 on the first FFMA loop,
-    the exact kernels on the pipelined loop's small instances) and at b
-    = 64 and 128 (K3 on the tensor-core ring, f32 K1, K2 and K5 on the
-    pipelined FFMA loop). f32 K4 (a hand-packed plan: K3 has no row-group
+    kernel A X, bit for bit; at b = 16 and 32 (K3 on the small-block
+    tensor-core loop, the exact kernels on the pipelined loop's small
+    instances) and at b = 64 and 128 (K3 on the tensor-core ring, f32 K1,
+    K2 and K5 on the pipelined FFMA loop). f32 K4 (a hand-packed plan: K3 has no row-group
     instance) must give A X too. Each K3 call splits its operand once."""
     for b in (16, 32, 64, 128):
         bsr, x, want3, want_exact = bf16x3_exact_case(F=200, seed=b, b=b)
@@ -584,9 +602,9 @@ def bf16_layout_plan(bsr, layout: str) -> Plan:
 def bf16_exactness() -> None:
     """The bf16 K1, K2, K4 and K5 entries on bf16_exact_case, whose
     partial sums are integers under 2^24: exact in f32 in any order, so
-    each kernel must equal float64 bit for bit (the tensor-core loop at
-    b = 64 and 128, the FFMA loop below; F=70 pads the operand to 72
-    columns)."""
+    each kernel must equal float64 bit for bit (the tensor-core ring at
+    b = 64 and 128, the small-block mma.sync loop below; F=70 pads the
+    operand to 72 columns)."""
     log("[kernels] bf16 K1, K2, K4 and K5 where every sum is exact in f32 "
         "(bf16_exact_case): each must equal float64 bit for bit")
     for b in (16, 32, 64, 128):
@@ -1051,11 +1069,11 @@ F32_PIPE_KERNELS = ("bsr_spmm_sorted", "bsr_spmm_flat", "bsr_spmm_resident",
 
 
 def tile_bn(name: str, bsr: BSR, F: int):
-    """The F tile width a kernel of the op plans launched at, or None for
-    the kernels whose tiles are 64 columns (the FFMA and dp4a loops) or
-    not BSR tiles: the tensor-core loops (bf16 entries and K3, int8
-    K6-K9, at b >= 64) and the exact-f32 kernels' pipelined loop (K1, K2,
-    K4, K5) pick theirs from the grid."""
+    """The F tile width a kernel of the op plans (b >= 64) launched at, or
+    None below (bsr_row gives the reorder plans' widths) and for tiles
+    that are not BSR tiles: the tensor-core loops (bf16 entries and K3,
+    int8 K6-K9, at b >= 64) and the exact-f32 kernels' pipelined loop
+    (K1, K2, K4, K5) pick theirs from the grid."""
     if bsr.b < 64:
         return None
     if name.endswith(("_bf16", "_bf16x3")):
@@ -1100,8 +1118,9 @@ def reorder_phase(cache_dir: Path):
     plain version and within 1e-4 of spmm_scipy; then, on the ordering
     with the fewest 32 x 32 blocks, REORDER_BSR's plans (bsr_pallas: f32
     K2 at b = 32 and 16, K1 at 32, on the pipelined FFMA loop's small
-    instances), each against its plain version and spmm_scipy. Returns
-    what the timing needs.
+    instances; bf16 K2 and K3 sorted at 32 and 16, on the small-block
+    tensor-core loop), each against its plain version and spmm_scipy.
+    Returns what the timing needs.
 
     X is the reference's check_result operand, seeded signs of 0.5: on a
     graph of ones every partial sum is then a multiple of 0.5 under 2^23,
@@ -1155,33 +1174,54 @@ def reorder_phase(cache_dir: Path):
     best = min(REORDER_ORDERINGS,
                key=lambda k: runs[k]["metrics"][REORDER_B]["nnzb"])
     want = spmm_scipy(runs[best]["csr"], x_np)
-    bsr_runs = []
-    for kid, b, kw in REORDER_BSR:
+    bsrs, bsr_runs = {}, []
+    for kid, b, kw, name in REORDER_BSR:
         t0 = time.perf_counter()
-        bsr = csr_to_bsr(runs[best]["csr"], b)
+        if b not in bsrs:
+            bsrs[b] = csr_to_bsr(runs[best]["csr"], b)
+        bsr = bsrs[b]
         bplan = spmm_plan(bsr, impl="bsr_pallas", block_size=b, grad=False,
                           device=DEV, **kw)
         bplan_s = time.perf_counter() - t0
-        if kernel_of(bplan)[0] != kid or bplan.statics[5] != "exact":
+        if kernel_of(bplan)[1] != name:
             raise AssertionError(f"reorder b={b} {kw}: {kernel_of(bplan)[1]}, "
-                                 f"expected f32 {kid}")
+                                 f"expected {name}")
         label = f"reorder {best} bsr {kid} b={b} F={REORDER_F}"
         log(f"[reorder] BSR on {best} (the fewest {REORDER_B} x {REORDER_B} blocks), "
-            f"{kid} b={b}: nnzb={bsr.nnzb}, {bplan.arrays[2].shape[0]} slots, "
+            f"{kid} b={b}: nnzb={bsr.nnzb}, {plan_slots(bplan)} slots, "
             f"deepest lane {bplan.statics[6]} slots, conversion and plan "
             f"{bplan_s:.1f} s (host)")
-        check_kernel(bplan, x, label)
+        before = launches()[name]
+        err = check_kernel(bplan, x, label)
         log(f"  {label} vs spmm_scipy: "
             f"{assert_allclose(bplan(x), want, msg=label):.3e} (< {CHECK_EPS})")
         bsr_runs.append({"kid": kid, "bsr": bsr, "plan": bplan, "plan_s": bplan_s,
-                         "label": label})
+                         "label": label, "err": err,
+                         "launches": launches()[name] - before})
     return {"x": x, "runs": runs, "best": best, "bsr_runs": bsr_runs}
+
+
+def plan_slots(plan) -> int:
+    """A BSR plan's slots (zero pads included; a "high" plan holds its
+    blocks as two bf16 planes of S*b rows)."""
+    blocks = plan.arrays[2]
+    return blocks.shape[0] // (2 * blocks.shape[1]) if blocks.dim() == 2 else blocks.shape[0]
+
+
+def plan_tag(plan) -> str:
+    """The products a BSR kernel plan runs, as bound() names them: "f32",
+    "bf16", "high" (K3) or "int8"."""
+    name = kernel_of(plan)[1]
+    if name.startswith("bsr_spmm_int8"):
+        return "int8"
+    return "high" if name.endswith("_bf16x3") else "bf16" if name.endswith("_bf16") else "f32"
 
 
 def reorder_normal_check(rp: dict) -> None:
     """The reorder phase's plans on a standard-normal X of the same shape,
     where an operand rounded below f32 (bf16, TF32) shows: each kernel
-    against its plain version (KERNEL_TOL) and against a float64 scipy
+    against its plain version (KERNEL_TOL; the hub lanes' long sums
+    included) and, but for the bf16 plans, against a float64 scipy
     product (CHECK_EPS, relative to its max |ref|). Run after the phase's
     counts are read: these launches do not count."""
     csr0 = next(iter(rp["runs"].values()))["csr"]
@@ -1204,7 +1244,8 @@ def reorder_normal_check(rp: dict) -> None:
     for br in rp["bsr_runs"]:
         label = br["label"] + " normal X"
         check_kernel(br["plan"], x, label)
-        against_f64(br["plan"], rp["runs"][rp["best"]]["csr"], label)
+        if plan_tag(br["plan"]) != "bf16":  # bf16 rounds the operand: plain only
+            against_f64(br["plan"], rp["runs"][rp["best"]]["csr"], label)
 
 
 def main_path(adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str):
@@ -1257,15 +1298,22 @@ def main_path(adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str):
     # each plan's answer checked twice: against its plain version and
     # against spmm_scipy
     reset_launches()
+    t0 = time.perf_counter()
     rphase = reorder_phase(ROOT / "build" / "datasets")
-    read("reorder", {"csr_spmm": 2 * len(REORDER_ORDERINGS),
-                     "bsr_spmm_sorted": 2 * sum(k == "K2" for k, _, _ in REORDER_BSR),
-                     "bsr_spmm_flat": 2 * sum(k == "K1" for k, _, _ in REORDER_BSR)})
+    log(f"[reorder] phase in {time.perf_counter() - t0:.1f} s")
+    expect = {"csr_spmm": 2 * len(REORDER_ORDERINGS)}
+    for _, _, kw, name in REORDER_BSR:
+        expect[name] = expect.get(name, 0) + 2
+        if kw.get("precision") == "high":  # each K3 call splits its operand
+            expect["split_bf16"] = expect.get("split_bf16", 0) + 2
+    read("reorder", expect)
+    t0 = time.perf_counter()
     reorder_normal_check(rphase)
     # its times now, after the counts were read; each BSR plan's gigabytes
     # on the card go back after its timing, the rest before the other
     # phases are timed
-    reorder_timing(rphase, card_line)
+    reorder_rows = reorder_timing(rphase, card_line)
+    log(f"[reorder] checks on normal X and timing in {time.perf_counter() - t0:.1f} s")
     del rphase
     torch.cuda.empty_cache()
     missing = [name for name in [kernel_of(p)[1] for p in plans.values()]
@@ -1292,7 +1340,7 @@ def main_path(adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str):
         raise AssertionError("quantize_int8: NaN or +-Inf not as JAX quantizes it")
     slices = {"f32": plan, "int8": plan_i8, "csr": plan_csr, "bf16": plan_bf16}
     return (slices, model, xs, train, plans, errs, totals,
-            {"int8": slice_i8_err, "bf16": slice_bf16_err})
+            {"int8": slice_i8_err, "bf16": slice_bf16_err}, reorder_rows)
 
 
 def bound(tag: str, flops: float, nbytes: float) -> tuple:
@@ -1322,16 +1370,18 @@ def csr_bound(csr: CSR, F: int) -> tuple:
     return bound("f32", 2.0 * csr.nnz * F, nbytes)
 
 
-def reorder_timing(rp: dict, card_line: str) -> None:
+def reorder_timing(rp: dict, card_line: str) -> list:
     """The reorder phase's times: K10 on each ordering, then each of
     REORDER_BSR's plans on the ordering with the fewest blocks (f32 K2 at
-    b = 32, whose time makes the CSR/BSR ratio, K2 at 16, K1 at 32), each
-    beside its plain version, its bound and the PyTorch library call, its
-    slots, its deepest lane's slots and its F tile width; then, once, the
-    small-block instances still on the first FFMA loop (bf16 K2 and K3
-    sorted) at the first plan's b. Each BSR plan is freed after its
-    timing. GFLOP/s = 2 nnz F / t (CSR) or 2 nnzb b^2 F / t (real
-    blocks)."""
+    b = 32, whose time makes the CSR/BSR ratio, f32 K2 at 16, K1 at 32,
+    bf16 K2 and K3 sorted at 32 and 16), each beside its plain version,
+    its bound and the PyTorch library call, its slots, its deepest lane's
+    slots and its F tile width (bsr_row); then, once, REORDER_ONCE's plans
+    at REORDER_B, each checked against its plain version first. Each BSR
+    plan is freed after its timing. GFLOP/s = 2 nnz F / t (CSR) or 2 nnzb
+    b^2 F / t (real blocks). Returns the kernels line's rows of
+    REORDER_BSR's instances (their launches on the path: each plan's
+    check against its plain version and against spmm_scipy)."""
     x, F = rp["x"], REORDER_F
     csr_ms = {}
     for name, run in rp["runs"].items():
@@ -1350,59 +1400,83 @@ def reorder_timing(rp: dict, card_line: str) -> None:
             f"{int(run['metrics'][32]['nnzb'])}, ordering {run['host_s']:.3f} s "
             f"[{card_line}]")
     best = rp["best"]
-    pad = torch.nn.functional.pad
-    first_bsr, k2_ms = rp["bsr_runs"][0]["bsr"], None
+    bsr32, k2_ms, rows, lib_cache = rp["bsr_runs"][0]["bsr"], None, [], {}
     while rp["bsr_runs"]:
         br = rp["bsr_runs"].pop(0)
         bsr, plan = br["bsr"], br.pop("plan")
-        k_ms = cuda_ms(lambda: plan(x), iters=10)
-        p_ms = cuda_ms(lambda: plain_apply(plan, x), iters=2, warmup=1)
+        row = bsr_row(f"{best:<8} {br['kid']}", bsr, plan, x, br["plan_s"],
+                      card_line, lib_cache)
+        kid, name, source, replaces = kernel_of(plan)
+        rows.append({"name": f"{kid} {name} b={bsr.b} {REORDER_DATASET} {best}",
+                     "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": br["launches"], "max_abs_err": br["err"], **row})
+        if k2_ms is None:
+            k2_ms = row["ms"]
+            log(f"  reorder {best}: CSR / BSR = {csr_ms[best] / k2_ms:.3f} (K10 "
+                f"{csr_ms[best]:.4f} ms, K2 b={bsr.b} {k2_ms:.4f} ms) [{card_line}]")
+        del plan
+        torch.cuda.empty_cache()
+    # once, after the path: the walks beside the targets and int8 K7
+    for label, kw, name in REORDER_ONCE:
+        t0 = time.perf_counter()
+        plan = spmm_plan(bsr32, impl="bsr_pallas", block_size=bsr32.b, grad=False,
+                         device=DEV, **kw)
+        plan_s = time.perf_counter() - t0
+        if kernel_of(plan)[1] != name:
+            raise AssertionError(f"reorder {label}: {kernel_of(plan)[1]}, expected {name}")
+        check_kernel(plan, x, f"reorder {best} {label} b={bsr32.b} F={F}")
+        bsr_row(f"{best:<8} {label}", bsr32, plan, x, plan_s, card_line, lib_cache)
+        del plan
+        torch.cuda.empty_cache()
+    lib_cache.clear()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def bsr_row(label: str, bsr: BSR, plan, x, plan_s: float, card_line: str,
+            lib_cache: dict) -> dict:
+    """One reorder BSR plan's times, logged: the kernel (bf16 plans on the
+    bf16 operand, as the library call gets it; K3 with its operand split;
+    int8 on an operand quantized beforehand, the whole call beside it),
+    its plain version, its bound, the PyTorch library call (none for
+    int8), its slots, its deepest lane and its F tile width. lib_cache
+    keeps the library call's sparse tensors from row to row. Returns the
+    kernels line's timing keys."""
+    F, tag, name = x.shape[1], plan_tag(plan), kernel_of(plan)[1]
+    if tag == "int8":  # the dp4a loop at b = 16 and 32: 64-column tiles
+        q, cs = quantize_operand(plan, x)
+        kernel = lambda: run_quantized(plan, q, cs)  # noqa: E731
+        plain = lambda: run_quantized(plan, q, cs, plain=True)  # noqa: E731
+        lib = None
+        bn = int8_tile_bn(bsr.b, bsr.n_block_rows, F, _sm_count(0))
+        extra = (f", whole call with dynamic quantization "
+                 f"{cuda_ms(lambda: plan(x), iters=5):.4f} ms")
+    else:
+        pad = torch.nn.functional.pad
+        xk = x.to(torch.bfloat16) if tag == "bf16" else x
+        kernel = lambda: plan(xk)  # noqa: E731
+        plain = lambda: plain_apply(plan, xk)  # noqa: E731
         # the library call multiplies the whole block grid: pad X and the
         # answer to it
         lib = library_ms(
-            "bsr", bsr, pad(x, (0, 0, 0, bsr.n_block_cols * bsr.b - x.shape[0])),
-            pad(plan(x), (0, 0, 0, bsr.n_block_rows * bsr.b - bsr.shape[0])), 2,
-            f"reorder {best} torch.sparse_bsr_tensor @ X, b={bsr.b}, F={F}")
-        b_ms, b_by = bsr_bound("f32", bsr, F)
-        flops = 2.0 * bsr.nnzb * bsr.b * bsr.b * F
-        depth, n_slots = plan.statics[6], plan.arrays[2].shape[0]
-        bn = f32_small_geometry(bsr.b, F, _sm_count(0), n_slots, depth)[0]
-        name = kernel_of(plan)[1]
-        log(f"  reorder {best:<8} {br['kid']} {name} b={bsr.b} kernel {k_ms:.4f} ms "
-            f"{flops / k_ms / 1e6:.1f} GFLOP/s on real blocks, plain {p_ms:.3f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}), library "
-            f"{'none' if lib is None else f'{lib:.4f} ms'}, {n_slots} slots, "
-            f"deepest lane {depth} slots, BN={bn}, plan {br['plan_s']:.1f} s "
-            f"(host) [{card_line}]")
-        if k2_ms is None:
-            k2_ms = k_ms
-            log(f"  reorder {best}: CSR / BSR = {csr_ms[best] / k_ms:.3f} (K10 "
-                f"{csr_ms[best]:.4f} ms, K2 b={bsr.b} {k_ms:.4f} ms) [{card_line}]")
-        del plan
-        torch.cuda.empty_cache()
-    # the instances not redesigned yet, timed once for the ranking
-    bsr = first_bsr
-    for label, kw in REORDER_FIRST_LOOP:
-        plan = spmm_plan(bsr, impl="bsr_pallas", block_size=bsr.b, grad=False,
-                         device=DEV, **kw)
-        name = kernel_of(plan)[1]
-        tag = "bf16" if "dtype" in kw else "high"
-        xk = x.to(torch.bfloat16) if tag == "bf16" else x
-        check_kernel(plan, xk, f"reorder {best} {label} b={bsr.b} F={F}")
-        k_ms = cuda_ms(lambda: plan(xk), iters=5)
-        p_ms = cuda_ms(lambda: plain_apply(plan, xk), iters=1, warmup=1)
-        lib = library_ms(
             "bsr", bsr, pad(xk, (0, 0, 0, bsr.n_block_cols * bsr.b - x.shape[0])),
             pad(plan(xk), (0, 0, 0, bsr.n_block_rows * bsr.b - bsr.shape[0])), 2,
-            f"reorder {best} torch.sparse_bsr_tensor @ X, {tag}, b={bsr.b}, F={F}")
-        b_ms, b_by = bsr_bound(tag, bsr, F)
-        log(f"  reorder {best:<8} {label} {name} b={bsr.b} (first FFMA loop) kernel "
-            f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"library {'none' if lib is None else f'{lib:.4f} ms'}, "
-            f"{plan.arrays[2].shape[0] // (2 * bsr.b if tag == 'high' else 1)} slots; "
-            f"f32 K2 {k2_ms:.4f} ms [{card_line}]")
-        del plan
-        torch.cuda.empty_cache()
+            f"reorder {label} torch.sparse_bsr_tensor @ X, {tag}, b={bsr.b}, F={F}",
+            lib_cache)
+        geometry = f32_small_geometry if tag == "f32" else bf16_small_geometry
+        bn = geometry(bsr.b, F, _sm_count(0), plan_slots(plan), plan.statics[6])[0]
+        extra = f", deepest lane {plan.statics[6]} slots"
+    k_ms = cuda_ms(kernel, iters=10)
+    p_ms = cuda_ms(plain, iters=2, warmup=1)
+    b_ms, b_by = bsr_bound(tag, bsr, F)
+    flops = 2.0 * bsr.nnzb * bsr.b * bsr.b * F
+    log(f"  reorder {label} {name} b={bsr.b} kernel {k_ms:.4f} ms "
+        f"{flops / k_ms / 1e6:.1f} GFLOP/s on real blocks, plain {p_ms:.3f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), library "
+        f"{'none' if lib is None else f'{lib:.4f} ms'}, {plan_slots(plan)} slots"
+        f"{extra}, BN={bn}, plan {plan_s:.1f} s (host) [{card_line}]")
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib, "bn": bn, "slots": plan_slots(plan)}
 
 
 def device_profile(fn, iters: int):
@@ -1435,14 +1509,18 @@ def device_profile(fn, iters: int):
                   for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])}
 
 
-def library_call(kind: str, mat, x):
+def library_call(kind: str, mat, x, cache: dict = None):
     """One PyTorch call computing what a kernel computes, as a yardstick
     (the port never calls it): torch.sparse_bsr_tensor @ X of the real
     blocks ("bsr", in x's dtype) or torch.sparse_csr_tensor @ X ("csr").
     Returns (fn, None), or (None, the error) where PyTorch refuses the
-    call on the card."""
+    call on the card. `cache` keeps each matrix's sparse tensor for the
+    next call on the same matrix and dtype."""
+    key = (kind, id(mat), x.dtype)
     try:
-        if kind == "csr":
+        if cache is not None and key in cache:
+            a = cache[key]
+        elif kind == "csr":
             a = torch.sparse_csr_tensor(
                 torch.as_tensor(mat.indptr.astype(np.int64), device=DEV),
                 torch.as_tensor(mat.indices.astype(np.int64), device=DEV),
@@ -1459,6 +1537,8 @@ def library_call(kind: str, mat, x):
                 torch.as_tensor(mat.blocks[:n][order], device=DEV).to(x.dtype),
                 (mat.n_block_rows * mat.b, mat.n_block_cols * mat.b),
                 check_invariants=False)
+        if cache is not None:
+            cache[key] = a
         fn = lambda: a @ x  # noqa: E731
         fn()
         torch.cuda.synchronize()
@@ -1467,12 +1547,13 @@ def library_call(kind: str, mat, x):
         return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
 
 
-def library_ms(kind: str, mat, x, want, iters: int, label: str):
+def library_ms(kind: str, mat, x, want, iters: int, label: str,
+               cache: dict = None):
     """Times library_call; logs its error against the kernel's answer
     `want`, or PyTorch's refusal. Returns ms or None."""
     with warnings.catch_warnings():  # "sparse ... support is in beta"
         warnings.simplefilter("ignore", UserWarning)
-        fn, err = library_call(kind, mat, x)
+        fn, err = library_call(kind, mat, x, cache)
     if fn is None:
         log(f"  library {label}: none ({err})")
         return None
@@ -1515,8 +1596,9 @@ def main() -> int:
     op_csr = random_csr(2e-3, op_bsr.shape[1], seed=SEED)
     log(f"[setup] random_csr(2e-3, 2^17) in {time.perf_counter() - t0:.1f} s")
     dims = [256, 256, 256]
-    (slices, model, xs, train, plans, errs, main_launches,
-     slice_errs) = main_path(adj, dims, op_bsr, op_csr, x_op, dense[:4096], card_line)
+    (slices, model, xs, train, plans, errs, main_launches, slice_errs,
+     reorder_rows) = main_path(adj, dims, op_bsr, op_csr, x_op, dense[:4096],
+                               card_line)
 
     # ---- timing (after the counts were read) ----------------------------
     log(f"[timing] card: {card_line}")
@@ -1779,7 +1861,7 @@ def main() -> int:
     log(f"[timing] bench.py's headline tier on this card: "
         f"{'f32(bf16x3)' if t_high < t_f32 else 'f32'} (its self-check passed in "
         f"the op phase; high {t_high:.3f} ms, exact f32 {t_f32:.3f} ms) [{card_line}]")
-    kernels = sorted(kernels.values(), key=lambda k: (
+    kernels = sorted([*kernels.values(), *reorder_rows], key=lambda k: (
         int(re.match(r"K(\d+)", k["name"]).group(1)), k["name"]))
     if {k["name"].split()[0] for k in kernels} != ALL_KERNELS | {"K6-K9"}:
         raise AssertionError(f"kernels line names other than {ALL_KERNELS} and "

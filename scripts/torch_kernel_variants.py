@@ -4,6 +4,7 @@ F=512), on one NVIDIA GPU:
 
     python3 scripts/torch_kernel_variants.py f32_k2   # exact-f32 K2, K1, K4
     python3 scripts/torch_kernel_variants.py f32_small  # the same at b = 16, 32
+    python3 scripts/torch_kernel_variants.py bf16_small  # bf16 K2, K3 at b = 16, 32
     python3 scripts/torch_kernel_variants.py k3       # K3 (precision="high")
     python3 scripts/torch_kernel_variants.py int8     # int8 K7, K8 and the
                                                       # operand's quantization
@@ -25,7 +26,12 @@ ogbn-arxiv stand-in under gorder, F=128: K2 at b = 32 and 16, K1 at b =
 positions), each at the geometry's F tile width, at 32, 64 and 128
 columns forced, and with the lane order switched off (packed order); its
 source variants change the stages, the threads a CTA (so the microtiles)
-and how the block chunk is staged. For K3 each run times the whole call
+and how the block chunk is staged. bf16_small does the same for the
+small-block tensor-core loop: bf16 K2 (on the bf16 operand) and K3 sorted
+(the whole call, its operand split included) at b = 32 and 16 on arxiv
+under gorder and bf16 K2 at b = 32 under rcmk; its source variants change
+the stages in flight and the operand rows' path (L1, or L2 only). For K3 each
+run times the whole call
 (the operand split included) and the ring alone on an operand split once,
 and bf16 K2 on the same build. For int8 each run times K7
 (group scale, calibrated as bench.py's int8 tier) and K8 on the ring
@@ -114,7 +120,9 @@ A_READ_ROWS = """    for (int kk = 0; kk < kPipeK; ++kk) {
              : kk % 4 == 2 ? av[i].z : av[i].w;
 """
 # which of _kernels.SOURCES each group of variants edits
-SOURCE = {"f32_k2": 0, "f32_small": 0, "k3": 0, "int8": 1}
+SOURCE = {"f32_k2": 0, "f32_small": 0, "bf16_small": 0, "k3": 0, "int8": 1}
+MMA_STAGES = "static constexpr int kStages = kFit < 3 ? 3 : kFit > 8 ? 8 : kFit;"
+MMA_X_COPY = "cp_async16_ca(st + P * G::kABytes + p * G::kXBytes + r * G::kXRow + c * 2,"
 VARIANTS = {
     "f32_k2": {
         "1 CTA an SM": {"__launch_bounds__(kThreads, 2)\n    ffma_pipe_kernel":
@@ -140,6 +148,13 @@ VARIANTS = {
             "static constexpr int kAFloats = BM * (kPipeK + 4);",
             A_COPY_T: A_COPY_ROWS,
             "#pragma unroll\n" + A_READ_T: "float4 av[TM];\n#pragma unroll\n" + A_READ_ROWS},
+    },
+    "bf16_small": {
+        "96 KiB of stages, up to 12": {
+            "kFit = 49152 / kStageBytes;": "kFit = 98304 / kStageBytes;",
+            MMA_STAGES: MMA_STAGES.replace("kFit > 8 ? 8", "kFit > 12 ? 12")},
+        "operand rows through L2 only (.cg)": {
+            MMA_X_COPY: MMA_X_COPY.replace("cp_async16_ca(", "cp_async16(")},
     },
     "k3": {
         "ring of 2 stages": {
@@ -224,8 +239,8 @@ def main() -> int:
         return time_int8(bsr, x, sources, card)
     if which == "f32_k2":
         return time_f32(bsr, x, sources, card)
-    if which == "f32_small":
-        return time_f32_small(sources, card)
+    if which in SMALL_RUNS:
+        return time_small(which, sources, card)
     plan = T.bsr_spmm_pallas_plan(bsr, grad=False, device="cuda", precision="high")
     bf16 = T.bsr_spmm_pallas_plan(bsr, grad=False, dtype=torch.bfloat16, device="cuda")
     x_bf = x.to(torch.bfloat16)
@@ -272,10 +287,26 @@ def time_f32(bsr, x, sources, card: str) -> int:
     return 0
 
 
-def time_f32_small(sources, card: str) -> int:
-    """The pipelined loop's small instances on chip_smoke's reorder plans
-    (arxiv under gorder, F = 128: K2 at b = 32 and 16, K1 at b = 32) and
-    K2 at b = 32 under rcmk and the original order, each variant in the
+# the reorder phase's plans each small-block sweep times: (ordering,
+# label, block size, plan arguments)
+SMALL_RUNS = {
+    "f32_small": (("gorder", "K2", 32, {}), ("gorder", "K2", 16, {}),
+                  ("gorder", "K1", 32, {"depth_sort": False}),
+                  ("rcmk", "K2", 32, {}), ("original", "K2", 32, {})),
+    "bf16_small": (("gorder", "bf16 K2", 32, {"dtype": torch.bfloat16}),
+                   ("gorder", "K3", 32, {"precision": "high"}),
+                   ("gorder", "bf16 K2", 16, {"dtype": torch.bfloat16}),
+                   ("gorder", "K3", 16, {"precision": "high"}),
+                   ("rcmk", "bf16 K2", 32, {"dtype": torch.bfloat16})),
+}
+# the geometry each sweep's entries take their F tile width from
+SMALL_GEOMETRY = {"f32_small": "f32_small_geometry", "bf16_small": "bf16_small_geometry"}
+
+
+def time_small(which: str, sources, card: str) -> int:
+    """The small-block instances (the pipelined loop's for f32_small, the
+    tensor-core loop's for bf16_small) on chip_smoke's reorder dataset,
+    the arxiv stand-in (F = 128), SMALL_RUNS's plans, each variant in the
     order A B .. B A; per plan the geometry's BN, BN = 32, 64 and 128
     forced, and the geometry's BN in packed lane order."""
     import chip_smoke as cs
@@ -284,23 +315,24 @@ def time_f32_small(sources, card: str) -> int:
                           scale=cs.REORDER_SCALE, seed=cs.SEED)
     x = torch.as_tensor(cs.seeded((src.n_cols, cs.REORDER_F), cs.SEED + 12),
                         device="cuda")
-    runs = [("gorder", run) for run in cs.REORDER_BSR]
-    runs += [(name, ("K2", 32, {})) for name in ("rcmk", "original")]
-    plans = {}
-    for name, (kid, b, kw) in runs:
-        csr = cs.permutate(cs.STRATEGIES[name](src), src)
-        plan = cs.spmm_plan(cs.csr_to_bsr(csr, b), impl="bsr_pallas", block_size=b,
-                            grad=False, device="cuda", **kw)
-        order, depth, n_slots = plan.arrays[-1], plan.statics[6], plan.arrays[2].shape[0]
-        plans[f"{name} {kid} b={b}"] = plan
+    attr = SMALL_GEOMETRY[which]
+    geometry = getattr(T, attr)
+    plans, operands, orders = {}, {}, {}
+    for name, kid, b, kw in SMALL_RUNS[which]:
+        if name not in orders:
+            orders[name] = cs.permutate(cs.STRATEGIES[name](src), src)
+        plan = cs.spmm_plan(cs.csr_to_bsr(orders[name], b), impl="bsr_pallas",
+                            block_size=b, grad=False, device="cuda", **kw)
+        order, depth, n_slots = plan.arrays[-1], plan.statics[6], cs.plan_slots(plan)
+        key = f"{name} {kid} b={b}"
+        plans[key] = plan
+        operands[key] = x.to(torch.bfloat16) if "dtype" in kw else x
         # where packed order would start the deepest lane
-        print(f"[f32_small] {name} {kid} b={b}: {n_slots} slots, deepest lane "
-              f"{depth} slots, at {order[0].item()} of {order.numel()} lanes in "
-              f"packed order, BN="
-              f"{T.f32_small_geometry(b, cs.REORDER_F, T._sm_count(0), n_slots, depth)[0]}",
+        print(f"[{which}] {key}: {n_slots} slots, deepest lane {depth} slots, at "
+              f"{order[0].item()} of {order.numel()} lanes in packed order, BN="
+              f"{geometry(b, cs.REORDER_F, T._sm_count(0), n_slots, depth)[0]}",
               flush=True)
-    refs = {k: p(x) for k, p in plans.items()}
-    geometry = T.f32_small_geometry
+    refs = {k: p(operands[k]) for k, p in plans.items()}
 
     def packed_order(plan):  # the lanes in packed order
         last = f"a{len(plan.arrays) - 1}"
@@ -313,20 +345,21 @@ def time_f32_small(sources, card: str) -> int:
     for name in names + names[::-1]:
         use(sources[name])
         for k, p in plans.items():
+            xk = operands[k]
             # the geometry's BN in lane order, then in packed order, next to
             # each other, so that drift over the sweep stays out of the pair
-            line = (f"[f32_small] {name:<40} {k:<16}: BN=auto "
-                    f"{cuda_ms(lambda: p(x)):.3f} ms ({torch.equal(p(x), refs[k])})")
+            line = (f"[{which}] {name:<40} {k:<16}: BN=auto "
+                    f"{cuda_ms(lambda: p(xk)):.3f} ms ({torch.equal(p(xk), refs[k])})")
             restore = packed_order(p)
-            line += (f", packed order {cuda_ms(lambda: p(x)):.3f} ms"
-                     f" ({torch.equal(p(x), refs[k])});")
+            line += (f", packed order {cuda_ms(lambda: p(xk)):.3f} ms"
+                     f" ({torch.equal(p(xk), refs[k])});")
             restore()
             for bn in (32, 64, 128):
-                T.f32_small_geometry = lambda b, F, n_sms, n_slots, depth: (
-                    bn, -(-F // 4) * 4)
-                line += (f" BN={bn} {cuda_ms(lambda: p(x)):.3f} ms"
-                         f" ({torch.equal(p(x), refs[k])})")
-                T.f32_small_geometry = geometry
+                setattr(T, attr, lambda b, F, n_sms, n_slots, depth: (
+                    bn, geometry(b, F, n_sms, n_slots, depth)[1]))
+                line += (f" BN={bn} {cuda_ms(lambda: p(xk)):.3f} ms"
+                         f" ({torch.equal(p(xk), refs[k])})")
+                setattr(T, attr, geometry)
             print(f"{line} [{card}]", flush=True)
     return 0
 

@@ -7,8 +7,11 @@ The ogbn-arxiv stand-in at its published size (169,343 nodes), under
 gorder (the ordering with the fewest 32 x 32 blocks), F = 128, X of
 seeded standard-normal values: f32 K2 at b = 32 and 16, f32 K1
 (depth_sort=False) at b = 32, bf16 K2 and K3 (precision="high", sorted) at
-b = 32. One line per plan: the kernel's ms (CUDA events, 10 calls after 2
-warm-ups), its slots, and the sha256 of its answer's bytes. Each plan is
+b = 32 and 16, and at b = 32 bf16 K1 (resident=False), bf16 K4
+(depth_sort=False) and K3 on K1's layout (precision="high",
+depth_sort=False). One line per plan: the kernel's ms (CUDA events, 10
+calls after 2 warm-ups; K3 with its operand split), its slots, and the
+sha256 of its answer's bytes. Each plan is
 freed after its line. Run it once per checkout, each in its own process
 (the two packages share a name), in the order parent, change, change,
 parent within one call: the times compare two builds on one card, and
@@ -29,7 +32,12 @@ import torch
 PLANS = (("f32 K2", 32, {}), ("f32 K2", 16, {}),
          ("f32 K1", 32, {"depth_sort": False}),
          ("bf16 K2", 32, {"dtype": torch.bfloat16}),
-         ("K3 sorted", 32, {"precision": "high"}))
+         ("K3 sorted", 32, {"precision": "high"}),
+         ("bf16 K2", 16, {"dtype": torch.bfloat16}),
+         ("K3 sorted", 16, {"precision": "high"}),
+         ("bf16 K1", 32, {"dtype": torch.bfloat16, "resident": False}),
+         ("bf16 K4", 32, {"dtype": torch.bfloat16, "depth_sort": False}),
+         ("K3 flat", 32, {"precision": "high", "depth_sort": False}))
 
 
 def main() -> int:

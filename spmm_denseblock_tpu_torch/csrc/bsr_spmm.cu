@@ -24,37 +24,53 @@
 //   instance                    b = 16, 32               b = 64, 128
 //   f32 K1, K2, K4, K5          pipelined FFMA loop,     pipelined FFMA loop
 //                               its small instances
-//   bf16 K1, K2, K4, K5; K3     FFMA loop                tensor-core loop
+//   bf16 K1, K2, K4, K5; K3     small-block tensor-core  tensor-core ring
+//                               loop (mma.sync)          (wgmma + TMA)
 //
-// The FFMA loop (the bf16 instances and K3 at b = 16 and 32). One slot is 2*b*b*F
-// FLOP against b*b block values plus b*F operand values: at b=128, F=512
-// that is 16.8 MFLOP per 64 KiB of f32 block and 256 KiB of operand,
-// about 50 FLOP/byte, so with operand tiles shared through L2 by the CTAs
-// of neighbouring rows an FFMA kernel is bound by the f32 FMA rate, not
-// by HBM. The f32 tier must meet a 1e-4 gate against an f64 oracle, so
-// the products run in FFMA on CUDA cores, never in TF32 tensor cores.
-// bf16 operands are widened to f32 while staged: a bf16 x bf16 product is
-// exact in f32, so the bf16 tier is bf16 products with an f32 sum, as on
-// the TPU. On the TPU the grid runs in order and the output tile stays in
-// VMEM across the steps that revisit it. Here CTAs run in no order, so
-// one CTA owns one (b x 64) output tile for its whole life: it walks the
-// slots that feed that tile, stages each slot's block (transposed) and
-// operand tile through shared memory in depth chunks of 16, keeps the
-// tile's accumulators in registers (b/16 x 4 per thread) and stores once.
-// No atomics, so results are deterministic. The F edge is masked here;
-// the F tiles of one row are adjacent in launch order so they share the
-// block reads in L2. Offsets into blocks and dense are 64-bit. This loop
-// has no tensor cores, no TMA and no software pipelining: each 16-deep
-// chunk is loaded by the whole CTA between two barriers, and a thread
-// makes 12 scalar shared loads per 32 FMAs. It is timed on the reorder
-// path (bf16 K2 and K3 at b = 32 on the arxiv stand-in) but not yet
-// redesigned.
+// Every loop keeps one contract: one CTA owns the f32 (b x BN) output
+// tile of one lane for its whole life and stores it once, so there are no
+// atomics and results are deterministic; absent (K2) and phantom (K4)
+// lanes return before any barrier; K1 and K5 run K4's walk with one lane
+// per block-row (R = 1, the step pointer as group pointer). One slot is
+// 2*b*b*F FLOP against b*b block values plus b*F operand values. Offsets
+// into blocks and dense are 64-bit; the F edge is masked on the store.
+//
+// The small-block tensor-core loop (mma_small_kernel: bf16 K1, K2, K4,
+// K5 and K3 at b = 16 and 32). wgmma's M of 64 does not fit a 16- or
+// 32-row block; mma.sync m16n8k16 fits b = 16 exactly (one m tile, one k
+// step) and b = 32 as 2 x 2. With the tensor cores the FLOPs cost little;
+// what bounds the loop is moving each slot's block (0.5 or 2 KiB) and its
+// b operand rows of the tile (b*BN*2 bytes, mostly from L2) into shared
+// memory, and, on a reordered power-law graph, the hub lane: one CTA per
+// F tile walks all of a lane's slots in order (5,148 at b = 32 on the
+// arxiv stand-in under gorder), at the rate one SM streams them. So:
+//   - 4 warps a CTA at BN = 32, 64 or 128 columns (the wrapper's choice,
+//     bf16_small_geometry, with the plan's deepest lane in view, as for
+//     the small f32 instances); warp w owns columns w*BN/4 .. on all b
+//     rows, b/16 x BN/32 fragments of 16 x 8.
+//   - Each slot is one shared-memory stage: the block row-major, as packed
+//     (A, read with ldmatrix), and the operand rows n-contiguous (B, read
+//     with ldmatrix.trans), each row padded by 16 bytes so that ldmatrix
+//     is free of bank conflicts. cp.async 16-byte copies keep 2-7 slots
+//     in flight (Mma::kStages, up to 48 KiB a CTA), one barrier a slot;
+//     the operand rows go through L1 (cp.async.ca: lanes on one SM share
+//     columns; on the arxiv stand-in under rcmk it took 21% less time
+//     than through L2 alone). At 76-128 registers a thread four CTAs
+//     share an SM: more stages, or more state a thread (a read-ahead of
+//     the next column, L2 requests for blocks 16 slots ahead), cost more
+//     in occupancy than they won on the hub lane.
+//   - CTAs take their lanes from the plan's lane_order, deepest first, so
+//     a hub lane starts at once instead of adding its length to the tail.
+//   - Two-level sums, as on the ring below: the tensor cores sum 64 deep
+//     (2 slots at b = 32, 4 at 16) from zero, and CUDA cores add that
+//     partial to the tile's f32 sums, round to nearest, in slot order.
+//   - K3 runs three products per fragment, hi*lo and lo*hi before hi*hi.
 //
 // The pipelined FFMA loop (ffma_pipe_kernel: every exact-f32 instance, K2
 // on its sorted walk, K4 on its row-group walk, K1 and K5 on K4's walk
-// with R = 1). The same contract (one CTA per output tile of a real lane,
-// no atomics, each output's sum in slot and depth order, so the same
-// answers bit for bit as the FFMA loop's), built to keep the FMA units
+// with R = 1). The same contract, each output's FFMA sum in slot and
+// depth order (so every walk, tile width and lane order gives the same
+// bits), built to keep the FMA units
 // busy: register microtiles fed by float4 shared loads, 16-deep chunks
 // streamed by cp.async through shared-memory stages, one barrier a chunk,
 // at most 128 registers a thread. The 1e-4 gate and the "exact" contract
@@ -86,9 +102,9 @@
 // operand into two such planes with split_bf16_kernel (rows of a multiple
 // of 8, 16-byte aligned). A product of two bf16 values is exact in f32,
 // so three bf16 products with f32 sums compute what the MXU passes
-// compute, up to the order of the sums. At b = 64 and 128 K3 runs on the
-// tensor-core loop below with two planes a stage; at b = 16 and 32 the
-// FFMA loop widens the planes and runs three FFMAs a product.
+// compute, up to the order of the sums. K3 runs on the tensor cores at
+// every b: on the ring below with two planes a stage at b = 64 and 128, on
+// the small-block loop with two planes a slot at b = 16 and 32.
 //
 // K5. On the TPU the resident kernel keeps the whole (nbc, b, f_tile)
 // operand slice in VMEM and indexes it per slot. Hopper has no 80 MB of
@@ -113,7 +129,7 @@
 // MB L2. So the design moves each byte once per CTA, keeps many loads in
 // flight and overlaps them with the products:
 //   - One CTA owns the f32 (b x BN) output tile of one lane, as in the
-//     FFMA loop, so there are no atomics and the result is deterministic.
+//     other loops, so there are no atomics and the result is deterministic.
 //     BN (64 or 128) is chosen per launch by the wrapper: the wider one
 //     the F extent needs whose grid still covers the card's SMs. At the
 //     op shape (F=512, 1,024 lanes) BN=128 fetches each block 4 times,
@@ -121,8 +137,8 @@
 //     later fetches of a block hit L2.
 //   - b/64 consumer warpgroups, each issuing wgmma m64nBNk16 on 64 output
 //     rows, and one
-//     producer warp that walks the lane's slots exactly as the FFMA loop
-//     does and streams each slot's depth chunks of 64 through a ring of
+//     producer warp that walks the lane's slots exactly as the other loops
+//     do and streams each slot's depth chunks of 64 through a ring of
 //     stages in dynamic shared memory with TMA (cp.async.bulk.tensor,
 //     128-byte swizzle, mbarrier completion). A stage holds the block's
 //     (b x 64) depth chunk, K-major, and the operand's (64 x BN) rows,
@@ -152,7 +168,7 @@
 //   - Absent (K2) and phantom (K4) lanes return before any barrier is
 //     initialised; K1 and K5 have neither.
 // wgmma's M of 64 does not fit b = 16 or 32 blocks, so the bf16 entries
-// run those through the FFMA loop, picked by a switch on b.
+// run those on the small-block loop above, picked on b (launch_bf16).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -163,201 +179,276 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kBN = 64;        // output columns per CTA
-constexpr int kBK = 16;        // depth of one shared-memory stage
-
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+// ---- the small-block tensor-core loop: bf16 K1, K2, K4, K5 and K3 at b = 16, 32
 
-// Math policies. Exact: one plane, each value widened to f32, one FFMA
-// per product. Bf16x3 (K3): two bf16 planes, hi and lo, split before the
-// launch (the blocks at plan build, the operand by split_bf16_kernel),
-// widened to f32, three FFMAs.
-struct Exact {
-  static constexpr int kPlanes = 1;
-};
-struct Bf16x3 {
-  static constexpr int kPlanes = 2;
+// One CTA per (b x BN) output tile of a real lane, 4 warps; warp w owns
+// the tile's columns w*BN/4 .. +BN/4-1 on every row: BM/16 m tiles of 16
+// rows by BN/32 n tiles of 8 columns, each an mma.sync m16n8k16 output
+// fragment, P planes (1 for bf16 operands, 2, hi and lo, for K3).
+template <int BM, int BN, int P>
+struct Mma {
+  static constexpr int kThreads = 128;
+  static constexpr int MT = BM / 16;  // m tiles, and k steps a slot
+  static constexpr int kWarpN = BN / 4;
+  static constexpr int NT = kWarpN / 8;  // n tiles a warp
+  // Slots whose products the tensor cores sum from zero before CUDA cores
+  // add them to the tile's f32 sums: 64 deep, as the ring's stages.
+  static constexpr int kPart = 64 / BM;
+  // Shared rows padded by 16 bytes, so that the 8 rows of an ldmatrix
+  // 8x8 matrix land on 8 distinct 16-byte bank groups (rows of 32, 64,
+  // 128 or 256 bytes would put 2 to 8 of them on one).
+  static constexpr int kARow = BM * 2 + 16;  // bytes
+  static constexpr int kXRow = BN * 2 + 16;
+  static constexpr int kABytes = BM * kARow;  // one plane of a slot's block
+  static constexpr int kXBytes = BM * kXRow;  // one plane of its operand rows
+  // a stage: one slot, the A planes then the operand planes
+  static constexpr int kStageBytes = P * (kABytes + kXBytes);
+  // Stages in flight: as many as fit in 48 KiB, 3 to 8 (a deep lane's
+  // CTA streams its slots one after another, so its speed is the bytes it
+  // keeps in flight; 48 KiB leaves room for 4 CTAs an SM).
+  static constexpr int kFit = 49152 / kStageBytes;
+  static constexpr int kStages = kFit < 3 ? 3 : kFit > 8 ? 8 : kFit;
+  static constexpr int kSmemBytes = kStages * kStageBytes;
+  static_assert(NT >= 1 && BM % 16 == 0, "warp tile");
 };
 
-template <int BM, int P>
-struct __align__(16) Smem {
-  float a[P][kBK][BM + 4];  // A^T stage: a[p][k][m] = plane p of blk[m][k0 + k]
-  float b[P][kBK][kBN];     // operand stage
-};
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
 
-// acc[b x 64 tile] += blk (b x b) @ brow (b x 64, row stride ldx). With
-// two planes, the lo plane of the block is a_lo elements on from blk and
-// that of the operand x_lo elements on from brow.
-// Thread (tx, ty) owns rows ty*TM .. ty*TM+TM-1, cols tx*4 .. tx*4+3.
-template <int BM, typename M>
-__device__ __forceinline__ void slot_fma(const bf16* __restrict__ blk,
-                                         const bf16* __restrict__ brow,
-                                         int64_t ldx, int n_valid,
-                                         int64_t a_lo, int64_t x_lo,
-                                         Smem<BM, M::kPlanes>& sm,
-                                         float (&acc)[BM / 16][4]) {
-  constexpr int TM = BM / 16;
-  constexpr int P = M::kPlanes;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-#pragma unroll 1
-  for (int k0 = 0; k0 < BM; k0 += kBK) {
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// d (16 x 8 f32 fragment) += a (16 x 16 bf16, row-major) @ b (16 x 8 bf16)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src)
+               : "memory");
+}
+
+// 16 bytes, or 16 zero bytes where !valid (src is then not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 16 bytes through L1 (cp.async.ca), or 16 zero bytes where !valid: the
+// operand rows, which neighbouring lanes of an SM often share.
+__device__ __forceinline__ void cp_async16_ca(uint32_t dst, const void* src,
+                                              bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// bf16 K2 (win_ids != nullptr) or K4 (win_ids == nullptr; K1 and K5 are
+// K4 with R = 1, gh = the flat group and the step pointer as group_ptr),
+// and K3 on the same walks with P = 2 planes (the lo plane of the blocks
+// a_lo elements after the hi plane, that of the operand x_lo elements
+// after it), at b = 16 and 32. One CTA per lane and F tile of BN columns,
+// its lane from lane_order (deepest first); absent (K2) and phantom (K4)
+// lanes return before any barrier and store nothing; no atomics. Each
+// slot's block and its BM operand rows of the tile (dense has rows of ld
+// >= F bf16, ld a multiple of 8, and a 16-byte aligned base; columns >=
+// ld are zero-filled) are one stage, streamed through G::kStages shared
+// stages by cp.async 16-byte copies, G::kStages - 1 slots ahead (the
+// operand rows through L1); one barrier a slot. A warp reads its A fragments with ldmatrix (the block
+// row-major, as packed) and its B fragments with ldmatrix.trans (the
+// operand's rows, n-contiguous), and runs mma.sync m16n8k16 (bf16
+// products, exact in f32, summed in f32); K3 runs hi*lo and lo*hi before
+// hi*hi on each fragment (lo*lo is dropped). Two-level sums, as on the
+// ring: the tensor cores sum G::kPart slots (64 deep) from zero into
+// `part`, which CUDA cores add, in slot order, to the f32 sums `acc`.
+template <int BM, int BN, int P>
+__global__ void __launch_bounds__(Mma<BM, BN, P>::kThreads, 4)
+    mma_small_kernel(const int64_t* __restrict__ group_ptr,
+                     const int32_t* __restrict__ win_ids,
+                     const int32_t* __restrict__ pos,
+                     const uint8_t* __restrict__ lane_valid,
+                     const int32_t* __restrict__ slot_cols,
+                     const int32_t* __restrict__ lane_order,
+                     const bf16* __restrict__ blocks,
+                     const bf16* __restrict__ dense, float* __restrict__ out,
+                     int64_t F, int64_t ld, int64_t n_block_rows, int64_t R,
+                     int64_t gh, int64_t window, int64_t n_ftiles, int64_t a_lo,
+                     int64_t x_lo) {
+  using G = Mma<BM, BN, P>;
+  constexpr int MT = G::MT, NT = G::NT, kStages = G::kStages;
+  extern __shared__ __align__(16) uint8_t mma_smem[];
+  const int64_t lane_id = lane_order[blockIdx.x / n_ftiles];  // group * R + lane
+  // absent (K2) and phantom (K4) lanes store nothing: uniform over the CTA
+  if (win_ids != nullptr ? !lane_valid[lane_id] : lane_id >= n_block_rows)
+    return;
+  const int64_t g = lane_id / R, lane = lane_id % R;
+  const int64_t f0 = (blockIdx.x % n_ftiles) * BN;
+  const int64_t j0 = group_ptr[g];
+  const int n_slots = (int)((group_ptr[g + 1] - j0) * gh);
+  const int tid = threadIdx.x, warp = tid / 32, wl = tid % 32;
+  const uint32_t smem = smem_u32(mma_smem);
+
+  // The loader walks the lane's slots in order, lr slots into step lj; it
+  // runs kStages - 1 slots ahead of the products.
+  int lr = 0, issued = 0;
+  int64_t lj = j0, ls = (j0 * R + lane) * gh;
+  auto load_next = [&]() {  // the next slot into stage issued % kStages
+    const int64_t col = __ldg(slot_cols + ls);
+    const uint32_t st = smem + (uint32_t)(issued % kStages) * G::kStageBytes;
 #pragma unroll
-    for (int it = 0; it < BM * kBK / kThreads; ++it) {
-      const int e = tid + it * kThreads;
-      const int m = e / kBK, kk = e % kBK;
-      const int64_t i = (int64_t)m * BM + k0 + kk;
-      sm.a[0][kk][m] = to_f32(blk[i]);
-      if constexpr (P == 2) sm.a[1][kk][m] = to_f32(blk[a_lo + i]);
-    }
+    for (int p = 0; p < P; ++p) {
+      const bf16* blk = blocks + p * a_lo + ls * (BM * BM);
 #pragma unroll
-    for (int it = 0; it < kBK * kBN / kThreads; ++it) {
-      const int e = tid + it * kThreads;
-      const int kk = e / kBN, n = e % kBN;
-      const int64_t i = (int64_t)(k0 + kk) * ldx + n;
-      sm.b[0][kk][n] = n < n_valid ? to_f32(brow[i]) : 0.f;
-      if constexpr (P == 2) sm.b[1][kk][n] = n < n_valid ? to_f32(brow[x_lo + i]) : 0.f;
+      for (int e = tid; e < BM * BM / 8; e += G::kThreads)
+        cp_async16(st + p * G::kABytes + e / (BM / 8) * G::kARow + e % (BM / 8) * 16,
+                   blk + e * 8, true);
+      const bf16* xr = dense + p * x_lo + col * BM * ld + f0;
+#pragma unroll
+      for (int e = tid; e < BM * BN / 8; e += G::kThreads) {
+        const int r = e / (BN / 8), c = e % (BN / 8) * 8;
+        cp_async16_ca(st + P * G::kABytes + p * G::kXBytes + r * G::kXRow + c * 2,
+                      xr + r * ld + c, f0 + c < ld);
+      }
     }
+    ++issued;
+    if (++lr == gh) {
+      lr = 0;
+      ls = (++lj * R + lane) * gh;
+    } else {
+      ++ls;
+    }
+  };
+
+  float acc[MT][NT][4], part[MT][NT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] = part[m][n][i] = 0.f;
+#pragma unroll
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (issued < n_slots) load_next();
+    cp_async_commit();
+  }
+  // This lane's ldmatrix row addresses: A rows wl % 16 at depth (wl / 16)
+  // * 8, operand rows (depth) wl % 16 at the warp's columns + (wl / 16) * 8
+  const uint32_t a_off = (wl % 16) * G::kARow + (wl / 16) * 16;
+  const uint32_t x_off = P * G::kABytes + (wl % 16) * G::kXRow +
+                         (warp * G::kWarpN + (NT > 1 ? (wl / 16) * 8 : 0)) * 2;
+  for (int t = 0; t < n_slots; ++t) {
+    cp_async_wait<kStages - 2>();  // slot t has landed (this thread's copies)
     __syncthreads();
+    if (issued < n_slots) load_next();
+    cp_async_commit();
+    const uint32_t st = smem + (uint32_t)(t % kStages) * G::kStageBytes;
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[P][TM], b[P][4];
+    for (int k = 0; k < MT; ++k) {  // 16-deep steps
+      uint32_t a[P][MT][4], b[P][NT][2];
 #pragma unroll
       for (int p = 0; p < P; ++p) {
 #pragma unroll
-        for (int i = 0; i < TM; ++i) a[p][i] = sm.a[p][kk][ty * TM + i];
+        for (int m = 0; m < MT; ++m)
+          ldmatrix_x4(a[p][m], st + p * G::kABytes + a_off + m * 16 * G::kARow +
+                                   k * 32);
+        const uint32_t xa = st + x_off + p * G::kXBytes + k * 16 * G::kXRow;
+        if constexpr (NT == 1) {
+          ldmatrix_x2_trans(b[p][0], xa);
+        } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) b[p][j] = sm.b[p][kk][tx * 4 + j];
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[i][j] = fmaf(a[0][i], b[0][j], acc[i][j]);
-          if constexpr (P == 2) {  // hi*lo + lo*hi; lo*lo is dropped
-            acc[i][j] = fmaf(a[0][i], b[1][j], acc[i][j]);
-            acc[i][j] = fmaf(a[1][i], b[0][j], acc[i][j]);
+          for (int n = 0; n < NT; n += 2) {
+            uint32_t r[4];
+            ldmatrix_x4_trans(r, xa + n * 16);
+            b[p][n][0] = r[0], b[p][n][1] = r[1];
+            b[p][n + 1][0] = r[2], b[p][n + 1][1] = r[3];
           }
         }
-    }
-    __syncthreads();
-  }
-}
-
-template <int BM>
-__device__ __forceinline__ void store_tile(float* __restrict__ out, int64_t F,
-                                           int n_valid,
-                                           float (&acc)[BM / 16][4]) {
-  constexpr int TM = BM / 16;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+      }
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+      for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = tx * 4 + j;
-      if (n < n_valid) out[(int64_t)(ty * TM + i) * F + n] = acc[i][j];
+        for (int n = 0; n < NT; ++n) {
+          if constexpr (P == 2) {  // hi*lo, lo*hi, then hi*hi
+            mma_bf16(part[m][n], a[0][m], b[1][n][0], b[1][n][1]);
+            mma_bf16(part[m][n], a[1][m], b[0][n][0], b[0][n][1]);
+          }
+          mma_bf16(part[m][n], a[0][m], b[0][n][0], b[0][n][1]);
+        }
     }
-}
-
-// K1 (and K5, through its own entries): one CTA per (block-row, F
-// tile). step_ptr (nbr+1,) gives each row's steps; step s holds slots
-// s*group .. s*group+group-1, and slot s reads operand rows col*b ..
-// +b-1, i.e. dense viewed as (nbc, b, ldx) at col. Every row has >= 1 step
-// (the plan covers empty rows with a zero block), so every output row is
-// written. ldx is F but for Bf16x3, whose planes (a_lo and x_lo elements
-// apart) have rows of ldx >= F.
-template <int BM, typename M>
-__global__ void __launch_bounds__(kThreads)
-    flat_kernel(const int64_t* __restrict__ step_ptr,
-                const int32_t* __restrict__ slot_cols,
-                const bf16* __restrict__ blocks, const bf16* __restrict__ dense,
-                float* __restrict__ out, int64_t F, int64_t ldx, int64_t a_lo,
-                int64_t x_lo, int64_t group, int64_t n_ftiles) {
-  __shared__ Smem<BM, M::kPlanes> sm;
-  const int64_t row = blockIdx.x / n_ftiles;
-  const int64_t f0 = (blockIdx.x % n_ftiles) * kBN;
-  const int n_valid = (int)(F - f0 < kBN ? F - f0 : kBN);
-  float acc[BM / 16][4] = {};
-  const int64_t s_end = step_ptr[row + 1] * group;
-  for (int64_t s = step_ptr[row] * group; s < s_end; ++s) {
-    const int64_t col = slot_cols[s];
-    slot_fma<BM, M>(blocks + s * BM * BM, dense + col * BM * ldx + f0, ldx,
-                    n_valid, a_lo, x_lo, sm, acc);
-  }
-  store_tile<BM>(out + row * BM * F + f0, F, n_valid, acc);
-}
-
-// K2: one CTA per (group, lane, F tile). group_ptr (n_groups+1,) gives
-// each group's steps; lane r of step j holds slots j*R*gh + r*gh ..
-// +gh-1, and its sum belongs to block-row win_ids[j]*window +
-// pos[j*R + r] (the same for every step of the group). Absent lanes
-// (lane_valid == 0: window padding, whose pos is 0) store nothing, so
-// they can never overwrite the real row at position 0.
-template <int BM, typename M>
-__global__ void __launch_bounds__(kThreads)
-    sorted_kernel(const int64_t* __restrict__ group_ptr,
-                  const int32_t* __restrict__ win_ids,
-                  const int32_t* __restrict__ pos,
-                  const uint8_t* __restrict__ lane_valid,
-                  const int32_t* __restrict__ slot_cols,
-                  const bf16* __restrict__ blocks,
-                  const bf16* __restrict__ dense,
-                  float* __restrict__ out, int64_t F, int64_t ldx,
-                  int64_t a_lo, int64_t x_lo, int64_t R, int64_t gh,
-                  int64_t window, int64_t n_ftiles) {
-  __shared__ Smem<BM, M::kPlanes> sm;
-  const int64_t lane_id = blockIdx.x / n_ftiles;  // group * R + lane
-  if (!lane_valid[lane_id]) return;               // uniform over the CTA
-  const int64_t g = lane_id / R, lane = lane_id % R;
-  const int64_t f0 = (blockIdx.x % n_ftiles) * kBN;
-  const int n_valid = (int)(F - f0 < kBN ? F - f0 : kBN);
-  const int64_t j0 = group_ptr[g], j1 = group_ptr[g + 1];
-  const int64_t orow = (int64_t)win_ids[j0] * window + pos[j0 * R + lane];
-  float acc[BM / 16][4] = {};
-  for (int64_t j = j0; j < j1; ++j) {
-    for (int64_t s = (j * R + lane) * gh, s_end = s + gh; s < s_end; ++s) {
-      const int64_t col = slot_cols[s];
-      slot_fma<BM, M>(blocks + s * BM * BM, dense + col * BM * ldx + f0, ldx,
-                      n_valid, a_lo, x_lo, sm, acc);
+    if ((t + 1) % G::kPart == 0 || t + 1 == n_slots) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[m][n][i] += part[m][n][i];
+            part[m][n][i] = 0.f;
+          }
     }
   }
-  store_tile<BM>(out + orow * BM * F + f0, F, n_valid, acc);
-}
+  cp_async_wait<0>();  // no copy outlives the CTA (the trailing groups are empty)
 
-// K4: one CTA per (lane, F tile) of the consecutive row-group layout.
-// Lane r of group g is block-row g*R + r; group_ptr (n_groups+1,) gives
-// the group's steps, and lane r of step j holds slots (j*R + r)*gh ..
-// +gh-1. On the TPU all R lanes share one (R*b x F) output tile; here
-// each lane is its own CTA, so no lane waits for a deeper one. The
-// packer pads the last group to R lanes: a phantom lane (row >=
-// n_block_rows) has only zero slots and no row of the output to own, so
-// it returns before any work and stores nothing.
-template <int BM>
-__global__ void __launch_bounds__(kThreads)
-    rowgroup_kernel(const int64_t* __restrict__ group_ptr,
-                    const int32_t* __restrict__ slot_cols,
-                    const bf16* __restrict__ blocks,
-                    const bf16* __restrict__ dense,
-                    float* __restrict__ out, int64_t n_block_rows, int64_t F,
-                    int64_t R, int64_t gh, int64_t n_ftiles) {
-  __shared__ Smem<BM, 1> sm;
-  const int64_t row = blockIdx.x / n_ftiles;  // group * R + lane
-  if (row >= n_block_rows) return;            // phantom lane
-  const int64_t g = row / R, lane = row % R;
-  const int64_t f0 = (blockIdx.x % n_ftiles) * kBN;
-  const int n_valid = (int)(F - f0 < kBN ? F - f0 : kBN);
-  float acc[BM / 16][4] = {};
-  for (int64_t j = group_ptr[g], j1 = group_ptr[g + 1]; j < j1; ++j) {
-    for (int64_t s = (j * R + lane) * gh, s_end = s + gh; s < s_end; ++s) {
-      const int64_t col = slot_cols[s];
-      slot_fma<BM, Exact>(blocks + s * BM * BM, dense + col * BM * F + f0, F,
-                          n_valid, 0, 0, sm, acc);
+  // The output block-row, read after the loop: K2's from its window and
+  // position, K4's (and K1's and K5's) the lane itself. The accumulator
+  // fragment of m16n8: lane wl holds rows wl/4 (+8) and columns 2*(wl%4)
+  // (+1) of each 16 x 8 tile.
+  const int64_t orow =
+      win_ids != nullptr ? (int64_t)win_ids[j0] * window + pos[j0 * R + lane]
+                         : lane_id;
+  const bool pairs = F % 2 == 0;  // float2 stores stay 8-byte aligned
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int64_t col = f0 + warp * G::kWarpN + n * 8 + 2 * (wl % 4);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* o = out + (orow * BM + m * 16 + wl / 4 + 8 * h) * F + col;
+        const float v0 = acc[m][n][2 * h], v1 = acc[m][n][2 * h + 1];
+        if (col + 1 < F) {
+          if (pairs) {
+            *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+          } else {
+            o[0] = v0;
+            o[1] = v1;
+          }
+        } else if (col < F) {
+          o[0] = v0;
+        }
+      }
     }
-  }
-  store_tile<BM>(out + row * BM * F + f0, F, n_valid, acc);
 }
 
 // ---- the pipelined FFMA loop: exact f32 K1, K2, K4 and K5 ----------------
@@ -401,28 +492,6 @@ struct Pipe {
                 "thread grid");
 };
 
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src)
-               : "memory");
-}
-
-// 16 bytes, or 16 zero bytes where !valid (src is then not read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // f32 K2 (win_ids != nullptr) or K4 (win_ids == nullptr; K1 and K5 are
 // K4 with R = 1, gh = the flat group and the step pointer as group_ptr,
 // as on the tensor-core ring): one CTA per lane and F tile of BN columns;
@@ -438,7 +507,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // base; columns >= ld are zero-filled). One barrier per chunk: after it
 // the chunk has landed for every thread and the stage the next load
 // overwrites has been read by every thread. Each output's FFMA sum runs
-// in slot order and depth order, as in the FFMA loop above, so every
+// in slot order and depth order, so every
 // instance and every lane order gives the same bits.
 template <int BM, int BN>
 __global__ void __launch_bounds__(Pipe<BM, BN>::kThreads,
@@ -728,7 +797,7 @@ __global__ void __launch_bounds__(Ring<BM, BN, P>::kThreads,
 
   const int wg = threadIdx.x / 128;
   if (wg == G::kConsumers) {
-    // The producer: the lane's slots in the FFMA loop's order, each slot's
+    // The producer: the lane's slots in the walk's order, each slot's
     // BM/64 depth chunks one ring stage each. The next slot's column is
     // read a slot ahead.
     if (threadIdx.x % 128 != 0) return;
@@ -1014,96 +1083,79 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// The grid of a launch over n_rows CTA rows of ceil(F / 64) F tiles, or
-// an error for a grid CUDA cannot take.
-cudaError_t tile_grid(int64_t n_rows, int64_t F, int64_t* n_ft, dim3* grid) {
-  *n_ft = ceil_div(F, kBN);
-  const int64_t n_ctas = n_rows * *n_ft;
-  if (n_ctas > INT32_MAX) return cudaErrorInvalidConfiguration;
-  *grid = dim3((unsigned)n_ctas);
-  return cudaSuccess;
-}
-
-
-// bf16 K1's FFMA walk with math policy M, at b = 16 and 32 (K5's entries
-// launch it too): b = 64 and 128 run the tensor-core loop, and exact f32
-// runs the pipelined FFMA loop at every b. Exact reads one plane with
-// operand rows of F (ldx == F); Bf16x3 (K3) two planes, a_lo block
-// elements and x_lo operand elements apart, with operand rows of ldx.
-template <typename M>
-cudaError_t launch_rows(const void* step_ptr, const void* slot_cols,
-                        const void* blocks, const void* dense, void* out,
-                        int64_t n_block_rows, int64_t F, int64_t ldx,
-                        int64_t a_lo, int64_t x_lo, int64_t group, int64_t b,
-                        cudaStream_t stream) {
-  int64_t n_ft;
-  dim3 grid;
-  if (cudaError_t e = tile_grid(n_block_rows, F, &n_ft, &grid)) return e;
-  if (grid.x == 0) return cudaSuccess;
-  const auto* sp = static_cast<const int64_t*>(step_ptr);
-  const auto* sc = static_cast<const int32_t*>(slot_cols);
-  const auto* bl = static_cast<const bf16*>(blocks);
-  const auto* de = static_cast<const bf16*>(dense);
-  auto* o = static_cast<float*>(out);
-  switch (b) {
-    case 16: flat_kernel<16, M><<<grid, kThreads, 0, stream>>>(sp, sc, bl, de, o, F, ldx, a_lo, x_lo, group, n_ft); break;
-    case 32: flat_kernel<32, M><<<grid, kThreads, 0, stream>>>(sp, sc, bl, de, o, F, ldx, a_lo, x_lo, group, n_ft); break;
-    default: return cudaErrorInvalidValue;
-  }
+// The small-block tensor-core loop over n_lanes lanes of ceil(F / bn)
+// tiles, on `planes` planes (1, or 2 for K3), at b = 16 and 32. dense is
+// planes x (n_dense_rows, ld) bf16 with ld >= F a multiple of 8 and a
+// 16-byte-aligned base; blocks hold planes x n_slots (b x b) slots, also
+// on 16 bytes. win_ids == nullptr selects K4 (and K1/K5); lane_order
+// (n_lanes,) int32, the CTA rows' lanes, may not be null.
+template <int BM, int BN, int P>
+cudaError_t launch_mma_tile(const int64_t* gp, const int32_t* wi,
+                            const int32_t* ps, const uint8_t* lv,
+                            const int32_t* sc, const int32_t* lo,
+                            const bf16* bl, const bf16* de, float* o, int64_t F,
+                            int64_t ld, int64_t n_block_rows, int64_t R,
+                            int64_t gh, int64_t window, int64_t n_ft,
+                            int64_t a_lo, int64_t x_lo, dim3 grid,
+                            cudaStream_t stream) {
+  using G = Mma<BM, BN, P>;
+  static const cudaError_t smem_set = cudaFuncSetAttribute(
+      mma_small_kernel<BM, BN, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G::kSmemBytes);
+  if (smem_set != cudaSuccess) return smem_set;
+  mma_small_kernel<BM, BN, P><<<grid, G::kThreads, G::kSmemBytes, stream>>>(
+      gp, wi, ps, lv, sc, lo, bl, de, o, F, ld, n_block_rows, R, gh, window,
+      n_ft, a_lo, x_lo);
   return cudaGetLastError();
 }
 
-// bf16 K2's FFMA walk with math policy M (operand rows and planes as
-// launch_rows), at b = 16 and 32.
-template <typename M>
-cudaError_t launch_sorted(const void* group_ptr, const void* win_ids,
-                          const void* pos, const void* lane_valid,
-                          const void* slot_cols, const void* blocks,
-                          const void* dense, void* out, int64_t n_lanes,
-                          int64_t F, int64_t ldx, int64_t a_lo, int64_t x_lo,
-                          int64_t R, int64_t gh, int64_t window, int64_t b,
-                          cudaStream_t stream) {
-  int64_t n_ft;
-  dim3 grid;
-  if (cudaError_t e = tile_grid(n_lanes, F, &n_ft, &grid)) return e;
-  if (grid.x == 0) return cudaSuccess;
+cudaError_t launch_mma(const void* group_ptr, const void* win_ids,
+                       const void* pos, const void* lane_valid,
+                       const void* slot_cols, const void* lane_order,
+                       const void* blocks, const void* dense, void* out,
+                       int64_t n_lanes, int64_t n_block_rows, int64_t n_slots,
+                       int64_t n_dense_rows, int64_t F, int64_t ld, int64_t R,
+                       int64_t gh, int64_t window, int64_t b, int64_t bn,
+                       int planes, cudaStream_t stream) {
+  if ((b != 16 && b != 32) || (bn != 32 && bn != 64 && bn != 128) ||
+      (planes != 1 && planes != 2) || lane_order == nullptr || ld < F ||
+      ld % 8 != 0 || reinterpret_cast<uintptr_t>(dense) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(blocks) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const int64_t n_ft = ceil_div(F, bn);
+  const int64_t n_ctas = n_lanes * n_ft;
+  if (n_ctas > INT32_MAX) return cudaErrorInvalidConfiguration;
+  if (n_ctas == 0) return cudaSuccess;
+  const dim3 grid((unsigned)n_ctas);
   const auto* gp = static_cast<const int64_t*>(group_ptr);
   const auto* wi = static_cast<const int32_t*>(win_ids);
   const auto* ps = static_cast<const int32_t*>(pos);
   const auto* lv = static_cast<const uint8_t*>(lane_valid);
   const auto* sc = static_cast<const int32_t*>(slot_cols);
+  const auto* lo = static_cast<const int32_t*>(lane_order);
   const auto* bl = static_cast<const bf16*>(blocks);
   const auto* de = static_cast<const bf16*>(dense);
   auto* o = static_cast<float*>(out);
-  switch (b) {
-    case 16: sorted_kernel<16, M><<<grid, kThreads, 0, stream>>>(gp, wi, ps, lv, sc, bl, de, o, F, ldx, a_lo, x_lo, R, gh, window, n_ft); break;
-    case 32: sorted_kernel<32, M><<<grid, kThreads, 0, stream>>>(gp, wi, ps, lv, sc, bl, de, o, F, ldx, a_lo, x_lo, R, gh, window, n_ft); break;
-    default: return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
-// bf16 K4's FFMA walk at b = 16 and 32.
-cudaError_t launch_rowgroup(const void* group_ptr, const void* slot_cols,
-                            const void* blocks, const void* dense, void* out,
-                            int64_t n_lanes, int64_t n_block_rows, int64_t F,
-                            int64_t R, int64_t gh, int64_t b,
-                            cudaStream_t stream) {
-  int64_t n_ft;
-  dim3 grid;
-  if (cudaError_t e = tile_grid(n_lanes, F, &n_ft, &grid)) return e;
-  if (grid.x == 0) return cudaSuccess;
-  const auto* gp = static_cast<const int64_t*>(group_ptr);
-  const auto* sc = static_cast<const int32_t*>(slot_cols);
-  const auto* bl = static_cast<const bf16*>(blocks);
-  const auto* de = static_cast<const bf16*>(dense);
-  auto* o = static_cast<float*>(out);
-  switch (b) {
-    case 16: rowgroup_kernel<16><<<grid, kThreads, 0, stream>>>(gp, sc, bl, de, o, n_block_rows, F, R, gh, n_ft); break;
-    case 32: rowgroup_kernel<32><<<grid, kThreads, 0, stream>>>(gp, sc, bl, de, o, n_block_rows, F, R, gh, n_ft); break;
-    default: return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  const int64_t a_lo = n_slots * b * b, x_lo = n_dense_rows * ld;
+#define SDB_MMA(BM, BN, P)                                                    \
+  if (b == BM && bn == BN && planes == P)                                     \
+    return launch_mma_tile<BM, BN, P>(gp, wi, ps, lv, sc, lo, bl, de, o, F, ld, \
+                                      n_block_rows, R, gh, window, n_ft, a_lo, \
+                                      x_lo, grid, stream);
+  SDB_MMA(16, 32, 1)
+  SDB_MMA(16, 64, 1)
+  SDB_MMA(16, 128, 1)
+  SDB_MMA(32, 32, 1)
+  SDB_MMA(32, 64, 1)
+  SDB_MMA(32, 128, 1)
+  SDB_MMA(16, 32, 2)
+  SDB_MMA(16, 64, 2)
+  SDB_MMA(16, 128, 2)
+  SDB_MMA(32, 32, 2)
+  SDB_MMA(32, 64, 2)
+  SDB_MMA(32, 128, 2)
+#undef SDB_MMA
+  return cudaErrorInvalidValue;
 }
 
 // f32 K1 and K5: the pipelined FFMA loop on the flat layout's walk,
@@ -1120,65 +1172,26 @@ cudaError_t launch_flat_f32(const void* step_ptr, const void* slot_cols,
                      group, 0, b, bn, s);
 }
 
-// bf16 K1 and K5: the tensor-core loop at b = 64 and 128 on the flat
-// layout's walk (as launch_flat_f32's); the FFMA loop at b = 16 and 32.
-cudaError_t launch_flat_bf16(const void* step_ptr, const void* slot_cols,
-                             const void* blocks, const void* dense, void* out,
-                             int64_t n_block_rows, int64_t n_slots,
-                             int64_t n_dense_rows, int64_t F, int64_t ld,
-                             int64_t group, int64_t b, int64_t bn,
-                             cudaStream_t s) {
-  switch (b) {
-    case 16:
-    case 32:
-      if (bn != kBN || ld != F) return cudaErrorInvalidValue;
-      return launch_rows<Exact>(step_ptr, slot_cols, blocks, dense, out,
-                                n_block_rows, F, F, 0, 0, group, b, s);
-    case 64:
-    case 128:
-      return launch_ring(step_ptr, nullptr, nullptr, nullptr, slot_cols, blocks,
-                         dense, out, n_block_rows, n_block_rows, n_slots,
-                         n_dense_rows, F, ld, 1, group, 0, b, bn, 1, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// K3 on the flat walk (K1's and K5's layouts, win_ids == nullptr: one lane
-// per block-row, gh = group, group_ptr = step_ptr) or on K2's sorted walk.
-// planes holds the blocks' two bf16 planes (n_slots b x b slots of hi,
-// then as many of lo), xp the operand's ((n_dense_rows, ld) of hi, then
-// of lo; ld >= F a multiple of 8). The tensor-core loop at b = 64 and 128,
-// the FFMA loop at b = 16 and 32 (64-column tiles: bn == 64).
-cudaError_t launch_k3(const void* group_ptr, const void* win_ids,
-                      const void* pos, const void* lane_valid,
-                      const void* slot_cols, const void* planes,
-                      const void* xp, void* out, int64_t n_lanes,
-                      int64_t n_slots, int64_t n_dense_rows, int64_t F,
-                      int64_t ld, int64_t R, int64_t gh, int64_t window,
-                      int64_t b, int64_t bn, cudaStream_t s) {
-  const bool sorted = win_ids != nullptr;
-  switch (b) {
-    case 16:
-    case 32: {
-      if (bn != kBN || ld < F || ld % 8 != 0) return cudaErrorInvalidValue;
-      const int64_t a_lo = n_slots * b * b, x_lo = n_dense_rows * ld;
-      if (sorted)
-        return launch_sorted<Bf16x3>(group_ptr, win_ids, pos, lane_valid,
-                                     slot_cols, planes, xp, out, n_lanes, F, ld,
-                                     a_lo, x_lo, R, gh, window, b, s);
-      return launch_rows<Bf16x3>(group_ptr, slot_cols, planes, xp, out, n_lanes,
-                                 F, ld, a_lo, x_lo, gh, b, s);
-    }
-    case 64:
-    case 128:
-      return launch_ring(group_ptr, win_ids, pos, lane_valid, slot_cols, planes,
-                         xp, out, n_lanes, sorted ? 0 : n_lanes, n_slots,
-                         n_dense_rows, F, ld, sorted ? R : 1, gh, window, b, bn,
-                         2, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+// The bf16 entries (K1, K2, K4, K5) and K3's (planes = 2): the
+// small-block tensor-core loop at b = 16 and 32 (which reads lane_order),
+// the tensor-core ring at b = 64 and 128 (packed lane order). Arguments as
+// launch_mma's; K1 and K5 pass the flat walk as K4's with R = 1, gh = the
+// group and the step pointer as group_ptr.
+cudaError_t launch_bf16(const void* group_ptr, const void* win_ids,
+                        const void* pos, const void* lane_valid,
+                        const void* slot_cols, const void* lane_order,
+                        const void* blocks, const void* dense, void* out,
+                        int64_t n_lanes, int64_t n_block_rows, int64_t n_slots,
+                        int64_t n_dense_rows, int64_t F, int64_t ld, int64_t R,
+                        int64_t gh, int64_t window, int64_t b, int64_t bn,
+                        int planes, cudaStream_t s) {
+  if (b == 16 || b == 32)
+    return launch_mma(group_ptr, win_ids, pos, lane_valid, slot_cols, lane_order,
+                      blocks, dense, out, n_lanes, n_block_rows, n_slots,
+                      n_dense_rows, F, ld, R, gh, window, b, bn, planes, s);
+  return launch_ring(group_ptr, win_ids, pos, lane_valid, slot_cols, blocks, dense,
+                     out, n_lanes, n_block_rows, n_slots, n_dense_rows, F, ld, R,
+                     gh, window, b, bn, planes, s);
 }
 
 }  // namespace
@@ -1187,12 +1200,13 @@ cudaError_t launch_k3(const void* group_ptr, const void* win_ids,
 // stream is the caller's current stream. Returns the cudaError_t of the
 // launch (0 on success). The *_bf16 entries take bf16 blocks and dense
 // only, the *_bf16x3 entries the two bf16 planes of each, the others
-// float only.
+// float only. Every BSR entry takes lane_order, (n_lanes,) int32, the CTA
+// rows' lanes, deepest first: read at b = 16 and 32, where a null one is
+// refused.
 
 // K1, f32 operands: the pipelined FFMA loop (tiles of bn columns: 64 or
 // 128, and 32 too at b = 16 and 32; dense (n, ld) with ld >= F a multiple
-// of 4 and a 16-byte-aligned base; lane_order (n_block_rows,) int32, the
-// CTA rows' block-rows, read at b = 16 and 32).
+// of 4 and a 16-byte-aligned base).
 extern "C" int sdb_bsr_spmm_flat(const void* step_ptr, const void* slot_cols,
                                  const void* lane_order, const void* blocks,
                                  const void* dense, void* out,
@@ -1204,27 +1218,32 @@ extern "C" int sdb_bsr_spmm_flat(const void* step_ptr, const void* slot_cols,
                               static_cast<cudaStream_t>(stream));
 }
 
-// K1, bf16 operands: as sdb_bsr_spmm_rowgroup_bf16 on the flat layout.
+// K1, bf16 operands: as sdb_bsr_spmm_rowgroup_bf16 on the flat layout's
+// walk (one lane per block-row, the step pointer as group pointer).
 extern "C" int sdb_bsr_spmm_flat_bf16(
-    const void* step_ptr, const void* slot_cols, const void* blocks,
-    const void* dense, void* out, int64_t n_block_rows, int64_t n_slots,
-    int64_t n_dense_rows, int64_t F, int64_t ld, int64_t group, int64_t b,
-    int64_t bn, void* stream) {
-  return (int)launch_flat_bf16(step_ptr, slot_cols, blocks, dense, out,
-                               n_block_rows, n_slots, n_dense_rows, F, ld,
-                               group, b, bn, static_cast<cudaStream_t>(stream));
+    const void* step_ptr, const void* slot_cols, const void* lane_order,
+    const void* blocks, const void* dense, void* out, int64_t n_block_rows,
+    int64_t n_slots, int64_t n_dense_rows, int64_t F, int64_t ld, int64_t group,
+    int64_t b, int64_t bn, void* stream) {
+  return (int)launch_bf16(step_ptr, nullptr, nullptr, nullptr, slot_cols,
+                          lane_order, blocks, dense, out, n_block_rows,
+                          n_block_rows, n_slots, n_dense_rows, F, ld, 1, group,
+                          0, b, bn, 1, static_cast<cudaStream_t>(stream));
 }
 
 // K3 on K1's layout: the arguments of sdb_bsr_spmm_flat_bf16, with the
-// blocks' and the operand's two planes (see launch_k3).
+// blocks' two bf16 planes (n_slots b x b slots of hi, then as many of lo)
+// and the operand's ((n_dense_rows, ld) of hi, then of lo; ld >= F a
+// multiple of 8).
 extern "C" int sdb_bsr_spmm_flat_bf16x3(
-    const void* step_ptr, const void* slot_cols, const void* planes,
-    const void* xp, void* out, int64_t n_block_rows, int64_t n_slots,
-    int64_t n_dense_rows, int64_t F, int64_t ld, int64_t group, int64_t b,
-    int64_t bn, void* stream) {
-  return (int)launch_k3(step_ptr, nullptr, nullptr, nullptr, slot_cols, planes,
-                        xp, out, n_block_rows, n_slots, n_dense_rows, F, ld, 1,
-                        group, 0, b, bn, static_cast<cudaStream_t>(stream));
+    const void* step_ptr, const void* slot_cols, const void* lane_order,
+    const void* planes, const void* xp, void* out, int64_t n_block_rows,
+    int64_t n_slots, int64_t n_dense_rows, int64_t F, int64_t ld, int64_t group,
+    int64_t b, int64_t bn, void* stream) {
+  return (int)launch_bf16(step_ptr, nullptr, nullptr, nullptr, slot_cols,
+                          lane_order, planes, xp, out, n_block_rows,
+                          n_block_rows, n_slots, n_dense_rows, F, ld, 1, group,
+                          0, b, bn, 2, static_cast<cudaStream_t>(stream));
 }
 
 // K5, f32 operands: K1's f32 launch on the (nbc*b, ld) view of dense3.
@@ -1242,28 +1261,28 @@ extern "C" int sdb_bsr_spmm_resident(const void* step_ptr,
 
 // K5, bf16 operands: K1's bf16 launch on the (nbc*b, ld) view of dense3.
 extern "C" int sdb_bsr_spmm_resident_bf16(
-    const void* step_ptr, const void* slot_cols, const void* blocks,
-    const void* dense3, void* out, int64_t n_block_rows, int64_t n_slots,
-    int64_t n_dense_rows, int64_t F, int64_t ld, int64_t group, int64_t b,
-    int64_t bn, void* stream) {
-  return (int)launch_flat_bf16(step_ptr, slot_cols, blocks, dense3, out,
-                               n_block_rows, n_slots, n_dense_rows, F, ld,
-                               group, b, bn, static_cast<cudaStream_t>(stream));
+    const void* step_ptr, const void* slot_cols, const void* lane_order,
+    const void* blocks, const void* dense3, void* out, int64_t n_block_rows,
+    int64_t n_slots, int64_t n_dense_rows, int64_t F, int64_t ld, int64_t group,
+    int64_t b, int64_t bn, void* stream) {
+  return sdb_bsr_spmm_flat_bf16(step_ptr, slot_cols, lane_order, blocks, dense3,
+                                out, n_block_rows, n_slots, n_dense_rows, F, ld,
+                                group, b, bn, stream);
 }
 
 // K3 on K5's layout: as sdb_bsr_spmm_flat_bf16x3.
 extern "C" int sdb_bsr_spmm_resident_bf16x3(
-    const void* step_ptr, const void* slot_cols, const void* planes,
-    const void* xp, void* out, int64_t n_block_rows, int64_t n_slots,
-    int64_t n_dense_rows, int64_t F, int64_t ld, int64_t group, int64_t b,
-    int64_t bn, void* stream) {
-  return (int)launch_k3(step_ptr, nullptr, nullptr, nullptr, slot_cols, planes,
-                        xp, out, n_block_rows, n_slots, n_dense_rows, F, ld, 1,
-                        group, 0, b, bn, static_cast<cudaStream_t>(stream));
+    const void* step_ptr, const void* slot_cols, const void* lane_order,
+    const void* planes, const void* xp, void* out, int64_t n_block_rows,
+    int64_t n_slots, int64_t n_dense_rows, int64_t F, int64_t ld, int64_t group,
+    int64_t b, int64_t bn, void* stream) {
+  return sdb_bsr_spmm_flat_bf16x3(step_ptr, slot_cols, lane_order, planes, xp,
+                                  out, n_block_rows, n_slots, n_dense_rows, F,
+                                  ld, group, b, bn, stream);
 }
 
-// K2, f32 operands: the pipelined FFMA loop on the sorted walk (tiles,
-// operand and lane_order, (n_lanes,), as sdb_bsr_spmm_flat's).
+// K2, f32 operands: the pipelined FFMA loop on the sorted walk (tiles and
+// operand as sdb_bsr_spmm_flat's).
 extern "C" int sdb_bsr_spmm_sorted(const void* group_ptr, const void* win_ids,
                                    const void* pos, const void* lane_valid,
                                    const void* slot_cols,
@@ -1278,18 +1297,36 @@ extern "C" int sdb_bsr_spmm_sorted(const void* group_ptr, const void* win_ids,
                           gh, window, b, bn, static_cast<cudaStream_t>(stream));
 }
 
+// K2, bf16 operands: the small-block tensor-core loop at b = 16 and 32
+// (tiles of bn = 32, 64 or 128 columns), the tensor-core ring at b = 64
+// and 128 (bn = 64 or 128). dense is (n_dense_rows, ld), ld >= F a
+// multiple of 8, on 16 bytes; F is the output's width.
+extern "C" int sdb_bsr_spmm_sorted_bf16(
+    const void* group_ptr, const void* win_ids, const void* pos,
+    const void* lane_valid, const void* slot_cols, const void* lane_order,
+    const void* blocks, const void* dense, void* out, int64_t n_lanes,
+    int64_t n_slots, int64_t n_dense_rows, int64_t F, int64_t ld, int64_t R,
+    int64_t gh, int64_t window, int64_t b, int64_t bn, void* stream) {
+  if (win_ids == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)launch_bf16(group_ptr, win_ids, pos, lane_valid, slot_cols,
+                          lane_order, blocks, dense, out, n_lanes, 0, n_slots,
+                          n_dense_rows, F, ld, R, gh, window, b, bn, 1,
+                          static_cast<cudaStream_t>(stream));
+}
+
 // K3 on K2's layout: the arguments of sdb_bsr_spmm_sorted_bf16, with the
-// blocks' and the operand's two planes (see launch_k3).
+// two planes (as sdb_bsr_spmm_flat_bf16x3's).
 extern "C" int sdb_bsr_spmm_sorted_bf16x3(
     const void* group_ptr, const void* win_ids, const void* pos,
-    const void* lane_valid, const void* slot_cols, const void* planes,
-    const void* xp, void* out, int64_t n_lanes, int64_t n_slots,
-    int64_t n_dense_rows, int64_t F, int64_t ld, int64_t R, int64_t gh,
-    int64_t window, int64_t b, int64_t bn, void* stream) {
+    const void* lane_valid, const void* slot_cols, const void* lane_order,
+    const void* planes, const void* xp, void* out, int64_t n_lanes,
+    int64_t n_slots, int64_t n_dense_rows, int64_t F, int64_t ld, int64_t R,
+    int64_t gh, int64_t window, int64_t b, int64_t bn, void* stream) {
   if (win_ids == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)launch_k3(group_ptr, win_ids, pos, lane_valid, slot_cols, planes,
-                        xp, out, n_lanes, n_slots, n_dense_rows, F, ld, R, gh,
-                        window, b, bn, static_cast<cudaStream_t>(stream));
+  return (int)launch_bf16(group_ptr, win_ids, pos, lane_valid, slot_cols,
+                          lane_order, planes, xp, out, n_lanes, 0, n_slots,
+                          n_dense_rows, F, ld, R, gh, window, b, bn, 2,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // K3's operand split (split_bf16_kernel): x (N, F) f32 into out (2N, ld)
@@ -1307,37 +1344,8 @@ extern "C" int sdb_split_bf16(const void* x, void* out, int64_t N, int64_t F,
   return (int)cudaGetLastError();
 }
 
-// K2, bf16 operands: the tensor-core loop at b = 64 and 128, the FFMA
-// loop at b = 16 and 32 (which takes 64-column tiles and no padding:
-// bn == 64, ld == F). dense is (n_dense_rows, ld); F is the output's
-// width.
-extern "C" int sdb_bsr_spmm_sorted_bf16(
-    const void* group_ptr, const void* win_ids, const void* pos,
-    const void* lane_valid, const void* slot_cols, const void* blocks,
-    const void* dense, void* out, int64_t n_lanes, int64_t n_slots,
-    int64_t n_dense_rows, int64_t F, int64_t ld, int64_t R, int64_t gh,
-    int64_t window, int64_t b, int64_t bn, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (b) {
-    case 16:
-    case 32:
-      if (bn != kBN || ld != F) return (int)cudaErrorInvalidValue;
-      return (int)launch_sorted<Exact>(group_ptr, win_ids, pos, lane_valid,
-                                       slot_cols, blocks, dense, out, n_lanes,
-                                       F, F, 0, 0, R, gh, window, b, s);
-    case 64:
-    case 128:
-      if (win_ids == nullptr) return (int)cudaErrorInvalidValue;
-      return (int)launch_ring(group_ptr, win_ids, pos, lane_valid, slot_cols,
-                              blocks, dense, out, n_lanes, 0, n_slots,
-                              n_dense_rows, F, ld, R, gh, window, b, bn, 1, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-// K4, f32 operands: the pipelined FFMA loop on the row-group walk (tiles,
-// operand and lane_order, (n_lanes,), as sdb_bsr_spmm_flat's).
+// K4, f32 operands: the pipelined FFMA loop on the row-group walk (tiles
+// and operand as sdb_bsr_spmm_flat's).
 extern "C" int sdb_bsr_spmm_rowgroup(const void* group_ptr,
                                      const void* slot_cols,
                                      const void* lane_order,
@@ -1352,26 +1360,14 @@ extern "C" int sdb_bsr_spmm_rowgroup(const void* group_ptr,
                           static_cast<cudaStream_t>(stream));
 }
 
-// K4, bf16 operands: as sdb_bsr_spmm_sorted_bf16.
+// K4, bf16 operands: as sdb_bsr_spmm_sorted_bf16 on the row-group walk.
 extern "C" int sdb_bsr_spmm_rowgroup_bf16(
-    const void* group_ptr, const void* slot_cols, const void* blocks,
-    const void* dense, void* out, int64_t n_lanes, int64_t n_block_rows,
-    int64_t n_slots, int64_t n_dense_rows, int64_t F, int64_t ld, int64_t R,
-    int64_t gh, int64_t b, int64_t bn, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (b) {
-    case 16:
-    case 32:
-      if (bn != kBN || ld != F) return (int)cudaErrorInvalidValue;
-      return (int)launch_rowgroup(group_ptr, slot_cols, blocks, dense, out,
-                                  n_lanes, n_block_rows, F, R, gh, b, s);
-    case 64:
-    case 128:
-      return (int)launch_ring(group_ptr, nullptr, nullptr, nullptr, slot_cols,
-                              blocks, dense, out, n_lanes, n_block_rows,
-                              n_slots, n_dense_rows, F, ld, R, gh, 0, b, bn, 1,
-                              s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+    const void* group_ptr, const void* slot_cols, const void* lane_order,
+    const void* blocks, const void* dense, void* out, int64_t n_lanes,
+    int64_t n_block_rows, int64_t n_slots, int64_t n_dense_rows, int64_t F,
+    int64_t ld, int64_t R, int64_t gh, int64_t b, int64_t bn, void* stream) {
+  return (int)launch_bf16(group_ptr, nullptr, nullptr, nullptr, slot_cols,
+                          lane_order, blocks, dense, out, n_lanes, n_block_rows,
+                          n_slots, n_dense_rows, F, ld, R, gh, 0, b, bn, 1,
+                          static_cast<cudaStream_t>(stream));
 }

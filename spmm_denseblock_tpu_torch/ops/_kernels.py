@@ -45,20 +45,20 @@ _SIGNATURES = {
     "sdb_bsr_spmm_resident": ("bsr_spmm", [_P] * 6 + [_I] * 6 + [_P]),
     # bf16 K1 and K5: the same pointers, then n_block_rows, n_slots,
     # n_dense_rows, F, ld, group, b, bn, stream
-    "sdb_bsr_spmm_flat_bf16": ("bsr_spmm", [_P] * 5 + [_I] * 8 + [_P]),
-    "sdb_bsr_spmm_resident_bf16": ("bsr_spmm", [_P] * 5 + [_I] * 8 + [_P]),
+    "sdb_bsr_spmm_flat_bf16": ("bsr_spmm", [_P] * 6 + [_I] * 8 + [_P]),
+    "sdb_bsr_spmm_resident_bf16": ("bsr_spmm", [_P] * 6 + [_I] * 8 + [_P]),
     # K3 on K1's and K5's layouts: the same arguments, the blocks and the
     # operand as their two bf16 planes
-    "sdb_bsr_spmm_flat_bf16x3": ("bsr_spmm", [_P] * 5 + [_I] * 8 + [_P]),
-    "sdb_bsr_spmm_resident_bf16x3": ("bsr_spmm", [_P] * 5 + [_I] * 8 + [_P]),
+    "sdb_bsr_spmm_flat_bf16x3": ("bsr_spmm", [_P] * 6 + [_I] * 8 + [_P]),
+    "sdb_bsr_spmm_resident_bf16x3": ("bsr_spmm", [_P] * 6 + [_I] * 8 + [_P]),
     # f32 K2: group_ptr, win_ids, pos, lane_valid, slot_cols, lane_order,
     # blocks, dense, out, n_lanes, F, ld, R, gh, window, b, bn, stream
     "sdb_bsr_spmm_sorted": ("bsr_spmm", [_P] * 9 + [_I] * 8 + [_P]),
     # bf16 K2: the same pointers, then n_lanes, n_slots, n_dense_rows, F,
     # ld, R, gh, window, b, bn, stream
-    "sdb_bsr_spmm_sorted_bf16": ("bsr_spmm", [_P] * 8 + [_I] * 10 + [_P]),
+    "sdb_bsr_spmm_sorted_bf16": ("bsr_spmm", [_P] * 9 + [_I] * 10 + [_P]),
     # K3 on K2's layout: the same arguments, with the two planes
-    "sdb_bsr_spmm_sorted_bf16x3": ("bsr_spmm", [_P] * 8 + [_I] * 10 + [_P]),
+    "sdb_bsr_spmm_sorted_bf16x3": ("bsr_spmm", [_P] * 9 + [_I] * 10 + [_P]),
     # K3's operand split: x, out, N, F, ld, stream
     "sdb_split_bf16": ("bsr_spmm", [_P] * 2 + [_I] * 3 + [_P]),
     # f32 K4: group_ptr, slot_cols, lane_order, blocks, dense, out,
@@ -66,7 +66,7 @@ _SIGNATURES = {
     "sdb_bsr_spmm_rowgroup": ("bsr_spmm", [_P] * 6 + [_I] * 8 + [_P]),
     # bf16 K4: the same pointers, then n_lanes, n_block_rows, n_slots,
     # n_dense_rows, F, ld, R, gh, b, bn, stream
-    "sdb_bsr_spmm_rowgroup_bf16": ("bsr_spmm", [_P] * 5 + [_I] * 10 + [_P]),
+    "sdb_bsr_spmm_rowgroup_bf16": ("bsr_spmm", [_P] * 6 + [_I] * 10 + [_P]),
     # K6: step_ptr, slot_cols, qblocks, scales, qdense, qdense_t (the
     # transposed operand, read at b = 64 and 128), cs, out, n_block_rows,
     # n_slots, n_dense_rows, F, group, b, bn, stream

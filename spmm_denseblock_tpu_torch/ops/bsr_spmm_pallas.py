@@ -23,14 +23,16 @@ instance of K1, K2 or K5 (``bf16x3=True`` in the wrappers). A "high"
 plan splits its blocks once, at build, and holds their two bf16 planes
 (``split_planes``) instead of the f32 blocks; each call splits the
 operand once (``split_operand``, a kernel of its own), and K3 runs on the
-tensor cores at b = 64 and 128. bf16 operands run every kernel through
-its own entry (``sdb_bsr_spmm_{flat,sorted,rowgroup,resident}_bf16``), on
-the tensor cores at b = 64 and 128; ``bf16_tile_geometry`` picks their F
-tile width and the operand's padded row length. Exact-f32 K1, K2, K4 and
-K5 run one pipelined FFMA loop at every b: at b = 64 and 128 at
-``tile_geometry``'s tile width, at b = 16 and 32 at
-``f32_small_geometry``'s, which keeps the plan's deepest lane in view, with
-the lanes in the plan's ``lane_order`` (deepest first; ``_f32_launch_args``).
+tensor cores. bf16 operands run every kernel through its own entry
+(``sdb_bsr_spmm_{flat,sorted,rowgroup,resident}_bf16``), on the tensor
+cores: at b = 64 and 128 on the wgmma ring, at ``bf16_tile_geometry``'s F
+tile width, at b = 16 and 32 (K3 too) on the small-block mma.sync loop,
+at ``bf16_small_geometry``'s. Exact-f32 K1, K2, K4 and K5 run one
+pipelined FFMA loop at every b: at b = 64 and 128 at ``tile_geometry``'s
+tile width, at b = 16 and 32 at ``f32_small_geometry``'s. Both small
+geometries keep the plan's deepest lane in view, and every entry at b =
+16 and 32 takes the lanes in the plan's ``lane_order`` (deepest first;
+``_f32_launch_args``, ``_bf16_launch_args``, ``_k3_launch_args``).
 
 Beside each kernel sits its plain PyTorch version (``spmm_flat_plain``,
 ``spmm_sorted_plain``, ``spmm_rowgroup_plain``,
@@ -585,18 +587,22 @@ def tile_geometry(b: int, n_rows: int, F: int, n_sms: int, row_align: int):
     CTA row each) on a card of n_sms SMs: the F tile width and the
     operand's row length as the kernel reads it.
 
-    b = 16 and 32 run the FFMA loop: 64-column tiles, the operand as it
-    is. b = 64 and 128 run the tensor-core loop or the exact-f32 kernels'
-    pipelined FFMA loop, whose 16-byte copies need rows of a multiple of
-    row_align elements (8 bf16, 4 f32): ld is F rounded up to one (the
-    wrapper pads the operand's columns only then). bn is 128 where F
-    needs more than 64 columns and the grid (n_rows * ceil(F / 128) CTAs)
-    still covers the SMs, else 64 (the tensor-core loop's two-level sums
-    hold 2 x bn/2 registers a thread, which caps bn at 128)."""
+    The kernels' 16-byte copies need rows of a multiple of row_align
+    elements (8 bf16, 4 f32; 1 for int8, whose ring reads a transposed
+    operand): ld is F rounded up to one (the wrapper pads the operand's
+    columns only then). b = 64 and 128 run the tensor-core ring or the
+    exact-f32 kernels' pipelined FFMA loop: bn is 128 where F needs more
+    than 64 columns and the grid (n_rows * ceil(F / 128) CTAs) still
+    covers the SMs, else 64 (the ring's two-level sums hold 2 x bn/2
+    registers a thread, which caps bn at 128). b = 16 and 32: 64-column
+    tiles, int8's dp4a loop; the bf16, K3 and exact-f32 entries there take
+    bf16_small_geometry's or f32_small_geometry's width instead, which
+    keeps the plan's deepest lane in view."""
+    ld = -(-F // row_align) * row_align
     if b < 64:
-        return 64, F
+        return 64, ld
     bn = 128 if F > 64 and n_rows * -(-F // 128) >= n_sms else 64
-    return bn, -(-F // row_align) * row_align
+    return bn, ld
 
 
 # How many CTAs of a grid's average work a hub lane's CTA may take: it
@@ -604,32 +610,52 @@ def tile_geometry(b: int, n_rows: int, F: int, n_sms: int, row_align: int):
 # 128) its instance ran fastest at the BN this share picks, at b = 32 and
 # at 16 (scripts/torch_kernel_variants.py f32_small)
 F32_SMALL_HUB_SHARE = 2
+# The same for the small-block tensor-core loop (bf16 and K3 at b = 16 and
+# 32), whose hub CTA waits on its slots' reads rather than on FMAs: on the
+# arxiv stand-in this share picked the fastest of BN = 32, 64 and 128 for
+# bf16 K2 and K3 at b = 32 and 16 under gorder (64 and 32) and at b = 32
+# under rcmk (128, no hub) (scripts/torch_kernel_variants.py bf16_small)
+BF16_SMALL_HUB_SHARE = 2
+
+
+def _small_bn(F: int, n_sms: int, n_slots: int, depth: int, share: float) -> int:
+    """The widest of 128, 64 and 32 columns that F needs and at which the
+    deepest lane's CTA, depth * bn slot-columns, stays within n_slots * F
+    / (n_sms * share); else 32. A lane's sum cannot be split across CTAs,
+    so each of its F tiles is one CTA walking all its slots, and a
+    narrower tile puts more CTAs on a hub lane."""
+    limit = n_slots * F / (n_sms * share)
+    for bn in (128, 64):
+        if F > bn // 2 and depth * bn <= limit:
+            return bn
+    return 32
 
 
 def f32_small_geometry(b: int, F: int, n_sms: int, n_slots: int, depth: int):
     """(bn, ld) of the exact-f32 entries at b = 16 and 32 (the pipelined
     FFMA loop's small instances: b/8 warps a CTA, microtiles of bn/4
-    outputs) for a plan of n_slots slots whose deepest lane holds `depth`.
+    outputs) for a plan of n_slots slots whose deepest lane holds `depth`:
+    _small_bn's width at F32_SMALL_HUB_SHARE (a hub lane's CTA does depth
+    * 2b² * bn FLOP; a narrower tile puts more warps on it, b·F/(8·bn) of
+    them, at fewer FMAs a shared load). ld is F rounded up to a multiple
+    of 4 (the loop's 16-byte copies)."""
+    return _small_bn(F, n_sms, n_slots, depth, F32_SMALL_HUB_SHARE), -(-F // 4) * 4
 
-    A lane's sum cannot be split across CTAs, so each of its F tiles is
-    one CTA walking all its slots: a hub lane's CTA does depth * 2b² * bn
-    FLOP, and a narrower tile puts more warps on it (b·F/(8·bn) of them),
-    at fewer FMAs a shared load. bn is the widest of 128, 64 and 32 that F
-    needs and at which that CTA's work, depth * bn slot-columns, stays
-    within n_slots * F / (n_sms * F32_SMALL_HUB_SHARE); else 32. ld is F
-    rounded up to a multiple of 4 (the loop's 16-byte copies)."""
-    ld = -(-F // 4) * 4
-    share = n_slots * F / (n_sms * F32_SMALL_HUB_SHARE)
-    for bn in (128, 64):
-        if F > bn // 2 and depth * bn <= share:
-            return bn, ld
-    return 32, ld
+
+def bf16_small_geometry(b: int, F: int, n_sms: int, n_slots: int, depth: int):
+    """(bn, ld) of the bf16 and K3 entries at b = 16 and 32 (the
+    small-block tensor-core loop: 4 warps a CTA, each bn/4 columns of the
+    b x bn tile) for a plan of n_slots slots whose deepest lane holds
+    `depth`: _small_bn's width at BF16_SMALL_HUB_SHARE. ld is F rounded up
+    to a multiple of 8 (16-byte copies of bf16 rows; K3's split operand
+    has rows of this ld)."""
+    return _small_bn(F, n_sms, n_slots, depth, BF16_SMALL_HUB_SHARE), -(-F // 8) * 8
 
 
 def bf16_tile_geometry(b: int, n_rows: int, F: int, n_sms: int):
-    """tile_geometry of the tensor-core loop (bf16 K1, K2, K4 and K5, and
-    K3, whose split operand has rows of this ld): rows of a multiple of 8
-    bf16."""
+    """tile_geometry of the tensor-core ring (bf16 K1, K2, K4 and K5, and
+    K3, whose split operand has rows of this ld, at b = 64 and 128): rows
+    of a multiple of 8 bf16."""
     return tile_geometry(b, n_rows, F, n_sms, 8)
 
 
@@ -658,11 +684,26 @@ def _tile_launch_args(b: int, n_slots: int, dense, n_rows: int,
     return (n_slots, dense.shape[0], F, ld), bn, dense
 
 
-def _bf16_launch_args(blocks, dense, n_rows: int) -> tuple:
+def _small_bn_of(geometry, b: int, n_slots: int, dense, depth) -> tuple:
+    """(bn, ld) of an entry at b = 16 and 32 from `geometry`
+    (f32_small_geometry or bf16_small_geometry) for the plan's deepest
+    lane; without a depth it raises (no geometry to fall back to)."""
+    if depth is None:
+        raise ValueError("the entries at b = 16 and 32 need the plan's deepest "
+                         "lane (depth) and lane_order")
+    return geometry(b, dense.shape[1], _sm_count(dense.device.index), n_slots, depth)
+
+
+def _bf16_launch_args(blocks, dense, n_rows: int, depth: Optional[int] = None) -> tuple:
     """The trailing arguments of a bf16 entry, (n_slots, n_dense_rows,
-    F, ld), then bn, and the operand the kernel reads (_tile_launch_args
-    with rows of a multiple of 8 bf16)."""
-    return _tile_launch_args(blocks.shape[1], blocks.shape[0], dense, n_rows, 8)
+    F, ld), then bn, and the operand the kernel reads, rows of a multiple
+    of 8 bf16: at b = 64 and 128 _tile_launch_args's, at b = 16 and 32
+    bf16_small_geometry's for the plan's deepest lane (`depth` slots)."""
+    b, n_slots, F = blocks.shape[1], blocks.shape[0], dense.shape[1]
+    if b >= 64:
+        return _tile_launch_args(b, n_slots, dense, n_rows, 8)
+    bn, ld = _small_bn_of(bf16_small_geometry, b, n_slots, dense, depth)
+    return (n_slots, dense.shape[0], F, ld), bn, _operand_rows(dense, ld)
 
 
 def _f32_launch_args(blocks, dense, n_rows: int, depth: Optional[int] = None) -> tuple:
@@ -674,17 +715,14 @@ def _f32_launch_args(blocks, dense, n_rows: int, depth: Optional[int] = None) ->
     if b >= 64:
         sizes, bn, dense = _tile_launch_args(b, blocks.shape[0], dense, n_rows, 4)
         return sizes[2:], bn, dense
-    if depth is None:
-        raise ValueError("the exact-f32 entries at b = 16 and 32 need the "
-                         "plan's deepest lane (depth) and lane_order")
-    bn, ld = f32_small_geometry(b, F, _sm_count(dense.device.index),
-                                blocks.shape[0], depth)
+    bn, ld = _small_bn_of(f32_small_geometry, b, blocks.shape[0], dense, depth)
     return (F, ld), bn, _operand_rows(dense, ld)
 
 
 def _lane_order_arg(lane_order, n_lanes: int, dev) -> int:
-    """The lane_order pointer an exact-f32 entry takes (0: none, which
-    the entries refuse at b = 16 and 32)."""
+    """The lane_order pointer a BSR entry takes (0: none, which the
+    entries refuse at b = 16 and 32; the rings at b = 64 and 128 do not
+    read it)."""
     if lane_order is None:
         return 0
     if (lane_order.device != dev or lane_order.dtype != torch.int32
@@ -712,12 +750,19 @@ def split_operand(dense: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _k3_launch_args(b: int, n_slots: int, dense, n_rows: int) -> tuple:
+def _k3_launch_args(b: int, n_slots: int, dense, n_rows: int,
+                    depth: Optional[int] = None) -> tuple:
     """The trailing arguments of a K3 entry, (n_slots, n_dense_rows, F,
-    ld), then bn, and the operand's planes (one split per call)."""
-    xp = split_operand(dense)
+    ld), then bn (bf16_tile_geometry's at b = 64 and 128,
+    bf16_small_geometry's for the plan's deepest lane at b = 16 and 32,
+    which raises without a depth before any launch), and the operand's
+    planes (one split per call, rows of ld)."""
     F = dense.shape[1]
-    bn = bf16_tile_geometry(b, n_rows, F, _sm_count(dense.device.index))[0]
+    if b >= 64:
+        bn = bf16_tile_geometry(b, n_rows, F, _sm_count(dense.device.index))[0]
+    else:
+        bn = _small_bn_of(bf16_small_geometry, b, n_slots, dense, depth)[0]
+    xp = split_operand(dense)
     return (n_slots, dense.shape[0], F, xp.shape[1]), bn, xp
 
 
@@ -734,8 +779,8 @@ def spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense, group: int,
     FFMA entry, bf16 the bf16 entry, as spmm_sorted, at the geometry of
     n_block_rows lanes; bf16x3 (blocks: split_planes' planes, f32
     operand) K3's entry after split_operand. lane_order and depth (the
-    plan's, ``lane_order``) are read by the exact-f32 entry, which at b =
-    16 and 32 needs them."""
+    plan's, ``lane_order``) are read by every entry at b = 16 and 32,
+    which needs them."""
     dev = _device_of(step_rows, step_ptr, slot_cols, blocks, dense)
     n_block_rows = step_ptr.shape[0] - 1
     if dev.type == "cpu":
@@ -753,15 +798,15 @@ def spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense, group: int,
     bf16 = blocks.dtype == torch.bfloat16 and not bf16x3
     kernel = getattr(_kernels, "bsr_spmm_" + ("resident" if resident else "flat")
                      + ("_bf16x3" if bf16x3 else "_bf16" if bf16 else ""))
-    pointers = (step_ptr.data_ptr(), slot_cols.data_ptr())
+    pointers = (step_ptr.data_ptr(), slot_cols.data_ptr(),
+                _lane_order_arg(lane_order, n_block_rows, dev))
     with torch.cuda.device(dev):
         if bf16x3:
-            sizes, bn, dense = _k3_launch_args(b, n_slots, dense, n_block_rows)
+            sizes, bn, dense = _k3_launch_args(b, n_slots, dense, n_block_rows, depth)
         elif bf16:
-            sizes, bn, dense = _bf16_launch_args(blocks, dense, n_block_rows)
+            sizes, bn, dense = _bf16_launch_args(blocks, dense, n_block_rows, depth)
         else:
             sizes, bn, dense = _f32_launch_args(blocks, dense, n_block_rows, depth)
-            pointers += (_lane_order_arg(lane_order, n_block_rows, dev),)
         kernel(*pointers, blocks.data_ptr(), dense.data_ptr(), out.data_ptr(),
                n_block_rows, *sizes, group, b, bn,
                torch.cuda.current_stream(dev).cuda_stream)
@@ -792,15 +837,16 @@ def spmm_sorted(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr,
 
     lane_valid (n_groups*R,) bool and group_ptr (n_groups+1,) int64 come
     from the port's packer, lane_order (n_groups*R,) int32 and depth from
-    ``lane_order`` (the exact-f32 entry reads them; at b = 16 and 32 it
-    needs them). CPU tensors run spmm_sorted_plain; CUDA tensors run the
-    CUDA kernel: f32 operands the pipelined FFMA loop (at tile_geometry's
-    tile width at b >= 64, at f32_small_geometry's below, the operand's
-    columns padded to a multiple of 4 where F is ragged:
-    _f32_launch_args), bf16 the bf16 entry at bf16_tile_geometry's tile
-    width (the operand's columns padded to a multiple of 8 where F is
-    ragged and b >= 64), bf16x3 (blocks: split_planes' planes) K3's entry
-    after split_operand."""
+    ``lane_order`` (every entry at b = 16 and 32 needs them). CPU tensors
+    run spmm_sorted_plain; CUDA tensors run the CUDA kernel: f32 operands
+    the pipelined FFMA loop (at tile_geometry's tile width at b >= 64, at
+    f32_small_geometry's below, the operand's columns padded to a
+    multiple of 4 where F is ragged: _f32_launch_args), bf16 the bf16
+    entry (the wgmma ring at bf16_tile_geometry's tile width at b >= 64,
+    the small-block mma.sync loop at bf16_small_geometry's below, the
+    operand's columns padded to a multiple of 8 where F is ragged:
+    _bf16_launch_args), bf16x3 (blocks: split_planes' planes) K3's entry
+    after split_operand, on the same two loops."""
     dev = _device_of(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr)
     if dev.type == "cpu":
         return spmm_sorted_plain(win_ids, pos, slot_cols, blocks, dense,
@@ -824,23 +870,22 @@ def spmm_sorted(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr,
     with torch.cuda.device(dev):
         pointers = (group_ptr.data_ptr(), win_ids.data_ptr(), pos.data_ptr(),
                     lane_valid.data_ptr(), slot_cols.data_ptr(),
-                    blocks.data_ptr())
+                    _lane_order_arg(lane_order, n_lanes, dev), blocks.data_ptr())
         stream = torch.cuda.current_stream(dev).cuda_stream
         if bf16x3:
-            sizes, bn, xp = _k3_launch_args(b, n_slots, dense, n_block_rows)
+            sizes, bn, xp = _k3_launch_args(b, n_slots, dense, n_block_rows, depth)
             _kernels.bsr_spmm_sorted_bf16x3(
                 *pointers, xp.data_ptr(), out.data_ptr(), n_lanes, *sizes, R,
                 gh, window, b, bn, stream)
         elif blocks.dtype == torch.bfloat16:
-            sizes, bn, dense = _bf16_launch_args(blocks, dense, n_block_rows)
+            sizes, bn, dense = _bf16_launch_args(blocks, dense, n_block_rows, depth)
             _kernels.bsr_spmm_sorted_bf16(
                 *pointers, dense.data_ptr(), out.data_ptr(), n_lanes,
                 *sizes, R, gh, window, b, bn, stream)
         else:
             sizes, bn, dense = _f32_launch_args(blocks, dense, n_block_rows, depth)
             _kernels.bsr_spmm_sorted(
-                *pointers[:5], _lane_order_arg(lane_order, n_lanes, dev),
-                pointers[5], dense.data_ptr(), out.data_ptr(), n_lanes, *sizes,
+                *pointers, dense.data_ptr(), out.data_ptr(), n_lanes, *sizes,
                 R, gh, window, b, bn, stream)
     return out
 
@@ -872,18 +917,17 @@ def spmm_rowgroup(step_groups, group_ptr, slot_cols, blocks, dense,
     out = torch.empty(n_block_rows * b, F, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         pointers = (group_ptr.data_ptr(), slot_cols.data_ptr(),
-                    blocks.data_ptr())
+                    _lane_order_arg(lane_order, n_lanes, dev), blocks.data_ptr())
         stream = torch.cuda.current_stream(dev).cuda_stream
         if blocks.dtype == torch.bfloat16:
-            sizes, bn, dense = _bf16_launch_args(blocks, dense, n_block_rows)
+            sizes, bn, dense = _bf16_launch_args(blocks, dense, n_block_rows, depth)
             _kernels.bsr_spmm_rowgroup_bf16(
                 *pointers, dense.data_ptr(), out.data_ptr(), n_lanes,
                 n_block_rows, *sizes, R, gh, b, bn, stream)
         else:
             sizes, bn, dense = _f32_launch_args(blocks, dense, n_block_rows, depth)
             _kernels.bsr_spmm_rowgroup(
-                *pointers[:2], _lane_order_arg(lane_order, n_lanes, dev),
-                pointers[2], dense.data_ptr(), out.data_ptr(), n_lanes,
+                *pointers, dense.data_ptr(), out.data_ptr(), n_lanes,
                 n_block_rows, *sizes, R, gh, b, bn, stream)
     return out
 
@@ -1044,7 +1088,10 @@ def bsr_spmm_pallas_plan(
         arrays = (step_rows, slot_cols, blocks_pad, step_ptr, order)
         layout, geom = ("resident" if resident else "flat"), group
     arrays = list(arrays)
-    blocks_t = torch.as_tensor(arrays[2])
+    # the blocks' split or cast runs where the plan lives: on the card it
+    # takes a fraction of the host's time (a "high" plan of 814,720 32 x 32
+    # slots split in ~9 s on the host)
+    blocks_t = torch.as_tensor(arrays[2], device=device)
     if math == "bf16x3":  # K3 reads only the two bf16 planes
         arrays[2] = split_planes(blocks_t)
     else:

@@ -811,22 +811,22 @@ def test_bf16_exact_case_bit_exact(depth_sort, layout):
     (128, 1024, 133, (128, 136)),
     (64, 1024, 129, (128, 136)),
     (128, 1024, 600, (128, 600)),
-    (32, 1024, 133, (64, 133)),    # b < 64: the FFMA loop, no padding
-    (16, 5, 70, (64, 70)),
+    (32, 1024, 133, (64, 136)),    # b < 64: 64-column tiles (int8's dp4a
+    (16, 5, 70, (64, 72)),         # loop), rows padded as at every b
 ]] + [  # one SM: every grid covers it, so F alone sets the width
     (128, 1, F, 1, (bn, -(-F // 8) * 8))
     for F, bn in ((1, 64), (64, 64), (65, 128), (128, 128), (129, 128), (4096, 128))
 ])
 def test_bf16_tile_geometry(b, n_rows, F, n_sms, want):
-    """The F tile width of the tensor-core loop is 128 where F needs more
+    """The F tile width of the tensor-core ring is 128 where F needs more
     than 64 columns and the grid still covers the card's SMs (the H100's
-    132), else 64; the operand pads to a multiple of 8
-    columns only when F is ragged; b < 64 runs 64-column FFMA tiles on
-    the operand as it is."""
+    132), else 64; the operand pads to a multiple of 8 columns only when F
+    is ragged, at every b; b < 64 gives 64-column tiles (the bf16 entries
+    there take bf16_small_geometry's width)."""
     bn, ld = T.bf16_tile_geometry(b, n_rows, F, n_sms)
     assert (bn, ld) == want
-    assert ld % 8 == 0 or b < 64
-    assert (ld == F) == (F % 8 == 0 or b < 64)
+    assert ld % 8 == 0
+    assert (ld == F) == (F % 8 == 0)
 
 
 @pytest.mark.parametrize("nb,F,want_bn", [
@@ -982,6 +982,90 @@ def test_f32_launch_args_small_blocks(b, F, monkeypatch):
         assert T._f32_launch_args(blocks, x, 2, 1)[2] is x
     with pytest.raises(ValueError, match="depth"):
         T._f32_launch_args(blocks, x, 2)
+
+
+# -- the small-block tensor-core loop (bf16 and K3 at b = 16, 32) ----------
+
+@pytest.mark.parametrize("b,F,n_sms,n_slots,depth,want", [
+    (32, 128, 132, 814720, 5148, (64, 128)),   # gorder's hub at b = 32
+    (16, 128, 132, 954112, 8620, (32, 128)),   # gorder's hub at b = 16
+    (32, 128, 132, 814720, 3000, (128, 128)),  # a shallower hub
+    (32, 128, 132, 814720, 8000, (32, 128)),   # a deeper one
+    (32, 128, 132, 700880, 5152, (64, 128)),   # the flat plan (K1, gorder)
+    (32, 128, 132, 840960, 1184, (128, 128)),  # rcmk: no hub
+    (32, 256, 132, 18000, 134, (128, 256)),    # dense rows, few lanes
+    (32, 128, 1, 200, 100, (128, 128)),        # one SM: exactly the share
+    (32, 128, 1, 199, 100, (64, 128)),         # just past it
+    (16, 8, 1, 1000, 1, (32, 8)),              # never wider than F needs
+    (32, 70, 1, 1000, 1, (128, 72)),           # ragged F pads to 8
+    (16, 133, 1, 1000, 1, (128, 136)),
+    (32, 33, 1, 1000, 1, (64, 40)),
+    (16, 128, 132, 0, 0, (128, 128)),          # no slots: nothing is deep
+])
+def test_bf16_small_geometry(b, F, n_sms, n_slots, depth, want):
+    """The bf16 and K3 entries at b = 16 and 32 take the widest of 128, 64
+    and 32 columns that F needs and at which the deepest lane's CTA (depth
+    * bn slot-columns) stays within n_slots * F / (n_sms *
+    BF16_SMALL_HUB_SHARE); else 32. The operand's rows pad to a multiple
+    of 8 bf16 (16-byte copies)."""
+    assert T.BF16_SMALL_HUB_SHARE == 2
+    bn, ld = T.bf16_small_geometry(b, F, n_sms, n_slots, depth)
+    assert (bn, ld) == want
+    assert ld % 8 == 0 and 0 <= ld - F < 8
+
+
+@pytest.mark.parametrize("F", [128, 70, 8, 133])
+@pytest.mark.parametrize("b", [16, 32])
+def test_bf16_launch_args_small_blocks(b, F, monkeypatch):
+    """_bf16_launch_args at b = 16 and 32: (n_slots, n_dense_rows, F, ld)
+    and bf16_small_geometry's bn for the blocks' slot count and the plan's
+    depth; ld a multiple of 8; the operand padded with zero columns only
+    where F is ragged, else passed as it is (an aligned one) or copied to
+    a 16-byte-aligned buffer (a view at an odd offset); without a depth it
+    raises (no geometry to fall back to)."""
+    monkeypatch.setattr(T, "_sm_count", lambda index: 132)
+    blocks = torch.zeros(600, b, b, dtype=torch.bfloat16)
+    x = (torch.arange(4 * b * F).reshape(4 * b, F) % 251 - 125).to(torch.bfloat16)
+    view = torch.empty(x.numel() + 1, dtype=torch.bfloat16)[1:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    for depth in (1, 500):
+        sizes, bn, dense = T._bf16_launch_args(blocks, view, 2, depth)
+        assert (bn, sizes[3]) == T.bf16_small_geometry(b, F, 132, 600, depth)
+        assert sizes[:3] == (600, 4 * b, F) and sizes[3] % 8 == 0
+        assert dense.shape == (4 * b, sizes[3]) and dense.data_ptr() % 16 == 0
+        assert torch.equal(dense[:, :F], view) and not dense[:, F:].any()
+    padded = T._bf16_launch_args(blocks, x, 2, 1)[2]
+    assert (padded is x) == (F % 8 == 0)
+    with pytest.raises(ValueError, match="depth"):
+        T._bf16_launch_args(blocks, x, 2)
+
+
+@pytest.mark.parametrize("F", [128, 70, 8])
+@pytest.mark.parametrize("b", [16, 32, 64])
+def test_k3_launch_args(b, F, monkeypatch):
+    """_k3_launch_args: one split of the f32 operand into (2N, ld) bf16
+    planes, ld = F rounded up to a multiple of 8; bn from
+    bf16_small_geometry at b = 16 and 32 (for the plan's depth) and from
+    bf16_tile_geometry at 64; at b = 16 and 32 without a depth it raises
+    before the split."""
+    monkeypatch.setattr(T, "_sm_count", lambda index: 132)
+    x = torch.as_tensor(np.random.default_rng(F).standard_normal(
+        (4 * b, F)).astype(np.float32))
+    splits = []
+    monkeypatch.setattr(T, "split_operand",
+                        lambda d: splits.append(d) or T.split_operand_plain(d))
+    sizes, bn, xp = T._k3_launch_args(b, 600, x, 40, 500)
+    ld = -(-F // 8) * 8
+    assert sizes == (600, 4 * b, F, ld) and len(splits) == 1
+    assert torch.equal(xp, T.split_operand_plain(x))
+    want = (T.bf16_small_geometry(b, F, 132, 600, 500) if b < 64
+            else T.bf16_tile_geometry(b, 40, F, 132))
+    assert (bn, ld) == want
+    if b < 64:
+        with pytest.raises(ValueError, match="depth"):
+            T._k3_launch_args(b, 600, x, 40)
+        assert len(splits) == 1
 
 
 def test_lane_order_is_deepest_first_and_stable():

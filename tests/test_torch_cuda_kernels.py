@@ -2,8 +2,10 @@
 groups), K4 (consecutive row groups) and K5 (single-row resident), each
 in f32 (on the pipelined FFMA loop at every b; at b = 16 and 32 its
 small instances, with a hub lane thousands of slots deep among shallow
-ones) and, on the tensor cores, in bf16, K3 (the bf16x3 product, on K1's, K2's and K5's
-layouts, on the tensor cores at b = 64 and 128) and its operand split,
+ones) and, on the tensor cores (the wgmma ring at b = 64 and 128, the
+small-block mma.sync loop at b = 16 and 32, with its hub lanes too), in
+bf16, K3 (the bf16x3 product, on K1's, K2's and K5's layouts, on the same
+two tensor-core loops) and its operand split,
 the int8 kernels K6 (flat), K7
 (depth-sorted, group-scale and per-slot scales), K8 (consecutive row
 groups) and K9 (single-row resident), all four on the int8 tensor cores
@@ -231,8 +233,9 @@ def _widest_tiles(monkeypatch, wide):
 @pytest.mark.parametrize("b", [16, 32, 64, 128])
 def test_bf16_kernels_bit_exact(b, layout, F, wide, monkeypatch):
     """On bf16_exact_case every partial sum is an integer under 2^24, so
-    the bf16 entries (the tensor-core loop at b = 64 and 128, the FFMA
-    loop below) must equal float64 and their plain versions bit for bit:
+    the bf16 entries (the tensor-core ring at b = 64 and 128, the
+    small-block mma.sync loop below) must equal float64 and their plain
+    versions bit for bit:
     a misplaced fragment, swizzle or transposed operand would show.
     F=70 pads the operand to 72 columns; 7 block-rows leave absent (K2)
     and phantom (K4) lanes and an empty row (a zero block in K1/K5)."""
@@ -248,12 +251,13 @@ def test_bf16_kernels_bit_exact(b, layout, F, wide, monkeypatch):
 @pytest.mark.parametrize("nb", [7, 37])
 @pytest.mark.parametrize("F", [8, 70, 133, 256, 512])
 @pytest.mark.parametrize("layout", list(BF16_KERNELS))
-@pytest.mark.parametrize("b", [64, 128])
+@pytest.mark.parametrize("b", [16, 32, 64, 128])
 def test_bf16_kernels_match_plain(b, layout, F, nb, wide, monkeypatch):
-    """The tensor-core loop on random data within 1e-5 of its plain
-    version: ragged F (8 fits one 64-column box; 70 and 133 pad), 7
+    """The tensor-core loops (the ring at b = 64 and 128, the small-block
+    mma.sync loop at 16 and 32) on random data within 1e-5 of their plain
+    versions: ragged F (8 fits one 64-column box; 70 and 133 pad), 7
     block-rows (absent and phantom lanes), 37 (two empty rows), tiles of
-    64 columns and of the widest the F needs."""
+    the width the card's geometry picks and of the widest the F needs."""
     _widest_tiles(monkeypatch, wide)
     bsr = _bsr(nb, b, 0.3, seed=b + nb)
     got, want = _check_bf16(_bf16_plan(bsr, layout), _x(bsr, F=F, seed=F), layout)
@@ -262,46 +266,56 @@ def test_bf16_kernels_match_plain(b, layout, F, nb, wide, monkeypatch):
 
 
 @pytest.mark.parametrize("layout", list(BF16_KERNELS))
-def test_bf16_entries_refuse_bad_geometry(layout):
-    """A launch the entry refuses (an F tile width it has no kernel for,
-    an operand row length that is not a multiple of 8) returns its
-    cudaError_t and the wrapper raises; no launch is counted."""
-    bsr, x, _ = bf16_exact_case(64, 70)
+@pytest.mark.parametrize("b", [16, 32, 64])
+def test_bf16_entries_refuse_bad_geometry(b, layout):
+    """A launch the entry refuses returns its cudaError_t and the wrapper
+    raises; no launch is counted: an F tile width it has no kernel for
+    (96 and 256 at every b, 32 on the ring at b = 64), an operand row
+    length that is not a multiple of 8 or is shorter than F, and at b =
+    16 and 32 (the small-block loop) a null lane order or an operand that
+    does not start on 16 bytes."""
+    bsr, _, _ = bf16_exact_case(b, 70)
     plan = _bf16_plan(bsr, layout)
     blocks = plan.arrays[2]
-    dense = torch.as_tensor(x, device="cuda").to(torch.bfloat16)
+    dense = torch.zeros(bsr.shape[1], 72, device="cuda", dtype=torch.bfloat16)
     out = torch.empty(bsr.shape[0], 70, device="cuda")
     counts = [k.launches for k in _kernels.KERNELS]
     stream = torch.cuda.current_stream().cuda_stream
     kernel = getattr(_kernels, BF16_KERNELS[layout])
+    order = plan.arrays[-1]
     if layout == "sorted":
         win_ids, slot_cols, _, pos, lane_valid, group_ptr, _ = plan.arrays
         R, gh, W = plan.statics[-1]
         head = (group_ptr, win_ids, pos, lane_valid, slot_cols)
-        lanes, tail = (lane_valid.shape[0],), (R, gh, W, 64)
+        lanes, tail = (lane_valid.shape[0],), (R, gh, W, b)
     elif layout == "rowgroup":
         _, slot_cols, _, group_ptr, _ = plan.arrays
         R, gh = plan.statics[-1]
         head = (group_ptr, slot_cols)
-        lanes, tail = ((group_ptr.shape[0] - 1) * R, plan.statics[1]), (R, gh, 64)
+        lanes, tail = ((group_ptr.shape[0] - 1) * R, plan.statics[1]), (R, gh, b)
     else:  # flat and resident: the step pointer, one lane per block-row
         _, slot_cols, _, step_ptr, _ = plan.arrays
         head = (step_ptr, slot_cols)
-        lanes, tail = (plan.statics[1],), (plan.statics[-1], 64)
-    ptrs = [t.data_ptr() for t in (*head, blocks, dense, out)]
-    for ld, bn in ((70, 64), (72, 96), (72, 256)):
+        lanes, tail = (plan.statics[1],), (plan.statics[-1], b)
+    head = [t.data_ptr() for t in head]
+    d, lo = dense.data_ptr(), order.data_ptr()
+    # (operand, ld, bn, lane order)
+    bad = [(d, 72, 96, lo), (d, 72, 256, lo), (d, 70, 64, lo), (d, 64, 64, lo)]
+    bad += [(d, 72, 32, lo)] if b == 64 else [(d, 72, 64, 0), (d + 2, 72, 64, lo)]
+    for ptr, ld, bn, lo_ptr in bad:
         with pytest.raises(RuntimeError, match="cudaError_t"):
-            kernel(*ptrs, *lanes, blocks.shape[0], dense.shape[0], 70, ld, *tail,
-                   bn, stream)
+            kernel(*head, lo_ptr, blocks.data_ptr(), ptr, out.data_ptr(), *lanes,
+                   blocks.shape[0], dense.shape[0], 70, ld, *tail, bn, stream)
     assert [k.launches for k in _kernels.KERNELS] == counts
 
 
 @pytest.mark.parametrize("layout", list(BF16_KERNELS))
-@pytest.mark.parametrize("b", [16, 64, 128])
+@pytest.mark.parametrize("b", [16, 32, 64, 128])
 def test_bf16_operand_at_odd_offset(b, layout):
     """A contiguous bf16 operand that starts 2 bytes past a 16-byte
-    boundary (a view at an odd element offset): the tensor-core loop's
-    TMA map needs an aligned base, so the wrapper copies it; every bf16
+    boundary (a view at an odd element offset): the ring's TMA map and
+    the small-block loop's 16-byte copies need an aligned base, so the
+    wrapper copies it; every bf16
     entry gives float64's answer and its plain version's, bit for bit."""
     bsr, x, want = bf16_exact_case(b, 256, seed=b + 1)
     base = torch.empty(x.size + 1, dtype=torch.bfloat16, device="cuda")
@@ -817,7 +831,7 @@ def _run_counted(plan, x, name, k3):
 
 
 @pytest.mark.parametrize("wide", [False, True])
-@pytest.mark.parametrize("b", [16, 64, 128])
+@pytest.mark.parametrize("b", [16, 32, 64, 128])
 @pytest.mark.parametrize("layout", list(K3_LAYOUT_KERNELS))
 def test_k3_kernel_is_bf16x3_not_exact_f32(layout, b, wide, monkeypatch):
     """bf16x3_exact_case makes every partial sum exact in f32, so the
@@ -826,10 +840,11 @@ def test_k3_kernel_is_bf16x3_not_exact_f32(layout, b, wide, monkeypatch):
     the exact kernel on the same layout (K2, K1, K5) A X bit for bit. A
     K3 that kept lo*lo, lost a split or truncated instead of rounding to
     even would miss the first; the two answers differ in most entries.
-    f32 K4 (row groups, no K3 instance) must give A X too. b = 64 and 128
-    run K3 on the tensor-core ring and the exact f32 kernels on the
-    pipelined FFMA loop, at both tile widths (F=200 is ragged); each K3
-    call splits the operand once."""
+    f32 K4 (row groups, no K3 instance) must give A X too. K3 runs on the
+    tensor-core ring at b = 64 and 128 and on the small-block mma.sync
+    loop at 16 and 32, the exact f32 kernels on the pipelined FFMA loop,
+    at the card's tile widths and at the widest (F=200 is ragged); each
+    K3 call splits the operand once."""
     _widest_tiles(monkeypatch, wide)
     bsr, x, want3, want_exact = bf16x3_exact_case(F=200, seed=b, b=b)
     x = torch.as_tensor(x, device="cuda")
@@ -1043,6 +1058,75 @@ def test_f32_small_hub_lane(b, layout):
             np.testing.assert_array_equal(got.double().cpu().numpy(), ref)
         else:
             got = _check(plan, x, getattr(_kernels, name))
+            assert np.abs(got.cpu().numpy() - ref).max() / np.abs(ref).max() < 1e-4
+
+
+# the plans of the small-block tensor-core loop (b = 16 and 32): the bf16
+# entries on each layout and K3 on each of its layouts, (plan kwargs,
+# kernel)
+MMA_CASES = {
+    **{f"bf16 {layout}": ({"dtype": torch.bfloat16, **kw}, BF16_KERNELS[layout])
+       for layout, kw in BF16_LAYOUT_KW.items()},
+    **{f"k3 {layout}": ({"precision": "high", **kw}, k3)
+       for layout, (kw, k3, _) in K3_LAYOUT_KERNELS.items() if k3},
+}
+
+
+def _mma_plan(bsr, case) -> Plan:
+    kw, _ = MMA_CASES[case]
+    plan = T.bsr_spmm_pallas_plan(bsr, grad=False, device="cuda", **kw)
+    assert plan.statics[0] == case.split()[1]
+    return plan
+
+
+def _force_bf16_small_bn(monkeypatch, bn):
+    """The bf16 and K3 entries at b = 16 and 32 launch at bn columns."""
+    monkeypatch.setattr(T, "bf16_small_geometry",
+                        lambda b, F, n_sms, n_slots, depth: (bn, -(-F // 8) * 8))
+
+
+@pytest.mark.parametrize("case", list(MMA_CASES))
+@pytest.mark.parametrize("bn", [32, 64, 128])
+@pytest.mark.parametrize("F", [8, 70, 200])
+@pytest.mark.parametrize("b", [16, 32])
+def test_mma_small_instances_match_plain(b, F, bn, case, monkeypatch):
+    """Each instance of the small-block tensor-core loop (b = 16 and 32,
+    tiles of 32, 64 and 128 columns, one plane or K3's two) on every walk,
+    against its plain version within 1e-5, on 37 block-rows (absent and
+    phantom lanes) and ragged F; and its answer equal bit for bit to the
+    same kernel at 32 columns: each output's sums run in the same order at
+    every tile width."""
+    bsr = _sorting_bsr(37, b, seed=b + F)
+    plan = _mma_plan(bsr, case)
+    x = _x(bsr, F=F, seed=F)
+    kernel = getattr(_kernels, MMA_CASES[case][1])
+    _force_bf16_small_bn(monkeypatch, bn)
+    got = _check(plan, x, kernel)
+    _force_bf16_small_bn(monkeypatch, 32)
+    assert torch.equal(got, plan(x))
+
+
+@pytest.mark.parametrize("case", ["bf16 sorted", "k3 sorted", "bf16 flat"])
+@pytest.mark.parametrize("b", [16, 32])
+def test_mma_small_hub_lane(b, case):
+    """One hub lane 4,096 blocks deep among lanes of a few blocks, on the
+    small-block tensor-core loop (bf16 K2 and K1, K3 on K2's layout),
+    started first by the plan's lane order: on integer data the answer
+    equals float64 bit for bit; on standard-normal data the two-level sums
+    keep the hub's chain of 4,096 slots within 1e-5 of the plain version
+    (and K3 within 1e-4 of float64)."""
+    hub = 4096
+    name = MMA_CASES[case][1]
+    for exact in (True, False):
+        bsr, x_np = _hub_bsr(b, hub, exact, seed=b)
+        plan = _mma_plan(bsr, case)
+        assert plan.statics[6] >= hub
+        x = torch.as_tensor(x_np, device="cuda")
+        ref = bsr.to_scipy().astype(np.float64) @ x_np.astype(np.float64)
+        got = _check(plan, x, getattr(_kernels, name))
+        if exact:
+            np.testing.assert_array_equal(got.double().cpu().numpy(), ref)
+        elif case.startswith("k3"):
             assert np.abs(got.cpu().numpy() - ref).max() / np.abs(ref).max() < 1e-4
 
 
