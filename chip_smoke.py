@@ -37,10 +37,11 @@ Phases:
               entries at b = 16, 32, 64 and 128 and F = 70 and 256 on an
               input whose sums are exact in f32 (bf16_exact_case): each
               must equal float64 bit for bit; then K7 (both scale modes),
-              K8, K6 and K9 at b = 64 and 128 (the int8 tensor-core ring)
-              and F = 70 and 256 on 37 block-rows of int8_exact_case,
-              where nothing rounds before the column scale: each must
-              equal float64 bit for bit
+              K8, K6 and K9 at b = 16 and 32 (the small-block int8
+              tensor-core loop) and 64 and 128 (the int8 tensor-core
+              ring) and F = 70 and 256 on 37 block-rows of
+              int8_exact_case, where nothing rounds before the column
+              scale: each must equal float64 bit for bit
   4. slice    GCN [256, 256, 256] on load_dataset("ogbl-ddi") (rcmk,
               sym_norm_adjacency, spmm_plan(impl="bsr_pallas", b=128)),
               4 seeded requests in f32 (K2), each checked against a float64
@@ -112,19 +113,23 @@ Phases:
               spmm_plan(impl="bsr_pallas") on the ordering with the fewest
               32 x 32 blocks: f32 K2 at block_size=32 and 16 and K1
               (depth_sort=False) at 32, the pipelined FFMA loop's small
-              instances, and bf16 K2 and K3 (precision="high", sorted) at
-              32 and 16, the small-block tensor-core loop, each against
-              its plain version and within 1e-4 of spmm_scipy; after its
+              instances, bf16 K2 and K3 (precision="high", sorted) at
+              32 and 16, the small-block tensor-core loop, and int8 K7
+              (dtype=torch.int8) at 32 and 16, the small-block int8
+              tensor-core loop, each against its plain version and
+              within 1e-4 (int8: 6e-2 of max |ref|) of spmm_scipy; after its
               counts are read, the same plans on a standard-normal X,
               against their plain versions and (but for bf16) a float64
-              scipy product; then their CUDA-event times (K10 on each
-              ordering; each BSR plan with its slots, deepest lane and F
-              tile width, then freed; the CSR / BSR ratio at b = 32)
-              beside plain, bound and library; once, off the path, bf16
-              K1 (resident=False) and K4 (depth_sort=False), K3 on K1's
-              layout and int8 K7 (dp4a) at b = 32, each checked against
-              its plain version and timed the same way; its device memory
-              freed before phase 8
+              scipy product (int8 at 6e-2); then their CUDA-event times
+              (K10 on each ordering; each BSR plan with its slots,
+              deepest lane and F tile width, then freed; int8 on an
+              operand quantized beforehand, the whole call beside it; the
+              CSR / BSR ratio at b = 32) beside plain, bound and library;
+              once, off the path, bf16 K1 (resident=False) and K4
+              (depth_sort=False), K3 on K1's layout and int8 K6
+              (resident=False) at b = 32, each checked against its plain
+              version and timed the same way; its device memory freed
+              before phase 8
   8. timing   CUDA-event times of kernel, plain and library paths
               (library: one PyTorch call computing the same function,
               timed as a yardstick and never called by the port:
@@ -288,23 +293,27 @@ REORDER_F = 128
 # REORDER_B blocks: (label, block size, plan arguments, kernel), f32 K2 at
 # b = 32 first (the CSR / BSR ratio's), then f32 K2 at 16 and K1 at 32
 # (the pipelined FFMA loop's small instances), then bf16 K2 and K3
-# (sorted) at 32 and 16 (the small-block tensor-core loop)
+# (sorted) at 32 and 16 (the small-block tensor-core loop), then int8 K7
+# at 32 and 16 (the small-block int8 tensor-core loop)
 REORDER_BSR = (("K2", 32, {}, "bsr_spmm_sorted"),
                ("K2", 16, {}, "bsr_spmm_sorted"),
                ("K1", 32, {"depth_sort": False}, "bsr_spmm_flat"),
                ("bf16 K2", 32, {"dtype": torch.bfloat16}, "bsr_spmm_sorted_bf16"),
                ("K3 sorted", 32, {"precision": "high"}, "bsr_spmm_sorted_bf16x3"),
                ("bf16 K2", 16, {"dtype": torch.bfloat16}, "bsr_spmm_sorted_bf16"),
-               ("K3 sorted", 16, {"precision": "high"}, "bsr_spmm_sorted_bf16x3"))
+               ("K3 sorted", 16, {"precision": "high"}, "bsr_spmm_sorted_bf16x3"),
+               ("int8 K7", 32, {"dtype": torch.int8}, "bsr_spmm_int8_sorted"),
+               ("int8 K7", 16, {"dtype": torch.int8}, "bsr_spmm_int8_sorted"))
 # timed once after the phase (not on its path), at REORDER_B, each plan
-# freed after its row: the walks that run the small-block tensor-core loop
-# beside its targets, and int8 K7, still on its dp4a loop at b = 32
+# freed after its row: the walks that run the small-block tensor-core
+# loops beside their targets (int8 K6: resident=False; depth_sort=False
+# packs K8's row groups)
 REORDER_ONCE = (
     ("bf16 K1", {"dtype": torch.bfloat16, "resident": False}, "bsr_spmm_flat_bf16"),
     ("bf16 K4", {"dtype": torch.bfloat16, "depth_sort": False},
      "bsr_spmm_rowgroup_bf16"),
     ("K3 flat", {"precision": "high", "depth_sort": False}, "bsr_spmm_flat_bf16x3"),
-    ("int8 K7", {"dtype": torch.int8}, "bsr_spmm_int8_sorted"))
+    ("int8 K6", {"dtype": torch.int8, "resident": False}, "bsr_spmm_int8_flat"))
 _PALLAS = "spmm_denseblock_tpu/ops/bsr_spmm_pallas.py"
 _PALLAS_I8 = "spmm_denseblock_tpu/ops/bsr_spmm_pallas_int8.py"
 _CSRC = "spmm_denseblock_tpu_torch/csrc/"
@@ -627,22 +636,33 @@ INT8_RING_KW = {"sorted": {"depth_sort": True},
 
 
 def int8_exactness() -> None:
-    """K7 (both scale modes), K8, K6 and K9 on the int8 tensor-core ring
-    (b = 64 and 128) on int8_exact_case, where every partial sum is exact
-    in f32 and the one rounding is the column scale's: each must equal
+    """K7 (both scale modes), K8, K6 and K9 on the small-block int8
+    tensor-core loop (b = 16 and 32) and on the int8 tensor-core ring (b =
+    64 and 128) on int8_exact_case, where every partial sum is exact in
+    f32 and the one rounding is the column scale's: each must equal
     float64 bit for bit. 37 block-rows leave absent (K7) and phantom (K8)
     lanes and an empty row (K6, K9); F=70 is ragged."""
-    log("[kernels] int8 K6-K9 on the ring where nothing rounds before the "
-        "column scale (int8_exact_case): each must equal float64 bit for bit")
-    for b in (64, 128):
+    log("[kernels] int8 K6-K9 on the small-block loop and on the ring where "
+        "nothing rounds before the column scale (int8_exact_case): each must "
+        "equal float64 bit for bit")
+    for b in (16, 32, 64, 128):
         for F in (70, 256):
             bsr, x, want = int8_exact_case(b, F, seed=b + F, n_block_rows=37)
             x = torch.as_tensor(x, device=DEV)
             want = torch.as_tensor(want, device=DEV).float()
             for label, kw in INT8_RING_KW.items():
                 plan = bsr_spmm_pallas_int8_plan(bsr, device=DEV, **kw)
-                bn = int8_tile_bn(b, plan.statics[1], F, _sm_count(0))
-                exact_launch(plan, x, want, f"b={b} F={F} int8 {label} BN={bn}")
+                exact_launch(plan, x, want,
+                             f"b={b} F={F} int8 {label} BN={int8_bn(plan, F)}")
+
+
+def int8_bn(plan, F: int) -> int:
+    """The F tile width an int8 plan's kernel launches at on this card
+    (the small-block loop's at b = 16 and 32 with the plan's deepest
+    lane, the ring's at 64 and 128)."""
+    qblocks = plan.arrays[2]
+    return int8_tile_bn(qblocks.shape[1], plan.statics[1], F, _sm_count(0),
+                        qblocks.shape[0], plan.statics[6])
 
 
 def gcn_reference(adj, params, x) -> np.ndarray:
@@ -1119,8 +1139,9 @@ def reorder_phase(cache_dir: Path):
     with the fewest 32 x 32 blocks, REORDER_BSR's plans (bsr_pallas: f32
     K2 at b = 32 and 16, K1 at 32, on the pipelined FFMA loop's small
     instances; bf16 K2 and K3 sorted at 32 and 16, on the small-block
-    tensor-core loop), each against its plain version and spmm_scipy.
-    Returns what the timing needs.
+    tensor-core loop; int8 K7 at 32 and 16, on the small-block int8
+    tensor-core loop), each against its plain version and spmm_scipy
+    (int8 at INT8_TOL of max |ref|). Returns what the timing needs.
 
     X is the reference's check_result operand, seeded signs of 0.5: on a
     graph of ones every partial sum is then a multiple of 0.5 under 2^23,
@@ -1193,8 +1214,14 @@ def reorder_phase(cache_dir: Path):
             f"{bplan_s:.1f} s (host)")
         before = launches()[name]
         err = check_kernel(bplan, x, label)
-        log(f"  {label} vs spmm_scipy: "
-            f"{assert_allclose(bplan(x), want, msg=label):.3e} (< {CHECK_EPS})")
+        if plan_tag(bplan) == "int8":  # the int8 tier's gate: max |err| / max |ref|
+            rel = rel_err(bplan(x), torch.as_tensor(want, device=DEV))
+            log(f"  {label} vs spmm_scipy: rel {rel:.3e} (< {INT8_TOL})")
+            if not rel < INT8_TOL:
+                raise AssertionError(f"{label}: rel err {rel:.3e} vs spmm_scipy")
+        else:
+            log(f"  {label} vs spmm_scipy: "
+                f"{assert_allclose(bplan(x), want, msg=label):.3e} (< {CHECK_EPS})")
         bsr_runs.append({"kid": kid, "bsr": bsr, "plan": bplan, "plan_s": bplan_s,
                          "label": label, "err": err,
                          "launches": launches()[name] - before})
@@ -1222,20 +1249,21 @@ def reorder_normal_check(rp: dict) -> None:
     where an operand rounded below f32 (bf16, TF32) shows: each kernel
     against its plain version (KERNEL_TOL; the hub lanes' long sums
     included) and, but for the bf16 plans, against a float64 scipy
-    product (CHECK_EPS, relative to its max |ref|). Run after the phase's
-    counts are read: these launches do not count."""
+    product (CHECK_EPS, relative to its max |ref|; int8 at its tier's
+    INT8_TOL). Run after the phase's counts are read: these launches do
+    not count."""
     csr0 = next(iter(rp["runs"].values()))["csr"]
     x_np = seeded((csr0.n_cols, REORDER_F), SEED + 12)
     x = torch.as_tensor(x_np, device=DEV)
     x64 = x_np.astype(np.float64)
 
-    def against_f64(plan, rcsr, label: str) -> None:
+    def against_f64(plan, rcsr, label: str, eps: float = CHECK_EPS) -> None:
         got = plan(x).double().cpu().numpy()
         want = rcsr.to_scipy().astype(np.float64) @ x64
         err = np.abs(got - want).max() / max(np.abs(want).max(), 1.0)
-        log(f"  {label} vs float64 scipy: rel {err:.3e} (< {CHECK_EPS})")
-        if not err < CHECK_EPS:
-            raise AssertionError(f"{label}: rel err {err:.3e} vs float64 >= {CHECK_EPS}")
+        log(f"  {label} vs float64 scipy: rel {err:.3e} (< {eps})")
+        if not err < eps:
+            raise AssertionError(f"{label}: rel err {err:.3e} vs float64 >= {eps}")
 
     for name, run in rp["runs"].items():
         label = f"reorder {name} csr K10 F={REORDER_F} normal X"
@@ -1244,8 +1272,10 @@ def reorder_normal_check(rp: dict) -> None:
     for br in rp["bsr_runs"]:
         label = br["label"] + " normal X"
         check_kernel(br["plan"], x, label)
-        if plan_tag(br["plan"]) != "bf16":  # bf16 rounds the operand: plain only
-            against_f64(br["plan"], rp["runs"][rp["best"]]["csr"], label)
+        tag = plan_tag(br["plan"])
+        if tag != "bf16":  # bf16 rounds the operand: plain only
+            against_f64(br["plan"], rp["runs"][rp["best"]]["csr"], label,
+                        INT8_TOL if tag == "int8" else CHECK_EPS)
 
 
 def main_path(adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str):
@@ -1306,6 +1336,8 @@ def main_path(adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str):
         expect[name] = expect.get(name, 0) + 2
         if kw.get("precision") == "high":  # each K3 call splits its operand
             expect["split_bf16"] = expect.get("split_bf16", 0) + 2
+        if kw.get("dtype") is torch.int8:  # each int8 call quantizes its operand
+            expect["quantize_int8"] = expect.get("quantize_int8", 0) + 2
     read("reorder", expect)
     t0 = time.perf_counter()
     reorder_normal_check(rphase)
@@ -1374,7 +1406,8 @@ def reorder_timing(rp: dict, card_line: str) -> list:
     """The reorder phase's times: K10 on each ordering, then each of
     REORDER_BSR's plans on the ordering with the fewest blocks (f32 K2 at
     b = 32, whose time makes the CSR/BSR ratio, f32 K2 at 16, K1 at 32,
-    bf16 K2 and K3 sorted at 32 and 16), each beside its plain version,
+    bf16 K2 and K3 sorted at 32 and 16, int8 K7 at 32 and 16), each
+    beside its plain version,
     its bound and the PyTorch library call, its slots, its deepest lane's
     slots and its F tile width (bsr_row); then, once, REORDER_ONCE's plans
     at REORDER_B, each checked against its plain version first. Each BSR
@@ -1416,7 +1449,7 @@ def reorder_timing(rp: dict, card_line: str) -> list:
                 f"{csr_ms[best]:.4f} ms, K2 b={bsr.b} {k2_ms:.4f} ms) [{card_line}]")
         del plan
         torch.cuda.empty_cache()
-    # once, after the path: the walks beside the targets and int8 K7
+    # once, after the path: the walks beside the targets
     for label, kw, name in REORDER_ONCE:
         t0 = time.perf_counter()
         plan = spmm_plan(bsr32, impl="bsr_pallas", block_size=bsr32.b, grad=False,
@@ -1443,14 +1476,15 @@ def bsr_row(label: str, bsr: BSR, plan, x, plan_s: float, card_line: str,
     keeps the library call's sparse tensors from row to row. Returns the
     kernels line's timing keys."""
     F, tag, name = x.shape[1], plan_tag(plan), kernel_of(plan)[1]
-    if tag == "int8":  # the dp4a loop at b = 16 and 32: 64-column tiles
-        q, cs = quantize_operand(plan, x)
-        kernel = lambda: run_quantized(plan, q, cs)  # noqa: E731
-        plain = lambda: run_quantized(plan, q, cs, plain=True)  # noqa: E731
+    if tag == "int8":  # the kernel alone on an operand quantized beforehand
+        qt, cs = quantize_operand(plan, x, transposed=True)
+        kernel = lambda: run_quantized(plan, None, cs, qdense_t=qt)  # noqa: E731
+        plain = lambda: run_quantized(plan, None, cs, plain=True,  # noqa: E731
+                                      qdense_t=qt)
         lib = None
-        bn = int8_tile_bn(bsr.b, bsr.n_block_rows, F, _sm_count(0))
-        extra = (f", whole call with dynamic quantization "
-                 f"{cuda_ms(lambda: plan(x), iters=5):.4f} ms")
+        bn = int8_bn(plan, F)
+        extra = (f", deepest lane {plan.statics[6]} slots, whole call with "
+                 f"dynamic quantization {cuda_ms(lambda: plan(x), iters=5):.4f} ms")
     else:
         pad = torch.nn.functional.pad
         xk = x.to(torch.bfloat16) if tag == "bf16" else x

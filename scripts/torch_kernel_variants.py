@@ -5,6 +5,7 @@ F=512), on one NVIDIA GPU:
     python3 scripts/torch_kernel_variants.py f32_k2   # exact-f32 K2, K1, K4
     python3 scripts/torch_kernel_variants.py f32_small  # the same at b = 16, 32
     python3 scripts/torch_kernel_variants.py bf16_small  # bf16 K2, K3 at b = 16, 32
+    python3 scripts/torch_kernel_variants.py int8_small  # int8 K7, K6 at b = 16, 32
     python3 scripts/torch_kernel_variants.py k3       # K3 (precision="high")
     python3 scripts/torch_kernel_variants.py int8     # int8 K7, K8 and the
                                                       # operand's quantization
@@ -30,7 +31,13 @@ and how the block chunk is staged. bf16_small does the same for the
 small-block tensor-core loop: bf16 K2 (on the bf16 operand) and K3 sorted
 (the whole call, its operand split included) at b = 32 and 16 on arxiv
 under gorder and bf16 K2 at b = 32 under rcmk; its source variants change
-the stages in flight and the operand rows' path (L1, or L2 only). For K3 each
+the stages in flight and the operand rows' path (L1, or L2 only).
+int8_small does the same for the small-block int8 tensor-core loop
+(csrc/bsr_spmm_int8.cu): int8 K7 (group scale) at b = 32 and 16 and K6
+(resident=False) at b = 32 under gorder, K7 at b = 32 under rcmk, each the
+kernel alone on an operand quantized and transposed once; its source
+variants change the stages in flight, the operand rows' path and where
+a slot's column is read from. For K3 each
 run times the whole call
 (the operand split included) and the ring alone on an operand split once,
 and bf16 K2 on the same build. For int8 each run times K7
@@ -68,10 +75,9 @@ PIPE_OROW = """  // The output block-row, read after the loop so that it holds n
       win_ids != nullptr ? (int64_t)win_ids[j0] * window + pos[j0 * R + lane]
                          : lane_id;
 """
-PIPE_STAGES = "static constexpr int kStages = BN == 128 ? 3 : 4;"
+PIPE_STAGES = "static constexpr int kStages = kSmall ? 4 : BN == 128 ? 3 : 4;"
 PIPE_J0 = "  const int64_t j0 = group_ptr[g];\n  const int n_chunks"
 I8_STAGES = "static constexpr int kMaxStages = 6;"
-PIPE_SMALL_STAGES = "static constexpr int kStages = kSmall ? 4 : BN == 128 ? 3 : 4;"
 # the small instances' block chunk staged untransposed: rows of the
 # block's 16-deep chunk in 16-byte copies (rows of 20 floats), read a
 # float4 of 4 depths a row at a time, in the same depth order
@@ -120,13 +126,17 @@ A_READ_ROWS = """    for (int kk = 0; kk < kPipeK; ++kk) {
              : kk % 4 == 2 ? av[i].z : av[i].w;
 """
 # which of _kernels.SOURCES each group of variants edits
-SOURCE = {"f32_k2": 0, "f32_small": 0, "bf16_small": 0, "k3": 0, "int8": 1}
+SOURCE = {"f32_k2": 0, "f32_small": 0, "bf16_small": 0, "k3": 0, "int8": 1,
+          "int8_small": 1}
+I8_SMALL_STAGES = "kFitStages < 3 ? 3 : kFitStages > 16 ? 16 : kFitStages;"
+I8_SMALL_X_COPY = "cp_async16_ca(sa + G::kABytes + r * G::kRow + c,"
+I8_SMALL_COL = "load_next(*reinterpret_cast<const int32_t*>(header + 4));"
 MMA_STAGES = "static constexpr int kStages = kFit < 3 ? 3 : kFit > 8 ? 8 : kFit;"
 MMA_X_COPY = "cp_async16_ca(st + P * G::kABytes + p * G::kXBytes + r * G::kXRow + c * 2,"
 VARIANTS = {
     "f32_k2": {
-        "1 CTA an SM": {"__launch_bounds__(kThreads, 2)\n    ffma_pipe_kernel":
-                        "__launch_bounds__(kThreads, 1)\n    ffma_pipe_kernel"},
+        "1 CTA an SM": {"static constexpr int kMinBlocks = 512 / kThreads;":
+                        "static constexpr int kMinBlocks = kSmall ? 512 / kThreads : 1;"},
         "depth loop unrolled by 4": {PIPE_LOOP: PIPE_LOOP.replace("unroll", "unroll 4")},
         "4 stages at every BN": {PIPE_STAGES: PIPE_STAGES.replace("? 3 : 4", "? 4 : 4")},
         "3 stages at every BN": {PIPE_STAGES: PIPE_STAGES.replace("? 3 : 4", "? 3 : 3")},
@@ -135,8 +145,8 @@ VARIANTS = {
             PIPE_J0: PIPE_J0.replace("\n", "\n" + PIPE_OROW.split("\n", 3)[3])},
     },
     "f32_small": {
-        "3 stages": {PIPE_SMALL_STAGES: PIPE_SMALL_STAGES.replace("? 4 :", "? 3 :")},
-        "6 stages": {PIPE_SMALL_STAGES: PIPE_SMALL_STAGES.replace("? 4 :", "? 6 :")},
+        "3 stages": {PIPE_STAGES: PIPE_STAGES.replace("? 4 :", "? 3 :")},
+        "6 stages": {PIPE_STAGES: PIPE_STAGES.replace("? 4 :", "? 6 :")},
         # half the outputs a thread at b = 16 (1 x 4 at BN = 32)
         "128 threads at b = 16": {"kThreads = kSmall ? 4 * BM : 256;":
                                   "kThreads = kSmall ? 128 : 256;"},
@@ -155,6 +165,17 @@ VARIANTS = {
             MMA_STAGES: MMA_STAGES.replace("kFit > 8 ? 8", "kFit > 12 ? 12")},
         "operand rows through L2 only (.cg)": {
             MMA_X_COPY: MMA_X_COPY.replace("cp_async16_ca(", "cp_async16(")},
+    },
+    "int8_small": {
+        "at most 8 stages": {
+            I8_SMALL_STAGES: I8_SMALL_STAGES.replace("> 16 ? 16", "> 8 ? 8")},
+        "96 KiB of stages, up to 32": {
+            "kFitStages = 49152 / kStageBytes;": "kFitStages = 98304 / kStageBytes;",
+            I8_SMALL_STAGES: I8_SMALL_STAGES.replace("> 16 ? 16", "> 32 ? 32")},
+        "operand rows through L2 only (.cg)": {
+            I8_SMALL_X_COPY: I8_SMALL_X_COPY.replace("cp_async16_ca(", "cp_async16(")},
+        "column read from global when its copies issue": {
+            I8_SMALL_COL: "load_next(__ldg(slot_cols + lw.slot));"},
     },
     "k3": {
         "ring of 2 stages": {
@@ -298,41 +319,61 @@ SMALL_RUNS = {
                    ("gorder", "bf16 K2", 16, {"dtype": torch.bfloat16}),
                    ("gorder", "K3", 16, {"precision": "high"}),
                    ("rcmk", "bf16 K2", 32, {"dtype": torch.bfloat16})),
+    "int8_small": (("gorder", "int8 K7", 32, {"dtype": torch.int8}),
+                   ("gorder", "int8 K7", 16, {"dtype": torch.int8}),
+                   ("gorder", "int8 K6", 32, {"dtype": torch.int8, "resident": False}),
+                   ("rcmk", "int8 K7", 32, {"dtype": torch.int8})),
 }
-# the geometry each sweep's entries take their F tile width from
-SMALL_GEOMETRY = {"f32_small": "f32_small_geometry", "bf16_small": "bf16_small_geometry"}
+# the module and geometry each sweep's entries take their F tile width
+# from: (bn, ld) for f32 and bf16, bn alone for int8
+SMALL_GEOMETRY = {"f32_small": (T, "f32_small_geometry"),
+                  "bf16_small": (T, "bf16_small_geometry"),
+                  "int8_small": (TI, "int8_small_geometry")}
+
+
+def _bn_of(geometry_result) -> int:
+    return geometry_result if isinstance(geometry_result, int) else geometry_result[0]
 
 
 def time_small(which: str, sources, card: str) -> int:
     """The small-block instances (the pipelined loop's for f32_small, the
-    tensor-core loop's for bf16_small) on chip_smoke's reorder dataset,
-    the arxiv stand-in (F = 128), SMALL_RUNS's plans, each variant in the
-    order A B .. B A; per plan the geometry's BN, BN = 32, 64 and 128
-    forced, and the geometry's BN in packed lane order."""
+    tensor-core loop's for bf16_small, the int8 one's for int8_small, on
+    an operand quantized and transposed once) on chip_smoke's reorder
+    dataset, the arxiv stand-in (F = 128), SMALL_RUNS's plans, each
+    variant in the order A B .. B A; per plan the geometry's BN, BN = 32,
+    64 and 128 forced, and the geometry's BN in packed lane order."""
     import chip_smoke as cs
 
     src = cs.load_dataset(cs.REORDER_DATASET, cache_dir=str(ROOT / "build" / "datasets"),
                           scale=cs.REORDER_SCALE, seed=cs.SEED)
     x = torch.as_tensor(cs.seeded((src.n_cols, cs.REORDER_F), cs.SEED + 12),
                         device="cuda")
-    attr = SMALL_GEOMETRY[which]
-    geometry = getattr(T, attr)
-    plans, operands, orders = {}, {}, {}
+    module, attr = SMALL_GEOMETRY[which]
+    geometry = getattr(module, attr)
+    plans, runs, orders = {}, {}, {}
     for name, kid, b, kw in SMALL_RUNS[which]:
         if name not in orders:
             orders[name] = cs.permutate(cs.STRATEGIES[name](src), src)
         plan = cs.spmm_plan(cs.csr_to_bsr(orders[name], b), impl="bsr_pallas",
                             block_size=b, grad=False, device="cuda", **kw)
+        int8 = kw.get("dtype") is torch.int8
+        # the lane order: the last array, or before an int8 plan's
+        # static scales (none here)
         order, depth, n_slots = plan.arrays[-1], plan.statics[6], cs.plan_slots(plan)
         key = f"{name} {kid} b={b}"
         plans[key] = plan
-        operands[key] = x.to(torch.bfloat16) if "dtype" in kw else x
+        if int8:
+            qt, c = TI.quantize_operand(plan, x, transposed=True)
+            runs[key] = functools.partial(TI.run_quantized, plan, None, c, qdense_t=qt)
+        else:
+            runs[key] = functools.partial(plan, x.to(torch.bfloat16) if "dtype" in kw
+                                          else x)
         # where packed order would start the deepest lane
         print(f"[{which}] {key}: {n_slots} slots, deepest lane {depth} slots, at "
               f"{order[0].item()} of {order.numel()} lanes in packed order, BN="
-              f"{geometry(b, cs.REORDER_F, T._sm_count(0), n_slots, depth)[0]}",
+              f"{_bn_of(geometry(b, cs.REORDER_F, T._sm_count(0), n_slots, depth))}",
               flush=True)
-    refs = {k: p(operands[k]) for k, p in plans.items()}
+    refs = {k: run() for k, run in runs.items()}
 
     def packed_order(plan):  # the lanes in packed order
         last = f"a{len(plan.arrays) - 1}"
@@ -345,21 +386,23 @@ def time_small(which: str, sources, card: str) -> int:
     for name in names + names[::-1]:
         use(sources[name])
         for k, p in plans.items():
-            xk = operands[k]
+            run = runs[k]
             # the geometry's BN in lane order, then in packed order, next to
             # each other, so that drift over the sweep stays out of the pair
             line = (f"[{which}] {name:<40} {k:<16}: BN=auto "
-                    f"{cuda_ms(lambda: p(xk)):.3f} ms ({torch.equal(p(xk), refs[k])})")
+                    f"{cuda_ms(run):.3f} ms ({torch.equal(run(), refs[k])})")
             restore = packed_order(p)
-            line += (f", packed order {cuda_ms(lambda: p(xk)):.3f} ms"
-                     f" ({torch.equal(p(xk), refs[k])});")
+            line += (f", packed order {cuda_ms(run):.3f} ms"
+                     f" ({torch.equal(run(), refs[k])});")
             restore()
             for bn in (32, 64, 128):
-                setattr(T, attr, lambda b, F, n_sms, n_slots, depth: (
-                    bn, geometry(b, F, n_sms, n_slots, depth)[1]))
-                line += (f" BN={bn} {cuda_ms(lambda: p(xk)):.3f} ms"
-                         f" ({torch.equal(p(xk), refs[k])})")
-                setattr(T, attr, geometry)
+                def forced(b, F, n_sms, n_slots, depth, bn=bn):
+                    got = geometry(b, F, n_sms, n_slots, depth)
+                    return bn if isinstance(got, int) else (bn, got[1])
+                setattr(module, attr, forced)
+                line += (f" BN={bn} {cuda_ms(run):.3f} ms"
+                         f" ({torch.equal(run(), refs[k])})")
+                setattr(module, attr, geometry)
             print(f"{line} [{card}]", flush=True)
     return 0
 

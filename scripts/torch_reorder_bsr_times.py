@@ -9,9 +9,12 @@ seeded standard-normal values: f32 K2 at b = 32 and 16, f32 K1
 (depth_sort=False) at b = 32, bf16 K2 and K3 (precision="high", sorted) at
 b = 32 and 16, and at b = 32 bf16 K1 (resident=False), bf16 K4
 (depth_sort=False) and K3 on K1's layout (precision="high",
-depth_sort=False). One line per plan: the kernel's ms (CUDA events, 10
-calls after 2 warm-ups; K3 with its operand split), its slots, and the
-sha256 of its answer's bytes. Each plan is
+depth_sort=False), then int8 K7 (dtype=torch.int8) and K6
+(resident=False) at b = 32 and 16. One line per plan: the kernel's ms
+(CUDA events, 10 calls after 2 warm-ups; K3 with its operand split; int8
+the kernel alone on an operand quantized beforehand in the layout
+ROOT's kernel reads, the whole call and the plain version beside it),
+its slots, and the sha256 of its answer's bytes. Each plan is
 freed after its line. Run it once per checkout, each in its own process
 (the two packages share a name), in the order parent, change, change,
 parent within one call: the times compare two builds on one card, and
@@ -21,6 +24,7 @@ equal digests mean answers equal bit for bit.
 from __future__ import annotations
 
 import hashlib
+import importlib
 import subprocess
 import sys
 import time
@@ -37,7 +41,11 @@ PLANS = (("f32 K2", 32, {}), ("f32 K2", 16, {}),
          ("K3 sorted", 16, {"precision": "high"}),
          ("bf16 K1", 32, {"dtype": torch.bfloat16, "resident": False}),
          ("bf16 K4", 32, {"dtype": torch.bfloat16, "depth_sort": False}),
-         ("K3 flat", 32, {"precision": "high", "depth_sort": False}))
+         ("K3 flat", 32, {"precision": "high", "depth_sort": False}),
+         ("int8 K7", 32, {"dtype": torch.int8}),
+         ("int8 K7", 16, {"dtype": torch.int8}),
+         ("int8 K6", 32, {"dtype": torch.int8, "resident": False}),
+         ("int8 K6", 16, {"dtype": torch.int8, "resident": False}))
 
 
 def main() -> int:
@@ -47,6 +55,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(root.resolve()))
     import chip_smoke as cs  # noqa: E402  (ROOT's, with ROOT's package)
+    TI = importlib.import_module("spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -64,13 +73,26 @@ def main() -> int:
         plan = cs.spmm_plan(bsr, impl="bsr_pallas", block_size=b, grad=False,
                             device="cuda", **kw)
         host_s = time.perf_counter() - t0
-        xk = x.to(torch.bfloat16) if "dtype" in kw else x
-        ms = cs.cuda_ms(lambda: plan(xk), iters=10)
+        int8 = kw.get("dtype") is torch.int8
+        xk = x.to(torch.bfloat16) if "dtype" in kw and not int8 else x
+        extra = ""
+        if int8:  # the kernel alone, then the whole call
+            transposed = getattr(TI, "reads_transposed", lambda b: True)(b)
+            q, c = TI.quantize_operand(plan, x, transposed=transposed)
+            run = ((lambda: TI.run_quantized(plan, None, c, qdense_t=q)) if transposed
+                   else (lambda: TI.run_quantized(plan, q, c)))
+            ms = cs.cuda_ms(run, iters=10)
+            plain = cs.cuda_ms(lambda: TI.run_quantized(plan, q.t() if transposed else q,
+                                                        c, plain=True), iters=2)
+            extra = (f" (whole call {cs.cuda_ms(lambda: plan(x), iters=10):.4f} ms, "
+                     f"plain {plain:.3f} ms)")
+        else:
+            ms = cs.cuda_ms(lambda: plan(xk), iters=10)
         digest = hashlib.sha256(plan(xk).cpu().numpy().tobytes()).hexdigest()
         # a "high" plan holds its blocks as two bf16 planes of S*b rows
         n_slots = plan.arrays[2].shape[0] // (2 * b if "precision" in kw else 1)
         print(f"[{root.name}] {label:<9} b={b:<3} {cs.kernel_of(plan)[1]:<26} "
-              f"{ms:.4f} ms, {n_slots} slots, plan {host_s:.1f} s (host), "
+              f"{ms:.4f} ms{extra}, {n_slots} slots, plan {host_s:.1f} s (host), "
               f"sha256={digest} [{card}]", flush=True)
         del plan
         torch.cuda.empty_cache()

@@ -17,8 +17,8 @@
 //   (+ _resident_int8_kernel).
 // They read the JAX packers' arrays unchanged (plus the port's step and
 // group pointers and K7's lane-valid mask), each with the scales of its
-// own layout; at b = 64 and 128 they read the operand transposed
-// (below). quantize_int8_kernel makes their operand from the f32 one:
+// own layout, and the operand transposed at every b (below).
+// quantize_int8_kernel makes their operand from the f32 one:
 // the work of the JAX plan's _quantize_cols / _quantize_cols_static
 // (XLA code, not Pallas) and of the zero rows up to the block grid, in
 // the layout the kernel reads.
@@ -27,48 +27,81 @@
 // int8 operand slice in VMEM and indexes it per slot, on K6's flat
 // layout. Hopper keeps nothing resident (as for K5 in csrc/bsr_spmm.cu):
 // K9's entry launches K6's kernels on K6's packed arrays and the
-// (nbc*b, F) view of the operand (transposed, (F, nbc*b), on the ring);
-// it exists so that K9's launches are counted (and bound) apart from
-// K6's.
+// (nbc*b, F) view of the operand, transposed, (F, nbc*b); it exists so
+// that K9's launches are counted (and bound) apart from K6's.
+//
+// Two loops serve them, picked by the entry on b: the small-block
+// tensor-core loop at b = 16 and 32, the tensor-core ring at b = 64 and
+// 128. Both keep one contract: one CTA owns the f32 (b x BN) output tile
+// of one lane for its whole life and stores it once (no atomics, so
+// results are deterministic); absent (K7) and phantom (K8) lanes return
+// before any barrier; K6 and K9 run K8's walk with one lane a block-row
+// (R = 1, gh = the flat group, the step pointer as group pointer); the F
+// edge is masked on the store; offsets are 64-bit.
 //
 // Numerics. The TPU multiplies int8 x int8 into int32 on the MXU. Here a
-// slot's product is an exact int32 sum too: on the int8 tensor cores
-// (wgmma ... .s32.s8.s8) for K6-K9 at b = 64 and 128, with __dp4a (four
-// int8 pairs into an int32 an instruction) at b = 16 and 32. f32 FMA of
-// widened ints would be exact for one slot (127^2 * 128 < 2^24) but not
-// for K7's group-scale lane sum, which reaches 127^2 * 128 * gh
-// (16,516,096 at gh = 8, 1.6% under 2^24, and past it for a larger
-// explicit group), so the lane sum stays in int32.
+// slot's product is an exact int32 sum too, on the int8 tensor cores
+// (mma.sync ... .s32.s8.s8 at b = 16 and 32, wgmma ... .s32.s8.s8 at 64
+// and 128). f32 FMA of widened ints would be exact for one slot (127^2 *
+// 128 < 2^24) but not for K7's group-scale lane sum, which reaches 127^2
+// * 128 * gh (16,516,096 at gh = 8, 1.6% under 2^24, and past it for a
+// larger explicit group), so the lane sum stays in int32.
 // Per-slot scales (K6, K8, K7 without group scale): acc += s_slot *
 // float(dot). Group scale (K7): acc += s_lane * float(sum of the
 // lane-step's gh dots). The f32 sum is multiplied by the column scale
 // cs[f] before the store. Both loops add the same f32 terms in the same
-// order.
+// order (the slots' walk order; an int32 sum does not depend on its
+// order), so an answer does not depend on the loop, the tile width or
+// the lane order, and matches the dp4a loop these replaced bit for bit.
 //
-// The dp4a loop (K6-K9 at b = 16 and 32). One CTA owns one (b x 64)
-// output tile for its life, stages each slot's block (transposed) and
-// operand tile through shared memory in depth chunks of
-// up to 32 int8 packed 4 to a 32-bit word, keeps int32 slot (or
-// lane-step) sums and f32 tile sums in registers (b/16 x 4 each per
-// thread), and stores once. No atomics, so results are deterministic.
-// The F edge is masked in the kernel; offsets are 64-bit. Block words are
-// aligned 32-bit loads (the wrapper checks that the blocks start 16-byte
-// aligned). It is bound by issue, not by bytes: each operand word is four
-// byte loads F apart, each chunk is staged between two barriers with
-// nothing in flight, and dp4a does 4 multiply-adds an instruction. At the
-// op shape (b=128, F=512) K6-K9 ran 37-48x their bytes bound on this loop
-// on an H100.
+// The small-block tensor-core loop (int8_small_kernel: K6-K9 at b = 16
+// and 32). wgmma's M of 64 does not fit a 16- or 32-row block; mma.sync
+// m16n8k16 (s8) fits b = 16 exactly and m16n8k32 b = 32 as two m tiles,
+// one k step a slot each. With the tensor cores the products cost little
+// (2*S*b*b*F is 0.03-0.11 ms at the card's int8 rate on the arxiv
+// stand-in); what bounds the loop is moving each slot's block (256 bytes
+// or 1 KiB) and its BN operand rows of b bytes (mostly from L2) into
+// shared memory and, on a reordered power-law graph, the hub lane: a
+// lane's sum cannot be split across CTAs, so one CTA per F tile walks
+// all of a lane's slots in order, at the rate one SM streams them. So,
+// as bf16's small-block loop in bsr_spmm.cu:
+//   - 4 warps a CTA at BN = 32, 64 or 128 columns (the wrapper's choice,
+//     int8_small_geometry, with the plan's deepest lane in view); warp w
+//     owns columns w*BN/4 .. on all b rows, b/16 x BN/32 fragments.
+//   - s8 mma.sync takes B K-major (.col) and ldmatrix has no 8-bit
+//     transpose, so the loop reads the operand transposed, as the ring
+//     does: qdense^T, (F, N) contiguous, whose row f holds column f's
+//     depth; a slot at block column `col` reads BN rows of b bytes at
+//     inner offset col*b. A (the block, row-major as packed) and B are
+//     then both k-contiguous rows, read with ldmatrix (no trans).
+//   - Each slot is one shared-memory stage, the block's b rows and the BN
+//     operand rows, padded by 16 bytes at b = 32 (rows of 48 bytes put
+//     the 8 rows of an ldmatrix matrix on 8 distinct 16-byte bank groups;
+//     16-byte rows at b = 16 already do). cp.async 16-byte copies keep
+//     I8Mma::kStages - 1 slots in flight (3-16 stages in up to 48 KiB),
+//     one barrier a slot; the operand rows go through L1 (lanes of one
+//     SM share columns).
+//   - No global read waits inside the loop: a stage also carries its
+//     slot's scale and the column of the slot kStages - 1 further on,
+//     both copied with it by cp.async, so a slot's column is in shared
+//     memory when its copies issue and its scale when its product is
+//     scaled. (Read from global memory inside the loop, each exposed one
+//     L2 round trip a slot: ~0.57 us a slot on a hub lane, as bf16's
+//     small-block loop, whose column read is exposed the same way, takes.)
+//   - CTAs take their lanes from the plan's lane_order, deepest first,
+//     so a hub lane starts at once instead of adding its length to the
+//     tail.
+// Rows of qdense^T past F are not read (zero-filled copies).
 //
 // The int8 tensor-core ring (K6-K9 at b = 64 and 128), the design of
 // csrc/bsr_spmm.cu's bf16 ring on int8: one CTA per (lane, F tile of BN =
 // 64 or 128 columns, the wrapper's choice) owns its f32 output tile (no
 // atomics, deterministic); b/64 consumer warpgroups, each issuing
 // wgmma m64nBNk32.s32.s8.s8 on 64 output rows; one producer thread walks
-// the lane's slots in the dp4a loop's order and streams each slot through
-// a ring of stages in dynamic shared memory with TMA and mbarriers. s8
-// wgmma takes both operands K-major only (the transpose flags exist for
-// 16-bit types alone), so the ring reads the operand transposed: the
-// wrapper hands it qdense^T, (F, N) contiguous int8, and a slot at block
+// the lane's slots in walk order and streams each slot through a ring of
+// stages in dynamic shared memory with TMA and mbarriers. s8 wgmma takes
+// both operands K-major only (the transpose flags exist for 16-bit types
+// alone), so the ring reads the operand transposed too: a slot at block
 // column `col` reads the box of BN rows at inner coordinate col*b. One
 // stage is one slot: the (b x b) block and BN rows of b bytes of qdense^T,
 // 32 KiB at b = 128, BN = 128; rows of 128 bytes take the 128-byte
@@ -80,23 +113,18 @@
 // cheap here (2*S*b*b*F is about 0.2 ms at the card's int8 rate at the op
 // shape); what bounds the ring is moving the blocks and operand slices,
 // as for the bf16 ring (on an H100 at the op shape, K7 with its products
-// cut runs within 2% of its time). Absent (K7) and phantom (K8) lanes
-// return before any barrier is initialised. K6's walk (one block-row's
-// steps through a step pointer) is K8's with one lane a group, so K6 and
-// K9 launch the K8 instance with R = 1 and gh = group, in the dp4a loop's
-// slot order (as bf16 K1 runs bf16 K4's ring in csrc/bsr_spmm.cu). wgmma's
-// M of 64 does not fit b = 16 or 32, so every entry takes those to the
-// dp4a loop, by a switch on b.
+// cut runs within 2% of its time). The ring takes its lanes in packed
+// order.
 //
-// The operand's quantization (quantize_int8_kernel). The ring reads the
-// operand K-major, (F, N) int8; the dp4a loop reads it (N, F). One kernel
-// reads the f32 operand (any row stride and alignment), quantizes it per
-// column and writes the layout asked for, with zero rows from n_rows up
-// to N (the block grid's pad). A CTA quantizes a tile of 128 rows x 64
-// columns in registers (one column, so one scale, a thread; four rows
-// packed into a 32-bit word), stages it in shared memory by column and
-// writes each column's 128 bytes as eight 16-byte stores; row-major
-// output is stored from registers. Numerics are quantize_per_column's
+// The operand's quantization (quantize_int8_kernel). Both loops read the
+// operand K-major, (F, N) int8; the plain versions read it (N, F). One
+// kernel reads the f32 operand (any row stride and alignment), quantizes
+// it per column and writes the layout asked for, with zero rows from
+// n_rows up to N (the block grid's pad). A CTA quantizes a tile of 128
+// rows x 64 columns in registers (one column, so one scale, a thread;
+// four rows packed into a 32-bit word), stages it in shared memory by
+// column and writes each column's 128 bytes as eight 16-byte stores;
+// row-major output is stored from registers. Numerics are quantize_per_column's
 // (and JAX's): q = rint(x / s) with a true IEEE divide (no reciprocal,
 // no fast-math), clamped to +-127, and 0 where the quotient is NaN.
 // Dynamic scales need each column's
@@ -112,203 +140,284 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
 #include "tma_ring.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kBN = 64;        // output columns per CTA
+// ---- the small-block tensor-core loop: K6-K9 at b = 16 and 32 -----------
 
-template <int BM>
-struct Geom {
-  static constexpr int TM = BM / 16;                  // tile rows per thread
-  static constexpr int KW = (BM < 32 ? BM : 32) / 4;  // words per stage
+// The lane's slots in walk order, as the ring's SlotWalk below, in
+// 32-bit indices (the small-block loop's registers): the gh slots of
+// step j sit at (j*R + lane)*gh. `slot` is the current one, `lane_step`
+// its step's j*R + lane (the group scale's index) and `k` its place in
+// the step.
+struct SmallWalk {
+  int slot, lane_step, k;
+  __device__ SmallWalk(int64_t j0, int64_t R, int64_t lane, int64_t gh)
+      : slot((int)((j0 * R + lane) * gh)), lane_step((int)(j0 * R + lane)), k(0) {}
+  __device__ void next(int R, int gh) {
+    if (++k == gh) {
+      k = 0;
+      lane_step += R;
+      slot += (R - 1) * gh + 1;
+    } else {
+      ++slot;
+    }
+  }
 };
 
-template <int BM>
-struct __align__(16) SmemI8 {
-  int32_t a[Geom<BM>::KW][BM + 4];  // a[w][m] = blk[m][k0+4w .. k0+4w+3]
-  int32_t b[Geom<BM>::KW][kBN];     // b[w][n] = dense[k0+4w .. k0+4w+3][n]
+// One CTA per (b x BN) output tile of a real lane, 4 warps; warp w owns
+// the tile's columns w*BN/4 .. +BN/4-1 on every row: BM/16 m tiles of 16
+// rows by BN/32 n tiles of 8 columns, each an mma.sync output fragment
+// (m16n8k16 at b = 16, m16n8k32 at b = 32: one k step a slot).
+template <int BM, int BN>
+struct I8Mma {
+  static constexpr int kThreads = 128;
+  static constexpr int MT = BM / 16;  // m tiles
+  static constexpr int kWarpN = BN / 4;
+  static constexpr int NT = kWarpN / 8;  // n tiles a warp
+  // Shared rows of BM bytes, padded by 16 at b = 32: rows of 48 bytes put
+  // the 8 rows of an ldmatrix 8x8 matrix on 8 distinct 16-byte bank
+  // groups (rows of 32 would put two on each); rows of 16 bytes already do.
+  static constexpr int kRow = BM == 32 ? 48 : 16;
+  static constexpr int kChunks = BM / 16;  // 16-byte copies a row
+  static constexpr int kABytes = BM * kRow;  // the block
+  static constexpr int kXBytes = BN * kRow;  // its BN operand rows
+  // a stage: 16 bytes of header (the slot's scale, the column of the slot
+  // kStages - 1 further on), the block, the operand rows
+  static constexpr int kHeader = 16;
+  static constexpr int kStageBytes = kHeader + kABytes + kXBytes;
+  // Stages in flight: as many as fit in 48 KiB, 3 to 16 (a deep lane's
+  // CTA streams its slots one after another, so its speed is the bytes it
+  // keeps in flight; 48 KiB leaves room for 4 CTAs an SM).
+  static constexpr int kFitStages = 49152 / kStageBytes;
+  static constexpr int kStages =
+      kFitStages < 3 ? 3 : kFitStages > 16 ? 16 : kFitStages;
+  static constexpr int kSmemBytes = kStages * kStageBytes;
+  static_assert((BM == 16 || BM == 32) && NT >= 1 && NT <= 4, "warp tile");
 };
 
-// iacc[b x 64 tile] += blk (b x b) @ brow (b x 64, row stride F), exact in
-// int32. Thread (tx, ty) owns rows ty*TM .. ty*TM+TM-1, cols tx*4 .. +3.
-template <int BM>
-__device__ __forceinline__ void slot_dp4a(const int8_t* __restrict__ blk,
-                                          const int8_t* __restrict__ brow,
-                                          int64_t F, int n_valid,
-                                          SmemI8<BM>& sm,
-                                          int32_t (&iacc)[BM / 16][4]) {
-  constexpr int TM = Geom<BM>::TM, KW = Geom<BM>::KW;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-#pragma unroll 1
-  for (int k0 = 0; k0 < BM; k0 += 4 * KW) {
-    for (int e = tid; e < BM * KW; e += kThreads) {
-      const int m = e / KW, w = e % KW;
-      sm.a[w][m] = *reinterpret_cast<const int32_t*>(
-          blk + (int64_t)m * BM + k0 + 4 * w);
-    }
-    for (int e = tid; e < KW * kBN; e += kThreads) {
-      const int w = e / kBN, n = e % kBN;
-      uint32_t word = 0;
-      if (n < n_valid) {
-        const int8_t* p = brow + (int64_t)(k0 + 4 * w) * F + n;
-        word = (uint32_t)(uint8_t)p[0] | ((uint32_t)(uint8_t)p[F] << 8) |
-               ((uint32_t)(uint8_t)p[2 * F] << 16) |
-               ((uint32_t)(uint8_t)p[3 * F] << 24);
-      }
-      sm.b[w][n] = (int32_t)word;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int w = 0; w < KW; ++w) {
-      const int4 bv = *reinterpret_cast<const int4*>(&sm.b[w][tx * 4]);
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int a = sm.a[w][ty * TM + i];
-        iacc[i][0] = __dp4a(a, bv.x, iacc[i][0]);
-        iacc[i][1] = __dp4a(a, bv.y, iacc[i][1]);
-        iacc[i][2] = __dp4a(a, bv.z, iacc[i][2]);
-        iacc[i][3] = __dp4a(a, bv.w, iacc[i][3]);
-      }
-    }
-    __syncthreads();
-  }
+// d (16 x 8 s32) += a (16 x 32 s8, row-major) @ b (32 x 8 s8, k-major)
+__device__ __forceinline__ void mma_s8_k32(int32_t (&d)[4], const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// acc += s * float(iacc); iacc = 0.
-template <int BM>
-__device__ __forceinline__ void add_scaled(float (&acc)[BM / 16][4],
-                                           int32_t (&iacc)[BM / 16][4],
-                                           float s) {
-#pragma unroll
-  for (int i = 0; i < BM / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      acc[i][j] += s * (float)iacc[i][j];
-      iacc[i][j] = 0;
-    }
+// d (16 x 8 s32) += a (16 x 16 s8, row-major) @ b (16 x 8 s8, k-major)
+__device__ __forceinline__ void mma_s8_k16(int32_t (&d)[4], uint32_t a0,
+                                           uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
 }
 
-// One lane's walk: steps j0 .. j1-1, lane `lane` of R, gh slots per
-// lane and step at (j*R + lane)*gh. Per-slot scales are scales[slot];
-// group scales are scales[j*R + lane], one per lane-step.
-template <int BM, bool kGroupScale>
-__device__ __forceinline__ void lane_walk(
-    int64_t j0, int64_t j1, int64_t R, int64_t lane, int64_t gh,
-    const int32_t* __restrict__ slot_cols, const int8_t* __restrict__ qblocks,
-    const float* __restrict__ scales, const int8_t* __restrict__ qdense,
-    int64_t F, int64_t f0, int n_valid, SmemI8<BM>& sm,
-    float (&acc)[BM / 16][4]) {
-  int32_t iacc[BM / 16][4] = {};
-  for (int64_t j = j0; j < j1; ++j) {
-    for (int64_t s = (j * R + lane) * gh, s_end = s + gh; s < s_end; ++s) {
-      const int64_t col = slot_cols[s];
-      slot_dp4a<BM>(qblocks + s * BM * BM, qdense + col * BM * F + f0, F,
-                    n_valid, sm, iacc);
-      if constexpr (!kGroupScale) add_scaled<BM>(acc, iacc, scales[s]);
-    }
-    if constexpr (kGroupScale) add_scaled<BM>(acc, iacc, scales[j * R + lane]);
-  }
-}
-
-// out tile = acc * cs[column]; out and cs point at the tile's column f0.
-template <int BM>
-__device__ __forceinline__ void store_scaled(float* __restrict__ out,
-                                             const float* __restrict__ cs,
-                                             int64_t F, int n_valid,
-                                             float (&acc)[BM / 16][4]) {
-  constexpr int TM = BM / 16;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = tx * 4 + j;
-    if (n >= n_valid) continue;
-    const float c = cs[n];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) out[(int64_t)(ty * TM + i) * F + n] = acc[i][j] * c;
-  }
-}
-
-// K6 at b = 16 and 32: one CTA per (block-row, F tile); the flat layout
-// is one lane of `group` slots per step, and step_ptr (nbr+1,) gives each
-// row's steps. Every row has >= 1 step (the plan covers empty rows with a
-// zero block).
-template <int BM>
-__global__ void __launch_bounds__(kThreads)
-    int8_flat_kernel(const int64_t* __restrict__ step_ptr,
-                     const int32_t* __restrict__ slot_cols,
-                     const int8_t* __restrict__ qblocks,
-                     const float* __restrict__ scales,
-                     const int8_t* __restrict__ qdense,
-                     const float* __restrict__ cs, float* __restrict__ out,
-                     int64_t F, int64_t group, int64_t n_ftiles) {
-  __shared__ SmemI8<BM> sm;
-  const int64_t row = blockIdx.x / n_ftiles;
-  const int64_t f0 = (blockIdx.x % n_ftiles) * kBN;
-  const int n_valid = (int)(F - f0 < kBN ? F - f0 : kBN);
-  float acc[BM / 16][4] = {};
-  lane_walk<BM, false>(step_ptr[row], step_ptr[row + 1], 1, 0, group,
-                       slot_cols, qblocks, scales, qdense, F, f0, n_valid, sm,
-                       acc);
-  store_scaled<BM>(out + row * BM * F + f0, cs + f0, F, n_valid, acc);
-}
-
-// K7: one CTA per (group, lane, F tile) of the depth-sorted layout, as
-// K2: the lane's sum belongs to block-row win_ids[j0]*window +
-// pos[j0*R + lane]; absent lanes (lane_valid == 0, window padding at
-// pos 0) store nothing.
-template <int BM, bool kGroupScale>
-__global__ void __launch_bounds__(kThreads)
-    int8_sorted_kernel(const int64_t* __restrict__ group_ptr,
-                       const int32_t* __restrict__ win_ids,
-                       const int32_t* __restrict__ pos,
-                       const uint8_t* __restrict__ lane_valid,
-                       const int32_t* __restrict__ slot_cols,
-                       const int8_t* __restrict__ qblocks,
-                       const float* __restrict__ scales,
-                       const int8_t* __restrict__ qdense,
-                       const float* __restrict__ cs, float* __restrict__ out,
-                       int64_t F, int64_t R, int64_t gh, int64_t window,
-                       int64_t n_ftiles) {
-  __shared__ SmemI8<BM> sm;
-  const int64_t lane_id = blockIdx.x / n_ftiles;  // group * R + lane
-  if (!lane_valid[lane_id]) return;               // uniform over the CTA
+// K7 (win_ids != nullptr) or K8 (win_ids == nullptr; K6 and K9 are K8
+// with R = 1, gh = the flat group and the step pointer as group_ptr) at b
+// = 16 and 32. One CTA per lane and F tile of BN columns, its lane from
+// lane_order (deepest first); absent (K7) and phantom (K8) lanes return
+// before any barrier and store nothing; no atomics. qdense_t is the
+// operand transposed, (F, n_dense_rows) int8 with n_dense_rows a multiple
+// of 16 and a 16-byte aligned base, as are the blocks. Each slot's block
+// and its BN operand rows of the tile (rows >= F zero-filled) are one
+// stage, streamed through G::kStages shared stages by cp.async 16-byte
+// copies, G::kStages - 1 slots ahead (the operand rows through L1); one
+// barrier a slot. A warp reads A (the block's rows) and B (the operand
+// rows, k-contiguous, so the .col operand) with ldmatrix and runs
+// mma.sync on s8 into the exact s32 sums `part`: from zero each slot with
+// per-slot scales, chained over a lane-step's gh slots with group scale.
+// After a slot (or a lane-step's last slot) CUDA cores add s * part to
+// the f32 sums `acc`, in walk order; the store multiplies by cs[f].
+template <int BM, int BN, bool kGroupScale>
+__global__ void __launch_bounds__(I8Mma<BM, BN>::kThreads, 4)
+    int8_small_kernel(const int64_t* __restrict__ group_ptr,
+                      const int32_t* __restrict__ win_ids,
+                      const int32_t* __restrict__ pos,
+                      const uint8_t* __restrict__ lane_valid,
+                      const int32_t* __restrict__ slot_cols,
+                      const int32_t* __restrict__ lane_order,
+                      const int8_t* __restrict__ qblocks,
+                      const float* __restrict__ scales,
+                      const int8_t* __restrict__ qdense_t,
+                      const float* __restrict__ cs, float* __restrict__ out,
+                      int64_t F, int64_t n_dense_rows, int64_t n_block_rows,
+                      int64_t R, int64_t gh, int64_t window, int64_t n_ftiles) {
+  using G = I8Mma<BM, BN>;
+  constexpr int MT = G::MT, NT = G::NT, kStages = G::kStages;
+  extern __shared__ __align__(16) uint8_t i8_smem[];
+  const int64_t lane_id = lane_order[blockIdx.x / n_ftiles];  // group * R + lane
+  // absent (K7) and phantom (K8) lanes store nothing: uniform over the CTA
+  if (win_ids != nullptr ? !lane_valid[lane_id] : lane_id >= n_block_rows)
+    return;
   const int64_t g = lane_id / R, lane = lane_id % R;
-  const int64_t f0 = (blockIdx.x % n_ftiles) * kBN;
-  const int n_valid = (int)(F - f0 < kBN ? F - f0 : kBN);
-  const int64_t j0 = group_ptr[g], j1 = group_ptr[g + 1];
-  const int64_t orow = (int64_t)win_ids[j0] * window + pos[j0 * R + lane];
-  float acc[BM / 16][4] = {};
-  lane_walk<BM, kGroupScale>(j0, j1, R, lane, gh, slot_cols, qblocks, scales,
-                             qdense, F, f0, n_valid, sm, acc);
-  store_scaled<BM>(out + orow * BM * F + f0, cs + f0, F, n_valid, acc);
-}
+  const int64_t f0 = (blockIdx.x % n_ftiles) * BN;
+  const int64_t j0 = group_ptr[g];
+  const int n_slots = (int)((group_ptr[g + 1] - j0) * gh);
+  const int tid = threadIdx.x, warp = tid / 32, wl = tid % 32;
+  const uint32_t smem = smem_u32(i8_smem);
 
-// K8: one CTA per (lane, F tile) of the consecutive row-group layout, as
-// K4: lane r of group g is block-row g*R + r; phantom lanes (row >=
-// n_block_rows, padding of the last group) store nothing.
-template <int BM>
-__global__ void __launch_bounds__(kThreads)
-    int8_rowgroup_kernel(const int64_t* __restrict__ group_ptr,
-                         const int32_t* __restrict__ slot_cols,
-                         const int8_t* __restrict__ qblocks,
-                         const float* __restrict__ scales,
-                         const int8_t* __restrict__ qdense,
-                         const float* __restrict__ cs,
-                         float* __restrict__ out, int64_t n_block_rows,
-                         int64_t F, int64_t R, int64_t gh, int64_t n_ftiles) {
-  __shared__ SmemI8<BM> sm;
-  const int64_t row = blockIdx.x / n_ftiles;  // group * R + lane
-  if (row >= n_block_rows) return;            // phantom lane
-  const int64_t g = row / R, lane = row % R;
-  const int64_t f0 = (blockIdx.x % n_ftiles) * kBN;
-  const int n_valid = (int)(F - f0 < kBN ? F - f0 : kBN);
-  float acc[BM / 16][4] = {};
-  lane_walk<BM, false>(group_ptr[g], group_ptr[g + 1], R, lane, gh, slot_cols,
-                       qblocks, scales, qdense, F, f0, n_valid, sm, acc);
-  store_scaled<BM>(out + row * BM * F + f0, cs + f0, F, n_valid, acc);
+  // The loader walks the lane's slots in order (lw), G::kStages - 1
+  // ahead of the products, and copies with slot u its scale and the column
+  // of slot u + kStages - 1 (pw), into the stage's header: stage t %
+  // kStages holds, once slot t has landed, slot t's scale and the column
+  // of slot t + kStages - 1, the next to be issued.
+  const int R32 = (int)R, gh32 = (int)gh;
+  SmallWalk lw(j0, R, lane, gh), pw = lw;
+  for (int c = 0; c < kStages - 1; ++c) pw.next(R32, gh32);
+  int issued = 0;
+  auto load_next = [&](int64_t col) {  // the next slot into stage issued % kStages
+    const uint32_t st = smem + (uint32_t)(issued % kStages) * G::kStageBytes;
+    if (tid == 0) {
+      cp_async4(st, scales + (kGroupScale ? lw.lane_step : lw.slot));
+      if (issued + kStages - 1 < n_slots) cp_async4(st + 4, slot_cols + pw.slot);
+    }
+    const uint32_t sa = st + G::kHeader;
+    const int8_t* blk = qblocks + (int64_t)lw.slot * (BM * BM);
+#pragma unroll
+    for (int e = tid; e < BM * G::kChunks; e += G::kThreads)
+      cp_async16(sa + e / G::kChunks * G::kRow + e % G::kChunks * 16, blk + e * 16,
+                 true);
+    const int8_t* xr = qdense_t + f0 * n_dense_rows + col * BM;
+#pragma unroll
+    for (int e = tid; e < BN * G::kChunks; e += G::kThreads) {
+      const int r = e / G::kChunks, c = e % G::kChunks * 16;
+      cp_async16_ca(sa + G::kABytes + r * G::kRow + c, xr + r * n_dense_rows + c,
+                    f0 + r < F);
+    }
+    ++issued;
+    lw.next(R32, gh32);
+    pw.next(R32, gh32);
+  };
+
+  int32_t part[MT][NT][4];
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        part[m][n][i] = 0;
+        acc[m][n][i] = 0.f;
+      }
+#pragma unroll
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (issued < n_slots) load_next(__ldg(slot_cols + lw.slot));
+    cp_async_commit();
+  }
+  // This lane's ldmatrix row addresses. A (m16n8k32: rows wl % 16 at
+  // depth bytes (wl / 16) * 16; m16n8k16: rows wl % 16). B, rows of the
+  // warp's columns: m16n8k32 pairs of n tiles, row wl % 8 (+ 8 for lanes
+  // 16-31) at depth bytes ((wl / 8) % 2) * 16; m16n8k16 up to four n
+  // tiles, row wl % (8 NT).
+  const uint32_t a_off =
+      G::kHeader + (wl % 16) * G::kRow + (BM == 32 ? (wl / 16) * 16 : 0);
+  const int x_row = BM == 32 ? wl % 8 + (NT > 1 ? (wl / 16) * 8 : 0) : wl % (8 * NT);
+  const uint32_t x_off = G::kHeader + G::kABytes +
+                         (warp * G::kWarpN + x_row) * G::kRow +
+                         (BM == 32 ? (wl / 8) % 2 * 16 : 0);
+  int k = 0;  // slot t's place in its lane-step
+  for (int t = 0; t < n_slots; ++t) {
+    cp_async_wait<kStages - 2>();  // slot t has landed (this thread's copies)
+    __syncthreads();
+    const uint32_t st = smem + (uint32_t)(t % kStages) * G::kStageBytes;
+    const uint8_t* header = i8_smem + (t % kStages) * G::kStageBytes;
+    if (issued < n_slots) load_next(*reinterpret_cast<const int32_t*>(header + 4));
+    cp_async_commit();
+    // a slot's product is scaled after it, a lane-step's after its last slot
+    const bool last = !kGroupScale || k == gh32 - 1;
+    k = k + 1 == gh32 ? 0 : k + 1;
+    const float s = *reinterpret_cast<const float*>(header);
+    if constexpr (BM == 32) {
+      uint32_t a[MT][4], b[NT][2];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) ldmatrix_x4(a[m], st + a_off + m * 16 * G::kRow);
+      if constexpr (NT == 1) {
+        ldmatrix_x2(b[0], st + x_off);
+      } else {
+#pragma unroll
+        for (int n = 0; n < NT; n += 2) {
+          uint32_t r[4];
+          ldmatrix_x4(r, st + x_off + n * 8 * G::kRow);
+          b[n][0] = r[0], b[n][1] = r[1];
+          b[n + 1][0] = r[2], b[n + 1][1] = r[3];
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma_s8_k32(part[m][n], a[m], b[n][0], b[n][1]);
+    } else {
+      uint32_t a[2], b[NT];
+      ldmatrix_x2(a, st + a_off);
+      if constexpr (NT == 1) {
+        ldmatrix_x1(b[0], st + x_off);
+      } else if constexpr (NT == 2) {
+        uint32_t r[2];
+        ldmatrix_x2(r, st + x_off);
+        b[0] = r[0], b[1] = r[1];
+      } else {
+        uint32_t r[4];
+        ldmatrix_x4(r, st + x_off);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) b[n] = r[n];
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) mma_s8_k16(part[0][n], a[0], a[1], b[n]);
+    }
+    if (last) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[m][n][i] += s * (float)part[m][n][i];
+            part[m][n][i] = 0;
+          }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the CTA (the trailing groups are empty)
+
+  // The output block-row, read after the loop: K7's from its window and
+  // position, K8's (and K6's and K9's) the lane itself. The accumulator
+  // fragment of m16n8: lane wl holds rows wl/4 (+8) and columns 2*(wl%4)
+  // (+1) of each 16 x 8 tile; each column is multiplied by its operand
+  // scale.
+  const int64_t orow =
+      win_ids != nullptr ? (int64_t)win_ids[j0] * window + pos[j0 * R + lane]
+                         : lane_id;
+  const bool pairs = F % 2 == 0;  // float2 stores stay 8-byte aligned
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int64_t col0 = f0 + warp * G::kWarpN + n * 8 + 2 * (wl % 4);
+    if (col0 >= F) continue;
+    const bool two = col0 + 1 < F;
+    const float c0 = __ldg(cs + col0), c1 = two ? __ldg(cs + col0 + 1) : 0.f;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* o = out + (orow * BM + m * 16 + wl / 4 + 8 * h) * F + col0;
+        const float v0 = acc[m][n][2 * h] * c0, v1 = acc[m][n][2 * h + 1] * c1;
+        if (two) {
+          if (pairs) {
+            *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+          } else {
+            o[0] = v0;
+            o[1] = v1;
+          }
+        } else {
+          o[0] = v0;
+        }
+      }
+  }
 }
 
 // ---- the int8 tensor-core ring: K6-K9 at b = 64 and 128 -----------------
@@ -392,9 +501,9 @@ struct WgmmaS8<128> {
   }
 };
 
-// The lane's slots in the dp4a loop's order: the gh slots of step j sit
-// at (j*R + lane)*gh. `slot` is the current one, `lane_step` its step's
-// j*R + lane (the group scale's index) and `k` its place in the step.
+// The lane's slots in walk order: the gh slots of step j sit at (j*R +
+// lane)*gh. `slot` is the current one, `lane_step` its step's j*R + lane
+// (the group scale's index) and `k` its place in the step.
 struct SlotWalk {
   int64_t slot, lane_step, k = 0;
   const int64_t R, gh;
@@ -668,25 +777,6 @@ __global__ void __launch_bounds__(256)
 
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-// Grid of n_lanes * ceil(F / 64) CTAs, or an error for an empty or
-// oversized grid (0 = nothing to launch).
-cudaError_t grid_for(int64_t n_lanes, int64_t F, int64_t* n_ft, dim3* grid) {
-  *n_ft = ceil_div(F, kBN);
-  const int64_t n_ctas = n_lanes * *n_ft;
-  if (n_ctas > INT32_MAX) return cudaErrorInvalidConfiguration;
-  *grid = dim3((unsigned)n_ctas);
-  return cudaSuccess;
-}
-
-// Runs the statement with BM bound to the block size b, 16 or 32: the
-// block sizes of the dp4a loop.
-#define SDB_FOR_SMALL_BLOCK_SIZE(b, ...)                       \
-  switch (b) {                                                 \
-    case 16: { constexpr int BM = 16; __VA_ARGS__; break; }    \
-    case 32: { constexpr int BM = 32; __VA_ARGS__; break; }    \
-    default: return cudaErrorInvalidValue;                     \
-  }
-
 template <int BM, int BN, bool kGroupScale>
 cudaError_t launch_ring_tile(const CUtensorMap& tb, const CUtensorMap& td,
                              const int64_t* gp, const int32_t* wi,
@@ -766,32 +856,104 @@ cudaError_t launch_ring(const void* group_ptr, const void* win_ids,
   return cudaErrorInvalidValue;
 }
 
-// K6's and K9's launch on the flat layout, one CTA per (block-row, F
-// tile): the ring (as K8 with R = 1, gh = group and the step pointer as
-// the group pointer) at b = 64 and 128, the dp4a loop at b = 16 and 32.
-cudaError_t launch_flat(const void* step_ptr, const void* slot_cols,
-                        const void* qblocks, const void* scales,
-                        const void* qdense, const void* qdense_t,
-                        const void* cs, void* out, int64_t n_block_rows,
-                        int64_t n_slots, int64_t n_dense_rows, int64_t F,
-                        int64_t group, int64_t b, int64_t bn, cudaStream_t s) {
-  if (b == 64 || b == 128)
-    return launch_ring(step_ptr, nullptr, nullptr, nullptr, slot_cols, qblocks,
-                       scales, qdense_t, cs, out, n_block_rows, n_block_rows,
-                       n_slots, n_dense_rows, F, 1, group, 1, b, bn, 0, s);
-  if (bn != kBN || qdense == nullptr) return cudaErrorInvalidValue;
-  int64_t n_ft;
-  dim3 grid;
-  cudaError_t err = grid_for(n_block_rows, F, &n_ft, &grid);
-  if (err != cudaSuccess) return err;
-  if (grid.x == 0) return cudaSuccess;
-  SDB_FOR_SMALL_BLOCK_SIZE(b, int8_flat_kernel<BM><<<grid, kThreads, 0, s>>>(
-      static_cast<const int64_t*>(step_ptr),
-      static_cast<const int32_t*>(slot_cols),
-      static_cast<const int8_t*>(qblocks), static_cast<const float*>(scales),
-      static_cast<const int8_t*>(qdense), static_cast<const float*>(cs),
-      static_cast<float*>(out), F, group, n_ft))
+// K7 (win_ids != nullptr) or K8 (K6 and K9 with R = 1) on the small-block
+// tensor-core loop at b = 16 and 32, over n_lanes lanes of ceil(F / bn)
+// tiles, bn = 32, 64 or 128; lane_order (n_lanes,) int32 may not be
+// null; qdense_t (F, n_dense_rows) and qblocks start on 16 bytes.
+template <int BM, int BN, bool kGroupScale>
+cudaError_t launch_small_tile(const int64_t* gp, const int32_t* wi,
+                              const int32_t* ps, const uint8_t* lv,
+                              const int32_t* sc, const int32_t* lo,
+                              const int8_t* qb, const float* sl,
+                              const int8_t* qt, const float* cv, float* o,
+                              int64_t F, int64_t n_dense_rows,
+                              int64_t n_block_rows, int64_t R, int64_t gh,
+                              int64_t window, int64_t n_ft, dim3 grid,
+                              cudaStream_t stream) {
+  using G = I8Mma<BM, BN>;
+  static const cudaError_t smem_set = cudaFuncSetAttribute(
+      int8_small_kernel<BM, BN, kGroupScale>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
+  if (smem_set != cudaSuccess) return smem_set;
+  int8_small_kernel<BM, BN, kGroupScale>
+      <<<grid, G::kThreads, G::kSmemBytes, stream>>>(
+          gp, wi, ps, lv, sc, lo, qb, sl, qt, cv, o, F, n_dense_rows,
+          n_block_rows, R, gh, window, n_ft);
   return cudaGetLastError();
+}
+
+cudaError_t launch_small(const void* group_ptr, const void* win_ids,
+                         const void* pos, const void* lane_valid,
+                         const void* slot_cols, const void* lane_order,
+                         const void* qblocks, const void* scales,
+                         const void* qdense_t, const void* cs, void* out,
+                         int64_t n_lanes, int64_t n_block_rows,
+                         int64_t n_dense_rows, int64_t F, int64_t R, int64_t gh,
+                         int64_t window, int64_t b, int64_t bn,
+                         int64_t group_scale, cudaStream_t stream) {
+  if (lane_order == nullptr || qdense_t == nullptr || n_dense_rows % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(qdense_t) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(qblocks) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const int64_t n_ft = ceil_div(F, bn);
+  const int64_t n_ctas = n_lanes * n_ft;
+  if (n_ctas > INT32_MAX) return cudaErrorInvalidConfiguration;
+  if (n_ctas == 0) return cudaSuccess;
+  const dim3 grid((unsigned)n_ctas);
+  const auto* gp = static_cast<const int64_t*>(group_ptr);
+  const auto* wi = static_cast<const int32_t*>(win_ids);
+  const auto* ps = static_cast<const int32_t*>(pos);
+  const auto* lv = static_cast<const uint8_t*>(lane_valid);
+  const auto* sc = static_cast<const int32_t*>(slot_cols);
+  const auto* lo = static_cast<const int32_t*>(lane_order);
+  const auto* qb = static_cast<const int8_t*>(qblocks);
+  const auto* sl = static_cast<const float*>(scales);
+  const auto* qt = static_cast<const int8_t*>(qdense_t);
+  const auto* cv = static_cast<const float*>(cs);
+  auto* o = static_cast<float*>(out);
+#define SDB_I8_SMALL(BM, BN, GS)                                              \
+  if (b == BM && bn == BN && (group_scale != 0) == GS)                        \
+    return launch_small_tile<BM, BN, GS>(gp, wi, ps, lv, sc, lo, qb, sl, qt,  \
+                                         cv, o, F, n_dense_rows, n_block_rows, \
+                                         R, gh, window, n_ft, grid, stream);
+  SDB_I8_SMALL(16, 32, false)
+  SDB_I8_SMALL(16, 64, false)
+  SDB_I8_SMALL(16, 128, false)
+  SDB_I8_SMALL(32, 32, false)
+  SDB_I8_SMALL(32, 64, false)
+  SDB_I8_SMALL(32, 128, false)
+  SDB_I8_SMALL(16, 32, true)
+  SDB_I8_SMALL(16, 64, true)
+  SDB_I8_SMALL(16, 128, true)
+  SDB_I8_SMALL(32, 32, true)
+  SDB_I8_SMALL(32, 64, true)
+  SDB_I8_SMALL(32, 128, true)
+#undef SDB_I8_SMALL
+  return cudaErrorInvalidValue;
+}
+
+// Every int8 entry: the small-block tensor-core loop at b = 16 and 32
+// (which reads lane_order), the ring at b = 64 and 128 (packed lane
+// order). Arguments as launch_small's and launch_ring's.
+cudaError_t launch_int8(const void* group_ptr, const void* win_ids,
+                        const void* pos, const void* lane_valid,
+                        const void* slot_cols, const void* lane_order,
+                        const void* qblocks, const void* scales,
+                        const void* qdense_t, const void* cs, void* out,
+                        int64_t n_lanes, int64_t n_block_rows, int64_t n_slots,
+                        int64_t n_dense_rows, int64_t F, int64_t R, int64_t gh,
+                        int64_t window, int64_t b, int64_t bn,
+                        int64_t group_scale, cudaStream_t stream) {
+  if (b == 16 || b == 32)
+    return n_slots > INT32_MAX  // the small loop's walk is 32-bit
+               ? cudaErrorInvalidValue
+               : launch_small(group_ptr, win_ids, pos, lane_valid, slot_cols,
+                              lane_order, qblocks, scales, qdense_t, cs, out,
+                              n_lanes, n_block_rows, n_dense_rows, F, R, gh,
+                              window, b, bn, group_scale, stream);
+  return launch_ring(group_ptr, win_ids, pos, lane_valid, slot_cols, qblocks,
+                     scales, qdense_t, cs, out, n_lanes, n_block_rows, n_slots,
+                     n_dense_rows, F, R, gh, window, b, bn, group_scale, stream);
 }
 
 }  // namespace
@@ -800,41 +962,43 @@ cudaError_t launch_flat(const void* step_ptr, const void* slot_cols,
 // stream is the caller's current stream. Returns the cudaError_t of the
 // launch (0 on success).
 
-// K6. b = 64 and 128 run the int8 ring on qdense_t, the (F, n_dense_rows)
-// transposed operand (qdense is not read), at F tiles of bn = 64 or 128
-// columns; b = 16 and 32 the dp4a loop on qdense (n_dense_rows, F), whose
-// tiles are 64 columns (bn must be 64; qdense_t is not read). The operand
-// the kernel reads must not be null. n_slots is the number of packed
+// K6. qdense_t is the (F, n_dense_rows) transposed operand, contiguous,
+// on 16 bytes, read at every b; lane_order (n_block_rows,) int32, the
+// CTAs' block-rows deepest first, read at b = 16 and 32, where it may not
+// be null. bn: 64 or 128 at b = 64 and 128 (the ring), 32, 64 or 128 at
+// 16 and 32 (the small-block loop). n_slots is the number of packed
 // slots.
 extern "C" int sdb_bsr_spmm_int8_flat(
-    const void* step_ptr, const void* slot_cols, const void* qblocks,
-    const void* scales, const void* qdense, const void* qdense_t,
+    const void* step_ptr, const void* slot_cols, const void* lane_order,
+    const void* qblocks, const void* scales, const void* qdense_t,
     const void* cs, void* out, int64_t n_block_rows, int64_t n_slots,
     int64_t n_dense_rows, int64_t F, int64_t group, int64_t b, int64_t bn,
     void* stream) {
-  return (int)launch_flat(step_ptr, slot_cols, qblocks, scales, qdense,
-                          qdense_t, cs, out, n_block_rows, n_slots,
-                          n_dense_rows, F, group, b, bn,
+  return (int)launch_int8(step_ptr, nullptr, nullptr, nullptr, slot_cols,
+                          lane_order, qblocks, scales, qdense_t, cs, out,
+                          n_block_rows, n_block_rows, n_slots, n_dense_rows, F,
+                          1, group, 1, b, bn, 0,
                           static_cast<cudaStream_t>(stream));
 }
 
-// K9: K6's kernels; qdense3 is the (nbc, b, F) operand, contiguous, read
-// as its (nbc*b, F) view, and qdense_t its (F, nbc*b) transpose.
+// K9: K6's kernels and arguments; qdense_t is the (F, nbc*b) transpose of
+// the (nbc, b, F) operand.
 extern "C" int sdb_bsr_spmm_int8_resident(
-    const void* step_ptr, const void* slot_cols, const void* qblocks,
-    const void* scales, const void* qdense3, const void* qdense_t,
+    const void* step_ptr, const void* slot_cols, const void* lane_order,
+    const void* qblocks, const void* scales, const void* qdense_t,
     const void* cs, void* out, int64_t n_block_rows, int64_t n_slots,
     int64_t n_dense_rows, int64_t F, int64_t group, int64_t b, int64_t bn,
     void* stream) {
-  return (int)launch_flat(step_ptr, slot_cols, qblocks, scales, qdense3,
-                          qdense_t, cs, out, n_block_rows, n_slots,
-                          n_dense_rows, F, group, b, bn,
+  return (int)launch_int8(step_ptr, nullptr, nullptr, nullptr, slot_cols,
+                          lane_order, qblocks, scales, qdense_t, cs, out,
+                          n_block_rows, n_block_rows, n_slots, n_dense_rows, F,
+                          1, group, 1, b, bn, 0,
                           static_cast<cudaStream_t>(stream));
 }
 
 // The operand of K6-K9 from the f32 x (n_rows, F), row stride ldx
 // elements (any alignment): q, n_out >= n_rows rows quantized per column
-// (rows >= n_rows are zeros), (F, n_out) with `transposed` (the ring's
+// (rows >= n_rows are zeros), (F, n_out) with `transposed` (the kernels'
 // operand; n_out must be a multiple of 16 and q 16-byte aligned), else
 // (n_out, F). static_scale (F,) f32 fixes the scales (col_scale and
 // absmax are not touched); with static_scale null the entry computes them
@@ -878,74 +1042,28 @@ extern "C" int sdb_quantize_int8(const void* x, const void* static_scale,
   return (int)cudaGetLastError();
 }
 
-// K7 and K8. b = 64 and 128 run the int8 ring on qdense_t, the (F,
-// n_dense_rows) transposed operand (qdense is not read), at F tiles of bn
-// = 64 or 128 columns; b = 16 and 32 the dp4a loop on qdense (N, F),
-// whose tiles are 64 columns (bn must be 64; qdense_t is not read). The
-// operand the kernel reads must not be null. n_slots is the number of
-// packed slots.
+// K7 and K8: qdense_t, lane_order (n_lanes,) and bn as for K6.
 extern "C" int sdb_bsr_spmm_int8_sorted(
     const void* group_ptr, const void* win_ids, const void* pos,
-    const void* lane_valid, const void* slot_cols, const void* qblocks,
-    const void* scales, const void* qdense, const void* qdense_t,
+    const void* lane_valid, const void* slot_cols, const void* lane_order,
+    const void* qblocks, const void* scales, const void* qdense_t,
     const void* cs, void* out, int64_t n_lanes, int64_t n_slots,
     int64_t n_dense_rows, int64_t F, int64_t R, int64_t gh, int64_t window,
     int64_t b, int64_t bn, int64_t group_scale, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (b == 64 || b == 128)
-    return (int)launch_ring(group_ptr, win_ids, pos, lane_valid, slot_cols,
-                            qblocks, scales, qdense_t, cs, out, n_lanes, 0,
-                            n_slots, n_dense_rows, F, R, gh, window, b, bn,
-                            group_scale, s);
-  if (bn != kBN || qdense == nullptr) return (int)cudaErrorInvalidValue;
-  int64_t n_ft;
-  dim3 grid;
-  cudaError_t err = grid_for(n_lanes, F, &n_ft, &grid);
-  if (err != cudaSuccess) return (int)err;
-  if (grid.x == 0) return (int)cudaSuccess;
-  const auto* gp = static_cast<const int64_t*>(group_ptr);
-  const auto* wi = static_cast<const int32_t*>(win_ids);
-  const auto* ps = static_cast<const int32_t*>(pos);
-  const auto* lv = static_cast<const uint8_t*>(lane_valid);
-  const auto* sc = static_cast<const int32_t*>(slot_cols);
-  const auto* qb = static_cast<const int8_t*>(qblocks);
-  const auto* sl = static_cast<const float*>(scales);
-  const auto* qd = static_cast<const int8_t*>(qdense);
-  const auto* cv = static_cast<const float*>(cs);
-  auto* o = static_cast<float*>(out);
-  if (group_scale) {
-    SDB_FOR_SMALL_BLOCK_SIZE(b, int8_sorted_kernel<BM, true><<<grid, kThreads, 0, s>>>(
-        gp, wi, ps, lv, sc, qb, sl, qd, cv, o, F, R, gh, window, n_ft))
-  } else {
-    SDB_FOR_SMALL_BLOCK_SIZE(b, int8_sorted_kernel<BM, false><<<grid, kThreads, 0, s>>>(
-        gp, wi, ps, lv, sc, qb, sl, qd, cv, o, F, R, gh, window, n_ft))
-  }
-  return (int)cudaGetLastError();
+  return (int)launch_int8(group_ptr, win_ids, pos, lane_valid, slot_cols,
+                          lane_order, qblocks, scales, qdense_t, cs, out,
+                          n_lanes, 0, n_slots, n_dense_rows, F, R, gh, window, b,
+                          bn, group_scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int sdb_bsr_spmm_int8_rowgroup(
-    const void* group_ptr, const void* slot_cols, const void* qblocks,
-    const void* scales, const void* qdense, const void* qdense_t,
+    const void* group_ptr, const void* slot_cols, const void* lane_order,
+    const void* qblocks, const void* scales, const void* qdense_t,
     const void* cs, void* out, int64_t n_lanes, int64_t n_block_rows,
     int64_t n_slots, int64_t n_dense_rows, int64_t F, int64_t R, int64_t gh,
     int64_t b, int64_t bn, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (b == 64 || b == 128)
-    return (int)launch_ring(group_ptr, nullptr, nullptr, nullptr, slot_cols,
-                            qblocks, scales, qdense_t, cs, out, n_lanes,
-                            n_block_rows, n_slots, n_dense_rows, F, R, gh, 1, b,
-                            bn, 0, s);
-  if (bn != kBN || qdense == nullptr) return (int)cudaErrorInvalidValue;
-  int64_t n_ft;
-  dim3 grid;
-  cudaError_t err = grid_for(n_lanes, F, &n_ft, &grid);
-  if (err != cudaSuccess) return (int)err;
-  if (grid.x == 0) return (int)cudaSuccess;
-  SDB_FOR_SMALL_BLOCK_SIZE(b, int8_rowgroup_kernel<BM><<<grid, kThreads, 0, s>>>(
-      static_cast<const int64_t*>(group_ptr),
-      static_cast<const int32_t*>(slot_cols),
-      static_cast<const int8_t*>(qblocks), static_cast<const float*>(scales),
-      static_cast<const int8_t*>(qdense), static_cast<const float*>(cs),
-      static_cast<float*>(out), n_block_rows, F, R, gh, n_ft))
-  return (int)cudaGetLastError();
+  return (int)launch_int8(group_ptr, nullptr, nullptr, nullptr, slot_cols,
+                          lane_order, qblocks, scales, qdense_t, cs, out,
+                          n_lanes, n_block_rows, n_slots, n_dense_rows, F, R, gh,
+                          1, b, bn, 0, static_cast<cudaStream_t>(stream));
 }

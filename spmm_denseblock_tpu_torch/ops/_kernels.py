@@ -67,22 +67,22 @@ _SIGNATURES = {
     # bf16 K4: the same pointers, then n_lanes, n_block_rows, n_slots,
     # n_dense_rows, F, ld, R, gh, b, bn, stream
     "sdb_bsr_spmm_rowgroup_bf16": ("bsr_spmm", [_P] * 6 + [_I] * 10 + [_P]),
-    # K6: step_ptr, slot_cols, qblocks, scales, qdense, qdense_t (the
-    # transposed operand, read at b = 64 and 128), cs, out, n_block_rows,
-    # n_slots, n_dense_rows, F, group, b, bn, stream
+    # K6: step_ptr, slot_cols, lane_order (read at b = 16 and 32),
+    # qblocks, scales, qdense_t (the transposed operand), cs, out,
+    # n_block_rows, n_slots, n_dense_rows, F, group, b, bn, stream
     "sdb_bsr_spmm_int8_flat": ("bsr_spmm_int8", [_P] * 8 + [_I] * 7 + [_P]),
     # K9: the same arguments, the operand viewed as (nbc, b, F)
     "sdb_bsr_spmm_int8_resident": ("bsr_spmm_int8", [_P] * 8 + [_I] * 7 + [_P]),
     # K6-K9's operand: x, static_scale, absmax, q, col_scale, ldx, n_rows,
     # F, n_out, transposed, stream
     "sdb_quantize_int8": ("bsr_spmm_int8", [_P] * 5 + [_I] * 5 + [_P]),
-    # K7: group_ptr, win_ids, pos, lane_valid, slot_cols, qblocks, scales,
-    # qdense, qdense_t (the transposed operand, read at b = 64 and 128),
-    # cs, out, n_lanes, n_slots, n_dense_rows, F, R, gh, window, b, bn,
-    # group_scale, stream
+    # K7: group_ptr, win_ids, pos, lane_valid, slot_cols, lane_order,
+    # qblocks, scales, qdense_t, cs, out, n_lanes, n_slots, n_dense_rows,
+    # F, R, gh, window, b, bn, group_scale, stream
     "sdb_bsr_spmm_int8_sorted": ("bsr_spmm_int8", [_P] * 11 + [_I] * 10 + [_P]),
-    # K8: group_ptr, slot_cols, qblocks, scales, qdense, qdense_t, cs, out,
-    # n_lanes, n_block_rows, n_slots, n_dense_rows, F, R, gh, b, bn, stream
+    # K8: group_ptr, slot_cols, lane_order, qblocks, scales, qdense_t, cs,
+    # out, n_lanes, n_block_rows, n_slots, n_dense_rows, F, R, gh, b, bn,
+    # stream
     "sdb_bsr_spmm_int8_rowgroup": ("bsr_spmm_int8", [_P] * 8 + [_I] * 9 + [_P]),
     # seg_start, seg_end, seg_dest, cols, vals, dense, out, partial,
     # split_row, part_ptr, n_seg, n_split, F, W (strip width), stream

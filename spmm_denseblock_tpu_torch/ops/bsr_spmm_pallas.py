@@ -595,9 +595,10 @@ def tile_geometry(b: int, n_rows: int, F: int, n_sms: int, row_align: int):
     than 64 columns and the grid (n_rows * ceil(F / 128) CTAs) still
     covers the SMs, else 64 (the ring's two-level sums hold 2 x bn/2
     registers a thread, which caps bn at 128). b = 16 and 32: 64-column
-    tiles, int8's dp4a loop; the bf16, K3 and exact-f32 entries there take
-    bf16_small_geometry's or f32_small_geometry's width instead, which
-    keeps the plan's deepest lane in view."""
+    tiles, at which no entry launches: the bf16, K3, exact-f32 and int8
+    entries there take bf16_small_geometry's, f32_small_geometry's or
+    int8_small_geometry's width, which keeps the plan's deepest lane in
+    view."""
     ld = -(-F // row_align) * row_align
     if b < 64:
         return 64, ld

@@ -21,20 +21,22 @@ four kernels:
 
 Every kernel sums int8 x int8 products exactly in int32, scales the sum
 to f32 with the slot's (or the lane-step's) block scale, and multiplies
-the f32 sum by the column's operand scale before the store. At b = 64
-and 128 they run on the int8 tensor cores, whose s8 products take the
+the f32 sum by the column's operand scale before the store. They run on
+the int8 tensor cores (the wgmma ring at b = 64 and 128, the small-block
+mma.sync loop at b = 16 and 32, which takes its CTAs' lanes from the
+plan's ``lane_order``, deepest first), whose s8 products take the
 operand K-major: they read the transposed operand, (F, N). On the card a
 plan's call makes it with one kernel (``quantize_int8``: the f32 operand
-quantized, zero-padded and written (F, N), or (N, F) for the dp4a loop
-at b = 16 and 32), in place of the JAX plan's ``_quantize_cols`` and
-the pad; an operand quantized elsewhere, (N, F), is transposed by
-``transpose_operand``. Beside each kernel sits its plain PyTorch
-version on the same packed arrays: the int8 products in f32 (exact: |q
-q| b <= 127^2 * 128 < 2^24), a group-scale lane sum in float64 (exact,
-as the int32 sum is), then the scales in f32; the quantization's is
-``quantize_per_column`` with the pad, then ``transpose_operand``. A
-wrapper runs the plain version only for CPU tensors; for CUDA tensors it
-launches the kernel or raises. Inference only.
+quantized, zero-padded and written (F, N)), in place of the JAX plan's
+``_quantize_cols`` and the pad; an operand quantized elsewhere, (N, F),
+is transposed by ``transpose_operand``. Beside each kernel sits its
+plain PyTorch version on the same packed arrays: the int8 products in
+f32 (exact: |q q| b <= 127^2 * 128 < 2^24), a group-scale lane sum in
+float64 (exact, as the int32 sum is), then the scales in f32; the
+quantization's is ``quantize_per_column`` with the pad, then
+``transpose_operand``. A wrapper runs the plain version only for CPU
+tensors; for CUDA tensors it launches the kernel or raises. Inference
+only.
 
 Layout policy: the JAX plan's gate without the TPU's VMEM fit checks,
 SMEM chunking and environment knobs. ``f_tile`` is taken for its
@@ -70,10 +72,13 @@ from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import (
     _pack_rowgroups,
     _pack_rowgroups_sorted,
     _rowgroup_policy,
+    _lane_order_arg,
+    _small_bn,
     _sm_count,
     check_cuda_operands,
     check_rowgroup_geometry,
     group_pointer,
+    lane_order,
     lane_scatter,
     rowgroup_lanes,
     sorted_lanes,
@@ -205,12 +210,13 @@ def _operand_view(qdense, qdense_t):
 
 def spmm_int8_flat(step_rows, step_ptr, slot_cols, qblocks, scales, qdense,
                    col_scale, group: int, resident: bool = False,
-                   qdense_t=None) -> torch.Tensor:
+                   qdense_t=None, lane_order=None,
+                   depth: Optional[int] = None) -> torch.Tensor:
     """K6: C (n_block_rows*b, F) f32 on the flat layout, per-slot scales
     (S,). step_ptr (n_block_rows+1,) int64 points each block-row at its
-    steps. qdense and qdense_t as for spmm_int8_sorted. resident=True
-    launches the same kernels through K9's entry (``spmm_int8_resident``).
-    CPU tensors run spmm_int8_flat_plain."""
+    steps. qdense, qdense_t, lane_order and depth as for spmm_int8_sorted.
+    resident=True launches the same kernels through K9's entry
+    (``spmm_int8_resident``). CPU tensors run spmm_int8_flat_plain."""
     op = _operand_view(qdense, qdense_t)
     dev = _device_of(step_rows, step_ptr, slot_cols, qblocks, scales, op,
                      col_scale)
@@ -226,21 +232,21 @@ def spmm_int8_flat(step_rows, step_ptr, slot_cols, qblocks, scales, qdense,
         raise ValueError("slot_cols and qblocks must hold n_steps*group slots")
     b = qblocks.shape[1]
     N, F = op.shape
-    qdense, qdense_t, bn = _ring_args(qblocks, qdense, qdense_t, n_block_rows, dev)
+    qdense_t, bn = _launch_args(qblocks, qdense, qdense_t, n_block_rows, dev, depth)
     out = torch.empty(n_block_rows * b, F, dtype=torch.float32, device=dev)
     kernel = (_kernels.bsr_spmm_int8_resident if resident
               else _kernels.bsr_spmm_int8_flat)
     _launch(kernel, dev,
-            step_ptr.data_ptr(), slot_cols.data_ptr(), qblocks.data_ptr(),
-            scales.data_ptr(), _ptr(qdense), _ptr(qdense_t),
-            col_scale.data_ptr(), out.data_ptr(), n_block_rows,
-            qblocks.shape[0], N, F, group, b, bn)
+            step_ptr.data_ptr(), slot_cols.data_ptr(),
+            _lane_order_arg(lane_order, n_block_rows, dev), qblocks.data_ptr(),
+            scales.data_ptr(), qdense_t.data_ptr(), col_scale.data_ptr(),
+            out.data_ptr(), n_block_rows, qblocks.shape[0], N, F, group, b, bn)
     return out
 
 
 def spmm_int8_resident(step_rows, step_ptr, slot_cols, qblocks, scales,
-                       qdense3, col_scale, group: int,
-                       qdense_t=None) -> torch.Tensor:
+                       qdense3, col_scale, group: int, qdense_t=None,
+                       lane_order=None, depth: Optional[int] = None) -> torch.Tensor:
     """K9: C (n_block_rows*b, F) f32 on K6's packed arrays with the
     operand qdense3 viewed as (nbc, b, F) (or None, with qdense_t its
     (F, nbc*b) transpose). On the TPU the layout keeps the whole operand
@@ -250,49 +256,67 @@ def spmm_int8_resident(step_rows, step_ptr, slot_cols, qblocks, scales,
     qdense = None if qdense3 is None else _flat_view(qdense3, qblocks.shape[1])
     return spmm_int8_flat(step_rows, step_ptr, slot_cols, qblocks, scales,
                           qdense, col_scale, group, resident=True,
-                          qdense_t=qdense_t)
+                          qdense_t=qdense_t, lane_order=lane_order, depth=depth)
 
 
-def int8_tile_bn(b: int, n_rows: int, F: int, n_sms: int) -> int:
+# How many CTAs of a grid's average work a hub lane's CTA may take on
+# the small-block int8 tensor-core loop (as F32_SMALL_HUB_SHARE and
+# BF16_SMALL_HUB_SHARE for the f32 and bf16 loops): on the arxiv stand-in
+# this share picked the fastest of BN = 32, 64 and 128 for int8 K7 at b
+# = 32 and 16 and K6 at 32 under gorder (64 each) and K7 at 32 under rcmk
+# (128, no hub); 2 took 32 at b = 16, 5% slower than 64
+# (scripts/torch_kernel_variants.py int8_small)
+INT8_SMALL_HUB_SHARE = 1.5
+
+
+def int8_small_geometry(b: int, F: int, n_sms: int, n_slots: int, depth: int) -> int:
+    """The F tile width of the int8 entries at b = 16 and 32 (the
+    small-block tensor-core loop: 4 warps a CTA, each bn/4 columns of the
+    b x bn tile) for a plan of n_slots slots whose deepest lane holds
+    `depth`: _small_bn's width, 32, 64 or 128, at INT8_SMALL_HUB_SHARE.
+    The loop reads the transposed operand, whose rows need no padding."""
+    return _small_bn(F, n_sms, n_slots, depth, INT8_SMALL_HUB_SHARE)
+
+
+def int8_tile_bn(b: int, n_rows: int, F: int, n_sms: int, n_slots: int = 0,
+                 depth: Optional[int] = None) -> int:
     """The F tile width of an int8 launch over n_rows block-rows (K7's
-    valid lanes, K8's lanes, K6's and K9's rows): tile_geometry's, 64 or
-    128 columns at b = 64 and 128 (the int8 ring), 64 below (the dp4a
-    loop). The ring reads the transposed operand, whose rows need no
-    padding."""
-    return tile_geometry(b, n_rows, F, n_sms, 1)[0]
+    valid lanes, K8's lanes, K6's and K9's rows) of n_slots slots whose
+    deepest lane holds `depth`: at b = 64 and 128 (the int8 ring)
+    tile_geometry's, 64 or 128 columns; at b = 16 and 32 (the small-block
+    loop) int8_small_geometry's, which needs the depth (it raises
+    without one)."""
+    if b >= 64:
+        return tile_geometry(b, n_rows, F, n_sms, 1)[0]
+    if depth is None:
+        raise ValueError("the int8 entries at b = 16 and 32 need the plan's "
+                         "deepest lane (depth) and lane_order")
+    return int8_small_geometry(b, F, n_sms, n_slots, depth)
 
 
 def transpose_operand(qdense: torch.Tensor) -> torch.Tensor:
-    """qdense (N, F) int8 as the int8 ring reads it: (F, N), K-major for
+    """qdense (N, F) int8 as the int8 kernels read it: (F, N), K-major for
     the tensor cores' s8 products, a contiguous copy that starts on 16
-    bytes (the TMA map's base) whatever the strides and offset of qdense."""
+    bytes (the TMA map's base, the 16-byte copies' source) whatever the
+    strides and offset of qdense."""
     qt = qdense.t().contiguous()
     return qt.clone() if qt.data_ptr() % 16 else qt
-
-
-def reads_transposed(b: int) -> bool:
-    """Whether the int8 kernels at block size b read the transposed
-    operand (the ring, b = 64 and 128) rather than qdense (N, F)."""
-    return b >= 64
 
 
 def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def _ring_args(qblocks, qdense, qdense_t, n_block_rows: int, dev) -> tuple:
-    """(qdense, qdense_t, bn) of an int8 launch; one of qdense (N, F) and
-    qdense_t (F, N) may be None. At b = 64 and 128 the ring reads
-    qdense_t, made here (transpose_operand) unless the caller passes it;
-    at b = 16 and 32 the dp4a loop reads qdense, contiguous, and qdense_t
-    is None."""
+def _launch_args(qblocks, qdense, qdense_t, n_block_rows: int, dev,
+                 depth: Optional[int]) -> tuple:
+    """(qdense_t, bn) of an int8 launch; one of qdense (N, F) and
+    qdense_t (F, N) may be None. The kernels read qdense_t at every b,
+    made here (transpose_operand) unless the caller passes it; bn is
+    int8_tile_bn's for the plan's deepest lane (`depth` slots)."""
     b = qblocks.shape[1]
     N, F = _operand_view(qdense, qdense_t).shape
-    bn = int8_tile_bn(b, n_block_rows, F, _sm_count(dev.index))
-    if not reads_transposed(b):
-        if qdense is None:
-            raise ValueError(f"at b = {b} the int8 kernels read qdense (N, F)")
-        return qdense.contiguous(), None, bn
+    bn = int8_tile_bn(b, n_block_rows, F, _sm_count(dev.index), qblocks.shape[0],
+                      depth)
     if qdense_t is None:
         qdense_t = transpose_operand(qdense)
     elif (qdense_t.shape != (F, N) or qdense_t.dtype != torch.int8
@@ -300,19 +324,22 @@ def _ring_args(qblocks, qdense, qdense_t, n_block_rows: int, dev) -> tuple:
           or qdense_t.data_ptr() % 16):
         raise ValueError(f"qdense_t must be transpose_operand(qdense): ({F}, {N}) "
                          "int8 on the operand's device, contiguous, 16-byte aligned")
-    return qdense, qdense_t, bn
+    return qdense_t, bn
 
 
 def spmm_int8_sorted(win_ids, pos, slot_cols, qblocks, scales, qdense,
                      col_scale, lane_valid, group_ptr, n_block_rows: int,
                      R: int, gh: int, window: int, group_scale: bool,
-                     qdense_t=None) -> torch.Tensor:
+                     qdense_t=None, lane_order=None,
+                     depth: Optional[int] = None) -> torch.Tensor:
     """K7: C (n_block_rows*b, F) f32 on the depth-sorted layout. scales:
     (T*R,) one per lane-step with group_scale (int32 lane sums), else
-    (T*G,) one per slot. qdense may have any strides. At b = 64 and 128
-    the kernel is the int8 ring on transpose_operand(qdense), or on
-    qdense_t where the caller made it already (qdense may then be None).
-    CPU tensors run spmm_int8_sorted_plain."""
+    (T*G,) one per slot. qdense may have any strides. The kernels (the
+    int8 ring at b = 64 and 128, the small-block tensor-core loop at 16
+    and 32) read transpose_operand(qdense), or qdense_t where the caller
+    made it already (qdense may then be None). lane_order (n_groups*R,)
+    int32 and depth, the plan's (``lane_order``), are read at b = 16 and
+    32, which needs them. CPU tensors run spmm_int8_sorted_plain."""
     op = _operand_view(qdense, qdense_t)
     dev = _device_of(win_ids, pos, slot_cols, qblocks, scales, op,
                      col_scale, lane_valid, group_ptr)
@@ -337,24 +364,26 @@ def spmm_int8_sorted(win_ids, pos, slot_cols, qblocks, scales, qdense,
         raise ValueError("slot_cols and qblocks must hold n_steps*R*gh slots")
     b = qblocks.shape[1]
     N, F = op.shape
-    qdense, qdense_t, bn = _ring_args(qblocks, qdense, qdense_t, n_block_rows, dev)
+    qdense_t, bn = _launch_args(qblocks, qdense, qdense_t, n_block_rows, dev, depth)
     out = torch.empty(n_block_rows * b, F, dtype=torch.float32, device=dev)
     _launch(_kernels.bsr_spmm_int8_sorted, dev,
             group_ptr.data_ptr(), win_ids.data_ptr(), pos.data_ptr(),
-            lane_valid.data_ptr(), slot_cols.data_ptr(), qblocks.data_ptr(),
-            scales.data_ptr(), _ptr(qdense), _ptr(qdense_t),
-            col_scale.data_ptr(), out.data_ptr(), n_lanes, qblocks.shape[0], N,
-            F, R, gh, window, b, bn, int(group_scale))
+            lane_valid.data_ptr(), slot_cols.data_ptr(),
+            _lane_order_arg(lane_order, n_lanes, dev), qblocks.data_ptr(),
+            scales.data_ptr(), qdense_t.data_ptr(), col_scale.data_ptr(),
+            out.data_ptr(), n_lanes, qblocks.shape[0], N, F, R, gh, window, b,
+            bn, int(group_scale))
     return out
 
 
 def spmm_int8_rowgroup(step_groups, group_ptr, slot_cols, qblocks, scales,
                        qdense, col_scale, n_block_rows: int, R: int,
-                       gh: int, qdense_t=None) -> torch.Tensor:
+                       gh: int, qdense_t=None, lane_order=None,
+                       depth: Optional[int] = None) -> torch.Tensor:
     """K8: C (n_block_rows*b, F) f32 on the consecutive row-group layout,
-    per-slot scales (T*G,). Phantom lanes store nothing. qdense and
-    qdense_t as for spmm_int8_sorted. CPU tensors run
-    spmm_int8_rowgroup_plain."""
+    per-slot scales (T*G,). Phantom lanes store nothing. qdense,
+    qdense_t, lane_order (n_groups*R,) and depth as for spmm_int8_sorted.
+    CPU tensors run spmm_int8_rowgroup_plain."""
     op = _operand_view(qdense, qdense_t)
     dev = _device_of(step_groups, group_ptr, slot_cols, qblocks, scales,
                      op, col_scale)
@@ -370,13 +399,15 @@ def spmm_int8_rowgroup(step_groups, group_ptr, slot_cols, qblocks, scales,
                             n_block_rows, R, gh)
     b = qblocks.shape[1]
     N, F = op.shape
-    qdense, qdense_t, bn = _ring_args(qblocks, qdense, qdense_t, n_block_rows, dev)
+    qdense_t, bn = _launch_args(qblocks, qdense, qdense_t, n_block_rows, dev, depth)
+    n_lanes = (group_ptr.shape[0] - 1) * R
     out = torch.empty(n_block_rows * b, F, dtype=torch.float32, device=dev)
     _launch(_kernels.bsr_spmm_int8_rowgroup, dev,
-            group_ptr.data_ptr(), slot_cols.data_ptr(), qblocks.data_ptr(),
-            scales.data_ptr(), _ptr(qdense), _ptr(qdense_t),
-            col_scale.data_ptr(), out.data_ptr(), (group_ptr.shape[0] - 1) * R,
-            n_block_rows, qblocks.shape[0], N, F, R, gh, b, bn)
+            group_ptr.data_ptr(), slot_cols.data_ptr(),
+            _lane_order_arg(lane_order, n_lanes, dev), qblocks.data_ptr(),
+            scales.data_ptr(), qdense_t.data_ptr(), col_scale.data_ptr(),
+            out.data_ptr(), n_lanes, n_block_rows, qblocks.shape[0], N, F, R, gh,
+            b, bn)
     return out
 
 
@@ -485,7 +516,13 @@ def bsr_spmm_pallas_int8_plan(
     groups (K8) at R = 8, gh = min(group, 16). f_tile changes no answer:
     the K9 plan checks at call time that it divides the operand's width
     rounded up to 128, as the JAX plan does; the TPU's VMEM budget is
-    not checked."""
+    not checked.
+
+    Arrays: the layout's packed arrays (the JAX plan's, then the port's
+    group or step pointer), the CTA -> lane order of the kernels at b = 16
+    and 32 (``lane_order``), then, when calibrated, the static column
+    scales. Statics: (layout, nbr, n_rows, n_cols, k_needed, geom, depth,
+    calibrated), depth the deepest lane's slots."""
     device = resolve_device(device)
     reject_grad_request({"grad": grad}, "bsr_int8_pallas")
     covered = _ensure_covering(bsr)
@@ -519,7 +556,9 @@ def bsr_spmm_pallas_int8_plan(
         else:
             qblocks, scales = quantize_blocks(blocks_pad)
         group_ptr = np.concatenate([[0], np.cumsum(steps_per_group)])
-        arrays = [win_ids, slot_cols, qblocks, scales, pos, lane_valid, group_ptr]
+        order, depth = lane_order(group_ptr, R, gh)
+        arrays = [win_ids, slot_cols, qblocks, scales, pos, lane_valid, group_ptr,
+                  order]
         layout, geom = "sorted", (R, gh, W, group_scale)
     elif rowgroup_likely:
         if group_was_auto:
@@ -529,8 +568,9 @@ def bsr_spmm_pallas_int8_plan(
             rows_h, cols_h, blocks_h, group, R
         )
         qblocks, scales = quantize_blocks(blocks_pad)
-        arrays = [step_groups, slot_cols, qblocks, scales,
-                  group_pointer(step_groups, n_groups)]
+        group_ptr = group_pointer(step_groups, n_groups)
+        order, depth = lane_order(group_ptr, R, group)
+        arrays = [step_groups, slot_cols, qblocks, scales, group_ptr, order]
         layout, geom = "rowgroup", (R, group)
     else:
         step_rows, slot_cols, blocks_pad = _pack_groups(
@@ -538,14 +578,17 @@ def bsr_spmm_pallas_int8_plan(
         )
         qblocks, scales = quantize_blocks(blocks_pad)
         step_ptr = np.searchsorted(step_rows, np.arange(nbr + 1)).astype(np.int64)
-        arrays = [step_rows, slot_cols, qblocks, scales, step_ptr]
+        order, depth = lane_order(step_ptr, 1, group)
+        arrays = [step_rows, slot_cols, qblocks, scales, step_ptr, order]
         if resident:  # only with an explicit f_tile: K9
             layout, geom = "resident", (group, int(f_tile))
         else:
             layout, geom = "flat", group
+    # the layout's arrays end with the CTA -> lane order (deepest lane
+    # first), then a calibrated plan's static column scales
     if calibration is not None:
         arrays.append(static_col_scale(calibration))
-    statics = (layout, nbr, n_rows, n_cols, k_needed, geom,
+    statics = (layout, nbr, n_rows, n_cols, k_needed, geom, depth,
                calibration is not None)
     return Plan(arrays, _int8_pallas_apply, statics, device=device)
 
@@ -555,7 +598,7 @@ def quantize_operand(plan: Plan, dense, transposed: bool = False):
     block grid, quantized per column with the plan's static scales or
     this operand's: quantize_int8 (the kernel on CUDA tensors, its plain
     version on CPU ones). Returns (qdense (N, F) int8, col_scale f32), or
-    with transposed=True the ring's (F, N) operand in place of qdense."""
+    with transposed=True the kernels' (F, N) operand in place of qdense."""
     return _quantize(plan.statics, plan.arrays, dense, transposed)
 
 
@@ -564,14 +607,14 @@ def run_quantized(plan: Plan, qdense, col_scale, plain: bool = False,
     """The plan's kernel (or its plain version) on an operand already
     quantized by quantize_operand: C (n_rows, F) f32. qdense_t: the
     operand already transposed (quantize_operand(transposed=True) or
-    transpose_operand(qdense)), which the kernels at b = 64 and 128 then
-    read instead of making it; qdense may then be None."""
+    transpose_operand(qdense)), which the kernels then read instead of
+    making it; qdense may then be None."""
     return _run(plan.statics, plan.arrays, qdense, col_scale, plain, qdense_t)
 
 
 def _quantize(statics, arrays, dense, transposed: bool = False,
               plain: bool = False):
-    _, _, _, n_cols, k_needed, _, calibrated = statics
+    n_cols, k_needed, calibrated = statics[3], statics[4], statics[7]
     dense = torch.as_tensor(dense, device=arrays[2].device).to(torch.float32)
     if dense.dim() != 2 or dense.shape[0] != n_cols:
         raise ValueError(f"dense must be ({n_cols}, F), got {tuple(dense.shape)}")
@@ -582,15 +625,18 @@ def _quantize(statics, arrays, dense, transposed: bool = False,
 
 
 def _run(statics, arrays, qdense, col_scale, plain: bool, qdense_t=None):
-    layout, nbr, n_rows, _, _, geom, _ = statics
+    layout, nbr, n_rows, _, _, geom, depth, _ = statics
     if plain:
         qdense, qdense_t = _operand_view(qdense, qdense_t), None
+    n_layout = 7 if layout == "sorted" else 5  # the lane order follows
+    # the walk's CTA -> lane order and deepest lane (read at b = 16 and 32)
+    walk = {"qdense_t": qdense_t, "lane_order": arrays[n_layout], "depth": depth}
     if layout == "sorted":
         win_ids, slot_cols, qblocks, scales, pos, lane_valid, group_ptr = arrays[:7]
         args = (win_ids, pos, slot_cols, qblocks, scales, qdense, col_scale,
                 lane_valid, group_ptr, nbr, *geom)
         out = (spmm_int8_sorted_plain(*args) if plain
-               else spmm_int8_sorted(*args, qdense_t=qdense_t))
+               else spmm_int8_sorted(*args, **walk))
     elif layout == "rowgroup":
         step_groups, slot_cols, qblocks, scales, group_ptr = arrays[:5]
         if plain:
@@ -600,7 +646,7 @@ def _run(statics, arrays, qdense, col_scale, plain: bool, qdense_t=None):
         else:
             out = spmm_int8_rowgroup(step_groups, group_ptr, slot_cols,
                                      qblocks, scales, qdense, col_scale, nbr,
-                                     *geom, qdense_t=qdense_t)
+                                     *geom, **walk)
     elif layout == "resident":
         step_rows, slot_cols, qblocks, scales, step_ptr = arrays[:5]
         group = geom[0]
@@ -613,8 +659,7 @@ def _run(statics, arrays, qdense, col_scale, plain: bool, qdense_t=None):
                                            group)
         else:
             out = spmm_int8_resident(step_rows, step_ptr, slot_cols, qblocks,
-                                     scales, qdense3, col_scale, group,
-                                     qdense_t=qdense_t)
+                                     scales, qdense3, col_scale, group, **walk)
     else:
         step_rows, slot_cols, qblocks, scales, step_ptr = arrays[:5]
         if plain:
@@ -622,8 +667,7 @@ def _run(statics, arrays, qdense, col_scale, plain: bool, qdense_t=None):
                                        qdense, col_scale, nbr, geom)
         else:
             out = spmm_int8_flat(step_rows, step_ptr, slot_cols, qblocks,
-                                 scales, qdense, col_scale, geom,
-                                 qdense_t=qdense_t)
+                                 scales, qdense, col_scale, geom, **walk)
     return out[:n_rows]
 
 
@@ -640,10 +684,8 @@ def _check_f_tile(statics, F: int) -> None:
 
 def _int8_pallas_apply(statics, arrays, dense, plain: bool = False):
     # on the card one quantize_int8 launch writes the operand in the
-    # layout the kernel reads: transposed for the ring (b = 64 and 128)
-    qblocks = arrays[2]
-    transposed = (not plain and qblocks.device.type == "cuda"
-                  and reads_transposed(qblocks.shape[1]))
+    # layout the kernels read, transposed
+    transposed = not plain and arrays[2].device.type == "cuda"
     q, col_scale = _quantize(statics, arrays, dense, transposed, plain)
     if transposed:
         return _run(statics, arrays, None, col_scale, False, qdense_t=q)

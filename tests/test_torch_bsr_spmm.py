@@ -811,8 +811,8 @@ def test_bf16_exact_case_bit_exact(depth_sort, layout):
     (128, 1024, 133, (128, 136)),
     (64, 1024, 129, (128, 136)),
     (128, 1024, 600, (128, 600)),
-    (32, 1024, 133, (64, 136)),    # b < 64: 64-column tiles (int8's dp4a
-    (16, 5, 70, (64, 72)),         # loop), rows padded as at every b
+    (32, 1024, 133, (64, 136)),    # b < 64: 64-column tiles (no entry
+    (16, 5, 70, (64, 72)),         # launches them), rows padded as at every b
 ]] + [  # one SM: every grid covers it, so F alone sets the width
     (128, 1, F, 1, (bn, -(-F // 8) * 8))
     for F, bn in ((1, 64), (64, 64), (65, 128), (128, 128), (129, 128), (4096, 128))

@@ -9,8 +9,9 @@ two tensor-core loops) and its operand split,
 the int8 kernels K6 (flat), K7
 (depth-sorted, group-scale and per-slot scales), K8 (consecutive row
 groups) and K9 (single-row resident), all four on the int8 tensor cores
-at b = 64 and 128, and their operand's quantization (quantize_int8, bit
-for bit), and the CSR kernel K10 (one strip,
+(the wgmma ring at b = 64 and 128, the small-block mma.sync loop at b =
+16 and 32, with its hub lanes), and their operand's quantization
+(quantize_int8, bit for bit), and the CSR kernel K10 (one strip,
 and column strips) against their plain PyTorch versions on the card,
 their launch counters, the wrappers' refusals, and grad plans' backward on
 the card against the plain backward. CUDA kernels have no CPU mode, so
@@ -383,7 +384,7 @@ def test_int8_wrappers_refuse_bad_operands():
     scales array fed to the group-scale layout (and back) raises."""
     bsr = _bsr(21, 16, 0.4, seed=4)
     plan = TI.bsr_spmm_pallas_int8_plan(bsr, depth_sort=True, device="cuda")
-    win_ids, slot_cols, qblocks, scales, pos, lane_valid, group_ptr = plan.arrays
+    win_ids, slot_cols, qblocks, scales, pos, lane_valid, group_ptr = plan.arrays[:7]
     nbr = plan.statics[1]
     R, gh, W, _ = plan.statics[5]
     q, cs = TI.quantize_operand(plan, _x(bsr))
@@ -405,37 +406,47 @@ def test_int8_wrappers_refuse_bad_operands():
     with pytest.raises(ValueError, match="device"):
         run(qblocks, scales, True, qd=q.cpu())
     flat = TI.bsr_spmm_pallas_int8_plan(bsr, resident=False, device="cuda")
-    step_rows, f_cols, f_q, f_scales, step_ptr = flat.arrays
+    step_rows, f_cols, f_q, f_scales, step_ptr = flat.arrays[:5]
     with pytest.raises(ValueError, match="scales"):
         TI.spmm_int8_flat(step_rows, step_ptr, f_cols, f_q, f_scales[:-1], q,
                           cs, flat.statics[5])
     assert [k.launches for k in _kernels.KERNELS] == counts
 
 
-def saturated_lane_case(device="cpu"):
-    """A group-scale plan whose lane sums pass 2^24: 8 block-rows of 16
-    all-ones 128 x 128 blocks at gh=16 (one lane-step per row) and an
-    all-ones operand, so every entry quantizes to 127 and each output is
-    one lane sum of 2048 products 127^2 = 33,032,192. A float32 running
-    sum rounds past 2^24; an exact sum does not."""
-    nb, b = 8, 128
-    rows = np.repeat(np.arange(nb), 16).astype(np.int32)
-    cols = np.tile(np.arange(16), nb).astype(np.int32)
-    blocks = np.ones((nb * 16, b, b), np.float32)
-    bsr = BSR.from_parts(rows, cols, blocks, (nb * b, 16 * b), b)
-    plan = TI.bsr_spmm_pallas_int8_plan(bsr, depth_sort=True, group=16,
+def saturated_lane_case(device="cpu", b=128, signed=False):
+    """A group-scale plan whose lane sums pass 2^24: 8 block-rows of gh =
+    2048 / b blocks (one lane-step per row; 16 at b = 128, 64 at b = 32)
+    and an operand whose entries all quantize to +-127: all ones, or with
+    signed=True each depth k's block column and operand row of one sign
+    s_k, so every product is +127^2. Each output is one lane sum of 2048
+    products 127^2 = 33,032,192. A float32 running sum rounds past 2^24;
+    an exact sum does not."""
+    nb, gh = 8, 2048 // b
+    rows = np.repeat(np.arange(nb), gh).astype(np.int32)
+    cols = np.tile(np.arange(gh), nb).astype(np.int32)
+    sign = (np.where(np.random.default_rng(b).random(gh * b) < 0.5, -1.0, 1.0)
+            if signed else np.ones(gh * b)).astype(np.float32)
+    blocks = np.broadcast_to(sign.reshape(gh, 1, b), (gh, b, b))
+    blocks = np.tile(blocks, (nb, 1, 1)).astype(np.float32)
+    bsr = BSR.from_parts(rows, cols, blocks, (nb * b, gh * b), b)
+    plan = TI.bsr_spmm_pallas_int8_plan(bsr, depth_sort=True, group=gh,
                                         device=device)
-    x = torch.ones(16 * b, 8, device=device)
+    x = torch.as_tensor(np.repeat(sign[:, None], 8, axis=1), device=device)
     exact = np.float32(np.float32(1 / 127.0) * np.float32(33032192.0))
     exact = np.float32(np.float32(1.0 / 127.0) * exact)
     return plan, x, exact
 
 
-def test_int8_group_scale_sum_is_exact():
-    """K7's group-scale lane sum passes 2^24 (127^2 * 128 * 16) and stays
-    exact in int32: the kernel's answer equals the plain version's (an
-    exact float64 sum) bit for bit."""
-    plan, x, exact = saturated_lane_case(device="cuda")
+@pytest.mark.parametrize("b,signed", [(128, False), (32, True)])
+def test_int8_group_scale_sum_is_exact(b, signed):
+    """K7's group-scale lane sum passes 2^24 (127^2 * 2048) and stays
+    exact in int32, on the ring (b = 128, all ones) and on the small-block
+    loop (b = 32, 64 slots a lane-step, blocks and operand at +-127): the
+    kernel's answer equals the plain version's (an exact float64 sum) and
+    the exact lane sum bit for bit."""
+    plan, x, exact = saturated_lane_case(device="cuda", b=b, signed=signed)
+    assert plan.statics[5][:2] == (8, 2048 // b)
+    assert plan.arrays[2].abs().min() == 127
     got = _check(plan, x, _kernels.bsr_spmm_int8_sorted)
     assert torch.equal(got, TI.run_quantized(plan, *TI.quantize_operand(plan, x),
                                              plain=True))
@@ -466,18 +477,22 @@ def _int8_plan(bsr, case):
 @pytest.mark.parametrize("wide", [False, True])
 @pytest.mark.parametrize("F", [70, 256])
 @pytest.mark.parametrize("nb", [7, 37])
-@pytest.mark.parametrize("b", [64, 128])
+@pytest.mark.parametrize("b", [16, 32, 64, 128])
 @pytest.mark.parametrize("case", list(INT8_RING_CASES))
 def test_int8_ring_bit_exact(case, b, nb, F, wide, monkeypatch):
     """On int8_exact_case nothing rounds before the column scale, so K7
-    (both scale modes), K8, K6 and K9 on the ring must equal float64 and
-    their plain versions bit for bit: a swizzle, descriptor or fragment
-    error would show. 37 block-rows leave absent (K7) and phantom (K8)
-    lanes, and empty rows (K6, K9: a row of zero blocks); F = 70 is
-    ragged (rows of the transposed operand past F read as zeros); tiles
-    of 64 columns and of the widest the F needs."""
+    (both scale modes), K8, K6 and K9 on the ring (b = 64 and 128) and on
+    the small-block loop (b = 16 and 32) must equal float64 and their
+    plain versions bit for bit: a swizzle, descriptor, ldmatrix or
+    fragment error would show. 37 block-rows leave absent (K7) and
+    phantom (K8) lanes, and empty rows (K6, K9: a row of zero blocks); F =
+    70 is ragged (rows of the transposed operand past F read as zeros);
+    the ring at tiles of 64 columns and of the widest the F needs, the
+    small-block loop at 32 columns and at its geometry's width."""
     if wide:  # one SM: every F > 64 takes 128-column tiles
         monkeypatch.setattr(TI, "_sm_count", lambda index: 1)
+    elif b < 64:
+        _force_int8_small_bn(monkeypatch, 32)
     bsr, x, want = int8_exact_case(b, F, seed=b + nb + F, n_block_rows=nb)
     plan, kernel = _int8_plan(bsr, case)
     x = torch.as_tensor(x, device="cuda")
@@ -488,13 +503,12 @@ def test_int8_ring_bit_exact(case, b, nb, F, wide, monkeypatch):
 
 @pytest.mark.parametrize("view", ["offset", "strided"])
 @pytest.mark.parametrize("case", ["sorted", "rowgroup", "flat", "resident"])
-@pytest.mark.parametrize("b", [16, 64, 128])
+@pytest.mark.parametrize("b", [16, 32, 64, 128])
 def test_int8_operand_at_odd_offset(b, case, view):
     """K7, K8, K6 and K9 on a quantized operand 1 byte past a 16-byte boundary
-    (contiguous) and on a non-contiguous one: the ring's transposed copy
-    is aligned and contiguous whatever it is given, the dp4a loop (b =
-    16) reads a contiguous copy; both equal float64 and the plain
-    version bit for bit."""
+    (contiguous) and on a non-contiguous one: the transposed copy both
+    loops read is aligned and contiguous whatever it is given; the answer
+    equals float64 and the plain version bit for bit."""
     bsr, x, want = int8_exact_case(b, 256, seed=b + 1)
     plan, kernel = _int8_plan(bsr, case)
     q, cs = TI.quantize_operand(plan, torch.as_tensor(x, device="cuda"))
@@ -544,42 +558,102 @@ def test_int8_ring_takes_a_transposed_operand(case):
 
 @pytest.mark.parametrize("case", ["sorted", "rowgroup", "flat", "resident"])
 def test_int8_entries_refuse_bad_geometry(case):
-    """A K7, K8, K6 or K9 launch the entry refuses (an F tile width the
-    ring has no kernel for, a tile other than the dp4a loop's 64 columns
-    at b = 16, no transposed operand at b = 64) returns its cudaError_t
-    and the wrapper raises; no launch is counted."""
+    """A K7, K8, K6 or K9 launch the entry refuses returns its cudaError_t
+    and the wrapper raises; no launch is counted: an F tile width neither
+    loop has a kernel for (the ring takes 64 and 128 at b = 64 and 128,
+    the small-block loop 32, 64 and 128 at b = 16 and 32), no transposed
+    operand (read at every b), and no lane order at b = 16 and 32. The
+    same arguments with the tile width, operand and lane order the plan
+    gives launch."""
     stream = torch.cuda.current_stream().cuda_stream
-    for b, bn, with_t in ((64, 96, True), (64, 256, True), (128, 32, True),
-                          (16, 128, False), (64, 64, False)):
+    for b, bn, with_t, with_order in (
+            (64, 96, True, True), (64, 256, True, True), (128, 32, True, True),
+            (16, 256, True, True), (32, 48, True, True), (16, 64, False, True),
+            (64, 64, False, True), (32, 64, True, False), (16, 32, True, False),
+            (32, 64, True, True)):
         bsr, x, _ = int8_exact_case(b, 70)
         plan, kernel = _int8_plan(bsr, case)
-        q, cs = TI.quantize_operand(plan, torch.as_tensor(x, device="cuda"))
-        qt = TI.transpose_operand(q) if with_t else None
+        qt, cs = TI.quantize_operand(plan, torch.as_tensor(x, device="cuda"),
+                                     transposed=True)
         out = torch.empty(bsr.shape[0], 70, device="cuda")
-        qt_ptr = 0 if qt is None else qt.data_ptr()
+        qt_ptr = qt.data_ptr() if with_t else 0
+        n_layout = 7 if case == "sorted" else 5
+        order = plan.arrays[n_layout].data_ptr() if with_order else 0
         if case == "sorted":
-            win_ids, slot_cols, qblocks, scales, pos, lane_valid, group_ptr = plan.arrays
+            win_ids, slot_cols, qblocks, scales, pos, lane_valid, group_ptr = plan.arrays[:7]
             R, gh, W, gs = plan.statics[5]
-            args = (group_ptr, win_ids, pos, lane_valid, slot_cols, qblocks, scales)
-            sizes = (lane_valid.shape[0], qblocks.shape[0], q.shape[0], 70, R, gh,
+            ptrs = (group_ptr, win_ids, pos, lane_valid, slot_cols, order, qblocks,
+                    scales)
+            sizes = (lane_valid.shape[0], qblocks.shape[0], qt.shape[1], 70, R, gh,
                      W, b, bn, int(gs))
         elif case == "rowgroup":
-            step_groups, slot_cols, qblocks, scales, group_ptr = plan.arrays
+            step_groups, slot_cols, qblocks, scales, group_ptr = plan.arrays[:5]
             R, gh = plan.statics[5]
-            args = (group_ptr, slot_cols, qblocks, scales)
+            ptrs = (group_ptr, slot_cols, order, qblocks, scales)
             sizes = ((group_ptr.shape[0] - 1) * R, plan.statics[1], qblocks.shape[0],
-                     q.shape[0], 70, R, gh, b, bn)
+                     qt.shape[1], 70, R, gh, b, bn)
         else:
-            step_rows, slot_cols, qblocks, scales, step_ptr = plan.arrays
+            step_rows, slot_cols, qblocks, scales, step_ptr = plan.arrays[:5]
             group = plan.statics[5][0] if case == "resident" else plan.statics[5]
-            args = (step_ptr, slot_cols, qblocks, scales)
-            sizes = (plan.statics[1], qblocks.shape[0], q.shape[0], 70, group, b, bn)
-        ptrs = [t.data_ptr() for t in args] + [q.data_ptr(), qt_ptr,
-                                               cs.data_ptr(), out.data_ptr()]
+            ptrs = (step_ptr, slot_cols, order, qblocks, scales)
+            sizes = (plan.statics[1], qblocks.shape[0], qt.shape[1], 70, group, b, bn)
+        ptrs = [p if isinstance(p, int) else p.data_ptr() for p in ptrs]
+        ptrs += [qt_ptr, cs.data_ptr(), out.data_ptr()]
         counts = [k.launches for k in _kernels.KERNELS]
-        with pytest.raises(RuntimeError, match="cudaError_t"):
-            kernel(*ptrs, *sizes, stream)
+        if with_t and with_order and bn == 64 and b == 32:
+            kernel(*ptrs, *sizes, stream)  # the plan's own arguments launch
+            torch.cuda.synchronize()
+            counts[_kernels.KERNELS.index(kernel)] += 1
+        else:
+            with pytest.raises(RuntimeError, match="cudaError_t"):
+                kernel(*ptrs, *sizes, stream)
         assert [k.launches for k in _kernels.KERNELS] == counts
+
+
+def _force_int8_small_bn(monkeypatch, bn):
+    """The int8 entries at b = 16 and 32 launch at bn columns."""
+    monkeypatch.setattr(TI, "int8_small_geometry",
+                        lambda b, F, n_sms, n_slots, depth: bn)
+
+
+@pytest.mark.parametrize("case", list(INT8_RING_CASES))
+@pytest.mark.parametrize("bn", [32, 64, 128])
+@pytest.mark.parametrize("F", [8, 70, 200])
+@pytest.mark.parametrize("b", [16, 32])
+def test_int8_small_instances_match_plain(b, F, bn, case, monkeypatch):
+    """Each instance of the small-block int8 loop (b = 16 and 32, tiles of
+    32, 64 and 128 columns, per-slot and group scales) on every walk, on
+    37 block-rows (absent and phantom lanes, empty rows) and ragged F:
+    within 1e-5 of its plain version on random data, and bit for bit
+    equal to the same kernel at 32 columns (each output's terms are
+    added in the same order at every tile width)."""
+    bsr = _bsr(37, b, 0.3, seed=b + F)
+    plan, kernel = _int8_plan(bsr, case)
+    x = _x(bsr, F=F, seed=F)
+    _force_int8_small_bn(monkeypatch, bn)
+    got = _check(plan, x, kernel)
+    _force_int8_small_bn(monkeypatch, 32)
+    assert torch.equal(got, plan(x))
+
+
+@pytest.mark.parametrize("case", ["sorted", "sorted_per_slot", "flat"])
+@pytest.mark.parametrize("b", [16, 32])
+def test_int8_small_hub_lane(b, case):
+    """One hub lane 4,096 blocks deep among lanes of a few blocks, on the
+    small-block int8 loop (K7 in both scale modes, K6), started first by
+    the plan's lane order: the hub's 4,096 scaled slot (or lane-step)
+    sums, added in f32 in walk order, stay within 1e-5 of the plain
+    version on standard-normal data."""
+    hub = 4096
+    kw, _, name = INT8_RING_CASES[case]
+    bsr, x_np = _hub_bsr(b, hub, False, seed=b)
+    plan = TI.bsr_spmm_pallas_int8_plan(bsr, device="cuda", **kw)
+    assert plan.statics[6] >= hub
+    order = plan.arrays[7 if case.startswith("sorted") else 5]
+    assert order.dtype == torch.int32
+    got = _check(plan, torch.as_tensor(x_np, device="cuda"), getattr(_kernels, name))
+    want = spmm_scipy(bsr, x_np)
+    assert np.abs(got.cpu().numpy() - want).max() / np.abs(want).max() < 6e-2
 
 
 # -- the int8 operand's quantization (quantize_int8) ------------------------
@@ -1238,7 +1312,7 @@ def test_k9_wrapper_refuses_bad_operands():
     bsr = _bsr(8, 16, 0.5, seed=6)
     plan = TI.bsr_spmm_pallas_int8_plan(bsr, resident=True, f_tile=128,
                                         device="cuda")
-    step_rows, slot_cols, qblocks, scales, step_ptr = plan.arrays
+    step_rows, slot_cols, qblocks, scales, step_ptr = plan.arrays[:5]
     group = plan.statics[5][0]
     q, cs = TI.quantize_operand(plan, _x(bsr))
     q3 = q.reshape(-1, 16, q.shape[1])

@@ -234,7 +234,7 @@ def _quantized(tb, F, seed):
 def test_k6_flat_plain_matches_pallas_kernel():
     _, tb = _pair(0.4, 21, 19, 16, seed=6, empty=(4,))
     tp = TI.bsr_spmm_pallas_int8_plan(tb, resident=False, device="cpu")
-    step_rows, slot_cols, qblocks, scales, step_ptr = tp.arrays
+    step_rows, slot_cols, qblocks, scales, step_ptr = tp.arrays[:5]
     nbr, group = tp.statics[1], tp.statics[5]
     F = 128
     q, cs = _quantized(tb, F, seed=7)
@@ -259,7 +259,7 @@ def test_k7_sorted_plain_matches_pallas_kernel(group_scale):
     _, tb = _pair(0.4, 21, 19, 16, seed=8, empty=(2,), mixed=True)
     tp = TI.bsr_spmm_pallas_int8_plan(tb, depth_sort=True, group_scale=group_scale,
                                       device="cpu")
-    win_ids, slot_cols, qblocks, scales, pos, lane_valid, group_ptr = tp.arrays
+    win_ids, slot_cols, qblocks, scales, pos, lane_valid, group_ptr = tp.arrays[:7]
     nbr = tp.statics[1]
     R, gh, W, gs = tp.statics[5]
     assert gs == group_scale and not lane_valid.all()
@@ -450,13 +450,46 @@ def test_transpose_operand_is_aligned_and_contiguous():
 
 
 @pytest.mark.parametrize("b,n_rows,F,want", [
-    (16, 1024, 512, 64), (32, 1024, 512, 64),   # the dp4a loop's tile
+    # the small-block loop: 1,024 rows of 16 slots, no hub, the widest tile
+    (16, 1024, 512, 128), (32, 1024, 512, 128),
     (128, 1024, 512, 128), (64, 1024, 512, 128),  # the op shape: 4,096 CTAs
     (128, 34, 256, 64),    # ddi: 68 CTAs at 128 columns would not fill the SMs
     (128, 1024, 64, 64),   # one 64-column tile holds F
 ])
 def test_int8_tile_bn(b, n_rows, F, want):
-    assert TI.int8_tile_bn(b, n_rows, F, 132) == want
+    """The ring's width from the grid (b = 64 and 128), the small-block
+    loop's from int8_small_geometry (b = 16 and 32), which needs the
+    plan's deepest lane."""
+    assert TI.int8_tile_bn(b, n_rows, F, 132, n_rows * 16, 16) == want
+    if b < 64:
+        assert TI.int8_tile_bn(b, n_rows, F, 132, n_rows * 16, 16) == (
+            TI.int8_small_geometry(b, F, 132, n_rows * 16, 16))
+        with pytest.raises(ValueError, match="deepest lane"):
+            TI.int8_tile_bn(b, n_rows, F, 132)
+    else:
+        assert TI.int8_tile_bn(b, n_rows, F, 132) == want
+
+
+@pytest.mark.parametrize("F,n_sms,n_slots,depth,want", [
+    # the arxiv stand-in under gorder at b = 32: a hub lane of 5,150 of
+    # 826,048 slots would take 1.23x its allowance at 128 columns
+    (128, 132, 826_048, 5_150, 64),
+    (128, 132, 960_704, 8_624, 64),    # b = 16 under gorder: 8,624 deep
+    (128, 132, 826_048, 20_000, 32),   # a deeper hub: the narrowest tile
+    (128, 132, 826_048, 100, 128),     # a flat plan: no lane stands out
+    (8, 132, 826_048, 100, 32),        # F = 8 needs one 32-column tile
+    (70, 132, 826_048, 100, 128),      # F = 70 needs more than 64 columns
+    (133, 132, 826_048, 100, 128),
+    (133, 132, 826_048, 5_150, 64),
+    (128, 1, 826_048, 5_150, 128),     # one SM: the grid is one queue
+])
+def test_int8_small_geometry(F, n_sms, n_slots, depth, want):
+    """int8_small_geometry is _small_bn at INT8_SMALL_HUB_SHARE: the
+    widest of 128, 64 and 32 columns that F needs and at which the
+    deepest lane's CTA stays within its share of the grid's work."""
+    assert TI.INT8_SMALL_HUB_SHARE == 1.5
+    for b in (16, 32):
+        assert TI.int8_small_geometry(b, F, n_sms, n_slots, depth) == want
 
 
 def test_group_scale_lane_sum_is_exact():
@@ -479,7 +512,7 @@ def test_k8_rowgroup_plain_matches_pallas_kernel(nb):
     JAX output holds and the port's does not."""
     _, tb = _pair(0.3, nb, nb, 32, seed=9)
     tp = TI.bsr_spmm_pallas_int8_plan(tb, depth_sort=False, device="cpu")
-    step_groups, slot_cols, qblocks, scales, group_ptr = tp.arrays
+    step_groups, slot_cols, qblocks, scales, group_ptr = tp.arrays[:5]
     nbr = tp.statics[1]
     R, gh = tp.statics[5]
     F = 128
@@ -503,7 +536,7 @@ def test_k9_resident_plain_matches_pallas_kernel():
     _, tb = _pair(0.4, 21, 19, 16, seed=13, empty=(4,))
     tp = TI.bsr_spmm_pallas_int8_plan(tb, resident=True, f_tile=128, device="cpu")
     assert tp.statics[0] == "resident"
-    step_rows, slot_cols, qblocks, scales, step_ptr = tp.arrays
+    step_rows, slot_cols, qblocks, scales, step_ptr = tp.arrays[:5]
     nbr = tp.statics[1]
     group, f_tile = tp.statics[5]
     F = 128
@@ -573,6 +606,48 @@ def test_int8_plan_matches_jax_plan(case, calibrated, monkeypatch):
     assert _rel(got, spmm_scipy(tb, x)) < INT8_TOL
     assert torch.equal(T.plain_apply(tp, x), got)
     assert [k.launches for k in _kernels.KERNELS] == launches
+
+
+LANE_PTR = {
+    # layout: (index of the group or step pointer, R and slots a step)
+    "sorted": (6, lambda geom: geom[:2]),
+    "rowgroup": (4, lambda geom: geom),
+    "flat": (4, lambda geom: (1, geom)),
+    "resident": (4, lambda geom: (1, geom[0])),
+}
+
+
+@pytest.mark.parametrize("calibrated", [False, True])
+@pytest.mark.parametrize("case", list(LAYOUT_CASES))
+def test_int8_plan_carries_its_lane_order(case, calibrated, monkeypatch):
+    """Every int8 layout's plan holds, after its packed arrays, the CTA ->
+    lane order of the kernels at b = 16 and 32, and its statics the
+    deepest lane's slots, both as lane_order() gives them on the plan's
+    group or step pointer; a calibrated plan's static column scales stay
+    its last array. The plan still matches the JAX plan (b = 32, 37
+    block-rows with empty rows, ragged shape, F = 70)."""
+    shape = (37 * 32 - 5, 29 * 32 - 7)
+    jb, tb = _pair(0.3, 37, 29, 32, seed=21, shape=shape, empty=(3, 30))
+    x = _operand(shape[1], 70, seed=22)
+    jp, tp = _plans(case, jb, tb, monkeypatch,
+                    **({"calibration": x} if calibrated else {}))
+    layout, geom = tp.statics[0], tp.statics[5]
+    i, walk = LANE_PTR[layout]
+    order, depth = T.lane_order(tp.arrays[i].numpy(), *walk(geom))
+    assert tp.arrays[i + 1].dtype == torch.int32
+    np.testing.assert_array_equal(tp.arrays[i + 1].numpy(), order)
+    assert tp.statics[6] == depth > 0 and tp.statics[7] == calibrated
+    assert len(tp.arrays) == i + 2 + calibrated
+    if calibrated:
+        np.testing.assert_array_equal(tp.arrays[-1].numpy(),
+                                      TQ.static_col_scale(torch.as_tensor(x)))
+    n_lanes = tp.arrays[i].shape[0] - 1
+    if layout in ("sorted", "rowgroup"):
+        n_lanes *= geom[0]
+    assert sorted(order.tolist()) == list(range(n_lanes))
+    got = tp(x)
+    assert _rel(got, np.asarray(jp(x))) < PARITY_TOL
+    assert torch.equal(T.plain_apply(tp, x), got)
 
 
 def test_bsr_int8_tier_matches_jax_and_consecutive_layouts():
