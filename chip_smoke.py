@@ -5,9 +5,11 @@ plain PyTorch version, serves a GCN on the ogbl-ddi stand-in through the
 BSR SpMM plan in f32, bf16 and int8 and through the CSR plan (K10),
 trains it in f32 and in bf16x3 (precision="high") through the BSR plan
 and in f32 through the CSR plan, runs the plans at bench.py's op shape
-and the CSR kernel at the reference's test_csrmm shape, and asks the
+and the CSR kernel at the reference's test_csrmm shape, asks the
 reference's question (does reordering make BSR beat CSR?) on the
-ogbn-arxiv stand-in at its published size.
+ogbn-arxiv stand-in at its published size, and serves OGB's arxiv GCN
+there through spmm_plan's CSR routes (impl="auto", the hybrid and ELL
+tiers, int8 and bf16).
 
     python3 chip_smoke.py
 
@@ -130,7 +132,26 @@ Phases:
               (resident=False) at b = 32, each checked against its plain
               version and timed the same way; its device memory freed
               before phase 8
-  8. timing   CUDA-event times of kernel, plain and library paths
+  8. serve    OGB's ogbn-arxiv GCN baseline at full width ([128, 256,
+              256, 40]; seeded weights) on the reorder phase's graph with
+              the fewest blocks (gorder) and on the original ordering,
+              sym_norm_adjacency: the route impl="auto" takes on each
+              (the JAX router's: the fill guard, then over the 4 GiB
+              budget the threshold scorer, whose report is printed), then
+              4 seeded requests through spmm_plan with impl="auto" on
+              both orderings, "hybrid" (the dense blocks through the BSR
+              kernel plan the gate picks, the rest through the ELL
+              tier), "hybrid" with dtype=torch.int8 (the int8 kernel
+              plan, its operand and the int8 ELL's quantized by
+              quantize_int8), "csr_ell" in bf16 and "csr_pallas" (K10),
+              each request within 1e-4 (int8 6e-2, bf16 3e-2) of a
+              float64 host reference, each hybrid's dense-part SpMM
+              within 1e-5 of its plain version; then at F = 128 on the
+              check_result operand csr_ell (compact="force"),
+              csr_ell_banded (band_rows=2^15), csr_ell_int8 (dynamic and
+              calibrated), windowed, windowed_int8 and tiered, each
+              within 1e-4 of spmm_scipy (int8 6e-2 of max |ref|)
+  9. timing   CUDA-event times of kernel, plain and library paths
               (library: one PyTorch call computing the same function,
               timed as a yardstick and never called by the port:
               torch.sparse_bsr_tensor @ X for the f32 and bf16 BSR
@@ -160,13 +181,19 @@ Phases:
               beside its plain version and its bound (the operand read
               once; with dynamic scales also the time of the two passes'
               bytes), and PyTorch's transposed copy alone; the int8 ddi SpMM call
-              in its parts; last, each slice's request under
-              torch.profiler: the card's busy share and device time by
-              kernel
+              in its parts; first, the serve phase's times: ms per
+              request of each route beside the csr_pallas (K10) request,
+              ms per SpMM at F = 128 of csr_ell, hybrid, hybrid int8 and
+              windowed beside K10, torch.sparse_csr_tensor @ X and the
+              CSR bytes bound, a csr_ell SpMM and an "auto" request under
+              torch.profiler, and the hybrids' dense-part kernels beside
+              their plain versions, bounds and library calls; last, each
+              slice's request under torch.profiler: the card's busy
+              share and device time by kernel
 
-The main path is phases 4 to 7, each of their runs (f32 slice, int8
+The main path is phases 4 to 8, each of their runs (f32 slice, int8
 slice, CSR slice, bf16 slice, f32 training, "high" training, CSR
-training, op, reorder) with
+training, op, reorder, serve) with
 the launch counts set to 0 just before it and read just after; every
 kernel of the path must have run there. Prints the kernels' JSON line,
 then the last line {"ok": true, "device": {...}}. Any failure raises and
@@ -244,6 +271,14 @@ from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8 import (  # noqa: E402
     transpose_operand,
 )
 from spmm_denseblock_tpu_torch.ops.csr_spmm import csr_spmm_plan  # noqa: E402
+from spmm_denseblock_tpu_torch.ops.csr_spmm_ell import (  # noqa: E402
+    _ell_apply,
+    _ell_int8_apply,
+)
+from spmm_denseblock_tpu_torch.ops.dispatch import (  # noqa: E402
+    _auto_impl,
+    _explicit_hybrid,
+)
 from spmm_denseblock_tpu_torch.ops.csr_spmm_pallas import (  # noqa: E402
     SEGMENT_NNZ,
     _csr_pallas_apply,
@@ -251,7 +286,11 @@ from spmm_denseblock_tpu_torch.ops.csr_spmm_pallas import (  # noqa: E402
     csr_spmm_pallas_plan,
     csr_strip_width,
 )
-from spmm_denseblock_tpu_torch.ops.plan import Plan  # noqa: E402
+from spmm_denseblock_tpu_torch.ops.plan import Plan, _sum_apply  # noqa: E402
+from spmm_denseblock_tpu_torch.ops.windowed_spmm import (  # noqa: E402
+    _windowed_apply,
+    _windowed_int8_apply,
+)
 from spmm_denseblock_tpu_torch.ops.reference import (  # noqa: E402
     CHECK_EPS,
     assert_allclose,
@@ -314,6 +353,38 @@ REORDER_ONCE = (
      "bsr_spmm_rowgroup_bf16"),
     ("K3 flat", {"precision": "high", "depth_sort": False}, "bsr_spmm_flat_bf16x3"),
     ("int8 K6", {"dtype": torch.int8, "resident": False}, "bsr_spmm_int8_flat"))
+# the serving phase: OGB's ogbn-arxiv GCN baseline at full width
+# (examples/nodeproppred/arxiv/gnn.py in snap-stanford/ogb: 3 layers,
+# hidden 256, 128 features, 40 classes) on the reorder phase's graphs,
+# sym_norm_adjacency, SERVE_REQUESTS seeded requests through spmm_plan's
+# CSR routes: (label, ordering, spmm_plan arguments, tolerance tag).
+# "auto" on the fewest-block ordering and on the original one, the
+# explicit hybrid in f32 and int8, bf16 ELL, and csr_pallas (K10) beside
+# them
+SERVE_DIMS = [128, 256, 256, 40]
+SERVE_REQUESTS = 4
+SERVE_ROUTES = (
+    ("auto", "best", {"impl": "auto", "feat_dim": 128}, "f32"),
+    ("auto original", "original", {"impl": "auto", "feat_dim": 128}, "f32"),
+    ("hybrid", "best", {"impl": "hybrid"}, "f32"),
+    ("hybrid int8", "best", {"impl": "hybrid", "dtype": torch.int8}, "int8"),
+    ("csr_ell bf16", "best", {"impl": "csr_ell", "dtype": torch.bfloat16}, "bf16"),
+    ("csr_pallas", "best", {"impl": "csr_pallas"}, "f32"),
+)
+# the ELL tiers at op level, on the fewest-block ordering at F = 128
+SERVE_OPS = (
+    ("csr_ell compact=force", {"impl": "csr_ell", "compact": "force"}),
+    ("csr_ell_banded 2^15", {"impl": "csr_ell_banded", "band_rows": 1 << 15}),
+    ("csr_ell_int8 dynamic", {"impl": "csr_ell", "dtype": torch.int8}),
+    ("csr_ell_int8 calibrated", {"impl": "csr_ell", "dtype": torch.int8,
+                                 "calibration": True}),
+    ("windowed", {"impl": "windowed"}),
+    ("windowed_int8", {"impl": "windowed", "dtype": torch.int8}),
+    ("tiered", {"impl": "tiered"}),
+)
+# the SpMMs timed at F = 128 beside K10 (their serving plans, or op plans)
+SERVE_TIMED = ("csr_ell", "hybrid", "hybrid int8", "windowed", "csr_pallas")
+TOL_OF = {"f32": CHECK_EPS, "int8": INT8_TOL, "bf16": BF16_TOL}
 _PALLAS = "spmm_denseblock_tpu/ops/bsr_spmm_pallas.py"
 _PALLAS_I8 = "spmm_denseblock_tpu/ops/bsr_spmm_pallas_int8.py"
 _CSRC = "spmm_denseblock_tpu_torch/csrc/"
@@ -1278,8 +1349,243 @@ def reorder_normal_check(rp: dict) -> None:
                         INT8_TOL if tag == "int8" else CHECK_EPS)
 
 
+def tier_of(plan) -> str:
+    """The tier a served plan runs, as spmm_plan names it."""
+    if plan.apply_fn is _sum_apply:  # named by its first part
+        return {_pallas_apply: "hybrid", _int8_pallas_apply: "hybrid_int8",
+                _windowed_apply: "windowed", _windowed_int8_apply: "windowed_int8",
+                }[plan.subplans[0].apply_fn]
+    if plan.apply_fn is _ell_apply:
+        return "csr_ell"
+    if plan.apply_fn is _ell_int8_apply:
+        return "csr_ell_int8"
+    if plan.apply_fn is _csr_pallas_apply:
+        return "csr_pallas"
+    return plan.apply_fn.__name__
+
+
+def call_launches(plan) -> dict:
+    """The kernel launches one call of a plan makes, by counter: a
+    kernel plan its kernel (with quantize_int8 for int8, split_bf16 for
+    K3), the int8 ELL and window plans quantize_int8, a sum its parts',
+    the torch-ops plans (ELL, windows, bsr_xla) none."""
+    if plan.apply_fn is _sum_apply:
+        out = {}
+        for part in plan.subplans:
+            for name, n in call_launches(part).items():
+                out[name] = out.get(name, 0) + n
+        return out
+    if plan.apply_fn in (_ell_int8_apply, _windowed_int8_apply):
+        return {"quantize_int8": 1}
+    if plan.apply_fn not in (_pallas_apply, _int8_pallas_apply, _csr_pallas_apply):
+        return {}
+    name = kernel_of(plan)[1]
+    out = {name: 1}
+    if plan.apply_fn is _int8_pallas_apply:
+        out["quantize_int8"] = 1
+    if name.endswith("_bf16x3"):
+        out["split_bf16"] = 1
+    return out
+
+
+def checked_parts(plan, errs: list):
+    """plan as the model calls it; a hybrid's dense part (a kernel plan)
+    held to its plain version on every call, its max |kernel - plain|
+    appended to errs. The sum is the plan's own: dense part, then
+    remainder."""
+    if plan.apply_fn is not _sum_apply:
+        return plan
+    dense_part, remainder = plan.subplans
+
+    def spmm(h):
+        got = dense_part(h)
+        want = plain_apply(dense_part, h)
+        rel = rel_err(got, want)
+        if not torch.isfinite(got).all() or rel >= KERNEL_TOL:
+            raise AssertionError(f"hybrid dense part vs plain: rel {rel:.3e}")
+        errs.append((got - want).abs().max().item())
+        return got + remainder(h)
+
+    return spmm
+
+
+def serve_phase(graphs: dict, best: str):
+    """Phase 8: the ogbn-arxiv GCN served through spmm_plan's CSR routes
+    (SERVE_ROUTES) on the reorder phase's graphs, sym_norm_adjacency:
+    the route "auto" took and the scorer's report; SERVE_REQUESTS seeded
+    requests per route, each against a float64 host reference at its
+    tolerance (TOL_OF); each hybrid SpMM's dense-part kernel against its
+    plain version (KERNEL_TOL); then SERVE_OPS at F = 128 on the seeded
+    check_result operand against spmm_scipy (int8 at INT8_TOL of max
+    |ref|). Returns what the counts and the timing need."""
+    t0 = time.perf_counter()
+    adjs = {"best": sym_norm_adjacency(graphs[best]),
+            "original": sym_norm_adjacency(graphs["original"])}
+    names = {"best": best, "original": "original"}
+    log(f"[serve] GCN {SERVE_DIMS} on {REORDER_DATASET} ({best} and original), "
+        f"sym_norm_adjacency: n={adjs['best'].n_rows} nnz={adjs['best'].nnz}, "
+        f"{SERVE_REQUESTS} requests a route ({time.perf_counter() - t0:.1f} s)")
+    for key, adj in adjs.items():
+        t0 = time.perf_counter()
+        impl, _, report = _auto_impl(adj, 128, SERVE_DIMS[0], {})
+        nnzb = calculate_nnzb(adj, 128)
+        log(f"  {names[key]}: b=128 nnzb={nnzb} ({nnzb * 128 * 128 * 4 / 2**30:.1f} GiB "
+            f"f32, fill {nnzb * 128 * 128 / adj.nnz:.0f}x); impl='auto' routes to "
+            f"{impl} ({time.perf_counter() - t0:.1f} s); the scorer's report:")
+        for row in report or ():
+            log(f"    {row}")
+    gen = torch.Generator().manual_seed(SEED + 20)
+    model = GCN(SERVE_DIMS, generator=gen).to(DEV)
+    params = [{k: v.detach().cpu().double().numpy() for k, v in p.items()}
+              for p in model.params()]
+    xs = [seeded((adjs["best"].n_rows, SERVE_DIMS[0]), SEED + 200 + r)
+          for r in range(SERVE_REQUESTS)]
+    refs = {}
+    t0 = time.perf_counter()
+    for key in {key for _, key, _, _ in SERVE_ROUTES}:
+        refs[key] = [gcn_reference(adjs[key], params, x) for x in xs]
+    log(f"  float64 references in {time.perf_counter() - t0:.1f} s (host)")
+    xs = [torch.as_tensor(x, device=DEV) for x in xs]
+    n_spmm = SERVE_REQUESTS * (len(SERVE_DIMS) - 1)
+    plans, plan_secs, expect, dense_errs = {}, {}, {}, {}
+    for label, key, kw, tag in SERVE_ROUTES:
+        t0 = time.perf_counter()
+        plan = spmm_plan(adjs[key], grad=False, device=DEV, **kw)
+        plan_s = time.perf_counter() - t0
+        tier = tier_of(plan)
+        per_call = call_launches(plan)
+        for name, n in per_call.items():
+            expect[name] = expect.get(name, 0) + n * n_spmm
+        what = ""
+        if tier.startswith("hybrid"):
+            dense_part = plan.subplans[0]
+            what = (f": dense part {kernel_of(dense_part)[0]} "
+                    f"{kernel_of(dense_part)[1]} ({dense_part.statics[0]} layout, "
+                    f"{dense_part.arrays[2].shape[0]} slots) + ELL remainder")
+        log(f"[serve] {label} (spmm_plan({kw}) on {names[key]}): tier {tier}{what}, "
+            f"plan {plan_s:.1f} s (host); launches a SpMM {per_call}")
+        errs = dense_errs.setdefault(label, [])
+        spmm = checked_parts(plan, errs)
+        for r, (x, h) in enumerate(zip(xs, refs[key])):
+            with torch.no_grad():
+                out = model(spmm, x)
+            torch.cuda.synchronize()
+            if out.shape != h.shape or not torch.isfinite(out).all():
+                raise AssertionError(f"{label} request {r}: bad output {tuple(out.shape)}")
+            rel = np.abs(out.cpu().double().numpy() - h).max() / np.abs(h).max()
+            part = (f"; its {len(SERVE_DIMS) - 1} dense-part SpMMs within "
+                    f"{max(errs[-(len(SERVE_DIMS) - 1):]):.3e} of their plain version"
+                    if errs else "")
+            log(f"  {label} request {r}: out {tuple(out.shape)} finite, max |err| / "
+                f"max |ref| vs f64 {rel:.3e} (< {TOL_OF[tag]}){part}")
+            if not rel < TOL_OF[tag]:
+                raise AssertionError(f"{label} request {r}: rel err {rel:.3e}")
+        plans[label] = plan
+        plan_secs[label] = plan_s
+    # the ELL tiers at op level: the check_result operand (seeded signs of
+    # 0.5), against spmm_scipy
+    adj = adjs["best"]
+    signs = np.random.default_rng(SEED + 13).integers(0, 2, (adj.n_cols, 128))
+    x_np = signs.astype(np.float32) - 0.5
+    x = torch.as_tensor(x_np, device=DEV)
+    want = spmm_scipy(adj, x_np)
+    for label, kw in SERVE_OPS:
+        kw = dict(kw)
+        if kw.pop("calibration", False):
+            kw["calibration"] = x_np
+        t0 = time.perf_counter()
+        plan = spmm_plan(adj, grad=False, device=DEV, **kw)
+        plan_s = time.perf_counter() - t0
+        for name, n in call_launches(plan).items():
+            expect[name] = expect.get(name, 0) + n
+        got = plan(x)
+        torch.cuda.synchronize()
+        if kw.get("dtype") is torch.int8:
+            err, gate = rel_err(got, torch.as_tensor(want, device=DEV)), INT8_TOL
+            ok = err < gate
+        else:
+            err, gate = assert_allclose(got, want, msg=label), CHECK_EPS
+            ok = True
+        log(f"  op {label} F=128 vs spmm_scipy: {err:.3e} (< {gate}); plan "
+            f"{plan_s:.1f} s (host)")
+        if not ok:
+            raise AssertionError(f"op {label}: rel err {err:.3e}")
+        if label == "windowed":
+            plans["windowed"] = plan
+        del plan
+    plans["csr_ell"] = spmm_plan(adj, impl="csr_ell", grad=False, device=DEV)
+    hyb = _explicit_hybrid(adj, "hybrid", 128, {})
+    return {"adj": adj, "model": model, "x": xs[0], "plans": plans,
+            "expect": expect, "dense_errs": dense_errs, "hybrid": hyb,
+            "best": best, "plan_s": plan_secs}
+
+
+def serve_timing(sp: dict, launched: dict, card_line: str) -> list:
+    """The serving phase's times: ms per request of each route beside the
+    csr_pallas (K10) request; ms per SpMM at F = 128 of SERVE_TIMED
+    beside K10, the PyTorch library call (torch.sparse_csr_tensor @ X,
+    cuSPARSE, a yardstick) and the CSR bytes bound; a csr_ell SpMM and an
+    "auto" request under torch.profiler (busy share, device time by
+    kernel); the hybrid dense parts' kernels beside their plain versions,
+    bounds and library calls. Returns the kernels line's rows of those
+    dense-part instances."""
+    model, x, plans, adj = sp["model"], sp["x"], sp["plans"], sp["adj"]
+    req_ms = {}
+    with torch.no_grad():
+        for label, _, _, _ in SERVE_ROUTES:
+            req_ms[label] = cuda_ms(lambda: model(plans[label], x), iters=10)
+        for label, ms in req_ms.items():
+            log(f"  serve GCN {SERVE_DIMS} request {label:<13} {ms:.3f} ms, "
+                f"{ms / req_ms['csr_pallas']:.2f}x the csr_pallas (K10) request "
+                f"[{card_line}]")
+        F = x.shape[1]
+        b_ms, b_by = csr_bound(adj, F)
+        want = plans["csr_pallas"](x)
+        lib = library_ms("csr", adj, x, want, 10,
+                         f"serve torch.sparse_csr_tensor @ X, F={F}")
+        k10 = cuda_ms(lambda: plans["csr_pallas"](x), iters=20)
+        for label in SERVE_TIMED:
+            p = plans[label]
+            ms = k10 if label == "csr_pallas" else cuda_ms(lambda: p(x), iters=20)
+            log(f"  serve A @ X, F={F} {label:<12} ({tier_of(p)}) {ms:.4f} ms, "
+                f"{ms / k10:.2f}x K10, library "
+                f"{'none' if lib is None else f'{lib:.4f} ms'}, CSR bytes bound "
+                f"{b_ms:.4f} ms ({b_by}), max |err| / max |K10| "
+                f"{rel_to(p(x), want):.3e} [{card_line}]")
+        # where an ELL call's time goes, after the times above
+        for label, fn in (("A @ X, F=128 csr_ell", lambda: plans["csr_ell"](x)),
+                          ("GCN request auto", lambda: model(plans["auto"], x))):
+            busy, detail = device_profile(fn, iters=10)
+            if busy is None:
+                log(f"  serve {label} under torch.profiler: busy share not "
+                    f"measured ({detail})")
+                continue
+            total = sum(detail.values())
+            top = "; ".join(f"{name[:60]} {ms:.4f} ms ({ms / total:.1%})"
+                            for name, ms in list(detail.items())[:5])
+            log(f"  serve {label} under torch.profiler: card busy {busy:.1%} of "
+                f"the span, {total:.4f} ms of device time a call: {top} "
+                f"[{card_line}]")
+    # the hybrids' dense parts: the kernels' rows
+    rows, lib_cache, bsr = [], {}, sp["hybrid"].dense
+    for label in ("hybrid", "hybrid int8"):
+        dense_part = plans[label].subplans[0]
+        kid, name, source, replaces = kernel_of(dense_part)
+        row = bsr_row(f"serve {sp['best']} {label} dense part {kid}", bsr, dense_part,
+                      x, sp["plan_s"][label], card_line, lib_cache)
+        errs = [e for k, v in sp["dense_errs"].items()
+                if tier_of(plans[k]).startswith("hybrid")
+                and kernel_of(plans[k].subplans[0])[1] == name for e in v]
+        rows.append({"name": f"{kid} {name} b=128 {REORDER_DATASET} {sp['best']} hybrid "
+                             f"({bsr.nnzb} dense blocks)",
+                     "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launched[name], "max_abs_err": max(errs), **row})
+    lib_cache.clear()
+    return rows
+
+
 def main_path(adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str):
-    """Phases 4 to 7, each run with the launch counts set to 0 just
+    """Phases 4 to 8, each run with the launch counts set to 0 just
     before it and read just after. Returns what the timing needs."""
     totals = {}
 
@@ -1346,8 +1652,16 @@ def main_path(adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str):
     # phases are timed
     reorder_rows = reorder_timing(rphase, card_line)
     log(f"[reorder] checks on normal X and timing in {time.perf_counter() - t0:.1f} s")
+    graphs = {name: run["csr"] for name, run in rphase["runs"].items()}
+    best = rphase["best"]
     del rphase
     torch.cuda.empty_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    sp = serve_phase(graphs, best)
+    log(f"[serve] phase in {time.perf_counter() - t0:.1f} s")
+    read("serve", sp["expect"])
+    sp["launched"] = launches()
     missing = [name for name in [kernel_of(p)[1] for p in plans.values()]
                + ["split_bf16", "quantize_int8"] if totals.get(name, 0) == 0]
     if missing:
@@ -1372,7 +1686,7 @@ def main_path(adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str):
         raise AssertionError("quantize_int8: NaN or +-Inf not as JAX quantizes it")
     slices = {"f32": plan, "int8": plan_i8, "csr": plan_csr, "bf16": plan_bf16}
     return (slices, model, xs, train, plans, errs, totals,
-            {"int8": slice_i8_err, "bf16": slice_bf16_err}, reorder_rows)
+            {"int8": slice_i8_err, "bf16": slice_bf16_err}, reorder_rows, sp)
 
 
 def bound(tag: str, flops: float, nbytes: float) -> tuple:
@@ -1437,7 +1751,7 @@ def reorder_timing(rp: dict, card_line: str) -> list:
     while rp["bsr_runs"]:
         br = rp["bsr_runs"].pop(0)
         bsr, plan = br["bsr"], br.pop("plan")
-        row = bsr_row(f"{best:<8} {br['kid']}", bsr, plan, x, br["plan_s"],
+        row = bsr_row(f"reorder {best:<8} {br['kid']}", bsr, plan, x, br["plan_s"],
                       card_line, lib_cache)
         kid, name, source, replaces = kernel_of(plan)
         rows.append({"name": f"{kid} {name} b={bsr.b} {REORDER_DATASET} {best}",
@@ -1458,7 +1772,8 @@ def reorder_timing(rp: dict, card_line: str) -> list:
         if kernel_of(plan)[1] != name:
             raise AssertionError(f"reorder {label}: {kernel_of(plan)[1]}, expected {name}")
         check_kernel(plan, x, f"reorder {best} {label} b={bsr32.b} F={F}")
-        bsr_row(f"{best:<8} {label}", bsr32, plan, x, plan_s, card_line, lib_cache)
+        bsr_row(f"reorder {best:<8} {label}", bsr32, plan, x, plan_s, card_line,
+                lib_cache)
         del plan
         torch.cuda.empty_cache()
     lib_cache.clear()
@@ -1468,7 +1783,7 @@ def reorder_timing(rp: dict, card_line: str) -> list:
 
 def bsr_row(label: str, bsr: BSR, plan, x, plan_s: float, card_line: str,
             lib_cache: dict) -> dict:
-    """One reorder BSR plan's times, logged: the kernel (bf16 plans on the
+    """One BSR plan's times, logged: the kernel (bf16 plans on the
     bf16 operand, as the library call gets it; K3 with its operand split;
     int8 on an operand quantized beforehand, the whole call beside it),
     its plain version, its bound, the PyTorch library call (none for
@@ -1495,16 +1810,17 @@ def bsr_row(label: str, bsr: BSR, plan, x, plan_s: float, card_line: str,
         lib = library_ms(
             "bsr", bsr, pad(xk, (0, 0, 0, bsr.n_block_cols * bsr.b - x.shape[0])),
             pad(plan(xk), (0, 0, 0, bsr.n_block_rows * bsr.b - bsr.shape[0])), 2,
-            f"reorder {label} torch.sparse_bsr_tensor @ X, {tag}, b={bsr.b}, F={F}",
+            f"{label} torch.sparse_bsr_tensor @ X, {tag}, b={bsr.b}, F={F}",
             lib_cache)
         geometry = f32_small_geometry if tag == "f32" else bf16_small_geometry
-        bn = geometry(bsr.b, F, _sm_count(0), plan_slots(plan), plan.statics[6])[0]
+        bn = tile_bn(name, bsr, F) or geometry(bsr.b, F, _sm_count(0),
+                                               plan_slots(plan), plan.statics[6])[0]
         extra = f", deepest lane {plan.statics[6]} slots"
     k_ms = cuda_ms(kernel, iters=10)
     p_ms = cuda_ms(plain, iters=2, warmup=1)
     b_ms, b_by = bsr_bound(tag, bsr, F)
     flops = 2.0 * bsr.nnzb * bsr.b * bsr.b * F
-    log(f"  reorder {label} {name} b={bsr.b} kernel {k_ms:.4f} ms "
+    log(f"  {label} {name} b={bsr.b} kernel {k_ms:.4f} ms "
         f"{flops / k_ms / 1e6:.1f} GFLOP/s on real blocks, plain {p_ms:.3f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}), library "
         f"{'none' if lib is None else f'{lib:.4f} ms'}, {plan_slots(plan)} slots"
@@ -1631,11 +1947,16 @@ def main() -> int:
     log(f"[setup] random_csr(2e-3, 2^17) in {time.perf_counter() - t0:.1f} s")
     dims = [256, 256, 256]
     (slices, model, xs, train, plans, errs, main_launches, slice_errs,
-     reorder_rows) = main_path(adj, dims, op_bsr, op_csr, x_op, dense[:4096],
-                               card_line)
+     reorder_rows, sp) = main_path(adj, dims, op_bsr, op_csr, x_op, dense[:4096],
+                                   card_line)
 
     # ---- timing (after the counts were read) ----------------------------
     log(f"[timing] card: {card_line}")
+    t0 = time.perf_counter()
+    serve_rows = serve_timing(sp, sp["launched"], card_line)
+    log(f"[serve] timing in {time.perf_counter() - t0:.1f} s")
+    del sp
+    torch.cuda.empty_cache()
     x0 = xs[0]
     ddi_flops = {"f32": 2.0 * calculate_nnzb(adj, 128) * 128 * 128 * dims[0],
                  "csr": 2.0 * adj.nnz * dims[0]}
@@ -1895,7 +2216,7 @@ def main() -> int:
     log(f"[timing] bench.py's headline tier on this card: "
         f"{'f32(bf16x3)' if t_high < t_f32 else 'f32'} (its self-check passed in "
         f"the op phase; high {t_high:.3f} ms, exact f32 {t_f32:.3f} ms) [{card_line}]")
-    kernels = sorted([*kernels.values(), *reorder_rows], key=lambda k: (
+    kernels = sorted([*kernels.values(), *reorder_rows, *serve_rows], key=lambda k: (
         int(re.match(r"K(\d+)", k["name"]).group(1)), k["name"]))
     if {k["name"].split()[0] for k in kernels} != ALL_KERNELS | {"K6-K9"}:
         raise AssertionError(f"kernels line names other than {ALL_KERNELS} and "

@@ -9,6 +9,8 @@ from spmm_denseblock_tpu_torch.analyze.metrics import (
     bandwidth_profile,
     block_metrics,
     calculate_nnzb,
+    ell_compact_metrics,
+    ell_metrics,
     fill_histogram,
 )
 from spmm_denseblock_tpu_torch.analyze.molecules import (
@@ -23,6 +25,8 @@ __all__ = [
     "block_metrics",
     "fill_histogram",
     "bandwidth_profile",
+    "ell_metrics",
+    "ell_compact_metrics",
     "DEFAULT_BLOCK_SIZES",
     "heatmap",
     "dump_heatmap",

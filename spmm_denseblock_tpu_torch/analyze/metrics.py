@@ -7,10 +7,11 @@
   nnz / nnzb;
 - fill_histogram: calculate_block_density_dist
   (block_density_dist.cpp:47-86), the per-block occupancy in 10 buckets;
-- bandwidth_profile: matrix bandwidth and envelope.
-
-The JAX module's ELL-tier models (ell_metrics, ell_compact_metrics) come
-with the port's ELL tier.
+- bandwidth_profile: matrix bandwidth and envelope;
+- ell_metrics, ell_compact_metrics: what the ELL tier
+  (ops/csr_spmm_ell.py) builds for a matrix, its slots, classes, chunks
+  and two-level compaction spans. The JAX twins also estimate times from
+  TPU v5e gather rates; the port leaves those fields out.
 """
 
 from __future__ import annotations
@@ -64,6 +65,88 @@ def fill_histogram(csr: CSR, block_size: int, n_buckets: int = 10) -> np.ndarray
     buckets = np.minimum((np.ceil(occ * n_buckets) - 1).astype(np.int64), n_buckets - 1)
     buckets = np.maximum(buckets, 0)
     return np.bincount(buckets, minlength=n_buckets)
+
+
+def ell_metrics(
+    csr: CSR, bucket: str = "quarter", feat_dim: int = 128,
+    itemsize: int = 4, compact_model: bool = False,
+) -> Dict[str, float]:
+    """The degree-bucketed ELL layout's size for this matrix: its padded
+    slots (every row gets at least one), their ratio to nnz, its width
+    classes and CHUNK_SLOTS chunks, and the operand table's bytes at
+    feat_dim columns of itemsize bytes. compact_model=True adds
+    ell_compact_metrics (an O(nnz) unique-count pass)."""
+    from spmm_denseblock_tpu_torch.ops.csr_spmm_ell import CHUNK_SLOTS, _row_widths
+
+    deg = csr.degrees().astype(np.int64)
+    K = _row_widths(deg, bucket)
+    slots = int(K.sum())
+    classes, counts = np.unique(K, return_counts=True)
+    n_chunks = int(
+        sum(
+            -(-int(m) // max(1, CHUNK_SLOTS // int(k)))
+            for k, m in zip(classes, counts)
+        )
+    )
+    out = {
+        "slots": slots,
+        "padded_ratio": slots / max(csr.nnz, 1),
+        "n_classes": int(classes.size),
+        "n_chunks": n_chunks,
+        "table_bytes": int(csr.n_cols) * feat_dim * itemsize,
+    }
+    if compact_model:
+        out.update(ell_compact_metrics(csr, bucket, feat_dim, itemsize))
+    return out
+
+
+def ell_compact_metrics(
+    csr: CSR, bucket: str = "quarter", feat_dim: int = 128,
+    itemsize: int = 4,
+) -> Dict[str, float]:
+    """The two-level gather's view of the ELL layout (compact="auto"):
+    over candidate spans of COMPACT_SLOTS (capped at CHUNK_SLOTS), the
+    unique neighbours U against the slots S, as U/S over all spans (lower:
+    rows inside a class share more neighbours), and the spans that
+    _ell_layout's cost model would compact."""
+    from spmm_denseblock_tpu_torch import native
+    from spmm_denseblock_tpu_torch.ops.csr_spmm_ell import (
+        CHUNK_SLOTS,
+        COMPACT_SLOTS,
+        _COMPACT_MIN_GAIN,
+        _gather_ns_per_slot,
+        _row_widths,
+    )
+    from spmm_denseblock_tpu_torch.reorder.simple import _ragged_arange
+
+    deg = csr.degrees().astype(np.int64)
+    K_r = _row_widths(deg, bucket)
+    order = np.argsort(K_r, kind="stable")
+    indptr = np.asarray(csr.indptr, np.int64)
+    cols = np.asarray(csr.indices, np.int64)
+    r_big = _gather_ns_per_slot(int(csr.n_cols) * feat_dim * itemsize, itemsize)
+    sum_u = sum_s = n_compacted = 0
+    for K in np.unique(K_r[order]):
+        rows_k = order[K_r[order] == K]
+        d = indptr[rows_k + 1] - indptr[rows_k]
+        idx = cols[np.repeat(indptr[rows_k], d) + _ragged_arange(d)]
+        # unique counts on the unpadded stream: the pads all repeat one
+        # id, so they add at most 1 to U (added below)
+        tgt_m = max(1, min(COMPACT_SLOTS, CHUNK_SLOTS) // int(K))
+        off = np.concatenate([[0], np.cumsum(d)])
+        for s in range(0, rows_k.size, tgt_m):
+            m = min(tgt_m, rows_k.size - s)
+            S = m * int(K)
+            seg = idx[off[s]: off[s + m]]
+            U = native.unique_inverse(seg, int(csr.n_cols))[0].size + 1  # + pad id
+            r_sub = _gather_ns_per_slot(U * feat_dim * itemsize, itemsize)
+            n_compacted += U * r_big + S * r_sub <= _COMPACT_MIN_GAIN * S * r_big
+            sum_u += U
+            sum_s += S
+    return {
+        "compact_u_over_s": round(sum_u / max(sum_s, 1), 4),
+        "compact_spans": int(n_compacted),
+    }
 
 
 def bandwidth_profile(csr: CSR) -> Dict[str, float]:

@@ -66,6 +66,10 @@ class BSR:
             nnzb=int(block_rows.shape[0]),
         )
 
+    def nnz_inside(self) -> int:
+        """Nonzero entries inside the real blocks."""
+        return int(np.count_nonzero(np.asarray(self.blocks[: self.nnzb])))
+
     def block_indptr(self) -> np.ndarray:
         """(n_block_rows + 1,) classic BSR rowptr over real blocks."""
         rows = self.block_rows[: self.nnzb]

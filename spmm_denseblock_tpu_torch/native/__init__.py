@@ -12,7 +12,8 @@ renames it into place, so processes that build at once never load a
 half-written library.
 
 Every strategy with a native body takes ``impl``: "native" (the default)
-runs the engine, "python" the numpy body it matches. There is no silent
+runs the engine, "python" the numpy body it matches; so does
+``unique_inverse``, the ELL tier's compaction pass. There is no silent
 fallback: when the library cannot be built or loaded, "native" raises
 with the compiler's output.
 """
@@ -41,7 +42,9 @@ _F64 = ctypes.c_double
 _PI32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _PI64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 
-# symbol -> argument types (n, indptr, indices, extra arguments..., out)
+# symbol -> argument types (the strategies: n, indptr, indices, extra
+# arguments..., out); each returns nothing but sdb_unique_inverse, which
+# returns the unique count
 _SIGNATURES = {
     "sdb_degree_sort": [_I64, _PI32, _PI32, _PI64],
     "sdb_bfs": [_I64, _PI32, _PI32, _PI64],
@@ -50,7 +53,9 @@ _SIGNATURES = {
     "sdb_rabbit": [_I64, _PI32, _PI32, _I64, _PI64],
     "sdb_greedy_closest": [_I64, _PI32, _PI32, _I64, _PI64],
     "sdb_permutate": [_I64, _PI32, _PI32, _PI64, _PI32, _PI32, _PI64],
+    "sdb_unique_inverse": [_I64, _PI32, _I64, _PI32, _PI32],
 }
+_RESTYPES = {"sdb_unique_inverse": _I64}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -96,7 +101,7 @@ def load() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = None
+                fn.restype = _RESTYPES.get(name)
             _lib = lib
         return _lib
 
@@ -123,3 +128,20 @@ def run(name: str, csr, *extra) -> np.ndarray:
     out = np.empty(csr.n_rows, dtype=np.int64)
     getattr(lib, name)(csr.n_rows, indptr, indices, *extra, out)
     return out
+
+
+def unique_inverse(seg, n_vals: int, impl: str = "native"):
+    """np.unique(seg, return_inverse=True) of a stream of int32 values in
+    [0, n_vals), as (sorted unique values, the inverse), both int32.
+    "native" is the engine's dense-mark pass, O(n + n_vals) where numpy
+    sorts; "python" is np.unique. Values out of range raise ValueError."""
+    seg = np.ascontiguousarray(seg, dtype=np.int32)
+    if seg.size and (int(seg.min()) < 0 or int(seg.max()) >= n_vals):
+        raise ValueError(f"unique_inverse: values must lie in [0, {n_vals})")
+    if not selected(impl):
+        uniq, inv = np.unique(seg, return_inverse=True)
+        return uniq.astype(np.int32), inv.reshape(-1).astype(np.int32)
+    uniq = np.empty(int(min(seg.size, n_vals)), dtype=np.int32)
+    inv = np.empty(seg.size, dtype=np.int32)
+    u = load().sdb_unique_inverse(seg.size, seg, int(n_vals), uniq, inv)
+    return uniq[:u].copy(), inv

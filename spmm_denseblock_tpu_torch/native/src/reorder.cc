@@ -538,8 +538,8 @@ void sdb_permutate(i64 n, const i32* indptr, const i32* indices,
 
 // Sorted-unique + inverse over a bounded-value int32 stream — the hot
 // host pass of the ELL two-level compaction layout builder (the JAX
-// package's ops/csr_spmm_ell._compact_spans; the port's ELL tier is still
-// to come): np.unique(seg, return_inverse=1)
+// package's ops/csr_spmm_ell._compact_spans, and the port's twin of it):
+// np.unique(seg, return_inverse=1)
 // is a comparison sort, O(n log n) over up to CHUNK_SLOTS per span;
 // values here are column ids < n_vals, so a dense mark array gives the
 // sorted unique set and ranks in O(n + n_vals). uniq_out needs

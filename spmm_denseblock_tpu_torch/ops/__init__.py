@@ -18,13 +18,30 @@ from spmm_denseblock_tpu_torch.ops.csr_spmm_pallas import (
     csr_spmm_pallas,
     csr_spmm_pallas_plan,
 )
+from spmm_denseblock_tpu_torch.ops.csr_spmm_ell import (
+    csr_spmm_ell,
+    csr_spmm_ell_banded_plan,
+    csr_spmm_ell_int8_plan,
+    csr_spmm_ell_plan,
+)
 from spmm_denseblock_tpu_torch.ops.dispatch import PLANNERS, spmm_plan
+from spmm_denseblock_tpu_torch.ops.hybrid_spmm import (
+    hybrid_spmm,
+    hybrid_spmm_int8_plan,
+    hybrid_spmm_plan,
+)
 from spmm_denseblock_tpu_torch.ops.plan import Plan, grad_plan, sum_plan, transb_plan
 from spmm_denseblock_tpu_torch.ops.reference import (
     CHECK_EPS,
     assert_allclose,
     spmm_dense_torch,
     spmm_scipy,
+)
+from spmm_denseblock_tpu_torch.ops.windowed_spmm import (
+    tiered_spmm_plan,
+    windowed_spmm,
+    windowed_spmm_int8_plan,
+    windowed_spmm_plan,
 )
 
 __all__ = [
@@ -41,6 +58,17 @@ __all__ = [
     "csr_spmm_plan",
     "csr_spmm_pallas",
     "csr_spmm_pallas_plan",
+    "csr_spmm_ell",
+    "csr_spmm_ell_plan",
+    "csr_spmm_ell_int8_plan",
+    "csr_spmm_ell_banded_plan",
+    "hybrid_spmm",
+    "hybrid_spmm_plan",
+    "hybrid_spmm_int8_plan",
+    "windowed_spmm",
+    "windowed_spmm_plan",
+    "windowed_spmm_int8_plan",
+    "tiered_spmm_plan",
     "PLANNERS",
     "spmm_plan",
     "Plan",

@@ -1,0 +1,511 @@
+"""CSR SpMM through degree-bucketed ELL padding (twin of
+``spmm_denseblock_tpu/ops/csr_spmm_ell.py``): a scatter-free reduction.
+
+Rows are bucketed by their ELL width K (``_row_widths``: the next power
+of two, or a multiple of a quarter of it); each class holds its rows'
+column ids as an (m, K) array, pads pointing at a zero row appended to
+the operand (pattern-only matrices) or at row 0 with value 0 (valued
+ones). A class's product is then a gather of its slots' operand rows and
+a dense sum over K, with no scatter: "matsum" gathers an (m, K, F) block
+and sums its K axis, "scan" runs K gather-accumulate steps with no (m,
+K, F) intermediate. The outputs come out class by class; one row gather
+with the position map restores the caller's row order.
+
+All layout work happens on the host, once, bit-equal to the JAX plan:
+the degree classes, the row order, the pad indices, ``positions``, the
+chunk split at CHUNK_SLOTS, the compaction spans and the matsum/scan
+choice. The call is plain torch ops: the JAX tier is XLA code, not a
+Pallas kernel. Two things of the JAX plan are left out. It stores the
+matsum chunks with m > K and every scan chunk transposed, as (K, m),
+because a TPU tile pads a small minor dimension to 128 lanes
+(``_store_chunk``); the card has no such padding, so every chunk here is
+(m, K). And its chunks are separate arguments of one jitted program;
+here they are buffers of one Plan, run one after another.
+
+The constants of the two-level gather model and of the scan/matsum
+choice are the JAX package's TPU v5e fits, copied as they are: the
+router's ELL options follow them until they are measured on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from spmm_denseblock_tpu_torch import native
+from spmm_denseblock_tpu_torch.formats.csr import CSR
+from spmm_denseblock_tpu_torch.ops._device import resolve_device
+from spmm_denseblock_tpu_torch.ops.bsr_spmm_int8 import (
+    dtype_name,
+    reject_grad_request,
+    reject_int8_cast,
+    static_col_scale,
+)
+from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8 import (
+    quantize_int8,
+    quantize_int8_plain,
+)
+from spmm_denseblock_tpu_torch.ops.plan import Plan, grad_plan
+from spmm_denseblock_tpu_torch.reorder.simple import _ragged_arange
+
+# the slots of one chunk: it bounds the (m, K, F) gather intermediate in
+# device memory (4M slots: 2 GB in f32 at F = 128)
+CHUNK_SLOTS = 4 << 20
+
+# -- the two-level (unique-compacted) gather model -----------------------------
+# A chunk whose rows share most neighbours can gather its U unique
+# operand rows once into a compact sub-table and read its S slots from
+# that: U * r_big + S * r_small(U*F*itemsize) against S * r_big, with
+# per-slot gather rates (ns) that depend on the table's bytes.
+GATHER_FAST_TABLE_BYTES = 96 << 20
+GATHER_MID_TABLE_BYTES = 176 << 20
+GATHER_NS_MID_TABLE = 4.25
+ELL_NS_PER_SLOT_SMALL_TABLE = 2.6
+ELL_NS_PER_SLOT_BIG_TABLE = 11.5
+COMPACT_SLOTS = 1 << 20  # candidate span when compact != "off"
+_COMPACT_MIN_GAIN = 0.9  # modelled two-level cost must be <= 90% of flat
+
+# scan pays off on a big gather source and a class wide enough to carry
+# its per-step cost
+SCAN_MIN_SOURCE_ROWS = 1 << 19
+_SCAN_MIN_M, _SCAN_MAX_K = 4096, 256
+
+
+def _gather_ns_per_slot(table_bytes: int, itemsize: int) -> float:
+    if table_bytes <= GATHER_FAST_TABLE_BYTES:
+        return ELL_NS_PER_SLOT_SMALL_TABLE
+    if table_bytes <= GATHER_MID_TABLE_BYTES:
+        return GATHER_NS_MID_TABLE
+    return ELL_NS_PER_SLOT_BIG_TABLE if itemsize >= 4 else 8.4
+
+
+def _compact_spans(idx, m_k, K, max_m, compact, compact_slots, feat_dim,
+                   itemsize, r_big, n_vals):
+    """Split a degree class's m_k rows into chunk spans: a list of
+    (row_start, n_rows, uniq, inv), uniq and inv None for a plain chunk
+    and the span's np.unique(return_inverse) for one that the model (or
+    compact="force") gathers in two levels. Rejected candidate spans
+    merge back into plain chunks of max_m rows."""
+
+    def plain(s0, m0):
+        return [(s0 + o, min(max_m, m0 - o), None, None)
+                for o in range(0, m0, max_m)]
+
+    if compact == "off":
+        return plain(0, m_k)
+    # candidate spans never exceed max_m: CHUNK_SLOTS bounds compacted
+    # chunks as it bounds plain ones
+    tgt_m = max(1, min(compact_slots // K, max_m))
+    spans, pend = [], None  # pend: accumulated rejected (start, len)
+    for s in range(0, m_k, tgt_m):
+        m = min(tgt_m, m_k - s)
+        uniq, inv = native.unique_inverse(idx[s * K: (s + m) * K], n_vals)
+        S, U = m * K, uniq.size
+        r_sub = _gather_ns_per_slot(U * feat_dim * itemsize, itemsize)
+        win = U * r_big + S * r_sub <= _COMPACT_MIN_GAIN * S * r_big
+        if compact == "force" or win:
+            if pend is not None:
+                spans.extend(plain(*pend))
+                pend = None
+            spans.append((s, m, uniq, inv))
+        else:
+            pend = (s, m) if pend is None else (pend[0], pend[1] + m)
+    if pend is not None:
+        spans.extend(plain(*pend))
+    return spans
+
+
+def _row_widths(deg: np.ndarray, bucket: str) -> np.ndarray:
+    """Per-row ELL width. "pow2": the next power of two (< 2x waste);
+    "quarter": a multiple of next_pow2(deg) / 4 (<= 1.25x waste, about
+    twice the classes)."""
+    p2 = np.maximum(1, 2 ** np.ceil(np.log2(np.maximum(deg, 1))).astype(np.int64))
+    if bucket == "pow2":
+        return p2
+    if bucket != "quarter":
+        raise ValueError(f"unknown ELL bucket scheme: {bucket!r}")
+    step = np.maximum(1, p2 // 4)
+    return np.maximum(1, ((deg + step - 1) // step) * step)
+
+
+def _chunk_mode(reduce: str, n_cols: int, m: int, K: int) -> str:
+    if reduce == "matsum" or K < 2:
+        return "matsum"
+    if m < _SCAN_MIN_M or K > _SCAN_MAX_K:
+        return "matsum"
+    if reduce == "scan":
+        return "scan"
+    return "scan" if n_cols >= SCAN_MIN_SOURCE_ROWS else "matsum"
+
+
+def _ell_layout(csr: CSR, bucket: str = "quarter", reduce: str = "auto",
+                row_sort: str = "keep", compact: str = "off",
+                compact_slots: int = COMPACT_SLOTS, itemsize: int = 4,
+                feat_dim: int = 128):
+    """The ELL layout of `csr`: (idx_chunks, val_chunks, positions,
+    layout, has_vals). Each chunk of idx_chunks is an (m, K) int32 array
+    of operand rows, or for a compacted chunk a pair (uniq, local): the
+    chunk's unique operand rows and its (m, K) indices into them;
+    val_chunks holds each chunk's (m, K) f32 values (valued matrices
+    only); layout one (m, K, mode, band_start, compacted) per chunk, with
+    band_start -1 (the whole table).
+
+    row_sort: "keep" keeps the caller's row order inside each class,
+    "meancol" sorts a class's rows by mean column id. compact: "off",
+    "auto" (compact the spans where the model predicts a win; never when
+    the whole table is small) or "force". itemsize and feat_dim size the
+    model's table bytes; they change no answer."""
+    deg = csr.degrees().astype(np.int64)
+    n = csr.n_rows
+    K_r = _row_widths(deg, bucket)
+    indptr = np.asarray(csr.indptr, dtype=np.int64)
+    cols = np.asarray(csr.indices, dtype=np.int64)
+    if row_sort == "meancol":
+        csum = np.concatenate([[0], np.cumsum(cols, dtype=np.int64)])
+        mean_col = (csum[indptr[1:]] - csum[indptr[:-1]]) // np.maximum(deg, 1)
+        order = np.lexsort((mean_col, K_r))  # class-major, mean-col minor
+    elif row_sort == "keep":
+        order = np.argsort(K_r, kind="stable")  # rows grouped by class
+    else:
+        raise ValueError(f"unknown row_sort: {row_sort!r}")
+    has_vals = csr.data is not None
+    vals = np.asarray(csr.data, dtype=np.float32) if has_vals else None
+
+    # valued layouts pad at row 0 (val 0 kills the term), pattern-only
+    # ones at the zero row n_cols appended to the operand
+    pad_idx = 0 if has_vals else csr.n_cols
+    if compact not in ("off", "auto", "force"):
+        raise ValueError(f"unknown compact mode: {compact!r}")
+    table_bytes = int(csr.n_cols) * feat_dim * itemsize
+    r_big = _gather_ns_per_slot(table_bytes, itemsize)
+    if compact == "auto" and table_bytes <= GATHER_FAST_TABLE_BYTES:
+        compact = "off"  # the whole table gathers at the fast rate already
+    idx_parts, val_parts, layout = [], [], []
+    for K in np.unique(K_r[order]):
+        K = int(K)
+        rows_k = order[K_r[order] == K]
+        m_k = rows_k.size
+        idx = np.full(m_k * K, pad_idx, dtype=np.int32)
+        starts = indptr[rows_k]
+        d = indptr[rows_k + 1] - starts
+        tgt = np.repeat(np.arange(m_k, dtype=np.int64) * K, d) + _ragged_arange(d)
+        src = np.repeat(starts, d) + _ragged_arange(d)
+        idx[tgt] = cols[src]
+        v = None
+        if has_vals:
+            v = np.zeros(m_k * K, dtype=np.float32)
+            v[tgt] = vals[src]
+        max_m = max(1, CHUNK_SLOTS // K)
+        for s, m, uniq, inv in _compact_spans(idx, m_k, K, max_m, compact,
+                                              compact_slots, feat_dim,
+                                              itemsize, r_big, csr.n_cols + 1):
+            if uniq is not None:
+                idx_parts.append((uniq, inv.reshape(m, K)))
+                layout.append((m, K, _chunk_mode(reduce, uniq.size, m, K), -1,
+                               True))
+            else:
+                idx_parts.append(idx[s * K: (s + m) * K].reshape(m, K))
+                layout.append((m, K, _chunk_mode(reduce, csr.n_cols, m, K), -1,
+                               False))
+            if has_vals:
+                val_parts.append(v[s * K: (s + m) * K].reshape(m, K))
+
+    positions = np.empty(n, dtype=np.int32)
+    positions[order] = np.arange(n, dtype=np.int32)
+    return (tuple(idx_parts), tuple(val_parts), positions, tuple(layout),
+            has_vals)
+
+
+def _banded_split(csr: CSR, band_rows: int):
+    """Each row's home band (the `band_rows`-wide column band holding
+    most of its nonzeros, its start clamped so that the band fits the
+    table) and each nonzero's in-band mask: (row_start, in_mask)."""
+    W = band_rows
+    n_rows, n_cols = csr.shape
+    indptr = np.asarray(csr.indptr, np.int64)
+    cols = np.asarray(csr.indices, np.int64)
+    deg = np.diff(indptr)
+    rows = np.repeat(np.arange(n_rows, dtype=np.int64), deg)
+    nbands = max(1, -(-n_cols // W))
+    key = rows * nbands + cols // W
+    cnt = np.bincount(key, minlength=n_rows * nbands).reshape(n_rows, nbands)
+    home = cnt.argmax(1)
+    row_start = np.minimum(home * W, max(0, n_cols - W)).astype(np.int64)
+    in_mask = (cols >= row_start[rows]) & (cols < row_start[rows] + W)
+    return row_start, in_mask
+
+
+def _ell_layout_banded(csr: CSR, band_rows: int, bucket: str):
+    """The in-band ELL layout: rows grouped by (home band, width class),
+    indices local to the band, pads at local 0 with value 0 (every chunk
+    is valued: a band slice has no zero row). Returns _ell_layout's
+    first four items and the overflow COO (rows, cols, vals or None)."""
+    n_rows, n_cols = csr.shape
+    indptr = np.asarray(csr.indptr, np.int64)
+    cols = np.asarray(csr.indices, np.int64)
+    deg = np.diff(indptr)
+    rows = np.repeat(np.arange(n_rows, dtype=np.int64), deg)
+    has_vals = csr.data is not None
+    vals = np.asarray(csr.data, np.float32) if has_vals else None
+
+    row_start, in_mask = _banded_split(csr, band_rows)
+    in_rows, in_cols = rows[in_mask], cols[in_mask]
+    in_vals = vals[in_mask] if has_vals else np.ones(in_mask.sum(), np.float32)
+    in_local = (in_cols - row_start[in_rows]).astype(np.int32)
+    d_in = np.bincount(in_rows, minlength=n_rows).astype(np.int64)
+    K_r = _row_widths(d_in, bucket)
+
+    # rows grouped by (band start, width class), the caller's order kept
+    # inside a group
+    order = np.lexsort((K_r, row_start))
+    in_ptr = np.concatenate([[0], np.cumsum(d_in)])
+
+    idx_parts, val_parts, layout = [], [], []
+    group_key = row_start[order] * (K_r.max() + 1) + K_r[order]
+    boundaries = np.flatnonzero(
+        np.concatenate([[True], group_key[1:] != group_key[:-1]])
+    )
+    for gi, b0 in enumerate(boundaries):
+        b1 = boundaries[gi + 1] if gi + 1 < boundaries.size else order.size
+        rows_g = order[b0:b1]
+        K = int(K_r[rows_g[0]])
+        start = int(row_start[rows_g[0]])
+        m_g = rows_g.size
+        idx = np.zeros(m_g * K, dtype=np.int32)  # pads: local 0, val 0
+        v = np.zeros(m_g * K, dtype=np.float32)
+        d = d_in[rows_g]
+        tgt = np.repeat(np.arange(m_g, dtype=np.int64) * K, d) + _ragged_arange(d)
+        src = np.repeat(in_ptr[rows_g], d) + _ragged_arange(d)
+        idx[tgt] = in_local[src]
+        v[tgt] = in_vals[src]
+        max_m = max(1, CHUNK_SLOTS // K)
+        for s in range(0, m_g, max_m):
+            m = int(min(max_m, m_g - s))
+            idx_parts.append(idx[s * K: (s + m) * K].reshape(m, K))
+            val_parts.append(v[s * K: (s + m) * K].reshape(m, K))
+            layout.append((m, K, "matsum", start, False))
+
+    positions = np.empty(n_rows, dtype=np.int32)
+    positions[order] = np.arange(n_rows, dtype=np.int32)
+    ovf = (rows[~in_mask], cols[~in_mask], vals[~in_mask] if has_vals else None)
+    return tuple(idx_parts), tuple(val_parts), positions, tuple(layout), ovf
+
+
+# -- the call -----------------------------------------------------------------
+
+
+def _chunk_arrays(idx_chunks, val_chunks) -> list:
+    """The chunks' arrays in the order _run_chunks reads them: per chunk
+    its unique rows (compacted chunks), its (m, K) indices, then its (m,
+    K) values (valued layouts)."""
+    out = []
+    for i, c in enumerate(idx_chunks):
+        out.extend(c if isinstance(c, tuple) else (c,))
+        if val_chunks:
+            out.append(val_chunks[i])
+    return out
+
+
+def _run_chunks(arrays, j: int, table, layout, has_vals: bool, band_rows: int):
+    """Every chunk of `layout`, its arrays read from arrays[j:], against
+    the operand `table`: the chunks' partial rows concatenated, (sum m,
+    F) f32, and the index of the next unread array.
+
+    bf16 tables gather in bf16 and round the values to bf16, and the
+    products and sums run in f32 (a bf16 x bf16 product is exact there):
+    the JAX plan's answer on the CPU, where XLA keeps the products in f32
+    (rounding them to bf16 moved the answer by 1.5e-3 of its max). int8
+    tables sum pattern-only chunks in int32 (exact: |sum| <= K * 127) and
+    widen to f32 before a value multiply."""
+    F = table.shape[1]
+    # the values' dtype in the products: the table's, but f32 for int8
+    vdt = torch.float32 if table.dtype == torch.int8 else table.dtype
+    outs = []
+    for m, K, mode, band_start, compacted in layout:
+        if compacted:
+            src = table.index_select(0, arrays[j])
+            j += 1
+        elif band_start >= 0:
+            src = table.narrow(0, band_start, band_rows)
+        else:
+            src = table
+        idx = arrays[j]
+        v = arrays[j + 1].to(vdt).float() if has_vals else None
+        j += 2 if has_vals else 1
+        if mode == "scan":  # K gather-accumulate steps, no (m, K, F) block
+            out = torch.zeros(m, F, dtype=torch.float32, device=table.device)
+            for k in range(K):
+                g = src.index_select(0, idx[:, k]).float()
+                out += g * v[:, k, None] if has_vals else g
+        else:
+            g = src.index_select(0, idx.reshape(-1)).view(m, K, F)
+            if has_vals:
+                out = (g.float() * v[:, :, None]).sum(1)
+            else:
+                sum_dtype = torch.int32 if g.dtype == torch.int8 else torch.float32
+                out = g.sum(1, dtype=sum_dtype).float()
+        outs.append(out)
+    return (torch.cat(outs) if len(outs) > 1 else outs[0]), j
+
+
+def _operand(dense, n_cols: int, device, dtype_key: Optional[str]) -> torch.Tensor:
+    """The operand on the plan's device in the plan's dtype (f32 by
+    default)."""
+    dense = torch.as_tensor(dense, device=device)
+    if dense.dim() != 2 or dense.shape[0] != n_cols:
+        raise ValueError(f"dense must be ({n_cols}, F), got {tuple(dense.shape)}")
+    return dense.to(getattr(torch, dtype_key or "float32"))
+
+
+def _plan_dtype_key(dtype) -> Optional[str]:
+    """None (f32), "float32" or "bfloat16"; int8 raises ValueError (the
+    quantized tier), anything else too."""
+    if dtype is None:
+        return None
+    reject_int8_cast(dtype, "csr_ell (use csr_ell_int8)")
+    name = dtype_name(dtype)
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(f"unsupported dtype {dtype!r} (None, float32 or bfloat16)")
+    return name
+
+
+# -- the plans ----------------------------------------------------------------
+
+
+def csr_spmm_ell_plan(csr: CSR, grad: bool = True, dtype=None,
+                      bucket: str = "quarter", reduce: str = "auto",
+                      row_sort: str = "keep", compact: str = "off",
+                      compact_slots: int = COMPACT_SLOTS,
+                      feat_dim: int = 128, device=None) -> Plan:
+    """Host layout prep once -> Plan computing C = A @ dense in f32.
+
+    dtype: None or float32, or bfloat16 (a bf16 gather, values rounded to
+    bf16, f32 products and sums; about 1e-3 relative, opt-in); int8
+    raises ValueError (use
+    csr_spmm_ell_int8_plan). bucket: "quarter" or "pow2" (_row_widths).
+    reduce: "auto" picks matsum or scan per chunk (_chunk_mode);
+    "matsum"/"scan" force one. row_sort, compact, compact_slots,
+    feat_dim: see _ell_layout. grad: True (the default) returns a
+    grad_plan whose backward runs the plan of Aᵀ. device: None is the
+    card."""
+    device = resolve_device(device)
+    dtype_key = _plan_dtype_key(dtype)
+    kw = dict(dtype=dtype, bucket=bucket, reduce=reduce, row_sort=row_sort,
+              compact=compact, compact_slots=compact_slots, feat_dim=feat_dim,
+              device=device)
+    if grad:
+        return grad_plan(csr_spmm_ell_plan(csr, grad=False, **kw),
+                         csr_spmm_ell_plan(csr.transpose(), grad=False, **kw))
+    itemsize = 4 if dtype_key in (None, "float32") else 2
+    idx_chunks, val_chunks, positions, layout, has_vals = _ell_layout(
+        csr, bucket, reduce, row_sort, compact, compact_slots, itemsize,
+        feat_dim,
+    )
+    arrays = [positions, *_chunk_arrays(idx_chunks, val_chunks)]
+    statics = (csr.shape, layout, has_vals, dtype_key)
+    return Plan(arrays, _ell_apply, statics, device=device)
+
+
+def _ell_apply(statics, arrays, dense, plain: bool = False):
+    # plain torch ops already: plain=True runs the same ops
+    (n_rows, n_cols), layout, has_vals, dtype_key = statics
+    positions = arrays[0]
+    dense = _operand(dense, n_cols, positions.device, dtype_key)
+    if not layout:  # no rows
+        return torch.zeros(n_rows, dense.shape[1], dtype=torch.float32,
+                           device=dense.device)
+    if not has_vals:  # the zero row that every pad slot reads
+        dense = torch.cat([dense, dense.new_zeros(1, dense.shape[1])])
+    cat, _ = _run_chunks(arrays, 1, dense, layout, has_vals, 0)
+    return cat.index_select(0, positions)
+
+
+def csr_spmm_ell_banded_plan(csr: CSR, band_rows: int = 1 << 19,
+                             grad: bool = True, dtype=None,
+                             bucket: str = "quarter", reduce: str = "auto",
+                             device=None) -> Plan:
+    """Banded ELL: a row's nonzeros inside its home band of `band_rows`
+    operand rows gather from that slice of the operand, the rest run
+    through a full-table ELL layout of their own, and the two sums add.
+    With the table no wider than a band, the plain ELL plan. dtype and
+    grad as csr_spmm_ell_plan; device: None is the card."""
+    device = resolve_device(device)
+    dtype_key = _plan_dtype_key(dtype)
+    if grad:
+        kw = dict(dtype=dtype, bucket=bucket, reduce=reduce, device=device)
+        return grad_plan(
+            csr_spmm_ell_banded_plan(csr, band_rows, grad=False, **kw),
+            csr_spmm_ell_banded_plan(csr.transpose(), band_rows, grad=False, **kw))
+    if csr.n_cols <= band_rows:  # nothing to band
+        return csr_spmm_ell_plan(csr, grad=False, dtype=dtype, bucket=bucket,
+                                 reduce=reduce, device=device)
+    idx_in, vals_in, pos_in, layout_in, (orows, ocols, ovals) = (
+        _ell_layout_banded(csr, band_rows, bucket)
+    )
+    if ovals is None:  # the valued (pad-at-0) form: no zero row appended
+        ovals = np.ones(orows.shape[0], np.float32)
+    ovf_csr = CSR.from_coo(orows, ocols, ovals, shape=csr.shape)
+    idx_ovf, vals_ovf, pos_ovf, layout_ovf, _ = _ell_layout(ovf_csr, bucket, reduce)
+    arrays = [pos_in, pos_ovf, *_chunk_arrays(idx_in, vals_in),
+              *_chunk_arrays(idx_ovf, vals_ovf)]
+    statics = (csr.shape, layout_in, layout_ovf, dtype_key, int(band_rows))
+    return Plan(arrays, _banded_apply, statics, device=device)
+
+
+def _banded_apply(statics, arrays, dense, plain: bool = False):
+    # plain torch ops already: plain=True runs the same ops
+    (n_rows, n_cols), layout_in, layout_ovf, dtype_key, band_rows = statics
+    pos_in, pos_ovf = arrays[:2]
+    dense = _operand(dense, n_cols, pos_in.device, dtype_key)
+    cat_in, j = _run_chunks(arrays, 2, dense, layout_in, True, band_rows)
+    cat_ovf, _ = _run_chunks(arrays, j, dense, layout_ovf, True, 0)
+    return cat_in.index_select(0, pos_in) + cat_ovf.index_select(0, pos_ovf)
+
+
+def csr_spmm_ell_int8_plan(csr: CSR, calibration=None, bucket: str = "quarter",
+                           reduce: str = "auto", row_sort: str = "keep",
+                           compact: str = "off",
+                           compact_slots: int = COMPACT_SLOTS,
+                           feat_dim: int = 128, device=None, **_ignored) -> Plan:
+    """The ELL layout over an int8 operand, quantized per column as every
+    int8 tier does (on the card by the quantize_int8 kernel, its zero pad
+    row included; on the CPU by its plain version), rescaled once at the
+    end: C = s[c] * (A @ q)[:, c]. Inference only (grad=True raises).
+
+    calibration: an optional representative operand batch that fixes the
+    column scales at plan time (static_col_scale); without it each call
+    quantizes with the operand's own scales. device: None is the card."""
+    device = resolve_device(device)
+    reject_grad_request(_ignored, "csr_ell_int8")
+    idx_chunks, val_chunks, positions, layout, has_vals = _ell_layout(
+        csr, bucket, reduce, row_sort, compact, compact_slots, itemsize=1,
+        feat_dim=feat_dim,
+    )
+    arrays = [positions, *_chunk_arrays(idx_chunks, val_chunks)]
+    if calibration is not None:
+        arrays.append(static_col_scale(calibration))
+    statics = (csr.shape, layout, has_vals, calibration is not None)
+    return Plan(arrays, _ell_int8_apply, statics, device=device)
+
+
+def _ell_int8_apply(statics, arrays, dense, plain: bool = False):
+    # plain=True quantizes with quantize_int8's plain version; the rest is
+    # plain torch ops either way
+    (n_rows, n_cols), layout, has_vals, calibrated = statics
+    positions = arrays[0]
+    dense = _operand(dense, n_cols, positions.device, None)
+    if not layout:  # no rows
+        return torch.zeros(n_rows, dense.shape[1], dtype=torch.float32,
+                           device=dense.device)
+    quantize = quantize_int8_plain if plain else quantize_int8
+    # pattern-only layouts read a zero row at n_cols: the quantizer's pad
+    q, col_scale = quantize(dense, n_cols + (0 if has_vals else 1),
+                            arrays[-1] if calibrated else None)
+    cat, _ = _run_chunks(arrays, 1, q, layout, has_vals, 0)
+    return cat.index_select(0, positions) * col_scale[None, :]
+
+
+def csr_spmm_ell(csr: CSR, dense, **kw) -> torch.Tensor:
+    return csr_spmm_ell_plan(csr, **kw)(dense)

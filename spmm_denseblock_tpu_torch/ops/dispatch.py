@@ -1,21 +1,25 @@
 """The user-facing ``spmm_plan`` entry point (twin of
-``spmm_denseblock_tpu/ops/dispatch.py``, for the tiers ported so far).
+``spmm_denseblock_tpu/ops/dispatch.py``).
 
-    plan = spmm_plan(matrix, impl="bsr_pallas", grad=False)   # on the card
+    plan = spmm_plan(matrix, impl="auto", feat_dim=128, grad=False)  # on the card
     C = plan(B)
 
 Plans go to the card unless the caller passes ``device="cpu"`` (or
 another device); with no GPU and no device given, spmm_plan raises
 RuntimeError.
 
-The impl names are the JAX package's, so one call line works on both.
-``impl="auto"`` reproduces the JAX router's BSR branch: CSR input, the
-wide/narrow operand split at feat_dim 256, b >= 64, the 4 GiB byte
-budget and the fill-amplification guard at 32x. Those constants were
-measured on a TPU v5e and are copied as they are. ``dtype=int8`` maps
-the chosen tier, picked by "auto" or named, to its quantized variant, as
-the JAX router does. Where that gives a tier this port does not have
-yet, spmm_plan raises NotImplementedError naming it.
+The impl names are the JAX package's, so one call line works on both,
+and ``impl="auto"`` takes the JAX router's steps: Windowed and Hybrid
+inputs run their tiers; a BSR input of b < 32 is repacked to 128 when
+the small-b score says so; the BSR tier by operand width (feat_dim 256)
+and block size; then, for a CSR input, the fill guard (32x zero fill
+within the byte budget gives csr_ell) and, over the budget, the
+threshold scorer (a dense part worth its blocks gives hybrid, else
+csr_ell). ``dtype=int8`` maps the chosen tier, picked by "auto" or
+named, to its quantized variant, and "auto"'s ELL and hybrid tiers get
+compact="auto". Every constant of these steps is a TPU v5e fit of the
+JAX package, copied as it is. ``tune_with=`` (the router's measured
+tie-break) and ``operand_layout="col"`` raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -25,29 +29,42 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from spmm_denseblock_tpu_torch.analyze.metrics import calculate_nnzb
 from spmm_denseblock_tpu_torch.convert.csr2bsr import bsr_to_csr, csr_to_bsr
+from spmm_denseblock_tpu_torch.convert.divide import (
+    auto_threshold,
+    divide,
+    score_thresholds,
+)
+from spmm_denseblock_tpu_torch.convert.pack import repack_bsr
 from spmm_denseblock_tpu_torch.formats.bsr import BSR
 from spmm_denseblock_tpu_torch.formats.csr import CSR
+from spmm_denseblock_tpu_torch.formats.hybrid import Hybrid
+from spmm_denseblock_tpu_torch.formats.windowed import Windowed, divide_windowed
 from spmm_denseblock_tpu_torch.ops._device import resolve_device
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_int8 import bsr_spmm_int8_plan, dtype_name
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import bsr_spmm_pallas_plan
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8 import bsr_spmm_pallas_int8_plan
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_xla import bsr_spmm_xla_plan
 from spmm_denseblock_tpu_torch.ops.csr_spmm import bcoo_spmm_plan, csr_spmm_plan
+from spmm_denseblock_tpu_torch.ops.csr_spmm_ell import (
+    SCAN_MIN_SOURCE_ROWS,
+    csr_spmm_ell_banded_plan,
+    csr_spmm_ell_int8_plan,
+    csr_spmm_ell_plan,
+)
 from spmm_denseblock_tpu_torch.ops.csr_spmm_pallas import csr_spmm_pallas_plan
+from spmm_denseblock_tpu_torch.ops.hybrid_spmm import (
+    hybrid_spmm_int8_plan,
+    hybrid_spmm_plan,
+)
 from spmm_denseblock_tpu_torch.ops.plan import Plan
 from spmm_denseblock_tpu_torch.ops.reference import spmm_dense_torch
-
-# where each tier the JAX router can pick stands in the port's ROADMAP
-_NOT_PORTED = {
-    "csr_ell": "ROADMAP queue 1 item 9",
-    "csr_ell_int8": "ROADMAP queue 1 item 9",
-    "hybrid": "ROADMAP queue 1 item 10",
-    "hybrid_int8": "ROADMAP queue 1 item 10",
-    "windowed": "ROADMAP queue 1 item 10",
-    "windowed_int8": "ROADMAP queue 1 item 10",
-    "repack_bsr": "ROADMAP queue 1 item 10",
-}
+from spmm_denseblock_tpu_torch.ops.windowed_spmm import (
+    tiered_spmm_plan,
+    windowed_spmm_int8_plan,
+    windowed_spmm_plan,
+)
 
 # dtype=int8 maps a tier to its quantized variant (inference only)
 _INT8_VARIANT = {
@@ -57,6 +74,10 @@ _INT8_VARIANT = {
     "hybrid": "hybrid_int8",
     "windowed": "windowed_int8",
 }
+# the tiers whose ELL layout takes compact= and feat_dim= from the router
+_ELL_TIERS = ("csr_ell", "csr_ell_int8", "hybrid", "hybrid_int8")
+# the router's explicit-hybrid threshold candidates, besides auto_threshold
+_THRESHOLDS = (0.015, 0.02, 0.03, 0.05)
 
 
 def _dense_apply(statics, arrays, dense, plain: bool = False):
@@ -81,21 +102,24 @@ PLANNERS: Dict[str, Callable] = {
     # CSR tier; csr_xla and bcoo take no other arguments, as in JAX
     "csr_xla": lambda m, device=None, **kw: csr_spmm_plan(_as_csr(m), device=device),
     "csr_pallas": lambda m, **kw: csr_spmm_pallas_plan(_as_csr(m), **kw),
+    "csr_ell": lambda m, **kw: csr_spmm_ell_plan(_as_csr(m), **kw),
+    "csr_ell_int8": lambda m, **kw: csr_spmm_ell_int8_plan(_as_csr(m), **kw),
+    "csr_ell_banded": lambda m, **kw: csr_spmm_ell_banded_plan(_as_csr(m), **kw),
     "bcoo": lambda m, device=None, **kw: bcoo_spmm_plan(_as_csr(m), device=device),
     # BSR tier
     "bsr_pallas": lambda m, **kw: bsr_spmm_pallas_plan(m, **kw),
     "bsr_xla": lambda m, **kw: bsr_spmm_xla_plan(m, **kw),
     "bsr_int8": lambda m, **kw: bsr_spmm_int8_plan(m, **kw),
     "bsr_int8_pallas": lambda m, **kw: bsr_spmm_pallas_int8_plan(m, **kw),
+    # composite tiers
+    "hybrid": lambda m, **kw: hybrid_spmm_plan(m, **kw),
+    "hybrid_int8": lambda m, **kw: hybrid_spmm_int8_plan(m, **kw),
+    "windowed": lambda m, **kw: windowed_spmm_plan(m, **kw),
+    "windowed_int8": lambda m, **kw: windowed_spmm_int8_plan(m, **kw),
+    "tiered": lambda m, **kw: tiered_spmm_plan(m, **kw),
+    # oracle
     "dense": _dense_plan,
 }
-
-
-def _calculate_nnzb(csr: CSR, b: int) -> int:
-    rows = csr.row_ids().astype(np.int64)
-    cols = np.asarray(csr.indices, dtype=np.int64)
-    nbc = -(-csr.shape[1] // b)
-    return int(np.unique((rows // b) * nbc + cols // b).shape[0])
 
 
 def _prefer_repack128(bsr: BSR) -> bool:
@@ -111,54 +135,126 @@ def _prefer_repack128(bsr: BSR) -> bool:
     return repack_cost < direct_cost
 
 
-def _auto_impl(matrix, block_size: int, feat_dim, budget: int) -> str:
-    """The JAX router's choice for a CSR or BSR input."""
+def _itemsize(dtype) -> int:
+    """Bytes of an operand element of `dtype` (None: f32)."""
+    return 4 if dtype is None else getattr(torch, dtype_name(dtype)).itemsize
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP queue 1 item 11, the full router)")
+
+
+def _explicit_hybrid(matrix: CSR, impl: str, block_size: int, kw: dict) -> Hybrid:
+    """impl="hybrid"/"hybrid_int8" on a CSR input: divide at
+    density_threshold=, else at the scorer's pick with margin 0 (the
+    caller asked for a hybrid), else at auto_threshold."""
+    thr = kw.pop("density_threshold", None)
+    if thr is None:
+        # hybrid_int8 gathers a 1-byte table: score the bytes the plan moves
+        dtype_bytes = 1 if impl == "hybrid_int8" else _itemsize(kw.get("dtype"))
+        thr, _ = score_thresholds(
+            matrix, block_size,
+            candidates={*_THRESHOLDS, auto_threshold(matrix, block_size)},
+            margin=0.0, dtype_bytes=dtype_bytes,
+        )
+        if thr is None:  # nothing qualifies: the densest blocks only
+            thr = auto_threshold(matrix, block_size)
+    return divide(matrix, block_size, thr)
+
+
+def _auto_impl(matrix, block_size: int, feat_dim, kw: dict):
+    """The JAX router's "auto" choice: (impl, matrix, report), the matrix
+    repacked or divided where the route says so, and score_thresholds'
+    report where the scorer ran (else None). Pops bsr_bytes_budget from
+    kw."""
+    if isinstance(matrix, Windowed):
+        return "windowed", matrix, None
+    if isinstance(matrix, Hybrid):
+        return "hybrid", matrix, None
     if isinstance(matrix, BSR) and matrix.block_size < 32 and _prefer_repack128(matrix):
-        return "repack_bsr"
+        matrix = repack_bsr(matrix, 128)
     b_eff = matrix.block_size if isinstance(matrix, BSR) else block_size
     wide = feat_dim is None or feat_dim >= 256
     impl = "bsr_pallas" if (wide and b_eff >= 64) else "bsr_xla"
-    if isinstance(matrix, CSR):
-        nnzb = _calculate_nnzb(matrix, block_size)
-        block_bytes = nnzb * block_size * block_size * 4
-        fill_amp = nnzb * block_size * block_size / max(matrix.nnz, 1)
-        if fill_amp > 32 and block_bytes <= budget:
-            impl = "csr_ell"
-        elif block_bytes > budget:
-            impl = "hybrid"  # or csr_ell, by the JAX threshold scorer
-    return impl
+    if not isinstance(matrix, CSR):
+        return impl, matrix, None
+    # the memory guard: a BSR-ified element-sparse graph can exceed the
+    # device's memory, and one of mostly empty blocks wastes its products
+    budget = kw.pop("bsr_bytes_budget", 4 << 30)
+    nnzb = calculate_nnzb(matrix, block_size)
+    block_bytes = nnzb * block_size * block_size * 4
+    fill_amp = nnzb * block_size * block_size / max(matrix.nnz, 1)
+    if fill_amp > 32 and block_bytes <= budget:
+        return "csr_ell", matrix, None
+    if block_bytes <= budget:
+        return impl, matrix, None
+    big_table = matrix.n_cols >= SCAN_MIN_SOURCE_ROWS
+    best_thr, report = score_thresholds(
+        matrix, block_size,
+        candidates={*_THRESHOLDS, auto_threshold(matrix, block_size)},
+        slots_per_block=4000.0 if big_table else 400.0,
+        dense_bytes_budget=budget // 4, dtype_bytes=_itemsize(kw.get("dtype")),
+    )
+    if best_thr is None:  # densification pays nothing here
+        return "csr_ell", matrix, report
+    return "hybrid", divide(matrix, block_size, best_thr), report
 
 
 def spmm_plan(matrix, impl: str = "auto", block_size: int = 128,
               feat_dim=None, **kw) -> Plan:
-    """Build an SpMM executor for `matrix` (CSR or BSR).
+    """Build an SpMM executor for `matrix` (CSR, BSR, Hybrid or
+    Windowed).
 
-    impl: "bsr_pallas", "bsr_xla", "bsr_int8", "bsr_int8_pallas",
-    "csr_pallas", "csr_xla", "bcoo", "dense" or "auto". feat_dim steers
-    "auto" (None assumes a wide operand). dtype=torch.int8 maps the tier
-    to its int8 variant (bsr_pallas -> bsr_int8_pallas, bsr_xla ->
-    bsr_int8); pass calibration= for static operand scales. Other keyword
-    arguments go to the planner, e.g. grad=False (bsr_pallas and
-    csr_pallas plans are differentiable by default),
-    dtype=torch.bfloat16, precision="high". device: None (the default)
-    is the card; CPU callers pass device="cpu"."""
+    impl: a key of PLANNERS or "auto". feat_dim: the operand width that
+    "auto" and the ELL tiers' compaction model expect (None assumes a
+    wide operand). repack_to= re-blocks a BSR input first.
+    impl="hybrid"/"hybrid_int8" on a CSR input divides it
+    (density_threshold=, else the scored threshold); "windowed*" on a CSR
+    input cuts its tiles (tile_rows=, window=, min_fill=, n_windows=).
+    bsr_bytes_budget= (4 GiB) is "auto"'s memory guard. dtype=torch.int8
+    maps the tier to its int8 variant (bsr_pallas -> bsr_int8_pallas,
+    bsr_xla -> bsr_int8, csr_ell -> csr_ell_int8, hybrid -> hybrid_int8,
+    windowed -> windowed_int8); pass calibration= for static operand
+    scales. Other keyword arguments go to the planner, e.g. grad=False,
+    dtype=torch.bfloat16, precision="high", compact=. device: None (the
+    default) is the card; CPU callers pass device="cpu"."""
     kw["device"] = resolve_device(kw.get("device"))
-    budget = kw.pop("bsr_bytes_budget", 4 << 30)
-    picked = impl == "auto"
-    if picked:
-        impl = _auto_impl(matrix, block_size, feat_dim, budget)
+    was_auto = impl == "auto"
+    repack_to = kw.pop("repack_to", None)
+    operand_layout = kw.pop("operand_layout", "row")
+    if operand_layout not in ("row", "col"):
+        raise ValueError(f"operand_layout must be 'row' or 'col', got {operand_layout!r}")
+    if operand_layout == "col":
+        raise _not_ported("operand_layout='col' (transb_plan over the router)")
+    if kw.pop("tune_with", None) is not None:
+        raise _not_ported("tune_with= (the router's measured tie-break, spmm_tune)")
+    if repack_to is not None and isinstance(matrix, BSR):
+        matrix = repack_bsr(matrix, repack_to)
+    if impl in ("hybrid", "hybrid_int8") and isinstance(matrix, CSR):
+        matrix = _explicit_hybrid(matrix, impl, block_size, kw)
+    if impl.startswith("windowed") and isinstance(matrix, CSR):
+        matrix = divide_windowed(
+            matrix,
+            tile_rows=kw.pop("tile_rows", 256),
+            window=kw.pop("window", 1024),
+            min_fill=kw.pop("min_fill", 0.0),
+            n_windows=kw.pop("n_windows", 1),
+        )
+    if was_auto:
+        impl, matrix, _ = _auto_impl(matrix, block_size, feat_dim, kw)
+    kw.pop("bsr_bytes_budget", None)
     dtype = kw.get("dtype")
     if dtype is not None and dtype_name(dtype) == "int8":
         if impl in _INT8_VARIANT:
             impl = _INT8_VARIANT[impl]
         if impl in _INT8_VARIANT.values():  # the quantized tiers take no dtype
             kw.pop("dtype")
-    if impl in _NOT_PORTED:
-        how = "impl='auto' picks" if picked else "impl resolves to"
-        raise NotImplementedError(
-            f"{how} {impl!r} for this input, which is not ported yet "
-            f"({_NOT_PORTED[impl]})"
-        )
+    if impl in _ELL_TIERS:
+        if was_auto:  # two-level gathers where the model predicts a win
+            kw.setdefault("compact", "auto")
+        if feat_dim is not None:  # the compaction model's operand width
+            kw["feat_dim"] = feat_dim
     if impl not in PLANNERS:
         raise KeyError(f"unknown impl {impl!r}; have {sorted(PLANNERS)}")
     if impl.startswith("bsr") and isinstance(matrix, CSR):

@@ -7,9 +7,9 @@ reference's reorder_graph / rabbit_reorder drivers, reorder_graph.cc:26-49).
 
 Loads the graph (a dataset name, or an edge-list file), dumps its CSR in
 the reference's text format, applies the strategy, dumps the reordered
-CSR and the permutation, and prints the bandwidth and block metrics of
-both: the same lines and files as the JAX CLI, less its ELL-tier model
-line, which comes with the port's ELL tier.
+CSR and the permutation, and prints the bandwidth, block and ELL-layout
+metrics of both: the same lines and files as the JAX CLI, its ELL lines
+without their time estimates at TPU v5e gather rates.
 """
 
 from __future__ import annotations
@@ -29,20 +29,23 @@ def main(argv=None):
     ap.add_argument("--block-sizes", type=int, nargs="*", default=[16, 32, 64, 128])
     ap.add_argument("--heatmap", action="store_true")
     ap.add_argument("--heatmap-block", type=int, default=256)
-    ap.add_argument("--ell-compact", action="store_true",
-                    help="the ELL tier's two-level gather model (not ported yet)")
+    ap.add_argument(
+        "--ell-compact", action="store_true",
+        help="also print the two-level gather's U/S and compacted spans "
+             "(an O(nnz) unique pass)",
+    )
     args = ap.parse_args(argv)
-    if args.ell_compact:
-        raise NotImplementedError(
-            "--ell-compact models the ELL tier, which the port does not have "
-            "yet (ROADMAP queue 1 item 9)")
 
     from spmm_denseblock_tpu_torch.analyze.heatmap import (
         dump_heatmap,
         heatmap,
         plot_heatmap,
     )
-    from spmm_denseblock_tpu_torch.analyze.metrics import bandwidth_profile, block_metrics
+    from spmm_denseblock_tpu_torch.analyze.metrics import (
+        bandwidth_profile,
+        block_metrics,
+        ell_metrics,
+    )
     from spmm_denseblock_tpu_torch.io.datasets import load_dataset
     from spmm_denseblock_tpu_torch.io.graph_io import (
         dump_csr,
@@ -75,6 +78,17 @@ def main(argv=None):
             print(
                 f"  b={b:4d}: nnzb={int(m['nnzb']):9d} density={m['density']:.6f} "
                 f"utilization={m['utilization']:.5f} avg={m['average']:.2f}"
+            )
+        em = ell_metrics(g, compact_model=args.ell_compact)
+        print(
+            f"  ell(quarter): slots={em['slots']} "
+            f"padded_ratio={em['padded_ratio']:.3f} "
+            f"classes={em['n_classes']} chunks={em['n_chunks']}"
+        )
+        if args.ell_compact:
+            print(
+                f"  ell compact: U/S={em['compact_u_over_s']:.3f} "
+                f"spans={em['compact_spans']}"
             )
         if args.heatmap:
             h = heatmap(g, args.heatmap_block)

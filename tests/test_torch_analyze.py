@@ -52,6 +52,41 @@ def test_block_metrics_bit_equal(shape):
     assert t_an.bandwidth_profile(empty)["bandwidth"] == 0.0
 
 
+@pytest.mark.parametrize("compact_slots", [1 << 20, 64])
+@pytest.mark.parametrize("bucket,feat_dim,itemsize", [
+    ("quarter", 128, 4), ("pow2", 128, 4), ("quarter", 1 << 16, 4),
+    ("quarter", 1 << 16, 2)])
+def test_ell_metrics_bit_equal(bucket, feat_dim, itemsize, compact_slots,
+                               monkeypatch):
+    """ell_metrics with the compaction model: every field the port keeps
+    (slots, padded_ratio, classes, chunks, table_bytes, U/S, compacted
+    spans) equals JAX's; the JAX fields it leaves out are the time
+    estimates at TPU v5e rates. COMPACT_SLOTS at 64 gives many spans,
+    and at feat_dim 2^16 (a 524 MB f32 table) the model compacts some
+    of them."""
+    import importlib
+
+    for mod in ("spmm_denseblock_tpu.ops.csr_spmm_ell",
+                "spmm_denseblock_tpu_torch.ops.csr_spmm_ell"):
+        monkeypatch.setattr(importlib.import_module(mod), "COMPACT_SLOTS", compact_slots)
+    # rows whose neighbours lie in a window that moves with the row: a
+    # span's unique neighbours are far fewer than its slots
+    rng = np.random.default_rng(9)
+    rows = np.repeat(np.arange(400), rng.integers(1, 12, 400))
+    key = np.unique(rows * 2000 + (rows * 5 + rng.integers(0, 24, rows.size)) % 2000)
+    parts = (key // 2000, key % 2000, None, (400, 2000))
+    a, b = j_csr.CSR.from_coo(*parts), t_csr.CSR.from_coo(*parts)
+    want = j_an.ell_metrics(a, bucket, feat_dim, itemsize, compact_model=True)
+    got = t_an.ell_metrics(b, bucket, feat_dim, itemsize, compact_model=True)
+    assert got == {k: v for k, v in want.items() if not k.startswith("est_ms")}
+    assert set(want) - set(got) == {"est_ms_small_table_rate", "est_ms_big_table_rate",
+                                    "est_ms_flat", "est_ms_two_level"}
+    assert t_an.ell_compact_metrics(b, bucket, feat_dim, itemsize) == {
+        k: want[k] for k in ("compact_u_over_s", "compact_spans")}
+    if (feat_dim, itemsize, compact_slots) == (1 << 16, 4, 64):
+        assert got["compact_spans"] > 0
+
+
 def test_heatmap_dump_load_bit_equal(tmp_path):
     a, b = pair(0.05, 300, seed=4)
     ha, hb = j_an.heatmap(a, 64), t_an.heatmap(b, 64)
@@ -138,11 +173,18 @@ def _metric_lines(text: str) -> list:
             if not line.startswith("  ell") and not re.fullmatch(r"\w+: [0-9.]+s", line)]
 
 
+def _ell_lines(text: str) -> list:
+    """The CLI's ELL lines, cut before the JAX CLI's time estimates."""
+    return [re.split(r" est=| modeled ", line)[0] for line in text.splitlines()
+            if line.startswith("  ell")]
+
+
 @pytest.mark.parametrize("strategy", ["rcmk", "rabbit"])
 def test_cli_matches_jax_cli(strategy, tmp_path, capsys):
     """Both CLIs on one edge list, into two directories: the same files
     (the heatmap images aside, each byte-equal) and the same metric
-    lines; --ell-compact is refused."""
+    lines; the ELL lines, with --ell-compact too, are the JAX CLI's
+    without their time estimates at TPU v5e rates."""
     g = t_ds.synthetic_powerlaw(400, 4000, seed=8)
     edges = tmp_path / "g.txt"
     t_io.dump_edge_list(g, str(edges))
@@ -161,6 +203,9 @@ def test_cli_matches_jax_cli(strategy, tmp_path, capsys):
         if not name.endswith(".png"):
             assert filecmp.cmp(tmp_path / "jax" / name, tmp_path / "torch" / name,
                                shallow=False), name
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_cli.main(argv + ["--ell-compact"])
+    assert j_cli.main(argv + ["--ell-compact", "--out", str(tmp_path / "j2")]) == 0
+    j_ell = _ell_lines(capsys.readouterr().out)
+    assert t_cli.main(argv + ["--ell-compact", "--out", str(tmp_path / "t2")]) == 0
+    assert _ell_lines(capsys.readouterr().out) == j_ell
+    assert len(j_ell) == 4 and j_ell[1].startswith("  ell compact: U/S=")
     assert t_cli.main([str(edges), "no-such-strategy"]) == 2

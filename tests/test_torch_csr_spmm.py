@@ -314,8 +314,9 @@ def test_spmm_plan_routes_bsr_input_to_csr_tiers(impl):
 def test_csr_pallas_rejections():
     """precision="default" raises naming its ROADMAP entry, an unknown
     precision raises ValueError; dtype=int8 on csr_pallas fails in both
-    routers, whose CSR planner takes no dtype; the tiers still unported
-    raise naming their item."""
+    routers, whose CSR planner takes no dtype; the ELL, hybrid and
+    windowed tiers, which raised before the port had them, now answer on
+    the same input (int8 at its 6e-2 gate)."""
     jc, tc = _pair(0.1, 30, 20, seed=12)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TP.csr_spmm_pallas_plan(tc, precision="default", device="cpu")
@@ -326,9 +327,14 @@ def test_csr_pallas_rejections():
     with pytest.raises(TypeError, match="dtype"):
         t_ops.spmm_plan(tc, impl="csr_pallas", dtype=torch.int8, device="cpu")
     assert {"csr_xla", "csr_pallas", "bcoo"} <= set(t_ops.PLANNERS)
+    x = _x(20, 6, seed=13)
     for impl in ("csr_ell", "csr_ell_int8", "hybrid", "windowed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_ops.spmm_plan(tc, impl=impl, device="cpu")
+        got = t_ops.spmm_plan(tc, impl=impl, block_size=8, device="cpu")(x)
+        want = spmm_scipy(tc, x)
+        if impl == "csr_ell_int8":
+            assert _rel(got, want) < 6e-2
+        else:
+            assert_allclose(got, want)
 
 
 # -- the GCN through csr_pallas -----------------------------------------------

@@ -1516,3 +1516,130 @@ def test_csr_xla_and_bcoo_on_card():
     for impl in ("csr_xla", "bcoo"):
         assert_allclose(spmm_plan(csr, impl=impl)(x), want.cpu().numpy())
     assert [k.launches for k in _kernels.KERNELS] == counts
+
+
+# -- the ELL, hybrid and windowed tiers (torch ops around the kernels) -------
+
+
+def _dense_block_graph(seed=12):
+    """16 block-rows of 32: in each, ~10 of 16 full 32 x 32 blocks (>= 8
+    real blocks a block-row on average, so the dense part's plans sort:
+    K2, K7) and a sparse tail over the whole matrix."""
+    from spmm_denseblock_tpu_torch.convert.csr2bsr import bsr_to_csr
+
+    dense = bsr_to_csr(random_bsr(1.0, 16, 16, block_size=32, seed=seed))
+    tail = random_csr(0.01, 512, seed=seed + 1)
+    rows = np.concatenate([dense.row_ids(), tail.row_ids()])
+    cols = np.concatenate([dense.indices, tail.indices])
+    vals = np.concatenate([dense.values(), tail.values()])
+    return CSR.from_coo(rows, cols, vals, (512, 512))
+
+
+def _ell_case(case):
+    """(matrix, planner, kwargs) of one ELL-tier case."""
+    E = importlib.import_module("spmm_denseblock_tpu_torch.ops.csr_spmm_ell")
+
+    valued = random_csr(0.03, 700, 500, seed=21)
+    pattern = random_csr(0.03, 700, 500, seed=21, values="ones")
+    # 5,000 rows of 4 nonzeros: one class past _SCAN_MIN_M = 4,096 rows
+    rng = np.random.default_rng(22)
+    scan_csr = CSR.from_coo(np.repeat(np.arange(5000), 4), rng.integers(0, 500, 20000),
+                            rng.random(20000, dtype=np.float32), (5000, 500))
+    return {
+        "f32": (valued, E.csr_spmm_ell_plan, {"grad": False}),
+        "bf16": (valued, E.csr_spmm_ell_plan, {"grad": False, "dtype": torch.bfloat16}),
+        "pattern": (pattern, E.csr_spmm_ell_plan, {"grad": False}),
+        "scan": (scan_csr, E.csr_spmm_ell_plan, {"grad": False, "reduce": "scan"}),
+        "compact": (valued, E.csr_spmm_ell_plan,
+                    {"grad": False, "compact": "force", "compact_slots": 512}),
+        "banded": (valued, E.csr_spmm_ell_banded_plan, {"grad": False, "band_rows": 128}),
+        "int8 pattern": (pattern, E.csr_spmm_ell_int8_plan, {}),
+        "int8 valued": (valued, E.csr_spmm_ell_int8_plan, {}),
+        "int8 calibrated": (valued, E.csr_spmm_ell_int8_plan,
+                            {"calibration": np.random.default_rng(5).standard_normal(
+                                (500, 40)).astype(np.float32)}),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16", "pattern", "scan", "compact",
+                                  "banded", "int8 pattern", "int8 valued",
+                                  "int8 calibrated"])
+def test_ell_plans_on_card_match_cpu(case):
+    """Each ELL plan on the card against the same plan on the CPU: int8
+    pattern-only bit for bit (int32 sums, the quantization kernel
+    bit-equal to its plain version), the rest within 1e-5 (the order of
+    the f32 sums); the int8 plans quantize with quantize_int8, one
+    launch a call, and no other kernel of the port runs."""
+    csr, planner, kw = _ell_case(case)
+    x_np = np.random.default_rng(6).standard_normal((csr.n_cols, 40)).astype(np.float32)
+    want = planner(csr, device="cpu", **kw)(x_np)
+    plan = planner(csr, device="cuda", **kw)
+    counts = [k.launches for k in _kernels.KERNELS]
+    got = plan(torch.as_tensor(x_np, device="cuda"))
+    torch.cuda.synchronize()
+    int8 = case.startswith("int8")
+    launched = [k.launches - c for k, c in zip(_kernels.KERNELS, counts)]
+    assert launched == [int(int8 and k is _kernels.quantize_int8) for k in _kernels.KERNELS]
+    assert got.shape == want.shape and got.dtype == torch.float32
+    if case == "int8 pattern":
+        assert torch.equal(got.cpu(), want)
+    else:
+        rel = (got.cpu() - want).abs().max().item() / want.abs().max().item()
+        assert rel < TOL, rel
+
+
+@pytest.mark.parametrize("dtype,kernel,n_quantize", [
+    (None, "bsr_spmm_sorted", 0), (torch.bfloat16, "bsr_spmm_sorted_bf16", 0),
+    (torch.int8, "bsr_spmm_int8_sorted", 2)])
+def test_hybrid_plan_launches_its_dense_kernel(dtype, kernel, n_quantize):
+    """spmm_plan(impl="hybrid") on a graph whose dense part has >= 8 real
+    blocks a block-row: the dense part runs K2 (f32, bf16) or K7 (int8,
+    with quantize_int8 for it and for the int8 ELL remainder), once a
+    call, and the answer equals the CPU plan's within 1e-5; the dense
+    part within 1e-5 of its plain version."""
+    from spmm_denseblock_tpu_torch.ops import spmm_plan
+
+    csr = _dense_block_graph()
+    kw = dict(impl="hybrid", block_size=32, density_threshold=0.5, grad=False,
+              dtype=dtype)
+    plan = spmm_plan(csr, **kw)
+    assert plan.subplans is not None and len(plan.subplans) == 2
+    x = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (512, 72)).astype(np.float32), device="cuda")
+    counter = getattr(_kernels, kernel)
+    before, q_before = counter.launches, _kernels.quantize_int8.launches
+    got = plan(x)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert _kernels.quantize_int8.launches == q_before + n_quantize
+    want = spmm_plan(csr, device="cpu", **kw)(x.cpu())
+    rel = (got.cpu() - want).abs().max().item() / want.abs().max().item()
+    assert rel < TOL, rel
+    _check(plan.subplans[0], x, counter)
+
+
+@pytest.mark.parametrize("case", ["windowed", "windowed bf16", "windowed_int8",
+                                  "windowed_int8 calibrated", "tiered"])
+def test_windowed_plans_on_card_match_cpu(case):
+    """The windowed tiers on the card against their CPU plans:
+    windowed_int8 bit for bit at window=2048 (two f32 spans of 1,024
+    columns, each exact, added in int32; one window a tile), the rest
+    within 1e-5."""
+    from spmm_denseblock_tpu_torch.ops import spmm_plan
+
+    csr = _dense_block_graph(seed=14)
+    x_np = np.random.default_rng(8).standard_normal((512, 24)).astype(np.float32)
+    if case == "tiered":
+        kw = dict(impl="tiered", tile_rows=64, window=128, grad=False)
+    else:
+        kw = dict(impl=case.split()[0], tile_rows=64, window=2048)
+        kw.update({"dtype": torch.bfloat16} if "bf16" in case else {})
+        kw.update({"calibration": x_np} if "calibrated" in case else {})
+        kw.update({} if "int8" in case else {"grad": False})
+    want = spmm_plan(csr, device="cpu", **kw)(x_np)
+    got = spmm_plan(csr, **kw)(torch.as_tensor(x_np, device="cuda"))
+    if "int8" in case:
+        assert torch.equal(got.cpu(), want)
+    else:
+        rel = (got.cpu() - want).abs().max().item() / want.abs().max().item()
+        assert rel < TOL, rel

@@ -102,13 +102,17 @@ def test_auto_router_parity(tmp_path):
 
 def test_auto_router_fill_guard():
     """A weakly structured graph BSR-ifies into mostly empty blocks; past
-    32x fill both routers leave the BSR tier (the JAX one for csr_ell)."""
+    32x fill both routers leave the BSR tier for csr_ell, and the answers
+    agree."""
     j_graph = j_csr.random_csr(0.002, 1024, seed=0, values="ones")
     t_graph = t_csr.random_csr(0.002, 1024, seed=0, values="ones")
     j_auto = j_ops.spmm_plan(j_graph, impl="auto", block_size=128, grad=False)
     assert "ell" in j_auto.apply_fn.__module__
-    with pytest.raises(NotImplementedError, match="csr_ell"):
-        t_ops.spmm_plan(t_graph, impl="auto", block_size=128, grad=False, device="cpu")
+    t_auto = t_ops.spmm_plan(t_graph, impl="auto", block_size=128, grad=False,
+                             device="cpu")
+    assert t_auto.apply_fn.__module__.endswith(".csr_spmm_ell")
+    x = np.random.default_rng(1).standard_normal((1024, 8)).astype(np.float32)
+    assert_allclose(t_auto(x), np.asarray(j_auto(x)))
 
 
 def test_dense_impl_matches_scipy():

@@ -731,17 +731,25 @@ def test_int8_routing_matches_jax(tmp_path):
     # without int8 bsr_xla is the plain-torch tier, in both packages
     plain = t_ops.spmm_plan(t_adj, impl="bsr_xla", block_size=32, device="cpu")
     assert plain.apply_fn.__module__.endswith(".bsr_spmm_xla")
-    with pytest.raises(NotImplementedError, match="csr_ell_int8"):
-        t_ops.spmm_plan(t_bsr_csr_fill(), impl="auto", block_size=128,
-                        dtype=torch.int8, device="cpu")
+    j_fill, t_fill = t_bsr_csr_fill()
+    jp = j_ops.spmm_plan(j_fill, impl="auto", block_size=128, dtype=jnp.int8)
+    tp = t_ops.spmm_plan(t_fill, impl="auto", block_size=128, dtype=torch.int8,
+                         device="cpu")
+    assert jp.apply_fn.__module__.endswith(".csr_spmm_ell")
+    assert tp.apply_fn.__name__ == "_ell_int8_apply"
+    x = _operand(t_fill.n_cols, 16, seed=6)
+    np.testing.assert_array_equal(tp(x).numpy(), np.asarray(jp(x)))
 
 
 def t_bsr_csr_fill():
-    """A weakly structured graph: past 32x fill, auto leaves the BSR tier
-    for csr_ell (csr_ell_int8 with int8), which the port lacks."""
+    """A weakly structured graph in both packages: past 32x fill, auto
+    leaves the BSR tier for csr_ell (csr_ell_int8 with int8, whose
+    pattern-only int32 sums are bit-equal)."""
+    import spmm_denseblock_tpu.formats.csr as j_csr
     import spmm_denseblock_tpu_torch.formats.csr as t_csr
 
-    return t_csr.random_csr(0.002, 1024, seed=0, values="ones")
+    return (j_csr.random_csr(0.002, 1024, seed=0, values="ones"),
+            t_csr.random_csr(0.002, 1024, seed=0, values="ones"))
 
 
 DIMS = [32, 64, 16]
