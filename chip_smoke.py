@@ -9,7 +9,10 @@ and the CSR kernel at the reference's test_csrmm shape, asks the
 reference's question (does reordering make BSR beat CSR?) on the
 ogbn-arxiv stand-in at its published size, and serves OGB's arxiv GCN
 there through spmm_plan's CSR routes (impl="auto", the hybrid and ELL
-tiers, int8 and bf16).
+tiers, int8 and bf16), then serves the rest of the model family at
+published widths (GraphSAGE on ddi and arxiv, the GIN graph classifier
+on a molecule batch, GAT on arxiv) and runs the ops beside SpMM (the
+dense-block GEMM, SDDMM, CSR -> BSR on the card).
 
     python3 chip_smoke.py
 
@@ -151,6 +154,33 @@ Phases:
               csr_ell_banded (band_rows=2^15), csr_ell_int8 (dynamic and
               calibrated), windowed, windowed_int8 and tiered, each
               within 1e-4 of spmm_scipy (int8 6e-2 of max |ref|)
+  8b. models the model family at published widths, each request against
+              a float64 reference (f32 1e-4, int8 6e-2, bf16 3e-2; SAGE
+              and GIN on the host in numpy, GAT the same function in
+              float64 on the card), every kernel SpMM within 1e-5 of its
+              plain version: GraphSAGE [256, 256, 256] (OGB's ogbl-ddi
+              --use_sage) on ddi's mean_adjacency through bsr_pallas f32
+              (K2), int8 (K7, quantize_int8) and csr_pallas (K10), 4
+              requests each, then one Adam step through the f32 grad plan
+              (K2 on A and Aᵀ), its step-0 gradients within 1e-5 of the
+              plain plan's at the kernel run's ReLU pattern and its loss
+              falling; GraphSAGE [128, 256, 256, 40] (OGB's ogbn-arxiv
+              --use_sage) on the serve phase's graph's mean_adjacency
+              through impl="auto" (route and scorer's report printed); the
+              GIN graph classifier [300] x 6, 2 classes (OGB's mol
+              main_pyg.py --gnn gin --emb_dim 300 --num_layer 5) on
+              synthetic_molecules(4113, 25) under per-graph rcmk, the raw
+              adjacency, through csr_ell, bsr_pallas at b = 32 (K1) and
+              auto; GAT [128, 250, 250, 40], 3 heads (DGL's ogbn-arxiv
+              gat.py widths) on the serve phase's graph with self-loops,
+              under inference_mode, its peak device memory; then
+              dense_block_gemm at bench.py's op shape (the block list
+              shuffled) within 1e-5 of f32 K2, SDDMM's element tier on
+              arxiv (d = 128) and its block tier on ddi's 1,156 blocks (d
+              = 256, f32 and bf16: f32 scores), csr_to_bsr_on_device on
+              arxiv at b = 32: its count and its blocks equal to the host
+              conversion's bit for bit, and with nnzb_max 1,000 below the
+              count the dropped-block contract
   9. timing   CUDA-event times of kernel, plain and library paths
               (library: one PyTorch call computing the same function,
               timed as a yardstick and never called by the port:
@@ -187,13 +217,19 @@ Phases:
               windowed beside K10, torch.sparse_csr_tensor @ X and the
               CSR bytes bound, a csr_ell SpMM and an "auto" request under
               torch.profiler, and the hybrids' dense-part kernels beside
-              their plain versions, bounds and library calls; last, each
+              their plain versions, bounds and library calls; then the
+              models phase's: ms per request of each model and route,
+              dense_block_gemm beside f32 K2 and its bound, SDDMM (both
+              tiers) beside its bound and torch.sparse.sampled_addmm,
+              csr_to_bsr_on_device on the card beside the whole call and
+              the host conversion, a GAT request under torch.profiler,
+              and K1 at b = 32 on the molecule batch; last, each
               slice's request under torch.profiler: the card's busy
               share and device time by kernel
 
-The main path is phases 4 to 8, each of their runs (f32 slice, int8
+The main path is phases 4 to 8b, each of their runs (f32 slice, int8
 slice, CSR slice, bf16 slice, f32 training, "high" training, CSR
-training, op, reorder, serve) with
+training, op, reorder, serve, and each configuration of models) with
 the launch counts set to 0 just before it and read just after; every
 kernel of the path must have run there. Prints the kernels' JSON line,
 then the last line {"ok": true, "device": {...}}. Any failure raises and
@@ -230,17 +266,39 @@ from spmm_denseblock_tpu_torch.io.datasets import (  # noqa: E402
     graph_stats,
     load_dataset,
 )
+from spmm_denseblock_tpu_torch.analyze.molecules import per_graph_reorder  # noqa: E402
+from spmm_denseblock_tpu_torch.io.datasets import synthetic_molecules  # noqa: E402
 from spmm_denseblock_tpu_torch.models.gnn import linear  # noqa: E402
 from spmm_denseblock_tpu_torch.models import (  # noqa: E402
+    GAT,
     GCN,
+    SAGE,
+    GraphClassifier,
+    add_self_loops,
     gcn_apply,
     init_gcn,
+    init_sage,
     make_eval_step,
+    make_gat_apply,
     make_train_step,
     masked_cross_entropy,
+    mean_adjacency,
+    sage_apply,
     sym_norm_adjacency,
+    tree_leaves,
+    tree_map,
 )
-from spmm_denseblock_tpu_torch.ops import _kernels, bsr_spmm_xla_plan, spmm_plan  # noqa: E402
+from spmm_denseblock_tpu_torch.ops import (  # noqa: E402
+    _kernels,
+    bsr_spmm_xla_plan,
+    count_nnzb_device,
+    csr_to_bsr_device,
+    csr_to_bsr_on_device,
+    dense_block_gemm,
+    sddmm_block_plan,
+    sddmm_plan,
+    spmm_plan,
+)
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_int8 import quantize_per_column  # noqa: E402
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import (  # noqa: E402
     _auto_group_pow2,
@@ -385,6 +443,43 @@ SERVE_OPS = (
 # the SpMMs timed at F = 128 beside K10 (their serving plans, or op plans)
 SERVE_TIMED = ("csr_ell", "hybrid", "hybrid int8", "windowed", "csr_pallas")
 TOL_OF = {"f32": CHECK_EPS, "int8": INT8_TOL, "bf16": BF16_TOL}
+# the models phase: each model of the family at a published width, through
+# the ported kernels. SAGE as OGB's ogbl-ddi link-prediction encoder
+# (examples/linkproppred/ddi/gnn.py --use_sage: hidden 256, 2 layers) on
+# the slice's ddi graph, mean_adjacency, b = 128: (label, spmm_plan
+# arguments, tolerance tag, kernel)
+MODEL_REQUESTS = 4
+MODEL_GRAD_TOL = 1e-5  # kernel vs plain plan step-0 gradients, a leaf
+SAGE_DDI_DIMS = [256, 256, 256]
+SAGE_DDI_ROUTES = (
+    ("bsr_pallas f32", {"impl": "bsr_pallas", "block_size": 128}, "f32",
+     "bsr_spmm_sorted"),
+    ("bsr_pallas int8", {"impl": "bsr_pallas", "block_size": 128,
+                         "dtype": torch.int8}, "int8", "bsr_spmm_int8_sorted"),
+    ("csr_pallas", {"impl": "csr_pallas"}, "f32", "csr_spmm"),
+)
+# SAGE as OGB's ogbn-arxiv baseline (examples/nodeproppred/arxiv/gnn.py
+# --use_sage: 3 layers, hidden 256) on the serve phase's graph, auto
+SAGE_ARXIV_DIMS = [128, 256, 256, 40]
+# the GIN graph classifier as OGB's molecule baseline (examples/
+# graphproppred/mol/main_pyg.py --gnn gin --emb_dim 300 --num_layer 5) on
+# a batch of ogbg-molhiv's test split's size (4,113 molecules of ~25
+# atoms), per-graph rcmk, the raw adjacency: csr_ell (examples/
+# molecule_study.py's route), bsr_pallas at b = 32 (K1) and auto
+GIN_DIMS = [300] * 6
+GIN_MOLECULES = (4113, 25)
+GIN_ROUTES = (("csr_ell", {"impl": "csr_ell"}),
+              ("bsr_pallas b=32", {"impl": "bsr_pallas", "block_size": 32}),
+              ("auto", {"impl": "auto", "feat_dim": 300}))
+# GAT at the widths of DGL's ogbn-arxiv example (examples/pytorch/ogb/
+# ogbn-arxiv/gat.py --n-hidden 250 --n-heads 3 --n-layers 3) on the JAX
+# package's GAT architecture, the serve phase's graph with self-loops
+GAT_DIMS = [128, 250, 250, 40]
+GAT_HEADS = 3
+SDDMM_ARXIV_D = 128  # the element tier on arxiv
+SDDMM_DDI_D = 256    # the block tier on ddi's 1,156 blocks of 128
+CONVERT_B = 32       # csr_to_bsr_on_device on arxiv
+CONVERT_SHORT = 1000  # nnzb_max this far below the count: blocks dropped
 _PALLAS = "spmm_denseblock_tpu/ops/bsr_spmm_pallas.py"
 _PALLAS_I8 = "spmm_denseblock_tpu/ops/bsr_spmm_pallas_int8.py"
 _CSRC = "spmm_denseblock_tpu_torch/csrc/"
@@ -508,10 +603,10 @@ def seeded(shape, seed) -> np.ndarray:
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
 
 
-def ddi_adjacency(cache_dir: Path):
+def ddi_graph(cache_dir: Path) -> CSR:
+    """The ogbl-ddi stand-in at its published size under rcmk."""
     csr = load_dataset("ogbl-ddi", cache_dir=str(cache_dir), seed=SEED)
-    rcsr, _ = reorder(csr, "rcmk")
-    return sym_norm_adjacency(rcsr)
+    return reorder(csr, "rcmk")[0]
 
 
 def f32_rowgroup_plan(bsr: BSR) -> Plan:
@@ -817,28 +912,8 @@ def int8_slice_phase(adj, model, xs, refs):
     log(f"  int8 K7 on the tensor-core ring at BN={bn} ({plan.statics[1]} "
         f"block-rows, F={model.dims[0]})")
     spmm_errs = []
-
-    def checked_spmm(h):
-        got = plan(h)
-        want = plain_apply(plan, h)
-        rel = rel_err(got, want)
-        if not torch.isfinite(got).all() or rel >= KERNEL_TOL:
-            raise AssertionError(f"int8 SpMM vs plain: rel {rel:.3e}")
-        spmm_errs.append((got - want).abs().max().item())
-        return got
-
-    for r, (x, h) in enumerate(zip(xs, refs)):
-        with torch.no_grad():
-            out = model(checked_spmm, x)
-        torch.cuda.synchronize()
-        if out.shape != h.shape or not torch.isfinite(out).all():
-            raise AssertionError(f"int8 request {r}: bad output {tuple(out.shape)}")
-        rel = np.abs(out.cpu().double().numpy() - h).max() / np.abs(h).max()
-        log(f"  int8 request {r}: rel err vs f64 reference {rel:.3e} "
-            f"(< {INT8_TOL} gate); its 2 SpMMs within "
-            f"{max(spmm_errs[-2:]):.3e} of the plain version")
-        if rel >= INT8_TOL:
-            raise AssertionError(f"int8 request {r}: rel err {rel:.3e}")
+    spmm = checked_spmm(plan, spmm_errs)
+    serve_requests("int8", lambda x: model(spmm, x), xs, refs, "int8", spmm_errs)
     return plan, max(spmm_errs)
 
 
@@ -856,28 +931,8 @@ def bf16_slice_phase(adj, model, xs, refs):
     bn = bf16_tile_geometry(128, plan.statics[1], model.dims[0], _sm_count(0))[0]
     log(f"  bf16 K2 at BN={bn} ({plan.statics[1]} block-rows, F={model.dims[0]})")
     spmm_errs = []
-
-    def checked_spmm(h):
-        got = plan(h)
-        want = plain_apply(plan, h)
-        rel = rel_err(got, want)
-        if not torch.isfinite(got).all() or rel >= KERNEL_TOL:
-            raise AssertionError(f"bf16 SpMM vs plain: rel {rel:.3e}")
-        spmm_errs.append((got - want).abs().max().item())
-        return got
-
-    for r, (x, h) in enumerate(zip(xs, refs)):
-        with torch.no_grad():
-            out = model(checked_spmm, x)
-        torch.cuda.synchronize()
-        if out.shape != h.shape or not torch.isfinite(out).all():
-            raise AssertionError(f"bf16 request {r}: bad output {tuple(out.shape)}")
-        rel = np.abs(out.cpu().double().numpy() - h).max() / np.abs(h).max()
-        log(f"  bf16 request {r}: rel err vs f64 reference {rel:.3e} "
-            f"(< {BF16_TOL} gate); its 2 SpMMs within "
-            f"{max(spmm_errs[-2:]):.3e} of the plain version")
-        if rel >= BF16_TOL:
-            raise AssertionError(f"bf16 request {r}: rel err {rel:.3e}")
+    spmm = checked_spmm(plan, spmm_errs)
+    serve_requests("bf16", lambda x: model(spmm, x), xs, refs, "bf16", spmm_errs)
     return plan, max(spmm_errs)
 
 
@@ -1409,6 +1464,55 @@ def checked_parts(plan, errs: list):
     return spmm
 
 
+def rel64(got, want) -> float:
+    """max |got - want| / max |want| of a device answer against a float64
+    host reference."""
+    got = got.double().cpu().numpy()
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def checked_spmm(plan, errs: list):
+    """plan as a model calls it, every call held to its plain version
+    (KERNEL_TOL) and its max |kernel - plain| appended to errs; a hybrid's
+    dense part (checked_parts); a plan with no kernel as it is."""
+    if plan.apply_fn is _sum_apply:
+        return checked_parts(plan, errs)
+    if plan.apply_fn not in (_pallas_apply, _int8_pallas_apply, _csr_pallas_apply):
+        return plan
+
+    def spmm(h):
+        got = plan(h)
+        want = plain_apply(plan, h)
+        rel = rel_err(got, want)
+        if not torch.isfinite(got).all() or rel >= KERNEL_TOL:
+            raise AssertionError(f"{kernel_of(plan)[1]} vs plain: rel {rel:.3e}")
+        errs.append((got - want).abs().max().item())
+        return got
+
+    return spmm
+
+
+def serve_requests(label: str, fn, xs, refs, tag: str, errs: list) -> None:
+    """Each request fn(x) on the card against its float64 reference at
+    TOL_OF[tag] (max |err| / max |ref|); logs the kernel SpMMs' largest
+    max |kernel - plain| where errs collects them."""
+    for r, (x, h) in enumerate(zip(xs, refs)):
+        n_before = len(errs)
+        with torch.no_grad():
+            out = fn(x)
+        torch.cuda.synchronize()
+        if out.shape != h.shape or not torch.isfinite(out).all():
+            raise AssertionError(f"{label} request {r}: bad output {tuple(out.shape)}")
+        rel = rel64(out, h)
+        part = (f"; its {len(errs) - n_before} kernel SpMMs within "
+                f"{max(errs[n_before:]):.3e} of their plain version"
+                if len(errs) > n_before else "")
+        log(f"  {label} request {r}: out {tuple(out.shape)} finite, max |err| / max "
+            f"|ref| vs f64 {rel:.3e} (< {TOL_OF[tag]}){part}")
+        if not rel < TOL_OF[tag]:
+            raise AssertionError(f"{label} request {r}: rel err {rel:.3e}")
+
+
 def serve_phase(graphs: dict, best: str):
     """Phase 8: the ogbn-arxiv GCN served through spmm_plan's CSR routes
     (SERVE_ROUTES) on the reorder phase's graphs, sym_norm_adjacency:
@@ -1466,20 +1570,7 @@ def serve_phase(graphs: dict, best: str):
             f"plan {plan_s:.1f} s (host); launches a SpMM {per_call}")
         errs = dense_errs.setdefault(label, [])
         spmm = checked_parts(plan, errs)
-        for r, (x, h) in enumerate(zip(xs, refs[key])):
-            with torch.no_grad():
-                out = model(spmm, x)
-            torch.cuda.synchronize()
-            if out.shape != h.shape or not torch.isfinite(out).all():
-                raise AssertionError(f"{label} request {r}: bad output {tuple(out.shape)}")
-            rel = np.abs(out.cpu().double().numpy() - h).max() / np.abs(h).max()
-            part = (f"; its {len(SERVE_DIMS) - 1} dense-part SpMMs within "
-                    f"{max(errs[-(len(SERVE_DIMS) - 1):]):.3e} of their plain version"
-                    if errs else "")
-            log(f"  {label} request {r}: out {tuple(out.shape)} finite, max |err| / "
-                f"max |ref| vs f64 {rel:.3e} (< {TOL_OF[tag]}){part}")
-            if not rel < TOL_OF[tag]:
-                raise AssertionError(f"{label} request {r}: rel err {rel:.3e}")
+        serve_requests(label, lambda x: model(spmm, x), xs, refs[key], tag, errs)
         plans[label] = plan
         plan_secs[label] = plan_s
     # the ELL tiers at op level: the check_result operand (seeded signs of
@@ -1584,8 +1675,540 @@ def serve_timing(sp: dict, launched: dict, card_line: str) -> list:
     return rows
 
 
-def main_path(adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str):
-    """Phases 4 to 8, each run with the launch counts set to 0 just
+def params64(params):
+    return tree_map(lambda t: t.detach().cpu().double().numpy(), params)
+
+
+def sage_reference(adj, params, x) -> np.ndarray:
+    h, a64 = x.astype(np.float64), adj.to_scipy().astype(np.float64)
+    for i, p in enumerate(params):
+        h = (h @ p["self"]["w"] + p["self"]["b"]
+             + (a64 @ h) @ p["neigh"]["w"] + p["neigh"]["b"])
+        if i < len(params) - 1:
+            h = np.maximum(h, 0.0)
+    return h
+
+
+def classifier_reference(adj, params, x, gids, n_graphs: int) -> np.ndarray:
+    import scipy.sparse as sps
+
+    h, a64 = x.astype(np.float64), adj.to_scipy().astype(np.float64)
+    layers = params["gin"]
+    for i, p in enumerate(layers):
+        h = (1.0 + p["eps"]) * h + a64 @ h
+        h = np.maximum(h @ p["mlp1"]["w"] + p["mlp1"]["b"], 0.0)
+        h = h @ p["mlp2"]["w"] + p["mlp2"]["b"]
+        if i < len(layers) - 1:
+            h = np.maximum(h, 0.0)
+    pool = sps.csr_matrix((np.ones(len(gids)), (gids, np.arange(len(gids)))),
+                          shape=(n_graphs, len(gids)))
+    counts = np.maximum(np.bincount(gids, minlength=n_graphs), 1.0)[:, None]
+    return (pool @ h) / counts @ params["head"]["w"] + params["head"]["b"]
+
+
+def gat_bound(n: int, nnz: int, dims, heads: int) -> tuple:
+    """A GAT request's bound: per layer the projection, the two score
+    products and the weighted sum over the edges (2 operations a
+    multiply-add, f32); the input, the output, the weights and the edge
+    ids and row lengths (int64) read or written once."""
+    flops, nbytes, d_in = 0.0, 0.0, dims[0]
+    for d in dims[1:]:
+        flops += 2.0 * (n * d_in * heads * d + 2 * n * heads * d + nnz * heads * d)
+        nbytes += 4.0 * (d_in * heads * d + 2 * heads * d)
+        d_in = heads * d
+    nbytes += 4.0 * n * (dims[0] + dims[-1]) + 8.0 * (2 * nnz + n)
+    return bound("f32", flops, nbytes)
+
+
+def gat_request(model, apply, x):
+    with torch.inference_mode():
+        return model(apply, x)
+
+
+def sage_forward(params, spmm, x, masks=None):
+    """sage_apply's logits and hidden pre-activations; with masks the
+    hidden ReLUs are those fixed 0/1 patterns."""
+    zs, h = [], x
+    for i, p in enumerate(params):
+        z = linear(p["self"], h) + linear(p["neigh"], spmm(h))
+        if i == len(params) - 1:
+            return z, zs
+        zs.append(z)
+        h = z * masks[i] if masks is not None else torch.relu(z)
+
+
+def sage_train_step(adj, dims) -> None:
+    """One Adam step of SAGE through the f32 grad plan (K2 on A and on
+    Aᵀ): the step-0 gradients within MODEL_GRAD_TOL (max |err| / max |ref|
+    a leaf) of the same step through the plain plan at the kernel run's
+    ReLU pattern, and the loss after the step below the loss before."""
+    plan = spmm_plan(adj, impl="bsr_pallas", block_size=128, device=DEV)
+    kids = [kernel_of(p)[1] for p in plan.arrays]
+    if kids != ["bsr_spmm_sorted"] * 2:
+        raise AssertionError(f"SAGE ddi grad plan runs {kids}, expected K2 both ways")
+    n = adj.n_rows
+    rng = np.random.default_rng(SEED + 30)
+    x = torch.as_tensor(rng.standard_normal((n, dims[0])).astype(np.float32), device=DEV)
+    y = torch.as_tensor(rng.integers(0, dims[-1], size=n), device=DEV)
+    mask = torch.as_tensor((rng.random(n) < 0.6).astype(np.float32), device=DEV)
+    params = init_sage(dims, torch.Generator().manual_seed(SEED + 31), device=DEV)
+    with torch.no_grad():  # the kernel run's ReLU pattern
+        _, zs = sage_forward(params, plan, x)
+    masks = [(z > 0).float() for z in zs]
+    plain = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+    logits, _ = sage_forward(plain, lambda h: plain_apply(plan, h), x, masks)
+    plain_loss = masked_cross_entropy(logits, y, mask)
+    plain_loss.backward()
+    step, init_state = make_train_step(
+        sage_apply, plan, functools.partial(torch.optim.Adam, lr=1e-2))
+    state = init_state(params)
+    params, state, metrics = step(params, state, x, y, mask)
+    torch.cuda.synchronize()
+    err = max(((t.grad - r.grad).abs().max() / r.grad.abs().max()).item()
+              for t, r in zip(tree_leaves(params), tree_leaves(plain)))
+    after = make_eval_step(sage_apply, plan)(params, x, y, mask)["loss"].item()
+    loss = metrics["loss"].item()
+    log(f"  SAGE ddi Adam step (K2 on A and Aᵀ): loss {loss:.6f} (plain plan "
+        f"{plain_loss.item():.6f}), after the step {after:.6f}; step-0 gradients "
+        f"within {err:.3e} of the plain plan's at the kernel run's ReLU pattern "
+        f"(< {MODEL_GRAD_TOL}, max |err| / max |ref| a leaf)")
+    if not err < MODEL_GRAD_TOL:
+        raise AssertionError(f"SAGE train: step-0 gradient rel err {err:.3e}")
+    if not np.isfinite([loss, after]).all() or not after < loss:
+        raise AssertionError(f"SAGE train: loss {loss} -> {after} did not fall")
+
+
+def models_phase(ddi: CSR, graphs: dict, best: str, op_bsr: BSR, k2_op,
+                 x_op, read) -> dict:
+    """Phase 8b: the model family at published widths on the card, each
+    configuration's run read by `read` (the counts set to 0 just before
+    it). SAGE on ogbl-ddi (bsr_pallas f32: K2, int8: K7 + quantize_int8,
+    csr_pallas: K10, and one Adam step through the f32 grad plan), SAGE
+    on arxiv through impl="auto", the GIN graph classifier on an
+    ogbg-molhiv-sized molecule batch (csr_ell, bsr_pallas at b = 32: K1,
+    auto), GAT on arxiv with self-loops, then the ops beside SpMM
+    (dense_block_gemm, both SDDMM tiers, csr_to_bsr_on_device). Every
+    request against a float64 reference (SAGE, GIN: numpy on the host;
+    GAT: the same function in float64 on the card), every kernel SpMM
+    against its plain version. Returns what the timing needs."""
+    mp = {"requests": {}, "errs": {}, "k2_op": k2_op}
+    n_req = MODEL_REQUESTS
+
+    def requests_of(n, width, seed):
+        return [seeded((n, width), seed + r) for r in range(n_req)]
+
+    # -- SAGE, link-prediction encoder on ddi ------------------------------
+    adj = mean_adjacency(ddi)
+    dims = SAGE_DDI_DIMS
+    model = SAGE(dims, torch.Generator().manual_seed(SEED + 40)).to(DEV)
+    p64 = params64(model.params())
+    xs = requests_of(adj.n_rows, dims[0], SEED + 400)
+    refs = [sage_reference(adj, p64, x) for x in xs]
+    xs = [torch.as_tensor(x, device=DEV) for x in xs]
+    n_spmm = n_req * (len(dims) - 1)
+    log(f"[models] SAGE {dims} on ogbl-ddi (rcmk, mean_adjacency): n={adj.n_rows} "
+        f"nnz={adj.nnz}, {n_req} requests a route")
+    for label, kw, tag, want_kernel in SAGE_DDI_ROUTES:
+        reset_launches()
+        plan = spmm_plan(adj, grad=False, device=DEV, **kw)
+        if kernel_of(plan)[1] != want_kernel:
+            raise AssertionError(f"SAGE ddi {label}: {kernel_of(plan)[1]}, "
+                                 f"expected {want_kernel}")
+        errs = mp["errs"].setdefault(f"sage ddi {label}", [])
+        spmm = checked_spmm(plan, errs)
+        serve_requests(f"SAGE ddi {label}", lambda x: model(spmm, x), xs, refs, tag, errs)
+        expect = {name: n * n_spmm for name, n in call_launches(plan).items()}
+        read(f"models SAGE ddi {label}", expect)
+        mp["requests"][f"SAGE ddi {label}"] = (
+            functools.partial(model, plan, xs[0]), 10)
+    reset_launches()
+    sage_train_step(adj, dims)
+    # the ReLU pattern's forward (2 SpMMs), the step (2 forward, 1
+    # backward: x needs no gradient), the eval's forward (2)
+    read("models SAGE ddi train", {"bsr_spmm_sorted": 2 + 3 + 2})
+    del xs, refs
+
+    # -- SAGE, node classification on arxiv through auto --------------------
+    adj = mean_adjacency(graphs[best])
+    dims = SAGE_ARXIV_DIMS
+    impl, _, report = _auto_impl(adj, 128, dims[0], {})
+    log(f"[models] SAGE {dims} on {REORDER_DATASET} ({best}, mean_adjacency): "
+        f"n={adj.n_rows} nnz={adj.nnz}; impl='auto' routes to {impl}; the scorer's "
+        "report:")
+    for row in report or ():
+        log(f"    {row}")
+    model = SAGE(dims, torch.Generator().manual_seed(SEED + 41)).to(DEV)
+    p64 = params64(model.params())
+    xs = requests_of(adj.n_rows, dims[0], SEED + 410)
+    t0 = time.perf_counter()
+    refs = [sage_reference(adj, p64, x) for x in xs]
+    log(f"  float64 references in {time.perf_counter() - t0:.1f} s (host)")
+    xs = [torch.as_tensor(x, device=DEV) for x in xs]
+    reset_launches()
+    plan = spmm_plan(adj, impl="auto", feat_dim=dims[0], grad=False, device=DEV)
+    log(f"  tier {tier_of(plan)}; launches a SpMM {call_launches(plan)}")
+    errs = mp["errs"].setdefault("sage arxiv auto", [])
+    spmm = checked_spmm(plan, errs)
+    serve_requests("SAGE arxiv auto", lambda x: model(spmm, x), xs, refs, "f32", errs)
+    n_spmm = n_req * (len(dims) - 1)
+    read("models SAGE arxiv auto",
+         {name: n * n_spmm for name, n in call_launches(plan).items()})
+    mp["requests"]["SAGE arxiv auto"] = (functools.partial(model, plan, xs[0]), 5)
+    del xs, refs
+
+    # -- the GIN graph classifier on a molecule batch ------------------------
+    t0 = time.perf_counter()
+    mol, gids = synthetic_molecules(*GIN_MOLECULES, seed=SEED)
+    mol = permutate(per_graph_reorder(mol, gids, "rcmk"), mol)
+    n_graphs = int(gids.max()) + 1
+    dims = GIN_DIMS
+    log(f"[models] GIN graph classifier {dims}, 2 classes, on {n_graphs} molecules "
+        f"(synthetic_molecules, per-graph rcmk, raw adjacency): n={mol.n_rows} "
+        f"nnz={mol.nnz} ({time.perf_counter() - t0:.1f} s host)")
+    model = GraphClassifier(dims, 2, torch.Generator().manual_seed(SEED + 42)).to(DEV)
+    p64 = params64(model.params())
+    xs = requests_of(mol.n_rows, dims[0], SEED + 420)
+    t0 = time.perf_counter()
+    refs = [classifier_reference(mol, p64, x, gids, n_graphs) for x in xs]
+    log(f"  float64 references in {time.perf_counter() - t0:.1f} s (host)")
+    xs = [torch.as_tensor(x, device=DEV) for x in xs]
+    gids_t = torch.as_tensor(gids, device=DEV)
+    n_spmm = n_req * (len(dims) - 1)
+    for label, kw in GIN_ROUTES:
+        reset_launches()
+        plan = spmm_plan(mol, grad=False, device=DEV, **kw)
+        tier = tier_of(plan)
+        what = (f"{kernel_of(plan)[0]} {kernel_of(plan)[1]}" if tier == "_pallas_apply"
+                else tier)
+        note = " (expected csr_ell)" if label == "auto" else ""
+        log(f"  GIN {label} (spmm_plan({kw})): {what}{note}; launches a SpMM "
+            f"{call_launches(plan)}")
+        if label == "bsr_pallas b=32" and kernel_of(plan)[1] != "bsr_spmm_flat":
+            raise AssertionError(f"GIN b=32 plan runs {kernel_of(plan)[1]}, expected K1")
+        errs = mp["errs"].setdefault(f"gin {label}", [])
+        spmm = checked_spmm(plan, errs)
+        serve_requests(f"GIN {label}", lambda x: model(spmm, x, gids_t, n_graphs),
+                       xs, refs, "f32", errs)
+        read(f"models GIN {label}",
+             {name: n * n_spmm for name, n in call_launches(plan).items()})
+        mp["requests"][f"GIN {label}"] = (
+            functools.partial(model, plan, xs[0], gids_t, n_graphs), 5)
+        if label == "bsr_pallas b=32":
+            mp["gin_k1"] = {"plan": plan, "bsr": csr_to_bsr(mol, 32), "x": xs[0],
+                            "launches": launches()["bsr_spmm_flat"]}
+    del xs, refs
+
+    # -- GAT on arxiv with self-loops ----------------------------------------
+    g = add_self_loops(graphs[best])
+    dims = GAT_DIMS
+    reset_launches()
+    model = GAT(dims, GAT_HEADS, torch.Generator().manual_seed(SEED + 43)).to(DEV)
+    apply = make_gat_apply(g, GAT_HEADS, device=DEV)
+    edge_gb = g.nnz * GAT_HEADS * max(dims[1:]) * 4 / 1e9
+    log(f"[models] GAT {dims}, {GAT_HEADS} heads, on {REORDER_DATASET} ({best}, "
+        f"add_self_loops): n={g.n_rows} edges={g.nnz}; an (edges, heads, d) f32 "
+        f"tensor {edge_gb:.2f} GB; {n_req} requests under inference_mode, each "
+        "against the same function in float64 on the card")
+    p64 = tree_map(lambda t: t.detach().double(), model.params())
+    xs = [torch.as_tensor(x, device=DEV)
+          for x in requests_of(g.n_rows, dims[0], SEED + 430)]
+    peak_gb, base = 0.0, 0
+    for r, x in enumerate(xs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = gat_request(model, apply, x)
+        torch.cuda.synchronize()
+        peak_gb = max(peak_gb, (torch.cuda.max_memory_allocated() - base) / 1e9)
+        with torch.inference_mode():
+            want = apply(p64, x.double())
+        if out.shape != want.shape or not torch.isfinite(out).all():
+            raise AssertionError(f"GAT request {r}: bad output {tuple(out.shape)}")
+        rel = ((out.double() - want).abs().max() / want.abs().max()).item()
+        log(f"  GAT request {r}: out {tuple(out.shape)} finite, max |err| / max |ref| "
+            f"vs float64 on the card {rel:.3e} (< {CHECK_EPS})")
+        if not rel < CHECK_EPS:
+            raise AssertionError(f"GAT request {r}: rel err {rel:.3e}")
+        del want
+    mp["gat_peak_gb"] = peak_gb
+    log(f"  GAT f32 request: peak device memory {peak_gb:.2f} GB above the "
+        f"{base / 1e9:.2f} GB already held (torch.cuda.max_memory_allocated)")
+    read("models GAT", {})
+    mp["requests"]["GAT arxiv"] = (functools.partial(gat_request, model, apply, xs[0]), 3)
+    mp["gat_bound"] = gat_bound(g.n_rows, g.nnz, dims, GAT_HEADS)
+    del p64, out
+    torch.cuda.empty_cache()
+
+    # -- the ops beside SpMM -------------------------------------------------
+    reset_launches()
+    mp["ops"] = models_ops(ddi, graphs[best], op_bsr, k2_op, x_op)
+    read("models ops", {"bsr_spmm_sorted": 1})
+    return mp
+
+
+def sddmm_block_f64(bsr: BSR, x, y) -> torch.Tensor:
+    """The score blocks of bsr's real blocks in float64: x and y padded
+    to the block grid, each block's (b, d) @ (d, b)."""
+    b, n = bsr.b, bsr.nnzb
+    pad = torch.nn.functional.pad
+    xb = pad(x.double(), (0, 0, 0, bsr.n_block_rows * b - x.shape[0]))
+    yb = pad(y.double(), (0, 0, 0, bsr.n_block_cols * b - y.shape[0]))
+    rows = torch.as_tensor(bsr.block_rows[:n].astype(np.int64), device=x.device)
+    cols = torch.as_tensor(bsr.block_cols[:n].astype(np.int64), device=x.device)
+    xg = xb.reshape(-1, b, x.shape[1])[rows]
+    yg = yb.reshape(-1, b, y.shape[1])[cols]
+    return torch.bmm(xg, yg.transpose(1, 2))
+
+
+def models_ops(ddi: CSR, arxiv: CSR, op_bsr: BSR, k2_op, x_op) -> dict:
+    """dense_block_gemm at bench.py's op shape (the block list shuffled)
+    against f32 K2; SDDMM's element tier on arxiv (d = 128) and its block
+    tier on ddi's blocks (d = 256, f32 and bf16) against float64;
+    csr_to_bsr_on_device on arxiv at b = 32 against the host conversion,
+    at the count and below it. Returns what the timing needs."""
+    out = {}
+    F = x_op.shape[1]
+    order = np.random.default_rng(SEED + 50).permutation(op_bsr.nnzb)
+    gemm_args = (torch.as_tensor(op_bsr.block_rows[order], device=DEV),
+                 torch.as_tensor(op_bsr.block_cols[order], device=DEV),
+                 torch.as_tensor(op_bsr.blocks[order], device=DEV),
+                 x_op.reshape(op_bsr.n_block_cols, op_bsr.b, F), op_bsr.n_block_rows)
+    got = dense_block_gemm(*gemm_args, device=DEV).reshape(-1, F)[: op_bsr.shape[0]]
+    want = k2_op(x_op)
+    torch.cuda.synchronize()
+    rel = rel_err(got, want)
+    log(f"[models] op dense_block_gemm ({op_bsr.nnzb} blocks of {op_bsr.b}, shuffled, "
+        f"F={F}) vs f32 K2: max |err| / max |K2| {rel:.3e} (< {KERNEL_TOL})")
+    if not rel < KERNEL_TOL:
+        raise AssertionError(f"dense_block_gemm vs K2: rel {rel:.3e}")
+    out["gemm"] = gemm_args
+    del got, want
+
+    d = SDDMM_ARXIV_D
+    x = torch.as_tensor(seeded((arxiv.n_rows, d), SEED + 51), device=DEV)
+    y = torch.as_tensor(seeded((arxiv.n_cols, d), SEED + 52), device=DEV)
+    plan = sddmm_plan(arxiv, device=DEV)
+    e = plan(x, y)
+    rows = torch.as_tensor(arxiv.row_ids().astype(np.int64), device=DEV)
+    e64 = (x.double()[rows] * y.double()[plan.arrays[1]]).sum(-1)
+    rel = ((e.double() - e64).abs().max() / e64.abs().max()).item()
+    log(f"[models] op sddmm element tier on {REORDER_DATASET} ({arxiv.nnz} edges, "
+        f"d={d}): {e.dtype} scores, max |err| / max |ref| vs float64 {rel:.3e} "
+        f"(< {CHECK_EPS})")
+    if e.dtype != torch.float32 or not rel < CHECK_EPS:
+        raise AssertionError(f"sddmm element: {e.dtype}, rel {rel:.3e}")
+    out["sddmm"] = (arxiv, plan, x, y)
+    del e, e64, rows
+
+    bsr = csr_to_bsr(ddi, 128)
+    d = SDDMM_DDI_D
+    args = (bsr.block_rows[: bsr.nnzb], bsr.block_cols[: bsr.nnzb], 128,
+            ddi.n_rows, ddi.n_cols)
+    bplan = sddmm_block_plan(*args, device=DEV)
+    x = torch.as_tensor(seeded((ddi.n_rows, d), SEED + 53), device=DEV)
+    y = torch.as_tensor(seeded((ddi.n_cols, d), SEED + 54), device=DEV)
+    s64 = sddmm_block_f64(bsr, x, y)
+    out["sddmm_block"] = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        xd, yd = x.to(dtype), y.to(dtype)
+        s = bplan(xd, yd)
+        rel = ((s.double() - s64).abs().max() / s64.abs().max()).item()
+        log(f"[models] op sddmm block tier on ogbl-ddi ({bsr.nnzb} blocks of 128, "
+            f"d={d}) {tag}: {s.dtype} score blocks, max |err| / max |ref| vs float64 "
+            f"{rel:.3e} (< {TOL_OF[tag]})")
+        if s.dtype != torch.float32 or s.shape != (bsr.nnzb, 128, 128) \
+                or not rel < TOL_OF[tag]:
+            raise AssertionError(f"sddmm block {tag}: {s.dtype}, rel {rel:.3e}")
+        out["sddmm_block"][tag] = (bsr, bplan, xd, yd)
+    del s, s64
+
+    b = CONVERT_B
+    t0 = time.perf_counter()
+    host = csr_to_bsr(arxiv, b)
+    host_s = time.perf_counter() - t0
+    nbc = -(-arxiv.n_cols // b)
+    rows_t = torch.as_tensor(arxiv.row_ids(), device=DEV)
+    cols_t = torch.as_tensor(np.asarray(arxiv.indices, np.int32), device=DEV)
+    count = int(count_nnzb_device(rows_t, cols_t, nbc, b, device=DEV))
+    t0 = time.perf_counter()
+    dev_bsr = csr_to_bsr_on_device(arxiv, b, device=DEV)
+    dev_s = time.perf_counter() - t0
+    same = all(np.array_equal(getattr(dev_bsr, k), getattr(host, k))
+               for k in ("block_rows", "block_cols", "blocks"))
+    log(f"[models] op csr_to_bsr_on_device on {REORDER_DATASET} at b={b}: "
+        f"count_nnzb_device {count}, host {host.nnzb}; {dev_bsr.nnzb} blocks "
+        f"({host.blocks.nbytes / 1e9:.2f} GB), equal to the host csr_to_bsr's bit "
+        f"for bit: {same}; first call {dev_s:.2f} s, host conversion {host_s:.2f} s")
+    if count != host.nnzb or dev_bsr.nnzb != host.nnzb or not same:
+        raise AssertionError("csr_to_bsr_on_device differs from the host conversion")
+    del dev_bsr
+    cap = host.nnzb - CONVERT_SHORT
+    cut = csr_to_bsr_on_device(arxiv, b, nnzb_max=cap, device=DEV)
+    keep = cap - 1
+    ok = (cut.nnzb == host.nnzb and cut.blocks.shape[0] == cap
+          and all(np.array_equal(getattr(cut, k)[:cap], getattr(host, k)[:cap])
+                  for k in ("block_rows", "block_cols", "blocks")))
+    log(f"  nnzb_max={cap} ({CONVERT_SHORT} below the count): nnzb {cut.nnzb} (the "
+        f"true count), slots 0..{keep} the host's first {cap} blocks bit for bit, the "
+        f"{CONVERT_SHORT} blocks past them dropped: {ok}")
+    if not ok:
+        raise AssertionError("csr_to_bsr_on_device: the dropped-block contract broke")
+    del cut
+    out["convert"] = {"csr": arxiv, "host": host, "host_s": host_s,
+                      "inputs": (rows_t, cols_t, None if arxiv.data is None else
+                                 torch.as_tensor(np.asarray(arxiv.data), device=DEV))}
+    torch.cuda.empty_cache()
+    return out
+
+
+def models_timing(mp: dict, card_line: str) -> list:
+    """The models phase's times: ms per request of each model and route;
+    dense_block_gemm beside f32 K2 and its bound; SDDMM (both tiers)
+    beside its bound and, for the element tier, the library call
+    (torch.sparse.sampled_addmm, cuSPARSE's SDDMM); csr_to_bsr_on_device
+    beside the host conversion and its bytes bound; a GAT request under
+    torch.profiler. Returns the kernels line's row of K1 at b = 32 on the
+    molecule batch."""
+    t_phase = time.perf_counter()
+    with torch.no_grad():
+        for label, (fn, iters) in mp["requests"].items():
+            log(f"  models request {label:<22} {cuda_ms(fn, iters=iters):.3f} ms "
+                f"[{card_line}]")
+    log(f"  models request GAT arxiv: bound {mp['gat_bound'][0]:.3f} ms "
+        f"({mp['gat_bound'][1]}), library none (PyTorch has no GAT call); peak "
+        f"device memory {mp['gat_peak_gb']:.2f} GB above what was held")
+    ops = mp.pop("ops")
+    rows, cols, blocks, dense_blk, nbr = ops.pop("gemm")
+    nnzb, b, F = blocks.shape[0], blocks.shape[1], dense_blk.shape[2]
+    k2 = mp["k2_op"]
+    x_op = dense_blk.reshape(-1, F)
+    g_ms = cuda_ms(lambda: dense_block_gemm(rows, cols, blocks, dense_blk, nbr,
+                                             device=DEV), iters=3)
+    k_ms = cuda_ms(lambda: k2(x_op), iters=3)
+    nbytes = nnzb * (b * b * 4 + 8) + x_op.numel() * 4 + nbr * b * F * 4
+    gb = bound("f32", 2.0 * nnzb * b * b * F, nbytes)
+    log(f"  models op dense_block_gemm ({nnzb} blocks of {b}, F={F}) {g_ms:.3f} ms, "
+        f"f32 K2 on the same blocks {k_ms:.3f} ms ({g_ms / k_ms:.2f}x), bound "
+        f"{gb[0]:.3f} ms ({gb[1]}); library: the op phase's f32 "
+        f"torch.sparse_bsr_tensor @ X line [{card_line}]")
+    del rows, cols, blocks, dense_blk
+    torch.cuda.empty_cache()
+
+    csr, plan, x, y = ops.pop("sddmm")
+    nnz, d = csr.nnz, x.shape[1]
+    e_ms = cuda_ms(lambda: plan(x, y), iters=10)
+    eb = bound("f32", 2.0 * nnz * d, nnz * 16 + (x.numel() + y.numel()) * 4 + nnz * 4)
+    lib = sampled_addmm_ms(csr, x, y, plan(x, y))
+    log(f"  models op sddmm element tier ({nnz} edges, d={d}) {e_ms:.3f} ms, bound "
+        f"{eb[0]:.4f} ms ({eb[1]}), library "
+        f"{'none' if lib is None else f'{lib:.3f} ms'} [{card_line}]")
+    mp["sddmm_ms"] = {"element": (e_ms, eb, lib)}
+    del plan, x, y
+    for tag, (bsr, bplan, xd, yd) in ops.pop("sddmm_block").items():
+        s_ms = cuda_ms(lambda: bplan(xd, yd), iters=10)
+        e = ELEM_BYTES[tag]
+        sb = bound(tag, 2.0 * bsr.nnzb * bsr.b * bsr.b * xd.shape[1],
+                   bsr.nnzb * 16 + (xd.numel() + yd.numel()) * e
+                   + bsr.nnzb * bsr.b * bsr.b * 4)
+        log(f"  models op sddmm block tier {tag} ({bsr.nnzb} blocks of {bsr.b}, "
+            f"d={xd.shape[1]}) {s_ms:.3f} ms, bound {sb[0]:.4f} ms ({sb[1]}), library "
+            f"none (torch.sparse.sampled_addmm takes CSR only) [{card_line}]")
+        mp["sddmm_ms"][tag] = (s_ms, sb, None)
+
+    cv = ops.pop("convert")
+    host, rows_t, cols_t, vals_t = cv["host"], *cv["inputs"]
+    csr = cv["csr"]
+    b = host.b
+    nbr, nbc = host.n_block_rows, host.n_block_cols
+    c_ms = cuda_ms(lambda: csr_to_bsr_device(rows_t, cols_t, vals_t, nbr, nbc, b,
+                                             host.nnzb, device=DEV), iters=3, warmup=1)
+    t0 = time.perf_counter()
+    csr_to_bsr_on_device(csr, b, device=DEV)
+    whole_s = time.perf_counter() - t0
+    cb = bound("f32", 0.0, csr.nnz * 12 + host.nnzb * (b * b * 4 + 8))
+    lib = to_sparse_bsr_ms(csr, b)
+    log(f"  models op csr_to_bsr_on_device ({REORDER_DATASET}, b={b}, {host.nnzb} "
+        f"blocks): on the card {c_ms:.2f} ms, the whole call (counting, copies to and "
+        f"from the card) {whole_s:.3f} s, host csr_to_bsr {cv['host_s']:.3f} s "
+        f"({cv['host_s'] / whole_s:.1f}x the whole call), bound {cb[0]:.3f} ms "
+        f"({cb[1]}), library {'none' if lib is None else f'{lib:.2f} ms'} "
+        f"[{card_line}]")
+    mp["convert_ms"] = (c_ms, whole_s, cv["host_s"], cb, lib)
+    del host, rows_t, cols_t, vals_t, cv
+    torch.cuda.empty_cache()
+
+    busy, detail = device_profile(mp["requests"]["GAT arxiv"][0], iters=2)
+    if busy is None:
+        log(f"  models GAT request under torch.profiler: busy share not measured "
+            f"({detail})")
+    else:
+        total = sum(detail.values())
+        top = "; ".join(f"{name[:60]} {ms:.3f} ms ({ms / total:.1%})"
+                        for name, ms in list(detail.items())[:6])
+        log(f"  models GAT request under torch.profiler: card busy {busy:.1%} of the "
+            f"span, {total:.3f} ms of device time a request: {top} [{card_line}]")
+
+    k1 = mp.pop("gin_k1")
+    kid, name, source, replaces = kernel_of(k1["plan"])
+    row = bsr_row("models GIN molecules K1", k1["bsr"], k1["plan"], k1["x"], 0.0,
+                  card_line, {})
+    errs = mp["errs"]["gin bsr_pallas b=32"]
+    log(f"[models] timing in {time.perf_counter() - t_phase:.1f} s")
+    return [{"name": f"{kid} {name} b=32 molecules rcmk ({k1['bsr'].nnzb} blocks, "
+                     f"GIN, F={k1['x'].shape[1]})",
+             "route": "cuda", "source": source, "replaces": replaces,
+             "launches": k1["launches"], "max_abs_err": max(errs), **row}]
+
+
+def sampled_addmm_ms(csr: CSR, x, y, want):
+    """torch.sparse.sampled_addmm (cuSPARSE's SDDMM) on the CSR pattern,
+    a yardstick: ms, or None where PyTorch refuses the call."""
+    try:
+        with warnings.catch_warnings():  # "sparse ... support is in beta"
+            warnings.simplefilter("ignore", UserWarning)
+            pattern = torch.sparse_csr_tensor(
+                torch.as_tensor(csr.indptr.astype(np.int64), device=DEV),
+                torch.as_tensor(csr.indices.astype(np.int64), device=DEV),
+                torch.zeros(csr.nnz, device=DEV), csr.shape, check_invariants=False)
+            yt = y.T.contiguous()
+            fn = lambda: torch.sparse.sampled_addmm(pattern, x, yt, beta=0.0)  # noqa: E731
+            got = fn().values()
+        torch.cuda.synchronize()
+    except Exception as e:  # the yardstick only: record PyTorch's refusal
+        log(f"  library torch.sparse.sampled_addmm: none ({type(e).__name__}: "
+            f"{str(e).splitlines()[0][:200]})")
+        return None
+    ms = cuda_ms(fn, iters=10)
+    log(f"  library torch.sparse.sampled_addmm: {ms:.3f} ms, max |err| / max |port| "
+        f"{rel_to(got, want):.3e}")
+    return ms
+
+
+def to_sparse_bsr_ms(csr: CSR, b: int):
+    """torch.Tensor.to_sparse_bsr of the CSR tensor on the card, a
+    yardstick: ms, or None where PyTorch refuses the call."""
+    try:
+        grid = tuple(-(-n // b) * b for n in csr.shape)  # its blocks must tile it
+        indptr = np.concatenate([csr.indptr, np.full(grid[0] - csr.shape[0],
+                                                     csr.indptr[-1])])
+        with warnings.catch_warnings():  # "sparse ... support is in beta"
+            warnings.simplefilter("ignore", UserWarning)
+            a = torch.sparse_csr_tensor(
+                torch.as_tensor(indptr.astype(np.int64), device=DEV),
+                torch.as_tensor(csr.indices.astype(np.int64), device=DEV),
+                torch.as_tensor(csr.values(), device=DEV), grid,
+                check_invariants=False)
+            # one call, timed: at arxiv's size it takes seconds on an H100
+            ms = cuda_ms(lambda: a.to_sparse_bsr((b, b)), iters=1, warmup=0)
+    except Exception as e:  # the yardstick only: record PyTorch's refusal
+        log(f"  library to_sparse_bsr: none ({type(e).__name__}: "
+            f"{str(e).splitlines()[0][:200]})")
+        return None
+    return ms
+
+
+def main_path(ddi, adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str):
+    """Phases 4 to 8b, each run with the launch counts set to 0 just
     before it and read just after. Returns what the timing needs."""
     totals = {}
 
@@ -1662,6 +2285,9 @@ def main_path(adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str):
     log(f"[serve] phase in {time.perf_counter() - t0:.1f} s")
     read("serve", sp["expect"])
     sp["launched"] = launches()
+    t0 = time.perf_counter()
+    mp = models_phase(ddi, graphs, best, op_bsr, plans[("f32", "sorted")], x_op, read)
+    log(f"[models] phase in {time.perf_counter() - t0:.1f} s")
     missing = [name for name in [kernel_of(p)[1] for p in plans.values()]
                + ["split_bf16", "quantize_int8"] if totals.get(name, 0) == 0]
     if missing:
@@ -1686,7 +2312,7 @@ def main_path(adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str):
         raise AssertionError("quantize_int8: NaN or +-Inf not as JAX quantizes it")
     slices = {"f32": plan, "int8": plan_i8, "csr": plan_csr, "bf16": plan_bf16}
     return (slices, model, xs, train, plans, errs, totals,
-            {"int8": slice_i8_err, "bf16": slice_bf16_err}, reorder_rows, sp)
+            {"int8": slice_i8_err, "bf16": slice_bf16_err}, reorder_rows, sp, mp)
 
 
 def bound(tag: str, flops: float, nbytes: float) -> tuple:
@@ -1934,7 +2560,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    adj = ddi_adjacency(ROOT / "build" / "datasets")
+    ddi = ddi_graph(ROOT / "build" / "datasets")
+    adj = sym_norm_adjacency(ddi)
     log(f"[setup] ddi adjacency in {time.perf_counter() - t0:.1f} s")
     kernel_phase(adj)
 
@@ -1947,8 +2574,8 @@ def main() -> int:
     log(f"[setup] random_csr(2e-3, 2^17) in {time.perf_counter() - t0:.1f} s")
     dims = [256, 256, 256]
     (slices, model, xs, train, plans, errs, main_launches, slice_errs,
-     reorder_rows, sp) = main_path(adj, dims, op_bsr, op_csr, x_op, dense[:4096],
-                                   card_line)
+     reorder_rows, sp, mp) = main_path(ddi, adj, dims, op_bsr, op_csr, x_op,
+                                       dense[:4096], card_line)
 
     # ---- timing (after the counts were read) ----------------------------
     log(f"[timing] card: {card_line}")
@@ -1956,6 +2583,9 @@ def main() -> int:
     serve_rows = serve_timing(sp, sp["launched"], card_line)
     log(f"[serve] timing in {time.perf_counter() - t0:.1f} s")
     del sp
+    torch.cuda.empty_cache()
+    model_rows = models_timing(mp, card_line)
+    del mp
     torch.cuda.empty_cache()
     x0 = xs[0]
     ddi_flops = {"f32": 2.0 * calculate_nnzb(adj, 128) * 128 * 128 * dims[0],
@@ -2216,8 +2846,9 @@ def main() -> int:
     log(f"[timing] bench.py's headline tier on this card: "
         f"{'f32(bf16x3)' if t_high < t_f32 else 'f32'} (its self-check passed in "
         f"the op phase; high {t_high:.3f} ms, exact f32 {t_f32:.3f} ms) [{card_line}]")
-    kernels = sorted([*kernels.values(), *reorder_rows, *serve_rows], key=lambda k: (
-        int(re.match(r"K(\d+)", k["name"]).group(1)), k["name"]))
+    kernels = sorted(
+        [*kernels.values(), *reorder_rows, *serve_rows, *model_rows],
+        key=lambda k: (int(re.match(r"K(\d+)", k["name"]).group(1)), k["name"]))
     if {k["name"].split()[0] for k in kernels} != ALL_KERNELS | {"K6-K9"}:
         raise AssertionError(f"kernels line names other than {ALL_KERNELS} and "
                              f"the K6-K9 quantization")

@@ -21,6 +21,7 @@ from typing import Callable, Dict, List
 
 import torch
 
+from spmm_denseblock_tpu_torch.models.checkpoint import tree_leaves
 from spmm_denseblock_tpu_torch.models.gnn import SpMM
 
 Params = List[Dict[str, torch.Tensor]]
@@ -41,13 +42,9 @@ def accuracy(logits, labels, mask) -> torch.Tensor:
     return (hit * w).sum() / torch.clamp(w.sum(), min=1.0)
 
 
-def _leaves(params: Params) -> List[torch.Tensor]:
-    return [p[k] for p in params for k in sorted(p)]
-
-
 def _batch(params: Params, x, y, mask):
     """x, y, mask as tensors on the parameters' device."""
-    dev = _leaves(params)[0].device
+    dev = tree_leaves(params)[0].device
     return (torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev),
             torch.as_tensor(mask, device=dev))
 
@@ -65,7 +62,7 @@ def make_train_step(apply_fn: Callable, spmm: SpMM,
     "acc"}), the metrics taken before the update."""
 
     def init_state(params: Params) -> torch.optim.Optimizer:
-        leaves = _leaves(params)
+        leaves = tree_leaves(params)
         for t in leaves:
             t.requires_grad_(True)
         return optimizer(leaves)

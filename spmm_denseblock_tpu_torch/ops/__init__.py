@@ -24,6 +24,12 @@ from spmm_denseblock_tpu_torch.ops.csr_spmm_ell import (
     csr_spmm_ell_int8_plan,
     csr_spmm_ell_plan,
 )
+from spmm_denseblock_tpu_torch.ops.dense_block_gemm import dense_block_gemm
+from spmm_denseblock_tpu_torch.ops.device_convert import (
+    count_nnzb_device,
+    csr_to_bsr_device,
+    csr_to_bsr_on_device,
+)
 from spmm_denseblock_tpu_torch.ops.dispatch import PLANNERS, spmm_plan
 from spmm_denseblock_tpu_torch.ops.hybrid_spmm import (
     hybrid_spmm,
@@ -37,6 +43,7 @@ from spmm_denseblock_tpu_torch.ops.reference import (
     spmm_dense_torch,
     spmm_scipy,
 )
+from spmm_denseblock_tpu_torch.ops.sddmm import sddmm, sddmm_block_plan, sddmm_plan
 from spmm_denseblock_tpu_torch.ops.windowed_spmm import (
     tiered_spmm_plan,
     windowed_spmm,
@@ -69,6 +76,13 @@ __all__ = [
     "windowed_spmm_plan",
     "windowed_spmm_int8_plan",
     "tiered_spmm_plan",
+    "dense_block_gemm",
+    "sddmm",
+    "sddmm_plan",
+    "sddmm_block_plan",
+    "count_nnzb_device",
+    "csr_to_bsr_device",
+    "csr_to_bsr_on_device",
     "PLANNERS",
     "spmm_plan",
     "Plan",

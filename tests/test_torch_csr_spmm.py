@@ -388,6 +388,7 @@ def test_gcn_forward_and_adam_steps_match_jax():
 def _entry_points():
     csr = t_csr.random_csr(0.5, 40, 40, seed=0)  # auto: bsr_pallas
     bsr = t_bsr.random_bsr(0.3, 4, 4, block_size=8, seed=0)
+    xy = np.ones((40, 3), np.float32)
     from spmm_denseblock_tpu_torch.entry import entry
     from spmm_denseblock_tpu_torch.ops import (
         bsr_spmm_int8_plan,
@@ -408,7 +409,35 @@ def _entry_points():
         "bsr_spmm_int8_plan": lambda **kw: bsr_spmm_int8_plan(bsr, **kw),
         "bsr_spmm_xla_plan": lambda **kw: bsr_spmm_xla_plan(bsr, **kw),
         "entry": lambda **kw: entry(**kw),
+        "dense_block_gemm": lambda **kw: t_ops.dense_block_gemm(
+            bsr.block_rows, bsr.block_cols, bsr.blocks,
+            np.ones((4, 8, 3), np.float32), 4, **kw),
+        "sddmm": lambda **kw: t_ops.sddmm(csr, xy, xy, **kw),
+        "sddmm_plan": lambda **kw: t_ops.sddmm_plan(csr, **kw),
+        "sddmm_block_plan": lambda **kw: t_ops.sddmm_block_plan(
+            bsr.block_rows, bsr.block_cols, 8, 32, 32, **kw),
+        "count_nnzb_device": lambda **kw: t_ops.count_nnzb_device(
+            csr.row_ids(), csr.indices, 5, 8, **kw),
+        "csr_to_bsr_device": lambda **kw: t_ops.csr_to_bsr_device(
+            csr.row_ids(), csr.indices, None, 5, 5, 8, 30, **kw),
+        "csr_to_bsr_on_device": lambda **kw: t_ops.csr_to_bsr_on_device(csr, 8, **kw),
+        "make_gat_apply": lambda **kw: t_models.make_gat_apply(csr, 2, **kw),
     }
+
+
+def _host_tensors(built) -> list:
+    """The tensors an entry point's result holds (a plan's buffers, the
+    entry's weights, an op's outputs); the converter's BSR container
+    holds host arrays."""
+    if isinstance(built, torch.nn.Module):
+        return list(built.buffers())
+    if torch.is_tensor(built):
+        return [built]
+    if isinstance(built, t_bsr.BSR):
+        return [torch.as_tensor(built.blocks)]
+    if all(torch.is_tensor(t) for t in built):
+        return list(built)
+    return [p["w"] for p in built[1][0]]
 
 
 @pytest.mark.parametrize("name", list(_entry_points()))
@@ -422,9 +451,7 @@ def test_default_device_is_the_card(name, monkeypatch):
         build()
     with pytest.raises(RuntimeError, match="GPU"):
         build(device="cuda")
-    built = build(device="cpu")
-    tensors = (list(built.buffers()) if isinstance(built, torch.nn.Module)
-               else [p["w"] for p in built[1][0]])
+    tensors = _host_tensors(build(device="cpu"))
     assert tensors and all(t.device.type == "cpu" for t in tensors)
 
 
