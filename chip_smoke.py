@@ -12,7 +12,8 @@ there through spmm_plan's CSR routes (impl="auto", the hybrid and ELL
 tiers, int8 and bf16), then serves the rest of the model family at
 published widths (GraphSAGE on ddi and arxiv, the GIN graph classifier
 on a molecule batch, GAT on arxiv) and runs the ops beside SpMM (the
-dense-block GEMM, SDDMM, CSR -> BSR on the card).
+dense-block GEMM, SDDMM, CSR -> BSR on the card), then drives the
+package's bench harness, its sweep CLI, spmm_tune and the profiler.
 
     python3 chip_smoke.py
 
@@ -181,6 +182,32 @@ Phases:
               arxiv at b = 32: its count and its blocks equal to the host
               conversion's bit for bit, and with nnzb_max 1,000 below the
               count the dropped-block contract
+  8c. bench  the package's bench harness, tuner and profiler
+              (spmm_denseblock_tpu_torch.bench, ops.spmm_tune,
+              utils.trace): bench_synthetic_bsr at bench.py's op shape
+              (p = 2e-2, b = 128, F = 512; K2) at transb 0 and 1, each
+              record's ms within 10% of cuda_ms on the same plan and
+              operand (the f32 op plan; the operand_layout="col" plan on
+              B^T) and its GFLOP/s 2*nnzb*b^2*F / t; the op plan's answer
+              on its first 8 block-rows within 1e-4 of spmm_scipy
+              (conformance_fields), and the column-major plan's answer
+              equal to the row plan's bit for bit; the sweep CLI's quick
+              grids (bsrmm, csrmm, graph) in this process, every record
+              free of errors and one a case; bench_graph on the arxiv
+              stand-in under rcmk, b = 128, F = 128, through hybrid and
+              csr_pallas; bench_train_step at its defaults (arxiv, rabbit,
+              [128, 256, 40], auto); spmm_tune on arxiv's
+              sym_norm_adjacency under rcmk at F = 128 with the JAX
+              package's candidates and csr_pallas, at b = 128 and 32 (a
+              bsr candidate whose f32 blocks pass auto's 4 GiB guard is
+              not built), no error but out-of-memory, the winner within
+              1e-4 of spmm_scipy, beside auto's route; auto with tune_with=
+              on the serve graph (gorder, b = 128, a 1 GiB budget), where
+              the scorer's hybrid and pure ELL lie within 15%: both
+              finalists timed, the tuned plan within 1e-4 of spmm_scipy;
+              a torch.profiler trace of one op-shape call, which must
+              name the K2 entry sdb_bsr_spmm_sorted, and the op record's
+              roofline share against the H100 peaks, at most 1.05
   9. timing   CUDA-event times of kernel, plain and library paths
               (library: one PyTorch call computing the same function,
               timed as a yardstick and never called by the port:
@@ -227,20 +254,24 @@ Phases:
               slice's request under torch.profiler: the card's busy
               share and device time by kernel
 
-The main path is phases 4 to 8b, each of their runs (f32 slice, int8
+The main path is phases 4 to 8c, each of their runs (f32 slice, int8
 slice, CSR slice, bf16 slice, f32 training, "high" training, CSR
-training, op, reorder, serve, and each configuration of models) with
-the launch counts set to 0 just before it and read just after; every
-kernel of the path must have run there. Prints the kernels' JSON line,
+training, op, reorder, serve, each configuration of models, and bench)
+with the launch counts set to 0 just before it and read just after;
+every kernel of the path must have run there, and the bench run must
+have launched K2, K1 and K10. Prints the kernels' JSON line,
 then the last line {"ok": true, "device": {...}}. Any failure raises and
 exits non-zero; there is no CPU path.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import io
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -253,6 +284,14 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
+from spmm_denseblock_tpu_torch.bench import (  # noqa: E402
+    bench_graph,
+    bench_synthetic_bsr,
+    bench_train_step,
+    sweeps,
+)
+from spmm_denseblock_tpu_torch.bench.harness import conformance_fields  # noqa: E402
+from spmm_denseblock_tpu_torch.bench.timing import cuda_ms  # noqa: E402
 from spmm_denseblock_tpu_torch.convert.csr2bsr import csr_to_bsr  # noqa: E402
 from spmm_denseblock_tpu_torch.formats.bsr import BSR, random_bsr  # noqa: E402
 from spmm_denseblock_tpu_torch.formats.csr import CSR, random_csr  # noqa: E402
@@ -336,6 +375,8 @@ from spmm_denseblock_tpu_torch.ops.csr_spmm_ell import (  # noqa: E402
 from spmm_denseblock_tpu_torch.ops.dispatch import (  # noqa: E402
     _auto_impl,
     _explicit_hybrid,
+    _thin_margin_finalists,
+    spmm_tune,
 )
 from spmm_denseblock_tpu_torch.ops.csr_spmm_pallas import (  # noqa: E402
     SEGMENT_NNZ,
@@ -363,6 +404,11 @@ from spmm_denseblock_tpu_torch.reorder import (  # noqa: E402
     permutate,
     rcm_variant,
     reorder,
+)
+from spmm_denseblock_tpu_torch.utils import device_info, roofline, trace  # noqa: E402
+from spmm_denseblock_tpu_torch.utils.profiling import (  # noqa: E402
+    HBM_BYTES_S,
+    PEAK_OPS_S,
 )
 
 KERNEL_TOL = 1e-5  # kernel vs plain version, relative to max |plain|
@@ -480,6 +526,31 @@ SDDMM_ARXIV_D = 128  # the element tier on arxiv
 SDDMM_DDI_D = 256    # the block tier on ddi's 1,156 blocks of 128
 CONVERT_B = 32       # csr_to_bsr_on_device on arxiv
 CONVERT_SHORT = 1000  # nnzb_max this far below the count: blocks dropped
+# phase 8c, the bench harness, tuner and profiler
+BENCH_OP = (2e-2, 128, 512)  # bench.py's op shape through the harness: p, b, F
+BENCH_TIMER_TOL = 0.10       # the harness's ms vs cuda_ms on the same plan
+BENCH_CHECK_BLOCK_ROWS = 8   # the op answer's block-rows held to spmm_scipy
+BENCH_SCALE = 1.0            # the arxiv stand-in's scale in bench_graph & co
+# spmm_tune's candidates: the JAX package's default ones and csr_pallas,
+# at each block size; a bsr candidate whose f32 blocks exceed "auto"'s own
+# memory guard (bsr_bytes_budget, 4 GiB) is not built (at b = 128 the
+# arxiv stand-in holds 540,555 blocks: 35 GB on the host, then the card)
+BENCH_TUNE = ("bsr_pallas", "bsr_xla", "csr_ell", "csr_xla", "hybrid", "windowed",
+              "csr_pallas")
+BENCH_TUNE_B = (128, 32)
+BENCH_BLOCK_BUDGET = 4 << 30
+BENCH_THIN_BUDGET = 1 << 30  # tune_with's case: "auto" over this budget
+BENCH_ROOF_MAX = 1.05        # frac_of_roofline of the op record, at most
+# the records of `python -m spmm_denseblock_tpu_torch.bench <sweep> --quick`:
+# one density, block size, width and layout, both impls (bsrmm); one
+# density and width, both impls (csrmm); both datasets, two orderings, one
+# width, two impls (graph)
+BENCH_QUICK_CASES = {"bsrmm": len(sweeps.BSR_GRID["impl"]),
+                     "csrmm": len(sweeps.CSR_GRID["impl"]),
+                     "graph": len(sweeps.GRAPH_GRID["datasets"]) * 2 * 2}
+# the kernels the bench phase must launch: K2 (op shape), K1 (the quick
+# bsrmm grid and the hybrid's dense part), K10 (csr_pallas)
+BENCH_KERNELS = ("bsr_spmm_sorted", "bsr_spmm_flat", "csr_spmm")
 _PALLAS = "spmm_denseblock_tpu/ops/bsr_spmm_pallas.py"
 _PALLAS_I8 = "spmm_denseblock_tpu/ops/bsr_spmm_pallas_int8.py"
 _CSRC = "spmm_denseblock_tpu_torch/csrc/"
@@ -515,12 +586,8 @@ KERNEL_INFO = {
 }
 ALL_KERNELS = {f"K{i}" for i in range(1, 11)}
 BSR_KERNELS = ALL_KERNELS - {"K10"}
-# the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W):
-# device memory bytes/s, and operations/s by the operands' type ("high",
-# bf16x3, counts three bf16 products on the bf16 tensor cores; exact f32
-# is FFMA: the 1e-4 gate rules out TF32)
-HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"f32": 67e12, "high": 989e12, "bf16": 989e12, "int8": 1979e12}
+# the card's published peaks, HBM_BYTES_S and PEAK_OPS_S, are
+# utils/profiling's
 ELEM_BYTES = {"f32": 4, "high": 4, "bf16": 2, "int8": 1}
 
 
@@ -535,21 +602,6 @@ def card() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip()
-
-
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean ms per call between CUDA events over `iters` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def launches() -> dict:
@@ -2207,8 +2259,200 @@ def to_sparse_bsr_ms(csr: CSR, b: int):
     return ms
 
 
+# -- phase 8c: the bench harness, the tuner and the profiler ------------------
+
+
+def bench_sweep(name: str, out_dir: Path) -> list:
+    """`python -m spmm_denseblock_tpu_torch.bench <name> --quick` in this
+    process (its record lines kept out of the log); returns the records,
+    each error-free and one a case of the quick grid."""
+    path = out_dir / f"{name}.jsonl"
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = sweeps.main([name, "--quick", "--device", DEV, "--out", str(path)])
+    recs = [json.loads(line) for line in path.read_text().splitlines()]
+    bad = [r["error"] for r in recs if "error" in r]
+    if rc != 0 or bad:
+        raise AssertionError(f"bench {name} --quick: rc {rc}, errors {bad}")
+    if len(recs) != BENCH_QUICK_CASES[name]:
+        raise AssertionError(f"bench {name} --quick: {len(recs)} records, expected "
+                             f"{BENCH_QUICK_CASES[name]}")
+    return recs
+
+
+def bench_phase(op_bsr: BSR, k2_op, x_op, graphs: dict, card_line: str) -> dict:
+    """Phase 8c: the port's bench harness, sweep CLI, tuner and profiler
+    on the card (see the module docstring), k2_op the f32 op plan (K2)
+    and graphs the reorder phase's. Returns what it measured."""
+    p, b, F = BENCH_OP
+    out_dir = ROOT / "build" / "bench"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    bp = {}
+    torch.cuda.empty_cache()
+    # a. the harness at bench.py's op shape against cuda_ms on the same
+    # plan (the f32 op plan: K2 on the sorted layout) and operand
+    t0 = time.perf_counter()
+    col = spmm_plan(op_bsr, impl="bsr_pallas", grad=False, operand_layout="col",
+                    device=DEV)
+    xt = x_op.T.contiguous()
+    flops = 2.0 * op_bsr.nnzb * b * b * F
+    for transb, plan, x in ((0, k2_op, x_op), (1, col, xt)):
+        rec = bench_synthetic_bsr(p, b, F, impl="bsr_pallas", transb=transb, device=DEV)
+        with torch.no_grad():
+            ev = cuda_ms(lambda: plan(x), iters=20)
+        gf = flops / (rec["ms"] / 1e3) / 1e9
+        log(f"  bench synthetic_bsr p={p} b={b} F={F} transb={transb}: nnzb "
+            f"{rec['nnzb']}, {rec['ms']:.4f} ms (min {rec['ms_min']:.4f}, max "
+            f"{rec['ms_max']:.4f} of {rec['repeats']} repeats), {rec['gflops']:.1f} "
+            f"GFLOP/s, plan {rec['plan_s']:.2f} s; cuda_ms on the same plan "
+            f"{ev:.4f} ms ({rec['ms'] / ev:.4f}x) [{card_line}]")
+        if rec["nnzb"] != op_bsr.nnzb:
+            raise AssertionError(f"bench: nnzb {rec['nnzb']} != {op_bsr.nnzb}")
+        if abs(rec["ms"] - ev) > BENCH_TIMER_TOL * ev:
+            raise AssertionError(f"bench transb={transb}: {rec['ms']:.4f} ms is not "
+                                 f"within {BENCH_TIMER_TOL:.0%} of cuda_ms {ev:.4f}")
+        if abs(rec["gflops"] - gf) > 1e-9 * gf:
+            raise AssertionError(f"bench: gflops {rec['gflops']} != 2 nnzb b^2 F / t {gf}")
+        bp[f"op transb={transb}"] = (rec, ev)
+    # its answer on the first block-rows against spmm_scipy (the dense
+    # matrix of all 1,024 would take 68 GB), and the column-major plan's
+    # bit for bit against the row plan's (g)
+    nb = BENCH_CHECK_BLOCK_ROWS
+    keep = op_bsr.block_rows[:op_bsr.nnzb] < nb
+    sub = BSR.from_parts(op_bsr.block_rows[:op_bsr.nnzb][keep],
+                         op_bsr.block_cols[:op_bsr.nnzb][keep],
+                         op_bsr.blocks[:op_bsr.nnzb][keep], (nb * b, op_bsr.shape[1]), b)
+    with torch.no_grad():
+        row_out = k2_op(x_op)
+        col_out = col(xt)
+    conf = conformance_fields(row_out[:nb * b], spmm_scipy(sub, x_op.cpu().numpy()),
+                              "float32")
+    log(f"  bench op answer, first {nb} block-rows vs spmm_scipy: {conf}")
+    if not conf["gate_ok"]:
+        raise AssertionError(f"bench op answer: {conf}")
+    if not torch.equal(col_out, row_out):
+        raise AssertionError("operand_layout='col' differs from the row plan")
+    log(f"  bench operand_layout='col' (B^T, {tuple(xt.shape)}) equals the row "
+        f"plan bit for bit")
+    del col, xt, row_out, col_out
+    bp["op_s"] = time.perf_counter() - t0
+    # b. the sweep CLI's quick grids
+    t0 = time.perf_counter()
+    for name in ("bsrmm", "csrmm", "graph"):
+        for r in bench_sweep(name, out_dir):
+            what = " ".join(f"{k}={r[k]}" for k in ("dataset", "strategy", "p", "b",
+                                                   "dim", "impl", "transb") if k in r)
+            log(f"  bench {name} --quick {what}: {r['ms']:.4f} ms, "
+                f"{r['gflops']:.2f} GFLOP/s [{card_line}]")
+            bp[f"{name} {what}"] = r["ms"]
+    bp["sweeps_s"] = time.perf_counter() - t0
+    # c. bench_graph on the arxiv stand-in under rcmk at F = 128
+    t0 = time.perf_counter()
+    for impl in ("hybrid", "csr_pallas"):
+        r = bench_graph("ogbn-arxiv", "rcmk", 128, 128, impl=impl, scale=BENCH_SCALE,
+                        device=DEV)
+        extra = (f", dense_nnzb {r['dense_nnzb']}, remainder nnz {r['remainder_nnz']}"
+                 if impl == "hybrid" else "")
+        log(f"  bench graph ogbn-arxiv rcmk b=128 F=128 {impl}: {r['ms']:.4f} ms "
+            f"(min {r['ms_min']:.4f}, max {r['ms_max']:.4f}), {r['gflops']:.1f} "
+            f"GFLOP/s, plan {r['plan_s']:.2f} s{extra} [{card_line}]")
+        bp[f"graph {impl}"] = r
+    # d. one GCN training step at bench_train_step's defaults
+    r = bench_train_step(scale=BENCH_SCALE, device=DEV)
+    log(f"  bench train_step {r['dataset']} {r['strategy']} {r['dims']} "
+        f"{r['impl']}: {r['ms_per_step']:.3f} ms a step, "
+        f"{r['edges_per_s'] / 1e9:.3f} G edges/s [{card_line}]")
+    bp["train_step"] = r
+    bp["graph_s"] = time.perf_counter() - t0
+    # e. spmm_tune on arxiv under rcmk, F = 128, beside auto's route
+    t0 = time.perf_counter()
+    adj = sym_norm_adjacency(graphs["rcmk"])
+    x = torch.as_tensor(seeded((adj.n_cols, 128), SEED + 70), device=DEV)
+    want = spmm_scipy(adj, x.cpu().numpy())
+    bp["tune"] = {}
+    for bs in BENCH_TUNE_B:
+        block_bytes = calculate_nnzb(adj, bs) * bs * bs * 4
+        cands = [c for c in BENCH_TUNE
+                 if not c.startswith("bsr") or block_bytes <= BENCH_BLOCK_BUDGET]
+        skipped = [c for c in BENCH_TUNE if c not in cands]
+        best, report = spmm_tune(adj, x, candidates=cands, block_size=bs,
+                                 grad=False, device=DEV)
+        errors = {k: v["error"] for k, v in report.items()
+                  if k != "best" and "error" in v}
+        if any("out of memory" not in e for e in errors.values()):
+            raise AssertionError(f"spmm_tune b={bs}: {errors}")
+        with torch.no_grad():
+            err = conformance_fields(best(x), want, "float32")
+        if not err["gate_ok"]:
+            raise AssertionError(f"spmm_tune b={bs} best {report['best']}: {err}")
+        route = _auto_impl(adj, bs, 128, {})[0]
+        table = ", ".join(f"{k} {v['ms']:.4f} ms" if "ms" in v else f"{k} {v['error']}"
+                          for k, v in report.items() if k != "best")
+        why = (f" (f32 blocks {block_bytes / 1e9:.2f} GB, over auto's "
+               f"{BENCH_BLOCK_BUDGET >> 30} GiB guard)" if skipped else "")
+        log(f"  bench spmm_tune arxiv rcmk b={bs} F=128: {table}; best "
+            f"{report['best']} (max rel err {err['max_rel_err']:.2e}); auto routes to "
+            f"{route}; not built: {skipped or 'none'}{why} [{card_line}]")
+        bp["tune"][bs] = (report, route, skipped, block_bytes)
+        del best
+        torch.cuda.empty_cache()
+    bp["tune_s"] = time.perf_counter() - t0
+    # f. auto with tune_with= where the scorer's margin is thin: the serve
+    # graph (gorder) at b = 128
+    t0 = time.perf_counter()
+    adj = sym_norm_adjacency(graphs["gorder"])
+    x = torch.as_tensor(seeded((adj.n_cols, 128), SEED + 71), device=DEV)
+    kw = {"bsr_bytes_budget": BENCH_THIN_BUDGET, "grad": False, "device": DEV}
+    scored = _auto_impl(adj, 128, None, dict(kw))[2]
+    finalists = _thin_margin_finalists(scored)
+    if finalists is None:
+        raise AssertionError(f"tune_with case: the margin is not thin: {scored}")
+    _, report = spmm_tune(adj, x, candidates=finalists, block_size=128,
+                          grad=False, device=DEV)
+    plan = spmm_plan(adj, impl="auto", tune_with=x, **kw)
+    with torch.no_grad():
+        err = conformance_fields(plan(x), spmm_scipy(adj, x.cpu().numpy()), "float32")
+    if not err["gate_ok"]:
+        raise AssertionError(f"tune_with plan: {err}")
+    scores = {r["thr"]: r["score"] for r in scored if r.get("score") is not None}
+    log(f"  bench tune_with arxiv gorder b=128 F=128, budget "
+        f"{BENCH_THIN_BUDGET >> 20} MiB: scores {scores}; finalists {finalists}; "
+        f"measured {report}; auto(tune_with) built {tier_of(plan)} (max rel err "
+        f"{err['max_rel_err']:.2e}) [{card_line}]")
+    bp["tune_with"] = (finalists, report, tier_of(plan))
+    del plan
+    bp["tune_with_s"] = time.perf_counter() - t0
+    # h. a profiler trace of one op-shape call; the harness's op record on
+    # the H100 roofline
+    t0 = time.perf_counter()
+    trace_dir = out_dir / "trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    with torch.no_grad(), trace(str(trace_dir)):
+        k2_op(x_op)
+    (path,) = trace_dir.glob("trace_*.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    entry = kernel_of(k2_op)[1]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    if f"sdb_{entry}" not in {e.get("name") for e in events}:
+        raise AssertionError(f"trace {path.name} does not name sdb_{entry}")
+    rec = bp["op transb=0"][0]
+    roof = roofline(flops, rec["bytes"], rec["ms"] / 1e3, PEAK_OPS_S["f32"], HBM_BYTES_S)
+    log(f"  bench trace {path.relative_to(ROOT)} ({path.stat().st_size} bytes): "
+        f"names sdb_{entry}; device kernels {sorted(k[:60] for k in kernels)}")
+    log(f"  bench roofline of the op record (f32 FFMA peak {PEAK_OPS_S['f32']:.3g}, "
+        f"{HBM_BYTES_S:.3g} B/s): {roof} [{card_line}]")
+    if not roof["frac_of_roofline"] <= BENCH_ROOF_MAX:
+        raise AssertionError(f"frac_of_roofline {roof['frac_of_roofline']}")
+    bp["roofline"] = roof
+    bp["device_info"] = device_info(DEV)
+    log(f"  bench device_info: {bp['device_info']}")
+    bp["trace_s"] = time.perf_counter() - t0
+    log("  bench phase seconds: " + ", ".join(
+        f"{k[:-2]} {v:.1f}" for k, v in bp.items() if k.endswith("_s")))
+    return bp
+
+
 def main_path(ddi, adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str):
-    """Phases 4 to 8b, each run with the launch counts set to 0 just
+    """Phases 4 to 8c, each run with the launch counts set to 0 just
     before it and read just after. Returns what the timing needs."""
     totals = {}
 
@@ -2288,6 +2532,14 @@ def main_path(ddi, adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str)
     t0 = time.perf_counter()
     mp = models_phase(ddi, graphs, best, op_bsr, plans[("f32", "sorted")], x_op, read)
     log(f"[models] phase in {time.perf_counter() - t0:.1f} s")
+    reset_launches()
+    t0 = time.perf_counter()
+    bench_phase(op_bsr, plans[("f32", "sorted")], x_op, graphs, card_line)
+    log(f"[bench] phase in {time.perf_counter() - t0:.1f} s")
+    read("bench", {})
+    silent = [name for name in BENCH_KERNELS if launches()[name] == 0]
+    if silent:
+        raise AssertionError(f"bench: not launched: {silent}")
     missing = [name for name in [kernel_of(p)[1] for p in plans.values()]
                + ["split_bf16", "quantize_int8"] if totals.get(name, 0) == 0]
     if missing:

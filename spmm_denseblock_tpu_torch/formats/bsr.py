@@ -66,9 +66,19 @@ class BSR:
             nnzb=int(block_rows.shape[0]),
         )
 
+    def block_density(self) -> float:
+        """nnzb / (n_block_rows * n_block_cols)."""
+        return self.nnzb / (self.n_block_rows * self.n_block_cols)
+
     def nnz_inside(self) -> int:
         """Nonzero entries inside the real blocks."""
         return int(np.count_nonzero(np.asarray(self.blocks[: self.nnzb])))
+
+    def utilization(self) -> float:
+        """nnz / (nnzb * b^2): the share of stored block cells that are
+        nonzero."""
+        denom = self.nnzb * self.b * self.b
+        return self.nnz_inside() / denom if denom else 0.0
 
     def block_indptr(self) -> np.ndarray:
         """(n_block_rows + 1,) classic BSR rowptr over real blocks."""

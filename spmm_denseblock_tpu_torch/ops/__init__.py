@@ -30,7 +30,7 @@ from spmm_denseblock_tpu_torch.ops.device_convert import (
     csr_to_bsr_device,
     csr_to_bsr_on_device,
 )
-from spmm_denseblock_tpu_torch.ops.dispatch import PLANNERS, spmm_plan
+from spmm_denseblock_tpu_torch.ops.dispatch import PLANNERS, spmm_plan, spmm_tune
 from spmm_denseblock_tpu_torch.ops.hybrid_spmm import (
     hybrid_spmm,
     hybrid_spmm_int8_plan,
@@ -85,6 +85,7 @@ __all__ = [
     "csr_to_bsr_on_device",
     "PLANNERS",
     "spmm_plan",
+    "spmm_tune",
     "Plan",
     "sum_plan",
     "grad_plan",

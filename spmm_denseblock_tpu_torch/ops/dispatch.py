@@ -18,8 +18,16 @@ threshold scorer (a dense part worth its blocks gives hybrid, else
 csr_ell). ``dtype=int8`` maps the chosen tier, picked by "auto" or
 named, to its quantized variant, and "auto"'s ELL and hybrid tiers get
 compact="auto". Every constant of these steps is a TPU v5e fit of the
-JAX package, copied as it is. ``tune_with=`` (the router's measured
-tie-break) and ``operand_layout="col"`` raise NotImplementedError.
+JAX package, copied as it is. Where the scorer's hybrid and pure-ELL
+scores lie within 15% of each other and the caller passed
+``tune_with=`` (a representative operand), "auto" measures the two
+finalists with ``spmm_tune`` instead. ``operand_layout="col"`` gives a
+plan that takes the operand transposed, (F, K).
+
+    plan, report = spmm_tune(matrix, X, candidates=("bsr_pallas", "csr_pallas"))
+
+times each candidate on X (CUDA events on the card) and returns the
+fastest plan and every candidate's ms or error.
 """
 
 from __future__ import annotations
@@ -58,7 +66,7 @@ from spmm_denseblock_tpu_torch.ops.hybrid_spmm import (
     hybrid_spmm_int8_plan,
     hybrid_spmm_plan,
 )
-from spmm_denseblock_tpu_torch.ops.plan import Plan
+from spmm_denseblock_tpu_torch.ops.plan import Plan, transb_plan
 from spmm_denseblock_tpu_torch.ops.reference import spmm_dense_torch
 from spmm_denseblock_tpu_torch.ops.windowed_spmm import (
     tiered_spmm_plan,
@@ -140,11 +148,6 @@ def _itemsize(dtype) -> int:
     return 4 if dtype is None else getattr(torch, dtype_name(dtype)).itemsize
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1 item 11, the full router)")
-
-
 def _explicit_hybrid(matrix: CSR, impl: str, block_size: int, kw: dict) -> Hybrid:
     """impl="hybrid"/"hybrid_int8" on a CSR input: divide at
     density_threshold=, else at the scorer's pick with margin 0 (the
@@ -163,11 +166,29 @@ def _explicit_hybrid(matrix: CSR, impl: str, block_size: int, kw: dict) -> Hybri
     return divide(matrix, block_size, thr)
 
 
-def _auto_impl(matrix, block_size: int, feat_dim, kw: dict):
+def _thin_margin_finalists(report):
+    """The two candidates "auto" measures when score_thresholds' best
+    hybrid and pure ELL lie within 15% of each other, else None. The
+    hybrid's threshold is the smallest of those with the best hybrid
+    score: JAX takes the scorer's pick where there is one, which is that
+    threshold too (the scorer keeps the first of equal scores, in
+    ascending order)."""
+    scores = {r["thr"]: r["score"] for r in report if r.get("score") is not None}
+    s_ell = scores.get(None)
+    s_hyb = min((v for t, v in scores.items() if t is not None), default=None)
+    if s_ell is None or s_hyb is None or abs(s_hyb - s_ell) > 0.15 * min(s_hyb, s_ell):
+        return None
+    hyb_thr = min(t for t, v in scores.items() if t is not None and v == s_hyb)
+    return (("hybrid", {"density_threshold": hyb_thr, "compact": "auto"}),
+            ("csr_ell", {"compact": "auto"}))
+
+
+def _auto_impl(matrix, block_size: int, feat_dim, kw: dict, tune_with=None):
     """The JAX router's "auto" choice: (impl, matrix, report), the matrix
     repacked or divided where the route says so, and score_thresholds'
-    report where the scorer ran (else None). Pops bsr_bytes_budget from
-    kw."""
+    report where the scorer ran (else None). With `tune_with` and a thin
+    margin between the scorer's finalists, ("tuned", the measured
+    winner's plan, report). Pops bsr_bytes_budget from kw."""
     if isinstance(matrix, Windowed):
         return "windowed", matrix, None
     if isinstance(matrix, Hybrid):
@@ -196,6 +217,13 @@ def _auto_impl(matrix, block_size: int, feat_dim, kw: dict):
         slots_per_block=4000.0 if big_table else 400.0,
         dense_bytes_budget=budget // 4, dtype_bytes=_itemsize(kw.get("dtype")),
     )
+    finalists = None if tune_with is None else _thin_margin_finalists(report)
+    if finalists is not None:
+        # the scorer's slots-per-block constants are two-point fits: on a
+        # thin margin, measure the finalists on the caller's operand
+        plan, _ = spmm_tune(matrix, tune_with, candidates=finalists,
+                            block_size=block_size, **kw)
+        return "tuned", plan, report
     if best_thr is None:  # densification pays nothing here
         return "csr_ell", matrix, report
     return "hybrid", divide(matrix, block_size, best_thr), report
@@ -216,19 +244,24 @@ def spmm_plan(matrix, impl: str = "auto", block_size: int = 128,
     maps the tier to its int8 variant (bsr_pallas -> bsr_int8_pallas,
     bsr_xla -> bsr_int8, csr_ell -> csr_ell_int8, hybrid -> hybrid_int8,
     windowed -> windowed_int8); pass calibration= for static operand
-    scales. Other keyword arguments go to the planner, e.g. grad=False,
-    dtype=torch.bfloat16, precision="high", compact=. device: None (the
-    default) is the card; CPU callers pass device="cpu"."""
+    scales. tune_with= (an operand) lets "auto" measure its two
+    finalists where the scorer's margin is thin (spmm_tune).
+    operand_layout="col" returns a plan of the operand's transpose, (F,
+    K) -> (M, F). Other keyword arguments go to the planner, e.g.
+    grad=False, dtype=torch.bfloat16, precision="high", compact=.
+    device: None (the default) is the card; CPU callers pass
+    device="cpu"."""
     kw["device"] = resolve_device(kw.get("device"))
     was_auto = impl == "auto"
-    repack_to = kw.pop("repack_to", None)
     operand_layout = kw.pop("operand_layout", "row")
     if operand_layout not in ("row", "col"):
         raise ValueError(f"operand_layout must be 'row' or 'col', got {operand_layout!r}")
     if operand_layout == "col":
-        raise _not_ported("operand_layout='col' (transb_plan over the router)")
-    if kw.pop("tune_with", None) is not None:
-        raise _not_ported("tune_with= (the router's measured tie-break, spmm_tune)")
+        # the reference's transB = 1 axis: the plan takes B^T, (F, K)
+        return transb_plan(spmm_plan(matrix, impl=impl, block_size=block_size,
+                                     feat_dim=feat_dim, **kw))
+    repack_to = kw.pop("repack_to", None)
+    tune_with = kw.pop("tune_with", None)
     if repack_to is not None and isinstance(matrix, BSR):
         matrix = repack_bsr(matrix, repack_to)
     if impl in ("hybrid", "hybrid_int8") and isinstance(matrix, CSR):
@@ -242,7 +275,9 @@ def spmm_plan(matrix, impl: str = "auto", block_size: int = 128,
             n_windows=kw.pop("n_windows", 1),
         )
     if was_auto:
-        impl, matrix, _ = _auto_impl(matrix, block_size, feat_dim, kw)
+        impl, matrix, _ = _auto_impl(matrix, block_size, feat_dim, kw, tune_with)
+        if impl == "tuned":
+            return matrix
     kw.pop("bsr_bytes_budget", None)
     dtype = kw.get("dtype")
     if dtype is not None and dtype_name(dtype) == "int8":
@@ -260,3 +295,68 @@ def spmm_plan(matrix, impl: str = "auto", block_size: int = 128,
     if impl.startswith("bsr") and isinstance(matrix, CSR):
         matrix = csr_to_bsr(matrix, block_size)
     return PLANNERS[impl](matrix, **kw)
+
+
+def _device_fault(e: Exception) -> bool:
+    """A CUDA launch failure or an error the card reported (an illegal
+    address, say), which leaves the context unusable; out-of-memory is
+    not one."""
+    if isinstance(e, torch.cuda.OutOfMemoryError):
+        return False
+    if isinstance(e, torch.AcceleratorError):
+        return True
+    msg = str(e)
+    return isinstance(e, RuntimeError) and ("cudaError_t" in msg or "CUDA error" in msg)
+
+
+def spmm_tune(
+    matrix,
+    sample_dense,
+    candidates=("bsr_pallas", "bsr_xla", "csr_ell", "csr_xla", "hybrid", "windowed"),
+    block_size: int = 128,
+    **kw,
+):
+    """Empirical dispatch: build each candidate plan, time it briefly on
+    the caller's representative operand, return (best_plan, report):
+    report[label] = {"ms": ...} or {"error": ...}, report["best"] the
+    fastest label.
+
+    A candidate is an impl name or an (impl, kwargs) pair, labelled
+    "impl(key, ...)" by its sorted keys, e.g. ("csr_ell", {"compact":
+    "auto"}) -> "csr_ell(compact)". On the card each plan is timed with
+    time_chained (CUDA events), on the CPU with time_synced(iters=3). A
+    candidate whose planner rejects the input, or that runs out of device
+    memory, gets an error entry; a CUDA launch failure or a fault the
+    card reports is raised, as it leaves the device unusable."""
+    from spmm_denseblock_tpu_torch.bench.timing import time_chained, time_synced
+
+    dev = kw["device"] = resolve_device(kw.get("device"))
+    if dev.type == "cuda":
+        def timer(f, x):
+            return time_chained(f, x, iters=5)
+    else:
+        def timer(f, x):
+            return time_synced(f, x, iters=3)
+    x = torch.as_tensor(sample_dense, device=dev)
+    report = {}
+    best, best_t = None, float("inf")
+    for cand in candidates:
+        name, ckw = cand if isinstance(cand, tuple) else (cand, {})
+        label = name if not ckw else f"{name}({', '.join(sorted(ckw))})"
+        plan = None  # the last candidate's plan goes before this one is built
+        try:
+            plan = spmm_plan(matrix, impl=name, block_size=block_size, **{**kw, **ckw})
+            with torch.no_grad():
+                t = timer(plan, x)
+        except Exception as e:  # not applicable to this matrix, or no memory
+            if _device_fault(e):
+                raise
+            report[label] = {"error": str(e)[:120]}
+            continue
+        report[label] = {"ms": t * 1e3}
+        if t < best_t:
+            best, best_t = plan, t
+            report["best"] = label
+    if best is None:
+        raise RuntimeError(f"no candidate worked: {report}")
+    return best, report

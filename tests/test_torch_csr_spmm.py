@@ -26,10 +26,12 @@ import spmm_denseblock_tpu.formats.bsr as j_bsr
 import spmm_denseblock_tpu.formats.csr as j_csr
 import spmm_denseblock_tpu.models as j_models
 import spmm_denseblock_tpu.ops as j_ops
+import spmm_denseblock_tpu_torch.bench as t_bench
 import spmm_denseblock_tpu_torch.formats.bsr as t_bsr
 import spmm_denseblock_tpu_torch.formats.csr as t_csr
 import spmm_denseblock_tpu_torch.models as t_models
 import spmm_denseblock_tpu_torch.ops as t_ops
+import spmm_denseblock_tpu_torch.utils as t_utils
 from spmm_denseblock_tpu.models.train import make_train_step as j_make_train_step
 from spmm_denseblock_tpu_torch.ops import _kernels, assert_allclose, spmm_scipy
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import plain_apply
@@ -422,29 +424,44 @@ def _entry_points():
             csr.row_ids(), csr.indices, None, 5, 5, 8, 30, **kw),
         "csr_to_bsr_on_device": lambda **kw: t_ops.csr_to_bsr_on_device(csr, 8, **kw),
         "make_gat_apply": lambda **kw: t_models.make_gat_apply(csr, 2, **kw),
+        "spmm_tune": lambda **kw: t_ops.spmm_tune(
+            csr, xy, candidates=("csr_xla", "bsr_xla"), block_size=8, **kw)[0],
+        "bench_synthetic_bsr": lambda **kw: t_bench.bench_synthetic_bsr(
+            0.3, 8, 4, impl="bsr_xla", n_block_rows=4, **kw),
+        "bench_synthetic_csr": lambda **kw: t_bench.bench_synthetic_csr(
+            0.1, 4, n_rows=64, **kw),
+        "bench_graph": lambda **kw: t_bench.bench_graph(
+            "ogbn-arxiv", block_size=32, dim=4, impl="csr_xla", scale=0.002, **kw),
+        "bench_train_step": lambda **kw: t_bench.bench_train_step(
+            dims=(4, 8, 2), impl="csr_xla", scale=0.002, iters=1, **kw),
+        "device_info": lambda **kw: t_utils.device_info(**kw),
     }
 
 
 def _host_tensors(built) -> list:
     """The tensors an entry point's result holds (a plan's buffers, the
     entry's weights, an op's outputs); the converter's BSR container
-    holds host arrays."""
+    holds host arrays; a bench record or device_info names its device."""
     if isinstance(built, torch.nn.Module):
         return list(built.buffers())
     if torch.is_tensor(built):
         return [built]
     if isinstance(built, t_bsr.BSR):
         return [torch.as_tensor(built.blocks)]
+    if isinstance(built, dict):
+        where = built.get("device", built.get("platform"))
+        return [torch.empty(0)] if where == "cpu" else []
     if all(torch.is_tensor(t) for t in built):
         return list(built)
     return [p["w"] for p in built[1][0]]
 
 
 @pytest.mark.parametrize("name", list(_entry_points()))
-def test_default_device_is_the_card(name, monkeypatch):
+def test_default_device_is_the_card(name, monkeypatch, tmp_path):
     """With no GPU (torch.cuda.is_available patched to False) an entry
     point given no device raises a RuntimeError naming the missing GPU,
     and returns no CPU plan; device="cpu" builds on the CPU."""
+    monkeypatch.chdir(tmp_path)  # the bench runners cache graphs under ./tmp
     build = _entry_points()[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="GPU"):

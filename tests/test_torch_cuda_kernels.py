@@ -13,8 +13,9 @@ groups) and K9 (single-row resident), all four on the int8 tensor cores
 16 and 32, with its hub lanes), and their operand's quantization
 (quantize_int8, bit for bit), and the CSR kernel K10 (one strip,
 and column strips) against their plain PyTorch versions on the card,
-their launch counters, the wrappers' refusals, and grad plans' backward on
-the card against the plain backward. CUDA kernels have no CPU mode, so
+their launch counters, the wrappers' refusals, grad plans' backward on
+the card against the plain backward, and the bench timers, spmm_tune's
+handling of a refused launch and the profiler's trace of a launch. CUDA kernels have no CPU mode, so
 these tests skip without a GPU; run them on one with
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
@@ -1643,3 +1644,74 @@ def test_windowed_plans_on_card_match_cpu(case):
     else:
         rel = (got.cpu() - want).abs().max().item() / want.abs().max().item()
         assert rel < TOL, rel
+
+
+# -- the bench harness's timers and spmm_tune on the card ---------------------
+
+
+def test_time_chained_agrees_with_cuda_ms_on_k2():
+    """bench/timing on the card: time_chained (a chain through _mix,
+    between CUDA events) gives K2's time within 10% of cuda_ms's plain
+    repeated calls on the same plan and operand, at a shape where K2 runs
+    for about a millisecond (the chain's _mix adds a pass over X)."""
+    from spmm_denseblock_tpu_torch.bench.timing import (
+        cuda_ms,
+        time_chained,
+        time_chained_square,
+    )
+
+    bsr = random_bsr(0.05, 256, 256, block_size=128, seed=2)
+    plan = T.bsr_spmm_pallas_plan(bsr, grad=False, device="cuda")
+    assert plan.statics[0] == "sorted"
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (bsr.shape[1], 512)).astype(np.float32), device="cuda")
+    before = _kernels.bsr_spmm_sorted.launches
+    with torch.no_grad():
+        events = cuda_ms(lambda: plan(x), iters=20) / 1e3
+        chained = time_chained(plan, x, iters=20)
+        square = time_chained_square(plan, x, iters=20)
+    assert _kernels.bsr_spmm_sorted.launches - before == 22 + 2 * 22
+    for t in (chained, square):
+        assert abs(t - events) <= 0.10 * events, (t, events)
+
+
+def test_spmm_tune_raises_a_refused_launch(monkeypatch):
+    """A K10 launch the entry refuses (a strip width of 33 columns, which
+    has no kernel, forced through csr_strip_width) is a CUDA launch
+    failure: spmm_tune raises it instead of reporting the candidate. The
+    refusal comes before the launch, so the card stays usable: the same
+    tune without the forced width times both candidates and picks one."""
+    from spmm_denseblock_tpu_torch.ops import spmm_tune
+
+    csr = random_csr(0.01, 4096, seed=5)
+    x = np.random.default_rng(5).standard_normal((4096, 128)).astype(np.float32)
+    with monkeypatch.context() as m:
+        m.setattr(TP, "csr_strip_width", lambda K, F, l2: 33)
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            spmm_tune(csr, x, candidates=("csr_xla", "csr_pallas"), grad=False)
+    plan, report = spmm_tune(csr, x, candidates=("csr_xla", "csr_pallas"), grad=False)
+    assert report["best"] in ("csr_xla", "csr_pallas")
+    assert all(report[k]["ms"] > 0 for k in ("csr_xla", "csr_pallas"))
+    assert_allclose(plan(torch.as_tensor(x, device="cuda")), spmm_scipy(csr, x))
+
+
+def test_trace_names_the_kernel_entry(tmp_path):
+    """utils.trace on the card: the Chrome trace of one K2 call names the
+    entry sdb_bsr_spmm_sorted (the launcher's range) and holds device
+    kernels."""
+    import json
+
+    from spmm_denseblock_tpu_torch.utils import trace
+
+    bsr = random_bsr(0.8, 16, 16, block_size=128, seed=1)
+    plan = T.bsr_spmm_pallas_plan(bsr, grad=False, device="cuda")
+    assert plan.statics[0] == "sorted"
+    x = torch.ones(bsr.shape[1], 64, device="cuda")
+    plan(x)
+    with trace(str(tmp_path)):
+        plan(x)
+    (path,) = tmp_path.glob("trace_*.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert "sdb_bsr_spmm_sorted" in names
+    assert any(e.get("cat") == "kernel" for e in events)

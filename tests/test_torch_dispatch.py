@@ -6,7 +6,7 @@ and feat_dim=; the port adds device=) on each route: the fill guard, the
 scored branch over the byte budget, the small-b repack, the explicit
 hybrid and windowed tiers on a CSR input, Hybrid and Windowed inputs
 under "auto", repack_to= and the int8 mapping. tune_with= and
-operand_layout="col" raise NotImplementedError naming their item."""
+operand_layout="col" are held to JAX's in tests/test_torch_tune.py."""
 
 import importlib
 
@@ -252,14 +252,8 @@ def test_int8_mapping(impl, want, monkeypatch):
 
 
 def test_router_rejections():
-    """tune_with= and operand_layout="col" raise NotImplementedError
-    naming item 11; an unknown layout or impl raises as in JAX."""
+    """An unknown layout or impl raises as in JAX."""
     _, tc = weak_pair(0.05, 64)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TD.spmm_plan(tc, impl="auto", tune_with=np.zeros((64, 4), np.float32),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TD.spmm_plan(tc, impl="csr_ell", operand_layout="col", device="cpu")
     with pytest.raises(ValueError, match="operand_layout"):
         TD.spmm_plan(tc, operand_layout="diag", device="cpu")
     with pytest.raises(KeyError, match="unknown impl"):
