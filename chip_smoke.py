@@ -254,6 +254,32 @@ Phases:
               slice's request under torch.profiler: the card's busy
               share and device time by kernel
 
+  10. dist     the distributed layer (parallel/), after every other
+              timing: (a) one rank over NCCL in this process at the op
+              shape, allgather and ring with f32 K2 stripes, each against
+              its plain version and spmm_scipy's first block-rows, timed
+              beside the single-card K2 plan; (b)-(f) four ranks spawned
+              over gloo, all on the one GPU (exchanges through the
+              host): the op shape in f32, bf16, "high" and int8
+              (calibrated and dynamic) on allgather and ring, f32 on the
+              xla local impl and on the (2, 2) mesh with the feature
+              axis, the quick bsrmm grid's matrix (K1, K4, K8), halo on
+              a banded BSR and contiguous balancing on a graded one, LPT
+              on the arxiv stand-in under gorder at b = 32, the ddi GCN
+              request in f32 and int8 with each rank's output stripe fed
+              to the next layer, the arxiv GCN request through the
+              hybrid (gorder) and csr_ell (original), the windowed tier
+              and SDDMM; each rank checks its launches (allgather 1,
+              ring 4, halo 3 a call, quantize_int8 1 a call for int8),
+              its stripe against the routers' plain versions
+              (KERNEL_TOL) and the gathered C against spmm_scipy at the
+              tier's gate; here the GCN, windowed and SDDMM answers
+              against single-card plans on the same inputs. Prints the
+              transport, plan seconds, ms a call per rank (four ranks
+              share one card: not scaling numbers) and the exchange's
+              bytes beside comms_bytes_per_device, then a {"dist": ...}
+              JSON line before the card line
+
 The main path is phases 4 to 8c, each of their runs (f32 slice, int8
 slice, CSR slice, bf16 slice, f32 training, "high" training, CSR
 training, op, reorder, serve, each configuration of models, and bench)
@@ -292,9 +318,10 @@ from spmm_denseblock_tpu_torch.bench import (  # noqa: E402
 )
 from spmm_denseblock_tpu_torch.bench.harness import conformance_fields  # noqa: E402
 from spmm_denseblock_tpu_torch.bench.timing import cuda_ms  # noqa: E402
-from spmm_denseblock_tpu_torch.convert.csr2bsr import csr_to_bsr  # noqa: E402
+from spmm_denseblock_tpu_torch.convert.csr2bsr import bsr_to_csr, csr_to_bsr  # noqa: E402
 from spmm_denseblock_tpu_torch.formats.bsr import BSR, random_bsr  # noqa: E402
 from spmm_denseblock_tpu_torch.formats.csr import CSR, random_csr  # noqa: E402
+from spmm_denseblock_tpu_torch.formats.windowed import divide_windowed  # noqa: E402
 from spmm_denseblock_tpu_torch.analyze.metrics import (  # noqa: E402
     bandwidth_profile,
     block_metrics,
@@ -386,6 +413,11 @@ from spmm_denseblock_tpu_torch.ops.csr_spmm_pallas import (  # noqa: E402
     csr_strip_width,
 )
 from spmm_denseblock_tpu_torch.ops.plan import Plan, _sum_apply  # noqa: E402
+from spmm_denseblock_tpu_torch.parallel.spmm import (  # noqa: E402
+    layout_tag,
+    plan_strategy,
+    strategy_of,
+)
 from spmm_denseblock_tpu_torch.ops.windowed_spmm import (  # noqa: E402
     _windowed_apply,
     _windowed_int8_apply,
@@ -2564,7 +2596,8 @@ def main_path(ddi, adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str)
         raise AssertionError("quantize_int8: NaN or +-Inf not as JAX quantizes it")
     slices = {"f32": plan, "int8": plan_i8, "csr": plan_csr, "bf16": plan_bf16}
     return (slices, model, xs, train, plans, errs, totals,
-            {"int8": slice_i8_err, "bf16": slice_bf16_err}, reorder_rows, sp, mp)
+            {"int8": slice_i8_err, "bf16": slice_bf16_err}, reorder_rows, sp, mp,
+            graphs)
 
 
 def bound(tag: str, flops: float, nbytes: float) -> tuple:
@@ -2791,6 +2824,544 @@ def library_ms(kind: str, mat, x, want, iters: int, label: str,
     return ms
 
 
+# ---- phase 10: the distributed layer (parallel/) ------------------------------
+
+DIST_RANKS = 4
+DIST_OP = (2e-2, 1024, 128, 512)  # bench.py's op shape: p, block-rows, b, F
+DIST_TIMED = 2              # calls timed per run and rank
+DIST_QUICK = (2e-4, 64)     # the quick bsrmm grid's matrix (b = 128): p, F
+DIST_BAND = (1024, 32, 64)  # (c)'s banded matrices: block-rows, b, F
+DIST_LPT_B = 32             # (c)'s LPT run: arxiv under gorder at this b
+DIST_TOL = {"f32": CHECK_EPS, "high": CHECK_EPS, "bf16": BF16_TOL, "int8": INT8_TOL}
+DIST_OP_RUNS = tuple(
+    (f"op {s} {tag}", s, tag, kw)
+    for s in ("allgather", "ring")
+    for tag, kw in (("f32", {}), ("bf16", {"dtype": torch.bfloat16}),
+                    ("high", {"precision": "high"}),
+                    ("int8", {"dtype": torch.int8, "calibrated": True}),
+                    ("int8", {"dtype": torch.int8})))
+
+
+def _sync() -> None:
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def dist_kernel(tag, dtype: str, precision) -> str:
+    """The counter of the kernel a distributed BSR plan's stripes launch,
+    from its layout tag (parallel.spmm.layout_tag)."""
+    if dtype == "int8":
+        return ("bsr_spmm_int8_sorted" if isinstance(tag, tuple)
+                else "bsr_spmm_int8_rowgroup" if tag else "bsr_spmm_int8_flat")
+    suffix = ("_bf16x3" if precision == "high" and dtype == "f32"
+              else "_bf16" if dtype == "bf16" else "")
+    if isinstance(tag, tuple):
+        return "bsr_spmm_sorted" + suffix
+    if tag:
+        return "bsr_spmm_rowgroup" + suffix
+    if dtype == "bf16" and precision is None:
+        return "bsr_spmm_resident_bf16"  # the router's 2-byte branch: K5
+    return "bsr_spmm_flat" + suffix
+
+
+def dist_expect(plan, dtype: str, precision) -> dict:
+    """Launches per rank and call: one kernel a router call (allgather 1,
+    ring n, halo 2*halo+1), one operand split a K3 call, one quantize_int8
+    a call for int8; none for the xla local impl."""
+    while plan.subplans is not None:  # the LPT wrapper
+        plan = plan.subplans[0]
+    info, strategy, st = plan.statics
+    if st["local_impl"] != "pallas":
+        return {}
+    calls = len(st["buckets"])
+    name = dist_kernel(layout_tag(plan), dtype, precision)
+    out = {name: calls}
+    if name.endswith("_bf16x3"):
+        out["split_bf16"] = calls
+    if dtype == "int8":
+        out["quantize_int8"] = 1
+    return out
+
+
+def dist_measure(label: str, plan, plan_s: float, call, expect: dict,
+                 strategy: str = "allgather", op: str = "all_gather"):
+    """One run of a rank: call() once with the counts set to 0 just
+    before it and read just after (on the card each kernel of expect
+    launched its count and no other launched), then DIST_TIMED calls
+    timed by the host clock with the card synchronized, every rank
+    starting together. op is the collective the plan's exchange runs.
+    Returns call()'s first answer and the run's record."""
+    import torch.distributed as dist
+
+    from spmm_denseblock_tpu_torch.parallel import exchange as exch
+
+    info = exch.dist_info(plan)
+    reset_launches()
+    exch.reset_counts()
+    with torch.no_grad():
+        got = call()
+    _sync()
+    counts = {k: v for k, v in launches().items() if v}
+    moved, trips = exch.COUNTS["bytes_received"], exch.COUNTS["host_round_trips"]
+    if DEV == "cuda" and counts != expect:
+        raise AssertionError(f"{label}: launches {counts}, expected {expect}")
+    dist.barrier()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(DIST_TIMED):
+            call()
+    _sync()
+    ms = (time.perf_counter() - t0) * 1e3 / DIST_TIMED
+    return got, {"name": label, "strategy": strategy,
+                 "transport": exch.transport(info.group, info.device, op),
+                 "plan_s": plan_s, "ms": ms, "launches": counts,
+                 "bytes_received": moved, "host_round_trips": trips,
+                 "model_bytes": None}
+
+
+def dist_run(label: str, build, x, expect, ref=None, gate=None, F=None,
+             itemsize=4, keep: bool = False):
+    """One run of a distributed BSR plan on a rank: the plan built
+    (seconds), measured by dist_measure (expect is a dict or a function
+    of the plan), the stripe against its routers' plain versions
+    (KERNEL_TOL), the gathered C against ref() on rank 0 (gate, relative
+    to max |ref|), and the exchange's bytes beside comms_bytes_per_device.
+    Returns the run's record (and the plan with keep)."""
+    import torch.distributed as dist
+
+    from spmm_denseblock_tpu_torch.ops.plan import run
+    from spmm_denseblock_tpu_torch.parallel import exchange as exch
+    from spmm_denseblock_tpu_torch.parallel.comms import comms_bytes_per_device
+
+    t0 = time.perf_counter()
+    plan = build()
+    _sync()
+    plan_s = time.perf_counter() - t0
+    if callable(expect):
+        expect = expect(plan)
+    info = exch.dist_info(plan)
+    strategy = strategy_of(plan)
+    kind = strategy.split()[-1]
+    c, rec = dist_measure(label, plan, plan_s, lambda: plan(x), expect, strategy,
+                          "send_recv" if kind in ("ring", "halo") else "all_gather")
+    if c.device.type != DEV or not torch.isfinite(c).all():
+        raise AssertionError(f"{label}: the stripe is not finite on {DEV}")
+    plain = run(plan, x, plain=True)
+    err = (c - plain).abs().max().item() if c.numel() else 0.0
+    krel = rel_err(c, plain) if c.numel() else 0.0
+    if krel >= KERNEL_TOL:
+        raise AssertionError(f"{label}: stripe vs plain rel {krel:.3e} >= {KERNEL_TOL}")
+    del plain
+    full = exch.gather_output(plan, c)
+    rel = None
+    if ref is not None and dist.get_rank() == 0:
+        want = torch.as_tensor(ref(), device=full.device)
+        got = full[: want.shape[0]]
+        rel = (got.double() - want.double()).abs().max().item() / max(
+            want.abs().max().item(), 1e-30)
+        if not rel < gate:
+            raise AssertionError(f"{label}: gathered C vs reference rel {rel:.3e} "
+                                 f">= {gate}")
+    del full, c
+    K = info.split.chunk * info.n
+    Fs = info.feature_slice(F if F is not None else x.shape[1])[0]
+    rec.update(model_bytes=comms_bytes_per_device(kind, info.n, K, Fs, itemsize),
+               max_abs_err=err, rel_plain=krel, rel_ref=rel)
+    return (rec, plan) if keep else rec
+
+
+def bsr_scipy(bsr: BSR, x: np.ndarray) -> np.ndarray:
+    """spmm_scipy of a BSR through its CSR form (bsr_to_csr): the sparse
+    product, where spmm_scipy would densify the BSR (68 GB at 1,024
+    block-rows of 128)."""
+    return spmm_scipy(bsr_to_csr(bsr), x)
+
+
+def _first_rows_ref(bsr: BSR, x: np.ndarray, nb: int):
+    """bsr_scipy on the first nb block-rows of bsr."""
+    def ref():
+        keep = bsr.block_rows[:bsr.nnzb] < nb
+        sub = BSR.from_parts(bsr.block_rows[:bsr.nnzb][keep],
+                             bsr.block_cols[:bsr.nnzb][keep],
+                             bsr.blocks[:bsr.nnzb][keep],
+                             (min(nb * bsr.b, bsr.shape[0]), bsr.shape[1]), bsr.b)
+        return bsr_scipy(sub, x)
+    return ref
+
+
+def banded_bsr(n_br: int, b: int, widths, seed: int) -> BSR:
+    """A banded BSR of n_br block-rows: block-row i holds the blocks of
+    columns i-w .. i+w (clipped), w = widths[i * len(widths) // n_br], so
+    the loads fall from the first stripe to the last when widths do."""
+    rows, cols = [], []
+    for i in range(n_br):
+        w = widths[i * len(widths) // n_br]
+        c = np.arange(max(0, i - w), min(n_br, i + w + 1))
+        rows.append(np.full(c.size, i))
+        cols.append(c)
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    blocks = np.random.default_rng(seed).standard_normal(
+        (rows.size, b, b)).astype(np.float32)
+    return BSR.from_parts(rows.astype(np.int32), cols.astype(np.int32), blocks,
+                          (n_br * b, n_br * b), b)
+
+
+def _gcn_dist(plan, params, x, chain: bool):
+    """The GCN request across the ranks: with chain, each rank feeds its
+    output stripe to the next layer (rows move only in the plan's
+    exchange) and the logits are gathered once at the end; else every
+    layer's C is gathered."""
+    from spmm_denseblock_tpu_torch.parallel.exchange import (
+        RowStripe,
+        gather_output,
+        operand_rows,
+    )
+
+    if chain:
+        lo, hi = operand_rows(plan)
+        out = gcn_apply(params, lambda h: plan(RowStripe(h)), x[lo:hi])
+        return gather_output(plan, out)
+    return gcn_apply(params, lambda h: gather_output(plan, plan(h)), x)
+
+
+def _chainable(plan) -> bool:
+    from spmm_denseblock_tpu_torch.parallel.exchange import dist_info
+
+    info = dist_info(plan)
+    return all(np.array_equal(r, np.arange(lo, hi))
+               for r, lo, hi in zip(info.out_rows, info.split.lo, info.split.hi))
+
+
+def dist_rank(rank: int, n: int, cfg: dict) -> dict:
+    """Phase 10 (b)-(f) on one of the world's ranks, all sharing the one
+    GPU over gloo. Returns its runs' records and, on rank 0, the gathered
+    answers the parent holds to the single-card ones."""
+    from spmm_denseblock_tpu_torch.parallel import (
+        dist_bsr_spmm_plan,
+        dist_csr_spmm_plan,
+        dist_hybrid_spmm_plan,
+        dist_sddmm_plan,
+        dist_windowed_spmm_plan,
+        make_mesh,
+        make_mesh_1d,
+    )
+    from spmm_denseblock_tpu_torch.parallel import exchange as exch
+    from spmm_denseblock_tpu_torch.parallel.spmm import gather_edges
+
+    global DEV
+    DEV = dev = cfg["device"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    out = {"runs": [], "answers": {}, "auto": {}, "sections": {}}
+    t_sec = [time.perf_counter()]
+
+    def section(name: str) -> None:  # a section's seconds on this rank
+        now = time.perf_counter()
+        out["sections"][name] = now - t_sec[0]
+        t_sec[0] = now
+    if dev == "cuda":
+        _kernels.load()  # built by the parent
+    mesh = make_mesh_1d(n, device_type=dev)
+    mesh2 = make_mesh((2, n // 2), device_type=dev)
+    p, nbr, b, F = cfg["op"]
+    op = random_bsr(p, nbr, block_size=b, seed=SEED)
+    x_np = seeded((op.shape[1], F), SEED)
+    x = torch.as_tensor(x_np, device=dev)
+    cal = x_np[:4096]
+    ref = _first_rows_ref(op, x_np, BENCH_CHECK_BLOCK_ROWS)
+
+    def bsr_run(label, mat, xx, strategy, tag, gate=None, refn=None, mesh_=mesh, **kw):
+        dtype = ("int8" if kw.get("dtype") is torch.int8 else
+                 "bf16" if kw.get("dtype") is torch.bfloat16 else "f32")
+        prec = kw.get("precision")
+        if kw.pop("calibrated", False):
+            kw["calibration"] = cal
+        kw.setdefault("local_impl", "pallas")
+
+        def build():
+            return dist_bsr_spmm_plan(mat, mesh=mesh_, strategy=strategy, device=dev,
+                                      **kw)
+
+        rec = dist_run(label, build, xx, lambda p: dist_expect(p, dtype, prec), refn,
+                       gate or DIST_TOL[tag],
+                       itemsize={"f32": 4, "bf16": 2, "int8": 1}[dtype])
+        out["runs"].append(rec)
+        return rec
+
+    # (b) the op shape over the four ranks: every dtype and both strategies
+    for label, strategy, tag, kw in DIST_OP_RUNS:
+        if kw.get("calibrated"):
+            label += " calibrated"
+        bsr_run(label, op, x, strategy, tag, refn=ref, **dict(kw))
+        torch.cuda.empty_cache()
+    bsr_run("op allgather f32 xla", op, x, "allgather", "f32", refn=ref,
+            local_impl="xla")
+    bsr_run("op allgather f32 (2, 2) mesh, feature axis", op, x, "allgather", "f32",
+            refn=ref, mesh_=mesh2, feature_axis="col")
+    del op
+    torch.cuda.empty_cache()
+    section("(b) op shape")
+    qp, qF = cfg["quick"]
+    quick = random_bsr(qp, nbr, block_size=b, seed=SEED)
+    xq_np = seeded((quick.shape[1], qF), SEED + 1)
+    xq = torch.as_tensor(xq_np, device=dev)
+    for tag, kw in (("f32", {}), ("bf16", {"dtype": torch.bfloat16}),
+                    ("int8", {"dtype": torch.int8})):
+        bsr_run(f"quick allgather {tag} ({quick.nnzb} blocks)", quick, xq, "allgather",
+                tag, refn=_first_rows_ref(quick, xq_np, nbr), **kw)
+    section("(b) quick grid")
+    # (c) halo and balance
+    n_br, bb, bF = cfg["band"]
+    band = banded_bsr(n_br, bb, (1,), SEED + 2)
+    xb_np = seeded((band.shape[1], bF), SEED + 3)
+    xb = torch.as_tensor(xb_np, device=dev)
+    graded = banded_bsr(n_br, bb, (3, 1, 0), SEED + 4)
+    for label, mat, kw in (("band halo", band, {"strategy": "halo"}),
+                           ("graded band halo contiguous", graded,
+                            {"strategy": "halo", "balance": "contiguous"})):
+        bsr_run(label, mat, xb, kw.pop("strategy"), "f32",
+                refn=lambda m=mat: bsr_scipy(m, xb_np), **kw)
+        out["auto"][label] = plan_strategy(mat, n)
+    arxiv = {k: CSR(*v) for k, v in cfg["arxiv"].items()}
+    adj_g = sym_norm_adjacency(arxiv["gorder"])
+    lpt = csr_to_bsr(adj_g, cfg["lpt_b"])
+    xa_np = seeded((adj_g.n_rows, REORDER_F), SEED + 5)
+    xa = torch.as_tensor(xa_np, device=dev)
+    bsr_run(f"arxiv gorder b={cfg['lpt_b']} allgather balance=True", lpt, xa,
+            "allgather", "f32", refn=lambda: spmm_scipy(adj_g, xa_np), balance=True)
+    out["auto"]["arxiv gorder LPT"] = plan_strategy(lpt, n)
+    del lpt
+    torch.cuda.empty_cache()
+    section("(c) halo and balance")
+    # (d) the ddi GCN request, each rank's output stripe fed to the next layer
+    ddi = CSR(*cfg["ddi"])
+    dparams = [{k: torch.as_tensor(v, device=dev) for k, v in q.items()}
+               for q in cfg["ddi_params"]]
+    xd = torch.as_tensor(cfg["ddi_x"], device=dev)
+    dbsr = csr_to_bsr(ddi, 128)
+    for tag, kw, name in (("f32", {}, "bsr_spmm_sorted"),
+                          ("int8", {"dtype": torch.int8}, "bsr_spmm_int8_sorted")):
+        t0 = time.perf_counter()
+        plan = dist_bsr_spmm_plan(dbsr, mesh=mesh, local_impl="pallas", balance=False,
+                                  device=dev, **kw)
+        plan_s = time.perf_counter() - t0
+        if not _chainable(plan):
+            raise AssertionError("ddi: the plan's output stripes are not its operand's")
+        n_spmm = len(dparams)
+        expect = {name: n_spmm, **({"quantize_int8": n_spmm} if tag == "int8" else {})}
+        logits, rec = dist_measure(f"ddi GCN {tag} request", plan, plan_s,
+                                   lambda: _gcn_dist(plan, dparams, xd, True), expect,
+                                   strategy_of(plan))
+        out["runs"].append({**rec, "tag": str(layout_tag(plan))})
+        if rank == 0:
+            out["answers"][f"ddi {tag}"] = logits.cpu().numpy()
+        del plan
+    section("(d) ddi GCN")
+    # (e) the arxiv GCN request: hybrid under gorder, ELL under original
+    # (torch ops: no kernel launches)
+    aparams = [{k: torch.as_tensor(v, device=dev) for k, v in q.items()}
+               for q in cfg["arxiv_params"]]
+    xr = torch.as_tensor(cfg["arxiv_x"], device=dev)
+    adj_o = sym_norm_adjacency(arxiv["original"])
+    for label, build in (
+            ("arxiv GCN hybrid gorder", lambda: dist_hybrid_spmm_plan(
+                cfg["arxiv_hybrid"], mesh=mesh, device=dev)),
+            ("arxiv GCN csr_ell original", lambda: dist_csr_spmm_plan(
+                adj_o, mesh=mesh, device=dev))):
+        t0 = time.perf_counter()
+        plan = build()
+        plan_s = time.perf_counter() - t0
+        chain = _chainable(plan)
+        logits, rec = dist_measure(
+            label + (" (stripes chained)" if chain else " (C gathered each layer)"),
+            plan, plan_s, lambda: _gcn_dist(plan, aparams, xr, chain), {})
+        out["runs"].append(rec)
+        if rank == 0:
+            out["answers"][label] = logits.cpu().numpy()
+        del plan
+    section("(e) arxiv GCN")
+    # (f) the windowed tier and SDDMM on arxiv (gorder), each call timed
+    # without the gather of its answer
+    xw = torch.as_tensor(cfg["arxiv_xw"], device=dev)
+    t0 = time.perf_counter()
+    wplan = dist_windowed_spmm_plan(divide_windowed(adj_g, tile_rows=256, window=1024),
+                                    mesh=mesh, device=dev)
+    cw, rec = dist_measure("arxiv windowed gorder", wplan, time.perf_counter() - t0,
+                           lambda: wplan(xw), {})
+    out["runs"].append(rec)
+    with torch.no_grad():
+        cw = exch.gather_output(wplan, cw)
+    if rank == 0:
+        out["answers"]["windowed"] = cw.cpu().numpy()
+    del wplan, cw
+    t0 = time.perf_counter()
+    splan = dist_sddmm_plan(adj_g, mesh=mesh, device=dev)
+    xs_ = torch.as_tensor(cfg["sddmm_x"], device=dev)
+    e, rec = dist_measure("arxiv sddmm gorder", splan, time.perf_counter() - t0,
+                          lambda: splan(xs_, xs_), {})
+    out["runs"].append(rec)
+    with torch.no_grad():
+        e = gather_edges(splan, e)
+    if rank == 0:
+        out["answers"]["sddmm"] = e.cpu().numpy()
+    section("(f) windowed and SDDMM")
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def dist_nccl_one_rank(op_bsr: BSR, x_op, k2_op, card_line: str) -> list:
+    """Phase 10 (a): one rank over NCCL on cuda:0, in this process, at the
+    op shape: allgather and ring with f32 K2 stripes, each against its
+    plain version and spmm_scipy on the first block-rows, timed beside the
+    single-card K2 plan (the distributed layer's own cost)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from spmm_denseblock_tpu_torch.parallel import dist_bsr_spmm_plan, make_mesh_1d
+
+    store = tempfile.mkdtemp(prefix="sdb_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            world_size=1, rank=0)
+    recs = []
+    try:
+        mesh = make_mesh_1d(1)
+        x_np = x_op.cpu().numpy()
+        ref = _first_rows_ref(op_bsr, x_np, BENCH_CHECK_BLOCK_ROWS)
+        for strategy in ("allgather", "ring"):
+            build = functools.partial(dist_bsr_spmm_plan, op_bsr, mesh=mesh,
+                                      strategy=strategy, local_impl="pallas")
+            rec, plan = dist_run(f"op {strategy} f32, 1 rank over NCCL", build, x_op,
+                                 {"bsr_spmm_sorted": 1}, ref, CHECK_EPS, keep=True)
+            k1 = cuda_ms(lambda: k2_op(x_op), iters=10)
+            d1 = cuda_ms(lambda: plan(x_op), iters=10)
+            d2 = cuda_ms(lambda: plan(x_op), iters=10)
+            k2 = cuda_ms(lambda: k2_op(x_op), iters=10)
+            rec.update(cuda_ms=(d1 + d2) / 2, k2_ms=(k1 + k2) / 2, runs=[k1, d1, d2, k2])
+            recs.append(rec)
+            log(f"  dist (a) {rec['name']}: transport {rec['transport']}, plan "
+                f"{rec['plan_s']:.2f} s, {rec['cuda_ms']:.3f} ms a call beside "
+                f"single-card K2 {rec['k2_ms']:.3f} ms (order K2, dist, dist, K2: "
+                f"{k1:.3f}, {d1:.3f}, {d2:.3f}, {k2:.3f}); the layer's own cost "
+                f"{rec['cuda_ms'] - rec['k2_ms']:+.3f} ms; launches {rec['launches']}; "
+                f"max |kernel - plain| {rec['max_abs_err']:.3e}; first "
+                f"{BENCH_CHECK_BLOCK_ROWS} block-rows vs spmm_scipy rel "
+                f"{rec['rel_ref']:.3e} [{card_line}]")
+            del plan
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return recs
+
+
+def dist_phase(op_bsr: BSR, x_op, k2_op, ddi_adj: CSR, ddi_model, ddi_plans: dict,
+               graphs: dict, card_line: str) -> dict:
+    """Phase 10: the distributed layer. (a) one NCCL rank in this process;
+    (b)-(f) four gloo ranks spawned on the one GPU (parallel.world),
+    every rank's runs checked in the rank (launches, stripe vs plain,
+    gathered C vs spmm_scipy), the GCN, windowed and SDDMM answers here
+    against the single-card ones on the same inputs. Returns the dist
+    JSON line's object."""
+    from spmm_denseblock_tpu_torch.ops.sddmm import sddmm
+    from spmm_denseblock_tpu_torch.ops.windowed_spmm import windowed_spmm_plan
+    from spmm_denseblock_tpu_torch.parallel.world import run_world
+
+    t_phase = time.perf_counter()
+    log(f"[dist] (a) one rank over NCCL [{card_line}]")
+    a = dist_nccl_one_rank(op_bsr, x_op, k2_op, card_line)
+    gen = torch.Generator().manual_seed(SEED + 20)
+    amodel = GCN(SERVE_DIMS, generator=gen)
+    arxiv_np = {k: (g.indptr, g.indices, g.data, g.shape)
+                for k, g in graphs.items() if k in ("gorder", "original")}
+    adj_g = sym_norm_adjacency(graphs["gorder"])
+    hyb = _explicit_hybrid(adj_g, "hybrid", 128, {})
+    cfg = {
+        "device": DEV,
+        "op": DIST_OP,
+        "quick": DIST_QUICK,
+        "lpt_b": DIST_LPT_B,
+        "band": DIST_BAND,
+        "arxiv": arxiv_np,
+        "ddi": (ddi_adj.indptr, ddi_adj.indices, ddi_adj.data, ddi_adj.shape),
+        "ddi_params": [{k: v.detach().cpu().numpy() for k, v in q.items()}
+                       for q in ddi_model.params()],
+        "ddi_x": seeded((ddi_adj.n_rows, ddi_model.dims[0]), SEED + 100),
+        "arxiv_params": [{k: v.detach().cpu().numpy() for k, v in q.items()}
+                         for q in amodel.params()],
+        "arxiv_x": seeded((graphs["gorder"].n_rows, SERVE_DIMS[0]), SEED + 200),
+        "arxiv_xw": seeded((graphs["gorder"].n_rows, REORDER_F), SEED + 6),
+        "sddmm_x": seeded((graphs["gorder"].n_rows, SDDMM_ARXIV_D), SEED + 7),
+        "arxiv_hybrid": hyb,
+    }
+    log(f"[dist] (b)-(f) {DIST_RANKS} ranks over gloo sharing the one GPU "
+        f"(spawned; kernels built once, here) [{card_line}]")
+    t0 = time.perf_counter()
+    ranks = run_world(dist_rank, DIST_RANKS, backend="gloo", args=(cfg,),
+                      timeout_s=900.0, threads=2)
+    world_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    for i, rec in enumerate(r0["runs"]):
+        per_rank = [r["runs"][i]["ms"] for r in ranks]
+        moved = [r["runs"][i]["bytes_received"] for r in ranks]
+        model = ("" if rec["model_bytes"] is None else
+                 f", comms model {rec['model_bytes']:.0f} bytes a rank")
+        checks = ("" if "rel_plain" not in rec else
+                  f"; stripe vs plain max |err| {max(r['runs'][i]['max_abs_err'] for r in ranks):.3e}"
+                  + ("" if rec["rel_ref"] is None else
+                     f", gathered C vs spmm_scipy rel {rec['rel_ref']:.3e}"))
+        log(f"  dist {rec['name']}: {rec['strategy']}, transport {rec['transport']}, "
+            f"plan {rec['plan_s']:.2f} s, ms a call per rank "
+            f"{', '.join(f'{m:.2f}' for m in per_rank)} (4 ranks share one card: "
+            f"not scaling numbers), exchange received {moved[0]} bytes a call "
+            f"(rank 0){model}, {rec['host_round_trips']} host round trips, launches a rank {rec['launches']}{checks} [{card_line}]")
+    for label, strategy in r0["auto"].items():
+        log(f"  dist strategy='auto' on {label}: {strategy}")
+    # the answers against the single-card ones on the same inputs
+    ans = r0["answers"]
+    with torch.no_grad():
+        xd = torch.as_tensor(cfg["ddi_x"], device=DEV)
+        checks = {}
+        for tag, gate in (("f32", CHECK_EPS), ("int8", INT8_TOL)):
+            want = ddi_model(ddi_plans[tag], xd)
+            checks[f"ddi {tag}"] = (rel_to(torch.as_tensor(ans[f"ddi {tag}"], device=DEV),
+                                           want), gate)
+        amodel = amodel.to(DEV)
+        xr = torch.as_tensor(cfg["arxiv_x"], device=DEV)
+        for label, mat, impl in (("arxiv GCN hybrid gorder", hyb, "hybrid"),
+                                 ("arxiv GCN csr_ell original",
+                                  sym_norm_adjacency(graphs["original"]), "csr_ell")):
+            want = amodel(spmm_plan(mat, impl=impl, grad=False, device=DEV), xr)
+            checks[label] = (rel_to(torch.as_tensor(ans[label], device=DEV), want),
+                             CHECK_EPS)
+        xw = torch.as_tensor(cfg["arxiv_xw"], device=DEV)
+        want = windowed_spmm_plan(divide_windowed(adj_g, tile_rows=256, window=1024),
+                                  grad=False, device=DEV)(xw)
+        checks["windowed"] = (rel_to(torch.as_tensor(ans["windowed"], device=DEV), want),
+                              CHECK_EPS)
+        xs_ = torch.as_tensor(cfg["sddmm_x"], device=DEV)
+        want = sddmm(adj_g, xs_, xs_, device=DEV)
+        checks["sddmm"] = (rel_to(torch.as_tensor(ans["sddmm"], device=DEV), want),
+                           CHECK_EPS)
+    for label, (rel, gate) in checks.items():
+        log(f"  dist {label}: gathered answer vs the single-card one rel {rel:.3e} "
+            f"(< {gate})")
+        if not rel < gate:
+            raise AssertionError(f"dist {label}: rel {rel:.3e} >= {gate}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[dist] phase in {seconds:.1f} s (the world {world_s:.1f} s, its ranks "
+        f"{', '.join(f'{r['seconds']:.1f}' for r in ranks)} s of work; rank 0 by "
+        f"part: {', '.join(f'{k} {v:.1f} s' for k, v in r0['sections'].items())})")
+    runs = []
+    for i, rec in enumerate(r0["runs"]):
+        runs.append({**{k: v for k, v in rec.items() if k != "max_abs_err"},
+                     "ms_per_rank": [r["runs"][i]["ms"] for r in ranks],
+                     "max_abs_err": max(r["runs"][i].get("max_abs_err", 0.0) for r in ranks)})
+    return {"ranks": DIST_RANKS, "nccl_one_rank": a, "runs": runs,
+            "sections": r0["sections"],
+            "answers_rel": {k: v[0] for k, v in checks.items()}, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2826,8 +3397,8 @@ def main() -> int:
     log(f"[setup] random_csr(2e-3, 2^17) in {time.perf_counter() - t0:.1f} s")
     dims = [256, 256, 256]
     (slices, model, xs, train, plans, errs, main_launches, slice_errs,
-     reorder_rows, sp, mp) = main_path(ddi, adj, dims, op_bsr, op_csr, x_op,
-                                       dense[:4096], card_line)
+     reorder_rows, sp, mp, graphs) = main_path(ddi, adj, dims, op_bsr, op_csr, x_op,
+                                               dense[:4096], card_line)
 
     # ---- timing (after the counts were read) ----------------------------
     log(f"[timing] card: {card_line}")
@@ -3043,6 +3614,13 @@ def main() -> int:
                 f"{busy:.1%} of the span, {total:.4f} ms of device time a "
                 f"request: {top} [{card_line}]")
 
+    # phase 10, the distributed layer, after every other timing: its ranks
+    # share the card, and their counts are read in each rank
+    torch.cuda.empty_cache()
+    dist_line = dist_phase(op_bsr, x_op, plans[("f32", "sorted")], adj, model,
+                           {"f32": slices["f32"], "int8": slices["int8"]}, graphs,
+                           card_line)
+
     # each kernel symbol's entry: the op-shape instance that runs it (K1,
     # K2, K4 and K5 in f32 and bf16, K3 "high" in its three instances,
     # K6-K9 int8 ring alone, with the whole call beside it, K10 at the
@@ -3107,6 +3685,7 @@ def main() -> int:
     for tag, err in slice_errs.items():
         log(f"[slice] {tag} SpMMs' largest max |kernel - plain|: {err:.3e}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"dist": dist_line}))
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -947,6 +947,67 @@ def check_rowgroup_geometry(step_groups, group_ptr, slot_cols, blocks,
         )
 
 
+def route_pallas_spmm(step_rows, slot_cols, blocks, dense, n_block_rows: int,
+                      n_rows: int, walk: dict, group: int = 1,
+                      precision_name: Optional[str] = None, row_group=0,
+                      plain: bool = False) -> torch.Tensor:
+    """The kernel router of a distributed plan's stripe (twin of the JAX
+    package's ``route_pallas_spmm``): an already packed bucket layout
+    (``parallel.shard.pack_buckets_pallas``, trimmed to its real steps)
+    and the local dense operand (K_local, F) -> C (n_rows, F) f32.
+
+    row_group picks the entry as the JAX router does: ("sorted", R, gh,
+    W), the depth-sorted layout whose step_rows carry [win_ids (T,) |
+    lane positions (T*R,)] concatenated, runs K2; a plain R > 0, the
+    consecutive row groups, runs K4; 0, the flat layout, runs K5 (the
+    resident entry) for a 2-byte operand under precision_name None, as
+    the JAX router does where its VMEM fit holds, and K1 otherwise.
+    precision_name "high" on an f32 operand runs K3's instance of the
+    chosen kernel, and then `blocks` holds the bucket's bf16 planes
+    (``split_planes``), as a single-card "high" plan does; on a bf16
+    operand it is the exact bf16 product. The TPU's VMEM fits are not
+    carried over: every layout's kernel runs at any operand width.
+
+    walk: the port's extras of the bucket (pack_buckets_pallas): "ptr"
+    (the step or group pointer over the real steps), "lane_order",
+    "depth" and, for the sorted layout, "lane_valid". plain=True runs
+    the kernels' plain versions on any device; CPU tensors run them
+    anyway, CUDA tensors launch the kernel or raise."""
+    b = blocks.shape[1]
+    bf16x3 = precision_name == "high" and dense.dtype == torch.float32
+    order = {"lane_order": walk["lane_order"], "depth": walk["depth"]}
+    if isinstance(row_group, tuple) and row_group and row_group[0] == "sorted":
+        _, R, gh, W = row_group
+        T = step_rows.shape[0] // (1 + R)
+        args = (step_rows[:T], step_rows[T:], slot_cols, blocks, dense,
+                walk["lane_valid"], walk["ptr"], n_block_rows, R, gh, W)
+        out = (spmm_sorted_plain(*args, bf16x3=bf16x3) if plain
+               else spmm_sorted(*args, bf16x3=bf16x3, **order))
+    elif row_group:
+        if plain:
+            out = spmm_rowgroup_plain(step_rows, slot_cols, blocks, dense,
+                                      n_block_rows, row_group, group)
+        else:
+            out = spmm_rowgroup(step_rows, walk["ptr"], slot_cols, blocks, dense,
+                                n_block_rows, row_group, group, **order)
+    elif (dense.shape[0] % b == 0 and dense.dtype.itemsize == 2
+          and precision_name is None):
+        dense3 = dense.reshape(-1, b, dense.shape[1])
+        if plain:
+            out = spmm_resident_plain(step_rows, slot_cols, blocks, dense3,
+                                      n_block_rows, group)
+        else:
+            out = spmm_resident(step_rows, walk["ptr"], slot_cols, blocks, dense3,
+                                group, **order)
+    elif plain:
+        out = spmm_flat_plain(step_rows, slot_cols, blocks, dense, n_block_rows,
+                              group, bf16x3)
+    else:
+        out = spmm_flat(step_rows, walk["ptr"], slot_cols, blocks, dense, group,
+                        bf16x3, **order)
+    return out[:n_rows]
+
+
 # -- the plan ---------------------------------------------------------------
 
 

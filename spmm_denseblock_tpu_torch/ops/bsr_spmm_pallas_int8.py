@@ -411,6 +411,50 @@ def spmm_int8_rowgroup(step_groups, group_ptr, slot_cols, qblocks, scales,
     return out
 
 
+def route_pallas_int8_spmm(step_rows, slot_cols, qblocks, scales, qdense,
+                           col_scale, n_block_rows: int, n_rows: int, walk: dict,
+                           group: int = 1, row_group=0,
+                           plain: bool = False) -> torch.Tensor:
+    """int8 twin of ``ops.bsr_spmm_pallas.route_pallas_spmm`` (the JAX
+    package's ``route_pallas_int8_spmm``): a packed bucket layout, its
+    int8 blocks and scales, the local int8 operand qdense (K_local, F)
+    and its column scales col_scale (F,), fused into the kernel's store
+    -> C (n_rows, F) f32.
+
+    row_group ("sorted", R, gh, W) or ("sorted_gs", R, gh, W) runs K7,
+    with one scale per slot or one per lane-step (the group-scale
+    quantization); a plain R > 0 runs K8 on the consecutive row groups;
+    0 runs K6, the flat gather (single-row residency is a measured
+    negative for int8 in the JAX package, so the router never picks K9).
+    walk and plain as for route_pallas_spmm."""
+    order = {"lane_order": walk["lane_order"], "depth": walk["depth"]}
+    if (isinstance(row_group, tuple) and row_group
+            and row_group[0] in ("sorted", "sorted_gs")):
+        tag, R, gh, W = row_group
+        T = step_rows.shape[0] // (1 + R)
+        args = (step_rows[:T], step_rows[T:], slot_cols, qblocks, scales,
+                qdense, col_scale, walk["lane_valid"], walk["ptr"],
+                n_block_rows, R, gh, W, tag == "sorted_gs")
+        out = (spmm_int8_sorted_plain(*args) if plain
+               else spmm_int8_sorted(*args, **order))
+    elif row_group:
+        if plain:
+            out = spmm_int8_rowgroup_plain(step_rows, slot_cols, qblocks, scales,
+                                           qdense, col_scale, n_block_rows,
+                                           row_group, group)
+        else:
+            out = spmm_int8_rowgroup(step_rows, walk["ptr"], slot_cols, qblocks,
+                                     scales, qdense, col_scale, n_block_rows,
+                                     row_group, group, **order)
+    elif plain:
+        out = spmm_int8_flat_plain(step_rows, slot_cols, qblocks, scales, qdense,
+                                   col_scale, n_block_rows, group)
+    else:
+        out = spmm_int8_flat(step_rows, walk["ptr"], slot_cols, qblocks, scales,
+                             qdense, col_scale, group, **order)
+    return out[:n_rows]
+
+
 # -- the operand's quantization ---------------------------------------------
 
 

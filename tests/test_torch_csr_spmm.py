@@ -31,6 +31,7 @@ import spmm_denseblock_tpu_torch.formats.bsr as t_bsr
 import spmm_denseblock_tpu_torch.formats.csr as t_csr
 import spmm_denseblock_tpu_torch.models as t_models
 import spmm_denseblock_tpu_torch.ops as t_ops
+import spmm_denseblock_tpu_torch.parallel as t_parallel
 import spmm_denseblock_tpu_torch.utils as t_utils
 from spmm_denseblock_tpu.models.train import make_train_step as j_make_train_step
 from spmm_denseblock_tpu_torch.ops import _kernels, assert_allclose, spmm_scipy
@@ -387,6 +388,25 @@ def test_gcn_forward_and_adam_steps_match_jax():
 # -- the card is the default device ------------------------------------------
 
 
+def _in_world_of_1(build):
+    """build(**kw) inside a gloo world of one rank (a file store in the
+    working directory), torn down after."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    def run(**kw):
+        store = tempfile.mkdtemp(dir=".")
+        dist.init_process_group("gloo", init_method=f"file://{store}/store",
+                                world_size=1, rank=0)
+        try:
+            return build(**kw)
+        finally:
+            dist.destroy_process_group()
+
+    return run
+
+
 def _entry_points():
     csr = t_csr.random_csr(0.5, 40, 40, seed=0)  # auto: bsr_pallas
     bsr = t_bsr.random_bsr(0.3, 4, 4, block_size=8, seed=0)
@@ -411,6 +431,10 @@ def _entry_points():
         "bsr_spmm_int8_plan": lambda **kw: bsr_spmm_int8_plan(bsr, **kw),
         "bsr_spmm_xla_plan": lambda **kw: bsr_spmm_xla_plan(bsr, **kw),
         "entry": lambda **kw: entry(**kw),
+        "dist_bsr_spmm_plan": _in_world_of_1(
+            lambda **kw: t_parallel.dist_bsr_spmm_plan(bsr, **kw)),
+        "dist_csr_spmm_plan": _in_world_of_1(
+            lambda **kw: t_parallel.dist_csr_spmm_plan(csr, **kw)),
         "dense_block_gemm": lambda **kw: t_ops.dense_block_gemm(
             bsr.block_rows, bsr.block_cols, bsr.blocks,
             np.ones((4, 8, 3), np.float32), 4, **kw),
