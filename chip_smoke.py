@@ -279,6 +279,38 @@ Phases:
               share one card: not scaling numbers) and the exchange's
               bytes beside comms_bytes_per_device, then a {"dist": ...}
               JSON line before the card line
+  11. train-dist distributed training (parallel/train.py, the xla local
+              product: no kernel launches), after phase 10: (a) one rank
+              over NCCL in this process, the ddi GCN [256, 256, 256]
+              through make_dist_train_step (allgather) and the
+              single-card step on the bsr_xla plan from the same weights,
+              both with torch's deterministic algorithms: 3 Adam steps
+              each, losses and parameters within 1e-4, step 0's gradients
+              within 1e-4 of float64 at the run's ReLU pattern; phase 5's
+              f32 step (K2) from the same weights beside it, its distance
+              printed and its time beside the dist step's; (b) four ranks
+              over gloo sharing the card: the ddi GCN on (4, 1)
+              allgather and ring and on
+              (2, 2) with the feature axis, SAGE (mean_adjacency) and GIN
+              (sym_norm_adjacency) at its widths on (2, 2), OGB's arxiv
+              GCN [128, 256, 256, 40] on the serve phase's gorder hybrid on
+              (4, 1): 3 steps each from weights made here, the loss equal
+              on every rank and falling, the gathered step-0 gradients
+              within 1e-4 of float64 (the sparse A on the host) at the
+              run's ReLU pattern (each ReLU input's sign that differs from
+              float64's within 2^-16 of max |z64| of 0), ms a step per
+              rank and the bytes received forward, backward and in the
+              gradient sums beside comms_bytes_per_device's reckoning of
+              the SpMM exchanges, no kernel launched; (c) the same world
+              saves the (2, 2) GCN after step 2 (models/checkpoint_dist),
+              restores into fresh templates and takes step 3 bit-equal to
+              the uninterrupted one (torch's deterministic algorithms),
+              bytes written per rank beside its shards, seconds per save
+              and restore; (d) dryrun_multichip(4), whole; (e)
+              bench_train_scaling and bench_scaling over worlds of 1, 2
+              and 4 ranks at JAX's default shapes; (f) the dist_train
+              example, 2 epochs, then resumed from its checkpoint. A
+              {"train_dist": ...} JSON line follows the dist line
 
 The main path is phases 4 to 8c, each of their runs (f32 slice, int8
 slice, CSR slice, bf16 slice, f32 training, "high" training, CSR
@@ -3362,6 +3394,496 @@ def dist_phase(op_bsr: BSR, x_op, k2_op, ddi_adj: CSR, ddi_model, ddi_plans: dic
             "answers_rel": {k: v[0] for k, v in checks.items()}, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11, train-dist: the distributed training step (parallel/train.py),
+# sharded checkpoints, dryrun_multichip, the scaling benches, the example
+# ---------------------------------------------------------------------------
+
+TD_STEPS = 3                    # Adam steps a case
+TD_SCALING = [1, 2, 4]          # (e)'s worlds
+TD_DRYRUN_BLOCK_ROWS = 768      # (d)'s realistic pass, JAX's
+TD_ARXIV_DIMS = SERVE_DIMS      # OGB's arxiv GCN
+TD_MATCH_TOL = 1e-4             # (a): dist vs single-card losses and parameters
+TD_SCALING_KW = {}              # (e)'s shapes: JAX's defaults
+TD_ONE_RANK_BACKEND = "nccl"    # (a)'s process group
+
+
+class _Sparse64(torch.autograd.Function):
+    """A @ h in float64 on the host (scipy); its backward Aᵀ @ g."""
+
+    @staticmethod
+    def forward(ctx, h, a, at):
+        ctx.at = at
+        return torch.from_numpy(a @ h.detach().numpy())
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.from_numpy(ctx.at @ g.numpy()), None, None
+
+
+class ReluPattern(torch.overrides.TorchFunctionMode):
+    """Records the inputs of torch.relu in call order; given masks (one a
+    call, in that order), makes each call its input times the mask."""
+
+    def __init__(self, masks=None):
+        super().__init__()
+        self.masks, self.inputs = masks, []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is torch.relu:
+            z = args[0]
+            if self.masks is not None:
+                m = torch.as_tensor(self.masks[len(self.inputs)], dtype=z.dtype)
+                self.inputs.append(z.detach())
+                return z * m
+            self.inputs.append(z.detach().clone())
+        return func(*args, **(kwargs or {}))
+
+
+def reference64(model: str, csr: CSR, params, x, y, mask, masks):
+    """MODELS[model] in float64 on the host through the sparse A, as
+    train_reference does for phase 5: (loss, the step-0 gradients in leaf
+    order with every ReLU at `masks`, the kernel run's activation
+    pattern, then how that pattern compares with float64's own: the
+    count of signs that differ and the largest |z64| among them, relative
+    to max |z64|)."""
+    from spmm_denseblock_tpu_torch.models import MODELS
+
+    a = csr.to_scipy().astype(np.float64).tocsr()
+    at = a.T.tocsr()
+    out = []
+    for fixed in (masks, None):
+        p64 = tree_map(lambda t: torch.tensor(np.asarray(t), dtype=torch.float64,
+                                              requires_grad=True), params)
+        with ReluPattern(fixed) as rp:
+            logits = MODELS[model][1](p64, lambda h: _Sparse64.apply(h, a, at),
+                                      torch.as_tensor(x).double())
+        loss = masked_cross_entropy(logits, torch.as_tensor(y),
+                                    torch.as_tensor(mask).double())
+        loss.backward()
+        out.append((loss.item(), [t.grad.numpy() for t in tree_leaves(p64)], rp.inputs))
+    (loss, grads, _), (_, _, z64s) = out
+    flips, flipped = 0, 0.0
+    for m, z64 in zip(masks, z64s):
+        f = (z64.numpy() > 0) != m
+        flips += int(f.sum())
+        if f.any():
+            flipped = max(flipped, float(np.abs(z64.numpy()[f]).max() / z64.abs().max()))
+    return loss, grads, (flips, flipped)
+
+
+def leaf_rel(got: list, want: list) -> float:
+    """The largest max |err| / max |ref| over the leaves."""
+    return max(float(np.abs(np.asarray(g, np.float64) - w).max()
+                     / max(np.abs(w).max(), 1e-30)) for g, w in zip(got, want))
+
+
+def whole_numpy(tree) -> list:
+    return [t.detach().cpu().numpy() for t in tree_leaves(tree)]
+
+
+def train_dist_one_rank(adj: CSR, dims, train_f32, card_line: str) -> dict:
+    """Phase 11 (a): one NCCL rank in this process. The ddi GCN through
+    make_dist_train_step (allgather, n = 1, the xla local product) and
+    the single-card make_train_step on the bsr_xla plan (the same
+    arithmetic: JAX's test_dist_matches_single_chip holds its step to
+    that tier) from the same weights, both with torch's deterministic
+    algorithms: 3 Adam steps each, losses and parameters within
+    TD_MATCH_TOL; step 0's gradients within GRAD_TOL of float64 at the
+    dist run's ReLU pattern; no kernel launched by the dist steps. Then
+    the same 3 steps of phase 5's f32 step (K2 both ways) from the same
+    weights, its distance printed (Adam turns rounding-level gradient
+    differences into parameter differences of about 3e-4 after 3 steps:
+    it is no gate), and the dist step timed beside it (order phase 5,
+    dist, dist, phase 5)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from spmm_denseblock_tpu_torch.parallel import make_mesh_1d
+    from spmm_denseblock_tpu_torch.parallel.train import make_dist_train_step
+
+    t_plan, _, _, _, batch = train_f32
+    n = adj.n_rows
+    rng = np.random.default_rng(SEED)
+    x = rng.standard_normal((n, dims[0])).astype(np.float32)
+    y = rng.integers(0, dims[-1], size=n).astype(np.int64)
+    mask = (rng.random(n) < 0.6).astype(np.float32)
+    whole = [{k: v.numpy() for k, v in p.items()}
+             for p in init_gcn(dims, generator=torch.Generator().manual_seed(SEED + 30))]
+
+    def single(plan):
+        params = [{k: torch.tensor(v, device=DEV) for k, v in p.items()} for p in whole]
+        step, init = make_train_step(gcn_apply, plan,
+                                     functools.partial(torch.optim.Adam, lr=1e-2))
+        opt = init(params)
+        losses = []
+        for _ in range(TD_STEPS):
+            params, opt, m = step(params, opt, *batch)
+            losses.append(m["loss"].item())
+        return losses, params, lambda: step(params, opt, *batch)
+
+    store = tempfile.mkdtemp(prefix="sdb_nccl_")
+    dist.init_process_group(TD_ONE_RANK_BACKEND, init_method=f"file://{store}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh_1d(1, device_type=DEV)
+        params, opt, step = make_dist_train_step(adj, mesh, dims, block_size=128,
+                                                 params=whole, device=DEV)
+        with torch.no_grad():
+            zs = preactivations(params, step.spmm, batch[0])
+        ref = train_reference(adj, params, x, y, mask, zs)
+        with warnings.catch_warnings():
+            # cuBLAS's note that it is deterministic only with a workspace
+            # setting made before its first use; the index ops are
+            warnings.simplefilter("ignore", UserWarning)
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                reset_launches()
+                losses = []
+                for i in range(TD_STEPS):
+                    params, opt, m = step(params, opt, *batch)
+                    losses.append(m["loss"].item())
+                    if i == 0:
+                        check_step0("dist n=1", params, ref, losses[0], FLIP_CAP[None])
+                _sync()
+                counts = {k: v for k, v in launches().items() if v}
+                x_losses, x_params, _ = single(spmm_plan(adj, impl="bsr_xla",
+                                                         block_size=128, device=DEV))
+            finally:
+                torch.use_deterministic_algorithms(False)
+        if DEV == "cuda" and counts:
+            raise AssertionError(f"train-dist (a): the xla steps launched {counts}")
+        k_losses, k_params, k_step = single(t_plan)
+        rel = {}
+        for key, (ls, ps) in (("bsr_xla", (x_losses, x_params)),
+                              ("K2", (k_losses, k_params))):
+            rel[key] = (max(abs(a - b) / abs(b) for a, b in zip(losses, ls)),
+                        leaf_rel(whole_numpy(params), whole_numpy(ps)))
+        log(f"  train-dist (a) losses {' '.join(f'{v:.6f}' for v in losses)}; single "
+            f"card bsr_xla {' '.join(f'{v:.6f}' for v in x_losses)}: rel "
+            f"{rel['bsr_xla'][0]:.3e}, parameters after {TD_STEPS} steps within "
+            f"{rel['bsr_xla'][1]:.3e} (< {TD_MATCH_TOL}); phase 5's f32 step (K2) "
+            f"{' '.join(f'{v:.6f}' for v in k_losses)}: rel {rel['K2'][0]:.3e}, "
+            f"parameters within {rel['K2'][1]:.3e} (no gate)")
+        if not max(rel["bsr_xla"]) < TD_MATCH_TOL:
+            raise AssertionError(f"train-dist (a): dist vs single card bsr_xla: loss rel "
+                                 f"{rel['bsr_xla'][0]:.3e}, parameters {rel['bsr_xla'][1]:.3e}")
+        k1 = cuda_ms(k_step, iters=10)
+        d1 = cuda_ms(lambda: step(params, opt, *batch), iters=10)
+        d2 = cuda_ms(lambda: step(params, opt, *batch), iters=10)
+        k2 = cuda_ms(k_step, iters=10)
+        log(f"  train-dist (a) ms a step: dist n=1 (xla stripes) {(d1 + d2) / 2:.3f}, "
+            f"phase 5's single-card f32 step (K2 both ways) {(k1 + k2) / 2:.3f} (order "
+            f"single, dist, dist, single: {k1:.3f}, {d1:.3f}, {d2:.3f}, {k2:.3f}) "
+            f"[{card_line}]")
+        return {"losses": losses, "bsr_xla_losses": x_losses, "k2_losses": k_losses,
+                "loss_rel": rel["bsr_xla"][0], "param_rel": rel["bsr_xla"][1],
+                "k2_loss_rel": rel["K2"][0], "k2_param_rel": rel["K2"][1],
+                "dist_ms": (d1 + d2) / 2, "single_ms": (k1 + k2) / 2,
+                "runs": [k1, d1, d2, k2]}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _td_case(rank: int, case: dict, meshes: dict, dev: str) -> dict:
+    """One case's TD_STEPS steps on this rank: losses, ms a step, the
+    exchange's bytes, launches, and (rank 0) the gathered step-0
+    gradients."""
+    import torch.distributed as dist
+
+    from spmm_denseblock_tpu_torch.parallel.comms import comms_bytes_per_device
+    from spmm_denseblock_tpu_torch.parallel.train import make_dist_train_step
+
+    t0 = time.perf_counter()
+    params, opt, step = make_dist_train_step(
+        case["adj"], meshes[case["mesh"]], case["dims"], model=case["model"],
+        block_size=128, strategy=case["strategy"], params=case["params"], device=dev)
+    plan_s = time.perf_counter() - t0
+    x, y, mask = (torch.as_tensor(a) for a in (case["x"], case["y"], case["mask"]))
+    reset_launches()
+    out = {"name": case["name"], "losses": [], "ms": [], "plan_s": plan_s,
+           "chained": step.chained}
+    for i in range(TD_STEPS):
+        dist.barrier()
+        _sync()
+        t0 = time.perf_counter()
+        with ReluPattern() if i == 0 else contextlib.nullcontext() as rp:
+            params, opt, m = step(params, opt, x, y, mask)
+        out["losses"].append(m["loss"].item())
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            out["bytes"] = m["exchange_bytes"]
+            grads = step.whole(tree_map(lambda t: t.grad, params))
+            # step 0's activation pattern, whole: each ReLU input's rows
+            # assembled over the row group, its columns over col
+            masks = [_whole_rows(step, z) > 0 for z in rp.inputs]
+            if rank == 0:
+                out["grads0"] = whole_numpy(grads)
+                out["masks"] = [(np.packbits(m.cpu().numpy()), tuple(m.shape))
+                                for m in masks]
+    _sync()
+    out["launches"] = {k: v for k, v in launches().items() if v}
+    if dev == "cuda" and out["launches"]:
+        raise AssertionError(f"train-dist {case['name']}: launched {out['launches']}")
+    info = step.info
+    K = info.split.chunk * info.n
+    kind = case["strategy"]
+    widths = case["dims"][:-1]
+    per = [comms_bytes_per_device(kind, info.n, K, -(-F // info.tp)) for F in widths]
+    out["model_bytes"] = {"forward": sum(per), "backward": sum(per[1:])}
+    return out
+
+
+def _whole_rows(step, z: torch.Tensor) -> torch.Tensor:
+    """An activation of the step's layout (this rank's output rows, its
+    feature slice) whole on every rank."""
+    from spmm_denseblock_tpu_torch.parallel import exchange as exch
+
+    info = step.info
+    full = exch.assemble_rows(info, z, info.out_rows, info.n_rows)
+    if step.tp > 1:
+        full = exch.gather_columns(full, step.col_group, step._width(z))
+    return full
+
+
+def _td_checkpoint(rank: int, case: dict, meshes: dict, dev: str, root: str) -> dict:
+    """(c): TD_STEPS - 1 steps, a save, the uninterrupted last step; a
+    fresh template (other weights, no optimizer state) restored and its
+    last step, which must equal the uninterrupted one bit for bit (the
+    steps run with torch's deterministic algorithms)."""
+    from spmm_denseblock_tpu_torch.models import (
+        make_manager,
+        restore_dist_checkpoint,
+        save_dist_checkpoint,
+    )
+    from spmm_denseblock_tpu_torch.parallel.train import make_dist_train_step
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    build = functools.partial(make_dist_train_step, case["adj"], meshes[case["mesh"]],
+                              case["dims"], model=case["model"], block_size=128,
+                              strategy=case["strategy"], device=dev)
+    x, y, mask = (torch.as_tensor(a) for a in (case["x"], case["y"], case["mask"]))
+    params, opt, step = build(params=case["params"])
+    for _ in range(TD_STEPS - 1):
+        params, opt, _ = step(params, opt, x, y, mask)
+    mgr = make_manager(root, max_to_keep=2)
+    t0 = time.perf_counter()
+    save_dist_checkpoint(mgr, TD_STEPS - 1, step.state(params, opt))
+    save_s = time.perf_counter() - t0
+    params, opt, m = step(params, opt, x, y, mask)
+    p2, o2, s2 = build(seed=SEED + 99)
+    t0 = time.perf_counter()
+    _, k = restore_dist_checkpoint(mgr, s2.state(p2, o2))
+    restore_s = time.perf_counter() - t0
+    p2, o2, m2 = s2(p2, o2, x, y, mask)
+    torch.use_deterministic_algorithms(False)
+    same = (m["loss"].item() == m2["loss"].item() and
+            all(torch.equal(a.detach(), b.detach())
+                for a, b in zip(tree_leaves(params), tree_leaves(p2))))
+    if k != TD_STEPS - 1 or not same:
+        raise AssertionError(f"train-dist (c) rank {rank}: step {k}, the restored "
+                             f"step {TD_STEPS} not bit-equal to the uninterrupted one")
+    files = sorted(Path(mgr.step_dir(k)).glob(f"__{rank}_*.distcp"))
+    shards = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    return {"save_s": save_s, "restore_s": restore_s,
+            "file_bytes": sum(f.stat().st_size for f in files),
+            "shard_bytes": 3 * shards}  # the parameters, Adam's mu and nu
+
+
+def train_dist_rank(rank: int, n: int, cfg: dict) -> dict:
+    """Phase 11 (b) and (c) on one of the world's ranks, all sharing the
+    one GPU over gloo."""
+    import os
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # (c)
+    from spmm_denseblock_tpu_torch.parallel import make_mesh
+
+    global DEV
+    DEV = dev = cfg["device"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev == "cuda":
+        _kernels.load()
+    meshes = {"4x1": make_mesh((4, 1), device_type=dev),
+              "2x2": make_mesh((2, 2), device_type=dev)}
+    out = {"cases": [], "seconds": {}}
+    for case in cfg["cases"]:
+        t0 = time.perf_counter()
+        out["cases"].append(_td_case(rank, case, meshes, dev))
+        out["seconds"][case["name"]] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["checkpoint"] = _td_checkpoint(rank, cfg["cases"][cfg["ckpt_case"]], meshes,
+                                       dev, cfg["ckpt_dir"])
+    out["seconds"]["(c) checkpoints"] = time.perf_counter() - t0
+    return out
+
+
+def train_dist_phase(ddi: CSR, ddi_adj: CSR, dims, train_f32, graphs: dict,
+                     card_line: str) -> dict:
+    """Phase 11: (a) one NCCL rank here; (b)-(c) four gloo ranks spawned
+    on the one GPU; (d) dryrun_multichip(4); (e) the scaling benches at
+    JAX's default shapes; (f) the dist_train example and its resume.
+    Returns the train_dist JSON line's object."""
+    import tempfile
+
+    from spmm_denseblock_tpu_torch.bench import bench_scaling, bench_train_scaling
+    from spmm_denseblock_tpu_torch.entry import dryrun_multichip
+    from spmm_denseblock_tpu_torch.examples import dist_train
+    from spmm_denseblock_tpu_torch.models import GIN
+    from spmm_denseblock_tpu_torch.parallel.world import run_world
+
+    t_phase = time.perf_counter()
+    secs = {}
+    log(f"[train-dist] (a) one rank over NCCL: ddi GCN {dims} [{card_line}]")
+    a = train_dist_one_rank(ddi_adj, dims, train_f32, card_line)
+    secs["(a)"] = time.perf_counter() - t_phase
+
+    # (b): the ddi encoder's widths (GCN and GIN on sym_norm_adjacency, a
+    # sum aggregator kept at the GCN's scale; SAGE on mean_adjacency) and
+    # the arxiv GCN on the serve phase's gorder hybrid; weights made here
+    t0 = time.perf_counter()
+    n = ddi_adj.n_rows
+    rng = np.random.default_rng(SEED)
+    ddi_batch = {"x": rng.standard_normal((n, dims[0])).astype(np.float32),
+                 "y": rng.integers(0, dims[-1], size=n).astype(np.int64),
+                 "mask": (rng.random(n) < 0.6).astype(np.float32)}
+    g = graphs["gorder"]
+    arng = np.random.default_rng(SEED + 40)
+    arxiv_batch = {"x": seeded((g.n_rows, TD_ARXIV_DIMS[0]), SEED + 200),
+                   "y": arng.integers(0, TD_ARXIV_DIMS[-1], size=g.n_rows).astype(np.int64),
+                   "mask": (arng.random(g.n_rows) < 0.6).astype(np.float32)}
+    adj_g = sym_norm_adjacency(g)
+    mean = mean_adjacency(ddi)
+
+    def weights(model_cls, d, seed):
+        m = model_cls(d, generator=torch.Generator().manual_seed(seed))
+        return tree_map(lambda t: t.detach().numpy(), m.params())
+
+    w = {"gcn": weights(GCN, dims, SEED + 31), "sage": weights(SAGE, dims, SEED + 32),
+         "gin": weights(GIN, dims, SEED + 33),
+         "arxiv": weights(GCN, TD_ARXIV_DIMS, SEED + 34)}
+    cases = [
+        {"name": "ddi GCN (4, 1) allgather", "model": "gcn", "mesh": "4x1",
+         "strategy": "allgather", "adj": ddi_adj, "csr": ddi_adj, "params": w["gcn"],
+         "dims": dims, **ddi_batch},
+        {"name": "ddi GCN (4, 1) ring", "model": "gcn", "mesh": "4x1",
+         "strategy": "ring", "adj": ddi_adj, "csr": ddi_adj, "params": w["gcn"],
+         "dims": dims, **ddi_batch},
+        {"name": "ddi GCN (2, 2) allgather, feature axis", "model": "gcn",
+         "mesh": "2x2", "strategy": "allgather", "adj": ddi_adj, "csr": ddi_adj,
+         "params": w["gcn"], "dims": dims, **ddi_batch},
+        {"name": "ddi SAGE (2, 2) allgather, feature axis", "model": "sage",
+         "mesh": "2x2", "strategy": "allgather", "adj": mean, "csr": mean,
+         "params": w["sage"], "dims": dims, **ddi_batch},
+        {"name": "ddi GIN (2, 2) allgather, feature axis", "model": "gin",
+         "mesh": "2x2", "strategy": "allgather", "adj": ddi_adj, "csr": ddi_adj,
+         "params": w["gin"], "dims": dims, **ddi_batch},
+        {"name": "arxiv GCN (4, 1) allgather, gorder hybrid", "model": "gcn",
+         "mesh": "4x1", "strategy": "allgather",
+         "adj": _explicit_hybrid(adj_g, "hybrid", 128, {}), "csr": adj_g,
+         "params": w["arxiv"], "dims": TD_ARXIV_DIMS, **arxiv_batch},
+    ]
+    ckpt_root = tempfile.mkdtemp(prefix="sdb_ckpt_")
+    cfg = {"device": DEV, "cases": [{k: v for k, v in c.items() if k != "csr"}
+                                    for c in cases],
+           "ckpt_case": 2, "ckpt_dir": ckpt_root}
+    log(f"[train-dist] (b)-(c) {DIST_RANKS} ranks over gloo sharing the one GPU "
+        f"[{card_line}]")
+    t0 = time.perf_counter()
+    try:
+        ranks = run_world(train_dist_rank, DIST_RANKS, backend="gloo", args=(cfg,),
+                          timeout_s=900.0, threads=2)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    secs["(b)-(c) world"] = time.perf_counter() - t0
+    runs = []
+    for i, case in enumerate(cases):
+        per = [r["cases"][i] for r in ranks]
+        r0 = per[0]
+        masks = [np.unpackbits(bits)[:int(np.prod(shape))].reshape(shape).astype(bool)
+                 for bits, shape in r0["masks"]]
+        loss64, grads64, (flips, flipped) = reference64(
+            case["model"], case["csr"], case["params"], case["x"], case["y"],
+            case["mask"], masks)
+        grad_rel = leaf_rel(r0["grads0"], grads64)
+        same = all(p["losses"] == r0["losses"] for p in per)
+        falls = r0["losses"][-1] < r0["losses"][0]
+        ms = [float(np.mean(p["ms"][1:])) for p in per]
+        log(f"  train-dist {case['name']}: losses {' '.join(f'{v:.6f}' for v in r0['losses'])}"
+            f" (float64 step 0 {loss64:.6f}), equal on every rank: {same}; step-0 "
+            f"gradients within {grad_rel:.3e} of float64 at the run's ReLU pattern (< "
+            f"{GRAD_TOL}); {flips} ReLU inputs change sign against float64's, the "
+            f"largest |z64| among them {flipped:.3e} of max (<= {FLIP_REL:.3e}); ms a step per "
+            f"rank {', '.join(f'{m:.1f}' for m in ms)} (step 0: "
+            f"{', '.join(f'{p['ms'][0]:.1f}' for p in per)}; 4 ranks share one card: "
+            f"not scaling numbers); bytes received by rank 0 in step 0: forward "
+            f"{r0['bytes']['forward']}, backward {r0['bytes']['backward']}, gradient "
+            f"sums {r0['bytes']['grads']}, beside the SpMM exchanges' reckoning "
+            f"(comms_bytes_per_device) {r0['model_bytes']['forward']:.0f} / "
+            f"{r0['model_bytes']['backward']:.0f}; rows {'chained' if r0['chained'] else 'redistributed'}; "
+            f"plan {r0['plan_s']:.2f} s; launches {r0['launches']} [{card_line}]")
+        if not (same and falls and grad_rel < GRAD_TOL and flipped <= FLIP_REL):
+            raise AssertionError(f"train-dist {case['name']}: losses equal {same}, "
+                                 f"falling {falls}, gradient rel {grad_rel:.3e}, flips "
+                                 f"{flips} up to {flipped:.3e} of max |z64|")
+        runs.append({"name": case["name"], "losses": r0["losses"], "loss64": loss64,
+                     "grad_rel": grad_rel, "relu_flips": flips, "ms_per_rank": ms,
+                     "step0_ms_per_rank": [p["ms"][0] for p in per],
+                     "bytes": r0["bytes"], "model_bytes": r0["model_bytes"],
+                     "chained": r0["chained"], "plan_s": r0["plan_s"]})
+    ck = [r["checkpoint"] for r in ranks]
+    log(f"  train-dist (c) checkpoints of {cases[cfg['ckpt_case']]['name']}: the "
+        f"restored step {TD_STEPS} equal to the uninterrupted one bit for bit on every "
+        f"rank; bytes written per rank {', '.join(str(c['file_bytes']) for c in ck)} "
+        f"beside its shards' {', '.join(str(c['shard_bytes']) for c in ck)}; seconds "
+        f"per save {max(c['save_s'] for c in ck):.2f}, per restore "
+        f"{max(c['restore_s'] for c in ck):.2f} [{card_line}]")
+    for label, v in ranks[0]["seconds"].items():
+        secs[f"rank 0 {label}"] = v
+
+    t0 = time.perf_counter()
+    log(f"[train-dist] (d) dryrun_multichip({DIST_RANKS}) [{card_line}]")
+    dry = dryrun_multichip(DIST_RANKS, DEV, realistic_block_rows=TD_DRYRUN_BLOCK_ROWS)
+    secs["(d)"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    train_sc = bench_train_scaling(TD_SCALING, device=DEV, **TD_SCALING_KW)
+    spmm_sc = bench_scaling(TD_SCALING, device=DEV,
+                            **{k: v for k, v in TD_SCALING_KW.items() if k != "dims"})
+    for rec in (train_sc, spmm_sc):
+        pts = "; ".join(
+            f"{p['devices']} ranks {p.get('ms_per_step', p.get('ms')):.2f} ms, retention "
+            f"{p['retention']:.3f}" for p in rec["points"])
+        log(f"  train-dist (e) {rec['kind']} (nnzb {rec['nnzb']}, {rec['strategy']}): "
+            f"{pts} [{card_line}]")
+    secs["(e)"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ex_dir = tempfile.mkdtemp(prefix="sdb_example_")
+    try:
+        base = ["--ranks", str(DIST_RANKS), "--ckpt-dir", ex_dir, "--ckpt-every", "1",
+                "--device", DEV]
+        first = dist_train.main(base + ["--epochs", "2"])
+        resumed = dist_train.main(base + ["--epochs", "3"])
+    finally:
+        shutil.rmtree(ex_dir, ignore_errors=True)
+    if first["start"] != 0 or resumed["start"] != 2 or len(resumed["losses"]) != 1:
+        raise AssertionError(f"train-dist (f): {first}, {resumed}")
+    log(f"  train-dist (f) examples.dist_train: 2 epochs (losses "
+        f"{' '.join(f'{v:.4f}' for v in first['losses'])}), resumed at epoch "
+        f"{resumed['start']} (loss {resumed['losses'][0]:.4f}) [{card_line}]")
+    secs["(f)"] = time.perf_counter() - t0
+    seconds = time.perf_counter() - t_phase
+    log(f"[train-dist] phase in {seconds:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())})")
+    return {"ranks": DIST_RANKS, "one_rank_nccl": a, "runs": runs,
+            "checkpoint": ck, "dryrun": dry, "train_scaling": train_sc,
+            "scaling": spmm_sc, "example": {"first": first, "resumed": resumed},
+            "seconds": seconds, "sections": secs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3620,6 +4142,9 @@ def main() -> int:
     dist_line = dist_phase(op_bsr, x_op, plans[("f32", "sorted")], adj, model,
                            {"f32": slices["f32"], "int8": slices["int8"]}, graphs,
                            card_line)
+    # phase 11, distributed training, after phase 10
+    torch.cuda.empty_cache()
+    train_dist_line = train_dist_phase(ddi, adj, dims, train["f32"], graphs, card_line)
 
     # each kernel symbol's entry: the op-shape instance that runs it (K1,
     # K2, K4 and K5 in f32 and bf16, K3 "high" in its three instances,
@@ -3686,6 +4211,7 @@ def main() -> int:
         log(f"[slice] {tag} SpMMs' largest max |kernel - plain|: {err:.3e}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"dist": dist_line}))
+    print(json.dumps({"train_dist": train_dist_line}))
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -42,10 +42,6 @@ from spmm_denseblock_tpu_torch.ops.bsr_spmm_int8 import dtype_name
 from spmm_denseblock_tpu_torch.ops.plan import transb_plan
 from spmm_denseblock_tpu_torch.reorder import reorder
 
-_NOT_PORTED = ("needs the distributed layer (parallel/), not ported yet: "
-               "ROADMAP queue 1 item 12")
-
-
 def _dense_operand(n_rows: int, dim: int, seed: int = 1234) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return rng.standard_normal((n_rows, dim)).astype(np.float32)
@@ -281,6 +277,37 @@ def bench_graph(
     return rec
 
 
+def _world_seconds(fn, iters: int, dev: torch.device) -> float:
+    """Seconds per call of fn on this rank, every rank starting together,
+    each call ended on the card (the host clock: a call spans the ranks'
+    exchange)."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        _sync(dev)
+    return (time.perf_counter() - t0) / iters
+
+
+def _scaling_rank(rank: int, nd: int, p, block_size, dim, n_block_rows, strategy,
+                  device_type) -> dict:
+    from spmm_denseblock_tpu_torch.parallel import dist_bsr_spmm_plan, make_mesh_1d
+    from spmm_denseblock_tpu_torch.parallel.exchange import rank_device
+
+    dev = rank_device("cpu" if device_type == "cpu" else None)
+    bsr = random_bsr(p, n_block_rows, block_size=block_size, seed=1234)
+    plan = dist_bsr_spmm_plan(bsr, mesh=make_mesh_1d(nd, device_type=device_type),
+                              strategy=strategy, device=dev)
+    x = torch.as_tensor(_dense_operand(bsr.shape[1], dim), device=dev)
+    with torch.no_grad():
+        plan(x)  # warm
+        secs = _world_seconds(lambda: plan(x), 8, dev)
+    return {"secs": secs, "nnz": bsr.nnz_inside(), "nnzb": bsr.nnzb,
+            "n_cols": bsr.shape[1]}
+
+
 def bench_scaling(
     n_devices_list: Sequence[int],
     p: float = 1.6e-2,
@@ -288,9 +315,93 @@ def bench_scaling(
     dim: int = 256,
     n_block_rows: int = 1024,
     strategy: str = "allgather",
+    device=None,
 ) -> Dict:
-    """Distributed SpMM scaling over 1D row meshes: not ported yet."""
-    raise NotImplementedError(f"bench_scaling {_NOT_PORTED}")
+    """Distributed SpMM scaling (dist_bsr_spmm_plan, local_impl "xla", on
+    a 1D row mesh) beside the link model it must be read against
+    (parallel/comms.py). Each point is a world of nd ranks
+    (parallel/world.run_world) timing 8 calls (JAX's time_synced); its
+    time is the slowest rank's.
+
+    The ranks of one machine share its cores, and the ranks of one card
+    share the card: linear nnz/s scaling is impossible there. What such
+    a run can read is RETENTION = rate(n) / rate(1), the share of the
+    one-rank rate that survives partitioning and the exchanges (ideal
+    1.0); it is not scaling. `efficiency` is kept for runs with a card a
+    rank. Each point also carries the H100 NVLink model's prediction for
+    the same shape (`ici_model_*`, the JAX record's keys). device: None
+    is the card (ranks over NCCL with a GPU each, else over gloo sharing
+    it; RuntimeError without a GPU), "cpu" CPU ranks."""
+    from spmm_denseblock_tpu_torch.parallel.comms import efficiency_model
+    from spmm_denseblock_tpu_torch.parallel.world import backend_for, run_world
+
+    dev = resolve_device(device)
+    points = []
+    base = rate1 = None
+    nnzb = None
+    for nd in n_devices_list:
+        res = run_world(_scaling_rank, nd, backend=backend_for(dev, nd),
+                        args=(p, block_size, dim, n_block_rows, strategy, dev.type),
+                        timeout_s=900.0,
+                        threads=1 if dev.type == "cpu" else 2)
+        secs = max(r["secs"] for r in res)
+        nnz, nnzb, n_cols = res[0]["nnz"], res[0]["nnzb"], res[0]["n_cols"]
+        rate = nnz / secs
+        if base is None:
+            base = rate / nd if nd else rate
+            rate1 = rate
+        model = efficiency_model(strategy if strategy != "auto" else "allgather",
+                                 nd, nnzb, block_size, n_cols, dim)
+        points.append({
+            "devices": nd,
+            "ms": secs * 1e3,
+            "nnz_per_s": rate,
+            "efficiency": rate / (nd * base) if base else 1.0,
+            "retention": rate / rate1 if rate1 else 1.0,
+            "ici_model_efficiency": model["efficiency"],
+            "ici_model_t_comp_us": model["t_comp_us"],
+            "ici_model_t_comm_us": model["t_comm_us"],
+        })
+    return {
+        "kind": "scaling", "p": p, "b": block_size, "dim": dim,
+        "nnzb": nnzb, "strategy": strategy, "points": points,
+        "device": _device_name(dev),
+        "note": (
+            "ranks share one machine's cores, or one card: read `retention` "
+            "(ideal 1.0), which is not scaling, not `efficiency`; `ici_model_*` "
+            "is the H100 NVLink model's prediction for this shape "
+            "(parallel/comms.py)"
+        ),
+    }
+
+
+def _train_scaling_rank(rank: int, nd: int, p, block_size, dims, n_block_rows,
+                        strategy, iters, seed, device_type) -> float:
+    from spmm_denseblock_tpu_torch.parallel import make_mesh_1d
+    from spmm_denseblock_tpu_torch.parallel.exchange import rank_device
+    from spmm_denseblock_tpu_torch.parallel.train import make_dist_train_step
+
+    dev = rank_device("cpu" if device_type == "cpu" else None)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    bsr = random_bsr(p, n_block_rows, block_size=block_size, seed=1234)
+    n = bsr.shape[0]
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, dims[0])).astype(np.float32)
+    y = rng.integers(0, dims[-1], size=n).astype(np.int32)
+    mask = np.ones(n, np.float32)
+    params, opt_state, step = make_dist_train_step(
+        bsr, make_mesh_1d(nd, device_type=device_type), list(dims),
+        block_size=block_size, strategy=strategy, seed=seed, device=dev)
+    x, y, mask = (torch.as_tensor(a) for a in (x, y, mask))
+    state = [params, opt_state]
+
+    def one_step():
+        state[0], state[1], m = step(state[0], state[1], x, y, mask)
+        float(m["loss"])  # the loss read back: every step ends on the host
+
+    one_step()  # warm
+    return _world_seconds(one_step, iters, dev)
 
 
 def bench_train_scaling(
@@ -302,9 +413,50 @@ def bench_train_scaling(
     strategy: str = "allgather",
     iters: int = 4,
     seed: int = 0,
+    device=None,
 ) -> Dict:
-    """Distributed GCN training-step scaling: not ported yet."""
-    raise NotImplementedError(f"bench_train_scaling {_NOT_PORTED}")
+    """Distributed TRAIN-STEP scaling, bench_scaling's model-level
+    counterpart: one whole GCN step (parallel/train.make_dist_train_step:
+    the distributed SpMM forward and backward, the dense layers, Adam)
+    a point, on a 1D row mesh of nd ranks, each step's loss read back.
+    The same reading as bench_scaling: `retention` = step rate(n) /
+    rate(first point), ideal 1.0, is the reading where ranks share a
+    machine or a card, and it is not scaling. device as bench_scaling."""
+    from spmm_denseblock_tpu_torch.parallel.world import backend_for, run_world
+
+    dev = resolve_device(device)
+    points = []
+    rate1 = nd1 = nnzb = None
+    for nd in n_devices_list:
+        res = run_world(_train_scaling_rank, nd, backend=backend_for(dev, nd),
+                        args=(p, block_size, tuple(dims), n_block_rows, strategy,
+                              iters, seed, dev.type), timeout_s=900.0,
+                        threads=1 if dev.type == "cpu" else 2)
+        secs = max(res)
+        rate = 1.0 / secs
+        if rate1 is None:
+            rate1, nd1 = rate, nd
+        points.append({
+            "devices": nd,
+            "ms_per_step": secs * 1e3,
+            "steps_per_s": rate,
+            # both normalized to the first point (baseline_devices): the
+            # rate(1)-relative readings only when the list starts at 1
+            "efficiency": (rate / nd) / (rate1 / nd1),
+            "retention": rate / rate1,
+        })
+    if n_devices_list:
+        nnzb = random_bsr(p, n_block_rows, block_size=block_size, seed=1234).nnzb
+    return {
+        "kind": "train_scaling", "p": p, "b": block_size, "dims": list(dims),
+        "nnzb": nnzb, "strategy": strategy, "baseline_devices": nd1,
+        "points": points, "device": _device_name(dev),
+        "note": (
+            "ranks share one machine's cores, or one card: read `retention` "
+            "(rate vs the baseline_devices point, ideal 1.0), which is not "
+            "scaling, not `efficiency`"
+        ),
+    }
 
 
 def bench_train_step(

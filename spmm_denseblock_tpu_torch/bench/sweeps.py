@@ -7,10 +7,12 @@ Usage:
   python -m spmm_denseblock_tpu_torch.bench bsrmm   [--quick] [--out results.jsonl]
   python -m spmm_denseblock_tpu_torch.bench csrmm   [--quick]
   python -m spmm_denseblock_tpu_torch.bench graph   [--datasets ogbn-arxiv ...]
+  python -m spmm_denseblock_tpu_torch.bench scaling [--devices 1 2 4]
   ... [--device cuda|cpu]   (default: the card; raises without a GPU)
 
-The grids are the JAX package's. ``scaling`` needs the distributed layer
-(ROADMAP queue 1 item 12) and raises NotImplementedError.
+The grids are the JAX package's. ``scaling``'s points are worlds of
+ranks (``--devices``: their sizes, default 1, 2, 4); on one card they
+share it, so read their retention, not scaling.
 """
 
 from __future__ import annotations
@@ -114,8 +116,13 @@ def sweep_graph(datasets=None, quick=False, out=None, scale=None, device=None):
                                               device=device), out)
 
 
-def sweep_scaling(devices=None, out=None):
-    raise NotImplementedError(f"sweep_scaling {harness._NOT_PORTED}")
+def sweep_scaling(devices=None, out=None, device=None):
+    """bench_scaling at its defaults over worlds of `devices` ranks
+    (default 1, 2, 4: the JAX sweep's device counts up to the four ranks a
+    card's runs use)."""
+    rec = harness.bench_scaling(devices or [1, 2, 4], device=device)
+    _emit(rec, out)
+    return [rec]
 
 
 def main(argv=None):
@@ -141,7 +148,7 @@ def main(argv=None):
             sweep_graph(datasets=args.datasets, quick=args.quick, out=out,
                         scale=args.scale, device=device)
         else:
-            sweep_scaling(devices=args.devices, out=out)
+            sweep_scaling(devices=args.devices, out=out, device=device)
     finally:
         if out:
             out.close()

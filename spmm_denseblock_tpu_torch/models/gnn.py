@@ -59,13 +59,15 @@ def init_gcn(dims: Sequence[int], generator=None, device=None) -> List[dict]:
 
 
 def gcn_apply(params: List[dict], spmm: SpMM, x: torch.Tensor,
-              remat: bool = False) -> torch.Tensor:
+              remat: bool = False, dense=linear) -> torch.Tensor:
     """h <- relu(A h W + b) per layer, no relu after the last. remat=True
     recomputes each layer's activations in the backward pass instead of
-    storing them (torch.utils.checkpoint, JAX's jax.checkpoint)."""
+    storing them (torch.utils.checkpoint, JAX's jax.checkpoint). dense:
+    the layer's x @ w + b (the distributed step passes its own, which
+    gathers the feature slices first; parallel/train.py)."""
 
     def layer(p, h, act):
-        h = linear(p, spmm(h))
+        h = dense(p, spmm(h))
         return torch.relu(h) if act else h
 
     h = x
@@ -89,10 +91,11 @@ def init_sage(dims: Sequence[int], generator=None, device=None) -> List[dict]:
     ]
 
 
-def sage_apply(params: List[dict], spmm: SpMM, x: torch.Tensor) -> torch.Tensor:
+def sage_apply(params: List[dict], spmm: SpMM, x: torch.Tensor,
+               dense=linear) -> torch.Tensor:
     h = x
     for i, p in enumerate(params):
-        h = linear(p["self"], h) + linear(p["neigh"], spmm(h))
+        h = dense(p["self"], h) + dense(p["neigh"], spmm(h))
         if i < len(params) - 1:
             h = torch.relu(h)
     return h
@@ -117,11 +120,12 @@ def init_gin(dims: Sequence[int], mlp_hidden: int = 0, generator=None,
     return layers
 
 
-def gin_apply(params: List[dict], spmm: SpMM, x: torch.Tensor) -> torch.Tensor:
+def gin_apply(params: List[dict], spmm: SpMM, x: torch.Tensor,
+              dense=linear) -> torch.Tensor:
     h = x
     for i, p in enumerate(params):
         h = (1.0 + p["eps"]) * h + spmm(h)
-        h = linear(p["mlp2"], torch.relu(linear(p["mlp1"], h)))
+        h = dense(p["mlp2"], torch.relu(dense(p["mlp1"], h)))
         if i < len(params) - 1:
             h = torch.relu(h)
     return h

@@ -10,16 +10,28 @@ functions below, each on the process group of one mesh axis:
 - ``shift``: one ``ppermute`` step, posted as a send to rank me + k and a
   receive from rank me - k (``batch_isend_irecv``), waited on later, so
   that a caller can run a kernel while the bytes move;
-- ``all_reduce_max``: the column absmax of an int8 operand's stripes.
+- ``all_reduce_max``: the column absmax of an int8 operand's stripes;
+- ``all_reduce_sum``: the training step's loss sums and gradients.
+
+Training differentiates through them (``torch.autograd.Function``s):
+the row all-gather's backward is a reduce-scatter over the same group
+(each rank's stripe gets the sum of every rank's partial gradient of
+it); a shift's backward is the reverse shift (the gradient of what a
+rank received goes back to its sender, rank me - k); the sum's backward
+is the identity (every rank computes the same loss from the same sum).
+A ring's or halo's forward keeps its schedule: the exchange is posted
+before the step's kernel, and the received tensor joins the graph when
+it is waited on. The backward runs its collectives in the order of the
+graph, the same on every rank, each posted and waited at once.
 
 The transport follows the group's backend and the collective, never an
 exception (``transport``): NCCL takes CUDA tensors; gloo takes CPU
-tensors, and CUDA tensors for ``all_gather`` and ``all_reduce``, but not
-for send/recv. (PyTorch's backend table lists gloo's ``all_gather`` as
-CPU-only; with torch 2.11 on an H100 it gathers CUDA tensors with the
-right values, while a send of a CUDA tensor fails in gloo's TCP
-transport (``writev ...: Bad address`` on the sender, its peer's
-connection closed):
+tensors, and CUDA tensors for ``all_gather``, ``all_reduce`` and
+``reduce_scatter``, but not for send/recv. (PyTorch's backend table
+lists gloo's ``all_gather`` as CPU-only; with torch 2.11 on an H100 it
+gathers, reduces and reduce-scatters CUDA tensors with the right values,
+while a send of a CUDA tensor fails in gloo's TCP transport (``writev
+...: Bad address`` on the sender, its peer's connection closed):
 ``tests/test_torch_cuda_parallel.py::test_gloo_takes_cuda_tensors``
 holds this rule to the torch it runs on.) Where gloo cannot take a CUDA
 tensor, the exchange copies it to the host, runs the collective there
@@ -53,7 +65,9 @@ import torch.distributed as dist
 COUNTS = {"collectives": 0, "bytes_received": 0, "host_round_trips": 0}
 
 # the collectives gloo takes CUDA tensors for (see the module docstring)
-_GLOO_CUDA_OPS = ("all_gather", "all_reduce")
+_GLOO_CUDA_OPS = ("all_gather", "all_reduce", "reduce_scatter")
+# a backward shift's tags lie past the forward's
+_BACKWARD_TAG = 1 << 16
 
 
 def reset_counts() -> None:
@@ -63,8 +77,8 @@ def reset_counts() -> None:
 
 def transport(group, device, op: str = "all_gather") -> str:
     """"nccl", "gloo direct" or "gloo via host": how the collective `op`
-    ("all_gather", "all_reduce" or "send_recv") of a tensor on `device`
-    runs on `group`."""
+    ("all_gather", "all_reduce", "reduce_scatter" or "send_recv") of a
+    tensor on `device` runs on `group`."""
     backend = dist.get_backend(group)
     if backend == "nccl":
         return "nccl"
@@ -78,9 +92,7 @@ def _via_host(group, t: torch.Tensor, op: str) -> bool:
     return transport(group, t.device, op) == "gloo via host"
 
 
-def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
-    """(c, F) on each of the group's n ranks -> (n*c, F), in group rank
-    order, on x's device."""
+def _all_gather_raw(x: torch.Tensor, group) -> torch.Tensor:
     n = dist.get_world_size(group)
     x = x.contiguous()
     if n == 1:
@@ -101,31 +113,114 @@ def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+def reduce_scatter_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """(n*c, F) on each of the group's n ranks -> (c, F): group rank s
+    gets the sum over the ranks of rows [s*c, (s+1)*c), on x's device."""
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    if n == 1:
+        return x
+    host = _via_host(group, x, "reduce_scatter")
+    src = x.cpu() if host else x
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)  # as all_gather's
+        dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=group)
+    COUNTS["collectives"] += 1
+    COUNTS["bytes_received"] += (n - 1) * out.numel() * out.element_size()
+    if host:
+        COUNTS["host_round_trips"] += 1
+        return out.to(x.device)
+    return out
+
+
+class _AllGatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_gather_raw(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_rows(g, ctx.group), None
+
+
+def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """(c, F) on each of the group's n ranks -> (n*c, F), in group rank
+    order, on x's device. Its backward is reduce_scatter_rows."""
+    if dist.get_world_size(group) == 1:
+        return x.contiguous()
+    return _AllGatherRows.apply(x, group)
+
+
 def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     """Elementwise max of x over the group's ranks (a new tensor)."""
-    out = x.clone()
-    if dist.get_world_size(group) == 1:
+    return _all_reduce(x, group, dist.ReduceOp.MAX)
+
+
+def _all_reduce(x: torch.Tensor, group, op) -> torch.Tensor:
+    out = x.detach().clone()
+    n = dist.get_world_size(group)
+    if n == 1:
         return out
     host = _via_host(group, out, "all_reduce")
     buf = out.cpu() if host else out
-    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
+    dist.all_reduce(buf, op=op, group=group)
     COUNTS["collectives"] += 1
+    # a ring all-reduce: each rank receives 2 (n - 1) / n of the tensor
+    COUNTS["bytes_received"] += 2 * (n - 1) * out.numel() * out.element_size() // n
     if host:
         COUNTS["host_round_trips"] += 1
         return buf.to(x.device)
     return buf
 
 
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Elementwise sum of x over the group's ranks (a new tensor). Its
+    backward is the identity: every rank goes on from the same sum, so
+    each rank's gradient of it is already the gradient of its own term."""
+    return _AllReduceSum.apply(x, group)
+
+
+class _ShiftGrad(torch.autograd.Function):
+    """recv, the tensor a shift of x by k received, joined to x's graph:
+    its gradient goes back to the sender by the reverse shift."""
+
+    @staticmethod
+    def forward(ctx, x, recv, group, k, tag):
+        ctx.group, ctx.k, ctx.tag = group, k, tag
+        return recv
+
+    @staticmethod
+    def backward(ctx, g):
+        back = _post_shift(g, ctx.group, -ctx.k, _BACKWARD_TAG + ctx.tag).wait()
+        return back, None, None, None, None
+
+
 class _Pending:
     """A posted exchange: wait() returns the received tensor."""
 
-    def __init__(self, works, recv, device):
-        self.works, self.recv, self.device = works, recv, device
+    def __init__(self, works, recv, x, group, k, tag):
+        self.works, self.recv, self.x = works, recv, x
+        self.group, self.k, self.tag = group, k, tag
 
     def wait(self) -> torch.Tensor:
         for w in self.works:
             w.wait()
-        return self.recv.to(self.device) if self.recv.device != self.device else self.recv
+        recv = self.recv.to(self.x.device)
+        if torch.is_grad_enabled() and self.x.requires_grad:
+            return _ShiftGrad.apply(self.x, recv, self.group, self.k, self.tag)
+        return recv
 
 
 class _Done:
@@ -136,19 +231,14 @@ class _Done:
         return self.t
 
 
-def shift(x: torch.Tensor, group, k: int, tag: int = 0):
-    """Post one ring step: send x to group rank (me + k) mod n and receive
-    the same shape from (me - k) mod n. Returns a handle whose wait()
-    gives the received tensor (x itself when k is 0 mod n)."""
+def _post_shift(x: torch.Tensor, group, k: int, tag: int) -> _Pending:
     n = dist.get_world_size(group)
-    if k % n == 0:
-        return _Done(x)
     me = dist.get_rank(group)
     dst = dist.get_global_rank(group, (me + k) % n)
     src = dist.get_global_rank(group, (me - k) % n)
     x = x.contiguous()
     host = _via_host(group, x, "send_recv")
-    send = x.cpu() if host else x
+    send = x.detach().cpu() if host else x.detach()
     recv = torch.empty_like(send)
     works = dist.batch_isend_irecv([
         dist.P2POp(dist.isend, send, dst, group, tag),
@@ -158,7 +248,18 @@ def shift(x: torch.Tensor, group, k: int, tag: int = 0):
     COUNTS["bytes_received"] += x.numel() * x.element_size()
     if host:
         COUNTS["host_round_trips"] += 1
-    return _Pending(works, recv, x.device)
+    return _Pending(works, recv, x, group, k, tag)
+
+
+def shift(x: torch.Tensor, group, k: int, tag: int = 0):
+    """Post one ring step: send x to group rank (me + k) mod n and receive
+    the same shape from (me - k) mod n. Returns a handle whose wait()
+    gives the received tensor (x itself when k is 0 mod n); where x
+    needs a gradient, the received tensor's flows back to x by the
+    reverse shift."""
+    if k % dist.get_world_size(group) == 0:
+        return _Done(x)
+    return _post_shift(x, group, k, tag)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -323,29 +424,45 @@ def operand_rows(plan) -> Tuple[int, int]:
     return info.split.lo[info.me], info.split.hi[info.me]
 
 
-def gather_rows(info: DistInfo, stripe: torch.Tensor, rows: Sequence[np.ndarray],
-                n_total: int) -> torch.Tensor:
+def assemble_rows(info: DistInfo, stripe: torch.Tensor, rows: Sequence[np.ndarray],
+                  n_total: int) -> torch.Tensor:
     """Every row rank's stripe (rows[s] of a result of n_total rows)
-    assembled on every rank, then every feature rank's columns."""
+    assembled on every rank, by one all_gather over the row group."""
     lens = [len(r) for r in rows]
     width = max(max(lens), 1)
-    pad = torch.zeros((width,) + tuple(stripe.shape[1:]), dtype=stripe.dtype,
-                      device=stripe.device)
-    pad[: stripe.shape[0]] = stripe
+    pad = torch.cat([stripe, stripe.new_zeros((width - stripe.shape[0],)
+                                              + tuple(stripe.shape[1:]))])
     pieces = all_gather_rows(pad, info.group).reshape((info.n, width) + tuple(stripe.shape[1:]))
     out = torch.zeros((n_total,) + tuple(stripe.shape[1:]), dtype=stripe.dtype,
                       device=stripe.device)
     for s, r in enumerate(rows):
         if lens[s]:
             out[torch.as_tensor(r, device=out.device)] = pieces[s, : lens[s]]
+    return out
+
+
+def gather_columns(x: torch.Tensor, group, F: int) -> torch.Tensor:
+    """The whole F columns of a result whose feature ranks (the group)
+    each hold their feature slice (DistInfo.feature_slice), on every one
+    of them, by one all_gather; its backward reduce-scatters."""
+    tp = dist.get_world_size(group)
+    if tp == 1:
+        return x
+    fs = -(-F // tp)
+    padded = torch.nn.functional.pad(x, (0, fs - x.shape[1]))
+    parts = all_gather_rows(padded, group).reshape(tp, x.shape[0], fs)
+    return parts.permute(1, 0, 2).reshape(x.shape[0], tp * fs)[:, :F]
+
+
+def gather_rows(info: DistInfo, stripe: torch.Tensor, rows: Sequence[np.ndarray],
+                n_total: int) -> torch.Tensor:
+    """Every row rank's stripe (rows[s] of a result of n_total rows)
+    assembled on every rank, then every feature rank's columns."""
+    out = assemble_rows(info, stripe, rows, n_total)
     if info.tp > 1:
-        cols = torch.tensor([out.shape[1]], device=out.device)
-        widths = all_gather_rows(cols, info.col_group).tolist()
-        fs = max(widths)
-        padded = torch.nn.functional.pad(out, (0, fs - out.shape[1]))
-        parts = all_gather_rows(padded.t().contiguous(), info.col_group)
-        parts = parts.reshape(info.tp, fs, n_total)
-        out = torch.cat([parts[j, : widths[j]] for j in range(info.tp)]).t()
+        width = torch.tensor([out.shape[1]], device=out.device)
+        F = int(all_reduce_sum(width, info.col_group).item())
+        out = gather_columns(out, info.col_group, F)
     return out.contiguous()
 
 

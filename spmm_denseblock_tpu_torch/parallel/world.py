@@ -61,6 +61,12 @@ def _failed(root: str, rank: int) -> bool:
     return (Path(root) / f"rank{rank}.failed").exists()
 
 
+def backend_for(device: torch.device, n: int) -> str:
+    """NCCL where each of n ranks can have a GPU of its own, else gloo
+    (CPU ranks, or ranks sharing a GPU)."""
+    return "nccl" if device.type == "cuda" and torch.cuda.device_count() >= n else "gloo"
+
+
 def run_world(fn: Callable, n: int, backend: Optional[str] = "gloo", args: tuple = (),
               timeout_s: float = 300.0, threads: Optional[int] = 1,
               root: Optional[str] = None) -> List:

@@ -6,8 +6,11 @@ a record whose fields other than its times equal JAX's for the same
 arguments, plus the device it ran on, and which json.dumps; with the
 runners replaced by recorders in both packages the sweep CLI lists JAX's
 cases, quick and full; a case that raises is captured into its record;
-and the distributed runners raise NotImplementedError naming ROADMAP
-item 12. Times are not compared: JAX's come from another machine."""
+and the distributed runners (bench_scaling, bench_train_scaling,
+sweep_scaling and the CLI's scaling) give JAX's records on worlds of CPU
+ranks at the JAX tests' shapes. Times are not compared: JAX's come from
+another machine; nor the ici_model_* values (JAX's model is a TPU's, the
+port's the H100's)."""
 
 import importlib
 import json
@@ -182,15 +185,75 @@ def test_sweep_without_a_gpu_raises(monkeypatch):
             TS.main(argv)
 
 
-def test_distributed_runners_raise_naming_item_12():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_bench.bench_scaling([1, 2])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_bench.bench_train_scaling([1, 2])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_bench.sweep_scaling()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TS.main(["scaling", "--device", "cpu"])
+# the points' fields that hold or derive from a measured time, or from
+# the chip model
+SCALING_TIMING = {"ms", "nnz_per_s", "efficiency", "retention", "ms_per_step",
+                  "steps_per_s", "ici_model_efficiency", "ici_model_t_comp_us",
+                  "ici_model_t_comm_us"}
+SCALING_SHAPE = dict(p=0.05, block_size=16, n_block_rows=32)  # JAX's tests'
+
+
+def same_scaling_record(t_rec: dict, j_rec: dict) -> None:
+    json.dumps(t_rec)
+    assert set(t_rec) == set(j_rec) | {"device"} and t_rec["device"] == "cpu"
+    for k in set(j_rec) - {"points", "note"}:
+        assert t_rec[k] == j_rec[k], k
+    assert [p["devices"] for p in t_rec["points"]] == [p["devices"] for p in j_rec["points"]]
+    for tp, jp in zip(t_rec["points"], j_rec["points"]):
+        assert set(tp) == set(jp)
+        assert set(tp) - SCALING_TIMING == {"devices"}
+    assert "retention" in t_rec["note"] and "not scaling" in t_rec["note"]
+
+
+def test_bench_scaling_record():
+    t_rec = t_bench.bench_scaling([1, 2, 4], dim=32, device="cpu", **SCALING_SHAPE)
+    same_scaling_record(t_rec, j_bench.bench_scaling([1, 2, 4], dim=32, **SCALING_SHAPE))
+    for p in t_rec["points"]:
+        assert p["nnz_per_s"] > 0 and p["ms"] > 0 and p["ici_model_t_comp_us"] > 0
+    assert t_rec["points"][0]["retention"] == 1.0
+
+
+def test_bench_train_scaling_record():
+    kw = dict(dims=(16, 16, 4), iters=1, **SCALING_SHAPE)
+    t_rec = t_bench.bench_train_scaling([1, 2], device="cpu", **kw)
+    same_scaling_record(t_rec, j_bench.bench_train_scaling([1, 2], **kw))
+    for p in t_rec["points"]:
+        assert p["ms_per_step"] > 0 and p["retention"] > 0
+
+
+@pytest.mark.parametrize("argv,devices,real", [([], [1, 2, 4], False),
+                                                (["--devices", "1", "2"], [1, 2], True)])
+def test_sweep_scaling_cli(argv, devices, real, monkeypatch, tmp_path):
+    """python -m ... bench scaling: one bench_scaling record over worlds of
+    --devices ranks (default 1, 2, 4), streamed to --out: the worlds run
+    at the JAX tests' shape (with --devices), or a recorder stands in."""
+    calls = []
+    bench = TH.bench_scaling
+
+    def small(devs, **kw):
+        calls.append((list(devs), kw))
+        if real:
+            return bench(devs, dim=32, **SCALING_SHAPE, **kw)
+        return {"kind": "scaling", "points": [{"devices": d} for d in devs]}
+
+    monkeypatch.setattr(TH, "bench_scaling", small)
+    out = tmp_path / "r.jsonl"
+    assert TS.main(["scaling", *argv, "--device", "cpu", "--out", str(out)]) == 0
+    assert [c[0] for c in calls] == [devices]
+    assert str(calls[0][1]["device"]) == "cpu"
+    (rec,) = [json.loads(line) for line in out.read_text().splitlines()]
+    assert rec["kind"] == "scaling" and [p["devices"] for p in rec["points"]] == devices
+    if real:
+        assert all(p["ms"] > 0 for p in rec["points"])
+
+
+def test_scaling_runners_without_a_gpu_raise(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn in (t_bench.bench_scaling, t_bench.bench_train_scaling):
+        with pytest.raises(RuntimeError, match="GPU"):
+            fn([1])
+    with pytest.raises(RuntimeError, match="GPU"):
+        TS.main(["scaling"])
 
 
 def test_cli_module_runs_on_the_cpu(tmp_path):

@@ -7,7 +7,11 @@ b = 16, 32 and 128, and a world of 2 ranks over gloo sharing the one GPU
 (allgather and ring, f32 and int8) against spmm_scipy, the allgather's
 exchange direct on the CUDA tensors and the ring's through the host, and
 the rule that picks those transports (``exchange.transport``) against
-what this torch's gloo does with CUDA tensors. These need a GPU
+what this torch's gloo does with CUDA tensors (all_gather, all_reduce,
+reduce_scatter and send/recv), and the backward pass of every exchange
+the training step crosses (the row all-gather, the shifts of the ring and
+the halo, the feature all-gather, the loss's sum) on a world of 4 ranks
+sharing the GPU, against its closed form. These need a GPU
 and skip without one; run them on one with
 
     python -m pytest --noconftest tests/test_torch_cuda_parallel.py -q
@@ -214,6 +218,12 @@ def _gloo_op_on_cuda(rank: int, n: int, op: str) -> bool:
         got = x.clone()
         dist.all_reduce(got, op=dist.ReduceOp.MAX)
         want = torch.full((4,), float(n - 1))
+    elif op == "reduce_scatter":
+        src = torch.arange(4 * n, dtype=torch.float32, device=DEV) + rank
+        got = torch.empty(4, device=DEV)
+        dist.reduce_scatter_tensor(got, src)
+        want = (torch.arange(4 * n, dtype=torch.float32) * n
+                + n * (n - 1) / 2)[rank * 4:(rank + 1) * 4]
     else:
         got = torch.empty(4, device=DEV)
         for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, (rank + 1) % n),
@@ -223,7 +233,8 @@ def _gloo_op_on_cuda(rank: int, n: int, op: str) -> bool:
     return bool(torch.equal(got.cpu(), want))
 
 
-@pytest.mark.parametrize("op", ["all_gather", "all_reduce", "send_recv"])
+@pytest.mark.parametrize("op", ["all_gather", "all_reduce", "reduce_scatter",
+                                "send_recv"])
 def test_gloo_takes_cuda_tensors(op):
     """exchange.transport's rule holds on this torch: the collectives it
     runs directly on CUDA tensors over gloo give the right values there,
@@ -239,3 +250,23 @@ def test_gloo_takes_cuda_tensors(op):
         res = str(e)
     print(f"{op} on CUDA tensors over gloo, torch {torch.__version__}: {res}")
     assert (res == [True, True]) == (op in _GLOO_CUDA_OPS), res
+
+
+@pytest.fixture(scope="module")
+def exchange_grads():
+    from spmm_denseblock_tpu_torch.parallel.world import run_world
+    from torch_parallel_cases import exchange_grad_cases
+
+    return run_world(exchange_grad_cases, 4, backend="gloo", args=(DEV,),
+                     timeout_s=120.0, threads=2)
+
+
+@pytest.mark.parametrize("name", ["all_gather_rows", "shift 1", "shift -2", "ring",
+                                  "all_reduce_sum", "gather_columns"])
+def test_exchange_backward_on_the_card(exchange_grads, name):
+    """Each rank's autograd gradient through the exchange (gloo: the
+    gathers and sums direct on the CUDA tensors, the shifts through the
+    host) against the closed form, within 1e-6."""
+    for got, want in (r[name] for r in exchange_grads):
+        assert got.shape == want.shape
+        assert _rel(got, want) < 1e-6
