@@ -13,7 +13,8 @@ tiers, int8 and bf16), then serves the rest of the model family at
 published widths (GraphSAGE on ddi and arxiv, the GIN graph classifier
 on a molecule batch, GAT on arxiv) and runs the ops beside SpMM (the
 dense-block GEMM, SDDMM, CSR -> BSR on the card), then drives the
-package's bench harness, its sweep CLI, spmm_tune and the profiler.
+package's bench harness, its sweep CLI, spmm_tune and the profiler, and
+runs the one-bf16-pass kernels of precision="default".
 
     python3 chip_smoke.py
 
@@ -306,20 +307,39 @@ Phases:
               restores into fresh templates and takes step 3 bit-equal to
               the uninterrupted one (torch's deterministic algorithms),
               bytes written per rank beside its shards, seconds per save
-              and restore; (d) dryrun_multichip(4), whole; (e)
-              bench_train_scaling and bench_scaling over worlds of 1, 2
-              and 4 ranks at JAX's default shapes; (f) the dist_train
+              and restore; (d) dryrun_multichip(4), whole, its last pass
+              the readiness harness (bench/readiness.py: halo, f32, worlds
+              of 1 and 4 ranks); (e) bench_train_scaling and bench_scaling
+              over worlds of 1 and 2 ranks at a small shape (TD_SCALING:
+              JAX's default grid took 120.5 s); (f) the dist_train
               example, 2 epochs, then resumed from its checkpoint. A
               {"train_dist": ...} JSON line follows the dist line
 
-The main path is phases 4 to 8c, each of their runs (f32 slice, int8
+  8d. default precision="default", the TPU's one bf16 pass (after bench,
+              on the main path; its times right after the models
+              phase's): bf16 K1 and K5 (resident=True) at bench.py's op
+              shape, K1 at b = 32 on the reorder phase's arxiv graph
+              (gorder, F = 128), K10's bf16 instance (sdb_csr_spmm_bf16)
+              at the op csr shape (F = 512), at ddi (F = 256) and on the
+              serve phase's graph (F = 128): each launching its entry,
+              within 1e-5 of its plain version and 3e-2 of float64 on
+              seeded normal X; then bf16_exact_case at each BSR plan's b
+              and F and each K10 graph with integer values and operand,
+              bit for bit against float64; each whole call (the operand's
+              cast included) timed beside its bound (bf16 bytes and
+              operations) and the library call (bf16 sparse_bsr @ X;
+              sparse_csr @ X in bf16 where PyTorch runs it, else f32)
+
+The main path is phases 4 to 8d, each of their runs (f32 slice, int8
 slice, CSR slice, bf16 slice, f32 training, "high" training, CSR
-training, op, reorder, serve, each configuration of models, and bench)
-with the launch counts set to 0 just before it and read just after;
-every kernel of the path must have run there, and the bench run must
-have launched K2, K1 and K10. Prints the kernels' JSON line,
-then the last line {"ok": true, "device": {...}}. Any failure raises and
-exits non-zero; there is no CPU path.
+training, op, reorder, serve, each configuration of models, bench and
+default) with the launch counts set to 0 just before it and read just
+after; every kernel of the path must have run there, and the bench run
+must have launched K2, K1 and K10. Every phase's seconds by the
+script's own clock are logged ("[phase] ..." lines) and summed up in the
+"[done]" line. Prints the kernels' JSON line, then the last line {"ok":
+true, "device": {...}}. Any failure raises and exits non-zero; there is
+no CPU path.
 """
 
 from __future__ import annotations
@@ -590,6 +610,7 @@ SDDMM_ARXIV_D = 128  # the element tier on arxiv
 SDDMM_DDI_D = 256    # the block tier on ddi's 1,156 blocks of 128
 CONVERT_B = 32       # csr_to_bsr_on_device on arxiv
 CONVERT_SHORT = 1000  # nnzb_max this far below the count: blocks dropped
+DEFAULT_F64_CHUNK = 2048  # phase 8d: blocks a chunk of bsr_f64's float64 sums
 # phase 8c, the bench harness, tuner and profiler
 BENCH_OP = (2e-2, 128, 512)  # bench.py's op shape through the harness: p, b, F
 BENCH_TIMER_TOL = 0.10       # the harness's ms vs cuda_ms on the same plan
@@ -625,6 +646,10 @@ _I8 = _CSRC + "bsr_spmm_int8.cu"
 KERNEL_INFO = {
     ("csr",): ("K10", "csr_spmm", _CSRC + "csr_spmm.cu",
                "spmm_denseblock_tpu/ops/csr_spmm_pallas.py:112"),
+    # K10 at one bf16 pass (precision="default": the same pallas_call at
+    # jax.lax.Precision.DEFAULT)
+    ("csr", "bf16"): ("K10", "csr_spmm_bf16", _CSRC + "csr_spmm.cu",
+                      "spmm_denseblock_tpu/ops/csr_spmm_pallas.py:112"),
     ("f", "flat", "exact"): ("K1", "bsr_spmm_flat", _F, _PALLAS + ":909"),
     ("f", "flat", "bf16"): ("K1", "bsr_spmm_flat_bf16", _F, _PALLAS + ":909"),
     ("f", "sorted", "exact"): ("K2", "bsr_spmm_sorted", _F, _PALLAS + ":686"),
@@ -659,6 +684,19 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# each phase's seconds by the script's own clock, in order
+PHASE_SECONDS: dict = {}
+
+
+def phase_done(name: str, t0: float) -> float:
+    """Records and logs the seconds since t0 as phase `name`; returns
+    now, the next phase's start."""
+    now = time.perf_counter()
+    PHASE_SECONDS[name] = now - t0
+    log(f"[phase] {name} in {now - t0:.1f} s")
+    return now
+
+
 def card() -> str:
     out = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -680,8 +718,9 @@ def reset_launches() -> None:
 def kernel_of(plan) -> tuple:
     """(id, kernel, source, replaces) of the kernel a forward plan
     launches."""
-    if plan.apply_fn is _csr_pallas_apply:
-        return KERNEL_INFO[("csr",)]
+    if plan.apply_fn is _csr_pallas_apply:  # a "default" plan holds bf16 values
+        return KERNEL_INFO[("csr",) if plan.arrays[2].dtype == torch.float32
+                           else ("csr", "bf16")]
     if plan.apply_fn is _int8_pallas_apply:
         return KERNEL_INFO[("i8", plan.statics[0])]
     layout, math = plan.statics[0], plan.statics[5]
@@ -2515,6 +2554,179 @@ def bench_phase(op_bsr: BSR, k2_op, x_op, graphs: dict, card_line: str) -> dict:
     return bp
 
 
+def bsr_f64(bsr: BSR, x) -> torch.Tensor:
+    """A @ x in float64 on the card from bsr's real blocks, summed in
+    chunks of DEFAULT_F64_CHUNK blocks; (n_rows, F)."""
+    b, n, F = bsr.b, bsr.nnzb, x.shape[1]
+    xb = torch.nn.functional.pad(x.double(), (0, 0, 0, bsr.n_block_cols * b - x.shape[0]))
+    xb = xb.reshape(-1, b, F)
+    rows = torch.as_tensor(bsr.block_rows[:n].astype(np.int64), device=x.device)
+    cols = torch.as_tensor(bsr.block_cols[:n].astype(np.int64), device=x.device)
+    out = torch.zeros(bsr.n_block_rows, b, F, dtype=torch.float64, device=x.device)
+    for s0 in range(0, n, DEFAULT_F64_CHUNK):
+        s1 = min(n, s0 + DEFAULT_F64_CHUNK)
+        blk = torch.as_tensor(bsr.blocks[s0:s1], device=x.device).double()
+        out.index_add_(0, rows[s0:s1], torch.bmm(blk, xb[cols[s0:s1]]))
+    return out.reshape(-1, F)[: bsr.shape[0]]
+
+
+def int_csr(csr: CSR, seed: int) -> CSR:
+    """csr's pattern with integer values of magnitude <= 16 (exact in
+    bf16)."""
+    vals = np.random.default_rng(seed).integers(-16, 17, size=csr.nnz)
+    return CSR(csr.indptr, csr.indices, vals.astype(np.float32), csr.shape)
+
+
+def default_phase(op_bsr: BSR, x_op, op_csr: CSR, ddi_adj: CSR, graphs: dict,
+                  best: str, read) -> dict:
+    """Phase 8d: precision="default", the TPU's one bf16 pass, on its
+    kernels: bf16 K1 (sdb_bsr_spmm_flat_bf16) and K5
+    (sdb_bsr_spmm_resident_bf16) at bench.py's op shape, K1 at b = 32 on
+    the reorder phase's arxiv graph (gorder), and K10's bf16 instance
+    (sdb_csr_spmm_bf16) at the op csr shape, at ddi (F = 256) and on the
+    serve phase's graph (F = 128). Each plan on seeded normal X: its
+    kernel launched (its own entry), within KERNEL_TOL of its plain
+    version and BF16_TOL of float64 (BSR: bsr_f64, or float64 scipy on
+    the graph; K10: the f32 plan's plain version, float64 sums of the
+    unrounded values); the counts read as "default". Then, after the
+    read, where nothing rounds: bf16_exact_case at each BSR plan's b and
+    F (K1 and, at b = 128, K5) and each K10 graph with integer values
+    and operand, each equal to float64 bit for bit (K10: its plain
+    version, float64 sums). Returns the cases for default_timing."""
+    t0 = time.perf_counter()
+    bsr32 = csr_to_bsr(graphs[best], 32)
+    serve_adj = sym_norm_adjacency(graphs[best])
+    log(f"[default] precision='default' (one bf16 pass): K1 and K5 at the op shape, "
+        f"K1 b=32 on ogbn-arxiv {best} (nnzb={bsr32.nnzb}), K10 at the op csr "
+        f"shape, ddi and the serve graph ({time.perf_counter() - t0:.1f} s host)")
+    cases = []
+    for label, bsr, kw, x, kind in (
+            ("op", op_bsr, {}, x_op, "flat"),
+            ("op", op_bsr, {"resident": True}, x_op, "resident"),
+            (f"b=32 ogbn-arxiv {best}", bsr32, {},
+             torch.as_tensor(seeded((bsr32.shape[1], REORDER_F), SEED + 301),
+                             device=DEV), "flat")):
+        t1 = time.perf_counter()
+        plan = bsr_spmm_pallas_plan(bsr, precision="default", grad=False, device=DEV,
+                                    **kw)
+        plan_s = time.perf_counter() - t1
+        if plan.statics[0] != kind or plan.statics[5] != "bf16":
+            raise AssertionError(f"default {label}: {plan.statics[0]} "
+                                 f"{plan.statics[5]}, expected {kind} bf16")
+        kid, name = kernel_of(plan)[:2]
+        tag = f"default {kid} {label}"
+        err = check_kernel(plan, x, tag)
+        if bsr is op_bsr:
+            want = bsr_f64(bsr, x)
+        else:
+            want = torch.as_tensor(graphs[best].to_scipy().astype(np.float64)
+                                   @ x.double().cpu().numpy(), device=DEV)
+        rel = rel_to(plan(x).double(), want)
+        log(f"  {tag} vs float64: max |err| / max |ref| {rel:.3e} (< {BF16_TOL}); "
+            f"plan {plan_s:.1f} s (host)")
+        if not rel < BF16_TOL:
+            raise AssertionError(f"{tag}: rel err {rel:.3e} vs float64")
+        cases.append({"label": f"{kid} {name} precision=default {label}", "plan": plan,
+                      "bsr": bsr, "x": x, "err": err, "name": name, "where": label})
+    for label, csr, F in (("op csr", op_csr, x_op.shape[1]), ("ddi", ddi_adj, 256),
+                          (f"serve {best}", serve_adj, REORDER_F)):
+        x = x_op if csr is op_csr else torch.as_tensor(
+            seeded((csr.n_cols, F), SEED + 302), device=DEV)
+        plan = csr_spmm_pallas_plan(csr, precision="default", grad=False, device=DEV)
+        f32 = csr_spmm_pallas_plan(csr, grad=False, device=DEV)
+        kid, name = kernel_of(plan)[:2]
+        tag = f"default {kid} {label}"
+        err = check_kernel(plan, x, tag)
+        rel = rel_to(plan(x), plain_apply(f32, x))
+        log(f"  {tag} vs float64 (the f32 plan's plain version): max |err| / max "
+            f"|ref| {rel:.3e} (< {BF16_TOL})")
+        if not rel < BF16_TOL:
+            raise AssertionError(f"{tag}: rel err {rel:.3e} vs float64")
+        del f32
+        cases.append({"label": f"{kid} {name} precision=default {label}", "plan": plan,
+                      "csr": csr, "x": x, "err": err, "name": name, "where": label})
+    expect = {}
+    for c in cases:
+        expect[c["name"]] = expect.get(c["name"], 0) + 2
+    read("default", expect)
+    for c in cases:
+        c["launches"] = 2
+
+    # where nothing rounds: every value an integer of magnitude <= 16
+    for b, F in ((op_bsr.b, x_op.shape[1]), (32, REORDER_F)):
+        ebsr, ex, want = bf16_exact_case(b, F)
+        ex = torch.as_tensor(ex, device=DEV)
+        want = torch.as_tensor(want, device=DEV).float()
+        for kw in ({}, {"resident": True}) if b == op_bsr.b else ({},):
+            plan = bsr_spmm_pallas_plan(ebsr, precision="default", grad=False,
+                                        device=DEV, **kw)
+            exact_launch(plan, ex, want, f"default {kernel_of(plan)[0]} b={b} F={F}")
+    for c in (c for c in cases if "csr" in c):
+        ic = int_csr(c["csr"], SEED + 303)
+        xi = torch.as_tensor(np.random.default_rng(SEED + 304).integers(
+            -16, 17, size=tuple(c["x"].shape)).astype(np.float32), device=DEV)
+        plan = csr_spmm_pallas_plan(ic, precision="default", grad=False, device=DEV)
+        got = plan(xi)
+        want = plain_apply(plan, xi)  # float64 sums: exact on integers
+        torch.cuda.synchronize()
+        n_bad = int((got != want).sum())
+        log(f"  default K10 {c['where']} integer values and operand: "
+            f"{n_bad} of {got.numel()} entries differ from float64 (bit for bit)")
+        if n_bad:
+            raise AssertionError(f"default K10 {c['label']}: {n_bad} entries differ")
+        del plan
+    return {"cases": cases}
+
+
+def default_timing(dp: dict, card_line: str) -> list:
+    """Phase 8d's times, after the counts were read: each plan's whole
+    call from the f32 operand (the cast included) by cuda_ms, its plain
+    version, its bound and the library call (BSR: bf16 sparse_bsr @ X;
+    K10: sparse_csr @ X in bf16 where PyTorch runs it on the card, else in
+    f32). Returns the kernels line's rows."""
+    rows = []
+    for c in dp["cases"]:
+        plan, x = c["plan"], c["x"]
+        kid, name, source, replaces = kernel_of(plan)
+        F = x.shape[1]
+        k_ms = cuda_ms(lambda: plan(x), iters=10)
+        p_ms = cuda_ms(lambda: plain_apply(plan, x), iters=2, warmup=1)
+        got = plan(x)
+        if "bsr" in c:
+            bsr = c["bsr"]
+            b_ms, b_by = bsr_bound("bf16", bsr, F)
+            pad = torch.nn.functional.pad
+            lib = library_ms(
+                "bsr", bsr, pad(x.to(torch.bfloat16),
+                                (0, 0, 0, bsr.n_block_cols * bsr.b - x.shape[0])),
+                pad(got, (0, 0, 0, bsr.n_block_rows * bsr.b - bsr.shape[0])), 2,
+                f"{c['label']} torch.sparse_bsr_tensor @ X, bf16")
+            lib_dtype = "bf16"
+            flops = 2.0 * bsr.nnzb * bsr.b * bsr.b * F
+        else:
+            csr = c["csr"]
+            b_ms, b_by = csr_bound(csr, F, e=2)
+            lib_dtype = "bf16"
+            lib = library_ms("csr", csr, x.to(torch.bfloat16), got, 5,
+                             f"{c['label']} torch.sparse_csr_tensor @ X, bf16")
+            if lib is None:
+                lib_dtype = "f32"
+                lib = library_ms("csr", csr, x, got, 5,
+                                 f"{c['label']} torch.sparse_csr_tensor @ X, f32")
+            flops = 2.0 * csr.nnz * F
+        log(f"  {c['label']}: whole call from the f32 operand {k_ms:.4f} ms "
+            f"{flops / k_ms / 1e6:.1f} GFLOP/s, plain {p_ms:.3f} ms, bound {b_ms:.4f} "
+            f"ms ({b_by}), library ({lib_dtype}) "
+            f"{'none' if lib is None else f'{lib:.4f} ms'} [{card_line}]")
+        rows.append({"name": c["label"], "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": c["launches"],
+                     "max_abs_err": c["err"], "ms": k_ms, "plain_ms": p_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                     "library_dtype": lib_dtype if lib is not None else None})
+        del got
+    return rows
+
+
 def main_path(ddi, adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str):
     """Phases 4 to 8c, each run with the launch counts set to 0 just
     before it and read just after. Returns what the timing needs."""
@@ -2531,6 +2743,7 @@ def main_path(ddi, adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str)
             totals[name] = totals.get(name, 0) + n
 
     n_spmm = 4 * (len(dims) - 1)
+    t_phase = time.perf_counter()
     reset_launches()
     plan, model, xs, refs = slice_phase(adj, dims, n_requests=4)
     read("f32 slice", {"bsr_spmm_sorted": n_spmm})
@@ -2543,6 +2756,7 @@ def main_path(ddi, adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str)
     reset_launches()
     plan_bf16, slice_bf16_err = bf16_slice_phase(adj, model, xs, refs)
     read("bf16 slice", {"bsr_spmm_sorted_bf16": n_spmm})
+    t_phase = phase_done("4 slice", t_phase)
 
     # step 0's hidden-layer forward for the ReLU pattern (1 SpMM), 5 steps
     # of 2 forward + 1 backward SpMMs, then the eval's 2 forwards
@@ -2557,11 +2771,13 @@ def main_path(ddi, adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str)
         if key == "high":  # each K3 call splits its operand once
             expect["split_bf16"] = expect[name]
         read(f"train {key}", expect)
+    t_phase = phase_done("5 train", t_phase)
 
     reset_launches()
     plans, errs = op_phase(op_bsr, x_op, calibration)
     plans[("csr", "csr")], errs[("csr", "csr")] = csr_op_phase(op_csr, x_op)
     read("op", {})
+    t_phase = phase_done("6 op", t_phase)
     # each plan's answer checked twice: against its plain version and
     # against spmm_scipy
     reset_launches()
@@ -2587,15 +2803,18 @@ def main_path(ddi, adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str)
     best = rphase["best"]
     del rphase
     torch.cuda.empty_cache()
+    t_phase = phase_done("7 reorder (with its timing)", t_phase)
     reset_launches()
     t0 = time.perf_counter()
     sp = serve_phase(graphs, best)
     log(f"[serve] phase in {time.perf_counter() - t0:.1f} s")
     read("serve", sp["expect"])
     sp["launched"] = launches()
+    t_phase = phase_done("8 serve", t_phase)
     t0 = time.perf_counter()
     mp = models_phase(ddi, graphs, best, op_bsr, plans[("f32", "sorted")], x_op, read)
     log(f"[models] phase in {time.perf_counter() - t0:.1f} s")
+    t_phase = phase_done("8b models", t_phase)
     reset_launches()
     t0 = time.perf_counter()
     bench_phase(op_bsr, plans[("f32", "sorted")], x_op, graphs, card_line)
@@ -2604,6 +2823,11 @@ def main_path(ddi, adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str)
     silent = [name for name in BENCH_KERNELS if launches()[name] == 0]
     if silent:
         raise AssertionError(f"bench: not launched: {silent}")
+    t_phase = phase_done("8c bench", t_phase)
+    torch.cuda.empty_cache()
+    reset_launches()
+    dp = default_phase(op_bsr, x_op, op_csr, adj, graphs, best, read)
+    t_phase = phase_done("8d default", t_phase)
     missing = [name for name in [kernel_of(p)[1] for p in plans.values()]
                + ["split_bf16", "quantize_int8"] if totals.get(name, 0) == 0]
     if missing:
@@ -2629,7 +2853,7 @@ def main_path(ddi, adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str)
     slices = {"f32": plan, "int8": plan_i8, "csr": plan_csr, "bf16": plan_bf16}
     return (slices, model, xs, train, plans, errs, totals,
             {"int8": slice_i8_err, "bf16": slice_bf16_err}, reorder_rows, sp, mp,
-            graphs)
+            dp, graphs)
 
 
 def bound(tag: str, flops: float, nbytes: float) -> tuple:
@@ -2651,12 +2875,15 @@ def bsr_bound(tag: str, bsr: BSR, F: int) -> tuple:
     return bound(tag, flops, nbytes)
 
 
-def csr_bound(csr: CSR, F: int) -> tuple:
-    """K10's bound: the real nonzeros (col and val) and a row pointer, the
-    operand and the output, each once; 2 F FFMA operations per nonzero."""
+def csr_bound(csr: CSR, F: int, e: int = 4) -> tuple:
+    """K10's bound: the real nonzeros (int32 col and an e-byte val) and a
+    row pointer, the e-byte operand and the f32 output, each once; 2 F
+    operations per nonzero at the card's peak for the operands' type
+    (e = 4: f32 on FFMA; e = 2, the one-bf16-pass instance: bf16 products
+    with f32 sums, the bf16 tensor cores' peak)."""
     M, K = csr.shape
-    nbytes = csr.nnz * 8 + (M + 1) * 8 + K * F * 4 + M * F * 4
-    return bound("f32", 2.0 * csr.nnz * F, nbytes)
+    nbytes = csr.nnz * (4 + e) + (M + 1) * 8 + K * F * e + M * F * 4
+    return bound("bf16" if e == 2 else "f32", 2.0 * csr.nnz * F, nbytes)
 
 
 def reorder_timing(rp: dict, card_line: str) -> list:
@@ -2805,7 +3032,8 @@ def device_profile(fn, iters: int):
 def library_call(kind: str, mat, x, cache: dict = None):
     """One PyTorch call computing what a kernel computes, as a yardstick
     (the port never calls it): torch.sparse_bsr_tensor @ X of the real
-    blocks ("bsr", in x's dtype) or torch.sparse_csr_tensor @ X ("csr").
+    blocks ("bsr", in x's dtype) or torch.sparse_csr_tensor @ X ("csr", its
+    values in x's dtype).
     Returns (fn, None), or (None, the error) where PyTorch refuses the
     call on the card. `cache` keeps each matrix's sparse tensor for the
     next call on the same matrix and dtype."""
@@ -2817,7 +3045,7 @@ def library_call(kind: str, mat, x, cache: dict = None):
             a = torch.sparse_csr_tensor(
                 torch.as_tensor(mat.indptr.astype(np.int64), device=DEV),
                 torch.as_tensor(mat.indices.astype(np.int64), device=DEV),
-                torch.as_tensor(mat.values(), device=DEV), mat.shape,
+                torch.as_tensor(mat.values(), device=DEV).to(x.dtype), mat.shape,
                 check_invariants=False)
         else:
             n = mat.nnzb
@@ -3400,11 +3628,15 @@ def dist_phase(op_bsr: BSR, x_op, k2_op, ddi_adj: CSR, ddi_model, ddi_plans: dic
 # ---------------------------------------------------------------------------
 
 TD_STEPS = 3                    # Adam steps a case
-TD_SCALING = [1, 2, 4]          # (e)'s worlds
+# (e)'s worlds and shapes: the smallest grid that still starts each
+# bench's rank function in a world of several ranks beside its one-rank
+# baseline (JAX's default grid, worlds of 1, 2 and 4 at 1,024 block-rows
+# of 64, took 120.5 s of the script's 1,200 on the H100)
+TD_SCALING = [1, 2]
 TD_DRYRUN_BLOCK_ROWS = 768      # (d)'s realistic pass, JAX's
 TD_ARXIV_DIMS = SERVE_DIMS      # OGB's arxiv GCN
 TD_MATCH_TOL = 1e-4             # (a): dist vs single-card losses and parameters
-TD_SCALING_KW = {}              # (e)'s shapes: JAX's defaults
+TD_SCALING_KW = dict(p=0.05, block_size=16, n_block_rows=32, dims=(16, 16, 4))
 TD_ONE_RANK_BACKEND = "nccl"    # (a)'s process group
 
 
@@ -3725,7 +3957,8 @@ def train_dist_phase(ddi: CSR, ddi_adj: CSR, dims, train_f32, graphs: dict,
                      card_line: str) -> dict:
     """Phase 11: (a) one NCCL rank here; (b)-(c) four gloo ranks spawned
     on the one GPU; (d) dryrun_multichip(4); (e) the scaling benches at
-    JAX's default shapes; (f) the dist_train example and its resume.
+    their smallest grid (TD_SCALING); (f) the dist_train example and its
+    resume.
     Returns the train_dist JSON line's object."""
     import tempfile
 
@@ -3903,6 +4136,7 @@ def main() -> int:
     _kernels.load()
     log(f"[build] {', '.join(str(p.relative_to(ROOT)) for p in libs)} in "
         f"{time.perf_counter() - t0:.1f} s")
+    t_phase = phase_done("1-2 set-up and build", t_start)
 
     t0 = time.perf_counter()
     ddi = ddi_graph(ROOT / "build" / "datasets")
@@ -3917,10 +4151,12 @@ def main() -> int:
     t0 = time.perf_counter()
     op_csr = random_csr(2e-3, op_bsr.shape[1], seed=SEED)
     log(f"[setup] random_csr(2e-3, 2^17) in {time.perf_counter() - t0:.1f} s")
+    t_phase = phase_done("3 kernels (and the op shape's set-up)", t_phase)
     dims = [256, 256, 256]
     (slices, model, xs, train, plans, errs, main_launches, slice_errs,
-     reorder_rows, sp, mp, graphs) = main_path(ddi, adj, dims, op_bsr, op_csr, x_op,
-                                               dense[:4096], card_line)
+     reorder_rows, sp, mp, dp, graphs) = main_path(ddi, adj, dims, op_bsr, op_csr, x_op,
+                                                   dense[:4096], card_line)
+    t_phase = time.perf_counter()
 
     # ---- timing (after the counts were read) ----------------------------
     log(f"[timing] card: {card_line}")
@@ -3931,6 +4167,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     model_rows = models_timing(mp, card_line)
     del mp
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    default_rows = default_timing(dp, card_line)
+    log(f"[default] timing in {time.perf_counter() - t0:.1f} s")
+    del dp
     torch.cuda.empty_cache()
     x0 = xs[0]
     ddi_flops = {"f32": 2.0 * calculate_nnzb(adj, 128) * 128 * 128 * dims[0],
@@ -4136,15 +4377,19 @@ def main() -> int:
                 f"{busy:.1%} of the span, {total:.4f} ms of device time a "
                 f"request: {top} [{card_line}]")
 
+    t_phase = phase_done("9 timing", t_phase)
+
     # phase 10, the distributed layer, after every other timing: its ranks
     # share the card, and their counts are read in each rank
     torch.cuda.empty_cache()
     dist_line = dist_phase(op_bsr, x_op, plans[("f32", "sorted")], adj, model,
                            {"f32": slices["f32"], "int8": slices["int8"]}, graphs,
                            card_line)
+    t_phase = phase_done("10 dist", t_phase)
     # phase 11, distributed training, after phase 10
     torch.cuda.empty_cache()
     train_dist_line = train_dist_phase(ddi, adj, dims, train["f32"], graphs, card_line)
+    t_phase = phase_done("11 train-dist", t_phase)
 
     # each kernel symbol's entry: the op-shape instance that runs it (K1,
     # K2, K4 and K5 in f32 and bf16, K3 "high" in its three instances,
@@ -4202,14 +4447,17 @@ def main() -> int:
         f"{'f32(bf16x3)' if t_high < t_f32 else 'f32'} (its self-check passed in "
         f"the op phase; high {t_high:.3f} ms, exact f32 {t_f32:.3f} ms) [{card_line}]")
     kernels = sorted(
-        [*kernels.values(), *reorder_rows, *serve_rows, *model_rows],
+        [*kernels.values(), *reorder_rows, *serve_rows, *model_rows, *default_rows],
         key=lambda k: (int(re.match(r"K(\d+)", k["name"]).group(1)), k["name"]))
     if {k["name"].split()[0] for k in kernels} != ALL_KERNELS | {"K6-K9"}:
         raise AssertionError(f"kernels line names other than {ALL_KERNELS} and "
                              f"the K6-K9 quantization")
     for tag, err in slice_errs.items():
         log(f"[slice] {tag} SpMMs' largest max |kernel - plain|: {err:.3e}")
-    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    phase_done("12 the kernels line", t_phase)
+    total = time.perf_counter() - t_start
+    log(f"[done] {total:.1f} s by the script's own clock: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in PHASE_SECONDS.items()))
     print(json.dumps({"dist": dist_line}))
     print(json.dumps({"train_dist": train_dist_line}))
     print(card_line)

@@ -51,3 +51,10 @@ def bsr_to_csr(bsr: BSR) -> CSR:
     vals = blocks.ravel()
     keep = (rows < bsr.shape[0]) & (cols < bsr.shape[1])
     return CSR.from_coo(rows[keep], cols[keep], vals[keep], bsr.shape)
+
+
+def csr_to_bsr_pruned(csr: CSR, block_size: int) -> BSR:
+    """csr_to_bsr under the name that convert callers use when they want
+    zero-block pruning made explicit: csr_to_bsr keeps only the blocks
+    that hold a stored nonzero already, so the two are the same."""
+    return csr_to_bsr(csr, block_size)

@@ -61,6 +61,16 @@
 // strip), so a strip of 64 columns keeps every lane busy with float4
 // loads. Each output element sums the same terms in the same order
 // whatever W is.
+//
+// One bf16 pass (precision="default", sdb_csr_spmm_bf16): the TPU kernel
+// at jax.lax.Precision.DEFAULT rounds S and G to bf16 and sums f32
+// products in f32. The same kernel instanced on bf16 X and bf16 values
+// (the plan rounds the values once, each call the operand) computes just
+// that: a bf16 value widened to f32 is exact (its bits shifted up 16),
+// a product of two such values is exact in f32, and the sums are the f32
+// FFMA sums above, in the same order. The partial rows, the reduction and
+// C stay f32. Each gather then reads 2*F bytes instead of 4*F, and the
+// caller's strips are twice as wide for the same share of the L2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,24 +90,49 @@ constexpr int kStripTile = 32;          // strips: columns per 8 lanes
 constexpr int kWideMinCtas = 3;         // one strip
 constexpr int kStripMinCtas = 4;        // strips
 
+// bf16 values are carried as their raw bits (uint16_t): widening one to
+// f32 puts its bits in the high half of the word, exactly.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(uint16_t v) {
+  return __uint_as_float((uint32_t)v << 16);
+}
+
+// V = 4 consecutive elements at p as f32: one 16-byte load of f32 or one
+// 8-byte load of bf16 (p aligned to it).
+__device__ __forceinline__ void load4(float* d, const float* p) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  d[0] = x.x;
+  d[1] = x.y;
+  d[2] = x.z;
+  d[3] = x.w;
+}
+__device__ __forceinline__ void load4(float* d, const uint16_t* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  d[0] = __uint_as_float(u.x << 16);  // little-endian: element 0 is low
+  d[1] = __uint_as_float(u.x & 0xffff0000u);
+  d[2] = __uint_as_float(u.y << 16);
+  d[3] = __uint_as_float(u.y & 0xffff0000u);
+}
+
 // The lane's N = TILE / L columns of a tile of TILE columns owned by L
-// lanes, from row xr (columns f0 ..); columns past n_valid read 0.
-template <int V, int L, int TILE>
+// lanes, from row xr (columns f0 ..; f32 or bf16 elements, as f32);
+// columns past n_valid read 0.
+template <int V, int L, int TILE, typename T>
 __device__ __forceinline__ void load_row(float (&xv)[TILE / L],
-                                         const float* __restrict__ xr,
+                                         const T* __restrict__ xr,
                                          int64_t n_valid, int gl) {
 #pragma unroll
   for (int j = 0; j < TILE / (L * V); ++j) {
     const int64_t f = (int64_t)(L * j + gl) * V;  // with V = 4, n_valid % 4 == 0
     if constexpr (V == 4) {
-      const float4 x = f < n_valid ? *reinterpret_cast<const float4*>(xr + f)
-                                   : make_float4(0.f, 0.f, 0.f, 0.f);
-      xv[4 * j + 0] = x.x;
-      xv[4 * j + 1] = x.y;
-      xv[4 * j + 2] = x.z;
-      xv[4 * j + 3] = x.w;
+      if (f < n_valid) {
+        load4(&xv[4 * j], xr + f);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) xv[4 * j + i] = 0.f;
+      }
     } else {
-      xv[j] = f < n_valid ? xr[f] : 0.f;
+      xv[j] = f < n_valid ? to_f32(xr[f]) : 0.f;
     }
   }
 }
@@ -125,14 +160,15 @@ __device__ __forceinline__ void store_row(float* __restrict__ row, int64_t f0,
 // tile's columns, stored at row dest of C (dest >= 0) or at row -dest - 1
 // of the scratch of partial rows. Task t is strip t / (n_tiles * n_seg),
 // segment t / n_tiles % n_seg, tile t % n_tiles of the strip: strip-major.
-template <int V, int L, int TILE>
+// T is the type of X and of the values: float, or uint16_t for bf16.
+template <typename T, int V, int L, int TILE>
 __global__ void __launch_bounds__(kThreads, L == 32 ? kWideMinCtas : kStripMinCtas)
     csr_segment_kernel(const int64_t* __restrict__ seg_start,
                        const int64_t* __restrict__ seg_end,
                        const int64_t* __restrict__ seg_dest,
                        const int32_t* __restrict__ cols,
-                       const float* __restrict__ vals,
-                       const float* __restrict__ x, float* __restrict__ out,
+                       const T* __restrict__ vals,
+                       const T* __restrict__ x, float* __restrict__ out,
                        float* __restrict__ partial, int64_t n_seg, int64_t F,
                        int64_t W, int64_t n_tiles, int64_t n_strips) {
   constexpr int N = TILE / L;  // columns per lane
@@ -146,7 +182,7 @@ __global__ void __launch_bounds__(kThreads, L == 32 ? kWideMinCtas : kStripMinCt
   if (f0 >= F) return;  // a tile of the last strip past F
   const int64_t n_valid = F - f0 < TILE ? F - f0 : TILE;
   const int64_t s0 = seg_start[seg], s1 = seg_end[seg];
-  const float* xt = x + f0;
+  const T* xt = x + f0;
   float acc[N] = {};
   for (int64_t base = s0; base < s1; base += kBatch) {
     const int n = (int)(s1 - base < kBatch ? s1 - base : kBatch);
@@ -156,7 +192,7 @@ __global__ void __launch_bounds__(kThreads, L == 32 ? kWideMinCtas : kStripMinCt
     for (int q = 0; q < kBatch / L; ++q) {
       const int k = q * L + gl;
       const int32_t c = k < n ? cols[base + k] : 0;
-      const float v = k < n ? vals[base + k] : 0.f;
+      const float v = k < n ? to_f32(vals[base + k]) : 0.f;
       const int nr = n - q * L < L ? n - q * L : L;  // pairs in row q
       int r = 0;
       for (; r + 4 <= nr; r += 4) {
@@ -217,37 +253,67 @@ __global__ void __launch_bounds__(kThreads)
 
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-template <int V, int L, int TILE>
+template <typename T, int V, int L, int TILE>
 cudaError_t launch_segments(const int64_t* ss, const int64_t* se,
                             const int64_t* sd, const int32_t* c,
-                            const float* v, const float* x, float* o,
+                            const T* v, const T* x, float* o,
                             float* partial, int64_t n_seg, int64_t F,
                             int64_t W, int64_t n_tiles, int64_t n_strips,
                             cudaStream_t s) {
   const int64_t n_ctas = ceil_div(n_strips * n_seg * n_tiles, kThreads / L);
   if (n_ctas > INT32_MAX) return cudaErrorInvalidConfiguration;
-  csr_segment_kernel<V, L, TILE><<<(unsigned)n_ctas, kThreads, 0, s>>>(
+  csr_segment_kernel<T, V, L, TILE><<<(unsigned)n_ctas, kThreads, 0, s>>>(
       ss, se, sd, c, v, x, o, partial, n_seg, F, W, n_tiles, n_strips);
   return cudaGetLastError();
 }
 
-template <int V>
+template <typename T, int V>
 cudaError_t launch(const int64_t* ss, const int64_t* se, const int64_t* sd,
-                   const int32_t* c, const float* v, const float* x, float* o,
+                   const int32_t* c, const T* v, const T* x, float* o,
                    float* partial, const int64_t* split_row,
                    const int64_t* part_ptr, int64_t n_seg, int64_t n_split,
                    int64_t F, int64_t W, cudaStream_t s) {
   const int64_t n_ft = ceil_div(F, kWideTile);
   cudaError_t err =
-      W >= F ? launch_segments<V, 32, kWideTile>(ss, se, sd, c, v, x, o, partial,
-                                                 n_seg, F, F, n_ft, 1, s)
-             : launch_segments<V, 8, kStripTile>(ss, se, sd, c, v, x, o, partial,
-                                                 n_seg, F, W, W / kStripTile,
-                                                 ceil_div(F, W), s);
+      W >= F ? launch_segments<T, V, 32, kWideTile>(ss, se, sd, c, v, x, o, partial,
+                                                    n_seg, F, F, n_ft, 1, s)
+             : launch_segments<T, V, 8, kStripTile>(ss, se, sd, c, v, x, o, partial,
+                                                    n_seg, F, W, W / kStripTile,
+                                                    ceil_div(F, W), s);
   if (err != cudaSuccess || n_split == 0) return err;
   csr_reduce_kernel<V><<<(unsigned)ceil_div(n_split * n_ft, kWarps), kThreads, 0, s>>>(
       split_row, part_ptr, partial, o, n_split, F, n_ft);
   return cudaGetLastError();
+}
+
+// The C entries' body: T is float (sdb_csr_spmm) or uint16_t, bf16 X
+// and values (sdb_csr_spmm_bf16). The vector loads need F % 4 == 0, X on
+// 4 elements' bytes and the f32 outputs on 16.
+template <typename T>
+int csr_spmm(const void* seg_start, const void* seg_end, const void* seg_dest,
+             const void* cols, const void* vals, const void* dense, void* out,
+             void* partial, const void* split_row, const void* part_ptr,
+             int64_t n_seg, int64_t n_split, int64_t F, int64_t W, void* stream) {
+  if (W < F && (W <= 0 || W % kStripTile != 0)) return (int)cudaErrorInvalidValue;
+  if (n_seg <= 0 || F <= 0) return (int)cudaSuccess;
+  const auto* ss = static_cast<const int64_t*>(seg_start);
+  const auto* se = static_cast<const int64_t*>(seg_end);
+  const auto* sd = static_cast<const int64_t*>(seg_dest);
+  const auto* c = static_cast<const int32_t*>(cols);
+  const auto* v = static_cast<const T*>(vals);
+  const auto* x = static_cast<const T*>(dense);
+  auto* o = static_cast<float*>(out);
+  auto* pt = static_cast<float*>(partial);
+  const auto* sr = static_cast<const int64_t*>(split_row);
+  const auto* pp = static_cast<const int64_t*>(part_ptr);
+  auto s = static_cast<cudaStream_t>(stream);
+  const bool vec4 = F % 4 == 0 && reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0 &&
+                    reinterpret_cast<uintptr_t>(o) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(pt) % 16 == 0;
+  return (int)(vec4 ? launch<T, 4>(ss, se, sd, c, v, x, o, pt, sr, pp, n_seg,
+                                   n_split, F, W, s)
+                    : launch<T, 1>(ss, se, sd, c, v, x, o, pt, sr, pp, n_seg,
+                                   n_split, F, W, s));
 }
 
 }  // namespace
@@ -260,6 +326,8 @@ cudaError_t launch(const int64_t* ss, const int64_t* se, const int64_t* sd,
 // must be a positive multiple of 32. Launches the segment kernel, then
 // the reduction if any row is split; returns the first cudaError_t (0 on
 // success; nothing is launched for an empty output).
+// sdb_csr_spmm: f32 values and X (K10); sdb_csr_spmm_bf16: bf16 values
+// and X (K10 at one bf16 pass), the same arguments otherwise. C is f32.
 extern "C" int sdb_csr_spmm(const void* seg_start, const void* seg_end,
                             const void* seg_dest, const void* cols,
                             const void* vals, const void* dense, void* out,
@@ -267,24 +335,19 @@ extern "C" int sdb_csr_spmm(const void* seg_start, const void* seg_end,
                             const void* part_ptr, int64_t n_seg,
                             int64_t n_split, int64_t F, int64_t W,
                             void* stream) {
-  if (W < F && (W <= 0 || W % kStripTile != 0)) return (int)cudaErrorInvalidValue;
-  if (n_seg <= 0 || F <= 0) return (int)cudaSuccess;
-  const auto* ss = static_cast<const int64_t*>(seg_start);
-  const auto* se = static_cast<const int64_t*>(seg_end);
-  const auto* sd = static_cast<const int64_t*>(seg_dest);
-  const auto* c = static_cast<const int32_t*>(cols);
-  const auto* v = static_cast<const float*>(vals);
-  const auto* x = static_cast<const float*>(dense);
-  auto* o = static_cast<float*>(out);
-  auto* pt = static_cast<float*>(partial);
-  const auto* sr = static_cast<const int64_t*>(split_row);
-  const auto* pp = static_cast<const int64_t*>(part_ptr);
-  auto s = static_cast<cudaStream_t>(stream);
-  const bool vec4 = F % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(o) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(pt) % 16 == 0;
-  return (int)(vec4 ? launch<4>(ss, se, sd, c, v, x, o, pt, sr, pp, n_seg,
-                                n_split, F, W, s)
-                    : launch<1>(ss, se, sd, c, v, x, o, pt, sr, pp, n_seg,
-                                n_split, F, W, s));
+  return csr_spmm<float>(seg_start, seg_end, seg_dest, cols, vals, dense, out,
+                         partial, split_row, part_ptr, n_seg, n_split, F, W,
+                         stream);
+}
+
+extern "C" int sdb_csr_spmm_bf16(const void* seg_start, const void* seg_end,
+                                 const void* seg_dest, const void* cols,
+                                 const void* vals, const void* dense, void* out,
+                                 void* partial, const void* split_row,
+                                 const void* part_ptr, int64_t n_seg,
+                                 int64_t n_split, int64_t F, int64_t W,
+                                 void* stream) {
+  return csr_spmm<uint16_t>(seg_start, seg_end, seg_dest, cols, vals, dense,
+                            out, partial, split_row, part_ptr, n_seg, n_split,
+                            F, W, stream);
 }

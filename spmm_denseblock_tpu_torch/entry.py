@@ -9,15 +9,14 @@ dryrun_multichip(n)  -> a world of n ranks on an ("row", "col") mesh
                         distributed training step (ring, hybrid, and
                         halo at a realistic stripe size), the int8
                         serving plans and the kernel-local ring plans
-                        (f32 and int8), the balanced halo.
+                        (f32 and int8), the balanced halo; then the
+                        readiness harness (bench/readiness.py) at its
+                        minimal combination.
 
     fn, (params, x) = entry()
     out = fn(params, x)            # (512, 16) logits
 
     python -m spmm_denseblock_tpu_torch.entry [--device cpu] [--dryrun N]
-
-The JAX dry run's last pass, the readiness harness, runs the JAX
-package's ``scripts/readiness_matrix.py`` and is not part of this one.
 """
 
 from __future__ import annotations
@@ -198,14 +197,21 @@ def _dryrun_realistic(mesh, shape, device, block_rows_per_stripe: int) -> str:
 
 
 def dryrun_multichip(n_devices: int, device=None, realistic_block_rows: int = 768) -> list:
-    """Every pass of the JAX package's dry run (but its readiness
-    harness) in a world of n_devices ranks on an (n/2, 2) mesh (n even
-    and >= 4; else (n, 1)); prints and returns rank 0's lines. Every rank
-    checks every pass; a failed one raises. device None: the card (one
+    """Every pass of the JAX package's dry run in a world of n_devices
+    ranks on an (n/2, 2) mesh (n even and >= 4; else (n, 1)), then its
+    last pass, the readiness harness at JAX's minimal combination (halo,
+    f32, 64 block-rows of 16, dim 32, worlds of 1 and min(4, n) ranks; its
+    records to a temporary file); prints and returns rank 0's lines and
+    the harness's. Every rank checks every pass; a failed one raises, as
+    does a failed combination of the harness. device None: the card (one
     GPU a rank over NCCL where there are enough, else every rank on the
     one GPU over gloo; RuntimeError without a GPU); "cpu": CPU ranks over
     gloo. realistic_block_rows: the realistic pass's block-rows a stripe
     (768, JAX's)."""
+    import tempfile
+    from pathlib import Path
+
+    from spmm_denseblock_tpu_torch.bench import readiness
     from spmm_denseblock_tpu_torch.ops._device import resolve_device
     from spmm_denseblock_tpu_torch.parallel.world import backend_for, run_world
 
@@ -215,6 +221,15 @@ def dryrun_multichip(n_devices: int, device=None, realistic_block_rows: int = 76
                       threads=2)[0]
     for line in lines:
         print(line)
+    with tempfile.TemporaryDirectory(prefix="sdb_readiness_") as tmp:
+        readiness.main([
+            "--devices", f"1,{min(4, n_devices)}", "--strategies", "halo",
+            "--dtypes", "f32", "--n-block-rows", "64", "--block-size", "16",
+            "--dim", "32", "--out", str(Path(tmp) / "readiness_dryrun.jsonl"),
+            "--device", dev.type,
+        ])
+    lines.append(f"dryrun_readiness_harness: mesh={_mesh_shape(n_devices)} ok")
+    print(lines[-1])
     return lines
 
 

@@ -25,8 +25,22 @@ DATASET_SIZES = {
     "ogbl-citation": (2_927_963, 60_921_468),
 }
 
+# Published structural statistics (OGB paper, Hu et al. 2020, dataset
+# tables; approximate): the calibration targets of the synthetic
+# stand-ins, never reported as measurements. clustering is the paper's
+# average local clustering coefficient.
+DATASET_PUBLISHED = {
+    "ogbn-arxiv": {"clustering": 0.226},
+    "ogbl-collab": {"clustering": 0.729},
+    "ogbn-products": {"clustering": 0.411},
+    "ogbn-proteins": {"clustering": 0.280},
+    "ogbl-ppa": {"clustering": 0.223},
+    "ogbl-ddi": {"clustering": 0.514},
+    "ogbl-citation": {"clustering": 0.178},
+}
+
 # Generator knobs per dataset for profile="calibrated": chosen so the
-# stand-in's sampled clustering coefficient lands near the published one.
+# stand-in's sampled clustering coefficient lands near DATASET_PUBLISHED's.
 # Keys starting with "_" are calibration records, not knobs.
 DATASET_PROFILES: dict = {
     "ogbl-citation": {"lattice": 0.4, "triadic": 0.15,

@@ -23,7 +23,12 @@ instance of K1, K2 or K5 (``bf16x3=True`` in the wrappers). A "high"
 plan splits its blocks once, at build, and holds their two bf16 planes
 (``split_planes``) instead of the f32 blocks; each call splits the
 operand once (``split_operand``, a kernel of its own), and K3 runs on the
-tensor cores. bf16 operands run every kernel through its own entry
+tensor cores. ``precision="default"`` on f32 operands is the TPU's
+single pass (``Precision.DEFAULT``: both operands rounded to bf16, f32
+products and sums): the plan rounds its blocks to bf16 once, each call
+rounds the operand once, and the bf16 entries of K1 or K5 run it (the
+JAX plan never sorts or row-groups a "default" plan); on bf16 operands
+"default" is the bf16 product itself. bf16 operands run every kernel through its own entry
 (``sdb_bsr_spmm_{flat,sorted,rowgroup,resident}_bf16``), on the tensor
 cores: at b = 64 and 128 on the wgmma ring, at ``bf16_tile_geometry``'s F
 tile width, at b = 16 and 32 (K3 too) on the small-block mma.sync loop,
@@ -965,8 +970,12 @@ def route_pallas_spmm(step_rows, slot_cols, blocks, dense, n_block_rows: int,
     precision_name "high" on an f32 operand runs K3's instance of the
     chosen kernel, and then `blocks` holds the bucket's bf16 planes
     (``split_planes``), as a single-card "high" plan does; on a bf16
-    operand it is the exact bf16 product. The TPU's VMEM fits are not
-    carried over: every layout's kernel runs at any operand width.
+    operand it is the exact bf16 product. precision_name "default" on an
+    f32 operand is one bf16 pass: `blocks` holds the bucket's blocks
+    rounded to bf16, the operand is rounded here once a call, and the
+    flat layout (the only one the plans pack for it) runs bf16 K1. The
+    TPU's VMEM fits are not carried over: every layout's kernel runs at
+    any operand width.
 
     walk: the port's extras of the bucket (pack_buckets_pallas): "ptr"
     (the step or group pointer over the real steps), "lane_order",
@@ -975,6 +984,8 @@ def route_pallas_spmm(step_rows, slot_cols, blocks, dense, n_block_rows: int,
     anyway, CUDA tensors launch the kernel or raise."""
     b = blocks.shape[1]
     bf16x3 = precision_name == "high" and dense.dtype == torch.float32
+    if precision_name == "default":  # one bf16 pass on the bf16 entries
+        dense = dense.to(torch.bfloat16)
     order = {"lane_order": walk["lane_order"], "depth": walk["depth"]}
     if isinstance(row_group, tuple) and row_group and row_group[0] == "sorted":
         _, R, gh, W = row_group
@@ -1027,24 +1038,31 @@ def _plan_dtype(dtype) -> Optional[torch.dtype]:
 
 def _plan_math(precision: Optional[str], dtype) -> str:
     """The products a plan runs: "exact" (f32 FFMA; bf16 x bf16 is exact
-    in f32) or "bf16x3" (K3: precision="high" on f32 operands). On bf16
-    operands "high" is exact: _dot3's split of a bf16 value is the value
-    and a zero residual, so it computes the bf16 products themselves."""
+    in f32), "bf16x3" (K3: precision="high" on f32 operands) or "bf16"
+    (precision="default" on f32 operands: the TPU's one bf16 pass, both
+    operands rounded to bf16 to nearest even, f32 products and sums, on
+    the bf16 entries). On bf16 operands "high" and "default" are exact:
+    _dot3's split of a bf16 value is the value and a zero residual, and
+    one bf16 pass over bf16 values rounds nothing. "highest" on bf16
+    operands raises: the TPU compiler refuses an f32 contract on bf16
+    vectors (the JAX kernel's note at its precision choice)."""
     two_byte = dtype == torch.bfloat16
-    if precision is None or (precision == "highest" and not two_byte):
+    if precision is None:
         return "exact"
-    if precision == "high":
-        return "exact" if two_byte else "bf16x3"
-    if precision in ("default", "highest"):
-        raise NotImplementedError(
-            f"precision={precision!r} with {'bf16' if two_byte else 'f32'} "
-            "operands is not ported (ROADMAP queue 1 item 4: one bf16 pass on "
-            "the TPU, which the JAX package's CPU interpret mode runs as "
-            "exact f32, so no parity test can hold it); use None, "
-            "\"highest\" (f32) or \"high\""
-        )
+    if precision == "highest":
+        if two_byte:
+            raise NotImplementedError(
+                "precision='highest' with bf16 operands: the TPU compiler "
+                "refuses an f32 contract on bf16 vectors, so the JAX kernel has "
+                "no such instance; use None, 'high' or 'default'"
+            )
+        return "exact"
+    if precision in ("high", "default"):
+        if two_byte:
+            return "exact"
+        return "bf16x3" if precision == "high" else "bf16"
     raise ValueError(
-        f"unknown precision {precision!r} (None, 'high' or 'highest')"
+        f"unknown precision {precision!r} (None, 'default', 'high' or 'highest')"
     )
 
 
@@ -1064,8 +1082,10 @@ def bsr_spmm_pallas_plan(
     and operand, f32 sum); int8 raises ValueError (use
     ``bsr_spmm_pallas_int8_plan``). group: slots per step (flat layouts)
     or per lane (row-group layouts); None picks the JAX plan's rule.
-    precision: None or "highest" (exact f32), or "high" (bf16x3, K3, on
-    f32 operands; exact on bf16); "default" raises NotImplementedError.
+    precision: None or "highest" (exact f32; "highest" on bf16 raises
+    NotImplementedError), "high" (bf16x3, K3, on f32 operands; exact on
+    bf16) or "default" (one bf16 pass on f32 operands: the blocks and the
+    operand rounded to bf16, f32 sums, the bf16 kernels; exact on bf16).
     grad: True (the default) returns a grad_plan whose backward runs a
     plan of Aᵀ built with the same arguments; False a forward plan.
     depth_sort: None follows the occupancy gate; True/False force it
@@ -1081,8 +1101,9 @@ def bsr_spmm_pallas_plan(
     at power-of-two groups; f32 with precision None or "high" takes the
     sorted layout at >= 8 and depth_sort, unless resident=False;
     everything else packs the flat layout at the _auto_group rule, run
-    by K5 with resident=True and by K1 otherwise. "high" runs the K3
-    instance of the chosen f32 kernel."""
+    by K5 with resident=True and by K1 otherwise: "default" always lands
+    there. "high" runs the K3 instance of the chosen f32 kernel,
+    "default" on f32 the bf16 instance of K1 or K5."""
     device = resolve_device(device)
     dtype = _plan_dtype(dtype)
     math = _plan_math(precision, dtype)
@@ -1156,6 +1177,8 @@ def bsr_spmm_pallas_plan(
     blocks_t = torch.as_tensor(arrays[2], device=device)
     if math == "bf16x3":  # K3 reads only the two bf16 planes
         arrays[2] = split_planes(blocks_t)
+    elif math == "bf16":  # one bf16 pass: the blocks rounded once, here
+        arrays[2] = blocks_t.to(torch.bfloat16)
     else:
         arrays[2] = blocks_t.to(dtype) if dtype is not None else blocks_t
     statics = (layout, nbr, n_rows, n_cols, k_needed, math, depth, geom)
@@ -1169,6 +1192,7 @@ def _pallas_apply(statics, arrays, dense, plain: bool = False):
     dense = torch.as_tensor(dense, device=blocks.device)
     if dense.dim() != 2 or dense.shape[0] != n_cols:
         raise ValueError(f"dense must be ({n_cols}, F), got {tuple(dense.shape)}")
+    # the operand in the blocks' type: a "bf16" plan rounds it here, once
     dense = dense.to(torch.float32 if bf16x3 else blocks.dtype)
     if k_needed > n_cols:  # zero rows up to the block grid
         dense = torch.nn.functional.pad(dense, (0, 0, 0, k_needed - n_cols))

@@ -24,6 +24,13 @@ store partial rows, which a second pass adds in order. Where X is larger
 than the card's L2, the kernel walks it in column strips whose width
 ``csr_strip_width`` picks, so that each strip's gathers hit L2.
 
+precision="default" is the TPU kernel's single pass
+(``jax.lax.Precision.DEFAULT``: the selector's values and the gathered
+rows rounded to bf16, f32 products and sums): the plan holds its values
+rounded to bf16 once, each call rounds the operand once, and K10's
+bf16-operand instance (``sdb_csr_spmm_bf16``) runs the same walk on them
+with the same f32 sums, reading half the gather bytes.
+
 Beside it sits its plain PyTorch version on the same packed arrays
 (``spmm_csr_segment_plain``): each slot adds val * X[col] into row
 chunk_band * R + local_row, the TPU kernel's selector written as an
@@ -138,13 +145,14 @@ CSR_STRIP_UNIT = 32    # columns of the strip walk's tile (8 lanes x float4)
 CSR_L2_SHARE = 0.7     # of the L2 a strip of X may fill
 
 
-def csr_strip_width(K: int, F: int, l2_bytes: int) -> int:
-    """K10's strip width W for a (K, F) f32 operand on a card with
-    l2_bytes of L2: the widest multiple of CSR_STRIP_UNIT whose (K, W)
-    slice of X fills at most CSR_L2_SHARE of the L2 (one unit if none
-    does), capped at F. The rest of the L2 is left to the streamed (col,
-    val) pairs and the output. W == F walks all of F as one strip."""
-    fit = int(CSR_L2_SHARE * l2_bytes) // max(1, 4 * K)
+def csr_strip_width(K: int, F: int, l2_bytes: int, itemsize: int = 4) -> int:
+    """K10's strip width W for a (K, F) operand of itemsize-byte elements
+    (4: f32, 2: bf16) on a card with l2_bytes of L2: the widest multiple
+    of CSR_STRIP_UNIT whose (K, W) slice of X fills at most CSR_L2_SHARE
+    of the L2 (one unit if none does), capped at F. The rest of the L2 is
+    left to the streamed (col, val) pairs and the output. W == F walks
+    all of F as one strip."""
+    fit = int(CSR_L2_SHARE * l2_bytes) // max(1, itemsize * K)
     return min(F, max(CSR_STRIP_UNIT, fit // CSR_STRIP_UNIT * CSR_STRIP_UNIT))
 
 
@@ -167,7 +175,7 @@ def spmm_csr_segment_plain(cols_pad, local_rows, vals, chunk_band, row_ptr,
     computes it: slot s of chunk k adds vals[s] * dense[cols_pad[s]] into
     row chunk_band[k] * R + local_rows[s]; a dummy adds 0 into its
     band's first row. Products and sums in float64 (exact products of
-    f32 values), rounded once to f32. row_ptr gives the row count only;
+    f32 or bf16 values), rounded once to f32. row_ptr gives the row count only;
     it and the segment arrays (row_segments) are the kernel's walk, not
     read here. Chunked over slots to bound the gathered operand's
     memory. Returns (n_rows, F) f32."""
@@ -196,8 +204,10 @@ def spmm_csr_segment(cols_pad, local_rows, vals, chunk_band, row_ptr,
     walks the segments of row_ptr's spans (row_segments) over cols_pad
     and vals, in column strips of csr_strip_width's width,
     n_partials = part_ptr[-1] partial rows for the split rows
-    (local_rows and chunk_band are the plain version's). CPU tensors run
-    spmm_csr_segment_plain; CUDA tensors run the CUDA kernel."""
+    (local_rows and chunk_band are the plain version's). vals and dense
+    are both f32 (sdb_csr_spmm) or both bf16 (one bf16 pass,
+    sdb_csr_spmm_bf16). CPU tensors run spmm_csr_segment_plain; CUDA
+    tensors run the CUDA kernel."""
     seg = (seg_start, seg_end, seg_dest, split_row, part_ptr)
     dev = _device_of(cols_pad, local_rows, vals, chunk_band, row_ptr, *seg,
                      dense)
@@ -209,9 +219,10 @@ def spmm_csr_segment(cols_pad, local_rows, vals, chunk_band, row_ptr,
     F = dense.shape[1]
     out = torch.empty(n_rows, F, dtype=torch.float32, device=dev)
     partial = torch.empty(n_partials, F, dtype=torch.float32, device=dev)
-    W = csr_strip_width(dense.shape[0], F, _l2_bytes(dev.index))
+    W = csr_strip_width(dense.shape[0], F, _l2_bytes(dev.index), dense.element_size())
+    kernel = _kernels.csr_spmm_bf16 if dense.dtype == torch.bfloat16 else _kernels.csr_spmm
     with torch.cuda.device(dev):
-        _kernels.csr_spmm(
+        kernel(
             seg_start.data_ptr(), seg_end.data_ptr(), seg_dest.data_ptr(),
             cols_pad.data_ptr(), vals.data_ptr(), dense.data_ptr(),
             out.data_ptr(), partial.data_ptr(), split_row.data_ptr(),
@@ -222,11 +233,13 @@ def spmm_csr_segment(cols_pad, local_rows, vals, chunk_band, row_ptr,
 
 
 def check_csr_operands(cols_pad, vals, seg, dense) -> None:
-    """What the CUDA kernel takes: an f32 (K, F) operand, int32 cols and
-    f32 vals of one length, the int64 segment arrays of row_segments,
-    all contiguous."""
-    named = [("cols_pad", cols_pad, torch.int32), ("vals", vals, torch.float32),
-             ("dense", dense, torch.float32)]
+    """What the CUDA kernel takes: a (K, F) operand and vals both f32 or
+    both bf16, int32 cols of vals' length, the int64 segment arrays of
+    row_segments, all contiguous."""
+    if dense.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dense must be float32 or bfloat16, got dtype {dense.dtype}")
+    named = [("cols_pad", cols_pad, torch.int32), ("vals", vals, dense.dtype),
+             ("dense", dense, dense.dtype)]
     named += [(n, t, torch.int64) for n, t in zip(
         ("seg_start", "seg_end", "seg_dest", "split_row", "part_ptr"), seg)]
     for name, t, dtype in named:
@@ -247,18 +260,15 @@ def check_csr_operands(cols_pad, vals, seg, dense) -> None:
 # -- the plan ---------------------------------------------------------------
 
 
-def _check_precision(precision) -> None:
-    """None or "highest" run exact f32, as JAX's HIGHEST does."""
+def _values_dtype(precision) -> torch.dtype:
+    """The type the plan holds its values in, which is the type its
+    kernel reads the operand in: f32 for None and "highest" (exact f32,
+    as JAX's HIGHEST), bf16 for "default" (one bf16 pass)."""
     if precision in (None, "highest"):
-        return
+        return torch.float32
     if precision == "default":
-        raise NotImplementedError(
-            "precision='default' is not ported (ROADMAP queue 1 item 4: one "
-            "bf16 pass on the TPU, which the JAX package's CPU interpret mode "
-            "runs as exact f32, so no parity test can hold it); use None or "
-            "\"highest\""
-        )
-    raise ValueError(f"unknown precision {precision!r} (None or 'highest')")
+        return torch.bfloat16
+    raise ValueError(f"unknown precision {precision!r} (None, 'default' or 'highest')")
 
 
 def csr_spmm_pallas_plan(
@@ -275,19 +285,21 @@ def csr_spmm_pallas_plan(
     chunk (C) and row_band (R) shape the band layout as in the JAX plan;
     K10's answer does not depend on them, nor on f_tile, which is taken
     for the JAX plan's signature and changes nothing. precision: None or
-    "highest" (exact f32); "default" raises NotImplementedError. The
-    operand is cast to f32. grad=True (the default) returns a grad_plan
-    whose backward runs a plan of Aᵀ built with the same arguments.
-    device: where the packed arrays live, None for the card."""
+    "highest" (exact f32: the operand is cast to f32), or "default" (one
+    bf16 pass: the values rounded to bf16 here, the operand at each
+    call, f32 products and sums). grad=True (the default) returns a
+    grad_plan whose backward runs a plan of Aᵀ built with the same
+    arguments. device: where the packed arrays live, None for the card."""
     device = resolve_device(device)
-    _check_precision(precision)
+    vals_dtype = _values_dtype(precision)
     if grad:
         kw = dict(f_tile=f_tile, chunk=chunk, row_band=row_band,
                   precision=precision, device=device)
         return grad_plan(csr_spmm_pallas_plan(csr, grad=False, **kw),
                          csr_spmm_pallas_plan(csr.transpose(), grad=False, **kw))
     n_rows, n_cols = (int(s) for s in csr.shape)
-    band = _band_layout(csr, row_band, chunk)
+    band = list(_band_layout(csr, row_band, chunk))
+    band[2] = torch.as_tensor(band[2], device=device).to(vals_dtype)
     segments = row_segments(band[4], csr.indptr)
     statics = (n_rows, n_cols, row_band, f_tile, int(segments[4][-1]))
     return Plan((*band, *segments), _csr_pallas_apply, statics, device=device)
@@ -299,7 +311,8 @@ def _csr_pallas_apply(statics, arrays, dense, plain: bool = False):
     dense = torch.as_tensor(dense, device=vals.device)
     if dense.dim() != 2 or dense.shape[0] != n_cols:
         raise ValueError(f"dense must be ({n_cols}, F), got {tuple(dense.shape)}")
-    dense = dense.to(torch.float32).contiguous()
+    # the operand in the values' type: a "default" plan rounds it here, once
+    dense = dense.to(vals.dtype).contiguous()
     fn = spmm_csr_segment_plain if plain else spmm_csr_segment
     return fn(*arrays, dense, R, n_partials)
 

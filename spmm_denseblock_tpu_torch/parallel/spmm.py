@@ -394,8 +394,9 @@ def dist_bsr_spmm_plan(
     stripe routers, every strategy). For ring/halo each chunk/offset
     bucket gets its own covered + group-packed layout
     (pack_buckets_pallas) and the per-step kernel outputs accumulate in
-    f32. group ("auto" or int) and precision ("high" = bf16x3, K3) are
-    the single-card plan's knobs and apply to the pallas path only, as do
+    f32. group ("auto" or int) and precision ("high" = bf16x3, K3;
+    "default" = one bf16 pass, bf16 K1 on flat stripes) are the
+    single-card plan's knobs and apply to the pallas path only, as do
     depth_sort (None or True: the occupancy gate; False: consecutive row
     groups, the JAX package's SDB_DEPTH_SORT=0) and group_scale (the
     int8 depth-sorted layout's one scale a lane-step; False is
@@ -611,7 +612,8 @@ def _bucket_blocks(idx, blocks_src, b, dtype_key, precision, rg, R, gh, t, devic
     values): int8 per block (quantize_blocks), per-slot scales, or, with
     the depth-sorted group-scale layout, each lane-step of the
     materialized f32 values to one scale; bf16 rounded to nearest even;
-    "high" on f32 holds the bf16 planes (split_planes, on the device)."""
+    "high" on f32 holds the bf16 planes (split_planes, on the device),
+    "default" on f32 the blocks rounded to bf16 (one bf16 pass)."""
     nz = idx > 0
     sel = idx[nz] - 1
     if dtype_key == "int8":
@@ -639,6 +641,9 @@ def _bucket_blocks(idx, blocks_src, b, dtype_key, precision, rg, R, gh, t, devic
     bv = materialize_packed(idx[..., None, None], blocks_src)
     if dtype_key in (None, "float32") and precision == "high":
         return (split_planes(torch.as_tensor(bv, device=device)),
+                np.zeros((1,), np.float32))
+    if dtype_key in (None, "float32") and precision == "default":
+        return (torch.as_tensor(bv, device=device).to(torch.bfloat16),
                 np.zeros((1,), np.float32))
     return bv.astype(np.float32, copy=False), np.zeros((1,), np.float32)
 

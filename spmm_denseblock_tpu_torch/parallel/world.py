@@ -1,9 +1,17 @@
 """Start a world of ranks on this machine and collect what each returns.
 
-``run_world(fn, n)`` spawns n processes (the "spawn" start method: no
-rank inherits the parent's CUDA state or its imports), initializes
+``run_world(fn, n)`` starts n processes, initializes
 ``torch.distributed`` in each over a file store in a fresh directory,
 calls ``fn(rank, n, *args)`` and returns the n results in rank order.
+The ranks fork from multiprocessing's fork server, a fresh interpreter
+that imports torch, the parallel package and the main module once
+(PRELOAD) and never touches CUDA: no rank inherits the parent's CUDA
+state, and a world does not wait for each rank to import torch, as it
+did under the "spawn" start method (scripts/torch_world_startup.py
+times the two). The server copies the environment once, when the first
+world starts: every later rank inherits that copy, so a variable the
+parent sets or changes after its first world (an NCCL_* or SDB_* knob)
+does not reach the ranks; pass such a value through `args` instead.
 The world has a deadline: the process group's own timeout, and a join
 that kills every rank still running and raises. A rank that raises
 fails the world with its traceback; none is reported as a pass.
@@ -28,6 +36,10 @@ from typing import Callable, List, Optional
 
 import torch
 import torch.distributed as dist
+
+
+# what the fork server imports before it forks a rank
+PRELOAD = ["__main__", "torch", "spmm_denseblock_tpu_torch.parallel"]
 
 
 def _child(fn, rank: int, n: int, backend: Optional[str], root: str, args: tuple,
@@ -70,12 +82,13 @@ def backend_for(device: torch.device, n: int) -> str:
 def run_world(fn: Callable, n: int, backend: Optional[str] = "gloo", args: tuple = (),
               timeout_s: float = 300.0, threads: Optional[int] = 1,
               root: Optional[str] = None) -> List:
-    """fn(rank, n, *args) on each of n spawned ranks; returns the results
+    """fn(rank, n, *args) on each of n ranks; returns the results
     in rank order. backend None leaves torch.distributed to fn. Raises RuntimeError with every failed rank's traceback,
     or when the world outlives timeout_s (its ranks are killed)."""
     made = root is None
     root = tempfile.mkdtemp(prefix="sdb_world_") if made else root
-    ctx = mp.get_context("spawn")
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(PRELOAD)  # read when the server starts
     procs = [ctx.Process(target=_child, args=(fn, r, n, backend, root, args,
                                               threads, timeout_s), daemon=True)
              for r in range(n)]

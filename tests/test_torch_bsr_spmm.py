@@ -336,18 +336,29 @@ def test_bf16_layout_gate():
     {"precision": "default", "grad": True},
 ])
 def test_out_of_scope_arguments_raise(kw):
-    """precision="default" (one bf16 pass on the TPU, exact f32 in the
-    JAX package's CPU interpret mode, so no parity test can hold it) and
-    "highest" on bf16 (refused by the TPU compiler) raise naming their
-    ROADMAP entry, before any packing, with grad too. grad=True,
-    precision="high" and resident=True are ported: see
-    test_torch_train.py and the layout-gate tests below."""
+    """"highest" on bf16 (refused by the TPU compiler) raises before any
+    packing, and an unknown precision raises ValueError. precision=
+    "default", once out of scope, is ported (one bf16 pass): with f32 or
+    bf16 operands and with grad, its plan takes JAX's flat layout and
+    gives JAX's answer on bf16_exact_case bit for bit (the whole parity
+    suite is tests/test_torch_precision_default.py)."""
     bsr = t_bsr.random_bsr(0.3, 4, 4, block_size=8, seed=0)
     kw = {"grad": False, **kw}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.bsr_spmm_pallas_plan(bsr, **kw, device="cpu")
     with pytest.raises(ValueError, match="precision"):
         T.bsr_spmm_pallas_plan(bsr, precision="bf16x3", device="cpu")
+    if kw["precision"] == "highest":
+        with pytest.raises(NotImplementedError, match="highest"):
+            T.bsr_spmm_pallas_plan(bsr, **kw, device="cpu")
+        return
+    case, x, want = bf16_exact_case(8, 16)
+    tp = T.bsr_spmm_pallas_plan(case, **kw, device="cpu")
+    jkw = {**kw, "dtype": jnp.bfloat16} if "dtype" in kw else kw
+    jp = J.bsr_spmm_pallas_plan(j_bsr.BSR.from_parts(
+        case.block_rows, case.block_cols, case.blocks, case.shape, 8), **jkw)
+    fwd, jfwd = (tp.arrays[0], jp.arrays[0]) if kw["grad"] else (tp, jp)
+    assert fwd.statics[0] == _jax_layout(jfwd) == "flat"
+    np.testing.assert_array_equal(tp(x).numpy(), np.asarray(jp(x)))
+    np.testing.assert_array_equal(tp(x).numpy(), want.astype(np.float32))
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, "int8", np.int8])

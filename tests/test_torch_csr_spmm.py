@@ -315,14 +315,19 @@ def test_spmm_plan_routes_bsr_input_to_csr_tiers(impl):
 
 
 def test_csr_pallas_rejections():
-    """precision="default" raises naming its ROADMAP entry, an unknown
-    precision raises ValueError; dtype=int8 on csr_pallas fails in both
-    routers, whose CSR planner takes no dtype; the ELL, hybrid and
-    windowed tiers, which raised before the port had them, now answer on
-    the same input (int8 at its 6e-2 gate)."""
+    """An unknown precision raises ValueError, and precision="default",
+    once refused, is ported (one bf16 pass: within the bf16 gate of
+    JAX's answer, its values held in bf16); dtype=int8 on csr_pallas
+    fails in both routers, whose CSR planner takes no dtype; the ELL,
+    hybrid and windowed tiers, which raised before the port had them, now
+    answer on the same input (int8 at its 6e-2 gate)."""
     jc, tc = _pair(0.1, 30, 20, seed=12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TP.csr_spmm_pallas_plan(tc, precision="default", device="cpu")
+    x = _x(20, 5, seed=13)
+    one_pass = TP.csr_spmm_pallas_plan(tc, precision="default", device="cpu")
+    assert one_pass.arrays[0].arrays[2].dtype == torch.bfloat16
+    want = np.asarray(JP.csr_spmm_pallas_plan(jc, precision="default")(x))
+    # the bf16 gate of tests/test_conformance.py: max |err| / max |ref|
+    assert np.abs(one_pass(x).numpy() - want).max() / np.abs(want).max() < 3e-2
     with pytest.raises(ValueError, match="precision"):
         TP.csr_spmm_pallas_plan(tc, precision="high", device="cpu")
     with pytest.raises(TypeError, match="dtype"):
@@ -519,6 +524,22 @@ def test_csr_strip_width(K, F, l2, want):
     assert W == F or (W % TP.CSR_STRIP_UNIT == 0 and W < F)
     if F > W > TP.CSR_STRIP_UNIT:
         assert K * W * 4 <= 0.7 * l2 < K * (W + TP.CSR_STRIP_UNIT) * 4
+
+
+@pytest.mark.parametrize("K,F,want", [
+    (1 << 17, 512, 128),    # the op csr shape: 4 strips, twice f32's 64
+    (1 << 16, 300, 256),    # f32: 128
+    (4267, 256, 256),       # ddi: X fits, one strip
+])
+def test_csr_strip_width_bf16(K, F, want):
+    """A bf16 operand (itemsize 2, precision="default"): the widest
+    multiple of the unit whose (K, W) bf16 slice fills at most 70% of the
+    L2, so twice an f32 strip's width where X outgrows the L2."""
+    W = TP.csr_strip_width(K, F, H100_L2, itemsize=2)
+    assert W == want
+    if F > W:
+        assert K * W * 2 <= 0.7 * H100_L2 < K * (W + TP.CSR_STRIP_UNIT) * 2
+        assert W == 2 * TP.csr_strip_width(K, F, H100_L2)
 
 
 def test_csr_strip_width_respects_the_unit():

@@ -12,7 +12,8 @@ groups) and K9 (single-row resident), all four on the int8 tensor cores
 (the wgmma ring at b = 64 and 128, the small-block mma.sync loop at b =
 16 and 32, with its hub lanes), and their operand's quantization
 (quantize_int8, bit for bit), and the CSR kernel K10 (one strip,
-and column strips) against their plain PyTorch versions on the card,
+and column strips; f32, and bf16 at precision="default") against their
+plain PyTorch versions on the card,
 their launch counters, the wrappers' refusals, grad plans' backward on
 the card against the plain backward, and the bench timers, spmm_tune's
 handling of a refused launch and the profiler's trace of a launch. CUDA kernels have no CPU mode, so
@@ -1455,8 +1456,41 @@ def test_csr_kernel_column_strips(F, monkeypatch):
     assert not got[:10].any() and not got[700:900].any()
     assert_allclose(got, spmm_scipy(csr, x.cpu().numpy()))
     for W in (32, 64, 96, F):
-        monkeypatch.setattr(TP, "csr_strip_width", lambda K, F, l2, W=W: W)
+        monkeypatch.setattr(TP, "csr_strip_width", lambda K, F, l2, itemsize=4, W=W: W)
         assert torch.equal(_check_csr(plan, x), got), W
+
+
+def _int_values(csr: CSR, seed: int) -> CSR:
+    """csr with integer values of magnitude <= 16."""
+    vals = np.random.default_rng(seed).integers(-16, 17, size=csr.nnz)
+    return CSR(csr.indptr, csr.indices, vals.astype(np.float32), csr.shape)
+
+
+@pytest.mark.parametrize("F", [7, 64, 300])
+def test_csr_bf16_kernel(F):
+    """K10's one-bf16-pass instance (precision="default",
+    sdb_csr_spmm_bf16; F = 7 the scalar path, 64 one strip, 300 column
+    strips of the bf16 width), rows split into segments and empty rows:
+    on integer values and operand, exact in bf16 with every sum under
+    2^24, it equals float64 bit for bit; on normal data it is within 1e-5
+    of its plain version and 3e-2 of float64; the f32 entry never runs."""
+    csr = _strip_csr(F) if F == 300 else _csr(seed=F)
+    rng = np.random.default_rng(F)
+    f32_before = _kernels.csr_spmm.launches
+    ints = _int_values(csr, F)
+    plan = TP.csr_spmm_pallas_plan(ints, precision="default", grad=False, device="cuda")
+    assert plan.arrays[2].dtype == torch.bfloat16
+    xi = rng.integers(-16, 17, size=(csr.n_cols, F)).astype(np.float32)
+    got = _check(plan, torch.as_tensor(xi, device="cuda"), _kernels.csr_spmm_bf16)
+    want = ints.to_scipy().astype(np.float64) @ xi.astype(np.float64)
+    assert np.array_equal(got.cpu().numpy(), want.astype(np.float32))
+    plan = TP.csr_spmm_pallas_plan(csr, precision="default", grad=False, device="cuda")
+    x = rng.standard_normal((csr.n_cols, F)).astype(np.float32)
+    got = _check(plan, torch.as_tensor(x, device="cuda"), _kernels.csr_spmm_bf16)
+    want = csr.to_scipy().astype(np.float64) @ x.astype(np.float64)
+    # the bf16 gate of tests/test_conformance.py: max |err| / max |ref|
+    assert np.abs(got.cpu().numpy() - want).max() / np.abs(want).max() < 3e-2
+    assert _kernels.csr_spmm.launches == f32_before
 
 
 def test_csr_entry_refuses_a_strip_width():
@@ -1686,7 +1720,7 @@ def test_spmm_tune_raises_a_refused_launch(monkeypatch):
     csr = random_csr(0.01, 4096, seed=5)
     x = np.random.default_rng(5).standard_normal((4096, 128)).astype(np.float32)
     with monkeypatch.context() as m:
-        m.setattr(TP, "csr_strip_width", lambda K, F, l2: 33)
+        m.setattr(TP, "csr_strip_width", lambda K, F, l2, itemsize=4: 33)
         with pytest.raises(RuntimeError, match="cudaError_t"):
             spmm_tune(csr, x, candidates=("csr_xla", "csr_pallas"), grad=False)
     plan, report = spmm_tune(csr, x, candidates=("csr_xla", "csr_pallas"), grad=False)

@@ -68,7 +68,7 @@ def test_dryrun_multichip_on_cpu_ranks():
     assert names == ["dryrun_multichip(4)", "dryrun_hybrid_ell", "dryrun_bsr_int8",
                      "dryrun_ell_int8_compact", "dryrun_ring_pallas",
                      "dryrun_ring_pallas_int8", "dryrun_balanced_halo",
-                     "dryrun_realistic"]
+                     "dryrun_realistic", "dryrun_readiness_harness"]
     assert all(line.endswith(" ok") for line in lines)
     assert "mesh=(2, 2)" in lines[0]
 

@@ -116,11 +116,13 @@ def _run(case: dict, meshes: dict) -> dict:
 
 def run_cases(rank: int, n: int, cases: list) -> dict:
     """Every case on this rank; rank 0 returns the results, the others
-    only their errors (a case's failure on any rank fails its test)."""
+    only their errors (a case's failure on any rank fails its test). The
+    "1d" mesh holds all n ranks; a world of 4 has the "2d" one too."""
     from spmm_denseblock_tpu_torch.parallel import make_mesh, make_mesh_1d
 
-    meshes = {"1d": make_mesh_1d(4, device_type="cpu"),
-              "2d": make_mesh((2, 2), device_type="cpu")}
+    meshes = {"1d": make_mesh_1d(n, device_type="cpu")}
+    if n == 4:
+        meshes["2d"] = make_mesh((2, 2), device_type="cpu")
     out = {}
     for case in cases:
         try:
@@ -132,12 +134,12 @@ def run_cases(rank: int, n: int, cases: list) -> dict:
     return {k: v for k, v in out.items() if "error" in v}
 
 
-def world_results(cases: list) -> dict:
-    """Run `cases` in one world of 4 gloo ranks on the CPU; the results
+def world_results(cases: list, n: int = 4) -> dict:
+    """Run `cases` in one world of n gloo ranks on the CPU; the results
     by case name, with any rank's error folded in."""
     from spmm_denseblock_tpu_torch.parallel.world import run_world
 
-    per_rank = run_world(run_cases, 4, args=(cases,), timeout_s=240.0)
+    per_rank = run_world(run_cases, n, args=(cases,), timeout_s=240.0)
     results = per_rank[0]
     for errs in per_rank[1:]:
         for name, v in errs.items():

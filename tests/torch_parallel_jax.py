@@ -1,6 +1,7 @@
 """JAX side of the distributed parity tests: each case's answer from the
-JAX package's plan on the same mesh size (make_mesh_1d(4), or
-make_mesh((2, 2)) for the "2d" cases), with Pallas in interpret mode on
+JAX package's plan on the same mesh size (make_mesh_1d(n), n = 4 unless
+the test's world is smaller, or make_mesh((2, 2)) for the "2d" cases),
+with Pallas in interpret mode on
 the 8-device CPU mesh of tests/conftest.py, as tests/test_parallel.py
 runs it. The port's keyword arguments that stand for the JAX package's
 SDB_* environment knobs are set as those knobs for the call."""
@@ -18,15 +19,15 @@ _ENV_KW = {"depth_sort": ("SDB_DEPTH_SORT", {True: "1", False: "0", None: "1"}),
            "group_scale": ("SDB_INT8_GROUP_SCALE", {True: "1", False: "0"})}
 
 
-def jax_mesh(name: str):
+def jax_mesh(name: str, n: int = 4):
     from spmm_denseblock_tpu.parallel import make_mesh, make_mesh_1d
 
-    if name not in _MESHES:
-        _MESHES[name] = make_mesh_1d(4) if name == "1d" else make_mesh((2, 2))
-    return _MESHES[name]
+    if (name, n) not in _MESHES:
+        _MESHES[(name, n)] = make_mesh_1d(n) if name == "1d" else make_mesh((2, 2))
+    return _MESHES[(name, n)]
 
 
-def jax_plan(case: dict):
+def jax_plan(case: dict, n: int = 4):
     import jax.numpy as jnp
 
     from spmm_denseblock_tpu.parallel import (
@@ -50,7 +51,7 @@ def jax_plan(case: dict):
     saved = {var: os.environ.get(var) for var in env}
     os.environ.update(env)
     try:
-        return build(case["jmat"], mesh=jax_mesh(case.get("mesh", "1d")), **kw)
+        return build(case["jmat"], mesh=jax_mesh(case.get("mesh", "1d"), n), **kw)
     finally:
         for var, v in saved.items():
             if v is None:
@@ -72,11 +73,12 @@ def rel(got, want) -> float:
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
 
-def check(results: dict, case: dict, tol: float = 1e-5) -> None:
-    """The port's gathered C (rank 0's) against the JAX plan's: a port
-    Plan whose buffers lie on the rank's device, its answer through the
-    whole operand, a RowStripe and the plain versions the same, within
-    `tol` of JAX's (relative to max |JAX|); the layout tag first."""
+def check(results: dict, case: dict, tol: float = 1e-5, n: int = 4) -> None:
+    """The port's gathered C (rank 0's) against the JAX plan's on n
+    devices: a port Plan whose buffers lie on the rank's device, its
+    answer through the whole operand, a RowStripe and the plain versions
+    the same, within `tol` of JAX's (relative to max |JAX|); the layout
+    tag first."""
     res = results[case["name"]]
     assert "error" not in res, res["error"]
     if case.get("raises"):
@@ -84,7 +86,7 @@ def check(results: dict, case: dict, tol: float = 1e-5) -> None:
 
         assert res["raised"] == case["raises"], res
         with pytest.raises(Exception) as err:
-            jax_plan(case)
+            jax_plan(case, n)
         assert type(err.value).__name__ == case["raises"]
         return
     assert res["is_plan"] and res["devices"] == ["cpu"] and res["n_buffers"] > 0
@@ -93,7 +95,7 @@ def check(results: dict, case: dict, tol: float = 1e-5) -> None:
         assert res.get("stripe_equal", True)
     if "strategy" in res:  # plan_strategy names the plan's own strategy
         assert res["plan_strategy"].split(" (")[0] == res["strategy"], res
-    plan = jax_plan(case)
+    plan = jax_plan(case, n)
     if "tag" in res:
         assert res["tag"] == jax_layout_tag(plan)
     want = (np.asarray(plan(case["x"], case["y"])) if case["kind"] == "sddmm"
