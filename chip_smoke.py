@@ -319,16 +319,19 @@ Phases:
               on the main path; its times right after the models
               phase's): bf16 K1 and K5 (resident=True) at bench.py's op
               shape, K1 at b = 32 on the reorder phase's arxiv graph
-              (gorder, F = 128), K10's bf16 instance (sdb_csr_spmm_bf16)
-              at the op csr shape (F = 512), at ddi (F = 256) and on the
-              serve phase's graph (F = 128): each launching its entry,
+              (gorder, F = 128), K10's one-bf16-pass kernel
+              (sdb_csr_spmm_bf16) at the op csr shape (F = 512), at ddi
+              (F = 256), on the serve phase's graph and on the arxiv
+              graph under each ordering (F = 128), each with its strips,
+              lanes a nonzero and segments a warp: each launching its entry,
               within 1e-5 of its plain version and 3e-2 of float64 on
               seeded normal X; then bf16_exact_case at each BSR plan's b
               and F and each K10 graph with integer values and operand,
               bit for bit against float64; each whole call (the operand's
               cast included) timed beside its bound (bf16 bytes and
               operations) and the library call (bf16 sparse_bsr @ X;
-              sparse_csr @ X in bf16 where PyTorch runs it, else f32)
+              sparse_csr @ X in bf16 where PyTorch runs it, else f32),
+              and the serve call's device busy share (torch.profiler)
 
 The main path is phases 4 to 8d, each of their runs (f32 slice, int8
 slice, CSR slice, bf16 slice, f32 training, "high" training, CSR
@@ -458,9 +461,11 @@ from spmm_denseblock_tpu_torch.ops.dispatch import (  # noqa: E402
     spmm_tune,
 )
 from spmm_denseblock_tpu_torch.ops.csr_spmm_pallas import (  # noqa: E402
+    CSR_BF16_MAX_STRIP,
     SEGMENT_NNZ,
     _csr_pallas_apply,
     _l2_bytes,
+    csr_bf16_strip_width,
     csr_spmm_pallas_plan,
     csr_strip_width,
 )
@@ -1790,10 +1795,12 @@ def serve_timing(sp: dict, launched: dict, card_line: str) -> list:
         lib = library_ms("csr", adj, x, want, 10,
                          f"serve torch.sparse_csr_tensor @ X, F={F}")
         k10 = cuda_ms(lambda: plans["csr_pallas"](x), iters=20)
+        k10_plain = cuda_ms(lambda: plain_apply(plans["csr_pallas"], x), iters=2, warmup=1)
         for label in SERVE_TIMED:
             p = plans[label]
             ms = k10 if label == "csr_pallas" else cuda_ms(lambda: p(x), iters=20)
-            log(f"  serve A @ X, F={F} {label:<12} ({tier_of(p)}) {ms:.4f} ms, "
+            plain = f" (plain {k10_plain:.3f} ms)" if label == "csr_pallas" else ""
+            log(f"  serve A @ X, F={F} {label:<12} ({tier_of(p)}) {ms:.4f} ms{plain}, "
                 f"{ms / k10:.2f}x K10, library "
                 f"{'none' if lib is None else f'{lib:.4f} ms'}, CSR bytes bound "
                 f"{b_ms:.4f} ms ({b_by}), max |err| / max |K10| "
@@ -2577,14 +2584,34 @@ def int_csr(csr: CSR, seed: int) -> CSR:
     return CSR(csr.indptr, csr.indices, vals.astype(np.float32), csr.shape)
 
 
+def k10_default_geometry(shape) -> str:
+    """The one-bf16-pass kernel's geometry on a (K, F) operand from the
+    cast (16-byte aligned), as csr_bf16_spmm in csrc/csr_spmm.cu picks
+    it: csr_bf16_strip_width's strips; V columns a load (8 where F % 8 ==
+    0, else 4 where F % 4 == 0, else 1) and J loads a lane (1 at V = 8,
+    else 256 / (32 V)); the fewest of 4, 8, 16, 32 lanes that cover a
+    strip, so 32 / lanes segments a warp; a precision="default" plan's
+    segments longest first (row_segments)."""
+    K, F = shape
+    W = csr_bf16_strip_width(K, F, _l2_bytes(0))
+    V = 8 if F % 8 == 0 else 4 if F % 4 == 0 else 1
+    J = 1 if V == 8 else CSR_BF16_MAX_STRIP // (32 * V)
+    lanes = next(L for L in (4, 8, 16, 32) if L * V * J >= min(W, F))
+    return (f"strips of W={W} (F / W = {-(-F // W)}), {lanes} lanes a nonzero "
+            f"({V} columns a load), segments a warp {32 // lanes} (longest first), "
+            f"cast: a separate .to(torch.bfloat16) pass before the kernel")
+
+
 def default_phase(op_bsr: BSR, x_op, op_csr: CSR, ddi_adj: CSR, graphs: dict,
                   best: str, read) -> dict:
     """Phase 8d: precision="default", the TPU's one bf16 pass, on its
     kernels: bf16 K1 (sdb_bsr_spmm_flat_bf16) and K5
     (sdb_bsr_spmm_resident_bf16) at bench.py's op shape, K1 at b = 32 on
-    the reorder phase's arxiv graph (gorder), and K10's bf16 instance
-    (sdb_csr_spmm_bf16) at the op csr shape, at ddi (F = 256) and on the
-    serve phase's graph (F = 128). Each plan on seeded normal X: its
+    the reorder phase's arxiv graph (gorder), and K10's one-bf16-pass
+    kernel (sdb_csr_spmm_bf16) at the op csr shape, at ddi (F = 256), on
+    the serve phase's graph and on the reorder phase's arxiv graph under
+    each of REORDER_ORDERINGS (F = 128), each with its geometry
+    (k10_default_geometry). Each plan on seeded normal X: its
     kernel launched (its own entry), within KERNEL_TOL of its plain
     version and BF16_TOL of float64 (BSR: bsr_f64, or float64 scipy on
     the graph; K10: the f32 plan's plain version, float64 sums of the
@@ -2598,7 +2625,8 @@ def default_phase(op_bsr: BSR, x_op, op_csr: CSR, ddi_adj: CSR, graphs: dict,
     serve_adj = sym_norm_adjacency(graphs[best])
     log(f"[default] precision='default' (one bf16 pass): K1 and K5 at the op shape, "
         f"K1 b=32 on ogbn-arxiv {best} (nnzb={bsr32.nnzb}), K10 at the op csr "
-        f"shape, ddi and the serve graph ({time.perf_counter() - t0:.1f} s host)")
+        f"shape, ddi, the serve graph and ogbn-arxiv under each ordering "
+        f"({time.perf_counter() - t0:.1f} s host)")
     cases = []
     for label, bsr, kw, x, kind in (
             ("op", op_bsr, {}, x_op, "flat"),
@@ -2628,8 +2656,10 @@ def default_phase(op_bsr: BSR, x_op, op_csr: CSR, ddi_adj: CSR, graphs: dict,
             raise AssertionError(f"{tag}: rel err {rel:.3e} vs float64")
         cases.append({"label": f"{kid} {name} precision=default {label}", "plan": plan,
                       "bsr": bsr, "x": x, "err": err, "name": name, "where": label})
-    for label, csr, F in (("op csr", op_csr, x_op.shape[1]), ("ddi", ddi_adj, 256),
-                          (f"serve {best}", serve_adj, REORDER_F)):
+    k10_cases = [("op csr", op_csr, x_op.shape[1]), ("ddi", ddi_adj, 256),
+                 (f"serve {best}", serve_adj, REORDER_F)]
+    k10_cases += [(f"arxiv {name}", graphs[name], REORDER_F) for name in REORDER_ORDERINGS]
+    for label, csr, F in k10_cases:
         x = x_op if csr is op_csr else torch.as_tensor(
             seeded((csr.n_cols, F), SEED + 302), device=DEV)
         plan = csr_spmm_pallas_plan(csr, precision="default", grad=False, device=DEV)
@@ -2639,7 +2669,7 @@ def default_phase(op_bsr: BSR, x_op, op_csr: CSR, ddi_adj: CSR, graphs: dict,
         err = check_kernel(plan, x, tag)
         rel = rel_to(plan(x), plain_apply(f32, x))
         log(f"  {tag} vs float64 (the f32 plan's plain version): max |err| / max "
-            f"|ref| {rel:.3e} (< {BF16_TOL})")
+            f"|ref| {rel:.3e} (< {BF16_TOL}); {k10_default_geometry(x.shape)}")
         if not rel < BF16_TOL:
             raise AssertionError(f"{tag}: rel err {rel:.3e} vs float64")
         del f32
@@ -2689,7 +2719,7 @@ def default_timing(dp: dict, card_line: str) -> list:
         plan, x = c["plan"], c["x"]
         kid, name, source, replaces = kernel_of(plan)
         F = x.shape[1]
-        k_ms = cuda_ms(lambda: plan(x), iters=10)
+        k_ms = cuda_ms(lambda: plan(x), iters=30)
         p_ms = cuda_ms(lambda: plain_apply(plan, x), iters=2, warmup=1)
         got = plan(x)
         if "bsr" in c:
@@ -2718,6 +2748,14 @@ def default_timing(dp: dict, card_line: str) -> list:
             f"{flops / k_ms / 1e6:.1f} GFLOP/s, plain {p_ms:.3f} ms, bound {b_ms:.4f} "
             f"ms ({b_by}), library ({lib_dtype}) "
             f"{'none' if lib is None else f'{lib:.4f} ms'} [{card_line}]")
+        if c["where"].startswith("serve"):  # a faster kernel may show the host
+            busy, by_kernel = device_profile(lambda: plan(x), iters=20)
+            if busy is None:
+                log(f"  {c['label']}: device busy share not measured ({by_kernel})")
+            else:
+                log(f"  {c['label']}: device busy {100 * busy:.1f}% of the span; "
+                    "device ms a call by kernel " + ", ".join(
+                        f"{k[:60]} {v:.4f}" for k, v in list(by_kernel.items())[:4]))
         rows.append({"name": c["label"], "route": "cuda", "source": source,
                      "replaces": replaces, "launches": c["launches"],
                      "max_abs_err": c["err"], "ms": k_ms, "plain_ms": p_ms,
@@ -3003,10 +3041,14 @@ def device_profile(fn, iters: int):
     """fn's device work under torch.profiler over `iters` calls: (the
     card's busy share of the span from the first kernel's start to the
     last one's end, {kernel name: device ms per call}, largest first), or
-    (None, why) where the profiler gives no device time."""
+    (None, why) where the profiler gives no device time. The ranges that
+    _kernels' launchers open under the profiler (sdb_<entry>) show on the
+    device's timeline too, over their kernels: they are not device work
+    and are left out, or a kernel would count twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    ranges = {k.symbol for k in _kernels.KERNELS}
     fn()
     torch.cuda.synchronize()
     try:
@@ -3014,7 +3056,8 @@ def device_profile(fn, iters: int):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        device = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and e.name not in ranges]
     except Exception as e:  # a measurement only: record why there is none
         return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
     if not device:

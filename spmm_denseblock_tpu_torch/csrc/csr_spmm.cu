@@ -62,15 +62,47 @@
 // loads. Each output element sums the same terms in the same order
 // whatever W is.
 //
-// One bf16 pass (precision="default", sdb_csr_spmm_bf16): the TPU kernel
-// at jax.lax.Precision.DEFAULT rounds S and G to bf16 and sums f32
-// products in f32. The same kernel instanced on bf16 X and bf16 values
-// (the plan rounds the values once, each call the operand) computes just
-// that: a bf16 value widened to f32 is exact (its bits shifted up 16),
-// a product of two such values is exact in f32, and the sums are the f32
-// FFMA sums above, in the same order. The partial rows, the reduction and
-// C stay f32. Each gather then reads 2*F bytes instead of 4*F, and the
-// caller's strips are twice as wide for the same share of the L2.
+// K10 at one bf16 pass (precision="default", sdb_csr_spmm_bf16) replaces
+// the same TPU kernel at jax.lax.Precision.DEFAULT, which rounds S and G
+// to bf16 and sums f32 products in f32. The plan rounds the values once,
+// each call the operand; a bf16 value widened to f32 is exact (its bits
+// shifted up 16), a product of two is exact in f32, and csr_bf16_kernel
+// sums them as the f32 kernel does (f32 FFMA in the row's order inside
+// batches of 32 pairs, batches added in order, a split row's partial rows
+// added in segment order by csr_reduce_kernel), so every output is the f32
+// kernel's on the rounded inputs, whatever the strip width or the packing.
+//
+// What bounds it on an H100. Where the bf16 X sits in the L2 (ddi; arxiv
+// and the serve graph, 169,343 rows of ~8 nonzeros at F = 128: 43 MB), not
+// the gather bytes but the load requests and each task's chain of
+// dependent loads: the segment's words, then its pairs, then its rows of
+// X, then the store. The f32 kernel's walk on bf16 made as many requests
+// as on f32 (8-byte loads of 4 columns) for half the bytes, and cut each
+// short row into tasks of 32 columns that each re-read the segment's
+// words and pairs (six tasks a row on the serve graph, two of them empty).
+// So this kernel
+// - gathers 8 bf16 (16 bytes) a lane and load, keeps them packed (4
+//   registers for 8 columns) until their FFMAs, and holds kBf16InFlight
+//   rows of X in flight a lane, the next batch's pairs loading meanwhile;
+// - runs one task per (segment, strip) over all of the strip's columns,
+//   on L = W / 8 lanes rounded up to 4, 8, 16 or 32, so 32 / L segments
+//   share a warp (2 at W = 128) and each reads its words and pairs once
+//   a strip;
+// - takes strips of equal width, a multiple of 8 and at most 256 columns
+//   (csr_bf16_strip_width: one of 128 on the serve graph, 4 x 128 at the
+//   op csr shape), strip-major in blockIdx order as above, so that a
+//   strip's gathers hit the L2 and no lane idles;
+// - walks a precision="default" plan's segments longest first
+//   (row_segments(longest_first=True): by batches of 32 slots, row order
+//   among equals), so a hub row's segments start first and do not hold up
+//   the end, and small CTAs (kBf16Threads) free their SM's slot as soon
+//   as their few segments end.
+// With the gathers cut to 64 rows of X (always cached) the kernel still
+// takes ~0.6x its time on the serve graph and ~0.75x at the op csr shape
+// (scripts/torch_csr_bf16_probe.py): the walk's chain costs more than
+// the gathers' bytes.
+// F % 8 != 0, or X off 16 bytes (a view at an odd offset), takes 8-byte
+// loads of 4 columns (V = 4) or 2-byte loads (V = 1) in the same kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -97,21 +129,13 @@ __device__ __forceinline__ float to_f32(uint16_t v) {
   return __uint_as_float((uint32_t)v << 16);
 }
 
-// V = 4 consecutive elements at p as f32: one 16-byte load of f32 or one
-// 8-byte load of bf16 (p aligned to it).
+// V = 4 consecutive f32 elements at p: one 16-byte load (p aligned to it).
 __device__ __forceinline__ void load4(float* d, const float* p) {
   const float4 x = *reinterpret_cast<const float4*>(p);
   d[0] = x.x;
   d[1] = x.y;
   d[2] = x.z;
   d[3] = x.w;
-}
-__device__ __forceinline__ void load4(float* d, const uint16_t* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  d[0] = __uint_as_float(u.x << 16);  // little-endian: element 0 is low
-  d[1] = __uint_as_float(u.x & 0xffff0000u);
-  d[2] = __uint_as_float(u.y << 16);
-  d[3] = __uint_as_float(u.y & 0xffff0000u);
 }
 
 // The lane's N = TILE / L columns of a tile of TILE columns owned by L
@@ -160,7 +184,7 @@ __device__ __forceinline__ void store_row(float* __restrict__ row, int64_t f0,
 // tile's columns, stored at row dest of C (dest >= 0) or at row -dest - 1
 // of the scratch of partial rows. Task t is strip t / (n_tiles * n_seg),
 // segment t / n_tiles % n_seg, tile t % n_tiles of the strip: strip-major.
-// T is the type of X and of the values: float, or uint16_t for bf16.
+// T is the type of X and of the values: float.
 template <typename T, int V, int L, int TILE>
 __global__ void __launch_bounds__(kThreads, L == 32 ? kWideMinCtas : kStripMinCtas)
     csr_segment_kernel(const int64_t* __restrict__ seg_start,
@@ -286,8 +310,7 @@ cudaError_t launch(const int64_t* ss, const int64_t* se, const int64_t* sd,
   return cudaGetLastError();
 }
 
-// The C entries' body: T is float (sdb_csr_spmm) or uint16_t, bf16 X
-// and values (sdb_csr_spmm_bf16). The vector loads need F % 4 == 0, X on
+// sdb_csr_spmm's body (T = float). The vector loads need F % 4 == 0, X on
 // 4 elements' bytes and the f32 outputs on 16.
 template <typename T>
 int csr_spmm(const void* seg_start, const void* seg_end, const void* seg_dest,
@@ -316,18 +339,261 @@ int csr_spmm(const void* seg_start, const void* seg_end, const void* seg_dest,
                                    n_split, F, W, s));
 }
 
+// ---- K10 at one bf16 pass ------------------------------------------------
+
+// Rows in flight, CTA shape and CTAs an SM holds (the cap on registers),
+// chosen on an H100 with scripts/torch_csr_bf16_probe.py at ddi, the serve
+// graph and the op csr shape (the candidates' times are in PERF.md): at
+// 64 registers (4 CTAs of 256) 8 rows in flight spill and the op shape
+// takes 2.5x as long; at 80 the instances of 8 to 32 lanes do not spill,
+// and small CTAs free an SM's slot as soon as their few segments end.
+constexpr int kBf16InFlight = 4;     // gathered rows in flight a lane
+constexpr int kBf16Threads = 64;     // threads a CTA
+constexpr int kBf16MinCtas = 12;     // CTAs an SM holds: 80 registers
+constexpr int kBf16Loads = 1;        // 16-byte loads a lane and row (V = 8)
+constexpr int kBf16MaxStrip = 256;   // columns of a strip: 32 lanes x 8
+constexpr int kBf16Unit = 8;         // a strip is a multiple of 8 columns
+
+// V consecutive elements of X's row at p as bf16, packed two to a 32-bit
+// word, element 2i in the low half of word i (little-endian): one 16-byte
+// load for V = 8, one 8-byte load for V = 4 (p aligned to it). Templated
+// on X's type so that scripts/torch_csr_bf16_probe.py can time f32 rows
+// rounded to bf16 here, in the gather, against the cast before the call.
+template <typename TX>
+struct Rows;
+template <>
+struct Rows<uint16_t> {
+  template <int V>
+  static __device__ __forceinline__ void load(uint32_t (&w)[(V + 1) / 2],
+                                              const uint16_t* p) {
+    if constexpr (V == 8) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+      w[0] = u.x;
+      w[1] = u.y;
+      w[2] = u.z;
+      w[3] = u.w;
+    } else if constexpr (V == 4) {
+      const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+      w[0] = u.x;
+      w[1] = u.y;
+    } else {
+      w[0] = __ldg(p);
+    }
+  }
+};
+
+// Element i of packed words w, widened to f32 (exact).
+__device__ __forceinline__ float widen(const uint32_t* w, int i) {
+  return __uint_as_float(i % 2 ? w[i / 2] & 0xffff0000u : w[i / 2] << 16);
+}
+
+// The pairs of the batch at slot b of a segment that ends at s1, lane gl
+// of L holding pairs q * L + gl (0 past the end).
+template <int L>
+__device__ __forceinline__ void load_pairs(int32_t (&c)[kBatch / L], float (&v)[kBatch / L],
+                                           const int32_t* __restrict__ cols,
+                                           const uint16_t* __restrict__ vals,
+                                           int64_t b, int64_t s1, int gl) {
+#pragma unroll
+  for (int q = 0; q < kBatch / L; ++q) {
+    const int64_t k = b + q * L + gl;
+    c[q] = k < s1 ? cols[k] : 0;
+    v[q] = k < s1 ? to_f32(vals[k]) : 0.f;
+  }
+}
+
+// One (segment, strip) per group of L lanes, strip-major: task t is strip
+// t / n_seg, segment t % n_seg. Lane gl of the group owns the strip's
+// columns (j * L + gl) * V .. + V - 1, j < J. The segment's (col, val)
+// pairs are read in batches of 32 (the next batch's while this one's rows
+// are gathered), lane gl holding pairs q * L + gl, and broadcast with
+// __shfl_sync; kBf16InFlight rows of X are loaded, packed, before their
+// FFMAs, which run in the row's order. Stores the segment's sum at row
+// dest of C (dest >= 0) or at row -dest - 1 of the partial rows.
+template <typename TX, int V, int L, int J>
+__global__ void __launch_bounds__(kBf16Threads, kBf16MinCtas)
+    csr_bf16_kernel(const int64_t* __restrict__ seg_start,
+                    const int64_t* __restrict__ seg_end,
+                    const int64_t* __restrict__ seg_dest,
+                    const int32_t* __restrict__ cols,
+                    const uint16_t* __restrict__ vals,
+                    const TX* __restrict__ x, float* __restrict__ out,
+                    float* __restrict__ partial, int64_t n_seg, int64_t F,
+                    int64_t W, int64_t n_strips) {
+  constexpr int NW = (V + 1) / 2;  // packed words for V columns
+  constexpr int N = J * V;         // columns a lane
+  constexpr int Q = kBatch / L;    // pairs a lane and batch
+  constexpr int U = kBf16InFlight;
+  const int gl = threadIdx.x % L;
+  const unsigned mask =  // the group's lanes
+      (unsigned)(((1ull << L) - 1) << (threadIdx.x % 32 / L * L));
+  const int64_t task = (int64_t)blockIdx.x * (kBf16Threads / L) + threadIdx.x / L;
+  if (task >= n_strips * n_seg) return;  // uniform over the group
+  const int64_t seg = task % n_seg;
+  const int64_t f0 = task / n_seg * W;
+  const int64_t n_valid = F - f0 < W ? F - f0 : W;
+  const int64_t s0 = seg_start[seg], s1 = seg_end[seg];
+  const TX* xs = x + f0;
+  float acc[N] = {};
+  int32_t c[Q];
+  float v[Q];
+  load_pairs<L>(c, v, cols, vals, s0, s1, gl);
+  for (int64_t base = s0; base < s1; base += kBatch) {
+    const int n = (int)(s1 - base < kBatch ? s1 - base : kBatch);
+    int32_t cn[Q];
+    float vn[Q];
+    load_pairs<L>(cn, vn, cols, vals, base + kBatch, s1, gl);
+    float part[N] = {};
+#pragma unroll
+    for (int k0 = 0; k0 < kBatch; k0 += U) {
+      if (k0 >= n) break;
+      uint32_t w[U][J][NW];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = k0 + u;  // pair k of the batch: lane k % L's q = k / L
+        const int64_t ck = __shfl_sync(mask, c[k / L], k % L, L);
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int64_t f = (int64_t)(j * L + gl) * V;
+          if (k < n && f < n_valid) {
+            Rows<TX>::template load<V>(w[u][j], xs + ck * F + f);
+          } else {
+#pragma unroll
+            for (int i = 0; i < NW; ++i) w[u][j][i] = 0u;
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = k0 + u;
+        if (k >= n) break;
+        const float vk = __shfl_sync(mask, v[k / L], k % L, L);
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+#pragma unroll
+          for (int i = 0; i < V; ++i)
+            part[j * V + i] = fmaf(vk, widen(w[u][j], i), part[j * V + i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) acc[i] += part[i];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      c[q] = cn[q];
+      v[q] = vn[q];
+    }
+  }
+  const int64_t dest = seg_dest[seg];
+  float* o = (dest >= 0 ? out + dest * F : partial + (-dest - 1) * F) + f0;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int64_t f = (int64_t)(j * L + gl) * V;
+    if (f >= n_valid) continue;
+    if constexpr (V == 1) {
+      o[f] = acc[j];
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; i += 4)
+        *reinterpret_cast<float4*>(o + f + i) = make_float4(
+            acc[j * V + i], acc[j * V + i + 1], acc[j * V + i + 2], acc[j * V + i + 3]);
+    }
+  }
+}
+
+template <typename TX, int V, int L, int J>
+cudaError_t launch_bf16_tasks(const int64_t* ss, const int64_t* se,
+                              const int64_t* sd, const int32_t* c,
+                              const uint16_t* v, const TX* x, float* o,
+                              float* partial, int64_t n_seg, int64_t F,
+                              int64_t W, int64_t n_strips, cudaStream_t s) {
+  const int64_t n_ctas = ceil_div(n_strips * n_seg, kBf16Threads / L);
+  if (n_ctas > INT32_MAX) return cudaErrorInvalidConfiguration;
+  csr_bf16_kernel<TX, V, L, J><<<(unsigned)n_ctas, kBf16Threads, 0, s>>>(
+      ss, se, sd, c, v, x, o, partial, n_seg, F, W, n_strips);
+  return cudaGetLastError();
+}
+
+// The group for strips of W columns read V columns a load, J loads a
+// lane: the fewest of 4, 8, 16 and 32 lanes that cover a strip.
+template <typename TX, int V, int J>
+cudaError_t launch_bf16(const int64_t* ss, const int64_t* se,
+                        const int64_t* sd, const int32_t* c,
+                        const uint16_t* v, const TX* x, float* o,
+                        float* partial, int64_t n_seg, int64_t F, int64_t W,
+                        cudaStream_t s) {
+  static_assert(32 * V * J >= kBf16MaxStrip, "32 lanes must cover a strip");
+  const int64_t lanes = ceil_div(W, V * J), n_strips = ceil_div(F, W);
+  return lanes <= 4    ? launch_bf16_tasks<TX, V, 4, J>(ss, se, sd, c, v, x, o, partial,
+                                                         n_seg, F, W, n_strips, s)
+         : lanes <= 8  ? launch_bf16_tasks<TX, V, 8, J>(ss, se, sd, c, v, x, o, partial,
+                                                         n_seg, F, W, n_strips, s)
+         : lanes <= 16 ? launch_bf16_tasks<TX, V, 16, J>(ss, se, sd, c, v, x, o, partial,
+                                                          n_seg, F, W, n_strips, s)
+                       : launch_bf16_tasks<TX, V, 32, J>(ss, se, sd, c, v, x, o, partial,
+                                                          n_seg, F, W, n_strips, s);
+}
+
+// sdb_csr_spmm_bf16's body, on X of type TX (uint16_t: bf16). 16-byte
+// loads (V = 8) need F % 8 == 0 and X on 16 bytes, 8-byte loads (V = 4)
+// F % 4 == 0 and X on 8; both need the f32 outputs on 16. Then the
+// reduction of split rows, shared with the f32 kernel.
+template <typename TX>
+int csr_bf16_spmm(const void* seg_start, const void* seg_end, const void* seg_dest,
+                  const void* cols, const void* vals, const void* dense, void* out,
+                  void* partial, const void* split_row, const void* part_ptr,
+                  int64_t n_seg, int64_t n_split, int64_t F, int64_t W, void* stream) {
+  if (W < F && (W <= 0 || W % kBf16Unit != 0)) return (int)cudaErrorInvalidValue;
+  if (n_seg <= 0 || F <= 0) return (int)cudaSuccess;
+  if (W > F) W = F;
+  if (W > kBf16MaxStrip) return (int)cudaErrorInvalidValue;
+  const auto* ss = static_cast<const int64_t*>(seg_start);
+  const auto* se = static_cast<const int64_t*>(seg_end);
+  const auto* sd = static_cast<const int64_t*>(seg_dest);
+  const auto* c = static_cast<const int32_t*>(cols);
+  const auto* v = static_cast<const uint16_t*>(vals);
+  const auto* x = static_cast<const TX*>(dense);
+  auto* o = static_cast<float*>(out);
+  auto* pt = static_cast<float*>(partial);
+  auto s = static_cast<cudaStream_t>(stream);
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  const bool out16 = F % 4 == 0 && reinterpret_cast<uintptr_t>(o) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(pt) % 16 == 0;
+  constexpr size_t a8 = 8 * sizeof(TX) < 16 ? 8 * sizeof(TX) : 16;
+  cudaError_t err =
+      out16 && F % 8 == 0 && xa % a8 == 0
+          ? launch_bf16<TX, 8, kBf16Loads>(ss, se, sd, c, v, x, o, pt, n_seg, F, W, s)
+      : out16 && xa % (4 * sizeof(TX)) == 0
+          ? launch_bf16<TX, 4, kBf16MaxStrip / 128>(ss, se, sd, c, v, x, o, pt, n_seg,
+                                                    F, W, s)
+          : launch_bf16<TX, 1, kBf16MaxStrip / 32>(ss, se, sd, c, v, x, o, pt, n_seg,
+                                                   F, W, s);
+  if (err != cudaSuccess || n_split == 0) return (int)err;
+  const int64_t n_ft = ceil_div(F, kWideTile);
+  const unsigned n_ctas = (unsigned)ceil_div(n_split * n_ft, kWarps);
+  const auto* sr = static_cast<const int64_t*>(split_row);
+  const auto* pp = static_cast<const int64_t*>(part_ptr);
+  if (out16) {
+    csr_reduce_kernel<4><<<n_ctas, kThreads, 0, s>>>(sr, pp, pt, o, n_split, F, n_ft);
+  } else {
+    csr_reduce_kernel<1><<<n_ctas, kThreads, 0, s>>>(sr, pp, pt, o, n_split, F, n_ft);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface, bound with ctypes. Pointers are device pointers; the
 // stream is the caller's current stream. seg_start, seg_end, seg_dest
 // (n_seg,), split_row (n_split,) and part_ptr (n_split + 1,) are int64;
 // partial is (part_ptr[n_split], F) f32 scratch (unused when n_split is
-// 0). W is the strip width: W >= F walks all of F as one strip, else W
-// must be a positive multiple of 32. Launches the segment kernel, then
-// the reduction if any row is split; returns the first cudaError_t (0 on
-// success; nothing is launched for an empty output).
-// sdb_csr_spmm: f32 values and X (K10); sdb_csr_spmm_bf16: bf16 values
-// and X (K10 at one bf16 pass), the same arguments otherwise. C is f32.
+// 0). W is the strip width: W >= F walks all of F as one strip. Launches
+// the segment kernel, then the reduction if any row is split; returns the
+// first cudaError_t (0 on success; nothing is launched for an empty
+// output).
+// sdb_csr_spmm: f32 values and X (K10); W < F must be a positive multiple
+// of 32. sdb_csr_spmm_bf16: bf16 values and X (K10 at one bf16 pass), the
+// same arguments otherwise; W < F must be a positive multiple of 8, and a
+// strip at most 256 columns. C is f32.
 extern "C" int sdb_csr_spmm(const void* seg_start, const void* seg_end,
                             const void* seg_dest, const void* cols,
                             const void* vals, const void* dense, void* out,
@@ -347,7 +613,7 @@ extern "C" int sdb_csr_spmm_bf16(const void* seg_start, const void* seg_end,
                                  const void* part_ptr, int64_t n_seg,
                                  int64_t n_split, int64_t F, int64_t W,
                                  void* stream) {
-  return csr_spmm<uint16_t>(seg_start, seg_end, seg_dest, cols, vals, dense,
-                            out, partial, split_row, part_ptr, n_seg, n_split,
-                            F, W, stream);
+  return csr_bf16_spmm<uint16_t>(seg_start, seg_end, seg_dest, cols, vals, dense,
+                                 out, partial, split_row, part_ptr, n_seg, n_split,
+                                 F, W, stream);
 }

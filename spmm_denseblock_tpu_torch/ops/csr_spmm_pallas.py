@@ -28,8 +28,11 @@ precision="default" is the TPU kernel's single pass
 (``jax.lax.Precision.DEFAULT``: the selector's values and the gathered
 rows rounded to bf16, f32 products and sums): the plan holds its values
 rounded to bf16 once, each call rounds the operand once, and K10's
-bf16-operand instance (``sdb_csr_spmm_bf16``) runs the same walk on them
-with the same f32 sums, reading half the gather bytes.
+one-bf16-pass kernel (``sdb_csr_spmm_bf16``, its own design for a bf16
+operand) sums the same f32 products in the same order. It gathers 8
+bf16 columns a lane in one 16-byte load and runs one task per (segment,
+strip) over all of a strip's columns, several short segments to a warp,
+on the equal strips of ``csr_bf16_strip_width``.
 
 Beside it sits its plain PyTorch version on the same packed arrays
 (``spmm_csr_segment_plain``): each slot adds val * X[col] into row
@@ -110,9 +113,11 @@ def _band_layout(csr: CSR, R: int, C: int):
 
 
 SEGMENT_NNZ = 512  # the kernel's longest walk: slots per segment
+SEGMENT_BATCH = 32  # slots the kernels read a segment's pairs in
 
 
-def row_segments(row_ptr, indptr, seg_nnz: int = SEGMENT_NNZ):
+def row_segments(row_ptr, indptr, seg_nnz: int = SEGMENT_NNZ,
+                 longest_first: bool = False):
     """The kernel's walk over row_ptr's spans: each row's span cut into
     segments of at most seg_nnz slots, an empty row one empty segment.
 
@@ -121,7 +126,12 @@ def row_segments(row_ptr, indptr, seg_nnz: int = SEGMENT_NNZ):
     row seg_dest[s] of C, or, for a row of several segments, into row
     -seg_dest[s] - 1 of the partial rows; split row h (split_row[h]) is
     the sum of partial rows part_ptr[h] .. part_ptr[h+1] - 1, in segment
-    order."""
+    order. The segments come in row order, or with longest_first in
+    order of their batches of SEGMENT_BATCH slots, most first and in row
+    order among equals (the one-bf16-pass kernel's order: its long
+    segments start first, and the short rows, most of a graph, keep
+    their order and its locality). Each segment's sum is its own, so the
+    order changes no bit of C."""
     row_ptr = np.asarray(row_ptr, dtype=np.int64)
     deg = np.diff(np.asarray(indptr, dtype=np.int64))
     n_seg = np.maximum(1, -(-deg // seg_nnz))
@@ -136,6 +146,10 @@ def row_segments(row_ptr, indptr, seg_nnz: int = SEGMENT_NNZ):
     seg_dest[in_split] = -1 - np.arange(int(in_split.sum()))
     split_row = np.nonzero(split)[0].astype(np.int64)
     part_ptr = np.concatenate([[0], np.cumsum(n_seg[split])]).astype(np.int64)
+    if longest_first:
+        batches = -(-(seg_end - seg_start) // SEGMENT_BATCH)
+        order = np.argsort(-batches, kind="stable")
+        seg_start, seg_end, seg_dest = seg_start[order], seg_end[order], seg_dest[order]
     return seg_start, seg_end, seg_dest, split_row, part_ptr
 
 
@@ -143,17 +157,40 @@ def row_segments(row_ptr, indptr, seg_nnz: int = SEGMENT_NNZ):
 
 CSR_STRIP_UNIT = 32    # columns of the strip walk's tile (8 lanes x float4)
 CSR_L2_SHARE = 0.7     # of the L2 a strip of X may fill
+CSR_BF16_L2_SHARE = 0.85  # of the L2 a bf16 strip of X may fill
+CSR_BF16_UNIT = 8      # a bf16 strip: a multiple of one 16-byte load's columns
+CSR_BF16_MAX_STRIP = 256  # and at most a warp's 32 lanes of them
 
 
-def csr_strip_width(K: int, F: int, l2_bytes: int, itemsize: int = 4) -> int:
-    """K10's strip width W for a (K, F) operand of itemsize-byte elements
-    (4: f32, 2: bf16) on a card with l2_bytes of L2: the widest multiple
-    of CSR_STRIP_UNIT whose (K, W) slice of X fills at most CSR_L2_SHARE
-    of the L2 (one unit if none does), capped at F. The rest of the L2 is
-    left to the streamed (col, val) pairs and the output. W == F walks
-    all of F as one strip."""
-    fit = int(CSR_L2_SHARE * l2_bytes) // max(1, itemsize * K)
+def csr_strip_width(K: int, F: int, l2_bytes: int) -> int:
+    """f32 K10's strip width W for a (K, F) f32 operand on a card with
+    l2_bytes of L2: the widest multiple of CSR_STRIP_UNIT whose (K, W)
+    slice of X fills at most CSR_L2_SHARE of the L2 (one unit if none
+    does), capped at F. The rest of the L2 is left to the streamed (col,
+    val) pairs and the output. W == F walks all of F as one strip."""
+    fit = int(CSR_L2_SHARE * l2_bytes) // max(1, 4 * K)
     return min(F, max(CSR_STRIP_UNIT, fit // CSR_STRIP_UNIT * CSR_STRIP_UNIT))
+
+
+def csr_bf16_strip_width(K: int, F: int, l2_bytes: int) -> int:
+    """The one-bf16-pass kernel's strip width W for a (K, F) bf16 operand
+    on a card with l2_bytes of L2: F cut into the fewest strips that are
+    at most CSR_BF16_MAX_STRIP columns wide and whose (K, W) bf16 slice of
+    X fills at most CSR_BF16_L2_SHARE of the L2 (one unit wide if none
+    does), made equal and rounded up to a multiple of CSR_BF16_UNIT, so
+    the last strip may be narrower by less than a unit per strip: 4 x 128
+    at F = 512 over 2^17 rows. The share is f32's 0.7 raised to 0.85: on
+    an H100 one strip of the arxiv serve graph (its bf16 X is 83% of the
+    L2) took 0.78x the time of two (64 + 64), and one strip won under each
+    of four orderings (scripts/torch_csr_bf16_probe.py). W == F walks all
+    of F as one strip."""
+    fit = int(CSR_BF16_L2_SHARE * l2_bytes) // max(1, 2 * K)
+    widest = max(CSR_BF16_UNIT,
+                 min(CSR_BF16_MAX_STRIP, fit // CSR_BF16_UNIT * CSR_BF16_UNIT))
+    n_strips = -(-F // widest)
+    if n_strips <= 1:
+        return F
+    return -(-F // (n_strips * CSR_BF16_UNIT)) * CSR_BF16_UNIT
 
 
 @functools.lru_cache(maxsize=None)
@@ -202,11 +239,11 @@ def spmm_csr_segment(cols_pad, local_rows, vals, chunk_band, row_ptr,
                      dense, R: int, n_partials: int) -> torch.Tensor:
     """K10: C (n_rows, F) f32 = A @ dense on the band layout. The kernel
     walks the segments of row_ptr's spans (row_segments) over cols_pad
-    and vals, in column strips of csr_strip_width's width,
-    n_partials = part_ptr[-1] partial rows for the split rows
+    and vals, n_partials = part_ptr[-1] partial rows for the split rows
     (local_rows and chunk_band are the plain version's). vals and dense
-    are both f32 (sdb_csr_spmm) or both bf16 (one bf16 pass,
-    sdb_csr_spmm_bf16). CPU tensors run spmm_csr_segment_plain; CUDA
+    are both f32 (sdb_csr_spmm, in strips of csr_strip_width's width) or
+    both bf16 (one bf16 pass, sdb_csr_spmm_bf16, in strips of
+    csr_bf16_strip_width's). CPU tensors run spmm_csr_segment_plain; CUDA
     tensors run the CUDA kernel."""
     seg = (seg_start, seg_end, seg_dest, split_row, part_ptr)
     dev = _device_of(cols_pad, local_rows, vals, chunk_band, row_ptr, *seg,
@@ -219,8 +256,12 @@ def spmm_csr_segment(cols_pad, local_rows, vals, chunk_band, row_ptr,
     F = dense.shape[1]
     out = torch.empty(n_rows, F, dtype=torch.float32, device=dev)
     partial = torch.empty(n_partials, F, dtype=torch.float32, device=dev)
-    W = csr_strip_width(dense.shape[0], F, _l2_bytes(dev.index), dense.element_size())
-    kernel = _kernels.csr_spmm_bf16 if dense.dtype == torch.bfloat16 else _kernels.csr_spmm
+    if dense.dtype == torch.bfloat16:
+        W = csr_bf16_strip_width(dense.shape[0], F, _l2_bytes(dev.index))
+        kernel = _kernels.csr_spmm_bf16
+    else:
+        W = csr_strip_width(dense.shape[0], F, _l2_bytes(dev.index))
+        kernel = _kernels.csr_spmm
     with torch.cuda.device(dev):
         kernel(
             seg_start.data_ptr(), seg_end.data_ptr(), seg_dest.data_ptr(),
@@ -300,7 +341,8 @@ def csr_spmm_pallas_plan(
     n_rows, n_cols = (int(s) for s in csr.shape)
     band = list(_band_layout(csr, row_band, chunk))
     band[2] = torch.as_tensor(band[2], device=device).to(vals_dtype)
-    segments = row_segments(band[4], csr.indptr)
+    segments = row_segments(band[4], csr.indptr,
+                            longest_first=vals_dtype == torch.bfloat16)
     statics = (n_rows, n_cols, row_band, f_tile, int(segments[4][-1]))
     return Plan((*band, *segments), _csr_pallas_apply, statics, device=device)
 

@@ -143,22 +143,26 @@ def test_segment_plain_matches_pallas_kernel():
     assert [k.launches for k in _kernels.KERNELS] == launches
 
 
-@pytest.mark.parametrize("seg_nnz", [4, 16, 512])
-def test_row_segments_walk_computes_the_product(seg_nnz):
-    """The kernel's walk, emulated in numpy on row_segments' arrays: the
-    segments tile each row's span in order, none longer than seg_nnz,
-    empty rows get one empty segment; summing each segment into C or a
-    partial row, then each split row's partials in order, gives A @ X.
-    Rows of 0 to 40 nonzeros (duplicates kept), an empty band."""
+def _segment_case(seg_nnz, longest_first=False):
+    """Rows of 0 to 40 nonzeros (duplicates kept) and an empty band, then
+    rows of 300 and 1,000: (csr, band layout, row_segments' arrays)."""
     rng = np.random.default_rng(seg_nnz)
     deg = rng.integers(0, 41, size=150)
     deg[64:128] = 0
+    deg[[20, 140]] = (300, 1000)
     rows = np.repeat(np.arange(150), deg)
     cols = rng.integers(0, 90, size=rows.size)
     tc = t_csr.CSR.from_coo(rows, cols, rng.random(rows.size), (150, 90))
-    cols_pad, _, vals, _, row_ptr = TP._band_layout(tc, 64, 128)
-    seg_start, seg_end, seg_dest, split_row, part_ptr = TP.row_segments(
-        row_ptr, tc.indptr, seg_nnz)
+    layout = TP._band_layout(tc, 64, 128)
+    return tc, layout, TP.row_segments(layout[4], tc.indptr, seg_nnz, longest_first)
+
+
+def _walk_product(tc, layout, segments, seg_nnz):
+    """The kernel's walk, emulated in numpy: sum each segment into C or a
+    partial row, then each split row's partials in order; checks the
+    segments' shape on the way."""
+    cols_pad, _, vals, _, _ = layout
+    seg_start, seg_end, seg_dest, split_row, part_ptr = segments
     d = np.diff(tc.indptr.astype(np.int64))
     assert (seg_end - seg_start <= seg_nnz).all() and (seg_end >= seg_start).all()
     n_seg = np.maximum(1, -(-d // seg_nnz))
@@ -176,7 +180,59 @@ def test_row_segments_walk_computes_the_product(seg_nnz):
             partial[-dest - 1] = acc
     for h, r in enumerate(split_row):
         out[r] = partial[part_ptr[h]:part_ptr[h + 1]].sum(axis=0)
+    return out, x
+
+
+@pytest.mark.parametrize("seg_nnz", [4, 16, 512])
+def test_row_segments_walk_computes_the_product(seg_nnz):
+    """The kernel's walk, emulated in numpy on row_segments' arrays: the
+    segments tile each row's span in order, none longer than seg_nnz,
+    empty rows get one empty segment; summing each segment into C or a
+    partial row, then each split row's partials in order, gives A @ X.
+    Rows of 0 to 40 nonzeros (duplicates kept), an empty band, two long
+    rows."""
+    tc, layout, segments = _segment_case(seg_nnz)
+    assert (np.diff(segments[0]) >= 0).all()  # row order
+    out, x = _walk_product(tc, layout, segments, seg_nnz)
     assert_allclose(out, spmm_scipy(tc, x))
+
+
+@pytest.mark.parametrize("seg_nnz", [4, 16, 512])
+def test_row_segments_longest_first(seg_nnz):
+    """longest_first (the one-bf16-pass plan's order): the same segments
+    as row order, in order of their batches of 32 slots, most first and
+    in row order among equals; the walk on them gives the same A @ X."""
+    tc, layout, rows = _segment_case(seg_nnz)
+    _, _, segments = _segment_case(seg_nnz, longest_first=True)
+    seg_start, seg_end, seg_dest, split_row, part_ptr = segments
+    batches = -(-(seg_end - seg_start) // TP.SEGMENT_BATCH)
+    assert (np.diff(batches) <= 0).all()
+    for b in np.unique(batches):  # row order among equals
+        assert (np.diff(seg_start[batches == b]) >= 0).all()
+    key = lambda s: sorted(zip(s[0].tolist(), s[1].tolist(), s[2].tolist()))  # noqa: E731
+    assert key(segments) == key(rows)
+    np.testing.assert_array_equal(split_row, rows[3])
+    np.testing.assert_array_equal(part_ptr, rows[4])
+    out, x = _walk_product(tc, layout, segments, seg_nnz)
+    want, _ = _walk_product(tc, layout, rows, seg_nnz)
+    np.testing.assert_array_equal(out, want)
+    if seg_nnz == 512:
+        assert (seg_end - seg_start)[:2].tolist() == [512, 488]  # row 140's
+
+
+def test_default_plan_orders_segments_longest_first():
+    """A precision="default" plan holds its segments longest first, an
+    f32 plan in row order; the same answer on the CPU."""
+    tc, _, _ = _segment_case(512)
+    f32 = TP.csr_spmm_pallas_plan(tc, grad=False, device="cpu")
+    bf16 = TP.csr_spmm_pallas_plan(tc, precision="default", grad=False, device="cpu")
+    assert (np.diff(f32.arrays[5].numpy()) >= 0).all()
+    lengths = (bf16.arrays[6] - bf16.arrays[5]).tolist()
+    assert lengths[:3] == [512, 488, 300]
+    x = _x(90, 8, seed=1)
+    assert torch.equal(bf16(x), TP.spmm_csr_segment_plain(
+        *bf16.arrays, torch.as_tensor(x).to(torch.bfloat16), bf16.statics[2],
+        bf16.statics[4]))
 
 
 # -- whole plans --------------------------------------------------------------
@@ -527,19 +583,57 @@ def test_csr_strip_width(K, F, l2, want):
 
 
 @pytest.mark.parametrize("K,F,want", [
-    (1 << 17, 512, 128),    # the op csr shape: 4 strips, twice f32's 64
-    (1 << 16, 300, 256),    # f32: 128
+    (1 << 17, 512, 128),    # the op csr shape: 4 strips of 128
+    (1 << 16, 300, 152),    # 2 strips, 152 + 148 (f32: 3 of 128)
     (4267, 256, 256),       # ddi: X fits, one strip
 ])
 def test_csr_strip_width_bf16(K, F, want):
-    """A bf16 operand (itemsize 2, precision="default"): the widest
-    multiple of the unit whose (K, W) bf16 slice fills at most 70% of the
-    L2, so twice an f32 strip's width where X outgrows the L2."""
-    W = TP.csr_strip_width(K, F, H100_L2, itemsize=2)
+    """A bf16 operand (precision="default", csr_bf16_strip_width): F cut
+    into the fewest strips of at most 256 columns whose (K, W) bf16 slice
+    fills at most 85% of the L2, made equal and rounded up to a multiple
+    of 8 columns."""
+    W = TP.csr_bf16_strip_width(K, F, H100_L2)
     assert W == want
     if F > W:
-        assert K * W * 2 <= 0.7 * H100_L2 < K * (W + TP.CSR_STRIP_UNIT) * 2
-        assert W == 2 * TP.csr_strip_width(K, F, H100_L2)
+        widest = min(TP.CSR_BF16_MAX_STRIP, int(0.85 * H100_L2) // (2 * K) // 8 * 8)
+        assert W % TP.CSR_BF16_UNIT == 0 and W <= widest
+        assert -(-F // W) == -(-F // widest)  # the fewest strips that fit
+
+
+@pytest.mark.parametrize("K,F,n_strips,want", [
+    (169_343, 128, 1, 128),  # the arxiv serve graph: its bf16 X is 83% of the L2
+    (4267, 256, 1, 256),     # ddi: one strip
+    (1 << 17, 512, 4, 128),  # the op csr shape
+])
+def test_csr_bf16_strips_are_equal(K, F, n_strips, want):
+    """On the graphs the one-bf16-pass kernel serves, its strips are
+    equal, each a multiple of 8 columns (one 16-byte load of bf16 a lane)
+    and at most 256 (a warp's 32 lanes of them)."""
+    W = TP.csr_bf16_strip_width(K, F, H100_L2)
+    assert W == want and F % W == 0 and -(-F // W) == n_strips
+    assert W % TP.CSR_BF16_UNIT == 0 and W <= TP.CSR_BF16_MAX_STRIP
+
+
+def test_csr_bf16_strip_width_over_a_grid():
+    """Over a grid of shapes and L2 sizes the bf16 rule gives F (one
+    strip, at most 256 columns, that fits in 85% of the L2 or is one
+    unit), or strips of a
+    multiple of 8 columns, at most 256, that fit unless they are one
+    unit, the last narrower than the others by less than 8 columns a
+    strip."""
+    for K in (1, 100, 4267, 1 << 14, 1 << 17, 1 << 20):
+        for F in (1, 7, 8, 31, 64, 100, 128, 256, 257, 300, 512, 600):
+            for l2 in (1 << 16, 1 << 20, 40 << 20, H100_L2):
+                W = TP.csr_bf16_strip_width(K, F, l2)
+                n = -(-F // W)
+                assert 0 < W <= F
+                assert W == TP.CSR_BF16_UNIT or K * W * 2 <= 0.85 * l2 or W == F < 8
+                if n == 1:
+                    assert W == F <= TP.CSR_BF16_MAX_STRIP
+                    continue
+                assert W % TP.CSR_BF16_UNIT == 0 and W <= TP.CSR_BF16_MAX_STRIP
+                last = F - (n - 1) * W
+                assert 0 < last <= W and W - last < TP.CSR_BF16_UNIT * n
 
 
 def test_csr_strip_width_respects_the_unit():

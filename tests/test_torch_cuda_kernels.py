@@ -1466,31 +1466,125 @@ def _int_values(csr: CSR, seed: int) -> CSR:
     return CSR(csr.indptr, csr.indices, vals.astype(np.float32), csr.shape)
 
 
-@pytest.mark.parametrize("F", [7, 64, 300])
-def test_csr_bf16_kernel(F):
-    """K10's one-bf16-pass instance (precision="default",
-    sdb_csr_spmm_bf16; F = 7 the scalar path, 64 one strip, 300 column
-    strips of the bf16 width), rows split into segments and empty rows:
-    on integer values and operand, exact in bf16 with every sum under
-    2^24, it equals float64 bit for bit; on normal data it is within 1e-5
-    of its plain version and 3e-2 of float64; the f32 entry never runs."""
-    csr = _strip_csr(F) if F == 300 else _csr(seed=F)
-    rng = np.random.default_rng(F)
+def _short_row_csr(seed=0):
+    """12,000 rows of 0 to 16 nonzeros (about 8, as arxiv's) over 12,000
+    columns, rows 0-9 and 5000-5299 empty, rows 40 and 9000 of 1,500 and
+    600 nonzeros (split into segments; duplicate columns kept)."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 17, size=12000)
+    deg[list(range(10)) + list(range(5000, 5300))] = 0
+    deg[[40, 9000]] = (1500, 600)
+    rows = np.repeat(np.arange(12000), deg)
+    return CSR.from_coo(rows, rng.integers(0, 12000, size=rows.size),
+                        rng.standard_normal(rows.size), (12000, 12000))
+
+
+def _offset(x, elements):
+    """x's values in a bf16 tensor whose data starts `elements` past a
+    fresh allocation's (an odd offset takes the kernel's 2-byte loads, 4
+    its 8-byte loads): .to(torch.bfloat16) hands such a tensor on as it
+    is."""
+    buf = torch.empty(x.numel() + elements, dtype=torch.bfloat16, device=x.device)
+    view = buf[elements:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _bf16_case(csr, F, seed, monkeypatch, widths=(), x_of=lambda x: x):
+    """K10's one-bf16-pass kernel on csr at width F: on integer values
+    and operand it equals float64 bit for bit; on normal data it lies
+    within 1e-5 of its plain version and 3e-2 of float64; strips of each
+    of `widths` columns give the same bits; the f32 entry never runs.
+    x_of places the operand (an offset view)."""
+    rng = np.random.default_rng(seed)
     f32_before = _kernels.csr_spmm.launches
-    ints = _int_values(csr, F)
+    ints = _int_values(csr, seed)
     plan = TP.csr_spmm_pallas_plan(ints, precision="default", grad=False, device="cuda")
     assert plan.arrays[2].dtype == torch.bfloat16
     xi = rng.integers(-16, 17, size=(csr.n_cols, F)).astype(np.float32)
-    got = _check(plan, torch.as_tensor(xi, device="cuda"), _kernels.csr_spmm_bf16)
+    got_i = _check(plan, x_of(torch.as_tensor(xi, device="cuda")), _kernels.csr_spmm_bf16)
     want = ints.to_scipy().astype(np.float64) @ xi.astype(np.float64)
-    assert np.array_equal(got.cpu().numpy(), want.astype(np.float32))
+    assert np.array_equal(got_i.cpu().numpy(), want.astype(np.float32))
     plan = TP.csr_spmm_pallas_plan(csr, precision="default", grad=False, device="cuda")
-    x = rng.standard_normal((csr.n_cols, F)).astype(np.float32)
-    got = _check(plan, torch.as_tensor(x, device="cuda"), _kernels.csr_spmm_bf16)
-    want = csr.to_scipy().astype(np.float64) @ x.astype(np.float64)
+    x = x_of(torch.as_tensor(rng.standard_normal((csr.n_cols, F)).astype(np.float32),
+                             device="cuda"))
+    got = _check(plan, x, _kernels.csr_spmm_bf16)
+    want = csr.to_scipy().astype(np.float64) @ x.float().cpu().numpy().astype(np.float64)
     # the bf16 gate of tests/test_conformance.py: max |err| / max |ref|
     assert np.abs(got.cpu().numpy() - want).max() / np.abs(want).max() < 3e-2
+    for W in widths:
+        with monkeypatch.context() as m:
+            m.setattr(TP, "csr_bf16_strip_width", lambda K, F, l2, W=W: W)
+            assert torch.equal(_check(plan, x, _kernels.csr_spmm_bf16), got), W
     assert _kernels.csr_spmm.launches == f32_before
+    return got
+
+
+@pytest.mark.parametrize("F", [7, 64, 128, 256, 300, 512])
+def test_csr_bf16_kernel(F, monkeypatch):
+    """K10's one-bf16-pass kernel (precision="default",
+    sdb_csr_spmm_bf16): F = 7 its 2-byte loads, 300 its 8-byte loads (F %
+    8 == 4), the rest its 16-byte loads; F <= 256 one strip of the rows
+    of _csr (empty head rows and an empty band), 300 and 512 two strips of
+    the bf16 rule (152 + 148, 256 + 256) over X of 2^16 rows with rows
+    split into segments and empty rows. Every case as _bf16_case holds
+    it, the same bits at strips of 8, 24, 64, 128, 152 and 256 columns
+    (those narrower than F; 8 and 24 four lanes a segment, 152 a warp
+    with lanes past the strip) and at one strip where F <= 256."""
+    csr = _strip_csr(F) if F >= 300 else _csr(seed=F)
+    if F >= 300:
+        assert -(-F // TP.csr_bf16_strip_width(csr.n_cols, F, TP._l2_bytes(0))) == 2
+    widths = [W for W in (8, 24, 64, 128, 152, 256) if W < F]
+    got = _bf16_case(csr, F, F, monkeypatch,
+                     widths + ([F] if F <= TP.CSR_BF16_MAX_STRIP else []))
+    if F < 300:
+        assert not got[:10].any() and not got[256:512].any()
+    else:
+        assert not got[:10].any() and not got[700:900].any()
+
+
+@pytest.mark.parametrize("offset", [0, 1, 4])
+def test_csr_bf16_kernel_short_rows(offset, monkeypatch):
+    """The serve graph's case at a small size: rows of about 8 nonzeros
+    at F = 128 with the L2 made small enough for the bf16 rule to cut two
+    strips of 64 (four segments a warp), split rows and empty rows, the
+    bf16 operand 16-byte aligned (offset 0), at an odd offset (2-byte
+    loads) and 8 bytes off (8-byte loads): as _bf16_case holds it, at
+    strips of 8, 64 and 128 columns too, and every placement gives the
+    aligned operand's bits."""
+    csr = _short_row_csr()
+    l2 = int(2 * csr.n_cols * 100 / TP.CSR_BF16_L2_SHARE)  # 100 columns fit
+    monkeypatch.setattr(TP, "_l2_bytes", lambda index: l2)
+    assert TP.csr_bf16_strip_width(csr.n_cols, 128, l2) == 64
+    plan = TP.csr_spmm_pallas_plan(csr, precision="default", grad=False, device="cuda")
+    assert plan.arrays[8].tolist() == [40, 9000]  # split_row
+    got = _bf16_case(csr, 128, 21, monkeypatch, (8, 64, 128),
+                     lambda x: _offset(x.to(torch.bfloat16), offset))
+    assert not got[:10].any() and not got[5000:5300].any()
+    aligned = _bf16_case(csr, 128, 21, monkeypatch)
+    assert torch.equal(got, aligned)
+
+
+def test_csr_bf16_entry_refuses_a_strip_width():
+    """A strip width narrower than F that is not a positive multiple of 8,
+    or a strip wider than 256 columns (one strip of F = 300, or W = 264),
+    has no kernel: the entry returns its cudaError_t, the wrapper raises,
+    and no launch is counted."""
+    csr = _csr(300, 200)
+    plan = TP.csr_spmm_pallas_plan(csr, precision="default", grad=False, device="cuda")
+    seg = plan.arrays[5:]
+    x = torch.ones(200, 300, dtype=torch.bfloat16, device="cuda")
+    out = torch.empty(300, 300, device="cuda")
+    partial = torch.empty(max(plan.statics[4], 1), 300, device="cuda")
+    counts = [k.launches for k in _kernels.KERNELS]
+    for W in (0, -8, 12, 99, 264, 300, 1000):
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            _kernels.csr_spmm_bf16(
+                *(t.data_ptr() for t in (*seg[:3], plan.arrays[0], plan.arrays[2],
+                                         x, out, partial, *seg[3:])),
+                seg[0].shape[0], seg[3].shape[0], 300, W,
+                torch.cuda.current_stream().cuda_stream)
+    assert [k.launches for k in _kernels.KERNELS] == counts
 
 
 def test_csr_entry_refuses_a_strip_width():
