@@ -1691,7 +1691,7 @@ def serve_phase(graphs: dict, best: str):
         f"{SERVE_REQUESTS} requests a route ({time.perf_counter() - t0:.1f} s)")
     for key, adj in adjs.items():
         t0 = time.perf_counter()
-        impl, _, report = _auto_impl(adj, 128, SERVE_DIMS[0], {})
+        impl, _, report, _ = _auto_impl(adj, 128, SERVE_DIMS[0], {})
         nnzb = calculate_nnzb(adj, 128)
         log(f"  {names[key]}: b=128 nnzb={nnzb} ({nnzb * 128 * 128 * 4 / 2**30:.1f} GiB "
             f"f32, fill {nnzb * 128 * 128 / adj.nnz:.0f}x); impl='auto' routes to "
@@ -1993,7 +1993,7 @@ def models_phase(ddi: CSR, graphs: dict, best: str, op_bsr: BSR, k2_op,
     # -- SAGE, node classification on arxiv through auto --------------------
     adj = mean_adjacency(graphs[best])
     dims = SAGE_ARXIV_DIMS
-    impl, _, report = _auto_impl(adj, 128, dims[0], {})
+    impl, _, report, _ = _auto_impl(adj, 128, dims[0], {})
     log(f"[models] SAGE {dims} on {REORDER_DATASET} ({best}, mean_adjacency): "
         f"n={adj.n_rows} nnz={adj.nnz}; impl='auto' routes to {impl}; the scorer's "
         "report:")

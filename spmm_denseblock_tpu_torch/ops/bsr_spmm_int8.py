@@ -125,7 +125,9 @@ def bsr_spmm_int8_plan(bsr: BSR, calibration=None, device=None, **kw) -> Plan:
     n_rows, n_cols = bsr.shape
     statics = (bsr.n_block_rows, n_rows, n_cols, bsr.n_block_cols * bsr.b,
                calibration is not None)
-    return Plan(arrays, _int8_apply, statics, device=device)
+    # work figures (ops/plan): every block's b² products
+    return Plan(arrays, _int8_apply, statics, device=device, name="bsr_int8",
+                nnz=bsr.nnz_inside(), positions=bsr.nnzb * bsr.b * bsr.b)
 
 
 def _int8_apply(statics, arrays, dense, plain: bool = False):

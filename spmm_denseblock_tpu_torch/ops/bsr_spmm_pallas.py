@@ -195,6 +195,18 @@ def _pack_rowgroups(rows, cols, blocks, group_half: int, R: int):
             blocks_pad, int(groups))
 
 
+def walked_slots(group_ptr, lane_valid, gh: int) -> int:
+    """The slots the kernels multiply: each valid lane walks every slot
+    of its group's steps, gh a step, the zero blocks of pad and covering
+    slots included; an absent (K2, K7) or phantom (K4, K8) lane returns
+    before its first slot. group_ptr (n_groups + 1,), lane_valid
+    (n_groups * R,) bool; K1's layout is R = 1, its step pointer and
+    every lane valid."""
+    steps = np.diff(np.asarray(group_ptr, np.int64))
+    valid = np.asarray(lane_valid, bool).reshape(steps.size, -1)
+    return int(gh * (steps[:, None] * valid).sum())
+
+
 def group_pointer(step_groups, n_groups: int) -> np.ndarray:
     """(n_groups+1,) int64: the steps of group g are ptr[g] .. ptr[g+1]-1
     (step_groups is nondecreasing). A CUDA CTA walks its group's steps
@@ -1103,7 +1115,11 @@ def bsr_spmm_pallas_plan(
     everything else packs the flat layout at the _auto_group rule, run
     by K5 with resident=True and by K1 otherwise: "default" always lands
     there. "high" runs the K3 instance of the chosen f32 kernel,
-    "default" on f32 the bf16 instance of K1 or K5."""
+    "default" on f32 the bf16 instance of K1 or K5.
+
+    The plan's work figures (``ops/plan``): nnz, the nonzero entries of
+    the blocks; positions, b² for each slot the kernel multiplies
+    (``walked_slots``)."""
     device = resolve_device(device)
     dtype = _plan_dtype(dtype)
     math = _plan_math(precision, dtype)
@@ -1151,6 +1167,7 @@ def bsr_spmm_pallas_plan(
         arrays = (win_ids, slot_cols, blocks_pad, pos, lane_valid, group_ptr,
                   order)
         layout, geom = "sorted", (R, gh, W)
+        slots = walked_slots(group_ptr, lane_valid, gh)
     elif resident_likely:
         if group_was_auto:
             group = min(group, _ROWGROUP_GH_CAP)
@@ -1162,6 +1179,7 @@ def bsr_spmm_pallas_plan(
         order, depth = lane_order(group_ptr, R, group)
         arrays = (step_groups, slot_cols, blocks_pad, group_ptr, order)
         layout, geom = "rowgroup", (R, group)
+        slots = walked_slots(group_ptr, np.arange(n_groups * R) < nbr, group)
     else:
         step_rows, slot_cols, blocks_pad = _pack_groups(
             rows_h, cols_h, blocks_h, group
@@ -1170,6 +1188,7 @@ def bsr_spmm_pallas_plan(
         order, depth = lane_order(step_ptr, 1, group)
         arrays = (step_rows, slot_cols, blocks_pad, step_ptr, order)
         layout, geom = ("resident" if resident else "flat"), group
+        slots = walked_slots(step_ptr, np.ones(nbr, bool), group)
     arrays = list(arrays)
     # the blocks' split or cast runs where the plan lives: on the card it
     # takes a fraction of the host's time (a "high" plan of 814,720 32 x 32
@@ -1182,7 +1201,8 @@ def bsr_spmm_pallas_plan(
     else:
         arrays[2] = blocks_t.to(dtype) if dtype is not None else blocks_t
     statics = (layout, nbr, n_rows, n_cols, k_needed, math, depth, geom)
-    return Plan(arrays, _pallas_apply, statics, device=device)
+    return Plan(arrays, _pallas_apply, statics, device=device, name="bsr_pallas",
+                nnz=bsr.nnz_inside(), positions=slots * b * b)
 
 
 def _pallas_apply(statics, arrays, dense, plain: bool = False):

@@ -83,6 +83,7 @@ from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import (
     rowgroup_lanes,
     sorted_lanes,
     tile_geometry,
+    walked_slots,
 )
 from spmm_denseblock_tpu_torch.ops.plan import Plan
 
@@ -566,7 +567,9 @@ def bsr_spmm_pallas_int8_plan(
     group or step pointer), the CTA -> lane order of the kernels at b = 16
     and 32 (``lane_order``), then, when calibrated, the static column
     scales. Statics: (layout, nbr, n_rows, n_cols, k_needed, geom, depth,
-    calibrated), depth the deepest lane's slots."""
+    calibrated), depth the deepest lane's slots. Work figures
+    (``ops/plan``): nnz, the nonzero entries of the f32 blocks;
+    positions, b² for each slot the kernel multiplies (``walked_slots``)."""
     device = resolve_device(device)
     reject_grad_request({"grad": grad}, "bsr_int8_pallas")
     covered = _ensure_covering(bsr)
@@ -604,6 +607,7 @@ def bsr_spmm_pallas_int8_plan(
         arrays = [win_ids, slot_cols, qblocks, scales, pos, lane_valid, group_ptr,
                   order]
         layout, geom = "sorted", (R, gh, W, group_scale)
+        slots = walked_slots(group_ptr, lane_valid, gh)
     elif rowgroup_likely:
         if group_was_auto:
             group = min(group, _ROWGROUP_GH_CAP)
@@ -616,6 +620,7 @@ def bsr_spmm_pallas_int8_plan(
         order, depth = lane_order(group_ptr, R, group)
         arrays = [step_groups, slot_cols, qblocks, scales, group_ptr, order]
         layout, geom = "rowgroup", (R, group)
+        slots = walked_slots(group_ptr, np.arange(n_groups * R) < nbr, group)
     else:
         step_rows, slot_cols, blocks_pad = _pack_groups(
             rows_h, cols_h, blocks_h, group
@@ -624,6 +629,7 @@ def bsr_spmm_pallas_int8_plan(
         step_ptr = np.searchsorted(step_rows, np.arange(nbr + 1)).astype(np.int64)
         order, depth = lane_order(step_ptr, 1, group)
         arrays = [step_rows, slot_cols, qblocks, scales, step_ptr, order]
+        slots = walked_slots(step_ptr, np.ones(nbr, bool), group)
         if resident:  # only with an explicit f_tile: K9
             layout, geom = "resident", (group, int(f_tile))
         else:
@@ -634,7 +640,9 @@ def bsr_spmm_pallas_int8_plan(
         arrays.append(static_col_scale(calibration))
     statics = (layout, nbr, n_rows, n_cols, k_needed, geom, depth,
                calibration is not None)
-    return Plan(arrays, _int8_pallas_apply, statics, device=device)
+    return Plan(arrays, _int8_pallas_apply, statics, device=device,
+                name="bsr_int8_pallas", nnz=bsr.nnz_inside(),
+                positions=slots * b * b)
 
 
 def quantize_operand(plan: Plan, dense, transposed: bool = False):

@@ -37,7 +37,9 @@ def bsr_spmm_xla_plan(bsr: BSR, dtype=None, device=None, **_ignored) -> Plan:
     arrays = (bsr.block_rows[: bsr.nnzb], bsr.block_cols[: bsr.nnzb], blocks)
     n_rows, n_cols = bsr.shape
     statics = (bsr.n_block_rows, n_rows, n_cols, bsr.n_block_cols * bsr.b)
-    return Plan(arrays, _bsr_xla_apply, statics, device=device)
+    # work figures (ops/plan): every block's b² products
+    return Plan(arrays, _bsr_xla_apply, statics, device=device, name="bsr_xla",
+                nnz=bsr.nnz_inside(), positions=bsr.nnzb * bsr.b * bsr.b)
 
 
 def _bsr_xla_apply(statics, arrays, dense, plain: bool = False):

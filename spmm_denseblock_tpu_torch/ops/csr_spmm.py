@@ -57,14 +57,17 @@ def csr_spmm_plan(csr: CSR, chunk_nnz=None, device=None) -> Plan:
     row_ids = csr.row_ids()
     col_ids = np.asarray(csr.indices, dtype=np.int32)
     vals = csr.values().astype(np.float32)
+    # work figures (ops/plan): nnz and positions both a part's nonzeros
     if csr.nnz <= chunk_nnz:
         return Plan((row_ids, col_ids, vals), _csr_xla_apply, statics,
-                    device=device)
+                    device=device, name="csr_xla", nnz=csr.nnz, positions=csr.nnz)
     parts = []
     for c0 in range(0, csr.nnz, chunk_nnz):
         sl = slice(c0, min(c0 + chunk_nnz, csr.nnz))
+        n = sl.stop - sl.start
         parts.append(Plan((row_ids[sl], col_ids[sl], vals[sl]), _csr_xla_apply,
-                          statics, device=device))
+                          statics, device=device, name="csr_xla", nnz=n,
+                          positions=n))
     return sum_plan(parts)
 
 
@@ -89,4 +92,5 @@ def bcoo_spmm_plan(csr: CSR, device=None) -> Plan:
     indices = np.stack([csr.row_ids().astype(np.int64),
                         np.asarray(csr.indices, dtype=np.int64)])
     return Plan((indices, csr.values().astype(np.float32)), _bcoo_apply,
-                tuple(int(s) for s in csr.shape), device=device)
+                tuple(int(s) for s in csr.shape), device=device, name="bcoo",
+                nnz=csr.nnz, positions=csr.nnz)

@@ -350,6 +350,13 @@ def _run_chunks(arrays, j: int, table, layout, has_vals: bool, band_rows: int):
     return (torch.cat(outs) if len(outs) > 1 else outs[0]), j
 
 
+def _slots(*layouts) -> int:
+    """The element positions the layouts compute a call: Σ m·K over their
+    chunks, pad slots included (a pad reads a zero row, or row 0 with
+    value 0)."""
+    return sum(m * K for layout in layouts for m, K, *_ in layout)
+
+
 def _operand(dense, n_cols: int, device, dtype_key: Optional[str]) -> torch.Tensor:
     """The operand on the plan's device in the plan's dtype (f32 by
     default)."""
@@ -389,7 +396,7 @@ def csr_spmm_ell_plan(csr: CSR, grad: bool = True, dtype=None,
     "matsum"/"scan" force one. row_sort, compact, compact_slots,
     feat_dim: see _ell_layout. grad: True (the default) returns a
     grad_plan whose backward runs the plan of Aᵀ. device: None is the
-    card."""
+    card. Work figures (``ops/plan``): nnz, A's; positions, ``_slots``."""
     device = resolve_device(device)
     dtype_key = _plan_dtype_key(dtype)
     kw = dict(dtype=dtype, bucket=bucket, reduce=reduce, row_sort=row_sort,
@@ -405,7 +412,8 @@ def csr_spmm_ell_plan(csr: CSR, grad: bool = True, dtype=None,
     )
     arrays = [positions, *_chunk_arrays(idx_chunks, val_chunks)]
     statics = (csr.shape, layout, has_vals, dtype_key)
-    return Plan(arrays, _ell_apply, statics, device=device)
+    return Plan(arrays, _ell_apply, statics, device=device, name="csr_ell",
+                nnz=csr.nnz, positions=_slots(layout))
 
 
 def _ell_apply(statics, arrays, dense, plain: bool = False):
@@ -451,7 +459,9 @@ def csr_spmm_ell_banded_plan(csr: CSR, band_rows: int = 1 << 19,
     arrays = [pos_in, pos_ovf, *_chunk_arrays(idx_in, vals_in),
               *_chunk_arrays(idx_ovf, vals_ovf)]
     statics = (csr.shape, layout_in, layout_ovf, dtype_key, int(band_rows))
-    return Plan(arrays, _banded_apply, statics, device=device)
+    return Plan(arrays, _banded_apply, statics, device=device,
+                name="csr_ell_banded", nnz=csr.nnz,
+                positions=_slots(layout_in, layout_ovf))
 
 
 def _banded_apply(statics, arrays, dense, plain: bool = False):
@@ -487,7 +497,8 @@ def csr_spmm_ell_int8_plan(csr: CSR, calibration=None, bucket: str = "quarter",
     if calibration is not None:
         arrays.append(static_col_scale(calibration))
     statics = (csr.shape, layout, has_vals, calibration is not None)
-    return Plan(arrays, _ell_int8_apply, statics, device=device)
+    return Plan(arrays, _ell_int8_apply, statics, device=device,
+                name="csr_ell_int8", nnz=csr.nnz, positions=_slots(layout))
 
 
 def _ell_int8_apply(statics, arrays, dense, plain: bool = False):

@@ -330,7 +330,8 @@ def csr_spmm_pallas_plan(
     bf16 pass: the values rounded to bf16 here, the operand at each
     call, f32 products and sums). grad=True (the default) returns a
     grad_plan whose backward runs a plan of Aᵀ built with the same
-    arguments. device: where the packed arrays live, None for the card."""
+    arguments. device: where the packed arrays live, None for the card.
+    Work figures (``ops/plan``): nnz and positions both the nonzeros."""
     device = resolve_device(device)
     vals_dtype = _values_dtype(precision)
     if grad:
@@ -344,7 +345,8 @@ def csr_spmm_pallas_plan(
     segments = row_segments(band[4], csr.indptr,
                             longest_first=vals_dtype == torch.bfloat16)
     statics = (n_rows, n_cols, row_band, f_tile, int(segments[4][-1]))
-    return Plan((*band, *segments), _csr_pallas_apply, statics, device=device)
+    return Plan((*band, *segments), _csr_pallas_apply, statics, device=device,
+                name="csr_pallas", nnz=csr.nnz, positions=csr.nnz)
 
 
 def _csr_pallas_apply(statics, arrays, dense, plain: bool = False):

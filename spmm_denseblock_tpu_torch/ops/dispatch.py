@@ -73,6 +73,7 @@ from spmm_denseblock_tpu_torch.ops.windowed_spmm import (
     windowed_spmm_int8_plan,
     windowed_spmm_plan,
 )
+from spmm_denseblock_tpu_torch.utils import profiling
 
 # dtype=int8 maps a tier to its quantized variant (inference only)
 _INT8_VARIANT = {
@@ -95,7 +96,10 @@ def _dense_apply(statics, arrays, dense, plain: bool = False):
 
 
 def _dense_plan(mat, device=None, **kw):
-    return Plan((mat.to_dense(),), _dense_apply, device=resolve_device(device))
+    # work figures (ops/plan): A's nonzero entries; every entry's product
+    a = mat.to_dense()
+    return Plan((a,), _dense_apply, device=resolve_device(device), name="dense",
+                nnz=np.count_nonzero(a), positions=a.size)
 
 
 def _as_csr(m) -> CSR:
@@ -184,22 +188,24 @@ def _thin_margin_finalists(report):
 
 
 def _auto_impl(matrix, block_size: int, feat_dim, kw: dict, tune_with=None):
-    """The JAX router's "auto" choice: (impl, matrix, report), the matrix
-    repacked or divided where the route says so, and score_thresholds'
-    report where the scorer ran (else None). With `tune_with` and a thin
-    margin between the scorer's finalists, ("tuned", the measured
-    winner's plan, report). Pops bsr_bytes_budget from kw."""
+    """The JAX router's "auto" choice: (impl, matrix, report, threshold),
+    the matrix repacked or divided where the route says so,
+    score_thresholds' report where the scorer ran (else None), and the
+    density threshold of the hybrid split it made (else None). With
+    `tune_with` and a thin margin between the scorer's finalists,
+    ("tuned", the measured winner's plan, report, None). Pops
+    bsr_bytes_budget from kw."""
     if isinstance(matrix, Windowed):
-        return "windowed", matrix, None
+        return "windowed", matrix, None, None
     if isinstance(matrix, Hybrid):
-        return "hybrid", matrix, None
+        return "hybrid", matrix, None, None
     if isinstance(matrix, BSR) and matrix.block_size < 32 and _prefer_repack128(matrix):
         matrix = repack_bsr(matrix, 128)
     b_eff = matrix.block_size if isinstance(matrix, BSR) else block_size
     wide = feat_dim is None or feat_dim >= 256
     impl = "bsr_pallas" if (wide and b_eff >= 64) else "bsr_xla"
     if not isinstance(matrix, CSR):
-        return impl, matrix, None
+        return impl, matrix, None, None
     # the memory guard: a BSR-ified element-sparse graph can exceed the
     # device's memory, and one of mostly empty blocks wastes its products
     budget = kw.pop("bsr_bytes_budget", 4 << 30)
@@ -207,9 +213,9 @@ def _auto_impl(matrix, block_size: int, feat_dim, kw: dict, tune_with=None):
     block_bytes = nnzb * block_size * block_size * 4
     fill_amp = nnzb * block_size * block_size / max(matrix.nnz, 1)
     if fill_amp > 32 and block_bytes <= budget:
-        return "csr_ell", matrix, None
+        return "csr_ell", matrix, None, None
     if block_bytes <= budget:
-        return impl, matrix, None
+        return impl, matrix, None, None
     big_table = matrix.n_cols >= SCAN_MIN_SOURCE_ROWS
     best_thr, report = score_thresholds(
         matrix, block_size,
@@ -223,10 +229,10 @@ def _auto_impl(matrix, block_size: int, feat_dim, kw: dict, tune_with=None):
         # thin margin, measure the finalists on the caller's operand
         plan, _ = spmm_tune(matrix, tune_with, candidates=finalists,
                             block_size=block_size, **kw)
-        return "tuned", plan, report
+        return "tuned", plan, report, None
     if best_thr is None:  # densification pays nothing here
-        return "csr_ell", matrix, report
-    return "hybrid", divide(matrix, block_size, best_thr), report
+        return "csr_ell", matrix, report, None
+    return "hybrid", divide(matrix, block_size, best_thr), report, best_thr
 
 
 def spmm_plan(matrix, impl: str = "auto", block_size: int = 128,
@@ -275,7 +281,10 @@ def spmm_plan(matrix, impl: str = "auto", block_size: int = 128,
             n_windows=kw.pop("n_windows", 1),
         )
     if was_auto:
-        impl, matrix, _ = _auto_impl(matrix, block_size, feat_dim, kw, tune_with)
+        with profiling.span("sdb.route") as route:
+            impl, matrix, _, thr = _auto_impl(matrix, block_size, feat_dim, kw,
+                                              tune_with)
+            route.set(impl=impl, threshold=thr)
         if impl == "tuned":
             return matrix
     kw.pop("bsr_bytes_budget", None)

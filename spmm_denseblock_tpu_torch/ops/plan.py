@@ -12,21 +12,36 @@ the kernels' plain PyTorch versions instead (``run(plan, x,
 plain=True)``), the nesting plans pass it on to their sub-plans, and a
 plan with no kernel (``bsr_xla``, ``bsr_int8``, ``dense``) runs the same
 ops either way.
+
+A leaf plan carries the ``PLANNERS`` key of the planner that built it
+(``name``) and two figures its planner computed on the host: ``nnz``,
+the stored nonzeros of A it covers (a CSR's stored entries, duplicates
+included; a BSR's nonzero block entries, where duplicates have summed),
+and ``positions``, the element positions its layout computes a call
+(the planner's docstring says which). While program tracing is on
+(``utils/profiling``), each call of a leaf opens the span ``sdb.<name>``
+and adds them to the counters ``sdb.nnz/<name>`` and
+``sdb.positions/<name>``; ``sum_plan`` opens ``sdb.sum`` and a grad
+plan's backward ``sdb.backward``. Off, a call pays one flag check.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+
+from spmm_denseblock_tpu_torch.utils import profiling
 
 
 class Plan(nn.Module):
     """Callable executor: apply_fn(statics, arrays, dense).
 
     arrays: a sequence of numpy arrays or tensors (registered as buffers,
-    in order, on `device`), or a sequence of sub-plans."""
+    in order, on `device`), or a sequence of sub-plans. name, nnz,
+    positions: a leaf plan's planner key and work figures (module
+    docstring); a plan without a name opens no span of its own."""
 
     def __init__(
         self,
@@ -34,10 +49,14 @@ class Plan(nn.Module):
         apply_fn: Callable,
         statics: Tuple = (),
         device=None,
+        name: Optional[str] = None,
+        nnz: int = 0,
+        positions: int = 0,
     ):
         super().__init__()
         self.apply_fn = apply_fn
         self.statics = statics
+        self.name, self.nnz, self.positions = name, int(nnz), int(positions)
         self.subplans = None
         self._n_arrays = 0
         if arrays and all(isinstance(a, Plan) for a in arrays):
@@ -54,7 +73,12 @@ class Plan(nn.Module):
         return tuple(getattr(self, f"a{i}") for i in range(self._n_arrays))
 
     def forward(self, dense):
-        return self.apply_fn(self.statics, self.arrays, dense)
+        if self.name is None or not profiling.enabled():
+            return self.apply_fn(self.statics, self.arrays, dense)
+        profiling.count("sdb.nnz/" + self.name, self.nnz)
+        profiling.count("sdb.positions/" + self.name, self.positions)
+        with profiling.span("sdb." + self.name):
+            return self.apply_fn(self.statics, self.arrays, dense)
 
     def extra_repr(self) -> str:
         name = getattr(self.apply_fn, "__name__", "apply")
@@ -71,10 +95,11 @@ def run(plan: Plan, dense, plain: bool = False):
 
 def _sum_apply(statics, plans, dense, plain: bool = False):
     """Sum of sub-plan outputs (partial row sums add)."""
-    out = run(plans[0], dense, plain)
-    for p in plans[1:]:
-        out = out + run(p, dense, plain)
-    return out
+    with profiling.span("sdb.sum"):
+        out = run(plans[0], dense, plain)
+        for p in plans[1:]:
+            out = out + run(p, dense, plain)
+        return out
 
 
 def sum_plan(plans) -> Plan:
@@ -93,9 +118,11 @@ class _PlanVJP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # autograd's cotangent may be a strided view
-        dense_grad = run(ctx.bwd_plan, g.contiguous(), ctx.plain)
-        return dense_grad.to(device=ctx.device, dtype=ctx.dtype), None, None, None
+        with profiling.span("sdb.backward"):
+            # autograd's cotangent may be a strided view
+            dense_grad = run(ctx.bwd_plan, g.contiguous(), ctx.plain)
+            dense_grad = dense_grad.to(device=ctx.device, dtype=ctx.dtype)
+        return dense_grad, None, None, None
 
 
 def _grad_apply(statics, plans, dense, plain: bool = False):

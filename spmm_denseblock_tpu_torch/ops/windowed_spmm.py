@@ -72,8 +72,10 @@ def windowed_spmm_plan(wt: Windowed, dtype=None, grad: bool = True,
     tiles = torch.as_tensor(wt.tiles, device=device)
     if dtype_key is not None:
         tiles = tiles.to(getattr(torch, dtype_key))
+    # work figures (ops/plan): the tiles' nonzero entries; every tile entry
     win_plan = Plan((tiles, wt.win_idx), _windowed_apply,
-                    (n_rows, n_cols, k_padded, W, dtype_key), device=device)
+                    (n_rows, n_cols, k_padded, W, dtype_key), device=device,
+                    name="windowed", nnz=wt.captured_nnz(), positions=wt.tiles.size)
     if not wt.remainder.nnz:
         return win_plan
     return sum_plan((win_plan, csr_spmm_ell_plan(wt.remainder, grad=grad,
@@ -115,7 +117,8 @@ def windowed_spmm_int8_plan(wt: Windowed, calibration=None, device=None,
         arrays.append(static_col_scale(calibration))
     win_plan = Plan(arrays, _windowed_int8_apply,
                     (n_rows, n_cols, k_padded, W, calibration is not None),
-                    device=device)
+                    device=device, name="windowed_int8", nnz=wt.captured_nnz(),
+                    positions=wt.tiles.size)
     if not wt.remainder.nnz:
         return win_plan
     # inference only: no Aᵀ layout for the remainder
