@@ -150,8 +150,10 @@ Phases:
               plan, its operand and the int8 ELL's quantized by
               quantize_int8), "csr_ell" in bf16 and "csr_pallas" (K10),
               each request within 1e-4 (int8 6e-2, bf16 3e-2) of a
-              float64 host reference, each hybrid's dense-part SpMM
-              within 1e-5 of its plain version; then at F = 128 on the
+              float64 host reference, each SpMM's kernels (a hybrid's
+              dense part and its f32 ELL remainder, the ELL kernel of
+              "auto"'s all-ELL route, K10) within 1e-5 of their plain
+              versions; then at F = 128 on the
               check_result operand csr_ell (compact="force"),
               csr_ell_banded (band_rows=2^15), csr_ell_int8 (dynamic and
               calibrated), windowed, windowed_int8 and tiered, each
@@ -244,8 +246,12 @@ Phases:
               ms per SpMM at F = 128 of csr_ell, hybrid, hybrid int8 and
               windowed beside K10, torch.sparse_csr_tensor @ X and the
               CSR bytes bound, a csr_ell SpMM and an "auto" request under
-              torch.profiler, and the hybrids' dense-part kernels beside
-              their plain versions, bounds and library calls; then the
+              torch.profiler, the hybrids' dense-part kernels beside
+              their plain versions, bounds and library calls, and the ELL
+              kernel (K11) on the f32 hybrid's remainder at F = 128 and
+              256, held to its plain version (the torch-op chunk loop)
+              and timed beside it, its CSR bytes bound and
+              torch.sparse_csr_tensor @ X (cuSPARSE); then the
               models phase's: ms per request of each model and route,
               dense_block_gemm beside f32 K2 and its bound, SDDMM (both
               tiers) beside its bound and torch.sparse.sampled_addmm,
@@ -453,6 +459,7 @@ from spmm_denseblock_tpu_torch.ops.csr_spmm import csr_spmm_plan  # noqa: E402
 from spmm_denseblock_tpu_torch.ops.csr_spmm_ell import (  # noqa: E402
     _ell_apply,
     _ell_int8_apply,
+    ell_strip_width,
 )
 from spmm_denseblock_tpu_torch.ops.dispatch import (  # noqa: E402
     _auto_impl,
@@ -577,6 +584,8 @@ SERVE_OPS = (
 )
 # the SpMMs timed at F = 128 beside K10 (their serving plans, or op plans)
 SERVE_TIMED = ("csr_ell", "hybrid", "hybrid int8", "windowed", "csr_pallas")
+# the widths of the ELL kernel's rows (K11, on the f32 hybrid's remainder)
+ELL_ROW_F = (128, 256)
 TOL_OF = {"f32": CHECK_EPS, "int8": INT8_TOL, "bf16": BF16_TOL}
 # the models phase: each model of the family at a published width, through
 # the ported kernels. SAGE as OGB's ogbl-ddi link-prediction encoder
@@ -655,6 +664,9 @@ KERNEL_INFO = {
     # jax.lax.Precision.DEFAULT)
     ("csr", "bf16"): ("K10", "csr_spmm_bf16", _CSRC + "csr_spmm.cu",
                       "spmm_denseblock_tpu/ops/csr_spmm_pallas.py:112"),
+    # the f32 ELL tier (csr_ell): the JAX tier is XLA code, _ell_spmm_device
+    ("ell",): ("K11", "ell_spmm", _CSRC + "csr_spmm.cu",
+               "spmm_denseblock_tpu/ops/csr_spmm_ell.py:128"),
     ("f", "flat", "exact"): ("K1", "bsr_spmm_flat", _F, _PALLAS + ":909"),
     ("f", "flat", "bf16"): ("K1", "bsr_spmm_flat_bf16", _F, _PALLAS + ":909"),
     ("f", "sorted", "exact"): ("K2", "bsr_spmm_sorted", _F, _PALLAS + ":686"),
@@ -678,8 +690,8 @@ KERNEL_INFO = {
     # layout the kernel reads
     ("quantize",): ("K6-K9", "quantize_int8", _I8, _PALLAS_I8 + ":512"),
 }
-ALL_KERNELS = {f"K{i}" for i in range(1, 11)}
-BSR_KERNELS = ALL_KERNELS - {"K10"}
+ALL_KERNELS = {f"K{i}" for i in range(1, 12)}
+BSR_KERNELS = ALL_KERNELS - {"K10", "K11"}
 # the card's published peaks, HBM_BYTES_S and PEAK_OPS_S, are
 # utils/profiling's
 ELEM_BYTES = {"f32": 4, "high": 4, "bf16": 2, "int8": 1}
@@ -723,6 +735,8 @@ def reset_launches() -> None:
 def kernel_of(plan) -> tuple:
     """(id, kernel, source, replaces) of the kernel a forward plan
     launches."""
+    if plan.apply_fn is _ell_apply:
+        return KERNEL_INFO[("ell",)]
     if plan.apply_fn is _csr_pallas_apply:  # a "default" plan holds bf16 values
         return KERNEL_INFO[("csr",) if plan.arrays[2].dtype == torch.float32
                            else ("csr", "bf16")]
@@ -1582,8 +1596,9 @@ def tier_of(plan) -> str:
 def call_launches(plan) -> dict:
     """The kernel launches one call of a plan makes, by counter: a
     kernel plan its kernel (with quantize_int8 for int8, split_bf16 for
-    K3), the int8 ELL and window plans quantize_int8, a sum its parts',
-    the torch-ops plans (ELL, windows, bsr_xla) none."""
+    K3), an f32 ELL plan ell_spmm, the int8 ELL and window plans
+    quantize_int8, a sum its parts', the torch-ops plans (bf16 ELL,
+    windows, bsr_xla) none."""
     if plan.apply_fn is _sum_apply:
         out = {}
         for part in plan.subplans:
@@ -1592,7 +1607,7 @@ def call_launches(plan) -> dict:
         return out
     if plan.apply_fn in (_ell_int8_apply, _windowed_int8_apply):
         return {"quantize_int8": 1}
-    if plan.apply_fn not in (_pallas_apply, _int8_pallas_apply, _csr_pallas_apply):
+    if not kernel_plan(plan):
         return {}
     name = kernel_of(plan)[1]
     out = {name: 1}
@@ -1603,23 +1618,51 @@ def call_launches(plan) -> dict:
     return out
 
 
-def checked_parts(plan, errs: list):
-    """plan as the model calls it; a hybrid's dense part (a kernel plan)
-    held to its plain version on every call, its max |kernel - plain|
-    appended to errs. The sum is the plan's own: dense part, then
-    remainder."""
-    if plan.apply_fn is not _sum_apply:
-        return plan
-    dense_part, remainder = plan.subplans
+def kernel_plan(plan) -> bool:
+    """Whether plan is a leaf that launches a SpMM kernel: a BSR, int8 or
+    CSR kernel plan, or an f32 ELL plan (statics[3], its dtype, None or
+    float32: the ELL kernel; bf16 runs torch ops)."""
+    if plan.apply_fn is _ell_apply:
+        return plan.statics[3] in (None, "float32")
+    return plan.apply_fn in (_pallas_apply, _int8_pallas_apply, _csr_pallas_apply)
+
+
+def held_to_plain(plan, errs: list, by_kernel: dict = None):
+    """plan (a kernel plan) held to its plain version on every call
+    (KERNEL_TOL), its max |kernel - plain| appended to errs and, where
+    given, to by_kernel[its kernel's counter]."""
+    name = kernel_of(plan)[1]
 
     def spmm(h):
-        got = dense_part(h)
-        want = plain_apply(dense_part, h)
+        got = plan(h)
+        want = plain_apply(plan, h)
         rel = rel_err(got, want)
         if not torch.isfinite(got).all() or rel >= KERNEL_TOL:
-            raise AssertionError(f"hybrid dense part vs plain: rel {rel:.3e}")
-        errs.append((got - want).abs().max().item())
-        return got + remainder(h)
+            raise AssertionError(f"{name} vs plain: rel {rel:.3e}")
+        err = (got - want).abs().max().item()
+        errs.append(err)
+        if by_kernel is not None:
+            by_kernel.setdefault(name, []).append(err)
+        return got
+
+    return spmm
+
+
+def checked_parts(plan, errs: list, by_kernel: dict = None):
+    """plan as the model calls it, a sum (a hybrid, windowed) part by part:
+    each kernel part (the hybrid's dense part, an f32 ELL remainder) held
+    to its plain version (held_to_plain), the others as they are. The sum
+    is the plan's own: first part, then the rest."""
+    if plan.apply_fn is not _sum_apply:
+        return plan
+    parts = [held_to_plain(p, errs, by_kernel) if kernel_plan(p) else p
+             for p in plan.subplans]
+
+    def spmm(h):
+        out = parts[0](h)
+        for part in parts[1:]:
+            out = out + part(h)
+        return out
 
     return spmm
 
@@ -1631,25 +1674,15 @@ def rel64(got, want) -> float:
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
 
-def checked_spmm(plan, errs: list):
-    """plan as a model calls it, every call held to its plain version
-    (KERNEL_TOL) and its max |kernel - plain| appended to errs; a hybrid's
-    dense part (checked_parts); a plan with no kernel as it is."""
+def checked_spmm(plan, errs: list, by_kernel: dict = None):
+    """plan as a model calls it: a kernel plan (the f32 ELL plans
+    included) held to its plain version on every call (held_to_plain), a
+    sum's kernel parts (checked_parts), a plan with no kernel as it is."""
     if plan.apply_fn is _sum_apply:
-        return checked_parts(plan, errs)
-    if plan.apply_fn not in (_pallas_apply, _int8_pallas_apply, _csr_pallas_apply):
+        return checked_parts(plan, errs, by_kernel)
+    if not kernel_plan(plan):
         return plan
-
-    def spmm(h):
-        got = plan(h)
-        want = plain_apply(plan, h)
-        rel = rel_err(got, want)
-        if not torch.isfinite(got).all() or rel >= KERNEL_TOL:
-            raise AssertionError(f"{kernel_of(plan)[1]} vs plain: rel {rel:.3e}")
-        errs.append((got - want).abs().max().item())
-        return got
-
-    return spmm
+    return held_to_plain(plan, errs, by_kernel)
 
 
 def serve_requests(label: str, fn, xs, refs, tag: str, errs: list) -> None:
@@ -1678,8 +1711,9 @@ def serve_phase(graphs: dict, best: str):
     (SERVE_ROUTES) on the reorder phase's graphs, sym_norm_adjacency:
     the route "auto" took and the scorer's report; SERVE_REQUESTS seeded
     requests per route, each against a float64 host reference at its
-    tolerance (TOL_OF); each hybrid SpMM's dense-part kernel against its
-    plain version (KERNEL_TOL); then SERVE_OPS at F = 128 on the seeded
+    tolerance (TOL_OF); each SpMM's kernels against their plain versions
+    (checked_spmm, KERNEL_TOL: a hybrid's dense part and f32 ELL
+    remainder, the all-ELL and K10 routes); then SERVE_OPS at F = 128 on the seeded
     check_result operand against spmm_scipy (int8 at INT8_TOL of max
     |ref|). Returns what the counts and the timing need."""
     t0 = time.perf_counter()
@@ -1711,7 +1745,7 @@ def serve_phase(graphs: dict, best: str):
     log(f"  float64 references in {time.perf_counter() - t0:.1f} s (host)")
     xs = [torch.as_tensor(x, device=DEV) for x in xs]
     n_spmm = SERVE_REQUESTS * (len(SERVE_DIMS) - 1)
-    plans, plan_secs, expect, dense_errs = {}, {}, {}, {}
+    plans, plan_secs, expect, kernel_errs = {}, {}, {}, {}
     for label, key, kw, tag in SERVE_ROUTES:
         t0 = time.perf_counter()
         plan = spmm_plan(adjs[key], grad=False, device=DEV, **kw)
@@ -1728,8 +1762,8 @@ def serve_phase(graphs: dict, best: str):
                     f"{dense_part.arrays[2].shape[0]} slots) + ELL remainder")
         log(f"[serve] {label} (spmm_plan({kw}) on {names[key]}): tier {tier}{what}, "
             f"plan {plan_s:.1f} s (host); launches a SpMM {per_call}")
-        errs = dense_errs.setdefault(label, [])
-        spmm = checked_parts(plan, errs)
+        errs = []
+        spmm = checked_spmm(plan, errs, kernel_errs)
         serve_requests(label, lambda x: model(spmm, x), xs, refs[key], tag, errs)
         plans[label] = plan
         plan_secs[label] = plan_s
@@ -1767,7 +1801,7 @@ def serve_phase(graphs: dict, best: str):
     plans["csr_ell"] = spmm_plan(adj, impl="csr_ell", grad=False, device=DEV)
     hyb = _explicit_hybrid(adj, "hybrid", 128, {})
     return {"adj": adj, "model": model, "x": xs[0], "plans": plans,
-            "expect": expect, "dense_errs": dense_errs, "hybrid": hyb,
+            "expect": expect, "kernel_errs": kernel_errs, "hybrid": hyb,
             "best": best, "plan_s": plan_secs}
 
 
@@ -1826,15 +1860,51 @@ def serve_timing(sp: dict, launched: dict, card_line: str) -> list:
         kid, name, source, replaces = kernel_of(dense_part)
         row = bsr_row(f"serve {sp['best']} {label} dense part {kid}", bsr, dense_part,
                       x, sp["plan_s"][label], card_line, lib_cache)
-        errs = [e for k, v in sp["dense_errs"].items()
-                if tier_of(plans[k]).startswith("hybrid")
-                and kernel_of(plans[k].subplans[0])[1] == name for e in v]
         rows.append({"name": f"{kid} {name} b=128 {REORDER_DATASET} {sp['best']} hybrid "
                              f"({bsr.nnzb} dense blocks)",
                      "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": launched[name], "max_abs_err": max(errs), **row})
+                     "launches": launched[name],
+                     "max_abs_err": max(sp["kernel_errs"][name]), **row})
     lib_cache.clear()
+    # the f32 hybrid's remainder: the ELL kernel's rows at F = 128 and 256
+    remainder, rem_csr = plans["hybrid"].subplans[1], sp["hybrid"].remainder
+    for F in ELL_ROW_F:
+        xe = x if F == x.shape[1] else torch.as_tensor(
+            seeded((rem_csr.n_cols, F), SEED + 14), device=DEV)
+        label = f"{REORDER_DATASET} {sp['best']} hybrid remainder"
+        rows.append(ell_row(label, rem_csr, remainder, xe, launched,
+                            sp["kernel_errs"]["ell_spmm"], card_line))
     return rows
+
+
+def ell_row(label: str, csr: CSR, plan, x, launched: dict, errs: list,
+            card_line: str) -> dict:
+    """The kernels line's row of the f32 ELL kernel (K11) on plan, the
+    ELL plan of csr, at x's width: the kernel held to its plain version
+    (the torch-op chunk loop) on x too, its time, the plain version's, the
+    CSR bytes bound, the PyTorch library call (cuSPARSE) and the strip
+    width; launches and max_abs_err those of the main path's serve phase
+    (launched, errs) with x's check added."""
+    kid, name, source, replaces = kernel_of(plan)
+    F = x.shape[1]
+    errs = errs + [check_kernel(plan, x, f"{label} F={F}")]
+    want = plan(x)
+    lib = library_ms("csr", csr, x, want, 10,
+                     f"{label} torch.sparse_csr_tensor @ X, F={F}")
+    k_ms = cuda_ms(lambda: plan(x), iters=20)
+    p_ms = cuda_ms(lambda: plain_apply(plan, x), iters=2, warmup=1)
+    b_ms, b_by = csr_bound(csr, F)
+    W = ell_strip_width(csr.n_cols, F, _l2_bytes(0))
+    log(f"  {label} {kid} {name} F={F}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), library "
+        f"{'none' if lib is None else f'{lib:.4f} ms'}, strips of W={W} "
+        f"({-(-F // W)} strips), {csr.nnz} stored entries in {plan.arrays[1].numel()} "
+        f"ELL slots, {plan.arrays[-2].numel()} rows split [{card_line}]")
+    return {"name": f"{kid} {name} {label} F={F} ({csr.nnz} nonzeros)",
+            "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launched[name], "max_abs_err": max(errs), "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib, "strip": W}
 
 
 def params64(params):
@@ -2867,7 +2937,7 @@ def main_path(ddi, adj, dims, op_bsr, op_csr, x_op, calibration, card_line: str)
     dp = default_phase(op_bsr, x_op, op_csr, adj, graphs, best, read)
     t_phase = phase_done("8d default", t_phase)
     missing = [name for name in [kernel_of(p)[1] for p in plans.values()]
-               + ["split_bf16", "quantize_int8"] if totals.get(name, 0) == 0]
+               + ["split_bf16", "quantize_int8", "ell_spmm"] if totals.get(name, 0) == 0]
     if missing:
         raise AssertionError(f"not launched on the main path: {missing}")
     # the operand kernels called directly against their plain versions,

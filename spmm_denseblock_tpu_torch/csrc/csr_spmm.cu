@@ -103,6 +103,46 @@
 // the gathers' bytes.
 // F % 8 != 0, or X off 16 bytes (a view at an odd offset), takes 8-byte
 // loads of 4 columns (V = 4) or 2-byte loads (V = 1) in the same kernel.
+//
+// The f32 ELL tier's kernel (sdb_ell_spmm, ell_row_kernel) replaces no TPU
+// kernel: the JAX package's ELL tier (spmm_denseblock_tpu/ops/
+// csr_spmm_ell.py, _ell_spmm_device) is XLA code. It gathers each degree
+// class's (m, K, F) block of X's rows into device memory, multiplies it
+// by the values and sums its K axis, class by class and chunk by chunk,
+// then gathers the rows back into the caller's order; its torch-ops port
+// made ~90 launches an SpMM on the arxiv graph and took 3.6 ms at F = 128,
+// 64x its bytes bound (H100). The plan flattens the ELL layout once, on
+// the host: the chunks' column ids and values class-major, each row's
+// stored entries at the head of its K slots and its pads after them, and
+// the rows' slot starts cut into segments of at most SEGMENT_NNZ stored
+// entries, longest first. So a row's stored entries are a span of the
+// flat arrays, as K10's are of the band layout's, and one launch gathers,
+// multiplies and sums each segment in registers and stores it once, at
+// its caller's row (or a partial row that csr_reduce_kernel adds, as in
+// K10); pads are never read, so no zero row is appended to X, and a
+// pattern-only layout (kValued false) reads no values: each term is X's
+// row, what a product by 1.0 gives bit for bit.
+//
+// What bounds it on an H100. On the arxiv serve graph's remainder (1.99 M
+// stored entries, 169,343 rows of ~12) the gathers: 1 GB of X's rows at F
+// = 128 and 2 GB at 256, against a bytes bound of 0.057 and 0.109 ms.
+// X (87 and 173 MB) is larger than the 50 MB L2, but the graph is
+// reordered (gorder), so neighbouring rows gather neighbouring rows of X:
+// K10's walk over the same arrays in strips of csr_strip_width's 32
+// columns (X's strip in 70% of the L2) took 0.42 and 0.79 ms, and in one
+// strip 0.37 and 0.57 (scripts/torch_ell_probe.py). The design is K10's
+// one-bf16-pass kernel's, in f32: 16-byte gathers of 4 columns, one task
+// a (segment, strip) over all of its columns on L = W / 4 lanes (4 to 32,
+// so 32 / L segments share a warp), kEllInFlight rows of X in flight a
+// lane while the next batch's pairs load, and the segments longest first
+// so that the split rows' segments start first. Its strips
+// (ell_strip_width) are equal, at most 128 columns, and each fills at
+// most 85% of the L2 (64 columns on arxiv): 0.245-0.251 ms at F = 128 and
+// 0.471-0.476 at 256 (strips of 128 within 3% of that; one strip of 256
+// read with two loads a lane 0.527), against cuSPARSE's 0.323-0.329 and
+// 0.619-0.632 on the same matrix. Each output sums its terms in K10's
+// order (f32 FFMA in the row's order inside batches of 32 pairs, the
+// batches added in order), whatever the strip width.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -580,6 +620,200 @@ int csr_bf16_spmm(const void* seg_start, const void* seg_end, const void* seg_de
   return (int)cudaGetLastError();
 }
 
+// ---- the f32 ELL tier -----------------------------------------------------
+
+constexpr int kEllInFlight = 4;    // gathered rows in flight a lane
+constexpr int kEllThreads = 64;    // threads a CTA
+constexpr int kEllMinCtas = 12;    // CTAs an SM holds: 80 registers
+constexpr int kEllMaxStrip = 128;  // columns of a strip: 32 lanes x 4
+
+// The pairs of the batch at slot b of a segment that ends at s1, lane gl
+// of L holding pairs q * L + gl (0 past the end); no values where the
+// layout has none.
+template <int L, bool kValued>
+__device__ __forceinline__ void load_ell_pairs(int32_t (&c)[kBatch / L],
+                                               float (&v)[kBatch / L],
+                                               const int32_t* __restrict__ cols,
+                                               const float* __restrict__ vals,
+                                               int64_t b, int64_t s1, int gl) {
+#pragma unroll
+  for (int q = 0; q < kBatch / L; ++q) {
+    const int64_t k = b + q * L + gl;
+    c[q] = k < s1 ? cols[k] : 0;
+    v[q] = kValued && k < s1 ? vals[k] : 0.f;
+  }
+}
+
+// One (segment, strip) per group of L lanes, strip-major: task t is strip
+// t / n_seg, segment t % n_seg. Lane gl of the group owns the strip's
+// columns (j * L + gl) * V .. + V - 1, j < J (V = 4: one 16-byte load). The
+// segment's (col, val) pairs are read in batches of 32 (the next batch's
+// while this one's rows are gathered), lane gl holding pairs q * L + gl,
+// and broadcast with __shfl_sync; kEllInFlight rows of X are loaded before
+// their FFMAs, which run in the row's order. Stores the segment's sum at
+// row dest of C (dest >= 0) or at row -dest - 1 of the partial rows.
+template <int V, int L, int J, bool kValued>
+__global__ void __launch_bounds__(kEllThreads, kEllMinCtas)
+    ell_row_kernel(const int64_t* __restrict__ seg_start,
+                   const int64_t* __restrict__ seg_end,
+                   const int64_t* __restrict__ seg_dest,
+                   const int32_t* __restrict__ cols,
+                   const float* __restrict__ vals, const float* __restrict__ x,
+                   float* __restrict__ out, float* __restrict__ partial,
+                   int64_t n_seg, int64_t F, int64_t W, int64_t n_strips) {
+  constexpr int N = J * V;       // columns a lane
+  constexpr int Q = kBatch / L;  // pairs a lane and batch
+  constexpr int U = kEllInFlight;
+  const int gl = threadIdx.x % L;
+  const unsigned mask =  // the group's lanes
+      (unsigned)(((1ull << L) - 1) << (threadIdx.x % 32 / L * L));
+  const int64_t task = (int64_t)blockIdx.x * (kEllThreads / L) + threadIdx.x / L;
+  if (task >= n_strips * n_seg) return;  // uniform over the group
+  const int64_t seg = task % n_seg;
+  const int64_t f0 = task / n_seg * W;
+  const int64_t n_valid = F - f0 < W ? F - f0 : W;
+  const int64_t s0 = seg_start[seg], s1 = seg_end[seg];
+  const float* xs = x + f0;
+  float acc[N] = {};
+  int32_t c[Q];
+  float v[Q];
+  load_ell_pairs<L, kValued>(c, v, cols, vals, s0, s1, gl);
+  for (int64_t base = s0; base < s1; base += kBatch) {
+    const int n = (int)(s1 - base < kBatch ? s1 - base : kBatch);
+    int32_t cn[Q];
+    float vn[Q];
+    load_ell_pairs<L, kValued>(cn, vn, cols, vals, base + kBatch, s1, gl);
+    float part[N] = {};
+#pragma unroll
+    for (int k0 = 0; k0 < kBatch; k0 += U) {
+      if (k0 >= n) break;
+      float xv[U][N];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = k0 + u;  // pair k of the batch: lane k % L's q = k / L
+        const int64_t ck = __shfl_sync(mask, c[k / L], k % L, L);
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int64_t f = (int64_t)(j * L + gl) * V;
+          if (k < n && f < n_valid) {
+            if constexpr (V == 4) {
+              load4(&xv[u][4 * j], xs + ck * F + f);
+            } else {
+              xv[u][j] = __ldg(xs + ck * F + f);
+            }
+          } else {
+#pragma unroll
+            for (int i = 0; i < V; ++i) xv[u][j * V + i] = 0.f;
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = k0 + u;
+        if (k >= n) break;
+        const float vk = kValued ? __shfl_sync(mask, v[k / L], k % L, L) : 1.f;
+#pragma unroll
+        for (int i = 0; i < N; ++i) part[i] = fmaf(vk, xv[u][i], part[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) acc[i] += part[i];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      c[q] = cn[q];
+      v[q] = vn[q];
+    }
+  }
+  const int64_t dest = seg_dest[seg];
+  float* o = (dest >= 0 ? out + dest * F : partial + (-dest - 1) * F) + f0;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int64_t f = (int64_t)(j * L + gl) * V;
+    if (f >= n_valid) continue;
+    if constexpr (V == 4) {
+      *reinterpret_cast<float4*>(o + f) =
+          make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+    } else {
+      o[f] = acc[j];
+    }
+  }
+}
+
+template <int V, int L, int J, bool kValued>
+cudaError_t launch_ell_tasks(const int64_t* ss, const int64_t* se, const int64_t* sd,
+                             const int32_t* c, const float* v, const float* x,
+                             float* o, float* partial, int64_t n_seg, int64_t F,
+                             int64_t W, int64_t n_strips, cudaStream_t s) {
+  const int64_t n_ctas = ceil_div(n_strips * n_seg, kEllThreads / L);
+  if (n_ctas > INT32_MAX) return cudaErrorInvalidConfiguration;
+  ell_row_kernel<V, L, J, kValued><<<(unsigned)n_ctas, kEllThreads, 0, s>>>(
+      ss, se, sd, c, v, x, o, partial, n_seg, F, W, n_strips);
+  return cudaGetLastError();
+}
+
+// The group for strips of W columns read V columns a load, J loads a
+// lane: the fewest of 4, 8, 16 and 32 lanes that cover a strip.
+template <int V, int J, bool kValued>
+cudaError_t launch_ell(const int64_t* ss, const int64_t* se, const int64_t* sd,
+                       const int32_t* c, const float* v, const float* x, float* o,
+                       float* partial, int64_t n_seg, int64_t F, int64_t W,
+                       cudaStream_t s) {
+  static_assert(32 * V * J >= kEllMaxStrip, "32 lanes must cover a strip");
+  const int64_t lanes = ceil_div(W, V * J), n_strips = ceil_div(F, W);
+  return lanes <= 4    ? launch_ell_tasks<V, 4, J, kValued>(ss, se, sd, c, v, x, o, partial,
+                                                            n_seg, F, W, n_strips, s)
+         : lanes <= 8  ? launch_ell_tasks<V, 8, J, kValued>(ss, se, sd, c, v, x, o, partial,
+                                                            n_seg, F, W, n_strips, s)
+         : lanes <= 16 ? launch_ell_tasks<V, 16, J, kValued>(ss, se, sd, c, v, x, o,
+                                                             partial, n_seg, F, W,
+                                                             n_strips, s)
+                       : launch_ell_tasks<V, 32, J, kValued>(ss, se, sd, c, v, x, o,
+                                                             partial, n_seg, F, W,
+                                                             n_strips, s);
+}
+
+// sdb_ell_spmm's body. 16-byte loads (V = 4, one a lane and row) need F %
+// 4 == 0, X on 16 bytes and the outputs on 16; otherwise 4-byte loads, 4
+// a lane and row. Then the reduction of split rows, shared with K10.
+template <bool kValued>
+int ell_spmm(const void* seg_start, const void* seg_end, const void* seg_dest,
+             const void* cols, const void* vals, const void* dense, void* out,
+             void* partial, const void* split_row, const void* part_ptr,
+             int64_t n_seg, int64_t n_split, int64_t F, int64_t W, void* stream) {
+  if (W < F && (W <= 0 || W % 4 != 0)) return (int)cudaErrorInvalidValue;
+  if (n_seg <= 0 || F <= 0) return (int)cudaSuccess;
+  if (W > F) W = F;
+  if (W > kEllMaxStrip) return (int)cudaErrorInvalidValue;
+  const auto* ss = static_cast<const int64_t*>(seg_start);
+  const auto* se = static_cast<const int64_t*>(seg_end);
+  const auto* sd = static_cast<const int64_t*>(seg_dest);
+  const auto* c = static_cast<const int32_t*>(cols);
+  const auto* v = static_cast<const float*>(vals);
+  const auto* x = static_cast<const float*>(dense);
+  auto* o = static_cast<float*>(out);
+  auto* pt = static_cast<float*>(partial);
+  auto s = static_cast<cudaStream_t>(stream);
+  const bool vec4 = F % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(o) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(pt) % 16 == 0;
+  cudaError_t err =
+      vec4 ? launch_ell<4, kEllMaxStrip / 128, kValued>(ss, se, sd, c, v, x, o, pt, n_seg,
+                                                        F, W, s)
+           : launch_ell<1, kEllMaxStrip / 32, kValued>(ss, se, sd, c, v, x, o, pt, n_seg,
+                                                       F, W, s);
+  if (err != cudaSuccess || n_split == 0) return (int)err;
+  const int64_t n_ft = ceil_div(F, kWideTile);
+  const unsigned n_ctas = (unsigned)ceil_div(n_split * n_ft, kWarps);
+  const auto* sr = static_cast<const int64_t*>(split_row);
+  const auto* pp = static_cast<const int64_t*>(part_ptr);
+  if (vec4) {
+    csr_reduce_kernel<4><<<n_ctas, kThreads, 0, s>>>(sr, pp, pt, o, n_split, F, n_ft);
+  } else {
+    csr_reduce_kernel<1><<<n_ctas, kThreads, 0, s>>>(sr, pp, pt, o, n_split, F, n_ft);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface, bound with ctypes. Pointers are device pointers; the
@@ -593,7 +827,10 @@ int csr_bf16_spmm(const void* seg_start, const void* seg_end, const void* seg_de
 // sdb_csr_spmm: f32 values and X (K10); W < F must be a positive multiple
 // of 32. sdb_csr_spmm_bf16: bf16 values and X (K10 at one bf16 pass), the
 // same arguments otherwise; W < F must be a positive multiple of 8, and a
-// strip at most 256 columns. C is f32.
+// strip at most 256 columns. sdb_ell_spmm: the f32 ELL tier's flattened
+// layout, sdb_csr_spmm's arguments, vals null for a pattern-only layout;
+// W < F must be a positive multiple of 4, and a strip at most 128
+// columns. C is f32.
 extern "C" int sdb_csr_spmm(const void* seg_start, const void* seg_end,
                             const void* seg_dest, const void* cols,
                             const void* vals, const void* dense, void* out,
@@ -616,4 +853,20 @@ extern "C" int sdb_csr_spmm_bf16(const void* seg_start, const void* seg_end,
   return csr_bf16_spmm<uint16_t>(seg_start, seg_end, seg_dest, cols, vals, dense,
                                  out, partial, split_row, part_ptr, n_seg, n_split,
                                  F, W, stream);
+}
+
+extern "C" int sdb_ell_spmm(const void* seg_start, const void* seg_end,
+                            const void* seg_dest, const void* cols,
+                            const void* vals, const void* dense, void* out,
+                            void* partial, const void* split_row,
+                            const void* part_ptr, int64_t n_seg,
+                            int64_t n_split, int64_t F, int64_t W,
+                            void* stream) {
+  return vals != nullptr
+             ? ell_spmm<true>(seg_start, seg_end, seg_dest, cols, vals, dense, out,
+                              partial, split_row, part_ptr, n_seg, n_split, F, W,
+                              stream)
+             : ell_spmm<false>(seg_start, seg_end, seg_dest, cols, vals, dense, out,
+                               partial, split_row, part_ptr, n_seg, n_split, F, W,
+                               stream);
 }

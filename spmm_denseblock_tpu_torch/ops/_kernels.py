@@ -91,6 +91,9 @@ _SIGNATURES = {
     "sdb_csr_spmm": ("csr_spmm", [_P] * 10 + [_I] * 4 + [_P]),
     # K10 at one bf16 pass: the same arguments, bf16 vals and dense
     "sdb_csr_spmm_bf16": ("csr_spmm", [_P] * 10 + [_I] * 4 + [_P]),
+    # the f32 ELL tier on its flattened layout: sdb_csr_spmm's arguments,
+    # vals null for a pattern-only layout
+    "sdb_ell_spmm": ("csr_spmm", [_P] * 10 + [_I] * 4 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -208,10 +211,11 @@ bsr_spmm_int8_resident = CudaKernel("sdb_bsr_spmm_int8_resident")  # K9
 quantize_int8 = CudaKernel("sdb_quantize_int8")  # K6-K9's operand
 csr_spmm = CudaKernel("sdb_csr_spmm")                           # K10
 csr_spmm_bf16 = CudaKernel("sdb_csr_spmm_bf16")  # K10, one bf16 pass
+ell_spmm = CudaKernel("sdb_ell_spmm")  # the f32 ELL tier (csr_ell)
 KERNELS = (bsr_spmm_flat, bsr_spmm_flat_bf16, bsr_spmm_sorted,
            bsr_spmm_sorted_bf16, bsr_spmm_flat_bf16x3,
            bsr_spmm_sorted_bf16x3, bsr_spmm_resident_bf16x3, split_bf16,
            bsr_spmm_rowgroup, bsr_spmm_rowgroup_bf16, bsr_spmm_resident,
            bsr_spmm_resident_bf16, bsr_spmm_int8_flat, bsr_spmm_int8_sorted,
            bsr_spmm_int8_rowgroup, bsr_spmm_int8_resident, quantize_int8,
-           csr_spmm, csr_spmm_bf16)
+           csr_spmm, csr_spmm_bf16, ell_spmm)

@@ -14,8 +14,19 @@ with the position map restores the caller's row order.
 All layout work happens on the host, once, bit-equal to the JAX plan:
 the degree classes, the row order, the pad indices, ``positions``, the
 chunk split at CHUNK_SLOTS, the compaction spans and the matsum/scan
-choice. The call is plain torch ops: the JAX tier is XLA code, not a
-Pallas kernel. Two things of the JAX plan are left out. It stores the
+choice. The JAX tier is XLA code, not a Pallas kernel. On the card, an
+f32 ``csr_ell`` plan runs one hand-written kernel a call
+(``sdb_ell_spmm`` in ``csrc/csr_spmm.cu``, counter ``_kernels.ell_spmm``):
+the plan flattens its chunks once (``_ell_flat``: the column ids and
+values class-major, compacted chunks resolved to operand rows, each
+row's slot start) and cuts each row's stored entries into K10's segments
+(``row_segments``), and the kernel gathers, multiplies and sums each row
+in registers and stores it once, at the caller's row, reading no pad and
+no (m, K, F) block. ``_run_chunks`` on the same flat arrays, chunk by
+chunk, is its plain PyTorch version: the CPU runs it, and so does
+``plain=True``. The bf16 ``csr_ell``, the int8 ELL (``csr_ell_int8``) and
+the banded ELL (``csr_ell_banded``) are plain torch ops on the card too.
+Two things of the JAX plan are left out. It stores the
 matsum chunks with m > K and every scan chunk transposed, as (K, m),
 because a TPU tile pads a small minor dimension to 128 lanes
 (``_store_chunk``); the card has no such padding, so every chunk here is
@@ -36,7 +47,9 @@ import torch
 
 from spmm_denseblock_tpu_torch import native
 from spmm_denseblock_tpu_torch.formats.csr import CSR
+from spmm_denseblock_tpu_torch.ops import _kernels
 from spmm_denseblock_tpu_torch.ops._device import resolve_device
+from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import _device_of
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_int8 import (
     dtype_name,
     reject_grad_request,
@@ -47,8 +60,14 @@ from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8 import (
     quantize_int8,
     quantize_int8_plain,
 )
+from spmm_denseblock_tpu_torch.ops.csr_spmm_pallas import (
+    _l2_bytes,
+    equal_strip_width,
+    row_segments,
+)
 from spmm_denseblock_tpu_torch.ops.plan import Plan, grad_plan
 from spmm_denseblock_tpu_torch.reorder.simple import _ragged_arange
+from spmm_denseblock_tpu_torch.utils import profiling
 
 # the slots of one chunk: it bounds the (m, K, F) gather intermediate in
 # device memory (4M slots: 2 GB in f32 at F = 128)
@@ -293,6 +312,103 @@ def _ell_layout_banded(csr: CSR, band_rows: int, bucket: str):
     return tuple(idx_parts), tuple(val_parts), positions, tuple(layout), ovf
 
 
+# -- the kernel's flattened layout ---------------------------------------------
+
+
+def _ell_flat(idx_chunks, val_chunks, layout, positions):
+    """The f32 kernel's arrays of an _ell_layout result: (cols, vals,
+    slot_start). cols (Σ m·K,) int32 holds every chunk's (m, K) operand
+    rows in chunk order (class-major), a compacted chunk's resolved to
+    operand rows (uniq[inv]: compaction is a TPU gather-rate device and
+    changes no product or sum); vals (Σ m·K,) f32 the chunks' values in
+    the same slots, or None (pattern-only); slot_start (n_rows,) int64 the
+    first of each caller row's K slots, which hold its stored entries
+    first (in CSR order) and its pads after them."""
+    cols = [c[0][c[1]] if isinstance(c, tuple) else c for c in idx_chunks]
+    cols = (np.concatenate([c.reshape(-1) for c in cols]) if cols
+            else np.zeros(0, np.int32)).astype(np.int32)
+    vals = (np.concatenate([v.reshape(-1) for v in val_chunks]).astype(np.float32)
+            if val_chunks else None)
+    widths = np.repeat(np.asarray([K for _, K, *_ in layout], np.int64),
+                       np.asarray([m for m, *_ in layout], np.int64))
+    start = np.concatenate([[0], np.cumsum(widths)[:-1]]).astype(np.int64)
+    return cols, vals, start[np.asarray(positions, np.int64)]
+
+
+def _flat_chunks(cols, vals, layout) -> list:
+    """_run_chunks' arrays as (m, K) views of the flat ones: per chunk its
+    indices, then its values (valued layouts). The layout's chunks must
+    be marked uncompacted (their columns are resolved)."""
+    out, o = [], 0
+    for m, K, *_ in layout:
+        out.append(cols[o:o + m * K].view(m, K))
+        if vals is not None:
+            out.append(vals[o:o + m * K].view(m, K))
+        o += m * K
+    return out
+
+
+ELL_MAX_STRIP = 128  # the kernel's widest strip: 32 lanes x 4 columns
+ELL_STRIP_UNIT = 4   # a strip is a multiple of one 16-byte load's columns
+ELL_L2_SHARE = 0.85  # of the L2 a strip of X may fill
+
+
+def ell_strip_width(K: int, F: int, l2_bytes: int) -> int:
+    """The f32 ELL kernel's strip width W for a (K, F) f32 operand on a
+    card with l2_bytes of L2: F cut into the fewest strips that are at
+    most ELL_MAX_STRIP columns wide and whose (K, W) slice of X fills at
+    most ELL_L2_SHARE of the L2 (one unit wide if none does), made equal
+    and rounded up to a multiple of ELL_STRIP_UNIT. On an H100 the arxiv
+    serve graph's remainder (X 87 MB at F = 128, 85% of the L2 holds 64
+    columns) took 0.245-0.251 ms in strips of 64 or one of 128, and at F =
+    256 0.471-0.476 ms in strips of 64 against 0.472-0.488 in strips of
+    128 and 0.527 in one of 256 read with two loads a lane
+    (scripts/torch_ell_probe.py). W == F walks all of F as one strip."""
+    return equal_strip_width(K, F, l2_bytes, 4, ELL_L2_SHARE, ELL_STRIP_UNIT,
+                             ELL_MAX_STRIP)
+
+
+def spmm_ell(cols, vals, seg_start, seg_end, seg_dest, split_row, part_ptr,
+             dense, n_rows: int, n_partials: int) -> torch.Tensor:
+    """The f32 ELL tier's kernel: C (n_rows, F) f32 = A @ dense over the
+    flat layout (_ell_flat), walked by the segments of each row's stored
+    entries (row_segments), n_partials = part_ptr[-1] partial rows for the
+    rows split into several; vals None for a pattern-only layout. X in
+    strips of ell_strip_width's width. CUDA tensors only: the plain
+    version is _run_chunks on the same arrays (_ell_apply)."""
+    seg = (seg_start, seg_end, seg_dest, split_row, part_ptr)
+    valued = () if vals is None else (vals,)
+    dev = _device_of(cols, *valued, *seg, dense)
+    if dev.type != "cuda":
+        raise ValueError(f"sdb_ell_spmm runs on CUDA tensors, got {dev}")
+    named = [("cols", cols, torch.int32), ("dense", dense, torch.float32)]
+    named += [("vals", t, torch.float32) for t in valued]
+    named += [(n, t, torch.int64) for n, t in zip(
+        ("seg_start", "seg_end", "seg_dest", "split_row", "part_ptr"), seg)]
+    for name, t, dtype in named:
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got dtype {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("CUDA kernel operands must be contiguous")
+    if dense.dim() != 2:
+        raise ValueError(f"dense must be (K, F), got {tuple(dense.shape)}")
+    if vals is not None and vals.numel() != cols.numel():
+        raise ValueError("cols and vals must hold the same slots")
+    F = dense.shape[1]
+    out = torch.empty(n_rows, F, dtype=torch.float32, device=dev)
+    partial = torch.empty(n_partials, F, dtype=torch.float32, device=dev)
+    W = ell_strip_width(dense.shape[0], F, _l2_bytes(dev.index))
+    with torch.cuda.device(dev):
+        _kernels.ell_spmm(
+            seg_start.data_ptr(), seg_end.data_ptr(), seg_dest.data_ptr(),
+            cols.data_ptr(), 0 if vals is None else vals.data_ptr(),
+            dense.data_ptr(), out.data_ptr(), partial.data_ptr(),
+            split_row.data_ptr(), part_ptr.data_ptr(), seg_start.shape[0],
+            split_row.shape[0], F, W, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    return out
+
+
 # -- the call -----------------------------------------------------------------
 
 
@@ -388,15 +504,20 @@ def csr_spmm_ell_plan(csr: CSR, grad: bool = True, dtype=None,
                       feat_dim: int = 128, device=None) -> Plan:
     """Host layout prep once -> Plan computing C = A @ dense in f32.
 
-    dtype: None or float32, or bfloat16 (a bf16 gather, values rounded to
-    bf16, f32 products and sums; about 1e-3 relative, opt-in); int8
+    dtype: None or float32 (on the card the kernel sdb_ell_spmm), or
+    bfloat16 (a bf16 gather, values rounded to bf16, f32 products and
+    sums; about 1e-3 relative, opt-in; torch ops on the card too); int8
     raises ValueError (use
     csr_spmm_ell_int8_plan). bucket: "quarter" or "pow2" (_row_widths).
     reduce: "auto" picks matsum or scan per chunk (_chunk_mode);
     "matsum"/"scan" force one. row_sort, compact, compact_slots,
     feat_dim: see _ell_layout. grad: True (the default) returns a
     grad_plan whose backward runs the plan of Aᵀ. device: None is the
-    card. Work figures (``ops/plan``): nnz, A's; positions, ``_slots``."""
+    card. Work figures (``ops/plan``): nnz, A's; positions, the slots a
+    call walks: on the card an f32 plan's kernel the nnz stored entries
+    alone, the torch ops (the CPU, bf16) ``_slots``, pads included. The
+    arrays: positions, the flat columns and (valued) values of _ell_flat,
+    then row_segments' five arrays over the rows' stored entries."""
     device = resolve_device(device)
     dtype_key = _plan_dtype_key(dtype)
     kw = dict(dtype=dtype, bucket=bucket, reduce=reduce, row_sort=row_sort,
@@ -410,23 +531,37 @@ def csr_spmm_ell_plan(csr: CSR, grad: bool = True, dtype=None,
         csr, bucket, reduce, row_sort, compact, compact_slots, itemsize,
         feat_dim,
     )
-    arrays = [positions, *_chunk_arrays(idx_chunks, val_chunks)]
-    statics = (csr.shape, layout, has_vals, dtype_key)
+    cols, vals, slot_start = _ell_flat(idx_chunks, val_chunks, layout, positions)
+    segments = row_segments(np.append(slot_start, cols.size), csr.indptr,
+                            longest_first=True)
+    arrays = [positions, cols, *(() if vals is None else (vals,)), *segments]
+    # the columns are resolved: no chunk is compacted any more
+    flat_layout = tuple((m, K, mode, band, False) for m, K, mode, band, _ in layout)
+    statics = (csr.shape, flat_layout, has_vals, dtype_key, int(segments[4][-1]))
+    on_kernel = device.type == "cuda" and itemsize == 4
     return Plan(arrays, _ell_apply, statics, device=device, name="csr_ell",
-                nnz=csr.nnz, positions=_slots(layout))
+                nnz=csr.nnz, positions=csr.nnz if on_kernel else _slots(layout))
 
 
 def _ell_apply(statics, arrays, dense, plain: bool = False):
-    # plain torch ops already: plain=True runs the same ops
-    (n_rows, n_cols), layout, has_vals, dtype_key = statics
-    positions = arrays[0]
+    # f32 on the card: the kernel; else (CPU, bf16, plain=True) its plain
+    # version, the chunk loop on views of the same flat arrays
+    (n_rows, n_cols), layout, has_vals, dtype_key, n_partials = statics
+    positions, cols = arrays[:2]
+    vals = arrays[2] if has_vals else None
     dense = _operand(dense, n_cols, positions.device, dtype_key)
+    if dense.is_cuda and dense.dtype == torch.float32 and not plain:
+        out = spmm_ell(cols, vals, *arrays[-5:], dense.contiguous(), n_rows,
+                       n_partials)
+        profiling.count("sdb.kernel/csr_ell", 1)
+        return out
     if not layout:  # no rows
         return torch.zeros(n_rows, dense.shape[1], dtype=torch.float32,
                            device=dense.device)
     if not has_vals:  # the zero row that every pad slot reads
         dense = torch.cat([dense, dense.new_zeros(1, dense.shape[1])])
-    cat, _ = _run_chunks(arrays, 1, dense, layout, has_vals, 0)
+    cat, _ = _run_chunks(_flat_chunks(cols, vals, layout), 0, dense, layout,
+                         has_vals, 0)
     return cat.index_select(0, positions)
 
 

@@ -184,13 +184,23 @@ def csr_bf16_strip_width(K: int, F: int, l2_bytes: int) -> int:
     L2) took 0.78x the time of two (64 + 64), and one strip won under each
     of four orderings (scripts/torch_csr_bf16_probe.py). W == F walks all
     of F as one strip."""
-    fit = int(CSR_BF16_L2_SHARE * l2_bytes) // max(1, 2 * K)
-    widest = max(CSR_BF16_UNIT,
-                 min(CSR_BF16_MAX_STRIP, fit // CSR_BF16_UNIT * CSR_BF16_UNIT))
+    return equal_strip_width(K, F, l2_bytes, 2, CSR_BF16_L2_SHARE, CSR_BF16_UNIT,
+                             CSR_BF16_MAX_STRIP)
+
+
+def equal_strip_width(K: int, F: int, l2_bytes: int, itemsize: int, share: float,
+                      unit: int, max_strip: int) -> int:
+    """F cut into the fewest strips that are at most max_strip columns
+    wide and whose (K, W) slice of X (itemsize bytes an element) fills at
+    most `share` of the L2 (one unit wide if none does), made equal and
+    rounded up to a multiple of unit. W == F walks all of F as one
+    strip."""
+    fit = int(share * l2_bytes) // max(1, itemsize * K)
+    widest = max(unit, min(max_strip, fit // unit * unit))
     n_strips = -(-F // widest)
     if n_strips <= 1:
         return F
-    return -(-F // (n_strips * CSR_BF16_UNIT)) * CSR_BF16_UNIT
+    return -(-F // (n_strips * unit)) * unit
 
 
 @functools.lru_cache(maxsize=None)

@@ -7,7 +7,8 @@ On the card the dense part runs a BSR kernel plan (``bsr_pallas``: the
 layout that its gate picks for the part's blocks, in f32, bf16 or
 "high"; ``hybrid_int8`` the int8 kernel plan, its operand quantized by
 ``quantize_int8``) or the plain-torch ``bsr_xla`` tier, and the
-remainder the ELL tier's torch ops.
+remainder the ELL tier: in f32 its kernel (``sdb_ell_spmm``, one launch
+a call), in bf16 and int8 its torch ops.
 """
 
 from __future__ import annotations

@@ -11,9 +11,10 @@ the int8 kernels K6 (flat), K7
 groups) and K9 (single-row resident), all four on the int8 tensor cores
 (the wgmma ring at b = 64 and 128, the small-block mma.sync loop at b =
 16 and 32, with its hub lanes), and their operand's quantization
-(quantize_int8, bit for bit), and the CSR kernel K10 (one strip,
-and column strips; f32, and bf16 at precision="default") against their
-plain PyTorch versions on the card,
+(quantize_int8, bit for bit), the CSR kernel K10 (one strip,
+and column strips; f32, and bf16 at precision="default") and the f32
+ELL tier's kernel (sdb_ell_spmm) against their plain PyTorch versions
+on the card,
 their launch counters, the wrappers' refusals, grad plans' backward on
 the card against the plain backward, and the bench timers, spmm_tune's
 handling of a refused launch and the profiler's trace of a launch. CUDA kernels have no CPU mode, so
@@ -1697,24 +1698,222 @@ def test_ell_plans_on_card_match_cpu(case):
     """Each ELL plan on the card against the same plan on the CPU: int8
     pattern-only bit for bit (int32 sums, the quantization kernel
     bit-equal to its plain version), the rest within 1e-5 (the order of
-    the f32 sums); the int8 plans quantize with quantize_int8, one
-    launch a call, and no other kernel of the port runs."""
+    the f32 sums); the f32 csr_ell plans run the ELL kernel, the int8
+    plans quantize with quantize_int8, each one launch a call, and no
+    other kernel of the port runs (bf16 and banded: torch ops). The work
+    figure positions: the f32 plans' the nnz stored entries the kernel
+    walks, the bf16 plan's the CPU plan's slots, pads included."""
     csr, planner, kw = _ell_case(case)
     x_np = np.random.default_rng(6).standard_normal((csr.n_cols, 40)).astype(np.float32)
-    want = planner(csr, device="cpu", **kw)(x_np)
+    cpu_plan = planner(csr, device="cpu", **kw)
+    want = cpu_plan(x_np)
     plan = planner(csr, device="cuda", **kw)
     counts = [k.launches for k in _kernels.KERNELS]
     got = plan(torch.as_tensor(x_np, device="cuda"))
     torch.cuda.synchronize()
     int8 = case.startswith("int8")
+    f32 = case in ("f32", "pattern", "scan", "compact")  # the f32 csr_ell kernel
     launched = [k.launches - c for k, c in zip(_kernels.KERNELS, counts)]
-    assert launched == [int(int8 and k is _kernels.quantize_int8) for k in _kernels.KERNELS]
+    assert launched == [int(int8 and k is _kernels.quantize_int8
+                            or f32 and k is _kernels.ell_spmm) for k in _kernels.KERNELS]
+    if f32 or case == "bf16":
+        assert plan.positions == (csr.nnz if f32 else cpu_plan.positions)
+    if case in ("f32", "bf16"):  # ragged rows: the CPU walks pads too
+        assert cpu_plan.positions > csr.nnz
     assert got.shape == want.shape and got.dtype == torch.float32
     if case == "int8 pattern":
         assert torch.equal(got.cpu(), want)
     else:
         rel = (got.cpu() - want).abs().max().item() / want.abs().max().item()
         assert rel < TOL, rel
+
+
+def _ell_kernel_csr(valued: bool, n_rows=3000, n_cols=2500, seed=30) -> CSR:
+    """Rows of 0 to 12 nonzeros, a fifth of them of one (the K = 1 class,
+    beside the empty rows' pad slots), rows 0-9 empty, row 17 a hub of
+    1,500 nonzeros and the last row 513 (past SEGMENT_NNZ: split into
+    segments; duplicate columns kept); seeded values or none."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 13, n_rows)
+    deg[rng.random(n_rows) < 0.2] = 1
+    deg[:10] = 0
+    deg[[17, n_rows - 1]] = (1500, 513)
+    rows = np.repeat(np.arange(n_rows), deg)
+    vals = rng.standard_normal(rows.size).astype(np.float32) if valued else None
+    return CSR.from_coo(rows, rng.integers(0, n_cols, rows.size), vals, (n_rows, n_cols))
+
+
+def _ell_kernel_check(plan, csr, x):
+    """The f32 ELL plan on the card: one launch of its kernel, within 1e-5
+    of its plain version (_check) and of a float64 product."""
+    got = _check(plan, x, _kernels.ell_spmm)
+    want = csr.to_scipy().astype(np.float64) @ x.cpu().numpy().astype(np.float64)
+    assert np.abs(got.cpu().numpy() - want).max() / max(np.abs(want).max(), 1.0) < TOL
+    return got
+
+
+@pytest.mark.parametrize("F", [40, 128, 256, 300])
+@pytest.mark.parametrize("compact", ["off", "force"])
+@pytest.mark.parametrize("valued", [True, False])
+def test_ell_kernel_matches_plain(valued, compact, F):
+    """The f32 csr_ell plan's kernel (sdb_ell_spmm) on valued (pads at row
+    0) and pattern-only (pads at the zero row, never appended on the card)
+    layouts, plain and compacted chunks (resolved at build), K = 1
+    classes, empty rows and split rows: within 1e-5 of its plain version
+    and of float64; the empty rows store zeros."""
+    E = importlib.import_module("spmm_denseblock_tpu_torch.ops.csr_spmm_ell")
+    csr = _ell_kernel_csr(valued)
+    plan = E.csr_spmm_ell_plan(csr, grad=False, compact=compact, compact_slots=512,
+                               device="cuda")
+    assert plan.statics[2] == valued and plan.statics[4] > 0  # partial rows
+    assert 1 in {K for _, K, *_ in plan.statics[1]}
+    x = torch.as_tensor(np.random.default_rng(F).standard_normal(
+        (csr.n_cols, F)).astype(np.float32), device="cuda")
+    got = _ell_kernel_check(plan, csr, x)
+    assert not got[:10].any()
+
+
+@pytest.mark.parametrize("F,W", [(128, 64), (300, 100), (303, 104)])
+@pytest.mark.parametrize("valued", [True, False])
+def test_ell_kernel_column_strips(valued, F, W, monkeypatch):
+    """X in equal strips of ell_strip_width's width: at F = 128 with the
+    card's L2 made small enough that 70 columns of X fill its share (two
+    strips of 64, as on arxiv), and past the kernel's widest strip of 128
+    columns (300: three strips of 100 on 16-byte loads; 303: of 104 and a
+    last of 95 on 4-byte loads); within 1e-5 of plain and float64. Every
+    strip width (4, 32, 64, 100 and 128 columns: 1 to 32 lanes a segment)
+    sums each output's terms in the same order, so all give the same
+    bits; a strip of 132 columns, narrower than F, is refused."""
+    E = importlib.import_module("spmm_denseblock_tpu_torch.ops.csr_spmm_ell")
+    csr = _ell_kernel_csr(valued, seed=31)
+    if F == 128:
+        l2 = int(4 * csr.n_cols * 70 / E.ELL_L2_SHARE)
+        monkeypatch.setattr(E, "_l2_bytes", lambda index: l2)
+    assert E.ell_strip_width(csr.n_cols, F, E._l2_bytes(0)) == W
+    plan = E.csr_spmm_ell_plan(csr, grad=False, device="cuda")
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (csr.n_cols, F)).astype(np.float32), device="cuda")
+    got = _ell_kernel_check(plan, csr, x)
+    for W in (4, 32, 64, 100, 128):
+        monkeypatch.setattr(E, "ell_strip_width", lambda K, F, l2, W=W: W)
+        assert torch.equal(_check(plan, x, _kernels.ell_spmm), got), W
+    if F > E.ELL_MAX_STRIP:
+        monkeypatch.setattr(E, "ell_strip_width", lambda K, F, l2: 132)
+        with pytest.raises(RuntimeError, match="sdb_ell_spmm"):
+            plan(x)
+
+
+@pytest.mark.parametrize("shape", [(10, 12), (0, 12), (12, 0)])
+def test_ell_kernel_empty_matrix(shape):
+    """No nonzeros (every row one pad slot, never read) or no rows (an
+    empty layout): zeros of the right shape through the kernel's one
+    launch, equal to the plain version's."""
+    E = importlib.import_module("spmm_denseblock_tpu_torch.ops.csr_spmm_ell")
+    plan = E.csr_spmm_ell_plan(CSR.from_coo([], [], None, shape), grad=False,
+                               device="cuda")
+    x = torch.ones(shape[1], 5, device="cuda")
+    before = _kernels.ell_spmm.launches
+    got = plan(x)
+    torch.cuda.synchronize()
+    assert _kernels.ell_spmm.launches == before + 1
+    assert got.shape == (shape[0], 5) and not got.any()
+    assert torch.equal(got, T.plain_apply(plan, x))
+
+
+def test_ell_wrapper_refuses_bad_operands():
+    E = importlib.import_module("spmm_denseblock_tpu_torch.ops.csr_spmm_ell")
+    csr = _ell_kernel_csr(True, 300, 200)
+    plan = E.csr_spmm_ell_plan(csr, grad=False, device="cuda")
+    positions, cols, vals, *seg = plan.arrays
+    n_rows, n_partials = csr.n_rows, plan.statics[4]
+    x = torch.ones(200, 16, device="cuda")
+    counts = [k.launches for k in _kernels.KERNELS]
+    with pytest.raises(TypeError, match="dtype"):
+        E.spmm_ell(cols, vals, *seg, x.double(), n_rows, n_partials)
+    with pytest.raises(TypeError, match="dtype"):
+        E.spmm_ell(cols.long(), vals, *seg, x, n_rows, n_partials)
+    with pytest.raises(TypeError, match="dtype"):
+        E.spmm_ell(cols, vals, seg[0].int(), *seg[1:], x, n_rows, n_partials)
+    with pytest.raises(ValueError, match="device"):
+        E.spmm_ell(cols, vals, *seg, x.cpu(), n_rows, n_partials)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        E.spmm_ell(cols.cpu(), vals.cpu(), *(t.cpu() for t in seg), x.cpu(), n_rows,
+                   n_partials)
+    with pytest.raises(ValueError, match="contiguous"):
+        E.spmm_ell(cols, vals, *seg, torch.ones(16, 200, device="cuda").T, n_rows,
+                   n_partials)
+    with pytest.raises(ValueError, match="same slots"):
+        E.spmm_ell(cols, vals[1:], *seg, x, n_rows, n_partials)
+    assert [k.launches for k in _kernels.KERNELS] == counts
+
+
+@pytest.mark.parametrize("valued", [True, False])
+def test_ell_grad_plan_backward_on_card(valued):
+    """A csr_ell grad plan on the card: the forward launches the ELL
+    kernel once on A's layout and the backward once on Aᵀ's; the gradient
+    matches the plain backward within 1e-5 and float64 Aᵀ g within 1e-5."""
+    E = importlib.import_module("spmm_denseblock_tpu_torch.ops.csr_spmm_ell")
+    csr = _ell_kernel_csr(valued, 2000, 2600, seed=32)
+    plan = E.csr_spmm_ell_plan(csr, device="cuda")
+    rng = np.random.default_rng(5)
+    x0 = torch.as_tensor(rng.standard_normal((csr.n_cols, 72)).astype(np.float32),
+                         device="cuda")
+    g = torch.as_tensor(rng.standard_normal((csr.n_rows, 72)).astype(np.float32),
+                        device="cuda")
+    before = _kernels.ell_spmm.launches
+    x = x0.clone().requires_grad_(True)
+    plan(x).backward(g)
+    torch.cuda.synchronize()
+    assert _kernels.ell_spmm.launches == before + 2
+    xp = x0.clone().requires_grad_(True)
+    T.plain_apply(plan, xp).backward(g)
+    assert _kernels.ell_spmm.launches == before + 2
+    rel = (x.grad - xp.grad).abs().max().item() / xp.grad.abs().max().item()
+    assert rel < TOL, rel
+    want = csr.to_scipy().T.astype(np.float64) @ g.cpu().numpy().astype(np.float64)
+    assert np.abs(x.grad.cpu().numpy() - want).max() / np.abs(want).max() < TOL
+
+
+def test_ell_kernel_engaged_on_an_arxiv_size_hybrid():
+    """spmm_plan(impl="hybrid") on a graph of ogbn-arxiv's 169,343 nodes
+    (~8 nonzeros a row and 24 dense 128-blocks on the diagonal), F = 128:
+    the remainder runs the ELL kernel, one launch a call, and with program
+    tracing on the leaf counts it on sdb.kernel/csr_ell and the remainder's
+    stored entries, the slots the kernel walks, on sdb.positions/csr_ell;
+    the answer within 1e-5 of the plan's plain version."""
+    from spmm_denseblock_tpu_torch.ops import spmm_plan
+    from spmm_denseblock_tpu_torch.utils import profiling
+
+    n = 169_343
+    tail = random_csr(8 / n, n, seed=33)
+    blk = np.arange(24 * 128)
+    rows = np.concatenate([tail.row_ids(), np.repeat(blk, 128)])
+    cols = np.concatenate([tail.indices, (blk[:, None] // 128 * 128
+                                          + np.arange(128)).reshape(-1)])
+    vals = np.random.default_rng(34).random(rows.size).astype(np.float32)
+    csr = CSR.from_coo(rows, cols, vals, (n, n))
+    plan = spmm_plan(csr, impl="hybrid", block_size=128, density_threshold=0.5,
+                     grad=False)
+    assert plan.subplans is not None and len(plan.subplans) == 2
+    assert plan.subplans[1].name == "csr_ell"
+    x = torch.as_tensor(np.random.default_rng(35).standard_normal(
+        (n, 128)).astype(np.float32), device="cuda")
+    before = _kernels.ell_spmm.launches
+    prev = profiling.enable(True)
+    try:
+        profiling.take()
+        got = plan(x)
+        torch.cuda.synchronize()
+        counts = profiling.take()["counts"]
+    finally:
+        profiling.enable(prev)
+    assert _kernels.ell_spmm.launches == before + 1
+    assert counts["sdb.kernel/csr_ell"] == 1
+    assert counts["sdb.positions/csr_ell"] == counts["sdb.nnz/csr_ell"]
+    assert counts["sdb.nnz/csr_ell"] == plan.subplans[1].nnz > 0
+    want = T.plain_apply(plan, x)
+    rel = (got - want).abs().max().item() / want.abs().max().item()
+    assert rel < TOL, rel
 
 
 @pytest.mark.parametrize("dtype,kernel,n_quantize", [

@@ -9,6 +9,7 @@ sums differs), pattern-only int8 bit for bit (int32 sums), valued and
 calibrated int8 within 1e-5; grad plans' gradients within 1e-5 of
 jax.grad's."""
 
+import functools
 import importlib
 
 import jax
@@ -328,6 +329,81 @@ def test_grad_plan_matches_jax_grad(plan):
     xt = torch.tensor(x, requires_grad=True)
     (tp(xt) * torch.as_tensor(w)).sum().backward()
     assert _rel(xt.grad, want) < TOL
+
+
+# the layouts the tests above build, each as the f32 kernel's flat arrays
+FLAT_CASES = {
+    **{f"{b} {rs} {'valued' if v else 'pattern'}": (_skewed, v, dict(bucket=b, row_sort=rs))
+       for b in ("quarter", "pow2") for rs in ("keep", "meancol") for v in (True, False)},
+    **{f"compact {c} {fd} {'valued' if v else 'pattern'}": (
+        _local_rows, v, dict(compact=c, compact_slots=256, feat_dim=fd))
+       for c, fd in (("force", 128), ("auto", 1 << 16), ("auto", 128)) for v in (True, False)},
+    **{f"scan {'valued' if v else 'pattern'}": (_wide_class, v, dict(reduce="scan"))
+       for v in (True, False)},
+    **{f"chunk split {'valued' if v else 'pattern'}": (_skewed, v, dict(chunk_slots=64))
+       for v in (True, False)},
+}
+
+
+@pytest.mark.parametrize("case", list(FLAT_CASES))
+def test_flat_layout_walk_matches_chunks(case, monkeypatch):
+    """The f32 kernel's view of each layout above: the flat columns
+    (compacted chunks resolved) and values hold each row's CSR entries in
+    order at its slot start, its segments (at most SEGMENT_NNZ slots,
+    stored entries only) cover them once and store into the caller's row
+    or its partial rows; walked by a plain loop in float64, segment by
+    segment and the split rows' partials in order, they give the chunk
+    loop's answer (_run_chunks: the plan on the CPU) within 1e-5."""
+    make, valued, kw = FLAT_CASES[case]
+    kw = dict(kw)
+    monkeypatch.setattr(TE, "CHUNK_SLOTS", kw.pop("chunk_slots", TE.CHUNK_SLOTS))
+    monkeypatch.setattr(TE, "row_segments", functools.partial(TE.row_segments,
+                                                              seg_nnz=5))
+    _, tc = make(valued=valued)
+    plan = TE.csr_spmm_ell_plan(tc, grad=False, device="cpu", **kw)
+    arrs = [a.numpy() for a in plan.arrays]
+    cols, vals = arrs[1], arrs[2] if valued else None
+    seg_start, seg_end, seg_dest, split_row, part_ptr = arrs[-5:]
+    assert cols.dtype == np.int32 and cols.size == TE._slots(plan.statics[1])
+    assert plan.statics[4] == part_ptr[-1]
+    indptr = np.asarray(tc.indptr, np.int64)
+    deg = np.diff(indptr)
+    # each row's segments, in its partial rows' order: its stored entries,
+    # once, from its slot start
+    row_of = seg_dest.copy()
+    for h, r in enumerate(split_row):
+        row_of[np.isin(-seg_dest - 1, np.arange(part_ptr[h], part_ptr[h + 1]))] = r
+    assert (row_of >= 0).all() and sorted(split_row) == list(np.flatnonzero(deg > 5))
+    walked = np.zeros(tc.n_rows, np.int64)
+    first = np.full(tc.n_rows, -1, np.int64)
+    for i in np.lexsort((-seg_dest, row_of)):  # a split row's partials in order
+        s0, s1, r = seg_start[i], seg_end[i], row_of[i]
+        assert 0 < s1 - s0 <= 5 or deg[r] == 0
+        first[r] = s0 if first[r] < 0 else first[r]
+        assert s0 == first[r] + walked[r]
+        walked[r] += s1 - s0
+    np.testing.assert_array_equal(walked, deg)
+    for r in range(tc.n_rows):
+        span = slice(first[r], first[r] + deg[r])
+        np.testing.assert_array_equal(cols[span], tc.indices[indptr[r]:indptr[r + 1]])
+        if valued:
+            np.testing.assert_array_equal(vals[span], tc.data[indptr[r]:indptr[r + 1]])
+    # the walk, in float64
+    x = _x(tc.n_cols, 6, seed=12)
+    out = np.zeros((tc.n_rows, 6))
+    partial = np.zeros((part_ptr[-1], 6))
+    for s0, s1, dest in zip(seg_start, seg_end, seg_dest):
+        v = vals[s0:s1, None] if valued else 1.0
+        acc = (x[cols[s0:s1]].astype(np.float64) * v).sum(0)
+        if dest >= 0:
+            out[dest] = acc
+        else:
+            partial[-dest - 1] = acc
+    for h, r in enumerate(split_row):
+        out[r] = partial[part_ptr[h]:part_ptr[h + 1]].sum(0)
+    got = plan(x)
+    assert _rel(got, out) < TOL
+    assert _rel(TE._ell_apply(plan.statics, plan.arrays, x, plain=True), out) < TOL
 
 
 @pytest.mark.parametrize("shape", [(7, 5), (0, 5)])
