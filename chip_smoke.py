@@ -176,8 +176,12 @@ Phases:
               synthetic_molecules(4113, 25) under per-graph rcmk, the raw
               adjacency, through csr_ell, bsr_pallas at b = 32 (K1) and
               auto; GAT [128, 250, 250, 40], 3 heads (DGL's ogbn-arxiv
-              gat.py widths) on the serve phase's graph with self-loops,
-              under inference_mode, its peak device memory; then
+              gat.py widths) on the serve phase's graph's attention
+              pattern (gat_pattern: bidirected, a self-loop on every
+              node), under inference_mode through its pattern plan
+              (spmm_plan(values="call"): the ELL kernel with each
+              layer's attention values, every valued call within 1e-5 of
+              its plain version), its peak device memory; then
               dense_block_gemm at bench.py's op shape (the block list
               shuffled) within 1e-5 of f32 K2, SDDMM's element tier on
               arxiv (d = 128) and its block tier on ddi's 1,156 blocks (d
@@ -257,7 +261,10 @@ Phases:
               tiers) beside its bound and torch.sparse.sampled_addmm,
               csr_to_bsr_on_device on the card beside the whole call and
               the host conversion, a GAT request under torch.profiler,
-              and K1 at b = 32 on the molecule batch; last, each
+              the ELL kernel with call values (3 heads) at F = 750 and
+              120 on the GAT's pattern beside its plain version, its
+              bytes bound (values 4 x 3 bytes an entry) and cuSPARSE on
+              each head, and K1 at b = 32 on the molecule batch; last, each
               slice's request under torch.profiler: the card's busy
               share and device time by kernel
 
@@ -396,12 +403,12 @@ from spmm_denseblock_tpu_torch.io.datasets import (  # noqa: E402
 from spmm_denseblock_tpu_torch.analyze.molecules import per_graph_reorder  # noqa: E402
 from spmm_denseblock_tpu_torch.io.datasets import synthetic_molecules  # noqa: E402
 from spmm_denseblock_tpu_torch.models.gnn import linear  # noqa: E402
+from spmm_denseblock_tpu_torch.models.graph import gat_pattern  # noqa: E402
 from spmm_denseblock_tpu_torch.models import (  # noqa: E402
     GAT,
     GCN,
     SAGE,
     GraphClassifier,
-    add_self_loops,
     gcn_apply,
     init_gcn,
     init_sage,
@@ -477,6 +484,7 @@ from spmm_denseblock_tpu_torch.ops.csr_spmm_pallas import (  # noqa: E402
     csr_strip_width,
 )
 from spmm_denseblock_tpu_torch.ops.plan import Plan, _sum_apply  # noqa: E402
+from spmm_denseblock_tpu_torch.ops.plan import run as plan_run  # noqa: E402
 from spmm_denseblock_tpu_torch.parallel.spmm import (  # noqa: E402
     layout_tag,
     plan_strategy,
@@ -617,7 +625,8 @@ GIN_ROUTES = (("csr_ell", {"impl": "csr_ell"}),
               ("auto", {"impl": "auto", "feat_dim": 300}))
 # GAT at the widths of DGL's ogbn-arxiv example (examples/pytorch/ogb/
 # ogbn-arxiv/gat.py --n-hidden 250 --n-heads 3 --n-layers 3) on the JAX
-# package's GAT architecture, the serve phase's graph with self-loops
+# package's GAT architecture (no residual), the serve phase's graph's
+# attention pattern (gat_pattern)
 GAT_DIMS = [128, 250, 250, 40]
 GAT_HEADS = 3
 SDDMM_ARXIV_D = 128  # the element tier on arxiv
@@ -1630,12 +1639,14 @@ def kernel_plan(plan) -> bool:
 def held_to_plain(plan, errs: list, by_kernel: dict = None):
     """plan (a kernel plan) held to its plain version on every call
     (KERNEL_TOL), its max |kernel - plain| appended to errs and, where
-    given, to by_kernel[its kernel's counter]."""
+    given, to by_kernel[its kernel's counter]; a values="call" plan's
+    call takes its values= to both."""
     name = kernel_of(plan)[1]
 
-    def spmm(h):
-        got = plan(h)
-        want = plain_apply(plan, h)
+    def spmm(h, values=None):
+        kw = {} if values is None else {"values": values}
+        got = plan(h, **kw)
+        want = plan_run(plan, h, plain=True, **kw)
         rel = rel_err(got, want)
         if not torch.isfinite(got).all() or rel >= KERNEL_TOL:
             raise AssertionError(f"{name} vs plain: rel {rel:.3e}")
@@ -2018,11 +2029,12 @@ def models_phase(ddi: CSR, graphs: dict, best: str, op_bsr: BSR, k2_op,
     csr_pallas: K10, and one Adam step through the f32 grad plan), SAGE
     on arxiv through impl="auto", the GIN graph classifier on an
     ogbg-molhiv-sized molecule batch (csr_ell, bsr_pallas at b = 32: K1,
-    auto), GAT on arxiv with self-loops, then the ops beside SpMM
-    (dense_block_gemm, both SDDMM tiers, csr_to_bsr_on_device). Every
-    request against a float64 reference (SAGE, GIN: numpy on the host;
-    GAT: the same function in float64 on the card), every kernel SpMM
-    against its plain version. Returns what the timing needs."""
+    auto), GAT on arxiv's attention pattern through its pattern plan,
+    then the ops beside SpMM (dense_block_gemm, both SDDMM tiers,
+    csr_to_bsr_on_device). Every request against a float64 reference
+    (SAGE, GIN: numpy on the host; GAT: the same function in float64 on
+    the card, its segment route), every kernel SpMM against its plain
+    version. Returns what the timing needs."""
     mp = {"requests": {}, "errs": {}, "k2_op": k2_op}
     n_req = MODEL_REQUESTS
 
@@ -2130,45 +2142,58 @@ def models_phase(ddi: CSR, graphs: dict, best: str, op_bsr: BSR, k2_op,
                             "launches": launches()["bsr_spmm_flat"]}
     del xs, refs
 
-    # -- GAT on arxiv with self-loops ----------------------------------------
-    g = add_self_loops(graphs[best])
+    # -- GAT on arxiv's attention pattern, through its pattern plan ---------
+    g = gat_pattern(graphs[best])
     dims = GAT_DIMS
     reset_launches()
     model = GAT(dims, GAT_HEADS, torch.Generator().manual_seed(SEED + 43)).to(DEV)
-    apply = make_gat_apply(g, GAT_HEADS, device=DEV)
+    t0 = time.perf_counter()
+    plan = spmm_plan(g, values="call", device=DEV)
+    plan_s = time.perf_counter() - t0
+    errs = mp["errs"].setdefault("gat plan", [])
+    # every valued call of the checked requests held to its plain version;
+    # apply runs the plan as the program does, for the peak and the times
+    checked = make_gat_apply(g, GAT_HEADS, device=DEV, plan=held_to_plain(plan, errs))
+    apply = make_gat_apply(g, GAT_HEADS, device=DEV, plan=plan)
     edge_gb = g.nnz * GAT_HEADS * max(dims[1:]) * 4 / 1e9
     log(f"[models] GAT {dims}, {GAT_HEADS} heads, on {REORDER_DATASET} ({best}, "
-        f"add_self_loops): n={g.n_rows} edges={g.nnz}; an (edges, heads, d) f32 "
-        f"tensor {edge_gb:.2f} GB; {n_req} requests under inference_mode, each "
-        "against the same function in float64 on the card")
+        f"gat_pattern): n={g.n_rows} entries={g.nnz}; pattern plan {tier_of(plan)} "
+        f"in {plan_s:.1f} s (host), {plan.arrays[1].numel()} ELL slots; an (entries, "
+        f"heads, d) f32 tensor would take {edge_gb:.2f} GB; {n_req} requests under "
+        "inference_mode, each valued call against its plain version, each request "
+        "against the same function in float64 on the card (its segment route)")
     p64 = tree_map(lambda t: t.detach().double(), model.params())
     xs = [torch.as_tensor(x, device=DEV)
           for x in requests_of(g.n_rows, dims[0], SEED + 430)]
-    peak_gb, base = 0.0, 0
     for r, x in enumerate(xs):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        out = gat_request(model, apply, x)
-        torch.cuda.synchronize()
-        peak_gb = max(peak_gb, (torch.cuda.max_memory_allocated() - base) / 1e9)
+        out = gat_request(model, checked, x)
         with torch.inference_mode():
             want = apply(p64, x.double())
         if out.shape != want.shape or not torch.isfinite(out).all():
             raise AssertionError(f"GAT request {r}: bad output {tuple(out.shape)}")
         rel = ((out.double() - want).abs().max() / want.abs().max()).item()
         log(f"  GAT request {r}: out {tuple(out.shape)} finite, max |err| / max |ref| "
-            f"vs float64 on the card {rel:.3e} (< {CHECK_EPS})")
+            f"vs float64 on the card {rel:.3e} (< {CHECK_EPS}); valued calls' largest "
+            f"max |kernel - plain| so far {max(errs):.3e}")
         if not rel < CHECK_EPS:
             raise AssertionError(f"GAT request {r}: rel err {rel:.3e}")
         del want
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = gat_request(model, apply, xs[0])
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     mp["gat_peak_gb"] = peak_gb
-    log(f"  GAT f32 request: peak device memory {peak_gb:.2f} GB above the "
+    log(f"  GAT f32 request on the plan: peak device memory {peak_gb:.2f} GB above the "
         f"{base / 1e9:.2f} GB already held (torch.cuda.max_memory_allocated)")
-    read("models GAT", {})
+    n_layers = len(dims) - 1
+    read("models GAT", {"ell_spmm": n_layers * (n_req + 1)})
     mp["requests"]["GAT arxiv"] = (functools.partial(gat_request, model, apply, xs[0]), 3)
     mp["gat_bound"] = gat_bound(g.n_rows, g.nnz, dims, GAT_HEADS)
-    del p64, out
+    mp["gat_ell"] = {"csr": g, "plan": plan, "errs": errs,
+                     "launches": launches()["ell_spmm"]}
+    del p64, out, checked
     torch.cuda.empty_cache()
 
     # -- the ops beside SpMM -------------------------------------------------
@@ -2380,16 +2405,82 @@ def models_timing(mp: dict, card_line: str) -> list:
         log(f"  models GAT request under torch.profiler: card busy {busy:.1%} of the "
             f"span, {total:.3f} ms of device time a request: {top} [{card_line}]")
 
+    ge = mp.pop("gat_ell")
+    rows = [call_values_row(ge, GAT_HEADS * d, card_line) for d in (GAT_DIMS[1], GAT_DIMS[-1])]
     k1 = mp.pop("gin_k1")
     kid, name, source, replaces = kernel_of(k1["plan"])
     row = bsr_row("models GIN molecules K1", k1["bsr"], k1["plan"], k1["x"], 0.0,
                   card_line, {})
     errs = mp["errs"]["gin bsr_pallas b=32"]
     log(f"[models] timing in {time.perf_counter() - t_phase:.1f} s")
-    return [{"name": f"{kid} {name} b=32 molecules rcmk ({k1['bsr'].nnzb} blocks, "
-                     f"GIN, F={k1['x'].shape[1]})",
-             "route": "cuda", "source": source, "replaces": replaces,
-             "launches": k1["launches"], "max_abs_err": max(errs), **row}]
+    return rows + [{"name": f"{kid} {name} b=32 molecules rcmk ({k1['bsr'].nnzb} "
+                            f"blocks, GIN, F={k1['x'].shape[1]})",
+                    "route": "cuda", "source": source, "replaces": replaces,
+                    "launches": k1["launches"], "max_abs_err": max(errs), **row}]
+
+
+def call_values_row(ge: dict, F: int, card_line: str) -> dict:
+    """The kernels line's row of the ELL kernel (K11) with call values on
+    the GAT's pattern plan at F = GAT_HEADS x d, seeded (n, F) operand and
+    (GAT_HEADS, nnz) values: held to its plain version (the chunk loop on
+    the scattered values), its time, the plain version's, the bytes bound
+    (an int32 column and GAT_HEADS f32 values an entry, the row pointer,
+    the operand and the output, each once), cuSPARSE on each head (a
+    torch.sparse_csr_tensor @ X_h a head, the heads' times added) and the
+    strip width; launches those of the models phase's GAT run, max_abs_err
+    its valued calls' with this check added."""
+    csr, plan, H = ge["csr"], ge["plan"], GAT_HEADS
+    kid, name, source, replaces = kernel_of(plan)
+    M_, K = csr.shape
+    D = F // H
+    x = torch.as_tensor(seeded((K, F), SEED + 15 + F), device=DEV)
+    v = torch.as_tensor(np.random.default_rng(SEED + 16 + F).random(
+        (H, csr.nnz), dtype=np.float32), device=DEV)
+    label = f"GAT {REORDER_DATASET} gat_pattern call values {H} heads F={F}"
+    got = plan(x, values=v)
+    want = plan_run(plan, x, plain=True, values=v)
+    rel = rel_err(got, want)
+    log(f"  {label} {kid} {name} vs plain: max |err| / max |plain| {rel:.3e} "
+        f"(< {KERNEL_TOL})")
+    if not torch.isfinite(got).all() or rel >= KERNEL_TOL:
+        raise AssertionError(f"{label}: rel err {rel:.3e} >= {KERNEL_TOL}")
+    errs = ge["errs"] + [(got - want).abs().max().item()]
+    del want
+    k_ms = cuda_ms(lambda: plan(x, values=v), iters=20)
+    p_ms = cuda_ms(lambda: plan_run(plan, x, plain=True, values=v), iters=2, warmup=1)
+    nbytes = csr.nnz * (4 + 4 * H) + (M_ + 1) * 8 + K * F * 4 + M_ * F * 4
+    b_ms, b_by = bound("f32", 2.0 * csr.nnz * F, nbytes)
+    lib = None
+    try:
+        with warnings.catch_warnings():  # "sparse ... support is in beta"
+            warnings.simplefilter("ignore", UserWarning)
+            crow = torch.as_tensor(csr.indptr.astype(np.int64), device=DEV)
+            col = torch.as_tensor(csr.indices.astype(np.int64), device=DEV)
+            heads = [torch.sparse_csr_tensor(crow, col, v[h], csr.shape,
+                                             check_invariants=False) for h in range(H)]
+            xh = [x[:, h * D:(h + 1) * D].contiguous() for h in range(H)]
+
+            def library():
+                return [a @ b for a, b in zip(heads, xh)]
+
+            lib_rel = rel_to(torch.cat(library(), 1), got)
+            lib = cuda_ms(library, iters=10)
+        log(f"  library {label} torch.sparse_csr_tensor @ X_h on each head: "
+            f"{lib:.4f} ms, max |err| / max |kernel| {lib_rel:.3e}")
+    except Exception as e:  # the yardstick only: record PyTorch's refusal
+        log(f"  library {label}: none ({type(e).__name__}: "
+            f"{str(e).splitlines()[0][:200]})")
+    W = ell_strip_width(K, D, _l2_bytes(0))
+    log(f"  {label} {kid} {name}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), library {'none' if lib is None else f'{lib:.4f} ms'}, "
+        f"strips of W={W} inside each head of {D} ({-(-D // W)} a head), {csr.nnz} "
+        f"entries in {plan.arrays[1].numel()} ELL slots, {plan.arrays[-2].numel()} rows "
+        f"split [{card_line}]")
+    return {"name": f"{kid} {name} {label} ({csr.nnz} nonzeros)",
+            "route": "cuda", "source": source, "replaces": replaces,
+            "launches": ge["launches"], "max_abs_err": max(errs), "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib, "strip": W}
 
 
 def sampled_addmm_ms(csr: CSR, x, y, want):

@@ -192,14 +192,16 @@ def main() -> None:
         part = torch.empty(ell.statics[4], F, device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
 
-        def call(fn, p, W):
-            """fn (a C entry with sdb_csr_spmm's arguments) on plan p's arrays."""
+        def call(fn, p, W, k10=False):
+            """fn (sdb_ell_spmm, or with k10 a C entry with sdb_csr_spmm's
+            arguments) on plan p's arrays, one head, no seg_delta."""
             seg_start, seg_end, seg_dest, split_row, part_ptr = p.arrays[-5:]
             args = (seg_start.data_ptr(), seg_end.data_ptr(), seg_dest.data_ptr(),
+                    *(() if k10 else (0,)),
                     p.arrays[1].data_ptr(), p.arrays[2].data_ptr(), x.data_ptr(),
                     out.data_ptr(), part.data_ptr(), split_row.data_ptr(),
                     part_ptr.data_ptr(), seg_start.numel(), split_row.numel(), F, W,
-                    stream)
+                    *(() if k10 else (1, 0)), stream)
 
             def go():
                 rc = fn(*args)
@@ -214,7 +216,7 @@ def main() -> None:
                 fns[f"tree W={W} longest"] = call(tree.sdb_ell_spmm, ell, W)
         for name, fn in variants.items():
             fns[f"{name} W={W0}"] = call(fn, ell, W0)
-        fns[f"K10's kernel W={F}"] = call(tree.sdb_csr_spmm, ell, F)
+        fns[f"K10's kernel W={F}"] = call(tree.sdb_csr_spmm, ell, F, k10=True)
         times = {}
         for rep in range(2):  # turns: every variant twice, in opposite orders
             for name in (list(fns) if rep == 0 else list(fns)[::-1]):

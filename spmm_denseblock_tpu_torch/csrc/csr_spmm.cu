@@ -143,6 +143,23 @@
 // 0.619-0.632 on the same matrix. Each output sums its terms in K10's
 // order (f32 FFMA in the row's order inside batches of 32 pairs, the
 // batches added in order), whatever the strip width.
+//
+// Values per call and heads (a pattern plan, values="call"; the GAT's
+// aggregation). A call's values come as (H, nnz) in the pattern's entry
+// order, and head h's row multiplies column block h of X (F = H x D). A
+// row's stored entries lead its slots in CSR order, so each segment's
+// slots are its entries shifted by one offset (seg_delta, built on the
+// host): the kernel reads the values where they lie, with no scatter into
+// slot order, and one launch walks every head, its strips cut inside each
+// block of D columns. Three heads of 250 make a 3,000-byte row whose
+// second and third heads start 8 bytes past a 16-byte boundary: 8-byte
+// loads (V = 2) serve them. On the gat-arxiv graph (2.45 M entries, F =
+// 750 in strips of 64) the one launch took 2.13 ms, three launches of one
+// head on contiguous head operands 2.15 (3.12 with the copies that make
+// them), 4-byte loads 3.40, cuSPARSE 2.70; at F = 120 (3 x 40, 16-byte
+// loads) 0.37-0.44, 0.37-0.42 (0.52-0.58), cuSPARSE 0.79 (H100,
+// scripts/torch_gat_probe.py). One block (D = F, a plan's own values in
+// slot order, no offsets) is the walk above, bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -628,39 +645,53 @@ constexpr int kEllMinCtas = 12;    // CTAs an SM holds: 80 registers
 constexpr int kEllMaxStrip = 128;  // columns of a strip: 32 lanes x 4
 
 // The pairs of the batch at slot b of a segment that ends at s1, lane gl
-// of L holding pairs q * L + gl (0 past the end); no values where the
-// layout has none.
+// of L holding pairs q * L + gl (0 past the end); the value of slot k is
+// vals[k + voff]; no values where the layout has none.
 template <int L, bool kValued>
 __device__ __forceinline__ void load_ell_pairs(int32_t (&c)[kBatch / L],
                                                float (&v)[kBatch / L],
                                                const int32_t* __restrict__ cols,
                                                const float* __restrict__ vals,
-                                               int64_t b, int64_t s1, int gl) {
+                                               int64_t voff, int64_t b, int64_t s1,
+                                               int gl) {
 #pragma unroll
   for (int q = 0; q < kBatch / L; ++q) {
     const int64_t k = b + q * L + gl;
     c[q] = k < s1 ? cols[k] : 0;
-    v[q] = kValued && k < s1 ? vals[k] : 0.f;
+    v[q] = kValued && k < s1 ? vals[k + voff] : 0.f;
   }
 }
 
+// V = 2 consecutive f32 elements at p: one 8-byte load (p aligned to it).
+__device__ __forceinline__ void load2(float* d, const float* p) {
+  const float2 x = *reinterpret_cast<const float2*>(p);
+  d[0] = x.x;
+  d[1] = x.y;
+}
+
 // One (segment, strip) per group of L lanes, strip-major: task t is strip
-// t / n_seg, segment t % n_seg. Lane gl of the group owns the strip's
-// columns (j * L + gl) * V .. + V - 1, j < J (V = 4: one 16-byte load). The
-// segment's (col, val) pairs are read in batches of 32 (the next batch's
-// while this one's rows are gathered), lane gl holding pairs q * L + gl,
-// and broadcast with __shfl_sync; kEllInFlight rows of X are loaded before
-// their FFMAs, which run in the row's order. Stores the segment's sum at
-// row dest of C (dest >= 0) or at row -dest - 1 of the partial rows.
+// t / n_seg, segment t % n_seg. The F columns are blocks of D, each cut
+// into spb strips of W: strip s is block s / spb, and its values the
+// block's row of them, vals[block * vstride + k + delta] for slot k,
+// delta the segment's seg_delta (0 where it is null). Lane gl
+// of the group owns the strip's columns (j * L + gl) * V .. + V - 1, j < J
+// (V = 4: one 16-byte load, V = 2: one of 8). The segment's (col, val)
+// pairs are read in batches of 32 (the next batch's while this one's rows
+// are gathered), lane gl holding pairs q * L + gl, and broadcast with
+// __shfl_sync; kEllInFlight rows of X are loaded before their FFMAs, which
+// run in the row's order. Stores the segment's sum at row dest of C (dest
+// >= 0) or at row -dest - 1 of the partial rows.
 template <int V, int L, int J, bool kValued>
 __global__ void __launch_bounds__(kEllThreads, kEllMinCtas)
     ell_row_kernel(const int64_t* __restrict__ seg_start,
                    const int64_t* __restrict__ seg_end,
                    const int64_t* __restrict__ seg_dest,
+                   const int64_t* __restrict__ seg_delta,
                    const int32_t* __restrict__ cols,
                    const float* __restrict__ vals, const float* __restrict__ x,
                    float* __restrict__ out, float* __restrict__ partial,
-                   int64_t n_seg, int64_t F, int64_t W, int64_t n_strips) {
+                   int64_t n_seg, int64_t F, int64_t W, int64_t D, int64_t spb,
+                   int64_t n_strips, int64_t vstride) {
   constexpr int N = J * V;       // columns a lane
   constexpr int Q = kBatch / L;  // pairs a lane and batch
   constexpr int U = kEllInFlight;
@@ -669,20 +700,30 @@ __global__ void __launch_bounds__(kEllThreads, kEllMinCtas)
       (unsigned)(((1ull << L) - 1) << (threadIdx.x % 32 / L * L));
   const int64_t task = (int64_t)blockIdx.x * (kEllThreads / L) + threadIdx.x / L;
   if (task >= n_strips * n_seg) return;  // uniform over the group
-  const int64_t seg = task % n_seg;
-  const int64_t f0 = task / n_seg * W;
-  const int64_t n_valid = F - f0 < W ? F - f0 : W;
+  const int64_t strip = task / n_seg;
+  const int64_t seg = task - strip * n_seg;
+  // the strip's block and its first column inside the block (one block,
+  // D == F: no division)
+  int64_t block = 0, fb = strip * W;
+  if (D != F) {
+    block = (int)strip / (int)spb;
+    fb = (strip - block * spb) * W;
+  }
+  const int64_t f0 = block * D + fb;
+  const int64_t n_valid = D - fb < W ? D - fb : W;
+  const int64_t voff =
+      kValued ? block * vstride + (seg_delta != nullptr ? seg_delta[seg] : 0) : 0;
   const int64_t s0 = seg_start[seg], s1 = seg_end[seg];
   const float* xs = x + f0;
   float acc[N] = {};
   int32_t c[Q];
   float v[Q];
-  load_ell_pairs<L, kValued>(c, v, cols, vals, s0, s1, gl);
+  load_ell_pairs<L, kValued>(c, v, cols, vals, voff, s0, s1, gl);
   for (int64_t base = s0; base < s1; base += kBatch) {
     const int n = (int)(s1 - base < kBatch ? s1 - base : kBatch);
     int32_t cn[Q];
     float vn[Q];
-    load_ell_pairs<L, kValued>(cn, vn, cols, vals, base + kBatch, s1, gl);
+    load_ell_pairs<L, kValued>(cn, vn, cols, vals, voff, base + kBatch, s1, gl);
     float part[N] = {};
 #pragma unroll
     for (int k0 = 0; k0 < kBatch; k0 += U) {
@@ -698,6 +739,8 @@ __global__ void __launch_bounds__(kEllThreads, kEllMinCtas)
           if (k < n && f < n_valid) {
             if constexpr (V == 4) {
               load4(&xv[u][4 * j], xs + ck * F + f);
+            } else if constexpr (V == 2) {
+              load2(&xv[u][2 * j], xs + ck * F + f);
             } else {
               xv[u][j] = __ldg(xs + ck * F + f);
             }
@@ -733,75 +776,85 @@ __global__ void __launch_bounds__(kEllThreads, kEllMinCtas)
     if constexpr (V == 4) {
       *reinterpret_cast<float4*>(o + f) =
           make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+    } else if constexpr (V == 2) {
+      *reinterpret_cast<float2*>(o + f) = make_float2(acc[2 * j], acc[2 * j + 1]);
     } else {
       o[f] = acc[j];
     }
   }
 }
 
+// The operands of one ell_row_kernel launch.
+struct EllArgs {
+  const int64_t *ss, *se, *sd, *delta;
+  const int32_t* c;
+  const float *v, *x;
+  float *o, *partial;
+  int64_t n_seg, F, W, D, spb, n_strips, vstride;
+};
+
 template <int V, int L, int J, bool kValued>
-cudaError_t launch_ell_tasks(const int64_t* ss, const int64_t* se, const int64_t* sd,
-                             const int32_t* c, const float* v, const float* x,
-                             float* o, float* partial, int64_t n_seg, int64_t F,
-                             int64_t W, int64_t n_strips, cudaStream_t s) {
-  const int64_t n_ctas = ceil_div(n_strips * n_seg, kEllThreads / L);
+cudaError_t launch_ell_tasks(const EllArgs& a, cudaStream_t s) {
+  const int64_t n_ctas = ceil_div(a.n_strips * a.n_seg, kEllThreads / L);
   if (n_ctas > INT32_MAX) return cudaErrorInvalidConfiguration;
   ell_row_kernel<V, L, J, kValued><<<(unsigned)n_ctas, kEllThreads, 0, s>>>(
-      ss, se, sd, c, v, x, o, partial, n_seg, F, W, n_strips);
+      a.ss, a.se, a.sd, a.delta, a.c, a.v, a.x, a.o, a.partial, a.n_seg, a.F, a.W,
+      a.D, a.spb, a.n_strips, a.vstride);
   return cudaGetLastError();
 }
 
 // The group for strips of W columns read V columns a load, J loads a
 // lane: the fewest of 4, 8, 16 and 32 lanes that cover a strip.
 template <int V, int J, bool kValued>
-cudaError_t launch_ell(const int64_t* ss, const int64_t* se, const int64_t* sd,
-                       const int32_t* c, const float* v, const float* x, float* o,
-                       float* partial, int64_t n_seg, int64_t F, int64_t W,
-                       cudaStream_t s) {
+cudaError_t launch_ell(const EllArgs& a, cudaStream_t s) {
   static_assert(32 * V * J >= kEllMaxStrip, "32 lanes must cover a strip");
-  const int64_t lanes = ceil_div(W, V * J), n_strips = ceil_div(F, W);
-  return lanes <= 4    ? launch_ell_tasks<V, 4, J, kValued>(ss, se, sd, c, v, x, o, partial,
-                                                            n_seg, F, W, n_strips, s)
-         : lanes <= 8  ? launch_ell_tasks<V, 8, J, kValued>(ss, se, sd, c, v, x, o, partial,
-                                                            n_seg, F, W, n_strips, s)
-         : lanes <= 16 ? launch_ell_tasks<V, 16, J, kValued>(ss, se, sd, c, v, x, o,
-                                                             partial, n_seg, F, W,
-                                                             n_strips, s)
-                       : launch_ell_tasks<V, 32, J, kValued>(ss, se, sd, c, v, x, o,
-                                                             partial, n_seg, F, W,
-                                                             n_strips, s);
+  const int64_t lanes = ceil_div(a.W, V * J);
+  return lanes <= 4    ? launch_ell_tasks<V, 4, J, kValued>(a, s)
+         : lanes <= 8  ? launch_ell_tasks<V, 8, J, kValued>(a, s)
+         : lanes <= 16 ? launch_ell_tasks<V, 16, J, kValued>(a, s)
+                       : launch_ell_tasks<V, 32, J, kValued>(a, s);
 }
 
-// sdb_ell_spmm's body. 16-byte loads (V = 4, one a lane and row) need F %
-// 4 == 0, X on 16 bytes and the outputs on 16; otherwise 4-byte loads, 4
-// a lane and row. Then the reduction of split rows, shared with K10.
+// sdb_ell_spmm's body. X, C and the partial rows are (., F), F = heads x D
+// columns. 16-byte loads (V = 4, one a lane and row) need D % 4 == 0, X
+// and the outputs on 16 bytes; 8-byte loads (V = 2, two a lane and row)
+// D % 2 == 0 and them on 8 (D = 250: a 750-wide row of three heads,
+// whose second and third start 8 bytes past a 16-byte boundary);
+// otherwise 4-byte loads, 4 a lane and row. Every V sums each output's
+// terms in the same order. Then the reduction of split rows, shared
+// with K10.
 template <bool kValued>
 int ell_spmm(const void* seg_start, const void* seg_end, const void* seg_dest,
-             const void* cols, const void* vals, const void* dense, void* out,
-             void* partial, const void* split_row, const void* part_ptr,
-             int64_t n_seg, int64_t n_split, int64_t F, int64_t W, void* stream) {
-  if (W < F && (W <= 0 || W % 4 != 0)) return (int)cudaErrorInvalidValue;
+             const void* seg_delta, const void* cols, const void* vals,
+             const void* dense, void* out, void* partial, const void* split_row,
+             const void* part_ptr, int64_t n_seg, int64_t n_split, int64_t F,
+             int64_t W, int64_t heads, int64_t vstride, void* stream) {
+  if (heads <= 0 || F % heads != 0) return (int)cudaErrorInvalidValue;
+  const int64_t D = F / heads;
+  if (W < D && (W <= 0 || W % 4 != 0)) return (int)cudaErrorInvalidValue;
   if (n_seg <= 0 || F <= 0) return (int)cudaSuccess;
-  if (W > F) W = F;
+  if (W > D) W = D;
   if (W > kEllMaxStrip) return (int)cudaErrorInvalidValue;
-  const auto* ss = static_cast<const int64_t*>(seg_start);
-  const auto* se = static_cast<const int64_t*>(seg_end);
-  const auto* sd = static_cast<const int64_t*>(seg_dest);
-  const auto* c = static_cast<const int32_t*>(cols);
-  const auto* v = static_cast<const float*>(vals);
-  const auto* x = static_cast<const float*>(dense);
-  auto* o = static_cast<float*>(out);
-  auto* pt = static_cast<float*>(partial);
+  EllArgs a{static_cast<const int64_t*>(seg_start), static_cast<const int64_t*>(seg_end),
+            static_cast<const int64_t*>(seg_dest), static_cast<const int64_t*>(seg_delta),
+            static_cast<const int32_t*>(cols), static_cast<const float*>(vals),
+            static_cast<const float*>(dense), static_cast<float*>(out),
+            static_cast<float*>(partial), n_seg, F, W, D, ceil_div(D, W),
+            heads * ceil_div(D, W), vstride};
   auto s = static_cast<cudaStream_t>(stream);
-  const bool vec4 = F % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(o) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(pt) % 16 == 0;
-  cudaError_t err =
-      vec4 ? launch_ell<4, kEllMaxStrip / 128, kValued>(ss, se, sd, c, v, x, o, pt, n_seg,
-                                                        F, W, s)
-           : launch_ell<1, kEllMaxStrip / 32, kValued>(ss, se, sd, c, v, x, o, pt, n_seg,
-                                                       F, W, s);
+  const auto aligned = [&](uintptr_t bytes) {
+    return reinterpret_cast<uintptr_t>(a.x) % bytes == 0 &&
+           reinterpret_cast<uintptr_t>(a.o) % bytes == 0 &&
+           reinterpret_cast<uintptr_t>(a.partial) % bytes == 0;
+  };
+  const bool vec4 = D % 4 == 0 && aligned(16);
+  const bool vec2 = !vec4 && D % 2 == 0 && aligned(8);
+  cudaError_t err = vec4   ? launch_ell<4, kEllMaxStrip / 128, kValued>(a, s)
+                    : vec2 ? launch_ell<2, kEllMaxStrip / 64, kValued>(a, s)
+                           : launch_ell<1, kEllMaxStrip / 32, kValued>(a, s);
   if (err != cudaSuccess || n_split == 0) return (int)err;
+  auto* o = a.o;
+  auto* pt = a.partial;
   const int64_t n_ft = ceil_div(F, kWideTile);
   const unsigned n_ctas = (unsigned)ceil_div(n_split * n_ft, kWarps);
   const auto* sr = static_cast<const int64_t*>(split_row);
@@ -828,9 +881,13 @@ int ell_spmm(const void* seg_start, const void* seg_end, const void* seg_dest,
 // of 32. sdb_csr_spmm_bf16: bf16 values and X (K10 at one bf16 pass), the
 // same arguments otherwise; W < F must be a positive multiple of 8, and a
 // strip at most 256 columns. sdb_ell_spmm: the f32 ELL tier's flattened
-// layout, sdb_csr_spmm's arguments, vals null for a pattern-only layout;
-// W < F must be a positive multiple of 4, and a strip at most 128
-// columns. C is f32.
+// layout, sdb_csr_spmm's arguments and three more: seg_delta (n_seg,)
+// int64 or null, heads and vstride. F is heads blocks of D = F / heads
+// columns; block h's terms take the values vals[h * vstride + k +
+// seg_delta[seg]] at slot k of segment seg (one block, vstride 0 and a
+// null seg_delta: the plan's own values in slot order; vals null for a
+// pattern-only layout). W is the strip width inside a block: W < D must
+// be a positive multiple of 4, and a strip at most 128 columns. C is f32.
 extern "C" int sdb_csr_spmm(const void* seg_start, const void* seg_end,
                             const void* seg_dest, const void* cols,
                             const void* vals, const void* dense, void* out,
@@ -856,17 +913,17 @@ extern "C" int sdb_csr_spmm_bf16(const void* seg_start, const void* seg_end,
 }
 
 extern "C" int sdb_ell_spmm(const void* seg_start, const void* seg_end,
-                            const void* seg_dest, const void* cols,
-                            const void* vals, const void* dense, void* out,
-                            void* partial, const void* split_row,
-                            const void* part_ptr, int64_t n_seg,
-                            int64_t n_split, int64_t F, int64_t W,
+                            const void* seg_dest, const void* seg_delta,
+                            const void* cols, const void* vals, const void* dense,
+                            void* out, void* partial, const void* split_row,
+                            const void* part_ptr, int64_t n_seg, int64_t n_split,
+                            int64_t F, int64_t W, int64_t heads, int64_t vstride,
                             void* stream) {
   return vals != nullptr
-             ? ell_spmm<true>(seg_start, seg_end, seg_dest, cols, vals, dense, out,
-                              partial, split_row, part_ptr, n_seg, n_split, F, W,
-                              stream)
-             : ell_spmm<false>(seg_start, seg_end, seg_dest, cols, vals, dense, out,
-                               partial, split_row, part_ptr, n_seg, n_split, F, W,
-                               stream);
+             ? ell_spmm<true>(seg_start, seg_end, seg_dest, seg_delta, cols, vals,
+                              dense, out, partial, split_row, part_ptr, n_seg, n_split,
+                              F, W, heads, vstride, stream)
+             : ell_spmm<false>(seg_start, seg_end, seg_dest, seg_delta, cols, vals,
+                               dense, out, partial, split_row, part_ptr, n_seg,
+                               n_split, F, W, heads, vstride, stream);
 }

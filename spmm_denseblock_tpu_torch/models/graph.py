@@ -1,5 +1,6 @@
 """Normalized adjacencies for the GNN models, built once on the host
-(twin of ``spmm_denseblock_tpu/models/graph.py``, bit-equal)."""
+(twin of ``spmm_denseblock_tpu/models/graph.py``, bit-equal), and the
+attention pattern of the GAT (``gat_pattern``, the port's own)."""
 
 from __future__ import annotations
 
@@ -45,3 +46,22 @@ def mean_adjacency(csr: CSR, self_loops: bool = False) -> CSR:
         (vals * inv[rows]).astype(np.float32),
         a.shape,
     )
+
+
+def gat_pattern(csr: CSR) -> CSR:
+    """The GAT's attention pattern of a square graph: the bidirected simple
+    graph (DGL's ``to_bidirected``: each edge both ways, duplicate edges
+    merged), its self-loops removed and then one added on every node,
+    as DGL's ogbn-arxiv GAT example builds it. Pattern-only (data None),
+    columns ascending in each row."""
+    n = csr.n_rows
+    if csr.n_cols != n:
+        raise ValueError(f"the attention pattern needs a square graph, got {csr.shape}")
+    rows = csr.row_ids().astype(np.int64)
+    cols = np.asarray(csr.indices, dtype=np.int64)
+    keep = rows != cols
+    loops = np.arange(n, dtype=np.int64)
+    key = np.concatenate([rows[keep] * n + cols[keep], cols[keep] * n + rows[keep],
+                          loops * n + loops])
+    key = np.unique(key)
+    return CSR.from_coo(key // n, key % n, None, (n, n))

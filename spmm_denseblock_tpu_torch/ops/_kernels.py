@@ -91,9 +91,11 @@ _SIGNATURES = {
     "sdb_csr_spmm": ("csr_spmm", [_P] * 10 + [_I] * 4 + [_P]),
     # K10 at one bf16 pass: the same arguments, bf16 vals and dense
     "sdb_csr_spmm_bf16": ("csr_spmm", [_P] * 10 + [_I] * 4 + [_P]),
-    # the f32 ELL tier on its flattened layout: sdb_csr_spmm's arguments,
-    # vals null for a pattern-only layout
-    "sdb_ell_spmm": ("csr_spmm", [_P] * 10 + [_I] * 4 + [_P]),
+    # the f32 ELL tier on its flattened layout: seg_start, seg_end,
+    # seg_dest, seg_delta (or null), cols, vals (null for a pattern-only
+    # layout), dense, out, partial, split_row, part_ptr, n_seg, n_split, F,
+    # W (strip width inside a head), heads, vstride (values a head), stream
+    "sdb_ell_spmm": ("csr_spmm", [_P] * 11 + [_I] * 6 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -24,7 +24,11 @@ row's slot start) and cuts each row's stored entries into K10's segments
 in registers and stores it once, at the caller's row, reading no pad and
 no (m, K, F) block. ``_run_chunks`` on the same flat arrays, chunk by
 chunk, is its plain PyTorch version: the CPU runs it, and so does
-``plain=True``. The bf16 ``csr_ell``, the int8 ELL (``csr_ell_int8``) and
+``plain=True``. A pattern plan (``values="call"``) takes A's values with
+each call, (nnz,) or (H, nnz) for H heads in the pattern's entry order:
+the kernel reads them through each segment's offset from its slots to
+its entries, every head in one launch, and the chunk loop scatters them
+into their slots. The bf16 ``csr_ell``, the int8 ELL (``csr_ell_int8``) and
 the banded ELL (``csr_ell_banded``) are plain torch ops on the card too.
 Two things of the JAX plan are left out. It stores the
 matsum chunks with m > K and every scan chunk transposed, as (K, m),
@@ -369,22 +373,29 @@ def ell_strip_width(K: int, F: int, l2_bytes: int) -> int:
 
 
 def spmm_ell(cols, vals, seg_start, seg_end, seg_dest, split_row, part_ptr,
-             dense, n_rows: int, n_partials: int) -> torch.Tensor:
+             dense, n_rows: int, n_partials: int, seg_delta=None) -> torch.Tensor:
     """The f32 ELL tier's kernel: C (n_rows, F) f32 = A @ dense over the
     flat layout (_ell_flat), walked by the segments of each row's stored
     entries (row_segments), n_partials = part_ptr[-1] partial rows for the
-    rows split into several; vals None for a pattern-only layout. X in
-    strips of ell_strip_width's width. CUDA tensors only: the plain
-    version is _run_chunks on the same arrays (_ell_apply)."""
+    rows split into several. vals: None for a pattern-only layout, the
+    plan's own (n_slots,) values in slot order, or with seg_delta (n_seg,)
+    int64 a call's (H, nnz) values in the pattern's entry order: slot k of
+    segment s takes entry k + seg_delta[s], and head h's row of values
+    multiplies column block h of dense (F = H·D, one launch for every
+    head). X in strips of ell_strip_width's width inside a head. CUDA
+    tensors only: the plain version is _run_chunks on the same arrays
+    (_ell_apply)."""
     seg = (seg_start, seg_end, seg_dest, split_row, part_ptr)
     valued = () if vals is None else (vals,)
-    dev = _device_of(cols, *valued, *seg, dense)
+    delta = () if seg_delta is None else (seg_delta,)
+    dev = _device_of(cols, *valued, *seg, *delta, dense)
     if dev.type != "cuda":
         raise ValueError(f"sdb_ell_spmm runs on CUDA tensors, got {dev}")
     named = [("cols", cols, torch.int32), ("dense", dense, torch.float32)]
     named += [("vals", t, torch.float32) for t in valued]
     named += [(n, t, torch.int64) for n, t in zip(
-        ("seg_start", "seg_end", "seg_dest", "split_row", "part_ptr"), seg)]
+        ("seg_start", "seg_end", "seg_dest", "split_row", "part_ptr", "seg_delta"),
+        seg + delta)]
     for name, t, dtype in named:
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got dtype {t.dtype}")
@@ -392,19 +403,28 @@ def spmm_ell(cols, vals, seg_start, seg_end, seg_dest, split_row, part_ptr,
             raise ValueError("CUDA kernel operands must be contiguous")
     if dense.dim() != 2:
         raise ValueError(f"dense must be (K, F), got {tuple(dense.shape)}")
-    if vals is not None and vals.numel() != cols.numel():
-        raise ValueError("cols and vals must hold the same slots")
     F = dense.shape[1]
+    heads, vstride = 1, 0
+    if seg_delta is not None:
+        if vals is None or vals.dim() != 2 or F % vals.shape[0]:
+            raise ValueError("call values must be (heads, nnz) with F a multiple "
+                             f"of heads, got {None if vals is None else tuple(vals.shape)}"
+                             f" for F = {F}")
+        heads, vstride = vals.shape
+    elif vals is not None and vals.numel() != cols.numel():
+        raise ValueError("cols and vals must hold the same slots")
     out = torch.empty(n_rows, F, dtype=torch.float32, device=dev)
     partial = torch.empty(n_partials, F, dtype=torch.float32, device=dev)
-    W = ell_strip_width(dense.shape[0], F, _l2_bytes(dev.index))
+    W = ell_strip_width(dense.shape[0], F // heads, _l2_bytes(dev.index))
     with torch.cuda.device(dev):
         _kernels.ell_spmm(
             seg_start.data_ptr(), seg_end.data_ptr(), seg_dest.data_ptr(),
+            0 if seg_delta is None else seg_delta.data_ptr(),
             cols.data_ptr(), 0 if vals is None else vals.data_ptr(),
             dense.data_ptr(), out.data_ptr(), partial.data_ptr(),
             split_row.data_ptr(), part_ptr.data_ptr(), seg_start.shape[0],
-            split_row.shape[0], F, W, torch.cuda.current_stream(dev).cuda_stream,
+            split_row.shape[0], F, W, heads, vstride,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     return out
 
@@ -497,11 +517,48 @@ def _plan_dtype_key(dtype) -> Optional[str]:
 # -- the plans ----------------------------------------------------------------
 
 
+def _entry_slots(csr: CSR, slot_start: np.ndarray, n_slots: int, segments):
+    """The map of a pattern's stored entries to their slots of the flat
+    layout, and each segment's offset from its slots to its entries:
+    (slot_of_entry (nnz,), seg_delta (n_seg,)), int64. A row's stored
+    entries lead its slots, in CSR order, so entry e of row r lies at
+    slot slot_start[r] + e - indptr[r]; a segment lies inside one row, so
+    slot k of segment s holds entry k + seg_delta[s] (0 for an empty
+    segment)."""
+    indptr = np.asarray(csr.indptr, np.int64)
+    rows = np.repeat(np.arange(csr.n_rows, dtype=np.int64), np.diff(indptr))
+    entry = np.arange(csr.nnz, dtype=np.int64)
+    slot_of_entry = slot_start[rows] + entry - indptr[rows]
+    offset = np.zeros(n_slots, np.int64)  # entry - slot, at each entry's slot
+    offset[slot_of_entry] = entry - slot_of_entry
+    seg_start, seg_end = segments[:2]
+    live = seg_end > seg_start
+    seg_delta = np.where(live, offset[np.where(live, seg_start, 0)], 0)
+    return slot_of_entry, seg_delta.astype(np.int64)
+
+
+def call_values(values, nnz: int, F: int, device) -> torch.Tensor:
+    """A call's values as the valued plans take them: (H, nnz) f32,
+    contiguous, on `device`, from (nnz,) (one head) or (H, nnz), in the
+    entry order of the pattern the plan was built from; ValueError where
+    the shape does not fit nnz or F is not a multiple of H."""
+    values = torch.as_tensor(values, device=device)
+    if values.dim() == 1:
+        values = values[None]
+    if values.dim() != 2 or values.shape[1] != nnz or values.shape[0] == 0:
+        raise ValueError(f"values must be (nnz,) or (heads, nnz) with nnz = {nnz}, "
+                         f"got {tuple(values.shape)}")
+    if F % values.shape[0]:
+        raise ValueError(f"the operand's F = {F} is not a multiple of the values' "
+                         f"{values.shape[0]} heads")
+    return values.to(torch.float32).contiguous()
+
+
 def csr_spmm_ell_plan(csr: CSR, grad: bool = True, dtype=None,
                       bucket: str = "quarter", reduce: str = "auto",
                       row_sort: str = "keep", compact: str = "off",
                       compact_slots: int = COMPACT_SLOTS,
-                      feat_dim: int = 128, device=None) -> Plan:
+                      feat_dim: int = 128, device=None, values=None) -> Plan:
     """Host layout prep once -> Plan computing C = A @ dense in f32.
 
     dtype: None or float32 (on the card the kernel sdb_ell_spmm), or
@@ -517,9 +574,25 @@ def csr_spmm_ell_plan(csr: CSR, grad: bool = True, dtype=None,
     call walks: on the card an f32 plan's kernel the nnz stored entries
     alone, the torch ops (the CPU, bf16) ``_slots``, pads included. The
     arrays: positions, the flat columns and (valued) values of _ell_flat,
-    then row_segments' five arrays over the rows' stored entries."""
+    then row_segments' five arrays over the rows' stored entries.
+
+    values="call" gives the pattern plan: its values come with each call,
+    plan(dense, values=v), v (nnz,) or (H, nnz) in csr's entry order (its
+    own values, if any, are not used), head h's row multiplying column
+    block h of dense (F = H·D). The layout is the valued one (pads at row
+    0, never read by the kernel); the plan holds _entry_slots' map and
+    offsets after the flat columns, and the kernel reads each head's
+    values through the offsets, in one launch for every head; the chunk
+    loop scatters each head's values into its slots. No gradient: grad
+    must be False, and a call that needs a gradient raises
+    (``ops/plan``)."""
     device = resolve_device(device)
     dtype_key = _plan_dtype_key(dtype)
+    if values not in (None, "call"):
+        raise ValueError(f"values must be None or 'call', got {values!r}")
+    per_call = values == "call"
+    if per_call and grad:
+        raise ValueError("a values='call' plan has no backward: pass grad=False")
     kw = dict(dtype=dtype, bucket=bucket, reduce=reduce, row_sort=row_sort,
               compact=compact, compact_slots=compact_slots, feat_dim=feat_dim,
               device=device)
@@ -527,37 +600,62 @@ def csr_spmm_ell_plan(csr: CSR, grad: bool = True, dtype=None,
         return grad_plan(csr_spmm_ell_plan(csr, grad=False, **kw),
                          csr_spmm_ell_plan(csr.transpose(), grad=False, **kw))
     itemsize = 4 if dtype_key in (None, "float32") else 2
+    pattern = csr
+    if per_call:  # the valued layout: pads at row 0, where a value 0 goes
+        pattern = CSR(csr.indptr, csr.indices, np.ones(csr.nnz, np.float32),
+                      csr.shape)
     idx_chunks, val_chunks, positions, layout, has_vals = _ell_layout(
-        csr, bucket, reduce, row_sort, compact, compact_slots, itemsize,
+        pattern, bucket, reduce, row_sort, compact, compact_slots, itemsize,
         feat_dim,
     )
     cols, vals, slot_start = _ell_flat(idx_chunks, val_chunks, layout, positions)
     segments = row_segments(np.append(slot_start, cols.size), csr.indptr,
                             longest_first=True)
-    arrays = [positions, cols, *(() if vals is None else (vals,)), *segments]
+    if per_call:
+        entries = _entry_slots(csr, slot_start, cols.size, segments)
+        arrays = [positions, cols, *entries, *segments]
+    else:
+        arrays = [positions, cols, *(() if vals is None else (vals,)), *segments]
     # the columns are resolved: no chunk is compacted any more
     flat_layout = tuple((m, K, mode, band, False) for m, K, mode, band, _ in layout)
-    statics = (csr.shape, flat_layout, has_vals, dtype_key, int(segments[4][-1]))
+    statics = (csr.shape, flat_layout, has_vals, dtype_key, int(segments[4][-1]),
+               per_call)
     on_kernel = device.type == "cuda" and itemsize == 4
     return Plan(arrays, _ell_apply, statics, device=device, name="csr_ell",
-                nnz=csr.nnz, positions=csr.nnz if on_kernel else _slots(layout))
+                nnz=csr.nnz, positions=csr.nnz if on_kernel else _slots(layout),
+                call_values=per_call)
 
 
-def _ell_apply(statics, arrays, dense, plain: bool = False):
+def _ell_apply(statics, arrays, dense, plain: bool = False, values=None):
     # f32 on the card: the kernel; else (CPU, bf16, plain=True) its plain
     # version, the chunk loop on views of the same flat arrays
-    (n_rows, n_cols), layout, has_vals, dtype_key, n_partials = statics
+    (n_rows, n_cols), layout, has_vals, dtype_key, n_partials, per_call = statics
     positions, cols = arrays[:2]
-    vals = arrays[2] if has_vals else None
     dense = _operand(dense, n_cols, positions.device, dtype_key)
+    seg_delta = None
+    if per_call:
+        slot_of_entry, seg_delta = arrays[2:4]
+        vals = call_values(values, slot_of_entry.numel(), dense.shape[1],
+                           positions.device)
+    else:
+        vals = arrays[2] if has_vals else None
     if dense.is_cuda and dense.dtype == torch.float32 and not plain:
         out = spmm_ell(cols, vals, *arrays[-5:], dense.contiguous(), n_rows,
-                       n_partials)
+                       n_partials, seg_delta=seg_delta)
         profiling.count("sdb.kernel/csr_ell", 1)
         return out
     if not layout:  # no rows
         return torch.zeros(n_rows, dense.shape[1], dtype=torch.float32,
                            device=dense.device)
+    if per_call:  # each head's values scattered into its slots, pads 0
+        D = dense.shape[1] // vals.shape[0]
+        outs = []
+        for h, v in enumerate(vals):
+            slot_vals = v.new_zeros(cols.numel()).index_copy_(0, slot_of_entry, v)
+            cat, _ = _run_chunks(_flat_chunks(cols, slot_vals, layout), 0,
+                                 dense[:, h * D:(h + 1) * D], layout, True, 0)
+            outs.append(cat)
+        return torch.cat(outs, 1).index_select(0, positions)
     if not has_vals:  # the zero row that every pad slot reads
         dense = torch.cat([dense, dense.new_zeros(1, dense.shape[1])])
     cat, _ = _run_chunks(_flat_chunks(cols, vals, layout), 0, dense, layout,

@@ -87,6 +87,8 @@ _INT8_VARIANT = {
 _ELL_TIERS = ("csr_ell", "csr_ell_int8", "hybrid", "hybrid_int8")
 # the router's explicit-hybrid threshold candidates, besides auto_threshold
 _THRESHOLDS = (0.015, 0.02, 0.03, 0.05)
+# the tier whose plans take A's values with each call (values="call")
+CALL_VALUE_TIER = "csr_ell"
 
 
 def _dense_apply(statics, arrays, dense, plain: bool = False):
@@ -253,12 +255,27 @@ def spmm_plan(matrix, impl: str = "auto", block_size: int = 128,
     scales. tune_with= (an operand) lets "auto" measure its two
     finalists where the scorer's margin is thin (spmm_tune).
     operand_layout="col" returns a plan of the operand's transpose, (F,
-    K) -> (M, F). Other keyword arguments go to the planner, e.g.
+    K) -> (M, F). values="call" builds a pattern plan that takes A's
+    values with each call, plan(B, values=v), v (nnz,) or (heads, nnz) in
+    the matrix's entry order (ops/plan): "auto" takes
+    CALL_VALUE_TIER, another impl raises ValueError, and grad
+    defaults to False (such a plan has no backward). Other keyword
+    arguments go to the planner, e.g.
     grad=False, dtype=torch.bfloat16, precision="high", compact=.
     device: None (the default) is the card; CPU callers pass
     device="cpu"."""
     kw["device"] = resolve_device(kw.get("device"))
     was_auto = impl == "auto"
+    per_call = kw.get("values") == "call"
+    if per_call:
+        if not was_auto and impl != CALL_VALUE_TIER:
+            raise ValueError(f"impl {impl!r} takes no values per call (values='call');"
+                             f" the tier that does: {CALL_VALUE_TIER}")
+        dtype = kw.get("dtype")
+        if dtype is not None and dtype_name(dtype) == "int8":
+            raise ValueError("values='call' plans are f32 or bf16; no int8 tier takes "
+                             "values per call")
+        kw.setdefault("grad", False)
     operand_layout = kw.pop("operand_layout", "row")
     if operand_layout not in ("row", "col"):
         raise ValueError(f"operand_layout must be 'row' or 'col', got {operand_layout!r}")
@@ -282,8 +299,11 @@ def spmm_plan(matrix, impl: str = "auto", block_size: int = 128,
         )
     if was_auto:
         with profiling.span("sdb.route") as route:
-            impl, matrix, _, thr = _auto_impl(matrix, block_size, feat_dim, kw,
-                                              tune_with)
+            if per_call:
+                impl, thr = CALL_VALUE_TIER, None
+            else:
+                impl, matrix, _, thr = _auto_impl(matrix, block_size, feat_dim, kw,
+                                                  tune_with)
             route.set(impl=impl, threshold=thr)
         if impl == "tuned":
             return matrix

@@ -38,7 +38,10 @@ plan's Aᵀ run in autograd's backward (on autograd's thread), and
 ``sdb.route`` around ``auto``'s decision in ``spmm_plan`` (attributes
 ``impl`` and ``threshold``); the counters ``sdb.nnz/<impl>`` (stored
 nonzeros of A) and ``sdb.positions/<impl>`` (element positions the
-layout computes) at each leaf call.
+layout computes) at each leaf call, and ``sdb.call_values/<impl>`` (the
+values a values="call" leaf was given, nnz x heads) at each such call.
+The models' spans: ``sdb.gat_scores`` around each GAT layer's node and
+edge scores and their softmax (``models/gat``).
 """
 from __future__ import annotations
 

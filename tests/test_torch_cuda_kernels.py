@@ -39,7 +39,7 @@ import torch
 from spmm_denseblock_tpu_torch.formats.bsr import BSR, random_bsr
 from spmm_denseblock_tpu_torch.formats.csr import CSR, random_csr
 from spmm_denseblock_tpu_torch.ops import _kernels, assert_allclose, spmm_scipy
-from spmm_denseblock_tpu_torch.ops.plan import Plan
+from spmm_denseblock_tpu_torch.ops.plan import Plan, run as plan_run
 from spmm_denseblock_tpu_torch.ops.reference import (
     bf16_exact_case,
     bf16x3_exact_case,
@@ -1914,6 +1914,74 @@ def test_ell_kernel_engaged_on_an_arxiv_size_hybrid():
     want = T.plain_apply(plan, x)
     rel = (got - want).abs().max().item() / want.abs().max().item()
     assert rel < TOL, rel
+
+
+def _per_head_f64(csr: CSR, values, x) -> np.ndarray:
+    """float64 A_h @ X_h by head, A_h the pattern with values[h], X_h
+    column block h of x."""
+    v, x = values.double().cpu().numpy(), x.double().cpu().numpy()
+    D = x.shape[1] // v.shape[0]
+    outs = []
+    for h in range(v.shape[0]):
+        a = CSR(csr.indptr, csr.indices, v[h], csr.shape).to_scipy().astype(np.float64)
+        outs.append(a @ x[:, h * D:(h + 1) * D])
+    return np.concatenate(outs, 1)
+
+
+@pytest.mark.parametrize("heads,D", [(1, 128), (1, 250), (3, 250), (3, 40), (3, 7)])
+def test_ell_kernel_call_values(heads, D, monkeypatch):
+    """A values="call" csr_ell plan (the pattern plan) on the card: H heads
+    of D columns in one launch of sdb_ell_spmm (D = 128, 40: 16-byte
+    loads; 250: 8-byte, the second and third of three heads starting 8
+    bytes past a 16-byte boundary; 7: 4-byte), the values (H, nnz) in the
+    pattern's entry order read through each segment's offset, across the
+    K = 1 class, empty rows, split rows and strips (the widest that fits,
+    then 4, 32 and 64 columns a strip inside each head): within 1e-5 of
+    the plain version (the chunk loop on the values scattered into their
+    slots) and of a float64 product by head; every strip width and a
+    second call give the same bits."""
+    E = importlib.import_module("spmm_denseblock_tpu_torch.ops.csr_spmm_ell")
+    csr = _ell_kernel_csr(False, seed=36)
+    plan = E.csr_spmm_ell_plan(csr, grad=False, values="call", device="cuda")
+    assert plan.call_values and plan.statics[4] > 0  # partial rows
+    rng = np.random.default_rng(D)
+    x = torch.as_tensor(rng.standard_normal((csr.n_cols, heads * D)).astype(np.float32),
+                        device="cuda")
+    v = torch.as_tensor(rng.standard_normal((heads, csr.nnz)).astype(np.float32),
+                        device="cuda")
+    before = _kernels.ell_spmm.launches
+    got = plan(x, values=v if heads > 1 else v[0])
+    torch.cuda.synchronize()
+    assert _kernels.ell_spmm.launches == before + 1
+    want = plan_run(plan, x, plain=True, values=v)
+    assert _kernels.ell_spmm.launches == before + 1
+    assert got.shape == (csr.n_rows, heads * D) and not got[:10].any()
+    rel = (got - want).abs().max().item() / want.abs().max().item()
+    assert rel < TOL, rel
+    want64 = _per_head_f64(csr, v, x)
+    assert np.abs(got.cpu().numpy() - want64).max() / np.abs(want64).max() < TOL
+    assert torch.equal(plan(x, values=v), got)
+    for W in (4, 32, 64):
+        monkeypatch.setattr(E, "ell_strip_width", lambda K, F, l2, W=W: W)
+        assert torch.equal(plan(x, values=v), got), W
+
+
+def test_ell_kernel_call_values_refused():
+    """The pattern plan on the card: values of the wrong length, or heads
+    that do not divide F, raise before any launch; a call under autograd
+    whose operand needs a gradient raises."""
+    E = importlib.import_module("spmm_denseblock_tpu_torch.ops.csr_spmm_ell")
+    csr = _ell_kernel_csr(False, 400, 300, seed=37)
+    plan = E.csr_spmm_ell_plan(csr, grad=False, values="call", device="cuda")
+    x = torch.ones(300, 12, device="cuda")
+    before = _kernels.ell_spmm.launches
+    with pytest.raises(ValueError, match="nnz"):
+        plan(x, values=torch.ones(2, csr.nnz + 1, device="cuda"))
+    with pytest.raises(ValueError, match="multiple"):
+        plan(x, values=torch.ones(5, csr.nnz, device="cuda"))
+    with pytest.raises(RuntimeError, match="no gradient"):
+        plan(x.requires_grad_(True), values=torch.ones(3, csr.nnz, device="cuda"))
+    assert _kernels.ell_spmm.launches == before
 
 
 @pytest.mark.parametrize("dtype,kernel,n_quantize", [

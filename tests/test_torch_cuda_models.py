@@ -1,7 +1,8 @@
 """The models and the ops beside SpMM on the card, against their CPU runs:
 csr_to_bsr_on_device (bit for bit), SDDMM (the bf16 block tier returns
 f32), the dense-block GEMM, GAT with an empty row (and the same bits on
-a second run), the GIN graph classifier, SAGE and GIN through the kernel
+a second run), GAT's plan route against its segment route at the
+source's widths (and its memory), the GIN graph classifier, SAGE and GIN through the kernel
 plans, and gcn_apply(remat=True) through a grad plan. These need a GPU
 and skip without one; run them on one with
 
@@ -114,6 +115,86 @@ def test_gat_cuda_matches_cpu_with_empty_rows():
     assert torch.equal(got, again)
     assert _rel(got, want) < TOL
     assert not got[[5, 77]].any()
+
+
+def _gat_pattern_graph(n: int, seed: int) -> CSR:
+    from spmm_denseblock_tpu_torch.models.graph import gat_pattern
+
+    edges = np.random.default_rng(seed).integers(0, n, (8 * n, 2))
+    return gat_pattern(CSR.from_edges(edges, n))
+
+
+def _segment_route(apply, params, x):
+    """The segment route's answer: a call whose weights need a gradient."""
+    with torch.enable_grad():
+        return apply([{k: t.detach().requires_grad_(True) for k, t in p.items()}
+                      for p in params], x).detach()
+
+
+def test_gat_plan_route_matches_segment_route():
+    """The GAT at the source's widths (3 heads of 250, then of 40) with
+    the residual projection on a 4,000-node attention pattern: a call that
+    needs no gradient runs the plan route (one sdb_ell_spmm launch a
+    layer, its values made by the request) within 1e-5 of the segment
+    route on the card, the same bits on a second run; with program tracing
+    on, sdb.kernel/csr_ell counts each layer's call, sdb.call_values/csr_ell
+    adds nnz x 3 a layer and sdb.gat_scores opens once a layer."""
+    from spmm_denseblock_tpu_torch.utils import profiling
+
+    csr = _gat_pattern_graph(4000, 11)
+    params = M.tree_map(lambda t: t.cuda(), M.init_gat(
+        [64, 250, 40], 3, torch.Generator().manual_seed(1), residual=True))
+    x = torch.as_tensor(np.random.default_rng(12).standard_normal(
+        (4000, 64)).astype(np.float32), device="cuda")
+    apply = M.make_gat_apply(csr, 3)
+    want = _segment_route(apply, params, x)
+    with torch.no_grad():
+        before = _kernels.ell_spmm.launches
+        prev = profiling.enable(True)
+        try:
+            profiling.take()
+            got = apply(params, x)
+            torch.cuda.synchronize()
+            taken = profiling.take()
+        finally:
+            profiling.enable(prev)
+    assert _kernels.ell_spmm.launches == before + 2
+    with torch.no_grad():
+        again = apply(params, x)
+    assert taken["counts"]["sdb.kernel/csr_ell"] == 2
+    assert taken["counts"]["sdb.call_values/csr_ell"] == 2 * 3 * csr.nnz
+    assert [sp.name for sp in taken["spans"]].count("sdb.gat_scores") == 2
+    assert got.shape == (4000, 40) and torch.equal(got, again)
+    assert _rel(got, want) < TOL
+
+
+def test_gat_plan_route_makes_no_edge_by_column_tensor():
+    """On a 20,000-node pattern at 3 heads of 250 (an (nnz, 3, 250) f32
+    tensor would take about 1 GB), a plan-route request's peak memory
+    above what was held stays under a fifth of that, where the segment
+    route's (a call whose weights need a gradient) exceeds it."""
+    csr = _gat_pattern_graph(20000, 13)
+    params = M.tree_map(lambda t: t.cuda(), M.init_gat(
+        [128, 250, 40], 3, torch.Generator().manual_seed(2)))
+    x = torch.randn(20000, 128, device="cuda")
+    edge_by_column = csr.nnz * 3 * 250 * 4
+    apply = M.make_gat_apply(csr, 3)
+    peaks = {}
+    for route in ("plan", "segment"):
+        def call():
+            if route == "plan":
+                with torch.no_grad():
+                    return apply(params, x)
+            return _segment_route(apply, params, x)
+        call()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        call()
+        torch.cuda.synchronize()
+        peaks[route] = torch.cuda.max_memory_allocated() - held
+    assert peaks["plan"] < edge_by_column / 5 < edge_by_column < peaks["segment"], (
+        peaks, edge_by_column)
 
 
 def test_graph_classifier_cuda_matches_cpu():
