@@ -142,7 +142,10 @@ Phases:
               the fewest blocks (gorder) and on the original ordering,
               sym_norm_adjacency: the route impl="auto" takes on each
               (the JAX router's: the fill guard, then over the 4 GiB
-              budget the threshold scorer, whose report is printed), then
+              budget the threshold scorer, on the card pricing an f32
+              plan by the kernels it runs; its report is printed), which
+              must be csr_ell on both (the ELL kernel on the whole
+              graph), then
               4 seeded requests through spmm_plan with impl="auto" on
               both orderings, "hybrid" (the dense blocks through the BSR
               kernel plan the gate picks, the rest through the ELL
@@ -210,8 +213,10 @@ Phases:
               not built), no error but out-of-memory, the winner within
               1e-4 of spmm_scipy, beside auto's route; auto with tune_with=
               on the serve graph (gorder, b = 128, a 1 GiB budget), where
-              the scorer's hybrid and pure ELL lie within 15%: both
-              finalists timed, the tuned plan within 1e-4 of spmm_scipy;
+              the scorer's best hybrid and pure ELL lie within 15% (under
+              the card's kernel pricing the hybrid at auto_threshold,
+              whose dense part is empty, ties pure ELL): both finalists
+              timed, the tuned plan within 1e-4 of spmm_scipy;
               a torch.profiler trace of one op-shape call, which must
               name the K2 entry sdb_bsr_spmm_sorted, and the op record's
               roofline share against the H100 peaks, at most 1.05
@@ -1736,6 +1741,7 @@ def serve_phase(graphs: dict, best: str):
         f"{SERVE_REQUESTS} requests a route ({time.perf_counter() - t0:.1f} s)")
     for key, adj in adjs.items():
         t0 = time.perf_counter()
+        # an empty kw is the card: the scorer prices by the f32 kernels
         impl, _, report, _ = _auto_impl(adj, 128, SERVE_DIMS[0], {})
         nnzb = calculate_nnzb(adj, 128)
         log(f"  {names[key]}: b=128 nnzb={nnzb} ({nnzb * 128 * 128 * 4 / 2**30:.1f} GiB "
@@ -1743,6 +1749,9 @@ def serve_phase(graphs: dict, best: str):
             f"{impl} ({time.perf_counter() - t0:.1f} s); the scorer's report:")
         for row in report or ():
             log(f"    {row}")
+        if impl != "csr_ell":
+            raise AssertionError(f"auto on {names[key]} routes to {impl}, expected "
+                                 "csr_ell (the kernel pricing's route)")
     gen = torch.Generator().manual_seed(SEED + 20)
     model = GCN(SERVE_DIMS, generator=gen).to(DEV)
     params = [{k: v.detach().cpu().double().numpy() for k, v in p.items()}
@@ -2668,7 +2677,8 @@ def bench_phase(op_bsr: BSR, k2_op, x_op, graphs: dict, card_line: str) -> dict:
         torch.cuda.empty_cache()
     bp["tune_s"] = time.perf_counter() - t0
     # f. auto with tune_with= where the scorer's margin is thin: the serve
-    # graph (gorder) at b = 128
+    # graph (gorder) at b = 128, priced by the card's f32 kernels (the
+    # hybrid at auto_threshold, no dense block, ties pure ELL)
     t0 = time.perf_counter()
     adj = sym_norm_adjacency(graphs["gorder"])
     x = torch.as_tensor(seeded((adj.n_cols, 128), SEED + 71), device=DEV)

@@ -4,8 +4,9 @@ graph, on one card:
     python3 scripts/torch_ell_probe.py [--out build/ell_probe.json]
 
 The graph is the one the gcn-arxiv cells serve (portbench's stand-in,
-gorder, sym_norm_adjacency) and the plan the one ``impl="auto"`` builds
-there: a hybrid of K1 and the ELL tier. At F = 128 and 256 it times the
+gorder, sym_norm_adjacency) and the plan ``impl="hybrid"`` builds there
+(the route ``impl="auto"`` took before it priced by the card's kernels):
+a hybrid of K1 and the ELL tier. At F = 128 and 256 it times the
 remainder's ELL kernel at ell_strip_width's strip width and at others,
 its segments longest first (the plan's) and in row order, source
 variants of ``csrc/csr_spmm.cu`` (text substitutions in VARIANTS, built
@@ -144,7 +145,7 @@ def main() -> None:
     n, edges = graphgen.load_edges(config["graph"])
     adj = sym_norm_adjacency(reorder(CSR.from_edges(edges, n_rows=n),
                                      config["ordering"])[0])
-    plan = spmm_plan(adj, impl="auto", feat_dim=128, grad=False)
+    plan = spmm_plan(adj, impl="hybrid", feat_dim=128, grad=False)
     if args.requests_only:
         req = requests(plan, n, config["dims"])
         print(f"[probe] {card}; GCN {config['dims']} requests: {req}", flush=True)
@@ -156,7 +157,7 @@ def main() -> None:
     orig = E.row_segments
     E.row_segments = lambda *a, **k: orig(*a, **{**k, "longest_first": False})
     try:
-        ell_rows = spmm_plan(adj, impl="auto", feat_dim=128, grad=False).subplans[1]
+        ell_rows = spmm_plan(adj, impl="hybrid", feat_dim=128, grad=False).subplans[1]
     finally:
         E.row_segments = orig
     # the same division the router made, for the yardstick and the bound

@@ -33,7 +33,9 @@ def main(argv=None):
     ap.add_argument("--strategy", default="rabbit")
     ap.add_argument(
         "--impl", default="auto",
-        help="auto routes real (element-sparse) graphs to hybrid; "
+        help="auto prices its candidates by what the plan runs: real "
+        "(element-sparse) graphs go to csr_ell on the card in f32 (the ELL "
+        "kernel), mostly to hybrid elsewhere; "
         "bsr_int8_pallas is the quantized block tier for block-dense inputs; "
         "csr_ell_int8 / hybrid_int8 are the quantized serving tiers for "
         "gather-bound graphs (use with --calibrate)")

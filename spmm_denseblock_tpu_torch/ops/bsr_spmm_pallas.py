@@ -207,6 +207,35 @@ def walked_slots(group_ptr, lane_valid, gh: int) -> int:
     return int(gh * (steps[:, None] * valid).sum())
 
 
+def f32_walk(block_rows, n_block_rows: int):
+    """(walked_slots, depth) of the exact-f32 plan that
+    bsr_spmm_pallas_plan builds with its default options over blocks in
+    these block-rows, counted without packing: each empty block-row
+    takes a covering zero block; at >= 8 real blocks a block-row the
+    depth-sorted layout (K2), else K1's flat layout in groups of
+    _auto_group. depth is the deepest lane's slots (lane_order's)."""
+    counts = np.bincount(np.asarray(block_rows, np.int64), minlength=n_block_rows)
+    covered = np.maximum(counts, 1)
+    if counts.sum() / max(n_block_rows, 1) < 8.0:
+        group = _auto_group(int(covered.sum()), n_block_rows)
+        steps = -(-covered // group)
+        return int(steps.sum() * group), int(steps.max(initial=0) * group)
+    R, gh, W = _depth_sort_policy(4)
+    slots = deepest = 0
+    for lo in range(0, n_block_rows, W):
+        # a window's rows by ascending count, R lanes a group; a group
+        # walks its deepest lane's steps on each of its real lanes
+        c = np.sort(covered[lo:lo + W], kind="stable")
+        pad = (-c.size) % R
+        steps = -(-np.concatenate([c, np.zeros(pad, c.dtype)]) // gh)
+        steps = np.maximum(steps.reshape(-1, R).max(axis=1), 1)
+        lanes = np.full(steps.size, R)
+        lanes[-1] -= pad
+        slots += int(gh * (steps * lanes).sum())
+        deepest = max(deepest, int(steps.max()))
+    return slots, deepest * gh
+
+
 def group_pointer(step_groups, n_groups: int) -> np.ndarray:
     """(n_groups+1,) int64: the steps of group g are ptr[g] .. ptr[g+1]-1
     (step_groups is nondecreasing). A CUDA CTA walks its group's steps

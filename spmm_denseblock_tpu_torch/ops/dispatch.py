@@ -18,7 +18,13 @@ threshold scorer (a dense part worth its blocks gives hybrid, else
 csr_ell). ``dtype=int8`` maps the chosen tier, picked by "auto" or
 named, to its quantized variant, and "auto"'s ELL and hybrid tiers get
 compact="auto". Every constant of these steps is a TPU v5e fit of the
-JAX package, copied as it is. Where the scorer's hybrid and pure-ELL
+JAX package, copied as it is, but for the scorer's prices on the card:
+a plan that will run the f32 kernels there (device CUDA, operand f32)
+is priced by what they walk ("kernel" pricing: the ELL kernel's stored
+entries and rows, K1's walk and deepest lane, the hybrid's pad and sum,
+in ns), every
+other plan by the JAX package's padded slots ("padded" pricing, so its
+route is JAX's). Where the scorer's hybrid and pure-ELL
 scores lie within 15% of each other and the caller passed
 ``tune_with=`` (a representative operand), "auto" measures the two
 finalists with ``spmm_tune`` instead. ``operand_layout="col"`` gives a
@@ -40,6 +46,7 @@ import torch
 from spmm_denseblock_tpu_torch.analyze.metrics import calculate_nnzb
 from spmm_denseblock_tpu_torch.convert.csr2bsr import bsr_to_csr, csr_to_bsr
 from spmm_denseblock_tpu_torch.convert.divide import (
+    KernelPrices,
     auto_threshold,
     divide,
     score_thresholds,
@@ -89,6 +96,28 @@ _ELL_TIERS = ("csr_ell", "csr_ell_int8", "hybrid", "hybrid_int8")
 _THRESHOLDS = (0.015, 0.02, 0.03, 0.05)
 # the tier whose plans take A's values with each call (values="call")
 CALL_VALUE_TIER = "csr_ell"
+
+# -- the scored branch's prices (score_thresholds): two sets, by route_pricing
+# padded pricing, the JAX package's TPU v5e fit, for every plan that walks
+# padded ELL slots through torch ops (the CPU, bf16, int8): a dense block is
+# worth PADDED_SLOTS_PER_BLOCK slots, or PADDED_SLOTS_PER_BLOCK_BIG_TABLE on
+# a source of SCAN_MIN_SOURCE_ROWS rows or more
+PADDED_SLOTS_PER_BLOCK = 400.0
+PADDED_SLOTS_PER_BLOCK_BIG_TABLE = 4000.0
+# kernel pricing, an f32 plan on the card (KernelPrices, ns an operand
+# column): the ELL kernel a stored entry and a row, K1 a multiply-add of
+# its walk and of its deepest lane, the hybrid's pad and sum a byte. Fitted
+# by scripts/torch_route_probe.py on the arxiv benchmark graph (gorder,
+# 2,492,379 nonzeros; H100 80GB HBM3, 700 W), F = 128 and 256 averaged:
+# csr_ell 0.2689 / 0.5135 ms, predicted 0.2638 / 0.5275; the hybrid at
+# the scored thresholds 0.6020-0.7423 / 1.1137-1.1844 ms, predicted
+# 0.5839-0.6833 / 1.1673-1.2069; at 0.002 (a lane 1,220 slots deep)
+# 16.23 / 17.02, predicted 17.67 / 18.06
+KERNEL_NS_PER_ENTRY = 3.58e-4
+KERNEL_NS_PER_ROW = 6.9e-3
+KERNEL_NS_PER_BLOCK_MAC = 5.9e-5
+KERNEL_NS_PER_LANE_MAC = 6.75e-3
+KERNEL_NS_PER_HYBRID_BYTE = 4.07e-4
 
 
 def _dense_apply(statics, arrays, dense, plain: bool = False):
@@ -154,6 +183,30 @@ def _itemsize(dtype) -> int:
     return 4 if dtype is None else getattr(torch, dtype_name(dtype)).itemsize
 
 
+def route_pricing(device, dtype) -> str:
+    """How "auto"'s scorer prices a plan on `device` (None: the card, as
+    spmm_plan takes it) in `dtype`: "kernel" where the plan runs the f32
+    kernels (a CUDA device, an f32 operand), else "padded"."""
+    device = torch.device("cuda" if device is None else device)
+    return "kernel" if device.type == "cuda" and _itemsize(dtype) == 4 else "padded"
+
+
+def _kernel_prices(feat_dim) -> KernelPrices:
+    """The card's f32 prices at the plan's operand width (None: 256)."""
+    return KernelPrices(KERNEL_NS_PER_ENTRY, KERNEL_NS_PER_ROW, KERNEL_NS_PER_BLOCK_MAC,
+                        KERNEL_NS_PER_LANE_MAC, KERNEL_NS_PER_HYBRID_BYTE,
+                        feat_dim=256 if feat_dim is None else feat_dim)
+
+
+def _route_costs(report, thr) -> dict:
+    """The scorer's predicted cost of its pick (the hybrid at `thr`, or
+    pure ELL for None) and of the cheapest other candidate (None if
+    none), in the pricing's unit: ns (kernel) or padded slots."""
+    scores = {r["thr"]: r["score"] for r in report if r.get("score") is not None}
+    others = [v for t, v in scores.items() if t != thr]
+    return {"cost": scores.get(thr), "runner_up_cost": min(others, default=None)}
+
+
 def _explicit_hybrid(matrix: CSR, impl: str, block_size: int, kw: dict) -> Hybrid:
     """impl="hybrid"/"hybrid_int8" on a CSR input: divide at
     density_threshold=, else at the scorer's pick with margin 0 (the
@@ -193,10 +246,11 @@ def _auto_impl(matrix, block_size: int, feat_dim, kw: dict, tune_with=None):
     """The JAX router's "auto" choice: (impl, matrix, report, threshold),
     the matrix repacked or divided where the route says so,
     score_thresholds' report where the scorer ran (else None), and the
-    density threshold of the hybrid split it made (else None). With
-    `tune_with` and a thin margin between the scorer's finalists,
-    ("tuned", the measured winner's plan, report, None). Pops
-    bsr_bytes_budget from kw."""
+    density threshold of the hybrid split it made (else None). The
+    scorer prices by route_pricing(kw's device, kw's dtype): a kw with
+    no device means the card. With `tune_with` and a thin margin between
+    the scorer's finalists, ("tuned", the measured winner's plan,
+    report, None). Pops bsr_bytes_budget from kw."""
     if isinstance(matrix, Windowed):
         return "windowed", matrix, None, None
     if isinstance(matrix, Hybrid):
@@ -219,16 +273,19 @@ def _auto_impl(matrix, block_size: int, feat_dim, kw: dict, tune_with=None):
     if block_bytes <= budget:
         return impl, matrix, None, None
     big_table = matrix.n_cols >= SCAN_MIN_SOURCE_ROWS
+    kernel = route_pricing(kw.get("device"), kw.get("dtype")) == "kernel"
     best_thr, report = score_thresholds(
         matrix, block_size,
         candidates={*_THRESHOLDS, auto_threshold(matrix, block_size)},
-        slots_per_block=4000.0 if big_table else 400.0,
+        slots_per_block=(PADDED_SLOTS_PER_BLOCK_BIG_TABLE if big_table
+                         else PADDED_SLOTS_PER_BLOCK),
         dense_bytes_budget=budget // 4, dtype_bytes=_itemsize(kw.get("dtype")),
+        prices=_kernel_prices(feat_dim) if kernel else None,
     )
     finalists = None if tune_with is None else _thin_margin_finalists(report)
     if finalists is not None:
-        # the scorer's slots-per-block constants are two-point fits: on a
-        # thin margin, measure the finalists on the caller's operand
+        # the scorer's prices are fits: on a thin margin, measure the
+        # finalists on the caller's operand
         plan, _ = spmm_tune(matrix, tune_with, candidates=finalists,
                             block_size=block_size, **kw)
         return "tuned", plan, report, None
@@ -299,12 +356,17 @@ def spmm_plan(matrix, impl: str = "auto", block_size: int = 128,
         )
     if was_auto:
         with profiling.span("sdb.route") as route:
+            report = None
             if per_call:
                 impl, thr = CALL_VALUE_TIER, None
             else:
-                impl, matrix, _, thr = _auto_impl(matrix, block_size, feat_dim, kw,
-                                                  tune_with)
+                impl, matrix, report, thr = _auto_impl(matrix, block_size, feat_dim,
+                                                       kw, tune_with)
             route.set(impl=impl, threshold=thr)
+            if report is not None:  # the scorer ran: how it priced, what it predicted
+                route.set(pricing=route_pricing(kw["device"], kw.get("dtype")))
+                if impl != "tuned":
+                    route.set(**_route_costs(report, thr))
         if impl == "tuned":
             return matrix
     kw.pop("bsr_bytes_budget", None)

@@ -1916,6 +1916,66 @@ def test_ell_kernel_engaged_on_an_arxiv_size_hybrid():
     assert rel < TOL, rel
 
 
+def _planted(n, fill, block_rows, seed) -> CSR:
+    """n nodes: a random tail of ~8 nonzeros a row plus diagonal 128-blocks
+    at block_rows, each holding `fill` of its 16,384 entries."""
+    rng = np.random.default_rng(seed)
+    tail = random_csr(8 / n, n, seed=seed)
+    k = int(fill * 128 * 128)
+    pos = np.stack([rng.choice(128 * 128, k, replace=False) for _ in block_rows])
+    br = np.asarray(block_rows, np.int64)[:, None] * 128
+    rows = np.concatenate([tail.row_ids(), (br + pos // 128).ravel()])
+    cols = np.concatenate([tail.indices, (br + pos % 128).ravel()])
+    return CSR.from_coo(rows, cols, rng.random(rows.size).astype(np.float32), (n, n))
+
+
+@pytest.mark.parametrize("case", ["arxiv_size", "full_blocks"])
+def test_auto_prices_by_the_kernels(case):
+    """spmm_plan(impl="auto", grad=True) on the card prices the scorer's
+    candidates by the f32 kernels (sdb.route: pricing "kernel"). On a
+    stand-in of ogbn-arxiv's 169,343 nodes whose 700 dense 128-blocks are
+    10% full it routes to csr_ell: every forward and backward call runs
+    the ELL kernel (sdb.kernel/csr_ell), and the answers and Aᵀ gradients
+    lie within 1e-5 of the plan's plain version. On full diagonal blocks,
+    one a block-row (over a budget that sends it to the scorer), it still
+    builds a hybrid."""
+    from spmm_denseblock_tpu_torch.ops import spmm_plan
+    from spmm_denseblock_tpu_torch.utils import profiling
+
+    if case == "arxiv_size":
+        n = 169_343
+        rows = np.random.default_rng(36).choice(n // 128, 700, replace=False)
+        csr, kw, want = _planted(n, 0.10, rows, 37), {}, "csr_ell"
+    else:
+        n = 48 * 128
+        csr, kw, want = _planted(n, 1.0, range(48), 38), {"bsr_bytes_budget": 1 << 26}, "hybrid"
+    prev = profiling.enable(True)
+    try:
+        profiling.take()
+        plan = spmm_plan(csr, impl="auto", feat_dim=128, grad=True, **kw)
+        (route,) = [s.attrs for s in profiling.take()["spans"] if s.name == "sdb.route"]
+        rng = np.random.default_rng(39)
+        x = torch.as_tensor(rng.standard_normal((n, 128)).astype(np.float32),
+                            device="cuda").requires_grad_(True)
+        g = torch.as_tensor(rng.standard_normal((n, 128)).astype(np.float32), device="cuda")
+        got = plan(x)
+        (got * g).sum().backward()
+        torch.cuda.synchronize()
+        counts = profiling.take()["counts"]
+    finally:
+        profiling.enable(prev)
+    assert route["impl"] == want and route["pricing"] == "kernel", route
+    assert route["cost"] <= route["runner_up_cost"], route
+    if want == "csr_ell":  # the forward call and Aᵀ's in the backward
+        assert counts["sdb.kernel/csr_ell"] == 2, counts
+        assert counts["sdb.positions/csr_ell"] == counts["sdb.nnz/csr_ell"] == 2 * csr.nnz
+    grad, x.grad = x.grad.clone(), None
+    plain = plan_run(plan, x, plain=True)
+    (plain * g).sum().backward()
+    assert (got - plain).abs().max().item() / plain.abs().max().item() < TOL
+    assert (grad - x.grad).abs().max().item() / x.grad.abs().max().item() < TOL
+
+
 def _per_head_f64(csr: CSR, values, x) -> np.ndarray:
     """float64 A_h @ X_h by head, A_h the pattern with values[h], X_h
     column block h of x."""

@@ -307,12 +307,15 @@ def test_route_span_carries_the_decision(tracing):
     # threshold, or pure ELL with none
     plan = spmm_plan(community(), impl="auto", block_size=32, feat_dim=64,
                      grad=False, bsr_bytes_budget=1, device="cpu")
+    # (a CPU plan: padded pricing, the costs in padded slots)
     (route,) = profiling.take()["spans"]
-    assert route.name == "sdb.route" and set(route.attrs) == {"impl", "threshold"}
+    assert route.name == "sdb.route" and set(route.attrs) == {
+        "impl", "threshold", "pricing", "cost", "runner_up_cost"}
+    assert route.attrs["pricing"] == "padded" and route.attrs["cost"] > 0
     if plan.subplans is not None:
         assert route.attrs["impl"] == "hybrid" and route.attrs["threshold"] > 0
     else:
-        assert route.attrs == {"impl": "csr_ell", "threshold": None}
+        assert route.attrs["impl"] == "csr_ell" and route.attrs["threshold"] is None
     # the fill guard's route: mostly empty blocks within the budget
     spmm_plan(random_csr(0.002, 512, seed=7), impl="auto", feat_dim=64, grad=False,
               device="cpu")
