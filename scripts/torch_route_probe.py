@@ -10,7 +10,7 @@ K1 part (a call: the operand's pad to the block grid, then K1), its ELL
 remainder, the pad alone and the sum of the two parts alone. Every time
 is the mean of CUDA events over a run of calls, each measured twice in
 turns. From them it fits, by least squares, the prices of
-``convert/divide.KernelPrices`` in ns an operand column: the ELL
+``ops/dispatch.KernelPrices`` in ns an operand column: the ELL
 kernel's a stored entry and a row (t = a + c·nnz over the whole graph
 and the remainders: c the entries', a the rows'), K1's a multiply-add of
 its walk and of its deepest lane (K1 = the part less the pad, t =
@@ -142,8 +142,8 @@ def calibrate(adj: CSR, record: dict) -> dict:
         ell_a, ell_c = fit([adj.nnz] + [p[4] for p in parts.values()],
                            [ms["csr_ell"]] + [ms[f"ell {t}"] for t in parts])
         # K1 alone: its call less the pad; the walk at F columns, the
-        # deepest lane at min(F, LANE_COLUMNS)
-        lane_cols = min(F, D.KernelPrices.LANE_COLUMNS)
+        # deepest lane at min(F, MAX_BN)
+        lane_cols = min(F, D.MAX_BN)
         cw, cd = fit_walk([p[2] * B * B * F for p in parts.values()],
                           [p[3] * B * B * lane_cols for p in parts.values()],
                           [ms[f"k1 {t}"] - pad_ms for t in parts])

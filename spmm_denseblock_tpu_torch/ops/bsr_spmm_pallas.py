@@ -42,9 +42,10 @@ geometries keep the plan's deepest lane in view, and every entry at b =
 Beside each kernel sits its plain PyTorch version (``spmm_flat_plain``,
 ``spmm_sorted_plain``, ``spmm_rowgroup_plain``,
 ``spmm_resident_plain``): gather, ``bmm`` in f32 (three of them for
-bf16x3) and ``index_add_`` over the same packed arrays. A wrapper runs
-the plain version only for CPU tensors; for CUDA tensors it launches the
-kernel or raises.
+bf16x3) and ``index_add_`` over the same packed arrays. The wrapper
+alone chooses between them: it runs the plain version for CPU tensors
+and where its caller passes plain=True (``run(plan, x, plain=True)``),
+and otherwise launches the kernel or raises.
 
 Layout policy: the occupancy gate of the JAX plan. The TPU's VMEM fit
 checks, SMEM chunking and environment knobs are not carried over; their
@@ -56,14 +57,17 @@ from __future__ import annotations
 
 from typing import Optional
 
-import functools
-
 import numpy as np
 import torch
 
 from spmm_denseblock_tpu_torch.formats.bsr import BSR
 from spmm_denseblock_tpu_torch.ops import _kernels
-from spmm_denseblock_tpu_torch.ops._device import resolve_device
+from spmm_denseblock_tpu_torch.ops._device import (
+    _device_of,
+    _sm_count,
+    check_arrays,
+    resolve_device,
+)
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_int8 import dtype_name, reject_int8_cast
 from spmm_denseblock_tpu_torch.ops.plan import Plan, grad_plan, run
 
@@ -211,13 +215,13 @@ def f32_walk(block_rows, n_block_rows: int):
     """(walked_slots, depth) of the exact-f32 plan that
     bsr_spmm_pallas_plan builds with its default options over blocks in
     these block-rows, counted without packing: each empty block-row
-    takes a covering zero block; at >= 8 real blocks a block-row the
-    depth-sorted layout (K2), else K1's flat layout in groups of
-    _auto_group. depth is the deepest lane's slots (lane_order's)."""
+    takes a covering zero block, and the plan's gate (_layout_gate)
+    picks the depth-sorted layout (K2) or K1's flat one and its group.
+    depth is the deepest lane's slots (lane_order's)."""
     counts = np.bincount(np.asarray(block_rows, np.int64), minlength=n_block_rows)
     covered = np.maximum(counts, 1)
-    if counts.sum() / max(n_block_rows, 1) < 8.0:
-        group = _auto_group(int(covered.sum()), n_block_rows)
+    layout, group = _layout_gate(int(counts.sum()), int(covered.sum()), n_block_rows)
+    if layout == "flat":
         steps = -(-covered // group)
         return int(steps.sum() * group), int(steps.max(initial=0) * group)
     R, gh, W = _depth_sort_policy(4)
@@ -366,6 +370,30 @@ def _auto_group_pow2(nnzb: int, n_rows_with_blocks: int, cap: int = 32) -> int:
     while g < avg and g < cap:
         g *= 2
     return g
+
+
+def _layout_gate(n_real: int, n_covered: int, n_block_rows: int, itemsize: int = 4,
+                 precision: Optional[str] = None, resident: Optional[bool] = None,
+                 depth_sort: Optional[bool] = None, group: Optional[int] = None):
+    """The (layout, group) that bsr_spmm_pallas_plan's gate picks for
+    n_real blocks in n_block_rows block-rows (n_covered with the covering
+    zero blocks): "sorted" (group None: the policy's), "rowgroup" or
+    "flat", the group the caller's or the layout's automatic one."""
+    avg_real = n_real / max(n_block_rows, 1)
+    # 2-byte operands at the default precision: the JAX plan's resident
+    # regime (sorted or consecutive row groups, power-of-two groups)
+    resident_likely = itemsize == 2 and resident is not False and precision is None
+    if depth_sort is None:
+        depth_sort = avg_real >= 2.0
+    wide_sorted = (itemsize == 4 and resident is not False
+                   and precision in (None, "high") and avg_real >= 8.0)
+    if depth_sort and (resident_likely or wide_sorted):
+        return "sorted", group
+    layout = "rowgroup" if resident_likely else "flat"
+    if group is None:
+        group = (min(_auto_group_pow2(n_covered, n_block_rows), _ROWGROUP_GH_CAP)
+                 if resident_likely else _auto_group(n_covered, n_block_rows))
+    return layout, group
 
 
 def _depth_sort_policy(itemsize: int, group=None):
@@ -571,16 +599,7 @@ def spmm_rowgroup_plain(step_groups, slot_cols, blocks, dense,
 
 SUPPORTED_BLOCK_SIZES = (16, 32, 64, 128)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-
-
-def _device_of(*tensors) -> torch.device:
-    dev = tensors[0].device
-    for t in tensors[1:]:
-        if t.device != dev:
-            raise ValueError(f"operands on different devices: {dev} and {t.device}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
+MAX_BN = 128  # the widest F tile of a BSR entry (tile_geometry, _small_bn)
 
 
 def check_cuda_operands(blocks, dense, index_arrays, dtypes=_KERNEL_DTYPES,
@@ -618,13 +637,8 @@ def check_cuda_operands(blocks, dense, index_arrays, dtypes=_KERNEL_DTYPES,
         raise ValueError(
             f"dense must be (nbc*b, F) with b={b}, got {tuple(dense.shape)}"
         )
-    for name, (t, dtype) in index_arrays.items():
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    checked = (blocks, dense) if contiguous else (blocks,)
-    for t in (*checked, *(t for t, _ in index_arrays.values())):
-        if not t.is_contiguous():
-            raise ValueError("CUDA kernel operands must be contiguous")
+    checked = [("blocks", blocks, None)] + [("dense", dense, None)] * contiguous
+    check_arrays(checked + [(n, t, dtype) for n, (t, dtype) in index_arrays.items()])
     return n_slots
 
 
@@ -648,7 +662,7 @@ def tile_geometry(b: int, n_rows: int, F: int, n_sms: int, row_align: int):
     ld = -(-F // row_align) * row_align
     if b < 64:
         return 64, ld
-    bn = 128 if F > 64 and n_rows * -(-F // 128) >= n_sms else 64
+    bn = MAX_BN if F > 64 and n_rows * -(-F // MAX_BN) >= n_sms else 64
     return bn, ld
 
 
@@ -672,7 +686,7 @@ def _small_bn(F: int, n_sms: int, n_slots: int, depth: int, share: float) -> int
     so each of its F tiles is one CTA walking all its slots, and a
     narrower tile puts more CTAs on a hub lane."""
     limit = n_slots * F / (n_sms * share)
-    for bn in (128, 64):
+    for bn in (MAX_BN, 64):
         if F > bn // 2 and depth * bn <= limit:
             return bn
     return 32
@@ -704,11 +718,6 @@ def bf16_tile_geometry(b: int, n_rows: int, F: int, n_sms: int):
     K3, whose split operand has rows of this ld, at b = 64 and 128): rows
     of a multiple of 8 bf16."""
     return tile_geometry(b, n_rows, F, n_sms, 8)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _operand_rows(dense, ld: int):
@@ -815,14 +824,15 @@ def _k3_launch_args(b: int, n_slots: int, dense, n_rows: int,
 
 def spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense, group: int,
               bf16x3: bool = False, resident: bool = False, lane_order=None,
-              depth: Optional[int] = None) -> torch.Tensor:
+              depth: Optional[int] = None, plain: bool = False) -> torch.Tensor:
     """K1 (K3 with bf16x3=True): C (n_block_rows*b, F) f32 on the flat
     grouped layout. resident=True launches the same kernel through K5's
     entries (``spmm_resident``).
 
     step_ptr (n_block_rows+1,) int64 points each block-row at its steps
-    (derived from the sorted step_rows at plan time). CPU tensors run
-    spmm_flat_plain; CUDA tensors run the CUDA kernel: f32 operands the
+    (derived from the sorted step_rows at plan time). CPU tensors, and
+    any with plain=True, run spmm_flat_plain; CUDA tensors run the CUDA
+    kernel: f32 operands the
     FFMA entry, bf16 the bf16 entry, as spmm_sorted, at the geometry of
     n_block_rows lanes; bf16x3 (blocks: split_planes' planes, f32
     operand) K3's entry after split_operand. lane_order and depth (the
@@ -830,7 +840,7 @@ def spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense, group: int,
     which needs them."""
     dev = _device_of(step_rows, step_ptr, slot_cols, blocks, dense)
     n_block_rows = step_ptr.shape[0] - 1
-    if dev.type == "cpu":
+    if plain or dev.type == "cpu":
         return spmm_flat_plain(step_rows, slot_cols, blocks, dense,
                                n_block_rows, group, bf16x3)
     n_slots = check_cuda_operands(blocks, dense, {
@@ -862,14 +872,18 @@ def spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense, group: int,
 
 def spmm_resident(step_rows, step_ptr, slot_cols, blocks, dense3, group: int,
                   bf16x3: bool = False, lane_order=None,
-                  depth: Optional[int] = None) -> torch.Tensor:
+                  depth: Optional[int] = None, plain: bool = False) -> torch.Tensor:
     """K5 (K3 with bf16x3=True): C (n_block_rows*b, F) f32 on K1's packed
     arrays with the operand dense3 viewed as (nbc, b, F).
 
     On the TPU this layout keeps the whole operand slice in VMEM and
     indexes it per slot; on the card nothing is kept resident, and K5's
-    entries run K1's CTA walk on the (nbc*b, F) view. CPU tensors run
-    spmm_resident_plain; CUDA tensors run the CUDA kernel."""
+    entries run K1's CTA walk on the (nbc*b, F) view. CPU tensors, and
+    any with plain=True, run spmm_resident_plain; CUDA tensors run the
+    CUDA kernel."""
+    if plain or _device_of(step_rows, step_ptr, slot_cols, blocks, dense3).type == "cpu":
+        return spmm_resident_plain(step_rows, slot_cols, blocks, dense3,
+                                   step_ptr.shape[0] - 1, group, bf16x3)
     return spmm_flat(step_rows, step_ptr, slot_cols, blocks,
                      _flat_view(dense3, blocks.shape[1]), group, bf16x3,
                      resident=True, lane_order=lane_order, depth=depth)
@@ -878,14 +892,15 @@ def spmm_resident(step_rows, step_ptr, slot_cols, blocks, dense3, group: int,
 def spmm_sorted(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr,
                 n_block_rows: int, R: int, gh: int, window: int,
                 bf16x3: bool = False, lane_order=None,
-                depth: Optional[int] = None) -> torch.Tensor:
+                depth: Optional[int] = None, plain: bool = False) -> torch.Tensor:
     """K2 (K3 with bf16x3=True): C (n_block_rows*b, F) f32 on the
     depth-sorted layout.
 
     lane_valid (n_groups*R,) bool and group_ptr (n_groups+1,) int64 come
     from the port's packer, lane_order (n_groups*R,) int32 and depth from
-    ``lane_order`` (every entry at b = 16 and 32 needs them). CPU tensors
-    run spmm_sorted_plain; CUDA tensors run the CUDA kernel: f32 operands
+    ``lane_order`` (every entry at b = 16 and 32 needs them). CPU
+    tensors, and any with plain=True, run spmm_sorted_plain; CUDA tensors
+    run the CUDA kernel: f32 operands
     the pipelined FFMA loop (at tile_geometry's tile width at b >= 64, at
     f32_small_geometry's below, the operand's columns padded to a
     multiple of 4 where F is ragged: _f32_launch_args), bf16 the bf16
@@ -895,7 +910,7 @@ def spmm_sorted(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr,
     _bf16_launch_args), bf16x3 (blocks: split_planes' planes) K3's entry
     after split_operand, on the same two loops."""
     dev = _device_of(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr)
-    if dev.type == "cpu":
+    if plain or dev.type == "cpu":
         return spmm_sorted_plain(win_ids, pos, slot_cols, blocks, dense,
                                  lane_valid, group_ptr, n_block_rows, R, gh,
                                  window, bf16x3)
@@ -939,17 +954,18 @@ def spmm_sorted(win_ids, pos, slot_cols, blocks, dense, lane_valid, group_ptr,
 
 def spmm_rowgroup(step_groups, group_ptr, slot_cols, blocks, dense,
                   n_block_rows: int, R: int, gh: int, lane_order=None,
-                  depth: Optional[int] = None) -> torch.Tensor:
+                  depth: Optional[int] = None, plain: bool = False) -> torch.Tensor:
     """K4: C (n_block_rows*b, F) f32 on the consecutive row-group layout.
 
     group_ptr (n_groups+1,) int64 points each group at its steps
-    (group_pointer at plan time). CPU tensors run spmm_rowgroup_plain;
-    CUDA tensors run the CUDA kernel, whose phantom lanes store nothing:
+    (group_pointer at plan time). CPU tensors, and any with plain=True,
+    run spmm_rowgroup_plain; CUDA tensors run the CUDA kernel, whose
+    phantom lanes store nothing:
     f32 operands the FFMA entry, bf16 the bf16 entry, as spmm_sorted, at
     the geometry of n_block_rows lanes; lane_order and depth as
     spmm_sorted's."""
     dev = _device_of(step_groups, group_ptr, slot_cols, blocks, dense)
-    if dev.type == "cpu":
+    if plain or dev.type == "cpu":
         return spmm_rowgroup_plain(step_groups, slot_cols, blocks, dense,
                                    n_block_rows, R, gh)
     check_cuda_operands(blocks, dense, {
@@ -1021,39 +1037,25 @@ def route_pallas_spmm(step_rows, slot_cols, blocks, dense, n_block_rows: int,
     walk: the port's extras of the bucket (pack_buckets_pallas): "ptr"
     (the step or group pointer over the real steps), "lane_order",
     "depth" and, for the sorted layout, "lane_valid". plain=True runs
-    the kernels' plain versions on any device; CPU tensors run them
-    anyway, CUDA tensors launch the kernel or raise."""
+    the kernels' plain versions on any device (the wrappers' choice)."""
     b = blocks.shape[1]
     bf16x3 = precision_name == "high" and dense.dtype == torch.float32
     if precision_name == "default":  # one bf16 pass on the bf16 entries
         dense = dense.to(torch.bfloat16)
-    order = {"lane_order": walk["lane_order"], "depth": walk["depth"]}
+    order = {"lane_order": walk["lane_order"], "depth": walk["depth"], "plain": plain}
     if isinstance(row_group, tuple) and row_group and row_group[0] == "sorted":
         _, R, gh, W = row_group
         T = step_rows.shape[0] // (1 + R)
-        args = (step_rows[:T], step_rows[T:], slot_cols, blocks, dense,
-                walk["lane_valid"], walk["ptr"], n_block_rows, R, gh, W)
-        out = (spmm_sorted_plain(*args, bf16x3=bf16x3) if plain
-               else spmm_sorted(*args, bf16x3=bf16x3, **order))
+        out = spmm_sorted(step_rows[:T], step_rows[T:], slot_cols, blocks, dense,
+                          walk["lane_valid"], walk["ptr"], n_block_rows, R, gh, W,
+                          bf16x3=bf16x3, **order)
     elif row_group:
-        if plain:
-            out = spmm_rowgroup_plain(step_rows, slot_cols, blocks, dense,
-                                      n_block_rows, row_group, group)
-        else:
-            out = spmm_rowgroup(step_rows, walk["ptr"], slot_cols, blocks, dense,
-                                n_block_rows, row_group, group, **order)
+        out = spmm_rowgroup(step_rows, walk["ptr"], slot_cols, blocks, dense,
+                            n_block_rows, row_group, group, **order)
     elif (dense.shape[0] % b == 0 and dense.dtype.itemsize == 2
           and precision_name is None):
-        dense3 = dense.reshape(-1, b, dense.shape[1])
-        if plain:
-            out = spmm_resident_plain(step_rows, slot_cols, blocks, dense3,
-                                      n_block_rows, group)
-        else:
-            out = spmm_resident(step_rows, walk["ptr"], slot_cols, blocks, dense3,
-                                group, **order)
-    elif plain:
-        out = spmm_flat_plain(step_rows, slot_cols, blocks, dense, n_block_rows,
-                              group, bf16x3)
+        out = spmm_resident(step_rows, walk["ptr"], slot_cols, blocks,
+                            dense.reshape(-1, b, dense.shape[1]), group, **order)
     else:
         out = spmm_flat(step_rows, walk["ptr"], slot_cols, blocks, dense, group,
                         bf16x3, **order)
@@ -1168,25 +1170,11 @@ def bsr_spmm_pallas_plan(
     rows_h = np.asarray(covered.block_rows[: covered.nnzb])
     cols_h = np.asarray(covered.block_cols[: covered.nnzb])
     blocks_h = np.asarray(covered.blocks[: covered.nnzb])
-    avg_real = bsr.nnzb / max(nbr, 1)
-    # 2-byte operands at the default precision: the JAX plan's resident
-    # regime (sorted or consecutive row groups, power-of-two groups)
-    resident_likely = itemsize == 2 and resident is not False and precision is None
-    group_was_auto = group is None
-    if group is None:
-        n_occupied = np.unique(rows_h).size
-        group = (_auto_group_pow2 if resident_likely else _auto_group)(
-            covered.nnzb, n_occupied
-        )
-    if depth_sort is None:
-        depth_sort = avg_real >= 2.0
-    wide_sorted = (itemsize == 4 and resident is not False
-                   and precision in (None, "high") and avg_real >= 8.0)
+    layout, group = _layout_gate(bsr.nnzb, covered.nnzb, nbr, itemsize, precision,
+                                 resident, depth_sort, group)
 
-    if depth_sort and (resident_likely or wide_sorted):
-        R, gh, W = _depth_sort_policy(
-            itemsize, None if group_was_auto else group
-        )
+    if layout == "sorted":
+        R, gh, W = _depth_sort_policy(itemsize, group)
         (win_ids, pos, slot_cols, blocks_pad, _, lane_valid,
          steps_per_group) = _pack_rowgroups_sorted(
             rows_h, cols_h, blocks_h, gh, R, W
@@ -1195,11 +1183,9 @@ def bsr_spmm_pallas_plan(
         order, depth = lane_order(group_ptr, R, gh)
         arrays = (win_ids, slot_cols, blocks_pad, pos, lane_valid, group_ptr,
                   order)
-        layout, geom = "sorted", (R, gh, W)
+        geom = (R, gh, W)
         slots = walked_slots(group_ptr, lane_valid, gh)
-    elif resident_likely:
-        if group_was_auto:
-            group = min(group, _ROWGROUP_GH_CAP)
+    elif layout == "rowgroup":
         R, _ = _rowgroup_policy(itemsize, group)
         step_groups, slot_cols, blocks_pad, n_groups = _pack_rowgroups(
             rows_h, cols_h, blocks_h, group, R
@@ -1207,7 +1193,7 @@ def bsr_spmm_pallas_plan(
         group_ptr = group_pointer(step_groups, n_groups)
         order, depth = lane_order(group_ptr, R, group)
         arrays = (step_groups, slot_cols, blocks_pad, group_ptr, order)
-        layout, geom = "rowgroup", (R, group)
+        geom = (R, group)
         slots = walked_slots(group_ptr, np.arange(n_groups * R) < nbr, group)
     else:
         step_rows, slot_cols, blocks_pad = _pack_groups(
@@ -1247,29 +1233,16 @@ def _pallas_apply(statics, arrays, dense, plain: bool = False):
         dense = torch.nn.functional.pad(dense, (0, 0, 0, k_needed - n_cols))
     dense = dense.contiguous()
     # the walk's CTA -> lane order and deepest lane: the exact-f32 entries'
-    walk = {"lane_order": arrays[-1], "depth": depth}
+    walk = {"lane_order": arrays[-1], "depth": depth, "plain": plain}
     if layout == "sorted":
         win_ids, slot_cols, _, pos, lane_valid, group_ptr, _ = arrays
-        if plain:
-            out = spmm_sorted_plain(win_ids, pos, slot_cols, blocks, dense,
-                                    lane_valid, group_ptr, nbr, *geom,
-                                    bf16x3=bf16x3)
-        else:
-            out = spmm_sorted(win_ids, pos, slot_cols, blocks, dense, lane_valid,
-                              group_ptr, nbr, *geom, bf16x3=bf16x3, **walk)
+        out = spmm_sorted(win_ids, pos, slot_cols, blocks, dense, lane_valid,
+                          group_ptr, nbr, *geom, bf16x3=bf16x3, **walk)
     elif layout == "rowgroup":
         step_groups, slot_cols, _, group_ptr, _ = arrays
-        if plain:
-            out = spmm_rowgroup_plain(step_groups, slot_cols, blocks, dense,
-                                      nbr, *geom)
-        else:
-            out = spmm_rowgroup(step_groups, group_ptr, slot_cols, blocks,
-                                dense, nbr, *geom, **walk)
-    elif plain:  # flat or resident: K1's packed arrays
-        step_rows, slot_cols = arrays[:2]
-        out = spmm_flat_plain(step_rows, slot_cols, blocks, dense, nbr, geom,
-                              bf16x3=bf16x3)
-    else:
+        out = spmm_rowgroup(step_groups, group_ptr, slot_cols, blocks,
+                            dense, nbr, *geom, **walk)
+    else:  # flat or resident: K1's packed arrays
         step_rows, slot_cols, _, step_ptr, _ = arrays
         out = spmm_flat(step_rows, step_ptr, slot_cols, blocks, dense, geom,
                         bf16x3=bf16x3, resident=layout == "resident", **walk)

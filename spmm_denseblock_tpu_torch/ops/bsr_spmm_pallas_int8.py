@@ -34,8 +34,9 @@ plain PyTorch version on the same packed arrays: the int8 products in
 f32 (exact: |q q| b <= 127^2 * 128 < 2^24), a group-scale lane sum in
 float64 (exact, as the int32 sum is), then the scales in f32; the
 quantization's is ``quantize_per_column`` with the pad, then
-``transpose_operand``. A wrapper runs the plain version only for CPU
-tensors; for CUDA tensors it launches the kernel or raises. Inference
+``transpose_operand``. The wrapper alone chooses between them: it
+runs the plain version for CPU tensors and where its caller passes
+plain=True, and otherwise launches the kernel or raises. Inference
 only.
 
 Layout policy: the JAX plan's gate without the TPU's VMEM fit checks,
@@ -54,7 +55,7 @@ import torch
 from spmm_denseblock_tpu_torch.convert.pack import round_up
 from spmm_denseblock_tpu_torch.formats.bsr import BSR
 from spmm_denseblock_tpu_torch.ops import _kernels
-from spmm_denseblock_tpu_torch.ops._device import resolve_device
+from spmm_denseblock_tpu_torch.ops._device import _device_of, _sm_count, resolve_device
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_int8 import (
     quantize_blocks,
     quantize_per_column,
@@ -65,7 +66,6 @@ from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import (
     _ROWGROUP_GH_CAP,
     _auto_group_pow2,
     _depth_sort_policy,
-    _device_of,
     _ensure_covering,
     _flat_view,
     _pack_groups,
@@ -74,7 +74,6 @@ from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import (
     _rowgroup_policy,
     _lane_order_arg,
     _small_bn,
-    _sm_count,
     check_cuda_operands,
     check_rowgroup_geometry,
     group_pointer,
@@ -212,17 +211,18 @@ def _operand_view(qdense, qdense_t):
 def spmm_int8_flat(step_rows, step_ptr, slot_cols, qblocks, scales, qdense,
                    col_scale, group: int, resident: bool = False,
                    qdense_t=None, lane_order=None,
-                   depth: Optional[int] = None) -> torch.Tensor:
+                   depth: Optional[int] = None, plain: bool = False) -> torch.Tensor:
     """K6: C (n_block_rows*b, F) f32 on the flat layout, per-slot scales
     (S,). step_ptr (n_block_rows+1,) int64 points each block-row at its
-    steps. qdense, qdense_t, lane_order and depth as for spmm_int8_sorted.
-    resident=True launches the same kernels through K9's entry
-    (``spmm_int8_resident``). CPU tensors run spmm_int8_flat_plain."""
+    steps. qdense, qdense_t, lane_order, depth and plain as for
+    spmm_int8_sorted. resident=True launches the same kernels through
+    K9's entry (``spmm_int8_resident``). CPU tensors, and any with
+    plain=True, run spmm_int8_flat_plain."""
     op = _operand_view(qdense, qdense_t)
     dev = _device_of(step_rows, step_ptr, slot_cols, qblocks, scales, op,
                      col_scale)
     n_block_rows = step_ptr.shape[0] - 1
-    if dev.type == "cpu":
+    if plain or dev.type == "cpu":
         return spmm_int8_flat_plain(step_rows, slot_cols, qblocks, scales,
                                     op, col_scale, n_block_rows, group)
     _check_int8_operands(qblocks, op, scales, qblocks.shape[0], col_scale, {
@@ -247,14 +247,22 @@ def spmm_int8_flat(step_rows, step_ptr, slot_cols, qblocks, scales, qdense,
 
 def spmm_int8_resident(step_rows, step_ptr, slot_cols, qblocks, scales,
                        qdense3, col_scale, group: int, qdense_t=None,
-                       lane_order=None, depth: Optional[int] = None) -> torch.Tensor:
+                       lane_order=None, depth: Optional[int] = None,
+                       plain: bool = False) -> torch.Tensor:
     """K9: C (n_block_rows*b, F) f32 on K6's packed arrays with the
     operand qdense3 viewed as (nbc, b, F) (or None, with qdense_t its
     (F, nbc*b) transpose). On the TPU the layout keeps the whole operand
     slice in VMEM; on the card nothing is kept resident, and K9's entry
-    runs K6's CTA walk on the (nbc*b, F) view. CPU tensors run
-    spmm_int8_resident_plain."""
-    qdense = None if qdense3 is None else _flat_view(qdense3, qblocks.shape[1])
+    runs K6's CTA walk on the (nbc*b, F) view. CPU tensors, and any with
+    plain=True, run spmm_int8_resident_plain."""
+    b = qblocks.shape[1]
+    qdense = None if qdense3 is None else _flat_view(qdense3, b)
+    op = _operand_view(qdense, qdense_t)
+    if plain or _device_of(step_rows, step_ptr, slot_cols, qblocks, scales, op,
+                           col_scale).type == "cpu":
+        return spmm_int8_resident_plain(step_rows, slot_cols, qblocks, scales,
+                                        op.reshape(-1, b, op.shape[1]), col_scale,
+                                        step_ptr.shape[0] - 1, group)
     return spmm_int8_flat(step_rows, step_ptr, slot_cols, qblocks, scales,
                           qdense, col_scale, group, resident=True,
                           qdense_t=qdense_t, lane_order=lane_order, depth=depth)
@@ -332,7 +340,7 @@ def spmm_int8_sorted(win_ids, pos, slot_cols, qblocks, scales, qdense,
                      col_scale, lane_valid, group_ptr, n_block_rows: int,
                      R: int, gh: int, window: int, group_scale: bool,
                      qdense_t=None, lane_order=None,
-                     depth: Optional[int] = None) -> torch.Tensor:
+                     depth: Optional[int] = None, plain: bool = False) -> torch.Tensor:
     """K7: C (n_block_rows*b, F) f32 on the depth-sorted layout. scales:
     (T*R,) one per lane-step with group_scale (int32 lane sums), else
     (T*G,) one per slot. qdense may have any strides. The kernels (the
@@ -340,11 +348,13 @@ def spmm_int8_sorted(win_ids, pos, slot_cols, qblocks, scales, qdense,
     and 32) read transpose_operand(qdense), or qdense_t where the caller
     made it already (qdense may then be None). lane_order (n_groups*R,)
     int32 and depth, the plan's (``lane_order``), are read at b = 16 and
-    32, which needs them. CPU tensors run spmm_int8_sorted_plain."""
+    32, which needs them. CPU tensors, and any with plain=True, run
+    spmm_int8_sorted_plain on the operand (qdense, else qdense_t's
+    transposed view)."""
     op = _operand_view(qdense, qdense_t)
     dev = _device_of(win_ids, pos, slot_cols, qblocks, scales, op,
                      col_scale, lane_valid, group_ptr)
-    if dev.type == "cpu":
+    if plain or dev.type == "cpu":
         return spmm_int8_sorted_plain(
             win_ids, pos, slot_cols, qblocks, scales, op, col_scale,
             lane_valid, group_ptr, n_block_rows, R, gh, window, group_scale)
@@ -380,15 +390,16 @@ def spmm_int8_sorted(win_ids, pos, slot_cols, qblocks, scales, qdense,
 def spmm_int8_rowgroup(step_groups, group_ptr, slot_cols, qblocks, scales,
                        qdense, col_scale, n_block_rows: int, R: int,
                        gh: int, qdense_t=None, lane_order=None,
-                       depth: Optional[int] = None) -> torch.Tensor:
+                       depth: Optional[int] = None, plain: bool = False) -> torch.Tensor:
     """K8: C (n_block_rows*b, F) f32 on the consecutive row-group layout,
     per-slot scales (T*G,). Phantom lanes store nothing. qdense,
-    qdense_t, lane_order (n_groups*R,) and depth as for spmm_int8_sorted.
-    CPU tensors run spmm_int8_rowgroup_plain."""
+    qdense_t, lane_order (n_groups*R,), depth and plain as for
+    spmm_int8_sorted. CPU tensors, and any with plain=True, run
+    spmm_int8_rowgroup_plain."""
     op = _operand_view(qdense, qdense_t)
     dev = _device_of(step_groups, group_ptr, slot_cols, qblocks, scales,
                      op, col_scale)
-    if dev.type == "cpu":
+    if plain or dev.type == "cpu":
         return spmm_int8_rowgroup_plain(step_groups, slot_cols, qblocks,
                                         scales, op, col_scale,
                                         n_block_rows, R, gh)
@@ -428,28 +439,19 @@ def route_pallas_int8_spmm(step_rows, slot_cols, qblocks, scales, qdense,
     0 runs K6, the flat gather (single-row residency is a measured
     negative for int8 in the JAX package, so the router never picks K9).
     walk and plain as for route_pallas_spmm."""
-    order = {"lane_order": walk["lane_order"], "depth": walk["depth"]}
+    order = {"lane_order": walk["lane_order"], "depth": walk["depth"], "plain": plain}
     if (isinstance(row_group, tuple) and row_group
             and row_group[0] in ("sorted", "sorted_gs")):
         tag, R, gh, W = row_group
         T = step_rows.shape[0] // (1 + R)
-        args = (step_rows[:T], step_rows[T:], slot_cols, qblocks, scales,
-                qdense, col_scale, walk["lane_valid"], walk["ptr"],
-                n_block_rows, R, gh, W, tag == "sorted_gs")
-        out = (spmm_int8_sorted_plain(*args) if plain
-               else spmm_int8_sorted(*args, **order))
+        out = spmm_int8_sorted(step_rows[:T], step_rows[T:], slot_cols, qblocks,
+                               scales, qdense, col_scale, walk["lane_valid"],
+                               walk["ptr"], n_block_rows, R, gh, W,
+                               tag == "sorted_gs", **order)
     elif row_group:
-        if plain:
-            out = spmm_int8_rowgroup_plain(step_rows, slot_cols, qblocks, scales,
-                                           qdense, col_scale, n_block_rows,
-                                           row_group, group)
-        else:
-            out = spmm_int8_rowgroup(step_rows, walk["ptr"], slot_cols, qblocks,
-                                     scales, qdense, col_scale, n_block_rows,
-                                     row_group, group, **order)
-    elif plain:
-        out = spmm_int8_flat_plain(step_rows, slot_cols, qblocks, scales, qdense,
-                                   col_scale, n_block_rows, group)
+        out = spmm_int8_rowgroup(step_rows, walk["ptr"], slot_cols, qblocks,
+                                 scales, qdense, col_scale, n_block_rows,
+                                 row_group, group, **order)
     else:
         out = spmm_int8_flat(step_rows, walk["ptr"], slot_cols, qblocks, scales,
                              qdense, col_scale, group, **order)
@@ -470,17 +472,18 @@ def quantize_int8_plain(dense, n_out: int, col_scale=None,
     return (transpose_operand(q) if transposed else q.contiguous()), cs.contiguous()
 
 
-def quantize_int8(dense, n_out: int, col_scale=None, transposed: bool = False):
+def quantize_int8(dense, n_out: int, col_scale=None, transposed: bool = False,
+                  plain: bool = False):
     """The int8 kernels' operand from the f32 dense (n_rows, F): n_out >=
     n_rows rows (rows past n_rows are zeros) quantized per column with
     the static scales col_scale (F,), or with this operand's own (None),
     as (F, n_out) contiguous and 16-byte aligned with transposed (the
     ring's operand) or (n_out, F). Returns (q int8, col_scale f32: the
-    static scales themselves, or new ones). CPU tensors run
-    quantize_int8_plain; CUDA tensors launch quantize_int8_kernel (with
-    col_absmax_kernel first for dynamic scales), bit-equal to it, NaN
-    and +-Inf entries included."""
-    if dense.device.type == "cpu":
+    static scales themselves, or new ones). CPU tensors, and any with
+    plain=True, run quantize_int8_plain; CUDA tensors launch
+    quantize_int8_kernel (with col_absmax_kernel first for dynamic
+    scales), bit-equal to it, NaN and +-Inf entries included."""
+    if plain or dense.device.type == "cpu":
         return quantize_int8_plain(dense, n_out, col_scale, transposed)
     if dense.dtype != torch.float32 or dense.dim() != 2:
         raise TypeError(f"quantize_int8 takes a 2-D f32 operand, got dtype "
@@ -671,55 +674,35 @@ def _quantize(statics, arrays, dense, transposed: bool = False,
     if dense.dim() != 2 or dense.shape[0] != n_cols:
         raise ValueError(f"dense must be ({n_cols}, F), got {tuple(dense.shape)}")
     _check_f_tile(statics, dense.shape[1])  # before any launch
-    quantize = quantize_int8_plain if plain else quantize_int8
-    return quantize(dense, k_needed, arrays[-1] if calibrated else None,
-                    transposed)
+    return quantize_int8(dense, k_needed, arrays[-1] if calibrated else None,
+                         transposed, plain=plain)
 
 
 def _run(statics, arrays, qdense, col_scale, plain: bool, qdense_t=None):
     layout, nbr, n_rows, _, _, geom, depth, _ = statics
-    if plain:
-        qdense, qdense_t = _operand_view(qdense, qdense_t), None
     n_layout = 7 if layout == "sorted" else 5  # the lane order follows
     # the walk's CTA -> lane order and deepest lane (read at b = 16 and 32)
-    walk = {"qdense_t": qdense_t, "lane_order": arrays[n_layout], "depth": depth}
+    walk = {"qdense_t": qdense_t, "lane_order": arrays[n_layout], "depth": depth,
+            "plain": plain}
     if layout == "sorted":
         win_ids, slot_cols, qblocks, scales, pos, lane_valid, group_ptr = arrays[:7]
-        args = (win_ids, pos, slot_cols, qblocks, scales, qdense, col_scale,
-                lane_valid, group_ptr, nbr, *geom)
-        out = (spmm_int8_sorted_plain(*args) if plain
-               else spmm_int8_sorted(*args, **walk))
+        out = spmm_int8_sorted(win_ids, pos, slot_cols, qblocks, scales, qdense,
+                               col_scale, lane_valid, group_ptr, nbr, *geom, **walk)
     elif layout == "rowgroup":
         step_groups, slot_cols, qblocks, scales, group_ptr = arrays[:5]
-        if plain:
-            out = spmm_int8_rowgroup_plain(step_groups, slot_cols, qblocks,
-                                           scales, qdense, col_scale, nbr,
-                                           *geom)
-        else:
-            out = spmm_int8_rowgroup(step_groups, group_ptr, slot_cols,
-                                     qblocks, scales, qdense, col_scale, nbr,
-                                     *geom, **walk)
+        out = spmm_int8_rowgroup(step_groups, group_ptr, slot_cols, qblocks, scales,
+                                 qdense, col_scale, nbr, *geom, **walk)
     elif layout == "resident":
         step_rows, slot_cols, qblocks, scales, step_ptr = arrays[:5]
-        group = geom[0]
         F = _operand_view(qdense, qdense_t).shape[1]
         _check_f_tile(statics, F)
         qdense3 = None if qdense is None else qdense.reshape(-1, qblocks.shape[1], F)
-        if plain:
-            out = spmm_int8_resident_plain(step_rows, slot_cols, qblocks,
-                                           scales, qdense3, col_scale, nbr,
-                                           group)
-        else:
-            out = spmm_int8_resident(step_rows, step_ptr, slot_cols, qblocks,
-                                     scales, qdense3, col_scale, group, **walk)
+        out = spmm_int8_resident(step_rows, step_ptr, slot_cols, qblocks, scales,
+                                 qdense3, col_scale, geom[0], **walk)
     else:
         step_rows, slot_cols, qblocks, scales, step_ptr = arrays[:5]
-        if plain:
-            out = spmm_int8_flat_plain(step_rows, slot_cols, qblocks, scales,
-                                       qdense, col_scale, nbr, geom)
-        else:
-            out = spmm_int8_flat(step_rows, step_ptr, slot_cols, qblocks,
-                                 scales, qdense, col_scale, geom, **walk)
+        out = spmm_int8_flat(step_rows, step_ptr, slot_cols, qblocks, scales,
+                             qdense, col_scale, geom, **walk)
     return out[:n_rows]
 
 

@@ -52,23 +52,21 @@ import torch
 from spmm_denseblock_tpu_torch import native
 from spmm_denseblock_tpu_torch.formats.csr import CSR
 from spmm_denseblock_tpu_torch.ops import _kernels
-from spmm_denseblock_tpu_torch.ops._device import resolve_device
-from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import _device_of
+from spmm_denseblock_tpu_torch.ops._device import (
+    _device_of,
+    _l2_bytes,
+    check_arrays,
+    resolve_device,
+    runs_f32_kernels,
+)
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_int8 import (
     dtype_name,
     reject_grad_request,
     reject_int8_cast,
     static_col_scale,
 )
-from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8 import (
-    quantize_int8,
-    quantize_int8_plain,
-)
-from spmm_denseblock_tpu_torch.ops.csr_spmm_pallas import (
-    _l2_bytes,
-    equal_strip_width,
-    row_segments,
-)
+from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8 import quantize_int8
+from spmm_denseblock_tpu_torch.ops.csr_spmm_pallas import equal_strip_width, row_segments
 from spmm_denseblock_tpu_torch.ops.plan import Plan, grad_plan
 from spmm_denseblock_tpu_torch.reorder.simple import _ragged_arange
 from spmm_denseblock_tpu_torch.utils import profiling
@@ -391,16 +389,11 @@ def spmm_ell(cols, vals, seg_start, seg_end, seg_dest, split_row, part_ptr,
     dev = _device_of(cols, *valued, *seg, *delta, dense)
     if dev.type != "cuda":
         raise ValueError(f"sdb_ell_spmm runs on CUDA tensors, got {dev}")
-    named = [("cols", cols, torch.int32), ("dense", dense, torch.float32)]
-    named += [("vals", t, torch.float32) for t in valued]
-    named += [(n, t, torch.int64) for n, t in zip(
-        ("seg_start", "seg_end", "seg_dest", "split_row", "part_ptr", "seg_delta"),
-        seg + delta)]
-    for name, t, dtype in named:
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got dtype {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("CUDA kernel operands must be contiguous")
+    check_arrays([("cols", cols, torch.int32), ("dense", dense, torch.float32)]
+                 + [("vals", t, torch.float32) for t in valued]
+                 + [(n, t, torch.int64) for n, t in zip(
+                     ("seg_start", "seg_end", "seg_dest", "split_row", "part_ptr",
+                      "seg_delta"), seg + delta)])
     if dense.dim() != 2:
         raise ValueError(f"dense must be (K, F), got {tuple(dense.shape)}")
     F = dense.shape[1]
@@ -620,7 +613,7 @@ def csr_spmm_ell_plan(csr: CSR, grad: bool = True, dtype=None,
     flat_layout = tuple((m, K, mode, band, False) for m, K, mode, band, _ in layout)
     statics = (csr.shape, flat_layout, has_vals, dtype_key, int(segments[4][-1]),
                per_call)
-    on_kernel = device.type == "cuda" and itemsize == 4
+    on_kernel = runs_f32_kernels(device, itemsize)
     return Plan(arrays, _ell_apply, statics, device=device, name="csr_ell",
                 nnz=csr.nnz, positions=csr.nnz if on_kernel else _slots(layout),
                 call_values=per_call)
@@ -743,10 +736,9 @@ def _ell_int8_apply(statics, arrays, dense, plain: bool = False):
     if not layout:  # no rows
         return torch.zeros(n_rows, dense.shape[1], dtype=torch.float32,
                            device=dense.device)
-    quantize = quantize_int8_plain if plain else quantize_int8
     # pattern-only layouts read a zero row at n_cols: the quantizer's pad
-    q, col_scale = quantize(dense, n_cols + (0 if has_vals else 1),
-                            arrays[-1] if calibrated else None)
+    q, col_scale = quantize_int8(dense, n_cols + (0 if has_vals else 1),
+                                 arrays[-1] if calibrated else None, plain=plain)
     cat, _ = _run_chunks(arrays, 1, q, layout, has_vals, 0)
     return cat.index_select(0, positions) * col_scale[None, :]
 

@@ -41,13 +41,13 @@ chunk_band * R + local_row, the TPU kernel's selector written as an
 rounds once to f32: a CSR row sums up to thousands of terms one by one,
 and two f32 sums of them in different orders (the kernel's, and the
 atomics' order of ``index_add_`` on the card) differ by more than the
-kernel's own rounding. A wrapper runs the plain version only for CPU
-tensors; for CUDA tensors it launches the kernel or raises.
+kernel's own rounding. The wrapper alone chooses between them: it
+runs the plain version for CPU tensors and where its caller passes
+plain=True, and otherwise launches the kernel or raises.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import numpy as np
@@ -55,8 +55,12 @@ import torch
 
 from spmm_denseblock_tpu_torch.formats.csr import CSR
 from spmm_denseblock_tpu_torch.ops import _kernels
-from spmm_denseblock_tpu_torch.ops._device import resolve_device
-from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import _device_of
+from spmm_denseblock_tpu_torch.ops._device import (
+    _device_of,
+    _l2_bytes,
+    check_arrays,
+    resolve_device,
+)
 from spmm_denseblock_tpu_torch.ops.plan import Plan, grad_plan
 
 # -- host packing (verbatim port, bit-equal to the JAX package) ------------
@@ -203,12 +207,6 @@ def equal_strip_width(K: int, F: int, l2_bytes: int, itemsize: int, share: float
     return -(-F // (n_strips * unit)) * unit
 
 
-@functools.lru_cache(maxsize=None)
-def _l2_bytes(index: int) -> int:
-    """The card's L2 size (cudaDevAttrL2CacheSize, as torch reports it)."""
-    return torch.cuda.get_device_properties(index).L2_cache_size
-
-
 # -- the plain PyTorch version and the kernel wrapper ----------------------
 
 _PLAIN_SPAN_SLOTS = 1 << 22  # padded slots per span of the plain version
@@ -246,19 +244,19 @@ def spmm_csr_segment_plain(cols_pad, local_rows, vals, chunk_band, row_ptr,
 
 def spmm_csr_segment(cols_pad, local_rows, vals, chunk_band, row_ptr,
                      seg_start, seg_end, seg_dest, split_row, part_ptr,
-                     dense, R: int, n_partials: int) -> torch.Tensor:
+                     dense, R: int, n_partials: int, plain: bool = False) -> torch.Tensor:
     """K10: C (n_rows, F) f32 = A @ dense on the band layout. The kernel
     walks the segments of row_ptr's spans (row_segments) over cols_pad
     and vals, n_partials = part_ptr[-1] partial rows for the split rows
     (local_rows and chunk_band are the plain version's). vals and dense
     are both f32 (sdb_csr_spmm, in strips of csr_strip_width's width) or
     both bf16 (one bf16 pass, sdb_csr_spmm_bf16, in strips of
-    csr_bf16_strip_width's). CPU tensors run spmm_csr_segment_plain; CUDA
-    tensors run the CUDA kernel."""
+    csr_bf16_strip_width's). CPU tensors, and any with plain=True, run
+    spmm_csr_segment_plain; CUDA tensors run the CUDA kernel."""
     seg = (seg_start, seg_end, seg_dest, split_row, part_ptr)
     dev = _device_of(cols_pad, local_rows, vals, chunk_band, row_ptr, *seg,
                      dense)
-    if dev.type == "cpu":
+    if plain or dev.type == "cpu":
         return spmm_csr_segment_plain(cols_pad, local_rows, vals, chunk_band,
                                       row_ptr, *seg, dense, R, n_partials)
     check_csr_operands(cols_pad, vals, seg, dense)
@@ -289,15 +287,10 @@ def check_csr_operands(cols_pad, vals, seg, dense) -> None:
     row_segments, all contiguous."""
     if dense.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dense must be float32 or bfloat16, got dtype {dense.dtype}")
-    named = [("cols_pad", cols_pad, torch.int32), ("vals", vals, dense.dtype),
-             ("dense", dense, dense.dtype)]
-    named += [(n, t, torch.int64) for n, t in zip(
-        ("seg_start", "seg_end", "seg_dest", "split_row", "part_ptr"), seg)]
-    for name, t, dtype in named:
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got dtype {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("CUDA kernel operands must be contiguous")
+    check_arrays([("cols_pad", cols_pad, torch.int32), ("vals", vals, dense.dtype),
+                  ("dense", dense, dense.dtype)]
+                 + [(n, t, torch.int64) for n, t in zip(
+                     ("seg_start", "seg_end", "seg_dest", "split_row", "part_ptr"), seg)])
     if dense.dim() != 2:
         raise ValueError(f"dense must be (K, F), got {tuple(dense.shape)}")
     if cols_pad.numel() != vals.numel():
@@ -367,8 +360,7 @@ def _csr_pallas_apply(statics, arrays, dense, plain: bool = False):
         raise ValueError(f"dense must be ({n_cols}, F), got {tuple(dense.shape)}")
     # the operand in the values' type: a "default" plan rounds it here, once
     dense = dense.to(vals.dtype).contiguous()
-    fn = spmm_csr_segment_plain if plain else spmm_csr_segment
-    return fn(*arrays, dense, R, n_partials)
+    return spmm_csr_segment(*arrays, dense, R, n_partials, plain=plain)
 
 
 def csr_spmm_pallas(csr: CSR, dense, **kw) -> torch.Tensor:

@@ -38,6 +38,7 @@ fastest plan and every candidate's ms or error.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, Dict
 
 import numpy as np
@@ -46,8 +47,8 @@ import torch
 from spmm_denseblock_tpu_torch.analyze.metrics import calculate_nnzb
 from spmm_denseblock_tpu_torch.convert.csr2bsr import bsr_to_csr, csr_to_bsr
 from spmm_denseblock_tpu_torch.convert.divide import (
-    KernelPrices,
     auto_threshold,
+    block_counts,
     divide,
     score_thresholds,
 )
@@ -56,9 +57,13 @@ from spmm_denseblock_tpu_torch.formats.bsr import BSR
 from spmm_denseblock_tpu_torch.formats.csr import CSR
 from spmm_denseblock_tpu_torch.formats.hybrid import Hybrid
 from spmm_denseblock_tpu_torch.formats.windowed import Windowed, divide_windowed
-from spmm_denseblock_tpu_torch.ops._device import resolve_device
+from spmm_denseblock_tpu_torch.ops._device import resolve_device, runs_f32_kernels
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_int8 import bsr_spmm_int8_plan, dtype_name
-from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import bsr_spmm_pallas_plan
+from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import (
+    MAX_BN,
+    bsr_spmm_pallas_plan,
+    f32_walk,
+)
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8 import bsr_spmm_pallas_int8_plan
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_xla import bsr_spmm_xla_plan
 from spmm_denseblock_tpu_torch.ops.csr_spmm import bcoo_spmm_plan, csr_spmm_plan
@@ -97,7 +102,7 @@ _THRESHOLDS = (0.015, 0.02, 0.03, 0.05)
 # the tier whose plans take A's values with each call (values="call")
 CALL_VALUE_TIER = "csr_ell"
 
-# -- the scored branch's prices (score_thresholds): two sets, by route_pricing
+# -- the scored branch's prices: two sets, by route_pricing
 # padded pricing, the JAX package's TPU v5e fit, for every plan that walks
 # padded ELL slots through torch ops (the CPU, bf16, int8): a dense block is
 # worth PADDED_SLOTS_PER_BLOCK slots, or PADDED_SLOTS_PER_BLOCK_BIG_TABLE on
@@ -118,6 +123,44 @@ KERNEL_NS_PER_ROW = 6.9e-3
 KERNEL_NS_PER_BLOCK_MAC = 5.9e-5
 KERNEL_NS_PER_LANE_MAC = 6.75e-3
 KERNEL_NS_PER_HYBRID_BYTE = 4.07e-4
+
+
+@dataclass(frozen=True)
+class KernelPrices:
+    """What an f32 plan costs on the card, in ns at operand width
+    feat_dim. The ELL kernel (sdb_ell_spmm) reads each stored entry once
+    and no pad, and does some work a row. The hybrid's dense part runs
+    K1 (K2 on rows of >= 8 blocks) over its walked slots, covering zero
+    blocks included: the walk's throughput, or its deepest lane, whose
+    slots one CTA multiplies one after another on a tile of at most
+    MAX_BN columns, whichever takes longer. A hybrid call adds the pad
+    of the operand to the block grid and the sum of its two parts,
+    priced by their bytes."""
+
+    ns_per_entry: float  # the ELL kernel: a stored entry, an operand column
+    ns_per_row: float  # the ELL kernel: a row, an operand column
+    ns_per_block_mac: float  # K1's walk: a slot's b² multiply-adds, a column
+    ns_per_lane_mac: float  # K1's deepest lane: a slot's multiply-adds, a column
+    ns_per_hybrid_byte: float  # the pad's and the sum's bytes
+    feat_dim: int
+
+    def ell(self, nnz: int, n_rows: int) -> float:
+        return (self.ns_per_entry * nnz + self.ns_per_row * n_rows) * self.feat_dim
+
+    def hybrid(self, rem_nnz: int, walked: int, depth: int, b: int, n_rows: int,
+               n_cols: int) -> float:
+        """The remainder's ELL, K1 over `walked` slots of b x b whose
+        deepest lane holds `depth`, the pad (a copy of the operand to the
+        block grid, when it is not on it) and the sum (two parts read,
+        one written)."""
+        F = self.feat_dim
+        dense = max(self.ns_per_block_mac * b * b * walked * F,
+                    self.ns_per_lane_mac * b * b * depth * min(F, MAX_BN))
+        k_needed = -(-n_cols // b) * b
+        pad_bytes = 4 * F * (n_cols + k_needed) if k_needed > n_cols else 0
+        sum_bytes = 12 * F * n_rows if rem_nnz else 0  # no remainder: no sum
+        return (self.ell(rem_nnz, n_rows) + dense
+                + self.ns_per_hybrid_byte * (pad_bytes + sum_bytes))
 
 
 def _dense_apply(statics, arrays, dense, plain: bool = False):
@@ -186,16 +229,45 @@ def _itemsize(dtype) -> int:
 def route_pricing(device, dtype) -> str:
     """How "auto"'s scorer prices a plan on `device` (None: the card, as
     spmm_plan takes it) in `dtype`: "kernel" where the plan runs the f32
-    kernels (a CUDA device, an f32 operand), else "padded"."""
-    device = torch.device("cuda" if device is None else device)
-    return "kernel" if device.type == "cuda" and _itemsize(dtype) == 4 else "padded"
+    kernels (runs_f32_kernels), else "padded"."""
+    return "kernel" if runs_f32_kernels(device, _itemsize(dtype)) else "padded"
 
 
-def _kernel_prices(feat_dim) -> KernelPrices:
-    """The card's f32 prices at the plan's operand width (None: 256)."""
-    return KernelPrices(KERNEL_NS_PER_ENTRY, KERNEL_NS_PER_ROW, KERNEL_NS_PER_BLOCK_MAC,
-                        KERNEL_NS_PER_LANE_MAC, KERNEL_NS_PER_HYBRID_BYTE,
-                        feat_dim=256 if feat_dim is None else feat_dim)
+def _score_by_kernels(csr: CSR, block_size: int, candidates, feat_dim,
+                      dense_bytes_budget: int, margin: float = 0.02):
+    """score_thresholds at kernel pricing: score(thr) is the ns of the f32
+    kernels' call at the plan's operand width (None: 256), KernelPrices.ell
+    for pure ELL, .hybrid over the remainder's stored entries and the
+    dense part's walk (f32_walk); the report gives walked_slots, depth
+    and remainder_nnz in place of padded_slots."""
+    prices = KernelPrices(KERNEL_NS_PER_ENTRY, KERNEL_NS_PER_ROW, KERNEL_NS_PER_BLOCK_MAC,
+                          KERNEL_NS_PER_LANE_MAC, KERNEL_NS_PER_HYBRID_BYTE,
+                          feat_dim=256 if feat_dim is None else feat_dim)
+    b = block_size
+    n_rows, n_cols = csr.shape
+    _, uniq, _, counts = block_counts(csr, b)
+    block_rows = uniq // -(-n_cols // b)
+    occupancy = counts.astype(np.float64) / (b * b)
+    report = []
+    best_thr, best_score = None, float("inf")
+    for thr in [None] + sorted(set(candidates)):
+        dense = np.zeros(uniq.shape[0], bool) if thr is None else occupancy >= thr
+        nnzb = int(dense.sum())
+        if nnzb * b * b * 4 > dense_bytes_budget:  # f32 blocks
+            report.append({"thr": thr, "nnzb": nnzb, "score": None,
+                           "reason": "over dense-bytes budget"})
+            continue
+        rem_nnz = csr.nnz - int(counts[dense].sum())
+        walked, depth = f32_walk(block_rows[dense], -(-n_rows // b)) if nnzb else (0, 0)
+        score = (prices.hybrid(rem_nnz, walked, depth, b, n_rows, n_cols) if nnzb
+                 else prices.ell(rem_nnz, n_rows))
+        report.append({"thr": thr, "nnzb": nnzb, "walked_slots": walked,
+                       "depth": depth, "remainder_nnz": rem_nnz, "score": float(score)})
+        if score < best_score:
+            best_thr, best_score = thr, score
+    if best_thr is not None and best_score > report[0]["score"] * (1.0 - margin):
+        best_thr = None
+    return best_thr, report
 
 
 def _route_costs(report, thr) -> dict:
@@ -272,16 +344,18 @@ def _auto_impl(matrix, block_size: int, feat_dim, kw: dict, tune_with=None):
         return "csr_ell", matrix, None, None
     if block_bytes <= budget:
         return impl, matrix, None, None
-    big_table = matrix.n_cols >= SCAN_MIN_SOURCE_ROWS
-    kernel = route_pricing(kw.get("device"), kw.get("dtype")) == "kernel"
-    best_thr, report = score_thresholds(
-        matrix, block_size,
-        candidates={*_THRESHOLDS, auto_threshold(matrix, block_size)},
-        slots_per_block=(PADDED_SLOTS_PER_BLOCK_BIG_TABLE if big_table
-                         else PADDED_SLOTS_PER_BLOCK),
-        dense_bytes_budget=budget // 4, dtype_bytes=_itemsize(kw.get("dtype")),
-        prices=_kernel_prices(feat_dim) if kernel else None,
-    )
+    candidates = {*_THRESHOLDS, auto_threshold(matrix, block_size)}
+    if route_pricing(kw.get("device"), kw.get("dtype")) == "kernel":
+        best_thr, report = _score_by_kernels(matrix, block_size, candidates, feat_dim,
+                                             budget // 4)
+    else:
+        big_table = matrix.n_cols >= SCAN_MIN_SOURCE_ROWS
+        best_thr, report = score_thresholds(
+            matrix, block_size, candidates=candidates,
+            slots_per_block=(PADDED_SLOTS_PER_BLOCK_BIG_TABLE if big_table
+                             else PADDED_SLOTS_PER_BLOCK),
+            dense_bytes_budget=budget // 4, dtype_bytes=_itemsize(kw.get("dtype")),
+        )
     finalists = None if tune_with is None else _thin_margin_finalists(report)
     if finalists is not None:
         # the scorer's prices are fits: on a thin margin, measure the

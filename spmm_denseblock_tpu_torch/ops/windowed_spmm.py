@@ -32,10 +32,7 @@ from spmm_denseblock_tpu_torch.ops.bsr_spmm_int8 import (
     reject_int8_cast,
     static_col_scale,
 )
-from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8 import (
-    quantize_int8,
-    quantize_int8_plain,
-)
+from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8 import quantize_int8
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_xla import bsr_spmm_xla_plan
 from spmm_denseblock_tpu_torch.ops.csr_spmm_ell import _operand, csr_spmm_ell_plan
 from spmm_denseblock_tpu_torch.ops.plan import Plan, sum_plan
@@ -144,9 +141,9 @@ def _windowed_int8_apply(statics, arrays, dense, plain: bool = False):
     n_rows, n_cols, k_padded, W, calibrated = statics
     q_tiles, sc, win_idx = arrays[:3]
     dense = _operand(dense, n_cols, q_tiles.device, None)
-    quantize = quantize_int8_plain if plain else quantize_int8
     # zero rows up to the window grid, quantized with the operand
-    qd, col_scale = quantize(dense, k_padded, arrays[3] if calibrated else None)
+    qd, col_scale = quantize_int8(dense, k_padded, arrays[3] if calibrated else None,
+                                  plain=plain)
     F = qd.shape[1]
     wins = qd.reshape(k_padded // W, W, F)[win_idx.long()]  # (T, K, W, F) int8
     prod = int8_window_products(q_tiles, wins)

@@ -57,7 +57,6 @@ from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas import (
 )
 from spmm_denseblock_tpu_torch.ops.bsr_spmm_pallas_int8 import (
     quantize_int8,
-    quantize_int8_plain,
     route_pallas_int8_spmm,
 )
 from spmm_denseblock_tpu_torch.ops.plan import Plan, run, sum_plan
@@ -149,9 +148,7 @@ def _quantize_stripe(info: DistInfo, x: torch.Tensor, cs, plain: bool):
     """(q (chunk, fs) int8, col_scale (fs,)) of the rank's f32 stripe:
     one quantize_int8 launch on the card (its plain version on the CPU or
     with plain), with the global scales."""
-    scale = _column_scales(info, x, cs)
-    quantize = quantize_int8_plain if plain else quantize_int8
-    return quantize(x, x.shape[0], scale)
+    return quantize_int8(x, x.shape[0], _column_scales(info, x, cs), plain=plain)
 
 
 def _dist_bsr_apply(statics, arrays, dense, plain: bool = False):

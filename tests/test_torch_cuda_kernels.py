@@ -15,7 +15,8 @@ groups) and K9 (single-row resident), all four on the int8 tensor cores
 and column strips; f32, and bf16 at precision="default") and the f32
 ELL tier's kernel (sdb_ell_spmm) against their plain PyTorch versions
 on the card,
-their launch counters, the wrappers' refusals, grad plans' backward on
+their launch counters (none under run(plan, x, plain=True)), the
+wrappers' refusals, grad plans' backward on
 the card against the plain backward, and the bench timers, spmm_tune's
 handling of a refused launch and the profiler's trace of a launch. CUDA kernels have no CPU mode, so
 these tests skip without a GPU; run them on one with
@@ -2170,3 +2171,74 @@ def test_trace_names_the_kernel_entry(tmp_path):
     names = {e.get("name") for e in events}
     assert "sdb_bsr_spmm_sorted" in names
     assert any(e.get("cat") == "kernel" for e in events)
+
+
+
+# family: (plan kwargs, the counters its call on the card moves), one
+# case per layout branch of _pallas_apply and the int8 _run
+PLAIN_BSR_CASES = {
+    "f32": ({}, {"sdb_bsr_spmm_sorted"}),
+    "f32_flat": ({"depth_sort": False}, {"sdb_bsr_spmm_flat"}),
+    "f32_resident": ({"resident": True, "depth_sort": False},
+                     {"sdb_bsr_spmm_resident"}),
+    "bf16": ({"dtype": torch.bfloat16}, {"sdb_bsr_spmm_sorted_bf16"}),
+    "bf16_rowgroup": ({"dtype": torch.bfloat16, "depth_sort": False},
+                      {"sdb_bsr_spmm_rowgroup_bf16"}),
+    "bf16x3": ({"precision": "high"}, {"sdb_bsr_spmm_sorted_bf16x3",
+                                       "sdb_split_bf16"}),
+    "bf16x3_resident": ({"precision": "high", "resident": True,
+                         "depth_sort": False},
+                        {"sdb_bsr_spmm_resident_bf16x3", "sdb_split_bf16"}),
+}
+PLAIN_INT8_CASES = {
+    "int8": ({"depth_sort": True}, "sdb_bsr_spmm_int8_sorted"),
+    "int8_flat": ({"resident": False}, "sdb_bsr_spmm_int8_flat"),
+    "int8_rowgroup": ({"depth_sort": False}, "sdb_bsr_spmm_int8_rowgroup"),
+    "int8_resident": ({"resident": True, "f_tile": 128},
+                      "sdb_bsr_spmm_int8_resident"),
+}
+
+
+def _plain_case(family):
+    """(plan, its operand's rows, the counters its call on the card
+    moves) of one hand-kernel family and layout: f32, bf16 and bf16x3 BSR
+    (K1-K5), int8 (K6-K9 and the quantizer), K10 and the f32 ELL tier."""
+    E = importlib.import_module("spmm_denseblock_tpu_torch.ops.csr_spmm_ell")
+    bsr = _bsr(37, 32, 0.3, seed=4)
+    if family in PLAIN_INT8_CASES:
+        kw, kernel = PLAIN_INT8_CASES[family]
+        return (TI.bsr_spmm_pallas_int8_plan(bsr, device="cuda", **kw), bsr.shape[1],
+                {kernel, "sdb_quantize_int8"})
+    if family == "k10":
+        csr = _csr()
+        return (TP.csr_spmm_pallas_plan(csr, grad=False, device="cuda"), csr.n_cols,
+                {"sdb_csr_spmm"})
+    if family == "ell":
+        csr = _ell_kernel_csr(True)
+        return (E.csr_spmm_ell_plan(csr, grad=False, device="cuda"), csr.n_cols,
+                {"sdb_ell_spmm"})
+    kw, moved = PLAIN_BSR_CASES[family]
+    plan = T.bsr_spmm_pallas_plan(bsr, grad=False, device="cuda", **kw)
+    return plan, bsr.shape[1], moved
+
+
+@pytest.mark.parametrize("family", [*PLAIN_BSR_CASES, *PLAIN_INT8_CASES, "k10", "ell"])
+def test_plain_run_launches_no_kernel(family):
+    """run(plan, x, plain=True) on the card runs the kernels' plain
+    versions: the wrappers choose, and no counter of _kernels.KERNELS
+    moves. The same plan's call launches its kernels (each named counter
+    once, no other) and agrees with the plain answer."""
+    plan, n_cols, moved = _plain_case(family)
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (n_cols, 70)).astype(np.float32), device="cuda")
+    counts = {k.symbol: k.launches for k in _kernels.KERNELS}
+    want = plan_run(plan, x, plain=True)
+    torch.cuda.synchronize()
+    assert {k.symbol: k.launches for k in _kernels.KERNELS} == counts
+    got = plan(x)
+    torch.cuda.synchronize()
+    after = {k.symbol: k.launches for k in _kernels.KERNELS}
+    assert {n: after[n] - counts[n] for n in after if after[n] != counts[n]} == \
+        dict.fromkeys(moved, 1)
+    rel = (got - want).abs().max().item() / max(want.abs().max().item(), 1.0)
+    assert rel < TOL, rel
